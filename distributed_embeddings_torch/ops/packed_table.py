@@ -1,0 +1,261 @@
+"""Lane-packed table storage (PyTorch port of ``ops/packed_table.py``).
+
+The packed layout stores several narrow logical rows per 128-lane
+physical row, with a rule's per-row optimizer state interleaved beside
+each table row:
+
+    physical row (128 lanes):
+    [ t[4k] | acc[4k] | t[4k+1] | acc[4k+1] | ... ]   (width 16, 1 aux slot)
+
+The port keeps the layout bit-for-bit, so a buffer packed by either
+package reads the same in the other (``convert.py`` hands buffers across
+as numpy arrays). Ids outside ``[0, rows)`` are padding sentinels: the
+gather returns all-zero rows for them.
+
+Ported here: the layout, the fused gather, the uniform packed init and the
+``sgd``/``adagrad`` rules (``freeze`` reads ``n_aux`` from them). The
+scatter-add apply, the other rules and the host cold-store helpers belong
+to the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from ..device import resolve_device
+
+LANES = 128
+# physical rows drawn per step by init_packed_uniform (bounds its
+# temporaries on multi-GB buffers)
+_INIT_CHUNK_PHYS = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedLayout:
+  """Physical layout of one logical ``[rows, width]`` table with ``n_aux``
+  interleaved per-row optimizer-state rows."""
+
+  rows: int
+  width: int
+  n_aux: int = 0
+
+  @property
+  def stride(self) -> int:
+    """Lanes per logical row: table row + its aux rows."""
+    return self.width * (1 + self.n_aux)
+
+  @property
+  def rows_per_phys(self) -> int:
+    return max(1, LANES // self.stride)
+
+  @property
+  def phys_width(self) -> int:
+    return max(LANES, -(-self.stride // LANES) * LANES)
+
+  @property
+  def phys_rows(self) -> int:
+    return -(-self.rows // self.rows_per_phys)
+
+  @property
+  def shape(self):
+    return (self.phys_rows, self.phys_width)
+
+  # ---- packing (strided copies, no staging) ------------------------------
+  def pack(self, table: torch.Tensor,
+           aux: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """``[rows, width]`` table (+ per-aux ``[rows, width]``) -> packed buf
+    on the table's device.
+
+    Logical row ``r`` lands in physical row ``r // rpp``, window
+    ``r % rpp``; aux slot ``s`` follows the table lanes inside the window.
+    Row and lane padding are zero."""
+    parts = [table] + list(aux)
+    if len(parts) != 1 + self.n_aux:
+      raise ValueError(f"Expected {self.n_aux} aux arrays, got {len(aux)}")
+    buf = torch.zeros(self.shape, dtype=table.dtype, device=table.device)
+    rpp, w = self.rows_per_phys, self.width
+    for j in range(rpp):
+      n = len(range(j, self.rows, rpp))
+      for s, part in enumerate(parts):
+        lo = j * self.stride + s * w
+        buf[:n, lo:lo + w] = part[j::rpp]
+    return buf
+
+  def unpack(self, buf):
+    """Packed buf -> ``(table [rows, width], [aux_0, aux_1, ...])``; views
+    where the layout allows (``rows_per_phys == 1``)."""
+    rpp = self.rows_per_phys
+    flat = buf[:, :rpp * self.stride]
+    stacked = flat.reshape(self.phys_rows * rpp, 1 + self.n_aux, self.width)
+    stacked = stacked[:self.rows]
+    table = stacked[:, 0, :]
+    aux = [stacked[:, 1 + j, :] for j in range(self.n_aux)]
+    return table, aux
+
+
+def init_packed_uniform(layout: PackedLayout, generator: torch.Generator,
+                        scale_rows: torch.Tensor, aux_values: Sequence[float],
+                        device="cuda") -> torch.Tensor:
+  """Initialize a packed buffer directly in its physical layout.
+
+  Table lanes get ``uniform(-1, 1) * scale_rows[row]``; aux lanes their
+  ``aux_values`` constants on live physical rows (a row is live when any
+  of its logical rows has ``scale_rows > 0``); padding is zero. The
+  logical ``[rows, width]`` f32 table is never materialized: the peak
+  allocation is the buffer plus one ``_INIT_CHUNK_PHYS``-row draw. The draw
+  comes from ``generator`` (which must live on ``device``); it matches
+  the JAX package's distribution, not its bits.
+  """
+  dev = resolve_device(device)
+  dtype = torch.float32
+  rpp, stride, w = layout.rows_per_phys, layout.stride, layout.width
+  pr = layout.phys_rows
+  scale_p = torch.zeros((pr * rpp,), dtype=dtype, device=dev)
+  scale_p[:layout.rows] = torch.as_tensor(scale_rows, dtype=dtype, device=dev)
+  scale_p = scale_p.view(pr, rpp)
+  buf = torch.zeros((pr, layout.phys_width), dtype=dtype, device=dev)
+  for p0 in range(0, pr, _INIT_CHUNK_PHYS):
+    cp = min(_INIT_CHUNK_PHYS, pr - p0)
+    vals = torch.rand((cp, rpp, stride), generator=generator, dtype=dtype,
+                      device=dev)
+    vals.mul_(2.0).sub_(1.0)
+    sc = scale_p[p0:p0 + cp]
+    vals.mul_(sc[..., None])
+    live = (sc > 0).any(dim=1)
+    for s, v in enumerate(aux_values):
+      lanes = vals[..., (1 + s) * w:(2 + s) * w]
+      lanes.copy_(torch.where(live[:, None, None],
+                              torch.full_like(lanes, float(v)),
+                              torch.zeros_like(lanes)))
+    buf[p0:p0 + cp, :rpp * stride] = vals.view(cp, rpp * stride)
+  return buf
+
+
+def _grp_sub(layout: PackedLayout, ids: torch.Tensor):
+  """ids -> (physical row, sub-row, valid) with OOB ids sent past the
+  buffer (``grp == phys_rows``)."""
+  valid = (ids >= 0) & (ids < layout.rows)
+  safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
+  rpp = layout.rows_per_phys
+  grp = torch.where(valid, safe // rpp, layout.phys_rows)
+  sub = safe % rpp
+  return grp, sub, valid
+
+
+def gather_fused(layout: PackedLayout, buf: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
+  """Gather fused rows: ``[..., stride]`` = (table row | aux rows).
+
+  Reads each occurrence's logical row straight out of its window (a
+  strided ``[phys_rows, rpp, stride]`` view of the buffer), so nothing of
+  the physical row beyond the window is staged. OOB/sentinel ids return
+  all-zero rows."""
+  grp, sub, valid = _grp_sub(layout, ids)
+  rpp, stride = layout.rows_per_phys, layout.stride
+  windows = buf[:, :rpp * stride].unflatten(1, (rpp, stride))
+  safe_grp = torch.where(valid, grp, torch.zeros_like(grp))
+  rows = windows[safe_grp, sub]
+  rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+  if rpp > 1 and rows.is_floating_point():
+    # the JAX gather extracts a window by summing the rpp masked windows,
+    # which turns a -0.0 lane into +0.0; adding +0.0 does the same here
+    rows = rows + 0.0
+  return rows
+
+
+def gather_fused_chunked(layout: PackedLayout, buf: torch.Tensor,
+                         ids: torch.Tensor,
+                         chunk: Optional[int] = None) -> torch.Tensor:
+  """:func:`gather_fused` over id chunks of at most ``chunk`` ids, so the
+  index temporaries stay bounded on large streams; one shot when the
+  stream fits one chunk. Same values as :func:`gather_fused`."""
+  if chunk is None:
+    chunk = 1 << 22
+  flat = ids.reshape(-1)
+  n = flat.shape[0]
+  if n <= chunk:
+    return gather_fused(layout, buf, ids)
+  out = torch.empty((n, layout.stride), dtype=buf.dtype, device=buf.device)
+  for c0 in range(0, n, chunk):
+    out[c0:c0 + chunk] = gather_fused(layout, buf, flat[c0:c0 + chunk])
+  return out.reshape(tuple(ids.shape) + (layout.stride,))
+
+
+def mxu_operand_dtype(dtype: torch.dtype, device) -> torch.dtype:
+  """Operand dtype of the pairwise interaction: bf16 for f32 operands on
+  a CUDA device, pass-through elsewhere.
+
+  The JAX package casts f32 matmul operands to bf16 on the TPU, whose
+  default matmul precision multiplies them as one bf16 pass anyway; the
+  CUDA device takes the TPU's place here, so the interaction runs the
+  bf16 kernel for f32 and bf16 models alike. On the CPU (the tests) f32
+  stays f32, as in the JAX package's CPU path."""
+  if dtype == torch.float32 and torch.device(device).type == "cuda":
+    return torch.bfloat16
+  return dtype
+
+
+# ---------------------------------------------------------------------------
+# Sparse update rules (the fields ``freeze`` reads; the apply is training's)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseRule:
+  """Per-occurrence sparse update rule in additive (scatter-add) form.
+
+  ``n_aux`` per-row state slots ride in the packed layout and ``aux_init``
+  gives their fill values; ``delta(g, aux_rows, step)`` maps a cotangent
+  row ``[..., W]`` and its pre-step aux rows ``[..., n_aux, W]`` to the
+  fused additive delta ``[..., stride]``. Serving reads ``n_aux`` only:
+  it decides which lanes ``freeze`` strips."""
+
+  name: str
+  n_aux: int
+  aux_init: Sequence[float]
+  delta: Callable
+
+
+def _lr_at(lr, step):
+  return lr(step) if callable(lr) else torch.tensor(lr, dtype=torch.float32)
+
+
+def sgd_rule(learning_rate) -> SparseRule:
+  """Row-sparse SGD: table[id] -= lr * g."""
+
+  def delta(g, aux_rows, step):
+    del aux_rows
+    return -_lr_at(learning_rate, step).to(g.device) * g
+
+  return SparseRule("sgd", 0, (), delta)
+
+
+def adagrad_rule(learning_rate, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7) -> SparseRule:
+  """Row-sparse Adagrad (``optax.adagrad``'s rule): acc' = acc + g^2;
+  table -= lr * g * rsqrt(acc' + eps). The accumulator rides in the fused
+  row (``n_aux=1``)."""
+
+  def delta(g, aux_rows, step):
+    acc = aux_rows[..., 0, :]
+    g2 = g * g
+    acc_new = acc + g2
+    scaled = torch.where(acc_new > 0, g * torch.rsqrt(acc_new + eps),
+                         torch.zeros_like(g))
+    lr = _lr_at(learning_rate, step).to(g.device)
+    return torch.cat([-lr * scaled, g2], dim=-1)
+
+  return SparseRule("adagrad", 1, (initial_accumulator_value,), delta)
+
+
+_RULES = {"sgd": sgd_rule, "adagrad": adagrad_rule}
+
+
+def sparse_rule(name: str, learning_rate, **kwargs) -> SparseRule:
+  if name not in _RULES:
+    raise ValueError(f"Unknown sparse rule {name!r}; have {sorted(_RULES)} "
+                     "(the other rules come with the training slice)")
+  return _RULES[name](learning_rate, **kwargs)
