@@ -4,38 +4,64 @@ NVIDIA H100.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``distributed_embeddings_torch/
-csrc/`` and drives the port's main path, DLRM serving on frozen tables,
-on the card. One JSON line per phase:
+csrc/`` and drives the port's two paths on the card, DLRM serving on
+frozen tables and the world-1 sparse train step of ``bench.py``. One JSON
+line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
    must have compute capability (9, 0);
 2. ``build``: every kernel compiled with ``nvcc`` for ``sm_90a``;
-3. ``kernel``: K2-fwd (``interact_fwd``) against its plain PyTorch
-   version at F=27, D=128, k in {-1, 0}, B in {4096, 65536, 4000}: at
-   least 99.9% of the cells bit-equal and every cell within one bf16 ulp
-   (only the f32 summation order differs). Times are medians of CUDA-event
-   timings of single launches, kernel, plain and library in turns, with
-   the 50 MB L2 flushed and the card held busy while the host queues
-   each call, after two seconds of warm-up;
+3. ``kernel``: each kernel against its plain PyTorch version at the
+   main paths' shapes. K2-fwd (``interact_fwd``) and K2-bwd
+   (``interact_bwd``) at F=27, D=128, k in {-1, 0}, B in {4096, 65536,
+   4000}: at least 99.9% of the cells bit-equal, every cell within one
+   bf16 ulp (K2-bwd: or, where its F terms cancel, within the f32
+   summation bound ``F * 2^-24 * sum_q |c_pq x_q|``). K1 (``apply_rows``)
+   on the buffer of the train plan's first sparse class (4,991,510 x 128
+   f32) with 131,072 ids per stream, scale -0.1 (SGD's -lr): uniform,
+   power-law and 17% out-of-range streams within 1e-5 of each cell's
+   absolute sum (duplicates add in another order), a stream of unique ids
+   bit-equal. Times are medians of CUDA-event timings of single calls,
+   kernel, plain and library in turns, with the 50 MB L2 flushed and the
+   card held busy while the host queues each call, after two seconds of
+   warm-up;
 4. ``golden``: the JAX package's serve golden
    (``tests/data/torch_serve_golden.npz``) replayed through the port's
    ``ServeEngine``: activations bit-equal, predictions within
    ``serving.golden.PRED_TOL``;
-5. ``serve``: the full-width DLRM of ``bench.py`` (26 Criteo-1TB tables
+5. ``train_golden``: the JAX package's train golden
+   (``tests/data/torch_train_golden.npz``, three SGD steps of a small
+   bf16 DLRM) replayed through the port's train step: losses within
+   ``train_golden.LOSS_TOL``, each final tensor within
+   ``train_golden.UPDATE_TOL`` of its largest update;
+6. ``serve``: the full-width DLRM of ``bench.py`` (26 Criteo-1TB tables
    x 1/16, width 128, dense_row_threshold=4096, bf16 compute, one-hot
-   ids, world 1), its packed tables drawn on the card from a seeded
-   generator, frozen to f32 and to int8; per image a ``ServeEngine``
-   answers 3 requests of batch 4096. The predictions are finite, agree
-   with a recomputation through the plain interaction, and K2-fwd ran
-   once per request. A fourth request per image runs under
-   ``torch.profiler`` (``serve_trace``): the device's busy time and idle
-   share, and the costliest device operations;
+   ids, world 1), its packed tables drawn on the card by
+   ``training.init_sparse_state_direct``, frozen to f32 and to int8; per
+   image a ``ServeEngine`` answers 3 requests of batch 4096. The
+   predictions are finite, agree with a recomputation through the plain
+   interaction, and K2-fwd ran once per request. A fourth request per
+   image runs under ``torch.profiler`` (``serve_trace``): the device's
+   busy time and idle share, and the costliest device operations;
+7. ``train``: ``bench.py``'s train step at full width (the same tables,
+   ``batch_hint=65536``: 4 sparse classes and one dense class; SGD 0.1
+   on the tables and the dense params; one batch of 65,536 uniform ids
+   from seed 0, reused every step as ``bench.py`` does), once with f32
+   compute and once with bf16: 3 warm-up and 10 timed steps, each timed
+   alone on the host clock up to a synchronize. Every step: the loss is
+   finite, K2-fwd and K2-bwd launched once and K1 once per sparse class,
+   sampled rows of the first sparse class that the batch does not touch
+   are bit-unchanged and sampled touched rows changed. A 14th step runs
+   under ``torch.profiler`` (``train_trace``);
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
-contract line ``{"ok": true, "device": {...}}``. Any failed check exits
-non-zero before the last line; so does a machine without CUDA.
+contract line ``{"ok": true, "device": {...}}``. The launch counts of
+the ``kernels`` line come from the serve and train phases alone (each
+sets the counts to 0 before it and reads them after). Any failed check
+exits non-zero before the last line; so does a machine without CUDA.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -47,18 +73,33 @@ F, D = 27, 128
 KERNEL_BATCHES = (4096, 65536, 4000)
 SERVE_BATCH = 4096
 SERVE_REQUESTS = 3
+TRAIN_BATCH = 65536
+# bench.py's 24.0 sends this random-label batch's loss to NaN by the
+# fourth step; 0.1 is what MLPerf DLRM's warm-up from 0 to 24 over 2,750
+# steps reaches by step 13. The step's work is the same at any rate.
+TRAIN_LR = 0.1
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+ROWS_SAMPLED = 4096
+K1_IDS = 131072
+K1_SCALE = -TRAIN_LR
 TIMING_REPS = 50
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, dense bf16
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, dense bf16,
+# f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 CRITEO_1TB_VOCAB = [
     39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
     2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
     25641295, 39664984, 585935, 12972, 108, 36
 ]
-REPLACES = "distributed_embeddings_tpu/ops/pallas_interact.py:139"
-SOURCE = "distributed_embeddings_torch/csrc/interact_fwd.cu"
+REPLACES = {
+    "interact_fwd": "distributed_embeddings_tpu/ops/pallas_interact.py:139",
+    "interact_bwd": "distributed_embeddings_tpu/ops/pallas_interact.py:162",
+    "apply_rows": "distributed_embeddings_tpu/ops/pallas_apply.py:211",
+}
+CSRC = "distributed_embeddings_torch/csrc"
 
 
 class SmokeFailure(Exception):
@@ -85,11 +126,11 @@ def nvidia_smi() -> str:
 def event_ms(torch, fns, flush, reps: int = TIMING_REPS) -> dict:
   """Median device time of one call of each of ``fns`` (name -> fn),
   timed in turns so that drift reaches every version alike, the L2
-  flushed before each call (the serve step finds the interaction's
-  inputs cold at large B). A spin of about a millisecond on the card
-  precedes each start event, so the host has queued the whole call
-  before the card reaches it: the time is the card's, not the host's
-  launch latency."""
+  flushed before each call (the train and serve steps find these inputs
+  cold at large B). A spin of about a millisecond on the card precedes
+  each start event, so the host has queued the whole call before the
+  card reaches it: the time is the card's, not the host's launch
+  latency."""
   for fn in fns.values():
     fn()
   times = {name: [] for name in fns}
@@ -107,6 +148,15 @@ def event_ms(torch, fns, flush, reps: int = TIMING_REPS) -> dict:
   return {name: statistics.median(t) for name, t in times.items()}
 
 
+def bound(bytes_moved: float, ops: float, peak_ops: float) -> dict:
+  """The least time of the work on this card: bytes over the HBM rate or
+  operations over the peak rate of their type, whichever is larger."""
+  by_bytes = bytes_moved / HBM_BYTES_PER_S
+  by_ops = ops / peak_ops
+  return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+          "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def warm_up(torch, seconds: float = 2.0) -> None:
   """Keep the card busy with bf16 matrix products for ``seconds``, so the
   timings that follow do not start from idle clocks."""
@@ -118,22 +168,28 @@ def warm_up(torch, seconds: float = 2.0) -> None:
     torch.cuda.synchronize()
 
 
-def within_one_bf16_ulp(torch, got, want) -> tuple:
-  """(cells that differ, max |got - want| / one bf16 ulp)."""
+def within_one_bf16_ulp(torch, got, want, slack=None) -> tuple:
+  """(cells that differ, max |got - want| / max(one bf16 ulp, slack))."""
   differ = int((got != want).sum().item())
   _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
   ulp = torch.ldexp(torch.ones_like(got), e - 8)
+  if slack is not None:
+    ulp = torch.maximum(ulp, slack)
   return differ, ((got - want).abs() / ulp).max().item()
 
 
-def phase_kernel(torch, ci, flush) -> dict:
-  """K2-fwd against its plain version; returns the main-path row."""
+def bf16_parts(torch, b: int, seed: int) -> list:
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  return [(torch.randn((b, D), generator=gen, device="cuda") * 0.3)
+          .to(torch.bfloat16) for _ in range(F)]
+
+
+def phase_kernel_fwd(torch, ci, flush) -> dict:
+  """K2-fwd against its plain version; returns the serve-shape row."""
   main = None
   for b in KERNEL_BATCHES:
     for k in (-1, 0):
-      gen = torch.Generator(device="cuda").manual_seed(SEED + b - k)
-      parts = [(torch.randn((b, D), generator=gen, device="cuda") * 0.3)
-               .to(torch.bfloat16) for _ in range(F)]
+      parts = bf16_parts(torch, b, SEED + b - k)
       got = ci.interact_parts_fwd(parts, k)
       torch.cuda.synchronize()
       want = ci.interact_parts_fwd_plain(parts, k)
@@ -151,9 +207,6 @@ def phase_kernel(torch, ci, flush) -> dict:
         return inter.flatten(1).index_select(1, idx).float()
 
       npair = len(rows)
-      bytes_moved = b * (F * D * 2 + npair * 4)
-      flops = 2 * npair * D * b
-      bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
       timed = event_ms(torch, {
           "kernel_ms": lambda: ci.interact_parts_fwd(parts, k),
           "plain_ms": lambda: ci.interact_parts_fwd_plain(parts, k),
@@ -162,12 +215,119 @@ def phase_kernel(torch, ci, flush) -> dict:
           "phase": "kernel", "name": "interact_fwd", "B": b, "F": F, "D": D,
           "k": k, "cells": got.numel(), "cells_differ": differ,
           "max_ulp": ulps, "max_abs_err": (got - want).abs().max().item(),
-          **timed, "bound_ms": bound_ms,
-          "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S
-                      >= flops / BF16_FLOPS else "operations"}
+          **timed, **bound(b * (F * D * 2 + npair * 4), 2 * npair * D * b,
+                           BF16_FLOPS)}
       emit(row)
       if b == SERVE_BATCH and k == -1:
         main = row
+  return main
+
+
+def phase_kernel_bwd(torch, ci, flush) -> dict:
+  """K2-bwd against its plain version; returns the train-shape row."""
+  main = None
+  for b in KERNEL_BATCHES:
+    for k in (-1, 0):
+      parts = bf16_parts(torch, b, SEED + 7 * b - k)
+      npair = len(ci.tril_pairs(F, k)[0])
+      gen = torch.Generator(device="cuda").manual_seed(SEED + b + k)
+      d_acts = torch.randn((b, npair), generator=gen, device="cuda")
+      got = torch.stack(ci.interact_parts_bwd(d_acts, parts, k), 1).float()
+      torch.cuda.synchronize()
+      want = torch.stack(ci.interact_parts_bwd_plain(d_acts, parts, k),
+                         1).float()
+      coef = ci.pair_coefficients(d_acts, F, k)
+      feats = torch.stack(parts, dim=1)
+      abs_sum = torch.bmm(coef.abs(), feats.float().abs())
+      differ, worst = within_one_bf16_ulp(torch, got, want,
+                                          slack=F * 2.0**-24 * abs_sum)
+      del abs_sum
+      check(tuple(got.shape) == (b, F, D), f"shape {tuple(got.shape)}")
+      check(differ <= 0.001 * got.numel() and worst <= 1.0,
+            f"interact_bwd B={b} k={k}: {differ} of {got.numel()} cells "
+            f"differ, worst by {worst} of its allowance")
+      coef_bf16 = coef.to(torch.bfloat16)
+      timed = event_ms(torch, {
+          "kernel_ms": lambda: ci.interact_parts_bwd(d_acts, parts, k),
+          "plain_ms": lambda: ci.interact_parts_bwd_plain(d_acts, parts, k),
+          "library_ms": lambda: torch.bmm(coef_bf16, feats)}, flush)
+      row = {
+          "phase": "kernel", "name": "interact_bwd", "B": b, "F": F, "D": D,
+          "k": k, "cells": got.numel(), "cells_differ": differ,
+          "max_allowance_share": worst,
+          "max_abs_err": (got - want).abs().max().item(), **timed,
+          **bound(b * (npair * 4 + 2 * F * D * 2), 2 * F * F * D * b,
+                  BF16_FLOPS)}
+      emit(row)
+      if b == TRAIN_BATCH and k == -1:
+        main = row
+  return main
+
+
+def k1_streams(torch, rows: int) -> dict:
+  """The K1 id streams: name -> int64 ids on the card (seed 0)."""
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  n = K1_IDS
+  r = torch.rand((n,), generator=gen, device="cuda", dtype=torch.float64)
+  gamma = -0.05  # the power law of tests/pallas_goldens.py
+  power = ((r * ((rows + 1.0) ** gamma - 1.0) + 1.0) ** (1.0 / gamma))
+  margin = rows // 10
+  return {
+      "uniform": torch.randint(0, rows, (n,), generator=gen, device="cuda"),
+      "power_law": (power.long() - 1).clamp(0, rows - 1),
+      "out_of_range": torch.randint(-margin, rows + margin, (n,),
+                                    generator=gen, device="cuda"),
+      "unique": torch.randperm(rows, generator=gen, device="cuda")[:n],
+  }
+
+
+def phase_kernel_apply(torch, ca, flush, rows: int) -> dict:
+  """K1 against its plain version on the first sparse class's buffer of
+  the train plan; returns the uniform stream's row."""
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+  base = torch.rand((rows, D), generator=gen, device="cuda")
+  work = torch.empty_like(base)
+  main = None
+  for name, ids in k1_streams(torch, rows).items():
+    delta = torch.randn((ids.shape[0], D), generator=gen, device="cuda")
+    work.copy_(base)
+    got = ca.apply_rows(work, ids, delta, K1_SCALE)
+    torch.cuda.synchronize()
+    want = ca.apply_rows_plain(base.clone(), ids, delta, K1_SCALE)
+    valid = (ids >= 0) & (ids < rows)
+    ids_v, delta_v = ids[valid], delta[valid]
+    if name == "unique":
+      check(torch.equal(got, want),
+            "apply_rows: a stream of unique ids is not bit-equal to the "
+            "plain version")
+      share = 0.0
+    else:
+      abs_sum = base.abs().index_add_(0, ids_v, (K1_SCALE * delta_v).abs())
+      share = ((got - want).abs() / (1e-5 * abs_sum).clamp(min=1e-30)) \
+          .max().item()
+      del abs_sum
+      check(share <= 1.0, f"apply_rows {name}: off by {share} x 1e-5 of "
+            "the cells' absolute sums")
+    max_err = (got - want).abs().max().item()
+    del want
+    n_valid = int(valid.sum().item())
+    unique = int(torch.unique(ids_v).numel())
+    lib = base.clone()
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: ca.apply_rows(work, ids, delta, K1_SCALE),
+        "plain_ms": lambda: ca.apply_rows_plain(work, ids, delta, K1_SCALE),
+        "library_ms": lambda: lib.index_add_(0, ids_v, delta_v,
+                                             alpha=K1_SCALE)}, flush)
+    del lib
+    row = {"phase": "kernel", "name": "apply_rows", "stream": name,
+           "rows": rows, "width": D, "ids": int(ids.shape[0]),
+           "valid_ids": n_valid, "unique_rows": unique,
+           "max_abs_err": max_err, "max_abs_sum_share": share, **timed,
+           **bound(ids.shape[0] * 8 + n_valid * D * 4 + unique * D * 4 * 2,
+                   2 * n_valid * D, F32_FLOPS)}
+    emit(row)
+    if name == "uniform":
+      main = row
   return main
 
 
@@ -188,33 +348,18 @@ def phase_golden(torch, golden) -> None:
           "pred_max_abs_err": float(err.max()), "tol": golden.PRED_TOL})
 
 
-def build_train_state(torch, plan, rule, model):
-  """Packed sparse buffers and dense-class tables drawn on the card
-  (uniform in +-1/sqrt(vocab), the DLRM initializer's distribution)."""
-  from distributed_embeddings_torch.models.dlrm import dlrm_scale_rows
-  from distributed_embeddings_torch.ops.packed_table import (
-      PackedLayout,
-      init_packed_uniform,
-  )
-  from distributed_embeddings_torch.parallel.lookup_engine import (
-      class_param_name,
-      padded_rows,
-  )
-  gen = torch.Generator(device="cuda").manual_seed(SEED)
-  fused, emb_dense = {}, {}
-  for key in plan.class_keys:
-    cp = plan.classes[key]
-    rows = padded_rows(plan, key)
-    scale = torch.as_tensor(dlrm_scale_rows(plan, key), device="cuda")
-    if cp.kind == "sparse":
-      fused[class_param_name(*key)] = init_packed_uniform(
-          PackedLayout(rows, cp.width, rule.n_aux), gen, scale,
-          rule.aux_init, device="cuda")
-    else:
-      table = torch.rand((rows, cp.width), generator=gen, device="cuda")
-      emb_dense[class_param_name(*key)] = (table * 2 - 1) * scale[:, None]
-  return {"fused": fused, "emb_dense": emb_dense,
-          "dense": model.state_dict()}
+def phase_train_golden(torch) -> None:
+  from distributed_embeddings_torch import train_golden
+  data = train_golden.load()
+  losses, got = train_golden.replay(data, device="cuda")
+  try:
+    worst = train_golden.compare(data, losses, got)
+  except AssertionError as exc:
+    raise SmokeFailure(f"train golden: {exc}") from exc
+  emit({"phase": "train_golden", "losses": losses,
+        "want_losses": [float(v) for v in data["losses"]], **worst,
+        "loss_tol": train_golden.LOSS_TOL,
+        "update_tol": train_golden.UPDATE_TOL})
 
 
 def plain_forward(torch, ci, model, numerical, acts):
@@ -226,8 +371,8 @@ def plain_forward(torch, ci, model, numerical, acts):
   return model.top_mlp(x.to(cd)).squeeze(-1).float()
 
 
-def trace_request(torch, eng, numerical, cats) -> dict:
-  """One more request under ``torch.profiler``: its host wall time, the
+def trace_call(torch, fn) -> dict:
+  """One call of ``fn`` under ``torch.profiler``: its host wall time, the
   device's busy time (kernels, copies and fills on the card) and idle
   share, the device operations it ran and the costliest of them."""
   from torch.autograd import DeviceType
@@ -236,7 +381,8 @@ def trace_request(torch, eng, numerical, cats) -> dict:
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    eng.predict(numerical, cats)
+    fn()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
   spans, by_name = [], {}
   for e in prof.events():
@@ -248,11 +394,28 @@ def trace_request(torch, eng, numerical, cats) -> dict:
   for s, e in sorted(spans):  # union of the device intervals
     busy_us += max(0.0, e - max(s, end))
     end = max(end, e)
-  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+  # the device time each PyTorch operator launched itself (its kernels,
+  # copies and fills), by operator name
+  by_op = []
+  for avg in prof.key_averages():
+    ms = getattr(avg, "self_device_time_total", 0.0) / 1e3
+    if ms > 0 and avg.device_type != DeviceType.CUDA:
+      by_op.append((avg.key, ms, avg.count))
+  by_op.sort(key=lambda t: -t[1])
   return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
           "device_ops": len(spans),
-          "top_ms": [[name[:72], ms] for name, ms in top]}
+          "top_ms": [[name[:72], ms] for name, ms in top],
+          "top_ops_ms": [[name[:48], ms, n] for name, ms, n in by_op[:12]]}
+
+
+def criteo_vocab() -> list:
+  return [max(4, int(v / 16)) for v in CRITEO_1TB_VOCAB]
+
+
+def sgd_factory(torch):
+  return functools.partial(torch.optim.SGD, lr=TRAIN_LR)
 
 
 def phase_serve(torch, ci, smi: str) -> int:
@@ -268,16 +431,20 @@ def phase_serve(torch, ci, smi: str) -> int:
       shard_batch,
   )
   from distributed_embeddings_torch.serving.golden import PRED_TOL, EmbActs
+  from distributed_embeddings_torch.training import init_sparse_state_direct
 
-  vocab = [max(4, int(v / 16)) for v in CRITEO_1TB_VOCAB]
+  vocab = criteo_vocab()
   plan = dlrm_embedding_plan(vocab, D, dense_row_threshold=4096)
-  rule = sgd_rule(24.0)
+  rule = sgd_rule(TRAIN_LR)
   dense_tables = sum(len(cp.shards_per_rank[0])
                      for cp in plan.classes.values() if cp.kind == "dense")
   model = DLRM(vocab, D, compute_dtype=torch.bfloat16, device="cuda",
                generator=torch.Generator().manual_seed(SEED))
+  torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
-  state = build_train_state(torch, plan, rule, model)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
   torch.cuda.synchronize()
   init_s = time.perf_counter() - t0
   rng = np.random.default_rng(SEED)
@@ -330,10 +497,138 @@ def phase_serve(torch, ci, smi: str) -> int:
           "freeze_s": freeze_s,
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
     emit({"phase": "serve_trace", "quantize": q, "card": smi,
-          **trace_request(torch, eng, *requests[0])})
+          **trace_call(torch, lambda: eng.predict(*requests[0]))})
     del eng, frozen
     torch.cuda.empty_cache()
   return launches
+
+
+def train_plan():
+  from distributed_embeddings_torch.models import dlrm_embedding_plan
+  return dlrm_embedding_plan(criteo_vocab(), D, dense_row_threshold=4096,
+                             batch_hint=TRAIN_BATCH)
+
+
+def first_sparse_class(plan):
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_param_name,
+      padded_rows,
+  )
+  key = next(k for k in plan.class_keys if plan.classes[k].kind == "sparse")
+  return key, class_param_name(*key), padded_rows(plan, key)
+
+
+def phase_train(torch, ci, ca, smi: str, compute: str) -> dict:
+  """``bench.py``'s train step at full width; returns each kernel's
+  launches in the run."""
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  check(n_sparse == 4, f"the train plan has {n_sparse} sparse classes, "
+        "expected 4")
+  dtype = torch.float32 if compute == "f32" else torch.bfloat16
+  model = DLRM(vocab, D, compute_dtype=dtype, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  b = TRAIN_BATCH
+  numerical = torch.randn((b, 13), generator=gen, device="cuda")
+  cats = [torch.randint(0, v, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32) for v in vocab]
+  labels = torch.randint(0, 2, (b,), generator=gen, device="cuda").float()
+
+  # sampled rows of the first sparse class: touched and not by the batch
+  key, name, rows = first_sparse_class(plan)
+  ids = [v for bk, v in DistributedLookup(plan).route_ids(cats).items()
+         if bk.class_key == key]
+  touched = torch.zeros((rows,), dtype=torch.bool, device="cuda")
+  for v in ids:
+    touched[v.reshape(-1)] = True
+  pick = torch.Generator(device="cuda").manual_seed(SEED + 2)
+  hit = torch.nonzero(touched).squeeze(1)
+  miss = torch.nonzero(~touched).squeeze(1)
+  hit = hit[torch.randperm(hit.numel(), generator=pick,
+                           device="cuda")[:ROWS_SAMPLED]]
+  miss = miss[torch.randperm(miss.numel(), generator=pick,
+                             device="cuda")[:ROWS_SAMPLED]]
+  buf = state["fused"][name]
+  miss_rows = buf[miss].clone()
+
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                rule)
+  ms, losses, changed = [], [], []
+  totals = {"interact_fwd": 0, "interact_bwd": 0, "apply_rows": 0}
+  for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+    hit_rows = buf[hit].clone()
+    ci.launches = ci.bwd_launches = ca.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, numerical, cats, labels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = {"interact_fwd": ci.launches, "interact_bwd": ci.bwd_launches,
+           "apply_rows": ca.launches}
+    check(got == {"interact_fwd": 1, "interact_bwd": 1,
+                  "apply_rows": n_sparse},
+          f"train {compute} step {i}: launches {got}")
+    for kname, n in got.items():
+      totals[kname] += n
+    if i >= TRAIN_WARMUP:
+      ms.append((t1 - t0) * 1e3)
+    losses.append(float(loss))
+    check(losses[-1] == losses[-1] and abs(losses[-1]) < float("inf"),
+          f"train {compute} step {i}: loss {losses[-1]}")
+    check(torch.equal(buf[miss], miss_rows),
+          f"train {compute} step {i}: rows the batch does not touch changed")
+    changed.append((buf[hit] != hit_rows).any(dim=1).float().mean().item())
+    check(changed[-1] > 0.5,
+          f"train {compute} step {i}: only {changed[-1]:.1%} of the "
+          "sampled touched rows changed")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  med = statistics.median(ms)
+  emit({"phase": "train", "compute": compute, "card": smi,
+        "batch": b, "sparse_classes": n_sparse,
+        "dense_class_tables": sum(len(cp.shards_per_rank[0])
+                                  for cp in plan.classes.values()
+                                  if cp.kind == "dense"),
+        "fused_bytes": sum(t.numel() * 4 for t in state["fused"].values()),
+        "init_s": init_s, "step_ms": ms, "step_ms_median": med,
+        "samples_per_s": b / (med / 1e3), "peak_gib": peak,
+        "launches_per_step": {k: v // (TRAIN_WARMUP + TRAIN_TIMED)
+                              for k, v in totals.items()},
+        "losses": losses, "touched_rows_changed_share": changed,
+        "untouched_rows_bit_equal": True})
+  emit({"phase": "train_trace", "compute": compute, "card": smi,
+        **trace_call(torch, lambda: step(state, numerical, cats, labels))})
+  del state, buf, step
+  torch.cuda.empty_cache()
+  return totals
+
+
+def kernel_entry(name, row, launches, by_path) -> dict:
+  return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
+          "replaces": REPLACES[name], "launches": launches,
+          "launches_by_path": by_path, "max_abs_err": row["max_abs_err"],
+          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+          "library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -343,9 +638,13 @@ def main() -> int:
           "runs on an NVIDIA H100 only", file=sys.stderr)
     return 2
   from distributed_embeddings_torch.ops import _build
+  from distributed_embeddings_torch.ops import cuda_apply as ca
   from distributed_embeddings_torch.ops import cuda_interact as ci
   from distributed_embeddings_torch.serving import golden
 
+  # f32 products stay f32 (PyTorch's defaults, stated)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
   smi = nvidia_smi()
   cap = torch.cuda.get_device_capability(0)
   emit({"phase": "device", "nvidia_smi": smi,
@@ -364,18 +663,28 @@ def main() -> int:
 
   flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
   warm_up(torch)
-  main_row = phase_kernel(torch, ci, flush)
+  rows = {"interact_fwd": phase_kernel_fwd(torch, ci, flush),
+          "interact_bwd": phase_kernel_bwd(torch, ci, flush)}
+  torch.cuda.empty_cache()
+  rows["apply_rows"] = phase_kernel_apply(
+      torch, ca, flush, first_sparse_class(train_plan())[2])
   del flush
+  torch.cuda.empty_cache()
   phase_golden(torch, golden)
-  launches = phase_serve(torch, ci, smi)
+  phase_train_golden(torch)
 
-  emit({"kernels": [{
-      "name": "interact_fwd", "route": "cuda", "source": SOURCE,
-      "replaces": REPLACES, "launches": launches,
-      "max_abs_err": main_row["max_abs_err"], "ms": main_row["kernel_ms"],
-      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-      "bound_by": main_row["bound_by"],
-      "library_ms": main_row["library_ms"], "ok": True}]})
+  by_path = {}
+  serve = phase_serve(torch, ci, smi)
+  by_path["serve"] = {"interact_fwd": serve, "interact_bwd": 0,
+                      "apply_rows": 0}
+  for compute in ("f32", "bf16"):
+    by_path[f"train_{compute}"] = phase_train(torch, ci, ca, smi, compute)
+
+  emit({"kernels": [
+      kernel_entry(name, rows[name],
+                   sum(p[name] for p in by_path.values()),
+                   {path: p[name] for path, p in by_path.items()})
+      for name in _build.KERNELS]})
   print(smi, flush=True)
   emit({"ok": True, "device": {"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),

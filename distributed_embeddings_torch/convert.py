@@ -9,7 +9,8 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
   ``nn.Linear.weight [out, in]``);
 - :func:`train_state_from_flax`: a JAX sparse train state
   (``{'fused', 'emb_dense', 'dense', 'step'}``) -> the state the port's
-  ``serving.freeze`` takes;
+  ``training.make_sparse_train_step`` steps and ``serving.freeze``
+  freezes;
 - :func:`serve_state_from_frozen`: a JAX ``FrozenTables`` (its
   ``device_blocks``, ``emb_dense`` and ``dense``) -> the port's
   :class:`~.serving.export.FrozenTables`.
@@ -22,6 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .serving.export import FrozenTables, ServeClassMeta
 
 
@@ -47,14 +49,20 @@ def dlrm_state_dict_from_flax(params: Dict[str, Any]
   return out
 
 
-def train_state_from_flax(state: Dict[str, Any]) -> Dict[str, Any]:
-  """JAX sparse train state (numpy leaves) -> the port's ``freeze`` input:
-  packed buffers and dense-class tables as tensors, the dense params as a
-  DLRM state_dict. Optimizer states are dropped (serving reads none)."""
+def train_state_from_flax(state: Dict[str, Any],
+                          device="cuda") -> Dict[str, Any]:
+  """JAX sparse train state (numpy leaves) -> the port's train state on
+  ``device``: every packed buffer whole (table and optimizer-state lanes),
+  the dense-class tables, the dense params as a DLRM state_dict, and the
+  step. The optax states are not carried: the port's train step binds its
+  ``torch.optim`` optimizers on first use (SGD keeps no state)."""
+  dev = resolve_device(device)
   return {
-      "fused": {k: _tensor(v) for k, v in state["fused"].items()},
-      "emb_dense": {k: _tensor(v) for k, v in state["emb_dense"].items()},
-      "dense": dlrm_state_dict_from_flax(state["dense"]),
+      "fused": {k: _tensor(v).to(dev) for k, v in state["fused"].items()},
+      "emb_dense": {k: _tensor(v).to(dev)
+                    for k, v in state["emb_dense"].items()},
+      "dense": {k: v.to(dev)
+                for k, v in dlrm_state_dict_from_flax(state["dense"]).items()},
       "step": int(np.asarray(state.get("step", 0))),
   }
 

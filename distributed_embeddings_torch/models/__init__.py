@@ -1,5 +1,5 @@
-"""Models: the DLRM forward."""
+"""Models: the DLRM (forward and backward) and its loss."""
 
-from .dlrm import DLRM, dlrm_embedding_plan, dot_interact
+from .dlrm import DLRM, bce_loss, dlrm_embedding_plan, dot_interact
 
-__all__ = ["DLRM", "dlrm_embedding_plan", "dot_interact"]
+__all__ = ["DLRM", "bce_loss", "dlrm_embedding_plan", "dot_interact"]

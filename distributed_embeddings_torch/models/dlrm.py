@@ -1,18 +1,22 @@
-"""DLRM forward (PyTorch port of ``models/dlrm.py``).
+"""DLRM (PyTorch port of ``models/dlrm.py``).
 
 Bottom MLP over the numerical features, the embedding activations, the
 pairwise dot-product interaction over the lower triangle, and the top MLP
 to one logit. ``compute_dtype=torch.bfloat16`` runs the MLPs and the
 interaction in bf16 with f32 parameters, as the JAX model does.
 
-The interaction runs kernel K2-fwd (``ops/cuda_interact.py``) on a CUDA
+The interaction runs kernel K2-fwd forward and K2-bwd backward
+(``ops/cuda_interact.py``, one ``torch.autograd.Function``) on a CUDA
 device, for f32 and bf16 models alike: on the card f32 operands are cast
 to bf16 first (``mxu_operand_dtype``), as the JAX package does on the
-TPU. On the CPU an f32 model keeps the JAX package's f32 einsum form.
+TPU, and the cast's backward widens the bf16 cotangents back to f32. On
+the CPU a bf16 model takes the kernels' plain versions and an f32 model
+the JAX package's CPU form (the f32 pair einsum with its hand-written
+``2 * einsum(d_sym, feats)`` backward).
 
-Forward only: the embedding layer and the custom backward passes are not
-ported yet, so :class:`DLRM` takes its embedding activations through
-``emb_acts`` (which is how the serving and sparse training paths call it).
+:class:`DLRM` takes its embedding activations through ``emb_acts`` (the
+serving and sparse training paths compute them; the embedding layer is
+not ported yet). :func:`bce_loss` is the training loss.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.cuda_interact import interact_parts_fwd
+from ..ops.cuda_interact import interact_parts_bwd, interact_parts_fwd
 from ..ops.packed_table import mxu_operand_dtype
 
 
@@ -82,17 +86,63 @@ def _tril_select_np(f: int, k: int):
   return m, p
 
 
+class _PairProducts(torch.autograd.Function):
+  """K2: f bf16 ``[B, D]`` parts -> ``[B, P]`` f32 pair activations, with
+  the cotangents of the parts from K2-bwd (the JAX package's
+  ``_pair_products_pallas`` custom VJP). The forward's parts are saved
+  for the backward."""
+
+  @staticmethod
+  def forward(ctx, k, *parts):
+    ctx.k = k
+    ctx.save_for_backward(*parts)
+    return interact_parts_fwd(list(parts), k)
+
+  @staticmethod
+  def backward(ctx, d_acts):
+    parts = ctx.saved_tensors
+    d_parts = interact_parts_bwd(d_acts.contiguous(), list(parts), ctx.k)
+    return (None,) + tuple(d_parts)
+
+
+class _TrilProducts(torch.autograd.Function):
+  """The JAX package's CPU form (``_tril_products``): flat ``[B, F*D]``
+  features -> ``[B, P]`` by the pair einsum and the ``M`` selection
+  einsum; the backward uses the symmetry of ``d_sym = d_acts . M`` to form
+  ``d_feats`` as one product einsum scaled by 2."""
+
+  @staticmethod
+  def forward(ctx, flat, f, k):
+    b = flat.shape[0]
+    feats = flat.view(b, f, flat.shape[1] // f)
+    m_np, _ = _tril_select_np(f, k)
+    m = torch.tensor(m_np, dtype=feats.dtype, device=feats.device)
+    inter = torch.einsum("bpd,bqd->bpq", feats, feats)
+    ctx.save_for_backward(feats)
+    ctx.k = k
+    return torch.einsum("bpq,pqn->bn", inter, m).float()
+
+  @staticmethod
+  def backward(ctx, d_acts):
+    (feats,) = ctx.saved_tensors
+    b, f, d = feats.shape
+    m_np, _ = _tril_select_np(f, ctx.k)
+    m = torch.tensor(m_np, dtype=feats.dtype, device=feats.device)
+    d_sym = torch.einsum("bn,pqn->bpq", d_acts.to(feats.dtype), m)
+    d_feats = 2.0 * torch.einsum("bqp,bqd->bpd", d_sym, feats)
+    return d_feats.to(feats.dtype).reshape(b, f * d), None, None
+
+
 def dot_interact(bottom_out: torch.Tensor,
                  emb_outs: Sequence[torch.Tensor],
                  self_interaction: bool = False) -> torch.Tensor:
   """Pairwise dot-product interaction + bottom-MLP passthrough:
-  ``[B, F*(F-1)/2 + D]`` (F = embeddings + 1) f32.
+  ``[B, F*(F-1)/2 + D]`` (F = embeddings + 1) f32, differentiable.
 
-  On a CUDA device every case goes through K2-fwd's wrapper (f32 and
-  bf16 operands run as bf16; any other type raises there); bf16 on the
-  CPU takes the wrapper's plain version, and f32 on the CPU the JAX
-  package's CPU form (the f32 pair einsum and the ``M`` selection
-  einsum)."""
+  On a CUDA device every case goes through K2 (f32 and bf16 operands run
+  as bf16; any other type raises in the kernels' wrappers); bf16 on the
+  CPU takes the kernels' plain versions, and f32 on the CPU the JAX
+  package's CPU form (:class:`_TrilProducts`)."""
   parts = [bottom_out] + list(emb_outs)
   b, d = parts[0].shape
   bad = [tuple(p.shape) for p in parts if tuple(p.shape) != (b, d)]
@@ -102,14 +152,10 @@ def dot_interact(bottom_out: torch.Tensor,
   cd = mxu_operand_dtype(parts[0].dtype, parts[0].device)
   k = 0 if self_interaction else -1
   if cd == torch.bfloat16 or parts[0].device.type == "cuda":
-    acts = interact_parts_fwd([p.to(cd).contiguous() for p in parts], k)
+    acts = _PairProducts.apply(k, *[p.to(cd).contiguous() for p in parts])
   else:
-    f = len(parts)
-    feats = torch.cat([p.to(cd) for p in parts], dim=1).view(b, f, d)
-    m_np, _ = _tril_select_np(f, k)
-    m = torch.tensor(m_np, dtype=cd, device=feats.device)
-    inter = torch.einsum("bpd,bqd->bpq", feats, feats)
-    acts = torch.einsum("bpq,pqn->bn", inter, m).float()
+    flat = torch.cat([p.to(cd) for p in parts], dim=1)
+    acts = _TrilProducts.apply(flat, len(parts), k)
   return torch.cat([acts, bottom_out.to(acts.dtype)], dim=1)
 
 
@@ -188,14 +234,9 @@ def dlrm_embedding_plan(vocab_sizes, embedding_dim: int = 128,
                                batch_hint=batch_hint)
 
 
-def dlrm_scale_rows(plan, key, rank: int = 0) -> np.ndarray:
-  """Per logical row of one class block, the DLRM initializer's uniform
-  scale ``1/sqrt(vocab)`` of the table the row belongs to (0 on padding
-  rows) — the ``scale_rows`` of ``init_packed_uniform``."""
-  from ..parallel.lookup_engine import padded_rows
-  cp = plan.classes[key]
-  scale = np.zeros((padded_rows(plan, key),), np.float32)
-  for sh, off in zip(cp.shards_per_rank[rank], cp.row_offsets_per_rank[rank]):
-    vocab = plan.global_configs[sh.table_id].input_dim
-    scale[off:off + sh.input_dim] = 1.0 / np.sqrt(vocab)
-  return scale
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+  """Mean sigmoid binary cross-entropy from logits (the JAX package's
+  ``bce_loss``, in its numerically stable form)."""
+  labels = labels.to(torch.float32)
+  return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                    + torch.log1p(torch.exp(-torch.abs(logits))))

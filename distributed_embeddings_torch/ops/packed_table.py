@@ -10,12 +10,13 @@ each table row:
 The port keeps the layout bit-for-bit, so a buffer packed by either
 package reads the same in the other (``convert.py`` hands buffers across
 as numpy arrays). Ids outside ``[0, rows)`` are padding sentinels: the
-gather returns all-zero rows for them.
+gather returns all-zero rows for them and the scatter drops them.
 
-Ported here: the layout, the fused gather, the uniform packed init and the
-``sgd``/``adagrad`` rules (``freeze`` reads ``n_aux`` from them). The
-scatter-add apply, the other rules and the host cold-store helpers belong
-to the training slice.
+Ported here: the layout, the fused gather, the uniform packed init, the
+fused scatter-add (:func:`scatter_add_fused`, kernel K1 on the card) and
+the ``sgd``/``adagrad``/``momentum``/``adam`` rules. The host cold-store
+helpers (tiering) and the rules' ``delta_lanes`` twins (kernel K6) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -198,8 +199,60 @@ def mxu_operand_dtype(dtype: torch.dtype, device) -> torch.dtype:
   return dtype
 
 
+def expand_phys(layout: PackedLayout, fused_delta: torch.Tensor,
+                sub: torch.Tensor) -> torch.Tensor:
+  """``[n, stride]`` fused deltas -> ``[n, phys_width]`` physical-row
+  updates: each delta lands in its sub-row window (``rpp > 1``), the
+  other windows and the lane padding are zero. Two logical rows sharing a
+  physical row then accumulate disjointly, and same-window duplicates like
+  any duplicate — the JAX package's one-hot lane expansion."""
+  n = fused_delta.shape[0]
+  rpp, stride = layout.rows_per_phys, layout.stride
+  upd = torch.zeros((n, layout.phys_width), dtype=fused_delta.dtype,
+                    device=fused_delta.device)
+  if rpp == 1:
+    upd[:, :stride] = fused_delta
+    return upd
+  windows = upd[:, :rpp * stride].view(n, rpp, stride)
+  windows[torch.arange(n, device=sub.device), sub] = fused_delta
+  return upd
+
+
+def scatter_add_fused(layout: PackedLayout, buf: torch.Tensor,
+                      ids: torch.Tensor, fused_delta: torch.Tensor,
+                      delta_scale=None) -> torch.Tensor:
+  """``buf[ids] += delta_scale * fused_delta`` in place (one indexed RMW
+  for table + all aux lanes); returns ``buf``.
+
+  ``fused_delta``: ``[..., stride]`` additive deltas in gather_fused's
+  lane order (or ``[..., phys_width]`` rows already expanded). Duplicate
+  ids accumulate; ids outside ``[0, rows)`` are dropped: the validity
+  mask sends them to physical row ``phys_rows``, past the buffer, which
+  the apply drops, so their deltas need no masking. ``delta_scale``: an
+  optional scalar multiplier (SGD's ``-lr``), applied by the apply itself,
+  so scale-only rules pass the raw cotangent rows.
+
+  The apply is kernel K1 (``ops/cuda_apply.py``) on a CUDA buffer and its
+  plain version on the CPU. The TPU's regime rule (XLA's scatter above an
+  ids-to-rows ratio of 0.15) and its 128-lane limit came from XLA's TPU
+  scatter and from Mosaic, so on the card K1 serves every f32 buffer, at
+  any ratio and any ``phys_width`` (always a multiple of 128)."""
+  from .cuda_apply import apply_rows
+  if buf.device.type == "cuda" and buf.dtype != torch.float32:
+    raise NotImplementedError(
+        f"scatter_add_fused on a {buf.dtype} CUDA buffer: K1 applies f32 "
+        "buffers only (ROADMAP.md open items, queue 1, item 6: narrow "
+        "storage types)")
+  grp, sub, _ = _grp_sub(layout, ids.reshape(-1))
+  flat = fused_delta.reshape(grp.shape[0], fused_delta.shape[-1])
+  if flat.shape[-1] != layout.phys_width:
+    flat = expand_phys(layout, flat, sub)
+  flat = flat.to(buf.dtype).contiguous()
+  return apply_rows(buf, grp.contiguous(), flat, delta_scale)
+
+
 # ---------------------------------------------------------------------------
-# Sparse update rules (the fields ``freeze`` reads; the apply is training's)
+# Sparse update rules (fused-delta form)
 # ---------------------------------------------------------------------------
 
 
@@ -210,13 +263,23 @@ class SparseRule:
   ``n_aux`` per-row state slots ride in the packed layout and ``aux_init``
   gives their fill values; ``delta(g, aux_rows, step)`` maps a cotangent
   row ``[..., W]`` and its pre-step aux rows ``[..., n_aux, W]`` to the
-  fused additive delta ``[..., stride]``. Serving reads ``n_aux`` only:
-  it decides which lanes ``freeze`` strips."""
+  fused additive delta ``[..., stride]``. With duplicate ids each
+  occurrence computes its delta from the forward-time state (the engine's
+  ``exact=True`` path deduplicates first).
+
+  ``weight_decay``: λ of a uniform l2 penalty on the sparse tables; the
+  engine adds ``2·λ·row`` to each occurrence's cotangent before ``delta``
+  (decay on touched rows only; make_sparse_train_step folds a table
+  ``regularizer='l2'`` in). ``linear_scale(step)``: for rules whose delta
+  is a scalar multiple of the cotangent (SGD), that multiplier; the engine
+  then skips the delta and the apply (K1) scales the raw rows."""
 
   name: str
   n_aux: int
   aux_init: Sequence[float]
   delta: Callable
+  weight_decay: float = 0.0
+  linear_scale: Optional[Callable] = None
 
 
 def _lr_at(lr, step):
@@ -230,7 +293,8 @@ def sgd_rule(learning_rate) -> SparseRule:
     del aux_rows
     return -_lr_at(learning_rate, step).to(g.device) * g
 
-  return SparseRule("sgd", 0, (), delta)
+  return SparseRule("sgd", 0, (), delta,
+                    linear_scale=lambda step: -_lr_at(learning_rate, step))
 
 
 def adagrad_rule(learning_rate, initial_accumulator_value: float = 0.1,
@@ -251,11 +315,51 @@ def adagrad_rule(learning_rate, initial_accumulator_value: float = 0.1,
   return SparseRule("adagrad", 1, (initial_accumulator_value,), delta)
 
 
-_RULES = {"sgd": sgd_rule, "adagrad": adagrad_rule}
+def momentum_rule(learning_rate, momentum: float = 0.9,
+                  nesterov: bool = False) -> SparseRule:
+  """Row-sparse SGD with momentum (``optax.sgd(lr, momentum)``'s rule):
+  m' = momentum * m + g; table -= lr * m' (nesterov: lr * (g + momentum *
+  m')). The momentum buffer rides in the fused row; the delta is
+  ``[-lr*upd | m' - m]``."""
+
+  def delta(g, aux_rows, step):
+    m = aux_rows[..., 0, :]
+    m_new = momentum * m + g
+    upd = (g + momentum * m_new) if nesterov else m_new
+    lr = _lr_at(learning_rate, step).to(g.device)
+    return torch.cat([-lr * upd, m_new - m], dim=-1)
+
+  return SparseRule("momentum", 1, (0.0,), delta)
+
+
+def adam_rule(learning_rate, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8) -> SparseRule:
+  """Row-sparse Adam (``optax.adam``'s rule): both moments ride in the
+  fused row (``n_aux=2``), bias-corrected with the global ``t = step +
+  1``; the delta is ``[-lr*upd | dm | dv]``."""
+
+  def delta(g, aux_rows, step):
+    m = aux_rows[..., 0, :]
+    v = aux_rows[..., 1, :]
+    dm = (1.0 - b1) * (g - m)
+    dv = (1.0 - b2) * (g * g - v)
+    m_new = m + dm
+    v_new = v + dv
+    t = torch.as_tensor(step, dtype=torch.float32).to(g.device) + 1.0
+    m_hat = m_new / (1.0 - torch.pow(torch.tensor(b1, device=g.device), t))
+    v_hat = v_new / (1.0 - torch.pow(torch.tensor(b2, device=g.device), t))
+    lr = _lr_at(learning_rate, step).to(g.device)
+    upd = m_hat / (torch.sqrt(v_hat) + eps)
+    return torch.cat([-lr * upd, dm, dv], dim=-1)
+
+  return SparseRule("adam", 2, (0.0, 0.0), delta)
+
+
+_RULES = {"sgd": sgd_rule, "adagrad": adagrad_rule,
+          "momentum": momentum_rule, "adam": adam_rule}
 
 
 def sparse_rule(name: str, learning_rate, **kwargs) -> SparseRule:
   if name not in _RULES:
-    raise ValueError(f"Unknown sparse rule {name!r}; have {sorted(_RULES)} "
-                     "(the other rules come with the training slice)")
+    raise ValueError(f"Unknown sparse rule {name!r}; have {sorted(_RULES)}")
   return _RULES[name](learning_rate, **kwargs)

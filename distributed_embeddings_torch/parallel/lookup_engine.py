@@ -1,23 +1,38 @@
 """Distributed lookup engine, world-1 subset (PyTorch port).
 
 Counterpart of ``distributed_embeddings_tpu/parallel/lookup_engine.py``
-for the serving path at world 1: route the request's ids into per-bucket
-routing tensors (sentinel-padded), look up the small-vocab dense classes,
-run the (trivial, world-1) mp->dp exchange and reassemble one activation
-per input. The sparse-class gathers run in ``serving/engine.py`` over the
-frozen images. Names, bucket keys and tensor shapes follow the JAX engine
-so the two can be compared piece by piece.
+at world 1: route the ids into per-bucket routing tensors
+(sentinel-padded), look up the small-vocab dense classes, run the
+(trivial, world-1) mp->dp exchange and reassemble one activation per
+input; and for training, the fused sparse lookup (activations and the
+optimizer-state rows in one gather per class) and the sparse apply (one
+fused scatter-add per class, kernel K1 on the card). Names, bucket keys
+and tensor shapes follow the JAX engine so the two can be compared piece
+by piece.
 
 Not ported yet: world > 1 (the wire exchanges), deduplicated routing,
-ragged value streams, tiering and the sparse apply.
+ragged value streams, the masked physical-row gather of narrow multi-hot
+classes with optimizer state, tiering, and kernel K6 (the fused delta
+build, off by default in the JAX package).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.packed_table import (
+    PackedLayout,
+    SparseRule,
+    gather_fused,
+    gather_fused_chunked,
+    mxu_operand_dtype,
+    scatter_add_fused,
+)
+from ..ops.sparse_grad import dedup_rows
 
 if TYPE_CHECKING:
   from ..layers.planner import DistEmbeddingStrategy
@@ -131,14 +146,68 @@ def _normalize_input(x) -> torch.Tensor:
   return x.long()
 
 
+@dataclasses.dataclass
+class SparseResiduals:
+  """Forward-saved state for the fused sparse backward: the routed ids and
+  the rows that rode along in the forward gather.
+
+  ``aux_rows[bk]`` holds the bucket's gathered fused rows ``[..., stride]``
+  when the rule reads them (optimizer state, or the forward-time table row
+  for ``weight_decay``), else None. The gather's advanced indexing copies
+  the rows, so the residuals never alias the buffer that the apply then
+  updates in place."""
+
+  ids_all: Dict[BucketKey, torch.Tensor]
+  aux_rows: Dict[BucketKey, Optional[torch.Tensor]]
+
+
+class _DenseWindowRows(torch.autograd.Function):
+  """Dense-class lookup with the JAX engine's backward precision.
+
+  Forward: the table rows at ``idx`` (zero where ``valid`` is false),
+  summed over the hotness axis for multi-hot buckets (the JAX one-hot
+  contraction at HIGHEST precision returns the rows exactly). Backward:
+  ``d_z`` rounded to ``mxu_operand_dtype(f32, device)`` (bf16 on the
+  card, as on the TPU; f32 on the CPU) and accumulated in f32 into the
+  table rows with ``index_add_`` — the JAX ``_onehot_window_matmul_bwd``
+  in row form."""
+
+  @staticmethod
+  def forward(ctx, table, idx, valid, two_d):
+    rows = table[idx]
+    rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+    ctx.save_for_backward(idx, valid)
+    ctx.two_d = two_d
+    ctx.table_shape = table.shape
+    return rows if two_d else _sum_axis2(rows)
+
+  @staticmethod
+  def backward(ctx, d_z):
+    idx, valid = ctx.saved_tensors
+    cd = mxu_operand_dtype(torch.float32, d_z.device)
+    g = d_z.to(cd).to(torch.float32)
+    if not ctx.two_d:
+      g = g[:, :, None, :].expand(idx.shape + (g.shape[-1],))
+    g = torch.where(valid[..., None], g, torch.zeros_like(g))
+    d_table = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                          device=d_z.device)
+    d_table.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
+    return d_table, None, None, None
+
+
 class DistributedLookup:
   """Lookup engine bound to one plan (world 1; see module docstring).
 
   Class params are 2-D ``[world * rows, width]`` buffers; at world 1 the
   whole buffer is rank 0's block."""
 
-  def __init__(self, plan: "DistEmbeddingStrategy"):
+  def __init__(self, plan: "DistEmbeddingStrategy",
+               apply_chunk: int = 1 << 22):
     self.plan = plan
+    # occurrences per scatter chunk in apply_sparse (bounds the backward's
+    # per-occurrence temporaries; small values exercise the multi-chunk
+    # path in tests)
+    self.apply_chunk = apply_chunk
     self._bucket_cache: Dict[tuple, List[Bucket]] = {}
     self._slot_map_cache: Dict[tuple, Dict[tuple, tuple]] = {}
 
@@ -267,8 +336,9 @@ class DistributedLookup:
 
     The JAX engine contracts a one-hot of each slot's window-local ids
     with the slot's ``[vcap, w]`` window at HIGHEST precision, which
-    returns the window's rows exactly; this indexes the same rows. Ids
-    outside the window (the sentinel) read zeros."""
+    returns the window's rows exactly; this indexes the same rows
+    (:class:`_DenseWindowRows`, which also gives the JAX backward's
+    precision). Ids outside the window (the sentinel) read zeros."""
     two_d = ids_all.dim() == 2
     h = 1 if two_d else ids_all.shape[2]
     cp = self.plan.classes[key]
@@ -280,11 +350,10 @@ class DistributedLookup:
     off_b = offs[:, None] if two_d else offs[:, None, None]
     ids_local = ids_all - off_b
     valid = (ids_local >= 0) & (ids_local < bucket.vcap)
-    rows = table_local[torch.where(valid, ids_all, off_b)]
-    rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+    idx = torch.where(valid, ids_all, off_b.expand_as(ids_all))
+    z = _DenseWindowRows.apply(table_local, idx, valid, two_d)
     if two_d:
-      return rows
-    z = _sum_axis2(rows)
+      return z
     if cp.combiner == "mean" and h > 1:
       sentinel = padded_rows(self.plan, key)
       counts = (ids_all < sentinel).sum(dim=2).to(z.dtype)
@@ -410,6 +479,222 @@ class DistributedLookup:
       z[bk] = self._z_dense(key, bucket, table_local, ids)
     received = self.exchange(z, batch_local, ids_all)
     return self.assemble(received, hotness_of, mean_counts)
+
+
+  # ---- fused training path -----------------------------------------------
+  def fused_layouts(self, rule: SparseRule) -> Dict[str, PackedLayout]:
+    """Per sparse class, its :class:`PackedLayout` under ``rule`` (``n_aux``
+    interleaved state slots). The JAX engine's 2^31-element bound is
+    XLA's indexing limit; the port indexes in 64 bits and has none."""
+    layouts = {}
+    for key in self.plan.class_keys:
+      cp = self.plan.classes[key]
+      if cp.kind != "sparse":
+        continue
+      layouts[class_param_name(*key)] = PackedLayout(
+          rows=padded_rows(self.plan, key), width=cp.width, n_aux=rule.n_aux)
+    return layouts
+
+  def lookup_sparse_fused(self, fused_params: Dict[str, torch.Tensor],
+                          layouts: Dict[str, PackedLayout],
+                          ids_all: Dict[BucketKey, torch.Tensor],
+                          keep_rows: bool = False, keep_aux: bool = True):
+    """Fused lookup of every sparse class, outside autograd: returns
+    ``(z_sparse, residuals)``. The caller makes ``z_sparse`` leaves of the
+    differentiable tail (:meth:`finish_forward`) and feeds their
+    cotangents to :meth:`apply_sparse`. ``keep_rows`` saves the
+    forward-time rows even for aux-free rules (``rule.weight_decay``
+    needs them); ``keep_aux=False`` saves nothing (the eval step)."""
+    z: Dict[BucketKey, torch.Tensor] = {}
+    aux: Dict[BucketKey, Optional[torch.Tensor]] = {}
+    for bk, ids in ids_all.items():
+      key = bk.class_key
+      if self.plan.classes[key].kind != "sparse":
+        continue
+      name = class_param_name(*key)
+      buf_local = self._squeeze_local(fused_params[name])
+      z[bk], auxb = self._z_sparse_fused(key, layouts[name], buf_local, ids,
+                                         bk.rs, keep_rows=keep_rows)
+      aux[bk] = auxb if keep_aux else None
+    return z, SparseResiduals(ids_all=dict(ids_all), aux_rows=aux)
+
+  def _z_sparse_fused(self, key, layout: PackedLayout,
+                      buf_local: torch.Tensor, ids_all: torch.Tensor,
+                      rs: bool = False, keep_rows: bool = False):
+    """Fused gather: ``(z, fused_rows)``, the optimizer state riding along.
+
+    The combine sums the full fused stride (table + aux lanes) and slices
+    the table lanes at bag granularity, as the JAX engine does; the
+    residual is the gathered fused rows (None when nothing reads them)."""
+    w = layout.width
+    if not isinstance(ids_all, torch.Tensor):
+      raise NotImplementedError(
+          f"routed ids of type {type(ids_all).__name__}: deduplicated and "
+          "ragged routing are not ported yet (ROADMAP.md open items, "
+          "queue 1, item 5)")
+    multi_hot = ids_all.dim() == 3 and ids_all.shape[-1] > 1
+    if layout.rows_per_phys > 1 and layout.n_aux and multi_hot:
+      raise NotImplementedError(
+          "multi-hot ids on a narrow class with optimizer state: the JAX "
+          "engine's masked physical-row gather is not ported yet "
+          "(ROADMAP.md open items, queue 1, item 8)")
+    fused = gather_fused_chunked(layout, buf_local, ids_all)
+    if layout.n_aux == 0:
+      return (self._combine(fused, ids_all, key, rs),
+              fused if keep_rows else None)
+    if not multi_hot:
+      return self._combine(fused[..., :w], ids_all, key, rs), fused
+    zf = self._combine(fused, ids_all, key, rs)
+    return zf[..., :w], fused
+
+  @staticmethod
+  def _aux_occ(aux, layout: PackedLayout, rule: SparseRule):
+    """Residual fused rows -> per-occurrence aux rows ``[-1, n_aux, w]``."""
+    if aux is None or not rule.n_aux:
+      return None
+    w = layout.width
+    return aux.reshape(-1, aux.shape[-1])[:, w:].reshape(-1, rule.n_aux, w)
+
+  @staticmethod
+  def _decayed(g, res, layout: PackedLayout, rule: SparseRule):
+    """Touched-rows l2: add ``2λ * row`` (the forward-time row from the
+    residuals) to the occurrence cotangent."""
+    if not rule.weight_decay or res is None:
+      return g
+    row = res.reshape(-1, res.shape[-1])[:, :layout.width]
+    return g + (2.0 * rule.weight_decay) * row.reshape(g.shape)
+
+  def _sparse_parts_by_class(self, d_z, residuals: SparseResiduals,
+                             rule: SparseRule) -> Dict[str, list]:
+    """Group per-bucket cotangents into per-class ``(ids, dz, aux, h)``
+    parts; mean combiners divide by the forward's valid counts."""
+    plan = self.plan
+    by_class: Dict[str, list] = {}
+    for bk, dzb in d_z.items():
+      key, h = bk.class_key, bk.h
+      if plan.classes[key].kind != "sparse":
+        continue
+      cp = plan.classes[key]
+      ids = residuals.ids_all[bk]
+      aux = (residuals.aux_rows[bk]
+             if (rule.n_aux or rule.weight_decay) else None)
+      if cp.combiner == "mean" and h > 1 and not bk.rs:
+        # row-sliced buckets skip this: their mean division lives in the
+        # differentiable assemble, so d_z arrives pre-divided
+        sentinel = padded_rows(plan, key)
+        counts = (ids < sentinel).sum(dim=2).to(dzb.dtype)
+        dzb = dzb / counts.clamp(min=1)[..., None]
+      by_class.setdefault(class_param_name(*key), []).append(
+          (ids, dzb, aux, h))
+    return by_class
+
+  def _stream_of_parts(self, layout: PackedLayout, parts, rule: SparseRule,
+                       step):
+    """A class's parts -> one occurrence stream ``(ids [n], rows [n, k])``:
+    the raw (decayed) cotangent rows for scale-only rules (the apply
+    scales them), the fused ``rule.delta`` rows otherwise."""
+    w = layout.width
+    scale_only = rule.linear_scale is not None
+    all_ids, all_rows = [], []
+    for ids, dzb, aux, h in parts:
+      n = ids.numel()
+      g = dzb.reshape(-1, w)
+      if h > 1:
+        g = g[:, None, :].expand(n // h, h, w).reshape(n, w)
+      aux_r = self._aux_occ(aux, layout, rule)
+      g = self._decayed(g, aux, layout, rule)
+      all_ids.append(ids.reshape(-1))
+      all_rows.append(g if scale_only else rule.delta(g, aux_r, step))
+    if len(all_ids) == 1:
+      return all_ids[0], all_rows[0]
+    return torch.cat(all_ids), torch.cat(all_rows)
+
+  def sparse_delta_streams(self, layouts: Dict[str, PackedLayout], d_z,
+                           residuals: SparseResiduals, rule: SparseRule,
+                           step):
+    """Per-class update streams ``name -> (ids, rows)``."""
+    by_class = self._sparse_parts_by_class(d_z, residuals, rule)
+    return {name: self._stream_of_parts(layouts[name], parts, rule, step)
+            for name, parts in by_class.items()}
+
+  def apply_sparse_streams(self, fused_params: Dict[str, torch.Tensor],
+                           layouts: Dict[str, PackedLayout], streams,
+                           rule: SparseRule, step) -> Dict[str, torch.Tensor]:
+    """One fused scatter-add per class over prebuilt streams, in place
+    (K1 on the card); returns ``fused_params``."""
+    scale_only = rule.linear_scale is not None
+    for name, (ids_cat, rows_cat) in streams.items():
+      buf = self._squeeze_local(fused_params[name])
+      scatter_add_fused(
+          layouts[name], buf, ids_cat, rows_cat,
+          delta_scale=rule.linear_scale(step) if scale_only else None)
+    return fused_params
+
+  def apply_sparse(self, fused_params: Dict[str, torch.Tensor],
+                   layouts: Dict[str, PackedLayout], d_z,
+                   residuals: SparseResiduals, rule: SparseRule, step,
+                   exact: bool = False) -> Dict[str, torch.Tensor]:
+    """Apply the sparse update in place: one fused scatter-add per sparse
+    class (kernel K1 on the card); returns ``fused_params``.
+
+    Per-occurrence cotangent rows are combined with the forward-saved
+    optimizer-state rows by ``rule.delta`` and scatter-added (table delta
+    | state delta) into the packed buffer. ``exact=True`` deduplicates
+    first (sort + segment-sum, :func:`~..ops.sparse_grad.dedup_rows`) and
+    re-gathers the unique rows' state, the reference's deduplicated
+    semantics. Streams longer than ``apply_chunk`` occurrences apply
+    chunk by chunk, never holding the whole per-occurrence delta."""
+    by_class = self._sparse_parts_by_class(d_z, residuals, rule)
+    for name, parts in by_class.items():
+      layout = layouts[name]
+      w = layout.width
+      buf = self._squeeze_local(fused_params[name])
+      if exact:
+        # class-level dedup: cross-bucket duplicates of one table merge
+        ids = torch.cat([p[0].reshape(-1) for p in parts])
+        g = torch.cat([
+            dzb[:, :, None, :].expand(idb.shape + (w,)).reshape(-1, w)
+            if idb.dim() == 3 else dzb.reshape(-1, w)
+            for idb, dzb, _, _ in parts])
+        ids, g = dedup_rows(ids, g, layout.rows)
+        fused_rows = gather_fused(layout, buf, ids)
+        aux = (fused_rows[..., w:].reshape(ids.shape + (rule.n_aux, w))
+               if rule.n_aux else None)
+        if rule.weight_decay:
+          # once per unique touched row
+          g = g + (2.0 * rule.weight_decay) * fused_rows[..., :w]
+        scatter_add_fused(layout, buf, ids, rule.delta(g, aux, step))
+        continue
+      n_total = sum(ids.numel() for ids, _, _, _ in parts)
+      if n_total <= self.apply_chunk:
+        self.apply_sparse_streams(
+            {name: buf}, layouts,
+            {name: self._stream_of_parts(layout, parts, rule, step)}, rule,
+            step)
+        continue
+      # memory escape hatch for very long streams: delta and apply per
+      # chunk of occurrences (the deltas read forward-time state, so the
+      # chunks' order does not matter)
+      for ids, dzb, aux, h in parts:
+        n = ids.numel()
+        ids_f = ids.reshape(-1)
+        dz_f = dzb.reshape(-1, w)
+        aux_f = self._aux_occ(aux, layout, rule)
+        res_f = (aux.reshape(-1, aux.shape[-1])
+                 if rule.weight_decay and aux is not None else None)
+        hh = max(1, h)
+        chunk = max(hh, (self.apply_chunk // hh) * hh)
+        for c0 in range(0, n, chunk):
+          cn = min(chunk, n - c0)
+          g_c = dz_f[c0 // hh:(c0 + cn) // hh]
+          if h > 1:
+            g_c = g_c[:, None, :].expand(cn // h, h, w).reshape(cn, w)
+          aux_c = None if aux_f is None else aux_f[c0:c0 + cn]
+          if res_f is not None:
+            g_c = self._decayed(g_c, res_f[c0:c0 + cn], layout, rule)
+          scatter_add_fused(layout, buf, ids_f[c0:c0 + cn],
+                            rule.delta(g_c, aux_c, step))
+    return fused_params
 
 
 def _sum_axis2(rows: torch.Tensor) -> torch.Tensor:

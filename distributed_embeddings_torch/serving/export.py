@@ -124,10 +124,12 @@ class FrozenTables:
 
 
 def _as_tensor(x) -> torch.Tensor:
-  """Tensors pass through; numpy arrays (possibly read-only views of
-  another framework's buffers) are copied into a tensor."""
+  """Tensors pass through, detached from autograd (a train state's
+  dense tensors are leaves that require grad); numpy arrays (possibly
+  read-only views of another framework's buffers) are copied into a
+  tensor."""
   if isinstance(x, torch.Tensor):
-    return x
+    return x.detach()
   return torch.tensor(np.asarray(x))
 
 

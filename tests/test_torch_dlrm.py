@@ -27,6 +27,8 @@ NUM = 4
 B = 64
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
+# gradients, each scaled by its largest entry (see test_gradients_match_jax)
+BF16_GRAD_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 def jax_dlrm(compute_dtype):
@@ -96,3 +98,52 @@ def test_forward_needs_emb_acts():
                     num_numerical=NUM, device="cpu")
   with pytest.raises(NotImplementedError, match="emb_acts"):
     model(torch.zeros((2, NUM)), [torch.zeros(2, dtype=torch.long)] * 6)
+
+
+def _jax_grads(params, numerical, acts, labels, jdt):
+  from distributed_embeddings_tpu.models import bce_loss
+
+  def loss(p, a):
+    logits = jax_dlrm(jdt).apply({"params": p}, jnp.asarray(numerical),
+                                 None, emb_acts=list(a))
+    return bce_loss(logits, jnp.asarray(labels))
+
+  value, (dp, da) = jax.value_and_grad(loss, argnums=(0, 1))(
+      params, [jnp.asarray(a) for a in acts])
+  return float(value), dlrm_state_dict_from_flax(
+      jax.tree_util.tree_map(np.asarray, dp)), [np.asarray(a) for a in da]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gradients_match_jax(dtype):
+  """``loss.backward()`` through the port's DLRM (the interaction's
+  autograd Function, the casts, the MLPs) against ``jax.grad`` of the JAX
+  DLRM: the loss, every dense-parameter gradient and every embedding
+  activation's cotangent. f32: BLAS summation order; bf16 compute: both
+  sides round each layer's output and cotangent to bf16, and a one-ulp
+  flip of one of them moves a gradient entry by a few bf16 ulps of the
+  gradient's own scale (the measured worst case here is 7e-3 of the
+  largest entry)."""
+  from distributed_embeddings_torch.models import bce_loss as torch_bce
+  jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+  tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+  params = flax_params()
+  numerical, acts = inputs()
+  labels = np.random.default_rng(2).integers(0, 2, B).astype(np.float32)
+  want_loss, want_dp, want_da = _jax_grads(params, numerical, acts, labels,
+                                           jdt)
+  model = torch_dlrm(params, tdt)
+  acts_t = [torch.tensor(a, requires_grad=True) for a in acts]
+  loss = torch_bce(model(torch.tensor(numerical), None, emb_acts=acts_t),
+                   torch.tensor(labels))
+  loss.backward()
+  tol = F32_TOL if dtype == "f32" else BF16_GRAD_TOL
+  np.testing.assert_allclose(float(loss), want_loss, **tol)
+  for name, p in model.named_parameters():
+    scale = np.abs(want_dp[name].numpy()).max()
+    np.testing.assert_allclose(p.grad.numpy() / scale,
+                               want_dp[name].numpy() / scale,
+                               err_msg=name, **tol)
+  for a, w in zip(acts_t, want_da):
+    scale = np.abs(w).max()
+    np.testing.assert_allclose(a.grad.numpy() / scale, w / scale, **tol)

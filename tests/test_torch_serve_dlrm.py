@@ -78,7 +78,8 @@ def test_serve_predictions_match_jax(train_state, quantize, dtype):
   np_state = {k: jax.tree_util.tree_map(np.asarray, state[k])
               for k in ("fused", "emb_dense", "dense", "step")}
   tfrozen = torch_freeze(tplan, torch_sgd_rule(0.1),
-                         train_state_from_flax(np_state), quantize=quantize)
+                         train_state_from_flax(np_state, device="cpu"),
+                         quantize=quantize)
   model = torch_dlrm(flax_params(seed=9), tdt)  # weights come from frozen
   eng = ServeEngine(model, tplan, tfrozen, device="cpu")
   got = eng.predict(numerical, cats)
