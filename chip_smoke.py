@@ -4,9 +4,10 @@ NVIDIA H100.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``distributed_embeddings_torch/
-csrc/`` and drives the port's two paths on the card, DLRM serving on
-frozen tables and the world-1 sparse train step of ``bench.py``. One JSON
-line per phase:
+csrc/`` and drives the port's three paths on the card: DLRM serving on
+frozen tables, the world-1 sparse train step of ``bench.py``, and the
+world-4 hybrid-parallel train step of ``examples/dlrm/main.py --sparse``
+under ``overlap='fused'``. One JSON line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
    must have compute capability (9, 0);
@@ -21,10 +22,14 @@ line per phase:
    f32) with 131,072 ids per stream, scale -0.1 (SGD's -lr): uniform,
    power-law and 17% out-of-range streams within 1e-5 of each cell's
    absolute sum (duplicates add in another order), a stream of unique ids
-   bit-equal. Times are medians of CUDA-event timings of single calls,
-   kernel, plain and library in turns, with the 50 MB L2 flushed and the
-   card held busy while the host queues each call, after two seconds of
-   warm-up;
+   bit-equal. K4 (``gather_rows``) on the first sparse class's rank
+   buffer of the four-card world-4 plan (9,994,943 x 128 f32), one
+   (round, chunk) block of 8,192 int32 ids, uniform and with 30% of the
+   ids out of range or sentinels: bit-equal; so are fused strides of 96,
+   65 and 256 lanes on a small buffer. Times are medians of CUDA-event
+   timings of single calls, kernel, plain and library in turns, with the
+   50 MB L2 flushed and the card held busy while the host queues each
+   call, after two seconds of warm-up;
 4. ``golden``: the JAX package's serve golden
    (``tests/data/torch_serve_golden.npz``) replayed through the port's
    ``ServeEngine``: activations bit-equal, predictions within
@@ -53,12 +58,35 @@ line per phase:
    sampled rows of the first sparse class that the batch does not touch
    are bit-unchanged and sampled touched rows changed. A 14th step runs
    under ``torch.profiler`` (``train_trace``);
+8. ``world4_golden``, ``train_world4``: four ranks spawned with
+   ``torch.multiprocessing``, over NCCL when each owns a card, else over
+   gloo with the four sharing the card (the backend is printed). Each
+   first replays the JAX world-4 golden
+   (``tests/data/torch_train_world4_golden.npz``, its bf16 run) within
+   the train-golden tolerances, then trains the DLRM of ``examples/dlrm/
+   main.py`` at world 4: 26 Criteo-1TB tables of width 128,
+   ``memory_balanced``, ``dense_row_threshold=4096``, global batch 65,536
+   (16,384 per rank) of one-hot ids from seed 0, SGD 0.1,
+   ``overlap='fused'`` with 2 chunks, f32 wire; four cards: the full
+   vocabulary, ``row_slice=2**30``; one card: vocabulary x 1/16,
+   ``row_slice=2**26``. At f32 and bf16 compute: 3 warm-up and 10 timed
+   steps, with the train phase's checks on each rank, K4 launched once
+   per (sparse bucket, round, chunk), every rank's losses equal, and a
+   traced step on rank 0. Then one f32 step under ``overlap='fused'``
+   and one under ``'none'`` from the same state: the losses bit-equal,
+   the fused buffers bit-equal on every row fewer than two ids hit
+   (elsewhere K1's atomics order the duplicates' adds).
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
-the ``kernels`` line come from the serve and train phases alone (each
-sets the counts to 0 before it and reads them after). Any failed check
-exits non-zero before the last line; so does a machine without CUDA.
+the ``kernels`` line come from the serve, train and world-4 phases alone
+(each sets the counts to 0 before it and reads them after; the world-4
+counts are summed over the ranks). Any failed check exits non-zero
+before the last line; so does a machine without CUDA.
+
+On a machine with four cards the same command runs every phase; phases
+1-7 use the first card, and phase 8 runs over NCCL at the full
+vocabulary, one rank per card.
 """
 
 import functools
@@ -98,7 +126,23 @@ REPLACES = {
     "interact_fwd": "distributed_embeddings_tpu/ops/pallas_interact.py:139",
     "interact_bwd": "distributed_embeddings_tpu/ops/pallas_interact.py:162",
     "apply_rows": "distributed_embeddings_tpu/ops/pallas_apply.py:211",
+    "gather_rows": "distributed_embeddings_tpu/ops/pallas_exchange.py:212",
 }
+# the world-4 hybrid-parallel step (examples/dlrm/main.py --sparse at
+# world 4, under the plan's overlap='fused' wire)
+WORLD = 4
+W4_BATCH = 65536  # global: 16,384 per rank
+W4_CHUNKS = 2
+# four cards: full Criteo-1TB vocabulary, five tables row-sliced 4 ways
+# (25.3 GB of fused buffers per card); one card shared by the four ranks:
+# vocabulary x 1/16, the same five tables row-sliced (2.1 GB per rank)
+W4_ROW_SLICE = {"nccl": 2**30, "gloo": 2**26}
+W4_VOCAB_SCALE = {"nccl": 1, "gloo": 16}
+K4_BAD_SHARE = 0.3  # ids out of range or sentinels in K4's second stream
+# cells of a fused-vs-none comparison that may differ: only rows that two
+# or more of the step's ids hit (K1 adds duplicates with atomics, in an
+# order of the card's choosing), and there by at most this much
+W4_DUP_ATOL = 1e-6
 CSRC = "distributed_embeddings_torch/csrc"
 
 
@@ -395,6 +439,10 @@ def trace_call(torch, fn) -> dict:
     busy_us += max(0.0, e - max(s, end))
     end = max(end, e)
   top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+  # NCCL's own kernels (the profiler also lists each collective under an
+  # annotation of the same span, which is not counted twice)
+  nccl_ms = sum(ms for name, ms in by_name.items()
+                if name.startswith(("ncclDevKernel", "ncclKernel")))
   # the device time each PyTorch operator launched itself (its kernels,
   # copies and fills), by operator name
   by_op = []
@@ -405,7 +453,7 @@ def trace_call(torch, fn) -> dict:
   by_op.sort(key=lambda t: -t[1])
   return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-          "device_ops": len(spans),
+          "device_ops": len(spans), "nccl_ms": nccl_ms,
           "top_ms": [[name[:72], ms] for name, ms in top],
           "top_ops_ms": [[name[:48], ms, n] for name, ms, n in by_op[:12]]}
 
@@ -518,7 +566,7 @@ def first_sparse_class(plan):
   return key, class_param_name(*key), padded_rows(plan, key)
 
 
-def phase_train(torch, ci, ca, smi: str, compute: str) -> dict:
+def phase_train(torch, ci, ca, cx, smi: str, compute: str) -> dict:
   """``bench.py``'s train step at full width; returns each kernel's
   launches in the run."""
   from distributed_embeddings_torch.models import DLRM, bce_loss
@@ -574,19 +622,20 @@ def phase_train(torch, ci, ca, smi: str, compute: str) -> dict:
   step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
                                 rule)
   ms, losses, changed = [], [], []
-  totals = {"interact_fwd": 0, "interact_bwd": 0, "apply_rows": 0}
+  totals = {"interact_fwd": 0, "interact_bwd": 0, "apply_rows": 0,
+            "gather_rows": 0}
   for i in range(TRAIN_WARMUP + TRAIN_TIMED):
     hit_rows = buf[hit].clone()
-    ci.launches = ci.bwd_launches = ca.launches = 0
+    ci.launches = ci.bwd_launches = ca.launches = cx.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, loss = step(state, numerical, cats, labels)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     got = {"interact_fwd": ci.launches, "interact_bwd": ci.bwd_launches,
-           "apply_rows": ca.launches}
+           "apply_rows": ca.launches, "gather_rows": cx.launches}
     check(got == {"interact_fwd": 1, "interact_bwd": 1,
-                  "apply_rows": n_sparse},
+                  "apply_rows": n_sparse, "gather_rows": 0},
           f"train {compute} step {i}: launches {got}")
     for kname, n in got.items():
       totals[kname] += n
@@ -622,6 +671,396 @@ def phase_train(torch, ci, ca, smi: str, compute: str) -> dict:
   return totals
 
 
+def world4_plan(backend: str, overlap: str = "fused"):
+  """The world-4 plan of ``examples/dlrm/main.py --sparse``: 26 Criteo-1TB
+  tables of width 128, ``memory_balanced``, ``dense_row_threshold=4096``,
+  row-sliced as ``backend``'s configuration says, under ``overlap``."""
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.layers.planner import (
+      DistEmbeddingStrategy,
+  )
+  scale = W4_VOCAB_SCALE[backend]
+  vocab = [max(4, int(v / scale)) for v in CRITEO_1TB_VOCAB]
+  plan = DistEmbeddingStrategy(
+      [TableConfig(input_dim=v, output_dim=D) for v in vocab], WORLD,
+      "memory_balanced", dense_row_threshold=4096,
+      row_slice_threshold=W4_ROW_SLICE[backend], batch_hint=W4_BATCH,
+      overlap=overlap, exchange_chunks=1 if overlap == "none" else W4_CHUNKS)
+  return vocab, plan
+
+
+def k4_launches_per_step(plan) -> int:
+  """K4 launches the fused schedule makes per rank and step: one per
+  (sparse bucket, round, chunk); every input is one-hot."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+  )
+  buckets = sum(len(class_buckets(plan, key, lambda i: 1))
+                for key in plan.class_keys
+                if plan.classes[key].kind == "sparse")
+  return buckets * WORLD * min(W4_CHUNKS, W4_BATCH // WORLD)
+
+
+def phase_kernel_gather(torch, cx, flush) -> dict:
+  """K4 against its plain version at the four-card world-4 path's block
+  shape: the first sparse class's rank buffer, one (round, chunk) block of
+  its first bucket's ids. A uniform stream and one with 30% of its ids out
+  of range or sentinels (what row slicing sends); returns the uniform
+  stream's row."""
+  from distributed_embeddings_torch.ops.packed_table import PackedLayout
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+  )
+  _, plan = world4_plan("nccl")
+  key, _, rows = first_sparse_class(plan)
+  n_b = class_buckets(plan, key, lambda i: 1)[0].n_b
+  n = n_b * (W4_BATCH // WORLD // W4_CHUNKS)
+  layout = PackedLayout(rows=rows, width=D)
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+  buf = torch.rand((rows, D), generator=gen, device="cuda")
+  main = None
+  for stream in ("uniform", "out_of_range"):
+    # int32, as the wire carries the routed ids
+    ids = torch.randint(0, rows, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if stream == "out_of_range":
+      bad = torch.rand((n,), generator=gen, device="cuda") < K4_BAD_SHARE
+      junk = torch.tensor([rows, -1, rows + 7, 2**31 - 1, -2**31],
+                          dtype=torch.int32, device="cuda")[
+          torch.randint(0, 5, (n,), generator=gen, device="cuda")]
+      ids = torch.where(bad, junk, ids)
+    got = cx.gather_rows(layout, buf, ids)
+    torch.cuda.synchronize()
+    want = cx.gather_rows_plain(buf, ids)
+    check(torch.equal(got, want),
+          f"gather_rows {stream}: not bit-equal to the plain version")
+    n_valid = int(((ids >= 0) & (ids < rows)).sum().item())
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: cx.gather_rows(layout, buf, ids),
+        "plain_ms": lambda: cx.gather_rows_plain(buf, ids),
+        # moves the same bytes, but reads row rows-1 for the out-of-range
+        # ids instead of writing zeros
+        "library_ms": lambda: buf.index_select(0, ids.clamp(0, rows - 1))},
+        flush)
+    row = {"phase": "kernel", "name": "gather_rows", "stream": stream,
+           "rows": rows, "width": D, "ids": n, "valid_ids": n_valid,
+           "bit_equal": True, "max_abs_err": 0.0, **timed,
+           "library_note": "index_select of clamped ids: no zero rows",
+           **bound(n * 4 + n_valid * D * 4 + n * D * 4, 0, F32_FLOPS)}
+    emit(row)
+    if stream == "uniform":
+      main = row
+  del buf
+  # fused rows short of their physical row (the kernel reads the stride's
+  # lanes; 65 takes its 4-byte path) and a two-row pitch (one optimizer
+  # slot): bit-equal on a small buffer, not timed
+  strides = []
+  for width, n_aux in ((96, 0), (65, 0), (128, 1)):
+    layout = PackedLayout(rows=100_000, width=width, n_aux=n_aux)
+    buf = torch.rand(tuple(layout.shape), generator=gen, device="cuda")
+    ids = torch.randint(-100, layout.rows + 100, (n,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    got = cx.gather_rows(layout, buf, ids)
+    check(torch.equal(got, cx.gather_rows_plain(buf, ids, layout.stride)),
+          f"gather_rows stride {layout.stride}: not bit-equal to the plain "
+          "version")
+    strides.append([layout.stride, layout.phys_width])
+  emit({"phase": "kernel", "name": "gather_rows", "stream": "strides",
+        "stride_pitch": strides, "ids": n, "bit_equal": True})
+  del buf
+  torch.cuda.empty_cache()
+  return main
+
+
+def _w4_counts(cx, ca, ci) -> dict:
+  return {"gather_rows": cx.launches, "apply_rows": ca.launches,
+          "interact_fwd": ci.launches, "interact_bwd": ci.bwd_launches}
+
+
+def _w4_reset(cx, ca, ci) -> None:
+  cx.launches = ca.launches = ci.launches = ci.bwd_launches = 0
+
+
+def _w4_touch_counts(torch, plan, mesh, cats, state) -> dict:
+  """Per sparse class of this rank: how many of the step's ids hit each
+  of its rows (the routed ids are the same every step)."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_param_name,
+  )
+  counts = {name: torch.zeros((buf.shape[0],), dtype=torch.int32,
+                              device=buf.device)
+            for name, buf in state["fused"].items()}
+  for bk, ids in DistributedLookup(plan, mesh=mesh).route_ids(cats).items():
+    name = class_param_name(*bk.class_key)
+    if name not in counts:
+      continue
+    flat = ids.reshape(-1)
+    flat = flat[(flat >= 0) & (flat < counts[name].shape[0])]
+    counts[name].index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+  return counts
+
+
+def _w4_compare_none(torch, mesh, model, vocab, backend, state, batch,
+                     touch) -> dict:
+  """One ``overlap='fused'`` step and one ``overlap='none'`` step from the
+  same state: the losses bit-equal, and the fused buffers bit-equal on
+  every row fewer than two of the step's ids hit (within
+  ``W4_DUP_ATOL`` on the others, where K1's atomics pick the order of the
+  duplicates' adds). Then ``TRAIN_TIMED`` more ``'none'`` steps, timed as
+  the fused ones are, for the schedules' comparison."""
+  from distributed_embeddings_torch.models import bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.training import make_sparse_train_step
+
+  snap = {"fused": {k: v.clone() for k, v in state["fused"].items()},
+          "emb_dense": {k: v.detach().clone()
+                        for k, v in state["emb_dense"].items()},
+          "dense": {k: v.detach().clone() for k, v in state["dense"].items()},
+          "step": state["step"]}
+  losses = {}
+  for overlap, st in (("fused", state), ("none", snap)):
+    _, plan = world4_plan(backend, overlap)
+    step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  sgd_rule(TRAIN_LR), mesh=mesh)
+    _, loss = step(st, *batch)
+    losses[overlap] = float(loss)
+  check(losses["fused"] == losses["none"],
+        f"world 4: fused loss {losses['fused']} != none {losses['none']}")
+  differ, dup_rows, worst = 0, 0, 0.0
+  for name, buf in state["fused"].items():
+    other = snap["fused"][name]
+    dup = touch[name] >= 2
+    dup_rows += int(dup.sum().item())
+    bad = (buf != other).any(dim=1)
+    differ += int((buf != other).sum().item())
+    check(not bool((bad & ~dup).any().item()),
+          f"world 4 {name}: fused and none differ on a row fewer than two "
+          "ids hit")
+    if bool(bad.any().item()):
+      worst = max(worst, (buf[bad] - other[bad]).abs().max().item())
+  check(worst <= W4_DUP_ATOL,
+        f"world 4: fused and none differ by {worst} on duplicate rows")
+  none_ms = []
+  for _ in range(TRAIN_TIMED):
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    step(snap, *batch)
+    torch.cuda.synchronize(mesh.device)
+    none_ms.append((time.perf_counter() - t0) * 1e3)
+  del snap
+  return {"loss_bit_equal": True, "cells_differ": differ,
+          "dup_rows": dup_rows, "dup_rows_max_abs_err": worst,
+          "none_step_ms": none_ms,
+          "none_step_ms_median": statistics.median(none_ms)}
+
+
+def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
+  """One rank of the world-4 phase (a spawned process): the world-4
+  golden, then the path at f32 and bf16 compute. Writes its result to
+  ``outdir/rank<rank>.json``."""
+  import os
+
+  import numpy as np
+  import torch
+
+  from distributed_embeddings_torch import train_golden
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops import cuda_apply as ca
+  from distributed_embeddings_torch.ops import cuda_exchange as cx
+  from distributed_embeddings_torch.ops import cuda_interact as ci
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.mesh import create_mesh
+  from distributed_embeddings_torch.parallel.wire import gather_blocks
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+      shard_batch,
+  )
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  mesh = create_mesh(WORLD, rank, f"tcp://127.0.0.1:{port}", device="cuda")
+  check(mesh.backend == backend,
+        f"rank {rank}: backend {mesh.backend}, expected {backend}")
+  dev = mesh.device
+  out = {"rank": rank, "backend": mesh.backend, "device": str(dev)}
+  try:
+    # the committed world-4 golden's bf16 run, under the fused schedule
+    golden = train_golden.load(train_golden.WORLD4_PATH)
+    losses, got, preds = train_golden.replay_world4(golden, mesh,
+                                                    compute="bf16")
+    if rank == 0:
+      try:
+        worst = train_golden.compare_world4(golden, losses, got, preds)
+      except AssertionError as exc:
+        raise SmokeFailure(f"world-4 golden: {exc}") from exc
+      out["golden"] = {"compute": "bf16", "losses": losses,
+                       "want_losses": [float(v)
+                                       for v in golden["bf16_losses"]],
+                       **worst, "loss_tol": train_golden.LOSS_TOL,
+                       "update_tol": train_golden.UPDATE_TOL}
+
+    vocab, plan = world4_plan(backend)
+    k4_per_step = k4_launches_per_step(plan)
+    gen = torch.Generator().manual_seed(SEED)
+    numerical = torch.randn((W4_BATCH, 13), generator=gen)
+    cats = [torch.randint(0, v, (W4_BATCH,), generator=gen,
+                          dtype=torch.int32) for v in vocab]
+    labels = torch.randint(0, 2, (W4_BATCH,), generator=gen).float()
+    batch = shard_batch((numerical, cats, labels), mesh)
+    out["runs"] = {}
+    for compute in ("f32", "bf16"):
+      dtype = torch.float32 if compute == "f32" else torch.bfloat16
+      model = DLRM(vocab, D, compute_dtype=dtype, device=dev,
+                   generator=torch.Generator().manual_seed(SEED))
+      rule = sgd_rule(TRAIN_LR)
+      torch.cuda.reset_peak_memory_stats(dev)
+      t0 = time.perf_counter()
+      state = init_sparse_state_direct(
+          plan, rule, model.state_dict(), sgd_factory(torch),
+          torch.Generator(device=dev).manual_seed(SEED + 1 + rank),
+          mesh=mesh)
+      torch.cuda.synchronize(dev)
+      init_s = time.perf_counter() - t0
+      touch = _w4_touch_counts(torch, plan, mesh, batch[1], state)
+      # sampled rows of the first sparse class, touched and not
+      name = next(iter(state["fused"]))
+      buf = state["fused"][name]
+      pick = torch.Generator(device=dev).manual_seed(SEED + 2)
+      hit = torch.nonzero(touch[name] > 0).squeeze(1)
+      miss = torch.nonzero(touch[name] == 0).squeeze(1)
+      hit = hit[torch.randperm(hit.numel(), generator=pick,
+                               device=dev)[:ROWS_SAMPLED]]
+      miss = miss[torch.randperm(miss.numel(), generator=pick,
+                                 device=dev)[:ROWS_SAMPLED]]
+      miss_rows = buf[miss].clone()
+      step = make_sparse_train_step(model, plan, bce_loss,
+                                    sgd_factory(torch), rule, mesh=mesh)
+      want = {"gather_rows": k4_per_step, "apply_rows": len(state["fused"]),
+              "interact_fwd": 1, "interact_bwd": 1}
+      totals = dict.fromkeys(want, 0)
+      ms, losses, changed = [], [], []
+      for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        hit_rows = buf[hit].clone()
+        _w4_reset(cx, ca, ci)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        got = _w4_counts(cx, ca, ci)
+        check(got == want, f"world 4 {compute} rank {rank} step {i}: "
+              f"launches {got}, expected {want}")
+        for k, n in got.items():
+          totals[k] += n
+        if i >= TRAIN_WARMUP:
+          ms.append((t1 - t0) * 1e3)
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]),
+              f"world 4 {compute} rank {rank} step {i}: loss {losses[-1]}")
+        check(torch.equal(buf[miss], miss_rows),
+              f"world 4 {compute} rank {rank} step {i}: rows the batch "
+              "does not touch changed")
+        changed.append((buf[hit] != hit_rows).any(dim=1).float().mean()
+                       .item())
+        check(changed[-1] > 0.5,
+              f"world 4 {compute} rank {rank} step {i}: only "
+              f"{changed[-1]:.1%} of the sampled touched rows changed")
+      run = {"step_ms": ms, "step_ms_median": statistics.median(ms),
+             "losses": losses, "touched_rows_changed_share": changed,
+             "launches": totals, "launches_per_step": want,
+             "init_s": init_s,
+             "fused_bytes": sum(t.numel() * 4
+                                for t in state["fused"].values()),
+             "sparse_buckets_k4": k4_per_step // (WORLD * W4_CHUNKS)}
+      torch.cuda.synchronize(dev)
+      run["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+      # every rank's losses, to check they agree
+      all_losses = gather_blocks(torch.tensor(losses, device=dev), mesh)
+      run["losses_agree"] = bool(torch.equal(
+          all_losses.reshape(WORLD, -1),
+          all_losses[:len(losses)].expand(WORLD, -1)))
+      check(run["losses_agree"], f"world 4 {compute}: ranks' losses differ")
+      if rank == 0:
+        run["trace"] = trace_call(torch, lambda: step(state, *batch))
+      else:
+        step(state, *batch)
+      if compute == "f32":
+        run["fused_vs_none"] = _w4_compare_none(
+            torch, mesh, model, vocab, backend, state, batch, touch)
+      out["runs"][compute] = run
+      del state, buf, step, touch
+      torch.cuda.empty_cache()
+  finally:
+    mesh.close()
+  with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+    json.dump(out, f)
+
+
+def phase_world4(torch, smi: str) -> dict:
+  """The world-4 hybrid-parallel train step: four ranks spawned with
+  ``torch.multiprocessing``, NCCL when each owns a card, else gloo with
+  the four sharing the card. Returns each kernel's launches in the run
+  (summed over the ranks)."""
+  import os
+  import socket
+  import tempfile
+
+  import torch.multiprocessing as mp
+
+  backend = "nccl" if torch.cuda.device_count() >= WORLD else "gloo"
+  with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+  outdir = tempfile.mkdtemp(prefix="chip_smoke_world4_")
+  t0 = time.perf_counter()
+  mp.spawn(world4_rank, args=(port, backend, outdir), nprocs=WORLD,
+           join=True)
+  wall_s = time.perf_counter() - t0
+  ranks = []
+  for rank in range(WORLD):
+    with open(os.path.join(outdir, f"rank{rank}.json")) as f:
+      ranks.append(json.load(f))
+  _, plan = world4_plan(backend)
+  emit({"phase": "world4_golden", "backend": backend, **ranks[0]["golden"]})
+  totals = dict.fromkeys(("interact_fwd", "interact_bwd", "apply_rows",
+                          "gather_rows"), 0)
+  for compute in ("f32", "bf16"):
+    runs = [r["runs"][compute] for r in ranks]
+    med = max(r["step_ms_median"] for r in runs)
+    for r in runs:
+      for k, n in r["launches"].items():
+        totals[k] += n
+    emit({"phase": "train_world4", "compute": compute, "backend": backend,
+          "mode": ("four cards, one rank each" if backend == "nccl" else
+                   "one card shared by the four ranks"),
+          "cards": torch.cuda.device_count(), "card": smi,
+          "vocab_scale": f"1/{W4_VOCAB_SCALE[backend]}",
+          "row_slice": W4_ROW_SLICE[backend], "global_batch": W4_BATCH,
+          "exchange_chunks": W4_CHUNKS,
+          "sparse_buckets": runs[0]["sparse_buckets_k4"],
+          "fused_bytes_per_rank": [r["fused_bytes"] for r in runs],
+          "init_s": [r["init_s"] for r in runs],
+          "step_ms": runs[0]["step_ms"],
+          "step_ms_median_by_rank": [r["step_ms_median"] for r in runs],
+          "step_ms_median": med, "samples_per_s": W4_BATCH / (med / 1e3),
+          "peak_gib_by_rank": [r["peak_gib"] for r in runs],
+          "launches_per_step_per_rank": runs[0]["launches_per_step"],
+          "losses": runs[0]["losses"], "losses_agree": True,
+          "touched_rows_changed_share": runs[0]["touched_rows_changed_share"],
+          "untouched_rows_bit_equal": True,
+          **({"fused_vs_none": [r["fused_vs_none"] for r in runs],
+              "none_step_ms_median": max(
+                  r["fused_vs_none"]["none_step_ms_median"] for r in runs)}
+             if compute == "f32" else {})})
+    emit({"phase": "train_world4_trace", "compute": compute,
+          "backend": backend, "rank": 0, "card": smi,
+          **runs[0]["trace"]})
+  emit({"phase": "world4", "wall_s": wall_s})
+  return totals
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
           "replaces": REPLACES[name], "launches": launches,
@@ -639,6 +1078,7 @@ def main() -> int:
     return 2
   from distributed_embeddings_torch.ops import _build
   from distributed_embeddings_torch.ops import cuda_apply as ca
+  from distributed_embeddings_torch.ops import cuda_exchange as cx
   from distributed_embeddings_torch.ops import cuda_interact as ci
   from distributed_embeddings_torch.serving import golden
 
@@ -668,6 +1108,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   rows["apply_rows"] = phase_kernel_apply(
       torch, ca, flush, first_sparse_class(train_plan())[2])
+  torch.cuda.empty_cache()
+  rows["gather_rows"] = phase_kernel_gather(torch, cx, flush)
   del flush
   torch.cuda.empty_cache()
   phase_golden(torch, golden)
@@ -676,9 +1118,15 @@ def main() -> int:
   by_path = {}
   serve = phase_serve(torch, ci, smi)
   by_path["serve"] = {"interact_fwd": serve, "interact_bwd": 0,
-                      "apply_rows": 0}
+                      "apply_rows": 0, "gather_rows": 0}
   for compute in ("f32", "bf16"):
-    by_path[f"train_{compute}"] = phase_train(torch, ci, ca, smi, compute)
+    by_path[f"train_{compute}"] = phase_train(torch, ci, ca, cx, smi,
+                                              compute)
+  torch.cuda.empty_cache()
+  by_path["train_world4"] = phase_world4(torch, smi)
+  for name in _build.KERNELS:
+    check(by_path["train_world4"][name] > 0,
+          f"the world-4 path never launched {name}")
 
   emit({"kernels": [
       kernel_entry(name, rows[name],

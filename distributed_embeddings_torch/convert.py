@@ -49,13 +49,50 @@ def dlrm_state_dict_from_flax(params: Dict[str, Any]
   return out
 
 
-def train_state_from_flax(state: Dict[str, Any],
-                          device="cuda") -> Dict[str, Any]:
+def split_rank_state(state: Dict[str, Any], world: int,
+                     rank: int) -> Dict[str, Any]:
+  """A JAX world-``world`` train state (numpy leaves) -> rank ``rank``'s
+  view: rows ``[rank * n, (rank + 1) * n)`` of every fused buffer and every
+  dense-class block (``n`` = the buffer's rows over ``world``: the JAX
+  package stacks the rank blocks along the row axis), the dense params
+  and the step as they are (replicated)."""
+
+  def block(arr):
+    arr = np.asarray(arr)
+    if arr.shape[0] % world:
+      raise ValueError(f"{arr.shape[0]} rows do not split into {world} "
+                       "rank blocks")
+    n = arr.shape[0] // world
+    return arr[rank * n:(rank + 1) * n]
+
+  out = dict(state)
+  for part in ("fused", "emb_dense"):
+    out[part] = {k: block(v) for k, v in state[part].items()}
+  return out
+
+
+def join_rank_states(states) -> Dict[str, Any]:
+  """The reverse of :func:`split_rank_state`: rank views in rank order ->
+  the global state (the dense params and the step taken from rank 0)."""
+  out = dict(states[0])
+  for part in ("fused", "emb_dense"):
+    out[part] = {k: np.concatenate([np.asarray(s[part][k]) for s in states])
+                 for k in states[0][part]}
+  return out
+
+
+def train_state_from_flax(state: Dict[str, Any], device="cuda",
+                          mesh=None) -> Dict[str, Any]:
   """JAX sparse train state (numpy leaves) -> the port's train state on
   ``device``: every packed buffer whole (table and optimizer-state lanes),
   the dense-class tables, the dense params as a DLRM state_dict, and the
   step. The optax states are not carried: the port's train step binds its
-  ``torch.optim`` optimizers on first use (SGD keeps no state)."""
+  ``torch.optim`` optimizers on first use (SGD keeps no state). With a
+  ``mesh`` the state is this rank's view (:func:`split_rank_state`), on
+  the mesh's device."""
+  if mesh is not None:
+    state = split_rank_state(state, mesh.world, mesh.rank)
+    device = mesh.device
   dev = resolve_device(device)
   return {
       "fused": {k: _tensor(v).to(dev) for k, v in state["fused"].items()},

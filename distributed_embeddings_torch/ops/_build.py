@@ -97,4 +97,4 @@ def load(name: str) -> ctypes.CDLL:
   return lib
 
 
-KERNELS = ("interact_fwd", "interact_bwd", "apply_rows")
+KERNELS = ("interact_fwd", "interact_bwd", "apply_rows", "gather_rows")

@@ -1,19 +1,25 @@
-"""Distributed lookup engine, world-1 subset (PyTorch port).
+"""Distributed lookup engine (PyTorch port of ``parallel/lookup_engine.py``).
 
-Counterpart of ``distributed_embeddings_tpu/parallel/lookup_engine.py``
-at world 1: route the ids into per-bucket routing tensors
-(sentinel-padded), look up the small-vocab dense classes, run the
-(trivial, world-1) mp->dp exchange and reassemble one activation per
-input; and for training, the fused sparse lookup (activations and the
-optimizer-state rows in one gather per class) and the sparse apply (one
-fused scatter-add per class, kernel K1 on the card). Names, bucket keys
-and tensor shapes follow the JAX engine so the two can be compared piece
-by piece.
+Route the ids into per-bucket routing tensors (sentinel-padded) and, at
+world > 1, exchange them to the ranks that own the tables (dp -> mp);
+look up the small-vocab dense classes; return the activations to the
+ranks that own the samples (mp -> dp, ``parallel/wire.py``) and
+reassemble one activation per input, summing row-slice partials. For
+training: the fused sparse lookup (activations and the optimizer-state
+rows in one gather per class) and the sparse apply (one fused
+scatter-add per class, kernel K1 on the card). Under ``overlap='fused'``
+each (round, chunk) send block of a sparse class is gathered just before
+its send (:class:`FusedChunks`), by kernel K4 on the card for plain-row
+f32 layouts. Names, bucket keys and tensor shapes follow the JAX engine
+so the two can be compared piece by piece.
 
-Not ported yet: world > 1 (the wire exchanges), deduplicated routing,
-ragged value streams, the masked physical-row gather of narrow multi-hot
-classes with optimizer state, tiering, and kernel K6 (the fused delta
-build, off by default in the JAX package).
+At world > 1 the engine runs in every rank's process with that rank's
+:class:`~.mesh.Mesh`; class params are the rank's local blocks.
+
+Not ported yet: deduplicated routing (``dedup_exchange``), ragged value
+streams, the masked physical-row gather of narrow multi-hot classes with
+optimizer state, tiering, and kernel K6 (the fused delta build, off by
+default in the JAX package).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.cuda_exchange import gather_rows
 from ..ops.packed_table import (
     PackedLayout,
     SparseRule,
@@ -33,6 +40,7 @@ from ..ops.packed_table import (
     scatter_add_fused,
 )
 from ..ops.sparse_grad import dedup_rows
+from . import wire
 
 if TYPE_CHECKING:
   from ..layers.planner import DistEmbeddingStrategy
@@ -161,6 +169,27 @@ class SparseResiduals:
   aux_rows: Dict[BucketKey, Optional[torch.Tensor]]
 
 
+@dataclasses.dataclass
+class FusedChunks:
+  """Round-major fused-exchange payload of one sparse bucket
+  (``overlap='fused'``).
+
+  ``blocks[k][c]`` is chunk ``c`` of the combined activations this rank
+  gathered for round ``k``'s destination, rank ``(i + k) % world``:
+  ``[n_b, rows_c, w]``. Each chunk feeds exactly one
+  :func:`wire.fused_block_send`, and its cotangent comes back in the same
+  per-round form; :meth:`DistributedLookup._sparse_parts_by_class`
+  reassembles it to the dest-major layout (pure data movement, so f32
+  stays bit-exact against the monolithic and pipelined schedules)."""
+
+  blocks: tuple  # blocks[k][c]: round k's c-th row chunk
+
+  def map(self, fn) -> "FusedChunks":
+    """The same structure with ``fn`` applied to every chunk."""
+    return FusedChunks(tuple(tuple(fn(c) for c in blk)
+                             for blk in self.blocks))
+
+
 class _DenseWindowRows(torch.autograd.Function):
   """Dense-class lookup with the JAX engine's backward precision.
 
@@ -196,14 +225,20 @@ class _DenseWindowRows(torch.autograd.Function):
 
 
 class DistributedLookup:
-  """Lookup engine bound to one plan (world 1; see module docstring).
+  """Lookup engine bound to one plan and, at world > 1, to this rank's
+  :class:`~.mesh.Mesh` (see module docstring).
 
-  Class params are 2-D ``[world * rows, width]`` buffers; at world 1 the
-  whole buffer is rank 0's block."""
+  Class params are the rank's local 2-D blocks: ``[rows, width]`` of the
+  JAX package's ``[world * rows, width]`` arrays (at world 1 the whole
+  buffer)."""
 
   def __init__(self, plan: "DistEmbeddingStrategy",
-               apply_chunk: int = 1 << 22):
+               apply_chunk: int = 1 << 22, mesh=None):
     self.plan = plan
+    if mesh is not None and mesh.world != plan.world_size:
+      raise ValueError(f"the mesh has {mesh.world} ranks, the plan "
+                       f"{plan.world_size}")
+    self.mesh = mesh if plan.world_size > 1 else None
     # occurrences per scatter chunk in apply_sparse (bounds the backward's
     # per-occurrence temporaries; small values exercise the multi-chunk
     # path in tests)
@@ -211,11 +246,39 @@ class DistributedLookup:
     self._bucket_cache: Dict[tuple, List[Bucket]] = {}
     self._slot_map_cache: Dict[tuple, Dict[tuple, tuple]] = {}
 
-  def _require_world_1(self, what: str) -> None:
-    if self.plan.world_size != 1:
-      raise NotImplementedError(
-          f"{what} at world {self.plan.world_size}: the port runs world 1 "
-          "only so far (the wire exchanges are a later slice)")
+  def _my_rank(self) -> int:
+    if self.plan.world_size == 1:
+      return 0
+    if self.mesh is None:
+      raise ValueError(
+          f"a world-{self.plan.world_size} plan's lookups need this rank's "
+          "mesh: DistributedLookup(plan, mesh=parallel.mesh.create_mesh())")
+    return self.mesh.rank
+
+  # ---- the plan's wire, in one place -------------------------------------
+  def _pipelined_wire(self) -> bool:
+    """Rotation rounds for every exchange (``overlap='pipelined'``, and
+    the exchanges with no per-round gather under ``'fused'``)."""
+    return (wire.plan_overlap(self.plan) in ("pipelined", "fused")
+            and self.plan.world_size > 1)
+
+  def _fused_wire(self) -> bool:
+    """Sparse-class blocks gathered per round just before their sends."""
+    return (wire.plan_overlap(self.plan) == "fused"
+            and self.plan.world_size > 1)
+
+  def _wire_exchange_ids(self, x: torch.Tensor) -> torch.Tensor:
+    if self._pipelined_wire():
+      return wire.pipelined_exchange_ids(
+          x, self.mesh, wire.plan_exchange_chunks(self.plan))
+    return wire.exchange_ids(x, self.mesh)
+
+  def _wire_exchange_float(self, x: torch.Tensor) -> torch.Tensor:
+    wd = wire.plan_wire_dtype(self.plan)
+    if self._pipelined_wire():
+      return wire.pipelined_float_exchange(
+          x, self.mesh, wd, wire.plan_exchange_chunks(self.plan))
+    return wire.float_all_to_all(x, self.mesh, wd)
 
   # ---- dp-side routing ---------------------------------------------------
   def _build_routing(self, key, bucket: Bucket,
@@ -262,10 +325,17 @@ class DistributedLookup:
 
   def route_ids(self, inputs: Sequence, hotness_of=None
                 ) -> Dict[BucketKey, torch.Tensor]:
-    """Per bucket, the ids this (only) rank's tables serve:
-    ``bk -> [n_b, B]`` (hotness 1) or ``[n_b, B, h]``."""
-    self._require_world_1("route_ids")
+    """dp->mp id exchange: per bucket, the global batch's ids that this
+    rank's tables serve, ``bk -> [n_b, G]`` (hotness 1) or ``[n_b, G,
+    h]`` with ``G = world * B`` source-rank-major. At world > 1 the ids
+    travel the wire as int32, as in the JAX package, and stay int32."""
     plan = self.plan
+    world = plan.world_size
+    self._my_rank()  # a world > 1 plan needs the mesh
+    if world > 1 and getattr(plan, "dedup_exchange", False):
+      raise NotImplementedError(
+          "dedup_exchange=True: the deduplicated exchange (DedupRouted) "
+          "is not ported yet")
     inputs = [_normalize_input(x) for x in inputs]
     if len(inputs) != plan.num_inputs:
       raise ValueError(f"Expected {plan.num_inputs} inputs, got {len(inputs)}")
@@ -281,9 +351,11 @@ class DistributedLookup:
     ids_all = {}
     for key in plan.class_keys:
       for bucket in self._buckets(key, hotness_of):
-        x = self._build_routing(key, bucket, inputs)
+        x = self._build_routing(key, bucket, inputs)  # [world, n_b, B(, h)]
+        if world > 1:
+          x = self._wire_exchange_ids(x.to(torch.int32))
         ids_all[bucket_key(key, bucket.h, bucket.vcap, bucket.rs)] = \
-            self._reshape_routed(x, bucket, 1, b)
+            self._reshape_routed(x, bucket, world, b)
     return ids_all
 
   @staticmethod
@@ -345,7 +417,7 @@ class DistributedLookup:
     if cp.combiner is None and h != 1:
       raise ValueError("combiner=None requires hotness-1 inputs in the "
                        "distributed path (2-D model-parallel outputs)")
-    offs = torch.as_tensor(self._dense_offsets(key, bucket)[0],
+    offs = torch.as_tensor(self._dense_offsets(key, bucket)[self._my_rank()],
                            device=ids_all.device)
     off_b = offs[:, None] if two_d else offs[:, None, None]
     ids_local = ids_all - off_b
@@ -362,12 +434,96 @@ class DistributedLookup:
 
   def exchange(self, z: Dict[BucketKey, torch.Tensor], batch_local: int,
                ids_all=None) -> Dict[BucketKey, torch.Tensor]:
-    """mp->dp activation exchange: ``bk -> [world_owner, n_b, B, w]``. At
-    world 1 it is the reshape the JAX engine does before its wire."""
+    """mp->dp activation exchange: ``z`` maps ``bk -> [n_b, G, w]`` (or a
+    :class:`FusedChunks`); returns ``bk -> [world_owner, n_b, B, w]``.
+    Differentiable: the wire's backward runs the reverse exchange, which
+    brings each rank the cotangents of the rows it owns."""
     del ids_all
-    self._require_world_1("exchange")
-    return {bk: zb.reshape(zb.shape[0], 1, batch_local, -1).transpose(0, 1)
-            for bk, zb in z.items()}
+    world = self.plan.world_size
+    self._my_rank()  # a world > 1 plan needs the mesh
+    received = {}
+    for bk, zb in z.items():
+      if isinstance(zb, FusedChunks):
+        received[bk] = self._exchange_fused(zb)
+        continue
+      zb = zb.reshape(zb.shape[0], world, batch_local, -1).transpose(0, 1)
+      if world > 1:
+        zb = self._wire_exchange_float(zb)
+      received[bk] = zb
+    return received
+
+  # ---- just-in-time fused schedule (overlap='fused') ---------------------
+  def _fused_chunk_slices(self, rows: int):
+    """Static ``(start, size)`` row chunks of one round block: at most
+    ``exchange_chunks`` chunks, never an empty one, the tail the
+    smallest; the same on every rank."""
+    chunks = max(1, min(wire.plan_exchange_chunks(self.plan), rows))
+    per = -(-rows // chunks)
+    return [(s, min(per, rows - s)) for s in range(0, rows, per)]
+
+  def _fused_gather(self, layout: PackedLayout, buf_local: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """One round block's gather: kernel K4 (``ops/cuda_exchange.py``) for
+    plain-row f32 layouts (one fused row per physical row, at any stride),
+    ``gather_fused_chunked`` (the monolithic schedule's gather) for every
+    other layout. On the CPU K4's wrapper runs its plain version."""
+    if layout.rows_per_phys == 1 and buf_local.dtype == torch.float32:
+      return gather_rows(layout, buf_local, ids.to(torch.int32))
+    return gather_fused_chunked(layout, buf_local, ids)
+
+  def _fused_reassemble(self, per_round) -> torch.Tensor:
+    """Round-major blocks -> the dest-major layout: ``per_round[k]``
+    (``[n_b, rows, ...]``, the payload for rank ``(i + k) % world``) ->
+    ``[n_b, world * rows, ...]``. Pure data movement."""
+    world, i = self.plan.world_size, self._my_rank()
+    out = torch.stack([per_round[(d - i) % world] for d in range(world)],
+                      dim=1)  # [n_b, world, rows, ...]
+    return out.reshape((out.shape[0], world * out.shape[2])
+                       + tuple(out.shape[3:]))
+
+  def _z_sparse_fused_jit(self, key, layout: PackedLayout,
+                          buf_local: torch.Tensor, ids_all: torch.Tensor,
+                          rs: bool = False, keep_rows: bool = False):
+    """Just-in-time counterpart of :meth:`_z_sparse_fused`: ``(FusedChunks,
+    aux)``. Round ``k`` gathers and combines only the ids of destination
+    ``(i + k) % world``, chunk by chunk; gather and combine act per
+    (slot, sample), so slicing the ids first equals slicing the
+    monolithic result after (bit-exact). The aux residuals are
+    reassembled to their dest-major layouts here."""
+    self._check_routed(layout, ids_all)
+    world, i = self.plan.world_size, self._my_rank()
+    bsz = ids_all.shape[1] // world
+    blocks, aux_rounds = [], []
+    for k in range(world):
+      d = (i + k) % world
+      ids_d = ids_all[:, d * bsz:(d + 1) * bsz]
+      zc, ac = [], []
+      for s0, sz in self._fused_chunk_slices(bsz):
+        ids_c = ids_d[:, s0:s0 + sz]
+        z, a = self._combine_fused(
+            key, layout, self._fused_gather(layout, buf_local, ids_c), ids_c,
+            rs, keep_rows)
+        zc.append(z)
+        ac.append(a)
+      blocks.append(tuple(zc))
+      aux_rounds.append(None if ac[0] is None else
+                        ac[0] if len(ac) == 1 else torch.cat(ac, dim=1))
+    aux = (None if aux_rounds[0] is None
+           else self._fused_reassemble(aux_rounds))
+    return FusedChunks(tuple(blocks)), aux
+
+  def _exchange_fused(self, fz: FusedChunks) -> torch.Tensor:
+    """mp->dp return of a :class:`FusedChunks` payload, one send per
+    just-gathered chunk; received round ``k`` came from rank ``(i - k) %
+    world``, so the rounds are placed source-major:
+    ``[world, n_b, B, w]``."""
+    world, i = self.plan.world_size, self._my_rank()
+    wd = wire.plan_wire_dtype(self.plan)
+    rounds = []
+    for k, blk in enumerate(fz.blocks):
+      got = [wire.fused_block_send(c, self.mesh, k, wd) for c in blk]
+      rounds.append(got[0] if len(got) == 1 else torch.cat(got, dim=1))
+    return torch.stack([rounds[(i - j) % world] for j in range(world)])
 
   # ---- reassembly --------------------------------------------------------
   def _hot_sig(self, key, hotness_of) -> tuple:
@@ -504,7 +660,13 @@ class DistributedLookup:
     differentiable tail (:meth:`finish_forward`) and feeds their
     cotangents to :meth:`apply_sparse`. ``keep_rows`` saves the
     forward-time rows even for aux-free rules (``rule.weight_decay``
-    needs them); ``keep_aux=False`` saves nothing (the eval step)."""
+    needs them); ``keep_aux=False`` saves nothing (the eval step).
+
+    Under ``overlap='fused'`` (world > 1) each bucket's ``z`` is a
+    :class:`FusedChunks` of per-round gathers (:meth:`_z_sparse_fused_jit`);
+    the residuals keep their dest-major layouts either way."""
+    gather = (self._z_sparse_fused_jit if self._fused_wire()
+              else self._z_sparse_fused)
     z: Dict[BucketKey, torch.Tensor] = {}
     aux: Dict[BucketKey, Optional[torch.Tensor]] = {}
     for bk, ids in ids_all.items():
@@ -513,8 +675,8 @@ class DistributedLookup:
         continue
       name = class_param_name(*key)
       buf_local = self._squeeze_local(fused_params[name])
-      z[bk], auxb = self._z_sparse_fused(key, layouts[name], buf_local, ids,
-                                         bk.rs, keep_rows=keep_rows)
+      z[bk], auxb = gather(key, layouts[name], buf_local, ids, bk.rs,
+                           keep_rows=keep_rows)
       aux[bk] = auxb if keep_aux else None
     return z, SparseResiduals(ids_all=dict(ids_all), aux_rows=aux)
 
@@ -526,26 +688,36 @@ class DistributedLookup:
     The combine sums the full fused stride (table + aux lanes) and slices
     the table lanes at bag granularity, as the JAX engine does; the
     residual is the gathered fused rows (None when nothing reads them)."""
-    w = layout.width
+    self._check_routed(layout, ids_all)
+    return self._combine_fused(
+        key, layout, gather_fused_chunked(layout, buf_local, ids_all),
+        ids_all, rs, keep_rows)
+
+  @staticmethod
+  def _check_routed(layout: PackedLayout, ids_all) -> None:
+    """Refuse the routings the fused gather does not serve yet."""
     if not isinstance(ids_all, torch.Tensor):
       raise NotImplementedError(
           f"routed ids of type {type(ids_all).__name__}: deduplicated and "
           "ragged routing are not ported yet (ROADMAP.md open items, "
-          "queue 1, item 5)")
+          "queue B, item 7)")
     multi_hot = ids_all.dim() == 3 and ids_all.shape[-1] > 1
     if layout.rows_per_phys > 1 and layout.n_aux and multi_hot:
       raise NotImplementedError(
           "multi-hot ids on a narrow class with optimizer state: the JAX "
           "engine's masked physical-row gather is not ported yet "
-          "(ROADMAP.md open items, queue 1, item 8)")
-    fused = gather_fused_chunked(layout, buf_local, ids_all)
+          "(ROADMAP.md open items, queue B, item 6)")
+
+  def _combine_fused(self, key, layout: PackedLayout, fused: torch.Tensor,
+                     ids: torch.Tensor, rs: bool, keep_rows: bool):
+    """Gathered fused rows -> ``(z, residual rows or None)``."""
+    w = layout.width
     if layout.n_aux == 0:
-      return (self._combine(fused, ids_all, key, rs),
+      return (self._combine(fused, ids, key, rs),
               fused if keep_rows else None)
-    if not multi_hot:
-      return self._combine(fused[..., :w], ids_all, key, rs), fused
-    zf = self._combine(fused, ids_all, key, rs)
-    return zf[..., :w], fused
+    if ids.dim() == 2 or ids.shape[-1] == 1:
+      return self._combine(fused[..., :w], ids, key, rs), fused
+    return self._combine(fused, ids, key, rs)[..., :w], fused
 
   @staticmethod
   def _aux_occ(aux, layout: PackedLayout, rule: SparseRule):
@@ -567,13 +739,19 @@ class DistributedLookup:
   def _sparse_parts_by_class(self, d_z, residuals: SparseResiduals,
                              rule: SparseRule) -> Dict[str, list]:
     """Group per-bucket cotangents into per-class ``(ids, dz, aux, h)``
-    parts; mean combiners divide by the forward's valid counts."""
+    parts; mean combiners divide by the forward's valid counts. A
+    :class:`FusedChunks` cotangent (the fused schedule's per-round form)
+    is reassembled to the dest-major layout first."""
     plan = self.plan
     by_class: Dict[str, list] = {}
     for bk, dzb in d_z.items():
       key, h = bk.class_key, bk.h
       if plan.classes[key].kind != "sparse":
         continue
+      if isinstance(dzb, FusedChunks):
+        dzb = self._fused_reassemble(
+            [blk[0] if len(blk) == 1 else torch.cat(blk, dim=1)
+             for blk in dzb.blocks])
       cp = plan.classes[key]
       ids = residuals.ids_all[bk]
       aux = (residuals.aux_rows[bk]

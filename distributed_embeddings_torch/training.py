@@ -1,4 +1,4 @@
-"""The fused sparse train step, world 1 (PyTorch port of ``training.py``).
+"""The fused sparse train step (PyTorch port of ``training.py``).
 
 Embedding tables live in the lane-packed fused layout
 (``ops/packed_table.py``) with the sparse rule's optimizer state
@@ -9,25 +9,37 @@ a ``torch.optim`` optimizer, as do the model's dense parameters.
 
 One step (:func:`make_sparse_train_step`):
 
-1. route the ids (world 1: no exchange);
-2. fused gather per sparse class, outside autograd;
-3. the differentiable tail — dense-class lookups, assembly, the model,
-   the loss — on leaves that require grad: the dense parameters, the
-   dense-class tables and the sparse activations ``z``. One
-   ``loss.backward()`` gives the three gradients of the JAX step's
-   ``value_and_grad``;
-4. the ``torch.optim`` steps on the dense parameters and tables, then the
-   sparse apply under ``no_grad``, in place on the packed buffers.
+1. route the ids; at world > 1 exchange them to the ranks that own the
+   tables (dp -> mp);
+2. fused gather per sparse class, outside autograd (per exchange round
+   under ``overlap='fused'``, kernel K4 on the card);
+3. the differentiable tail — dense-class lookups, the mp -> dp exchange,
+   assembly, the model, the loss — on leaves that require grad: the dense
+   parameters, the dense-class tables and the sparse activations ``z``.
+   One ``loss.backward()`` gives the three gradients of the JAX step's
+   ``value_and_grad``; the exchange's backward brings each rank the
+   cotangents of the rows it owns;
+4. at world > 1 the replicated dense gradients are summed over the ranks
+   (``all_reduce``) and every gradient scaled by ``1 / world`` (the
+   global batch mean); then the ``torch.optim`` steps on the dense
+   parameters and tables, and the sparse apply under ``no_grad``, in
+   place on the packed buffers.
+
+At world > 1 every rank runs the same step in its own process with its
+:class:`~.parallel.mesh.Mesh`: its slice of the batch (:func:`shard_batch`),
+the replicated dense parameters, and its rank's block of every class
+(``[rows, width]`` of the JAX package's ``[world * rows, width]``).
 
 The state is a dict ``{'dense', 'dense_opt', 'emb_dense', 'emb_dense_opt',
 'fused', 'step'}``; the step updates it in place (the JAX step donates
-its state) and returns ``(state, loss)``. ``dense_optimizer`` is a
-factory ``params -> torch.optim.Optimizer`` (``functools.partial(
-torch.optim.SGD, lr=...)`` for ``optax.sgd``).
+its state) and returns ``(state, loss)``, the loss averaged over the
+ranks. ``dense_optimizer`` is a factory ``params ->
+torch.optim.Optimizer`` (``functools.partial(torch.optim.SGD, lr=...)``
+for ``optax.sgd``).
 
-Not ported yet: world > 1 (``mesh``), ``micro_batches > 1``, the
-non-finite guard, the tiered step, dense-class regularizers and
-constraints, and ``make_train_step`` (the dense autodiff path).
+Not ported yet: ``micro_batches > 1``, the non-finite guard, the tiered
+step, dense-class regularizers and constraints, and ``make_train_step``
+(the dense autodiff path).
 """
 
 from __future__ import annotations
@@ -36,13 +48,16 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from .device import resolve_device
 from .layers.planner import DistEmbeddingStrategy
 from .ops.packed_table import SparseRule, init_packed_uniform
+from .parallel import wire
 from .parallel.lookup_engine import (
     DistributedLookup,
+    FusedChunks,
     class_param_name,
     padded_rows,
     ragged_hotness,
@@ -86,15 +101,17 @@ def init_sparse_state(plan: DistEmbeddingStrategy, params: Dict[str, Any],
                       rule: SparseRule, dense_optimizer: OptimizerFactory,
                       emb_dense_optimizer: Optional[OptimizerFactory] = None,
                       emb_collection: str = "embeddings",
-                      device="cuda") -> Dict[str, Any]:
+                      device="cuda", mesh=None) -> Dict[str, Any]:
   """Build the fused train state from initialized tables and dense params.
 
   ``params[emb_collection]`` maps every class name to its simple-layout
   ``[world * rows, width]`` table; the other entries are the model's dense
   parameters (its ``state_dict`` names). Sparse-class tables are packed
   with ``rule``'s optimizer-state rows at their initial values; dense-class
-  tables keep the simple layout and get an optimizer."""
-  dev = resolve_device(device)
+  tables keep the simple layout and get an optimizer. With a ``mesh`` the
+  state holds this rank's blocks only, on the mesh's device."""
+  dev = _state_device(device, mesh)
+  ranks = _state_ranks(plan, mesh)
   engine = DistributedLookup(plan)
   layouts = engine.fused_layouts(rule)
   tables = params[emb_collection]
@@ -104,9 +121,9 @@ def init_sparse_state(plan: DistEmbeddingStrategy, params: Dict[str, Any],
   for key in plan.class_keys:
     name = class_param_name(*key)
     arr = torch.as_tensor(tables[name]).to(device=dev, dtype=torch.float32)
+    rows = arr.shape[0] // plan.world_size
     if plan.classes[key].kind == "sparse":
       layout = layouts[name]
-      rows = arr.shape[0] // plan.world_size
       # every window of every physical row gets the aux fill, the unused
       # windows of the last row too (the JAX package's pack_chunked)
       full = dataclasses.replace(
@@ -117,14 +134,28 @@ def init_sparse_state(plan: DistEmbeddingStrategy, params: Dict[str, Any],
       block = torch.zeros((full.rows, layout.width), dtype=torch.float32,
                           device=dev)
       blocks = []
-      for r in range(plan.world_size):
+      for r in ranks:
         block[:rows] = arr[r * rows:(r + 1) * rows]
         blocks.append(full.pack(block, aux))
       fused[name] = torch.cat(blocks)
     else:
-      emb_dense[name] = _leaf(arr, dev)
+      emb_dense[name] = _leaf(torch.cat([arr[r * rows:(r + 1) * rows]
+                                         for r in ranks]), dev)
   state = {"dense": dense, "emb_dense": emb_dense, "fused": fused, "step": 0}
   return _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+
+
+def _state_device(device, mesh) -> torch.device:
+  """The state's device: the mesh's, else ``device`` as asked."""
+  return mesh.device if mesh is not None else resolve_device(device)
+
+
+def _state_ranks(plan: DistEmbeddingStrategy, mesh) -> range:
+  """The rank blocks a state holds: the mesh's rank, else all of them."""
+  if mesh is None:
+    return range(plan.world_size)
+  _check_mesh(plan, mesh)
+  return range(mesh.rank, mesh.rank + 1)
 
 
 def _uniform_scale(initializer) -> float:
@@ -159,15 +190,17 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
                              generator: torch.Generator,
                              emb_dense_optimizer: Optional[
                                  OptimizerFactory] = None,
-                             device="cuda") -> Dict[str, Any]:
+                             device="cuda", mesh=None) -> Dict[str, Any]:
   """Build the fused train state without materializing simple-layout
   tables: every sparse class is drawn straight into its packed layout
   (``init_packed_uniform``: peak memory is the buffer plus one chunk),
   every dense class row by row. Each table's rows are uniform in +-its
-  initializer's bound; padding rows are zero. ``generator`` lives on
-  ``device``; the draws match the JAX package's distribution, not its
-  bits."""
-  dev = resolve_device(device)
+  initializer's bound; padding rows are zero. ``generator`` lives on the
+  state's device; the draws match the JAX package's distribution, not its
+  bits. With a ``mesh`` only this rank's blocks are drawn, on the mesh's
+  device (seed the generator per rank); ``dense_params`` must be the same
+  on every rank."""
+  dev = _state_device(device, mesh)
   engine = DistributedLookup(plan)
   layouts = engine.fused_layouts(rule)
   fused, emb_dense = {}, {}
@@ -175,7 +208,7 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
     name = class_param_name(*key)
     cp = plan.classes[key]
     blocks = []
-    for r in range(plan.world_size):
+    for r in _state_ranks(plan, mesh):
       scale = init_scale_rows(plan, key, r).to(dev)
       if cp.kind == "sparse":
         blocks.append(init_packed_uniform(layouts[name], generator, scale,
@@ -197,20 +230,27 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
 def unpack_sparse_state(plan: DistEmbeddingStrategy, rule: SparseRule,
                         state: Dict[str, Any],
                         emb_collection: str = "embeddings",
-                        include_aux: bool = False):
+                        include_aux: bool = False, mesh=None):
   """Fused state -> ``(params, aux)`` in the simple layout:
   ``params[emb_collection]`` holds every class table as ``[world * rows,
   width]``, the other entries the dense parameters; with ``include_aux``,
-  ``aux`` maps sparse class names to their optimizer-state tables."""
+  ``aux`` maps sparse class names to their optimizer-state tables. With a
+  ``mesh`` (a state of rank blocks) every rank's blocks are gathered
+  first, so every rank returns the global view."""
   layouts = DistributedLookup(plan).fused_layouts(rule)
+
+  def whole(t):
+    t = t.detach()
+    return t if mesh is None else wire.gather_blocks(t, mesh)
+
   tables, aux_out = {}, {}
   for key in plan.class_keys:
     name = class_param_name(*key)
     if plan.classes[key].kind != "sparse":
-      tables[name] = state["emb_dense"][name].detach()
+      tables[name] = whole(state["emb_dense"][name])
       continue
     layout = layouts[name]
-    buf = state["fused"][name]
+    buf = whole(state["fused"][name])
     blocks = [layout.unpack(buf[r * layout.phys_rows:
                                 (r + 1) * layout.phys_rows])
               for r in range(plan.world_size)]
@@ -281,23 +321,61 @@ def _l2_decay_factor(spec) -> Optional[float]:
   return None
 
 
-def _reduce_and_apply_dense(state: Dict[str, Any]) -> None:
-  """The dense tail of the step at world 1: the optimizer steps on the
-  dense parameters and the dense-class tables (their gradients are in
-  ``.grad`` after the backward), then the gradients are dropped. At
-  world 1 there is no cross-device reduction."""
+def _reduce_and_apply_dense(state: Dict[str, Any], d_z, loss, mesh=None):
+  """The dense tail of the step: cross-rank reduction, then the optimizer
+  steps on the dense parameters and the dense-class tables (their
+  gradients are in ``.grad`` after the backward), then the gradients are
+  dropped. Returns ``(d_z, loss)`` for the sparse apply.
+
+  At world > 1 the replicated dense parameters' gradients are summed over
+  the ranks (one ``all_reduce`` of them flattened together) and every
+  gradient — dense, dense-class, ``d_z`` — is scaled by ``1 / world``,
+  which restores the global batch mean; the loss is averaged over the
+  ranks. The dense-class tables are per-rank windows and are never
+  summed."""
+  if mesh is not None and mesh.world > 1:
+    dense = list(state["dense"].values())
+    for p in dense:
+      if p.grad is None:
+        p.grad = torch.zeros_like(p)
+    if dense:
+      flat = torch.cat([p.grad.reshape(-1) for p in dense])
+      dist.all_reduce(flat)
+      off = 0
+      for p in dense:
+        n = p.grad.numel()
+        p.grad.copy_(flat[off:off + n].view_as(p.grad))
+        off += n
+    scale = 1.0 / mesh.world
+    for p in dense + list(state["emb_dense"].values()):
+      if p.grad is not None:
+        p.grad.mul_(scale)
+    d_z = {bk: (g.map(lambda c: c * scale) if isinstance(g, FusedChunks)
+                else g * scale) for bk, g in d_z.items()}
+    loss = loss.clone()
+    dist.all_reduce(loss)
+    loss = loss / mesh.world
   for opt_name in ("dense_opt", "emb_dense_opt"):
     opt = state[opt_name]
     if opt is not None:
       opt.step()
       opt.zero_grad(set_to_none=True)
+  return d_z, loss
+
+
+def _check_mesh(plan, mesh) -> None:
+  """A world-N plan runs on an N-rank mesh; a world-1 plan needs none."""
+  if plan.world_size > 1 and mesh is None:
+    raise ValueError(
+        f"a world-{plan.world_size} plan needs this rank's mesh "
+        "(parallel.mesh.create_mesh)")
+  if mesh is not None and mesh.world != plan.world_size:
+    raise ValueError(f"the mesh has {mesh.world} ranks, the plan "
+                     f"{plan.world_size}")
 
 
 def _refuse_unported(plan, mesh, micro_batches: int, guard: bool) -> None:
-  if mesh is not None or plan.world_size != 1:
-    raise NotImplementedError(
-        "the port trains world-1 plans on one device so far (mesh=None); "
-        "the wire exchanges are a later slice")
+  _check_mesh(plan, mesh)
   if micro_batches != 1:
     raise NotImplementedError(
         f"micro_batches={micro_batches}: the micro-batch step is not "
@@ -316,6 +394,20 @@ def _refuse_unported(plan, mesh, micro_batches: int, guard: bool) -> None:
         "ported yet; use oov='clip'")
 
 
+def _leaf_of(z):
+  """A sparse activation (or each chunk of a :class:`FusedChunks`) as a
+  fresh leaf that requires grad."""
+  if isinstance(z, FusedChunks):
+    return z.map(_leaf_of)
+  return z.detach().requires_grad_(True)
+
+
+def _grad_of(z):
+  if isinstance(z, FusedChunks):
+    return z.map(_grad_of)
+  return z.grad if z.grad is not None else torch.zeros_like(z)
+
+
 def make_sparse_train_step(model: torch.nn.Module,
                            plan: DistEmbeddingStrategy,
                            loss_fn: Callable,
@@ -327,7 +419,7 @@ def make_sparse_train_step(model: torch.nn.Module,
                            exact: bool = False,
                            micro_batches: int = 1,
                            guard: bool = False):
-  """Train step on the fused sparse state (world 1).
+  """Train step on the fused sparse state.
 
   Args:
     model: an ``nn.Module`` called as ``model(numerical, cats,
@@ -338,17 +430,19 @@ def make_sparse_train_step(model: torch.nn.Module,
       parameters and, unless ``emb_dense_optimizer`` is given, the
       dense-class tables.
     rule: the sparse :class:`SparseRule`.
-    mesh: must be None (world 1).
+    mesh: this rank's :class:`~.parallel.mesh.Mesh` for a world > 1 plan
+      (every rank builds and calls the step), None at world 1.
     exact: the reference's deduplicated backward (sort + segment-sum).
     micro_batches, guard: 1 and False only (not ported yet).
 
   Returns:
-    ``step(state, numerical, cats, labels) -> (state, loss)``, with the
-    batch on the state's device; ``state`` is updated in place.
+    ``step(state, numerical, cats, labels) -> (state, loss)``, with this
+    rank's slice of the batch on the state's device (:func:`shard_batch`);
+    ``state`` is updated in place and ``loss`` is the mean over the ranks.
   """
   _refuse_unported(plan, mesh, micro_batches, guard)
   rule = _fused_rule_and_penalties(plan, rule)
-  engine = DistributedLookup(plan)
+  engine = DistributedLookup(plan, mesh=mesh)
   layouts = engine.fused_layouts(rule)
   # exact=True re-gathers rows at apply time; a weight decay without aux
   # lanes needs the forward-time rows saved
@@ -366,22 +460,20 @@ def make_sparse_train_step(model: torch.nn.Module,
       z_sparse, residuals = engine.lookup_sparse_fused(
           state["fused"], layouts, ids_all, keep_rows=keep_rows,
           keep_aux=not exact)
-    z_leaves = {bk: z.detach().requires_grad_(True)
-                for bk, z in z_sparse.items()}
+    z_leaves = {bk: _leaf_of(z) for bk, z in z_sparse.items()}
     acts = engine.finish_forward(z_leaves, state["emb_dense"], ids_all, b,
                                  hotness_of, counts)
     logits = functional_call(model, state["dense"], (numerical, cats),
                              {"emb_acts": acts})
     loss = loss_fn(logits, labels)
     loss.backward()
-    d_z = {bk: (z.grad if z.grad is not None else torch.zeros_like(z))
-           for bk, z in z_leaves.items()}
-    _reduce_and_apply_dense(state)
+    d_z = {bk: _grad_of(z) for bk, z in z_leaves.items()}
+    d_z, loss = _reduce_and_apply_dense(state, d_z, loss.detach(), mesh)
     with torch.no_grad():
       engine.apply_sparse(state["fused"], layouts, d_z, residuals, rule,
                           state["step"], exact=exact)
     state["step"] += 1
-    return state, loss.detach()
+    return state, loss
 
   return step
 
@@ -390,11 +482,12 @@ def make_sparse_eval_step(model: torch.nn.Module,
                           plan: DistEmbeddingStrategy, rule: SparseRule,
                           mesh=None, with_metrics: bool = False):
   """Forward on the fused state: ``eval(state, numerical, cats) ->
-  preds``. Never writes the state (the JAX eval step never donates it).
-  ``with_metrics`` (the OOV counters) is not ported yet."""
-  if mesh is not None or plan.world_size != 1:
-    raise NotImplementedError(
-        "the port evaluates world-1 plans on one device so far (mesh=None)")
+  preds``, this rank's predictions for its slice of the batch (with a
+  ``mesh``, every rank calls it; the JAX step's batch-sharded output is
+  these slices in rank order). Never writes the state (the JAX eval step
+  never donates it). ``with_metrics`` (the OOV counters) is not ported
+  yet."""
+  _check_mesh(plan, mesh)
   if with_metrics or getattr(plan, "dedup_capacity", None) is not None:
     raise NotImplementedError(
         "with_metrics=True (the OOV and dedup-overflow counters) is not "
@@ -402,7 +495,7 @@ def make_sparse_eval_step(model: torch.nn.Module,
   if getattr(plan, "oov", "clip") == "allocate":
     raise ValueError("plan.oov='allocate' is not evaluable: allocation "
                      "mutates the id space; evaluate with oov='clip'")
-  engine = DistributedLookup(plan)
+  engine = DistributedLookup(plan, mesh=mesh)
   layouts = engine.fused_layouts(rule)
 
   @torch.inference_mode()
@@ -421,3 +514,29 @@ def make_sparse_eval_step(model: torch.nn.Module,
                            {"emb_acts": acts})
 
   return local_eval
+
+
+def shard_batch(batch, mesh=None, device="cuda"):
+  """This rank's slice of a global host batch, on its device.
+
+  Every leaf's leading (batch) axis is cut into ``world`` equal slices
+  and rank ``r`` keeps slice ``r`` (the JAX package's ``P(axis)`` batch
+  sharding, one process per rank); a global batch the world does not
+  divide is refused. Without a mesh the whole batch goes to ``device``.
+  Nested tuples and lists keep their structure."""
+  dev = _state_device(device, mesh)
+  world = 1 if mesh is None else mesh.world
+
+  def put(x):
+    if isinstance(x, (tuple, list)):
+      return type(x)(put(v) for v in x)
+    x = torch.as_tensor(x)
+    if world > 1 and x.dim():
+      if x.shape[0] % world:
+        raise ValueError(f"global batch {x.shape[0]} is not divisible by "
+                         f"the world size {world}")
+      n = x.shape[0] // world
+      x = x[mesh.rank * n:(mesh.rank + 1) * n]
+    return x.to(dev)
+
+  return put(batch)

@@ -1,11 +1,15 @@
 """The PyTorch port stands alone and runs on the card unless told not to.
 
 - It imports with ``jax``, ``flax``, ``optax``, ``ml_dtypes`` and
-  ``distributed_embeddings_tpu`` blocked, every module of it;
+  ``distributed_embeddings_tpu`` blocked, every module of it (the
+  world > 1 modules ``parallel.mesh``, ``parallel.wire`` and
+  ``ops.cuda_exchange`` included);
 - no ``.py`` file of it, nor ``chip_smoke.py``, names one of those in an
   import statement;
 - its entry points default to ``device="cuda"``: without a GPU they raise
-  instead of quietly running on the CPU.
+  instead of quietly running on the CPU;
+- ``convert.split_rank_state`` cuts a rank's view out of a JAX world-N
+  train state and ``join_rank_states`` reverses it.
 """
 
 import ast
@@ -18,6 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_embeddings_torch import train_golden
+from distributed_embeddings_torch.convert import (
+    join_rank_states,
+    split_rank_state,
+)
 from distributed_embeddings_torch.models import DLRM, dlrm_embedding_plan
 from distributed_embeddings_torch.ops.packed_table import (
     PackedLayout,
@@ -47,7 +56,7 @@ for name in names:
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in {banned!r} and sys.modules[n] is not None)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -57,7 +66,11 @@ def test_port_imports_with_jax_blocked():
                      cwd=REPO, env=env, capture_output=True, text=True,
                      timeout=120)
   assert r.returncode == 0, r.stdout + r.stderr
-  assert int(r.stdout.split()[-1]) >= 15  # every module was imported
+  names = set(r.stdout.split())
+  assert len(names) >= 15  # every module was imported
+  # slice 3's modules among them: the process group, the wire, K4
+  for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange"):
+    assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
 def _imported_roots(path: Path):
@@ -108,3 +121,27 @@ def test_entry_points_default_to_cuda():
   with pytest.raises(RuntimeError, match="CUDA is not available"):
     ServeEngine(model, plan, frozen)
   ServeEngine(model, plan, frozen, device="cpu")  # asked for: runs
+
+
+def test_rank_views_split_and_join():
+  """``convert.split_rank_state`` cuts rank ``r``'s rows out of every
+  fused buffer and dense-class block and keeps the dense params whole;
+  ``join_rank_states`` puts the global state back together."""
+  state = train_golden.initial_state(train_golden.load(
+      train_golden.WORLD4_PATH))
+  world = 4
+  views = [split_rank_state(state, world, r) for r in range(world)]
+  for part in ("fused", "emb_dense"):
+    for name, arr in state[part].items():
+      n = arr.shape[0] // world
+      for r, view in enumerate(views):
+        np.testing.assert_array_equal(view[part][name],
+                                      arr[r * n:(r + 1) * n])
+  assert views[3]["dense"] is state["dense"]
+  joined = join_rank_states(views)
+  for part in ("fused", "emb_dense"):
+    for name, arr in state[part].items():
+      np.testing.assert_array_equal(joined[part][name], arr)
+  with pytest.raises(ValueError, match="rank blocks"):
+    split_rank_state({"fused": {"x": np.zeros((6, 2))}, "emb_dense": {}},
+                     world, 0)

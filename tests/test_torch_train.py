@@ -40,6 +40,7 @@ from distributed_embeddings_torch.models import bce_loss as torch_bce
 from distributed_embeddings_torch.ops import packed_table as tpt
 from distributed_embeddings_torch.parallel.lookup_engine import \
     DistributedLookup
+from distributed_embeddings_torch.parallel.mesh import Mesh
 from distributed_embeddings_tpu.layers.embedding import TableConfig
 from distributed_embeddings_tpu.layers.planner import DistEmbeddingStrategy
 from distributed_embeddings_tpu.models import DLRM, bce_loss
@@ -315,8 +316,17 @@ def test_unported_options_raise():
                 num_numerical=NUM, device="cpu")
   sgd = functools.partial(torch.optim.SGD, lr=LR)
   args = (model, tplan, torch_bce, sgd, tpt.sgd_rule(LR))
-  with pytest.raises(NotImplementedError, match="world-1"):
-    ttr.make_sparse_train_step(*args, mesh=object())
+  # a plan runs on a mesh of its own world size (world > 1 plans:
+  # tests/test_torch_train_world4.py)
+  four = Mesh(rank=0, world=4, device=torch.device("cpu"), backend="gloo")
+  with pytest.raises(ValueError, match="the mesh has 4 ranks"):
+    ttr.make_sparse_train_step(*args, mesh=four)
+  plan4 = TStrategy(_configs(TTableConfig, 16, {}, False, 64), 4,
+                    dense_row_threshold=64)
+  with pytest.raises(ValueError, match="needs this rank's mesh"):
+    ttr.make_sparse_train_step(model, plan4, *args[2:])
+  with pytest.raises(ValueError, match="needs this rank's mesh"):
+    ttr.make_sparse_eval_step(model, plan4, tpt.sgd_rule(LR))
   with pytest.raises(NotImplementedError, match="micro_batches"):
     ttr.make_sparse_train_step(*args, micro_batches=2)
   with pytest.raises(NotImplementedError, match="guard"):
