@@ -4,10 +4,12 @@ NVIDIA H100.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``distributed_embeddings_torch/
-csrc/`` and drives the port's three paths on the card: DLRM serving on
-frozen tables, the world-1 sparse train step of ``bench.py``, and the
-world-4 hybrid-parallel train step of ``examples/dlrm/main.py --sparse``
-under ``overlap='fused'``. One JSON line per phase:
+csrc/`` and drives the port's four paths on the card: DLRM serving on
+frozen tables, the world-1 sparse train step of ``bench.py``, the
+synthetic zoo's Tiny train step of ``tools/bench_synthetic.py tiny
+65536``, and the world-4 hybrid-parallel train step of
+``examples/dlrm/main.py --sparse`` under ``overlap='fused'``. One JSON
+line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
    must have compute capability (9, 0);
@@ -26,10 +28,16 @@ under ``overlap='fused'``. One JSON line per phase:
    buffer of the four-card world-4 plan (9,994,943 x 128 f32), one
    (round, chunk) block of 8,192 int32 ids, uniform and with 30% of the
    ids out of range or sentinels: bit-equal; so are fused strides of 96,
-   65 and 256 lanes on a small buffer. Times are medians of CUDA-event
-   timings of single calls, kernel, plain and library in turns, with the
-   50 MB L2 flushed and the card held busy while the host queues each
-   call, after two seconds of warm-up;
+   65 and 256 lanes on a small buffer. K6 (``build_delta_rows``, Adagrad
+   0.01) at the two buckets of Tiny's largest class: 786,432 one-hot
+   samples with 32-lane state rows, and 65,536 ten-hot samples with
+   window-masked 128-lane state rows; then momentum, Adam and a width-8
+   class on 4,096-sample streams: within rtol 1e-6, atol 2e-7. K7
+   (``row_major``) on a transposed and a sliced [12, 65536, 16] f32
+   cotangent and a transposed bf16 one: bit-equal. Times are medians of
+   CUDA-event timings of single calls, kernel, plain and library in
+   turns, with the 50 MB L2 flushed and the card held busy while the
+   host queues each call, after two seconds of warm-up;
 4. ``golden``: the JAX package's serve golden
    (``tests/data/torch_serve_golden.npz``) replayed through the port's
    ``ServeEngine``: activations bit-equal, predictions within
@@ -38,7 +46,10 @@ under ``overlap='fused'``. One JSON line per phase:
    (``tests/data/torch_train_golden.npz``, three SGD steps of a small
    bf16 DLRM) replayed through the port's train step: losses within
    ``train_golden.LOSS_TOL``, each final tensor within
-   ``train_golden.UPDATE_TOL`` of its largest update;
+   ``train_golden.UPDATE_TOL`` of its largest update. ``zoo_golden``:
+   the same for the zoo golden (``tests/data/torch_train_zoo_golden.npz``,
+   three Adagrad steps of Tiny with its vocabularies cut to 2,000 rows,
+   f32);
 6. ``serve``: the full-width DLRM of ``bench.py`` (26 Criteo-1TB tables
    x 1/16, width 128, dense_row_threshold=4096, bf16 compute, one-hot
    ids, world 1), its packed tables drawn on the card by
@@ -58,7 +69,22 @@ under ``overlap='fused'``. One JSON line per phase:
    sampled rows of the first sparse class that the batch does not touch
    are bit-unchanged and sampled touched rows changed. A 14th step runs
    under ``torch.profiler`` (``train_trace``);
-8. ``world4_golden``, ``train_world4``: four ranks spawned with
+8. ``train_zoo``: Tiny at its published widths and full vocabulary (55
+   tables, 58 inputs; 8.99 GB of fused buffers in two width-16
+   generations and a width-8 class, Adagrad's accumulator interleaved),
+   global batch 65,536 of power-law ids (``generate_batch(alpha=1.05,
+   seed=i)`` for two batches used in turns), Adagrad 0.01 on the sparse
+   classes, ``training.Adagrad`` 0.01 on the dense parameters, f32. First
+   one step with ``DE_TORCH_COTANGENT_PIN`` off and one with it on from
+   the same state: the losses, K6's update rows and the dense parameters
+   bit-equal, the buffers bit-equal on every row fewer than two ids hit;
+   K7 launched once per sparse bucket in the pinned step only. Then 3
+   warm-up and 10 timed steps as in phase 7, each checked: the loss
+   finite, K6 launched once per sparse bucket and K1 once per sparse
+   class, sampled logical rows that neither batch touches bit-unchanged
+   and most sampled touched ones changed. A further step under
+   ``torch.profiler`` (``train_zoo_trace``);
+9. ``world4_golden``, ``train_world4``: four ranks spawned with
    ``torch.multiprocessing``, over NCCL when each owns a card, else over
    gloo with the four sharing the card (the backend is printed). Each
    first replays the JAX world-4 golden
@@ -79,13 +105,14 @@ under ``overlap='fused'``. One JSON line per phase:
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
-the ``kernels`` line come from the serve, train and world-4 phases alone
-(each sets the counts to 0 before it and reads them after; the world-4
-counts are summed over the ranks). Any failed check exits non-zero
+the ``kernels`` line come from the serve, train, zoo and world-4 phases
+alone (each sets the counts to 0 before it and reads them after; the
+world-4 counts are summed over the ranks; K7's come from the pinned zoo
+step). Any failed check exits non-zero
 before the last line; so does a machine without CUDA.
 
 On a machine with four cards the same command runs every phase; phases
-1-7 use the first card, and phase 8 runs over NCCL at the full
+1-8 use the first card, and phase 9 runs over NCCL at the full
 vocabulary, one rank per card.
 """
 
@@ -127,7 +154,26 @@ REPLACES = {
     "interact_bwd": "distributed_embeddings_tpu/ops/pallas_interact.py:162",
     "apply_rows": "distributed_embeddings_tpu/ops/pallas_apply.py:211",
     "gather_rows": "distributed_embeddings_tpu/ops/pallas_exchange.py:212",
+    "build_delta_rows": "distributed_embeddings_tpu/ops/pallas_delta.py:78",
+    "row_major": "distributed_embeddings_tpu/ops/pallas_layout.py:32",
 }
+# the kernels of the world-4 path (every one must launch there)
+W4_KERNELS = ("interact_fwd", "interact_bwd", "apply_rows", "gather_rows")
+# the synthetic zoo's train step (tools/bench_synthetic.py tiny 65536):
+# Tiny at its full vocabulary, power-law ids, Adagrad 0.01 on the sparse
+# classes and the dense parameters, f32
+ZOO_MODEL = "tiny"
+ZOO_BATCH = 65536
+ZOO_ALPHA = 1.05
+ZOO_LR = 0.01
+ZOO_DENSE_ROW_THRESHOLD = 2048
+# K6 against its plain version (the JAX test's tolerance: the rsqrt chains
+# round a few ulps apart)
+K6_TOL = {"rtol": 1e-6, "atol": 2e-7}
+# pin-on vs pin-off steps: cells of rows that two or more of the step's
+# ids hit may differ by K1's (and the dense-class index_add_'s) atomic
+# order, by at most this share of the cell's magnitude
+ZOO_DUP_RTOL = 1e-5
 # the world-4 hybrid-parallel step (examples/dlrm/main.py --sparse at
 # world 4, under the plan's overlap='fused' wire)
 WORLD = 4
@@ -1061,6 +1107,578 @@ def phase_world4(torch, smi: str) -> dict:
   return totals
 
 
+def zoo_plan():
+  """The plan of ``tools/bench_synthetic.py tiny 65536`` at world 1: Tiny's
+  55 tables at their published vocabularies, ``"basic"``,
+  ``dense_row_threshold=2048``, ``batch_hint=65536``."""
+  from distributed_embeddings_torch.models import (
+      SYNTHETIC_MODELS,
+      synthetic_plan,
+  )
+  return synthetic_plan(SYNTHETIC_MODELS[ZOO_MODEL],
+                        dense_row_threshold=ZOO_DENSE_ROW_THRESHOLD,
+                        batch_hint=ZOO_BATCH)
+
+
+def zoo_hotness():
+  from distributed_embeddings_torch.models import (
+      SYNTHETIC_MODELS,
+      expand_tables,
+  )
+  return expand_tables(SYNTHETIC_MODELS[ZOO_MODEL])[2]
+
+
+def zoo_classes(plan, rule) -> list:
+  """The largest sparse class of each width of the plan, widest first:
+  ``(name, layout)``."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_param_name,
+  )
+  layouts = DistributedLookup(plan).fused_layouts(rule)
+  best = {}
+  for key in plan.class_keys:
+    if plan.classes[key].kind != "sparse":
+      continue
+    name = class_param_name(*key)
+    lay = layouts[name]
+    if (lay.width not in best
+        or lay.phys_rows > layouts[best[lay.width]].phys_rows):
+      best[lay.width] = name
+  return [(best[w], layouts[best[w]]) for w in sorted(best, reverse=True)]
+
+
+def zoo_routed(torch, plan) -> dict:
+  """The routed ids of ``generate_batch(seed=0)`` per sparse class and
+  bucket, as the train step's lookup gets them: ``name -> [(h, ids)]``,
+  ids on the card, ``[n_b, B]`` or ``[n_b, B, h]``."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_param_name,
+  )
+  out = {}
+  routed = DistributedLookup(plan).route_ids(zoo_batches(torch, 1)[0][1])
+  for bk, ids in routed.items():
+    if plan.classes[bk.class_key].kind == "sparse":
+      out.setdefault(class_param_name(*bk.class_key), []).append((bk.h, ids))
+  return out
+
+
+def k6_inputs(torch, layout, sub, h: int, aux_last: int, seed: int):
+  """K6's other inputs on the card for the windows ``sub`` ([K*h]):
+  per-sample cotangents and state rows (an Adagrad accumulator of at
+  least 0.1; masked rows nonzero in their occurrence's window only)."""
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  n = sub.shape[0]
+  dz = torch.randn((n // h, layout.width), generator=gen, device="cuda") * 1e-2
+  aux = torch.rand((n, aux_last), generator=gen, device="cuda") + 0.1
+  if aux_last != layout.stride:
+    win = torch.arange(aux_last, device="cuda") // layout.stride
+    aux = torch.where(win[None, :] == sub[:, None], aux,
+                      torch.zeros_like(aux))
+  return dz, aux
+
+
+def k6_bytes(layout, rule, k: int, n: int, aux_last: int) -> int:
+  """The bytes K6 must move: each sample's cotangent row, each
+  occurrence's int64 window index and the state lanes the function reads
+  (``n_aux * w`` lanes of a stride-wide row; of each of the ``rpp``
+  windows of a masked physical row, which it sums), and the 128-lane
+  update rows written once."""
+  windows = 1 if aux_last == layout.stride else layout.rows_per_phys
+  state = n * windows * rule.n_aux * layout.width * 4
+  return k * layout.width * 4 + n * 8 + state + n * 128 * 4
+
+
+def k6_within_tol(torch, got, want) -> float:
+  """max |got - want| over its allowance ``atol + rtol * |want|``."""
+  allow = K6_TOL["atol"] + K6_TOL["rtol"] * want.abs()
+  return ((got - want).abs() / allow).max().item()
+
+
+def phase_kernel_delta(torch, cd, flush) -> dict:
+  """K6 against its plain version at Tiny's shapes: every bucket of the
+  largest w16 class and of the w8 class (one-hot with stride-wide state
+  rows, ten-hot with window-masked physical rows), the windows those of
+  the routed ids of ``generate_batch(seed=0)``; then momentum and Adam on
+  small streams. Returns the ten-hot w16 bucket's row."""
+  from distributed_embeddings_torch.ops.packed_table import (
+      PackedLayout,
+      _grp_sub,
+      adagrad_rule,
+      adam_rule,
+      momentum_rule,
+  )
+  rule = adagrad_rule(ZOO_LR)
+  step = 5
+  plan = zoo_plan()
+  routed = zoo_routed(torch, plan)
+  main = None
+  for c, (name, layout) in enumerate(zoo_classes(plan, rule)):
+    for i, (h, ids) in enumerate(routed.pop(name)):
+      n = ids.numel()
+      k = n // h
+      _, sub, _ = _grp_sub(layout, ids.reshape(-1))
+      del ids
+      aux_last = (layout.stride if h == 1
+                  else layout.rows_per_phys * layout.stride)
+      dz, aux = k6_inputs(torch, layout, sub, h, aux_last,
+                          SEED + 10 + 2 * c + i)
+      got = cd.build_delta_rows(layout, rule, dz, sub, aux, h, step)
+      torch.cuda.synchronize()
+      want = cd.build_delta_rows_plain(layout, rule, dz, sub, aux, h, step)
+      share = k6_within_tol(torch, got, want)
+      check(share <= 1.0, f"build_delta_rows {name} h={h}: off by {share} "
+            f"of rtol {K6_TOL['rtol']}, atol {K6_TOL['atol']}")
+      max_err = (got - want).abs().max().item()
+      del want
+      timed = event_ms(torch, {
+          "kernel_ms": lambda: cd.build_delta_rows(layout, rule, dz, sub,
+                                                   aux, h, step),
+          "plain_ms": lambda: cd.build_delta_rows_plain(layout, rule, dz,
+                                                        sub, aux, h, step)},
+                       flush)
+      row = {"phase": "kernel", "name": "build_delta_rows", "class": name,
+             "rule": rule.name, "width": layout.width,
+             "stride": layout.stride, "rows_per_phys": layout.rows_per_phys,
+             "samples": k, "h": h, "occurrences": n, "aux_last": aux_last,
+             "aux": "stride" if aux_last == layout.stride else "masked_phys",
+             "max_abs_err": max_err, "max_tol_share": share, "tol": K6_TOL,
+             **timed, "library_ms": None,
+             "library_note": "no single PyTorch call computes this function",
+             # about ten flops per logical lane
+             **bound(k6_bytes(layout, rule, k, n, aux_last),
+                     10 * n * layout.stride, F32_FLOPS)}
+      emit(row)
+      if c == 0 and h > 1:
+        main = row
+      del dz, sub, aux, got
+  del routed
+  # the other rules' templates, bit-for-bit within the tolerance, small
+  others = []
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+  for rule2, w in ((momentum_rule(ZOO_LR), 16), (adam_rule(ZOO_LR), 16),
+                   (adagrad_rule(ZOO_LR), 8)):
+    layout = PackedLayout(rows=100_000, width=w, n_aux=rule2.n_aux)
+    auxes = [layout.stride]
+    if layout.rows_per_phys * layout.stride == layout.phys_width:
+      auxes.append(layout.phys_width)
+    for h, aux_last in [(h, a) for h in (1, 10) for a in auxes]:
+      sub = torch.randint(0, layout.rows_per_phys, (4096 * h,),
+                          generator=gen, device="cuda")
+      dz, aux = k6_inputs(torch, layout, sub, h, aux_last, SEED + 20)
+      got = cd.build_delta_rows(layout, rule2, dz, sub, aux, h, step)
+      share = k6_within_tol(
+          torch, got, cd.build_delta_rows_plain(layout, rule2, dz, sub, aux,
+                                                h, step))
+      check(share <= 1.0, f"build_delta_rows {rule2.name} w={w} h={h} "
+            f"aux_last={aux_last}: off by {share} of the tolerance")
+      others.append([rule2.name, w, h, aux_last, share])
+  emit({"phase": "kernel", "name": "build_delta_rows", "stream": "rules",
+        "rule_width_h_auxlast_tolshare": others})
+  torch.cuda.empty_cache()
+  return main
+
+
+def phase_kernel_apply_zoo(torch, ca, flush) -> None:
+  """K1 against its plain version at the Tiny step's streams: for the
+  largest w16 class and the w8 class, the class's buffer (random rows),
+  every routed occurrence of ``generate_batch(seed=0)`` (power-law ids,
+  its buckets in turn) sent to its physical row, and K6-shaped update
+  rows (nonzero in the occurrence's window only, no scale), as the train
+  step hands them to K1. Held to the duplicate tolerance of
+  :func:`phase_kernel_apply` on the rows the stream touches, and
+  bit-equal elsewhere."""
+  from distributed_embeddings_torch.ops.packed_table import (
+      _grp_sub,
+      adagrad_rule,
+  )
+  plan = zoo_plan()
+  routed = zoo_routed(torch, plan)
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+  for name, layout in zoo_classes(plan, adagrad_rule(ZOO_LR)):
+    ids = torch.cat([ids.reshape(-1).long() for _, ids in routed.pop(name)])
+    grp, sub, valid = _grp_sub(layout, ids)
+    del ids
+    n = grp.shape[0]
+    win = torch.arange(D, device="cuda") // layout.stride
+    rows = torch.randn((n, D), generator=gen, device="cuda") * 1e-2
+    rows = torch.where(win[None, :] == sub[:, None], rows,
+                       torch.zeros_like(rows))
+    base = torch.rand((layout.phys_rows, D), generator=gen, device="cuda")
+    work = base.clone()
+    got = ca.apply_rows(work, grp, rows)
+    torch.cuda.synchronize()
+    want = ca.apply_rows_plain(base.clone(), grp, rows)
+    grp_v, rows_v = grp[valid], rows[valid]
+    touched, inv = torch.unique(grp_v, return_inverse=True)
+    differ = (got != want).any(dim=1)
+    differ[touched] = False
+    check(not bool(differ.any().item()), f"apply_rows tiny {name}: a row "
+          "no id touches differs from the plain version")
+    del differ
+    abs_sum = base[touched].abs().index_add_(0, inv, rows_v.abs())
+    err = (got[touched] - want[touched]).abs()
+    share = (err / (1e-5 * abs_sum).clamp(min=1e-30)).max().item()
+    max_err = err.max().item()
+    del want, abs_sum, err
+    check(share <= 1.0, f"apply_rows tiny {name}: off by {share} x 1e-5 "
+          "of the cells' absolute sums")
+    hits = torch.bincount(inv)
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: ca.apply_rows(work, grp, rows),
+        "plain_ms": lambda: ca.apply_rows_plain(work, grp, rows),
+        "library_ms": lambda: work.index_add_(0, grp_v, rows_v)}, flush)
+    n_valid, unique = grp_v.shape[0], touched.shape[0]
+    emit({"phase": "kernel", "name": "apply_rows", "stream": f"tiny_{name}",
+          "rows": layout.phys_rows, "width": D, "ids": n,
+          "valid_ids": n_valid, "unique_rows": unique,
+          "most_hits_on_a_row": int(hits.max().item()),
+          "max_abs_err": max_err, "max_abs_sum_share": share, **timed,
+          **bound(n * 8 + n_valid * D * 4 + unique * D * 4 * 2,
+                  2 * n_valid * D, F32_FLOPS)})
+    del base, work, got, rows, grp, sub, valid, grp_v, rows_v, touched, inv
+    torch.cuda.empty_cache()
+
+
+def phase_kernel_layout(torch, cl, flush) -> dict:
+  """K7 against its plain version: bit-equal on a transposed and a sliced
+  f32 tensor of the shape of Tiny's largest one-hot cotangent ([12, 65536,
+  16]) and on a transposed bf16 one; returns the transposed f32 row."""
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+  n_b, g, w = 12, ZOO_BATCH, 16
+  views = {
+      "transposed": torch.randn((g, n_b, w), generator=gen,
+                                device="cuda").transpose(0, 1),
+      "sliced": torch.randn((n_b, g, 2 * w), generator=gen,
+                            device="cuda")[:, :, :w],
+      "transposed_bf16": torch.randn((g, n_b, w), generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                         .transpose(0, 1),
+  }
+  main = None
+  for name, x in views.items():
+    check(not x.is_contiguous(), f"row_major {name}: input is contiguous")
+    got = cl.row_major(x)
+    torch.cuda.synchronize()
+    want = cl.row_major_plain(x)
+    bits = torch.int32 if x.dtype == torch.float32 else torch.int16
+    check(got.is_contiguous() and torch.equal(got.view(bits),
+                                              want.view(bits)),
+          f"row_major {name}: not bit-equal to the plain version")
+    row = {"phase": "kernel", "name": "row_major", "stream": name,
+           "shape": list(x.shape), "strides": list(x.stride()),
+           "dtype": str(x.dtype), "bit_equal": True, "max_abs_err": 0.0}
+    if name == "transposed":
+      row.update(event_ms(torch, {
+          "kernel_ms": lambda: cl.row_major(x),
+          "plain_ms": lambda: cl.row_major_plain(x),
+          "library_ms": lambda: x.contiguous()}, flush))
+      row.update(bound(2 * x.numel() * x.element_size(), 0, F32_FLOPS))
+      main = row
+    emit(row)
+  del views
+  torch.cuda.empty_cache()
+  return main
+
+
+def phase_zoo_golden(torch) -> None:
+  from distributed_embeddings_torch import train_golden
+  data = train_golden.load(train_golden.ZOO_PATH)
+  losses, got = train_golden.replay_zoo(data, device="cuda")
+  try:
+    worst = train_golden.compare_zoo(data, losses, got)
+  except AssertionError as exc:
+    raise SmokeFailure(f"zoo golden: {exc}") from exc
+  emit({"phase": "zoo_golden", "losses": losses,
+        "want_losses": [float(v) for v in data["losses"]], **worst,
+        "loss_tol": train_golden.LOSS_TOL,
+        "update_tol": train_golden.UPDATE_TOL})
+
+
+def zoo_batches(torch, n: int = 2) -> list:
+  """``tools/bench_synthetic.py``'s batches: ``generate_batch(tiny, 65536,
+  alpha=1.05, seed=i)``, ids clamped to each table, one-hot inputs as
+  ``[B]``, on the card."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import (
+      SYNTHETIC_MODELS,
+      expand_tables,
+      generate_batch,
+  )
+  cfg = SYNTHETIC_MODELS[ZOO_MODEL]
+  tables, tmap, hot = expand_tables(cfg)
+  out = []
+  for i in range(n):
+    numerical, cats, labels = generate_batch(cfg, ZOO_BATCH, alpha=ZOO_ALPHA,
+                                             seed=i)
+    cats = [np.minimum(c, tables[t].input_dim - 1).astype(np.int32)
+            for c, t in zip(cats, tmap)]
+    cats = [torch.as_tensor(c if h > 1 else c[:, 0], device="cuda")
+            for c, h in zip(cats, hot)]
+    out.append((torch.as_tensor(numerical, device="cuda"), cats,
+                torch.as_tensor(labels, device="cuda")))
+  return out
+
+
+def zoo_hits(torch, plan, batch) -> dict:
+  """Per class buffer, how many ids of ``batch`` hit each of its logical
+  rows."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_param_name,
+      padded_rows,
+  )
+  out = {}
+  for bk, ids in DistributedLookup(plan).route_ids(batch[1]).items():
+    name = class_param_name(*bk.class_key)
+    rows = padded_rows(plan, bk.class_key)
+    flat = ids.reshape(-1).long()
+    flat = flat[(flat >= 0) & (flat < rows)]
+    cnt = out.setdefault(name, torch.zeros((rows,), dtype=torch.int32,
+                                           device="cuda"))
+    cnt.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+  return out
+
+
+def zoo_phys_hits(layout, cnt):
+  """Logical-row hit counts -> the most of them in each physical row."""
+  full = cnt.new_zeros(layout.phys_rows * layout.rows_per_phys)
+  full[:cnt.shape[0]] = cnt
+  return full.view(layout.phys_rows, layout.rows_per_phys).amax(dim=1)
+
+
+def zoo_counts(mods) -> dict:
+  cd, ca, cl, cx, ci = mods
+  return {"build_delta_rows": cd.launches, "apply_rows": ca.launches,
+          "row_major": cl.launches, "gather_rows": cx.launches,
+          "interact_fwd": ci.launches, "interact_bwd": ci.bwd_launches}
+
+
+def zoo_reset(mods) -> None:
+  cd, ca, cl, cx, ci = mods
+  cd.launches = ca.launches = cl.launches = cx.launches = 0
+  ci.launches = ci.bwd_launches = 0
+
+
+def zoo_rel_diff(torch, a, b) -> float:
+  """max |a - b| / max(|a|, |b|) over the cells that differ (0 if none)."""
+  bad = a != b
+  if not bool(bad.any().item()):
+    return 0.0
+  return ((a[bad] - b[bad]).abs()
+          / torch.maximum(a[bad].abs(), b[bad].abs())).max().item()
+
+
+def zoo_compare_pin(torch, step, state, batch, hits, layouts, mods,
+                    want) -> tuple:
+  """One step with ``DE_TORCH_COTANGENT_PIN`` off (on ``state``) and one
+  with it on (on a copy), from the same state before either has stepped.
+  The losses, the K6 update rows of every bucket and the dense parameters
+  are bit-equal; every class buffer is bit-equal on the rows that fewer
+  than two of the step's ids hit, and within ``ZOO_DUP_RTOL`` of each cell
+  on the others, where the atomics of K1 and of the dense-class
+  ``index_add_`` add the duplicates in an order of the card's choosing.
+  The unpinned step launches no K7, the pinned one one per sparse bucket.
+  Returns ``(result, the pinned step's launches)``."""
+  import os
+
+  from distributed_embeddings_torch.parallel import lookup_engine
+  snap = {"fused": {k: v.clone() for k, v in state["fused"].items()},
+          "emb_dense": {k: v.detach().clone()
+                        for k, v in state["emb_dense"].items()},
+          "dense": {k: v.detach().clone() for k, v in state["dense"].items()},
+          "step": state["step"]}  # fresh optimizers bind at its first step
+  kernel = lookup_engine.build_delta_rows
+  built = {"0": [], "1": []}
+  runs = {}
+  for pin, st in (("0", state), ("1", snap)):
+    def recording(*args, _pin=pin, **kwargs):
+      rows = kernel(*args, **kwargs)
+      if _pin == "0":
+        built["0"].append(rows)
+      else:
+        i = len(built["1"])
+        built["1"].append(i < len(built["0"])
+                          and torch.equal(rows, built["0"][i]))
+      return rows
+    os.environ["DE_TORCH_COTANGENT_PIN"] = pin
+    lookup_engine.build_delta_rows = recording
+    try:
+      zoo_reset(mods)
+      torch.cuda.synchronize()
+      _, loss = step(st, *batch)
+      torch.cuda.synchronize()
+      runs[pin] = (float(loss), zoo_counts(mods))
+    finally:
+      os.environ.pop("DE_TORCH_COTANGENT_PIN", None)
+      lookup_engine.build_delta_rows = kernel
+  want_pin = dict(want, row_major=want["build_delta_rows"])
+  check(runs["0"][1] == want, f"zoo pin off: launches {runs['0'][1]}, "
+        f"expected {want}")
+  check(runs["1"][1] == want_pin, f"zoo pin on: launches {runs['1'][1]}, "
+        f"expected {want_pin}")
+  check(runs["0"][0] == runs["1"][0],
+        f"zoo pin: loss {runs['1'][0]} pinned, {runs['0'][0]} unpinned")
+  check(len(built["1"]) == len(built["0"]) and all(built["1"]),
+        "zoo pin: the K6 update rows differ between the pinned and the "
+        "unpinned step")
+  for k, v in state["dense"].items():
+    check(torch.equal(v, snap["dense"][k]),
+          f"zoo pin: dense parameter {k} differs")
+  dup_worst, dup_rows = 0.0, 0
+  for part in ("fused", "emb_dense"):
+    for name, buf in state[part].items():
+      other = snap[part][name]
+      dup = (zoo_phys_hits(layouts[name], hits[name]) if part == "fused"
+             else hits[name]) >= 2
+      dup_rows += int(dup.sum().item())
+      bad = (buf != other).any(dim=1)
+      check(not bool((bad & ~dup).any().item()),
+            f"zoo pin {name}: a row fewer than two ids hit differs")
+      dup_worst = max(dup_worst, zoo_rel_diff(torch, buf.detach(),
+                                              other.detach()))
+  check(dup_worst <= ZOO_DUP_RTOL, f"zoo pin: duplicate rows differ by "
+        f"{dup_worst} of their magnitude")
+  del snap, built
+  torch.cuda.empty_cache()
+  return ({"loss_bit_equal": True, "update_rows_bit_equal": True,
+           "dense_bit_equal": True, "dup_rows": dup_rows,
+           "dup_rows_max_rel_diff": dup_worst,
+           "launches_unpinned": runs["0"][1],
+           "launches_pinned": runs["1"][1]}, runs["1"][1])
+
+
+def phase_train_zoo(torch, mods, smi: str) -> dict:
+  """``tools/bench_synthetic.py tiny 65536`` in the port at world 1; returns
+  each kernel's launches in its unpinned run (``train_zoo``) and in the
+  pinned step (``train_zoo_pin``)."""
+  from distributed_embeddings_torch.models import (
+      SYNTHETIC_MODELS,
+      SyntheticModel,
+      bce_loss,
+  )
+  from distributed_embeddings_torch.ops.packed_table import (
+      adagrad_rule,
+      gather_fused,
+  )
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_buckets,
+      class_param_name,
+  )
+  from distributed_embeddings_torch.training import (
+      Adagrad,
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+  cfg = SYNTHETIC_MODELS[ZOO_MODEL]
+  plan = zoo_plan()
+  rule = adagrad_rule(ZOO_LR)
+  hot = zoo_hotness()
+  layouts = DistributedLookup(plan).fused_layouts(rule)
+  sparse = [k for k in plan.class_keys if plan.classes[k].kind == "sparse"]
+  buckets = [b for k in sparse for b in class_buckets(plan, k,
+                                                     lambda i: hot[i])]
+  # K6 once per sparse bucket (every class is Adagrad on 128-lane rows),
+  # K1 once per sparse class, no K7 unpinned; the model has no
+  # interaction and the plan no exchange
+  want = {"build_delta_rows": len(buckets), "apply_rows": len(sparse),
+          "row_major": 0, "gather_rows": 0, "interact_fwd": 0,
+          "interact_bwd": 0}
+  occurrences = sum(b.n_b * b.h for b in buckets) * ZOO_BATCH
+  model = SyntheticModel(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+  adagrad = functools.partial(Adagrad, lr=ZOO_LR)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), adagrad,
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  batches = zoo_batches(torch)
+  hits = [zoo_hits(torch, plan, b) for b in batches]
+  step = make_sparse_train_step(model, plan, bce_loss, adagrad, rule)
+  pin, pin_counts = zoo_compare_pin(torch, step, state, batches[0], hits[0],
+                                    layouts, mods, want)
+  # sampled logical rows of every sparse class (their fused rows: table
+  # and accumulator lanes): untouched by both batches, and touched by each
+  pick = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+  def sample(mask):
+    idx = torch.nonzero(mask).squeeze(1)
+    return idx[torch.randperm(idx.numel(), generator=pick,
+                              device="cuda")[:ROWS_SAMPLED]]
+
+  def fused_rows(name, ids):
+    return gather_fused(layouts[name], state["fused"][name], ids)
+
+  miss, hit = {}, {}
+  for name in layouts:
+    miss[name] = sample((hits[0][name] == 0) & (hits[1][name] == 0))
+    hit[name] = [sample(h[name] > 0) for h in hits]
+    check(miss[name].numel() > 0 and min(h.numel() for h in hit[name]) > 0,
+          f"zoo {name}: no untouched or no touched rows to sample")
+  miss_rows = {n: fused_rows(n, m) for n, m in miss.items()}
+  totals = dict.fromkeys(want, 0)
+  ms, losses, changed = [], [], []
+  for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+    batch = batches[i % 2]
+    before = {n: fused_rows(n, h[i % 2]) for n, h in hit.items()}
+    zoo_reset(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, *batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = zoo_counts(mods)
+    check(got == want, f"train_zoo step {i}: launches {got}, expected {want}")
+    for k, n in got.items():
+      totals[k] += n
+    if i >= TRAIN_WARMUP:
+      ms.append((t1 - t0) * 1e3)
+    losses.append(float(loss))
+    check(losses[-1] == losses[-1] and abs(losses[-1]) < float("inf"),
+          f"train_zoo step {i}: loss {losses[-1]}")
+    share = []
+    for n, h in hit.items():
+      check(torch.equal(fused_rows(n, miss[n]), miss_rows[n]),
+            f"train_zoo step {i}: rows of {n} no id touches changed")
+      share.append((fused_rows(n, h[i % 2]) != before[n]).any(dim=1).float()
+                   .mean().item())
+    changed.append(min(share))
+    check(changed[-1] > 0.5, f"train_zoo step {i}: only {changed[-1]:.1%} "
+          "of the sampled touched rows of a class changed")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  med = statistics.median(ms)
+  emit({"phase": "train_zoo", "model": ZOO_MODEL, "card": smi,
+        "batch": ZOO_BATCH, "alpha": ZOO_ALPHA, "rule": "adagrad",
+        "lr": ZOO_LR, "compute": "f32",
+        "tables": len(plan.global_configs), "inputs": len(hot),
+        "sparse_classes": [class_param_name(*k) for k in sparse],
+        "sparse_buckets": [[b.h, b.n_b] for b in buckets],
+        "sparse_occurrences_per_step": occurrences,
+        "dense_class_tables": sum(len(cp.shards_per_rank[0])
+                                  for cp in plan.classes.values()
+                                  if cp.kind == "dense"),
+        "fused_bytes": sum(t.numel() * 4 for t in state["fused"].values()),
+        "init_s": init_s, "step_ms": ms, "step_ms_median": med,
+        "samples_per_s": ZOO_BATCH / (med / 1e3), "peak_gib": peak,
+        "launches_per_step": want, "losses": losses,
+        "untouched_logical_rows": {n: int(((hits[0][n] == 0)
+                                           & (hits[1][n] == 0)).sum().item())
+                                   for n in layouts},
+        "touched_rows_changed_share": changed,
+        "untouched_rows_bit_equal": True, "pin": pin})
+  emit({"phase": "train_zoo_trace", "card": smi,
+        **trace_call(torch, lambda: step(state, *batches[0]))})
+  del state, step, hits, miss_rows
+  torch.cuda.empty_cache()
+  return {"train_zoo": totals, "train_zoo_pin": pin_counts}
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
           "replaces": REPLACES[name], "launches": launches,
@@ -1078,8 +1696,10 @@ def main() -> int:
     return 2
   from distributed_embeddings_torch.ops import _build
   from distributed_embeddings_torch.ops import cuda_apply as ca
+  from distributed_embeddings_torch.ops import cuda_delta as cd
   from distributed_embeddings_torch.ops import cuda_exchange as cx
   from distributed_embeddings_torch.ops import cuda_interact as ci
+  from distributed_embeddings_torch.ops import cuda_layout as cl
   from distributed_embeddings_torch.serving import golden
 
   # f32 products stay f32 (PyTorch's defaults, stated)
@@ -1109,25 +1729,36 @@ def main() -> int:
   rows["apply_rows"] = phase_kernel_apply(
       torch, ca, flush, first_sparse_class(train_plan())[2])
   torch.cuda.empty_cache()
+  phase_kernel_apply_zoo(torch, ca, flush)
   rows["gather_rows"] = phase_kernel_gather(torch, cx, flush)
+  rows["build_delta_rows"] = phase_kernel_delta(torch, cd, flush)
+  rows["row_major"] = phase_kernel_layout(torch, cl, flush)
   del flush
   torch.cuda.empty_cache()
   phase_golden(torch, golden)
   phase_train_golden(torch)
+  phase_zoo_golden(torch)
 
   by_path = {}
   serve = phase_serve(torch, ci, smi)
-  by_path["serve"] = {"interact_fwd": serve, "interact_bwd": 0,
-                      "apply_rows": 0, "gather_rows": 0}
+  by_path["serve"] = {"interact_fwd": serve}
   for compute in ("f32", "bf16"):
     by_path[f"train_{compute}"] = phase_train(torch, ci, ca, cx, smi,
                                               compute)
   torch.cuda.empty_cache()
+  by_path.update(phase_train_zoo(torch, (cd, ca, cl, cx, ci), smi))
+  for path, name in (("train_zoo", "build_delta_rows"),
+                     ("train_zoo", "apply_rows"),
+                     ("train_zoo_pin", "row_major")):
+    check(by_path[path][name] > 0, f"the {path} path never launched {name}")
+  torch.cuda.empty_cache()
   by_path["train_world4"] = phase_world4(torch, smi)
-  for name in _build.KERNELS:
+  for name in W4_KERNELS:
     check(by_path["train_world4"][name] > 0,
           f"the world-4 path never launched {name}")
 
+  by_path = {path: {name: p.get(name, 0) for name in _build.KERNELS}
+             for path, p in by_path.items()}
   emit({"kernels": [
       kernel_entry(name, rows[name],
                    sum(p[name] for p in by_path.values()),

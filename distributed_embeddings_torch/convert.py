@@ -7,10 +7,13 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
   ``{bottom_mlp, top_mlp}/dense_i/{kernel, bias}`` -> the port's
   ``DLRM.state_dict()`` (kernels ``[in, out]`` transpose to
   ``nn.Linear.weight [out, in]``);
+- :func:`synthetic_state_dict_from_flax`: the flax ``SyntheticModel``
+  params ``mlp/dense_i/{kernel, bias}`` -> the port's
+  ``SyntheticModel.state_dict()``;
 - :func:`train_state_from_flax`: a JAX sparse train state
   (``{'fused', 'emb_dense', 'dense', 'step'}``) -> the state the port's
   ``training.make_sparse_train_step`` steps and ``serving.freeze``
-  freezes;
+  freezes (:func:`zoo_train_state_from_flax` for the synthetic zoo);
 - :func:`serve_state_from_frozen`: a JAX ``FrozenTables`` (its
   ``device_blocks``, ``emb_dense`` and ``dense``) -> the port's
   :class:`~.serving.export.FrozenTables`.
@@ -18,7 +21,7 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -31,22 +34,36 @@ def _tensor(x) -> torch.Tensor:
   return torch.tensor(np.asarray(x))
 
 
-def dlrm_state_dict_from_flax(params: Dict[str, Any]
-                              ) -> Dict[str, torch.Tensor]:
-  """flax DLRM dense params (numpy leaves) -> the port's DLRM state_dict.
-  An empty tree (a model without dense params) maps to ``{}``."""
+def _mlps_state_dict(params: Dict[str, Any], mlps
+                     ) -> Dict[str, torch.Tensor]:
+  """flax ``<mlp>/dense_i/{kernel, bias}`` subtrees (numpy leaves) -> the
+  port's ``<mlp>.layers.i.{weight, bias}``; any other subtree raises."""
   out: Dict[str, torch.Tensor] = {}
-  for mlp in ("bottom_mlp", "top_mlp"):
+  for mlp in mlps:
     layers = params.get(mlp, {})
     for i in range(len(layers)):
       dense = layers[f"dense_{i}"]
       out[f"{mlp}.layers.{i}.weight"] = _tensor(dense["kernel"]).t() \
           .contiguous()
       out[f"{mlp}.layers.{i}.bias"] = _tensor(dense["bias"])
-  unknown = set(params) - {"bottom_mlp", "top_mlp"}
+  unknown = set(params) - set(mlps)
   if unknown:
     raise ValueError(f"unexpected flax param subtrees {sorted(unknown)}")
   return out
+
+
+def dlrm_state_dict_from_flax(params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+  """flax DLRM dense params (numpy leaves) -> the port's DLRM state_dict.
+  An empty tree (a model without dense params) maps to ``{}``."""
+  return _mlps_state_dict(params, ("bottom_mlp", "top_mlp"))
+
+
+def synthetic_state_dict_from_flax(params: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+  """flax ``SyntheticModel`` dense params (``mlp/dense_i/...``, numpy
+  leaves) -> the port's ``SyntheticModel.state_dict()``."""
+  return _mlps_state_dict(params, ("mlp",))
 
 
 def split_rank_state(state: Dict[str, Any], world: int,
@@ -82,12 +99,16 @@ def join_rank_states(states) -> Dict[str, Any]:
 
 
 def train_state_from_flax(state: Dict[str, Any], device="cuda",
-                          mesh=None) -> Dict[str, Any]:
+                          mesh=None,
+                          dense_state_dict: Callable = dlrm_state_dict_from_flax
+                          ) -> Dict[str, Any]:
   """JAX sparse train state (numpy leaves) -> the port's train state on
   ``device``: every packed buffer whole (table and optimizer-state lanes),
-  the dense-class tables, the dense params as a DLRM state_dict, and the
-  step. The optax states are not carried: the port's train step binds its
-  ``torch.optim`` optimizers on first use (SGD keeps no state). With a
+  the dense-class tables, the dense params as the model's state_dict
+  (``dense_state_dict``: the DLRM's by default), and the step. The optax
+  states are not carried: the port's train step binds its ``torch.optim``
+  optimizers on first use, at their initial state (SGD keeps none; for
+  Adagrad this is exact for a state that has not stepped yet). With a
   ``mesh`` the state is this rank's view (:func:`split_rank_state`), on
   the mesh's device."""
   if mesh is not None:
@@ -99,9 +120,18 @@ def train_state_from_flax(state: Dict[str, Any], device="cuda",
       "emb_dense": {k: _tensor(v).to(dev)
                     for k, v in state["emb_dense"].items()},
       "dense": {k: v.to(dev)
-                for k, v in dlrm_state_dict_from_flax(state["dense"]).items()},
+                for k, v in dense_state_dict(state["dense"]).items()},
       "step": int(np.asarray(state.get("step", 0))),
   }
+
+
+def zoo_train_state_from_flax(state: Dict[str, Any], device="cuda",
+                              mesh=None) -> Dict[str, Any]:
+  """A JAX sparse train state of a ``SyntheticModel`` (e.g. from
+  ``init_sparse_state_direct``; numpy leaves) -> the port's train state,
+  as :func:`train_state_from_flax`."""
+  return train_state_from_flax(state, device, mesh,
+                               synthetic_state_dict_from_flax)
 
 
 def serve_state_from_frozen(frozen) -> FrozenTables:

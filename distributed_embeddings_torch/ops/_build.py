@@ -97,4 +97,5 @@ def load(name: str) -> ctypes.CDLL:
   return lib
 
 
-KERNELS = ("interact_fwd", "interact_bwd", "apply_rows", "gather_rows")
+KERNELS = ("interact_fwd", "interact_bwd", "apply_rows", "gather_rows",
+           "build_delta_rows", "row_major")

@@ -12,11 +12,13 @@ package reads the same in the other (``convert.py`` hands buffers across
 as numpy arrays). Ids outside ``[0, rows)`` are padding sentinels: the
 gather returns all-zero rows for them and the scatter drops them.
 
-Ported here: the layout, the fused gather, the uniform packed init, the
-fused scatter-add (:func:`scatter_add_fused`, kernel K1 on the card) and
-the ``sgd``/``adagrad``/``momentum``/``adam`` rules. The host cold-store
-helpers (tiering) and the rules' ``delta_lanes`` twins (kernel K6) are not
-ported yet.
+Ported here: the layout, the fused gather (with the window-masked
+physical-row form of narrow multi-hot classes), the uniform packed init,
+the fused scatter-add (:func:`scatter_add_fused`, kernel K1 on the card)
+and the ``sgd``/``adagrad``/``momentum``/``adam`` rules with the
+``delta_lanes`` twins and host scalars that the fused delta build
+(``ops/cuda_delta.py``, kernel K6) takes. The host cold-store helpers
+(tiering) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -147,17 +150,29 @@ def _grp_sub(layout: PackedLayout, ids: torch.Tensor):
 
 
 def gather_fused(layout: PackedLayout, buf: torch.Tensor,
-                 ids: torch.Tensor) -> torch.Tensor:
+                 ids: torch.Tensor, masked_phys: bool = False) -> torch.Tensor:
   """Gather fused rows: ``[..., stride]`` = (table row | aux rows).
 
   Reads each occurrence's logical row straight out of its window (a
   strided ``[phys_rows, rpp, stride]`` view of the buffer), so nothing of
   the physical row beyond the window is staged. OOB/sentinel ids return
-  all-zero rows."""
+  all-zero rows.
+
+  ``masked_phys=True`` returns window-MASKED physical rows ``[...,
+  rpp * stride]`` instead: every lane outside the occurrence's window is
+  zero, and callers fold the ``rpp`` windows at bag granularity (the
+  multi-hot narrow-class path of ``lookup_engine._combine_fused``)."""
   grp, sub, valid = _grp_sub(layout, ids)
   rpp, stride = layout.rows_per_phys, layout.stride
-  windows = buf[:, :rpp * stride].unflatten(1, (rpp, stride))
   safe_grp = torch.where(valid, grp, torch.zeros_like(grp))
+  if masked_phys:
+    rows = buf[:, :rpp * stride][safe_grp]
+    keep = valid[..., None]
+    if rpp > 1:
+      win = torch.arange(rpp * stride, device=buf.device) // stride
+      keep = keep & (win == sub[..., None])
+    return torch.where(keep, rows, torch.zeros_like(rows))
+  windows = buf[:, :rpp * stride].unflatten(1, (rpp, stride))
   rows = windows[safe_grp, sub]
   rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
   if rpp > 1 and rows.is_floating_point():
@@ -169,20 +184,41 @@ def gather_fused(layout: PackedLayout, buf: torch.Tensor,
 
 def gather_fused_chunked(layout: PackedLayout, buf: torch.Tensor,
                          ids: torch.Tensor,
-                         chunk: Optional[int] = None) -> torch.Tensor:
+                         chunk: Optional[int] = None,
+                         masked_phys: bool = False) -> torch.Tensor:
   """:func:`gather_fused` over id chunks of at most ``chunk`` ids, so the
   index temporaries stay bounded on large streams; one shot when the
   stream fits one chunk. Same values as :func:`gather_fused`."""
   if chunk is None:
     chunk = 1 << 22
+  width = (layout.rows_per_phys * layout.stride if masked_phys
+           else layout.stride)
   flat = ids.reshape(-1)
   n = flat.shape[0]
   if n <= chunk:
-    return gather_fused(layout, buf, ids)
-  out = torch.empty((n, layout.stride), dtype=buf.dtype, device=buf.device)
+    return gather_fused(layout, buf, ids, masked_phys)
+  out = torch.empty((n, width), dtype=buf.dtype, device=buf.device)
   for c0 in range(0, n, chunk):
-    out[c0:c0 + chunk] = gather_fused(layout, buf, flat[c0:c0 + chunk])
-  return out.reshape(tuple(ids.shape) + (layout.stride,))
+    out[c0:c0 + chunk] = gather_fused(layout, buf, flat[c0:c0 + chunk],
+                                      masked_phys)
+  return out.reshape(tuple(ids.shape) + (width,))
+
+
+def residual_lanes(layout: PackedLayout, res: torch.Tensor, lo: int,
+                   hi: int) -> torch.Tensor:
+  """Lanes ``[lo, hi)`` of each occurrence's fused row, ``[n, hi - lo]``,
+  from forward-saved rows in either layout: stride-wide fused rows, or
+  window-masked physical rows (``gather_fused(masked_phys=True)``), whose
+  one nonzero window is extracted by summing the ``rpp`` windows in
+  order, as the JAX engine does."""
+  stride = layout.stride
+  flat = res.reshape(-1, res.shape[-1])
+  if flat.shape[-1] == stride:
+    return flat[:, lo:hi]
+  out = flat[:, lo:hi]
+  for s in range(1, layout.rows_per_phys):
+    out = out + flat[:, s * stride + lo:s * stride + hi]
+  return out
 
 
 def mxu_operand_dtype(dtype: torch.dtype, device) -> torch.dtype:
@@ -272,7 +308,16 @@ class SparseRule:
   (decay on touched rows only; make_sparse_train_step folds a table
   ``regularizer='l2'`` in). ``linear_scale(step)``: for rules whose delta
   is a scalar multiple of the cotangent (SGD), that multiplier; the engine
-  then skips the delta and the apply (K1) scales the raw rows."""
+  then skips the delta and the apply (K1) scales the raw rows.
+
+  ``delta_lanes(g, [aux_0, ..], step)``: the flat-lanes twin of ``delta``,
+  returning the delta as a list of ``[..., W]`` lane groups (table first);
+  it computes exactly what ``delta`` computes. ``lane_scalars(step)``: the
+  host floats the fused delta build (kernel K6, ``ops/cuda_delta.py``)
+  takes for this rule at ``step`` (the learning rate, the rule's constants
+  and Adam's bias corrections, computed on the host so the kernel needs no
+  device read). The engine builds a class's update rows with K6 only for
+  rules that have both."""
 
   name: str
   n_aux: int
@@ -280,10 +325,23 @@ class SparseRule:
   delta: Callable
   weight_decay: float = 0.0
   linear_scale: Optional[Callable] = None
+  delta_lanes: Optional[Callable] = None
+  lane_scalars: Optional[Callable] = None
 
 
 def _lr_at(lr, step):
   return lr(step) if callable(lr) else torch.tensor(lr, dtype=torch.float32)
+
+
+def _host_lr(lr, step) -> float:
+  """The learning rate at ``step`` as a host float (a schedule returns a
+  Python number or a CPU tensor: nothing is read back from the card)."""
+  return float(lr(step) if callable(lr) else lr)
+
+
+def _f32(x) -> float:
+  """``x`` rounded to f32, as the JAX rules' weakly typed constants are."""
+  return float(np.float32(x))
 
 
 def sgd_rule(learning_rate) -> SparseRule:
@@ -303,16 +361,22 @@ def adagrad_rule(learning_rate, initial_accumulator_value: float = 0.1,
   table -= lr * g * rsqrt(acc' + eps). The accumulator rides in the fused
   row (``n_aux=1``)."""
 
-  def delta(g, aux_rows, step):
-    acc = aux_rows[..., 0, :]
+  def delta_lanes(g, aux_list, step):
+    (acc,) = aux_list
     g2 = g * g
     acc_new = acc + g2
     scaled = torch.where(acc_new > 0, g * torch.rsqrt(acc_new + eps),
                          torch.zeros_like(g))
     lr = _lr_at(learning_rate, step).to(g.device)
-    return torch.cat([-lr * scaled, g2], dim=-1)
+    return [-lr * scaled, g2]
 
-  return SparseRule("adagrad", 1, (initial_accumulator_value,), delta)
+  def delta(g, aux_rows, step):
+    return torch.cat(delta_lanes(g, [aux_rows[..., 0, :]], step), dim=-1)
+
+  return SparseRule(
+      "adagrad", 1, (initial_accumulator_value,), delta,
+      delta_lanes=delta_lanes,
+      lane_scalars=lambda step: (_host_lr(learning_rate, step), _f32(eps)))
 
 
 def momentum_rule(learning_rate, momentum: float = 0.9,
@@ -322,14 +386,20 @@ def momentum_rule(learning_rate, momentum: float = 0.9,
   m')). The momentum buffer rides in the fused row; the delta is
   ``[-lr*upd | m' - m]``."""
 
-  def delta(g, aux_rows, step):
-    m = aux_rows[..., 0, :]
+  def delta_lanes(g, aux_list, step):
+    (m,) = aux_list
     m_new = momentum * m + g
     upd = (g + momentum * m_new) if nesterov else m_new
     lr = _lr_at(learning_rate, step).to(g.device)
-    return torch.cat([-lr * upd, m_new - m], dim=-1)
+    return [-lr * upd, m_new - m]
 
-  return SparseRule("momentum", 1, (0.0,), delta)
+  def delta(g, aux_rows, step):
+    return torch.cat(delta_lanes(g, [aux_rows[..., 0, :]], step), dim=-1)
+
+  return SparseRule(
+      "momentum", 1, (0.0,), delta, delta_lanes=delta_lanes,
+      lane_scalars=lambda step: (_host_lr(learning_rate, step),
+                                 _f32(momentum), float(bool(nesterov))))
 
 
 def adam_rule(learning_rate, b1: float = 0.9, b2: float = 0.999,
@@ -338,9 +408,8 @@ def adam_rule(learning_rate, b1: float = 0.9, b2: float = 0.999,
   fused row (``n_aux=2``), bias-corrected with the global ``t = step +
   1``; the delta is ``[-lr*upd | dm | dv]``."""
 
-  def delta(g, aux_rows, step):
-    m = aux_rows[..., 0, :]
-    v = aux_rows[..., 1, :]
+  def delta_lanes(g, aux_list, step):
+    m, v = aux_list
     dm = (1.0 - b1) * (g - m)
     dv = (1.0 - b2) * (g * g - v)
     m_new = m + dm
@@ -350,9 +419,24 @@ def adam_rule(learning_rate, b1: float = 0.9, b2: float = 0.999,
     v_hat = v_new / (1.0 - torch.pow(torch.tensor(b2, device=g.device), t))
     lr = _lr_at(learning_rate, step).to(g.device)
     upd = m_hat / (torch.sqrt(v_hat) + eps)
-    return torch.cat([-lr * upd, dm, dv], dim=-1)
+    return [-lr * upd, dm, dv]
 
-  return SparseRule("adam", 2, (0.0, 0.0), delta)
+  def delta(g, aux_rows, step):
+    return torch.cat(delta_lanes(g, [aux_rows[..., 0, :],
+                                     aux_rows[..., 1, :]], step), dim=-1)
+
+  def lane_scalars(step):
+    # the bias corrections 1 - b^t in f32, t = step + 1 (the JAX rule's
+    # f32 power of weakly typed betas; the power is taken in f64 and
+    # rounded once)
+    t = float(step) + 1.0
+    c1 = np.float32(1.0) - np.float32(float(np.float32(b1)) ** t)
+    c2 = np.float32(1.0) - np.float32(float(np.float32(b2)) ** t)
+    return (_host_lr(learning_rate, step), _f32(1.0 - b1), _f32(1.0 - b2),
+            float(c1), float(c2), _f32(eps))
+
+  return SparseRule("adam", 2, (0.0, 0.0), delta, delta_lanes=delta_lanes,
+                    lane_scalars=lane_scalars)
 
 
 _RULES = {"sgd": sgd_rule, "adagrad": adagrad_rule,

@@ -16,27 +16,39 @@ so the two can be compared piece by piece.
 At world > 1 the engine runs in every rank's process with that rank's
 :class:`~.mesh.Mesh`; class params are the rank's local blocks.
 
+Narrow multi-hot classes with optimizer state keep their gather at
+physical width: window-masked physical rows, summed per bag, the ``rpp``
+windows folded once per bag (the JAX engine's masked physical-row path).
+Where a class's rule has a lane form (Adagrad, momentum, Adam on 128-lane
+physical rows), its update rows are built by kernel K6
+(``ops/cuda_delta.py``) and go straight to K1; ``DE_TORCH_COTANGENT_PIN=1``
+copies each sparse bucket's cotangent to a contiguous tensor with kernel
+K7 first (``ops/cuda_layout.py``, the JAX ``DE_TPU_COTANGENT_PIN``).
+
 Not ported yet: deduplicated routing (``dedup_exchange``), ragged value
-streams, the masked physical-row gather of narrow multi-hot classes with
-optimizer state, tiering, and kernel K6 (the fused delta build, off by
-default in the JAX package).
+streams and tiering.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..ops.cuda_delta import build_delta_rows, build_delta_rows_plain
 from ..ops.cuda_exchange import gather_rows
+from ..ops.cuda_layout import row_major
 from ..ops.packed_table import (
     PackedLayout,
     SparseRule,
+    _grp_sub,
     gather_fused,
     gather_fused_chunked,
     mxu_operand_dtype,
+    residual_lanes,
     scatter_add_fused,
 )
 from ..ops.sparse_grad import dedup_rows
@@ -46,6 +58,21 @@ if TYPE_CHECKING:
   from ..layers.planner import DistEmbeddingStrategy
 
 PAD_ID = -1  # marks hotness padding in dense-padded inputs
+
+
+def _cotangent_pin() -> bool:
+  """``DE_TORCH_COTANGENT_PIN=1``: copy each sparse bucket's cotangent to
+  a contiguous tensor with kernel K7 before the apply (the JAX engine's
+  default-off ``DE_TPU_COTANGENT_PIN`` layout pin). Off by default."""
+  return os.environ.get("DE_TORCH_COTANGENT_PIN", "0") == "1"
+
+
+def _masked_multi_hot(layout: PackedLayout, ids) -> bool:
+  """A multi-hot bucket of a narrow class with optimizer state: gathered
+  as window-masked physical rows, folded per bag (the JAX engine's
+  condition)."""
+  return (layout.rows_per_phys > 1 and bool(layout.n_aux)
+          and ids.dim() == 3 and ids.shape[-1] > 1)
 
 
 def class_param_name(width: int, combiner: Optional[str],
@@ -462,14 +489,18 @@ class DistributedLookup:
     return [(s, min(per, rows - s)) for s in range(0, rows, per)]
 
   def _fused_gather(self, layout: PackedLayout, buf_local: torch.Tensor,
-                    ids: torch.Tensor) -> torch.Tensor:
+                    ids: torch.Tensor, masked_phys: bool = False
+                    ) -> torch.Tensor:
     """One round block's gather: kernel K4 (``ops/cuda_exchange.py``) for
     plain-row f32 layouts (one fused row per physical row, at any stride),
     ``gather_fused_chunked`` (the monolithic schedule's gather) for every
-    other layout. On the CPU K4's wrapper runs its plain version."""
-    if layout.rows_per_phys == 1 and buf_local.dtype == torch.float32:
+    other layout and for window-masked physical rows. On the CPU K4's
+    wrapper runs its plain version."""
+    if (not masked_phys and layout.rows_per_phys == 1
+        and buf_local.dtype == torch.float32):
       return gather_rows(layout, buf_local, ids.to(torch.int32))
-    return gather_fused_chunked(layout, buf_local, ids)
+    return gather_fused_chunked(layout, buf_local, ids,
+                                masked_phys=masked_phys)
 
   def _fused_reassemble(self, per_round) -> torch.Tensor:
     """Round-major blocks -> the dest-major layout: ``per_round[k]``
@@ -490,9 +521,10 @@ class DistributedLookup:
     (slot, sample), so slicing the ids first equals slicing the
     monolithic result after (bit-exact). The aux residuals are
     reassembled to their dest-major layouts here."""
-    self._check_routed(layout, ids_all)
+    self._check_routed(ids_all)
     world, i = self.plan.world_size, self._my_rank()
     bsz = ids_all.shape[1] // world
+    masked = _masked_multi_hot(layout, ids_all)
     blocks, aux_rounds = [], []
     for k in range(world):
       d = (i + k) % world
@@ -501,8 +533,8 @@ class DistributedLookup:
       for s0, sz in self._fused_chunk_slices(bsz):
         ids_c = ids_d[:, s0:s0 + sz]
         z, a = self._combine_fused(
-            key, layout, self._fused_gather(layout, buf_local, ids_c), ids_c,
-            rs, keep_rows)
+            key, layout, self._fused_gather(layout, buf_local, ids_c, masked),
+            ids_c, rs, keep_rows)
         zc.append(z)
         ac.append(a)
       blocks.append(tuple(zc))
@@ -687,31 +719,47 @@ class DistributedLookup:
 
     The combine sums the full fused stride (table + aux lanes) and slices
     the table lanes at bag granularity, as the JAX engine does; the
-    residual is the gathered fused rows (None when nothing reads them)."""
-    self._check_routed(layout, ids_all)
+    residual is the gathered fused rows (None when nothing reads them).
+    Multi-hot buckets of narrow classes with optimizer state gather
+    window-masked physical rows instead (:meth:`_combine_fused`)."""
+    self._check_routed(ids_all)
     return self._combine_fused(
-        key, layout, gather_fused_chunked(layout, buf_local, ids_all),
+        key, layout,
+        gather_fused_chunked(layout, buf_local, ids_all,
+                             masked_phys=_masked_multi_hot(layout, ids_all)),
         ids_all, rs, keep_rows)
 
   @staticmethod
-  def _check_routed(layout: PackedLayout, ids_all) -> None:
+  def _check_routed(ids_all) -> None:
     """Refuse the routings the fused gather does not serve yet."""
     if not isinstance(ids_all, torch.Tensor):
       raise NotImplementedError(
           f"routed ids of type {type(ids_all).__name__}: deduplicated and "
           "ragged routing are not ported yet (ROADMAP.md open items, "
           "queue B, item 7)")
-    multi_hot = ids_all.dim() == 3 and ids_all.shape[-1] > 1
-    if layout.rows_per_phys > 1 and layout.n_aux and multi_hot:
-      raise NotImplementedError(
-          "multi-hot ids on a narrow class with optimizer state: the JAX "
-          "engine's masked physical-row gather is not ported yet "
-          "(ROADMAP.md open items, queue B, item 6)")
 
   def _combine_fused(self, key, layout: PackedLayout, fused: torch.Tensor,
                      ids: torch.Tensor, rs: bool, keep_rows: bool):
-    """Gathered fused rows -> ``(z, residual rows or None)``."""
+    """Gathered fused rows -> ``(z, residual rows or None)``.
+
+    For window-masked physical rows (:func:`_masked_multi_hot`) the bag
+    sums at physical width and the ``rpp`` windows' table lanes fold once
+    per bag, in window order (the JAX engine's order of additions); the
+    residual is the masked rows, whose state lanes the apply folds per
+    occurrence (``residual_lanes``)."""
     w = layout.width
+    if _masked_multi_hot(layout, ids):
+      cp = self.plan.classes[key]
+      if cp.combiner is None:
+        raise ValueError("combiner=None requires hotness-1 inputs in the "
+                         "distributed path (2-D model-parallel outputs)")
+      bag = _sum_axis2(fused)  # [n_b, G, rpp * stride]
+      z = residual_lanes(layout, bag, 0, w).reshape(bag.shape[:-1] + (w,))
+      if cp.combiner == "mean" and not rs:
+        sentinel = padded_rows(self.plan, key)
+        counts = (ids < sentinel).sum(dim=2).to(z.dtype)
+        z = z / counts.clamp(min=1)[..., None]
+      return z, fused
     if layout.n_aux == 0:
       return (self._combine(fused, ids, key, rs),
               fused if keep_rows else None)
@@ -721,19 +769,21 @@ class DistributedLookup:
 
   @staticmethod
   def _aux_occ(aux, layout: PackedLayout, rule: SparseRule):
-    """Residual fused rows -> per-occurrence aux rows ``[-1, n_aux, w]``."""
+    """Residual rows (stride-wide or window-masked physical rows) ->
+    per-occurrence aux rows ``[-1, n_aux, w]``."""
     if aux is None or not rule.n_aux:
       return None
     w = layout.width
-    return aux.reshape(-1, aux.shape[-1])[:, w:].reshape(-1, rule.n_aux, w)
+    return residual_lanes(layout, aux, w, layout.stride).reshape(
+        -1, rule.n_aux, w)
 
   @staticmethod
   def _decayed(g, res, layout: PackedLayout, rule: SparseRule):
     """Touched-rows l2: add ``2λ * row`` (the forward-time row from the
-    residuals) to the occurrence cotangent."""
+    residuals, in either layout) to the occurrence cotangent."""
     if not rule.weight_decay or res is None:
       return g
-    row = res.reshape(-1, res.shape[-1])[:, :layout.width]
+    row = residual_lanes(layout, res, 0, layout.width)
     return g + (2.0 * rule.weight_decay) * row.reshape(g.shape)
 
   def _sparse_parts_by_class(self, d_z, residuals: SparseResiduals,
@@ -741,9 +791,12 @@ class DistributedLookup:
     """Group per-bucket cotangents into per-class ``(ids, dz, aux, h)``
     parts; mean combiners divide by the forward's valid counts. A
     :class:`FusedChunks` cotangent (the fused schedule's per-round form)
-    is reassembled to the dest-major layout first."""
+    is reassembled to the dest-major layout first. Under
+    ``DE_TORCH_COTANGENT_PIN=1`` each sparse bucket's cotangent is copied
+    to a fresh contiguous tensor by kernel K7 (the values are unchanged)."""
     plan = self.plan
     by_class: Dict[str, list] = {}
+    pin = _cotangent_pin()
     for bk, dzb in d_z.items():
       key, h = bk.class_key, bk.h
       if plan.classes[key].kind != "sparse":
@@ -752,6 +805,8 @@ class DistributedLookup:
         dzb = self._fused_reassemble(
             [blk[0] if len(blk) == 1 else torch.cat(blk, dim=1)
              for blk in dzb.blocks])
+      if pin:
+        dzb = row_major(dzb)
       cp = plan.classes[key]
       ids = residuals.ids_all[bk]
       aux = (residuals.aux_rows[bk]
@@ -766,23 +821,65 @@ class DistributedLookup:
           (ids, dzb, aux, h))
     return by_class
 
+  @staticmethod
+  def _delta_rows_serve(layout: PackedLayout, part, rule: SparseRule) -> bool:
+    """Whether kernel K6 (``ops/cuda_delta.py``) builds this part's update
+    rows: the rule has a lane form, the class has 128-lane physical rows,
+    the cotangent and state are f32 and the residual rows are stride-wide
+    or window-masked physical rows. Decided from the plan, the rule and
+    the tensors' layouts alone. (The TPU kernel's VMEM blocking limits are
+    not conditions here.)"""
+    _, dzb, aux, _ = part
+    if rule.delta_lanes is None or rule.lane_scalars is None:
+      return False
+    if layout.phys_width != 128 or dzb.dtype != torch.float32:
+      return False
+    if rule.n_aux:
+      if aux is None or aux.dtype != torch.float32:
+        return False
+      if aux.shape[-1] not in (layout.stride, layout.phys_width):
+        return False
+    return True
+
+  @staticmethod
+  def _delta_rows(layout: PackedLayout, part, rule: SparseRule, step,
+                  kernel: bool) -> torch.Tensor:
+    """One part's ``[n, phys_width]`` physical-row updates: from kernel K6
+    when ``kernel`` (its plain version for CPU tensors), else from the
+    same chain in PyTorch ops (``build_delta_rows_plain``)."""
+    ids, dzb, aux, h = part
+    hh = max(1, h)
+    n = ids.numel()
+    _, sub, _ = _grp_sub(layout, ids.reshape(-1))
+    aux_flat = aux.reshape(n, aux.shape[-1]) if rule.n_aux else None
+    build = build_delta_rows if kernel else build_delta_rows_plain
+    return build(layout, rule, dzb.reshape(n // hh, layout.width), sub,
+                 aux_flat, hh, step)
+
   def _stream_of_parts(self, layout: PackedLayout, parts, rule: SparseRule,
                        step):
     """A class's parts -> one occurrence stream ``(ids [n], rows [n, k])``:
-    the raw (decayed) cotangent rows for scale-only rules (the apply
-    scales them), the fused ``rule.delta`` rows otherwise."""
+    the physical-row updates of :meth:`_delta_rows`, from kernel K6 where
+    it serves every part of the class (all or nothing, as the JAX engine
+    decides it), except for scale-only rules, whose raw cotangent rows the
+    apply scales, and rules with a decay, whose cotangent takes the decay
+    term before ``rule.delta``."""
     w = layout.width
-    scale_only = rule.linear_scale is not None
-    all_ids, all_rows = [], []
-    for ids, dzb, aux, h in parts:
-      n = ids.numel()
-      g = dzb.reshape(-1, w)
-      if h > 1:
-        g = g[:, None, :].expand(n // h, h, w).reshape(n, w)
-      aux_r = self._aux_occ(aux, layout, rule)
-      g = self._decayed(g, aux, layout, rule)
-      all_ids.append(ids.reshape(-1))
-      all_rows.append(g if scale_only else rule.delta(g, aux_r, step))
+    all_ids = [ids.reshape(-1) for ids, _, _, _ in parts]
+    if rule.linear_scale is None and not rule.weight_decay:
+      kernel = all(self._delta_rows_serve(layout, p, rule) for p in parts)
+      all_rows = [self._delta_rows(layout, p, rule, step, kernel)
+                  for p in parts]
+    else:
+      all_rows = []
+      for ids, dzb, aux, h in parts:
+        n = ids.numel()
+        g = dzb.reshape(-1, w)
+        if h > 1:
+          g = g[:, None, :].expand(n // h, h, w).reshape(n, w)
+        g = self._decayed(g, aux, layout, rule)
+        all_rows.append(g if rule.linear_scale is not None else
+                        rule.delta(g, self._aux_occ(aux, layout, rule), step))
     if len(all_ids) == 1:
       return all_ids[0], all_rows[0]
     return torch.cat(all_ids), torch.cat(all_rows)
@@ -855,23 +952,19 @@ class DistributedLookup:
       # chunks' order does not matter)
       for ids, dzb, aux, h in parts:
         n = ids.numel()
+        hh = max(1, h)
         ids_f = ids.reshape(-1)
         dz_f = dzb.reshape(-1, w)
-        aux_f = self._aux_occ(aux, layout, rule)
-        res_f = (aux.reshape(-1, aux.shape[-1])
-                 if rule.weight_decay and aux is not None else None)
-        hh = max(1, h)
+        aux_f = None if aux is None else aux.reshape(n, aux.shape[-1])
         chunk = max(hh, (self.apply_chunk // hh) * hh)
         for c0 in range(0, n, chunk):
           cn = min(chunk, n - c0)
-          g_c = dz_f[c0 // hh:(c0 + cn) // hh]
-          if h > 1:
-            g_c = g_c[:, None, :].expand(cn // h, h, w).reshape(cn, w)
-          aux_c = None if aux_f is None else aux_f[c0:c0 + cn]
-          if res_f is not None:
-            g_c = self._decayed(g_c, res_f[c0:c0 + cn], layout, rule)
-          scatter_add_fused(layout, buf, ids_f[c0:c0 + cn],
-                            rule.delta(g_c, aux_c, step))
+          part = (ids_f[c0:c0 + cn], dz_f[c0 // hh:(c0 + cn) // hh],
+                  None if aux_f is None else aux_f[c0:c0 + cn], h)
+          self.apply_sparse_streams(
+              {name: buf}, layouts,
+              {name: self._stream_of_parts(layout, [part], rule, step)},
+              rule, step)
     return fused_params
 
 

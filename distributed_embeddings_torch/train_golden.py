@@ -32,6 +32,19 @@ bf16 whatever the compute dtype (as on the TPU), which only the bf16
 run shares with the CPU golden. Each run's final state is stored as the
 update from the initial state (``<compute>_<part>_moved/<name>``): the
 untouched rows are zero and compress.
+
+``tests/data/torch_train_zoo_golden.npz`` is the synthetic zoo's: the
+published Tiny model with its big vocabularies cut to
+:data:`ZOO_VOCAB_CAP` rows (:func:`zoo_plan`), Adagrad 0.01 on the sparse
+classes (narrow multi-hot classes with optimizer state: the masked
+physical-row gather) and ``optax.adagrad(0.01)`` on the dense parameters,
+three f32 steps of the JAX ``make_sparse_train_step`` on batches of
+:data:`ZOO_BATCH` power-law ids. Its initial state is made by
+:func:`zoo_initial_state` from a numpy seed (``RandomState``, whose
+stream numpy keeps stable), so the file holds only the batches, the
+losses, the final dense params and each buffer's update; ``zoo_init_sum``
+entries pin the initial state. :func:`replay_zoo` replays it through the
+port.
 """
 
 from __future__ import annotations
@@ -43,17 +56,38 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from .convert import dlrm_state_dict_from_flax, train_state_from_flax
+from .convert import (
+    dlrm_state_dict_from_flax,
+    synthetic_state_dict_from_flax,
+    train_state_from_flax,
+    zoo_train_state_from_flax,
+)
 from .layers.embedding import TableConfig
 from .layers.planner import DistEmbeddingStrategy
 from .models.dlrm import DLRM, bce_loss, dlrm_embedding_plan
-from .ops.packed_table import sgd_rule
+from .models.synthetic import (
+    SYNTHETIC_MODELS,
+    SyntheticModel,
+    expand_tables,
+    generate_batch,
+    mlp_in_features,
+    synthetic_plan,
+)
+from .ops.packed_table import adagrad_rule, sgd_rule
 from .parallel import wire
-from .training import make_sparse_eval_step, make_sparse_train_step, shard_batch
+from .parallel.lookup_engine import class_param_name, padded_rows
+from .training import (
+    Adagrad,
+    init_sparse_state,
+    make_sparse_eval_step,
+    make_sparse_train_step,
+    shard_batch,
+)
 
 GOLDEN_PATH = (Path(__file__).resolve().parents[1] / "tests" / "data" /
                "torch_train_golden.npz")
 WORLD4_PATH = GOLDEN_PATH.with_name("torch_train_world4_golden.npz")
+ZOO_PATH = GOLDEN_PATH.with_name("torch_train_zoo_golden.npz")
 LR = 0.1
 STEPS = 3
 # per-step losses
@@ -139,9 +173,10 @@ def compare(golden: Dict[str, np.ndarray], losses: List[float],
                   final_state(golden), losses, got)
 
 
-def _compare(want_loss, initial, want, losses, got) -> Dict[str, float]:
+def _compare(want_loss, initial, want, losses, got,
+             to_port=train_state_from_flax) -> Dict[str, float]:
   np.testing.assert_allclose(losses, want_loss, **LOSS_TOL)
-  init = train_state_from_flax(initial, device="cpu")
+  init = to_port(initial, device="cpu")
   worst = 0.0
   for part, tensors in want.items():
     assert sorted(tensors) == sorted(got[part]), part
@@ -242,3 +277,175 @@ def compare_world4(golden: Dict[str, np.ndarray], losses: List[float],
   np.testing.assert_allclose(preds, want, **LOSS_TOL)
   out["preds_max_abs_err"] = float(np.abs(preds - want).max())
   return out
+
+
+# ---------------------------------------------------------------------------
+# the synthetic zoo golden (Tiny, Adagrad)
+# ---------------------------------------------------------------------------
+
+ZOO_MODEL = "tiny"
+# rows kept of each table: the 10- and 1,000-row tables whole, the larger
+# ones cut to this many
+ZOO_VOCAB_CAP = 2000
+# below the cut and above the 1,000-row tables: the published model's
+# split of sparse and dense classes (bench_synthetic.py's threshold 2,048
+# would make every cut table dense)
+ZOO_DENSE_ROW_THRESHOLD = 1024
+ZOO_BATCH = 64
+ZOO_ALPHA = 1.05  # tools/bench_synthetic.py's power law
+ZOO_LR = 0.01  # adagrad_rule(0.01), optax.adagrad(0.01)
+ZOO_SEED = 0
+# the uniform bound of the initial tables (the Keras default)
+ZOO_INIT_SCALE = 0.05
+
+
+def zoo_tables(cap: int = ZOO_VOCAB_CAP) -> List[TableConfig]:
+  """Tiny's tables with every vocabulary above ``cap`` cut to ``cap``."""
+  tables, _, _ = expand_tables(SYNTHETIC_MODELS[ZOO_MODEL])
+  return [TableConfig(input_dim=min(t.input_dim, cap),
+                      output_dim=t.output_dim, combiner=t.combiner)
+          for t in tables]
+
+
+def zoo_plan(cap: int = ZOO_VOCAB_CAP,
+             dense_row_threshold: int = ZOO_DENSE_ROW_THRESHOLD,
+             batch_hint=None) -> DistEmbeddingStrategy:
+  """The world-1 plan of ``tools/bench_synthetic.py`` over
+  :func:`zoo_tables`."""
+  return synthetic_plan(SYNTHETIC_MODELS[ZOO_MODEL],
+                        dense_row_threshold=dense_row_threshold,
+                        batch_hint=batch_hint, tables=zoo_tables(cap))
+
+
+def zoo_batches(steps: int = STEPS, batch: int = ZOO_BATCH,
+                cap: int = ZOO_VOCAB_CAP, seed: int = ZOO_SEED):
+  """``steps`` batches ``(numerical, cats, labels)`` as numpy:
+  ``generate_batch(tiny, batch, alpha=1.05, seed=seed + i)``, ids folded
+  into the cut vocabularies with a modulo (``bench_synthetic.py``'s rule
+  for cut vocabularies) and hotness-1 inputs as ``[B]``."""
+  cfg = SYNTHETIC_MODELS[ZOO_MODEL]
+  tables = zoo_tables(cap)
+  _, tmap, hotness = expand_tables(cfg)
+  out = []
+  for i in range(steps):
+    numerical, cats, labels = generate_batch(cfg, batch, alpha=ZOO_ALPHA,
+                                             seed=seed + i)
+    cats = [(c % tables[t].input_dim).astype(np.int32)
+            for c, t in zip(cats, tmap)]
+    cats = [c if h > 1 else c[:, 0] for c, h in zip(cats, hotness)]
+    out.append((numerical, cats, labels))
+  return out
+
+
+def zoo_initial_params(plan: DistEmbeddingStrategy, seed: int = ZOO_SEED
+                       ) -> Dict:
+  """Initial simple-layout params as numpy, in the flax layout:
+  ``{"embeddings": {class name: [rows, width]}, "mlp": {"dense_i":
+  {"kernel", "bias"}}}``. Tables uniform in +-0.05, MLP kernels normal
+  with variance ``1 / fan_in``, biases zero; drawn from
+  ``np.random.RandomState(seed)``."""
+  rs = np.random.RandomState(seed)
+  tables = {}
+  for key in plan.class_keys:
+    tables[class_param_name(*key)] = rs.uniform(
+        -ZOO_INIT_SCALE, ZOO_INIT_SCALE,
+        (padded_rows(plan, key), plan.classes[key].width)).astype(np.float32)
+  cfg = SYNTHETIC_MODELS[ZOO_MODEL]
+  widths = [mlp_in_features(cfg)] + list(cfg.mlp_sizes) + [1]
+  mlp = {}
+  for i, (fan_in, fan_out) in enumerate(zip(widths[:-1], widths[1:])):
+    mlp[f"dense_{i}"] = {
+        "kernel": (rs.standard_normal((fan_in, fan_out))
+                   * fan_in ** -0.5).astype(np.float32),
+        "bias": np.zeros((fan_out,), np.float32)}
+  return {"embeddings": tables, "mlp": mlp}
+
+
+def zoo_initial_state(plan: DistEmbeddingStrategy, rule,
+                      seed: int = ZOO_SEED) -> Dict:
+  """The zoo's initial train state as numpy in the JAX package's layout
+  (``{"fused", "emb_dense", "dense", "step"}``, ``dense`` a flax tree):
+  :func:`zoo_initial_params` packed by the port's ``init_sparse_state``
+  (which packs as the JAX ``init_sparse_state`` does)."""
+  params = zoo_initial_params(plan, seed)
+  dense = synthetic_state_dict_from_flax({"mlp": params["mlp"]})
+  state = init_sparse_state(
+      plan, {"embeddings": {k: torch.tensor(v)
+                            for k, v in params["embeddings"].items()},
+             **dense}, rule, functools.partial(Adagrad, lr=ZOO_LR),
+      device="cpu")
+  return {"fused": {k: v.numpy() for k, v in state["fused"].items()},
+          "emb_dense": {k: v.detach().numpy()
+                        for k, v in state["emb_dense"].items()},
+          "dense": {"mlp": params["mlp"]}, "step": 0}
+
+
+def zoo_init_sums(state: Dict) -> Dict[str, np.ndarray]:
+  """f64 sums of every initial buffer and table: a fingerprint of
+  :func:`zoo_initial_state` that the golden stores."""
+  out = {}
+  for part in ("fused", "emb_dense"):
+    for k, v in state[part].items():
+      out[f"zoo_init_sum/{part}/{k}"] = np.float64(
+          np.asarray(v, np.float64).sum())
+  return out
+
+
+def zoo_golden_state(golden: Dict[str, np.ndarray]):
+  """``(initial, final)`` numpy states of the zoo golden: the initial one
+  rebuilt (:func:`zoo_initial_state`, checked against the stored sums),
+  the final one as the initial plus the stored updates, its dense params
+  as the port's state_dict (keyed as :func:`final_state`)."""
+  plan = zoo_plan()
+  initial = zoo_initial_state(plan, adagrad_rule(ZOO_LR),
+                              int(golden["seed"]))
+  for k, v in zoo_init_sums(initial).items():
+    if not np.isclose(v, golden[k], rtol=1e-12, atol=1e-9):
+      raise AssertionError(
+          f"the rebuilt initial state differs from the golden's ({k}: "
+          f"{v} vs {golden[k]}): numpy's RandomState stream changed?")
+  final = {part: {k: initial[part][k] + v for k, v in
+                  _entries(golden, f"{part}_moved").items()}
+           for part in ("fused", "emb_dense")}
+  final["dense"] = {k: v.numpy() for k, v in synthetic_state_dict_from_flax(
+      flax_tree(golden, "dense3")).items()}
+  return initial, final
+
+
+def zoo_cats(golden: Dict[str, np.ndarray], i: int) -> List[np.ndarray]:
+  """Batch ``i``'s categorical inputs of the zoo golden (``cat/<input>``
+  entries, ``[STEPS, B]`` or ``[STEPS, B, h]``)."""
+  n = sum(1 for k in golden if k.startswith("cat/"))
+  return [golden[f"cat/{j}"][i] for j in range(n)]
+
+
+def replay_zoo(golden: Dict[str, np.ndarray], device="cuda"):
+  """Three steps of the port's train step from the zoo golden's initial
+  state on ``device``: returns ``(losses, final state)`` as
+  :func:`replay` does."""
+  plan = zoo_plan()
+  initial, _ = zoo_golden_state(golden)
+  model = SyntheticModel(SYNTHETIC_MODELS[ZOO_MODEL], device=device)
+  state = zoo_train_state_from_flax(initial, device=device)
+  step = make_sparse_train_step(
+      model, plan, bce_loss, functools.partial(Adagrad, lr=ZOO_LR),
+      adagrad_rule(ZOO_LR))
+  dev = torch.device(device)
+  losses = []
+  for i in range(STEPS):
+    cats = [torch.as_tensor(c, device=dev) for c in zoo_cats(golden, i)]
+    state, loss = step(state,
+                       torch.as_tensor(golden["numerical"][i], device=dev),
+                       cats, torch.as_tensor(golden["labels"][i], device=dev))
+    losses.append(float(loss))
+  got = {part: {k: v.detach().cpu().numpy() for k, v in state[part].items()}
+         for part in ("fused", "emb_dense", "dense")}
+  return losses, got
+
+
+def compare_zoo(golden: Dict[str, np.ndarray], losses: List[float],
+                got: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, float]:
+  """:func:`compare` for a :func:`replay_zoo` result."""
+  initial, final = zoo_golden_state(golden)
+  return _compare(golden["losses"], initial, final, losses, got,
+                  zoo_train_state_from_flax)

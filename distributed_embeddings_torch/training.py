@@ -35,7 +35,13 @@ The state is a dict ``{'dense', 'dense_opt', 'emb_dense', 'emb_dense_opt',
 its state) and returns ``(state, loss)``, the loss averaged over the
 ranks. ``dense_optimizer`` is a factory ``params ->
 torch.optim.Optimizer`` (``functools.partial(torch.optim.SGD, lr=...)``
-for ``optax.sgd``).
+for ``optax.sgd``, ``functools.partial(Adagrad, lr=...)`` for
+``optax.adagrad``).
+
+The synthetic zoo (``models/synthetic.py``) trains through the same
+step: narrow multi-hot classes with optimizer state (Adagrad on Tiny)
+take the masked physical-row gather, and their update rows come from
+kernel K6 (``ops/cuda_delta.py``) on the card.
 
 Not ported yet: ``micro_batches > 1``, the non-finite guard, the tiered
 step, dense-class regularizers and constraints, and ``make_train_step``
@@ -68,6 +74,44 @@ OptimizerFactory = Callable[[list], torch.optim.Optimizer]
 # the Keras default of the named uniform initializers (the JAX package's
 # ``layers/embedding.py:_keras_uniform``)
 _KERAS_UNIFORM_SCALE = 0.05
+
+
+class Adagrad(torch.optim.Optimizer):
+  """``optax.adagrad(lr, initial_accumulator_value, eps)`` as a
+  ``torch.optim`` optimizer, for the dense parameters and dense-class
+  tables: ``acc += g²``; ``p += -lr · (rsqrt(acc + eps) · g)`` where ``acc
+  > 0``. (``torch.optim.Adagrad`` divides by ``sqrt(acc) + eps`` instead,
+  another function.) Parameters without a gradient are left as they are,
+  which is what optax's update does for a zero gradient."""
+
+  def __init__(self, params, lr: float, initial_accumulator_value: float = 0.1,
+               eps: float = 1e-7):
+    super().__init__(params, {"lr": lr, "eps": eps,
+                              "initial_accumulator_value":
+                                  initial_accumulator_value})
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    loss = None
+    if closure is not None:
+      with torch.enable_grad():
+        loss = closure()
+    for group in self.param_groups:
+      for p in group["params"]:
+        if p.grad is None:
+          continue
+        state = self.state[p]
+        if not state:
+          state["sum"] = torch.full_like(
+              p, group["initial_accumulator_value"],
+              memory_format=torch.preserve_format)
+        acc = state["sum"]
+        g = p.grad
+        acc.add_(g * g)
+        inv = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
+                          torch.zeros_like(acc))
+        p.add_((inv * g) * -group["lr"])
+    return loss
 
 
 def _leaf(x, device) -> torch.Tensor:

@@ -3,7 +3,8 @@
 - It imports with ``jax``, ``flax``, ``optax``, ``ml_dtypes`` and
   ``distributed_embeddings_tpu`` blocked, every module of it (the
   world > 1 modules ``parallel.mesh``, ``parallel.wire`` and
-  ``ops.cuda_exchange`` included);
+  ``ops.cuda_exchange``, and the zoo's ``models.synthetic``,
+  ``ops.cuda_delta`` and ``ops.cuda_layout`` included);
 - no ``.py`` file of it, nor ``chip_smoke.py``, names one of those in an
   import statement;
 - its entry points default to ``device="cuda"``: without a GPU they raise
@@ -68,8 +69,10 @@ def test_port_imports_with_jax_blocked():
   assert r.returncode == 0, r.stdout + r.stderr
   names = set(r.stdout.split())
   assert len(names) >= 15  # every module was imported
-  # slice 3's modules among them: the process group, the wire, K4
-  for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange"):
+  # slice 3's modules among them: the process group, the wire, K4; slice
+  # 4's: K6, K7 and the synthetic zoo
+  for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange",
+              "ops.cuda_delta", "ops.cuda_layout", "models.synthetic"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 

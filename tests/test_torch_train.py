@@ -248,7 +248,8 @@ def test_init_and_unpack_match_jax(case):
 
 
 @pytest.mark.parametrize("rule_name,d,hot", [("sgd", 16, {5: 3}),
-                                             ("adagrad", 128, {2: 3})])
+                                             ("adagrad", 128, {2: 3}),
+                                             ("adagrad", 16, {5: 3})])
 def test_chunked_and_stream_applies_match_one_shot(rule_name, d, hot):
   """``apply_sparse``'s chunked escape hatch (``apply_chunk``) and the
   prebuilt-stream form (``sparse_delta_streams`` then
@@ -331,17 +332,17 @@ def test_unported_options_raise():
     ttr.make_sparse_train_step(*args, micro_batches=2)
   with pytest.raises(NotImplementedError, match="guard"):
     ttr.make_sparse_train_step(*args, guard=True)
-  # narrow multi-hot ids with optimizer state: the masked physical-row
-  # gather is not ported
+  # narrow multi-hot ids with optimizer state are ported (the masked
+  # physical-row gather, tests/test_torch_train_zoo.py): the step runs
   rule = tpt.adagrad_rule(LR)
   state = ttr.init_sparse_state_direct(
       tplan, rule, model.state_dict(), sgd, torch.Generator().manual_seed(0),
       device="cpu")
   step = ttr.make_sparse_train_step(model, tplan, torch_bce, sgd, rule)
   numerical, cats, labels = _batches({5: 3})[0]
-  with pytest.raises(NotImplementedError, match="masked physical-row"):
-    step(state, torch.tensor(numerical), [torch.tensor(c) for c in cats],
-         torch.tensor(labels))
+  _, loss = step(state, torch.tensor(numerical),
+                 [torch.tensor(c) for c in cats], torch.tensor(labels))
+  assert torch.isfinite(loss)
 
 
 def test_state_constructors_default_to_cuda():
