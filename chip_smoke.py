@@ -4,12 +4,12 @@ NVIDIA H100.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``distributed_embeddings_torch/
-csrc/`` and drives the port's four paths on the card: DLRM serving on
+csrc/`` and drives the port's five paths on the card: DLRM serving on
 frozen tables, the world-1 sparse train step of ``bench.py``, the
-synthetic zoo's Tiny train step of ``tools/bench_synthetic.py tiny
-65536``, and the world-4 hybrid-parallel train step of
-``examples/dlrm/main.py --sparse`` under ``overlap='fused'``. One JSON
-line per phase:
+dense-autodiff train step of the README's Quick start, the synthetic
+zoo's Tiny train step of ``tools/bench_synthetic.py tiny 65536``, and the
+world-4 hybrid-parallel train step of ``examples/dlrm/main.py --sparse``
+under ``overlap='fused'``. One JSON line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
    must have compute capability (9, 0);
@@ -34,7 +34,15 @@ line per phase:
    window-masked 128-lane state rows; then momentum, Adam and a width-8
    class on 4,096-sample streams: within rtol 1e-6, atol 2e-7. K7
    (``row_major``) on a transposed and a sliced [12, 65536, 16] f32
-   cotangent and a transposed bf16 one: bit-equal. Times are medians of
+   cotangent and a transposed bf16 one: bit-equal. K3-fwd
+   (``interact_flat_fwd``) and K3-bwd (``interact_flat_bwd``), the flat
+   ``[B, F, D]`` forms no path launches, at F=27, D=128, k in {-1, 0},
+   B in {4096, 65536}, in K2's tolerance classes. K5
+   (``gather_send_rows``, no path launches it either) at K4's block
+   shape, bit-equal: a loopback round on the first card and, with two or
+   more cards, the rotate-by-k rounds across them (peer pushes), timed
+   against the peer link's rate measured by a 1 GiB ``copy_``. Times
+   are medians of
    CUDA-event timings of single calls, kernel, plain and library in
    turns, with the 50 MB L2 flushed and the card held busy while the
    host queues each call, after two seconds of warm-up;
@@ -49,7 +57,10 @@ line per phase:
    ``train_golden.UPDATE_TOL`` of its largest update. ``zoo_golden``:
    the same for the zoo golden (``tests/data/torch_train_zoo_golden.npz``,
    three Adagrad steps of Tiny with its vocabularies cut to 2,000 rows,
-   f32);
+   f32). ``dense_golden``: the same for the dense-autodiff golden
+   (``tests/data/torch_dense_train_golden.npz``, three ``optax.sgd``
+   steps of the JAX ``make_train_step`` on a small DLRM that owns its
+   tables, its bf16 run) through ``training.make_train_step``;
 6. ``serve``: the full-width DLRM of ``bench.py`` (26 Criteo-1TB tables
    x 1/16, width 128, dense_row_threshold=4096, bf16 compute, one-hot
    ids, world 1), its packed tables drawn on the card by
@@ -69,7 +80,18 @@ line per phase:
    sampled rows of the first sparse class that the batch does not touch
    are bit-unchanged and sampled touched rows changed. A 14th step runs
    under ``torch.profiler`` (``train_trace``);
-8. ``train_zoo``: Tiny at its published widths and full vocabulary (55
+8. ``train_dense``: the README Quick start's dense-autodiff step at the
+   train phase's width (``DLRM`` with its ``DistributedEmbedding``:
+   the same 26 tables x 1/16 as class buffers, dense gradients,
+   ``torch.optim.SGD`` 0.1 over every parameter, ``make_train_step``),
+   f32 and bf16 compute: 3 warm-up and 5 timed steps with the train
+   phase's checks, K2-fwd and K2-bwd launched once per step and no other
+   kernel, a traced step (``train_dense_trace``). With bf16, then
+   ``dense_vs_sparse``: one dense step and one fused sparse SGD step
+   (``make_sparse_train_step``) from one state; every class row agrees
+   within 1e-5 of its cell's absolute sum, the dense parameters within
+   the f32 matmul class (``train_golden.dense_vs_sparse_step``);
+9. ``train_zoo``: Tiny at its published widths and full vocabulary (55
    tables, 58 inputs; 8.99 GB of fused buffers in two width-16
    generations and a width-8 class, Adagrad's accumulator interleaved),
    global batch 65,536 of power-law ids (``generate_batch(alpha=1.05,
@@ -84,7 +106,7 @@ line per phase:
    class, sampled logical rows that neither batch touches bit-unchanged
    and most sampled touched ones changed. A further step under
    ``torch.profiler`` (``train_zoo_trace``);
-9. ``world4_golden``, ``train_world4``: four ranks spawned with
+10. ``world4_golden``, ``train_world4``: four ranks spawned with
    ``torch.multiprocessing``, over NCCL when each owns a card, else over
    gloo with the four sharing the card (the backend is printed). Each
    first replays the JAX world-4 golden
@@ -105,18 +127,21 @@ line per phase:
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
-the ``kernels`` line come from the serve, train, zoo and world-4 phases
-alone (each sets the counts to 0 before it and reads them after; the
-world-4 counts are summed over the ranks; K7's come from the pinned zoo
-step). Any failed check exits non-zero
+the ``kernels`` line come from the serve, train, dense, zoo and world-4
+phases alone: each sets all nine kernels' counters to 0 just before each
+run of its path, reads all nine just after, and checks them against the
+launches it expects, 0 for the kernels the path does not run (the world-4
+counts are summed over the ranks; K7's come from the pinned zoo step).
+Any failed check exits non-zero
 before the last line; so does a machine without CUDA.
 
 On a machine with four cards the same command runs every phase; phases
-1-8 use the first card, and phase 9 runs over NCCL at the full
-vocabulary, one rank per card.
+1-9 use the first card (K5's peer rounds all four), and phase 10 runs
+over NCCL at the full vocabulary, one rank per card.
 """
 
 import functools
+import importlib
 import json
 import statistics
 import subprocess
@@ -134,6 +159,10 @@ TRAIN_BATCH = 65536
 # steps reaches by step 13. The step's work is the same at any rate.
 TRAIN_LR = 0.1
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+# the dense-autodiff step's timed steps (phase 8, train_dense)
+DENSE_TIMED = 5
+# K3 at the batches of the serve request and the train step
+K3_BATCHES = (4096, 65536)
 ROWS_SAMPLED = 4096
 K1_IDS = 131072
 K1_SCALE = -TRAIN_LR
@@ -151,11 +180,29 @@ CRITEO_1TB_VOCAB = [
 ]
 REPLACES = {
     "interact_fwd": "distributed_embeddings_tpu/ops/pallas_interact.py:139",
+    "interact_flat_fwd":
+        "distributed_embeddings_tpu/ops/pallas_interact.py:188",
+    "interact_flat_bwd":
+        "distributed_embeddings_tpu/ops/pallas_interact.py:206",
+    "gather_send_rows": "distributed_embeddings_tpu/ops/pallas_exchange.py:236",
     "interact_bwd": "distributed_embeddings_tpu/ops/pallas_interact.py:162",
     "apply_rows": "distributed_embeddings_tpu/ops/pallas_apply.py:211",
     "gather_rows": "distributed_embeddings_tpu/ops/pallas_exchange.py:212",
     "build_delta_rows": "distributed_embeddings_tpu/ops/pallas_delta.py:78",
     "row_major": "distributed_embeddings_tpu/ops/pallas_layout.py:32",
+}
+# every kernel's launch counter: the wrapper's module under
+# distributed_embeddings_torch.ops, and its attribute there
+COUNTERS = {
+    "interact_fwd": ("cuda_interact", "launches"),
+    "interact_bwd": ("cuda_interact", "bwd_launches"),
+    "interact_flat_fwd": ("cuda_interact", "flat_launches"),
+    "interact_flat_bwd": ("cuda_interact", "flat_bwd_launches"),
+    "apply_rows": ("cuda_apply", "launches"),
+    "gather_rows": ("cuda_exchange", "launches"),
+    "gather_send_rows": ("cuda_exchange", "send_launches"),
+    "build_delta_rows": ("cuda_delta", "launches"),
+    "row_major": ("cuda_layout", "launches"),
 }
 # the kernels of the world-4 path (every one must launch there)
 W4_KERNELS = ("interact_fwd", "interact_bwd", "apply_rows", "gather_rows")
@@ -203,6 +250,34 @@ def emit(obj) -> None:
 def check(cond, what: str) -> None:
   if not cond:
     raise SmokeFailure(what)
+
+
+def _counter_module(mod: str):
+  return importlib.import_module(f"distributed_embeddings_torch.ops.{mod}")
+
+
+def reset_counts() -> None:
+  """Every kernel's launch counter to 0."""
+  for mod, attr in COUNTERS.values():
+    setattr(_counter_module(mod), attr, 0)
+
+
+def read_counts() -> dict:
+  """Every kernel's launches since the last :func:`reset_counts`."""
+  return {name: getattr(_counter_module(mod), attr)
+          for name, (mod, attr) in COUNTERS.items()}
+
+
+def expect(**launches) -> dict:
+  """Launches of every kernel: ``launches``' counts, 0 for the others."""
+  unknown = set(launches) - set(COUNTERS)
+  check(not unknown, f"no launch counter for {sorted(unknown)}")
+  return {name: launches.get(name, 0) for name in COUNTERS}
+
+
+def add_counts(totals: dict, got: dict) -> None:
+  for name, n in got.items():
+    totals[name] += n
 
 
 def nvidia_smi() -> str:
@@ -512,8 +587,8 @@ def sgd_factory(torch):
   return functools.partial(torch.optim.SGD, lr=TRAIN_LR)
 
 
-def phase_serve(torch, ci, smi: str) -> int:
-  """The full-width serve path; returns K2-fwd's launches in it."""
+def phase_serve(torch, ci, smi: str) -> dict:
+  """The full-width serve path; returns each kernel's launches in it."""
   import numpy as np
 
   from distributed_embeddings_torch.models import DLRM, dlrm_embedding_plan
@@ -532,8 +607,8 @@ def phase_serve(torch, ci, smi: str) -> int:
   rule = sgd_rule(TRAIN_LR)
   dense_tables = sum(len(cp.shards_per_rank[0])
                      for cp in plan.classes.values() if cp.kind == "dense")
-  model = DLRM(vocab, D, compute_dtype=torch.bfloat16, device="cuda",
-               generator=torch.Generator().manual_seed(SEED))
+  model = DLRM(vocab, D, compute_dtype=torch.bfloat16, tables=False,
+               device="cuda", generator=torch.Generator().manual_seed(SEED))
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   state = init_sparse_state_direct(
@@ -545,7 +620,8 @@ def phase_serve(torch, ci, smi: str) -> int:
   requests = [(rng.standard_normal((SERVE_BATCH, 13)).astype(np.float32),
                [rng.integers(0, v, SERVE_BATCH).astype(np.int32)
                 for v in vocab]) for _ in range(SERVE_REQUESTS)]
-  launches = 0
+  want = expect(interact_fwd=SERVE_REQUESTS)
+  totals = expect()
   for q in ("f32", "int8"):
     t0 = time.perf_counter()
     frozen = freeze(plan, rule, state, quantize=q)
@@ -555,17 +631,16 @@ def phase_serve(torch, ci, smi: str) -> int:
                       for blocks in frozen.device_blocks.values()
                       for b in blocks)
     eng = ServeEngine(model, plan, frozen, device="cuda")
-    ci.launches = 0
+    reset_counts()
     preds, ms = [], []
     for numerical, cats in requests:
       t0 = time.perf_counter()
       preds.append(eng.predict(numerical, cats))
       ms.append((time.perf_counter() - t0) * 1e3)
-    got = ci.launches
-    check(got == SERVE_REQUESTS,
-          f"serve {q}: interact_fwd launched {got} times for "
-          f"{SERVE_REQUESTS} requests")
-    launches += got
+    got = read_counts()
+    check(got == want, f"serve {q}: launches {got} for {SERVE_REQUESTS} "
+          f"requests, expected {want}")
+    add_counts(totals, got)
     acts_step = make_serve_step(EmbActs(), plan, eng.meta)
     worst = 0.0
     for (numerical, cats), p in zip(requests, preds):
@@ -594,7 +669,7 @@ def phase_serve(torch, ci, smi: str) -> int:
           **trace_call(torch, lambda: eng.predict(*requests[0]))})
     del eng, frozen
     torch.cuda.empty_cache()
-  return launches
+  return totals
 
 
 def train_plan():
@@ -612,7 +687,7 @@ def first_sparse_class(plan):
   return key, class_param_name(*key), padded_rows(plan, key)
 
 
-def phase_train(torch, ci, ca, cx, smi: str, compute: str) -> dict:
+def phase_train(torch, smi: str, compute: str) -> dict:
   """``bench.py``'s train step at full width; returns each kernel's
   launches in the run."""
   from distributed_embeddings_torch.models import DLRM, bce_loss
@@ -631,7 +706,7 @@ def phase_train(torch, ci, ca, cx, smi: str, compute: str) -> dict:
   check(n_sparse == 4, f"the train plan has {n_sparse} sparse classes, "
         "expected 4")
   dtype = torch.float32 if compute == "f32" else torch.bfloat16
-  model = DLRM(vocab, D, compute_dtype=dtype, device="cuda",
+  model = DLRM(vocab, D, compute_dtype=dtype, tables=False, device="cuda",
                generator=torch.Generator().manual_seed(SEED))
   rule = sgd_rule(TRAIN_LR)
   torch.cuda.reset_peak_memory_stats()
@@ -668,23 +743,20 @@ def phase_train(torch, ci, ca, cx, smi: str, compute: str) -> dict:
   step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
                                 rule)
   ms, losses, changed = [], [], []
-  totals = {"interact_fwd": 0, "interact_bwd": 0, "apply_rows": 0,
-            "gather_rows": 0}
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  totals = expect()
   for i in range(TRAIN_WARMUP + TRAIN_TIMED):
     hit_rows = buf[hit].clone()
-    ci.launches = ci.bwd_launches = ca.launches = cx.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, loss = step(state, numerical, cats, labels)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    got = {"interact_fwd": ci.launches, "interact_bwd": ci.bwd_launches,
-           "apply_rows": ca.launches, "gather_rows": cx.launches}
-    check(got == {"interact_fwd": 1, "interact_bwd": 1,
-                  "apply_rows": n_sparse, "gather_rows": 0},
-          f"train {compute} step {i}: launches {got}")
-    for kname, n in got.items():
-      totals[kname] += n
+    got = read_counts()
+    check(got == want, f"train {compute} step {i}: launches {got}, "
+          f"expected {want}")
+    add_counts(totals, got)
     if i >= TRAIN_WARMUP:
       ms.append((t1 - t0) * 1e3)
     losses.append(float(loss))
@@ -706,8 +778,7 @@ def phase_train(torch, ci, ca, cx, smi: str, compute: str) -> dict:
         "fused_bytes": sum(t.numel() * 4 for t in state["fused"].values()),
         "init_s": init_s, "step_ms": ms, "step_ms_median": med,
         "samples_per_s": b / (med / 1e3), "peak_gib": peak,
-        "launches_per_step": {k: v // (TRAIN_WARMUP + TRAIN_TIMED)
-                              for k, v in totals.items()},
+        "launches_per_step": want,
         "losses": losses, "touched_rows_changed_share": changed,
         "untouched_rows_bit_equal": True})
   emit({"phase": "train_trace", "compute": compute, "card": smi,
@@ -818,15 +889,6 @@ def phase_kernel_gather(torch, cx, flush) -> dict:
   return main
 
 
-def _w4_counts(cx, ca, ci) -> dict:
-  return {"gather_rows": cx.launches, "apply_rows": ca.launches,
-          "interact_fwd": ci.launches, "interact_bwd": ci.bwd_launches}
-
-
-def _w4_reset(cx, ca, ci) -> None:
-  cx.launches = ca.launches = ci.launches = ci.bwd_launches = 0
-
-
 def _w4_touch_counts(torch, plan, mesh, cats, state) -> dict:
   """Per sparse class of this rank: how many of the step's ids hit each
   of its rows (the routed ids are the same every step)."""
@@ -912,9 +974,6 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
 
   from distributed_embeddings_torch import train_golden
   from distributed_embeddings_torch.models import DLRM, bce_loss
-  from distributed_embeddings_torch.ops import cuda_apply as ca
-  from distributed_embeddings_torch.ops import cuda_exchange as cx
-  from distributed_embeddings_torch.ops import cuda_interact as ci
   from distributed_embeddings_torch.ops.packed_table import sgd_rule
   from distributed_embeddings_torch.parallel.mesh import create_mesh
   from distributed_embeddings_torch.parallel.wire import gather_blocks
@@ -958,7 +1017,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
     out["runs"] = {}
     for compute in ("f32", "bf16"):
       dtype = torch.float32 if compute == "f32" else torch.bfloat16
-      model = DLRM(vocab, D, compute_dtype=dtype, device=dev,
+      model = DLRM(vocab, D, compute_dtype=dtype, tables=False, device=dev,
                    generator=torch.Generator().manual_seed(SEED))
       rule = sgd_rule(TRAIN_LR)
       torch.cuda.reset_peak_memory_stats(dev)
@@ -983,23 +1042,22 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       miss_rows = buf[miss].clone()
       step = make_sparse_train_step(model, plan, bce_loss,
                                     sgd_factory(torch), rule, mesh=mesh)
-      want = {"gather_rows": k4_per_step, "apply_rows": len(state["fused"]),
-              "interact_fwd": 1, "interact_bwd": 1}
-      totals = dict.fromkeys(want, 0)
+      want = expect(gather_rows=k4_per_step, apply_rows=len(state["fused"]),
+                    interact_fwd=1, interact_bwd=1)
+      totals = expect()
       ms, losses, changed = [], [], []
       for i in range(TRAIN_WARMUP + TRAIN_TIMED):
         hit_rows = buf[hit].clone()
-        _w4_reset(cx, ca, ci)
+        reset_counts()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         state, loss = step(state, *batch)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
-        got = _w4_counts(cx, ca, ci)
+        got = read_counts()
         check(got == want, f"world 4 {compute} rank {rank} step {i}: "
               f"launches {got}, expected {want}")
-        for k, n in got.items():
-          totals[k] += n
+        add_counts(totals, got)
         if i >= TRAIN_WARMUP:
           ms.append((t1 - t0) * 1e3)
         losses.append(float(loss))
@@ -1070,14 +1128,15 @@ def phase_world4(torch, smi: str) -> dict:
       ranks.append(json.load(f))
   _, plan = world4_plan(backend)
   emit({"phase": "world4_golden", "backend": backend, **ranks[0]["golden"]})
-  totals = dict.fromkeys(("interact_fwd", "interact_bwd", "apply_rows",
-                          "gather_rows"), 0)
+  totals = expect()
   for compute in ("f32", "bf16"):
     runs = [r["runs"][compute] for r in ranks]
     med = max(r["step_ms_median"] for r in runs)
-    for r in runs:
-      for k, n in r["launches"].items():
-        totals[k] += n
+    for rank, r in enumerate(runs):
+      check(set(r["launches"]) == set(COUNTERS),
+            f"world 4 {compute} rank {rank}: counts of "
+            f"{sorted(r['launches'])}")
+      add_counts(totals, r["launches"])
     emit({"phase": "train_world4", "compute": compute, "backend": backend,
           "mode": ("four cards, one rank each" if backend == "nccl" else
                    "one card shared by the four ranks"),
@@ -1104,6 +1163,342 @@ def phase_world4(torch, smi: str) -> dict:
           "backend": backend, "rank": 0, "card": smi,
           **runs[0]["trace"]})
   emit({"phase": "world4", "wall_s": wall_s})
+  return totals
+
+
+def flat_feats(torch, b: int, seed: int):
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  return (torch.randn((b, F, D), generator=gen, device="cuda") * 0.3) \
+      .to(torch.bfloat16)
+
+
+def phase_kernel_flat_fwd(torch, ci, flush) -> dict:
+  """K3-fwd against its plain version (K2-fwd's tolerance class); returns
+  the B=65536, k=-1 row."""
+  main = None
+  for b in K3_BATCHES:
+    for k in (-1, 0):
+      feats = flat_feats(torch, b, SEED + 11 * b - k)
+      got = ci.interact_flat_fwd(feats, k)
+      torch.cuda.synchronize()
+      want = ci.interact_flat_fwd_plain(feats, k)
+      rows, cols = ci.tril_pairs(F, k)
+      check(tuple(got.shape) == (b, len(rows)), f"shape {tuple(got.shape)}")
+      differ, ulps = within_one_bf16_ulp(torch, got, want)
+      check(differ <= 0.001 * got.numel() and ulps <= 1.0,
+            f"interact_flat_fwd B={b} k={k}: {differ} of {got.numel()} "
+            f"cells differ, worst by {ulps} bf16 ulp")
+      idx = torch.as_tensor(rows * F + cols, device="cuda")
+      npair = len(rows)
+      timed = event_ms(torch, {
+          "kernel_ms": lambda: ci.interact_flat_fwd(feats, k),
+          "plain_ms": lambda: ci.interact_flat_fwd_plain(feats, k),
+          "library_ms": lambda: torch.bmm(feats, feats.transpose(1, 2))
+          .flatten(1).index_select(1, idx).float()}, flush)
+      row = {
+          "phase": "kernel", "name": "interact_flat_fwd", "B": b, "F": F,
+          "D": D, "k": k, "cells": got.numel(), "cells_differ": differ,
+          "max_ulp": ulps, "max_abs_err": (got - want).abs().max().item(),
+          **timed, **bound(b * (F * D * 2 + npair * 4), 2 * npair * D * b,
+                           BF16_FLOPS)}
+      emit(row)
+      if b == TRAIN_BATCH and k == -1:
+        main = row
+  return main
+
+
+def phase_kernel_flat_bwd(torch, ci, flush) -> dict:
+  """K3-bwd against its plain version (K2-bwd's tolerance class); returns
+  the B=65536, k=-1 row."""
+  main = None
+  for b in K3_BATCHES:
+    for k in (-1, 0):
+      feats = flat_feats(torch, b, SEED + 13 * b - k)
+      npair = len(ci.tril_pairs(F, k)[0])
+      gen = torch.Generator(device="cuda").manual_seed(SEED + 3 * b + k)
+      d_acts = torch.randn((b, npair), generator=gen, device="cuda")
+      got = ci.interact_flat_bwd(d_acts, feats, k).float()
+      torch.cuda.synchronize()
+      want = ci.interact_flat_bwd_plain(d_acts, feats, k).float()
+      coef = ci.pair_coefficients(d_acts, F, k)
+      abs_sum = torch.bmm(coef.abs(), feats.float().abs())
+      differ, worst = within_one_bf16_ulp(torch, got, want,
+                                          slack=F * 2.0**-24 * abs_sum)
+      del abs_sum
+      check(tuple(got.shape) == (b, F, D), f"shape {tuple(got.shape)}")
+      check(differ <= 0.001 * got.numel() and worst <= 1.0,
+            f"interact_flat_bwd B={b} k={k}: {differ} of {got.numel()} "
+            f"cells differ, worst by {worst} of its allowance")
+      coef_bf16 = coef.to(torch.bfloat16)
+      timed = event_ms(torch, {
+          "kernel_ms": lambda: ci.interact_flat_bwd(d_acts, feats, k),
+          "plain_ms": lambda: ci.interact_flat_bwd_plain(d_acts, feats, k),
+          "library_ms": lambda: torch.bmm(coef_bf16, feats)}, flush)
+      row = {
+          "phase": "kernel", "name": "interact_flat_bwd", "B": b, "F": F,
+          "D": D, "k": k, "cells": got.numel(), "cells_differ": differ,
+          "max_allowance_share": worst,
+          "max_abs_err": (got - want).abs().max().item(), **timed,
+          **bound(b * (npair * 4 + 2 * F * D * 2), 2 * F * F * D * b,
+                  BF16_FLOPS)}
+      emit(row)
+      if b == TRAIN_BATCH and k == -1:
+        main = row
+  return main
+
+
+def k5_ids(torch, n: int, rows: int, stream: str, gen):
+  """int32 ids of one send block: uniform, or with ``K4_BAD_SHARE`` of
+  them out of range or sentinels (as K4's streams)."""
+  ids = torch.randint(0, rows, (n,), generator=gen, device=gen.device,
+                      dtype=torch.int32)
+  if stream == "out_of_range":
+    bad = torch.rand((n,), generator=gen, device=gen.device) < K4_BAD_SHARE
+    junk = torch.tensor([rows, -1, rows + 7, 2**31 - 1, -2**31],
+                        dtype=torch.int32, device=gen.device)[
+        torch.randint(0, 5, (n,), generator=gen, device=gen.device)]
+    ids = torch.where(bad, junk, ids)
+  return ids
+
+
+def link_rate(torch, src: int, dst: int) -> float:
+  """Bytes per second of one 1 GiB ``copy_`` from card ``src`` to card
+  ``dst`` (median of 5, timed with CUDA events on ``src``): the peer
+  link's rate as this machine delivers it."""
+  a = torch.empty(2**28, dtype=torch.float32, device=f"cuda:{src}")
+  b = torch.empty_like(a, device=f"cuda:{dst}")
+  b.copy_(a)
+  times = []
+  with torch.cuda.device(src):
+    for _ in range(5):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      b.copy_(a)
+      end.record()
+      end.synchronize()
+      times.append(start.elapsed_time(end))
+  torch.cuda.synchronize(dst)
+  return a.numel() * 4 / (statistics.median(times) / 1e3)
+
+
+def phase_kernel_send(torch, cx, flush) -> dict:
+  """K5 against its plain version, bit for bit, at K4's block shape (the
+  first sparse class's rank buffer of the four-card world-4 plan, one
+  block of 8,192 int32 ids, uniform and 30 % out of range): as a loopback
+  round on the first card and, on a machine with two or more cards, as
+  the rotate-by-k rounds k = 1 .. n-1 across the cards from this one
+  process (peer access enabled; no staging through the host). Returns
+  the loopback uniform row."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+  )
+  _, plan = world4_plan("nccl")
+  key, _, rows = first_sparse_class(plan)
+  n = class_buckets(plan, key, lambda i: 1)[0].n_b * (
+      W4_BATCH // WORLD // W4_CHUNKS)
+  lanes = cx.LANES
+  cards = torch.cuda.device_count()
+  bufs, gens = [], []
+  for c in range(cards):
+    gens.append(torch.Generator(device=f"cuda:{c}").manual_seed(SEED + 50 + c))
+    bufs.append(torch.rand((rows, lanes), generator=gens[c],
+                           device=f"cuda:{c}"))
+  main = None
+  for stream in ("uniform", "out_of_range"):
+    ids = [k5_ids(torch, n, rows, stream, g) for g in gens]
+    n_valid = int(((ids[0] >= 0) & (ids[0] < rows)).sum().item())
+    dst = torch.full((n, lanes), float("nan"), device="cuda")
+    got = cx.gather_send_rows(bufs[0], ids[0], dst)
+    torch.cuda.synchronize()
+    check(torch.equal(got, cx.gather_send_rows_plain(bufs[0], ids[0])),
+          f"gather_send_rows loopback {stream}: not bit-equal to the plain "
+          "version")
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: cx.gather_send_rows(bufs[0], ids[0], dst),
+        "plain_ms": lambda: cx.gather_send_rows_plain(bufs[0], ids[0]),
+        "library_ms": lambda: bufs[0].index_select(
+            0, ids[0].clamp(0, rows - 1))}, flush)
+    row = {"phase": "kernel", "name": "gather_send_rows", "round":
+           "loopback", "stream": stream, "rows": rows, "width": lanes,
+           "ids": n, "valid_ids": n_valid, "bit_equal": True,
+           "max_abs_err": 0.0, **timed,
+           "library_note": "index_select of clamped ids: no zero rows",
+           **bound(n * 4 + n_valid * lanes * 4 + n * lanes * 4, 0,
+                   F32_FLOPS)}
+    emit(row)
+    if stream == "uniform":
+      main = row
+    if cards < 2:
+      continue
+    # rotate-by-k rounds: card i pushes its block into card (i + k)'s
+    # receive buffer, every card at once
+    for k in range(1, cards):
+      dsts = [torch.full((n, lanes), float("nan"), device=f"cuda:{c}")
+              for c in range(cards)]
+      for i in range(cards):
+        cx.gather_send_rows(bufs[i], ids[i], dsts[(i + k) % cards])
+        check(torch.cuda.current_device() == 0,
+              f"gather_send_rows from card {i}: the caller's current card "
+              f"became {torch.cuda.current_device()}")
+      for c in range(cards):
+        torch.cuda.synchronize(c)
+      for j in range(cards):
+        i = (j - k) % cards
+        check(torch.equal(dsts[j], cx.gather_send_rows_plain(
+            bufs[i], ids[i], device=f"cuda:{j}")),
+              f"gather_send_rows round k={k} {stream}: card {j}'s receive "
+              f"buffer differs from card {i}'s rows")
+      del dsts
+    peer = torch.full((n, lanes), float("nan"), device="cuda:1")
+    lib = torch.empty_like(peer)
+    rate = link_rate(torch, 0, 1)
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: cx.gather_send_rows(bufs[0], ids[0], peer),
+        "plain_ms": lambda: cx.gather_send_rows_plain(bufs[0], ids[0],
+                                                      device="cuda:1"),
+        "library_ms": lambda: lib.copy_(bufs[0].index_select(
+            0, ids[0].clamp(0, rows - 1)))}, flush)
+    torch.cuda.synchronize(1)
+    emit({"phase": "kernel", "name": "gather_send_rows", "round":
+          "remote", "cards": cards, "rounds_bit_equal": cards - 1,
+          "stream": stream, "rows": rows, "ids": n, "valid_ids": n_valid,
+          "bit_equal": True, "max_abs_err": 0.0, **timed,
+          "library_note": "index_select, then copy_ to the peer card",
+          "link_bytes_per_s": rate,
+          "link_source": "median of five 1 GiB copy_ from card 0 to card 1",
+          "bound_ms": max(n * lanes * 4 / rate,
+                          (n * 4 + n_valid * lanes * 4) / HBM_BYTES_PER_S)
+          * 1e3, "bound_by": "link bytes"})
+    del peer, lib
+  del bufs
+  for c in range(cards):
+    with torch.cuda.device(c):
+      torch.cuda.empty_cache()
+  return main
+
+
+def phase_dense_golden(torch) -> None:
+  """The JAX dense-autodiff golden's bf16 run replayed through the port's
+  ``make_train_step`` (on the card the interaction runs in bf16 whatever
+  the compute dtype, which only the bf16 run shares with the CPU
+  golden)."""
+  from distributed_embeddings_torch import train_golden
+  data = train_golden.load(train_golden.DENSE_PATH)
+  losses, got = train_golden.replay_dense(data, "bf16", device="cuda")
+  try:
+    worst = train_golden.compare_dense(data, losses, got, "bf16")
+  except AssertionError as exc:
+    raise SmokeFailure(f"dense golden: {exc}") from exc
+  emit({"phase": "dense_golden", "compute": "bf16", "losses": losses,
+        "want_losses": [float(v) for v in data["bf16_losses"]], **worst,
+        "loss_tol": train_golden.LOSS_TOL,
+        "update_tol": train_golden.UPDATE_TOL})
+
+
+def phase_train_dense(torch, smi: str, compute: str) -> dict:
+  """The README Quick start's dense-autodiff train step at full width
+  (``DLRM`` owning its ``DistributedEmbedding``, ``make_train_step``,
+  ``torch.optim.SGD``); with bf16 compute, then one dense and one fused
+  sparse SGD step from one state, compared. Returns each kernel's
+  launches in the timed run."""
+  from distributed_embeddings_torch import train_golden
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.training import make_train_step
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  dtype = torch.float32 if compute == "f32" else torch.bfloat16
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  model = DLRM(vocab, D, compute_dtype=dtype, dense_row_threshold=4096,
+               batch_hint=TRAIN_BATCH, device="cuda",
+               generator=torch.Generator().manual_seed(SEED),
+               table_generator=torch.Generator(device="cuda")
+               .manual_seed(SEED))
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  check(model.embeddings.plan.class_keys == plan.class_keys,
+        "the model's embedding plan is not dlrm_embedding_plan's")
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  b = TRAIN_BATCH
+  numerical = torch.randn((b, 13), generator=gen, device="cuda")
+  cats = [torch.randint(0, v, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32) for v in vocab]
+  labels = torch.randint(0, 2, (b,), generator=gen, device="cuda").float()
+  key, name, rows = first_sparse_class(plan)
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  touched = torch.zeros((rows,), dtype=torch.bool, device="cuda")
+  for bk, v in DistributedLookup(plan).route_ids(cats).items():
+    if bk.class_key == key:
+      touched[v.reshape(-1)] = True
+  pick = torch.Generator(device="cuda").manual_seed(SEED + 2)
+  hit = torch.nonzero(touched).squeeze(1)
+  miss = torch.nonzero(~touched).squeeze(1)
+  hit = hit[torch.randperm(hit.numel(), generator=pick,
+                           device="cuda")[:ROWS_SAMPLED]]
+  miss = miss[torch.randperm(miss.numel(), generator=pick,
+                             device="cuda")[:ROWS_SAMPLED]]
+  buf = model.embeddings.class_params()[name]
+  miss_rows = buf[miss].detach().clone()
+  opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR)
+  step = make_train_step(train_golden.dense_loss, opt, model, plan=plan,
+                         device="cuda")
+  want = expect(interact_fwd=1, interact_bwd=1)
+  totals = expect()
+  ms, losses, changed = [], [], []
+  for i in range(TRAIN_WARMUP + DENSE_TIMED):
+    hit_rows = buf[hit].detach().clone()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = step(numerical, cats, labels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = read_counts()
+    check(got == want, f"train_dense {compute} step {i}: launches {got}, "
+          f"expected {want}")
+    add_counts(totals, got)
+    if i >= TRAIN_WARMUP:
+      ms.append((t1 - t0) * 1e3)
+    losses.append(float(loss))
+    check(losses[-1] == losses[-1] and abs(losses[-1]) < float("inf"),
+          f"train_dense {compute} step {i}: loss {losses[-1]}")
+    check(torch.equal(buf[miss], miss_rows),
+          f"train_dense {compute} step {i}: rows the batch does not touch "
+          "changed")
+    changed.append((buf[hit] != hit_rows).any(dim=1).float().mean().item())
+    check(changed[-1] > 0.5,
+          f"train_dense {compute} step {i}: only {changed[-1]:.1%} of the "
+          "sampled touched rows changed")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  med = statistics.median(ms)
+  emit({"phase": "train_dense", "compute": compute, "card": smi,
+        "batch": b, "classes": [list(k) for k in plan.class_keys],
+        "class_bytes": sum(p.numel() * 4 for p in
+                           model.embeddings.class_params().values()),
+        "init_s": init_s, "step_ms": ms, "step_ms_median": med,
+        "samples_per_s": b / (med / 1e3), "peak_gib": peak,
+        "launches_per_step": want, "losses": losses,
+        "touched_rows_changed_share": changed,
+        "untouched_rows_bit_equal": True})
+  emit({"phase": "train_dense_trace", "compute": compute, "card": smi,
+        **trace_call(torch, lambda: step(numerical, cats, labels))})
+  if compute == "bf16":
+    torch.cuda.reset_peak_memory_stats()
+    try:
+      agree = train_golden.dense_vs_sparse_step(model, plan, numerical, cats,
+                                                labels, lr=TRAIN_LR)
+    except AssertionError as exc:
+      raise SmokeFailure(f"dense vs sparse step: {exc}") from exc
+    emit({"phase": "dense_vs_sparse", "compute": compute, "card": smi,
+          **agree, "dup_share_tol": train_golden.DUP_SHARE,
+          "dense_tol": train_golden.DENSE_TOL,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+  del model, opt, step, buf
+  torch.cuda.empty_cache()
   return totals
 
 
@@ -1449,19 +1844,6 @@ def zoo_phys_hits(layout, cnt):
   return full.view(layout.phys_rows, layout.rows_per_phys).amax(dim=1)
 
 
-def zoo_counts(mods) -> dict:
-  cd, ca, cl, cx, ci = mods
-  return {"build_delta_rows": cd.launches, "apply_rows": ca.launches,
-          "row_major": cl.launches, "gather_rows": cx.launches,
-          "interact_fwd": ci.launches, "interact_bwd": ci.bwd_launches}
-
-
-def zoo_reset(mods) -> None:
-  cd, ca, cl, cx, ci = mods
-  cd.launches = ca.launches = cl.launches = cx.launches = 0
-  ci.launches = ci.bwd_launches = 0
-
-
 def zoo_rel_diff(torch, a, b) -> float:
   """max |a - b| / max(|a|, |b|) over the cells that differ (0 if none)."""
   bad = a != b
@@ -1471,7 +1853,7 @@ def zoo_rel_diff(torch, a, b) -> float:
           / torch.maximum(a[bad].abs(), b[bad].abs())).max().item()
 
 
-def zoo_compare_pin(torch, step, state, batch, hits, layouts, mods,
+def zoo_compare_pin(torch, step, state, batch, hits, layouts,
                     want) -> tuple:
   """One step with ``DE_TORCH_COTANGENT_PIN`` off (on ``state``) and one
   with it on (on a copy), from the same state before either has stepped.
@@ -1506,11 +1888,11 @@ def zoo_compare_pin(torch, step, state, batch, hits, layouts, mods,
     os.environ["DE_TORCH_COTANGENT_PIN"] = pin
     lookup_engine.build_delta_rows = recording
     try:
-      zoo_reset(mods)
+      reset_counts()
       torch.cuda.synchronize()
       _, loss = step(st, *batch)
       torch.cuda.synchronize()
-      runs[pin] = (float(loss), zoo_counts(mods))
+      runs[pin] = (float(loss), read_counts())
     finally:
       os.environ.pop("DE_TORCH_COTANGENT_PIN", None)
       lookup_engine.build_delta_rows = kernel
@@ -1550,7 +1932,7 @@ def zoo_compare_pin(torch, step, state, batch, hits, layouts, mods,
            "launches_pinned": runs["1"][1]}, runs["1"][1])
 
 
-def phase_train_zoo(torch, mods, smi: str) -> dict:
+def phase_train_zoo(torch, smi: str) -> dict:
   """``tools/bench_synthetic.py tiny 65536`` in the port at world 1; returns
   each kernel's launches in its unpinned run (``train_zoo``) and in the
   pinned step (``train_zoo_pin``)."""
@@ -1584,9 +1966,7 @@ def phase_train_zoo(torch, mods, smi: str) -> dict:
   # K6 once per sparse bucket (every class is Adagrad on 128-lane rows),
   # K1 once per sparse class, no K7 unpinned; the model has no
   # interaction and the plan no exchange
-  want = {"build_delta_rows": len(buckets), "apply_rows": len(sparse),
-          "row_major": 0, "gather_rows": 0, "interact_fwd": 0,
-          "interact_bwd": 0}
+  want = expect(build_delta_rows=len(buckets), apply_rows=len(sparse))
   occurrences = sum(b.n_b * b.h for b in buckets) * ZOO_BATCH
   model = SyntheticModel(cfg, device="cuda",
                          generator=torch.Generator().manual_seed(SEED))
@@ -1602,7 +1982,7 @@ def phase_train_zoo(torch, mods, smi: str) -> dict:
   hits = [zoo_hits(torch, plan, b) for b in batches]
   step = make_sparse_train_step(model, plan, bce_loss, adagrad, rule)
   pin, pin_counts = zoo_compare_pin(torch, step, state, batches[0], hits[0],
-                                    layouts, mods, want)
+                                    layouts, want)
   # sampled logical rows of every sparse class (their fused rows: table
   # and accumulator lanes): untouched by both batches, and touched by each
   pick = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1622,21 +2002,20 @@ def phase_train_zoo(torch, mods, smi: str) -> dict:
     check(miss[name].numel() > 0 and min(h.numel() for h in hit[name]) > 0,
           f"zoo {name}: no untouched or no touched rows to sample")
   miss_rows = {n: fused_rows(n, m) for n, m in miss.items()}
-  totals = dict.fromkeys(want, 0)
+  totals = expect()
   ms, losses, changed = [], [], []
   for i in range(TRAIN_WARMUP + TRAIN_TIMED):
     batch = batches[i % 2]
     before = {n: fused_rows(n, h[i % 2]) for n, h in hit.items()}
-    zoo_reset(mods)
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, loss = step(state, *batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    got = zoo_counts(mods)
+    got = read_counts()
     check(got == want, f"train_zoo step {i}: launches {got}, expected {want}")
-    for k, n in got.items():
-      totals[k] += n
+    add_counts(totals, got)
     if i >= TRAIN_WARMUP:
       ms.append((t1 - t0) * 1e3)
     losses.append(float(loss))
@@ -1712,6 +2091,9 @@ def main() -> int:
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda})
   check(cap == (9, 0), f"compute capability {cap}, not (9, 0)")
+  check(set(COUNTERS) == set(_build.KERNELS),
+        f"launch counters for {sorted(COUNTERS)}, kernels "
+        f"{sorted(_build.KERNELS)}")
 
   t0 = time.perf_counter()
   _build.build_all(_build.KERNELS)
@@ -1726,11 +2108,15 @@ def main() -> int:
   rows = {"interact_fwd": phase_kernel_fwd(torch, ci, flush),
           "interact_bwd": phase_kernel_bwd(torch, ci, flush)}
   torch.cuda.empty_cache()
+  rows["interact_flat_fwd"] = phase_kernel_flat_fwd(torch, ci, flush)
+  rows["interact_flat_bwd"] = phase_kernel_flat_bwd(torch, ci, flush)
+  torch.cuda.empty_cache()
   rows["apply_rows"] = phase_kernel_apply(
       torch, ca, flush, first_sparse_class(train_plan())[2])
   torch.cuda.empty_cache()
   phase_kernel_apply_zoo(torch, ca, flush)
   rows["gather_rows"] = phase_kernel_gather(torch, cx, flush)
+  rows["gather_send_rows"] = phase_kernel_send(torch, cx, flush)
   rows["build_delta_rows"] = phase_kernel_delta(torch, cd, flush)
   rows["row_major"] = phase_kernel_layout(torch, cl, flush)
   del flush
@@ -1738,15 +2124,18 @@ def main() -> int:
   phase_golden(torch, golden)
   phase_train_golden(torch)
   phase_zoo_golden(torch)
+  phase_dense_golden(torch)
 
-  by_path = {}
-  serve = phase_serve(torch, ci, smi)
-  by_path["serve"] = {"interact_fwd": serve}
+  # every path's counts, each read from all nine counters just after the
+  # path ran with them set to 0 just before
+  by_path = {"serve": phase_serve(torch, ci, smi)}
   for compute in ("f32", "bf16"):
-    by_path[f"train_{compute}"] = phase_train(torch, ci, ca, cx, smi,
-                                              compute)
+    by_path[f"train_{compute}"] = phase_train(torch, smi, compute)
   torch.cuda.empty_cache()
-  by_path.update(phase_train_zoo(torch, (cd, ca, cl, cx, ci), smi))
+  for compute in ("f32", "bf16"):
+    by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
+                                                          compute)
+  by_path.update(phase_train_zoo(torch, smi))
   for path, name in (("train_zoo", "build_delta_rows"),
                      ("train_zoo", "apply_rows"),
                      ("train_zoo_pin", "row_major")):
@@ -1757,8 +2146,9 @@ def main() -> int:
     check(by_path["train_world4"][name] > 0,
           f"the world-4 path never launched {name}")
 
-  by_path = {path: {name: p.get(name, 0) for name in _build.KERNELS}
-             for path, p in by_path.items()}
+  for path, p in by_path.items():
+    check(set(p) == set(COUNTERS), f"the {path} path read the counts of "
+          f"{sorted(p)}, not of every kernel")
   emit({"kernels": [
       kernel_entry(name, rows[name],
                    sum(p[name] for p in by_path.values()),

@@ -1,13 +1,15 @@
-"""PyTorch + CUDA port of distributed_embeddings_tpu (first slice: serving).
+"""PyTorch + CUDA port of distributed_embeddings_tpu.
 
 The JAX package ``distributed_embeddings_tpu`` is the reference; this
 package ports it slice by slice to PyTorch on an NVIDIA H100, with every
 TPU kernel on a ported path rewritten by hand for Hopper. It imports
 ``torch`` and numpy only, never JAX or the JAX package.
 
-Slice 1 is the DLRM serving path at world 1: freeze a train state into
-f32 or int8 serve images, build a :class:`serving.ServeEngine` and answer
-requests, with the pairwise interaction in a CUDA kernel
-(``ops/cuda_interact.py``). Entry points run on ``device="cuda"`` unless
-the caller asks for the CPU.
+Ported so far: DLRM serving (``serving``), the fused sparse train step
+at world 1 and across ranks (``training.make_sparse_train_step``), the
+synthetic zoo (``models.synthetic``), and the dense-autodiff step of the
+README's Quick start (``layers.DistributedEmbedding``,
+``training.make_train_step``), with every TPU kernel as a CUDA kernel
+(``ops/cuda_*.py`` over ``csrc/``). Entry points run on
+``device="cuda"`` unless the caller asks for the CPU.
 """

@@ -6,7 +6,10 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
 - :func:`dlrm_state_dict_from_flax`: the flax DLRM params
   ``{bottom_mlp, top_mlp}/dense_i/{kernel, bias}`` -> the port's
   ``DLRM.state_dict()`` (kernels ``[in, out]`` transpose to
-  ``nn.Linear.weight [out, in]``);
+  ``nn.Linear.weight [out, in]``); with ``embeddings/mp_table_*`` (a
+  model that owns its tables, the dense-autodiff path) the class buffers
+  become ``embeddings.mp_table_*``. :func:`dlrm_state_dict_to_flax` is the
+  way back;
 - :func:`synthetic_state_dict_from_flax`: the flax ``SyntheticModel``
   params ``mlp/dense_i/{kernel, bias}`` -> the port's
   ``SyntheticModel.state_dict()``;
@@ -37,8 +40,13 @@ def _tensor(x) -> torch.Tensor:
 def _mlps_state_dict(params: Dict[str, Any], mlps
                      ) -> Dict[str, torch.Tensor]:
   """flax ``<mlp>/dense_i/{kernel, bias}`` subtrees (numpy leaves) -> the
-  port's ``<mlp>.layers.i.{weight, bias}``; any other subtree raises."""
-  out: Dict[str, torch.Tensor] = {}
+  port's ``<mlp>.layers.i.{weight, bias}``, and an ``embeddings`` subtree
+  of class buffers -> ``embeddings.<class name>``; any other subtree
+  raises."""
+  out: Dict[str, torch.Tensor] = {
+      f"embeddings.{name}": _tensor(buf)
+      for name, buf in params.get("embeddings", {}).items()}
+  params = {k: v for k, v in params.items() if k != "embeddings"}
   for mlp in mlps:
     layers = params.get(mlp, {})
     for i in range(len(layers)):
@@ -57,6 +65,29 @@ def dlrm_state_dict_from_flax(params: Dict[str, Any]
   """flax DLRM dense params (numpy leaves) -> the port's DLRM state_dict.
   An empty tree (a model without dense params) maps to ``{}``."""
   return _mlps_state_dict(params, ("bottom_mlp", "top_mlp"))
+
+
+def dlrm_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
+                            ) -> Dict[str, Any]:
+  """The port's DLRM ``state_dict`` -> the flax DLRM param tree as numpy
+  (``embeddings/<class name>``, ``<mlp>/dense_i/{kernel, bias}``): the
+  inverse of :func:`dlrm_state_dict_from_flax`."""
+  tree: Dict[str, Any] = {}
+  for key, t in state_dict.items():
+    arr = t.detach().cpu().numpy()
+    parts = key.split(".")
+    if parts[0] == "embeddings" and len(parts) == 2:
+      tree.setdefault("embeddings", {})[parts[1]] = arr
+    elif len(parts) == 4 and parts[1] == "layers":
+      mlp, _, i, leaf = parts
+      dense = tree.setdefault(mlp, {}).setdefault(f"dense_{i}", {})
+      if leaf == "weight":
+        dense["kernel"] = arr.T.copy()
+      else:
+        dense["bias"] = arr
+    else:
+      raise ValueError(f"no flax place for state_dict entry {key!r}")
+  return tree
 
 
 def synthetic_state_dict_from_flax(params: Dict[str, Any]

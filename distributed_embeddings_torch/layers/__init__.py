@@ -1,6 +1,29 @@
-"""Embedding placement: table descriptions and the sharding planner."""
+"""Embedding layers, table descriptions and the sharding planner."""
 
-from .embedding import TableConfig
+from .dist_model_parallel import (
+    DistributedEmbedding,
+    get_weights,
+    set_weights,
+)
+from .embedding import (
+    ConcatOneHotEmbedding,
+    Embedding,
+    TableConfig,
+    collect_regularization_losses,
+    resolve_constraint,
+    resolve_regularizer,
+)
 from .planner import DistEmbeddingStrategy
 
-__all__ = ["DistEmbeddingStrategy", "TableConfig"]
+__all__ = [
+    "ConcatOneHotEmbedding",
+    "DistEmbeddingStrategy",
+    "DistributedEmbedding",
+    "Embedding",
+    "TableConfig",
+    "collect_regularization_losses",
+    "get_weights",
+    "resolve_constraint",
+    "resolve_regularizer",
+    "set_weights",
+]

@@ -14,9 +14,15 @@ the CPU a bf16 model takes the kernels' plain versions and an f32 model
 the JAX package's CPU form (the f32 pair einsum with its hand-written
 ``2 * einsum(d_sym, feats)`` backward).
 
-:class:`DLRM` takes its embedding activations through ``emb_acts`` (the
-serving and sparse training paths compute them; the embedding layer is
-not ported yet). :func:`bce_loss` is the training loss.
+:class:`DLRM` owns a :class:`~..layers.dist_model_parallel.
+DistributedEmbedding` over its tables and, without ``emb_acts``, looks
+the categorical ids up through it: the dense-autodiff path of
+``training.make_train_step``, where ``loss.backward()`` gives every class
+buffer its dense gradient. The serving and fused sparse training paths
+compute the activations themselves and hand them in through ``emb_acts``;
+their models are built with ``tables=False`` (no class buffers: the JAX
+model initialized with ``emb_acts`` has no embedding params either).
+:func:`bce_loss` is the training loss.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..layers.dist_model_parallel import DistributedEmbedding
+from ..layers.embedding import TableConfig
 from ..ops.cuda_interact import interact_parts_bwd, interact_parts_fwd
 from ..ops.packed_table import mxu_operand_dtype
 
@@ -160,25 +168,39 @@ def dot_interact(bottom_out: torch.Tensor,
 
 
 class DLRM(nn.Module):
-  """DLRM forward over precomputed embedding activations.
+  """DLRM with its embedding layer.
 
   Args:
-    vocab_sizes: per categorical feature, its vocabulary size (the count
-      of embedding activations the model takes).
+    vocab_sizes: per categorical feature, its vocabulary size (26 for
+      Criteo).
     embedding_dim: embedding width (128 for the MLPerf config).
     bottom_mlp / top_mlp: dense stack widths; top ends in 1 logit.
     num_numerical: numerical features per sample (13 for Criteo).
     compute_dtype: dtype of the MLP/interaction compute (bf16 = AMP).
+    world_size / strategy / column_slice_threshold / row_slice /
+      dense_row_threshold / batch_hint: the embedding layer's plan, as in
+      the JAX model (``dlrm_embedding_plan`` with the same arguments gives
+      the same plan).
+    tables: build the embedding layer with its class buffers; False for a
+      model that is handed its activations (``emb_acts``).
     device: where the parameters live; ``"cuda"`` unless the caller asks
       for the CPU.
-    generator: CPU ``torch.Generator`` for the initial weights.
+    generator: CPU ``torch.Generator`` for the MLPs' initial weights.
+    table_generator: ``torch.Generator`` on ``device`` for the tables'
+      initial draws (None takes PyTorch's default generator).
   """
 
   def __init__(self, vocab_sizes: Sequence[int], embedding_dim: int = 128,
                bottom_mlp: Tuple[int, ...] = (512, 256, 128),
                top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1),
                num_numerical: int = 13, compute_dtype=torch.float32,
-               device="cuda", generator: Optional[torch.Generator] = None):
+               world_size: int = 1, strategy: str = "basic",
+               column_slice_threshold: Optional[int] = None,
+               row_slice: Optional[int] = None,
+               dense_row_threshold: int = 4096,
+               batch_hint: Optional[int] = None, tables: bool = True,
+               device="cuda", generator: Optional[torch.Generator] = None,
+               table_generator: Optional[torch.Generator] = None):
     super().__init__()
     dev = resolve_device(device)
     if bottom_mlp[-1] != embedding_dim:
@@ -194,19 +216,30 @@ class DLRM(nn.Module):
     self.top_mlp = MLP(f * (f - 1) // 2 + embedding_dim, top_mlp,
                        dtype=compute_dtype, generator=generator)
     self.to(dev)
+    self.embeddings = None
+    if tables:
+      self.embeddings = DistributedEmbedding(
+          [TableConfig(input_dim=v, output_dim=embedding_dim,
+                       initializer=_dlrm_initializer(v))
+           for v in self.vocab_sizes],
+          strategy=strategy, column_slice_threshold=column_slice_threshold,
+          row_slice=row_slice, world_size=world_size,
+          dense_row_threshold=dense_row_threshold, batch_hint=batch_hint,
+          device=dev, generator=table_generator)
 
   def forward(self, numerical: torch.Tensor, categorical=None,
               emb_acts: Optional[Sequence[torch.Tensor]] = None
               ) -> torch.Tensor:
-    """numerical ``[B, num_numerical]``; ``emb_acts``: per categorical
-    feature its ``[B, embedding_dim]`` activation. Returns ``[B]`` f32
-    logits."""
-    del categorical
+    """numerical ``[B, num_numerical]``; categorical: per feature its
+    ``[B]`` (or ``[B, H]``) ids, looked up through the embedding layer;
+    ``emb_acts`` overrides the lookup with per-feature ``[B,
+    embedding_dim]`` activations. Returns ``[B]`` f32 logits."""
     if emb_acts is None:
-      raise NotImplementedError(
-          "the port's DLRM takes its embedding activations through "
-          "emb_acts (the embedding layer is not ported yet; "
-          "serving.ServeEngine computes them from frozen tables)")
+      if self.embeddings is None:
+        raise ValueError(
+            "this DLRM was built with tables=False: pass its embedding "
+            "activations through emb_acts")
+      emb_acts = self.embeddings(categorical)
     bottom_out = self.bottom_mlp(numerical.to(self.compute_dtype))
     emb_outs = [e.to(self.compute_dtype) for e in emb_acts]
     x = dot_interact(bottom_out, emb_outs)
@@ -232,6 +265,19 @@ def dlrm_embedding_plan(vocab_sizes, embedding_dim: int = 128,
                                dense_row_threshold=dense_row_threshold,
                                row_slice_threshold=row_slice,
                                batch_hint=batch_hint)
+
+
+def _dlrm_initializer(rows: int):
+  """Uniform(-1/sqrt(rows), 1/sqrt(rows)) per table (the reference's
+  ``DLRMInitializer``, as the JAX model's ``_dlrm_initializer``)."""
+  scale = 1.0 / np.sqrt(rows)
+
+  def init(generator, shape, dtype=torch.float32, device=None):
+    return torch.empty(shape, dtype=dtype, device=device).uniform_(
+        -scale, scale, generator=generator)
+
+  init.scale = scale  # enables the direct packed init
+  return init
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ launcher. It is compiled by ``nvcc`` into a shared library under
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The library's
 file name carries a hash of its source, so an edited source is never
 served a stale build. Builds happen at first use, from the checkout's
-sources only; :func:`build_all` starts every ``nvcc`` at once.
+sources only; :func:`build_all` starts every ``nvcc`` at once. A source
+may include the shared headers of ``csrc/`` (``*.cuh``); their text is
+part of every library's hash.
 """
 
 from __future__ import annotations
@@ -44,8 +46,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-  src = CSRC / f"{name}.cu"
-  digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+  h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC.glob("*.cuh")):
+    h.update(header.read_bytes())
+  digest = h.hexdigest()[:12]
   return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -98,4 +102,5 @@ def load(name: str) -> ctypes.CDLL:
 
 
 KERNELS = ("interact_fwd", "interact_bwd", "apply_rows", "gather_rows",
-           "build_delta_rows", "row_major")
+           "build_delta_rows", "row_major", "interact_flat_fwd",
+           "interact_flat_bwd", "gather_send_rows")

@@ -1,5 +1,5 @@
-"""K2: the DLRM pairwise interaction, forward and backward (CUDA kernels +
-plain forms).
+"""K2 and K3: the DLRM pairwise interaction, forward and backward (CUDA
+kernels + plain forms).
 
 K2-fwd replaces ``distributed_embeddings_tpu/ops/pallas_interact.py:
 interact_parts_fwd``. Its kernel (``csrc/interact_fwd.cu``) takes the f
@@ -15,11 +15,21 @@ bf16 parts and writes the f bf16 part cotangents ``bf16(sum_q c_pq x_q)``
 with ``c`` the symmetric coefficients of ``bf16(d_acts)`` (doubled on the
 diagonal) — the TPU kernel's ``2 * bf16(d_acts . M^T) @ F``.
 
-:func:`interact_parts_fwd` / :func:`interact_parts_bwd` run the kernels for
+K3-fwd and K3-bwd replace ``pallas_interact.py:interact_fwd`` and
+``:interact_bwd``: K2's two functions on one flat ``[B, F, D]`` bf16 input
+(the ``[B, F*D]`` concat) and, backward, one flat ``[B, F, D]`` bf16
+output (``csrc/interact_flat_fwd.cu``, ``csrc/interact_flat_bwd.cu``; the
+maths of both pairs is written once, in ``csrc/interact_common.cuh``). No
+JAX path launches the TPU pair (``models/dlrm.py:dot_interact`` takes the
+per-part kernels wherever the flat ones could run), so the port keeps
+K2 on every path and K3 is held at kernel level.
+
+:func:`interact_parts_fwd` / :func:`interact_parts_bwd` and
+:func:`interact_flat_fwd` / :func:`interact_flat_bwd` run the kernels for
 CUDA tensors and the plain versions for CPU tensors. On CUDA they launch
-the kernel or raise: there is no fallback. ``launches`` and
-``bwd_launches`` count kernel launches (the main path's proof that it went
-through the kernels).
+the kernel or raise: there is no fallback. ``launches``,
+``bwd_launches``, ``flat_launches`` and ``flat_bwd_launches`` count kernel
+launches (the main path's proof that it went through the kernels).
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ MAX_SAMPLES_PER_BLOCK = 8
 
 launches = 0
 bwd_launches = 0
+flat_launches = 0
+flat_bwd_launches = 0
 
 
 def tril_pairs(f: int, k: int):
@@ -92,32 +104,64 @@ def _check_parts(parts: Sequence[torch.Tensor], k: int):
   return f, b, d
 
 
-def _launch(parts: Sequence[torch.Tensor], k: int, f: int, b: int,
-            d: int) -> torch.Tensor:
-  from ._build import load
-  global launches
+def _check_kernel_rows(t: torch.Tensor, d: int) -> None:
+  """What the kernels need of a feature tensor beyond the plain version:
+  rows of a multiple of 8 bf16 lanes, 16-byte aligned."""
   if d % 8:
     raise ValueError(f"the kernel takes D % 8 == 0, got D={d}")
+  if t.data_ptr() % 16:
+    raise ValueError("the kernel reads 16-byte aligned rows")
+
+
+def _check_cotangent(d_acts: torch.Tensor, like: torch.Tensor, b: int,
+                     npair: int) -> None:
+  if d_acts.dtype != torch.float32:
+    raise TypeError(f"the interaction backward takes an f32 cotangent, got "
+                    f"{d_acts.dtype}")
+  if tuple(d_acts.shape) != (b, npair):
+    raise ValueError(f"cotangent must be [{b}, {npair}], got "
+                     f"{tuple(d_acts.shape)}")
+  if d_acts.device != like.device or not d_acts.is_contiguous():
+    raise ValueError("the cotangent must be contiguous and on the features' "
+                     "device")
+
+
+# the launchers' argument lists, the stream (last) left out
+_FWD_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+
+
+def _call(name: str, argtypes, args, dev: torch.device) -> None:
+  """Launch kernel ``name`` (its ``<name>_launch``) on ``dev``'s current
+  stream; raises on a CUDA error."""
+  from ._build import load
+  fn = getattr(load(name), f"{name}_launch")
+  fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  with torch.cuda.device(dev):
+    err = fn(*args, stream)
+  if err != 0:
+    raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _pointers(tensors: Sequence[torch.Tensor]) -> ctypes.c_void_p:
+  """A host array of the tensors' device pointers."""
+  ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+  return ctypes.cast(ptrs, ctypes.c_void_p)
+
+
+def _launch(parts: Sequence[torch.Tensor], k: int, f: int, b: int,
+            d: int) -> torch.Tensor:
+  global launches
   for p in parts:
-    if p.data_ptr() % 16:
-      raise ValueError("the kernel reads 16-byte aligned parts")
-  spb = samples_per_block(f, d)
+    _check_kernel_rows(p, d)
   npair = len(tril_pairs(f, k)[0])
   dev = parts[0].device
   out = torch.empty((b, npair), dtype=torch.float32, device=dev)
-  lib = load("interact_fwd")
-  fn = lib.interact_fwd_launch
-  fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_void_p]
-  fn.restype = ctypes.c_int
-  ptrs = (ctypes.c_void_p * f)(*[p.data_ptr() for p in parts])
-  stream = torch.cuda.current_stream(dev).cuda_stream
-  with torch.cuda.device(dev):
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), f, b, d, k, spb,
-             out.data_ptr(), stream)
-  if err != 0:
-    raise RuntimeError(f"interact_fwd launch failed: cudaError {err}")
+  _call("interact_fwd", _FWD_ARGS,
+        (_pointers(parts), f, b, d, k, samples_per_block(f, d),
+         out.data_ptr()), dev)
   launches += 1
   return out
 
@@ -189,31 +233,15 @@ def bwd_samples_per_block(f: int, d: int) -> int:
 
 def _launch_bwd(d_acts: torch.Tensor, parts: Sequence[torch.Tensor], k: int,
                 f: int, b: int, d: int) -> Tuple[torch.Tensor, ...]:
-  from ._build import load
   global bwd_launches
-  if d % 8:
-    raise ValueError(f"the kernel takes D % 8 == 0, got D={d}")
   for p in parts:
-    if p.data_ptr() % 16:
-      raise ValueError("the kernel reads 16-byte aligned parts")
-  spb = bwd_samples_per_block(f, d)
+    _check_kernel_rows(p, d)
   dev = parts[0].device
   outs = [torch.empty((b, d), dtype=torch.bfloat16, device=dev)
           for _ in range(f)]
-  lib = load("interact_bwd")
-  fn = lib.interact_bwd_launch
-  fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_void_p]
-  fn.restype = ctypes.c_int
-  in_ptrs = (ctypes.c_void_p * f)(*[p.data_ptr() for p in parts])
-  out_ptrs = (ctypes.c_void_p * f)(*[o.data_ptr() for o in outs])
-  stream = torch.cuda.current_stream(dev).cuda_stream
-  with torch.cuda.device(dev):
-    err = fn(d_acts.data_ptr(), ctypes.cast(in_ptrs, ctypes.c_void_p),
-             ctypes.cast(out_ptrs, ctypes.c_void_p), f, b, d, k, spb, stream)
-  if err != 0:
-    raise RuntimeError(f"interact_bwd launch failed: cudaError {err}")
+  _call("interact_bwd", _BWD_ARGS,
+        (d_acts.data_ptr(), _pointers(parts), _pointers(outs), f, b, d, k,
+         bwd_samples_per_block(f, d)), dev)
   bwd_launches += 1
   return tuple(outs)
 
@@ -224,18 +252,91 @@ def interact_parts_bwd(d_acts: torch.Tensor, parts: Sequence[torch.Tensor],
   bf16 part cotangents. CPU tensors take the plain version; CUDA tensors
   launch the kernel."""
   f, b, d = _check_parts(parts, k)
-  npair = len(tril_pairs(f, k)[0])
-  if d_acts.dtype != torch.float32:
-    raise TypeError(f"interact_parts_bwd takes an f32 cotangent, got "
-                    f"{d_acts.dtype}")
-  if tuple(d_acts.shape) != (b, npair):
-    raise ValueError(f"cotangent must be [{b}, {npair}], got "
-                     f"{tuple(d_acts.shape)}")
-  if d_acts.device != parts[0].device or not d_acts.is_contiguous():
-    raise ValueError("the cotangent must be contiguous and on the parts' "
-                     "device")
+  _check_cotangent(d_acts, parts[0], b, len(tril_pairs(f, k)[0]))
   if parts[0].device.type == "cpu":
     return interact_parts_bwd_plain(d_acts, parts, k)
   if parts[0].device.type != "cuda":
     raise ValueError(f"no interaction kernel for device {parts[0].device}")
   return _launch_bwd(d_acts, parts, k, f, b, d)
+
+
+# ---------------------------------------------------------------------------
+# K3: the same two functions on one flat [B, F, D] input
+# ---------------------------------------------------------------------------
+
+
+def _check_flat(feats: torch.Tensor, k: int):
+  if k not in (-1, 0):
+    raise ValueError(f"k must be -1 or 0, got {k}")
+  if feats.dim() != 3:
+    raise ValueError(f"feats must be [B, F, D], got {tuple(feats.shape)}")
+  b, f, d = feats.shape
+  if f < 1 or f > MAX_PARTS:
+    raise ValueError(f"the flat interaction takes 1..{MAX_PARTS} features, "
+                     f"got {f}")
+  if feats.dtype != torch.bfloat16:
+    raise TypeError(f"the flat interaction takes bf16 features, got "
+                    f"{feats.dtype}")
+  if not feats.is_contiguous():
+    raise ValueError("the flat interaction takes contiguous features")
+  return b, f, d
+
+
+def interact_flat_fwd_plain(feats: torch.Tensor, k: int) -> torch.Tensor:
+  """Plain PyTorch version of K3-fwd: f32 batched product, lower-triangle
+  index, round to bf16, widen to f32."""
+  b, f, _ = feats.shape
+  x = feats.float()
+  inter = torch.bmm(x, x.transpose(1, 2))                  # [B, F, F]
+  rows, cols = tril_pairs(f, k)
+  idx = torch.as_tensor(rows * f + cols, device=inter.device)
+  return inter.reshape(b, f * f).index_select(1, idx) \
+      .to(torch.bfloat16).float()
+
+
+def interact_flat_fwd(feats: torch.Tensor, k: int = -1) -> torch.Tensor:
+  """``[B, F, D]`` bf16 features -> ``[B, P]`` f32 pair activations (K3-fwd).
+  CPU tensors take the plain version; CUDA tensors launch the kernel."""
+  b, f, d = _check_flat(feats, k)
+  if feats.device.type == "cpu":
+    return interact_flat_fwd_plain(feats, k)
+  if feats.device.type != "cuda":
+    raise ValueError(f"no interaction kernel for device {feats.device}")
+  global flat_launches
+  _check_kernel_rows(feats, d)
+  npair = len(tril_pairs(f, k)[0])
+  out = torch.empty((b, npair), dtype=torch.float32, device=feats.device)
+  _call("interact_flat_fwd", _FWD_ARGS,
+        (feats.data_ptr(), f, b, d, k, samples_per_block(f, d),
+         out.data_ptr()), feats.device)
+  flat_launches += 1
+  return out
+
+
+def interact_flat_bwd_plain(d_acts: torch.Tensor, feats: torch.Tensor,
+                            k: int) -> torch.Tensor:
+  """Plain PyTorch version of K3-bwd: the symmetric coefficients, one f32
+  batched product, rounded to bf16: ``[B, F, D]``."""
+  coef = pair_coefficients(d_acts, feats.shape[1], k)
+  return torch.bmm(coef, feats.float()).to(torch.bfloat16)
+
+
+def interact_flat_bwd(d_acts: torch.Tensor, feats: torch.Tensor,
+                      k: int = -1) -> torch.Tensor:
+  """``[B, P]`` f32 cotangent + ``[B, F, D]`` bf16 features -> ``[B, F, D]``
+  bf16 feature cotangent (K3-bwd). CPU tensors take the plain version;
+  CUDA tensors launch the kernel."""
+  b, f, d = _check_flat(feats, k)
+  _check_cotangent(d_acts, feats, b, len(tril_pairs(f, k)[0]))
+  if feats.device.type == "cpu":
+    return interact_flat_bwd_plain(d_acts, feats, k)
+  if feats.device.type != "cuda":
+    raise ValueError(f"no interaction kernel for device {feats.device}")
+  global flat_bwd_launches
+  _check_kernel_rows(feats, d)
+  out = torch.empty_like(feats)
+  _call("interact_flat_bwd", _BWD_ARGS,
+        (d_acts.data_ptr(), feats.data_ptr(), out.data_ptr(), f, b, d, k,
+         bwd_samples_per_block(f, d)), feats.device)
+  flat_bwd_launches += 1
+  return out

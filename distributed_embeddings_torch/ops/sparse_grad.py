@@ -1,8 +1,9 @@
 """Deduplicated row gradients (PyTorch port of ``ops/sparse_grad.py``).
 
 Only :func:`dedup_rows` is ported: the sort + segment-sum duplicate
-reduction that the sparse apply's ``exact=True`` path runs (the
-reference's sort/unique/segment-sum backward). ``SparseRows``,
+reduction that the sparse apply's ``exact=True`` path and
+``ops/embedding_lookup.py:csr_lookup``'s backward run (the reference's
+sort/unique/segment-sum backward). ``SparseRows``,
 ``unique_ids_map`` and the table-level sparse optimizers are not ported
 yet.
 """

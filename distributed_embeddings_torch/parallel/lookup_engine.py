@@ -25,8 +25,15 @@ physical rows), its update rows are built by kernel K6
 copies each sparse bucket's cotangent to a contiguous tensor with kernel
 K7 first (``ops/cuda_layout.py``, the JAX ``DE_TPU_COTANGENT_PIN``).
 
+The simple layout's differentiable lookup (:meth:`DistributedLookup.
+forward`, the path of ``layers/dist_model_parallel.py:
+DistributedEmbedding`` and ``training.make_train_step``) runs at world 1:
+padded ids gathered from each sparse class's ``[rows, width]`` table with
+the sentinel reading zeros (:class:`_FillRows`), the dense classes'
+window lookups, assembly; autograd gives dense table gradients.
+
 Not ported yet: deduplicated routing (``dedup_exchange``), ragged value
-streams and tiering.
+streams, the differentiable forward at world > 1 and tiering.
 """
 
 from __future__ import annotations
@@ -251,6 +258,36 @@ class _DenseWindowRows(torch.autograd.Function):
     return d_table, None, None, None
 
 
+class _FillRows(torch.autograd.Function):
+  """Sparse-class rows of the simple layout: ``table[ids]``, all-zero rows
+  for ids outside ``[0, rows)`` (the JAX engine's ``jnp.take(...,
+  mode="fill", fill_value=0)``: the sentinel and padding read nothing).
+  Backward: the f32 cotangent rows of the in-range ids accumulated into a
+  dense ``[rows, width]`` table gradient with ``index_add_``; the
+  sentinel's and the padding's land nowhere. The gradient is a fresh
+  tensor, so autograd makes it the leaf's ``.grad`` without a copy."""
+
+  @staticmethod
+  def forward(ctx, table, ids):
+    rows = table.shape[0]
+    valid = (ids >= 0) & (ids < rows)
+    idx = torch.where(valid, ids, torch.zeros_like(ids))
+    out = table[idx]
+    out = torch.where(valid[..., None], out, torch.zeros_like(out))
+    ctx.save_for_backward(idx, valid)
+    ctx.table_shape = table.shape
+    return out
+
+  @staticmethod
+  def backward(ctx, d_rows):
+    idx, valid = ctx.saved_tensors
+    g = torch.where(valid[..., None], d_rows, torch.zeros_like(d_rows))
+    d_table = torch.zeros(ctx.table_shape, dtype=d_rows.dtype,
+                          device=d_rows.device)
+    d_table.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
+    return d_table, None
+
+
 class DistributedLookup:
   """Lookup engine bound to one plan and, at world > 1, to this rank's
   :class:`~.mesh.Mesh` (see module docstring).
@@ -272,6 +309,17 @@ class DistributedLookup:
     self.apply_chunk = apply_chunk
     self._bucket_cache: Dict[tuple, List[Bucket]] = {}
     self._slot_map_cache: Dict[tuple, Dict[tuple, tuple]] = {}
+
+  # ---- shapes ------------------------------------------------------------
+  def param_shapes(self) -> Dict[str, tuple]:
+    """Simple-layout class param shapes ``[world * padded_rows, width]``:
+    rank r's block is rows ``[r * padded_rows, (r + 1) * padded_rows)``."""
+    shapes = {}
+    for key in self.plan.class_keys:
+      cp = self.plan.classes[key]
+      shapes[class_param_name(*key)] = (
+          self.plan.world_size * padded_rows(self.plan, key), cp.width)
+    return shapes
 
   def _my_rank(self) -> int:
     if self.plan.world_size == 1:
@@ -420,6 +468,16 @@ class DistributedLookup:
       counts = (ids_all < sentinel).sum(dim=2).to(summed.dtype)
       summed = summed / counts.clamp(min=1)[..., None]
     return summed
+
+  def _z_sparse_simple(self, key, table_local: torch.Tensor,
+                       ids_all: torch.Tensor, rs: bool = False
+                       ) -> torch.Tensor:
+    """Differentiable gather on the simple ``[rows, w]`` table, then the
+    class combiner (padded ids; the deduplicated and ragged routings are
+    not ported)."""
+    self._check_routed(ids_all)
+    return self._combine(_FillRows.apply(table_local, ids_all), ids_all,
+                         key, rs)
 
   def _dense_offsets(self, key, bucket: Bucket) -> np.ndarray:
     cp = self.plan.classes[key]
@@ -634,6 +692,61 @@ class DistributedLookup:
       x = _normalize_input(inputs[input_id])
       out[input_id] = (x >= 0).sum(dim=1)
     return out
+
+  # ---- OOV observability -------------------------------------------------
+  def oov_counts(self, inputs: Sequence) -> Dict[str, torch.Tensor]:
+    """Per-class out-of-vocabulary occurrence counts of one batch: ids
+    ``>= input_dim`` of the table the input feeds (negative ids are
+    padding, not OOV), counted once per class an input's pieces live in.
+    Class name -> int32 scalar (this rank's batch)."""
+    plan = self.plan
+    dev = None
+    out = {}
+    for input_id, pieces in enumerate(plan.output_pieces):
+      x = _normalize_input(inputs[input_id])
+      dev = x.device
+      vocab = plan.global_configs[plan.input_table_map[input_id]].input_dim
+      n = (x >= vocab).sum().to(torch.int32)
+      for ck in sorted({p.class_key for p in pieces}):
+        name = class_param_name(*ck)
+        out[name] = out[name] + n if name in out else n
+    return {class_param_name(*k): out.get(class_param_name(*k),
+                                          torch.zeros((), dtype=torch.int32,
+                                                      device=dev))
+            for k in plan.class_keys}
+
+  # ---- composed forward --------------------------------------------------
+  def forward(self, class_params: Dict[str, torch.Tensor],
+              inputs: Sequence) -> List[torch.Tensor]:
+    """Differentiable lookup on simple-layout params (world 1).
+
+    Args:
+      class_params: class name -> ``[rows, width]`` table.
+      inputs: per global input, ``[B]`` or ``[B, H]`` int ids (PAD_ID
+        entries ignored).
+
+    Returns:
+      Per global input its ``[B, table_width]`` activations. Autograd
+      carries the loss to every class table as a dense gradient."""
+    if self.plan.world_size > 1:
+      raise NotImplementedError(
+          "the differentiable lookup at world > 1 (DistributedEmbedding over "
+          "the wire's autograd Functions) is not ported yet: ROADMAP.md "
+          "open items, queue C; train world > 1 with "
+          "training.make_sparse_train_step")
+    inputs = [_normalize_input(x) for x in inputs]
+    hotness_of = lambda i: ragged_hotness(inputs[i])  # noqa: E731
+    b = inputs[0].shape[0]
+    counts = self.mean_counts(inputs)
+    ids_all = self.route_ids(inputs, hotness_of)
+    z_sparse = {
+        bk: self._z_sparse_simple(
+            bk.class_key, self._squeeze_local(
+                class_params[class_param_name(*bk.class_key)]), ids, bk.rs)
+        for bk, ids in ids_all.items()
+        if self.plan.classes[bk.class_key].kind == "sparse"}
+    return self.finish_forward(z_sparse, class_params, ids_all, b,
+                               hotness_of, counts)
 
   def _find_bucket(self, key, h, vcap, hotness_of) -> Bucket:
     for bucket in self._buckets(key, hotness_of):

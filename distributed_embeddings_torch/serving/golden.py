@@ -89,7 +89,7 @@ def replay(golden: Dict[str, np.ndarray], quantize: str,
                bottom_mlp=tuple(int(w) for w in golden["bottom_mlp"]),
                top_mlp=tuple(int(w) for w in golden["top_mlp"]),
                num_numerical=golden["numerical"].shape[1],
-               compute_dtype=torch.bfloat16, device=device)
+               compute_dtype=torch.bfloat16, tables=False, device=device)
   eng = ServeEngine(model, plan, frozen_of(golden, plan, quantize),
                     device=device)
   cats = list(golden["cats"])

@@ -33,6 +33,19 @@ run shares with the CPU golden. Each run's final state is stored as the
 update from the initial state (``<compute>_<part>_moved/<name>``): the
 untouched rows are zero and compress.
 
+``tests/data/torch_dense_train_golden.npz`` is the dense-autodiff path's
+(the README's Quick start): a small DLRM that owns its tables (8 tables,
+D=16, three of them in a dense class), three steps of the JAX
+``make_train_step`` with ``optax.sgd`` from one initial param tree, once
+with f32 and once with bf16 compute. The file holds the initial tree
+(``init/<path>``), the batches, each run's losses and each final tensor
+as its update (``<compute>_moved/<path>``). :func:`replay_dense` replays
+a run through the port's ``training.make_train_step``.
+``tests/test_torch_dense_train.py`` holds the f32 run to the f32 class on
+the CPU; ``chip_smoke.py`` replays the bf16 run on the card to the
+tolerances above (on the card the interaction runs in bf16 whatever the
+compute dtype, which only the bf16 run shares with the CPU golden).
+
 ``tests/data/torch_train_zoo_golden.npz`` is the synthetic zoo's: the
 published Tiny model with its big vocabularies cut to
 :data:`ZOO_VOCAB_CAP` rows (:func:`zoo_plan`), Adagrad 0.01 on the sparse
@@ -58,6 +71,7 @@ import torch
 
 from .convert import (
     dlrm_state_dict_from_flax,
+    dlrm_state_dict_to_flax,
     synthetic_state_dict_from_flax,
     train_state_from_flax,
     zoo_train_state_from_flax,
@@ -81,6 +95,7 @@ from .training import (
     init_sparse_state,
     make_sparse_eval_step,
     make_sparse_train_step,
+    make_train_step,
     shard_batch,
 )
 
@@ -88,6 +103,7 @@ GOLDEN_PATH = (Path(__file__).resolve().parents[1] / "tests" / "data" /
                "torch_train_golden.npz")
 WORLD4_PATH = GOLDEN_PATH.with_name("torch_train_world4_golden.npz")
 ZOO_PATH = GOLDEN_PATH.with_name("torch_train_zoo_golden.npz")
+DENSE_PATH = GOLDEN_PATH.with_name("torch_dense_train_golden.npz")
 LR = 0.1
 STEPS = 3
 # per-step losses
@@ -145,7 +161,7 @@ def replay(golden: Dict[str, np.ndarray], device="cuda"
                bottom_mlp=tuple(int(w) for w in golden["bottom_mlp"]),
                top_mlp=tuple(int(w) for w in golden["top_mlp"]),
                num_numerical=golden["numerical"].shape[2],
-               compute_dtype=torch.bfloat16, device=device)
+               compute_dtype=torch.bfloat16, tables=False, device=device)
   state = train_state_from_flax(initial_state(golden), device=device)
   step = make_sparse_train_step(
       model, plan, bce_loss, functools.partial(torch.optim.SGD, lr=LR),
@@ -180,18 +196,28 @@ def _compare(want_loss, initial, want, losses, got,
   worst = 0.0
   for part, tensors in want.items():
     assert sorted(tensors) == sorted(got[part]), part
-    for name, w in tensors.items():
-      moved = float(np.abs(w - init[part][name].numpy()).max())
-      err = float(np.abs(got[part][name] - w).max())
-      assert moved > 0.0, f"{part}/{name} never changed in the golden"
-      share = err / moved
-      assert share <= UPDATE_TOL, (
-          f"{part}/{name}: off by {err} against a largest update of "
-          f"{moved} ({share:.3%} > {UPDATE_TOL:.0%})")
-      worst = max(worst, share)
+    worst = max(worst, _update_share(
+        {n: init[part][n].numpy() for n in tensors}, tensors, got[part],
+        part))
   return {"loss_max_abs_err": float(np.abs(np.asarray(losses)
                                             - want_loss).max()),
           "state_max_err_share": worst}
+
+
+def _update_share(init, want, got, part: str) -> float:
+  """The worst ``max |got - want| / max |want - init|`` over the named
+  tensors; raises naming the first above ``UPDATE_TOL``."""
+  worst = 0.0
+  for name, w in want.items():
+    moved = float(np.abs(w - init[name]).max())
+    err = float(np.abs(got[name] - w).max())
+    assert moved > 0.0, f"{part}/{name} never changed in the golden"
+    share = err / moved
+    assert share <= UPDATE_TOL, (
+        f"{part}/{name}: off by {err} against a largest update of "
+        f"{moved} ({share:.3%} > {UPDATE_TOL:.0%})")
+    worst = max(worst, share)
+  return worst
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +267,8 @@ def replay_world4(golden: Dict[str, np.ndarray], mesh, overlap: str = "fused",
                top_mlp=tuple(int(w) for w in golden["top_mlp"]),
                num_numerical=golden["numerical"].shape[2],
                compute_dtype=(torch.float32 if compute == "f32"
-                              else torch.bfloat16), device=mesh.device)
+                              else torch.bfloat16), tables=False,
+               device=mesh.device)
   state = train_state_from_flax(initial_state(golden), mesh=mesh)
   step = make_sparse_train_step(
       model, plan, bce_loss, functools.partial(torch.optim.SGD, lr=LR),
@@ -449,3 +476,195 @@ def compare_zoo(golden: Dict[str, np.ndarray], losses: List[float],
   initial, final = zoo_golden_state(golden)
   return _compare(golden["losses"], initial, final, losses, got,
                   zoo_train_state_from_flax)
+
+
+# ---------------------------------------------------------------------------
+# the dense-autodiff golden (make_train_step, optax.sgd)
+# ---------------------------------------------------------------------------
+
+
+def flax_paths(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+  """A nested param tree -> ``{"<a>/<b>/...": leaf}``."""
+  out = {}
+  for k, v in tree.items():
+    path = f"{prefix}/{k}" if prefix else k
+    if isinstance(v, dict):
+      out.update(flax_paths(v, path))
+    else:
+      out[path] = np.asarray(v)
+  return out
+
+
+def _tree_of(paths: Dict[str, np.ndarray]) -> Dict:
+  tree: Dict = {}
+  for path, arr in paths.items():
+    node = tree
+    *parents, leaf = path.split("/")
+    for p in parents:
+      node = node.setdefault(p, {})
+    node[leaf] = arr
+  return tree
+
+
+def dense_initial(golden: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+  """The dense golden's initial params, ``path -> array``."""
+  return _entries(golden, "init")
+
+
+def dense_final(golden: Dict[str, np.ndarray],
+                compute: str = "f32") -> Dict[str, np.ndarray]:
+  """The JAX final params of the ``compute`` run, ``path -> array``."""
+  init = dense_initial(golden)
+  return {k: init[k] + v
+          for k, v in _entries(golden, f"{compute}_moved").items()}
+
+
+def dense_model(golden: Dict[str, np.ndarray], compute: str = "f32",
+                device="cuda") -> DLRM:
+  """The golden's DLRM with its tables, holding the initial params."""
+  vocab = [int(v) for v in golden["vocab"]]
+  model = DLRM(vocab, int(golden["dim"]),
+               bottom_mlp=tuple(int(w) for w in golden["bottom_mlp"]),
+               top_mlp=tuple(int(w) for w in golden["top_mlp"]),
+               num_numerical=golden["numerical"].shape[2],
+               compute_dtype=(torch.float32 if compute == "f32"
+                              else torch.bfloat16),
+               dense_row_threshold=int(golden["dense_row_threshold"]),
+               device=device)
+  model.load_state_dict(dlrm_state_dict_from_flax(
+      _tree_of(dense_initial(golden))))
+  return model
+
+
+def dense_loss(model, numerical, cats, labels):
+  """The golden's ``loss_fn``: the model through its own embedding
+  layer, mean sigmoid cross-entropy."""
+  return bce_loss(model(numerical, cats), labels)
+
+
+def replay_dense(golden: Dict[str, np.ndarray], compute: str = "f32",
+                 device="cuda") -> Tuple[List[float], Dict[str, np.ndarray]]:
+  """Three steps of the port's ``make_train_step`` (``torch.optim.SGD``)
+  from the dense golden's initial params: ``(losses, final params as
+  path -> numpy array)``."""
+  model = dense_model(golden, compute, device)
+  opt = torch.optim.SGD(model.parameters(), lr=LR)
+  step = make_train_step(dense_loss, opt, model, device=device)
+  dev = torch.device(device)
+  losses = []
+  for i in range(STEPS):
+    cats = [torch.as_tensor(c, device=dev) for c in golden["cats"][i]]
+    losses.append(float(step(
+        torch.as_tensor(golden["numerical"][i], device=dev), cats,
+        torch.as_tensor(golden["labels"][i], device=dev))))
+  return losses, flax_paths(dlrm_state_dict_to_flax(model.state_dict()))
+
+
+def compare_dense(golden: Dict[str, np.ndarray], losses: List[float],
+                  got: Dict[str, np.ndarray],
+                  compute: str = "bf16") -> Dict[str, float]:
+  """Hold a :func:`replay_dense` result of the ``compute`` run to the
+  golden within the train-golden tolerances; returns the worst loss error
+  and the worst tensor error as a share of its largest update."""
+  want_loss = golden[f"{compute}_losses"]
+  np.testing.assert_allclose(losses, want_loss, **LOSS_TOL)
+  want = dense_final(golden, compute)
+  assert sorted(want) == sorted(got)
+  return {"loss_max_abs_err": float(np.abs(np.asarray(losses)
+                                            - want_loss).max()),
+          "state_max_err_share": _update_share(dense_initial(golden), want,
+                                               got, "params")}
+
+
+# duplicates add in another order on the two paths (and with atomics on the
+# card): K1's tolerance, a share of each cell's absolute sum
+DUP_SHARE = 1e-5
+# the dense parameters: the f32 matmul class
+DENSE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def dense_vs_sparse_step(model: DLRM, plan: DistEmbeddingStrategy,
+                         numerical, cats, labels,
+                         lr: float = LR) -> Dict[str, float]:
+  """One SGD step of the dense-autodiff ``make_train_step`` on ``model``
+  (which owns its tables) and one SGD step of ``make_sparse_train_step``
+  on fused buffers packed from the same tables, from one state. With
+  plain SGD the two updates are one function (the JAX package's
+  contract), so a gradient that lands on the wrong rows shows here.
+
+  Every class row must agree within ``DUP_SHARE`` of each cell's absolute
+  sum (``|row| + lr * sum |cotangent|`` over the step's occurrences: the
+  duplicates add in another order), the dense parameters within the f32
+  matmul class. ``model`` takes the dense step; hotness-1 inputs only.
+  Returns the losses and the worst shares; raises ``AssertionError``."""
+  from torch.func import functional_call
+
+  from .parallel.lookup_engine import DistributedLookup
+
+  dev = next(model.parameters()).device
+  b = numerical.shape[0]
+  if any(c.dim() != 1 for c in cats):
+    raise ValueError("dense_vs_sparse_step takes hotness-1 inputs")
+  tables = {n: p.detach().clone()
+            for n, p in model.embeddings.class_params().items()}
+  dense = {k: v.detach().clone() for k, v in model.state_dict().items()
+           if not k.startswith("embeddings.")}
+  rule = sgd_rule(lr)
+  sgd = functools.partial(torch.optim.SGD, lr=lr)
+  state = init_sparse_state(plan, {"embeddings": tables, **dense}, rule, sgd,
+                            device=dev)
+  engine = DistributedLookup(plan)
+  layouts = engine.fused_layouts(rule)
+  # the per-occurrence cotangents, for each cell's absolute sum
+  ids_all = engine.route_ids(cats)
+  with torch.no_grad():
+    z_sparse, _ = engine.lookup_sparse_fused(state["fused"], layouts, ids_all,
+                                             keep_aux=False)
+  z_leaves = {bk: z.detach().requires_grad_(True)
+              for bk, z in z_sparse.items()}
+  acts = engine.finish_forward(
+      z_leaves, {k: v.detach() for k, v in state["emb_dense"].items()},
+      ids_all, b, lambda i: 1)
+  bce_loss(functional_call(model, dense, (numerical, cats),
+                           {"emb_acts": acts}), labels).backward()
+  abs_sum = {}
+  for bk, z in z_leaves.items():
+    name = class_param_name(*bk.class_key)
+    rows = tables[name].shape[0]
+    ids = ids_all[bk].reshape(-1)
+    keep = (ids >= 0) & (ids < rows)
+    acc = abs_sum.setdefault(name, tables[name].abs())
+    acc.index_add_(0, ids[keep], lr * z.grad.reshape(-1, z.shape[-1])[keep]
+                   .abs())
+  del z_leaves, acts
+  # the two steps
+  sparse_step = make_sparse_train_step(model, plan, bce_loss, sgd, rule)
+  _, sparse_loss = sparse_step(state, numerical, cats, labels)
+  opt = torch.optim.SGD(model.parameters(), lr=lr)
+  dense_loss_ = make_train_step(dense_loss, opt, model, device=dev)(
+      numerical, cats, labels)
+  got_tables = {n: p.detach() for n, p in
+                model.embeddings.class_params().items()}
+  worst = 0.0
+  for key in plan.class_keys:
+    name = class_param_name(*key)
+    if plan.classes[key].kind == "sparse":
+      other = layouts[name].unpack(state["fused"][name])[0]
+    else:
+      other = state["emb_dense"][name].detach()
+    diff = (got_tables[name] - other).abs()
+    allow = DUP_SHARE * abs_sum.get(name, tables[name].abs())
+    share = float((diff / allow.clamp(min=1e-30)).max())
+    assert share <= 1.0, (
+        f"{name}: the dense and the sparse step differ by {share} of "
+        f"{DUP_SHARE} of a cell's absolute sum")
+    worst = max(worst, share)
+  dense_err = 0.0
+  for k, v in model.state_dict().items():
+    if k.startswith("embeddings."):
+      continue
+    other = state["dense"][k].detach()
+    torch.testing.assert_close(v, other, **DENSE_TOL)
+    dense_err = max(dense_err, float((v - other).abs().max()))
+  return {"dense_loss": float(dense_loss_), "sparse_loss": float(sparse_loss),
+          "class_max_dup_share": worst, "dense_max_abs_err": dense_err}

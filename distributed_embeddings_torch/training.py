@@ -43,9 +43,16 @@ step: narrow multi-hot classes with optimizer state (Adagrad on Tiny)
 take the masked physical-row gather, and their update rows come from
 kernel K6 (``ops/cuda_delta.py``) on the card.
 
+The dense-autodiff step (:func:`make_train_step`, the README's Quick
+start and ``examples/dlrm/main.py`` without ``--sparse``) trains a model
+that owns its embedding layer (``models.DLRM``): forward through the
+layer's differentiable lookup, ``loss.backward()`` (a dense gradient for
+every class buffer, the tables' regularizer penalties in the loss), one
+``torch.optim`` step over every parameter, then the tables' constraints.
+It runs at world 1.
+
 Not ported yet: ``micro_batches > 1``, the non-finite guard, the tiered
-step, dense-class regularizers and constraints, and ``make_train_step``
-(the dense autodiff path).
+step, and the dense-autodiff step at world > 1.
 """
 
 from __future__ import annotations
@@ -58,6 +65,11 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from .device import resolve_device
+from .layers.embedding import (
+    l2_decay_factor,
+    resolve_constraint,
+    resolve_regularizer,
+)
 from .layers.planner import DistEmbeddingStrategy
 from .ops.packed_table import SparseRule, init_packed_uniform
 from .parallel import wire
@@ -307,41 +319,109 @@ def unpack_sparse_state(plan: DistEmbeddingStrategy, rule: SparseRule,
   return params, aux_out
 
 
-def _fused_rule_and_penalties(plan: DistEmbeddingStrategy,
-                              rule: SparseRule) -> SparseRule:
-  """Validate regularizers and constraints for the fused path; returns the
-  rule with a uniform sparse-table l2 folded in as ``weight_decay`` (decay
-  on touched rows, per occurrence).
+def _per_rank_windows(plan: DistEmbeddingStrategy, rank: int):
+  """Per class name, rank ``rank``'s ``(row_offset, rows, table_id)``
+  windows of its local class block (simple layout)."""
+  out = {}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    out[class_param_name(*key)] = [
+        (off, sh.input_dim, sh.table_id)
+        for sh, off in zip(cp.shards_per_rank[rank],
+                           cp.row_offsets_per_rank[rank])]
+  return out
+
+
+def plan_regularizer_fn(plan: DistEmbeddingStrategy
+                        ) -> Optional[Callable[[Dict[str, Any], int], Any]]:
+  """The tables' regularizer term for a plan: ``fn(emb_params, rank) ->
+  scalar``, each table's penalty over its shard's row window of rank
+  ``rank``'s local class block, summed (class names absent from
+  ``emb_params`` are skipped); None when no table has a regularizer.
+  Callables apply per shard slice, exact for additive penalties (l1 and
+  l2, the Keras names)."""
+  regs = {t: resolve_regularizer(c.regularizer)
+          for t, c in enumerate(plan.global_configs)}
+  if not any(r is not None for r in regs.values()):
+    return None
+
+  def fn(emb_params, rank: int = 0):
+    total = None
+    for name, wins in _per_rank_windows(plan, rank).items():
+      if name not in emb_params:
+        continue
+      buf = emb_params[name]
+      for off, rows, table_id in wins:
+        reg = regs[table_id]
+        if reg is None:
+          continue
+        pen = reg(buf[off:off + rows])
+        total = pen if total is None else total + pen
+    return torch.zeros(()) if total is None else total
+
+  return fn
+
+
+def plan_constraint_fn(plan: DistEmbeddingStrategy
+                       ) -> Optional[Callable[[Dict[str, Any], int], Any]]:
+  """The tables' post-update projection for a plan: ``fn(emb_params,
+  rank)`` projects each constrained table's row window of rank ``rank``'s
+  local class blocks, in place, and returns ``emb_params``; None when no
+  table has a constraint. Row projections are exact for whole-row shards
+  (the planner refuses constraints on column-sliced tables)."""
+  cons = {t: resolve_constraint(c.constraint)
+          for t, c in enumerate(plan.global_configs)}
+  if not any(c is not None for c in cons.values()):
+    return None
+
+  @torch.no_grad()
+  def fn(emb_params, rank: int = 0):
+    for name, wins in _per_rank_windows(plan, rank).items():
+      if name not in emb_params:
+        continue
+      buf = emb_params[name]
+      for off, rows, table_id in wins:
+        proj = cons[table_id]
+        if proj is not None:
+          window = buf[off:off + rows]
+          window.copy_(proj(window).to(buf.dtype))
+    return emb_params
+
+  return fn
+
+
+def _fused_rule_and_penalties(plan: DistEmbeddingStrategy, rule: SparseRule):
+  """Validate regularizers and constraints for the fused path; returns
+  ``(rule, reg_fn, con_fn)``: the rule with a uniform sparse-table l2
+  folded in as ``weight_decay`` (decay on touched rows, per occurrence),
+  and the dense-class tables' exact full-table penalty and projection
+  (:func:`plan_regularizer_fn`, :func:`plan_constraint_fn` over
+  ``emb_dense``, as in the JAX package), or None.
 
   Sparse tables with a constraint, a penalty other than pure l2, or
-  unequal l2 factors raise, as in the JAX package. Dense-class tables
-  with a regularizer or constraint raise too: the exact full-table
-  penalty and projection of the JAX package (``plan_regularizer_fn``,
-  ``plan_constraint_fn``) are not ported yet."""
+  unequal l2 factors raise, as in the JAX package."""
   table_kind = {sh.table_id: plan._kind_of(sh)
                 for shards in plan.rank_shards for sh in shards}
   lam = None
   for t, c in enumerate(plan.global_configs):
     if table_kind.get(t) != "sparse":
-      if c.regularizer is not None or c.constraint is not None:
-        raise NotImplementedError(
-            f"table {t} is a dense-class table with a regularizer or "
-            "constraint: the full-table penalty and projection are not "
-            "ported yet")
-      continue
+      continue  # dense-kind: the exact penalty and projection below
     if c.constraint is not None:
       raise NotImplementedError(
           f"table {t} has an embeddings_constraint on the fused sparse "
           "path: per-occurrence deltas never materialize whole tables, so "
-          "a full-table projection cannot be honored here")
+          "a full-table projection cannot be honored here. Use "
+          "make_train_step (the dense autodiff path) or raise "
+          "dense_row_threshold to make it a dense-class table")
     if c.regularizer is None:
       continue
-    f = _l2_decay_factor(c.regularizer)
+    f = l2_decay_factor(c.regularizer)
     if f is None:
       raise NotImplementedError(
           f"table {t}'s regularizer {c.regularizer!r} is not a pure l2: "
           "the fused sparse path folds only l2 decay into its "
-          "per-occurrence deltas ('l2' or {'name': 'l2', 'factor': λ})")
+          "per-occurrence deltas ('l2' or {'name': 'l2', 'factor': λ}); "
+          "use make_train_step for other penalties")
     if lam is None:
       lam = f
     elif lam != f:
@@ -350,26 +430,24 @@ def _fused_rule_and_penalties(plan: DistEmbeddingStrategy,
           f"table {t}): the fused delta applies one uniform decay per rule")
   if lam:
     rule = dataclasses.replace(rule, weight_decay=float(lam))
-  return rule
+  dense = [c for t, c in enumerate(plan.global_configs)
+           if table_kind.get(t) == "dense"]
+  # the fns skip class names absent from the param dict, so feeding them
+  # emb_dense covers exactly the dense-kind windows
+  reg_fn = (plan_regularizer_fn(plan)
+            if any(c.regularizer is not None for c in dense) else None)
+  con_fn = (plan_constraint_fn(plan)
+            if any(c.constraint is not None for c in dense) else None)
+  return rule, reg_fn, con_fn
 
 
-def _l2_decay_factor(spec) -> Optional[float]:
-  """λ when ``spec`` is a pure-l2 regularizer spec, else None (the JAX
-  package's ``layers/embedding.py:l2_decay_factor``)."""
-  if isinstance(spec, str) and spec.lower() == "l2":
-    return 0.01  # keras.regularizers.l2 default
-  if isinstance(spec, dict):
-    d = {str(k).lower(): v for k, v in spec.items()}
-    if str(d.get("name", "")).lower() == "l2":
-      return float(d.get("factor", d.get("l2", 0.01)))
-  return None
-
-
-def _reduce_and_apply_dense(state: Dict[str, Any], d_z, loss, mesh=None):
+def _reduce_and_apply_dense(state: Dict[str, Any], d_z, loss, mesh=None,
+                            con_fn=None):
   """The dense tail of the step: cross-rank reduction, then the optimizer
   steps on the dense parameters and the dense-class tables (their
-  gradients are in ``.grad`` after the backward), then the gradients are
-  dropped. Returns ``(d_z, loss)`` for the sparse apply.
+  gradients are in ``.grad`` after the backward), the dense-class
+  tables' constraints (``con_fn``), then the gradients are dropped.
+  Returns ``(d_z, loss)`` for the sparse apply.
 
   At world > 1 the replicated dense parameters' gradients are summed over
   the ranks (one ``all_reduce`` of them flattened together) and every
@@ -404,6 +482,8 @@ def _reduce_and_apply_dense(state: Dict[str, Any], d_z, loss, mesh=None):
     if opt is not None:
       opt.step()
       opt.zero_grad(set_to_none=True)
+  if con_fn is not None and state["emb_dense"]:
+    con_fn(state["emb_dense"], 0 if mesh is None else mesh.rank)
   return d_z, loss
 
 
@@ -485,7 +565,7 @@ def make_sparse_train_step(model: torch.nn.Module,
     ``state`` is updated in place and ``loss`` is the mean over the ranks.
   """
   _refuse_unported(plan, mesh, micro_batches, guard)
-  rule = _fused_rule_and_penalties(plan, rule)
+  rule, reg_fn, con_fn = _fused_rule_and_penalties(plan, rule)
   engine = DistributedLookup(plan, mesh=mesh)
   layouts = engine.fused_layouts(rule)
   # exact=True re-gathers rows at apply time; a weight decay without aux
@@ -510,9 +590,16 @@ def make_sparse_train_step(model: torch.nn.Module,
     logits = functional_call(model, state["dense"], (numerical, cats),
                              {"emb_acts": acts})
     loss = loss_fn(logits, labels)
+    if reg_fn is not None:
+      # the rank's own windows, scaled by the world to survive the
+      # uniform 1 / world gradient scale, as in the JAX step
+      world = 1 if mesh is None else mesh.world
+      loss = loss + world * reg_fn(state["emb_dense"],
+                                   0 if mesh is None else mesh.rank)
     loss.backward()
     d_z = {bk: _grad_of(z) for bk, z in z_leaves.items()}
-    d_z, loss = _reduce_and_apply_dense(state, d_z, loss.detach(), mesh)
+    d_z, loss = _reduce_and_apply_dense(state, d_z, loss.detach(), mesh,
+                                        con_fn)
     with torch.no_grad():
       engine.apply_sparse(state["fused"], layouts, d_z, residuals, rule,
                           state["step"], exact=exact)
@@ -584,3 +671,135 @@ def shard_batch(batch, mesh=None, device="cuda"):
     return x.to(dev)
 
   return put(batch)
+
+
+# ---------------------------------------------------------------------------
+# The dense-autodiff path
+# ---------------------------------------------------------------------------
+
+
+def _refuse_dense_step(plan: Optional[DistEmbeddingStrategy], mesh) -> None:
+  """The JAX ``make_train_step``'s refusals, and the step over a mesh
+  that is not ported yet (a world > 1 plan's lookup raises at its first
+  forward)."""
+  if mesh is not None:
+    raise NotImplementedError(
+        "make_train_step at world > 1 (DistributedOptimizer, "
+        "finalize_hybrid_grads, the lookup over the wire's autograd "
+        "Functions) is not ported yet: ROADMAP.md open items, queue C; "
+        "train world > 1 plans with make_sparse_train_step")
+  if plan is None:
+    return
+  oov = getattr(plan, "oov", "clip")
+  if oov == "error":
+    raise NotImplementedError(
+        "plan.oov='error' is only enforced by the guarded sparse step "
+        "(make_sparse_train_step(guard=True)); this dense-autodiff builder "
+        "has no OOV metrics, so out-of-range ids would be silently "
+        "clipped, the policy's failure mode. Use oov='clip'.")
+  if oov == "allocate":
+    raise NotImplementedError(
+        "plan.oov='allocate' (dynamic vocabulary) rides the fused sparse "
+        "path: the translator allocates into the packed class buffers and "
+        "re-zeroes recycled rows' optimizer lanes, which this "
+        "dense-autodiff builder does not hold. Use a static oov policy.")
+  if getattr(plan, "dedup_capacity", None) is not None:
+    raise NotImplementedError(
+        "plan.dedup_capacity caps the deduplicated exchange below its safe "
+        "bound, which is only legal beside the overflow counter that makes "
+        "aliasing observable; this dense-autodiff builder has no metrics "
+        "path. Use the guarded sparse step or drop the capacity override.")
+
+
+def _check_on(model: torch.nn.Module, dev: torch.device) -> None:
+  if dev.type == "cuda" and dev.index is None:
+    dev = torch.device("cuda", torch.cuda.current_device())
+  for name, p in model.named_parameters():
+    if p.device != dev:
+      raise ValueError(f"parameter {name} lies on {p.device}, the step runs "
+                       f"on {dev}: move the model first (shard_params)")
+
+
+def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module, mesh=None,
+                    plan: Optional[DistEmbeddingStrategy] = None,
+                    emb_collection: str = "embeddings", device="cuda"):
+  """The dense-autodiff train step (the JAX ``make_train_step`` at
+  ``mesh=None``).
+
+  Args:
+    loss_fn: ``loss_fn(model, numerical, cats, labels) -> scalar`` (batch
+      mean), running the model's forward through its embedding layer.
+    optimizer: a ``torch.optim`` optimizer over the model's parameters,
+      the class buffers included (``torch.optim.SGD`` for ``optax.sgd``).
+    model: the model; its embedding layer is the submodule
+      ``emb_collection`` (a ``DistributedEmbedding``).
+    mesh: None (world 1; a mesh raises: not ported yet).
+    plan: when given, its tables' ``regularizer`` / ``constraint`` are
+      honored: the penalties over the class buffers join the loss, and the
+      constraints project the tables after the update. Its ``oov`` policy
+      must be ``'clip'`` and it may carry no ``dedup_capacity``, as in the
+      JAX builder.
+    device: where the model lies; ``"cuda"`` unless the caller asks for
+      the CPU.
+
+  Returns:
+    ``step(numerical, cats, labels) -> loss``: the model and the optimizer
+    are updated in place (the JAX step donates them); the loss includes
+    the penalties. The gradients are dense, and dropped after the update
+    (``zero_grad(set_to_none=True)``), so they hold memory only inside a
+    step."""
+  _refuse_dense_step(plan, mesh)
+  dev = resolve_device(device)
+  _check_on(model, dev)
+  reg_fn = plan_regularizer_fn(plan) if plan is not None else None
+  con_fn = plan_constraint_fn(plan) if plan is not None else None
+
+  def emb_params():
+    return dict(getattr(model, emb_collection).named_parameters())
+
+  def step(numerical, cats, labels):
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(model, numerical, cats, labels)
+    if reg_fn is not None:
+      loss = loss + reg_fn(emb_params(), 0)
+    loss.backward()
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    if con_fn is not None:
+      con_fn(emb_params(), 0)
+    return loss.detach()
+
+  return step
+
+
+def make_eval_step(pred_fn: Callable, model: torch.nn.Module, mesh=None):
+  """The distributed forward for evaluation on simple-layout params (the
+  JAX ``make_eval_step`` at ``mesh=None``): ``eval(*batch) ->
+  pred_fn(model, *batch)`` without autograd; it never writes the model."""
+  if mesh is not None:
+    raise NotImplementedError(
+        "make_eval_step at world > 1 is not ported yet: ROADMAP.md open "
+        "items, queue C (make_sparse_eval_step runs world > 1 plans)")
+
+  @torch.inference_mode()
+  def local_eval(*batch):
+    return pred_fn(model, *batch)
+
+  return local_eval
+
+
+def shard_params(params, mesh=None, device="cuda"):
+  """Place a model or a dict of parameters on the step's device (the JAX
+  ``shard_params`` at ``mesh=None``: one device, nothing to shard). A
+  module moves in place and is returned; a dict comes back as a new dict
+  on ``device``."""
+  if mesh is not None:
+    raise NotImplementedError(
+        "shard_params with a mesh (the hybrid partition of class buffers "
+        "and replicated dense parameters) is not ported yet: ROADMAP.md "
+        "open items, queue C")
+  dev = resolve_device(device)
+  if isinstance(params, torch.nn.Module):
+    return params.to(dev)
+  return {k: torch.as_tensor(v).to(dev) for k, v in params.items()}

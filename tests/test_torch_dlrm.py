@@ -50,7 +50,7 @@ def flax_params(seed=0):
 def torch_dlrm(params, compute_dtype):
   model = TorchDLRM(VOCAB, embedding_dim=D, bottom_mlp=BOTTOM, top_mlp=TOP,
                     num_numerical=NUM, compute_dtype=compute_dtype,
-                    device="cpu")
+                    tables=False, device="cpu")
   model.load_state_dict(dlrm_state_dict_from_flax(params))
   return model
 
@@ -86,7 +86,7 @@ def test_state_dict_mapping_is_complete():
   params = flax_params()
   sd = dlrm_state_dict_from_flax(params)
   model = TorchDLRM(VOCAB, embedding_dim=D, bottom_mlp=BOTTOM, top_mlp=TOP,
-                    num_numerical=NUM, device="cpu")
+                    num_numerical=NUM, tables=False, device="cpu")
   assert set(sd) == set(model.state_dict())
   np.testing.assert_array_equal(
       sd["bottom_mlp.layers.0.weight"].numpy(),
@@ -94,9 +94,11 @@ def test_state_dict_mapping_is_complete():
 
 
 def test_forward_needs_emb_acts():
+  """A model built without its tables takes its activations through
+  ``emb_acts`` only."""
   model = TorchDLRM(VOCAB, embedding_dim=D, bottom_mlp=BOTTOM, top_mlp=TOP,
-                    num_numerical=NUM, device="cpu")
-  with pytest.raises(NotImplementedError, match="emb_acts"):
+                    num_numerical=NUM, tables=False, device="cpu")
+  with pytest.raises(ValueError, match="emb_acts"):
     model(torch.zeros((2, NUM)), [torch.zeros(2, dtype=torch.long)] * 6)
 
 

@@ -22,6 +22,15 @@ Its refusals mirror the Pallas kernel's
 (``tests/test_pallas_goldens.py:test_exchange_kernel_rejects_unserved_layouts``).
 The CUDA kernel computes the same function; ``chip_smoke.py`` holds it
 bit-equal to the plain version on the card.
+
+K5 (``gather_send_rows``, one gather-and-push round of the fused wire) is
+held the same way: its wrapper's plain version, on CPU tensors, against
+the JAX kernel body's loopback twin ``gather_send_rows_sim`` (Pallas
+interpret mode, the remote copy modeled as a local one) over the golden
+streams ``exchange_vectors(CASE_NAMES[:4])``, bit-exact, into a
+preallocated receive buffer; and its refusals. The peer push runs on the
+card only (``chip_smoke.py``: loopback on one card, rotate-by-k rounds
+across four).
 """
 
 import jax.numpy as jnp
@@ -34,6 +43,7 @@ from distributed_embeddings_torch.ops import packed_table as tpt
 from distributed_embeddings_tpu.ops import packed_table as jpt
 from distributed_embeddings_tpu.ops.pallas_exchange_sim import (
     gather_rows_sim,
+    gather_send_rows_sim,
 )
 from pallas_goldens import CASE_NAMES, exchange_vectors
 
@@ -177,3 +187,40 @@ def test_fused_gather_routes_plain_rows_to_k4(monkeypatch, width, to_k4):
   assert calls == ([torch.int32] if to_k4 else [])
   np.testing.assert_array_equal(got.numpy(),
                                 tpt.gather_fused(layout, buf, ids).numpy())
+
+
+@pytest.mark.parametrize("name", CASE_NAMES[:4])
+def test_gather_send_rows_matches_loopback_twin(name):
+  buf, ids, chunk = exchange_vectors(name)
+  want = np.asarray(gather_send_rows_sim(jnp.asarray(buf), jnp.asarray(ids),
+                                         chunk=chunk))
+  dst = torch.full((len(ids), buf.shape[1]), float("nan"))
+  before = cuda_exchange.send_launches
+  got = cuda_exchange.gather_send_rows(torch.tensor(buf),
+                                       torch.tensor(ids.astype(np.int32)), dst)
+  assert cuda_exchange.send_launches == before  # CPU tensors: plain version
+  assert got is dst
+  np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+  # the plain version itself, and its own receive buffer
+  np.testing.assert_array_equal(
+      cuda_exchange.gather_send_rows_plain(
+          torch.tensor(buf), torch.tensor(ids.astype(np.int32))).numpy(),
+      want)
+
+
+def test_gather_send_rows_refuses_what_the_kernel_does_not_take():
+  buf = torch.zeros((8, 128))
+  ids = torch.zeros((4,), dtype=torch.int32)
+  with pytest.raises(ValueError, match="128"):
+    cuda_exchange.gather_send_rows(torch.zeros((8, 256)), ids)
+  with pytest.raises(ValueError, match="float32"):
+    cuda_exchange.gather_send_rows(buf.to(torch.bfloat16), ids)
+  with pytest.raises(TypeError, match="int32"):
+    cuda_exchange.gather_send_rows(buf, ids.long())
+  with pytest.raises(ValueError, match="receive buffer"):
+    cuda_exchange.gather_send_rows(buf, ids, torch.zeros((5, 128)))
+  with pytest.raises(ValueError, match="CPU receive buffer"):
+    cuda_exchange.gather_send_rows(buf, ids,
+                                   torch.zeros((4, 128), device="meta"))
+  with pytest.raises(ValueError, match="no gather-and-push kernel"):
+    cuda_exchange.gather_send_rows(buf.to("meta"), ids.to("meta"))

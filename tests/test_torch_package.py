@@ -8,7 +8,9 @@
 - no ``.py`` file of it, nor ``chip_smoke.py``, names one of those in an
   import statement;
 - its entry points default to ``device="cuda"``: without a GPU they raise
-  instead of quietly running on the CPU;
+  instead of quietly running on the CPU (slice 5's too: ``DLRM`` with its
+  tables, ``DistributedEmbedding``, ``Embedding``, ``make_train_step``,
+  ``shard_params``);
 - ``convert.split_rank_state`` cuts a rank's view out of a JAX world-N
   train state and ``join_rank_states`` reverses it.
 """
@@ -28,6 +30,13 @@ from distributed_embeddings_torch.convert import (
     join_rank_states,
     split_rank_state,
 )
+from distributed_embeddings_torch.layers.dist_model_parallel import (
+    DistributedEmbedding,
+)
+from distributed_embeddings_torch.layers.embedding import (
+    Embedding,
+    TableConfig,
+)
 from distributed_embeddings_torch.models import DLRM, dlrm_embedding_plan
 from distributed_embeddings_torch.ops.packed_table import (
     PackedLayout,
@@ -41,6 +50,10 @@ from distributed_embeddings_torch.parallel.lookup_engine import (
 from distributed_embeddings_torch.serving import ServeEngine, freeze
 from distributed_embeddings_torch.serving.engine import shard_batch
 from distributed_embeddings_torch.serving.export import serve_class_meta
+from distributed_embeddings_torch.training import (
+    make_train_step,
+    shard_params,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "distributed_embeddings_torch"
@@ -70,9 +83,12 @@ def test_port_imports_with_jax_blocked():
   names = set(r.stdout.split())
   assert len(names) >= 15  # every module was imported
   # slice 3's modules among them: the process group, the wire, K4; slice
-  # 4's: K6, K7 and the synthetic zoo
+  # 4's: K6, K7 and the synthetic zoo; slice 5's: the op and layer surface
+  # of the dense-autodiff path
   for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange",
-              "ops.cuda_delta", "ops.cuda_layout", "models.synthetic"):
+              "ops.cuda_delta", "ops.cuda_layout", "models.synthetic",
+              "ops.ragged", "ops.embedding_lookup",
+              "layers.dist_model_parallel", "layers.embedding"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -109,7 +125,7 @@ def test_entry_points_default_to_cuda():
     shard_batch((np.zeros((2, 2), np.float32),))
   plan = dlrm_embedding_plan(vocab, 8, dense_row_threshold=16)
   model = DLRM(vocab, embedding_dim=8, bottom_mlp=(8,), top_mlp=(4, 1),
-               num_numerical=2, device="cpu")
+               num_numerical=2, tables=False, device="cpu")
   rule = sgd_rule(0.1)
   _, layouts = serve_class_meta(plan, rule, "f32")
   dense_key = [k for k in plan.class_keys
@@ -124,6 +140,26 @@ def test_entry_points_default_to_cuda():
   with pytest.raises(RuntimeError, match="CUDA is not available"):
     ServeEngine(model, plan, frozen)
   ServeEngine(model, plan, frozen, device="cpu")  # asked for: runs
+  # slice 5's entry points: the layers, the dense-autodiff step
+  tables = [TableConfig(input_dim=v, output_dim=8) for v in vocab]
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    DistributedEmbedding(tables)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    Embedding(5, 8)
+  dlrm = DLRM(vocab, embedding_dim=8, bottom_mlp=(8,), top_mlp=(4, 1),
+              num_numerical=2, dense_row_threshold=16, device="cpu")
+  opt = torch.optim.SGD(dlrm.parameters(), lr=0.1)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    make_train_step(lambda m, *b: m(*b[:2]).sum(), opt, dlrm)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    shard_params(dlrm)
+  step = make_train_step(lambda m, n, c, y: m(n, c).sum(), opt, dlrm,
+                         device="cpu")  # asked for: runs
+  loss = step(torch.zeros((2, 2)), [torch.zeros(2, dtype=torch.long)] * 2,
+              torch.zeros(2))
+  assert torch.isfinite(loss)
+  assert DistributedEmbedding(tables, device="cpu").class_params()
+  assert Embedding(5, 8, device="cpu").embeddings.device.type == "cpu"
 
 
 def test_rank_views_split_and_join():

@@ -136,7 +136,7 @@ def _setup(case):
   state = init_sparse_state_direct(jplan, jrule, _jax_dense_params(d),
                                    optax.sgd(LR), jax.random.PRNGKey(1))
   tmodel = TDLRM(VOCAB, d, bottom_mlp=(32, d), top_mlp=(32, 16, 1),
-                 num_numerical=NUM, device="cpu")
+                 num_numerical=NUM, tables=False, device="cpu")
   return (d, exact, hot, jplan, tplan, jrule, trule, state, tmodel)
 
 
@@ -297,6 +297,7 @@ def test_init_direct_draws_the_packed_layout():
   rule = tpt.adagrad_rule(LR)
   dense = {k: v for k, v in TDLRM(VOCAB, 16, bottom_mlp=(32, 16),
                                   top_mlp=(32, 16, 1), num_numerical=NUM,
+                                  tables=False,
                                   device="cpu").state_dict().items()}
   state = ttr.init_sparse_state_direct(
       tplan, rule, dense, functools.partial(torch.optim.SGD, lr=LR),
@@ -314,7 +315,7 @@ def test_unported_options_raise():
   tplan = TStrategy(_configs(TTableConfig, 16, {5: 3}, False, 64), 1,
                     dense_row_threshold=64)
   model = TDLRM(VOCAB, 16, bottom_mlp=(32, 16), top_mlp=(32, 16, 1),
-                num_numerical=NUM, device="cpu")
+                num_numerical=NUM, tables=False, device="cpu")
   sgd = functools.partial(torch.optim.SGD, lr=LR)
   args = (model, tplan, torch_bce, sgd, tpt.sgd_rule(LR))
   # a plan runs on a mesh of its own world size (world > 1 plans:

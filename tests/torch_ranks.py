@@ -174,7 +174,7 @@ def train_job(mesh, spec):
     plan = _train_plan(spec, overlap, chunks)
     model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
                  top_mlp=spec["top"], num_numerical=spec["num"],
-                 device="cpu")
+                 tables=False, device="cpu")
     rule = getattr(tpt, f"{spec['rule']}_rule")(spec["lr"])
     sgd = functools.partial(torch.optim.SGD, lr=spec["lr"])
     state = train_state_from_flax(spec["state"], mesh=mesh)
@@ -209,7 +209,7 @@ def train_job(mesh, spec):
     tables = {k: torch.tensor(v) for k, v in spec["tables"].items()}
     model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
                  top_mlp=spec["top"], num_numerical=spec["num"],
-                 device="cpu")
+                 tables=False, device="cpu")
     state = ttr.init_sparse_state(
         plan, {"embeddings": tables, **model.state_dict()}, rule,
         functools.partial(torch.optim.SGD, lr=spec["lr"]), mesh=mesh)
