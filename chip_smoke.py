@@ -13,7 +13,9 @@ under ``overlap='fused'``. One JSON line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
    must have compute capability (9, 0);
-2. ``build``: every kernel compiled with ``nvcc`` for ``sm_90a``;
+2. ``build``: every kernel compiled with ``nvcc`` for ``sm_90a``; a
+   row per kernel with each entry function's registers, static shared
+   memory and spills from ``ptxas -v``;
 3. ``kernel``: each kernel against its plain PyTorch version at the
    main paths' shapes. K2-fwd (``interact_fwd``) and K2-bwd
    (``interact_bwd``) at F=27, D=128, k in {-1, 0}, B in {4096, 65536,
@@ -33,8 +35,12 @@ under ``overlap='fused'``. One JSON line per phase:
    samples with 32-lane state rows, and 65,536 ten-hot samples with
    window-masked 128-lane state rows; then momentum, Adam and a width-8
    class on 4,096-sample streams: within rtol 1e-6, atol 2e-7. K7
-   (``row_major``) on a transposed and a sliced [12, 65536, 16] f32
-   cotangent and a transposed bf16 one: bit-equal. K3-fwd
+   (``row_major``) on views of the [12, 65536, 16] cotangent, each
+   bit-equal and timed, with the path the wrapper chose: transposed (f32
+   and bf16) and sliced (vector path), last two dimensions transposed
+   (f32 and bf16; tile path), an innermost stride-0 broadcast (general
+   path). K2-bwd and K3-bwd also at the edge shapes F in {1, 2, 13,
+   32} x D in {8, 16, 64, 256}, B=1000, both k, in their class. K3-fwd
    (``interact_flat_fwd``) and K3-bwd (``interact_flat_bwd``), the flat
    ``[B, F, D]`` forms no path launches, at F=27, D=128, k in {-1, 0},
    B in {4096, 65536}, in K2's tolerance classes. K5
@@ -143,6 +149,7 @@ over NCCL at the full vocabulary, one rank per card.
 import functools
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -161,6 +168,11 @@ TRAIN_LR = 0.1
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 # the dense-autodiff step's timed steps (phase 8, train_dense)
 DENSE_TIMED = 5
+# the interaction backward's edge shapes (K2-bwd and K3-bwd, B=1000):
+# one and few features, F=32, narrow and wide rows
+BWD_EDGE_F = (1, 2, 13, 32)
+BWD_EDGE_D = (8, 16, 64, 256)
+BWD_EDGE_B = 1000
 # K3 at the batches of the serve request and the train step
 K3_BATCHES = (4096, 65536)
 ROWS_SAMPLED = 4096
@@ -388,6 +400,55 @@ def phase_kernel_fwd(torch, ci, flush) -> dict:
   return main
 
 
+def bwd_check(torch, ci, name, got, want, d_acts, feats, k) -> tuple:
+  """K2-bwd's and K3-bwd's tolerance class: at least 99.9% of the cells
+  bit-equal, every cell within one bf16 ulp or, where its F terms cancel,
+  within the f32 summation bound ``F * 2^-24 * sum_q |c_pq x_q|``.
+  ``feats``: the ``[B, F, D]`` inputs. Returns (cells that differ, the
+  largest share of its allowance a cell takes)."""
+  b, f, d = feats.shape
+  coef = ci.pair_coefficients(d_acts, f, k)
+  abs_sum = torch.bmm(coef.abs(), feats.float().abs())
+  differ, worst = within_one_bf16_ulp(torch, got, want,
+                                      slack=f * 2.0**-24 * abs_sum)
+  check(differ <= 0.001 * got.numel() and worst <= 1.0,
+        f"{name} B={b} F={f} D={d} k={k}: {differ} of {got.numel()} cells "
+        f"differ, worst by {worst} of its allowance")
+  return differ, worst
+
+
+def bwd_edges(torch, ci, name: str) -> None:
+  """K2-bwd (``interact_bwd``) or K3-bwd (``interact_flat_bwd``) at the
+  edge shapes, B=1000, k in {-1, 0}, in the tolerance class of
+  :func:`bwd_check`; checked, not timed."""
+  cases = []
+  for f in BWD_EDGE_F:
+    for d in BWD_EDGE_D:
+      for k in (-1, 0):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 97 * f + d - k)
+        feats = (torch.randn((BWD_EDGE_B, f, d), generator=gen,
+                             device="cuda") * 0.3).to(torch.bfloat16)
+        npair = len(ci.tril_pairs(f, k)[0])
+        d_acts = torch.randn((BWD_EDGE_B, npair), generator=gen,
+                             device="cuda")
+        if name == "interact_flat_bwd":
+          got = ci.interact_flat_bwd(d_acts, feats, k).float()
+          torch.cuda.synchronize()
+          want = ci.interact_flat_bwd_plain(d_acts, feats, k).float()
+        else:
+          parts = [feats[:, p].contiguous() for p in range(f)]
+          got = torch.stack(ci.interact_parts_bwd(d_acts, parts, k), 1).float()
+          torch.cuda.synchronize()
+          want = torch.stack(ci.interact_parts_bwd_plain(d_acts, parts, k),
+                             1).float()
+        check(tuple(got.shape) == (BWD_EDGE_B, f, d),
+              f"{name} F={f} D={d}: shape {tuple(got.shape)}")
+        cases.append([f, d, k, *bwd_check(torch, ci, name, got, want,
+                                          d_acts, feats, k)])
+  emit({"phase": "kernel", "name": name, "stream": "edges",
+        "B": BWD_EDGE_B, "F_D_k_differ_allowance_share": cases})
+
+
 def phase_kernel_bwd(torch, ci, flush) -> dict:
   """K2-bwd against its plain version; returns the train-shape row."""
   main = None
@@ -401,17 +462,11 @@ def phase_kernel_bwd(torch, ci, flush) -> dict:
       torch.cuda.synchronize()
       want = torch.stack(ci.interact_parts_bwd_plain(d_acts, parts, k),
                          1).float()
-      coef = ci.pair_coefficients(d_acts, F, k)
       feats = torch.stack(parts, dim=1)
-      abs_sum = torch.bmm(coef.abs(), feats.float().abs())
-      differ, worst = within_one_bf16_ulp(torch, got, want,
-                                          slack=F * 2.0**-24 * abs_sum)
-      del abs_sum
       check(tuple(got.shape) == (b, F, D), f"shape {tuple(got.shape)}")
-      check(differ <= 0.001 * got.numel() and worst <= 1.0,
-            f"interact_bwd B={b} k={k}: {differ} of {got.numel()} cells "
-            f"differ, worst by {worst} of its allowance")
-      coef_bf16 = coef.to(torch.bfloat16)
+      differ, worst = bwd_check(torch, ci, "interact_bwd", got, want, d_acts,
+                                feats, k)
+      coef_bf16 = ci.pair_coefficients(d_acts, F, k).to(torch.bfloat16)
       timed = event_ms(torch, {
           "kernel_ms": lambda: ci.interact_parts_bwd(d_acts, parts, k),
           "plain_ms": lambda: ci.interact_parts_bwd_plain(d_acts, parts, k),
@@ -426,6 +481,7 @@ def phase_kernel_bwd(torch, ci, flush) -> dict:
       emit(row)
       if b == TRAIN_BATCH and k == -1:
         main = row
+  bwd_edges(torch, ci, "interact_bwd")
   return main
 
 
@@ -1220,16 +1276,10 @@ def phase_kernel_flat_bwd(torch, ci, flush) -> dict:
       got = ci.interact_flat_bwd(d_acts, feats, k).float()
       torch.cuda.synchronize()
       want = ci.interact_flat_bwd_plain(d_acts, feats, k).float()
-      coef = ci.pair_coefficients(d_acts, F, k)
-      abs_sum = torch.bmm(coef.abs(), feats.float().abs())
-      differ, worst = within_one_bf16_ulp(torch, got, want,
-                                          slack=F * 2.0**-24 * abs_sum)
-      del abs_sum
       check(tuple(got.shape) == (b, F, D), f"shape {tuple(got.shape)}")
-      check(differ <= 0.001 * got.numel() and worst <= 1.0,
-            f"interact_flat_bwd B={b} k={k}: {differ} of {got.numel()} "
-            f"cells differ, worst by {worst} of its allowance")
-      coef_bf16 = coef.to(torch.bfloat16)
+      differ, worst = bwd_check(torch, ci, "interact_flat_bwd", got, want,
+                                d_acts, feats, k)
+      coef_bf16 = ci.pair_coefficients(d_acts, F, k).to(torch.bfloat16)
       timed = event_ms(torch, {
           "kernel_ms": lambda: ci.interact_flat_bwd(d_acts, feats, k),
           "plain_ms": lambda: ci.interact_flat_bwd_plain(d_acts, feats, k),
@@ -1244,6 +1294,7 @@ def phase_kernel_flat_bwd(torch, ci, flush) -> dict:
       emit(row)
       if b == TRAIN_BATCH and k == -1:
         main = row
+  bwd_edges(torch, ci, "interact_flat_bwd")
   return main
 
 
@@ -1737,23 +1788,35 @@ def phase_kernel_apply_zoo(torch, ca, flush) -> None:
 
 
 def phase_kernel_layout(torch, cl, flush) -> dict:
-  """K7 against its plain version: bit-equal on a transposed and a sliced
-  f32 tensor of the shape of Tiny's largest one-hot cotangent ([12, 65536,
-  16]) and on a transposed bf16 one; returns the transposed f32 row."""
+  """K7 against its plain version, bit-equal, on views of the shape of
+  Tiny's largest one-hot cotangent ([12, 65536, 16]): transposed (f32 and
+  bf16) and sliced ones take the vector path, a transpose of the last two
+  dimensions (f32 and bf16) the tile path, a stride-0 broadcast of the
+  innermost dimension the general path. Every view is timed against
+  ``x.contiguous()``; returns the transposed f32 row."""
   gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
   n_b, g, w = 12, ZOO_BATCH, 16
+
+  def randn(*shape):
+    return torch.randn(shape, generator=gen, device="cuda")
+
+  # name -> (view, the path the wrapper must choose for it)
   views = {
-      "transposed": torch.randn((g, n_b, w), generator=gen,
-                                device="cuda").transpose(0, 1),
-      "sliced": torch.randn((n_b, g, 2 * w), generator=gen,
-                            device="cuda")[:, :, :w],
-      "transposed_bf16": torch.randn((g, n_b, w), generator=gen,
-                                     device="cuda").to(torch.bfloat16)
-                         .transpose(0, 1),
+      "transposed": (randn(g, n_b, w).transpose(0, 1), "vector"),
+      "sliced": (randn(n_b, g, 2 * w)[:, :, :w], "vector"),
+      "transposed_bf16": (randn(g, n_b, w).to(torch.bfloat16)
+                          .transpose(0, 1), "vector"),
+      "last_two": (randn(n_b, w, g).transpose(1, 2), "transpose"),
+      "last_two_bf16": (randn(n_b, w, g).to(torch.bfloat16).transpose(1, 2),
+                        "transpose"),
+      "broadcast": (randn(g, n_b, w)[:, :, :1].expand(-1, -1, w)
+                    .transpose(0, 1), "general"),
   }
   main = None
-  for name, x in views.items():
+  for name, (x, path) in views.items():
     check(not x.is_contiguous(), f"row_major {name}: input is contiguous")
+    check(cl.plan_of(x).path == path,
+          f"row_major {name}: path {cl.plan_of(x).path}, not {path}")
     got = cl.row_major(x)
     torch.cuda.synchronize()
     want = cl.row_major_plain(x)
@@ -1761,17 +1824,21 @@ def phase_kernel_layout(torch, cl, flush) -> dict:
     check(got.is_contiguous() and torch.equal(got.view(bits),
                                               want.view(bits)),
           f"row_major {name}: not bit-equal to the plain version")
+    # bytes: the output written once, each distinct source element read
+    # once (a broadcast reads 1/w of its output's elements)
+    reads = x.numel() // w if name == "broadcast" else x.numel()
     row = {"phase": "kernel", "name": "row_major", "stream": name,
-           "shape": list(x.shape), "strides": list(x.stride()),
-           "dtype": str(x.dtype), "bit_equal": True, "max_abs_err": 0.0}
-    if name == "transposed":
-      row.update(event_ms(torch, {
-          "kernel_ms": lambda: cl.row_major(x),
-          "plain_ms": lambda: cl.row_major_plain(x),
-          "library_ms": lambda: x.contiguous()}, flush))
-      row.update(bound(2 * x.numel() * x.element_size(), 0, F32_FLOPS))
-      main = row
+           "path": path, "shape": list(x.shape),
+           "strides": list(x.stride()), "dtype": str(x.dtype),
+           "bit_equal": True, "max_abs_err": 0.0,
+           **event_ms(torch, {
+               "kernel_ms": lambda: cl.row_major(x),
+               "plain_ms": lambda: cl.row_major_plain(x),
+               "library_ms": lambda: x.contiguous()}, flush),
+           **bound((x.numel() + reads) * x.element_size(), 0, F32_FLOPS)}
     emit(row)
+    if name == "transposed":
+      main = row
   del views
   torch.cuda.empty_cache()
   return main
@@ -2058,6 +2125,32 @@ def phase_train_zoo(torch, smi: str) -> dict:
   return {"train_zoo": totals, "train_zoo_pin": pin_counts}
 
 
+def ptxas_report(log: str) -> list:
+  """Each entry function of an ``nvcc -Xptxas -v`` log: its (mangled)
+  name, registers per thread, static shared memory and spill bytes
+  (dynamic shared memory is sized at launch and not in the log)."""
+  funcs = []
+  for ln in log.splitlines():
+    entry = re.search(r"Compiling entry function '([^']+)'", ln)
+    if entry:
+      funcs.append({"function": entry.group(1), "registers": None,
+                    "smem_bytes": 0, "spill_stores": None,
+                    "spill_loads": None})
+      continue
+    if not funcs:
+      continue
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+    if spill:
+      funcs[-1]["spill_stores"] = int(spill.group(1))
+      funcs[-1]["spill_loads"] = int(spill.group(2))
+    regs = re.search(r"Used (\d+) registers", ln)
+    if regs:
+      funcs[-1]["registers"] = int(regs.group(1))
+      smem = re.search(r"(\d+) bytes smem", ln)
+      funcs[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+  return funcs
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
           "replaces": REPLACES[name], "launches": launches,
@@ -2098,10 +2191,10 @@ def main() -> int:
   t0 = time.perf_counter()
   _build.build_all(_build.KERNELS)
   emit({"phase": "build", "kernels": list(_build.KERNELS),
-        "seconds": time.perf_counter() - t0,
-        "ptxas": [ln.strip() for name in _build.KERNELS
-                  for ln in _build.BUILD_LOG[name].splitlines()
-                  if "registers" in ln or "spill" in ln]})
+        "seconds": time.perf_counter() - t0})
+  for name in _build.KERNELS:
+    emit({"phase": "build", "kernel": name,
+          "ptxas": ptxas_report(_build.BUILD_LOG[name])})
 
   flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
   warm_up(torch)

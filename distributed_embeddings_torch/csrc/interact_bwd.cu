@@ -22,14 +22,15 @@
 
 // d_acts: [b, npair] f32, contiguous; part_ptrs / out_ptrs: host arrays of
 // f device pointers, each a contiguous, 16-byte aligned [b, d] bf16 buffer
-// (inputs, then the outputs the kernel writes). Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// (inputs, then the outputs the kernel writes); samples_per_unit and
+// d_tile: the kernel's unit (ops/cuda_interact.py: bwd_geometry).
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int interact_bwd_launch(const void* d_acts,
                                    const void* const* part_ptrs,
                                    void* const* out_ptrs, int f, int b, int d,
-                                   int k, int samples_per_block,
-                                   void* stream) {
-  if (!interact::args_ok(f, b, d, k, samples_per_block)) {
+                                   int k, int samples_per_unit,
+                                   int d_tile, void* stream) {
+  if (!interact::bwd_args_ok(f, b, d, k, samples_per_unit, d_tile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   interact::PartRows parts = {};
@@ -40,6 +41,6 @@ extern "C" int interact_bwd_launch(const void* d_acts,
     outs.p[i] = static_cast<__nv_bfloat16*>(out_ptrs[i]);
   }
   return interact::launch_bwd(parts, outs, static_cast<const float*>(d_acts),
-                              f, b, d, k, samples_per_block,
+                              f, b, d, k, samples_per_unit, d_tile,
                               static_cast<cudaStream_t>(stream));
 }

@@ -28,15 +28,17 @@
 // c_pp = 2 * da[pair(p, p)] when k = 0 and 0 when k = -1: the TPU kernels'
 // 2 * bf16(d_acts . M^T) @ F exactly (M's halves are exact in bf16 and 2 is
 // a power of two). Products of bf16 values are exact in f32, so only the
-// order of the f32 sums over q can differ from another implementation.
+// order of the f32 sums over q can differ from another implementation (the
+// backward's tensor-core sums, below, are not rounded at every add either).
 //
 // Bound on this card, per sample: the forward reads F*D*2 bytes and writes
 // P*4; the backward reads P*4 + F*D*2 and writes F*D*2. Their FLOPs are far
 // below the bf16 tensor-core rate, so both are memory-bound. Each feature
 // row is read from device memory once (16-byte loads into shared memory),
-// every pair product stays on chip, and each output is written once. These
-// first versions compute on the CUDA cores from shared memory; a wgmma/TMA
-// tiling of the F x F product is later work.
+// every pair product stays on chip, and each output is written once. The
+// forward computes on the CUDA cores from shared memory; the backward's
+// F x F product runs on the tensor cores with its loads overlapped (its
+// design is described above bwd_kernel).
 
 #pragma once
 
@@ -184,89 +186,6 @@ fwd_kernel(Rows in, int f, int b, int d, int k, int npair,
   }
 }
 
-template <typename Rows, typename Outs>
-__global__ void __launch_bounds__(kThreads)
-bwd_kernel(Rows in, Outs outs, const float* __restrict__ d_acts, int f, int b,
-           int d, int k, int npair, int samples_per_block) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row_elems = d + kRowPad;
-  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* coef = reinterpret_cast<float*>(
-      smem_raw + static_cast<size_t>(samples_per_block) * f * row_elems *
-                     sizeof(__nv_bfloat16));
-  unsigned char* pair_pq = reinterpret_cast<unsigned char*>(
-      coef + static_cast<size_t>(samples_per_block) * f * f);
-
-  const int s0 = blockIdx.x * samples_per_block;
-  const int ns = min(samples_per_block, b - s0);
-
-  fill_pair_table(pair_pq, f, k);
-  // without self-interaction no pair writes the diagonal
-  if (k == -1) {
-    for (int i = threadIdx.x; i < ns * f; i += blockDim.x) {
-      const int s = i / f;
-      const int p = i - s * f;
-      coef[(static_cast<size_t>(s) * f + p) * f + p] = 0.f;
-    }
-  }
-  stage_rows(in, rows, f, d, s0, ns);
-  __syncthreads();
-
-  // symmetric coefficients from the bf16-rounded cotangent; the tile's
-  // [ns, npair] cotangent block is contiguous, read coalesced
-  for (int it = threadIdx.x; it < ns * npair; it += blockDim.x) {
-    const int s = it / npair;
-    const int n = it - s * npair;
-    const int p = pair_pq[2 * n];
-    const int q = pair_pq[2 * n + 1];
-    const float c = __bfloat162float(__float2bfloat16_rn(
-        __ldg(d_acts + static_cast<size_t>(s0) * npair + it)));
-    float* cs = coef + static_cast<size_t>(s) * f * f;
-    if (p == q) {
-      cs[p * f + p] = 2.f * c;
-    } else {
-      cs[p * f + q] = c;
-      cs[q * f + p] = c;
-    }
-  }
-  __syncthreads();
-
-  // one (sample, feature, 8-lane group) per thread step: consecutive
-  // threads take consecutive 16-byte groups of one output row (coalesced
-  // stores)
-  const int vec_per_row = d / 8;
-  const int items = ns * f * vec_per_row;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int c8 = it % vec_per_row;
-    const int rest = it / vec_per_row;
-    const int p = rest % f;
-    const int s = rest / f;
-    const float* cp = coef + (static_cast<size_t>(s) * f + p) * f;
-    const __nv_bfloat16* xs = rows + static_cast<size_t>(s) * f * row_elems;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int q = 0; q < f; ++q) {
-      const float cq = cp[q];
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(xs + q * row_elems + c8 * 8);
-      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 fx = __bfloat1622float2(x2[j]);
-        acc[2 * j] = fmaf(cq, fx.x, acc[2 * j]);
-        acc[2 * j + 1] = fmaf(cq, fx.y, acc[2 * j + 1]);
-      }
-    }
-    uint4 o;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      o2[j] = __floats2bfloat162_rn(acc[2 * j], acc[2 * j + 1]);
-    }
-    *reinterpret_cast<uint4*>(outs.row(p, static_cast<size_t>(s0 + s)) +
-                              c8 * 8) = o;
-  }
-}
-
 // Launch the forward on `stream`; returns cudaGetLastError() (0 on success).
 template <typename Rows>
 int launch_fwd(const Rows& in, int f, int b, int d, int k,
@@ -292,31 +211,455 @@ int launch_fwd(const Rows& in, int f, int b, int d, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the backward on `stream`; returns cudaGetLastError() (0 on
-// success).
+// ---------------------------------------------------------------------------
+// The backward on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Per sample, d_x = C @ X: C the F x F coefficients, X the F x D rows. The
+// product is mma.sync.m16n8k16 (bf16 in, f32 sums): C is built in shared
+// memory as bf16, zero-padded to 16 or 32 square (exact: every c_pq is a
+// bf16 value or twice one), X is staged with its rows padded to the same
+// 16 or 32 by zero rows (never stale memory: 0 * NaN is NaN). A fragments
+// come from C by ldmatrix, B fragments from X by ldmatrix.trans.
+//
+// Geometry (ops/cuda_interact.py: bwd_geometry): a unit is `ns` samples x
+// one tile of `dt` columns (D > dt loops over column tiles). A persistent
+// grid of (blocks per SM) x SMs walks the units; each block double-buffers
+// its stage: while it computes one unit, the next unit's rows and its
+// [ns, P] cotangent block are in flight as cp.async copies (16 bytes, and
+// 4 at the cotangent block's unaligned ends). A warp owns (sample, up to
+// four 8-column tiles) over every row of C, so it is the only reader of
+// those X columns and writes its bf16 results over them in place; then
+// the block writes each output row with coalesced 16-byte stores.
+
+struct BwdGeo {
+  int xr;    // staged rows per sample: the MMA's K, 16 or 32
+  int mt;    // 16-row M tiles: 1 or 2
+  int re;    // bf16 elements per staged row: dt + pad
+  int cc;    // bf16 elements per C row: xr + 8
+  int dt;    // columns per tile
+  int ndt;   // column tiles
+  int ns;    // samples per unit
+  size_t x_stage, a_stage, c_bytes, pair_bytes, smem;
+};
+
+constexpr int kBwdNChunk = 4;  // 8-column tiles per warp item
+constexpr size_t kSmemMax = 227 * 1024;
+
+inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+inline BwdGeo bwd_geo(int f, int d, int npair, int ns, int dt) {
+  BwdGeo g;
+  g.xr = f <= 16 ? 16 : 32;
+  g.mt = g.xr / 16;
+  // a row stride of an odd number of 16-byte units: the eight rows of an
+  // ldmatrix hit eight different bank quads
+  g.re = dt + (((dt / 8) % 2 == 0) ? 8 : 16);
+  g.cc = g.xr + 8;
+  g.dt = dt;
+  g.ndt = (d + dt - 1) / dt;
+  g.ns = ns;
+  g.x_stage = static_cast<size_t>(ns) * g.xr * g.re * sizeof(__nv_bfloat16);
+  // the cotangent block lands at its source's offset mod 16 bytes
+  g.a_stage = round16((static_cast<size_t>(ns) * npair + 4) * sizeof(float));
+  g.c_bytes =
+      static_cast<size_t>(ns) * g.mt * 16 * g.cc * sizeof(__nv_bfloat16);
+  g.pair_bytes = round16(2 * static_cast<size_t>(npair));
+  g.smem = 2 * (g.x_stage + g.a_stage) + g.c_bytes + g.pair_bytes;
+  return g;
+}
+
+inline bool bwd_args_ok(int f, int b, int d, int k, int ns, int dt) {
+  return f >= 1 && f <= kMaxParts && b >= 0 && d > 0 && d % 8 == 0 &&
+         (k == 0 || k == -1) && ns >= 1 && dt >= 8 && dt % 8 == 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row) @ b (16 x 8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// one unit's position: samples [s0, s0 + nsa), columns [d0, d0 + dn)
+struct BwdUnit {
+  int s0, nsa, d0, dn;
+};
+
+__device__ __forceinline__ BwdUnit unit_of(int u, const BwdGeo& g, int b,
+                                           int d) {
+  const int grp = u / g.ndt;
+  BwdUnit t;
+  t.s0 = grp * g.ns;
+  t.nsa = min(g.ns, b - t.s0);
+  t.d0 = (u - grp * g.ndt) * g.dt;
+  t.dn = min(g.dt, d - t.d0);
+  return t;
+}
+
+// where a unit's cotangent block starts in its stage (its source's phase)
+__device__ __forceinline__ int phase_of(const float* src) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+}
+
+// The rows of a unit as a thread walks them: index i = (s * f + p) * vpr
+// + c (sample, feature, 16-byte vector), stepped by the block's size. The
+// start and the step's digits are divided out once per kernel, so a step
+// costs a few adds where a division costs some twenty instructions.
+struct RowWalk {
+  int c, p, s;     // the thread's current position
+  int dc, dp, ds;  // the step, in the same digits
+  int vpr, f;
+  __device__ RowWalk(int i, int step, int vpr_, int f_) : vpr(vpr_), f(f_) {
+    c = i % vpr;
+    const int r = i / vpr;
+    p = r % f;
+    s = r / f;
+    dc = step % vpr;
+    const int dr = step / vpr;
+    dp = dr % f;
+    ds = dr / f;
+  }
+  __device__ __forceinline__ void next() {
+    c += dc;
+    int carry = 0;
+    if (c >= vpr) {
+      c -= vpr;
+      carry = 1;
+    }
+    p += dp + carry;
+    s += ds;
+    if (p >= f) {
+      p -= f;
+      s += 1;
+    }
+  }
+};
+
+// the same for (sample, pair) of the cotangent block: i = s * npair + n
+struct PairWalk {
+  int n, s, dn, ds, npair;
+  __device__ PairWalk(int i, int step, int npair_) : npair(npair_) {
+    n = i % npair;
+    s = i / npair;
+    dn = step % npair;
+    ds = step / npair;
+  }
+  __device__ __forceinline__ void next() {
+    n += dn;
+    s += ds;
+    if (n >= npair) {
+      n -= npair;
+      s += 1;
+    }
+  }
+};
+
+// start the copies of unit `t`'s rows and cotangent block into a stage
+template <typename Rows>
+__device__ __forceinline__ void issue_unit(const Rows& in,
+                                           const float* d_acts,
+                                           const BwdUnit& t, const BwdGeo& g,
+                                           int f, int npair, RowWalk w,
+                                           __nv_bfloat16* xs, float* as) {
+  const int total = t.nsa * f * (t.dn / 8);
+  for (int i = threadIdx.x; i < total; i += blockDim.x, w.next()) {
+    cp_async16(xs + (w.s * g.xr + w.p) * g.re + w.c * 8,
+               in.row(w.p, static_cast<size_t>(t.s0 + w.s)) + t.d0 + w.c * 8);
+  }
+  const float* src = d_acts + static_cast<size_t>(t.s0) * npair;
+  float* dst = as + phase_of(src);
+  const int n = t.nsa * npair;
+  const int head = min(n, (4 - phase_of(src)) & 3);
+  const int nvec = (n - head) / 4;
+  const int tail = head + 4 * nvec;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) {
+    cp_async4(dst + i, src + i);
+  }
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    cp_async16(dst + head + 4 * i, src + head + 4 * i);
+  }
+  for (int i = tail + threadIdx.x; i < n; i += blockDim.x) {
+    cp_async4(dst + i, src + i);
+  }
+}
+
+template <typename Rows, typename Outs>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_kernel(Rows in, Outs outs, const float* __restrict__ d_acts, int f, int b,
+           int d, int k, int npair, BwdGeo g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int n_units = ((b + g.ns - 1) / g.ns) * g.ndt;
+
+  if (npair == 0) {
+    // F = 1 without self-interaction: no pair, a zero cotangent
+    const int vpr = d / 8;
+    const size_t total = static_cast<size_t>(f) * b * vpr;
+    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+         i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+      const int c = static_cast<int>(i % vpr);
+      const size_t r = i / vpr;
+      *reinterpret_cast<uint4*>(outs.row(static_cast<int>(r % f), r / f) +
+                                c * 8) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  // stage i's rows at smem_raw + i * x_stage, its cotangent block at
+  // a_base + i * a_stage (computed, not indexed: no local-memory array)
+  unsigned char* const a_base = smem_raw + 2 * g.x_stage;
+  auto xs = [&](int i) {
+    return reinterpret_cast<__nv_bfloat16*>(smem_raw + i * g.x_stage);
+  };
+  auto as = [&](int i) {
+    return reinterpret_cast<float*>(a_base + i * g.a_stage);
+  };
+  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + 2 * (g.x_stage + g.a_stage));
+  unsigned char* pair_pq = smem_raw + 2 * (g.x_stage + g.a_stage) + g.c_bytes;
+
+  fill_pair_table(pair_pq, f, k);
+  // the pad rows of X and the pad cells (and a k = -1 diagonal) of C are
+  // zero for the whole run: loads write rows < f, builds pair cells only
+  {
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    uint4* xz = reinterpret_cast<uint4*>(smem_raw);
+    for (size_t i = threadIdx.x; i < 2 * g.x_stage / 16; i += blockDim.x) {
+      xz[i] = z;
+    }
+    uint4* cz = reinterpret_cast<uint4*>(cs);
+    for (size_t i = threadIdx.x; i < g.c_bytes / 16; i += blockDim.x) {
+      cz[i] = z;
+    }
+  }
+  __syncthreads();
+
+  // the walks' starts: full-width tiles, and a narrower last one
+  const RowWalk walk_full(threadIdx.x, kThreads, g.dt / 8, f);
+  const int last_dn = d - (g.ndt - 1) * g.dt;
+  const RowWalk walk_last(threadIdx.x, kThreads, last_dn / 8, f);
+  const PairWalk walk_pairs(threadIdx.x, kThreads, npair);
+
+  int u = blockIdx.x;
+  if (u < n_units) {
+    const BwdUnit t0 = unit_of(u, g, b, d);
+    issue_unit(in, d_acts, t0, g, f, npair,
+               t0.dn == g.dt ? walk_full : walk_last, xs(0), as(0));
+  }
+  cp_async_commit();
+  const int ksteps = g.xr / 16;
+  const int rows_c = g.mt * 16;
+  for (int it = 0; u < n_units; u += gridDim.x, ++it) {
+    const int cur = it & 1;
+    const BwdUnit t = unit_of(u, g, b, d);
+    cp_async_wait_all();
+    __syncthreads();  // this unit's stage is in; the other one is free
+    if (u + static_cast<int>(gridDim.x) < n_units) {
+      const BwdUnit tn = unit_of(u + gridDim.x, g, b, d);
+      issue_unit(in, d_acts, tn, g, f, npair,
+                 tn.dn == g.dt ? walk_full : walk_last, xs(cur ^ 1),
+                 as(cur ^ 1));
+    }
+    cp_async_commit();
+
+    // the pair cells of C from the bf16-rounded cotangent
+    const float* da =
+        as(cur) + phase_of(d_acts + static_cast<size_t>(t.s0) * npair);
+    PairWalk pw = walk_pairs;
+    for (int i = threadIdx.x; i < t.nsa * npair; i += blockDim.x, pw.next()) {
+      const int p = pair_pq[2 * pw.n];
+      const int q = pair_pq[2 * pw.n + 1];
+      const __nv_bfloat16 c = __float2bfloat16_rn(da[i]);
+      __nv_bfloat16* cm = cs + pw.s * rows_c * g.cc;
+      if (p == q) {
+        cm[p * g.cc + p] = __float2bfloat16_rn(2.f * __bfloat162float(c));
+      } else {
+        cm[p * g.cc + q] = c;
+        cm[q * g.cc + p] = c;
+      }
+    }
+    __syncthreads();
+
+    // items: (sample, chunk of up to four 8-column tiles), one per warp
+    const int ntiles = t.dn / 8;
+    const int nchunk = (ntiles + kBwdNChunk - 1) / kBwdNChunk;
+    for (int item = warp; item < t.nsa * nchunk; item += kThreads / 32) {
+      const int s = item / nchunk;
+      const int nt0 = (item - s * nchunk) * kBwdNChunk;
+      const int cnt = min(kBwdNChunk, ntiles - nt0);
+      __nv_bfloat16* xm = xs(cur) + s * g.xr * g.re;
+      const __nv_bfloat16* cm = cs + s * rows_c * g.cc;
+      unsigned a[2][2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          if (m < g.mt && ks < ksteps) {
+            ldmatrix_x4(a[m][ks], cm + (m * 16 + (lane & 15)) * g.cc +
+                                      ks * 16 + (lane >> 4) * 8);
+          }
+        }
+      }
+      float acc[2][kBwdNChunk][4] = {};
+#pragma unroll
+      for (int j = 0; j < kBwdNChunk; ++j) {
+        if (j < cnt) {
+          const int n0 = (nt0 + j) * 8;
+          unsigned bf[4];
+          if (ksteps == 2) {
+            ldmatrix_x4_trans(bf, xm + lane * g.re + n0);
+          } else {
+            ldmatrix_x2_trans(bf, xm + (lane & 15) * g.re + n0);
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              if (m < g.mt && ks < ksteps) {
+                mma_bf16(acc[m][j], a[m][ks], bf[2 * ks], bf[2 * ks + 1]);
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+      // in place over the columns this warp alone has read
+      const int gr = lane >> 2;
+      const int col = 2 * (lane & 3);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int j = 0; j < kBwdNChunk; ++j) {
+          if (m < g.mt && j < cnt) {
+            const int p0 = m * 16 + gr;
+            __nv_bfloat16* o = xm + (nt0 + j) * 8 + col;
+            if (p0 < f) {
+              *reinterpret_cast<__nv_bfloat162*>(o + p0 * g.re) =
+                  __floats2bfloat162_rn(acc[m][j][0], acc[m][j][1]);
+            }
+            if (p0 + 8 < f) {
+              *reinterpret_cast<__nv_bfloat162*>(o + (p0 + 8) * g.re) =
+                  __floats2bfloat162_rn(acc[m][j][2], acc[m][j][3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // rows < f out, 16 bytes per thread, consecutive threads along a row
+    RowWalk w = t.dn == g.dt ? walk_full : walk_last;
+    for (int i = threadIdx.x; i < t.nsa * f * (t.dn / 8);
+         i += blockDim.x, w.next()) {
+      *reinterpret_cast<uint4*>(
+          outs.row(w.p, static_cast<size_t>(t.s0 + w.s)) + t.d0 + w.c * 8) =
+          *reinterpret_cast<const uint4*>(xs(cur) + (w.s * g.xr + w.p) * g.re +
+                                          w.c * 8);
+    }
+  }
+  cp_async_wait_all();
+}
+
+// Launch the backward on `stream`: `ns` samples by `dt` columns a unit, a
+// persistent grid. Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue when a unit's stage exceeds a block's shared
+// memory.
 template <typename Rows, typename Outs>
 int launch_bwd(const Rows& in, const Outs& outs, const float* d_acts, int f,
-               int b, int d, int k, int samples_per_block,
-               cudaStream_t stream) {
+               int b, int d, int k, int ns, int dt, cudaStream_t stream) {
   const int npair = npair_of(f, k);
   if (b == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const size_t smem = static_cast<size_t>(samples_per_block) * f *
-                          ((d + kRowPad) * sizeof(__nv_bfloat16) +
-                           f * sizeof(float)) +
-                      2 * static_cast<size_t>(npair);
-  if (smem > 48 * 1024) {
+  const BwdGeo g = bwd_geo(f, d, npair, ns, dt);
+  if (g.smem > kSmemMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = bwd_kernel<Rows, Outs>;
+  if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bwd_kernel<Rows, Outs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(g.smem));
     if (e != cudaSuccess) {
       return static_cast<int>(e);
     }
   }
-  const int grid = (b + samples_per_block - 1) / samples_per_block;
-  bwd_kernel<Rows, Outs><<<grid, kThreads, smem, stream>>>(
-      in, outs, d_acts, f, b, d, k, npair, samples_per_block);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, g.smem);
+  }
+  if (e != cudaSuccess) {
+    return static_cast<int>(e);
+  }
+  const int64_t units = static_cast<int64_t>((b + ns - 1) / ns) * g.ndt;
+  const int64_t fill = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = static_cast<int>(units < fill ? units : fill);
+  kernel<<<grid, kThreads, g.smem, stream>>>(in, outs, d_acts, f, b, d, k,
+                                             npair, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,18 +24,19 @@
 
 // d_acts: [b, npair] f32, contiguous; feats and d_feats: [b, f, d] bf16,
 // contiguous and 16-byte aligned (input, then the output the kernel
-// writes). Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// writes); samples_per_unit and d_tile: the kernel's unit
+// (ops/cuda_interact.py: bwd_geometry). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int interact_flat_bwd_launch(const void* d_acts, const void* feats,
                                         void* d_feats, int f, int b, int d,
-                                        int k, int samples_per_block,
-                                        void* stream) {
-  if (!interact::args_ok(f, b, d, k, samples_per_block)) {
+                                        int k, int samples_per_unit,
+                                        int d_tile, void* stream) {
+  if (!interact::bwd_args_ok(f, b, d, k, samples_per_unit, d_tile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   interact::FlatRows rows = {static_cast<const __nv_bfloat16*>(feats), f, d};
   interact::FlatOuts outs = {static_cast<__nv_bfloat16*>(d_feats), f, d};
   return interact::launch_bwd(rows, outs, static_cast<const float*>(d_acts),
-                              f, b, d, k, samples_per_block,
+                              f, b, d, k, samples_per_unit, d_tile,
                               static_cast<cudaStream_t>(stream));
 }

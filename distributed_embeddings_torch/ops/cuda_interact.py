@@ -46,6 +46,9 @@ ROW_PAD = 8
 SMEM_TARGET = 48 * 1024       # default dynamic shared memory per block
 SMEM_MAX = 227 * 1024         # H100 opt-in limit per block
 MAX_SAMPLES_PER_BLOCK = 8
+# the backward's unit: at most this many columns, stage within this much
+BWD_MAX_D_TILE = 128
+BWD_SMEM_TARGET = 100 * 1024
 
 launches = 0
 bwd_launches = 0
@@ -128,7 +131,7 @@ def _check_cotangent(d_acts: torch.Tensor, like: torch.Tensor, b: int,
 
 # the launchers' argument lists, the stream (last) left out
 _FWD_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
 
 
 def _call(name: str, argtypes, args, dev: torch.device) -> None:
@@ -216,19 +219,22 @@ def interact_parts_bwd_plain(d_acts: torch.Tensor,
   return tuple(out[:, p].contiguous() for p in range(f))
 
 
-def bwd_samples_per_block(f: int, d: int) -> int:
-  """Samples one backward block stages (rows + f32 coefficients): as many
-  as fit the default 48 KB of shared memory, 1 to 8; raises when one
-  sample alone exceeds the card's per-block limit."""
-  per_sample = f * (d + ROW_PAD) * 2 + f * f * 4
+def bwd_geometry(f: int, d: int) -> Tuple[int, int]:
+  """The backward kernel's unit: ``(samples, columns)``. Columns: ``D``
+  up to 128 (wider ``D`` loops over 128-column tiles). Samples: as many as
+  keep a block's double-buffered stage, its bf16 coefficients and its pair
+  table within ``BWD_SMEM_TARGET`` (two blocks per SM), 1 to 8.
+  ``csrc/interact_common.cuh: bwd_geo`` lays the same bytes out."""
+  dt = min(d, BWD_MAX_D_TILE)
+  xr = 16 if f <= 16 else 32                      # rows padded for the MMA
+  row = dt + (8 if (dt // 8) % 2 == 0 else 16)    # bf16 elements per row
   npair_max = f * (f + 1) // 2
-  if per_sample + 2 * npair_max > SMEM_MAX:
-    raise ValueError(
-        f"interact_parts_bwd: one sample's {f} x {d} bf16 rows and {f} x "
-        f"{f} coefficients need {per_sample:,} B of shared memory, over "
-        f"the {SMEM_MAX:,} B a block may use")
-  fit = (SMEM_TARGET - 2 * npair_max) // per_sample
-  return max(1, min(MAX_SAMPLES_PER_BLOCK, fit))
+  per_sample = (2 * xr * row * 2                  # two stages of rows
+                + 2 * npair_max * 4               # two cotangent blocks
+                + xr * (xr + 8) * 2)              # bf16 coefficients
+  fixed = 2 * 32 + 2 * npair_max + 16             # alignment, pair table
+  fit = (BWD_SMEM_TARGET - fixed) // per_sample
+  return max(1, min(MAX_SAMPLES_PER_BLOCK, fit)), dt
 
 
 def _launch_bwd(d_acts: torch.Tensor, parts: Sequence[torch.Tensor], k: int,
@@ -241,7 +247,7 @@ def _launch_bwd(d_acts: torch.Tensor, parts: Sequence[torch.Tensor], k: int,
           for _ in range(f)]
   _call("interact_bwd", _BWD_ARGS,
         (d_acts.data_ptr(), _pointers(parts), _pointers(outs), f, b, d, k,
-         bwd_samples_per_block(f, d)), dev)
+         *bwd_geometry(f, d)), dev)
   bwd_launches += 1
   return tuple(outs)
 
@@ -337,6 +343,6 @@ def interact_flat_bwd(d_acts: torch.Tensor, feats: torch.Tensor,
   out = torch.empty_like(feats)
   _call("interact_flat_bwd", _BWD_ARGS,
         (d_acts.data_ptr(), feats.data_ptr(), out.data_ptr(), f, b, d, k,
-         bwd_samples_per_block(f, d)), feats.device)
+         *bwd_geometry(f, d)), feats.device)
   flat_bwd_launches += 1
   return out

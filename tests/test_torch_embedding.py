@@ -143,6 +143,40 @@ def test_lookup_refusals_match_jax():
     tlookup.embedding_lookup(np.zeros((V, D)), torch.zeros((2,)))
 
 
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_padded_csr_gradient_is_the_forward_derivative(combiner):
+  """A capacity-padded CSR input (more ``values`` than ``row_splits[-1]``):
+  the forward equals the JAX forward, and the gradient is the derivative
+  of that forward, zero on the ids past ``row_splits[-1]``. The oracle is
+  a dense one-hot product in torch, not the JAX gradient (which gathers
+  the cotangent out of range there and gives NaN)."""
+  rng = np.random.default_rng(5)
+  params = rng.standard_normal((6, 2)).astype(np.float32)
+  values = np.arange(5, dtype=np.int32)
+  splits = np.array([0, 2, 3], dtype=np.int32)
+  want = np.asarray(jax_embedding_lookup(
+      jnp.asarray(params),
+      jragged.RaggedIds(jnp.asarray(values), jnp.asarray(splits)), combiner))
+  tp = torch.tensor(params, requires_grad=True)
+  got = tlookup.csr_lookup(tp, torch.tensor(values), torch.tensor(splits),
+                           combiner)
+  np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+  # the forward as a dense product: weights[i, r] for the live elements
+  weights = torch.zeros((2, 6), dtype=torch.float64)
+  for i in range(2):
+    lo, hi = int(splits[i]), int(splits[i + 1])
+    for v in values[lo:hi]:
+      weights[i, int(v)] += 1.0 / (hi - lo) if combiner == "mean" else 1.0
+  dense = torch.tensor(params, dtype=torch.float64, requires_grad=True)
+  np.testing.assert_allclose(got.detach().numpy(),
+                             (weights @ dense).detach().numpy(), **TOL)
+  cot = rng.standard_normal((2, 2))
+  (got * torch.tensor(cot, dtype=torch.float32)).sum().backward()
+  ((weights @ dense) * torch.tensor(cot)).sum().backward()
+  np.testing.assert_allclose(tp.grad.numpy(), dense.grad.numpy(), **TOL)
+  assert np.all(tp.grad.numpy()[3:5] == 0.0)  # the padded ids
+
+
 @pytest.mark.parametrize("shape,combiner", [
     ((B,), None), ((B, H), None), ((B, H), "sum"), ((B, H), "mean"),
     ((3, B, H), None), ((3, B, H), "sum"), ((3, B, H), "mean")])

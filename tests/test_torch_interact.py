@@ -172,6 +172,22 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take():
     cuda_interact.interact_parts_bwd(torch.zeros((4, 6)), parts, -1)
   with pytest.raises(ValueError):
     cuda_interact.interact_parts_bwd(torch.zeros((3, 4)).t(), parts, -1)
-  with pytest.raises(ValueError):
-    cuda_interact.bwd_samples_per_block(32, 8192)
-  assert cuda_interact.bwd_samples_per_block(F, D) == 4
+  # the backward's unit (samples, columns): four samples of D=128 at the
+  # DLRM width; a wider D is taken in 128-column tiles, not refused
+  assert cuda_interact.bwd_geometry(F, D) == (4, 128)
+  assert cuda_interact.bwd_geometry(32, 8192) == (4, 128)
+  assert cuda_interact.bwd_geometry(2, 16) == (8, 16)
+
+
+@pytest.mark.parametrize("k", [-1, 0])
+def test_pair_coefficients_are_exact_in_bf16(k):
+  """Every coefficient is a bf16 value or twice one, so the kernel's bf16
+  A operand (the coefficients on the tensor cores) loses nothing."""
+  f = 27
+  p = len(cuda_interact.tril_pairs(f, k)[0])
+  rng = np.random.default_rng(11 - k)
+  d_acts = torch.tensor((rng.standard_normal((64, p)) *
+                         10.0**rng.uniform(-30, 30, (64, p))
+                         ).astype(np.float32))
+  coef = cuda_interact.pair_coefficients(d_acts, f, k)
+  assert torch.equal(coef.to(torch.bfloat16).float(), coef)
