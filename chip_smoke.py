@@ -229,6 +229,10 @@ ZOO_DENSE_ROW_THRESHOLD = 2048
 # K6 against its plain version (the JAX test's tolerance: the rsqrt chains
 # round a few ulps apart)
 K6_TOL = {"rtol": 1e-6, "atol": 2e-7}
+# K6's rule checks: the widths of the vector path (multiples of 4) and of
+# the general path
+K6_WIDTHS = (8, 16, 32, 64)
+K6_GENERAL_WIDTHS = (6,)
 # pin-on vs pin-off steps: cells of rows that two or more of the step's
 # ids hit may differ by K1's (and the dense-class index_add_'s) atomic
 # order, by at most this share of the cell's magnitude
@@ -486,7 +490,9 @@ def phase_kernel_bwd(torch, ci, flush) -> dict:
 
 
 def k1_streams(torch, rows: int) -> dict:
-  """The K1 id streams: name -> int64 ids on the card (seed 0)."""
+  """The K1 id streams: name -> int64 ids on the card (seed 0). The last,
+  every id on one row, is the worst case of the kernel's tile accounting
+  (each tile's whole sorted list one run, cut at every warp's range)."""
   gen = torch.Generator(device="cuda").manual_seed(SEED)
   n = K1_IDS
   r = torch.rand((n,), generator=gen, device="cuda", dtype=torch.float64)
@@ -499,7 +505,28 @@ def k1_streams(torch, rows: int) -> dict:
       "out_of_range": torch.randint(-margin, rows + margin, (n,),
                                     generator=gen, device="cuda"),
       "unique": torch.randperm(rows, generator=gen, device="cuda")[:n],
+      "one_row": torch.full((n,), rows // 2, dtype=torch.int64,
+                            device="cuda"),
   }
+
+
+def k1_plan_check(torch, ca, n: int) -> dict:
+  """The launcher's tile plan for ``n`` occurrences on this card, read back
+  from the library, against ``cuda_apply.plan_apply``; returns it."""
+  import ctypes
+
+  from distributed_embeddings_torch.ops._build import load
+  fn = load("apply_rows").apply_rows_plan
+  fn.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+  fn.restype = ctypes.c_int
+  got = (ctypes.c_int * 3)()
+  check(fn(n, got) == 0, "apply_rows_plan failed")
+  want = ca.plan_apply(D, n, torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+  check(list(got) == [want.tile, want.slots, want.smem],
+        f"apply_rows: the launcher plans {list(got)} for n={n}, "
+        f"plan_apply {want}")
+  return want._asdict()
 
 
 def phase_kernel_apply(torch, ca, flush, rows: int) -> dict:
@@ -529,6 +556,11 @@ def phase_kernel_apply(torch, ca, flush, rows: int) -> dict:
       del abs_sum
       check(share <= 1.0, f"apply_rows {name}: off by {share} x 1e-5 of "
             "the cells' absolute sums")
+    touched = torch.zeros((rows,), dtype=torch.bool, device="cuda")
+    touched[ids_v] = True
+    check(torch.equal(got[~touched], base[~touched]),
+          f"apply_rows {name}: a row no id touches changed")
+    del touched
     max_err = (got - want).abs().max().item()
     del want
     n_valid = int(valid.sum().item())
@@ -541,6 +573,7 @@ def phase_kernel_apply(torch, ca, flush, rows: int) -> dict:
                                              alpha=K1_SCALE)}, flush)
     del lib
     row = {"phase": "kernel", "name": "apply_rows", "stream": name,
+           "plan": k1_plan_check(torch, ca, int(ids.shape[0])),
            "rows": rows, "width": D, "ids": int(ids.shape[0]),
            "valid_ids": n_valid, "unique_rows": unique,
            "max_abs_err": max_err, "max_abs_sum_share": share, **timed,
@@ -592,10 +625,12 @@ def plain_forward(torch, ci, model, numerical, acts):
   return model.top_mlp(x.to(cd)).squeeze(-1).float()
 
 
-def trace_call(torch, fn) -> dict:
+def trace_call(torch, fn, kernels=None) -> dict:
   """One call of ``fn`` under ``torch.profiler``: its host wall time, the
   device's busy time (kernels, copies and fills on the card) and idle
-  share, the device operations it ran and the costliest of them."""
+  share, the device operations it ran and the costliest of them; with
+  ``kernels`` (label -> substrings of device kernel names), each label's
+  device ms and launches in ``kernel_device_ms``."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
@@ -606,11 +641,16 @@ def trace_call(torch, fn) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
   spans, by_name = [], {}
+  mine = {label: [0.0, 0] for label in kernels or {}}
   for e in prof.events():
     if e.device_type == DeviceType.CUDA:
       spans.append((e.time_range.start, e.time_range.end))
-      by_name[e.name] = (by_name.get(e.name, 0.0)
-                         + (e.time_range.end - e.time_range.start) / 1e3)
+      ms = (e.time_range.end - e.time_range.start) / 1e3
+      by_name[e.name] = by_name.get(e.name, 0.0) + ms
+      for label, subs in (kernels or {}).items():
+        if any(sub in e.name for sub in subs):
+          mine[label][0] += ms
+          mine[label][1] += 1
   busy_us, end = 0.0, float("-inf")
   for s, e in sorted(spans):  # union of the device intervals
     busy_us += max(0.0, e - max(s, end))
@@ -628,11 +668,15 @@ def trace_call(torch, fn) -> dict:
     if ms > 0 and avg.device_type != DeviceType.CUDA:
       by_op.append((avg.key, ms, avg.count))
   by_op.sort(key=lambda t: -t[1])
-  return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-          "device_ops": len(spans), "nccl_ms": nccl_ms,
-          "top_ms": [[name[:72], ms] for name, ms in top],
-          "top_ops_ms": [[name[:48], ms, n] for name, ms, n in by_op[:12]]}
+  out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+         "device_ops": len(spans), "nccl_ms": nccl_ms,
+         "top_ms": [[name[:72], ms] for name, ms in top],
+         "top_ops_ms": [[name[:48], ms, n] for name, ms, n in by_op[:12]]}
+  if kernels:
+    out["kernel_device_ms"] = {label: {"ms": ms, "launches": n}
+                               for label, (ms, n) in mine.items()}
+  return out
 
 
 def criteo_vocab() -> list:
@@ -1636,6 +1680,21 @@ def k6_bytes(layout, rule, k: int, n: int, aux_last: int) -> int:
   return k * layout.width * 4 + n * 8 + state + n * 128 * 4
 
 
+def k6_fetch_yardsticks(torch, layout, aux) -> dict:
+  """Two timed yardsticks of the state reads of masked rows ``aux``
+  (Adagrad: one state slot): every window's table and state lanes read
+  (their sum written), or only its state lanes read (copied). Equal times
+  mean the card fetches the table lanes with the state lanes, which the
+  bound (:func:`k6_bytes`) does not count."""
+  w = layout.width
+  win_lanes = aux.view(aux.shape[0], layout.rows_per_phys, layout.stride)
+  half = torch.empty((aux.shape[0], layout.rows_per_phys, w), device="cuda")
+  return {
+      "all_lanes_ms": lambda: torch.add(win_lanes[:, :, :w],
+                                        win_lanes[:, :, w:2 * w], out=half),
+      "state_lanes_ms": lambda: half.copy_(win_lanes[:, :, w:2 * w])}
+
+
 def k6_within_tol(torch, got, want) -> float:
   """max |got - want| over its allowance ``atol + rtol * |want|``."""
   allow = K6_TOL["atol"] + K6_TOL["rtol"] * want.abs()
@@ -1678,12 +1737,15 @@ def phase_kernel_delta(torch, cd, flush) -> dict:
             f"of rtol {K6_TOL['rtol']}, atol {K6_TOL['atol']}")
       max_err = (got - want).abs().max().item()
       del want
-      timed = event_ms(torch, {
+      fns = {
           "kernel_ms": lambda: cd.build_delta_rows(layout, rule, dz, sub,
                                                    aux, h, step),
           "plain_ms": lambda: cd.build_delta_rows_plain(layout, rule, dz,
-                                                        sub, aux, h, step)},
-                       flush)
+                                                        sub, aux, h, step)}
+      if aux_last != layout.stride:
+        fns.update(k6_fetch_yardsticks(torch, layout, aux))
+      timed = event_ms(torch, fns, flush)
+      del fns
       row = {"phase": "kernel", "name": "build_delta_rows", "class": name,
              "rule": rule.name, "width": layout.width,
              "stride": layout.stride, "rows_per_phys": layout.rows_per_phys,
@@ -1700,15 +1762,19 @@ def phase_kernel_delta(torch, cd, flush) -> dict:
         main = row
       del dz, sub, aux, got
   del routed
-  # the other rules' templates, bit-for-bit within the tolerance, small
+  # every rule at every width of K6_WIDTHS whose stride fits a physical
+  # row (the vector path), and at K6_GENERAL_WIDTHS (the general path),
+  # with stride-wide and window-masked state rows, h 1 and 10: within the
+  # tolerance, small
   others = []
   gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
-  for rule2, w in ((momentum_rule(ZOO_LR), 16), (adam_rule(ZOO_LR), 16),
-                   (adagrad_rule(ZOO_LR), 8)):
+  cases = [(rule2, w) for rule2 in (adagrad_rule(ZOO_LR),
+                                    momentum_rule(ZOO_LR), adam_rule(ZOO_LR))
+           for w in K6_WIDTHS + K6_GENERAL_WIDTHS
+           if w * (1 + rule2.n_aux) <= D]
+  for rule2, w in cases:
     layout = PackedLayout(rows=100_000, width=w, n_aux=rule2.n_aux)
-    auxes = [layout.stride]
-    if layout.rows_per_phys * layout.stride == layout.phys_width:
-      auxes.append(layout.phys_width)
+    auxes = sorted({layout.stride, layout.phys_width})
     for h, aux_last in [(h, a) for h in (1, 10) for a in auxes]:
       sub = torch.randint(0, layout.rows_per_phys, (4096 * h,),
                           generator=gen, device="cuda")
@@ -1777,6 +1843,7 @@ def phase_kernel_apply_zoo(torch, ca, flush) -> None:
         "library_ms": lambda: work.index_add_(0, grp_v, rows_v)}, flush)
     n_valid, unique = grp_v.shape[0], touched.shape[0]
     emit({"phase": "kernel", "name": "apply_rows", "stream": f"tiny_{name}",
+          "plan": k1_plan_check(torch, ca, n),
           "rows": layout.phys_rows, "width": D, "ids": n,
           "valid_ids": n_valid, "unique_rows": unique,
           "most_hits_on_a_row": int(hits.max().item()),
@@ -2118,8 +2185,15 @@ def phase_train_zoo(torch, smi: str) -> dict:
                                    for n in layouts},
         "touched_rows_changed_share": changed,
         "untouched_rows_bit_equal": True, "pin": pin})
-  emit({"phase": "train_zoo_trace", "card": smi,
-        **trace_call(torch, lambda: step(state, *batches[0]))})
+  trace = trace_call(torch, lambda: step(state, *batches[0]),
+                     kernels={"apply_rows": ("apply_tiles_kernel",),
+                              "build_delta_rows": ("build_delta_",)})
+  for name, n in (("apply_rows", len(sparse)),
+                  ("build_delta_rows", len(buckets))):
+    check(trace["kernel_device_ms"][name]["launches"] == n,
+          f"train_zoo_trace: {trace['kernel_device_ms'][name]['launches']} "
+          f"device launches of {name} in the traced step, expected {n}")
+  emit({"phase": "train_zoo_trace", "card": smi, **trace})
   del state, step, hits, miss_rows
   torch.cuda.empty_cache()
   return {"train_zoo": totals, "train_zoo_pin": pin_counts}

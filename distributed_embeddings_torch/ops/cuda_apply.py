@@ -9,6 +9,14 @@ other ids are dropped. Duplicates accumulate per occurrence, exact up to
 the f32 summation order (the atomics' order changes from run to run); a
 stream of unique ids gives the plain version's bits.
 
+Each block of the kernel takes a tile of consecutive occurrences, sorts
+it by id on chip (a hash and a counting sort in shared memory) and sums
+each run of one id in registers before one float4 atomic per run, so a
+row hit by many occurrences takes a few atomics per tile instead of one
+per occurrence. :func:`plan_apply` sizes the tile, the hash and the
+shared memory; the launcher computes the same plan (``apply_rows_plan``
+reads it back on the card).
+
 :func:`apply_rows` runs the kernel for CUDA tensors and the plain version
 :func:`apply_rows_plain` (a masked ``index_add_``) for CPU tensors. On CUDA
 it launches the kernel or raises: there is no fallback. ``launches``
@@ -21,15 +29,51 @@ over the valid ids, computes the same function as the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 LANES = 128
+THREADS = 256            # 8 warps a block
+TILE_MIN, TILE_MAX = 256, 2048
+TILES_PER_SM = 4
+SMEM_MAX = 232_448       # a block's shared memory on Hopper (227 KB)
+H100_SMS = 132
 
 launches = 0
 
 Scale = Union[None, float, torch.Tensor]
+
+
+class ApplyPlan(NamedTuple):
+  """The kernel's launch geometry: ``tile`` occurrences a block, ``slots``
+  in its hash, ``smem`` bytes of dynamic shared memory, ``blocks`` in the
+  grid."""
+  tile: int
+  slots: int
+  smem: int
+  blocks: int
+
+
+def plan_apply(width: int, n: int, sms: int = H100_SMS) -> ApplyPlan:
+  """The tile plan for ``n`` occurrences of ``width``-lane rows on a card
+  of ``sms`` SMs (the launcher's ``plan_of``): the largest power-of-two
+  tile in ``[TILE_MIN, TILE_MAX]`` that still gives every SM
+  ``TILES_PER_SM`` tiles (longer tiles merge more duplicates, more tiles
+  fill the card); a hash of twice the tile's slots (load at most 1/2);
+  shared memory for the tile's sorted ids and occurrences, the hash's keys
+  and counts and the warps' scan totals. The width sets no size: a warp
+  walks a row 128 lanes at a time."""
+  if width <= 0 or width % LANES:
+    raise ValueError(f"the kernel takes width % {LANES} == 0, got {width}")
+  if n < 0:
+    raise ValueError(f"n must be >= 0, got {n}")
+  tile = TILE_MAX
+  while tile > TILE_MIN and -(-n // tile) < TILES_PER_SM * sms:
+    tile //= 2
+  slots = 2 * tile
+  smem = 4 * (2 * tile + 2 * slots + THREADS // 32 + 1)
+  return ApplyPlan(tile, slots, smem, -(-n // tile))
 
 
 def _valid(buf: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

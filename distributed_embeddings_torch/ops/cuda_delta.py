@@ -16,8 +16,14 @@ aux_last]`` into the physical-row updates ``[K*h, 128]`` that the apply
 4. the window expansion: the delta in window ``sub``, zeros in the other
    windows and the lane padding.
 
-:func:`build_delta_rows` runs the kernel (``csrc/build_delta_rows.cu``)
-for CUDA tensors and the plain version :func:`build_delta_rows_plain`
+The kernel (``csrc/build_delta_rows.cu``) gives each occurrence a group
+of lanes, one per float4 of its window, several occurrences to a warp,
+and reads each state row with 16-byte loads of its state sectors (the
+vector path, for widths that are multiples of 4); other widths take its
+general path, one warp an occurrence.
+
+:func:`build_delta_rows` runs the kernel for CUDA tensors and the plain
+version :func:`build_delta_rows_plain`
 (broadcast, ``residual_lanes``, ``rule.delta``, ``expand_phys``) for CPU
 tensors. On CUDA it launches the kernel or raises: there is no fallback.
 The plain version is also the one place the lookup engine writes this

@@ -15,13 +15,17 @@ fuzz):
 Duplicate ids make both sides sum in their own orders, so the claim is
 the f32 tolerance of ``tests/test_pallas_goldens.py``: rtol = atol = 1e-5.
 The CUDA kernel computes the same function; ``chip_smoke.py`` holds it
-against the plain version on the card.
+against the plain version on the card. Its tile plan
+(``cuda_apply.plan_apply``) and its summation order (tile-local run sums,
+then one add per run) are checked here on the CPU.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from distributed_embeddings_torch.ops import cuda_apply
 from distributed_embeddings_torch.ops import packed_table as tpt
@@ -118,3 +122,95 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                           torch.zeros((2, 128), dtype=torch.float64))
   with pytest.raises(ValueError):
     cuda_apply.apply_rows(buf, ids[:, None], torch.zeros((2, 128)))
+
+
+# --- the kernel's tile plan and summation order (ops/cuda_apply.py) -----
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(st.integers(1, 64), st.integers(0, 10**9), st.integers(1, 264))
+def test_plan_apply_fits_and_covers(chunks, n, sms):
+  """Every width that is a multiple of 128 is served, the shared memory
+  fits a Hopper block, the grid covers the stream exactly, n = 0 launches
+  no block and n = 1 one."""
+  plan = cuda_apply.plan_apply(chunks * cuda_apply.LANES, n, sms)
+  assert cuda_apply.TILE_MIN <= plan.tile <= cuda_apply.TILE_MAX
+  assert plan.tile & (plan.tile - 1) == 0
+  assert plan.tile % cuda_apply.THREADS == 0
+  assert plan.slots == 2 * plan.tile  # the hash is at most half full
+  assert plan.smem <= cuda_apply.SMEM_MAX
+  assert plan.blocks * plan.tile >= n > (plan.blocks - 1) * plan.tile \
+      or n == plan.blocks == 0
+  if plan.tile > cuda_apply.TILE_MIN:  # no smaller tile was needed
+    assert plan.blocks >= cuda_apply.TILES_PER_SM * sms
+  if n <= 1:
+    assert plan.blocks == n
+
+
+@pytest.mark.parametrize("width", [0, 64, 200, -128])
+def test_plan_apply_refuses_other_widths(width):
+  with pytest.raises(ValueError):
+    cuda_apply.plan_apply(width, 10)
+
+
+def _kernel_order(buf, ids, delta, scale, tile):
+  """The kernel's summation order, in f32 on the CPU: per tile, the valid
+  occurrences sorted by id and cut into the block's equal warp ranges;
+  each run of one id inside a range summed in order from its rounded
+  products, then added into the row (one atomic per run on the card)."""
+  out = buf.clone()
+  prods = delta * torch.tensor(scale, dtype=torch.float32)
+  warps = cuda_apply.THREADS // 32
+  for t0 in range(0, ids.shape[0], tile):
+    t = ids[t0:t0 + tile]
+    occ = torch.nonzero((t >= 0) & (t < buf.shape[0])).squeeze(1) + t0
+    keys, order = torch.sort(ids[occ], stable=True)
+    occ = occ[order]
+    nv = occ.shape[0]
+    ends = torch.tensor([nv * (w + 1) // warps for w in range(warps)])
+    warp = torch.searchsorted(ends, torch.arange(nv), right=True)
+    starts = torch.ones(nv, dtype=torch.bool)
+    starts[1:] = (keys[1:] != keys[:-1]) | (warp[1:] != warp[:-1])
+    run = torch.cumsum(starts, 0) - 1
+    sums = torch.zeros((int(starts.sum()), buf.shape[1]))
+    sums.index_add_(0, run, prods[occ])
+    out.index_add_(0, keys[starts], sums)
+  return out
+
+
+def _power_law(n, rows, seed):
+  rng = np.random.default_rng(seed)
+  gamma = -0.2
+  r = rng.random(n)
+  ids = (r * ((rows + 1.0) ** gamma - 1.0) + 1.0) ** (1.0 / gamma)
+  return np.clip(ids.astype(np.int64) - 1, 0, rows - 1)
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("stream", ["power_law", "unique", "out_of_range"])
+def test_kernel_order_within_the_duplicate_class(stream, sms):
+  """The tiled order (per-tile run sums, then one add per run) against the
+  plain version on a stream that puts tens of thousands of adds on one
+  row: within 1e-5 of each cell's absolute sum; unique ids bit-equal."""
+  rows, n, width = 2048, 131072, cuda_apply.LANES
+  rng = np.random.default_rng(11)
+  if stream == "unique":
+    ids = rng.permutation(rows)
+  elif stream == "out_of_range":
+    ids = rng.integers(-rows // 10, rows + rows // 10, n)
+  else:
+    ids = _power_law(n, rows, 5)
+    assert np.bincount(ids).max() > 20_000
+  buf = torch.tensor(rng.standard_normal((rows, width)).astype(np.float32))
+  delta = torch.tensor(
+      rng.standard_normal((len(ids), width)).astype(np.float32))
+  ids = torch.tensor(ids)
+  tile = cuda_apply.plan_apply(width, len(ids), sms).tile
+  got = _kernel_order(buf, ids, delta, SCALE, tile)
+  want = cuda_apply.apply_rows_plain(buf.clone(), ids, delta, SCALE)
+  if stream == "unique":
+    assert torch.equal(got, want)
+    return
+  ok = (ids >= 0) & (ids < rows)
+  abs_sum = buf.abs().index_add_(0, ids[ok], (SCALE * delta[ok]).abs())
+  share = ((got - want).abs() / (1e-5 * abs_sum)).max().item()
+  assert share <= 1.0, share

@@ -161,3 +161,18 @@ def test_engine_builds_a_class_with_an_empty_part_through_the_kernel_route():
                                            sub, aux.reshape(48, 128), 3, 2)
   assert torch.equal(got_ids, ids.reshape(-1))
   assert torch.equal(got_rows, want)
+
+
+# every rule at the widths chip_smoke.py holds the kernel to on the card
+# (the vector path's multiples of 4 and the general path's 6) that
+# CASES leaves out, window-masked state rows, h 1 and 10
+WIDTH_CASES = [(name, w) for name in ("adagrad", "momentum", "adam")
+               for w in (6, 8, 16, 32, 64)
+               if w * (2 + (name == "adam")) <= 128
+               and (name, w) not in {(c[0], c[1]) for c in CASES}]
+
+
+@pytest.mark.parametrize("h", [1, 10])
+@pytest.mark.parametrize("name,w", WIDTH_CASES)
+def test_plain_build_matches_jax_kernel_at_card_widths(name, w, h):
+  test_plain_build_matches_jax_kernel(name, w, "phys", h)
