@@ -20,8 +20,11 @@ under ``overlap='fused'``. One JSON line per phase:
    main paths' shapes. K2-fwd (``interact_fwd``) and K2-bwd
    (``interact_bwd``) at F=27, D=128, k in {-1, 0}, B in {4096, 65536,
    4000}: at least 99.9% of the cells bit-equal, every cell within one
-   bf16 ulp (K2-bwd: or, where its F terms cancel, within the f32
-   summation bound ``F * 2^-24 * sum_q |c_pq x_q|``). K1 (``apply_rows``)
+   bf16 ulp or, where its terms cancel, within the f32 summation bound
+   (K2-fwd: ``D * 2^-24 * sum_d |x_p[d] x_q[d]|``, its tensor-core sums
+   rounding otherwise than the plain version's; K2-bwd: ``F * 2^-24 *
+   sum_q |c_pq x_q|``); the K2-fwd launcher's geometry read back and
+   held to ``cuda_interact.fwd_geometry``. K1 (``apply_rows``)
    on the buffer of the train plan's first sparse class (4,991,510 x 128
    f32) with 131,072 ids per stream, scale -0.1 (SGD's -lr): uniform,
    power-law and 17% out-of-range streams within 1e-5 of each cell's
@@ -29,8 +32,12 @@ under ``overlap='fused'``. One JSON line per phase:
    bit-equal. K4 (``gather_rows``) on the first sparse class's rank
    buffer of the four-card world-4 plan (9,994,943 x 128 f32), one
    (round, chunk) block of 8,192 int32 ids, uniform and with 30% of the
-   ids out of range or sentinels: bit-equal; so are fused strides of 96,
-   65 and 256 lanes on a small buffer. K6 (``build_delta_rows``, Adagrad
+   ids out of range or sentinels: bit-equal, the uniform stream timed
+   beside four yardsticks (the ids mapped into a 65,536-row buffer, the
+   ids sorted, an empty kernel of the kernel's grid, a contiguous copy
+   of the same rows); so are blocks of 1, 31 and 8,193 ids, one of 8,192
+   ids of one row, and fused strides of 96, 65 and 256 lanes on a small
+   buffer. K6 (``build_delta_rows``, Adagrad
    0.01) at the two buckets of Tiny's largest class: 786,432 one-hot
    samples with 32-lane state rows, and 65,536 ten-hot samples with
    window-masked 128-lane state rows; then momentum, Adam and a width-8
@@ -39,8 +46,9 @@ under ``overlap='fused'``. One JSON line per phase:
    bit-equal and timed, with the path the wrapper chose: transposed (f32
    and bf16) and sliced (vector path), last two dimensions transposed
    (f32 and bf16; tile path), an innermost stride-0 broadcast (general
-   path). K2-bwd and K3-bwd also at the edge shapes F in {1, 2, 13,
-   32} x D in {8, 16, 64, 256}, B=1000, both k, in their class. K3-fwd
+   path). K2-fwd, K2-bwd, K3-fwd and K3-bwd also at the edge shapes F in
+   {1, 2, 13, 32} x D in {8, 16, 64, 256}, B=1000, both k, in their
+   class. K3-fwd
    (``interact_flat_fwd``) and K3-bwd (``interact_flat_bwd``), the flat
    ``[B, F, D]`` forms no path launches, at F=27, D=128, k in {-1, 0},
    B in {4096, 65536}, in K2's tolerance classes. K5
@@ -75,7 +83,8 @@ under ``overlap='fused'``. One JSON line per phase:
    predictions are finite, agree with a recomputation through the plain
    interaction, and K2-fwd ran once per request. A fourth request per
    image runs under ``torch.profiler`` (``serve_trace``): the device's
-   busy time and idle share, and the costliest device operations;
+   busy time and idle share, the costliest device operations and K2-fwd's
+   device time;
 7. ``train``: ``bench.py``'s train step at full width (the same tables,
    ``batch_hint=65536``: 4 sparse classes and one dense class; SGD 0.1
    on the tables and the dense params; one batch of 65,536 uniform ids
@@ -85,7 +94,8 @@ under ``overlap='fused'``. One JSON line per phase:
    finite, K2-fwd and K2-bwd launched once and K1 once per sparse class,
    sampled rows of the first sparse class that the batch does not touch
    are bit-unchanged and sampled touched rows changed. A 14th step runs
-   under ``torch.profiler`` (``train_trace``);
+   under ``torch.profiler`` (``train_trace``; K2-fwd's device time and its
+   one launch there);
 8. ``train_dense``: the README Quick start's dense-autodiff step at the
    train phase's width (``DLRM`` with its ``DistributedEmbedding``:
    the same 26 tables x 1/16 as class buffers, dense gradients,
@@ -126,7 +136,8 @@ under ``overlap='fused'``. One JSON line per phase:
    ``row_slice=2**26``. At f32 and bf16 compute: 3 warm-up and 10 timed
    steps, with the train phase's checks on each rank, K4 launched once
    per (sparse bucket, round, chunk), every rank's losses equal, and a
-   traced step on rank 0. Then one f32 step under ``overlap='fused'``
+   traced step on rank 0 (K4's device time). Then one f32 step under
+   ``overlap='fused'``
    and one under ``'none'`` from the same state: the losses bit-equal,
    the fused buffers bit-equal on every row fewer than two ids hit
    (elsewhere K1's atomics order the duplicates' adds).
@@ -253,6 +264,13 @@ K4_BAD_SHARE = 0.3  # ids out of range or sentinels in K4's second stream
 # order of the card's choosing), and there by at most this much
 W4_DUP_ATOL = 1e-6
 CSRC = "distributed_embeddings_torch/csrc"
+# device kernel names (demangled or mangled) of K2-fwd and K4 in a trace
+K2_FWD_TRACE = {"interact_fwd": ("interact::fwd_kernel<interact::PartRows>",
+                                 "8interact10fwd_kernelINS_8PartRows")}
+K4_TRACE = {"gather_rows": ("gather_rows_kernel",)}
+# K4's edge blocks (ids), beside the world-4 block of 8,192
+K4_EDGE_N = (1, 31, 8193)
+K4_SMALL_ROWS = 65536  # the TLB-reach yardstick's buffer: 32 MB of rows
 
 
 class SmokeFailure(Exception):
@@ -365,9 +383,99 @@ def bf16_parts(torch, b: int, seed: int) -> list:
           .to(torch.bfloat16) for _ in range(F)]
 
 
+def fwd_check(torch, ci, name, got, want, feats, k) -> dict:
+  """K2-fwd's and K3-fwd's tolerance class: at least 99.9% of the cells
+  bit-equal, every cell within one bf16 ulp or, where its D terms cancel,
+  within the f32 summation bound ``D * 2^-24 * sum_d |x_p[d] x_q[d]|``
+  (the tensor cores' f32 sums round otherwise than the plain version's).
+  ``feats``: the ``[B, F, D]`` inputs. Returns the cells that differ,
+  the largest difference in bf16 ulps, the cells past one ulp (each
+  within the bound) and the largest share of the bound such a cell
+  takes."""
+  b, f, d = feats.shape
+  if got.numel() == 0:
+    return {"cells_differ": 0, "max_ulp": 0.0, "cells_past_one_ulp": 0,
+            "max_share_of_bound_past_one_ulp": 0.0}
+  rows, cols = ci.tril_pairs(f, k)
+  x = feats.float().abs()
+  idx = torch.as_tensor(rows * f + cols, device=got.device)
+  abs_sum = torch.bmm(x, x.transpose(1, 2)).flatten(1).index_select(1, idx)
+  slack = d * 2.0**-24 * abs_sum
+  differ, ulps = within_one_bf16_ulp(torch, got, want)
+  _, share = within_one_bf16_ulp(torch, got, want, slack=slack)
+  check(differ <= 0.001 * got.numel() and share <= 1.0,
+        f"{name} B={b} F={f} D={d} k={k}: {differ} of {got.numel()} cells "
+        f"differ, worst by {share} of its allowance")
+  _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+  err = (got - want).abs()
+  past = err > torch.ldexp(torch.ones_like(got), e - 8)
+  n_past = int(past.sum().item())
+  return {"cells_differ": differ, "max_ulp": ulps,
+          "cells_past_one_ulp": n_past,
+          "max_share_of_bound_past_one_ulp":
+              (err[past] / slack[past]).max().item() if n_past else 0.0}
+
+
+def k2_geometry_check(torch, ci, f: int, d: int, k: int) -> dict:
+  """The launcher's forward geometry for ``(f, d, k)``, read back from the
+  library, against ``cuda_interact.fwd_geometry``; returns it."""
+  import ctypes
+
+  from distributed_embeddings_torch.ops._build import load
+  want = ci.fwd_geometry(f, d, k)
+  fn = load("interact_fwd").interact_fwd_geometry
+  fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int64)]
+  fn.restype = ctypes.c_int
+  got = (ctypes.c_int64 * 8)()
+  check(fn(f, d, k, want.ns, got) == 0,
+        f"interact_fwd_geometry({f}, {d}, {k}) failed")
+  mask = sum(1 << (m * 4 + n) for m, n in want.tiles)
+  laid = [want.xr, want.kt, want.nkt, want.re, mask, want.x_stage,
+          want.o_stage, want.smem]
+  check(list(got) == laid, f"interact_fwd: the launcher lays out "
+        f"{list(got)} for F={f} D={d} k={k}, fwd_geometry {laid}")
+  return {"ns": want.ns, "xr": want.xr, "kt": want.kt,
+          "tiles": len(want.tiles), "smem": want.smem}
+
+
+def fwd_edges(torch, ci, name: str) -> None:
+  """K2-fwd (``interact_fwd``) or K3-fwd (``interact_flat_fwd``) at the
+  backward's edge shapes, B=1000, k in {-1, 0}, in the class of
+  :func:`fwd_check`, with K2-fwd's launcher geometry checked at each
+  shape; checked, not timed."""
+  cases = []
+  for f in BWD_EDGE_F:
+    for d in BWD_EDGE_D:
+      for k in (-1, 0):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 89 * f + d - k)
+        feats = (torch.randn((BWD_EDGE_B, f, d), generator=gen,
+                             device="cuda") * 0.3).to(torch.bfloat16)
+        if name == "interact_flat_fwd":
+          got = ci.interact_flat_fwd(feats, k)
+          torch.cuda.synchronize()
+          want = ci.interact_flat_fwd_plain(feats, k)
+        else:
+          k2_geometry_check(torch, ci, f, d, k)
+          parts = [feats[:, p].contiguous() for p in range(f)]
+          got = ci.interact_parts_fwd(parts, k)
+          torch.cuda.synchronize()
+          want = ci.interact_parts_fwd_plain(parts, k)
+        npair = len(ci.tril_pairs(f, k)[0])
+        check(tuple(got.shape) == (BWD_EDGE_B, npair),
+              f"{name} F={f} D={d} k={k}: shape {tuple(got.shape)}")
+        c = fwd_check(torch, ci, name, got, want, feats, k)
+        cases.append([f, d, k, c["cells_differ"], c["max_ulp"],
+                      c["cells_past_one_ulp"],
+                      c["max_share_of_bound_past_one_ulp"]])
+  emit({"phase": "kernel", "name": name, "stream": "edges",
+        "B": BWD_EDGE_B,
+        "F_D_k_differ_max_ulp_past_one_ulp_share_of_bound": cases})
+
+
 def phase_kernel_fwd(torch, ci, flush) -> dict:
   """K2-fwd against its plain version; returns the serve-shape row."""
   main = None
+  geometry = {k: k2_geometry_check(torch, ci, F, D, k) for k in (-1, 0)}
   for b in KERNEL_BATCHES:
     for k in (-1, 0):
       parts = bf16_parts(torch, b, SEED + b - k)
@@ -376,10 +484,8 @@ def phase_kernel_fwd(torch, ci, flush) -> dict:
       want = ci.interact_parts_fwd_plain(parts, k)
       rows, cols = ci.tril_pairs(F, k)
       check(tuple(got.shape) == (b, len(rows)), f"shape {tuple(got.shape)}")
-      differ, ulps = within_one_bf16_ulp(torch, got, want)
-      check(differ <= 0.001 * got.numel() and ulps <= 1.0,
-            f"interact_fwd B={b} k={k}: {differ} of {got.numel()} cells "
-            f"differ, worst by {ulps} bf16 ulp")
+      checked = fwd_check(torch, ci, "interact_fwd", got, want,
+                          torch.stack(parts, dim=1), k)
       idx = torch.as_tensor(rows * F + cols, device="cuda")
 
       def library(parts=parts, idx=idx):
@@ -394,13 +500,14 @@ def phase_kernel_fwd(torch, ci, flush) -> dict:
           "library_ms": library}, flush)
       row = {
           "phase": "kernel", "name": "interact_fwd", "B": b, "F": F, "D": D,
-          "k": k, "cells": got.numel(), "cells_differ": differ,
-          "max_ulp": ulps, "max_abs_err": (got - want).abs().max().item(),
+          "k": k, "geometry": geometry[k], "cells": got.numel(),
+          **checked, "max_abs_err": (got - want).abs().max().item(),
           **timed, **bound(b * (F * D * 2 + npair * 4), 2 * npair * D * b,
                            BF16_FLOPS)}
       emit(row)
       if b == SERVE_BATCH and k == -1:
         main = row
+  fwd_edges(torch, ci, "interact_fwd")
   return main
 
 
@@ -766,7 +873,8 @@ def phase_serve(torch, ci, smi: str) -> dict:
           "freeze_s": freeze_s,
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
     emit({"phase": "serve_trace", "quantize": q, "card": smi,
-          **trace_call(torch, lambda: eng.predict(*requests[0]))})
+          **trace_call(torch, lambda: eng.predict(*requests[0]),
+                       kernels=K2_FWD_TRACE)})
     del eng, frozen
     torch.cuda.empty_cache()
   return totals
@@ -881,8 +989,13 @@ def phase_train(torch, smi: str, compute: str) -> dict:
         "launches_per_step": want,
         "losses": losses, "touched_rows_changed_share": changed,
         "untouched_rows_bit_equal": True})
-  emit({"phase": "train_trace", "compute": compute, "card": smi,
-        **trace_call(torch, lambda: step(state, numerical, cats, labels))})
+  trace = trace_call(torch, lambda: step(state, numerical, cats, labels),
+                     kernels=K2_FWD_TRACE)
+  check(trace["kernel_device_ms"]["interact_fwd"]["launches"] == 1,
+        f"train_trace {compute}: "
+        f"{trace['kernel_device_ms']['interact_fwd']['launches']} device "
+        "launches of interact_fwd in the traced step, expected 1")
+  emit({"phase": "train_trace", "compute": compute, "card": smi, **trace})
   del state, buf, step
   torch.cuda.empty_cache()
   return totals
@@ -918,12 +1031,45 @@ def k4_launches_per_step(plan) -> int:
   return buckets * WORLD * min(W4_CHUNKS, W4_BATCH // WORLD)
 
 
+def k4_empty_kernel(torch, n: int, stride: int):
+  """A launcher of an empty kernel with the grid of K4's gather of ``n``
+  ids of ``stride`` lanes: K4's library's yardstick of the card's
+  dispatch floor for that grid."""
+  import ctypes
+
+  from distributed_embeddings_torch.ops._build import load
+  fn = load("gather_rows").gather_rows_empty_launch
+  fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+
+  def launch():
+    err = fn(n, stride, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"gather_rows_empty_launch failed: cudaError {err}")
+  return launch
+
+
+def k4_bad_ids(torch, ids, rows: int, gen):
+  """``ids`` with K4_BAD_SHARE of them replaced by sentinels and ids out of
+  range (what row slicing sends)."""
+  n = ids.shape[0]
+  bad = torch.rand((n,), generator=gen, device="cuda") < K4_BAD_SHARE
+  junk = torch.tensor([rows, -1, rows + 7, 2**31 - 1, -2**31],
+                      dtype=torch.int32, device="cuda")[
+      torch.randint(0, 5, (n,), generator=gen, device="cuda")]
+  return torch.where(bad, junk, ids)
+
+
 def phase_kernel_gather(torch, cx, flush) -> dict:
   """K4 against its plain version at the four-card world-4 path's block
   shape: the first sparse class's rank buffer, one (round, chunk) block of
   its first bucket's ids. A uniform stream and one with 30% of its ids out
-  of range or sentinels (what row slicing sends); returns the uniform
-  stream's row."""
+  of range or sentinels (what row slicing sends); the uniform stream
+  timed beside four yardsticks in the same calls: the kernel on the same
+  ids mapped into a 65,536-row buffer (32 MB: every row in TLB reach,
+  the L2 still flushed), the kernel on the ids sorted, an empty kernel
+  of the kernel's grid (the dispatch floor), and a contiguous copy of
+  ``n`` rows (the streaming floor). Then bit-equal edge blocks (1, 31
+  and 8,193 ids, every id one row). Returns the uniform stream's row."""
   from distributed_embeddings_torch.ops.packed_table import PackedLayout
   from distributed_embeddings_torch.parallel.lookup_engine import (
       class_buckets,
@@ -941,32 +1087,62 @@ def phase_kernel_gather(torch, cx, flush) -> dict:
     ids = torch.randint(0, rows, (n,), generator=gen, device="cuda",
                         dtype=torch.int32)
     if stream == "out_of_range":
-      bad = torch.rand((n,), generator=gen, device="cuda") < K4_BAD_SHARE
-      junk = torch.tensor([rows, -1, rows + 7, 2**31 - 1, -2**31],
-                          dtype=torch.int32, device="cuda")[
-          torch.randint(0, 5, (n,), generator=gen, device="cuda")]
-      ids = torch.where(bad, junk, ids)
+      ids = k4_bad_ids(torch, ids, rows, gen)
     got = cx.gather_rows(layout, buf, ids)
     torch.cuda.synchronize()
     want = cx.gather_rows_plain(buf, ids)
     check(torch.equal(got, want),
           f"gather_rows {stream}: not bit-equal to the plain version")
     n_valid = int(((ids >= 0) & (ids < rows)).sum().item())
-    timed = event_ms(torch, {
+    fns = {
         "kernel_ms": lambda: cx.gather_rows(layout, buf, ids),
         "plain_ms": lambda: cx.gather_rows_plain(buf, ids),
         # moves the same bytes, but reads row rows-1 for the out-of-range
         # ids instead of writing zeros
-        "library_ms": lambda: buf.index_select(0, ids.clamp(0, rows - 1))},
-        flush)
+        "library_ms": lambda: buf.index_select(0, ids.clamp(0, rows - 1))}
+    if stream == "uniform":
+      small = PackedLayout(rows=K4_SMALL_ROWS, width=D)
+      small_buf, small_ids = buf[:K4_SMALL_ROWS], ids % K4_SMALL_ROWS
+      sorted_ids = torch.sort(ids).values
+      for yard_ids, yard_buf, yard_layout in ((small_ids, small_buf, small),
+                                              (sorted_ids, buf, layout)):
+        check(torch.equal(cx.gather_rows(yard_layout, yard_buf, yard_ids),
+                          cx.gather_rows_plain(yard_buf, yard_ids)),
+              "gather_rows yardstick: not bit-equal to the plain version")
+      copy_out = torch.empty((n, D), device="cuda")
+      fns.update({
+          "tlb_reach_ms": lambda: cx.gather_rows(small, small_buf,
+                                                 small_ids),
+          "sorted_ms": lambda: cx.gather_rows(layout, buf, sorted_ids),
+          "empty_grid_ms": k4_empty_kernel(torch, n, D),
+          "stream_copy_ms": lambda: copy_out.copy_(buf[:n])})
+    timed = event_ms(torch, fns, flush)
     row = {"phase": "kernel", "name": "gather_rows", "stream": stream,
            "rows": rows, "width": D, "ids": n, "valid_ids": n_valid,
            "bit_equal": True, "max_abs_err": 0.0, **timed,
            "library_note": "index_select of clamped ids: no zero rows",
            **bound(n * 4 + n_valid * D * 4 + n * D * 4, 0, F32_FLOPS)}
+    if stream == "uniform":
+      row["stream_copy_bound_ms"] = bound(2 * n * D * 4, 0,
+                                          F32_FLOPS)["bound_ms"]
     emit(row)
     if stream == "uniform":
       main = row
+  # edge blocks on the same buffer, bit-equal, not timed
+  edges = []
+  for m in K4_EDGE_N:
+    ids = k4_bad_ids(torch, torch.randint(0, rows, (m,), generator=gen,
+                                          device="cuda", dtype=torch.int32),
+                     rows, gen)
+    edges.append([f"n={m}", ids])
+  edges.append(["one_row", torch.full((n,), rows // 2, dtype=torch.int32,
+                                      device="cuda")])
+  for what, ids in edges:
+    check(torch.equal(cx.gather_rows(layout, buf, ids),
+                      cx.gather_rows_plain(buf, ids)),
+          f"gather_rows {what}: not bit-equal to the plain version")
+  emit({"phase": "kernel", "name": "gather_rows", "stream": "edges",
+        "blocks": [w for w, _ in edges], "bit_equal": True})
   del buf
   # fused rows short of their physical row (the kernel reads the stride's
   # lanes; 65 takes its 4-byte path) and a two-row pitch (one optimizer
@@ -975,15 +1151,16 @@ def phase_kernel_gather(torch, cx, flush) -> dict:
   for width, n_aux in ((96, 0), (65, 0), (128, 1)):
     layout = PackedLayout(rows=100_000, width=width, n_aux=n_aux)
     buf = torch.rand(tuple(layout.shape), generator=gen, device="cuda")
-    ids = torch.randint(-100, layout.rows + 100, (n,), generator=gen,
-                        device="cuda", dtype=torch.int32)
-    got = cx.gather_rows(layout, buf, ids)
-    check(torch.equal(got, cx.gather_rows_plain(buf, ids, layout.stride)),
-          f"gather_rows stride {layout.stride}: not bit-equal to the plain "
-          "version")
+    for m in (n, *K4_EDGE_N):
+      ids = torch.randint(-100, layout.rows + 100, (m,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+      got = cx.gather_rows(layout, buf, ids)
+      check(torch.equal(got, cx.gather_rows_plain(buf, ids, layout.stride)),
+            f"gather_rows stride {layout.stride} n={m}: not bit-equal to "
+            "the plain version")
     strides.append([layout.stride, layout.phys_width])
   emit({"phase": "kernel", "name": "gather_rows", "stream": "strides",
-        "stride_pitch": strides, "ids": n, "bit_equal": True})
+        "stride_pitch": strides, "ids": [n, *K4_EDGE_N], "bit_equal": True})
   del buf
   torch.cuda.empty_cache()
   return main
@@ -1187,7 +1364,8 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
           all_losses[:len(losses)].expand(WORLD, -1)))
       check(run["losses_agree"], f"world 4 {compute}: ranks' losses differ")
       if rank == 0:
-        run["trace"] = trace_call(torch, lambda: step(state, *batch))
+        run["trace"] = trace_call(torch, lambda: step(state, *batch),
+                                  kernels=K4_TRACE)
       else:
         step(state, *batch)
       if compute == "f32":
@@ -1284,10 +1462,8 @@ def phase_kernel_flat_fwd(torch, ci, flush) -> dict:
       want = ci.interact_flat_fwd_plain(feats, k)
       rows, cols = ci.tril_pairs(F, k)
       check(tuple(got.shape) == (b, len(rows)), f"shape {tuple(got.shape)}")
-      differ, ulps = within_one_bf16_ulp(torch, got, want)
-      check(differ <= 0.001 * got.numel() and ulps <= 1.0,
-            f"interact_flat_fwd B={b} k={k}: {differ} of {got.numel()} "
-            f"cells differ, worst by {ulps} bf16 ulp")
+      checked = fwd_check(torch, ci, "interact_flat_fwd", got, want, feats,
+                          k)
       idx = torch.as_tensor(rows * F + cols, device="cuda")
       npair = len(rows)
       timed = event_ms(torch, {
@@ -1297,13 +1473,14 @@ def phase_kernel_flat_fwd(torch, ci, flush) -> dict:
           .flatten(1).index_select(1, idx).float()}, flush)
       row = {
           "phase": "kernel", "name": "interact_flat_fwd", "B": b, "F": F,
-          "D": D, "k": k, "cells": got.numel(), "cells_differ": differ,
-          "max_ulp": ulps, "max_abs_err": (got - want).abs().max().item(),
+          "D": D, "k": k, "cells": got.numel(), **checked,
+          "max_abs_err": (got - want).abs().max().item(),
           **timed, **bound(b * (F * D * 2 + npair * 4), 2 * npair * D * b,
                            BF16_FLOPS)}
       emit(row)
       if b == TRAIN_BATCH and k == -1:
         main = row
+  fwd_edges(torch, ci, "interact_flat_fwd")
   return main
 
 

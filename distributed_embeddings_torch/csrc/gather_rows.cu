@@ -29,7 +29,15 @@
 // (4 * stride B) and write the row (4 * stride B): 1,028 B at stride 128,
 // so 2.5 us for one 8,192-row block against 3.35 TB/s -- below a launch's
 // own latency, which is what this kernel's time sits near at the main
-// path's block size.
+// path's block size. There the time is the dispatch of the grid and one
+// dependent round trip (the id, then its row), not the bytes: a warp a
+// row at full occupancy puts every row of the block in flight at once
+// with the fewest instructions between the id and the row. On the card,
+// warps that each hold several rows (one coalesced id load shared by
+// shuffles), grids of one wave, cache hints on the loads and stores, and
+// blocks of 128 or 512 threads took as long or longer; rows within the
+// TLB's reach or in sorted order change nothing, and a contiguous copy of
+// the same bytes takes nearly as long (chip_smoke.py's K4 yardsticks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +81,14 @@ gather_rows_kernel(const float* __restrict__ buf, int64_t rows, int pitch,
   }
 }
 
+__global__ void empty_kernel() {}
+
+// the grid: one warp per (id, 128-lane chunk)
+int64_t blocks_of(int64_t n, int stride) {
+  const int64_t warps = n * ((stride + kLanes - 1) / kLanes);
+  return (warps * 32 + kThreads - 1) / kThreads;
+}
+
 }  // namespace
 
 // buf: [rows, pitch] f32, contiguous, 16-byte aligned, pitch % 128 == 0;
@@ -89,8 +105,7 @@ extern "C" int gather_rows_launch(const void* buf, int64_t rows, int pitch,
   if (n == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const int64_t warps = n * ((stride + kLanes - 1) / kLanes);
-  const int64_t blocks = (warps * 32 + kThreads - 1) / kThreads;
+  const int64_t blocks = blocks_of(n, stride);
   if (blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -106,5 +121,17 @@ extern "C" int gather_rows_launch(const void* buf, int64_t rows, int pitch,
         <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
             b, rows, pitch, stride, i, n, o);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A yardstick, not part of the gather: an empty kernel on `stream` with the
+// grid the gather of n ids of `stride` lanes takes -- the card's floor for
+// dispatching it. Returns cudaGetLastError() (0 on success).
+extern "C" int gather_rows_empty_launch(int64_t n, int stride, void* stream) {
+  if (n <= 0 || stride <= 0 || blocks_of(n, stride) > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  empty_kernel<<<static_cast<unsigned>(blocks_of(n, stride)), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

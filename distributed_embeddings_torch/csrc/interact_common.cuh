@@ -35,10 +35,9 @@
 // P*4; the backward reads P*4 + F*D*2 and writes F*D*2. Their FLOPs are far
 // below the bf16 tensor-core rate, so both are memory-bound. Each feature
 // row is read from device memory once (16-byte loads into shared memory),
-// every pair product stays on chip, and each output is written once. The
-// forward computes on the CUDA cores from shared memory; the backward's
-// F x F product runs on the tensor cores with its loads overlapped (its
-// design is described above bwd_kernel).
+// every pair product stays on chip, and each output is written once. Both
+// products run on the tensor cores with their loads overlapped (the
+// designs are described above bwd_kernel and fwd_kernel).
 
 #pragma once
 
@@ -51,9 +50,6 @@ namespace interact {
 
 constexpr int kMaxParts = 32;
 constexpr int kThreads = 256;
-// bf16 padding per staged row: a 16-byte skew so that threads reading
-// different rows at the same column hit different shared-memory banks
-constexpr int kRowPad = 8;
 
 // K2's inputs: f separate contiguous [b, d] parts
 struct PartRows {
@@ -97,11 +93,6 @@ inline int npair_of(int f, int k) {
   return (k == 0) ? f * (f + 1) / 2 : f * (f - 1) / 2;
 }
 
-inline bool args_ok(int f, int b, int d, int k, int samples_per_block) {
-  return f >= 1 && f <= kMaxParts && b >= 0 && d > 0 && d % 8 == 0 &&
-         (k == 0 || k == -1) && samples_per_block >= 1;
-}
-
 // the pair table in tril order: row p holds pairs (p, 0) .. (p, p + k)
 __device__ inline void fill_pair_table(unsigned char* pair_pq, int f, int k) {
   for (int p = threadIdx.x; p < f; p += blockDim.x) {
@@ -111,104 +102,6 @@ __device__ inline void fill_pair_table(unsigned char* pair_pq, int f, int k) {
       pair_pq[2 * (start + q) + 1] = static_cast<unsigned char>(q);
     }
   }
-}
-
-// stage the tile's [ns, f, d] rows, 16 bytes per thread per step;
-// consecutive threads read consecutive 16-byte pieces of one row
-template <typename Rows>
-__device__ inline void stage_rows(const Rows& in, __nv_bfloat16* rows, int f,
-                                  int d, int s0, int ns) {
-  const int row_elems = d + kRowPad;
-  const int vec_per_row = d / 8;
-  const int total_vec = f * ns * vec_per_row;
-  for (int i = threadIdx.x; i < total_vec; i += blockDim.x) {
-    const int c = i % vec_per_row;
-    const int rest = i / vec_per_row;
-    const int s = rest % ns;
-    const int p = rest / ns;
-    const uint4* src =
-        reinterpret_cast<const uint4*>(in.row(p, static_cast<size_t>(s0 + s))) +
-        c;
-    *reinterpret_cast<uint4*>(
-        rows + (static_cast<size_t>(s) * f + p) * row_elems + c * 8) =
-        __ldg(src);
-  }
-}
-
-template <typename Rows>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(Rows in, int f, int b, int d, int k, int npair,
-           int samples_per_block, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row_elems = d + kRowPad;
-  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  unsigned char* pair_pq =
-      smem_raw + static_cast<size_t>(samples_per_block) * f * row_elems *
-                     sizeof(__nv_bfloat16);
-
-  const int s0 = blockIdx.x * samples_per_block;
-  const int ns = min(samples_per_block, b - s0);
-
-  fill_pair_table(pair_pq, f, k);
-  stage_rows(in, rows, f, d, s0, ns);
-  __syncthreads();
-
-  // one (sample, pair) item per thread step: consecutive threads take
-  // consecutive pairs, so the [B, P] output is written coalesced
-  const int vec_per_row = d / 8;
-  const int items = ns * npair;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int s = it / npair;
-    const int n = it - s * npair;
-    const int p = pair_pq[2 * n];
-    const int q = pair_pq[2 * n + 1];
-    const __nv_bfloat16* rp =
-        rows + (static_cast<size_t>(s) * f + p) * row_elems;
-    const __nv_bfloat16* rq =
-        rows + (static_cast<size_t>(s) * f + q) * row_elems;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < vec_per_row; ++c) {
-      const uint4 va = *reinterpret_cast<const uint4*>(rp + c * 8);
-      const uint4 vb = *reinterpret_cast<const uint4*>(rq + c * 8);
-      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&va);
-      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&vb);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 fa = __bfloat1622float2(a2[j]);
-        const float2 fb = __bfloat1622float2(b2[j]);
-        acc = fmaf(fa.x, fb.x, acc);
-        acc = fmaf(fa.y, fb.y, acc);
-      }
-    }
-    out[static_cast<size_t>(s0 + s) * npair + n] =
-        __bfloat162float(__float2bfloat16_rn(acc));
-  }
-}
-
-// Launch the forward on `stream`; returns cudaGetLastError() (0 on success).
-template <typename Rows>
-int launch_fwd(const Rows& in, int f, int b, int d, int k,
-               int samples_per_block, float* out, cudaStream_t stream) {
-  const int npair = npair_of(f, k);
-  if (b == 0 || npair == 0) {
-    return static_cast<int>(cudaSuccess);
-  }
-  const size_t smem = static_cast<size_t>(samples_per_block) * f *
-                          (d + kRowPad) * sizeof(__nv_bfloat16) +
-                      2 * static_cast<size_t>(npair);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fwd_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      return static_cast<int>(e);
-    }
-  }
-  const int grid = (b + samples_per_block - 1) / samples_per_block;
-  fwd_kernel<Rows><<<grid, kThreads, smem, stream>>>(
-      in, f, b, d, k, npair, samples_per_block, out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -298,6 +191,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most `n` of this thread's latest copy groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
@@ -660,6 +559,311 @@ int launch_bwd(const Rows& in, const Outs& outs, const float* d_acts, int f,
   const int grid = static_cast<int>(units < fill ? units : fill);
   kernel<<<grid, kThreads, g.smem, stream>>>(in, outs, d_acts, f, b, d, k,
                                              npair, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The forward on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Per sample, G = X X^T: X the F x D rows, staged with its rows padded to
+// xr = 16 or 32 by zero rows (never stale memory: 0 * NaN is NaN). The
+// product is mma.sync.m16n8k16 (bf16 in, f32 sums). One ldmatrix.x4 of a
+// 16-row M tile of X is that tile's A fragment, and its two 8-row halves
+// are at once the B fragments of the N tiles of the same rows (X^T in
+// column-major order is X in row-major order), so one ldmatrix.x4 per M
+// tile and k step feeds every product and each staged row is read from
+// shared memory once per k step. Only the 16 x 8 output tiles that hold a
+// pair of np.tril_indices(F, k) are issued (F = 27: 6 of 8, 48 MMAs a
+// sample at D = 128). The epilogue rounds each wanted sum to bf16 into a
+// [ns, P] f32 output stage at its pair's tril index, and the block writes
+// the unit's ns * P outputs, one contiguous run, with 16-byte stores.
+//
+// Geometry (ops/cuda_interact.py: fwd_geometry): a unit is `ns` samples;
+// its columns come in k tiles of up to kFwdMaxKTile, a multiple of 16 (D
+// past the last multiple of 16 meets zero columns). A persistent grid of
+// (blocks per SM) x SMs walks (unit, k tile) items, each block through a
+// ring of kFwdStages stages filled by cp.async: while it computes one
+// item, the next kFwdStages - 1 are in flight. A warp owns one sample and
+// keeps its sums in registers across the unit's k tiles.
+//
+// Bound: F * D * 2 bytes in and P * 4 out per sample; the MMAs (2 * 6 *
+// 16 * 8 * D flops a sample at F = 27, about 24 a byte moved) are far
+// below the some 295 flops a byte at which the tensor cores would bound
+// it, so device memory bounds the kernel.
+
+// a ring of two stages leaves room for three blocks on an SM
+// (ops/cuda_interact.py: FWD_SMEM_TARGET), which keeps more rows in flight
+// than a deeper ring or larger units at fewer blocks an SM
+constexpr int kFwdStages = 2;
+constexpr int kFwdBlocksPerSm = 3;
+constexpr int kFwdMaxKTile = 128;
+
+struct FwdGeo {
+  int xr;          // staged rows per sample: the MMA's M and N, 16 or 32
+  int kt;          // columns per k tile: a multiple of 16
+  int nkt;         // k tiles
+  int re;          // bf16 elements per staged row: kt + 8
+  int ns;          // samples per unit
+  int npair;       // pairs per sample
+  unsigned tiles;  // bit m * 4 + n: the 16 x 8 output tile (m, n) is issued
+  size_t x_stage, o_stage, smem;
+};
+
+// the output tiles (m, n) that hold a pair (p, q), q <= p + k, p < f
+inline unsigned fwd_tiles(int f, int k) {
+  const int xr = f <= 16 ? 16 : 32;
+  unsigned mask = 0;
+  for (int m = 0; m < xr / 16; ++m) {
+    const int pmax = f - 1 < m * 16 + 15 ? f - 1 : m * 16 + 15;
+    for (int n = 0; n < xr / 8 && m * 16 <= pmax; ++n) {
+      if (n * 8 <= pmax + k) {
+        mask |= 1u << (m * 4 + n);
+      }
+    }
+  }
+  return mask;
+}
+
+inline FwdGeo fwd_geo(int f, int d, int k, int ns) {
+  FwdGeo g;
+  g.xr = f <= 16 ? 16 : 32;
+  const int kd = (d + 15) / 16 * 16;
+  g.kt = kd < kFwdMaxKTile ? kd : kFwdMaxKTile;
+  g.nkt = (d + g.kt - 1) / g.kt;
+  // a row stride of an odd number of 16-byte units: the eight rows of an
+  // ldmatrix hit eight different bank quads
+  g.re = g.kt + 8;
+  g.ns = ns;
+  g.npair = npair_of(f, k);
+  g.tiles = fwd_tiles(f, k);
+  g.x_stage = static_cast<size_t>(ns) * g.xr * g.re * sizeof(__nv_bfloat16);
+  // the output block starts at its destination's offset mod 16 bytes
+  g.o_stage = round16((static_cast<size_t>(ns) * g.npair + 4) * sizeof(float));
+  g.smem = kFwdStages * g.x_stage + g.o_stage;
+  return g;
+}
+
+inline bool args_ok(int f, int b, int d, int k, int samples_per_unit) {
+  return f >= 1 && f <= kMaxParts && b >= 0 && d > 0 && d % 8 == 0 &&
+         (k == 0 || k == -1) && samples_per_unit >= 1 &&
+         samples_per_unit <= kThreads / 32;
+}
+
+template <typename Rows>
+__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
+fwd_kernel(Rows in, int f, int b, int d, int k, FwdGeo g,
+           float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  auto xs = [&](int i) {
+    return reinterpret_cast<__nv_bfloat16*>(smem_raw + i * g.x_stage);
+  };
+  float* const o_base =
+      reinterpret_cast<float*>(smem_raw + kFwdStages * g.x_stage);
+
+  // the pad rows [f, xr) of every stage's samples are zero for the whole
+  // run: the loads write rows < f only
+  const int pad = g.xr - f;
+  if (pad > 0) {
+    const int vpr = g.kt / 8;
+    const int total = kFwdStages * g.ns * pad * vpr;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int c = i % vpr;
+      const int r = i / vpr;
+      const int sample = r / pad;  // stage * ns + sample
+      *reinterpret_cast<uint4*>(
+          xs(0) + (static_cast<size_t>(sample) * g.xr + f + r % pad) * g.re +
+          c * 8) = zero;
+    }
+  }
+
+  // this block's items: (unit blockIdx.x + i * gridDim.x, k tile t) for
+  // item i * nkt + t
+  const int n_units = (b + g.ns - 1) / g.ns;
+  const int my_units =
+      static_cast<int>(blockIdx.x) < n_units
+          ? (n_units - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+          : 0;
+  const int n_items = my_units * g.nkt;
+  const int last_dn = d - (g.nkt - 1) * g.kt;
+  const RowWalk walk_full(threadIdx.x, kThreads, g.kt / 8, f);
+  const RowWalk walk_last(threadIdx.x, kThreads, last_dn / 8, f);
+
+  auto issue = [&](int item, __nv_bfloat16* x) {
+    const int i = item / g.nkt;
+    const int t = item - i * g.nkt;
+    const int s0 = (blockIdx.x + i * gridDim.x) * g.ns;
+    const int nsa = min(g.ns, b - s0);
+    const int d0 = t * g.kt;
+    const int dn = min(g.kt, d - d0);
+    RowWalk w = dn == g.kt ? walk_full : walk_last;
+    const int total = nsa * f * (dn / 8);
+    for (int j = threadIdx.x; j < total; j += blockDim.x, w.next()) {
+      cp_async16(x + (w.s * g.xr + w.p) * g.re + w.c * 8,
+                 in.row(w.p, static_cast<size_t>(s0 + w.s)) + d0 + w.c * 8);
+    }
+    if (dn % 16 != 0) {
+      // the k step past D reads these 8 columns: zeros, not a full tile's
+      // stale columns
+      for (int j = threadIdx.x; j < nsa * f; j += blockDim.x) {
+        *reinterpret_cast<uint4*>(x + ((j / f) * g.xr + j % f) * g.re + dn) =
+            zero;
+      }
+    }
+  };
+
+  for (int j = 0; j < kFwdStages - 1; ++j) {
+    if (j < n_items) {
+      issue(j, xs(j));
+    }
+    cp_async_commit();
+  }
+  float acc[2][4][4];
+  const int gr = lane >> 2;
+  const int c2 = 2 * (lane & 3);
+  int cur = 0;
+  for (int item = 0; item < n_items; ++item) {
+    cp_async_wait<kFwdStages - 2>();
+    __syncthreads();  // this item's stage is in; the oldest one is free
+    {
+      const int next = item + kFwdStages - 1;
+      const int slot = cur == 0 ? kFwdStages - 1 : cur - 1;
+      if (next < n_items) {
+        issue(next, xs(slot));
+      }
+      cp_async_commit();
+    }
+    const int i = item / g.nkt;
+    const int t = item - i * g.nkt;
+    const int s0 = (blockIdx.x + i * gridDim.x) * g.ns;
+    const int nsa = min(g.ns, b - s0);
+    const int dn = min(g.kt, d - t * g.kt);
+    if (t == 0) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[m][n][e] = 0.f;
+          }
+        }
+      }
+    }
+    if (warp < nsa) {
+      const __nv_bfloat16* xm =
+          xs(cur) + (warp * g.xr + (lane & 15)) * g.re + (lane >> 4) * 8;
+      const int ksteps = (dn + 15) / 16;
+#pragma unroll 2
+      for (int ks = 0; ks < ksteps; ++ks) {
+        unsigned a[2][4];
+        ldmatrix_x4(a[0], xm + ks * 16);
+        if (g.xr == 32) {
+          ldmatrix_x4(a[1], xm + 16 * g.re + ks * 16);
+        } else {
+          a[1][0] = a[1][1] = a[1][2] = a[1][3] = 0u;
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            if ((g.tiles >> (m * 4 + n)) & 1u) {
+              // B of N tile n: rows 8n .. 8n + 7, the A fragment's half
+              mma_bf16(acc[m][n], a[m], a[n >> 1][n & 1],
+                       a[n >> 1][(n & 1) + 2]);
+            }
+          }
+        }
+      }
+    }
+    if (t == g.nkt - 1) {
+      float* const dst = out + static_cast<size_t>(s0) * g.npair;
+      float* const os = o_base + phase_of(dst);
+      if (warp < nsa) {
+        float* const o = os + warp * g.npair;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            if ((g.tiles >> (m * 4 + n)) & 1u) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int p = m * 16 + gr + 8 * (e >> 1);
+                const int q = n * 8 + c2 + (e & 1);
+                if (p < f && q <= p + k) {
+                  const int tri = (k == 0) ? p * (p + 1) / 2 : p * (p - 1) / 2;
+                  o[tri + q] = __bfloat162float(
+                      __float2bfloat16_rn(acc[m][n][e]));
+                }
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // the unit's nsa * P outputs are one contiguous run: 4-byte stores
+      // up to a 16-byte boundary, then 16-byte stores
+      const int n = nsa * g.npair;
+      const int head = min(n, (4 - phase_of(dst)) & 3);
+      const int nvec = (n - head) / 4;
+      for (int j = threadIdx.x; j < head; j += blockDim.x) {
+        dst[j] = os[j];
+      }
+      for (int j = threadIdx.x; j < nvec; j += blockDim.x) {
+        *reinterpret_cast<float4*>(dst + head + 4 * j) =
+            *reinterpret_cast<const float4*>(os + head + 4 * j);
+      }
+      for (int j = head + 4 * nvec + threadIdx.x; j < n; j += blockDim.x) {
+        dst[j] = os[j];
+      }
+    }
+    cur = cur + 1 == kFwdStages ? 0 : cur + 1;
+  }
+  cp_async_wait_all();
+}
+
+// Launch the forward on `stream`: `ns` samples a unit (ops/cuda_interact.py:
+// fwd_geometry), a persistent grid. Returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue when a unit's stages exceed a block's
+// shared memory.
+template <typename Rows>
+int launch_fwd(const Rows& in, int f, int b, int d, int k, int ns, float* out,
+               cudaStream_t stream) {
+  if (b == 0 || npair_of(f, k) == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  const FwdGeo g = fwd_geo(f, d, k, ns);
+  if (g.smem > kSmemMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = fwd_kernel<Rows>;
+  if (g.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(g.smem));
+    if (e != cudaSuccess) {
+      return static_cast<int>(e);
+    }
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, g.smem);
+  }
+  if (e != cudaSuccess) {
+    return static_cast<int>(e);
+  }
+  const int64_t units = (b + ns - 1) / ns;
+  const int64_t fill = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = static_cast<int>(units < fill ? units : fill);
+  kernel<<<grid, kThreads, g.smem, stream>>>(in, f, b, d, k, g, out);
   return static_cast<int>(cudaGetLastError());
 }
 

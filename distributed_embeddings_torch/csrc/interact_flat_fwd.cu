@@ -10,10 +10,11 @@
 //
 // for each pair n = (p, q) of np.tril_indices(F, k), the sum in f32: K2-fwd's
 // function, with one flat input in place of F part pointers. The body is
-// K2-fwd's (interact_common.cuh, where the maths, the bound and the design
-// are written once); only the row-address functor differs. The TPU kernel's
-// 256-sample batch blocks, its [S, F, F] VMEM product and its selection
-// matmul are Mosaic's way to the same function and are not carried over.
+// K2-fwd's (interact_common.cuh, where the maths, the bound and the design,
+// a per-sample X X^T on the tensor cores, are written once); only the
+// row-address functor differs. The TPU kernel's 256-sample batch blocks,
+// its [S, F, F] VMEM product and its selection matmul are Mosaic's way to
+// the same function and are not carried over.
 //
 // Bound on this card: it must read F*D*2 bytes and write P*4 bytes per
 // sample (8,316 B at F=27, D=128, P=351): 10.2 us at B=4096 and 163 us at
@@ -21,8 +22,10 @@
 
 #include "interact_common.cuh"
 
-// feats: [b, f, d] bf16, contiguous and 16-byte aligned; out: [b, npair]
-// f32. Launches on `stream` and returns cudaGetLastError() (0 on success).
+// feats: [b, f, d] bf16, contiguous and 16-byte aligned; samples_per_block:
+// the kernel's unit, 1 to 8 samples (ops/cuda_interact.py: fwd_geometry);
+// out: [b, npair] f32. Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 extern "C" int interact_flat_fwd_launch(const void* feats, int f, int b,
                                         int d, int k, int samples_per_block,
                                         void* out, void* stream) {

@@ -9,6 +9,11 @@ dot of the two rows, rounded to bf16 and widened back to f32 — the TPU
 kernel's function (its half-weight selection matrix reproduces the
 bf16-rounded pair value exactly, ``models/dlrm.py:_tril_select_np``).
 
+The kernel computes each sample's ``X X^T`` on the tensor cores, only the
+output tiles that hold a pair, in units of :func:`fwd_geometry` (pure
+Python; the library's ``interact_fwd_geometry`` reads back what the
+launcher lays out).
+
 K2-bwd replaces ``pallas_interact.py:interact_parts_bwd``. Its kernel
 (``csrc/interact_bwd.cu``) takes the ``[B, P]`` f32 cotangent and the f
 bf16 parts and writes the f bf16 part cotangents ``bf16(sum_q c_pq x_q)``
@@ -35,17 +40,20 @@ launches (the main path's proof that it went through the kernels).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 MAX_PARTS = 32
-# bf16 elements of padding per row the kernel stages in shared memory
-ROW_PAD = 8
-SMEM_TARGET = 48 * 1024       # default dynamic shared memory per block
 SMEM_MAX = 227 * 1024         # H100 opt-in limit per block
 MAX_SAMPLES_PER_BLOCK = 8
+# the forward's unit: a ring of this many stages, k tiles of at most this
+# many columns, all within this much shared memory (three blocks on an
+# SM's 228 KB, each with its 1 KB reserve)
+FWD_STAGES = 2
+FWD_MAX_K_TILE = 128
+FWD_SMEM_TARGET = 75 * 1024
 # the backward's unit: at most this many columns, stage within this much
 BWD_MAX_D_TILE = 128
 BWD_SMEM_TARGET = 100 * 1024
@@ -73,18 +81,71 @@ def interact_parts_fwd_plain(parts: Sequence[torch.Tensor],
   return acts.to(torch.bfloat16).float()
 
 
-def samples_per_block(f: int, d: int) -> int:
-  """Samples one block stages: as many as fit the default 48 KB of shared
-  memory, 1 to 8; raises when one sample alone exceeds the card's
-  per-block limit."""
-  per_sample = f * (d + ROW_PAD) * 2
-  npair_max = f * (f + 1) // 2
-  if per_sample + 2 * npair_max > SMEM_MAX:
-    raise ValueError(
-        f"interact_parts_fwd: one sample's {f} x {d} bf16 rows need "
-        f"{per_sample:,} B of shared memory, over the {SMEM_MAX:,} B a "
-        "block may use")
-  return max(1, min(MAX_SAMPLES_PER_BLOCK, SMEM_TARGET // per_sample))
+class FwdGeometry(NamedTuple):
+  """The forward kernel's unit and its shared-memory layout
+  (``csrc/interact_common.cuh: fwd_geo``): ``ns`` samples a unit, their
+  rows padded to ``xr`` (16 or 32, the MMA's M and N), staged ``kt``
+  columns (a k tile, a multiple of 16) at a time in ``nkt`` tiles, ``re``
+  bf16 elements a staged row; ``tiles``, the 16 x 8 output tiles ``(m,
+  n)`` the kernel issues; ``x_stage`` bytes a stage of rows (the ring has
+  ``FWD_STAGES``), ``o_stage`` bytes of its output stage, ``smem`` bytes
+  in all."""
+  ns: int
+  xr: int
+  kt: int
+  nkt: int
+  re: int
+  tiles: Tuple[Tuple[int, int], ...]
+  x_stage: int
+  o_stage: int
+  smem: int
+
+
+def fwd_tiles(f: int, k: int) -> Tuple[Tuple[int, int], ...]:
+  """The output tiles ``(m, n)`` (rows ``16m .. 16m + 15``, columns ``8n ..
+  8n + 7`` of the padded ``X X^T``) that hold a pair ``(p, q)`` of
+  ``tril_indices(f, k)``; every pair lies in exactly one of them."""
+  xr = 16 if f <= 16 else 32
+  tiles = []
+  for m in range(xr // 16):
+    pmax = min(m * 16 + 15, f - 1)
+    if m * 16 > pmax:
+      continue
+    tiles += [(m, n) for n in range(xr // 8) if n * 8 <= pmax + k]
+  return tuple(tiles)
+
+
+def fwd_geometry(f: int, d: int, k: int) -> FwdGeometry:
+  """The forward kernel's unit for ``f`` features of ``d`` lanes: as many
+  samples as keep the ring of ``FWD_STAGES`` k-tile stages and the output
+  stage within ``FWD_SMEM_TARGET``, 1 to 8 (one warp a sample), a
+  multiple of 4 where that leaves at least 4 (so that a unit's outputs
+  start 16-byte aligned for any P). Rows are padded to 16 or 32, columns
+  to a multiple of 16 and staged in k tiles of at most ``FWD_MAX_K_TILE``,
+  so one sample's stage is bounded and every ``d`` is served."""
+  if k not in (-1, 0):
+    raise ValueError(f"k must be -1 or 0, got {k}")
+  if not 1 <= f <= MAX_PARTS or d <= 0 or d % 8:
+    raise ValueError(f"the forward kernel takes 1..{MAX_PARTS} features of "
+                     f"a multiple of 8 lanes, got f={f}, d={d}")
+  xr = 16 if f <= 16 else 32
+  kt = min(-(-d // 16) * 16, FWD_MAX_K_TILE)
+  re = kt + 8
+  npair = len(tril_pairs(f, k)[0])
+
+  def layout(ns):
+    x_stage = ns * xr * re * 2
+    o_stage = -(-((ns * npair + 4) * 4) // 16) * 16
+    return x_stage, o_stage, FWD_STAGES * x_stage + o_stage
+
+  ns = MAX_SAMPLES_PER_BLOCK
+  while ns > 1 and layout(ns)[2] > FWD_SMEM_TARGET:
+    ns -= 1
+  if ns >= 4:
+    ns -= ns % 4
+  x_stage, o_stage, smem = layout(ns)
+  return FwdGeometry(ns, xr, kt, -(-d // kt), re, fwd_tiles(f, k), x_stage,
+                     o_stage, smem)
 
 
 def _check_parts(parts: Sequence[torch.Tensor], k: int):
@@ -163,7 +224,7 @@ def _launch(parts: Sequence[torch.Tensor], k: int, f: int, b: int,
   dev = parts[0].device
   out = torch.empty((b, npair), dtype=torch.float32, device=dev)
   _call("interact_fwd", _FWD_ARGS,
-        (_pointers(parts), f, b, d, k, samples_per_block(f, d),
+        (_pointers(parts), f, b, d, k, fwd_geometry(f, d, k).ns,
          out.data_ptr()), dev)
   launches += 1
   return out
@@ -313,7 +374,7 @@ def interact_flat_fwd(feats: torch.Tensor, k: int = -1) -> torch.Tensor:
   npair = len(tril_pairs(f, k)[0])
   out = torch.empty((b, npair), dtype=torch.float32, device=feats.device)
   _call("interact_flat_fwd", _FWD_ARGS,
-        (feats.data_ptr(), f, b, d, k, samples_per_block(f, d),
+        (feats.data_ptr(), f, b, d, k, fwd_geometry(f, d, k).ns,
          out.data_ptr()), feats.device)
   flat_launches += 1
   return out

@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from distributed_embeddings_torch.models.dlrm import (
     _tril_select_np as torch_tril_select_np,
@@ -118,8 +120,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
   with pytest.raises(ValueError):
     cuda_interact.interact_parts_fwd(parts * 11, -1)  # 33 > 32 parts
   with pytest.raises(ValueError):
-    cuda_interact.samples_per_block(32, 8192)  # one sample > shared memory
-  assert cuda_interact.samples_per_block(F, D) == 6
+    cuda_interact.fwd_geometry(F, 12, -1)  # rows of a multiple of 8 lanes
+  # the forward's unit: four samples of D=128 at the DLRM width (three at
+  # F=32 with self-interaction, whose outputs take more of the stage); a
+  # wider D is staged in 128-column k tiles, not refused
+  assert cuda_interact.fwd_geometry(F, D, -1).ns == 4
+  assert cuda_interact.fwd_geometry(32, 8192, 0)[:4] == (3, 32, 128, 64)
 
 
 @pytest.mark.parametrize("k", [-1, 0])
@@ -191,3 +197,122 @@ def test_pair_coefficients_are_exact_in_bf16(k):
                          ).astype(np.float32))
   coef = cuda_interact.pair_coefficients(d_acts, f, k)
   assert torch.equal(coef.to(torch.bfloat16).float(), coef)
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's geometry and order (csrc/interact_common.cuh:
+# fwd_kernel), pinned on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _fwd_layout_bytes(g, ns, npair):
+  """The shared memory ``ns`` samples of geometry ``g`` need."""
+  x_stage = ns * g.xr * g.re * 2
+  return (cuda_interact.FWD_STAGES * x_stage
+          + -(-((ns * npair + 4) * 4) // 16) * 16)
+
+
+@settings(max_examples=400, deadline=None, derandomize=True)
+@given(st.integers(1, 32), st.integers(1, 64), st.sampled_from([-1, 0]))
+def test_fwd_geometry_fits_and_its_tiles_cover_every_pair_once(f, d8, k):
+  d = 8 * d8
+  g = cuda_interact.fwd_geometry(f, d, k)
+  rows, cols = cuda_interact.tril_pairs(f, k)
+  npair = len(rows)
+  # the stage fits a block's shared memory, laid out as the launcher does
+  assert g.smem <= cuda_interact.SMEM_MAX
+  assert g.smem == _fwd_layout_bytes(g, g.ns, npair)
+  assert g.x_stage == g.ns * g.xr * g.re * 2 and g.o_stage % 16 == 0
+  # one warp a sample; a multiple of 4 wherever 4 samples fit
+  assert 1 <= g.ns <= cuda_interact.MAX_SAMPLES_PER_BLOCK
+  four_fit = _fwd_layout_bytes(g, 4, npair) <= cuda_interact.FWD_SMEM_TARGET
+  assert g.ns % 4 == 0 if four_fit else g.ns < 4
+  # rows padded to the MMA's 16 or 32, k tiles of 16-column steps that
+  # cover D, rows an odd number of 16-byte units apart
+  assert g.xr in (16, 32) and f <= g.xr and (g.xr == 16) == (f <= 16)
+  assert g.kt % 16 == 0 and g.kt <= cuda_interact.FWD_MAX_K_TILE
+  assert (g.nkt - 1) * g.kt < d <= g.nkt * g.kt
+  assert g.re == g.kt + 8 and (g.re * 2 // 16) % 2 == 1
+  # every pair lies in exactly one issued tile; every issued tile holds one
+  assert len(set(g.tiles)) == len(g.tiles)
+  for m, n in g.tiles:
+    assert 0 <= m < g.xr // 16 and 0 <= n < g.xr // 8
+  holders = [[(m, n) for m, n in g.tiles
+              if m * 16 <= p < m * 16 + 16 and n * 8 <= q < n * 8 + 8]
+             for p, q in zip(rows, cols)]
+  assert all(len(h) == 1 for h in holders)
+  assert {h[0] for h in holders} == set(g.tiles)
+
+
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+  return torch.tensor(x, dtype=torch.float32).to(torch.bfloat16).float() \
+      .numpy()
+
+
+def tensor_core_fwd(x: np.ndarray, k: int) -> np.ndarray:
+  """The forward kernel's order in numpy: ``x`` ``[B, F, D]`` (bf16 values
+  as f32) zero-padded to ``xr`` rows and to 16-column k steps; per k step,
+  the 16 exact products of each cell summed and added to its f32 sum in
+  one rounding (the tensor core's step); only the issued 16 x 8 tiles
+  kept; each wanted cell rounded to bf16 and written at the epilogue's
+  index ``tri(p) + q``. Asserts that every pair is written exactly once."""
+  b, f, d = x.shape
+  g = cuda_interact.fwd_geometry(f, d, k)
+  dp = -(-d // 16) * 16
+  xp = np.zeros((b, g.xr, dp), np.float64)
+  xp[:, :f, :d] = x
+  acc = np.zeros((b, g.xr, g.xr), np.float32)
+  for c in range(0, dp, 16):
+    step = np.einsum("bpd,bqd->bpq", xp[..., c:c + 16], xp[..., c:c + 16])
+    acc = (acc.astype(np.float64) + step).astype(np.float32)
+  npair = len(cuda_interact.tril_pairs(f, k)[0])
+  out = np.full((b, npair), np.nan, np.float32)
+  written = np.zeros(npair, np.int64)
+  for m, n in g.tiles:
+    for p in range(m * 16, m * 16 + 16):
+      for q in range(n * 8, n * 8 + 8):
+        if p < f and q <= p + k:
+          idx = (p * (p + 1) // 2 if k == 0 else p * (p - 1) // 2) + q
+          out[:, idx] = _bf16_round(acc[:, p, q])
+          written[idx] += 1
+  assert np.all(written == 1), written
+  return out
+
+
+def _assert_fwd_class(got, want, slack):
+  """The forward kernel's class (``chip_smoke.py: fwd_check``): at least
+  99.9% of the cells bit-equal, every cell within one bf16 ulp or, where
+  its D terms cancel, within the f32 summation bound ``slack = D * 2^-24 *
+  sum_d |x_p[d] x_q[d]|``."""
+  assert np.mean(got == want) >= 0.999, np.mean(got == want)
+  bound = np.maximum(_bf16_ulp(np.maximum(np.abs(got), np.abs(want))), slack)
+  assert np.all(np.abs(got - want) <= bound), \
+      float(np.max(np.abs(got - want) / bound))
+
+
+@pytest.mark.parametrize("k", [-1, 0])
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("f", [2, 13, 27, 32])
+def test_tensor_core_order_matches_pallas_interpret(f, d, k):
+  """The kernel's tile -> pair map and its k-step f32 sums, emulated, hold
+  the forward's class against the TPU kernel run in interpret mode and
+  against the port's plain version. Summed in 16-column steps, a cell
+  whose D terms cancel can land more than one bf16 ulp from a sum taken
+  in another order (one cell each at F=13 and F=32, D=128, k=-1 here, as
+  on the card), so those cells are held to the f32 summation bound."""
+  b = 256  # one of the TPU kernel's batch blocks
+  parts_np = [_bf16_round(p) for p in _parts(40 + f + d - k, f=f, b=b, d=d)]
+  m_np, p = _tril_select_np(f, k)
+  want = np.asarray(interact_parts_fwd(
+      [jnp.asarray(x, jnp.bfloat16) for x in parts_np],
+      jnp.asarray(m_np, jnp.bfloat16), interpret=True))
+  x = np.stack(parts_np, axis=1)
+  got = tensor_core_fwd(x, k)
+  assert got.shape == (b, p)
+  rows, cols = cuda_interact.tril_pairs(f, k)
+  abs_sum = np.einsum("bpd,bqd->bpq", np.abs(x).astype(np.float64),
+                      np.abs(x).astype(np.float64))[:, rows, cols]
+  _assert_fwd_class(got, want, d * 2.0**-24 * abs_sum)
+  plain = cuda_interact.interact_parts_fwd(
+      [torch.tensor(x).to(torch.bfloat16) for x in parts_np], k).numpy()
+  _assert_fwd_class(got, plain, d * 2.0**-24 * abs_sum)

@@ -105,6 +105,34 @@ def test_flat_bwd_matches_pallas_interpret_and_tril_products(k):
       g, torch.stack(want_parts, 1).float().numpy())
 
 
+@pytest.mark.parametrize("k", [-1, 0])
+@pytest.mark.parametrize("d", [8, 128])
+def test_flat_tensor_core_order_matches_pallas_interpret(d, k):
+  """K3-fwd runs K2-fwd's body (``csrc/interact_common.cuh: fwd_kernel``)
+  over the flat rows: that body's tile -> pair map and k-step f32 sums,
+  emulated (``test_torch_interact.tensor_core_fwd``), hold the forward's
+  class against the flat TPU kernel run in interpret mode."""
+  from test_torch_interact import _assert_fwd_class, tensor_core_fwd
+  b = 256  # one of the TPU kernel's batch blocks
+  rng = np.random.default_rng(50 + d - k)
+  feats = torch.tensor(rng.standard_normal((b, F, d)) * 0.3,
+                       dtype=torch.float32).to(torch.bfloat16)
+  m_np, p = _tril_select_np(F, k)
+  want = np.asarray(interact_fwd(jnp.asarray(feats.float().numpy(),
+                                             jnp.bfloat16),
+                                 jnp.asarray(m_np, jnp.bfloat16),
+                                 interpret=True))
+  x = feats.float().numpy()
+  got = tensor_core_fwd(x, k)
+  assert got.shape == (b, p)
+  rows, cols = cuda_interact.tril_pairs(F, k)
+  ax = np.abs(x).astype(np.float64)
+  slack = d * 2.0**-24 * np.einsum("bpd,bqd->bpq", ax, ax)[:, rows, cols]
+  _assert_fwd_class(got, want, slack)
+  _assert_fwd_class(got, cuda_interact.interact_flat_fwd(feats, k).numpy(),
+                    slack)
+
+
 def test_flat_wrappers_refuse_what_the_kernels_do_not_take():
   feats = torch.zeros((4, 3, 16), dtype=torch.bfloat16)
   with pytest.raises(TypeError):
