@@ -4,12 +4,14 @@ NVIDIA H100.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``distributed_embeddings_torch/
-csrc/`` and drives the port's five paths on the card: DLRM serving on
-frozen tables, the world-1 sparse train step of ``bench.py``, the
-dense-autodiff train step of the README's Quick start, the synthetic
-zoo's Tiny train step of ``tools/bench_synthetic.py tiny 65536``, and the
-world-4 hybrid-parallel train step of ``examples/dlrm/main.py --sparse``
-under ``overlap='fused'``. One JSON line per phase:
+csrc/`` and drives the port's paths on the card: DLRM serving on
+frozen tables, and the README's serving snippet (export the artifact,
+load it, serve it, a ``MicroBatcher`` in front; world 1 and world 4), the
+world-1 sparse train step of ``bench.py``, the dense-autodiff train step
+of the README's Quick start, the synthetic zoo's Tiny train step of
+``tools/bench_synthetic.py tiny 65536``, and the world-4 hybrid-parallel
+train step of ``examples/dlrm/main.py --sparse`` under
+``overlap='fused'``. One JSON line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
    must have compute capability (9, 0);
@@ -84,7 +86,23 @@ under ``overlap='fused'``. One JSON line per phase:
    interaction, and K2-fwd ran once per request. A fourth request per
    image runs under ``torch.profiler`` (``serve_trace``): the device's
    busy time and idle share, the costliest device operations and K2-fwd's
-   device time;
+   device time. Then ``serve_artifact``: per image (f32, then int8) the
+   same state ``serving.export``-ed to a ``tempfile.mkdtemp()``
+   directory, ``checkpoint.verify``-ed, ``serving.load``-ed and served by
+   a ``ServeEngine`` on the artifact: the 3 requests' predictions
+   bit-equal to the in-memory engine's (and, f32, to
+   ``make_sparse_eval_step``'s), K2-fwd once per request; the bytes and
+   files written, the seconds of export, verify and load, the free disk
+   space (the directory is deleted before the next image). And
+   ``serve_batcher``: the f32 artifact engine behind ``MicroBatcher(
+   max_batch=4096, max_delay_s=0.002)``, 4 submitter threads sending
+   3,000 requests of 1-512 rows as Poisson arrivals at 250, 1,000 and
+   3,000 requests/s: per rate the p50 / p99 / p99.9 request latency,
+   the dispatches and their mean fill, rejections by reason (summing to
+   the batcher's count), the flusher's time in a dispatch and the
+   completer's wait for the device; every answer within
+   ``serving.golden.PRED_TOL`` of ``predict`` of the same rows, K2-fwd
+   once per dispatch;
 7. ``train``: ``bench.py``'s train step at full width (the same tables,
    ``batch_hint=65536``: 4 sparse classes and one dense class; SGD 0.1
    on the tables and the dense params; one batch of 65,536 uniform ids
@@ -140,12 +158,18 @@ under ``overlap='fused'``. One JSON line per phase:
    ``overlap='fused'``
    and one under ``'none'`` from the same state: the losses bit-equal,
    the fused buffers bit-equal on every row fewer than two ids hit
-   (elsewhere K1's atomics order the duplicates' adds).
+   (elsewhere K1's atomics order the duplicates' adds). Then
+   ``serve_world4``: on both backends a state of the x 1/16 plan, exported
+   by the four ranks into one directory (f32), loaded with each rank's
+   mesh, served by ``ServeEngine(mesh=)`` for 3 global requests of 4096
+   in lockstep: every rank's predictions equal, bit-equal to the
+   in-memory engine's and to the world-4 ``make_sparse_eval_step``'s,
+   K2-fwd once per rank and request.
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
-the ``kernels`` line come from the serve, train, dense, zoo and world-4
-phases alone: each sets all nine kernels' counters to 0 just before each
+the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
+train, dense, zoo and world-4 (train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
 run of its path, reads all nine just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
@@ -171,6 +195,14 @@ F, D = 27, 128
 KERNEL_BATCHES = (4096, 65536, 4000)
 SERVE_BATCH = 4096
 SERVE_REQUESTS = 3
+# the batcher phase: Poisson arrivals of requests of 1-512 rows from
+# several submitter threads, at each offered rate (requests/s)
+BATCHER_RATES = (250, 1000, 3000)
+BATCHER_REQUESTS = 3000
+BATCHER_THREADS = 4
+BATCHER_MAX_ROWS = 512
+BATCHER_DELAY_S = 0.002
+BATCHER_POOL = 4  # request rows are drawn from 4 x 4096 pooled rows
 TRAIN_BATCH = 65536
 # bench.py's 24.0 sends this random-label batch's loss to NaN by the
 # fourth step; 0.1 is what MLPerf DLRM's warm-up from 0 to 24 over 2,750
@@ -794,26 +826,18 @@ def sgd_factory(torch):
   return functools.partial(torch.optim.SGD, lr=TRAIN_LR)
 
 
-def phase_serve(torch, ci, smi: str) -> dict:
-  """The full-width serve path; returns each kernel's launches in it."""
+def serve_setup(torch) -> dict:
+  """The full-width serve cell's plan, model, train state and requests
+  (``phase_serve`` and ``phase_serve_artifact`` serve the same)."""
   import numpy as np
 
   from distributed_embeddings_torch.models import DLRM, dlrm_embedding_plan
   from distributed_embeddings_torch.ops.packed_table import sgd_rule
-  from distributed_embeddings_torch.serving import (
-      ServeEngine,
-      freeze,
-      make_serve_step,
-      shard_batch,
-  )
-  from distributed_embeddings_torch.serving.golden import PRED_TOL, EmbActs
   from distributed_embeddings_torch.training import init_sparse_state_direct
 
   vocab = criteo_vocab()
   plan = dlrm_embedding_plan(vocab, D, dense_row_threshold=4096)
   rule = sgd_rule(TRAIN_LR)
-  dense_tables = sum(len(cp.shards_per_rank[0])
-                     for cp in plan.classes.values() if cp.kind == "dense")
   model = DLRM(vocab, D, compute_dtype=torch.bfloat16, tables=False,
                device="cuda", generator=torch.Generator().manual_seed(SEED))
   torch.cuda.reset_peak_memory_stats()
@@ -827,6 +851,29 @@ def phase_serve(torch, ci, smi: str) -> dict:
   requests = [(rng.standard_normal((SERVE_BATCH, 13)).astype(np.float32),
                [rng.integers(0, v, SERVE_BATCH).astype(np.int32)
                 for v in vocab]) for _ in range(SERVE_REQUESTS)]
+  return {"vocab": vocab, "plan": plan, "rule": rule, "model": model,
+          "state": state, "init_s": init_s, "requests": requests}
+
+
+def phase_serve(torch, ci, smi: str, setup: dict) -> tuple:
+  """The full-width serve path; returns each kernel's launches in it and
+  each image's predictions of the requests."""
+  import numpy as np
+
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      freeze,
+      make_serve_step,
+      shard_batch,
+  )
+  from distributed_embeddings_torch.serving.golden import PRED_TOL, EmbActs
+
+  vocab, plan, rule = setup["vocab"], setup["plan"], setup["rule"]
+  model, state, requests = setup["model"], setup["state"], setup["requests"]
+  init_s = setup["init_s"]
+  dense_tables = sum(len(cp.shards_per_rank[0])
+                     for cp in plan.classes.values() if cp.kind == "dense")
+  by_image = {}
   want = expect(interact_fwd=SERVE_REQUESTS)
   totals = expect()
   for q in ("f32", "int8"):
@@ -875,8 +922,225 @@ def phase_serve(torch, ci, smi: str) -> dict:
     emit({"phase": "serve_trace", "quantize": q, "card": smi,
           **trace_call(torch, lambda: eng.predict(*requests[0]),
                        kernels=K2_FWD_TRACE)})
+    by_image[q] = preds
     del eng, frozen
     torch.cuda.empty_cache()
+  return totals, by_image
+
+
+def dir_bytes(path: str) -> tuple:
+  """Bytes and files under ``path``."""
+  import os
+  files = [os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs]
+  return sum(os.path.getsize(f) for f in files), len(files)
+
+
+def phase_serve_artifact(torch, smi: str, setup: dict,
+                         frozen_preds: dict) -> tuple:
+  """The README's serving snippet at world 1: per image, ``export`` the
+  serve cell's state to disk, ``verify`` and ``load`` it, build a
+  ``ServeEngine`` on the artifact and answer the serve phase's requests:
+  bit-equal to the ``FrozenTables`` engine's predictions, and for f32 to
+  ``make_sparse_eval_step``'s. Returns each kernel's launches in the
+  answers and the f32 artifact's engine (the batcher phase serves it)."""
+  import shutil
+  import tempfile
+
+  import numpy as np
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.serving import ServeEngine, export, load
+  from distributed_embeddings_torch.training import (
+      make_sparse_eval_step,
+      shard_batch,
+  )
+
+  plan, rule, model = setup["plan"], setup["rule"], setup["model"]
+  state, requests = setup["state"], setup["requests"]
+  want = expect(interact_fwd=SERVE_REQUESTS)
+  totals = expect()
+  engines = {}
+  for q in ("f32", "int8"):
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    path = f"{root}/artifact"
+    t0 = time.perf_counter()
+    export(path, plan, rule, state, quantize=q, extra={"cell": "serve"})
+    export_s = time.perf_counter() - t0
+    nbytes, nfiles = dir_bytes(path)
+    free = shutil.disk_usage(root).free
+    t0 = time.perf_counter()
+    problems = checkpoint.verify(path)
+    verify_s = time.perf_counter() - t0
+    check(problems == [], f"serve_artifact {q}: verify found {problems}")
+    t0 = time.perf_counter()
+    art = load(path, plan, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = ServeEngine(model, plan, art, device="cuda")
+    reset_counts()
+    preds, ms = [], []
+    for numerical, cats in requests:
+      t0 = time.perf_counter()
+      preds.append(eng.predict(numerical, cats))
+      ms.append((time.perf_counter() - t0) * 1e3)
+    got = read_counts()
+    check(got == want, f"serve_artifact {q}: launches {got} for "
+          f"{SERVE_REQUESTS} requests, expected {want}")
+    add_counts(totals, got)
+    for i, (p, f) in enumerate(zip(preds, frozen_preds[q])):
+      check(p.shape == (SERVE_BATCH,) and np.isfinite(p).all(),
+            f"serve_artifact {q}: predictions not finite [{SERVE_BATCH}]")
+      check(np.array_equal(p.view(np.int32), f.view(np.int32)),
+            f"serve_artifact {q} request {i}: the artifact engine's "
+            "predictions differ from the FrozenTables engine's")
+    line = {"phase": "serve_artifact", "quantize": q, "card": smi,
+            "bytes": nbytes, "files": nfiles, "export_s": export_s,
+            "verify_s": verify_s, "load_s": load_s,
+            "disk_free_bytes": free, "request_ms": ms,
+            "bit_equal_frozen": True, "launches": got}
+    if q == "f32":
+      ev = make_sparse_eval_step(model, plan, rule)
+      for i, (numerical, cats) in enumerate(requests):
+        with torch.inference_mode():
+          ref = ev(state, *shard_batch((numerical, cats), None,
+                                       "cuda")).cpu().numpy()
+        check(np.array_equal(preds[i].view(np.int32), ref.view(np.int32)),
+              f"serve_artifact f32 request {i}: predictions differ from "
+              "make_sparse_eval_step's by up to "
+              f"{np.abs(preds[i] - ref).max()}")
+      line["bit_equal_eval"] = True
+      engines[q] = eng
+    emit(line)
+    shutil.rmtree(root)
+    del art
+    torch.cuda.empty_cache()
+  return totals, engines["f32"]
+
+
+def phase_serve_batcher(torch, smi: str, eng, vocab) -> dict:
+  """The f32 artifact engine behind a ``MicroBatcher`` (max_batch 4096,
+  max_delay 2 ms): ``BATCHER_THREADS`` submitters send requests of
+  1-512 rows as Poisson arrivals, at each offered rate of
+  ``BATCHER_RATES``. Per rate: request latency percentiles, dispatches,
+  the mean fill of a dispatch, rejections by reason (their sum is the
+  total), the flusher's time in a dispatch against the completer's wait
+  for the device. Each future's rows agree with ``predict`` of the same
+  rows within ``serving.golden.PRED_TOL``, and K2-fwd launched once per
+  dispatch. Returns each kernel's launches over the rates."""
+  import threading
+
+  import numpy as np
+
+  from distributed_embeddings_torch.serving import (
+      REJECT_REASONS,
+      MicroBatcher,
+      Rejected,
+  )
+  from distributed_embeddings_torch.serving.golden import PRED_TOL
+
+  rng = np.random.default_rng(SEED + 7)
+  pool = BATCHER_POOL * SERVE_BATCH
+  numerical = rng.standard_normal((pool, 13)).astype(np.float32)
+  cats = [rng.integers(0, v, pool).astype(np.int32) for v in vocab]
+  ref = np.concatenate([
+      eng.predict(numerical[i:i + SERVE_BATCH],
+                  [c[i:i + SERVE_BATCH] for c in cats])
+      for i in range(0, pool, SERVE_BATCH)])
+  totals = expect()
+  for rate in BATCHER_RATES:
+    dispatch_ms = []
+
+    def timed_dispatch(n, c):
+      t0 = time.perf_counter()
+      out = eng.dispatch(n, c)
+      dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+      return out
+
+    mb = MicroBatcher(timed_dispatch, max_batch=SERVE_BATCH,
+                      max_delay_s=BATCHER_DELAY_S)
+    plan_rng = np.random.default_rng(SEED + rate)
+    per_thread = BATCHER_REQUESTS // BATCHER_THREADS
+    schedules = []
+    for _ in range(BATCHER_THREADS):
+      gaps = plan_rng.exponential(BATCHER_THREADS / rate, per_thread)
+      sizes = plan_rng.integers(1, BATCHER_MAX_ROWS + 1, per_thread)
+      starts = plan_rng.integers(0, pool - BATCHER_MAX_ROWS, per_thread)
+      schedules.append((np.cumsum(gaps), sizes, starts))
+    results = [[] for _ in range(BATCHER_THREADS)]
+    shed = [{r: 0 for r in REJECT_REASONS} for _ in range(BATCHER_THREADS)]
+
+    def submitter(k, t0):
+      at, sizes, starts = schedules[k]
+      for t, n, a in zip(at, sizes, starts):
+        wait = t0 + t - time.perf_counter()
+        if wait > 0:
+          time.sleep(wait)
+        try:
+          fut = mb.submit(numerical[a:a + n], [c[a:a + n] for c in cats])
+        except Rejected as e:
+          shed[k][e.reason] += 1
+          continue
+        results[k].append((a, n, fut))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(k, t0))
+               for k in range(BATCHER_THREADS)]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join()
+    lat, worst = [], 0.0
+    for k in range(BATCHER_THREADS):
+      for a, n, fut in results[k]:
+        try:
+          out = fut.result(timeout=120)
+        except Rejected as e:
+          shed[k][e.reason] += 1
+          continue
+        err = np.abs(out - ref[a:a + n])
+        check(out.shape == (n,) and bool(
+            (err <= PRED_TOL["atol"] + PRED_TOL["rtol"]
+             * np.abs(ref[a:a + n])).all()),
+              f"serve_batcher {rate}/s: a request's rows differ from "
+              f"predict's by up to {err.max()}")
+        worst = max(worst, float(err.max()))
+        lat.append(fut.latency_s * 1e3)
+    wall_s = time.perf_counter() - t0
+    mb.close()
+    got = read_counts()
+    stats = mb.stats
+    shed = {r: sum(t[r] for t in shed) for r in REJECT_REASONS}
+    check(got == expect(interact_fwd=stats["batches"]),
+          f"serve_batcher {rate}/s: launches {got} for {stats['batches']} "
+          "dispatches")
+    check(stats["rejected"] == sum(stats[f"rejected/{r}"]
+                                   for r in REJECT_REASONS)
+          and all(stats[f"rejected/{r}"] == shed[r] for r in REJECT_REASONS),
+          f"serve_batcher {rate}/s: rejections {shed} vs stats {stats}")
+    check(stats["completed"] == len(lat) and stats["submitted"]
+          == BATCHER_THREADS * per_thread,
+          f"serve_batcher {rate}/s: stats {stats}, {len(lat)} answered")
+    add_counts(totals, got)
+    rows = int(sum(n for res in results for _, n, _ in res))
+    dequant = mb.telemetry.histogram("serve/stage_s/dequant")
+    emit({"phase": "serve_batcher", "card": smi,
+          "offered_requests_per_s": rate,
+          "offered_rows_per_s": rate * (BATCHER_MAX_ROWS + 1) / 2,
+          "threads": BATCHER_THREADS, "max_batch": SERVE_BATCH,
+          "max_delay_s": BATCHER_DELAY_S, "requests": len(lat),
+          "wall_s": wall_s, "answered_rows_per_s": rows / wall_s,
+          "p50_ms": float(np.percentile(lat, 50)),
+          "p99_ms": float(np.percentile(lat, 99)),
+          "p999_ms": float(np.percentile(lat, 99.9)),
+          "dispatches": stats["batches"],
+          "mean_fill": rows / (stats["batches"] * SERVE_BATCH),
+          "rejected": stats["rejected"],
+          "rejected_by_reason": {r: stats[f"rejected/{r}"]
+                                 for r in REJECT_REASONS},
+          "dispatch_ms_median": statistics.median(dispatch_ms),
+          "complete_wait_ms_p50": dequant.p50 * 1e3,
+          "max_abs_err_vs_predict": worst, "launches": got})
   return totals
 
 
@@ -1240,6 +1504,100 @@ def _w4_compare_none(torch, mesh, model, vocab, backend, state, batch,
           "none_step_ms_median": statistics.median(none_ms)}
 
 
+def _w4_serve(torch, mesh, outdir: str) -> dict:
+  """World-4 serving from an artifact, on every rank: a state of the
+  Criteo x 1/16 plan (both backends), the per-rank ``export`` into one
+  shared directory, ``load(mesh=)``, ``ServeEngine(mesh=)``, and
+  ``SERVE_REQUESTS`` global requests of ``SERVE_BATCH`` answered in
+  lockstep. The predictions are equal on every rank, bit-equal to the
+  in-memory ``FrozenTables`` engine's and to the world-4
+  ``make_sparse_eval_step``'s; K2-fwd runs once per request."""
+  import os
+  import shutil
+
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.wire import gather_blocks
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      export,
+      freeze,
+      load,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_eval_step,
+      shard_batch,
+  )
+
+  dev = mesh.device
+  vocab, plan = world4_plan("gloo", "fused")  # x 1/16 on both backends
+  rule = sgd_rule(TRAIN_LR)
+  model = DLRM(vocab, D, compute_dtype=torch.bfloat16, tables=False,
+               device=dev, generator=torch.Generator().manual_seed(SEED))
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 1 + mesh.rank),
+      mesh=mesh)
+  rng = np.random.default_rng(SEED + 3)
+  requests = [(rng.standard_normal((SERVE_BATCH, 13)).astype(np.float32),
+               [rng.integers(0, v, SERVE_BATCH).astype(np.int32)
+                for v in vocab]) for _ in range(SERVE_REQUESTS)]
+  path = os.path.join(outdir, "serve_artifact")
+  torch.cuda.synchronize(dev)
+  t0 = time.perf_counter()
+  export(path, plan, rule, state, quantize="f32", mesh=mesh)
+  export_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  art = load(path, plan, mesh=mesh)
+  torch.cuda.synchronize(dev)
+  load_s = time.perf_counter() - t0
+  eng = ServeEngine(model, plan, art, mesh=mesh)
+  reset_counts()
+  preds, ms = [], []
+  for numerical, cats in requests:
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    preds.append(eng.predict(numerical, cats))
+    ms.append((time.perf_counter() - t0) * 1e3)
+  launches = read_counts()
+  want = expect(interact_fwd=SERVE_REQUESTS)
+  check(launches == want, f"serve world 4 rank {mesh.rank}: launches "
+        f"{launches}, expected {want}")
+  frozen = ServeEngine(model, plan, freeze(plan, rule, state, "f32",
+                                           mesh=mesh), mesh=mesh)
+  ev = make_sparse_eval_step(model, plan, rule, mesh=mesh)
+  for i, (numerical, cats) in enumerate(requests):
+    p = preds[i]
+    check(p.shape == (SERVE_BATCH,) and np.isfinite(p).all(),
+          f"serve world 4 rank {mesh.rank}: predictions not finite")
+    every = gather_blocks(torch.from_numpy(p).to(dev), mesh).cpu().numpy()
+    check(all(np.array_equal(every[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+                             .view(np.int32), p.view(np.int32))
+              for r in range(WORLD)),
+          f"serve world 4 request {i}: the ranks' predictions differ")
+    check(np.array_equal(frozen.predict(numerical, cats).view(np.int32),
+                         p.view(np.int32)),
+          f"serve world 4 rank {mesh.rank} request {i}: the artifact "
+          "engine differs from the FrozenTables engine")
+    with torch.inference_mode():
+      local = ev(state, *shard_batch((numerical, cats), mesh))
+      ref = gather_blocks(local, mesh).cpu().numpy()
+    check(np.array_equal(ref.view(np.int32), p.view(np.int32)),
+          f"serve world 4 rank {mesh.rank} request {i}: predictions "
+          f"differ from make_sparse_eval_step's by up to "
+          f"{np.abs(ref - p).max()}")
+  torch.distributed.barrier()
+  if mesh.rank == 0:
+    shutil.rmtree(path)
+  return {"launches": launches, "request_ms": ms, "export_s": export_s,
+          "load_s": load_s,
+          "serve_bytes": sum(t.numel() * t.element_size()
+                             for t in art.state["serve"].values())}
+
+
 def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
   """One rank of the world-4 phase (a spawned process): the world-4
   golden, then the path at f32 and bf16 compute. Writes its result to
@@ -1374,6 +1732,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       out["runs"][compute] = run
       del state, buf, step, touch
       torch.cuda.empty_cache()
+    out["serve"] = _w4_serve(torch, mesh, outdir)
   finally:
     mesh.close()
   with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
@@ -1440,7 +1799,27 @@ def phase_world4(torch, smi: str) -> dict:
     emit({"phase": "train_world4_trace", "compute": compute,
           "backend": backend, "rank": 0, "card": smi,
           **runs[0]["trace"]})
+  serve_totals = emit_serve_world4(backend, smi,
+                                   [r["serve"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s})
+  return {"train_world4": totals, "serve_world4": serve_totals}
+
+
+def emit_serve_world4(backend: str, smi: str, serve: list) -> dict:
+  """The ``serve_world4`` line from the ranks' :func:`_w4_serve`
+  results; returns each kernel's launches summed over the ranks."""
+  totals = expect()
+  for r in serve:
+    add_counts(totals, r["launches"])
+  emit({"phase": "serve_world4", "backend": backend, "card": smi,
+        "vocab_scale": f"1/{W4_VOCAB_SCALE['gloo']}", "quantize": "f32",
+        "global_batch": SERVE_BATCH, "requests": SERVE_REQUESTS,
+        "request_ms_by_rank": [r["request_ms"] for r in serve],
+        "export_s_by_rank": [r["export_s"] for r in serve],
+        "load_s_by_rank": [r["load_s"] for r in serve],
+        "serve_bytes_per_rank": [r["serve_bytes"] for r in serve],
+        "ranks_equal": True, "bit_equal_frozen": True,
+        "bit_equal_eval": True, "launches_per_rank": serve[0]["launches"]})
   return totals
 
 
@@ -2472,7 +2851,15 @@ def main() -> int:
 
   # every path's counts, each read from all nine counters just after the
   # path ran with them set to 0 just before
-  by_path = {"serve": phase_serve(torch, ci, smi)}
+  setup = serve_setup(torch)
+  by_path = {}
+  by_path["serve"], frozen_preds = phase_serve(torch, ci, smi, setup)
+  by_path["serve_artifact"], eng = phase_serve_artifact(torch, smi, setup,
+                                                        frozen_preds)
+  by_path["serve_batcher"] = phase_serve_batcher(torch, smi, eng,
+                                                 setup["vocab"])
+  del eng, setup, frozen_preds
+  torch.cuda.empty_cache()
   for compute in ("f32", "bf16"):
     by_path[f"train_{compute}"] = phase_train(torch, smi, compute)
   torch.cuda.empty_cache()
@@ -2485,7 +2872,7 @@ def main() -> int:
                      ("train_zoo_pin", "row_major")):
     check(by_path[path][name] > 0, f"the {path} path never launched {name}")
   torch.cuda.empty_cache()
-  by_path["train_world4"] = phase_world4(torch, smi)
+  by_path.update(phase_world4(torch, smi))
   for name in W4_KERNELS:
     check(by_path["train_world4"][name] > 0,
           f"the world-4 path never launched {name}")

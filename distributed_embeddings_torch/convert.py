@@ -12,7 +12,10 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
   way back;
 - :func:`synthetic_state_dict_from_flax`: the flax ``SyntheticModel``
   params ``mlp/dense_i/{kernel, bias}`` -> the port's
-  ``SyntheticModel.state_dict()``;
+  ``SyntheticModel.state_dict()``, :func:`synthetic_state_dict_to_flax`
+  the way back; :func:`dense_state_dict_to_flax` and
+  :func:`dense_state_dict_from_flax` pick the pair by model family (the
+  serve artifact's ``dense.npz`` holds the flax tree);
 - :func:`train_state_from_flax`: a JAX sparse train state
   (``{'fused', 'emb_dense', 'dense', 'step'}``) -> the state the port's
   ``training.make_sparse_train_step`` steps and ``serving.freeze``
@@ -67,18 +70,19 @@ def dlrm_state_dict_from_flax(params: Dict[str, Any]
   return _mlps_state_dict(params, ("bottom_mlp", "top_mlp"))
 
 
-def dlrm_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
-                            ) -> Dict[str, Any]:
-  """The port's DLRM ``state_dict`` -> the flax DLRM param tree as numpy
-  (``embeddings/<class name>``, ``<mlp>/dense_i/{kernel, bias}``): the
-  inverse of :func:`dlrm_state_dict_from_flax`."""
+def _mlps_to_flax(state_dict: Dict[str, torch.Tensor], mlps
+                  ) -> Dict[str, Any]:
+  """The port's ``<mlp>.layers.i.{weight, bias}`` (``mlp`` in ``mlps``)
+  and ``embeddings.<class name>`` -> the flax tree as numpy
+  (``<mlp>/dense_i/{kernel, bias}`` with kernels ``[in, out]``,
+  ``embeddings/<class name>``); any other entry raises."""
   tree: Dict[str, Any] = {}
   for key, t in state_dict.items():
     arr = t.detach().cpu().numpy()
     parts = key.split(".")
     if parts[0] == "embeddings" and len(parts) == 2:
       tree.setdefault("embeddings", {})[parts[1]] = arr
-    elif len(parts) == 4 and parts[1] == "layers":
+    elif len(parts) == 4 and parts[0] in mlps and parts[1] == "layers":
       mlp, _, i, leaf = parts
       dense = tree.setdefault(mlp, {}).setdefault(f"dense_{i}", {})
       if leaf == "weight":
@@ -90,11 +94,51 @@ def dlrm_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
   return tree
 
 
+def dlrm_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
+                            ) -> Dict[str, Any]:
+  """The port's DLRM ``state_dict`` -> the flax DLRM param tree as numpy
+  (``embeddings/<class name>``, ``<mlp>/dense_i/{kernel, bias}``): the
+  inverse of :func:`dlrm_state_dict_from_flax`."""
+  return _mlps_to_flax(state_dict, ("bottom_mlp", "top_mlp"))
+
+
 def synthetic_state_dict_from_flax(params: Dict[str, Any]
                                    ) -> Dict[str, torch.Tensor]:
   """flax ``SyntheticModel`` dense params (``mlp/dense_i/...``, numpy
   leaves) -> the port's ``SyntheticModel.state_dict()``."""
   return _mlps_state_dict(params, ("mlp",))
+
+
+def synthetic_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
+                                 ) -> Dict[str, Any]:
+  """The port's ``SyntheticModel.state_dict()`` -> the flax param tree
+  as numpy (``mlp/dense_i/{kernel, bias}``): the inverse of
+  :func:`synthetic_state_dict_from_flax`."""
+  return _mlps_to_flax(state_dict, ("mlp",))
+
+
+def _is_synthetic(names) -> bool:
+  """The model family of a state_dict's or flax tree's top-level names:
+  the synthetic zoo's single ``mlp``, else the DLRM's two MLPs."""
+  return any(n.split(".")[0] == "mlp" for n in names)
+
+
+def dense_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
+                             ) -> Dict[str, Any]:
+  """A model's ``state_dict`` -> its flax param tree (numpy), by model
+  family (:class:`~.models.SyntheticModel` or :class:`~.models.DLRM`):
+  the form of the serve artifact's ``dense.npz``."""
+  if _is_synthetic(state_dict):
+    return synthetic_state_dict_to_flax(state_dict)
+  return dlrm_state_dict_to_flax(state_dict)
+
+
+def dense_state_dict_from_flax(params: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+  """Inverse of :func:`dense_state_dict_to_flax`."""
+  if _is_synthetic(params):
+    return synthetic_state_dict_from_flax(params)
+  return dlrm_state_dict_from_flax(params)
 
 
 def split_rank_state(state: Dict[str, Any], world: int,

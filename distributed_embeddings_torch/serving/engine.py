@@ -1,9 +1,9 @@
 """The serve step + engine: inference on frozen tables (PyTorch port).
 
 Counterpart of ``distributed_embeddings_tpu/serving/engine.py`` for the
-all-device, world-1 path. A serve step is route -> gather (with the int8
-dequant fused in) -> combine -> dense classes -> exchange -> assemble ->
-model forward, with no scatter and no optimizer state:
+all-device path, at world 1 and world N. A serve step is route -> gather
+(with the int8 dequant fused in) -> combine -> dense classes -> exchange
+-> assemble -> model forward, with no scatter and no optimizer state:
 
 - **f32 serving is bit-exact** against the JAX serve step on the same
   frozen image (same gathered values, and the multi-hot combine keeps the
@@ -11,8 +11,16 @@ model forward, with no scatter and no optimizer state:
 - **int8 rows dequantize on gather** with one multiply against the row's
   bit-packed scale, the same single multiply as the JAX step.
 
-Not ported yet: world > 1, tiered serving, deduplicated routing, ragged
-value streams, the micro-batcher.
+At world N every rank runs the engine with its mesh, one process per
+rank: it routes its slice of the global request, gathers and combines
+against its own serve blocks, and the exchange of the port's world-N
+eval step brings each rank its slice's activations. :meth:`ServeEngine.
+dispatch` returns the GLOBAL predictions on every rank (the JAX engine's
+batch-sharded output, gathered), so a ``MicroBatcher`` in front of it
+de-interleaves by position at any world.
+
+Not ported yet: tiered serving, deduplicated routing, ragged value
+streams.
 """
 
 from __future__ import annotations
@@ -24,35 +32,24 @@ import torch
 
 from ..device import resolve_device
 from ..ops.packed_table import PackedLayout, gather_fused_chunked
+from ..parallel import wire
 from ..parallel.lookup_engine import (
     DistributedLookup,
     class_param_name,
     padded_rows,
     ragged_hotness,
 )
+from ..training import shard_batch
 from .export import (
     INT8_SCALE_LANES,
     FrozenTables,
+    ServeArtifact,
     ServeClassMeta,
     dequantize_rows_int8,
     frozen_device_state,
 )
 
-
-def shard_batch(batch, mesh=None, device="cuda"):
-  """Place a host request on the device (``mesh=None`` only: one device).
-  Nested tuples/lists keep their structure; arrays become tensors."""
-  if mesh is not None:
-    raise NotImplementedError("sharded batches (mesh) are not ported yet")
-  dev = resolve_device(device)
-
-  def put(x):
-    if isinstance(x, (tuple, list)):
-      return type(x)(put(v) for v in x)
-    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                           else x, device=dev)
-
-  return put(batch)
+__all__ = ["ServeEngine", "make_serve_step", "shard_batch"]
 
 
 def _dequant_rows(rows: torch.Tensor, meta: ServeClassMeta) -> torch.Tensor:
@@ -176,7 +173,9 @@ def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
   Returns ``step(state, numerical, cats) -> preds`` with ``state`` the
   ``{'dense', 'emb_dense', 'serve'}`` dict of :func:`frozen_device_state`
   and the request already on the device (:func:`shard_batch`). ``model``
-  is called as ``model(numerical, cats, emb_acts=acts)``.
+  is called as ``model(numerical, cats, emb_acts=acts)``. With a world-N
+  plan every rank calls the step with its ``mesh``, its state and its
+  slice of the global request, and gets its slice's predictions.
 
   Plans the serve step cannot serve faithfully are refused here, as in
   the JAX package: a capped dedup capacity, and the 'error' and
@@ -199,10 +198,10 @@ def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
         "space, and an inference path must never mutate it. Serve with "
         "oov='clip' (same tables, same frozen image) and translate request "
         "ids read-only host-side.")
-  if mesh is not None or plan.world_size != 1:
-    raise NotImplementedError(
-        "the port serves world-1 plans on one device so far (mesh=None)")
-  engine = DistributedLookup(plan)
+  if plan.world_size > 1 and mesh is None:
+    raise ValueError(f"a world-{plan.world_size} plan is served by every "
+                     "rank with its mesh (parallel.mesh.create_mesh)")
+  engine = DistributedLookup(plan, mesh=mesh)
   layouts = {n: m.packed for n, m in serve_meta.items()}
 
   @torch.inference_mode()
@@ -223,40 +222,58 @@ def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
 
 
 class ServeEngine:
-  """Frozen tables in, predictions out (one device, world 1).
+  """Frozen tables in, predictions out.
 
-  Places the frozen state on ``device`` (``"cuda"`` unless the caller asks
-  for the CPU), loads the model's dense parameters from it when the
-  frozen state carries them, and answers requests: :meth:`dispatch`
-  returns the device predictions without waiting for them, :meth:`predict`
-  returns numpy."""
+  ``artifact`` is a :class:`~.export.FrozenTables` (:func:`~.export.
+  freeze`) or a :class:`~.export.ServeArtifact` (:func:`~.export.load`,
+  already on its device). The engine places the state on ``device``
+  (``"cuda"`` unless the caller asks for the CPU; with a world-N ``mesh``
+  the mesh's device and this rank's blocks), loads the model's dense
+  parameters from it, and answers requests: :meth:`dispatch` returns the
+  device predictions without waiting for them, :meth:`predict` returns
+  numpy. At world N every rank calls them with the same global
+  request."""
 
-  def __init__(self, model, plan, artifact: FrozenTables, device="cuda",
-               mesh=None):
-    if not isinstance(artifact, FrozenTables):
+  def __init__(self, model, plan, artifact, device="cuda", mesh=None):
+    self.mesh = mesh if plan.world_size > 1 else None
+    self.device = (self.mesh.device if self.mesh is not None
+                   else resolve_device(device))
+    if isinstance(artifact, FrozenTables):
+      state = frozen_device_state(artifact, plan, device, mesh)
+    elif isinstance(artifact, ServeArtifact):
+      rank = None if self.mesh is None else self.mesh.rank
+      if artifact.rank != rank:
+        raise ValueError(f"the artifact holds rank {artifact.rank}'s "
+                         f"blocks, this engine serves rank {rank}'s")
+      state = {part: {k: v.to(self.device) for k, v in tree.items()}
+               for part, tree in artifact.state.items()}
+    else:
       raise TypeError(
-          f"artifact must be a FrozenTables (export.freeze), got "
-          f"{type(artifact)!r}; loading artifacts from disk is not ported "
-          "yet")
-    if mesh is not None:
-      raise NotImplementedError("mesh serving is not ported yet")
-    self.device = resolve_device(device)
+          f"artifact must be a FrozenTables (export.freeze) or "
+          f"ServeArtifact (export.load), got {type(artifact)!r}")
     self.plan = plan
     self.meta = artifact.meta
     self.quantize = artifact.quantize
     self.step = int(artifact.step)
-    self.state = frozen_device_state(artifact, plan, self.device)
+    self.state = state
     model.to(self.device)
     if self.state["dense"]:
       model.load_state_dict(self.state["dense"])
     model.eval()
     self.model = model
-    self._step = make_serve_step(model, plan, self.meta, mesh)
+    self._step = make_serve_step(model, plan, self.meta, self.mesh)
 
+  @torch.inference_mode()
   def dispatch(self, numerical, cats) -> torch.Tensor:
-    """One serve step; returns the device predictions (not synchronized)."""
-    numerical, cats = shard_batch((numerical, tuple(cats)), None, self.device)
-    return self._step(self.state, numerical, cats)
+    """One serve step on a global request; returns the global device
+    predictions ``[B]`` (not synchronized; at world N gathered from every
+    rank's slice, on every rank)."""
+    numerical, cats = shard_batch((numerical, tuple(cats)), self.mesh,
+                                  self.device)
+    preds = self._step(self.state, numerical, cats)
+    if self.mesh is not None:
+      preds = wire.gather_blocks(preds, self.mesh)
+    return preds
 
   def predict(self, numerical, cats) -> np.ndarray:
     """Blocking convenience wrapper: numpy predictions."""

@@ -15,26 +15,68 @@ Both images are byte-identical to the JAX package's for the same train
 state (``tests/test_torch_serving.py``). The quantization runs in torch,
 on whatever device the buffers live on (the card, in production).
 
-Not ported yet: fp8 images, ``export``/``load`` to disk, tiered (host)
-images.
+:func:`export` writes the artifact to disk and :func:`load` reads it
+back, in the JAX package's format (the same directory layout, file
+names, manifest and ``SERVE_FORMAT_VERSION``), so either package loads
+the other's artifacts (``tests/test_torch_serve_artifact.py``)::
+
+    manifest.json              'serve' section (quantize mode, per-class
+                               geometry), plan fingerprint, step,
+                               per-file crc32 + size, written LAST
+    serve_<class>_r<rank>.npy  one rank's serve-layout block
+    dense.npz                  the model's parameters as the flax tree
+                               (``bottom_mlp/dense_0/kernel``, kernels
+                               ``[in, out]``)
+    emb_dense.npz              the dense-class tables by class name, f32
+
+The JAX package exports from one controller that holds every rank's
+block. The port runs one process per rank, so at world N every rank
+calls :func:`export` with its mesh: each writes and seals its own block
+files into the shared ``.tmp`` directory, rank 0 gathers the checksum
+tables, writes the shared files and publishes the manifest. A rank's
+:func:`load` reads and verifies only its own block files and the shared
+ones. The directory on disk is the one the JAX package writes.
+
+Not ported yet: fp8 images and host-tier classes (ROADMAP §1 item 8),
+dynamic-vocabulary snapshots and owner-sharded loads (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+import json
+import os
+import shutil
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..checkpoint import (
+    _crc32_file,
+    _flatten_with_paths,
+    _fsync_path,
+    _host,
+    _plan_fingerprint,
+    publish_manifest_last,
+)
+from ..checkpoint import verify as verify_dir
 from ..device import resolve_device
 from ..ops.packed_table import PackedLayout, SparseRule
+from ..parallel import wire
 from ..parallel.lookup_engine import class_param_name, padded_rows
+from ..resilience import faultinject
+
+SERVE_FORMAT_VERSION = 1
 
 # trailing single-byte lanes per logical row carrying the row's f32 scale
 INT8_SCALE_LANES = 4
 
 QUANTIZE_MODES = ("f32", "int8")
+
+_FP8_REFUSED = ("fp8 serve images are not ported yet (ROADMAP.md §1 "
+                "item 8); export f32 or int8")
 
 # rows quantized per step: bounds the f32 temporaries on large tables
 _QUANT_CHUNK_ROWS = 1 << 20
@@ -64,6 +106,41 @@ class ServeClassMeta:
   def packed(self) -> PackedLayout:
     """Physical layout of the inference image (lane unit = element)."""
     return PackedLayout(rows=self.rows, width=self.lanes, n_aux=0)
+
+  @property
+  def np_dtype(self) -> np.dtype:
+    return np_dtype_of(self.quantize)
+
+  def to_disk(self, arr: np.ndarray) -> np.ndarray:
+    """The on-disk form of a block: its own bytes (the JAX package views
+    only fp8 blocks otherwise, and fp8 is not ported)."""
+    return np.ascontiguousarray(arr, self.np_dtype)
+
+  def from_disk(self, arr: np.ndarray) -> np.ndarray:
+    """Inverse of :meth:`to_disk`."""
+    return np.asarray(arr, self.np_dtype)
+
+  def to_json(self) -> Dict[str, Any]:
+    lay = self.packed
+    return {"rows": int(self.rows), "width": int(self.width),
+            "tier": self.tier, "quantize": self.quantize,
+            "combine_rpp": int(self.combine_rpp),
+            "phys_rows": int(lay.phys_rows),
+            "phys_width": int(lay.phys_width),
+            "dtype": str(self.np_dtype)}
+
+  @classmethod
+  def from_json(cls, name: str, d: Dict[str, Any]) -> "ServeClassMeta":
+    return cls(name=name, rows=int(d["rows"]), width=int(d["width"]),
+               tier=d["tier"], quantize=d["quantize"],
+               combine_rpp=int(d.get("combine_rpp", 1)))
+
+
+def np_dtype_of(quantize: str) -> np.dtype:
+  """Element dtype of a serve image under one quantize mode."""
+  if quantize == "fp8":
+    raise NotImplementedError(_FP8_REFUSED)
+  return np.dtype(np.int8 if quantize == "int8" else np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -113,12 +190,16 @@ def quantize_rows(table: torch.Tensor, quantize: str) -> torch.Tensor:
 
 @dataclasses.dataclass
 class FrozenTables:
-  """Inference image of one train state (see :func:`freeze`)."""
+  """Inference image of one train state (see :func:`freeze`).
+
+  ``device_blocks[name]`` holds one serve-layout block per rank; a rank
+  whose block this process does not hold (a world-N freeze with a mesh)
+  is ``None``. ``emb_dense`` holds the global dense-class tables."""
 
   quantize: str
   step: int
   meta: Dict[str, ServeClassMeta]
-  device_blocks: Dict[str, List[torch.Tensor]]  # per rank, serve layout
+  device_blocks: Dict[str, List[Optional[torch.Tensor]]]
   dense: Dict[str, torch.Tensor]                # model state_dict
   emb_dense: Dict[str, torch.Tensor]            # dense-class tables, f32
 
@@ -164,8 +245,19 @@ def serve_class_meta(plan, rule: SparseRule, quantize: str):
   return meta, full_lays
 
 
+def _mesh_rank(plan, mesh) -> Optional[int]:
+  """This process's rank when it holds one rank's blocks (a world-N
+  plan with a mesh), else None (it holds every rank's)."""
+  if mesh is None or plan.world_size == 1:
+    return None
+  if mesh.world != plan.world_size:
+    raise ValueError(f"the mesh has {mesh.world} ranks, the plan "
+                     f"{plan.world_size}")
+  return mesh.rank
+
+
 def freeze(plan, rule: SparseRule, state: Dict[str, Any],
-           quantize: str = "f32") -> FrozenTables:
+           quantize: str = "f32", store=None, mesh=None) -> FrozenTables:
   """Strip a fused train state into inference blocks.
 
   Args:
@@ -176,42 +268,305 @@ def freeze(plan, rule: SparseRule, state: Dict[str, Any],
       (the JAX package's train state, handed across as numpy).
     quantize: ``'f32'`` (bit-exact serving) or ``'int8'``. Dense-class
       tables and the model's parameters stay f32.
+    mesh: with a world-N plan, this rank's mesh: ``state`` then holds the
+      rank's blocks only (``training.init_sparse_state_direct(mesh=)``),
+      and every rank calls :func:`freeze` (the dense-class tables are
+      gathered to their global form).
   """
+  if quantize == "fp8":
+    raise NotImplementedError(_FP8_REFUSED)
   if quantize not in QUANTIZE_MODES:
     raise ValueError(f"unknown quantize mode {quantize!r}; "
-                     f"have {list(QUANTIZE_MODES)} (fp8 is not ported yet)")
-  if plan.host_tier_class_keys():
+                     f"have {list(QUANTIZE_MODES)}")
+  if store is not None or plan.host_tier_class_keys():
     raise NotImplementedError(
-        "plan has host-tier classes: tiered serving is not ported yet")
+        "host-tier classes (store=): tiered serving is not ported yet "
+        "(ROADMAP.md §1 item 8)")
+  rank = _mesh_rank(plan, mesh)
   meta, layouts = serve_class_meta(plan, rule, quantize)
-  device_blocks: Dict[str, List[torch.Tensor]] = {}
+  device_blocks: Dict[str, List[Optional[torch.Tensor]]] = {}
   for name, m in meta.items():
     arr = _as_tensor(state["fused"][name])
     lay = layouts[name]
-    device_blocks[name] = [
-        _strip_block(lay, m, arr[r * lay.phys_rows:(r + 1) * lay.phys_rows])
-        for r in range(plan.world_size)]
+    if rank is None:
+      device_blocks[name] = [
+          _strip_block(lay, m, arr[r * lay.phys_rows:(r + 1) * lay.phys_rows])
+          for r in range(plan.world_size)]
+      continue
+    if arr.shape[0] != lay.phys_rows:
+      raise ValueError(
+          f"class {name}: {arr.shape[0]} physical rows, not one rank's "
+          f"{lay.phys_rows} (with a mesh the state holds this rank's "
+          "blocks)")
+    blocks: List[Optional[torch.Tensor]] = [None] * plan.world_size
+    blocks[rank] = _strip_block(lay, m, arr)
+    device_blocks[name] = blocks
+  emb_dense = {k: _as_tensor(v).to(torch.float32)
+               for k, v in state.get("emb_dense", {}).items()}
+  if rank is not None:
+    emb_dense = {k: wire.gather_blocks(v.contiguous(), mesh)
+                 for k, v in emb_dense.items()}
   return FrozenTables(
       quantize=quantize, step=int(state.get("step", 0)), meta=meta,
       device_blocks=device_blocks,
       dense={k: _as_tensor(v) for k, v in state.get("dense", {}).items()},
-      emb_dense={k: _as_tensor(v).to(torch.float32)
-                 for k, v in state.get("emb_dense", {}).items()})
+      emb_dense=emb_dense)
 
 
-def frozen_device_state(frozen: FrozenTables, plan,
-                        device="cuda") -> Dict[str, Any]:
+def _rank_rows(table: torch.Tensor, plan, rank: Optional[int]
+               ) -> torch.Tensor:
+  """Rank ``rank``'s block of a global ``[world * n, w]`` table (the
+  whole table when ``rank`` is None)."""
+  if rank is None:
+    return table
+  n = table.shape[0] // plan.world_size
+  return table[rank * n:(rank + 1) * n]
+
+
+def frozen_device_state(frozen: FrozenTables, plan, device="cuda",
+                        mesh=None) -> Dict[str, Any]:
   """The serve state dict ``{'dense', 'emb_dense', 'serve'}`` on
-  ``device`` (tensors already there are not copied)."""
-  dev = resolve_device(device)
-  if plan.world_size != 1:
-    raise NotImplementedError("the port serves world-1 plans only so far")
+  ``device`` (tensors already there are not copied). With a world-N
+  plan the state is this rank's (``mesh``): its own serve blocks and
+  dense-class rows, on the mesh's device."""
+  if plan.world_size > 1 and mesh is None:
+    raise ValueError(f"a world-{plan.world_size} plan is served by every "
+                     "rank with its mesh (parallel.mesh.create_mesh)")
+  rank = _mesh_rank(plan, mesh)
+  dev = mesh.device if rank is not None else resolve_device(device)
 
   def put(x):
     return _as_tensor(x).to(dev)
 
-  serve = {name: put(torch.cat(blocks) if len(blocks) > 1 else blocks[0])
-           for name, blocks in frozen.device_blocks.items()}
+  serve = {}
+  for name, blocks in frozen.device_blocks.items():
+    block = blocks[0 if rank is None else rank]
+    if block is None:
+      raise ValueError(f"class {name}: this FrozenTables does not hold "
+                       f"rank {rank}'s block (it was frozen by another "
+                       "rank)")
+    serve[name] = put(block)
   return {"dense": {k: put(v) for k, v in frozen.dense.items()},
-          "emb_dense": {k: put(v) for k, v in frozen.emb_dense.items()},
+          "emb_dense": {k: put(_rank_rows(_as_tensor(v), plan, rank))
+                        for k, v in frozen.emb_dense.items()},
           "serve": serve}
+
+
+# ---------------------------------------------------------------------------
+# durable artifact write / read
+# ---------------------------------------------------------------------------
+
+
+def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
+           quantize: str = "f32", store=None,
+           extra: Optional[Dict[str, Any]] = None, vocab=None,
+           mesh=None) -> FrozenTables:
+  """Freeze the train state and write the serve artifact at ``path``.
+
+  The JAX package's durable protocol and format: every file fsynced and
+  sealed into a crc32 + size table, the manifest (quantize mode,
+  per-class geometry, plan fingerprint, step, ``extra``) written LAST,
+  then an atomic rename (a previous artifact rotates to ``.old``). A
+  crash at any point leaves either a manifest-less ``.tmp`` or a
+  complete artifact. The model's parameters are written as the flax
+  tree (``convert.dense_state_dict_to_flax``). Returns the frozen
+  blocks.
+
+  ``mesh``: a world-N state of rank blocks is exported by every rank
+  with its mesh: each rank writes and seals its own block files into
+  the shared ``path + '.tmp'``, rank 0 gathers the checksum tables
+  (``all_gather_object``), writes ``dense.npz`` and ``emb_dense.npz``
+  and publishes the manifest, and every rank returns once the artifact
+  is published. Without a mesh one process writes every rank's block,
+  as the JAX package's single controller does."""
+  # convert imports this module (FrozenTables); import it at call time
+  from ..convert import dense_state_dict_to_flax
+  if vocab is not None:
+    raise NotImplementedError(
+        "vocab= (a dynamic-vocabulary snapshot) is not ported yet "
+        "(ROADMAP.md §1 item 12, dynvocab)")
+  frozen = freeze(plan, rule, state, quantize=quantize, store=store,
+                  mesh=mesh)
+  rank = _mesh_rank(plan, mesh)
+  lead = rank is None or rank == 0
+  tmp = path + ".tmp"
+  if lead:
+    if os.path.exists(tmp):
+      shutil.rmtree(tmp)
+    os.makedirs(tmp)
+  if rank is not None:
+    dist.barrier()  # the .tmp directory exists before any rank writes
+  checksums: Dict[str, Dict[str, int]] = {}
+
+  def _seal(fpath: str) -> None:
+    _fsync_path(fpath)
+    faultinject.fire("ckpt_write", path=fpath)
+    checksums[os.path.basename(fpath)] = _crc32_file(fpath)
+
+  for name, blocks in sorted(frozen.device_blocks.items()):
+    for r, block in enumerate(blocks):
+      if block is None:
+        continue
+      fpath = os.path.join(tmp, f"serve_{name}_r{r}.npy")
+      np.save(fpath, frozen.meta[name].to_disk(_host(block)))
+      _seal(fpath)
+  if rank is not None:
+    tables: List[Dict[str, Dict[str, int]]] = [None] * plan.world_size
+    dist.all_gather_object(tables, checksums)
+    for t in tables:
+      checksums.update(t)
+  if lead:
+    parts = (("dense", dense_state_dict_to_flax(frozen.dense)),
+             ("emb_dense", frozen.emb_dense))
+    for part, tree in parts:
+      fpath = os.path.join(tmp, f"{part}.npz")
+      np.savez(fpath, **_flatten_with_paths(tree))
+      _seal(fpath)
+    manifest: Dict[str, Any] = {
+        "format_version": SERVE_FORMAT_VERSION,
+        "kind": "serve",
+        "step": int(frozen.step),
+        "rule": {"name": rule.name, "n_aux": int(rule.n_aux)},
+        "plan": _plan_fingerprint(plan),
+        "serve": {
+            "quantize": quantize,
+            "classes": {n: m.to_json()
+                        for n, m in sorted(frozen.meta.items())},
+        },
+        "checksums": dict(sorted(checksums.items())),
+    }
+    if extra is not None:
+      manifest["extra"] = extra
+    publish_manifest_last(tmp, path, manifest)
+  if rank is not None:
+    dist.barrier()  # published before any rank returns (and loads)
+  return frozen
+
+
+@dataclasses.dataclass
+class ServeArtifact:
+  """A loaded serve artifact, on its device.
+
+  ``state`` holds ``{'dense', 'emb_dense', 'serve'}``: the model's
+  state_dict, the dense-class tables and the serve-layout buffers. At
+  world N it is rank ``rank``'s: its own serve blocks and dense-class
+  rows (``rank`` is None at world 1, where the state is whole)."""
+
+  quantize: str
+  step: int
+  meta: Dict[str, ServeClassMeta]
+  state: Dict[str, Any]
+  rank: Optional[int] = None
+
+  def rank_block(self, name: str, rank: int) -> np.ndarray:
+    """One rank's serve-layout block of one class, host-side
+    ``[phys_rows, phys_width]`` (int8 or f32). A world-N artifact holds
+    its own rank's block only; asking for another raises naming it."""
+    m = self.meta.get(name)
+    if m is None:
+      raise KeyError(f"unknown serve class {name!r}; artifact has "
+                     f"{sorted(self.meta)}")
+    if self.rank is not None:
+      if rank != self.rank:
+        raise ValueError(
+            f"class {name!r} rank {rank} is not held here: this world-N "
+            f"load holds rank {self.rank}'s blocks only")
+      return _host(self.state["serve"][name])
+    lay = m.packed
+    return _host(self.state["serve"][name][rank * lay.phys_rows:
+                                           (rank + 1) * lay.phys_rows])
+
+
+def _unflatten_paths(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+  """Path-keyed npz dict -> nested plain dict."""
+  out: Dict[str, Any] = {}
+  for key in sorted(flat):
+    parts = key.split("/")
+    d = out
+    for p in parts[:-1]:
+      d = d.setdefault(p, {})
+    d[parts[-1]] = flat[key]
+  return out
+
+
+def load(path: str, plan, mesh=None, verify_integrity: bool = True,
+         owned_ranks=None, device="cuda") -> ServeArtifact:
+  """Load a serve artifact written by :func:`export` (or by the JAX
+  package's ``serving.export``) onto ``device``.
+
+  The plan must match the exporting run's exactly (fingerprint
+  equality; a mismatch names the differing keys). With a world-N plan
+  every rank loads with its mesh and reads, and verifies, only its own
+  block files and the shared ones, onto the mesh's device."""
+  # convert imports this module (FrozenTables); import it at call time
+  from ..convert import dense_state_dict_from_flax
+  if owned_ranks is not None:
+    raise NotImplementedError(
+        "owned_ranks= (owner-sharded fleet loads) is not ported yet "
+        "(ROADMAP.md §1 item 12, fleet)")
+  if plan.world_size > 1 and mesh is None:
+    raise ValueError(f"a world-{plan.world_size} artifact is loaded by "
+                     "every rank with its mesh (parallel.mesh.create_mesh)")
+  rank = _mesh_rank(plan, mesh)
+  dev = mesh.device if rank is not None else resolve_device(device)
+  with open(os.path.join(path, "manifest.json")) as f:
+    manifest = json.load(f)
+  if manifest.get("kind") != "serve":
+    raise ValueError(
+        f"{path!r} is not a serve artifact (manifest kind "
+        f"{manifest.get('kind')!r})")
+  if manifest["format_version"] != SERVE_FORMAT_VERSION:
+    raise ValueError(f"serve artifact format {manifest['format_version']} "
+                     f"unsupported (expected {SERVE_FORMAT_VERSION})")
+  want = _plan_fingerprint(plan)
+  if manifest["plan"] != want:
+    diff = sorted(k for k in set(manifest["plan"]) | set(want)
+                  if manifest["plan"].get(k) != want.get(k))
+    raise ValueError(
+        "serve artifact plan does not match the current plan (differs "
+        f"in {diff}): serve artifacts do not re-shard — re-export from "
+        "the checkpoint under this plan.")
+  if manifest.get("vocab_snapshot") is not None:
+    raise NotImplementedError(
+        "artifact carries a dynamic-vocabulary snapshot: not ported yet "
+        "(ROADMAP.md §1 item 12, dynvocab)")
+  if manifest["serve"]["quantize"] == "fp8":
+    raise NotImplementedError(_FP8_REFUSED)
+  meta = {n: ServeClassMeta.from_json(n, d)
+          for n, d in manifest["serve"]["classes"].items()}
+  if any(m.tier != "device" for m in meta.values()):
+    raise NotImplementedError(
+        "artifact has host-tier classes: tiered serving is not ported yet "
+        "(ROADMAP.md §1 item 8)")
+  ranks = range(plan.world_size) if rank is None else [rank]
+  if verify_integrity:
+    needed = ["dense.npz", "emb_dense.npz"] + [
+        f"serve_{name}_r{r}.npy" for name in sorted(meta) for r in ranks]
+    problems = verify_dir(path, only=needed)
+    if problems:
+      raise ValueError(
+          f"serve artifact {path!r} failed integrity verification: "
+          + "; ".join(problems))
+
+  serve = {}
+  for name, m in sorted(meta.items()):
+    blocks = [m.from_disk(np.load(os.path.join(path,
+                                               f"serve_{name}_r{r}.npy")))
+              for r in ranks]
+    host = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
+    serve[name] = torch.from_numpy(host).to(dev)
+  trees = {}
+  for part in ("dense", "emb_dense"):
+    with np.load(os.path.join(path, f"{part}.npz")) as z:
+      trees[part] = _unflatten_paths(dict(z))
+  state = {
+      "dense": {k: v.to(dev)
+                for k, v in dense_state_dict_from_flax(
+                    trees["dense"]).items()},
+      "emb_dense": {k: _rank_rows(torch.from_numpy(np.asarray(v)), plan,
+                                  rank).to(dev)
+                    for k, v in trees["emb_dense"].items()},
+      "serve": serve}
+  return ServeArtifact(quantize=manifest["serve"]["quantize"],
+                       step=int(manifest["step"]), meta=meta, state=state,
+                       rank=rank)

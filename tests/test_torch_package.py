@@ -47,7 +47,13 @@ from distributed_embeddings_torch.parallel.lookup_engine import (
     class_param_name,
     padded_rows,
 )
-from distributed_embeddings_torch.serving import ServeEngine, freeze
+from distributed_embeddings_torch.serving import (
+    MicroBatcher,
+    ServeEngine,
+    export,
+    freeze,
+    load,
+)
 from distributed_embeddings_torch.serving.engine import shard_batch
 from distributed_embeddings_torch.serving.export import serve_class_meta
 from distributed_embeddings_torch.training import (
@@ -84,11 +90,15 @@ def test_port_imports_with_jax_blocked():
   assert len(names) >= 15  # every module was imported
   # slice 3's modules among them: the process group, the wire, K4; slice
   # 4's: K6, K7 and the synthetic zoo; slice 5's: the op and layer surface
-  # of the dense-autodiff path
+  # of the dense-autodiff path; slice 10's: the serve artifact, the
+  # micro-batcher and the telemetry it reports through
   for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange",
               "ops.cuda_delta", "ops.cuda_layout", "models.synthetic",
               "ops.ragged", "ops.embedding_lookup",
-              "layers.dist_model_parallel", "layers.embedding"):
+              "layers.dist_model_parallel", "layers.embedding",
+              "checkpoint", "resilience.faultinject", "serving.batcher",
+              "telemetry.registry", "telemetry.trace", "telemetry.flight",
+              "telemetry.export"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -160,6 +170,38 @@ def test_entry_points_default_to_cuda():
   assert torch.isfinite(loss)
   assert DistributedEmbedding(tables, device="cpu").class_params()
   assert Embedding(5, 8, device="cpu").embeddings.device.type == "cpu"
+
+
+def test_serve_artifact_entry_points_default_to_cuda(tmp_path):
+  """``serving.load`` and a ``ServeEngine`` on a loaded artifact run on
+  the card unless the caller asks for the CPU (``export`` writes from
+  wherever the state lies)."""
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  vocab = [5, 300]
+  plan = dlrm_embedding_plan(vocab, 8, dense_row_threshold=16)
+  model = DLRM(vocab, embedding_dim=8, bottom_mlp=(8,), top_mlp=(4, 1),
+               num_numerical=2, tables=False, device="cpu")
+  rule = sgd_rule(0.1)
+  _, layouts = serve_class_meta(plan, rule, "f32")
+  state = {"fused": {n: torch.zeros(lay.shape) for n, lay in layouts.items()},
+           "emb_dense": {class_param_name(*k): torch.zeros(
+               (padded_rows(plan, k), 8)) for k in plan.class_keys
+               if plan.classes[k].kind == "dense"},
+           "dense": model.state_dict()}
+  path = str(tmp_path / "serve")
+  export(path, plan, rule, state)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    load(path, plan)
+  art = load(path, plan, device="cpu")  # asked for: runs
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    ServeEngine(model, plan, art)
+  eng = ServeEngine(model, plan, art, device="cpu")
+  mb = MicroBatcher(eng.dispatch, max_batch=4, start=False)
+  fut = mb.submit(np.zeros((3, 2), np.float32),
+                  [np.zeros(3, np.int32), np.ones(3, np.int32)])
+  assert mb.flush_now() == 1
+  assert fut.result(1.0).shape == (3,)
 
 
 def test_rank_views_split_and_join():

@@ -230,3 +230,67 @@ def golden_job(mesh, spec):
                                                        cd)
          for ov, ch, cd in spec["schedules"]}
   return out if mesh.rank == 0 else None
+
+
+def serve_job(mesh, spec):
+  """World-N serving from artifacts: per quantize mode, every rank
+  exports its blocks of the JAX state's rank view into ``spec['port']``,
+  loads that artifact and the JAX package's (``spec['jax']``) with its
+  mesh, and answers each global request of ``spec['requests']`` through
+  a ``ServeEngine`` on either, and on the in-memory ``FrozenTables``;
+  for f32 also through the world-N eval step. Returns every global
+  prediction this rank saw."""
+  import os
+
+  import torch
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel import wire
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      export,
+      freeze,
+      load,
+  )
+
+  plan = _train_plan(spec, "fused", 2)
+  rule = sgd_rule(spec["lr"])
+  state = train_state_from_flax(spec["state"], mesh=mesh)
+
+  def model():
+    return DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
+                top_mlp=spec["top"], num_numerical=spec["num"],
+                tables=False, device="cpu")
+
+  def answers(eng):
+    return [eng.predict(numerical, list(cats))
+            for numerical, cats in spec["requests"]]
+
+  out = {}
+  for q in spec["quantize"]:
+    path = os.path.join(spec["port"], q)
+    export(path, plan, rule, state, quantize=q, mesh=mesh)
+    art = load(path, plan, mesh=mesh)
+    got = {"port": answers(ServeEngine(model(), plan, art, mesh=mesh)),
+           "jax": answers(ServeEngine(
+               model(), plan, load(os.path.join(spec["jax"], q), plan,
+                                   mesh=mesh), mesh=mesh)),
+           "frozen": answers(ServeEngine(
+               model(), plan, freeze(plan, rule, state, q, mesh=mesh),
+               mesh=mesh)),
+           "blocks": {n: art.rank_block(n, mesh.rank) for n in art.meta}}
+    if q == "f32":
+      m = model()
+      ev = ttr.make_sparse_eval_step(m, plan, rule, mesh=mesh)
+      got["eval"] = []
+      for numerical, cats in spec["requests"]:
+        num_d, cats_d = ttr.shard_batch((numerical, list(cats)), mesh,
+                                        device="cpu")
+        got["eval"].append(wire.gather_blocks(
+            ev(state, num_d, cats_d), mesh).numpy())
+    out[q] = got
+  torch.distributed.barrier()
+  return out
