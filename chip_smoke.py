@@ -8,7 +8,9 @@ csrc/`` and drives the port's paths on the card: DLRM serving on
 frozen tables, and the README's serving snippet (export the artifact,
 load it, serve it, a ``MicroBatcher`` in front; world 1 and world 4), the
 world-1 sparse train step of ``bench.py``, the dense-autodiff train step
-of the README's Quick start, the synthetic zoo's Tiny train step of
+of the README's Quick start (world 1 and world 4) and its "Train
+end-to-end" command (``examples/dlrm/main_torch.py``, the port's twin of
+``examples/dlrm/main.py``), the synthetic zoo's Tiny train step of
 ``tools/bench_synthetic.py tiny 65536``, and the world-4 hybrid-parallel
 train step of ``examples/dlrm/main.py --sparse`` under
 ``overlap='fused'``. One JSON line per phase:
@@ -124,7 +126,11 @@ train step of ``examples/dlrm/main.py --sparse`` under
    ``dense_vs_sparse``: one dense step and one fused sparse SGD step
    (``make_sparse_train_step``) from one state; every class row agrees
    within 1e-5 of its cell's absolute sum, the dense parameters within
-   the f32 matmul class (``train_golden.dense_vs_sparse_step``);
+   the f32 matmul class (``train_golden.dense_vs_sparse_step``). Then
+   ``dlrm_main``: ``examples/dlrm/main_torch.py --dataset dummy --steps
+   20 --batch_size 4096 --vocab_scale 0.0625 --lr 0.1 --warmup_steps 5
+   --eval`` in a subprocess (world 1): exit 0, every printed loss and
+   the AUC finite, its samples/s;
 9. ``train_zoo``: Tiny at its published widths and full vocabulary (55
    tables, 58 inputs; 8.99 GB of fused buffers in two width-16
    generations and a width-8 class, Adagrad's accumulator interleaved),
@@ -158,23 +164,35 @@ train step of ``examples/dlrm/main.py --sparse`` under
    ``overlap='fused'``
    and one under ``'none'`` from the same state: the losses bit-equal,
    the fused buffers bit-equal on every row fewer than two ids hit
-   (elsewhere K1's atomics order the duplicates' adds). Then
-   ``serve_world4``: on both backends a state of the x 1/16 plan, exported
-   by the four ranks into one directory (f32), loaded with each rank's
-   mesh, served by ``ServeEngine(mesh=)`` for 3 global requests of 4096
-   in lockstep: every rank's predictions equal, bit-equal to the
-   in-memory engine's and to the world-4 ``make_sparse_eval_step``'s,
-   K2-fwd once per rank and request.
+   (elsewhere K1's atomics order the duplicates' adds). Then the
+   README Quick start at world 4 (``world4_dense_golden``,
+   ``train_dense_world4``): the JAX world-4 dense golden
+   (``tests/data/torch_dense_train_world4_golden.npz``, its f32 run,
+   whose interaction the card computes in bf16) replayed through
+   ``make_train_step(mesh=)`` within the train-golden tolerances; then a
+   ``DLRM(mesh=)`` of the same plan that owns its rank's blocks,
+   ``broadcast_variables``, ``make_train_step(mesh=)``, ``SGD(0.1)``, f32
+   and bf16: 3 warm-up and 5 timed steps with the train phase's checks on
+   each rank (K2-fwd and K2-bwd once a step, no other kernel), every
+   rank's losses equal, the replicated parameters bit-equal across the
+   ranks, a traced step on rank 0. Then ``serve_world4``: on both
+   backends a state of the x 1/16 plan, exported by the four ranks into
+   one directory (f32), loaded with each rank's mesh, served by
+   ``ServeEngine(mesh=)`` for 3 global requests of 4096 in lockstep:
+   every rank's predictions equal, bit-equal to the in-memory engine's
+   and to the world-4 ``make_sparse_eval_step``'s, K2-fwd once per rank
+   and request.
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
 the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
-train, dense, zoo and world-4 (train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
+train, dense, zoo and world-4 (sparse train, dense train and serve)
+phases alone: each sets all nine kernels' counters to 0 just before each
 run of its path, reads all nine just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
-Any failed check exits non-zero
-before the last line; so does a machine without CUDA.
+Any failed check exits non-zero before the last line; so does a machine
+without CUDA.
 
 On a machine with four cards the same command runs every phase; phases
 1-9 use the first card (K5's peer rounds all four), and phase 10 runs
@@ -209,8 +227,14 @@ TRAIN_BATCH = 65536
 # steps reaches by step 13. The step's work is the same at any rate.
 TRAIN_LR = 0.1
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
-# the dense-autodiff step's timed steps (phase 8, train_dense)
+# the dense-autodiff step's timed steps (phase 8, train_dense, and the
+# world-4 dense step of phase 10)
 DENSE_TIMED = 5
+# the README's "Train end-to-end" command, as the port's twin of
+# examples/dlrm/main.py runs it here (world 1, the Criteo tables x 1/16)
+DLRM_MAIN_ARGS = ("--dataset", "dummy", "--steps", "20", "--batch_size",
+                  "4096", "--vocab_scale", "0.0625", "--lr", "0.1",
+                  "--warmup_steps", "5", "--eval")
 # the interaction backward's edge shapes (K2-bwd and K3-bwd, B=1000):
 # one and few features, F=32, narrow and wide rows
 BWD_EDGE_F = (1, 2, 13, 32)
@@ -1598,10 +1622,158 @@ def _w4_serve(torch, mesh, outdir: str) -> dict:
                              for t in art.state["serve"].values())}
 
 
+def w4_batch(torch, vocab, mesh):
+  """This rank's slice of the world-4 phase's global batch: ``W4_BATCH``
+  samples of uniform one-hot ids from seed ``SEED``, on its device."""
+  from distributed_embeddings_torch.training import shard_batch
+
+  gen = torch.Generator().manual_seed(SEED)
+  numerical = torch.randn((W4_BATCH, 13), generator=gen)
+  cats = [torch.randint(0, v, (W4_BATCH,), generator=gen, dtype=torch.int32)
+          for v in vocab]
+  labels = torch.randint(0, 2, (W4_BATCH,), generator=gen).float()
+  return shard_batch((numerical, cats, labels), mesh)
+
+
+def _w4_dense(torch, mesh, backend: str, batch) -> dict:
+  """The README Quick start at world 4, in this rank: the committed
+  world-4 dense golden's f32 run replayed (compared on rank 0), then a
+  ``DLRM(mesh=)`` of the world-4 plan that owns this rank's blocks,
+  ``broadcast_variables`` (its MLPs drawn from a per-rank seed first),
+  ``make_train_step(mesh=)`` with ``torch.optim.SGD(0.1)``, at f32 and
+  bf16 compute: ``TRAIN_WARMUP`` + ``DENSE_TIMED`` steps on ``batch``
+  (this rank's slice of the global batch), each checked (loss finite,
+  K2-fwd and K2-bwd once and no other kernel, sampled rows of this rank's
+  first sparse block that no rank's batch touches bit-unchanged, most
+  touched ones changed); then every rank's losses equal, the replicated
+  parameters bit-equal across the ranks, and one more step traced on
+  rank 0."""
+  import numpy as np
+
+  from distributed_embeddings_torch import train_golden
+  from distributed_embeddings_torch.layers import broadcast_variables
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.parallel.wire import gather_blocks
+  from distributed_embeddings_torch.training import make_train_step
+
+  rank, dev = mesh.rank, mesh.device
+  out = {"runs": {}}
+  golden = train_golden.load(train_golden.DENSE_WORLD4_PATH)
+  # its f32 run: the card computes the interaction in bf16 (the JAX
+  # step's bf16 run also sums the replicated gradients in bf16, which the
+  # port does not; train_golden's docstring)
+  losses, got, preds = train_golden.replay_dense_world4(golden, mesh,
+                                                        compute="f32")
+  if rank == 0:
+    try:
+      worst = train_golden.compare_dense_world4(golden, losses, got, preds,
+                                                "f32")
+    except AssertionError as exc:
+      raise SmokeFailure(f"world-4 dense golden: {exc}") from exc
+    out["golden"] = {"compute": "f32", "losses": losses,
+                     "want_losses": [float(v)
+                                     for v in golden["f32_losses"]],
+                     **worst, "loss_tol": train_golden.LOSS_TOL,
+                     "update_tol": train_golden.UPDATE_TOL}
+  vocab, plan = world4_plan(backend)
+  key, name, _ = first_sparse_class(plan)
+  for compute in ("f32", "bf16"):
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = DLRM(vocab, D, compute_dtype=(torch.float32 if compute == "f32"
+                                          else torch.bfloat16),
+                 world_size=WORLD, strategy="memory_balanced",
+                 row_slice=W4_ROW_SLICE[backend], dense_row_threshold=4096,
+                 batch_hint=W4_BATCH, overlap="fused",
+                 exchange_chunks=W4_CHUNKS, mesh=mesh,
+                 generator=torch.Generator().manual_seed(SEED + rank),
+                 table_generator=torch.Generator(device=dev)
+                 .manual_seed(SEED + 1 + rank))
+    broadcast_variables(model, 0, mesh)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    check(model.embeddings.plan.class_keys == plan.class_keys,
+          "the world-4 DLRM's plan is not world4_plan's")
+    buf = model.embeddings.class_params()[name]
+    touch = torch.zeros((buf.shape[0],), dtype=torch.int32, device=dev)
+    for bk, ids in model.embeddings.engine.route_ids(batch[1]).items():
+      if bk.class_key == key:
+        flat = ids.reshape(-1)
+        flat = flat[(flat >= 0) & (flat < buf.shape[0])]
+        touch.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    pick = torch.Generator(device=dev).manual_seed(SEED + 2)
+    hit = torch.nonzero(touch > 0).squeeze(1)
+    miss = torch.nonzero(touch == 0).squeeze(1)
+    hit = hit[torch.randperm(hit.numel(), generator=pick,
+                             device=dev)[:ROWS_SAMPLED]]
+    miss = miss[torch.randperm(miss.numel(), generator=pick,
+                               device=dev)[:ROWS_SAMPLED]]
+    miss_rows = buf[miss].detach().clone()
+    opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR)
+    step = make_train_step(train_golden.dense_loss, opt, model, mesh=mesh)
+    want = expect(interact_fwd=1, interact_bwd=1)
+    totals = expect()
+    ms, losses, changed = [], [], []
+    for i in range(TRAIN_WARMUP + DENSE_TIMED):
+      hit_rows = buf[hit].detach().clone()
+      reset_counts()
+      torch.cuda.synchronize(dev)
+      t0 = time.perf_counter()
+      loss = step(*batch)
+      torch.cuda.synchronize(dev)
+      t1 = time.perf_counter()
+      got = read_counts()
+      check(got == want, f"dense world 4 {compute} rank {rank} step {i}: "
+            f"launches {got}, expected {want}")
+      add_counts(totals, got)
+      if i >= TRAIN_WARMUP:
+        ms.append((t1 - t0) * 1e3)
+      losses.append(float(loss))
+      check(np.isfinite(losses[-1]),
+            f"dense world 4 {compute} rank {rank} step {i}: loss "
+            f"{losses[-1]}")
+      check(torch.equal(buf[miss], miss_rows),
+            f"dense world 4 {compute} rank {rank} step {i}: rows no "
+            "rank's batch touches changed")
+      changed.append((buf[hit] != hit_rows).any(dim=1).float().mean()
+                     .item())
+      check(changed[-1] > 0.5,
+            f"dense world 4 {compute} rank {rank} step {i}: only "
+            f"{changed[-1]:.1%} of the sampled touched rows changed")
+    torch.cuda.synchronize(dev)
+    run = {"step_ms": ms, "step_ms_median": statistics.median(ms),
+           "losses": losses, "touched_rows_changed_share": changed,
+           "launches": totals, "launches_per_step": want, "init_s": init_s,
+           "class_bytes": sum(p.numel() * 4 for p in
+                              model.embeddings.class_params().values()),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    every = gather_blocks(torch.tensor(losses, device=dev), mesh)
+    check(torch.equal(every.reshape(WORLD, -1),
+                      every[:len(losses)].expand(WORLD, -1)),
+          f"dense world 4 {compute}: the ranks' losses differ")
+    replicated = torch.cat([p.detach().reshape(-1) for n, p in
+                            model.named_parameters()
+                            if not n.startswith("embeddings.")])
+    every = gather_blocks(replicated[None], mesh)
+    check(torch.equal(every, replicated[None].expand(WORLD, -1)),
+          f"dense world 4 {compute}: the replicated parameters differ "
+          "across the ranks")
+    run["replicated_params"] = replicated.numel()
+    if rank == 0:
+      run["trace"] = trace_call(torch, lambda: step(*batch))
+    else:
+      step(*batch)
+    out["runs"][compute] = run
+    del model, opt, step, buf, touch, replicated
+    torch.cuda.empty_cache()
+  return out
+
+
 def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
   """One rank of the world-4 phase (a spawned process): the world-4
-  golden, then the path at f32 and bf16 compute. Writes its result to
-  ``outdir/rank<rank>.json``."""
+  golden, then the sparse path at f32 and bf16 compute, the dense-autodiff
+  path (:func:`_w4_dense`) and serving (:func:`_w4_serve`). Writes its
+  result to ``outdir/rank<rank>.json``."""
   import os
 
   import numpy as np
@@ -1615,7 +1787,6 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
   from distributed_embeddings_torch.training import (
       init_sparse_state_direct,
       make_sparse_train_step,
-      shard_batch,
   )
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -1643,12 +1814,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
 
     vocab, plan = world4_plan(backend)
     k4_per_step = k4_launches_per_step(plan)
-    gen = torch.Generator().manual_seed(SEED)
-    numerical = torch.randn((W4_BATCH, 13), generator=gen)
-    cats = [torch.randint(0, v, (W4_BATCH,), generator=gen,
-                          dtype=torch.int32) for v in vocab]
-    labels = torch.randint(0, 2, (W4_BATCH,), generator=gen).float()
-    batch = shard_batch((numerical, cats, labels), mesh)
+    batch = w4_batch(torch, vocab, mesh)
     out["runs"] = {}
     for compute in ("f32", "bf16"):
       dtype = torch.float32 if compute == "f32" else torch.bfloat16
@@ -1732,6 +1898,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       out["runs"][compute] = run
       del state, buf, step, touch
       torch.cuda.empty_cache()
+    out["dense"] = _w4_dense(torch, mesh, backend, batch)
     out["serve"] = _w4_serve(torch, mesh, outdir)
   finally:
     mesh.close()
@@ -1799,10 +1966,51 @@ def phase_world4(torch, smi: str) -> dict:
     emit({"phase": "train_world4_trace", "compute": compute,
           "backend": backend, "rank": 0, "card": smi,
           **runs[0]["trace"]})
+  dense_totals = emit_dense_world4(backend, smi, [r["dense"] for r in ranks])
   serve_totals = emit_serve_world4(backend, smi,
                                    [r["serve"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s})
-  return {"train_world4": totals, "serve_world4": serve_totals}
+  return {"train_world4": totals, "train_dense_world4": dense_totals,
+          "serve_world4": serve_totals}
+
+
+def emit_dense_world4(backend: str, smi: str, dense: list) -> dict:
+  """The ``world4_dense_golden``, ``train_dense_world4`` and
+  ``train_dense_world4_trace`` lines from the ranks' :func:`_w4_dense`
+  results; returns each kernel's launches summed over the ranks and
+  computes."""
+  emit({"phase": "world4_dense_golden", "backend": backend,
+        **dense[0]["golden"]})
+  totals = expect()
+  for compute in ("f32", "bf16"):
+    runs = [r["runs"][compute] for r in dense]
+    for rank, r in enumerate(runs):
+      check(set(r["launches"]) == set(COUNTERS),
+            f"dense world 4 {compute} rank {rank}: counts of "
+            f"{sorted(r['launches'])}")
+      add_counts(totals, r["launches"])
+    med = max(r["step_ms_median"] for r in runs)
+    emit({"phase": "train_dense_world4", "compute": compute,
+          "backend": backend,
+          "mode": ("four cards, one rank each" if backend == "nccl" else
+                   "one card shared by the four ranks"),
+          "card": smi, "vocab_scale": f"1/{W4_VOCAB_SCALE[backend]}",
+          "row_slice": W4_ROW_SLICE[backend], "global_batch": W4_BATCH,
+          "overlap": "fused", "exchange_chunks": W4_CHUNKS,
+          "class_bytes_per_rank": [r["class_bytes"] for r in runs],
+          "init_s": [r["init_s"] for r in runs],
+          "step_ms_by_rank": [r["step_ms"] for r in runs],
+          "step_ms_median_by_rank": [r["step_ms_median"] for r in runs],
+          "step_ms_median": med, "samples_per_s": W4_BATCH / (med / 1e3),
+          "peak_gib_by_rank": [r["peak_gib"] for r in runs],
+          "launches_per_step_per_rank": runs[0]["launches_per_step"],
+          "losses": runs[0]["losses"], "losses_agree": True,
+          "replicated_params_bit_equal": runs[0]["replicated_params"],
+          "touched_rows_changed_share": runs[0]["touched_rows_changed_share"],
+          "untouched_rows_bit_equal": True})
+    emit({"phase": "train_dense_world4_trace", "compute": compute,
+          "backend": backend, "rank": 0, "card": smi, **runs[0]["trace"]})
+  return totals
 
 
 def emit_serve_world4(backend: str, smi: str, serve: list) -> dict:
@@ -2151,6 +2359,39 @@ def phase_train_dense(torch, smi: str, compute: str) -> dict:
   del model, opt, step, buf
   torch.cuda.empty_cache()
   return totals
+
+
+def phase_dlrm_main(smi: str) -> None:
+  """``examples/dlrm/main_torch.py`` (the twin of the README's "Train
+  end-to-end" command, dense path) at world 1 in a subprocess with
+  ``DLRM_MAIN_ARGS``: it must exit 0, and every loss and AUC it prints
+  must be finite. Emits its samples/s (its own clock, from its first
+  step to its last one's end)."""
+  import math
+  import os
+
+  root = os.path.dirname(os.path.abspath(__file__))
+  argv = [sys.executable, os.path.join("examples", "dlrm", "main_torch.py"),
+          *DLRM_MAIN_ARGS]
+  t0 = time.perf_counter()
+  r = subprocess.run(argv, cwd=root, capture_output=True, text=True,
+                     timeout=600)
+  wall_s = time.perf_counter() - t0
+  check(r.returncode == 0, f"dlrm_main exited {r.returncode}: "
+        f"{(r.stdout + r.stderr)[-2000:]}")
+  losses = [float(v) for v in re.findall(r"loss ([-+0-9.naif]+)", r.stdout)]
+  aucs = [float(v) for v in re.findall(r"AUC: ([-+0-9.naif]+)", r.stdout)]
+  rate = re.search(r"trained (\d+) steps in [0-9.]+s \(([0-9,]+) "
+                   r"samples/sec\)", r.stdout)
+  check(losses and aucs and rate, f"dlrm_main printed {r.stdout[-2000:]}")
+  check(all(math.isfinite(v) for v in losses + aucs),
+        f"dlrm_main: a loss or AUC is not finite: {losses}, {aucs}")
+  emit({"phase": "dlrm_main", "card": smi,
+        "argv": ["examples/dlrm/main_torch.py", *DLRM_MAIN_ARGS],
+        "steps": int(rate.group(1)),
+        "samples_per_s": float(rate.group(2).replace(",", "")),
+        "losses": losses, "auc": aucs, "wall_s": wall_s,
+        "stdout": r.stdout.strip().splitlines()})
 
 
 def zoo_plan():
@@ -2866,6 +3107,8 @@ def main() -> int:
   for compute in ("f32", "bf16"):
     by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
                                                           compute)
+  torch.cuda.empty_cache()
+  phase_dlrm_main(smi)
   by_path.update(phase_train_zoo(torch, smi))
   for path, name in (("train_zoo", "build_delta_rows"),
                      ("train_zoo", "apply_rows"),
@@ -2876,6 +3119,9 @@ def main() -> int:
   for name in W4_KERNELS:
     check(by_path["train_world4"][name] > 0,
           f"the world-4 path never launched {name}")
+  for name in ("interact_fwd", "interact_bwd"):
+    check(by_path["train_dense_world4"][name] > 0,
+          f"the world-4 dense path never launched {name}")
 
   for path, p in by_path.items():
     check(set(p) == set(COUNTERS), f"the {path} path read the counts of "

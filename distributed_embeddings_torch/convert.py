@@ -8,8 +8,8 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
   ``DLRM.state_dict()`` (kernels ``[in, out]`` transpose to
   ``nn.Linear.weight [out, in]``); with ``embeddings/mp_table_*`` (a
   model that owns its tables, the dense-autodiff path) the class buffers
-  become ``embeddings.mp_table_*``. :func:`dlrm_state_dict_to_flax` is the
-  way back;
+  become ``embeddings.mp_table_*`` (with ``mesh=``, this rank's blocks of
+  a world-N tree). :func:`dlrm_state_dict_to_flax` is the way back;
 - :func:`synthetic_state_dict_from_flax`: the flax ``SyntheticModel``
   params ``mlp/dense_i/{kernel, bias}`` -> the port's
   ``SyntheticModel.state_dict()``, :func:`synthetic_state_dict_to_flax`
@@ -34,6 +34,7 @@ import torch
 
 from .device import resolve_device
 from .serving.export import FrozenTables, ServeClassMeta
+from .training import shard_params
 
 
 def _tensor(x) -> torch.Tensor:
@@ -63,11 +64,16 @@ def _mlps_state_dict(params: Dict[str, Any], mlps
   return out
 
 
-def dlrm_state_dict_from_flax(params: Dict[str, Any]
+def dlrm_state_dict_from_flax(params: Dict[str, Any], mesh=None
                               ) -> Dict[str, torch.Tensor]:
   """flax DLRM dense params (numpy leaves) -> the port's DLRM state_dict.
-  An empty tree (a model without dense params) maps to ``{}``."""
-  return _mlps_state_dict(params, ("bottom_mlp", "top_mlp"))
+  An empty tree (a model without dense params) maps to ``{}``. With a
+  ``mesh`` the tree is a world-N init (class buffers ``[world * rows,
+  width]``) and the result is this rank's: its block of every class, the
+  MLPs whole, on the mesh's device (``training.shard_params``), ready for
+  ``load_state_dict`` into a model built with the mesh."""
+  out = _mlps_state_dict(params, ("bottom_mlp", "top_mlp"))
+  return out if mesh is None else shard_params(out, mesh)
 
 
 def _mlps_to_flax(state_dict: Dict[str, torch.Tensor], mlps

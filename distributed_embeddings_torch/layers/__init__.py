@@ -1,8 +1,14 @@
 """Embedding layers, table descriptions and the sharding planner."""
 
 from .dist_model_parallel import (
+    BroadcastGlobalVariablesCallback,
     DistributedEmbedding,
+    DistributedGradientTape,
+    DistributedOptimizer,
+    broadcast_variables,
+    finalize_hybrid_grads,
     get_weights,
+    hybrid_partition_specs,
     set_weights,
 )
 from .embedding import (
@@ -16,13 +22,19 @@ from .embedding import (
 from .planner import DistEmbeddingStrategy
 
 __all__ = [
+    "BroadcastGlobalVariablesCallback",
     "ConcatOneHotEmbedding",
     "DistEmbeddingStrategy",
     "DistributedEmbedding",
+    "DistributedGradientTape",
+    "DistributedOptimizer",
     "Embedding",
     "TableConfig",
+    "broadcast_variables",
     "collect_regularization_losses",
+    "finalize_hybrid_grads",
     "get_weights",
+    "hybrid_partition_specs",
     "resolve_constraint",
     "resolve_regularizer",
     "set_weights",

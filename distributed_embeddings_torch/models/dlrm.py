@@ -181,13 +181,20 @@ class DLRM(nn.Module):
       dense_row_threshold / batch_hint: the embedding layer's plan, as in
       the JAX model (``dlrm_embedding_plan`` with the same arguments gives
       the same plan).
+    overlap / exchange_chunks: the plan's wire schedule (the JAX model's
+      plan always takes ``'none'``; all three give the same values).
+    mesh: this rank's :class:`~..parallel.mesh.Mesh` at world > 1: the
+      embedding layer holds this rank's blocks only and the MLPs are
+      replicated, all on the mesh's device (``world_size`` must be the
+      mesh's).
     tables: build the embedding layer with its class buffers; False for a
       model that is handed its activations (``emb_acts``).
-    device: where the parameters live; ``"cuda"`` unless the caller asks
-      for the CPU.
+    device: where the parameters live without a mesh; ``"cuda"`` unless
+      the caller asks for the CPU.
     generator: CPU ``torch.Generator`` for the MLPs' initial weights.
-    table_generator: ``torch.Generator`` on ``device`` for the tables'
-      initial draws (None takes PyTorch's default generator).
+    table_generator: ``torch.Generator`` on the tables' device for their
+      initial draws (None takes PyTorch's default generator); with a mesh
+      it draws this rank's shards only, so seed it per rank.
   """
 
   def __init__(self, vocab_sizes: Sequence[int], embedding_dim: int = 128,
@@ -198,11 +205,12 @@ class DLRM(nn.Module):
                column_slice_threshold: Optional[int] = None,
                row_slice: Optional[int] = None,
                dense_row_threshold: int = 4096,
-               batch_hint: Optional[int] = None, tables: bool = True,
+               batch_hint: Optional[int] = None, overlap: str = "none",
+               exchange_chunks: int = 1, mesh=None, tables: bool = True,
                device="cuda", generator: Optional[torch.Generator] = None,
                table_generator: Optional[torch.Generator] = None):
     super().__init__()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if bottom_mlp[-1] != embedding_dim:
       raise ValueError(
           f"bottom MLP must end at embedding_dim ({embedding_dim}), "
@@ -225,6 +233,7 @@ class DLRM(nn.Module):
           strategy=strategy, column_slice_threshold=column_slice_threshold,
           row_slice=row_slice, world_size=world_size,
           dense_row_threshold=dense_row_threshold, batch_hint=batch_hint,
+          overlap=overlap, exchange_chunks=exchange_chunks, mesh=mesh,
           device=dev, generator=table_generator)
 
   def forward(self, numerical: torch.Tensor, categorical=None,

@@ -27,13 +27,17 @@ K7 first (``ops/cuda_layout.py``, the JAX ``DE_TPU_COTANGENT_PIN``).
 
 The simple layout's differentiable lookup (:meth:`DistributedLookup.
 forward`, the path of ``layers/dist_model_parallel.py:
-DistributedEmbedding`` and ``training.make_train_step``) runs at world 1:
-padded ids gathered from each sparse class's ``[rows, width]`` table with
-the sentinel reading zeros (:class:`_FillRows`), the dense classes'
-window lookups, assembly; autograd gives dense table gradients.
+DistributedEmbedding`` and ``training.make_train_step``) runs at any
+world: the id exchange, padded ids gathered from each sparse class's
+local ``[rows, width]`` block with the sentinel reading zeros
+(:class:`_FillRows`), the dense classes' window lookups, the activation
+exchange through the wire's autograd Functions, assembly; autograd gives
+each rank's blocks their dense gradients. Under ``overlap='fused'`` its
+exchanges are the pipelined rounds of plain activations, as in the JAX
+engine (no per-round gather, so no K4).
 
 Not ported yet: deduplicated routing (``dedup_exchange``), ragged value
-streams, the differentiable forward at world > 1 and tiering.
+streams and tiering.
 """
 
 from __future__ import annotations
@@ -718,22 +722,20 @@ class DistributedLookup:
   # ---- composed forward --------------------------------------------------
   def forward(self, class_params: Dict[str, torch.Tensor],
               inputs: Sequence) -> List[torch.Tensor]:
-    """Differentiable lookup on simple-layout params (world 1).
+    """Differentiable lookup on simple-layout params.
 
     Args:
-      class_params: class name -> ``[rows, width]`` table.
-      inputs: per global input, ``[B]`` or ``[B, H]`` int ids (PAD_ID
-        entries ignored).
+      class_params: class name -> this rank's ``[rows, width]`` block (at
+        world 1 the whole table).
+      inputs: per global input, this rank's ``[B]`` or ``[B, H]`` int ids
+        (PAD_ID entries ignored).
 
     Returns:
       Per global input its ``[B, table_width]`` activations. Autograd
-      carries the loss to every class table as a dense gradient."""
-    if self.plan.world_size > 1:
-      raise NotImplementedError(
-          "the differentiable lookup at world > 1 (DistributedEmbedding over "
-          "the wire's autograd Functions) is not ported yet: ROADMAP.md "
-          "open items, queue C; train world > 1 with "
-          "training.make_sparse_train_step")
+      carries the loss to every class block as a dense gradient; at
+      world > 1 the wire's backward (the reverse exchange) brings each
+      rank the cotangents of its own rows, every rank issuing the same
+      collectives in the same order."""
     inputs = [_normalize_input(x) for x in inputs]
     hotness_of = lambda i: ragged_hotness(inputs[i])  # noqa: E731
     b = inputs[0].shape[0]

@@ -46,6 +46,23 @@ the CPU; ``chip_smoke.py`` replays the bf16 run on the card to the
 tolerances above (on the card the interaction runs in bf16 whatever the
 compute dtype, which only the bf16 run shares with the CPU golden).
 
+``tests/data/torch_dense_train_world4_golden.npz`` is the Quick start at
+world 4: a small DLRM that owns its tables (9 tables, D=16, global batch
+64, two tables row-sliced, three in a dense class), three steps of the
+JAX ``make_train_step`` with ``optax.sgd`` over a 4-device CPU mesh from
+one initial param tree (its class buffers global, ``[4 * rows, width]``),
+once with f32 and once with bf16 compute, each with its eval step's
+global predictions. Every rank of a world-4 process group replays it with
+:func:`replay_dense_world4`; ``tests/test_torch_dense_train_world4.py``
+holds the f32 run to the f32 class on four gloo CPU ranks, and
+``chip_smoke.py`` the f32 run to the tolerances above on the card (where
+the interaction runs in bf16). Not the bf16 run: the JAX step sums a
+bf16-compute model's replicated gradients in bf16 (its ``shard_map`` psum
+lands after the parameters' cast), the port in f32 as both packages'
+sparse steps do, and with 16 samples a rank that rounding alone moves
+the bf16 run by about 4 % of an update
+(``tools/torch_dense_golden_shares.py``).
+
 ``tests/data/torch_train_zoo_golden.npz`` is the synthetic zoo's: the
 published Tiny model with its big vocabularies cut to
 :data:`ZOO_VOCAB_CAP` rows (:func:`zoo_plan`), Adagrad 0.01 on the sparse
@@ -90,9 +107,11 @@ from .models.synthetic import (
 from .ops.packed_table import adagrad_rule, sgd_rule
 from .parallel import wire
 from .parallel.lookup_engine import class_param_name, padded_rows
+from .serving.golden import PRED_TOL
 from .training import (
     Adagrad,
     init_sparse_state,
+    make_eval_step,
     make_sparse_eval_step,
     make_sparse_train_step,
     make_train_step,
@@ -104,6 +123,8 @@ GOLDEN_PATH = (Path(__file__).resolve().parents[1] / "tests" / "data" /
 WORLD4_PATH = GOLDEN_PATH.with_name("torch_train_world4_golden.npz")
 ZOO_PATH = GOLDEN_PATH.with_name("torch_train_zoo_golden.npz")
 DENSE_PATH = GOLDEN_PATH.with_name("torch_dense_train_golden.npz")
+DENSE_WORLD4_PATH = GOLDEN_PATH.with_name(
+    "torch_dense_train_world4_golden.npz")
 LR = 0.1
 STEPS = 3
 # per-step losses
@@ -574,6 +595,78 @@ def compare_dense(golden: Dict[str, np.ndarray], losses: List[float],
                                             - want_loss).max()),
           "state_max_err_share": _update_share(dense_initial(golden), want,
                                                got, "params")}
+
+
+def dense_world4_model(golden: Dict[str, np.ndarray], mesh,
+                       overlap: str = "fused", chunks=None,
+                       compute: str = "f32") -> DLRM:
+  """The world-4 dense golden's DLRM in this rank of ``mesh``, holding
+  this rank's blocks of the initial params, under the wire schedule
+  ``overlap`` (the JAX model's plan is ``'none'``; every schedule gives
+  the same values)."""
+  vocab = [int(v) for v in golden["vocab"]]
+  model = DLRM(vocab, int(golden["dim"]),
+               bottom_mlp=tuple(int(w) for w in golden["bottom_mlp"]),
+               top_mlp=tuple(int(w) for w in golden["top_mlp"]),
+               num_numerical=golden["numerical"].shape[2],
+               compute_dtype=(torch.float32 if compute == "f32"
+                              else torch.bfloat16),
+               world_size=int(golden["world"]), strategy="memory_balanced",
+               row_slice=int(golden["row_slice"]),
+               dense_row_threshold=int(golden["dense_row_threshold"]),
+               overlap=overlap,
+               exchange_chunks=int(golden["exchange_chunks"] if chunks is None
+                                   else chunks), mesh=mesh)
+  model.load_state_dict(dlrm_state_dict_from_flax(
+      _tree_of(dense_initial(golden)), mesh=mesh))
+  return model
+
+
+def global_params(model: DLRM, mesh) -> Dict[str, np.ndarray]:
+  """A world-N model's params as the global flax paths (``path ->
+  numpy``): every rank's class blocks gathered, the MLPs as they are.
+  Every rank calls it."""
+  sd = {k: v.detach() for k, v in model.state_dict().items()}
+  for name, p in model.embeddings.class_params().items():
+    sd[f"embeddings.{name}"] = wire.gather_blocks(p.detach(), mesh)
+  return flax_paths(dlrm_state_dict_to_flax(sd))
+
+
+def replay_dense_world4(golden: Dict[str, np.ndarray], mesh,
+                        overlap: str = "fused", chunks=None,
+                        compute: str = "f32"):
+  """Three steps of the port's world-4 ``make_train_step``
+  (``torch.optim.SGD``) from the world-4 dense golden's initial params at
+  ``compute``, then its eval step, in this rank of ``mesh`` (every rank
+  calls it). Returns ``(losses, final params, preds)``: the params as
+  global flax paths (:func:`global_params`) and the global batch's
+  logits, the same on every rank."""
+  model = dense_world4_model(golden, mesh, overlap, chunks, compute)
+  opt = torch.optim.SGD(model.parameters(), lr=LR)
+  step = make_train_step(dense_loss, opt, model, mesh=mesh)
+  losses = []
+  for i in range(STEPS):
+    losses.append(float(step(*shard_batch(
+        (golden["numerical"][i], list(golden["cats"][i]),
+         golden["labels"][i]), mesh))))
+  preds = make_eval_step(lambda m, n, c: m(n, c), model, mesh)(
+      *shard_batch((golden["eval_numerical"], list(golden["eval_cats"])),
+                   mesh))
+  return losses, global_params(model, mesh), preds.cpu().numpy()
+
+
+def compare_dense_world4(golden: Dict[str, np.ndarray], losses: List[float],
+                         got: Dict[str, np.ndarray], preds: np.ndarray,
+                         compute: str = "f32") -> Dict[str, float]:
+  """:func:`compare_dense` for a :func:`replay_dense_world4` result of the
+  ``compute`` run; the eval logits are held to the serve golden's bf16
+  logit class (``serving.golden.PRED_TOL``): this small model's logits lie
+  near 0, where one bf16 ulp of a term is a large share of the sum."""
+  out = compare_dense(golden, losses, got, compute)
+  want = golden[f"{compute}_preds"]
+  np.testing.assert_allclose(preds, want, **PRED_TOL)
+  out["preds_max_abs_err"] = float(np.abs(preds - want).max())
+  return out
 
 
 # duplicates add in another order on the two paths (and with atomics on the

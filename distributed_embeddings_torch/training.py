@@ -49,10 +49,15 @@ that owns its embedding layer (``models.DLRM``): forward through the
 layer's differentiable lookup, ``loss.backward()`` (a dense gradient for
 every class buffer, the tables' regularizer penalties in the loss), one
 ``torch.optim`` step over every parameter, then the tables' constraints.
-It runs at world 1.
+At world > 1 every rank holds its blocks of the classes and the
+replicated dense parameters (a model built with the rank's mesh), and
+the optimizer is wrapped in ``DistributedOptimizer``: the replicated
+gradients are summed over the ranks and every gradient is scaled by
+``1 / world`` before the step (``finalize_hybrid_grads``, which the
+sparse step's dense tail runs too).
 
-Not ported yet: ``micro_batches > 1``, the non-finite guard, the tiered
-step, and the dense-autodiff step at world > 1.
+Not ported yet: ``micro_batches > 1``, the non-finite guard and the
+tiered step.
 """
 
 from __future__ import annotations
@@ -65,6 +70,12 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from .device import resolve_device
+from .layers.dist_model_parallel import (
+    DistributedEmbedding,
+    DistributedOptimizer,
+    finalize_hybrid_grads,
+    is_model_parallel_leaf,
+)
 from .layers.embedding import (
     l2_decay_factor,
     resolve_constraint,
@@ -449,34 +460,19 @@ def _reduce_and_apply_dense(state: Dict[str, Any], d_z, loss, mesh=None,
   tables' constraints (``con_fn``), then the gradients are dropped.
   Returns ``(d_z, loss)`` for the sparse apply.
 
-  At world > 1 the replicated dense parameters' gradients are summed over
-  the ranks (one ``all_reduce`` of them flattened together) and every
-  gradient — dense, dense-class, ``d_z`` — is scaled by ``1 / world``,
-  which restores the global batch mean; the loss is averaged over the
-  ranks. The dense-class tables are per-rank windows and are never
-  summed."""
+  At world > 1 the gradients of the dense parameters and the dense-class
+  tables (``mp_table_*`` names) go through :func:`finalize_hybrid_grads`
+  (the replicated ones summed over the ranks, every one scaled by ``1 /
+  world``, which restores the global batch mean), ``d_z`` is scaled
+  alike and the loss is averaged over the ranks."""
   if mesh is not None and mesh.world > 1:
-    dense = list(state["dense"].values())
-    for p in dense:
-      if p.grad is None:
-        p.grad = torch.zeros_like(p)
-    if dense:
-      flat = torch.cat([p.grad.reshape(-1) for p in dense])
-      dist.all_reduce(flat)
-      off = 0
-      for p in dense:
-        n = p.grad.numel()
-        p.grad.copy_(flat[off:off + n].view_as(p.grad))
-        off += n
+    finalize_hybrid_grads(
+        list(state["dense"].items()) + list(state["emb_dense"].items()),
+        mesh)
     scale = 1.0 / mesh.world
-    for p in dense + list(state["emb_dense"].values()):
-      if p.grad is not None:
-        p.grad.mul_(scale)
     d_z = {bk: (g.map(lambda c: c * scale) if isinstance(g, FusedChunks)
                 else g * scale) for bk, g in d_z.items()}
-    loss = loss.clone()
-    dist.all_reduce(loss)
-    loss = loss / mesh.world
+    loss = _mean_over_ranks(loss, mesh)
   for opt_name in ("dense_opt", "emb_dense_opt"):
     opt = state[opt_name]
     if opt is not None:
@@ -678,16 +674,8 @@ def shard_batch(batch, mesh=None, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def _refuse_dense_step(plan: Optional[DistEmbeddingStrategy], mesh) -> None:
-  """The JAX ``make_train_step``'s refusals, and the step over a mesh
-  that is not ported yet (a world > 1 plan's lookup raises at its first
-  forward)."""
-  if mesh is not None:
-    raise NotImplementedError(
-        "make_train_step at world > 1 (DistributedOptimizer, "
-        "finalize_hybrid_grads, the lookup over the wire's autograd "
-        "Functions) is not ported yet: ROADMAP.md open items, queue C; "
-        "train world > 1 plans with make_sparse_train_step")
+def _refuse_dense_step(plan: Optional[DistEmbeddingStrategy]) -> None:
+  """The JAX ``make_train_step``'s refusals."""
   if plan is None:
     return
   oov = getattr(plan, "oov", "clip")
@@ -720,38 +708,84 @@ def _check_on(model: torch.nn.Module, dev: torch.device) -> None:
                        f"on {dev}: move the model first (shard_params)")
 
 
+def _check_blocks(model: torch.nn.Module, mesh) -> None:
+  """At world > 1 every embedding layer of ``model`` holds this rank's
+  blocks: it was built with the mesh."""
+  if mesh is None or mesh.world == 1:
+    return
+  for name, mod in model.named_modules():
+    if not isinstance(mod, DistributedEmbedding):
+      continue
+    if mod.mesh is None or mod.mesh.rank != mesh.rank or \
+        mod.plan.world_size != mesh.world:
+      raise ValueError(
+          f"embedding layer {name or '<model>'} holds no rank-{mesh.rank} "
+          f"blocks of a world-{mesh.world} plan: build it with world_size="
+          f"{mesh.world} and this rank's mesh, or cut a global state_dict "
+          "with shard_params(params, mesh)")
+    for key in mod.plan.class_keys:
+      p = getattr(mod, class_param_name(*key))
+      want = (padded_rows(mod.plan, key), mod.plan.classes[key].width)
+      if tuple(p.shape) != want:
+        raise ValueError(f"{name}.{class_param_name(*key)} has shape "
+                         f"{tuple(p.shape)}, the rank block is {want}")
+
+
+def _mean_over_ranks(loss: torch.Tensor, mesh) -> torch.Tensor:
+  """The loss averaged over the ranks (the JAX step's ``pmean``)."""
+  if mesh is None or mesh.world == 1:
+    return loss
+  loss = loss.clone()
+  dist.all_reduce(loss)
+  return loss / mesh.world
+
+
 def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                     model: torch.nn.Module, mesh=None,
                     plan: Optional[DistEmbeddingStrategy] = None,
                     emb_collection: str = "embeddings", device="cuda"):
-  """The dense-autodiff train step (the JAX ``make_train_step`` at
-  ``mesh=None``).
+  """The dense-autodiff train step (the JAX ``make_train_step``).
 
   Args:
-    loss_fn: ``loss_fn(model, numerical, cats, labels) -> scalar`` (batch
-      mean), running the model's forward through its embedding layer.
+    loss_fn: ``loss_fn(model, numerical, cats, labels) -> scalar`` (mean
+      over this rank's batch), running the model's forward through its
+      embedding layer.
     optimizer: a ``torch.optim`` optimizer over the model's parameters,
       the class buffers included (``torch.optim.SGD`` for ``optax.sgd``).
+      With a mesh it is wrapped in :class:`DistributedOptimizer`.
     model: the model; its embedding layer is the submodule
-      ``emb_collection`` (a ``DistributedEmbedding``).
-    mesh: None (world 1; a mesh raises: not ported yet).
+      ``emb_collection`` (a ``DistributedEmbedding``). With a mesh, every
+      rank's model was built with its mesh (this rank's blocks, the
+      replicated dense parameters equal on every rank:
+      ``broadcast_variables``).
+    mesh: this rank's :class:`~.parallel.mesh.Mesh` at world > 1 (every
+      rank builds and calls the step), None at world 1.
     plan: when given, its tables' ``regularizer`` / ``constraint`` are
-      honored: the penalties over the class buffers join the loss, and the
-      constraints project the tables after the update. Its ``oov`` policy
-      must be ``'clip'`` and it may carry no ``dedup_capacity``, as in the
-      JAX builder.
-    device: where the model lies; ``"cuda"`` unless the caller asks for
-      the CPU.
+      honored: the penalties over this rank's class blocks join the loss
+      (scaled by the world, so that they survive the ``1 / world`` of the
+      gradients), and the constraints project this rank's tables after
+      the update. Its ``oov`` policy must be ``'clip'`` and it may carry
+      no ``dedup_capacity``, as in the JAX builder.
+    device: where the model lies without a mesh (with one: the mesh's
+      device); ``"cuda"`` unless the caller asks for the CPU.
 
   Returns:
-    ``step(numerical, cats, labels) -> loss``: the model and the optimizer
-    are updated in place (the JAX step donates them); the loss includes
-    the penalties. The gradients are dense, and dropped after the update
-    (``zero_grad(set_to_none=True)``), so they hold memory only inside a
-    step."""
-  _refuse_dense_step(plan, mesh)
-  dev = resolve_device(device)
+    ``step(numerical, cats, labels) -> loss``, with this rank's slice of
+    the batch (:func:`shard_batch`): the model and the optimizer are
+    updated in place (the JAX step donates them); the loss includes the
+    penalties and is averaged over the ranks. The gradients are dense,
+    and dropped after the update (``zero_grad(set_to_none=True)``), so
+    they hold memory only inside a step."""
+  _refuse_dense_step(plan)
+  if mesh is not None and plan is not None:
+    _check_mesh(plan, mesh)
+  dev = _state_device(device, mesh)
   _check_on(model, dev)
+  _check_blocks(model, mesh)
+  world = 1 if mesh is None else mesh.world
+  rank = 0 if mesh is None else mesh.rank
+  if world > 1 and not isinstance(optimizer, DistributedOptimizer):
+    optimizer = DistributedOptimizer(optimizer, model, mesh)
   reg_fn = plan_regularizer_fn(plan) if plan is not None else None
   con_fn = plan_constraint_fn(plan) if plan is not None else None
 
@@ -762,44 +796,64 @@ def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(model, numerical, cats, labels)
     if reg_fn is not None:
-      loss = loss + reg_fn(emb_params(), 0)
+      # this rank's windows, scaled by the world to survive the uniform
+      # 1 / world gradient scale, as in the JAX step
+      loss = loss + world * reg_fn(emb_params(), rank)
     loss.backward()
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     if con_fn is not None:
-      con_fn(emb_params(), 0)
-    return loss.detach()
+      con_fn(emb_params(), rank)
+    return _mean_over_ranks(loss.detach(), mesh)
 
   return step
 
 
 def make_eval_step(pred_fn: Callable, model: torch.nn.Module, mesh=None):
   """The distributed forward for evaluation on simple-layout params (the
-  JAX ``make_eval_step`` at ``mesh=None``): ``eval(*batch) ->
-  pred_fn(model, *batch)`` without autograd; it never writes the model."""
-  if mesh is not None:
-    raise NotImplementedError(
-        "make_eval_step at world > 1 is not ported yet: ROADMAP.md open "
-        "items, queue C (make_sparse_eval_step runs world > 1 plans)")
+  JAX ``make_eval_step``): ``eval(*batch) -> pred_fn(model, *batch)``
+  without autograd; it never writes the model. With a mesh every rank
+  calls it on its slice of the batch (:func:`shard_batch`) and gets the
+  global predictions, the ranks' slices in rank order (the batch's
+  positional order)."""
+  _check_blocks(model, mesh)
 
   @torch.inference_mode()
   def local_eval(*batch):
-    return pred_fn(model, *batch)
+    preds = pred_fn(model, *batch)
+    return preds if mesh is None else wire.gather_blocks(preds, mesh)
 
   return local_eval
 
 
 def shard_params(params, mesh=None, device="cuda"):
   """Place a model or a dict of parameters on the step's device (the JAX
-  ``shard_params`` at ``mesh=None``: one device, nothing to shard). A
-  module moves in place and is returned; a dict comes back as a new dict
-  on ``device``."""
-  if mesh is not None:
-    raise NotImplementedError(
-        "shard_params with a mesh (the hybrid partition of class buffers "
-        "and replicated dense parameters) is not ported yet: ROADMAP.md "
-        "open items, queue C")
-  dev = resolve_device(device)
+  ``shard_params``).
+
+  Without a mesh: a module moves in place and is returned; a dict comes
+  back as a new dict on ``device``. With a mesh: a dict of global leaves
+  (a ``state_dict``, e.g. a JAX param tree through ``convert``) comes
+  back with rank ``r``'s rows ``[r * rows, (r + 1) * rows)`` of every
+  2-D ``mp_table_*`` leaf (``rows`` = its rows over the world) and every
+  other leaf whole, all on the mesh's device; a module must already hold
+  this rank's blocks (built with the mesh) and moves to the mesh's
+  device."""
+  if mesh is None:
+    dev = resolve_device(device)
+    if isinstance(params, torch.nn.Module):
+      return params.to(dev)
+    return {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
   if isinstance(params, torch.nn.Module):
-    return params.to(dev)
-  return {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
+    _check_blocks(params, mesh)
+    return params.to(mesh.device)
+  out = {}
+  for name, leaf in params.items():
+    t = torch.as_tensor(leaf)
+    if is_model_parallel_leaf(name, t):
+      if t.shape[0] % mesh.world:
+        raise ValueError(f"{name}: {t.shape[0]} rows do not split into "
+                         f"{mesh.world} rank blocks")
+      n = t.shape[0] // mesh.world
+      t = t[mesh.rank * n:(mesh.rank + 1) * n]
+    out[name] = t.to(mesh.device).clone()
+  return out

@@ -11,7 +11,8 @@ bf16 compute in the train-golden class (``train_golden.LOSS_TOL``, each
 tensor within ``UPDATE_TOL`` of its largest update). One f32 run carries
 an l2 regularizer on a sparse-class table and a max_norm constraint on
 the dense-class one through the ``plan``. ``make_eval_step`` and the
-JAX builder's refusals are held too.
+JAX builder's refusals are held too (the world > 1 step is
+``tests/test_torch_dense_train_world4.py``'s).
 
 ``tests/data/torch_dense_train_golden.npz`` (the JAX runs the card
 replays) is regenerated here and must be identical to the committed
@@ -223,12 +224,8 @@ def test_make_train_step_refusals():
                      dense_row_threshold=THRESHOLD, **kw)
     with pytest.raises(NotImplementedError, match=match):
       ttr.make_train_step(*args, plan=plan, device="cpu")
-  with pytest.raises(NotImplementedError, match="queue C"):
-    ttr.make_train_step(*args, mesh=object(), device="cpu")
   with pytest.raises(ValueError, match="lies on"):
     ttr.make_train_step(*args, device="meta")
-  with pytest.raises(NotImplementedError, match="queue C"):
-    ttr.shard_params(model, mesh=object())
 
 
 def test_sparse_step_dense_class_penalties_match_jax():

@@ -401,9 +401,14 @@ def test_distributed_embedding_init_layout_and_world4_refusal():
     ones = sum(sh.input_dim for sh in cp.shards_per_rank[0]
                if VOCAB[sh.table_id] != 7)
     assert float(p.detach().sum()) == ones * cp.width
+  # a world-4 layer without a mesh holds the global buffers (for
+  # get_weights / set_weights); its forward needs this rank's mesh (the
+  # world-4 forward with one: tests/test_torch_dense_train_world4.py)
   world4 = tdmp.DistributedEmbedding(_configs(temb.TableConfig, [None] * 6),
                                      world_size=4, device="cpu")
-  with pytest.raises(NotImplementedError, match="queue C"):
+  for name, p in world4.class_params().items():
+    assert tuple(p.shape) == tuple(world4.engine.param_shapes()[name])
+  with pytest.raises(ValueError, match="mesh"):
     world4([torch.zeros((B,), dtype=torch.int32)] * 6)
   with pytest.raises(NotImplementedError, match="queue C"):
     tdmp.DistributedEmbedding(_configs(temb.TableConfig, [None] * 6),

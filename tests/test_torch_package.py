@@ -10,7 +10,10 @@
 - its entry points default to ``device="cuda"``: without a GPU they raise
   instead of quietly running on the CPU (slice 5's too: ``DLRM`` with its
   tables, ``DistributedEmbedding``, ``Embedding``, ``make_train_step``,
-  ``shard_params``);
+  ``shard_params``; and the world-N Quick start's: ``create_mesh``, whose
+  mesh places ``DistributedEmbedding(mesh=)`` and the world-N
+  ``make_train_step`` / ``shard_params``, and the trainer script
+  ``examples/dlrm/main_torch.py``);
 - ``convert.split_rank_state`` cuts a rank's view out of a JAX world-N
   train state and ``join_rank_states`` reverses it.
 """
@@ -47,6 +50,7 @@ from distributed_embeddings_torch.parallel.lookup_engine import (
     class_param_name,
     padded_rows,
 )
+from distributed_embeddings_torch.parallel.mesh import create_mesh
 from distributed_embeddings_torch.serving import (
     MicroBatcher,
     ServeEngine,
@@ -91,14 +95,15 @@ def test_port_imports_with_jax_blocked():
   # slice 3's modules among them: the process group, the wire, K4; slice
   # 4's: K6, K7 and the synthetic zoo; slice 5's: the op and layer surface
   # of the dense-autodiff path; slice 10's: the serve artifact, the
-  # micro-batcher and the telemetry it reports through
+  # micro-batcher and the telemetry it reports through; slice 11's: the
+  # trainer's data
   for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange",
               "ops.cuda_delta", "ops.cuda_layout", "models.synthetic",
               "ops.ragged", "ops.embedding_lookup",
               "layers.dist_model_parallel", "layers.embedding",
               "checkpoint", "resilience.faultinject", "serving.batcher",
               "telemetry.registry", "telemetry.trace", "telemetry.flight",
-              "telemetry.export"):
+              "telemetry.export", "utils", "utils.data"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -113,7 +118,8 @@ def _imported_roots(path: Path):
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-  files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+  files = sorted(PORT.rglob("*.py")) + [
+      REPO / "chip_smoke.py", REPO / "examples" / "dlrm" / "main_torch.py"]
   assert len(files) > 15
   bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
          for f in files for root, line in _imported_roots(f)
@@ -202,6 +208,25 @@ def test_serve_artifact_entry_points_default_to_cuda(tmp_path):
                   [np.zeros(3, np.int32), np.ones(3, np.int32)])
   assert mb.flush_now() == 1
   assert fut.result(1.0).shape == (3,)
+
+
+def test_world_n_entry_points_default_to_cuda():
+  """The world-N Quick start runs on the card unless asked: its mesh
+  (which places ``DistributedEmbedding(mesh=)``, ``DLRM(mesh=)`` and the
+  world-N ``make_train_step`` / ``shard_params``) and the trainer script
+  default to CUDA and raise without it."""
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    create_mesh(1, 0, "tcp://127.0.0.1:1")
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    shard_params({"embeddings.mp_table_w8_cat": np.zeros((4, 8))})
+  twin = REPO / "examples" / "dlrm" / "main_torch.py"
+  r = subprocess.run([sys.executable, str(twin), "--steps", "1",
+                      "--vocab_scale", "1e-5", "--batch_size", "8"],
+                     cwd=REPO, capture_output=True, text=True, timeout=120)
+  assert r.returncode != 0
+  assert "CUDA is not available" in r.stderr, r.stdout + r.stderr
 
 
 def test_rank_views_split_and_join():

@@ -294,3 +294,180 @@ def serve_job(mesh, spec):
     out[q] = got
   torch.distributed.barrier()
   return out
+
+
+def dense_golden_job(mesh, spec):
+  """The committed world-4 dense golden replayed by the port's
+  ``make_train_step(mesh=)`` under each ``(overlap, chunks, compute)`` of
+  ``spec['schedules']``; every rank returns ``{overlap/chunks/compute:
+  (losses, global final params, global preds)}``."""
+  from distributed_embeddings_torch import train_golden
+
+  golden = train_golden.load(train_golden.DENSE_WORLD4_PATH)
+  return {f"{ov}/{ch}/{cd}": train_golden.replay_dense_world4(
+      golden, mesh, ov, ch, cd) for ov, ch, cd in spec["schedules"]}
+
+
+def _tiny_rec(spec, mesh, overlap, chunks):
+  """A minimal model that owns a ``DistributedEmbedding``: the numerical
+  features and every input's activation concatenated into one linear
+  head (the flax model of ``tests/test_torch_dense_train_world4.py``)."""
+  import torch
+  from torch import nn
+
+  from distributed_embeddings_torch.layers.dist_model_parallel import (
+      DistributedEmbedding,
+  )
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+
+  class TinyRec(nn.Module):
+
+    def __init__(self):
+      super().__init__()
+      self.embeddings = DistributedEmbedding(
+          [TableConfig(input_dim=v, output_dim=spec["dim"],
+                       combiner=spec["combiner"].get(i))
+           for i, v in enumerate(spec["vocab"])], "memory_balanced",
+          row_slice=spec["row_slice"], world_size=mesh.world,
+          dense_row_threshold=spec["dense_row_threshold"],
+          overlap=overlap, exchange_chunks=chunks, mesh=mesh)
+      self.head = nn.Linear(spec["num"] + spec["dim"] * len(spec["vocab"]),
+                            1)
+
+    def forward(self, numerical, cats):
+      x = torch.cat([numerical] + list(self.embeddings(cats)), dim=1)
+      return self.head(x)[:, 0]
+
+  return TinyRec()
+
+
+def dense_extras_job(mesh, spec):
+  """Three steps of ``make_train_step(mesh=)`` on :func:`_tiny_rec` with
+  the plan's penalties (``spec['penalties']``: an l2 regularizer, a
+  max_norm constraint), a multi-hot ``mean`` input and the port's
+  ``training.Adagrad``, per ``(overlap, chunks)`` of
+  ``spec['schedules']``, from the JAX init ``spec['init']``; every rank
+  returns ``{overlap/chunks: (losses, global final params, global
+  preds)}``."""
+  import torch
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.layers.planner import (
+      DistEmbeddingStrategy,
+  )
+  from distributed_embeddings_torch.models import bce_loss
+  from distributed_embeddings_torch.parallel import wire
+
+  plan = DistEmbeddingStrategy(
+      [TableConfig(input_dim=v, output_dim=spec["dim"],
+                   combiner=spec["combiner"].get(i),
+                   regularizer=spec["penalties"].get(("reg", i)),
+                   constraint=spec["penalties"].get(("con", i)))
+       for i, v in enumerate(spec["vocab"])], mesh.world, "memory_balanced",
+      dense_row_threshold=spec["dense_row_threshold"],
+      row_slice_threshold=spec["row_slice"])
+  init = {f"embeddings.{k}": v for k, v in spec["init"]["embeddings"].items()}
+  init["head.weight"] = spec["init"]["head"]["kernel"].T.copy()
+  init["head.bias"] = spec["init"]["head"]["bias"]
+  out = {}
+  for overlap, chunks in spec["schedules"]:
+    model = _tiny_rec(spec, mesh, overlap, chunks)
+    assert model.embeddings.plan.class_keys == plan.class_keys
+    model.load_state_dict(ttr.shard_params(init, mesh))
+    opt = ttr.Adagrad(model.parameters(), lr=spec["lr"])
+    step = ttr.make_train_step(
+        lambda m, n, c, y: bce_loss(m(n, c), y), opt, model, mesh=mesh,
+        plan=plan)
+    losses = [float(step(*ttr.shard_batch(
+        (numerical, list(cats), labels), mesh, device="cpu")))
+        for numerical, cats, labels in spec["batches"]]
+    numerical, cats = spec["eval_batch"]
+    preds = ttr.make_eval_step(lambda m, n, c: m(n, c), model, mesh)(
+        *ttr.shard_batch((numerical, list(cats)), mesh, device="cpu"))
+    final = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    for name, p in model.embeddings.class_params().items():
+      final[f"embeddings.{name}"] = wire.gather_blocks(p.detach(),
+                                                      mesh).numpy()
+    out[f"{overlap}/{chunks}"] = (losses, final, preds.numpy())
+  return out
+
+
+def hybrid_job(mesh, spec):
+  """The hybrid-parallel helpers on a world-N DLRM (``spec['model']``'s
+  arguments, ``spec['weights']`` its global tables, ``spec['dense']`` its
+  MLPs):
+
+  - ``grads``: this rank's ``loss.backward()`` on its slice of
+    ``spec['batch']``, then ``finalize_hybrid_grads``; the class blocks'
+    gradients gathered to their global buffers, the MLPs' as they are;
+  - ``broadcast``: models whose MLPs were drawn from per-rank seeds,
+    before and after ``broadcast_variables`` from rank 0, and whether the
+    class blocks stayed bit-equal;
+  - ``callback``: whether ``BroadcastGlobalVariablesCallback`` made the
+    MLPs equal on its first ``on_batch_end`` and left them alone on its
+    second;
+  - ``oov``: ``DistributedEmbedding(return_oov=True)`` counters of
+    ``spec['oov_inputs']`` (this rank's slice)."""
+  import torch
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.layers import dist_model_parallel as dmp
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.parallel import wire
+
+  def dlrm(seed):
+    return DLRM(**spec["model"], world_size=mesh.world, mesh=mesh,
+                generator=torch.Generator().manual_seed(seed))
+
+  def mlp_flat(model):
+    return torch.cat([p.detach().reshape(-1)
+                      for n, p in model.named_parameters()
+                      if not n.startswith("embeddings.")]).numpy()
+
+  out = {}
+  model = dlrm(0)
+  tables = dmp.set_weights(model.embeddings.plan, spec["weights"])
+  model.load_state_dict(ttr.shard_params(
+      {**spec["dense"], **{f"embeddings.{k}": v for k, v in tables.items()}},
+      mesh))
+  numerical, cats, labels = ttr.shard_batch(spec["batch"], mesh,
+                                            device="cpu")
+  bce_loss(model(numerical, cats), labels).backward()
+  dmp.finalize_hybrid_grads(model, mesh)
+  grads = {}
+  for name, p in model.named_parameters():
+    g = p.grad
+    if name.startswith("embeddings."):
+      g = wire.gather_blocks(g, mesh)
+    grads[name] = g.numpy()
+  out["grads"] = grads
+
+  model = dlrm(100 + mesh.rank)
+  blocks = {n: p.detach().clone()
+            for n, p in model.embeddings.class_params().items()}
+  before = mlp_flat(model)
+  dmp.broadcast_variables(model, 0, mesh)
+  out["broadcast"] = {
+      "before": before, "after": mlp_flat(model),
+      "blocks_kept": all(torch.equal(p, blocks[n]) for n, p in
+                         model.embeddings.class_params().items())}
+
+  model = dlrm(200 + mesh.rank)
+  cb = dmp.BroadcastGlobalVariablesCallback(0, model, mesh)
+  cb.on_batch_end(0)
+  first = mlp_flat(model)
+  with torch.no_grad():
+    model.top_mlp.layers[0].bias.add_(float(mesh.rank))
+  cb.on_batch_end(1)
+  out["callback"] = {"first": first, "second": mlp_flat(model)}
+
+  layer = dmp.DistributedEmbedding(
+      [TableConfig(input_dim=v, output_dim=spec["oov_dim"])
+       for v in spec["oov_vocab"]], world_size=mesh.world, mesh=mesh)
+  inputs = ttr.shard_batch(spec["oov_inputs"], mesh, device="cpu")
+  _, oov = layer(inputs, return_oov=True)
+  out["oov"] = {k: int(v) for k, v in oov.items()}
+  return out
+
