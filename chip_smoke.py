@@ -130,7 +130,25 @@ train step of ``examples/dlrm/main.py --sparse`` under
    ``dlrm_main``: ``examples/dlrm/main_torch.py --dataset dummy --steps
    20 --batch_size 4096 --vocab_scale 0.0625 --lr 0.1 --warmup_steps 5
    --eval`` in a subprocess (world 1): exit 0, every printed loss and
-   the AUC finite, its samples/s;
+   the AUC finite, its samples/s (and, split, its first step's seconds
+   and the steady steps' samples/s). Then ``train_ckpt``: the train
+   phase's cell (f32) with ``sgd_rule(schedule)`` and the scheduled
+   dense SGD (``training.ScheduledSGD``): 3 steps, ``checkpoint.save``,
+   ``verify`` and ``restore`` (seconds, bytes, files), the restored
+   state bit-equal to the saved one (every fused buffer, dense tensor,
+   dense-class table, optimizer state, the step), 3 more steps against 6
+   run straight from a copy of the initial state: losses and final
+   arrays bit-equal or within 1e-5 of each cell's magnitude (K1's
+   atomics order duplicates), reported; K2-fwd and K2-bwd once and K1
+   once per sparse class each step. Then ``dlrm_main_sparse``: the
+   README's command with full-state checkpoints through the twin's
+   ``main(argv)`` in this process (``--sparse --checkpoint_dir <tmp>
+   --checkpoint_every 10 --steps 20``, B=4096, x 1/16) twice: finite
+   losses and AUC, the second run resumed at step 20, the directory
+   verified; then ``--dataset criteo`` over a split that
+   ``write_dummy_criteo_split`` writes into a temporary directory, with
+   the native loader built here and its batches bit-equal to the numpy
+   backend's;
 9. ``train_zoo``: Tiny at its published widths and full vocabulary (55
    tables, 58 inputs; 8.99 GB of fused buffers in two width-16
    generations and a width-8 class, Adagrad's accumulator interleaved),
@@ -160,7 +178,13 @@ train step of ``examples/dlrm/main.py --sparse`` under
    ``row_slice=2**26``. At f32 and bf16 compute: 3 warm-up and 10 timed
    steps, with the train phase's checks on each rank, K4 launched once
    per (sparse bucket, round, chunk), every rank's losses equal, and a
-   traced step on rank 0 (K4's device time). Then one f32 step under
+   traced step on rank 0 (K4's device time). Then ``world4_ckpt``: a
+   state of the plan at x 1/16 (on four cards too: the full vocabulary
+   would write 101 GB) with the scheduled SGD takes one step, every rank
+   saves its own blocks and rank 0 publishes, every rank restores and
+   is bit-equal to what it saved, and one step from the restored state
+   and one from the saved state give the same loss, each launching K4,
+   K1, K2-fwd and K2-bwd as a world-4 step does. Then one f32 step under
    ``overlap='fused'``
    and one under ``'none'`` from the same state: the losses bit-equal,
    the fused buffers bit-equal on every row fewer than two ids hit
@@ -186,8 +210,8 @@ train step of ``examples/dlrm/main.py --sparse`` under
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
 the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
-train, dense, zoo and world-4 (sparse train, dense train and serve)
-phases alone: each sets all nine kernels' counters to 0 just before each
+train, dense, train_ckpt, dlrm_main_sparse, zoo and world-4 (sparse
+train, checkpoint, dense train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
 run of its path, reads all nine just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
@@ -235,6 +259,23 @@ DENSE_TIMED = 5
 DLRM_MAIN_ARGS = ("--dataset", "dummy", "--steps", "20", "--batch_size",
                   "4096", "--vocab_scale", "0.0625", "--lr", "0.1",
                   "--warmup_steps", "5", "--eval")
+# the trainer's checkpoints (train_ckpt): the train phase's cell with
+# sgd_rule(schedule) and the scheduled dense SGD, CKPT_STEPS steps, a
+# save, a restore and CKPT_STEPS more, against 2 x CKPT_STEPS straight;
+# the schedule warms up, holds and decays within the six steps
+CKPT_STEPS = 3
+CKPT_SCHEDULE = (TRAIN_LR, 2, 3, 3)
+# the README's "Train end-to-end" command with full-state checkpoints,
+# run twice (the second resumes), then over a locally written Criteo split
+DLRM_MAIN_SPARSE_FLAGS = {"--dataset": "dummy", "--steps": "20",
+                          "--batch_size": "4096", "--vocab_scale": "0.0625",
+                          "--lr": "0.1", "--warmup_steps": "5",
+                          "--checkpoint_every": "10"}
+CRITEO_SAMPLES = 4096 * 12  # 12 batches of 4,096 in each split
+CRITEO_STEPS = 10
+# the world-4 checkpoint phase's vocabulary cut on either backend (on four
+# cards the full vocabulary would write 101 GB of rank files)
+W4_CKPT_VOCAB_SCALE = 16
 # the interaction backward's edge shapes (K2-bwd and K3-bwd, B=1000):
 # one and few features, F=32, narrow and wide rows
 BWD_EDGE_F = (1, 2, 13, 32)
@@ -1289,15 +1330,16 @@ def phase_train(torch, smi: str, compute: str) -> dict:
   return totals
 
 
-def world4_plan(backend: str, overlap: str = "fused"):
+def world4_plan(backend: str, overlap: str = "fused", scale=None):
   """The world-4 plan of ``examples/dlrm/main.py --sparse``: 26 Criteo-1TB
   tables of width 128, ``memory_balanced``, ``dense_row_threshold=4096``,
-  row-sliced as ``backend``'s configuration says, under ``overlap``."""
+  row-sliced as ``backend``'s configuration says, under ``overlap``, the
+  vocabulary cut by ``scale`` (default: ``backend``'s)."""
   from distributed_embeddings_torch.layers.embedding import TableConfig
   from distributed_embeddings_torch.layers.planner import (
       DistEmbeddingStrategy,
   )
-  scale = W4_VOCAB_SCALE[backend]
+  scale = scale or W4_VOCAB_SCALE[backend]
   vocab = [max(4, int(v / scale)) for v in CRITEO_1TB_VOCAB]
   plan = DistEmbeddingStrategy(
       [TableConfig(input_dim=v, output_dim=D) for v in vocab], WORLD,
@@ -1622,6 +1664,110 @@ def _w4_serve(torch, mesh, outdir: str) -> dict:
                              for t in art.state["serve"].values())}
 
 
+def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
+  """``world4_ckpt`` in this rank: a state of the world-4 plan (the
+  vocabulary x 1/``W4_CKPT_VOCAB_SCALE``) with ``sgd_rule(schedule)`` and
+  the scheduled dense SGD takes one step; every rank saves its own blocks
+  into ``outdir/ckpt`` and rank 0 publishes; every rank restores
+  (``restore(mesh=)``, rank 0 verifying) and its state is bit-equal to
+  what it saved; one step from the restored state and one from the saved
+  state give the same loss, each launching K4, K1, K2-fwd and K2-bwd as a
+  world-4 step does."""
+  import math
+  import os
+  import shutil
+
+  import torch.distributed as dist
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.training import (
+      ScheduledSGD,
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+  from distributed_embeddings_torch.utils import dlrm_lr_schedule
+
+  dev = mesh.device
+  vocab, plan = world4_plan(backend, scale=W4_CKPT_VOCAB_SCALE)
+  schedule = dlrm_lr_schedule(*CKPT_SCHEDULE)
+  rule = sgd_rule(schedule)
+
+  def dense_opt(params):
+    return ScheduledSGD(params, schedule)
+
+  model = DLRM(vocab, D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+  torch.cuda.reset_peak_memory_stats(dev)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), dense_opt,
+      torch.Generator(device=dev).manual_seed(SEED + 11 + mesh.rank),
+      mesh=mesh)
+  batch = w4_batch(torch, vocab, mesh)
+  step = make_sparse_train_step(model, plan, bce_loss, dense_opt, rule,
+                                mesh=mesh)
+  want = expect(gather_rows=k4_launches_per_step(plan),
+                apply_rows=len(state["fused"]), interact_fwd=1,
+                interact_bwd=1)
+  totals = expect()
+
+  def one(st, tag):
+    reset_counts()
+    st, loss = step(st, *batch)
+    got = read_counts()
+    check(got == want, f"world4_ckpt rank {mesh.rank} {tag}: launches "
+          f"{got}, expected {want}")
+    add_counts(totals, got)
+    loss = float(loss)
+    check(math.isfinite(loss), f"world4_ckpt rank {mesh.rank} {tag}: loss "
+          f"{loss}")
+    return st, loss
+
+  state, _ = one(state, "before the save")
+  path = os.path.join(outdir, "ckpt")
+  torch.cuda.synchronize(dev)
+  t0 = time.perf_counter()
+  checkpoint.save(path, plan, rule, state, mesh=mesh)
+  save_s = time.perf_counter() - t0
+  out = {"save_s": save_s}
+  if mesh.rank == 0:
+    out["bytes"], out["files"] = dir_bytes(path)
+    out["disk_free_bytes"] = shutil.disk_usage(path).free
+    t0 = time.perf_counter()
+    problems = checkpoint.verify(path)
+    out["verify_s"] = time.perf_counter() - t0
+    check(problems == [], f"world4_ckpt: verify found {problems}")
+  dist.barrier()
+  t0 = time.perf_counter()
+  restored = checkpoint.restore(path, plan, rule, state, mesh=mesh,
+                                verify_integrity=False)
+  torch.cuda.synchronize(dev)
+  out["restore_s"] = time.perf_counter() - t0
+  bad = states_bit_equal(torch, state_arrays(restored), state_arrays(state))
+  check(not bad, f"world4_ckpt rank {mesh.rank}: restored arrays differ "
+        f"from the saved ones: {bad[:8]}")
+  restored, loss_restored = one(restored, "after the restore")
+  state, loss_saved = one(state, "from the saved state")
+  check(abs(loss_restored - loss_saved) <= 1e-5 * max(1.0, abs(loss_saved)),
+        f"world4_ckpt rank {mesh.rank}: the step after the restore gave "
+        f"loss {loss_restored}, the saved state's {loss_saved}")
+  out.update({
+      "vocab_scale": f"1/{W4_CKPT_VOCAB_SCALE}",
+      "fused_bytes": sum(t.numel() * 4 for t in state["fused"].values()),
+      "restored_bit_equal": True, "loss_after_restore": loss_restored,
+      "loss_from_saved_state": loss_saved,
+      "losses_bit_equal": loss_restored == loss_saved,
+      "launches_per_step": want, "launches": totals,
+      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
+  del state, restored, step
+  torch.cuda.empty_cache()
+  dist.barrier()  # every rank has read its blocks
+  if mesh.rank == 0:
+    shutil.rmtree(path)
+  return out
+
+
 def w4_batch(torch, vocab, mesh):
   """This rank's slice of the world-4 phase's global batch: ``W4_BATCH``
   samples of uniform one-hot ids from seed ``SEED``, on its device."""
@@ -1898,6 +2044,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       out["runs"][compute] = run
       del state, buf, step, touch
       torch.cuda.empty_cache()
+    out["ckpt"] = _w4_ckpt(torch, mesh, backend, outdir)
     out["dense"] = _w4_dense(torch, mesh, backend, batch)
     out["serve"] = _w4_serve(torch, mesh, outdir)
   finally:
@@ -1966,12 +2113,38 @@ def phase_world4(torch, smi: str) -> dict:
     emit({"phase": "train_world4_trace", "compute": compute,
           "backend": backend, "rank": 0, "card": smi,
           **runs[0]["trace"]})
+  ckpt_totals = emit_ckpt_world4(backend, smi, [r["ckpt"] for r in ranks])
   dense_totals = emit_dense_world4(backend, smi, [r["dense"] for r in ranks])
   serve_totals = emit_serve_world4(backend, smi,
                                    [r["serve"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s})
-  return {"train_world4": totals, "train_dense_world4": dense_totals,
-          "serve_world4": serve_totals}
+  return {"train_world4": totals, "world4_ckpt": ckpt_totals,
+          "train_dense_world4": dense_totals, "serve_world4": serve_totals}
+
+
+def emit_ckpt_world4(backend: str, smi: str, ckpt: list) -> dict:
+  """The ``world4_ckpt`` line from the ranks' :func:`_w4_ckpt` results;
+  returns each kernel's launches summed over the ranks."""
+  ckpt_totals = expect()
+  for r in ckpt:
+    add_counts(ckpt_totals, r.pop("launches"))
+  emit({"phase": "world4_ckpt", "backend": backend, "card": smi,
+        "vocab_scale": ckpt[0]["vocab_scale"],
+        "row_slice": W4_ROW_SLICE[backend], "global_batch": W4_BATCH,
+        "bytes": ckpt[0]["bytes"], "files": ckpt[0]["files"],
+        "disk_free_bytes": ckpt[0]["disk_free_bytes"],
+        "verify_s": ckpt[0]["verify_s"],
+        "save_s_by_rank": [r["save_s"] for r in ckpt],
+        "restore_s_by_rank": [r["restore_s"] for r in ckpt],
+        "fused_bytes_per_rank": [r["fused_bytes"] for r in ckpt],
+        "peak_gib_by_rank": [r["peak_gib"] for r in ckpt],
+        "restored_bit_equal": True,
+        "loss_after_restore_by_rank": [r["loss_after_restore"]
+                                       for r in ckpt],
+        "losses_bit_equal": all(r["losses_bit_equal"] for r in ckpt),
+        "launches_per_step_per_rank": ckpt[0]["launches_per_step"],
+        "launches": ckpt_totals})
+  return ckpt_totals
 
 
 def emit_dense_world4(backend: str, smi: str, dense: list) -> dict:
@@ -2386,12 +2559,368 @@ def phase_dlrm_main(smi: str) -> None:
   check(losses and aucs and rate, f"dlrm_main printed {r.stdout[-2000:]}")
   check(all(math.isfinite(v) for v in losses + aucs),
         f"dlrm_main: a loss or AUC is not finite: {losses}, {aucs}")
+  numbers = _twin_numbers(r.stdout, "dlrm_main")
   emit({"phase": "dlrm_main", "card": smi,
         "argv": ["examples/dlrm/main_torch.py", *DLRM_MAIN_ARGS],
         "steps": int(rate.group(1)),
         "samples_per_s": float(rate.group(2).replace(",", "")),
+        "first_step_s": numbers["first_step_s"],
+        "steady_samples_per_s": numbers["steady_samples_per_s"],
         "losses": losses, "auc": aucs, "wall_s": wall_s,
         "stdout": r.stdout.strip().splitlines()})
+
+
+def state_arrays(state) -> dict:
+  """Every array of a port train state, by name: the fused buffers, the
+  dense-class tables and the dense params as tensors on their device,
+  the optimizers' states in optax's spelling (numpy), and the step."""
+  from distributed_embeddings_torch.convert import optax_state_of
+
+  out = {f"fused/{k}": v for k, v in state["fused"].items()}
+  out.update({f"emb_dense/{k}": v.detach()
+              for k, v in state["emb_dense"].items()})
+  out.update({f"dense/{k}": v.detach() for k, v in state["dense"].items()})
+  for part in ("dense", "emb_dense"):
+    out.update({f"{part}_opt/{k}": v for k, v in optax_state_of(
+        state[f"{part}_opt"], state[part]).items()})
+  out["step"] = state["step"]
+  return out
+
+
+def states_bit_equal(torch, got: dict, want: dict) -> list:
+  """The names of ``want``'s arrays that ``got`` lacks or holds with
+  other bits."""
+  import numpy as np
+
+  bad = sorted(set(want) ^ set(got))
+  for k, w in want.items():
+    if k not in got:
+      continue
+    g = got[k]
+    if isinstance(w, torch.Tensor):
+      same = g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+    else:
+      same = np.array_equal(np.asarray(g), np.asarray(w))
+    if not same:
+      bad.append(k)
+  return bad
+
+
+def states_close(torch, got: dict, want: dict, rtol: float) -> dict:
+  """``got`` against ``want`` (float tensors and arrays): bit-equal or
+  within ``rtol`` of each cell's magnitude (at least 1); returns the
+  largest difference, the cells that differ and whether all are within
+  the tolerance."""
+  import numpy as np
+
+  worst, differ, ok = 0.0, 0, True
+  for k, w in want.items():
+    g = got[k]
+    if not isinstance(w, torch.Tensor):
+      w, g = torch.as_tensor(np.asarray(w)), torch.as_tensor(np.asarray(g))
+    if not w.is_floating_point():
+      ok = ok and torch.equal(g, w)
+      continue
+    d = (g.float() - w.float()).abs()
+    differ += int((d > 0).sum())
+    if d.numel():
+      worst = max(worst, float(d.max()))
+      ok = ok and bool((d <= rtol * w.float().abs().clamp_min(1.0)).all())
+  return {"max_abs_err": worst, "cells_differing": differ, "within": ok}
+
+
+def phase_train_ckpt(torch, smi: str) -> dict:
+  """``train_ckpt``: the world-1 train cell at full width (the train
+  phase's plan, batch 65,536) with ``sgd_rule(schedule)`` and the
+  scheduled dense SGD: ``CKPT_STEPS`` steps, ``checkpoint.save``,
+  ``verify``, ``restore`` into a fresh state (every array bit-equal to the
+  saved one), ``CKPT_STEPS`` more, against ``2 * CKPT_STEPS`` steps run
+  straight from a copy of the initial state: losses and final arrays
+  bit-equal or within K1's 1e-5 (duplicates add in the atomics' order),
+  reported. Each step launches K2-fwd and K2-bwd once and K1 once per
+  sparse class. Returns the launches of the steps."""
+  import math
+  import shutil
+  import tempfile
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.training import (
+      ScheduledSGD,
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+  from distributed_embeddings_torch.utils import dlrm_lr_schedule
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  schedule = dlrm_lr_schedule(*CKPT_SCHEDULE)
+  rule = sgd_rule(schedule)
+
+  def dense_opt(params):
+    return ScheduledSGD(params, schedule)
+
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  torch.cuda.reset_peak_memory_stats()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), dense_opt,
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+  straight = {"fused": {k: v.clone() for k, v in state["fused"].items()},
+              "emb_dense": {k: v.detach().clone()
+                            for k, v in state["emb_dense"].items()},
+              "dense": {k: v.detach().clone()
+                        for k, v in state["dense"].items()},
+              "step": 0}
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+  b = TRAIN_BATCH
+  batches = [(torch.randn((b, 13), generator=gen, device="cuda"),
+              [torch.randint(0, v, (b,), generator=gen, device="cuda",
+                             dtype=torch.int32) for v in vocab],
+              torch.randint(0, 2, (b,), generator=gen,
+                            device="cuda").float())
+             for _ in range(2 * CKPT_STEPS)]
+  step = make_sparse_train_step(model, plan, bce_loss, dense_opt, rule)
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  totals = expect()
+
+  def run(st, todo, tag):
+    losses = []
+    for i, batch in enumerate(todo):
+      reset_counts()
+      st, loss = step(st, *batch)
+      got = read_counts()
+      check(got == want, f"train_ckpt {tag} step {i}: launches {got}, "
+            f"expected {want}")
+      add_counts(totals, got)
+      losses.append(float(loss))
+      check(math.isfinite(losses[-1]),
+            f"train_ckpt {tag} step {i}: loss {losses[-1]}")
+    torch.cuda.synchronize()
+    return st, losses
+
+  state, first = run(state, batches[:CKPT_STEPS], "before the save")
+  root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+  path = f"{root}/ckpt"
+  t0 = time.perf_counter()
+  checkpoint.save(path, plan, rule, state, extra={"cell": "train_ckpt"})
+  save_s = time.perf_counter() - t0
+  nbytes, nfiles = dir_bytes(path)
+  free = shutil.disk_usage(root).free
+  t0 = time.perf_counter()
+  problems = checkpoint.verify(path)
+  verify_s = time.perf_counter() - t0
+  check(problems == [], f"train_ckpt: verify found {problems}")
+  t0 = time.perf_counter()
+  restored = checkpoint.restore(path, plan, rule, state, device="cuda",
+                                verify_integrity=False)
+  torch.cuda.synchronize()
+  restore_s = time.perf_counter() - t0
+  saved = state_arrays(state)
+  bad = states_bit_equal(torch, state_arrays(restored), saved)
+  check(not bad, f"train_ckpt: restored arrays differ from the saved "
+        f"ones: {bad[:8]}")
+  check(restored["step"] == CKPT_STEPS and isinstance(
+      restored["dense_opt"], ScheduledSGD) and
+      restored["dense_opt"].count == CKPT_STEPS,
+        "train_ckpt: the restored step or schedule count is not "
+        f"{CKPT_STEPS}")
+  n_arrays = len(saved)
+  del state, saved
+  shutil.rmtree(root)
+  torch.cuda.empty_cache()
+  restored, second = run(restored, batches[CKPT_STEPS:], "after the restore")
+  straight, whole = run(straight, batches, "straight")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  final = states_close(torch, state_arrays(restored),
+                       state_arrays(straight), 1e-5)
+  losses_equal = first + second == whole
+  check(final["within"] and all(
+      abs(a - w) <= 1e-5 * max(1.0, abs(w))
+      for a, w in zip(first + second, whole)),
+        f"train_ckpt: the resumed run left the straight one by "
+        f"{final['max_abs_err']} ({final['cells_differing']} cells)")
+  emit({"phase": "train_ckpt", "card": smi, "batch": b,
+        "sparse_classes": n_sparse, "schedule": list(CKPT_SCHEDULE),
+        "fused_bytes": sum(t.numel() * 4 for t in restored["fused"].values()),
+        "bytes": nbytes, "files": nfiles, "disk_free_bytes": free,
+        "save_s": save_s, "verify_s": verify_s, "restore_s": restore_s,
+        "restored_bit_equal": True, "arrays_compared": n_arrays,
+        "losses_resumed": first + second, "losses_straight": whole,
+        "losses_bit_equal": losses_equal,
+        "final_bit_equal": final["cells_differing"] == 0,
+        "final_max_abs_err": final["max_abs_err"],
+        "final_cells_differing": final["cells_differing"],
+        "tolerance": "bit-equal, else 1e-5 of each cell's magnitude",
+        "launches_per_step": want, "peak_gib": peak})
+  del restored, straight, step, batches
+  torch.cuda.empty_cache()
+  return totals
+
+
+def twin_argv(flags: dict) -> list:
+  """The sparse twin's command line: ``flags`` and ``--eval --sparse``."""
+  return [a for kv in flags.items() for a in kv] + ["--eval", "--sparse"]
+
+
+def _run_twin(argv) -> tuple:
+  """``examples/dlrm/main_torch.py``'s ``main(argv)`` in this process
+  (so the launch counters see its steps): ``(stdout, launches)``."""
+  import contextlib
+  import importlib.util
+  import io
+  import os
+
+  root = os.path.dirname(os.path.abspath(__file__))
+  spec = importlib.util.spec_from_file_location(
+      "main_torch", os.path.join(root, "examples", "dlrm", "main_torch.py"))
+  twin = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(twin)
+  buf = io.StringIO()
+  reset_counts()
+  with contextlib.redirect_stdout(buf):
+    twin.main(list(argv))
+  got = read_counts()
+  return buf.getvalue(), got
+
+
+def _twin_numbers(out: str, tag: str) -> dict:
+  """The losses, AUCs and rates a twin run printed, each checked finite."""
+  import math
+
+  losses = [float(v) for v in re.findall(r"loss ([-+0-9.naif]+)", out)]
+  aucs = [float(v) for v in re.findall(r"AUC: ([-+0-9.naif]+)", out)]
+  rate = re.search(r"trained (\d+) steps in [0-9.]+s \(([0-9,]+) "
+                   r"samples/sec\)", out)
+  first = re.search(r"first step ([0-9.]+)s", out)
+  steady = re.search(r"steady steps (\d+) in ([0-9.]+)s \(([0-9,]+) "
+                     r"samples/sec\)", out)
+  check(losses and aucs and rate and first and steady,
+        f"{tag} printed {out[-2000:]}")
+  check(all(math.isfinite(v) for v in losses + aucs),
+        f"{tag}: a loss or AUC is not finite: {losses}, {aucs}")
+  return {"steps": int(rate.group(1)),
+          "samples_per_s": float(rate.group(2).replace(",", "")),
+          "first_step_s": float(first.group(1)),
+          "steady_steps": int(steady.group(1)),
+          "steady_s": float(steady.group(2)),
+          "steady_samples_per_s": float(steady.group(3).replace(",", "")),
+          "losses": losses, "auc": aucs}
+
+
+def phase_dlrm_main_sparse(torch, smi: str) -> dict:
+  """``dlrm_main_sparse``: the README's "Train end-to-end" command through
+  the twin (``main_torch.py`` with ``DLRM_MAIN_SPARSE_FLAGS`` and a
+  temporary ``--checkpoint_dir``) twice at world 1, in this process: both
+  runs end with finite losses and AUC, the second prints ``resumed from
+  <dir> at step 20``, and the published directory passes ``verify`` and
+  holds step 20, then 40.
+  Then one run with ``--dataset criteo`` over a split that
+  ``write_dummy_criteo_split`` writes into a temporary directory, and the
+  native loader (built here) against the numpy backend on that split,
+  batch for batch bit-equal. Every run launches K2-fwd, K2-bwd and K1.
+  Returns the runs' launches."""
+  import shutil
+  import tempfile
+
+  import numpy as np
+
+  from distributed_embeddings_torch import cc, checkpoint
+  from distributed_embeddings_torch.utils import (
+      RawBinaryCriteoDataset,
+      categorical_dtype,
+      write_dummy_criteo_split,
+  )
+
+  root = tempfile.mkdtemp(prefix="chip_smoke_main_sparse_")
+  ckpt = f"{root}/ckpt"
+  steps = int(DLRM_MAIN_SPARSE_FLAGS["--steps"])
+  totals = expect()
+  runs = []
+  for i in range(2):
+    t0 = time.perf_counter()
+    out, got = _run_twin(twin_argv(DLRM_MAIN_SPARSE_FLAGS) +
+                         ["--device", "cuda", "--checkpoint_dir", ckpt])
+    wall_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    numbers = _twin_numbers(out, f"dlrm_main_sparse run {i}")
+    resumed = f"resumed from {ckpt} at step {steps}" in out
+    check(resumed == (i == 1), f"dlrm_main_sparse run {i}: the resume line "
+          f"{'is missing' if i else 'is there'}: {out[-2000:]}")
+    for name in ("interact_fwd", "interact_bwd", "apply_rows"):
+      check(got[name] > 0, f"dlrm_main_sparse run {i} never launched {name}")
+    add_counts(totals, got)
+    t0 = time.perf_counter()
+    problems = checkpoint.verify(ckpt)
+    verify_s = time.perf_counter() - t0
+    check(problems == [], f"dlrm_main_sparse run {i}: verify found "
+          f"{problems}")
+    manifest = checkpoint.read_manifest(ckpt)
+    check(manifest["step"] == steps * (i + 1),
+          f"dlrm_main_sparse run {i}: the checkpoint holds step "
+          f"{manifest['step']}")
+    nbytes, nfiles = dir_bytes(ckpt)
+    runs.append({"resumed": resumed, "wall_s": wall_s, "verify_s": verify_s,
+                 "checkpoint_step": manifest["step"], "bytes": nbytes,
+                 "files": nfiles, "launches": got, **numbers,
+                 "stdout": out.strip().splitlines()})
+  shutil.rmtree(root)
+
+  # the split-binary Criteo reader, at the twin's vocabulary and batch
+  flags = dict(DLRM_MAIN_SPARSE_FLAGS)
+  batch = int(flags["--batch_size"])
+  vocab = [max(4, int(v * float(flags["--vocab_scale"])))
+           for v in CRITEO_1TB_VOCAB]
+  data = tempfile.mkdtemp(prefix="chip_smoke_criteo_")
+  write_dummy_criteo_split(data, CRITEO_SAMPLES, vocab, seed=SEED)
+  t0 = time.perf_counter()
+  cc.build()
+  build_s = time.perf_counter() - t0
+  kw = dict(numerical_features=13, categorical_features=list(range(26)),
+            categorical_feature_sizes=vocab)
+  compared = 0
+  for valid in (False, True):
+    native = list(RawBinaryCriteoDataset(data, batch, valid=valid,
+                                         backend="native", **kw))
+    plain = list(RawBinaryCriteoDataset(data, batch, valid=valid,
+                                        backend="numpy", **kw))
+    check(len(native) == len(plain) == CRITEO_SAMPLES // batch,
+          f"criteo reader: {len(native)} native and {len(plain)} numpy "
+          "batches")
+    for (n1, c1, l1), (n2, c2, l2) in zip(native, plain):
+      check(np.array_equal(n1, n2) and np.array_equal(l1, l2) and
+            all(np.array_equal(a, b) for a, b in zip(c1, c2)),
+            "criteo reader: a native batch differs from the numpy one")
+      compared += 1
+  flags.update({"--dataset": "criteo", "--steps": str(CRITEO_STEPS)})
+  del flags["--checkpoint_every"]
+  argv = twin_argv(flags) + ["--dataset_path", data, "--device", "cuda"]
+  t0 = time.perf_counter()
+  out, got = _run_twin(argv)
+  wall_s = time.perf_counter() - t0
+  numbers = _twin_numbers(out, "dlrm_main_sparse criteo")
+  check(numbers["steps"] == CRITEO_STEPS,
+        f"dlrm_main_sparse criteo: {numbers['steps']} steps")
+  for name in ("interact_fwd", "interact_bwd", "apply_rows"):
+    check(got[name] > 0, f"dlrm_main_sparse criteo never launched {name}")
+  add_counts(totals, got)
+  shutil.rmtree(data)
+  torch.cuda.empty_cache()
+  emit({"phase": "dlrm_main_sparse", "card": smi,
+        "argv": ["examples/dlrm/main_torch.py",
+                 *twin_argv(DLRM_MAIN_SPARSE_FLAGS),
+                 "--checkpoint_dir", "<tmp>"],
+        "runs": runs,
+        "criteo": {"samples_per_split": CRITEO_SAMPLES,
+                   "cat_dtypes": sorted({str(categorical_dtype(v))
+                                         for v in vocab}),
+                   "native_build_s": build_s,
+                   "native_batches_bit_equal_numpy": compared,
+                   "wall_s": wall_s, "launches": got, **numbers,
+                   "stdout": out.strip().splitlines()}})
+  return totals
 
 
 def zoo_plan():
@@ -3109,6 +3638,9 @@ def main() -> int:
                                                           compute)
   torch.cuda.empty_cache()
   phase_dlrm_main(smi)
+  by_path["train_ckpt"] = phase_train_ckpt(torch, smi)
+  by_path["dlrm_main_sparse"] = phase_dlrm_main_sparse(torch, smi)
+  torch.cuda.empty_cache()
   by_path.update(phase_train_zoo(torch, smi))
   for path, name in (("train_zoo", "build_delta_rows"),
                      ("train_zoo", "apply_rows"),
@@ -3122,6 +3654,13 @@ def main() -> int:
   for name in ("interact_fwd", "interact_bwd"):
     check(by_path["train_dense_world4"][name] > 0,
           f"the world-4 dense path never launched {name}")
+  for path, names in (("train_ckpt", ("interact_fwd", "interact_bwd",
+                                      "apply_rows")),
+                      ("dlrm_main_sparse", ("interact_fwd", "interact_bwd",
+                                            "apply_rows")),
+                      ("world4_ckpt", W4_KERNELS)):
+    for name in names:
+      check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 
   for path, p in by_path.items():
     check(set(p) == set(COUNTERS), f"the {path} path read the counts of "

@@ -1,24 +1,46 @@
-"""Durable publication core of the checkpoint layer (PyTorch port).
+"""Full train-state checkpoint and resume (PyTorch port of
+``checkpoint.py``).
 
-The part of ``distributed_embeddings_tpu/checkpoint.py`` that the serve
-artifact (``serving/export.py``) writes and reads through, with the same
-on-disk contract, so either package verifies and loads the other's
-directories:
+The JAX package's on-disk format and durable protocol, so that either
+package restores the other's checkpoint:
 
 - every data file is fsynced and sealed into a per-file crc32 + size
   table (:func:`_crc32_file`);
 - the manifest carrying that table is written LAST, fsynced, and the
   ``.tmp`` directory is renamed into place atomically
   (:func:`publish_manifest_last`); a crash at any point leaves either a
-  manifest-less ``.tmp`` or a complete directory;
+  manifest-less ``.tmp`` or a complete directory, and a previous
+  checkpoint rotates to ``.old``;
 - :func:`verify` checks a published directory's files against the table
-  and names each bad file;
+  and names each bad file (a manifest without the table, from before the
+  durable format, gets the JAX package's existence checks);
 - :func:`_plan_fingerprint` pins the plan a directory was written under,
   as JSON equal to the JAX package's for the same plan (plain ``int``\\ s
   and lists only, so a manifest written by one package compares equal
-  in the other).
+  in the other); the ``world`` section (:func:`_world_section`) says how
+  many rank files there are and what each class's rows are.
 
-Not ported yet: ``save`` and ``restore`` of a full train state.
+:func:`save` writes a fused train state (``training.make_sparse_train_step``'s):
+
+    manifest.json
+    fused_<class>_r<rank>.npy      packed [phys_rows, phys_width] f32 blocks
+    dense.npz                      the model's params as the flax tree
+    dense_opt.npz                  their optax state (convert.optax_state_of)
+    emb_dense.npz                  the dense-class tables, global
+    emb_dense_opt.npz              their optax state, global
+
+At world N every rank calls it with its mesh: each rank writes and seals
+its own blocks and its ``DONE_p<rank>`` marker (its crc table), rank 0
+writes the npz files (the dense-class tables and their per-row optimizer
+state gathered to its host one block at a time), merges the markers and
+publishes; barriers over the process group order the steps, and every
+exception still reaches them. :func:`restore` reads it back (rank 0
+verifies, every rank reads only its own blocks).
+
+Not ported (refused by name): host-tier stores (``store=``, ROADMAP.md
+§1 item 8), the dynamic vocabulary (``vocab=``, item 12), telemetry and
+stream sections (``telemetry=``, ``stream=``, items 11 and 12), and the
+elastic re-shard of a checkpoint onto another world (item 11).
 """
 
 from __future__ import annotations
@@ -26,14 +48,25 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import time
 import zlib
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .parallel.lookup_engine import class_param_name
+from .device import resolve_device
+from .parallel.lookup_engine import (
+    DistributedLookup,
+    class_param_name,
+    padded_rows,
+)
 from .resilience import faultinject
+
+FORMAT_VERSION = 1
+
+_PARTS = ("dense", "dense_opt", "emb_dense", "emb_dense_opt")
 
 
 def _crc32_file(path: str, chunk: int = 1 << 22) -> Dict[str, int]:
@@ -71,7 +104,10 @@ def _fsync_dir(path: str) -> None:
 def verify(path: str, only=None) -> List[str]:
   """Validate a published directory; returns a list of problems (empty
   == valid): the manifest exists and parses, and each file of its
-  ``checksums`` table exists with the recorded size and crc32.
+  ``checksums`` table exists with the recorded size and crc32. A
+  manifest without the table (a checkpoint from before the durable
+  format) gets the JAX package's existence checks of the file set the
+  manifest implies, in its order and with its messages.
 
   ``only``: an optional collection of basenames — verify just those
   entries (each must be in the table). A rank of a world-N serve load
@@ -86,9 +122,7 @@ def verify(path: str, only=None) -> List[str]:
     return [f"unreadable manifest {mpath}: {e}"]
   checksums = manifest.get("checksums")
   if checksums is None:
-    return [f"manifest {mpath} has no checksums table (a checkpoint "
-            "written before the durable format; the port reads only "
-            "durable directories)"]
+    return _legacy_problems(path, manifest)
   if only is not None:
     missing = sorted(set(only) - set(checksums))
     if missing:
@@ -111,6 +145,29 @@ def verify(path: str, only=None) -> List[str]:
       problems.append(
           f"corrupted file: {fpath} crc32 {got:#010x} != manifest "
           f"{want['crc32']:#010x} (bit flip or torn write)")
+  return problems
+
+
+def _legacy_problems(path: str, manifest: Dict[str, Any]) -> List[str]:
+  """Existence checks of a checksum-less manifest's file set: the rank
+  files of every fused class, the four npz parts, the host-tier cold
+  images (the JAX package's ``verify`` fallback)."""
+  problems = []
+  world = manifest.get("plan", {}).get("world_size", 1)
+  for name in manifest.get("fused", {}):
+    for r in range(world):
+      fpath = os.path.join(path, f"fused_{name}_r{r}.npy")
+      if not os.path.isfile(fpath):
+        problems.append(f"missing file: {fpath}")
+  for part in _PARTS:
+    fpath = os.path.join(path, f"{part}.npz")
+    if not os.path.isfile(fpath):
+      problems.append(f"missing file: {fpath}")
+  for name in manifest.get("tiering", {}).get("classes", {}):
+    for r in range(world):
+      fpath = os.path.join(path, f"cold_{name}_r{r}.npy")
+      if not os.path.isfile(fpath):
+        problems.append(f"missing file: {fpath}")
   return problems
 
 
@@ -137,6 +194,72 @@ def _flatten_with_paths(tree) -> Dict[str, np.ndarray]:
 
   walk("", tree)
   return flat
+
+
+def _world_section(plan) -> Dict[str, Any]:
+  """The manifest's ``world`` section (the JAX package's
+  ``_world_section``): the rank count and, per class, its kind, tier,
+  per-rank logical rows and width (``resilience/elastic.
+  plan_world_classes``). With the fingerprint's ``layout`` it says where
+  every logical row lives in the rank files."""
+  classes = {}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    classes[class_param_name(*key)] = {
+        "kind": cp.kind,
+        "tier": plan.class_tiers.get(key, "device"),
+        "rows": int(padded_rows(plan, key)),
+        "width": int(cp.width),
+    }
+  return {"ranks": int(plan.world_size), "classes": classes}
+
+
+def _elastic_reason(manifest: Dict[str, Any], want: Dict[str, Any],
+                    plan) -> Optional[str]:
+  """None when a plan-fingerprint mismatch is only a placement
+  difference (world size, strategy, slicing, generations) that the JAX
+  package re-shards elastically, else the reason it cannot (the JAX
+  package's ``_elastic_reason``, its messages)."""
+  saved = manifest["plan"]
+  if "layout" not in saved or "world" not in manifest:
+    return ("the checkpoint predates the elastic manifest format "
+            "(no plan.layout / world section), so its rank blocks "
+            "cannot be re-sliced")
+  if saved.get("tables") != want.get("tables"):
+    return "the logical tables differ (vocab/width/combiner)"
+  if saved.get("input_table_map") != want.get("input_table_map"):
+    return "the input->table map differs"
+  src_tier: Dict[int, str] = {}
+  src_kind: Dict[int, str] = {}
+  for cname, meta in manifest["world"]["classes"].items():
+    for rank_slots in saved["layout"].get(cname, []):
+      for slot in rank_slots:
+        src_tier[int(slot[0])] = meta["tier"]
+        src_kind[int(slot[0])] = meta["kind"]
+  new_kind: Dict[int, str] = {}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    for slots in cp.slots_per_rank:
+      for s in slots:
+        new_kind[s.shard.table_id] = cp.kind
+  for t, tier in sorted(src_tier.items()):
+    if plan.table_tier(t) != tier:
+      return (f"table {t} was saved on the {tier!r} tier but the current "
+              f"plan places it on {plan.table_tier(t)!r} — cross-tier "
+              "moves need a format conversion, not an elastic re-shard "
+              "(adjust host_row_threshold to match the saving run)")
+    if new_kind.get(t) != src_kind[t]:
+      return (f"table {t} was saved as a {src_kind[t]!r}-kind class but "
+              f"the current plan serves it {new_kind.get(t)!r}-kind — "
+              "the sparse<->dense storage formats differ (packed aux "
+              "lanes vs optax state); match the saving run's "
+              "dense_row_threshold")
+  return None
+
+
+def _abbrev(v, limit: int = 200) -> str:
+  s = repr(v)
+  return s if len(s) <= limit else s[:limit] + f"... (+{len(s) - limit} chars)"
 
 
 def plan_layout(plan) -> Dict[str, list]:
@@ -205,3 +328,473 @@ def publish_manifest_last(tmp: str, path: str,
     os.rename(path, backup)
   os.rename(tmp, path)
   _fsync_dir(os.path.dirname(os.path.abspath(path)))
+
+
+# ---------------------------------------------------------------------------
+# full train-state save / restore
+# ---------------------------------------------------------------------------
+
+
+def _refuse_unported(store, vocab, telemetry, stream) -> None:
+  if store is not None:
+    raise NotImplementedError(
+        "store= (a host-tier HostTierStore): tiered checkpoints are not "
+        "ported yet (ROADMAP.md §1 item 8)")
+  if vocab is not None:
+    raise NotImplementedError(
+        "vocab= (a dynamic-vocabulary translator): its id space is not "
+        "ported yet (ROADMAP.md §1 item 12, dynvocab)")
+  if telemetry is not None:
+    raise NotImplementedError(
+        "telemetry= (the registry's persisted section): not ported yet "
+        "(ROADMAP.md §1 item 11, telemetry)")
+  if stream is not None:
+    raise NotImplementedError(
+        "stream= (the delta publisher's chain state): not ported yet "
+        "(ROADMAP.md §1 item 12, streaming)")
+
+
+def _state_rank(plan, mesh) -> Optional[int]:
+  """This process's rank when it holds one rank's blocks (a world-N plan
+  with a mesh), else None (it holds every rank's)."""
+  if mesh is None or plan.world_size == 1:
+    return None
+  if mesh.world != plan.world_size:
+    raise ValueError(f"the mesh has {mesh.world} ranks, the plan "
+                     f"{plan.world_size}")
+  return mesh.rank
+
+
+def _barrier(rank: Optional[int]) -> None:
+  if rank is not None:
+    dist.barrier()
+
+
+def blocks_on_root(block: torch.Tensor, mesh) -> Optional[np.ndarray]:
+  """Every rank's ``block`` stacked by rank in rank 0's host memory
+  (numpy), None on the other ranks; each block crosses the wire alone, so
+  no card ever holds more than its own block and one more. Without a mesh
+  (or at world 1) the block itself, on the host."""
+  if mesh is None or mesh.world == 1:
+    return _host(block)
+  # gloo sends and receives host tensors only, NCCL the rank's card's
+  block = block.detach()
+  block = (block.cpu() if mesh.backend == "gloo"
+           else block.to(mesh.device).contiguous())
+  if mesh.rank != 0:
+    dist.send(block, dst=0)
+    return None
+  parts = [_host(block)]
+  buf = torch.empty_like(block)
+  for src in range(1, mesh.world):
+    dist.recv(buf, src=src)
+    parts.append(_host(buf).copy())  # buf is received into again
+  return np.concatenate(parts)
+
+
+def _npz_parts(state: Dict[str, Any], mesh, rank: Optional[int]
+               ) -> Dict[str, Dict[str, np.ndarray]]:
+  """The four npz parts of a checkpoint, flattened in the JAX package's
+  spelling, on rank 0 (``{}`` on the others): the model's params as the
+  flax tree, the dense-class tables whole, and each part's optax state.
+  At world N the dense-class tables and their per-row optimizer leaves
+  are rank blocks, gathered to rank 0 one block at a time (a collective:
+  every rank calls this)."""
+  # convert imports the serving and training modules; import at call time
+  from .convert import (
+      _row_leaf,
+      dense_state_dict_to_flax,
+      optax_state_of,
+  )
+  # the optimizers' states are keyed by the state's own tensors
+  dense = state["dense"]
+  emb_dense = state["emb_dense"]
+  emb_opt = optax_state_of(state.get("emb_dense_opt"), emb_dense)
+  if not emb_dense:
+    # no dense-class tables: the JAX state keeps the optax state of an
+    # empty tree (a schedule's count, which never advances there)
+    emb_opt = {k: v for k, v in optax_state_of(
+        state.get("dense_opt"), dense).items() if k == "1/count"}
+    emb_opt = {k: np.zeros_like(v) for k, v in emb_opt.items()}
+  if rank is not None:
+    names = set(emb_dense)
+    tables = {k: blocks_on_root(v, mesh) for k, v in sorted(emb_dense.items())}
+    emb_opt = {k: (blocks_on_root(torch.from_numpy(v), mesh)
+                   if _row_leaf(k, names) else v)
+               for k, v in sorted(emb_opt.items())}
+  else:
+    tables = {k: _host(v) for k, v in emb_dense.items()}
+  if rank not in (None, 0):
+    return {}
+  return {
+      "dense": _flatten_with_paths(dense_state_dict_to_flax(dense)),
+      "dense_opt": optax_state_of(state.get("dense_opt"), dense),
+      "emb_dense": tables,
+      "emb_dense_opt": emb_opt,
+  }
+
+
+def save(path: str, plan, rule, state: Dict[str, Any], store=None,
+         extra: Optional[Dict[str, Any]] = None, vocab=None,
+         telemetry=None, stream=None, mesh=None) -> None:
+  """Write the full fused train state under directory ``path``, in the
+  JAX package's format (its ``checkpoint.restore`` reads it back).
+
+  ``state`` is a port train state: ``fused`` (every rank's blocks, or
+  with a world-N ``mesh`` this rank's), ``emb_dense``, ``dense``, the
+  bound optimizers ``dense_opt`` / ``emb_dense_opt`` (their states go
+  out in optax's spelling, ``convert.optax_state_of``) and ``step``.
+
+  Atomicity: everything is written into ``path + '.tmp'`` and renamed at
+  the end, so a crash mid-save never corrupts the previous checkpoint
+  (which rotates to ``path + '.old'``). With a world-N ``mesh`` every
+  rank calls :func:`save`: each writes and seals only its own blocks and
+  its ``DONE_p<rank>`` marker, rank 0 writes the npz parts, merges the
+  markers' checksum tables and publishes the manifest, and every rank
+  returns once the checkpoint is published (or raises, on every rank,
+  when any rank failed). ``extra`` (JSON) rides the manifest."""
+  _refuse_unported(store, vocab, telemetry, stream)
+  if getattr(plan, "oov", "clip") == "allocate":
+    raise NotImplementedError(
+        "plan.oov='allocate': the dynamic id space is not ported yet "
+        "(ROADMAP.md §1 item 12, dynvocab)")
+  if plan.host_tier_class_keys():
+    raise NotImplementedError(
+        "plan has host-tier classes: tiered checkpoints are not ported "
+        "yet (ROADMAP.md §1 item 8)")
+  rank = _state_rank(plan, mesh)
+  p0 = rank in (None, 0)
+  layouts = DistributedLookup(plan).fused_layouts(rule)
+  parts = _npz_parts(state, mesh, rank)  # collective at world N
+  tmp = path + ".tmp"
+  err: Optional[BaseException] = None
+  if p0:
+    try:
+      if os.path.exists(tmp):
+        # a stale .tmp from a crashed save would otherwise merge its files
+        # into this checkpoint
+        shutil.rmtree(tmp)
+      os.makedirs(tmp)
+    except BaseException as e:  # reach the barrier even on failure
+      err = e
+  _barrier(rank)
+
+  local_crcs: Dict[str, Dict[str, int]] = {}
+
+  def _seal(fpath: str) -> None:
+    _fsync_path(fpath)
+    faultinject.fire("ckpt_write", path=fpath)
+    local_crcs[os.path.basename(fpath)] = _crc32_file(fpath)
+
+  me = 0 if rank is None else rank
+  n_proc = 1 if rank is None else plan.world_size
+  fused_meta = {}
+  try:
+    if err is not None:
+      raise err  # rank 0's mkdir failure, re-raised after the barrier
+    if not os.path.isdir(tmp):
+      raise RuntimeError(
+          f"checkpoint tmp dir {tmp!r} missing after barrier — rank 0 "
+          "failed to create it (its exception has the root cause), or the "
+          "ranks do not share a filesystem")
+    for name, layout in layouts.items():
+      buf = state["fused"][name]
+      ranks = range(plan.world_size) if rank is None else [rank]
+      for i, r in enumerate(ranks):
+        block = buf[i * layout.phys_rows:(i + 1) * layout.phys_rows]
+        if tuple(block.shape) != (layout.phys_rows, layout.phys_width):
+          raise ValueError(
+              f"class {name!r}: rank {r}'s block has shape "
+              f"{tuple(block.shape)}, the layout "
+              f"{(layout.phys_rows, layout.phys_width)}")
+        fpath = os.path.join(tmp, f"fused_{name}_r{r}.npy")
+        np.save(fpath, _host(block))  # one rank block on the host at a time
+        _seal(fpath)
+      fused_meta[name] = {"phys_rows": int(layout.phys_rows),
+                          "phys_width": int(layout.phys_width),
+                          "dtype": str(np.dtype(np.float32))}
+    for part, flat in parts.items():
+      fpath = os.path.join(tmp, f"{part}.npz")
+      np.savez(fpath, **flat)
+      _seal(fpath)
+    with open(os.path.join(tmp, f"DONE_p{me}"), "w") as f:
+      json.dump(local_crcs, f)  # the marker carries this writer's crcs
+  except BaseException as e:
+    err = e
+  _barrier(rank)
+  if err is not None:
+    raise err
+  # every rank checks the marker set, polling briefly for a shared
+  # filesystem's attribute-cache lag (a deadline, not a timing)
+  deadline = time.monotonic() + 30.0
+  while True:
+    done = [p for p in range(n_proc)
+            if os.path.exists(os.path.join(tmp, f"DONE_p{p}"))]
+    if len(done) == n_proc or time.monotonic() >= deadline:
+      break
+    time.sleep(0.2)
+  if len(done) != n_proc:
+    raise RuntimeError(
+        f"checkpoint save incomplete: only ranks {done} of {n_proc} "
+        "finished writing (see the failing rank's exception); the partial "
+        "tmp dir was left for inspection")
+  # every rank saw the full marker set before rank 0 removes the markers
+  _barrier(rank)
+
+  def _publish() -> None:
+    checksums: Dict[str, Dict[str, int]] = {}
+    for p in range(n_proc):
+      mk = os.path.join(tmp, f"DONE_p{p}")
+      with open(mk) as f:
+        checksums.update(json.load(f))
+      os.remove(mk)
+    for fname in sorted(os.listdir(tmp)):
+      if fname not in checksums:  # defensive: a file no writer claimed
+        checksums[fname] = _crc32_file(os.path.join(tmp, fname))
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "step": int(state["step"]),
+        "rule": {"name": rule.name, "n_aux": int(rule.n_aux)},
+        "plan": _plan_fingerprint(plan),
+        "world": _world_section(plan),
+        "fused": fused_meta,
+        "checksums": checksums,
+    }
+    if extra is not None:
+      manifest["extra"] = extra
+    publish_manifest_last(tmp, path, manifest)
+
+  err = None
+  if p0:
+    try:
+      _publish()
+    except BaseException as e:
+      err = e
+  _barrier(rank)
+  if err is not None:
+    raise err
+  if not p0:
+    # the rename is publication; tmp vanishing is the only success signal
+    # the other ranks can observe (rank 0's exception is not visible here)
+    deadline = time.monotonic() + 30.0
+    while os.path.exists(tmp) and time.monotonic() < deadline:
+      time.sleep(0.2)
+    if os.path.exists(tmp):
+      raise RuntimeError(
+          f"checkpoint publication failed: tmp dir {tmp!r} still present "
+          "after the rename barrier — rank 0 raised mid-publication (its "
+          "exception has the root cause)")
+
+
+def _verify_on_root(path: str, rank: Optional[int]) -> None:
+  """Rank 0 verifies every file; the verdict is broadcast, so every rank
+  refuses a checkpoint rank 0 found corrupt."""
+  verr: Optional[BaseException] = None
+  if rank in (None, 0):
+    try:
+      problems = verify(path)
+      if problems:
+        raise ValueError(
+            f"checkpoint {path!r} failed integrity verification: "
+            + "; ".join(problems)
+            + ". Restore the previous valid checkpoint, or pass "
+            "verify_integrity=False to load it anyway.")
+    except BaseException as e:
+      verr = e
+  if rank is not None:
+    verdict = [verr is None]
+    dist.broadcast_object_list(verdict, src=0)
+    if verr is None and not verdict[0]:
+      raise ValueError(
+          f"checkpoint {path!r} failed integrity verification on rank 0 "
+          "(its exception names the bad file)")
+  if verr is not None:
+    raise verr
+
+
+def _check_manifest(manifest: Dict[str, Any], plan, rule,
+                    layouts) -> None:
+  """Format, rule, plan and physical shapes against the restoring run,
+  with the JAX package's messages. A plan the JAX package would re-shard
+  elastically is refused naming ROADMAP item 11."""
+  if manifest["format_version"] != FORMAT_VERSION:
+    raise ValueError(f"checkpoint format {manifest['format_version']} "
+                     f"unsupported (expected {FORMAT_VERSION})")
+  if manifest["rule"]["name"] != rule.name \
+      or manifest["rule"]["n_aux"] != rule.n_aux:
+    raise ValueError(
+        f"checkpoint was written with rule {manifest['rule']}, restoring "
+        f"with {{'name': {rule.name!r}, 'n_aux': {rule.n_aux}}}")
+  want = _plan_fingerprint(plan)
+  if "layout" not in manifest["plan"]:
+    # written before the fingerprint carried the physical layout: the
+    # logical comparison (the phys-shape check below guards the rest)
+    want = {k: v for k, v in want.items() if k != "layout"}
+  if manifest["plan"] != want:
+    reason = _elastic_reason(manifest, want, plan)
+    diff_keys = sorted(k for k in set(manifest["plan"]) | set(want)
+                       if manifest["plan"].get(k) != want.get(k))
+    if reason is None:
+      raise NotImplementedError(
+          "checkpoint plan differs from the current plan only in "
+          f"placement ({diff_keys}): the JAX package re-shards it "
+          "elastically, the port does not yet (ROADMAP.md §1 item 11, "
+          "resilience/elastic); restore it under the saving run's plan")
+    detail = "; ".join(
+        f"{k}: saved={_abbrev(manifest['plan'].get(k))} "
+        f"have={_abbrev(want.get(k))}" for k in diff_keys)
+    raise ValueError(
+        "checkpoint plan does not match and cannot be elastically "
+        f"re-sharded ({reason}): re-create the DistEmbeddingStrategy "
+        f"with the same tables (differs in {detail})")
+  saved_tiering = manifest.get("tiering", {}).get("classes", {})
+  if saved_tiering:
+    raise ValueError(
+        f"checkpoint tiering mismatch: saved host-tier classes "
+        f"{sorted(saved_tiering)}, restoring with [] — pass the matching "
+        "HostTierStore (tiered checkpoint) or none (all-device "
+        "checkpoint)")
+  if manifest.get("vocab") is not None:
+    raise ValueError(
+        "checkpoint carries a dynamic-vocabulary ('vocab') section but "
+        "no DynVocabTranslator was passed: restoring the buffers without "
+        "the id space would train the restored rows with the WRONG ids. "
+        "Pass restore(..., vocab=translator) built from an "
+        "oov='allocate' plan with the saving run's knobs.")
+  for name, layout in layouts.items():
+    meta = manifest.get("fused", {}).get(name)
+    if meta is not None and (meta["phys_rows"] != layout.phys_rows
+                             or meta["phys_width"] != layout.phys_width):
+      raise ValueError(
+          f"checkpoint class {name!r} was saved with physical shape "
+          f"[{meta['phys_rows']}, {meta['phys_width']}] per rank, but the "
+          f"current plan/rule implies [{layout.phys_rows}, "
+          f"{layout.phys_width}] — the slicing thresholds or optimizer "
+          "rule differ from the saving run")
+
+
+def _read_npz(path: str, part: str) -> Dict[str, np.ndarray]:
+  with np.load(os.path.join(path, f"{part}.npz")) as z:
+    return {k: np.asarray(v) for k, v in z.items()}
+
+
+def _check_leaves(flat: Dict[str, np.ndarray],
+                  like: Dict[str, torch.Tensor]) -> None:
+  """Every dense parameter of ``like`` (state_dict names) is in ``flat``
+  (the flax tree's paths) with its shape, as the JAX package's strict
+  unflatten checks (kernels transposed)."""
+  # convert imports the serving and training modules; import at call time
+  from .convert import optax_param_paths
+  for name, (key, transpose) in optax_param_paths(like).items():
+    if key not in flat:
+      raise ValueError(f"checkpoint is missing leaf {key!r}")
+    shape = like[name].shape
+    want = tuple(shape[::-1]) if transpose else tuple(shape)
+    if tuple(flat[key].shape) != want:
+      raise ValueError(f"leaf {key!r} has shape {flat[key].shape} in the "
+                       f"checkpoint, expected {want}")
+
+
+def restore(path: str, plan, rule, state_like: Dict[str, Any],
+            mesh=None, store=None, verify_integrity: bool = True,
+            vocab=None, telemetry=None, stream=None,
+            device="cuda") -> Dict[str, Any]:
+  """Load a checkpoint written by :func:`save` (or by the JAX package's
+  ``checkpoint.save``) into a new port train state on ``device`` (with a
+  world-N ``mesh``: this rank's blocks, on the mesh's device).
+
+  ``state_like`` is a port train state of the same plan (e.g. fresh from
+  ``training.init_sparse_state_direct``): it gives the dense parameters'
+  names and shapes and the optimizers; the result gets optimizers of the
+  same kind and settings, bound to its tensors, with the checkpoint's
+  optax states installed (``convert.install_optax_state``), and the
+  checkpoint's ``step``. A ``state_like`` whose optimizers are not bound
+  yet gives a state that carries the optax states as
+  ``training.OptaxState`` (the train step binds and installs them).
+
+  When ``path`` has no manifest but ``path + '.old'`` has one (a crash
+  between :func:`save`'s two renames), the backup is restored. Rank 0
+  verifies every file first (``verify_integrity``) and the verdict is
+  broadcast; then format, rule, plan and physical shapes are checked,
+  with the JAX package's messages, and each rank memory-maps only its own
+  ``fused_*_r<rank>.npy`` files."""
+  # convert and training import this module's neighbours; import at call
+  # time
+  from .convert import dense_state_dict_from_flax
+  from .serving.export import _unflatten_paths
+  from .training import OptaxState, _with_optimizers, rebind_optimizer
+  _refuse_unported(store, vocab, telemetry, stream)
+  rank = _state_rank(plan, mesh)
+  dev = mesh.device if mesh is not None else resolve_device(device)
+  layouts = DistributedLookup(plan).fused_layouts(rule)
+  if not os.path.exists(os.path.join(path, "manifest.json")) \
+      and os.path.exists(os.path.join(path + ".old", "manifest.json")):
+    # a crash between save()'s two renames leaves only the backup
+    path = path + ".old"
+  if verify_integrity:
+    _verify_on_root(path, rank)
+  with open(os.path.join(path, "manifest.json")) as f:
+    manifest = json.load(f)
+  _check_manifest(manifest, plan, rule, layouts)
+
+  fused = {}
+  ranks = range(plan.world_size) if rank is None else [rank]
+  for name in layouts:
+    blocks = [torch.from_numpy(np.load(
+        os.path.join(path, f"fused_{name}_r{r}.npy"), mmap_mode="c"))
+        for r in ranks]
+    host = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+    fused[name] = host.to(dev, copy=True)
+    del blocks, host
+
+  dense_like = state_like["dense"]
+  dense_flat = _read_npz(path, "dense")
+  _check_leaves(dense_flat, dense_like)
+  dense = {k: v.to(dev) for k, v in dense_state_dict_from_flax(
+      _unflatten_paths(dense_flat)).items()}
+  if set(dense) != set(dense_like):
+    raise ValueError(f"checkpoint dense params {sorted(dense)} do not "
+                     f"match the state's {sorted(dense_like)}")
+
+  emb_like = state_like["emb_dense"]
+  tables = _read_npz(path, "emb_dense")
+  world_rows = {}
+  for name in emb_like:
+    if name not in tables:
+      raise ValueError(f"checkpoint is missing leaf {name!r}")
+    arr = tables[name]
+    rows = arr.shape[0] // plan.world_size
+    world_rows[name] = rows
+    lo = 0 if rank is None else rank * rows
+    hi = arr.shape[0] if rank is None else lo + rows
+    if hi - lo != emb_like[name].shape[0] or \
+        arr.shape[1:] != tuple(emb_like[name].shape[1:]):
+      raise ValueError(
+          f"leaf {name!r} has shape {arr.shape} in the checkpoint, "
+          f"expected {rows * plan.world_size} rows of "
+          f"{tuple(emb_like[name].shape[1:])}")
+    tables[name] = arr[lo:hi]
+  emb_dense = {k: torch.from_numpy(tables[k].copy()).to(dev)
+               for k in emb_like}
+
+  emb_opt_flat = _read_npz(path, "emb_dense_opt")
+  if rank is not None:
+    for key, arr in list(emb_opt_flat.items()):
+      name = key.split("/")[-1]
+      if name in world_rows:
+        n = world_rows[name]
+        emb_opt_flat[key] = arr[rank * n:(rank + 1) * n]
+  opts = {"dense": OptaxState(_read_npz(path, "dense_opt")),
+          "emb_dense": OptaxState(emb_opt_flat)}
+  state = {"dense": dense, "emb_dense": emb_dense, "fused": fused,
+           "dense_opt": opts["dense"], "emb_dense_opt": opts["emb_dense"],
+           "step": int(manifest["step"])}
+  bound = {part: state_like.get(f"{part}_opt") for part in opts}
+  if any(o is not None and not isinstance(o, OptaxState)
+         for o in bound.values()):
+    factories = {part: (lambda ps, o=o: rebind_optimizer(o, ps))
+                 if o is not None and not isinstance(o, OptaxState) else None
+                 for part, o in bound.items()}
+    dense_factory = factories["dense"] or factories["emb_dense"]
+    _with_optimizers(state, dense_factory, factories["emb_dense"])
+  return state

@@ -59,6 +59,7 @@ from ..checkpoint import (
     _fsync_path,
     _host,
     _plan_fingerprint,
+    _state_rank,
     publish_manifest_last,
 )
 from ..checkpoint import verify as verify_dir
@@ -245,17 +246,6 @@ def serve_class_meta(plan, rule: SparseRule, quantize: str):
   return meta, full_lays
 
 
-def _mesh_rank(plan, mesh) -> Optional[int]:
-  """This process's rank when it holds one rank's blocks (a world-N
-  plan with a mesh), else None (it holds every rank's)."""
-  if mesh is None or plan.world_size == 1:
-    return None
-  if mesh.world != plan.world_size:
-    raise ValueError(f"the mesh has {mesh.world} ranks, the plan "
-                     f"{plan.world_size}")
-  return mesh.rank
-
-
 def freeze(plan, rule: SparseRule, state: Dict[str, Any],
            quantize: str = "f32", store=None, mesh=None) -> FrozenTables:
   """Strip a fused train state into inference blocks.
@@ -282,7 +272,7 @@ def freeze(plan, rule: SparseRule, state: Dict[str, Any],
     raise NotImplementedError(
         "host-tier classes (store=): tiered serving is not ported yet "
         "(ROADMAP.md §1 item 8)")
-  rank = _mesh_rank(plan, mesh)
+  rank = _state_rank(plan, mesh)
   meta, layouts = serve_class_meta(plan, rule, quantize)
   device_blocks: Dict[str, List[Optional[torch.Tensor]]] = {}
   for name, m in meta.items():
@@ -332,7 +322,7 @@ def frozen_device_state(frozen: FrozenTables, plan, device="cuda",
   if plan.world_size > 1 and mesh is None:
     raise ValueError(f"a world-{plan.world_size} plan is served by every "
                      "rank with its mesh (parallel.mesh.create_mesh)")
-  rank = _mesh_rank(plan, mesh)
+  rank = _state_rank(plan, mesh)
   dev = mesh.device if rank is not None else resolve_device(device)
 
   def put(x):
@@ -387,7 +377,7 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
         "(ROADMAP.md §1 item 12, dynvocab)")
   frozen = freeze(plan, rule, state, quantize=quantize, store=store,
                   mesh=mesh)
-  rank = _mesh_rank(plan, mesh)
+  rank = _state_rank(plan, mesh)
   lead = rank is None or rank == 0
   tmp = path + ".tmp"
   if lead:
@@ -507,7 +497,7 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
   if plan.world_size > 1 and mesh is None:
     raise ValueError(f"a world-{plan.world_size} artifact is loaded by "
                      "every rank with its mesh (parallel.mesh.create_mesh)")
-  rank = _mesh_rank(plan, mesh)
+  rank = _state_rank(plan, mesh)
   dev = mesh.device if rank is not None else resolve_device(device)
   with open(os.path.join(path, "manifest.json")) as f:
     manifest = json.load(f)

@@ -137,6 +137,58 @@ class Adagrad(torch.optim.Optimizer):
     return loss
 
 
+class ScheduledSGD(torch.optim.SGD):
+  """``optax.sgd(schedule[, momentum])`` as a ``torch.optim`` optimizer:
+  each :meth:`step` runs at ``lr = schedule(count)`` and then advances
+  ``count``, which lives in the optimizer's own state
+  (``state["count"]``, 0 before the first step) as optax keeps it in its
+  ``ScaleByScheduleState``. A checkpoint therefore carries the count
+  itself (``1/count`` in the JAX package's ``dense_opt.npz``), not a
+  value inferred from the train step."""
+
+  def __init__(self, params, schedule: Callable[[int], Any],
+               momentum: float = 0.0):
+    super().__init__(params, lr=float(schedule(0)), momentum=momentum)
+    self.schedule = schedule
+
+  @property
+  def count(self) -> int:
+    return int(self.state.get("count", 0))
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    count = self.count
+    lr = float(self.schedule(count))
+    for group in self.param_groups:
+      group["lr"] = lr
+    loss = super().step(closure)
+    self.state["count"] = count + 1
+    return loss
+
+
+def rebind_optimizer(opt: torch.optim.Optimizer,
+                     params: list) -> torch.optim.Optimizer:
+  """A new optimizer of ``opt``'s kind and settings over ``params``, at
+  its initial state (a restored state's optimizers are built this way
+  from the run's own)."""
+  if isinstance(opt, ScheduledSGD):
+    return ScheduledSGD(params, opt.schedule,
+                        momentum=opt.defaults["momentum"])
+  return type(opt)(params, **opt.defaults)
+
+
+@dataclasses.dataclass
+class OptaxState:
+  """An optimizer state carried across from the JAX package (or read
+  from a checkpoint) before the port's optimizer is bound: the optax
+  state's leaves as numpy, keyed in the JAX package's path spelling
+  (``1/count``, ``0/trace/<param path>``, ``0/sum_of_squares/<param
+  path>``). :func:`_with_optimizers` binds the optimizer and installs it
+  (``convert.install_optax_state``), so the first step uses it."""
+
+  flat: Dict[str, Any]
+
+
 def _leaf(x, device) -> torch.Tensor:
   """A fresh f32 leaf on ``device`` that requires grad (never a view of
   the caller's tensor: the step updates it in place)."""
@@ -147,19 +199,29 @@ def _leaf(x, device) -> torch.Tensor:
 def _with_optimizers(state: Dict[str, Any], dense_optimizer: OptimizerFactory,
                      emb_dense_optimizer: Optional[OptimizerFactory]):
   """Bind the optimizers to the state's dense tensors where the state has
-  none yet (a state carried across by ``convert.train_state_from_flax``);
-  the dense tensors become leaves that require grad."""
+  none yet (a state carried across by ``convert.train_state_from_flax``
+  or read by ``checkpoint.restore``), installing a carried
+  :class:`OptaxState`; the dense tensors become leaves that require
+  grad. A part without tensors keeps no optimizer (None)."""
+  # convert imports this module; import it at call time
+  from .convert import install_optax_state
   for part in ("dense", "emb_dense"):
     for name, t in state[part].items():
       if not (t.is_leaf and t.requires_grad):
         state[part][name] = t.detach().requires_grad_(True)
-  if state.get("dense_opt") is None:
-    state["dense_opt"] = (dense_optimizer(list(state["dense"].values()))
-                          if state["dense"] else None)
-  if state.get("emb_dense_opt") is None:
-    opt = emb_dense_optimizer or dense_optimizer
-    state["emb_dense_opt"] = (opt(list(state["emb_dense"].values()))
-                              if state["emb_dense"] else None)
+  factories = {"dense": dense_optimizer,
+               "emb_dense": emb_dense_optimizer or dense_optimizer}
+  for part, factory in factories.items():
+    opt = state.get(f"{part}_opt")
+    if opt is not None and not isinstance(opt, OptaxState):
+      continue
+    if not state[part]:
+      state[f"{part}_opt"] = None
+      continue
+    bound = factory(list(state[part].values()))
+    if opt is not None:
+      install_optax_state(bound, state[part], opt.flat)
+    state[f"{part}_opt"] = bound
   state.setdefault("step", 0)
   return state
 

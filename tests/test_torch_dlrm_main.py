@@ -8,6 +8,16 @@
 - ``main_torch.py --device cpu`` trains 3 steps and evaluates at world 1
   (one process) and at world 2 (two gloo processes with ``torchrun``'s
   environment), printing finite losses and an AUC;
+- ``--sparse --checkpoint_dir`` at world 1 and 2, each run twice: the
+  second run resumes (``resumed from <dir> at step 3``) and the published
+  directory passes both packages' ``verify``;
+- ``--dataset criteo`` over a split that ``write_dummy_criteo_split``
+  writes, at world 1 and 2, dense and sparse; at world 2 the ranks'
+  batches together are the JAX reader's world-1 batch of the global size
+  (``main.py`` reads rank 0's slice on every rank instead: ROADMAP.md
+  §3);
+- script against script: a checkpoint that ``main.py --sparse`` writes
+  is resumed by ``main_torch.py --sparse``, and the reverse;
 - the flags of later ROADMAP items are refused, naming the item.
 """
 
@@ -129,9 +139,155 @@ def test_script_trains_at_world_2(tmp_path):
     assert z["arr_0"].shape == (max(4, int(39884406 * 1e-5)), 128)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--sparse"], "item 5"), (["--checkpoint_dir", "/nonexistent"], "item 5"),
-    (["--dataset", "criteo"], "item 5"), (["--micro_batches", "2"], "item 6")])
+@pytest.mark.parametrize("flags,item", [(["--micro_batches", "2"], "item 6")])
 def test_refused_flags_name_their_roadmap_item(twin, flags, item):
   with pytest.raises(SystemExit, match=item):
     twin.main(ARGS + flags)
+
+
+# vocabularies x 2e-4: the six largest tables (> 4,096 rows) are sparse
+# classes, the rest ride the dense class
+SPARSE = ["--sparse", "--vocab_scale", "2e-4"]
+VOCAB_SCALED = [max(4, int(v * 2e-4)) for v in (
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36)]
+
+
+def _run(argv, world, tmp_path, script=SCRIPT):
+  """``script`` at ``world`` (one process, or one gloo process per rank
+  with ``torchrun``'s environment); returns rank 0's stdout."""
+  if world == 1:
+    r = subprocess.run([sys.executable, str(script), *argv], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout
+  port = free_port()
+  procs = []
+  for rank in range(world):
+    env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "OMP_NUM_THREADS": "1"}
+    procs.append(subprocess.Popen(
+        [sys.executable, str(script), *argv], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+  outs = []
+  try:
+    for p in procs:
+      outs.append(p.communicate(timeout=300))
+  finally:
+    for p in procs:  # a hung rank must not outlive the test
+      if p.poll() is None:
+        p.kill()
+        p.wait()
+  for p, (out, err) in zip(procs, outs):
+    assert p.returncode == 0, out + err
+  assert all(not out for out, _ in outs[1:])  # rank 0 prints
+  return outs[0][0]
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_sparse_checkpoint_and_resume(tmp_path, world):
+  from distributed_embeddings_torch import checkpoint as tck
+  from distributed_embeddings_tpu import checkpoint as jck
+  ckpt = str(tmp_path / "ckpt")
+  argv = ARGS + SPARSE + ["--checkpoint_dir", ckpt, "--checkpoint_every",
+                          "2"]
+  first = _run(argv, world, tmp_path)
+  _finite_lines(first)
+  assert "resumed" not in first
+  assert f"checkpointed step 2 -> {ckpt}" in first
+  assert f"saved full train state -> {ckpt}" in first
+  assert tck.read_manifest(ckpt)["step"] == 3
+  second = _run(argv, world, tmp_path)
+  _finite_lines(second)
+  assert f"resumed from {ckpt} at step 3" in second
+  manifest = tck.read_manifest(ckpt)
+  assert manifest["step"] == 6 and manifest["plan"]["world_size"] == world
+  assert tck.verify(ckpt) == jck.verify(ckpt) == []
+  assert any(f.startswith("fused_") for f in os.listdir(ckpt))
+  assert os.path.isdir(ckpt + ".old")
+
+
+@pytest.fixture(scope="module")
+def criteo_dir(tmp_path_factory):
+  d = tmp_path_factory.mktemp("criteo")
+  tdata.write_dummy_criteo_split(str(d), 512, VOCAB_SCALED, seed=4)
+  return str(d)
+
+
+@pytest.mark.parametrize("world,sparse", [(1, False), (2, False), (1, True),
+                                          (2, True)])
+def test_criteo_dataset_trains(tmp_path, criteo_dir, world, sparse):
+  argv = ARGS + ["--vocab_scale", "2e-4", "--dataset", "criteo",
+                 "--dataset_path", criteo_dir]
+  out = _run(argv + (["--sparse"] if sparse else []), world, tmp_path)
+  _finite_lines(out)
+
+
+def test_world_n_criteo_batches_are_the_global_batch(twin, criteo_dir):
+  """At world 2 every rank reads its own half of each global batch: the
+  ranks' batches together are the JAX reader's world-1 batch of
+  ``--batch_size`` samples. (``main.py`` passes only ``world_size`` to
+  its reader, so every rank reads rank 0's half: ROADMAP.md §3.)"""
+  args = twin.parse_args(["--dataset", "criteo", "--dataset_path",
+                          criteo_dir, "--batch_size", "64"])
+  ranks = [twin.make_datasets(args, VOCAB_SCALED, r, 2) for r in range(2)]
+  want = jdata.RawBinaryCriteoDataset(
+      criteo_dir, 64, numerical_features=13,
+      categorical_features=list(range(26)),
+      categorical_feature_sizes=VOCAB_SCALED, backend="numpy")
+  for split in (0, 1):
+    if split:
+      want = jdata.RawBinaryCriteoDataset(
+          criteo_dir, 64, numerical_features=13,
+          categorical_features=list(range(26)),
+          categorical_feature_sizes=VOCAB_SCALED, valid=True)
+    parts = [list(r[split]) for r in ranks]
+    assert len(parts[0]) == len(parts[1]) == len(want) == 512 // 64
+    for i, (a, b) in enumerate(zip(*parts)):
+      num, cats, labels = want[i]
+      np.testing.assert_array_equal(np.concatenate([a[0], b[0]]), num)
+      np.testing.assert_array_equal(np.concatenate([a[2], b[2]]), labels)
+      for f in range(26):
+        np.testing.assert_array_equal(np.concatenate([a[1][f], b[1][f]]),
+                                      cats[f])
+  # the reference script's reader at world 2 (no rank given): every rank
+  # reads rank 0's half, the first 32 samples of each global batch
+  jax_rank = jdata.RawBinaryCriteoDataset(
+      criteo_dir, 32, numerical_features=13,
+      categorical_features=list(range(26)),
+      categorical_feature_sizes=VOCAB_SCALED, world_size=2)
+  whole = jdata.RawBinaryCriteoDataset(
+      criteo_dir, 64, numerical_features=13,
+      categorical_features=list(range(26)),
+      categorical_feature_sizes=VOCAB_SCALED)
+  np.testing.assert_array_equal(jax_rank[1][2], whole[1][2][:32])
+
+
+JAX_SCRIPT = REPO / "examples" / "dlrm" / "main.py"
+CROSS = ["--dataset", "dummy", "--batch_size", "64", "--lr", "0.1",
+         "--warmup_steps", "2", "--sparse", "--vocab_scale", "2e-4"]
+
+
+def test_jax_script_checkpoint_resumes_in_the_twin(tmp_path):
+  ckpt = str(tmp_path / "ckpt")
+  _run(CROSS + ["--platform", "cpu", "--world_size", "1", "--steps", "2",
+                "--checkpoint_dir", ckpt], 1, tmp_path, JAX_SCRIPT)
+  out = _run(CROSS + ["--device", "cpu", "--steps", "2", "--checkpoint_dir",
+                      ckpt], 1, tmp_path)
+  assert f"resumed from {ckpt} at step 2" in out
+  from distributed_embeddings_torch import checkpoint as tck
+  assert tck.read_manifest(ckpt)["step"] == 4
+
+
+def test_twin_checkpoint_resumes_in_the_jax_script(tmp_path):
+  ckpt = str(tmp_path / "ckpt")
+  _run(CROSS + ["--device", "cpu", "--steps", "2", "--checkpoint_dir",
+                ckpt], 1, tmp_path)
+  out = _run(CROSS + ["--platform", "cpu", "--world_size", "1", "--steps",
+                      "2", "--checkpoint_dir", ckpt], 1, tmp_path,
+             JAX_SCRIPT)
+  assert f"resumed from {ckpt} at step 2" in out
+  from distributed_embeddings_tpu import checkpoint as jck
+  assert jck.read_manifest(ckpt)["step"] == 4

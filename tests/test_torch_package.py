@@ -15,7 +15,12 @@
   ``make_train_step`` / ``shard_params``, and the trainer script
   ``examples/dlrm/main_torch.py``);
 - ``convert.split_rank_state`` cuts a rank's view out of a JAX world-N
-  train state and ``join_rank_states`` reverses it.
+  train state and ``join_rank_states`` reverses it;
+- the trainer's modules (``checkpoint`` with ``save``/``restore``, the
+  Criteo reader and the native loader's builder ``cc``) import with JAX
+  blocked, and ``cc/data_loader.cc`` is the port's own copy; the native
+  build writes only under ``build/`` (which ``.gitignore`` lists), and
+  ``checkpoint.restore`` defaults to the card.
 """
 
 import ast
@@ -103,7 +108,7 @@ def test_port_imports_with_jax_blocked():
               "layers.dist_model_parallel", "layers.embedding",
               "checkpoint", "resilience.faultinject", "serving.batcher",
               "telemetry.registry", "telemetry.trace", "telemetry.flight",
-              "telemetry.export", "utils", "utils.data"):
+              "telemetry.export", "utils", "utils.data", "cc"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -251,3 +256,48 @@ def test_rank_views_split_and_join():
   with pytest.raises(ValueError, match="rank blocks"):
     split_rank_state({"fused": {"x": np.zeros((6, 2))}, "emb_dense": {}},
                      world, 0)
+
+
+def test_native_loader_is_the_ports_own_and_builds_under_build():
+  """``cc/data_loader.cc`` is a copy of the JAX package's loader (its code
+  after the header comment is the same), built by the port's builder
+  into ``build/torch_native/``, never into the JAX package."""
+  from distributed_embeddings_torch import cc
+
+  ours = (PORT / "cc" / "data_loader.cc").read_text()
+  theirs = (REPO / "distributed_embeddings_tpu" / "cc" /
+            "data_loader.cc").read_text()
+  start = "#include <atomic>"
+  assert ours[ours.index(start):] == theirs[theirs.index(start):]
+  assert cc.SOURCE == PORT / "cc" / "data_loader.cc"
+  assert cc.BUILD_DIR == REPO / "build" / "torch_native"
+  assert "build/" in (REPO / ".gitignore").read_text().split()
+  path = cc.build()
+  assert path.parent == cc.BUILD_DIR and path.exists()
+  assert not list((PORT / "cc").glob("*.so"))
+
+
+def test_restore_defaults_to_cuda(tmp_path):
+  """``checkpoint.restore`` puts the state on the card unless asked."""
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  import functools
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.training import init_sparse_state_direct
+
+  vocab = [5, 300]
+  plan = dlrm_embedding_plan(vocab, 8, dense_row_threshold=16)
+  model = DLRM(vocab, embedding_dim=8, bottom_mlp=(8,), top_mlp=(4, 1),
+               num_numerical=2, tables=False, device="cpu")
+  rule = sgd_rule(0.1)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(),
+      functools.partial(torch.optim.SGD, lr=0.1), torch.Generator(),
+      device="cpu")
+  path = str(tmp_path / "ckpt")
+  checkpoint.save(path, plan, rule, state)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    checkpoint.restore(path, plan, rule, state)
+  got = checkpoint.restore(path, plan, rule, state, device="cpu")
+  assert all(t.device.type == "cpu" for t in got["fused"].values())

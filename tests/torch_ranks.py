@@ -471,3 +471,93 @@ def hybrid_job(mesh, spec):
   out["oov"] = {k: int(v) for k, v in oov.items()}
   return out
 
+
+
+def _ckpt_factory(name, lr):
+  import functools
+
+  import torch
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.utils import data as tdata
+  if name == "sched":
+    sched = tdata.dlrm_lr_schedule(*lr)
+    return lambda ps: ttr.ScheduledSGD(ps, sched)
+  return {"adagrad": functools.partial(ttr.Adagrad, lr=lr),
+          "momentum": functools.partial(torch.optim.SGD, lr=lr,
+                                        momentum=0.9)}[name]
+
+
+def ckpt_job(mesh, spec):
+  """Checkpoints at world N: every rank builds the port's state from the
+  JAX initial state (``spec['state']``, its optax states included), and
+  either (``spec['mode'] == 'save'``) takes ``spec['n']`` steps, saves at
+  ``spec['path']`` and takes the remaining steps, or (``'restore'``)
+  restores ``spec['path']`` (written by the JAX package) and takes the
+  remaining steps. Each rank returns its own blocks and flat arrays at
+  the checkpoint (saved or restored) and at the end, the losses, and at
+  the checkpoint the global logical tables and optimizer lanes
+  (``get_weights`` of the unpacked state)."""
+  import torch
+
+  from distributed_embeddings_torch import checkpoint as tck
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.layers import get_weights
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops import packed_table as tpt
+  from distributed_embeddings_torch.utils import data as tdata
+
+  plan = _train_plan(spec, spec["overlap"], spec["chunks"])
+  model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
+               top_mlp=spec["top"], num_numerical=spec["num"],
+               tables=False, device="cpu")
+  lr = spec["lr"]
+  rule = (tpt.sgd_rule(tdata.dlrm_lr_schedule(*lr)) if spec["rule"] == "sched"
+          else getattr(tpt, f"{spec['rule']}_rule")(lr))
+  factory = _ckpt_factory(spec["opt"], lr)
+  step = ttr.make_sparse_train_step(model, plan, bce_loss, factory, rule,
+                                    mesh=mesh)
+
+  def snap(state):
+    out = {f"fused/{k}": v.numpy().copy() for k, v in state["fused"].items()}
+    out.update({f"emb_dense/{k}": v.detach().numpy().copy()
+                for k, v in state["emb_dense"].items()})
+    from distributed_embeddings_torch.convert import optax_state_of
+    for part in ("dense", "emb_dense"):
+      flat = optax_state_of(state[f"{part}_opt"], state[part])
+      out.update({f"{part}_opt/{k}": v for k, v in flat.items()})
+    out.update({f"dense/{k}": v.detach().numpy().copy()
+                for k, v in state["dense"].items()})
+    out["step"] = state["step"]
+    return out
+
+  def run(state, batches):
+    losses = []
+    for numerical, cats, labels in batches:
+      state, loss = step(state, *ttr.shard_batch(
+          (numerical, list(cats), labels), mesh, device="cpu"))
+      losses.append(float(loss))
+    return state, losses
+
+  state = ttr._with_optimizers(train_state_from_flax(spec["state"],
+                                                     mesh=mesh),
+                               factory, None)
+  n = spec["n"]
+  losses = []
+  if spec["mode"] == "save":
+    state, losses = run(state, spec["batches"][:n])
+    tck.save(spec["path"], plan, rule, state, mesh=mesh)
+  else:
+    state = tck.restore(spec["path"], plan, rule, state, mesh=mesh)
+  at_ckpt = snap(state)
+  params, aux = ttr.unpack_sparse_state(plan, rule, state, include_aux=True,
+                                        mesh=mesh)
+  logical = {"tables": get_weights(plan, params["embeddings"])}
+  for j in range(rule.n_aux):
+    logical[f"aux{j}"] = get_weights(
+        plan, {**params["embeddings"],
+               **{k: v[j] for k, v in aux.items()}})
+  state, more = run(state, spec["batches"][n:])
+  return {"at_ckpt": at_ckpt, "logical": logical, "losses": losses + more,
+          "final": snap(state)}
