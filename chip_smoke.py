@@ -148,7 +148,22 @@ train step of ``examples/dlrm/main.py --sparse`` under
    verified; then ``--dataset criteo`` over a split that
    ``write_dummy_criteo_split`` writes into a temporary directory, with
    the native loader built here and its batches bit-equal to the numpy
-   backend's;
+   backend's. Then the rest of the sparse step (slice 13): ``train_mb``,
+   the train cell (f32) with ``micro_batches`` 1 and 4 from one state, 4
+   steps each (step ms, the step's own peak memory, K2-fwd and K2-bwd once
+   per micro-batch, K1 once per sparse class a step, the final states
+   within 1e-5 of each other); ``train_guard``, the train cell with
+   ``guard=True`` and without in turns (the guard's cost), a NaN batch
+   (``bad_step`` 1, every array bit-equal to before, the step held), an
+   out-of-range id under ``oov='error'`` (the same, and ``check_oov``
+   raises) and ``make_sparse_eval_step(with_metrics=True)`` (its counts
+   equal a numpy count); ``resilient``, the README's "Resilient
+   training" through ``ResilientTrainer`` with the chaos story of
+   ``tools/torch_chaos_train.py`` at the train cell's widths and the
+   vocabulary cut to 1/256 (snapshot and restore seconds from the
+   trainer's spans, the resumed losses within 1e-5 of the uninterrupted
+   run's); ``dlrm_main_mb``, the twin with ``--sparse --micro_batches
+   4``;
 9. ``train_zoo``: Tiny at its published widths and full vocabulary (55
    tables, 58 inputs; 8.99 GB of fused buffers in two width-16
    generations and a width-8 class, Adagrad's accumulator interleaved),
@@ -163,7 +178,9 @@ train step of ``examples/dlrm/main.py --sparse`` under
    finite, K6 launched once per sparse bucket and K1 once per sparse
    class, sampled logical rows that neither batch touches bit-unchanged
    and most sampled touched ones changed. A further step under
-   ``torch.profiler`` (``train_zoo_trace``);
+   ``torch.profiler`` (``train_zoo_trace``). Then ``train_zoo_mb``: Tiny
+   with ``micro_batches`` 1 and 4 from one state as ``train_mb`` (K6
+   once per sparse bucket and micro-batch);
 10. ``world4_golden``, ``train_world4``: four ranks spawned with
    ``torch.multiprocessing``, over NCCL when each owns a card, else over
    gloo with the four sharing the card (the backend is printed). Each
@@ -184,7 +201,12 @@ train step of ``examples/dlrm/main.py --sparse`` under
    saves its own blocks and rank 0 publishes, every rank restores and
    is bit-equal to what it saved, and one step from the restored state
    and one from the saved state give the same loss, each launching K4,
-   K1, K2-fwd and K2-bwd as a world-4 step does. Then one f32 step under
+   K1, K2-fwd and K2-bwd as a world-4 step does. Before it,
+   ``world4_guard_mb``: a guarded step whose batch holds NaN in rank 1's
+   slice only (every rank skips it, its arrays bit-equal to before), then
+   one one-shot and one ``micro_batches=2`` step from one state, within
+   1e-5 of each other, K4 launched once per (bucket, round, chunk) and
+   micro-batch. Then one f32 step under
    ``overlap='fused'``
    and one under ``'none'`` from the same state: the losses bit-equal,
    the fused buffers bit-equal on every row fewer than two ids hit
@@ -210,8 +232,9 @@ train step of ``examples/dlrm/main.py --sparse`` under
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
 the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
-train, dense, train_ckpt, dlrm_main_sparse, zoo and world-4 (sparse
-train, checkpoint, dense train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
+train, dense, train_ckpt, dlrm_main_sparse, train_mb, train_guard,
+resilient, dlrm_main_mb, zoo, train_zoo_mb and world-4 (sparse train,
+guard and micro-batch, checkpoint, dense train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
 run of its path, reads all nine just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
@@ -276,6 +299,20 @@ CRITEO_STEPS = 10
 # the world-4 checkpoint phase's vocabulary cut on either backend (on four
 # cards the full vocabulary would write 101 GB of rank files)
 W4_CKPT_VOCAB_SCALE = 16
+# the micro-batch phases (train_mb, train_zoo_mb, dlrm_main_mb): the
+# micro-batches of a step, and the steps per mode (the first untimed)
+MICRO_BATCHES = 4
+MB_STEPS = 4
+# the guard's cost (train_guard): timed steps with and without it
+GUARD_TIMED = 5
+# the README's "Resilient training" (resilient): the chaos story of
+# tools/torch_chaos_train.py at the train cell's widths, the vocabulary
+# cut to 1/256 of Criteo-1TB (the train cell's 1/16 cut 16 times more) so
+# that a save takes about a second, not the full cell's 10.6 s
+RESILIENT_VOCAB_SCALE = 256
+RESILIENT_STEPS, RESILIENT_NAN_EVERY, RESILIENT_SNAPSHOT_EVERY = 24, 7, 4
+# the world-4 guarded step: the rank whose slice of the batch holds NaN
+W4_NAN_RANK = 1
 # the interaction backward's edge shapes (K2-bwd and K3-bwd, B=1000):
 # one and few features, F=32, narrow and wide rows
 BWD_EDGE_F = (1, 2, 13, 32)
@@ -1209,10 +1246,19 @@ def phase_serve_batcher(torch, smi: str, eng, vocab) -> dict:
   return totals
 
 
-def train_plan():
-  from distributed_embeddings_torch.models import dlrm_embedding_plan
-  return dlrm_embedding_plan(criteo_vocab(), D, dense_row_threshold=4096,
-                             batch_hint=TRAIN_BATCH)
+def train_plan(vocab=None, oov: str = "clip"):
+  """The train cell's plan (``bench.py``'s: ``dlrm_embedding_plan`` of the
+  Criteo tables x 1/16, width 128, ``dense_row_threshold=4096``,
+  ``batch_hint=65536``), over ``vocab`` when given, with the ``oov``
+  policy."""
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.layers.planner import (
+      DistEmbeddingStrategy,
+  )
+  return DistEmbeddingStrategy(
+      [TableConfig(input_dim=int(v), output_dim=D)
+       for v in vocab or criteo_vocab()], 1, "basic",
+      dense_row_threshold=4096, batch_hint=TRAIN_BATCH, oov=oov)
 
 
 def first_sparse_class(plan):
@@ -2044,6 +2090,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       out["runs"][compute] = run
       del state, buf, step, touch
       torch.cuda.empty_cache()
+    out["guard_mb"] = _w4_guard_mb(torch, mesh, backend, batch)
     out["ckpt"] = _w4_ckpt(torch, mesh, backend, outdir)
     out["dense"] = _w4_dense(torch, mesh, backend, batch)
     out["serve"] = _w4_serve(torch, mesh, outdir)
@@ -2113,13 +2160,37 @@ def phase_world4(torch, smi: str) -> dict:
     emit({"phase": "train_world4_trace", "compute": compute,
           "backend": backend, "rank": 0, "card": smi,
           **runs[0]["trace"]})
+  guard, mb = emit_guard_mb_world4(backend, smi,
+                                   [r["guard_mb"] for r in ranks])
   ckpt_totals = emit_ckpt_world4(backend, smi, [r["ckpt"] for r in ranks])
   dense_totals = emit_dense_world4(backend, smi, [r["dense"] for r in ranks])
   serve_totals = emit_serve_world4(backend, smi,
                                    [r["serve"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s})
   return {"train_world4": totals, "world4_ckpt": ckpt_totals,
-          "train_dense_world4": dense_totals, "serve_world4": serve_totals}
+          "train_dense_world4": dense_totals, "serve_world4": serve_totals,
+          "train_world4_guard": guard, "train_world4_mb": mb}
+
+
+def emit_guard_mb_world4(backend: str, smi: str, res: list) -> tuple:
+  """The ``world4_guard_mb`` line from the ranks' :func:`_w4_guard_mb`
+  results; returns the guarded and the micro-batch runs' launches, each
+  summed over the ranks."""
+  guard, mb = expect(), expect()
+  for r in res:
+    add_counts(guard, r.pop("guard_launches"))
+    add_counts(mb, r.pop("mb_launches"))
+  check(all(r["bad_step"] == 1 for r in res),
+        "world 4: a rank did not skip the poisoned step")
+  emit({"phase": "world4_guard_mb", "backend": backend, "card": smi,
+        "nan_rank": W4_NAN_RANK, "bad_step_by_rank": [1] * len(res),
+        "arrays_bit_equal_by_rank": [r["arrays_bit_equal"] for r in res],
+        "k4_per_step": res[0]["k4_per_step"],
+        "mb_by_rank": [r["mb"] for r in res],
+        "mb_max_abs_err": max(r["mb_max_abs_err"] for r in res),
+        "mb_cells_differing": [r["mb_cells_differing"] for r in res],
+        "launches_guard": guard, "launches_mb": mb})
+  return guard, mb
 
 
 def emit_ckpt_world4(backend: str, smi: str, ckpt: list) -> dict:
@@ -2758,6 +2829,525 @@ def phase_train_ckpt(torch, smi: str) -> dict:
   del restored, straight, step, batches
   torch.cuda.empty_cache()
   return totals
+
+
+def state_copy(torch, state) -> dict:
+  """:func:`state_arrays` with every tensor cloned: a snapshot no later
+  step can change."""
+  return {k: v.clone() if isinstance(v, torch.Tensor) else v
+          for k, v in state_arrays(state).items()}
+
+
+def twin_state(state) -> dict:
+  """A second train state with a copy of ``state``'s arrays and no
+  optimizers yet (the step binds fresh ones; only for optimizers without
+  state, as SGD's before its first step)."""
+  return {"fused": {k: v.clone() for k, v in state["fused"].items()},
+          "emb_dense": {k: v.detach().clone()
+                        for k, v in state["emb_dense"].items()},
+          "dense": {k: v.detach().clone() for k, v in state["dense"].items()},
+          "step": state["step"]}
+
+
+def train_batches(torch, vocab, n: int, seed: int):
+  """``n`` batches of the train cell on the card: ``TRAIN_BATCH`` samples
+  of uniform one-hot ids, random labels, from ``seed``."""
+  b = TRAIN_BATCH
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  return [(torch.randn((b, 13), generator=gen, device="cuda"),
+           [torch.randint(0, v, (b,), generator=gen, device="cuda",
+                          dtype=torch.int32) for v in vocab],
+           torch.randint(0, 2, (b,), generator=gen, device="cuda").float())
+          for _ in range(n)]
+
+
+def mb_runs(torch, tag, make_step, state, batches, wants) -> tuple:
+  """The micro-batch comparison of ``train_mb`` and ``train_zoo_mb``:
+  ``state`` (micro_batches=1) and a copy of it (``MICRO_BATCHES``) each
+  take the steps of ``batches``; per mode the step ms (the first step
+  untimed), the step's own peak memory above what was allocated before it,
+  the whole peak, and the launches, checked against ``wants[mode]``.
+  Returns ``(per mode results, totals, the two final states)``."""
+  import math
+
+  other = twin_state(state)
+  totals = expect()
+  out = {}
+  for mode, st in ((1, state), (MICRO_BATCHES, other)):
+    step = make_step(mode)
+    ms, losses, step_peak = [], [], []
+    for i, batch in enumerate(batches):
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      base = torch.cuda.memory_allocated()
+      reset_counts()
+      t0 = time.perf_counter()
+      st, loss = step(st, *batch)
+      torch.cuda.synchronize()
+      t1 = time.perf_counter()
+      got = read_counts()
+      check(got == wants[mode], f"{tag} micro_batches={mode} step {i}: "
+            f"launches {got}, expected {wants[mode]}")
+      add_counts(totals, got)
+      step_peak.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+      if i:
+        ms.append((t1 - t0) * 1e3)
+      losses.append(float(loss))
+      check(math.isfinite(losses[-1]),
+            f"{tag} micro_batches={mode} step {i}: loss {losses[-1]}")
+    out[mode] = {"step_ms": ms, "step_ms_median": statistics.median(ms),
+                 "step_peak_gib": max(step_peak),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "losses": losses, "launches_per_step": wants[mode]}
+    del step
+  return out, totals, (state, other)
+
+
+def phase_train_mb(torch, smi: str) -> dict:
+  """``train_mb``: the world-1 train cell (f32, SGD 0.1, B=65,536) with
+  ``micro_batches`` 1 and ``MICRO_BATCHES`` from one state, in turns of
+  whole runs: step ms, the step's peak memory, K2-fwd and K2-bwd once
+  per micro-batch and K1 once per sparse class a step, and the final
+  states against each other within K1's 1e-5. Returns the launches."""
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+  batches = train_batches(torch, vocab, MB_STEPS, SEED + 11)
+  wants = {m: expect(interact_fwd=m, interact_bwd=m, apply_rows=n_sparse)
+           for m in (1, MICRO_BATCHES)}
+
+  def make_step(mode):
+    return make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  rule, micro_batches=mode)
+
+  runs, totals, (one, mb) = mb_runs(torch, "train_mb", make_step, state,
+                                    batches, wants)
+  final = states_close(torch, state_arrays(mb), state_arrays(one), 1e-5)
+  check(final["within"] and all(
+      abs(a - w) <= 1e-5 * max(1.0, abs(w))
+      for a, w in zip(runs[MICRO_BATCHES]["losses"], runs[1]["losses"])),
+        f"train_mb: micro_batches={MICRO_BATCHES} left the one-shot run by "
+        f"{final['max_abs_err']} ({final['cells_differing']} cells)")
+  emit({"phase": "train_mb", "card": smi, "batch": TRAIN_BATCH,
+        "micro_batches": [1, MICRO_BATCHES], "steps": MB_STEPS,
+        "fused_bytes": sum(t.numel() * 4 for t in one["fused"].values()),
+        "runs": {str(k): v for k, v in runs.items()},
+        "final_max_abs_err": final["max_abs_err"],
+        "final_cells_differing": final["cells_differing"],
+        "tolerance": "1e-5 of each cell's magnitude"})
+  del state, one, mb, batches
+  torch.cuda.empty_cache()
+  return totals
+
+
+def phase_train_zoo_mb(torch, smi: str) -> dict:
+  """``train_zoo_mb``: Tiny (Adagrad 0.01, 8.99 GB, B=65,536) with
+  ``micro_batches`` 1 and ``MICRO_BATCHES`` from one state: step ms, the
+  step's peak memory, K6 once per sparse bucket and micro-batch, K1 once
+  per sparse class a step, the final states within K1's 1e-5. Returns
+  the launches."""
+  from distributed_embeddings_torch.models import (
+      SYNTHETIC_MODELS,
+      SyntheticModel,
+      bce_loss,
+  )
+  from distributed_embeddings_torch.ops.packed_table import adagrad_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+  )
+  from distributed_embeddings_torch.training import (
+      Adagrad,
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+  plan = zoo_plan()
+  rule = adagrad_rule(ZOO_LR)
+  hot = zoo_hotness()
+  sparse = [k for k in plan.class_keys if plan.classes[k].kind == "sparse"]
+  n_buckets = sum(len(class_buckets(plan, k, lambda i: hot[i]))
+                  for k in sparse)
+  model = SyntheticModel(SYNTHETIC_MODELS[ZOO_MODEL], device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+  adagrad = functools.partial(Adagrad, lr=ZOO_LR)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), adagrad,
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+  batches = zoo_batches(torch)
+  batches = [batches[i % 2] for i in range(MB_STEPS)]
+  wants = {m: expect(build_delta_rows=m * n_buckets, apply_rows=len(sparse))
+           for m in (1, MICRO_BATCHES)}
+
+  def make_step(mode):
+    return make_sparse_train_step(model, plan, bce_loss, adagrad, rule,
+                                  micro_batches=mode)
+
+  runs, totals, (one, mb) = mb_runs(torch, "train_zoo_mb", make_step, state,
+                                    batches, wants)
+  final = states_close(torch, state_arrays(mb), state_arrays(one), 1e-5)
+  check(final["within"],
+        f"train_zoo_mb: micro_batches={MICRO_BATCHES} left the one-shot run "
+        f"by {final['max_abs_err']} ({final['cells_differing']} cells)")
+  emit({"phase": "train_zoo_mb", "model": ZOO_MODEL, "card": smi,
+        "batch": ZOO_BATCH, "micro_batches": [1, MICRO_BATCHES],
+        "steps": MB_STEPS,
+        "fused_bytes": sum(t.numel() * 4 for t in one["fused"].values()),
+        "runs": {str(k): v for k, v in runs.items()},
+        "final_max_abs_err": final["max_abs_err"],
+        "final_cells_differing": final["cells_differing"],
+        "tolerance": "1e-5 of each cell's magnitude"})
+  del state, one, mb, batches
+  torch.cuda.empty_cache()
+  return totals
+
+
+def oov_count(plan, cats) -> dict:
+  """Per class, the ids of ``cats`` past their table's vocabulary (a
+  numpy count: each input's count goes to every class its pieces live
+  in, negative ids are padding)."""
+  import numpy as np
+
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_param_name,
+  )
+  out = {class_param_name(*k): 0 for k in plan.class_keys}
+  for i, pieces in enumerate(plan.output_pieces):
+    vocab = plan.global_configs[plan.input_table_map[i]].input_dim
+    n = int((np.asarray(cats[i].cpu()) >= vocab).sum())
+    for ck in {p.class_key for p in pieces}:
+      out[class_param_name(*ck)] += n
+  return out
+
+
+def phase_train_guard(torch, smi: str) -> dict:
+  """``train_guard``: the world-1 train cell with ``guard=True`` and
+  without, in turns from one state (the guard's cost); then a NaN batch
+  (``bad_step`` 1, every state array bit-equal to before, the step
+  held), an out-of-range id under ``oov='error'`` (``check_oov`` raises,
+  the state bit-equal), and ``make_sparse_eval_step(with_metrics=True)``
+  on a batch with out-of-range ids (its counts equal a numpy count).
+  Returns the launches of the guarded steps."""
+  import math
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.resilience.guards import check_oov
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_eval_step,
+      make_sparse_train_step,
+  )
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+  batches = train_batches(torch, vocab, 2, SEED + 13)
+  steps = {g: make_sparse_train_step(model, plan, bce_loss,
+                                     sgd_factory(torch), rule, guard=g)
+           for g in (False, True)}
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  totals = expect()
+  ms = {False: [], True: []}
+  for i in range(1 + GUARD_TIMED):
+    for g in (False, True):
+      reset_counts()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = steps[g](state, *batches[i % 2])
+      torch.cuda.synchronize()
+      t1 = time.perf_counter()
+      got = read_counts()
+      check(got == want, f"train_guard guard={g} step {i}: launches {got}, "
+            f"expected {want}")
+      if g:
+        add_counts(totals, got)
+        check(int(out[2]["bad_step"]) == 0,
+              f"train_guard step {i}: a clean batch was skipped")
+      check(math.isfinite(float(out[1])), f"train_guard step {i}: loss")
+      if i:
+        ms[g].append((t1 - t0) * 1e3)
+
+  def poisoned_step(tag, batch, guarded):
+    before = state_copy(torch, state)
+    reset_counts()
+    _, loss, m = guarded(state, *batch)
+    got = read_counts()
+    check(got == want, f"train_guard {tag}: launches {got}, expected {want}")
+    add_counts(totals, got)
+    check(int(m["bad_step"]) == 1, f"train_guard {tag}: bad_step "
+          f"{int(m['bad_step'])}")
+    bad = states_bit_equal(torch, state_arrays(state), before)
+    check(not bad, f"train_guard {tag}: arrays changed: {bad[:8]}")
+    return float(loss), {k: int(v) for k, v in m["oov"].items()}, len(before)
+
+  numerical, cats, labels = batches[0]
+  nan_loss, _, n_arrays = poisoned_step(
+      "NaN batch", (torch.full_like(numerical, float("nan")), cats, labels),
+      steps[True])
+  plan_err = train_plan(oov="error")
+  guarded_err = make_sparse_train_step(model, plan_err, bce_loss,
+                                       sgd_factory(torch), rule, guard=True)
+  bad_cats = [c.clone() for c in cats]
+  bad_cats[0][:3] = vocab[0] + 1
+  bad_cats[20][5] = vocab[20] + 7
+  _, oov, _ = poisoned_step("oov='error'", (numerical, bad_cats, labels),
+                            guarded_err)
+  want_oov = oov_count(plan, bad_cats)
+  check(oov == want_oov, f"train_guard: oov counts {oov}, numpy {want_oov}")
+  try:
+    check_oov(plan_err, oov)
+    raised = None
+  except ValueError as exc:
+    raised = str(exc)
+  check(raised is not None and "OOV policy 'error'" in raised,
+        "train_guard: check_oov did not raise under oov='error'")
+  ev = make_sparse_eval_step(model, plan_err, rule, with_metrics=True)
+  reset_counts()
+  preds, m = ev(state, numerical, bad_cats)
+  got = read_counts()
+  check(got == expect(interact_fwd=1), f"train_guard eval: launches {got}")
+  ev_oov = {k: int(v) for k, v in m["oov"].items()}
+  check(ev_oov == want_oov and bool(torch.isfinite(preds).all()),
+        f"train_guard eval: counts {ev_oov}, numpy {want_oov}")
+  med = {g: statistics.median(v) for g, v in ms.items()}
+  emit({"phase": "train_guard", "card": smi, "batch": TRAIN_BATCH,
+        "step_ms": {"plain": ms[False], "guard": ms[True]},
+        "step_ms_median": {"plain": med[False], "guard": med[True]},
+        "guard_cost_ms": med[True] - med[False],
+        "nan_step": {"bad_step": 1, "loss": nan_loss,
+                     "arrays_bit_equal": n_arrays, "step": state["step"]},
+        "oov_error": {"oov": oov, "numpy": want_oov, "bad_step": 1,
+                      "arrays_bit_equal": n_arrays,
+                      "check_oov": raised[:160]},
+        "eval_metrics": {"oov": ev_oov, "numpy": want_oov},
+        "launches_per_step": want})
+  del state, steps, guarded_err, batches
+  torch.cuda.empty_cache()
+  return totals
+
+
+def phase_resilient(torch, smi: str) -> dict:
+  """``resilient``: the README's "Resilient training" snippet through
+  ``ResilientTrainer`` at the train cell's widths (26 tables of width
+  128, B=65,536, SGD 0.1, the vocabulary cut to 1/``RESILIENT_VOCAB_
+  SCALE`` of Criteo-1TB so that a save takes about a second), with the
+  chaos story of ``tools/torch_chaos_train.py``: NaN batches, a transient
+  write fault, a crash mid-save, a fresh trainer that resumes; the
+  resumed run's losses against the uninterrupted run's within 1e-5
+  (K1's atomics), the skips counted, the loss falling; each snapshot's
+  and restore's seconds from the trainer's spans. Returns the launches
+  of its steps."""
+  import os
+
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.telemetry import (
+      Tracer,
+      install_tracer,
+      uninstall_tracer,
+  )
+  from distributed_embeddings_torch.training import init_sparse_state_direct
+
+  sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+      __file__)), "tools"))
+  import torch_chaos_train as chaos
+
+  vocab = [max(4, int(v / RESILIENT_VOCAB_SCALE)) for v in CRITEO_1TB_VOCAB]
+  plan = train_plan(vocab)
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  rule = sgd_rule(TRAIN_LR)
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rng = np.random.default_rng(SEED)
+  unique = []
+  for _ in range(6):
+    numerical = rng.standard_normal((TRAIN_BATCH, 13)).astype(np.float32)
+    cats = [rng.integers(0, v, TRAIN_BATCH).astype(np.int32) for v in vocab]
+    unique.append((numerical, cats,
+                   (numerical[:, 0] > 0).astype(np.float32)))
+
+  def fresh_state():
+    return init_sparse_state_direct(
+        plan, rule, model.state_dict(), sgd_factory(torch),
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+
+  setup = {"plan": plan, "rule": rule, "opt": sgd_factory(torch),
+           "model": model,
+           "batches": [unique[i % 6] for i in range(RESILIENT_STEPS)],
+           "fresh_state": fresh_state}
+  tracer = install_tracer(Tracer())
+  reset_counts()
+  t0 = time.perf_counter()
+  try:
+    res = chaos.run_chaos(RESILIENT_STEPS, RESILIENT_NAN_EVERY,
+                          RESILIENT_SNAPSHOT_EVERY, device="cuda",
+                          setup=setup)
+  finally:
+    uninstall_tracer()
+  wall_s = time.perf_counter() - t0
+  got = read_counts()
+  calls = res["step_calls"]
+  want = expect(interact_fwd=calls, interact_bwd=calls,
+                apply_rows=n_sparse * calls)
+  check(got == want, f"resilient: launches {got}, expected {want}")
+  ref_state, resumed_state = res.pop("_states")
+  fused_bytes = sum(t.numel() * 4 for t in ref_state["fused"].values())
+  final = states_close(torch, state_arrays(resumed_state),
+                       state_arrays(ref_state), 1e-5)
+  check(res["ok"] and final["within"], "resilient: the chaos story failed: "
+        + json.dumps({k: v for k, v in res.items()
+                      if k not in ("losses_reference",
+                                   "losses_resumed_run")})[:1500])
+  spans = {}
+  for ev in tracer.events():
+    if ev[0] == "X" and ev[2] in ("ckpt/save", "ckpt/restore"):
+      spans.setdefault(ev[2], []).append(ev[4] / 1e9)
+  del res["reference_summary"]
+  emit({"phase": "resilient", "card": smi, "batch": TRAIN_BATCH,
+        "vocab_scale": f"1/{RESILIENT_VOCAB_SCALE} of Criteo-1TB (the "
+                       f"train cell's 1/16, cut {RESILIENT_VOCAB_SCALE // 16}"
+                       " times more)",
+        "fused_bytes": fused_bytes, "wall_s": wall_s,
+        "snapshot_s": spans.get("ckpt/save", []),
+        "restore_s": spans.get("ckpt/restore", []),
+        "final_max_abs_err": final["max_abs_err"],
+        "final_cells_differing": final["cells_differing"],
+        "launches": got, **res})
+  del ref_state, resumed_state, setup
+  torch.cuda.empty_cache()
+  return got
+
+
+def phase_dlrm_main_mb(torch, smi: str) -> dict:
+  """``dlrm_main_mb``: ``examples/dlrm/main_torch.py --dataset dummy
+  --sparse --micro_batches 4`` (20 steps of 4096, x 1/16, ``--eval``)
+  through the twin's ``main(argv)`` in this process: finite losses and
+  AUC, K2-bwd ``4`` times a step, K1 once per sparse class a step."""
+  from distributed_embeddings_torch.models import dlrm_embedding_plan
+
+  flags = {k: v for k, v in DLRM_MAIN_SPARSE_FLAGS.items()
+           if k != "--checkpoint_every"}
+  argv = twin_argv(flags) + ["--micro_batches", str(MICRO_BATCHES),
+                             "--device", "cuda"]
+  t0 = time.perf_counter()
+  out, got = _run_twin(argv)
+  wall_s = time.perf_counter() - t0
+  numbers = _twin_numbers(out, "dlrm_main_mb")
+  steps = numbers["steps"]
+  vocab = [max(4, int(v * float(flags["--vocab_scale"])))
+           for v in CRITEO_1TB_VOCAB]
+  plan = dlrm_embedding_plan(vocab, D, 1, "memory_balanced",
+                             batch_hint=int(flags["--batch_size"]))
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  check(got["interact_bwd"] == MICRO_BATCHES * steps and
+        got["apply_rows"] == n_sparse * steps and
+        got["interact_fwd"] > MICRO_BATCHES * steps,
+        f"dlrm_main_mb: launches {got} for {steps} steps")
+  torch.cuda.empty_cache()
+  emit({"phase": "dlrm_main_mb", "card": smi,
+        "argv": ["examples/dlrm/main_torch.py", *argv], "wall_s": wall_s,
+        "launches": got, **numbers, "stdout": out.strip().splitlines()})
+  return got
+
+
+def _w4_guard_mb(torch, mesh, backend: str, batch) -> dict:
+  """The guarded and the micro-batched step at world 4, in this rank: a
+  guarded step whose batch holds NaN in rank ``W4_NAN_RANK``'s slice
+  only (every rank: ``bad_step`` 1, its arrays bit-equal to before); then
+  one one-shot step and one ``micro_batches=2`` step from the same state,
+  within K1's 1e-5 of each other, K4 once per (bucket, round, chunk) and
+  micro-batch."""
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab, plan = world4_plan(backend)
+  dev = mesh.device
+  model = DLRM(vocab, D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 21 + mesh.rank),
+      mesh=mesh)
+  k4 = k4_launches_per_step(plan)
+  n_cls = len(state["fused"])
+
+  def build(**kw):
+    return make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  rule, mesh=mesh, **kw)
+
+  numerical, cats, labels = batch
+  poisoned = (torch.full_like(numerical, float("nan"))
+              if mesh.rank == W4_NAN_RANK else numerical)
+  before = state_copy(torch, state)
+  reset_counts()
+  _, loss, m = build(guard=True)(state, poisoned, cats, labels)
+  guard_counts = read_counts()
+  want = expect(gather_rows=k4, apply_rows=n_cls, interact_fwd=1,
+                interact_bwd=1)
+  check(guard_counts == want, f"world 4 guard rank {mesh.rank}: launches "
+        f"{guard_counts}, expected {want}")
+  check(int(m["bad_step"]) == 1, f"world 4 guard rank {mesh.rank}: "
+        f"bad_step {int(m['bad_step'])}")
+  bad = states_bit_equal(torch, state_arrays(state), before)
+  check(not bad, f"world 4 guard rank {mesh.rank}: arrays changed: "
+        f"{bad[:8]}")
+  n_arrays = len(before)
+  del before
+  other = twin_state(state)
+  mb_counts = expect()
+  losses = {}
+  for mode, st in ((1, state), (2, other)):
+    reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, loss = build(micro_batches=mode)(st, numerical, cats, labels)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    got = read_counts()
+    want = expect(gather_rows=mode * k4, apply_rows=n_cls,
+                  interact_fwd=mode, interact_bwd=mode)
+    check(got == want, f"world 4 micro_batches={mode} rank {mesh.rank}: "
+          f"launches {got}, expected {want}")
+    add_counts(mb_counts, got)
+    losses[mode] = {"loss": float(loss), "step_ms": (t1 - t0) * 1e3}
+  final = states_close(torch, state_arrays(other), state_arrays(state), 1e-5)
+  check(final["within"] and abs(losses[2]["loss"] - losses[1]["loss"]) <=
+        1e-5 * max(1.0, abs(losses[1]["loss"])),
+        f"world 4 micro_batches=2 rank {mesh.rank} left the one-shot step "
+        f"by {final['max_abs_err']}")
+  del state, other
+  torch.cuda.empty_cache()
+  return {"nan_rank": W4_NAN_RANK, "bad_step": 1,
+          "arrays_bit_equal": n_arrays, "guard_launches": guard_counts,
+          "mb_launches": mb_counts, "k4_per_step": k4,
+          "mb": {str(k): v for k, v in losses.items()},
+          "mb_max_abs_err": final["max_abs_err"],
+          "mb_cells_differing": final["cells_differing"]}
 
 
 def twin_argv(flags: dict) -> list:
@@ -3641,7 +4231,12 @@ def main() -> int:
   by_path["train_ckpt"] = phase_train_ckpt(torch, smi)
   by_path["dlrm_main_sparse"] = phase_dlrm_main_sparse(torch, smi)
   torch.cuda.empty_cache()
+  by_path["train_mb"] = phase_train_mb(torch, smi)
+  by_path["train_guard"] = phase_train_guard(torch, smi)
+  by_path["resilient"] = phase_resilient(torch, smi)
+  by_path["dlrm_main_mb"] = phase_dlrm_main_mb(torch, smi)
   by_path.update(phase_train_zoo(torch, smi))
+  by_path["train_zoo_mb"] = phase_train_zoo_mb(torch, smi)
   for path, name in (("train_zoo", "build_delta_rows"),
                      ("train_zoo", "apply_rows"),
                      ("train_zoo_pin", "row_major")):
@@ -3654,11 +4249,16 @@ def main() -> int:
   for name in ("interact_fwd", "interact_bwd"):
     check(by_path["train_dense_world4"][name] > 0,
           f"the world-4 dense path never launched {name}")
-  for path, names in (("train_ckpt", ("interact_fwd", "interact_bwd",
-                                      "apply_rows")),
-                      ("dlrm_main_sparse", ("interact_fwd", "interact_bwd",
-                                            "apply_rows")),
-                      ("world4_ckpt", W4_KERNELS)):
+  dlrm_sparse = ("interact_fwd", "interact_bwd", "apply_rows")
+  for path, names in (("train_ckpt", dlrm_sparse),
+                      ("dlrm_main_sparse", dlrm_sparse),
+                      ("world4_ckpt", W4_KERNELS),
+                      ("train_mb", dlrm_sparse), ("train_guard", dlrm_sparse),
+                      ("resilient", dlrm_sparse),
+                      ("dlrm_main_mb", dlrm_sparse),
+                      ("train_zoo_mb", ("build_delta_rows", "apply_rows")),
+                      ("train_world4_guard", W4_KERNELS),
+                      ("train_world4_mb", W4_KERNELS)):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

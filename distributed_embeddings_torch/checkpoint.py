@@ -38,9 +38,10 @@ exception still reaches them. :func:`restore` reads it back (rank 0
 verifies, every rank reads only its own blocks).
 
 Not ported (refused by name): host-tier stores (``store=``, ROADMAP.md
-§1 item 8), the dynamic vocabulary (``vocab=``, item 12), telemetry and
-stream sections (``telemetry=``, ``stream=``, items 11 and 12), and the
-elastic re-shard of a checkpoint onto another world (item 11).
+§1 item 8), the dynamic vocabulary and the stream section (``vocab=``,
+``stream=``, item 12), and the elastic re-shard of a checkpoint onto
+another world (item 11). The ``telemetry`` section (a metrics registry's
+state) is written and read as the JAX package does.
 """
 
 from __future__ import annotations
@@ -335,7 +336,9 @@ def publish_manifest_last(tmp: str, path: str,
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(store, vocab, telemetry, stream) -> None:
+def refuse_unported(store, vocab, stream) -> None:
+  """The arguments of the subsystems not ported yet, each refused naming
+  its ROADMAP item (``resilience.durable`` refuses them alike)."""
   if store is not None:
     raise NotImplementedError(
         "store= (a host-tier HostTierStore): tiered checkpoints are not "
@@ -344,10 +347,6 @@ def _refuse_unported(store, vocab, telemetry, stream) -> None:
     raise NotImplementedError(
         "vocab= (a dynamic-vocabulary translator): its id space is not "
         "ported yet (ROADMAP.md §1 item 12, dynvocab)")
-  if telemetry is not None:
-    raise NotImplementedError(
-        "telemetry= (the registry's persisted section): not ported yet "
-        "(ROADMAP.md §1 item 11, telemetry)")
   if stream is not None:
     raise NotImplementedError(
         "stream= (the delta publisher's chain state): not ported yet "
@@ -452,8 +451,11 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
   its ``DONE_p<rank>`` marker, rank 0 writes the npz parts, merges the
   markers' checksum tables and publishes the manifest, and every rank
   returns once the checkpoint is published (or raises, on every rank,
-  when any rank failed). ``extra`` (JSON) rides the manifest."""
-  _refuse_unported(store, vocab, telemetry, stream)
+  when any rank failed). ``extra`` (JSON) rides the manifest, and so does
+  ``telemetry`` (a ``telemetry.MetricsRegistry``, or its captured
+  ``state_dict()``), as the manifest's ``telemetry`` section in the JAX
+  package's spelling (rank 0's registry at world N)."""
+  refuse_unported(store, vocab, stream)
   if getattr(plan, "oov", "clip") == "allocate":
     raise NotImplementedError(
         "plan.oov='allocate': the dynamic id space is not ported yet "
@@ -466,6 +468,12 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
   p0 = rank in (None, 0)
   layouts = DistributedLookup(plan).fused_layouts(rule)
   parts = _npz_parts(state, mesh, rank)  # collective at world N
+  # a registry is captured here (a consistent point-in-time state); an
+  # already-captured dict (async snapshots) passes through
+  telemetry_meta = None
+  if telemetry is not None:
+    telemetry_meta = (telemetry.state_dict()
+                      if hasattr(telemetry, "state_dict") else dict(telemetry))
   tmp = path + ".tmp"
   err: Optional[BaseException] = None
   if p0:
@@ -562,6 +570,8 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
     }
     if extra is not None:
       manifest["extra"] = extra
+    if telemetry_meta is not None:
+      manifest["telemetry"] = telemetry_meta
     publish_manifest_last(tmp, path, manifest)
 
   err = None
@@ -717,13 +727,15 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   verifies every file first (``verify_integrity``) and the verdict is
   broadcast; then format, rule, plan and physical shapes are checked,
   with the JAX package's messages, and each rank memory-maps only its own
-  ``fused_*_r<rank>.npy`` files."""
+  ``fused_*_r<rank>.npy`` files. With ``telemetry`` (a
+  ``telemetry.MetricsRegistry``) the manifest's ``telemetry`` section, if
+  any, is loaded into it."""
   # convert and training import this module's neighbours; import at call
   # time
   from .convert import dense_state_dict_from_flax
   from .serving.export import _unflatten_paths
   from .training import OptaxState, _with_optimizers, rebind_optimizer
-  _refuse_unported(store, vocab, telemetry, stream)
+  refuse_unported(store, vocab, stream)
   rank = _state_rank(plan, mesh)
   dev = mesh.device if mesh is not None else resolve_device(device)
   layouts = DistributedLookup(plan).fused_layouts(rule)
@@ -736,6 +748,10 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   with open(os.path.join(path, "manifest.json")) as f:
     manifest = json.load(f)
   _check_manifest(manifest, plan, rule, layouts)
+  if telemetry is not None and manifest.get("telemetry") is not None:
+    # REPLACES the named metrics' values: a resume continues the run's
+    # counts rather than adding to what this process observed so far
+    telemetry.load_state_dict(manifest["telemetry"])
 
   fused = {}
   ranks = range(plan.world_size) if rank is None else [rank]

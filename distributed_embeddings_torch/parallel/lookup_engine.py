@@ -402,12 +402,17 @@ class DistributedLookup:
       per_dest.append(torch.stack(per_slot))
     return torch.stack(per_dest)
 
-  def route_ids(self, inputs: Sequence, hotness_of=None
-                ) -> Dict[BucketKey, torch.Tensor]:
+  def route_ids(self, inputs: Sequence, hotness_of=None,
+                eager_oov: bool = True) -> Dict[BucketKey, torch.Tensor]:
     """dp->mp id exchange: per bucket, the global batch's ids that this
     rank's tables serve, ``bk -> [n_b, G]`` (hotness 1) or ``[n_b, G,
     h]`` with ``G = world * B`` source-rank-major. At world > 1 the ids
-    travel the wire as int32, as in the JAX package, and stay int32."""
+    travel the wire as int32, as in the JAX package, and stay int32.
+
+    Under ``oov='error'`` an out-of-vocabulary id raises here, unless
+    ``eager_oov=False``: the guarded train step and the eval step with
+    metrics enforce the policy through their OOV counters instead (the
+    JAX engine skips this check for traced inputs)."""
     plan = self.plan
     world = plan.world_size
     self._my_rank()  # a world > 1 plan needs the mesh
@@ -423,7 +428,7 @@ class DistributedLookup:
       if x.shape[0] != b:
         raise ValueError("All inputs need the same batch size "
                          f"(got {x.shape[0]} vs {b}).")
-    if plan.oov == "error":
+    if plan.oov == "error" and eager_oov:
       self._oov_error_eager(inputs)
     if hotness_of is None:
       hotness_of = lambda i: ragged_hotness(inputs[i])  # noqa: E731

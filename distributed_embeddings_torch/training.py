@@ -56,8 +56,13 @@ gradients are summed over the ranks and every gradient is scaled by
 ``1 / world`` before the step (``finalize_hybrid_grads``, which the
 sparse step's dense tail runs too).
 
-Not ported yet: ``micro_batches > 1``, the non-finite guard and the
-tiered step.
+``make_sparse_train_step(micro_batches=N)`` loops the route, gather,
+model and backward over N slices of the batch and applies once;
+``guard=True`` checks the loss, the gradients and the delta streams
+before anything commits and skips a poisoned step bit-exactly
+(``resilience.guards``, driven by ``resilience.trainer.ResilientTrainer``).
+
+Not ported yet: the tiered step.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ from .layers.embedding import (
 )
 from .layers.planner import DistEmbeddingStrategy
 from .ops.packed_table import SparseRule, init_packed_uniform
+from .ops.ragged import RaggedIds
 from .parallel import wire
 from .parallel.lookup_engine import (
     DistributedLookup,
@@ -514,13 +520,16 @@ def _fused_rule_and_penalties(plan: DistEmbeddingStrategy, rule: SparseRule):
   return rule, reg_fn, con_fn
 
 
-def _reduce_and_apply_dense(state: Dict[str, Any], d_z, loss, mesh=None,
-                            con_fn=None):
-  """The dense tail of the step: cross-rank reduction, then the optimizer
-  steps on the dense parameters and the dense-class tables (their
-  gradients are in ``.grad`` after the backward), the dense-class
-  tables' constraints (``con_fn``), then the gradients are dropped.
-  Returns ``(d_z, loss)`` for the sparse apply.
+def _scale_d_z(d_z, scale: float):
+  """Every sparse cotangent (or each chunk of a :class:`FusedChunks`)
+  times ``scale``."""
+  return {bk: (g.map(lambda c: c * scale) if isinstance(g, FusedChunks)
+               else g * scale) for bk, g in d_z.items()}
+
+
+def _reduce_dense(state: Dict[str, Any], d_z, loss, mesh=None):
+  """The cross-rank reduction of the step's dense tail; returns ``(d_z,
+  loss)`` for the sparse apply. Nothing commits here.
 
   At world > 1 the gradients of the dense parameters and the dense-class
   tables (``mp_table_*`` names) go through :func:`finalize_hybrid_grads`
@@ -531,18 +540,87 @@ def _reduce_and_apply_dense(state: Dict[str, Any], d_z, loss, mesh=None,
     finalize_hybrid_grads(
         list(state["dense"].items()) + list(state["emb_dense"].items()),
         mesh)
-    scale = 1.0 / mesh.world
-    d_z = {bk: (g.map(lambda c: c * scale) if isinstance(g, FusedChunks)
-                else g * scale) for bk, g in d_z.items()}
+    d_z = _scale_d_z(d_z, 1.0 / mesh.world)
     loss = _mean_over_ranks(loss, mesh)
+  return d_z, loss
+
+
+def _apply_dense(state: Dict[str, Any], mesh=None, con_fn=None,
+                 commit: bool = True) -> None:
+  """The commit of the step's dense tail: the optimizer steps on the
+  dense parameters and the dense-class tables (their gradients are in
+  ``.grad``), the dense-class tables' constraints (``con_fn``); then the
+  gradients are dropped. With ``commit=False`` (a guarded step that
+  failed its gate) only the gradients are dropped: the parameters, the
+  optimizers' states and a schedule's count stay as they were, and no
+  poisoned gradient is left to join the next step's."""
   for opt_name in ("dense_opt", "emb_dense_opt"):
     opt = state[opt_name]
     if opt is not None:
-      opt.step()
+      if commit:
+        opt.step()
       opt.zero_grad(set_to_none=True)
-  if con_fn is not None and state["emb_dense"]:
+  if commit and con_fn is not None and state["emb_dense"]:
     con_fn(state["emb_dense"], 0 if mesh is None else mesh.rank)
-  return d_z, loss
+
+
+def _make_guard_helpers(plan: DistEmbeddingStrategy, mesh=None):
+  """The non-finite / OOV guard epilogue (``resilience.guards`` wiring),
+  as the JAX package's ``_make_guard_helpers``.
+
+  Returns ``(guard_gate, oov_ok, guard_metrics)``:
+
+  - ``guard_gate(loss, grads_ok, streams, oov_ok)``: the global ok flag
+    (a device bool) and the gated delta streams. Finiteness is checked on
+    the loss, the dense gradients (``grads_ok``: :func:`all_finite` of
+    them before the reduction) and the BUILT delta streams (NaN and inf
+    cotangents propagate through every rule's delta math, so checking the
+    streams covers ``d_z``). ``ok`` must agree on every rank — a skip must
+    be collective; one rank committing while another skips would fork the
+    replicated state — so the local verdict goes through an
+    ``all_reduce(MIN)`` of an int flag over the process group (the JAX
+    ``pmin``). Bad-step streams are ZEROED (``torch.where(ok, rows,
+    0)``) rather than the buffers select-gated: a scatter-add of zeros is
+    an exact no-op, so the packed buffers are never copied.
+  - ``oov_ok(oov)``: the ``oov='error'`` commit gate (None under
+    ``'clip'``), from this rank's counts before any reduction: a batch
+    carrying ANY out-of-range id commits nothing, so the host-side
+    ``check_oov`` raise fires with the state bit-identical to before the
+    batch.
+  - ``guard_metrics(ok, oov)``: the ``{'bad_step', 'oov'}`` metrics dict,
+    the counters summed over the ranks (one ``all_reduce(SUM)``, the JAX
+    ``psum``), the same on every rank."""
+  from .resilience.guards import all_finite
+  world = 1 if mesh is None else mesh.world
+  oov_is_error = getattr(plan, "oov", "clip") == "error"
+
+  def guard_gate(loss, grads_ok, streams, oov_ok=None):
+    ok = torch.logical_and(all_finite((loss, streams)),
+                           grads_ok.to(loss.device))
+    if oov_ok is not None:
+      ok = torch.logical_and(ok, oov_ok.to(ok.device))
+    if world > 1:
+      flag = ok.to(torch.int32)
+      dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+      ok = flag.to(torch.bool)
+    streams = {name: (ids, torch.where(ok, rows, torch.zeros_like(rows)))
+               for name, (ids, rows) in streams.items()}
+    return ok, streams
+
+  def oov_ok(oov):
+    if not oov_is_error or not oov:
+      return None
+    return torch.stack(list(oov.values())).sum() == 0
+
+  def guard_metrics(ok, oov):
+    if world > 1 and oov:
+      names = list(oov)
+      total = torch.stack([oov[n] for n in names])
+      dist.all_reduce(total)
+      oov = dict(zip(names, total.unbind()))
+    return {"bad_step": 1 - ok.to(torch.int32), "oov": oov}
+
+  return guard_gate, oov_ok, guard_metrics
 
 
 def _check_mesh(plan, mesh) -> None:
@@ -556,24 +634,42 @@ def _check_mesh(plan, mesh) -> None:
                      f"{plan.world_size}")
 
 
-def _refuse_unported(plan, mesh, micro_batches: int, guard: bool) -> None:
+def _refuse_unported(plan, mesh, micro_batches: int, guard: bool,
+                     exact: bool) -> None:
+  """The JAX builder's refusals, with its messages, and the options of
+  later ROADMAP items, naming them."""
   _check_mesh(plan, mesh)
-  if micro_batches != 1:
+  if micro_batches > 1 and exact:
     raise NotImplementedError(
-        f"micro_batches={micro_batches}: the micro-batch step is not "
-        "ported yet (micro_batches=1 only)")
-  if guard:
+        "micro_batches > 1 with exact=True: cross-micro-batch dedup would "
+        "need the full occurrence stream the mode exists to avoid. Use "
+        "per-occurrence semantics (exact=False) or one-shot exact.")
+  if guard and exact:
     raise NotImplementedError(
-        "guard=True: the non-finite guard (resilience.guards) is not "
-        "ported yet")
+        "guard=True with exact=True: the non-finite guard gates the "
+        "prebuilt per-class delta streams before the scatter, but the "
+        "exact path re-gathers rows and builds its deltas inside the "
+        "apply. Use per-occurrence semantics (exact=False) with the "
+        "guard.")
   if getattr(plan, "dedup_capacity", None) is not None:
+    raise NotImplementedError(
+        "plan.dedup_capacity caps the deduplicated exchange "
+        "(dedup_exchange=True), which is not ported yet (ROADMAP.md §1 "
+        "item 7)")
+  oov = getattr(plan, "oov", "clip")
+  if oov == "allocate":
+    raise NotImplementedError(
+        "plan.oov='allocate': the dynamic vocabulary is not ported yet "
+        "(ROADMAP.md §1 item 12, dynvocab)")
+  if oov == "error" and not guard:
     raise ValueError(
-        "plan.dedup_capacity requires the guarded step, which is not "
-        "ported yet")
-  if getattr(plan, "oov", "clip") in ("error", "allocate"):
-    raise ValueError(
-        f"plan.oov={plan.oov!r} requires the guarded step, which is not "
-        "ported yet; use oov='clip'")
+        "plan.oov='error' requires make_sparse_train_step(guard=True): "
+        "under jit the ids are traced, so the unguarded step cannot see "
+        "them — out-of-range ids would be silently clipped to each "
+        "table's last row, exactly what oov='error' exists to forbid. "
+        "Enforcement rides the guarded step's OOV metrics "
+        "(resilience.guards.check_oov) plus a commit gate on the "
+        "offending batch; build with guard=True or use oov='clip'.")
 
 
 def _leaf_of(z):
@@ -615,28 +711,64 @@ def make_sparse_train_step(model: torch.nn.Module,
     mesh: this rank's :class:`~.parallel.mesh.Mesh` for a world > 1 plan
       (every rank builds and calls the step), None at world 1.
     exact: the reference's deduplicated backward (sort + segment-sum).
-    micro_batches, guard: 1 and False only (not ported yet).
+    micro_batches: > 1 runs route, gather, model and backward over
+      ``micro_batches`` equal slices of this rank's batch, one after the
+      other: the dense gradients accumulate in ``.grad`` (each slice's
+      loss scaled by ``1 / micro_batches``), each slice's per-class delta
+      streams are built from the forward-gathered rows of the PRE-step
+      buffers (untouched until the end) and stashed, then ONE dense
+      reduction and ONE scatter per class (kernel K1) apply them. Live
+      gathers, activations and backward temporaries are a slice's; the
+      stashed streams are as large as the one-shot step's. The numerics
+      are the one-shot step's up to the order of the scatter's and the
+      gradients' additions. Requires dense (non-ragged) ``cats``, a batch
+      that ``micro_batches`` divides, and ``exact=False``.
+    guard: harden the step against poison batches
+      (``resilience.guards``). After the backward — BEFORE anything
+      commits — the step checks the loss, the dense gradients (before the
+      reduction) and the built delta streams for non-finite values, and
+      under ``plan.oov='error'`` the batch's out-of-range ids; the verdict
+      is min-reduced over the ranks. A bad step commits NOTHING: the
+      delta streams are zeroed (a scatter-add of zeros is an exact no-op,
+      so the buffers are never copied), the dense optimizers do not step
+      (their states and a schedule's count stay), the gradients are
+      dropped and ``state['step']`` holds — the state is bit-identical to
+      a run that never saw the batch. The step reads the verdict on the
+      host once (torch optimizers step on the host). It then returns
+      ``(state, loss, metrics)`` with ``metrics = {'bad_step': int32 0/1,
+      'oov': {class: int32 count}}`` (counts summed over the ranks; the
+      loss is the observed, possibly NaN, value). Incompatible with
+      ``exact=True``.
 
   Returns:
-    ``step(state, numerical, cats, labels) -> (state, loss)``, with this
-    rank's slice of the batch on the state's device (:func:`shard_batch`);
-    ``state`` is updated in place and ``loss`` is the mean over the ranks.
+    ``step(state, numerical, cats, labels) -> (state, loss)`` (with
+    ``guard``, ``-> (state, loss, metrics)``), with this rank's slice of
+    the batch on the state's device (:func:`shard_batch`); ``state`` is
+    updated in place and ``loss`` is the mean over the ranks.
   """
-  _refuse_unported(plan, mesh, micro_batches, guard)
+  _refuse_unported(plan, mesh, micro_batches, guard, exact)
   rule, reg_fn, con_fn = _fused_rule_and_penalties(plan, rule)
   engine = DistributedLookup(plan, mesh=mesh)
   layouts = engine.fused_layouts(rule)
+  world = 1 if mesh is None else mesh.world
+  rank = 0 if mesh is None else mesh.rank
+  n_mb = max(1, micro_batches)
   # exact=True re-gathers rows at apply time; a weight decay without aux
   # lanes needs the forward-time rows saved
   keep_rows = bool(rule.weight_decay) and not rule.n_aux and not exact
+  guard_gate, oov_ok, guard_metrics = _make_guard_helpers(plan, mesh)
 
-  def step(state, numerical, cats, labels):
-    _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
-    cats = list(cats)
+  def backward(state, numerical, cats, labels, loss_scale):
+    """Route, gather, forward and backward of one (micro-)batch: the
+    dense gradients land in ``.grad`` (of ``loss * loss_scale``);
+    returns ``(loss, d_z, residuals)``, ``d_z`` the sparse activations'
+    cotangents."""
     b = numerical.shape[0]
     hotness = [ragged_hotness(c) for c in cats]
     hotness_of = lambda i: hotness[i]  # noqa: E731
-    ids_all = engine.route_ids(cats, hotness_of)
+    # the guarded step enforces oov='error' through its commit gate and
+    # metrics, never by raising half-way through a step
+    ids_all = engine.route_ids(cats, hotness_of, eager_oov=not guard)
     counts = engine.mean_counts(cats)
     with torch.no_grad():
       z_sparse, residuals = engine.lookup_sparse_fused(
@@ -651,20 +783,115 @@ def make_sparse_train_step(model: torch.nn.Module,
     if reg_fn is not None:
       # the rank's own windows, scaled by the world to survive the
       # uniform 1 / world gradient scale, as in the JAX step
-      world = 1 if mesh is None else mesh.world
-      loss = loss + world * reg_fn(state["emb_dense"],
-                                   0 if mesh is None else mesh.rank)
-    loss.backward()
+      loss = loss + world * reg_fn(state["emb_dense"], rank)
+    (loss * loss_scale if loss_scale != 1.0 else loss).backward()
     d_z = {bk: _grad_of(z) for bk, z in z_leaves.items()}
-    d_z, loss = _reduce_and_apply_dense(state, d_z, loss.detach(), mesh,
-                                        con_fn)
+    return loss.detach(), d_z, residuals
+
+  def micro_slices(numerical, cats, labels):
+    """This rank's batch as ``n_mb`` equal slices (the JAX step's
+    refusals first)."""
+    b = numerical.shape[0]
+    if b % n_mb:
+      raise ValueError(f"batch {b} not divisible by micro_batches {n_mb}")
+    if any(isinstance(c, RaggedIds) for c in cats):
+      raise NotImplementedError(
+          "micro_batches > 1 needs dense cats (ragged rows cannot be "
+          "batch-sliced statically); pad to dense multi-hot first.")
+    m = b // n_mb
+    return [(numerical[i * m:(i + 1) * m], [c[i * m:(i + 1) * m]
+                                            for c in cats],
+             labels[i * m:(i + 1) * m]) for i in range(n_mb)]
+
+  def step_mb(state, numerical, cats, labels):
+    """Micro-batched: a loop of backwards, the streams stashed, then one
+    dense reduction and one scatter per class."""
+    stash: Dict[str, tuple] = {}
+    loss = None
+    # d_z takes 1 / (n_mb * world) as in the JAX step: 1 / n_mb from the
+    # loss scale, 1 / world here (finalize_hybrid_grads gives the dense
+    # gradients theirs)
+    dz_scale = 1.0 / world
+    for i, mb in enumerate(micro_slices(numerical, cats, labels)):
+      loss_i, d_z, residuals = backward(state, *mb, 1.0 / n_mb)
+      if dz_scale != 1.0:
+        d_z = _scale_d_z(d_z, dz_scale)
+      with torch.no_grad():
+        streams = engine.sparse_delta_streams(layouts, d_z, residuals, rule,
+                                              state["step"])
+        # every slice's stream has the same shape: stacked [n_mb, ...] as
+        # the JAX scan stacks them, written in place (a concatenation at
+        # the end would hold the stash twice)
+        for name, (ids, rows) in streams.items():
+          if not i:
+            stash[name] = (ids.new_empty((n_mb,) + ids.shape),
+                           rows.new_empty((n_mb,) + rows.shape))
+          stash[name][0][i] = ids
+          stash[name][1][i] = rows
+      del streams, d_z, residuals
+      loss = loss_i / n_mb if loss is None else loss + loss_i / n_mb
+    return loss, {name: (ids.reshape(-1), rows.reshape(-1, rows.shape[-1]))
+                  for name, (ids, rows) in stash.items()}
+
+  def step(state, numerical, cats, labels):
+    _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+    cats = list(cats)
+    if n_mb == 1 and not guard:
+      loss, d_z, residuals = backward(state, numerical, cats, labels, 1.0)
+      d_z, loss = _reduce_dense(state, d_z, loss, mesh)
+      _apply_dense(state, mesh, con_fn)
+      with torch.no_grad():
+        engine.apply_sparse(state["fused"], layouts, d_z, residuals, rule,
+                            state["step"], exact=exact)
+      state["step"] += 1
+      return state, loss
+    if n_mb > 1:
+      loss, streams = step_mb(state, numerical, cats, labels)
+      grads_ok = _grads_ok(state, guard)
+      _, loss = _reduce_dense(state, {}, loss, mesh)
+    else:
+      loss, d_z, residuals = backward(state, numerical, cats, labels, 1.0)
+      # checked before the reduction (the JAX step's grads_chk), as a
+      # device flag: the reduction scales .grad in place
+      grads_ok = _grads_ok(state, guard)
+      d_z, loss = _reduce_dense(state, d_z, loss, mesh)
+      with torch.no_grad():
+        streams = engine.sparse_delta_streams(layouts, d_z, residuals, rule,
+                                              state["step"])
+    commit, metrics = True, None
+    if guard:
+      # the guard sees the whole step: the accumulated gradients and every
+      # micro-batch's streams
+      oov = engine.oov_counts(cats)
+      with torch.no_grad():
+        ok, streams = guard_gate(loss, grads_ok, streams, oov_ok(oov))
+      metrics = guard_metrics(ok, oov)
     with torch.no_grad():
-      engine.apply_sparse(state["fused"], layouts, d_z, residuals, rule,
-                          state["step"], exact=exact)
-    state["step"] += 1
+      engine.apply_sparse_streams(state["fused"], layouts, streams, rule,
+                                  state["step"])
+    if guard:
+      commit = bool(ok)  # the step's one host read of the verdict
+    _apply_dense(state, mesh, con_fn, commit=commit)
+    # the counter only advances on COMMITTED steps: schedules and resume
+    # offsets see the same step sequence as a run that never met the
+    # poison batch
+    state["step"] += int(commit)
+    if guard:
+      return state, loss, metrics
     return state, loss
 
   return step
+
+
+def _grads_ok(state: Dict[str, Any], guard: bool):
+  """:func:`~.resilience.guards.all_finite` of the gradients the backward
+  left on the dense parameters and the dense-class tables (the JAX
+  step's ``grads_chk``; a device bool), or None without the guard."""
+  if not guard:
+    return None
+  from .resilience.guards import all_finite
+  return all_finite([t.grad for part in ("dense", "emb_dense")
+                     for t in state[part].values() if t.grad is not None])
 
 
 def make_sparse_eval_step(model: torch.nn.Module,
@@ -674,18 +901,25 @@ def make_sparse_eval_step(model: torch.nn.Module,
   preds``, this rank's predictions for its slice of the batch (with a
   ``mesh``, every rank calls it; the JAX step's batch-sharded output is
   these slices in rank order). Never writes the state (the JAX eval step
-  never donates it). ``with_metrics`` (the OOV counters) is not ported
-  yet."""
+  never donates it).
+
+  ``with_metrics=True`` returns ``(preds, metrics)`` with ``metrics =
+  {'oov': {class_name: int32 count}}``: the per-class out-of-vocabulary
+  occurrence counters the guarded train step surfaces, summed over the
+  ranks (the same on every rank). Under ``oov='error'`` such a batch is
+  then counted, not refused."""
   _check_mesh(plan, mesh)
-  if with_metrics or getattr(plan, "dedup_capacity", None) is not None:
+  if getattr(plan, "dedup_capacity", None) is not None:
     raise NotImplementedError(
-        "with_metrics=True (the OOV and dedup-overflow counters) is not "
-        "ported yet")
+        "plan.dedup_capacity caps the deduplicated exchange "
+        "(dedup_exchange=True), which is not ported yet (ROADMAP.md §1 "
+        "item 7)")
   if getattr(plan, "oov", "clip") == "allocate":
     raise ValueError("plan.oov='allocate' is not evaluable: allocation "
                      "mutates the id space; evaluate with oov='clip'")
   engine = DistributedLookup(plan, mesh=mesh)
   layouts = engine.fused_layouts(rule)
+  _, _, guard_metrics = _make_guard_helpers(plan, mesh)
 
   @torch.inference_mode()
   def local_eval(state, numerical, cats):
@@ -693,14 +927,19 @@ def make_sparse_eval_step(model: torch.nn.Module,
     b = numerical.shape[0]
     hotness = [ragged_hotness(c) for c in cats]
     hotness_of = lambda i: hotness[i]  # noqa: E731
-    ids_all = engine.route_ids(cats, hotness_of)
+    ids_all = engine.route_ids(cats, hotness_of, eager_oov=not with_metrics)
     counts = engine.mean_counts(cats)
     z_sparse, _ = engine.lookup_sparse_fused(state["fused"], layouts,
                                              ids_all, keep_aux=False)
     acts = engine.finish_forward(z_sparse, state["emb_dense"], ids_all, b,
                                  hotness_of, counts)
-    return functional_call(model, state["dense"], (numerical, cats),
-                           {"emb_acts": acts})
+    preds = functional_call(model, state["dense"], (numerical, cats),
+                            {"emb_acts": acts})
+    if not with_metrics:
+      return preds
+    oov = guard_metrics(torch.ones((), dtype=torch.bool),
+                        engine.oov_counts(cats))["oov"]
+    return preds, {"oov": oov}
 
   return local_eval
 

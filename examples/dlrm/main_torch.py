@@ -14,6 +14,7 @@ It reads the split-binary Criteo dataset (``--dataset criteo
 Usage:
   python examples/dlrm/main_torch.py --dataset dummy --steps 100 --batch_size 4096
   python examples/dlrm/main_torch.py --dataset dummy --sparse --checkpoint_dir /tmp/ckpt --checkpoint_every 1000
+  python examples/dlrm/main_torch.py --dataset dummy --sparse --micro_batches 4
   python examples/dlrm/main_torch.py --dataset criteo --dataset_path /data/criteo --sparse
   torchrun --nproc_per_node=4 examples/dlrm/main_torch.py --dataset dummy --sparse
 
@@ -31,8 +32,9 @@ With ``--checkpoint_dir`` an existing directory is restored first
 run takes ``--steps`` more steps, as in ``main.py``. A save lands every
 ``--checkpoint_every`` steps and at the end.
 
-Not ported yet, and refused by name: ``--micro_batches > 1`` (ROADMAP.md
-open items, item 6). ``main.py``'s ``--platform`` (a JAX backend) is
+``--micro_batches N`` runs the sparse step over N slices of each rank's
+batch with one apply per step (the dense path reads no such flag, as in
+``main.py``). ``main.py``'s ``--platform`` (a JAX backend) is
 ``--device`` here.
 """
 
@@ -111,7 +113,9 @@ def parse_args(argv=None):
                  help="fused sparse training path (packed tables, "
                       "row-sparse SGD; the bench.py path)")
   p.add_argument("--micro_batches", type=int, default=1,
-                 help="bounded-memory accumulation (not ported yet)")
+                 help="sparse path: route, gather and backward over N "
+                      "slices of each rank's batch, one apply per step "
+                      "(bounded-memory accumulation)")
   p.add_argument("--checkpoint_dir", default=None,
                  help="full train-state checkpoint dir (sparse path only); "
                       "auto-resumes when it exists")
@@ -127,13 +131,9 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-  """The flags of the paths this script does not run yet, each naming
-  its ROADMAP item, and a Criteo run without its data. (As in
-  ``main.py``, ``--checkpoint_dir`` is read by the sparse path only.)"""
-  if args.micro_batches != 1:
-    raise SystemExit(f"--micro_batches {args.micro_batches} (the "
-                     "micro-batch step) is not ported yet: ROADMAP.md open "
-                     "items, item 6")
+  """A Criteo run without its data. (As in ``main.py``,
+  ``--checkpoint_dir`` and ``--micro_batches`` are read by the sparse
+  path only.)"""
   if args.dataset == "criteo" and not args.dataset_path:
     raise SystemExit("--dataset criteo reads --dataset_path")
 
@@ -262,7 +262,8 @@ def main(argv=None):
                              mesh=mesh, device=dev)
         say(f"resumed from {args.checkpoint_dir} at step {state['step']}")
       sparse_step = make_sparse_train_step(model, plan, bce_loss, dense_opt,
-                                           rule, mesh=mesh)
+                                           rule, mesh=mesh,
+                                           micro_batches=args.micro_batches)
       carry = {"state": state}
 
       def step(numerical, cats, labels):

@@ -19,7 +19,8 @@
   state, which continues as the JAX run does.
 - **Refusals** with the JAX package's messages (wrong rule, plan,
   physical shape), the unported arguments naming their ROADMAP items,
-  a placement-only plan change naming item 11.
+  a placement-only plan change naming item 11. (The ``telemetry``
+  section is ported: ``tests/test_torch_resilience.py``.)
 - **Atomicity and backup**: a ``.tmp`` is never restorable, a crash in
   the middle of a save leaves the previous checkpoint, ``.old`` is the
   fallback when the manifest is gone.
@@ -418,8 +419,7 @@ def test_restore_refuses_with_the_jax_messages(tmp_path):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("store", "item 8"), ("vocab", "item 12"), ("telemetry", "item 11"),
-    ("stream", "item 12")])
+    ("store", "item 8"), ("vocab", "item 12"), ("stream", "item 12")])
 def test_unported_arguments_name_their_item(tmp_path, arg, item):
   path, _, tplan, _, trule, state = _saved(tmp_path)
   with pytest.raises(NotImplementedError, match=item):

@@ -20,7 +20,11 @@
   Criteo reader and the native loader's builder ``cc``) import with JAX
   blocked, and ``cc/data_loader.cc`` is the port's own copy; the native
   build writes only under ``build/`` (which ``.gitignore`` lists), and
-  ``checkpoint.restore`` defaults to the card.
+  ``checkpoint.restore`` defaults to the card;
+- the resilience modules (``guards``, ``retry``, ``durable``,
+  ``trainer``) import with JAX blocked, and so does
+  ``tools/torch_chaos_train.py``; ``durable.restore_latest`` and the chaos
+  tool default to the card.
 """
 
 import ast
@@ -108,7 +112,9 @@ def test_port_imports_with_jax_blocked():
               "layers.dist_model_parallel", "layers.embedding",
               "checkpoint", "resilience.faultinject", "serving.batcher",
               "telemetry.registry", "telemetry.trace", "telemetry.flight",
-              "telemetry.export", "utils", "utils.data", "cc"):
+              "telemetry.export", "utils", "utils.data", "cc",
+              "resilience.guards", "resilience.retry", "resilience.durable",
+              "resilience.trainer"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -124,7 +130,8 @@ def _imported_roots(path: Path):
 
 def test_no_source_imports_jax_or_the_jax_package():
   files = sorted(PORT.rglob("*.py")) + [
-      REPO / "chip_smoke.py", REPO / "examples" / "dlrm" / "main_torch.py"]
+      REPO / "chip_smoke.py", REPO / "examples" / "dlrm" / "main_torch.py",
+      REPO / "tools" / "torch_chaos_train.py"]
   assert len(files) > 15
   bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
          for f in files for root, line in _imported_roots(f)
@@ -301,3 +308,45 @@ def test_restore_defaults_to_cuda(tmp_path):
     checkpoint.restore(path, plan, rule, state)
   got = checkpoint.restore(path, plan, rule, state, device="cpu")
   assert all(t.device.type == "cpu" for t in got["fused"].values())
+
+
+def test_resilience_entry_points_default_to_cuda(tmp_path):
+  """``resilience.durable.restore_latest`` restores onto the card unless
+  asked; the chaos tool runs on the card unless given ``--device cpu``;
+  ``ResilientTrainer`` resumes onto its state's device."""
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  import functools
+
+  from distributed_embeddings_torch.resilience import durable
+  from distributed_embeddings_torch.resilience.trainer import (
+      ResilientTrainer,
+  )
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+  from distributed_embeddings_torch.models import bce_loss
+
+  vocab = [5, 300]
+  plan = dlrm_embedding_plan(vocab, 8, dense_row_threshold=16)
+  model = DLRM(vocab, embedding_dim=8, bottom_mlp=(8,), top_mlp=(4, 1),
+               num_numerical=2, tables=False, device="cpu")
+  rule = sgd_rule(0.1)
+  sgd = functools.partial(torch.optim.SGD, lr=0.1)
+  state = init_sparse_state_direct(plan, rule, model.state_dict(), sgd,
+                                   torch.Generator(), device="cpu")
+  root = str(tmp_path / "root")
+  durable.save_rotating(root, plan, rule, state)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    durable.restore_latest(root, plan, rule, state)
+  step = make_sparse_train_step(model, plan, bce_loss, sgd, rule, guard=True)
+  t = ResilientTrainer(step, state, plan, rule, root,
+                       telemetry=MetricsRegistry())
+  assert t.resumed_from and t.device.type == "cpu"
+  chaos = REPO / "tools" / "torch_chaos_train.py"
+  r = subprocess.run([sys.executable, str(chaos), "--steps", "2"], cwd=REPO,
+                     capture_output=True, text=True, timeout=120)
+  assert r.returncode != 0
+  assert "CUDA is not available" in r.stderr, r.stdout + r.stderr

@@ -329,10 +329,13 @@ def test_unported_options_raise():
     ttr.make_sparse_train_step(model, plan4, *args[2:])
   with pytest.raises(ValueError, match="needs this rank's mesh"):
     ttr.make_sparse_eval_step(model, plan4, tpt.sgd_rule(LR))
+  # micro_batches > 1 and guard=True are ported
+  # (tests/test_torch_micro_batch.py, tests/test_torch_guard.py); with
+  # exact=True each is refused, as in the JAX builder
   with pytest.raises(NotImplementedError, match="micro_batches"):
-    ttr.make_sparse_train_step(*args, micro_batches=2)
+    ttr.make_sparse_train_step(*args, micro_batches=2, exact=True)
   with pytest.raises(NotImplementedError, match="guard"):
-    ttr.make_sparse_train_step(*args, guard=True)
+    ttr.make_sparse_train_step(*args, guard=True, exact=True)
   # narrow multi-hot ids with optimizer state are ported (the masked
   # physical-row gather, tests/test_torch_train_zoo.py): the step runs
   rule = tpt.adagrad_rule(LR)

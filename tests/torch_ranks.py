@@ -561,3 +561,154 @@ def ckpt_job(mesh, spec):
   state, more = run(state, spec["batches"][n:])
   return {"at_ckpt": at_ckpt, "logical": logical, "losses": losses + more,
           "final": snap(state)}
+
+
+def mb_guard_job(mesh, spec):
+  """The micro-batched and the guarded sparse step at world N: per entry
+  of ``spec['runs']`` (``name``, ``overlap``, ``micro_batches``,
+  ``guard``, optionally ``oov``, ``nan_rank`` and ``oov_rank``) the port's
+  state from the JAX initial state (``spec['state']``, Adagrad on the
+  sparse classes, SGD on the dense tensors), one step per batch of
+  ``spec['batches']``. ``nan_rank`` poisons that rank's slice of the
+  batch at the steps ``nan_steps`` only; ``oov_rank`` gives one of that
+  rank's ids at the steps ``oov_steps`` a value past its vocabulary. Each
+  rank returns, per run, the losses, the metrics (guarded), its own
+  arrays before and after every step that the guard skipped (for the
+  bit-equality check), and the global final state unpacked to the simple
+  layout; with ``eval`` (a global ``(numerical, cats)``) also the eval
+  step's OOV metrics and global predictions on the final state."""
+  import functools
+
+  import torch
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops import packed_table as tpt
+  from distributed_embeddings_torch.parallel import wire
+  from distributed_embeddings_torch.resilience import guards
+
+  def arrays(state):
+    out = {f"fused/{k}": v.clone() for k, v in state["fused"].items()}
+    for part in ("dense", "emb_dense"):
+      out.update({f"{part}/{k}": v.detach().clone()
+                  for k, v in state[part].items()})
+    out["step"] = state["step"]
+    return out
+
+  def same(a, b):
+    return sorted(k for k in a if not (
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k]))
+
+  out = {}
+  for run in spec["runs"]:
+    plan = _train_plan(spec, run["overlap"],
+                       1 if run["overlap"] == "none" else 2)
+    plan.oov = run.get("oov", "clip")
+    model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
+                 top_mlp=spec["top"], num_numerical=spec["num"],
+                 tables=False, device="cpu")
+    rule = getattr(tpt, f"{spec['rule']}_rule")(spec["lr"])
+    sgd = functools.partial(torch.optim.SGD, lr=spec["lr"])
+    state = train_state_from_flax(spec["state"], mesh=mesh)
+    step = ttr.make_sparse_train_step(
+        model, plan, bce_loss, sgd, rule, mesh=mesh,
+        micro_batches=run["micro_batches"], guard=run["guard"])
+    losses, metrics, skipped, raised = [], [], [], []
+    for i, (numerical, cats, labels) in enumerate(spec["batches"]):
+      num_d, cats_d, lab_d = ttr.shard_batch(
+          (numerical, list(cats), labels), mesh, device="cpu")
+      if run.get("nan_rank") == mesh.rank and i in run.get("nan_steps", ()):
+        num_d = torch.full_like(num_d, float("nan"))
+      if run.get("oov_rank") == mesh.rank and i in run.get("oov_steps", ()):
+        cats_d[0] = cats_d[0].clone()
+        cats_d[0][0] = spec["vocab"][0] + 5
+      before = arrays(state)
+      res = step(state, num_d, cats_d, lab_d)
+      state, loss = res[0], res[1]
+      losses.append(float(loss))
+      if run["guard"]:
+        m = res[2]
+        metrics.append({"bad_step": int(m["bad_step"]),
+                        "oov": {k: int(v) for k, v in m["oov"].items()}})
+        try:
+          guards.check_oov(plan, m["oov"])
+        except ValueError as e:
+          raised.append((i, str(e)))
+        if metrics[-1]["bad_step"]:
+          skipped.append((i, same(arrays(state), before)))
+    if run.get("eval") is not None:
+      ev = ttr.make_sparse_eval_step(model, plan, rule, mesh=mesh,
+                                     with_metrics=True)
+      num_d, cats_d = ttr.shard_batch(run["eval"], mesh, device="cpu")
+      preds, m = ev(state, num_d, list(cats_d))
+      evaluated = {"oov": {k: int(v) for k, v in m["oov"].items()},
+                   "preds": wire.gather_blocks(preds, mesh).numpy()}
+    params, aux = ttr.unpack_sparse_state(plan, rule, state,
+                                          include_aux=True, mesh=mesh)
+    out[run["name"]] = {
+        "eval": evaluated if run.get("eval") is not None else None,
+        "losses": losses, "metrics": metrics, "skipped": skipped,
+        "raised": raised, "step": state["step"],
+        "unpacked": ({k: v.numpy() for k, v in params["embeddings"].items()},
+                     {k: [a.numpy() for a in v] for k, v in aux.items()}),
+        "dense": {k: v.detach().numpy() for k, v in state["dense"].items()}}
+  return out
+
+
+def trainer_job(mesh, spec):
+  """``ResilientTrainer`` at world N: every rank builds a trainer over the
+  guarded step with its mesh (the port's state from the JAX initial
+  state ``spec['state']``), runs the global host batches
+  ``spec['stream'][:spec['split']]`` with a snapshot every
+  ``spec['snapshot_every']`` committed steps into ``spec['root']``; then
+  a fresh trainer resumes the root and runs the rest of the stream from
+  its ``consumed`` position. Each rank returns the losses, the resumed
+  trainer's summary and the global final state unpacked."""
+  import functools
+  import os
+
+  import torch
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops import packed_table as tpt
+  from distributed_embeddings_torch.resilience.trainer import (
+      ResilientTrainer,
+  )
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+
+  plan = _train_plan(spec, spec["overlap"],
+                     1 if spec["overlap"] == "none" else 2)
+  model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
+               top_mlp=spec["top"], num_numerical=spec["num"],
+               tables=False, device="cpu")
+  rule = getattr(tpt, f"{spec['rule']}_rule")(spec["lr"])
+  sgd = functools.partial(torch.optim.SGD, lr=spec["lr"])
+  step = ttr.make_sparse_train_step(model, plan, bce_loss, sgd, rule,
+                                    mesh=mesh, guard=True)
+
+  def trainer():
+    state = ttr._with_optimizers(
+        train_state_from_flax(spec["state"], mesh=mesh), sgd, None)
+    return ResilientTrainer(step, state, plan, rule, spec["root"],
+                            mesh=mesh, snapshot_every=spec["snapshot_every"],
+                            telemetry=MetricsRegistry())
+
+  first = trainer()
+  losses = first.run(spec["stream"][:spec["split"]])
+  second = trainer()
+  resumed_at = second.consumed
+  losses = losses[:resumed_at] + second.run(spec["stream"][resumed_at:])
+  summary = second.metrics_summary()
+  summary["resumed_from"] = os.path.basename(summary["resumed_from"] or "")
+  params, aux = ttr.unpack_sparse_state(plan, rule, second.state,
+                                        include_aux=True, mesh=mesh)
+  return {"losses": losses, "summary": summary, "resumed_at": resumed_at,
+          "unpacked": ({k: v.numpy()
+                        for k, v in params["embeddings"].items()},
+                       {k: [a.numpy() for a in v] for k, v in aux.items()}),
+          "dense": {k: v.detach().numpy()
+                    for k, v in second.state["dense"].items()}}
