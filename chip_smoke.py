@@ -11,9 +11,11 @@ world-1 sparse train step of ``bench.py``, the dense-autodiff train step
 of the README's Quick start (world 1 and world 4) and its "Train
 end-to-end" command (``examples/dlrm/main_torch.py``, the port's twin of
 ``examples/dlrm/main.py``), the synthetic zoo's Tiny train step of
-``tools/bench_synthetic.py tiny 65536``, and the world-4 hybrid-parallel
+``tools/bench_synthetic.py tiny 65536``, the world-4 hybrid-parallel
 train step of ``examples/dlrm/main.py --sparse`` under
-``overlap='fused'``. One JSON line per phase:
+``overlap='fused'``, and the README's wire compression on it
+(``dedup_exchange``, ``dedup_capacity``, the bf16 and fp8 wires). One
+JSON line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
    must have compute capability (9, 0);
@@ -63,7 +65,15 @@ train step of ``examples/dlrm/main.py --sparse`` under
    are medians of
    CUDA-event timings of single calls, kernel, plain and library in
    turns, with the 50 MB L2 flushed and the card held busy while the
-   host queues each call, after two seconds of warm-up;
+   host queues each call, after two seconds of warm-up. Then the wire
+   compression's plain PyTorch pieces: ``fp8_codec``, the fp8 block
+   codec on the card bit-equal to the CPU's (encoded bytes and decoded
+   values of blocks with an all-zero block and one whose amax maps onto
+   448, the e4m3 cast of the edge values), the encode and decode of one
+   four-card world-4 payload timed; ``unique_map``, ``unique_ids_map``
+   (safe and capped capacity) and ``expand_unique_rows`` at the one-card
+   world-4 cell's block under ``torch.cuda.set_sync_debug_mode("error")``
+   (a host sync fails the phase), bit-equal to the CPU's, timed;
 4. ``golden``: the JAX package's serve golden
    (``tests/data/torch_serve_golden.npz``) replayed through the port's
    ``ServeEngine``: activations bit-equal, predictions within
@@ -227,14 +237,27 @@ train step of ``examples/dlrm/main.py --sparse`` under
    ``ServeEngine(mesh=)`` for 3 global requests of 4096 in lockstep:
    every rank's predictions equal, bit-equal to the in-memory engine's
    and to the world-4 ``make_sparse_eval_step``'s, K2-fwd once per rank
-   and request.
+   and request. Before the guarded run, ``world4_wire`` (slice 14): from
+   one seeded state each, the raw fused step and ``dedup_exchange=True``
+   under ``'none'``, ``'pipelined'`` and ``'fused'`` (their activations
+   bit-equal to the raw exchange's, 3 steps within 1e-5 of each cell's
+   magnitude of the raw steps), bf16 and fp8 with dedup under ``'fused'``
+   (activations within the JAX tests' bounds of f32, finite steps), a
+   power-law batch (``models/synthetic.py: power_law_ids``, alpha 1.05)
+   raw and dedup, a guarded step with ``dedup_capacity=4096`` (every
+   rank's ``dedup_overflow`` above zero and equal to a numpy count) and
+   one with a generous cap (0), dedup serving bit-equal to raw serving;
+   each run's launches as predicted (K4 per round chunk of the unique
+   capacity); per variant the step ms, each class's unique share and the
+   float bytes a step sends (raw, dedup, bf16, fp8).
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
 the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
 train, dense, train_ckpt, dlrm_main_sparse, train_mb, train_guard,
 resilient, dlrm_main_mb, zoo, train_zoo_mb and world-4 (sparse train,
-guard and micro-batch, checkpoint, dense train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
+wire compression, guard and micro-batch, checkpoint, dense train and
+serve) phases alone: each sets all nine kernels' counters to 0 just before each
 run of its path, reads all nine just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
@@ -405,6 +428,16 @@ K4_TRACE = {"gather_rows": ("gather_rows_kernel",)}
 # K4's edge blocks (ids), beside the world-4 block of 8,192
 K4_EDGE_N = (1, 31, 8193)
 K4_SMALL_ROWS = 65536  # the TLB-reach yardstick's buffer: 32 MB of rows
+# the wire compression (README "wire compression"): the world-4 cell under
+# dedup_exchange / dedup_capacity / the bf16 and fp8 wires
+W4_WIRE_STEPS = 3
+W4_WIRE_CAP = 4096  # a dedup_capacity below the cell's unique counts
+W4_WIRE_GENEROUS = 1 << 30  # one above every block's safe bound
+W4_WIRE_ALPHA = 1.05  # the power-law batch (models/synthetic.py)
+# the JAX tests' bounds of a narrow wire's activations against f32, per
+# element: hotness x this x the output's largest magnitude
+W4_WIRE_BOUND = {"bf16": 2.0 ** -8, "fp8": 2.0 ** -3}
+FP8_BLOCKS = 16  # the fp8 codec's CPU-vs-card blocks
 
 
 class SmokeFailure(Exception):
@@ -1376,11 +1409,14 @@ def phase_train(torch, smi: str, compute: str) -> dict:
   return totals
 
 
-def world4_plan(backend: str, overlap: str = "fused", scale=None):
+def world4_plan(backend: str, overlap: str = "fused", scale=None,
+                **wire_kw):
   """The world-4 plan of ``examples/dlrm/main.py --sparse``: 26 Criteo-1TB
   tables of width 128, ``memory_balanced``, ``dense_row_threshold=4096``,
   row-sliced as ``backend``'s configuration says, under ``overlap``, the
-  vocabulary cut by ``scale`` (default: ``backend``'s)."""
+  vocabulary cut by ``scale`` (default: ``backend``'s); ``wire_kw`` sets
+  the wire compression (``wire_dtype``, ``dedup_exchange``,
+  ``dedup_capacity``)."""
   from distributed_embeddings_torch.layers.embedding import TableConfig
   from distributed_embeddings_torch.layers.planner import (
       DistEmbeddingStrategy,
@@ -1391,20 +1427,41 @@ def world4_plan(backend: str, overlap: str = "fused", scale=None):
       [TableConfig(input_dim=v, output_dim=D) for v in vocab], WORLD,
       "memory_balanced", dense_row_threshold=4096,
       row_slice_threshold=W4_ROW_SLICE[backend], batch_hint=W4_BATCH,
-      overlap=overlap, exchange_chunks=1 if overlap == "none" else W4_CHUNKS)
+      overlap=overlap, exchange_chunks=1 if overlap == "none" else W4_CHUNKS,
+      **wire_kw)
   return vocab, plan
 
 
+def w4_block_rows(plan, key, bucket) -> int:
+  """The rows of one (round) block a rank gathers for a sparse bucket of
+  the world-4 plan: ``B_local`` routed ids, or under ``dedup_exchange``
+  the unique capacity ``K = min(n_b * B_local, sentinel + 1)`` (the
+  plan's ``dedup_capacity`` below it); every input is one-hot."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      padded_rows,
+  )
+  b = W4_BATCH // WORLD
+  if not plan.dedup_exchange:
+    return b
+  k = min(bucket.n_b * b, padded_rows(plan, key) + 1)
+  cap = plan.dedup_capacity
+  return k if cap is None else min(k, cap)
+
+
 def k4_launches_per_step(plan) -> int:
-  """K4 launches the fused schedule makes per rank and step: one per
-  (sparse bucket, round, chunk); every input is one-hot."""
+  """K4 launches the fused schedule makes per rank and forward: one per
+  (sparse bucket, round, chunk), the chunks cut from the block's rows
+  (:func:`w4_block_rows`: the unique capacity under ``dedup_exchange``);
+  0 under the other schedules, which gather without K4."""
   from distributed_embeddings_torch.parallel.lookup_engine import (
       class_buckets,
   )
-  buckets = sum(len(class_buckets(plan, key, lambda i: 1))
-                for key in plan.class_keys
-                if plan.classes[key].kind == "sparse")
-  return buckets * WORLD * min(W4_CHUNKS, W4_BATCH // WORLD)
+  if plan.overlap != "fused":
+    return 0
+  return sum(WORLD * min(W4_CHUNKS, w4_block_rows(plan, key, bucket))
+             for key in plan.class_keys
+             if plan.classes[key].kind == "sparse"
+             for bucket in class_buckets(plan, key, lambda i: 1))
 
 
 def k4_empty_kernel(torch, n: int, stride: int):
@@ -1814,17 +1871,342 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
   return out
 
 
-def w4_batch(torch, vocab, mesh):
-  """This rank's slice of the world-4 phase's global batch: ``W4_BATCH``
-  samples of uniform one-hot ids from seed ``SEED``, on its device."""
-  from distributed_embeddings_torch.training import shard_batch
+def w4_host_batch(torch, vocab, alpha: float = 0.0):
+  """The world-4 phase's global batch on the host: ``W4_BATCH`` samples
+  of one-hot ids, uniform from seed ``SEED`` (``alpha=0``) or power-law
+  with exponent ``alpha`` (``models/synthetic.py: power_law_ids``, seed
+  ``SEED + 7``)."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models.synthetic import power_law_ids
 
   gen = torch.Generator().manual_seed(SEED)
   numerical = torch.randn((W4_BATCH, 13), generator=gen)
   cats = [torch.randint(0, v, (W4_BATCH,), generator=gen, dtype=torch.int32)
           for v in vocab]
   labels = torch.randint(0, 2, (W4_BATCH,), generator=gen).float()
-  return shard_batch((numerical, cats, labels), mesh)
+  if alpha:
+    rng = np.random.default_rng(SEED + 7)
+    cats = [torch.from_numpy(power_law_ids(rng, W4_BATCH, 1, v, alpha)[:, 0]
+                             .astype(np.int32)) for v in vocab]
+  return numerical, cats, labels
+
+
+def w4_batch(torch, vocab, mesh, alpha: float = 0.0):
+  """This rank's slice of :func:`w4_host_batch`, on its device."""
+  from distributed_embeddings_torch.training import shard_batch
+
+  return shard_batch(w4_host_batch(torch, vocab, alpha), mesh)
+
+
+def w4_overflow_numpy(plan, cats, cap: int) -> dict:
+  """Per class of the world-4 plan, the dedup-capacity overflow of one
+  global batch of one-hot ids (``cats``, host tensors), counted in numpy
+  from the plan's slots: each source rank routes its slice to every
+  destination, one block per (sparse bucket, destination) of ``n_b``
+  slots (a padded slot and an id outside a row slice's window are the
+  sentinel), and a block with more distinct values than ``cap`` (below
+  its safe bound) overflows by the excess. Summed over the ranks."""
+  import numpy as np
+
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+      class_param_name,
+      padded_rows,
+  )
+  b = W4_BATCH // WORLD
+  host = [np.asarray(c) for c in cats]
+  out = {class_param_name(*k): 0 for k in plan.class_keys}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    if cp.kind != "sparse":
+      continue
+    sentinel = padded_rows(plan, key)
+    for bucket in class_buckets(plan, key, lambda i: 1):
+      if cap >= min(bucket.n_b * b, sentinel + 1):
+        continue
+      for src in range(WORLD):
+        for dst in range(WORLD):
+          idxs = bucket.slot_idx_per_rank[dst]
+          vals = [np.full(1, sentinel)] if len(idxs) < bucket.n_b else []
+          for i in idxs:
+            slot = cp.slots_per_rank[dst][i]
+            ids = host[slot.input_id][src * b:(src + 1) * b].astype(np.int64)
+            sh = slot.shard
+            if sh.row_sliced:
+              vocab = plan.global_configs[sh.table_id].input_dim
+              cl = np.clip(ids, 0, vocab - 1)
+              inw = (cl >= sh.row_start) & (cl < sh.row_start + sh.input_dim)
+              vals.append(np.where(inw, cl - sh.row_start + slot.row_offset,
+                                   sentinel))
+            else:
+              vals.append(np.clip(ids, 0, sh.input_dim - 1) + slot.row_offset)
+          distinct = np.unique(np.concatenate(vals)).size
+          out[class_param_name(*key)] += max(0, distinct - cap)
+  return out
+
+
+def w4_wire_bytes(plan, wire: str) -> int:
+  """The sparse classes' float payload one rank's step sends over the
+  wire (forward activations and backward cotangents, the self block
+  excluded), from the plan's static shapes: ``n_b * B_local`` rows a
+  destination, or under ``dedup_exchange`` the unique capacity ``K``
+  (:func:`w4_block_rows`, sized for the worst case); 4, 2 or 1 bytes a
+  value for the f32, bf16 and fp8 wires, the fp8 blocks carrying 4 scale
+  bytes per (destination, chunk)."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+  )
+  total = 0
+  for key in plan.class_keys:
+    if plan.classes[key].kind != "sparse":
+      continue
+    for bucket in class_buckets(plan, key, lambda i: 1):
+      rows = w4_block_rows(plan, key, bucket)
+      if not plan.dedup_exchange:
+        rows *= bucket.n_b
+      values = rows * D
+      per_dest = {"f32": 4 * values, "bf16": 2 * values,
+                  "fp8": values + 4 * min(W4_CHUNKS, rows)}[wire]
+      total += 2 * (WORLD - 1) * per_dest
+  return total
+
+
+def w4_unique_share(torch, plan, mesh, cats) -> dict:
+  """Per sparse class, this rank's distinct routed ids over its routed
+  occurrences (the sentinel excluded from both), read from the
+  :class:`DedupRouted` blocks of one ``route_ids``."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DedupRouted,
+      DistributedLookup,
+      class_param_name,
+      padded_rows,
+  )
+  uniq, occ = {}, {}
+  for bk, r in DistributedLookup(plan, mesh=mesh).route_ids(cats).items():
+    if not isinstance(r, DedupRouted):
+      continue
+    name = class_param_name(*bk.class_key)
+    sentinel = padded_rows(plan, bk.class_key)
+    real = r.uniq_local < sentinel
+    uniq[name] = uniq.get(name, 0) + int(real.sum())
+    occ[name] = occ.get(name, 0) + int(torch.gather(
+        real, 1, r.inv.reshape(WORLD, -1).long()).sum())
+  return {n: uniq[n] / max(1, occ[n]) for n in uniq}
+
+
+def _w4_acts(torch, plan, mesh, state, batch):
+  """The activations the eval step feeds the model (every input's,
+  concatenated): route, fused gather (K4 per round chunk under
+  ``'fused'``), dense classes, exchange, assembly."""
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  numerical, cats, _ = batch
+  engine = DistributedLookup(plan, mesh=mesh)
+  with torch.inference_mode():
+    ids_all = engine.route_ids(cats, lambda i: 1)
+    z, _ = engine.lookup_sparse_fused(
+        state["fused"], engine.fused_layouts(sgd_rule(TRAIN_LR)), ids_all,
+        keep_aux=False)
+    acts = engine.finish_forward(z, state["emb_dense"], ids_all,
+                                 numerical.shape[0], lambda i: 1,
+                                 engine.mean_counts(cats))
+  return acts
+
+
+def _w4_wire(torch, mesh, backend: str, batch) -> dict:
+  """``world4_wire`` in this rank: the README's wire compression on the
+  world-4 cell (f32 compute, SGD ``TRAIN_LR``). Every state is drawn
+  from one seed.
+
+  - ``dedup_exchange=True`` under ``'none'``, ``'pipelined'`` and
+    ``'fused'``: the activations bit-equal to the raw fused exchange's,
+    then ``W4_WIRE_STEPS`` steps within the f32 class (1e-5 of each
+    cell's magnitude) of the raw fused steps;
+  - ``bf16`` and ``fp8`` with dedup under ``'fused'``: the activations
+    within the JAX tests' bounds of f32 (``W4_WIRE_BOUND``), finite
+    steps;
+  - the power-law batch: raw and dedup fused activations bit-equal,
+    steps of each;
+  - a guarded dedup step with ``dedup_capacity=W4_WIRE_CAP``: the
+    ``dedup_overflow`` counts above zero and equal to numpy's
+    (:func:`w4_overflow_numpy`) on every rank; ``W4_WIRE_GENEROUS``
+    counts 0;
+  - serving (``FrozenTables`` f32, ``SERVE_BATCH``) under the dedup plan
+    bit-equal to the raw plan's.
+
+  Every run's launches are checked: K4 once per (bucket, round, chunk)
+  of the fused forward (chunks of the unique capacity under dedup), K1
+  once per sparse class, K2-fwd and K2-bwd once a step."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.serving import ServeEngine, freeze
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  dev = mesh.device
+  vocab, raw_plan = world4_plan(backend)
+  model = DLRM(vocab, D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  totals = expect()
+  host = w4_host_batch(torch, vocab)
+  power = w4_batch(torch, vocab, mesh, W4_WIRE_ALPHA)
+
+  def fresh(plan):
+    torch.cuda.empty_cache()
+    return init_sparse_state_direct(
+        plan, rule, model.state_dict(), sgd_factory(torch),
+        torch.Generator(device=dev).manual_seed(SEED + 41 + mesh.rank),
+        mesh=mesh)
+
+  def counted(fn, want, what):
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    check(got == want, f"world 4 wire {what} rank {mesh.rank}: launches "
+          f"{got}, expected {want}")
+    add_counts(totals, got)
+    return out
+
+  def acts_of(plan, state, b, what):
+    acts = counted(lambda: _w4_acts(torch, plan, mesh, state, b),
+                   expect(gather_rows=k4_launches_per_step(plan)), what)
+    return torch.cat(acts, dim=1)
+
+  def steps(plan, state, b, n, what, **kw):
+    step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  rule, mesh=mesh, **kw)
+    want = expect(gather_rows=k4_launches_per_step(plan),
+                  apply_rows=len(state["fused"]), interact_fwd=1,
+                  interact_bwd=1)
+    losses, ms, metrics = [], [], []
+    for i in range(n):
+      torch.cuda.synchronize(dev)
+      t0 = time.perf_counter()
+      res = counted(lambda: step(state, *b), want, f"{what} step {i}")
+      torch.cuda.synchronize(dev)
+      ms.append((time.perf_counter() - t0) * 1e3)
+      losses.append(float(res[1]))
+      check(np.isfinite(losses[-1]), f"world 4 wire {what}: loss "
+            f"{losses[-1]}")
+      if kw.get("guard"):
+        metrics.append({k: int(v) for k, v in
+                        res[2]["dedup_overflow"].items()})
+    # the first step of a new step function pays first-call costs
+    return {"losses": losses, "step_ms": ms,
+            "step_ms_median": statistics.median(ms[1:] or ms)}, metrics
+
+  out = {"variants": {}}
+  # the raw fused exchange: the reference of every f32 variant
+  state = fresh(raw_plan)
+  ref_acts = acts_of(raw_plan, state, batch, "raw acts")
+  out["variants"]["raw_fused"], _ = steps(raw_plan, state, batch,
+                                          W4_WIRE_STEPS, "raw")
+  ref = state_arrays(state)
+  for overlap in ("none", "pipelined", "fused"):
+    name = f"dedup_{overlap}"
+    _, plan = world4_plan(backend, overlap, dedup_exchange=True)
+    state = fresh(plan)
+    acts = acts_of(plan, state, batch, f"{name} acts")
+    check(torch.equal(acts, ref_acts), f"world 4 wire {name} rank "
+          f"{mesh.rank}: the activations differ from the raw exchange's")
+    run, _ = steps(plan, state, batch, W4_WIRE_STEPS, name)
+    close = states_close(torch, state_arrays(state), ref, 1e-5)
+    ref_losses = out["variants"]["raw_fused"]["losses"]
+    check(close["within"] and all(
+        abs(a - b) <= 1e-5 * max(1.0, abs(b))
+        for a, b in zip(run["losses"], ref_losses)),
+          f"world 4 wire {name} rank {mesh.rank}: {W4_WIRE_STEPS} steps "
+          f"left the raw steps by {close['max_abs_err']}")
+    run.update(acts_bit_equal=True, max_abs_err=close["max_abs_err"],
+               cells_differing=close["cells_differing"])
+    out["variants"][name] = run
+    del state
+  del ref
+  for wire in ("bf16", "fp8"):
+    name = f"dedup_fused_{wire}"
+    _, plan = world4_plan(backend, dedup_exchange=True, wire_dtype=wire)
+    state = fresh(plan)
+    acts = acts_of(plan, state, batch, f"{name} acts")
+    err = (acts - ref_acts).abs()
+    worst = 0.0
+    for t in range(len(vocab)):
+      cols = slice(t * D, (t + 1) * D)
+      lim = W4_WIRE_BOUND[wire] * float(ref_acts[:, cols].abs().max()) + 1e-6
+      worst = max(worst, float(err[:, cols].max()) / lim)
+    check(worst <= 1.0, f"world 4 wire {name} rank {mesh.rank}: "
+          f"activations at {worst:.3f} of the bound")
+    run, _ = steps(plan, state, batch, W4_WIRE_STEPS, name)
+    run.update(acts_max_abs_err=float(err.max()), acts_bound_share=worst)
+    out["variants"][name] = run
+    del state
+  # the power-law batch: raw against dedup
+  power_acts = None
+  for name, plan in (("power_raw_fused", raw_plan),
+                     ("power_dedup_fused",
+                      world4_plan(backend, dedup_exchange=True)[1])):
+    state = fresh(plan)
+    acts = acts_of(plan, state, power, f"{name} acts")
+    if power_acts is None:
+      power_acts = acts
+    check(torch.equal(acts, power_acts), f"world 4 wire {name} rank "
+          f"{mesh.rank}: the power-law activations differ")
+    out["variants"][name], _ = steps(plan, state, power, W4_WIRE_STEPS,
+                                     name)
+    del state
+  _, dedup_plan = world4_plan(backend, dedup_exchange=True)
+  out["unique_share"] = {
+      "uniform": w4_unique_share(torch, dedup_plan, mesh, batch[1]),
+      "power_law": w4_unique_share(torch, dedup_plan, mesh, power[1])}
+  del power_acts, ref_acts
+  # dedup_capacity and its counter
+  out["overflow"] = {}
+  for name, cap in (("capped", W4_WIRE_CAP), ("generous", W4_WIRE_GENEROUS)):
+    _, plan = world4_plan(backend, dedup_exchange=True, dedup_capacity=cap)
+    state = fresh(plan)
+    _, metrics = steps(plan, state, batch, 1, name, guard=True)
+    want = w4_overflow_numpy(plan, host[1], cap)
+    check(metrics[0] == want, f"world 4 wire {name} rank {mesh.rank}: "
+          f"dedup_overflow {metrics[0]}, numpy counts {want}")
+    check((sum(want.values()) > 0) == (name == "capped"),
+          f"world 4 wire {name}: overflow {sum(want.values())}")
+    out["overflow"][name] = {"cap": cap, "dedup_overflow": metrics[0]}
+    del state
+  # serving: the dedup plan's answers bit-equal to the raw plan's
+  rng = np.random.default_rng(SEED + 5)
+  request = (rng.standard_normal((SERVE_BATCH, 13)).astype(np.float32),
+             [rng.integers(0, v, SERVE_BATCH).astype(np.int32)
+              for v in vocab])
+  state = fresh(raw_plan)
+  frozen = freeze(raw_plan, rule, state, "f32", mesh=mesh)
+  del state
+  preds = {}
+  for name, plan in (("raw", raw_plan), ("dedup", dedup_plan)):
+    eng = ServeEngine(model, plan, frozen, mesh=mesh)
+    preds[name] = counted(lambda: eng.predict(*request),
+                          expect(interact_fwd=1), f"serve {name}")
+  check(np.array_equal(preds["raw"].view(np.int32),
+                       preds["dedup"].view(np.int32)),
+        f"world 4 wire serve rank {mesh.rank}: dedup serving differs")
+  del frozen, eng
+  torch.cuda.empty_cache()
+  out["serve_bit_equal"] = True
+  out["wire_bytes"] = {
+      "raw": w4_wire_bytes(raw_plan, "f32"),
+      "dedup": w4_wire_bytes(dedup_plan, "f32"),
+      "dedup_bf16": w4_wire_bytes(dedup_plan, "bf16"),
+      "dedup_fp8": w4_wire_bytes(dedup_plan, "fp8")}
+  out["k4_per_forward"] = {"raw": k4_launches_per_step(raw_plan),
+                           "dedup": k4_launches_per_step(dedup_plan)}
+  out["launches"] = totals
+  return out
 
 
 def _w4_dense(torch, mesh, backend: str, batch) -> dict:
@@ -2090,6 +2472,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       out["runs"][compute] = run
       del state, buf, step, touch
       torch.cuda.empty_cache()
+    out["wire"] = _w4_wire(torch, mesh, backend, batch)
     out["guard_mb"] = _w4_guard_mb(torch, mesh, backend, batch)
     out["ckpt"] = _w4_ckpt(torch, mesh, backend, outdir)
     out["dense"] = _w4_dense(torch, mesh, backend, batch)
@@ -2160,6 +2543,7 @@ def phase_world4(torch, smi: str) -> dict:
     emit({"phase": "train_world4_trace", "compute": compute,
           "backend": backend, "rank": 0, "card": smi,
           **runs[0]["trace"]})
+  wire_totals = emit_wire_world4(backend, smi, [r["wire"] for r in ranks])
   guard, mb = emit_guard_mb_world4(backend, smi,
                                    [r["guard_mb"] for r in ranks])
   ckpt_totals = emit_ckpt_world4(backend, smi, [r["ckpt"] for r in ranks])
@@ -2169,7 +2553,39 @@ def phase_world4(torch, smi: str) -> dict:
   emit({"phase": "world4", "wall_s": wall_s})
   return {"train_world4": totals, "world4_ckpt": ckpt_totals,
           "train_dense_world4": dense_totals, "serve_world4": serve_totals,
-          "train_world4_guard": guard, "train_world4_mb": mb}
+          "train_world4_guard": guard, "train_world4_mb": mb,
+          "world4_wire": wire_totals}
+
+
+def emit_wire_world4(backend: str, smi: str, res: list) -> dict:
+  """The ``world4_wire`` line from the ranks' :func:`_w4_wire` results;
+  returns each kernel's launches summed over the ranks."""
+  totals = expect()
+  for r in res:
+    add_counts(totals, r.pop("launches"))
+  check(all(r["overflow"] == res[0]["overflow"] for r in res),
+        "world 4 wire: the ranks' dedup_overflow counts differ")
+  variants = {}
+  for name in res[0]["variants"]:
+    runs = [r["variants"][name] for r in res]
+    check(all(v["losses"] == runs[0]["losses"] for v in runs),
+          f"world 4 wire {name}: the ranks' losses differ")
+    variants[name] = {**{k: v for k, v in runs[0].items()
+                         if k != "step_ms_median"},
+                      "step_ms_median": max(v["step_ms_median"]
+                                            for v in runs)}
+  emit({"phase": "world4_wire", "backend": backend, "card": smi,
+        "mode": ("four cards, one rank each" if backend == "nccl" else
+                 "one card shared by the four ranks"),
+        "vocab_scale": f"1/{W4_VOCAB_SCALE[backend]}",
+        "global_batch": W4_BATCH, "exchange_chunks": W4_CHUNKS,
+        "variants": variants,
+        "unique_share_by_rank": [r["unique_share"] for r in res],
+        "dedup_overflow": res[0]["overflow"],
+        "serve_bit_equal": True, "wire_bytes_per_rank_step":
+            res[0]["wire_bytes"],
+        "k4_per_forward": res[0]["k4_per_forward"], "launches": totals})
+  return totals
 
 
 def emit_guard_mb_world4(backend: str, smi: str, res: list) -> tuple:
@@ -4141,6 +4557,143 @@ def ptxas_report(log: str) -> list:
   return funcs
 
 
+def fp8_blocks(torch):
+  """The fp8 codec's check blocks (host f32, 4,099 values each):
+  magnitudes spread over 2^+-30, an all-zero block, a block whose amax
+  maps exactly onto 448, one whose values fall in e4m3's subnormals once
+  scaled, and the cast's edge values (448, the midpoints about it, 464,
+  past it, the subnormal midpoints, 0, inf and NaN of both signs)."""
+  gen = torch.Generator().manual_seed(SEED + 31)
+  x = torch.randn((FP8_BLOCKS, 4099), generator=gen) * torch.exp2(
+      torch.empty((FP8_BLOCKS, 1)).uniform_(-30, 30, generator=gen))
+  x[1] = 0.0
+  x[2] = torch.empty(4099).uniform_(-448, 448, generator=gen)
+  x[2, :2] = torch.tensor([448.0, -448.0])
+  x[3] = torch.randn(4099, generator=gen) * 2.0 ** -12
+  x[3, 0] = 1.0
+  edges = torch.tensor([448.0, -448.0, 440.0, 456.0, 463.99, 464.0, -464.0,
+                        464.01, 480.0, 1e6, float("inf"), float("-inf"),
+                        float("nan"), 2.0 ** -9, 2.0 ** -10, 1.5 * 2.0 ** -9,
+                        2.5 * 2.0 ** -9, 0.0, -0.0, 1.0625, 1.1875])
+  return x, edges
+
+
+def phase_fp8_codec(torch, flush) -> None:
+  """``fp8_codec``: the wire's fp8 block codec (``parallel/wire.py``,
+  plain PyTorch operations) on the card bit-equal to the CPU's: the
+  encoded bytes of :func:`fp8_blocks`, their decode, the e4m3 cast of
+  the edge values; then the encode and decode of one world-4 payload
+  (the four-card cell's largest sparse bucket: ``[4, n_b * 16,384 *
+  128]`` f32) timed beside their bound (5 bytes a value moved)."""
+  from distributed_embeddings_torch.parallel import wire
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+  )
+  x, edges = fp8_blocks(torch)
+  want = wire._fp8_encode(x)
+  got = wire._fp8_encode(x.cuda()).cpu()
+  check(torch.equal(got, want), "fp8 encode: the card's bytes differ from "
+        f"the CPU's in {int((got != want).sum())} places")
+  dec_want = wire._fp8_decode(want, torch.float32)
+  dec_got = wire._fp8_decode(want.cuda(), torch.float32).cpu()
+  check(torch.equal(dec_got.view(torch.int32), dec_want.view(torch.int32)),
+        "fp8 decode: the card's values differ from the CPU's")
+  cast_want = wire._e4m3_bytes(edges)
+  cast_got = wire._e4m3_bytes(edges.cuda()).cpu()
+  check(torch.equal(cast_got, cast_want), "fp8 cast: the card's edge bytes "
+        f"{cast_got.tolist()} differ from the CPU's {cast_want.tolist()}")
+  check(float(want[1, -4:].clone().view(torch.float32)) == 1.0
+        and float(want[2, -4:].clone().view(torch.float32)) == 1.0,
+        "fp8 encode: the zero and the 448 blocks do not keep scale 1")
+  _, plan = world4_plan("nccl")
+  n_b = max(bucket.n_b for key in plan.class_keys
+            if plan.classes[key].kind == "sparse"
+            for bucket in class_buckets(plan, key, lambda i: 1))
+  m = n_b * (W4_BATCH // WORLD) * D
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+  payload = torch.randn((WORLD, m), generator=gen, device="cuda")
+  enc = wire._fp8_encode(payload)
+  times = event_ms(torch, {
+      "encode": lambda: wire._fp8_encode(payload),
+      "decode": lambda: wire._fp8_decode(enc, torch.float32)}, flush,
+                   reps=10)
+  values = WORLD * m
+  check(bool(((wire._fp8_decode(enc, torch.float32) - payload).abs()
+              <= 2.0 ** -4 * payload.abs().amax(dim=1, keepdim=True))
+             .all()), "fp8 round trip: a value left its block's half-ulp")
+  emit({"phase": "fp8_codec", "blocks": FP8_BLOCKS, "edges": len(edges),
+        "bit_equal_cpu": True, "payload": [WORLD, m], "n_b": n_b,
+        "encode_ms": times["encode"], "decode_ms": times["decode"],
+        "bound_ms": bound(5 * values, 0, 1)["bound_ms"],
+        "bound_by": "bytes", "bytes_f32": 4 * values,
+        "bytes_wire": values + 4 * WORLD})
+  del payload, enc
+  torch.cuda.empty_cache()
+
+
+def phase_unique_map(torch, flush) -> None:
+  """``unique_map``: ``ops/sparse_grad.py: unique_ids_map`` (sort, run
+  starts, ``cumsum``, ``scatter_reduce``) on the card at the one-card
+  world-4 cell's block (its largest sparse bucket: ``[4, n_b * 16,384]``
+  ids in ``[0, sentinel]``, a tenth of them the sentinel), with the safe
+  capacity and with ``W4_WIRE_CAP``, and ``expand_unique_rows``, under
+  ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), each
+  bit-equal to the CPU's; then timed."""
+  from distributed_embeddings_torch.ops.sparse_grad import (
+      expand_unique_rows,
+      unique_ids_map,
+  )
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+      padded_rows,
+  )
+  _, plan = world4_plan("gloo", dedup_exchange=True)
+  key, bucket = max(((key, bucket) for key in plan.class_keys
+                     if plan.classes[key].kind == "sparse"
+                     for bucket in class_buckets(plan, key, lambda i: 1)),
+                    key=lambda kb: (kb[1].n_b, padded_rows(plan, kb[0])))
+  sentinel = padded_rows(plan, key)
+  m = bucket.n_b * (W4_BATCH // WORLD)
+  cap = min(m, sentinel + 1)
+  gen = torch.Generator().manual_seed(SEED + 33)
+  ids = torch.randint(0, sentinel, (WORLD, m), generator=gen,
+                      dtype=torch.int32)
+  ids[torch.rand((WORLD, m), generator=gen) < 0.1] = sentinel
+  rows = torch.randn((WORLD, cap, 8), generator=gen)
+  want = {"safe": unique_ids_map(ids, sentinel, cap, with_count=True),
+          "capped": unique_ids_map(ids, sentinel, W4_WIRE_CAP,
+                                   with_count=True)}
+  want["expand"] = expand_unique_rows(rows, want["safe"][1])
+  dev_ids, dev_rows = ids.cuda(), rows.cuda()
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    got = {"safe": unique_ids_map(dev_ids, sentinel, cap, with_count=True),
+           "capped": unique_ids_map(dev_ids, sentinel, W4_WIRE_CAP,
+                                    with_count=True)}
+    got["expand"] = expand_unique_rows(dev_rows, got["safe"][1])
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  for name in ("safe", "capped"):
+    for part, g, w in zip(("uniq", "inv", "n_distinct"), got[name],
+                          want[name]):
+      check(torch.equal(g.cpu(), w), f"unique_map {name}: the card's {part} "
+            "differs from the CPU's")
+  check(torch.equal(got["expand"].cpu(), want["expand"]),
+        "unique_map: expand_unique_rows differs from the CPU's")
+  times = event_ms(torch, {
+      "unique_ids_map": lambda: unique_ids_map(dev_ids, sentinel, cap,
+                                               with_count=True)}, flush,
+                   reps=10)
+  emit({"phase": "unique_map", "blocks": WORLD, "block_ids": m,
+        "sentinel": sentinel, "capacity": cap, "capped": W4_WIRE_CAP,
+        "sync_debug_mode": "error", "bit_equal_cpu": True,
+        "n_distinct": want["safe"][2].tolist(),
+        "overflow_at_cap": int((want["capped"][2] - W4_WIRE_CAP)
+                               .clamp(min=0).sum()),
+        "ms": times["unique_ids_map"]})
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
           "replaces": REPLACES[name], "launches": launches,
@@ -4202,6 +4755,8 @@ def main() -> int:
   rows["gather_send_rows"] = phase_kernel_send(torch, cx, flush)
   rows["build_delta_rows"] = phase_kernel_delta(torch, cd, flush)
   rows["row_major"] = phase_kernel_layout(torch, cl, flush)
+  phase_fp8_codec(torch, flush)
+  phase_unique_map(torch, flush)
   del flush
   torch.cuda.empty_cache()
   phase_golden(torch, golden)
@@ -4258,7 +4813,8 @@ def main() -> int:
                       ("dlrm_main_mb", dlrm_sparse),
                       ("train_zoo_mb", ("build_delta_rows", "apply_rows")),
                       ("train_world4_guard", W4_KERNELS),
-                      ("train_world4_mb", W4_KERNELS)):
+                      ("train_world4_mb", W4_KERNELS),
+                      ("world4_wire", W4_KERNELS)):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

@@ -100,6 +100,10 @@ class DistributedEmbedding(nn.Module):
     overlap / exchange_chunks: the plan's wire schedule (``'none'``,
       ``'pipelined'`` or ``'fused'``; the JAX layer's plan always takes
       ``'none'``). All three give the same values.
+    wire_dtype / dedup_exchange: the plan's wire compression (the
+      README's ``'f32'`` / ``'bf16'`` / ``'fp8'`` float wire and the
+      deduplicated exchange; the JAX layer's plan takes the defaults). The
+      f32 dedup forward gives the raw exchange's values bit for bit.
     mesh: this rank's :class:`~..parallel.mesh.Mesh` (``mesh.world ==
       world_size``): the layer then holds this rank's blocks only, on the
       mesh's device, and its forward runs the exchanges over the mesh's
@@ -118,7 +122,8 @@ class DistributedEmbedding(nn.Module):
                world_size: int = 1, dense_row_threshold: int = 0,
                input_hotness: Optional[Sequence[int]] = None,
                batch_hint: Optional[int] = None, overlap: str = "none",
-               exchange_chunks: int = 1, mesh=None, device="cuda",
+               exchange_chunks: int = 1, wire_dtype: str = "f32",
+               dedup_exchange: bool = False, mesh=None, device="cuda",
                generator: Optional[torch.Generator] = None):
     super().__init__()
     if row_slice is not None and (isinstance(row_slice, bool)
@@ -141,7 +146,8 @@ class DistributedEmbedding(nn.Module):
         input_hotness=(list(input_hotness)
                        if input_hotness is not None else None),
         batch_hint=batch_hint, overlap=overlap,
-        exchange_chunks=exchange_chunks)
+        exchange_chunks=exchange_chunks, wire_dtype=wire_dtype,
+        dedup_exchange=dedup_exchange)
     self.mesh = mesh
     self.engine = DistributedLookup(self.plan, mesh=mesh)
     rank = None if mesh is None else mesh.rank

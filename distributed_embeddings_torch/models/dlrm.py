@@ -183,6 +183,9 @@ class DLRM(nn.Module):
       the same plan).
     overlap / exchange_chunks: the plan's wire schedule (the JAX model's
       plan always takes ``'none'``; all three give the same values).
+    wire_dtype / dedup_exchange: the plan's wire compression (``'f32'``,
+      ``'bf16'`` or ``'fp8'``; the deduplicated exchange), passed to the
+      embedding layer.
     mesh: this rank's :class:`~..parallel.mesh.Mesh` at world > 1: the
       embedding layer holds this rank's blocks only and the MLPs are
       replicated, all on the mesh's device (``world_size`` must be the
@@ -206,7 +209,8 @@ class DLRM(nn.Module):
                row_slice: Optional[int] = None,
                dense_row_threshold: int = 4096,
                batch_hint: Optional[int] = None, overlap: str = "none",
-               exchange_chunks: int = 1, mesh=None, tables: bool = True,
+               exchange_chunks: int = 1, wire_dtype: str = "f32",
+               dedup_exchange: bool = False, mesh=None, tables: bool = True,
                device="cuda", generator: Optional[torch.Generator] = None,
                table_generator: Optional[torch.Generator] = None):
     super().__init__()
@@ -233,7 +237,8 @@ class DLRM(nn.Module):
           strategy=strategy, column_slice_threshold=column_slice_threshold,
           row_slice=row_slice, world_size=world_size,
           dense_row_threshold=dense_row_threshold, batch_hint=batch_hint,
-          overlap=overlap, exchange_chunks=exchange_chunks, mesh=mesh,
+          overlap=overlap, exchange_chunks=exchange_chunks,
+          wire_dtype=wire_dtype, dedup_exchange=dedup_exchange, mesh=mesh,
           device=dev, generator=table_generator)
 
   def forward(self, numerical: torch.Tensor, categorical=None,

@@ -36,8 +36,18 @@ each rank's blocks their dense gradients. Under ``overlap='fused'`` its
 exchanges are the pipelined rounds of plain activations, as in the JAX
 engine (no per-round gather, so no K4).
 
-Not ported yet: deduplicated routing (``dedup_exchange``), ragged value
-streams and tiering.
+Under ``dedup_exchange=True`` (world > 1) every sparse bucket routes as a
+:class:`DedupRouted`: each destination block of ids is sorted and
+uniqued on its source rank (``ops/sparse_grad.py: unique_ids_map``,
+static capacity), only the unique blocks cross the wire, the owner
+gathers one row per unique id (K4 per round chunk under ``'fused'``),
+and the source rank re-expands the returned rows through its inverse
+map and runs the combiner (:meth:`DistributedLookup._exchange_dedup`).
+The expansion's backward sums duplicate ids' cotangents before the
+reverse exchange, so the cotangent wire shrinks alike and the sparse
+apply sees one row per unique id and source block.
+
+Not ported yet: ragged value streams and tiering.
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ from ..ops.packed_table import (
     residual_lanes,
     scatter_add_fused,
 )
-from ..ops.sparse_grad import dedup_rows
+from ..ops.sparse_grad import dedup_rows, expand_unique_rows, unique_ids_map
 from . import wire
 
 if TYPE_CHECKING:
@@ -193,6 +203,32 @@ def _normalize_input(x) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class DedupRouted:
+  """The deduplicated routing of one padded sparse bucket
+  (``dedup_exchange=True``, world > 1).
+
+  Per destination rank the routing block's ids are sorted and uniqued on
+  the source rank to the static capacity ``K = min(block occurrences,
+  sentinel + 1)`` (the values lie in ``[0, sentinel]``, so it never
+  overflows) and only the unique blocks cross the wire. The owner
+  gathers one row per unique id and returns ``[K, w]`` rows; the source
+  rank re-expands them through its own inverse map and runs the combiner
+  there.
+
+  ``overflow`` is set only when the plan caps ``K`` below that bound
+  (``dedup_capacity``): this rank's count of distinct ids that got no
+  slot of their own, summed over the bucket's destination blocks (each
+  aliased onto the cap's last slot and read the wrong row). The guarded
+  step and the eval step with metrics sum it over the ranks into
+  ``dedup_overflow``."""
+
+  uniq: torch.Tensor        # [world_src, K] the owner's unique ids
+  inv: torch.Tensor         # [world_dst, n_b, B(, h)] this rank's inverse map
+  uniq_local: torch.Tensor  # [world_dst, K] this rank's unique blocks
+  overflow: Optional[torch.Tensor] = None  # int32 scalar iff capped
+
+
+@dataclasses.dataclass
 class SparseResiduals:
   """Forward-saved state for the fused sparse backward: the routed ids and
   the rows that rode along in the forward gather.
@@ -212,20 +248,30 @@ class FusedChunks:
   """Round-major fused-exchange payload of one sparse bucket
   (``overlap='fused'``).
 
-  ``blocks[k][c]`` is chunk ``c`` of the combined activations this rank
-  gathered for round ``k``'s destination, rank ``(i + k) % world``:
-  ``[n_b, rows_c, w]``. Each chunk feeds exactly one
-  :func:`wire.fused_block_send`, and its cotangent comes back in the same
-  per-round form; :meth:`DistributedLookup._sparse_parts_by_class`
-  reassembles it to the dest-major layout (pure data movement, so f32
-  stays bit-exact against the monolithic and pipelined schedules)."""
+  ``blocks[k][c]`` is chunk ``c`` of what this rank gathered for round
+  ``k``'s destination, rank ``(i + k) % world``: ``[n_b, rows_c, w]``
+  combined activations of a raw bucket (``kind == "raw"``), ``[rows_c,
+  w]`` unique rows of a deduplicated one (``kind == "dedup"``). Each
+  chunk feeds exactly one :func:`wire.fused_block_send`, and its
+  cotangent comes back in the same per-round form;
+  :meth:`DistributedLookup._sparse_parts_by_class` reassembles it to the
+  dest-major layout (pure data movement, so f32 stays bit-exact against
+  the monolithic and pipelined schedules)."""
 
   blocks: tuple  # blocks[k][c]: round k's c-th row chunk
+  kind: str = "raw"  # "raw" | "dedup"
 
   def map(self, fn) -> "FusedChunks":
     """The same structure with ``fn`` applied to every chunk."""
     return FusedChunks(tuple(tuple(fn(c) for c in blk)
-                             for blk in self.blocks))
+                             for blk in self.blocks), self.kind)
+
+  def rounds(self) -> list:
+    """Each round's chunks concatenated: ``[n_b, rows, w]`` (raw) or
+    ``[K, w]`` (dedup) per round."""
+    axis = 0 if self.kind == "dedup" else 1
+    return [blk[0] if len(blk) == 1 else torch.cat(blk, dim=axis)
+            for blk in self.blocks]
 
 
 class _DenseWindowRows(torch.autograd.Function):
@@ -416,10 +462,6 @@ class DistributedLookup:
     plan = self.plan
     world = plan.world_size
     self._my_rank()  # a world > 1 plan needs the mesh
-    if world > 1 and getattr(plan, "dedup_exchange", False):
-      raise NotImplementedError(
-          "dedup_exchange=True: the deduplicated exchange (DedupRouted) "
-          "is not ported yet")
     inputs = [_normalize_input(x) for x in inputs]
     if len(inputs) != plan.num_inputs:
       raise ValueError(f"Expected {plan.num_inputs} inputs, got {len(inputs)}")
@@ -436,11 +478,45 @@ class DistributedLookup:
     for key in plan.class_keys:
       for bucket in self._buckets(key, hotness_of):
         x = self._build_routing(key, bucket, inputs)  # [world, n_b, B(, h)]
-        if world > 1:
-          x = self._wire_exchange_ids(x.to(torch.int32))
-        ids_all[bucket_key(key, bucket.h, bucket.vcap, bucket.rs)] = \
-            self._reshape_routed(x, bucket, world, b)
+        if world > 1 and self._dedup_class(key):
+          routed = self._dedup_route(key, x.to(torch.int32))
+        elif world > 1:
+          routed = self._reshape_routed(
+              self._wire_exchange_ids(x.to(torch.int32)), bucket, world, b)
+        else:
+          routed = self._reshape_routed(x, bucket, world, b)
+        ids_all[bucket_key(key, bucket.h, bucket.vcap, bucket.rs)] = routed
     return ids_all
+
+  def _dedup_class(self, key) -> bool:
+    """The deduplicated exchange applies to sparse-kind buckets only (the
+    dense classes' window lookups gather no rows to dedup)."""
+    return (wire.plan_dedup_exchange(self.plan)
+            and self.plan.classes[key].kind == "sparse")
+
+  def _dedup_route(self, key, x: torch.Tensor) -> DedupRouted:
+    """Unique-then-exchange routing of one padded bucket: ``x [world,
+    n_b, B(, h)]`` is the dest-major int32 routing tensor. Each
+    destination block is sorted and uniqued here to ``K = min(m, sentinel
+    + 1)`` slots (or the plan's ``dedup_capacity``, below that bound,
+    with the overflow counted) and only the unique blocks cross the
+    wire; the inverse maps stay here for the return expansion."""
+    world = self.plan.world_size
+    sentinel = padded_rows(self.plan, key)
+    m = int(np.prod(x.shape[1:]))
+    cap = min(m, sentinel + 1)
+    cap_knob = getattr(self.plan, "dedup_capacity", None)
+    overflow = None
+    if cap_knob is not None and cap_knob < cap:
+      cap = cap_knob
+      uniq_local, inv, n_distinct = unique_ids_map(
+          x.reshape(world, m), sentinel, cap, with_count=True)
+      overflow = (n_distinct - cap).clamp(min=0).sum().to(torch.int32)
+    else:
+      uniq_local, inv = unique_ids_map(x.reshape(world, m), sentinel, cap)
+    uniq = self._wire_exchange_ids(uniq_local)  # [world_src, K]
+    return DedupRouted(uniq=uniq, inv=inv.reshape(x.shape),
+                       uniq_local=uniq_local, overflow=overflow)
 
   @staticmethod
   def _reshape_routed(y, bucket, world, b):
@@ -479,11 +555,13 @@ class DistributedLookup:
     return summed
 
   def _z_sparse_simple(self, key, table_local: torch.Tensor,
-                       ids_all: torch.Tensor, rs: bool = False
-                       ) -> torch.Tensor:
+                       ids_all, rs: bool = False) -> torch.Tensor:
     """Differentiable gather on the simple ``[rows, w]`` table, then the
-    class combiner (padded ids; the deduplicated and ragged routings are
-    not ported)."""
+    class combiner (padded ids). A :class:`DedupRouted` bucket gathers one
+    row per unique id, ``[world_src, K, w]``: its combiner runs on the
+    source rank after the return exchange re-expands the rows."""
+    if isinstance(ids_all, DedupRouted):
+      return _FillRows.apply(table_local, ids_all.uniq)
     self._check_routed(ids_all)
     return self._combine(_FillRows.apply(table_local, ids_all), ids_all,
                          key, rs)
@@ -531,14 +609,22 @@ class DistributedLookup:
     """mp->dp activation exchange: ``z`` maps ``bk -> [n_b, G, w]`` (or a
     :class:`FusedChunks`); returns ``bk -> [world_owner, n_b, B, w]``.
     Differentiable: the wire's backward runs the reverse exchange, which
-    brings each rank the cotangents of the rows it owns."""
-    del ids_all
+    brings each rank the cotangents of the rows it owns.
+
+    ``ids_all`` (the :meth:`route_ids` dict) is needed when the plan
+    dedups the exchange: a bucket routed as :class:`DedupRouted` carries
+    ``z[bk] = [world_src, K, w]`` unique rows and returns through
+    :meth:`_exchange_dedup`."""
     world = self.plan.world_size
     self._my_rank()  # a world > 1 plan needs the mesh
     received = {}
     for bk, zb in z.items():
+      dr = ids_all.get(bk) if ids_all is not None else None
       if isinstance(zb, FusedChunks):
-        received[bk] = self._exchange_fused(zb)
+        received[bk] = self._exchange_fused(bk, zb, dr)
+        continue
+      if isinstance(dr, DedupRouted):
+        received[bk] = self._exchange_dedup(bk, zb, dr)
         continue
       zb = zb.reshape(zb.shape[0], world, batch_local, -1).transpose(0, 1)
       if world > 1:
@@ -569,13 +655,16 @@ class DistributedLookup:
     return gather_fused_chunked(layout, buf_local, ids,
                                 masked_phys=masked_phys)
 
-  def _fused_reassemble(self, per_round) -> torch.Tensor:
-    """Round-major blocks -> the dest-major layout: ``per_round[k]``
-    (``[n_b, rows, ...]``, the payload for rank ``(i + k) % world``) ->
-    ``[n_b, world * rows, ...]``. Pure data movement."""
+  def _fused_reassemble(self, per_round, kind: str = "raw") -> torch.Tensor:
+    """Round-major blocks -> the dest-major layout: ``per_round[k]`` is
+    the payload for rank ``(i + k) % world``, ``[n_b, rows, ...]`` ->
+    ``[n_b, world * rows, ...]`` (raw), ``[K, ...]`` -> ``[world, K,
+    ...]`` (dedup). Pure data movement."""
     world, i = self.plan.world_size, self._my_rank()
-    out = torch.stack([per_round[(d - i) % world] for d in range(world)],
-                      dim=1)  # [n_b, world, rows, ...]
+    by_dest = [per_round[(d - i) % world] for d in range(world)]
+    if kind == "dedup":
+      return torch.stack(by_dest)
+    out = torch.stack(by_dest, dim=1)  # [n_b, world, rows, ...]
     return out.reshape((out.shape[0], world * out.shape[2])
                        + tuple(out.shape[3:]))
 
@@ -587,9 +676,30 @@ class DistributedLookup:
     ``(i + k) % world``, chunk by chunk; gather and combine act per
     (slot, sample), so slicing the ids first equals slicing the
     monolithic result after (bit-exact). The aux residuals are
-    reassembled to their dest-major layouts here."""
-    self._check_routed(ids_all)
+    reassembled to their dest-major layouts here.
+
+    A :class:`DedupRouted` bucket's round ``k`` gathers only rank ``(i +
+    k) % world``'s unique block, chunk by chunk (K4 on the card; the
+    sentinel-padded slots gather zero rows); the source rank expands and
+    combines after the return (:meth:`_exchange_fused`)."""
     world, i = self.plan.world_size, self._my_rank()
+    if isinstance(ids_all, DedupRouted):
+      w = layout.width
+      keep = bool(layout.n_aux or keep_rows)
+      blocks, aux_rounds = [], []
+      for k in range(world):
+        uniq_d = ids_all.uniq[(i + k) % world]  # [K]
+        zc, ac = [], []
+        for s0, sz in self._fused_chunk_slices(uniq_d.shape[0]):
+          fused = self._fused_gather(layout, buf_local, uniq_d[s0:s0 + sz])
+          zc.append(fused[..., :w])
+          ac.append(fused)
+        blocks.append(tuple(zc))
+        if keep:
+          aux_rounds.append(ac[0] if len(ac) == 1 else torch.cat(ac))
+      aux = self._fused_reassemble(aux_rounds, "dedup") if keep else None
+      return FusedChunks(tuple(blocks), "dedup"), aux
+    self._check_routed(ids_all)
     bsz = ids_all.shape[1] // world
     masked = _masked_multi_hot(layout, ids_all)
     blocks, aux_rounds = [], []
@@ -611,18 +721,65 @@ class DistributedLookup:
            else self._fused_reassemble(aux_rounds))
     return FusedChunks(tuple(blocks)), aux
 
-  def _exchange_fused(self, fz: FusedChunks) -> torch.Tensor:
+  def _exchange_fused(self, bk, fz: FusedChunks,
+                      dr: Optional[DedupRouted]) -> torch.Tensor:
     """mp->dp return of a :class:`FusedChunks` payload, one send per
     just-gathered chunk; received round ``k`` came from rank ``(i - k) %
     world``, so the rounds are placed source-major:
-    ``[world, n_b, B, w]``."""
+    ``[world, n_b, B, w]``.
+
+    A deduplicated bucket expands and combines per round, through that
+    round's own inverse-map slice (round ``k``'s rows answer the unique
+    block this rank sent to ``(i - k) % world``); multi-hot buckets
+    rebuild the original ids ``uniq_local[inv]`` so that the combiner sees
+    the raw path's sentinel pattern. The combiner never mixes source
+    blocks, so running it per round is the same arithmetic on the same
+    values (bit-exact)."""
     world, i = self.plan.world_size, self._my_rank()
     wd = wire.plan_wire_dtype(self.plan)
     rounds = []
     for k, blk in enumerate(fz.blocks):
       got = [wire.fused_block_send(c, self.mesh, k, wd) for c in blk]
-      rounds.append(got[0] if len(got) == 1 else torch.cat(got, dim=1))
+      axis = 0 if fz.kind == "dedup" else 1
+      ret = got[0] if len(got) == 1 else torch.cat(got, dim=axis)
+      if fz.kind == "dedup":
+        j = (i - k) % world
+        ret = self._dedup_combine(bk, expand_unique_rows(ret, dr.inv[j]
+                                                         .reshape(-1)),
+                                  dr.inv[j], dr.uniq_local[j])
+      rounds.append(ret)
     return torch.stack([rounds[(i - j) % world] for j in range(world)])
+
+  def _exchange_dedup(self, bk, z_u: torch.Tensor,
+                      dr: DedupRouted) -> torch.Tensor:
+    """Deduplicated mp->dp return: ``z_u [world_src, K, w]`` unique rows
+    -> ``[world_owner, n_b, B, w]`` combined activations. The exchange
+    ships one row per unique id (narrowed to the wire dtype in flight);
+    this rank re-expands them through its inverse maps and runs the
+    combiner here, differentiably, so the backward sums the occurrences'
+    cotangents per unique id (f32) before the reverse exchange. The
+    sentinel-padded unique slots gathered zero rows, so the expansion
+    reproduces the raw path's rows bit for bit, and the combiner sums the
+    same values in the same order."""
+    world = self.plan.world_size
+    ret = self._wire_exchange_float(z_u)
+    inv_flat = dr.inv.reshape(world, -1)
+    expanded = expand_unique_rows(ret, inv_flat)  # [world, m, w]
+    return torch.stack([
+        self._dedup_combine(bk, expanded[j], dr.inv[j], dr.uniq_local[j])
+        for j in range(world)])
+
+  def _dedup_combine(self, bk, rows: torch.Tensor, inv: torch.Tensor,
+                     uniq_local: torch.Tensor) -> torch.Tensor:
+    """One destination block's expanded rows ``[m, w]`` -> ``[n_b, B,
+    w]`` through the shared combiner (:meth:`_combine`). Hotness-1
+    buckets pass 2-D ids (only their rank matters there); multi-hot ones
+    rebuild the original ids ``uniq_local[inv]``, whose sentinels give the
+    mean divisor the raw path's."""
+    shape = tuple(inv.shape)  # [n_b, B(, h)]
+    rows = rows.reshape(shape + (rows.shape[-1],))
+    ids = inv if len(shape) == 2 else uniq_local[inv.long()]
+    return self._combine(rows, ids, bk.class_key, bk.rs)
 
   # ---- reassembly --------------------------------------------------------
   def _hot_sig(self, key, hotness_of) -> tuple:
@@ -723,6 +880,24 @@ class DistributedLookup:
                                           torch.zeros((), dtype=torch.int32,
                                                       device=dev))
             for k in plan.class_keys}
+
+  def dedup_overflow_counts(self, ids_all) -> Dict[str, torch.Tensor]:
+    """Per-class dedup-capacity overflow counts of one routed batch: the
+    :class:`DedupRouted` buckets' ``overflow`` (set only under a capped
+    ``dedup_capacity``) summed per class, 0 for a class with none. Class
+    name -> int32 scalar (this rank's count). A nonzero count means those
+    ids gathered, and in training updated, the wrong rows."""
+    first = next(iter(ids_all.values()), None)
+    dev = (first.inv if isinstance(first, DedupRouted) else first).device \
+        if first is not None else None
+    out = {class_param_name(*k): torch.zeros((), dtype=torch.int32,
+                                             device=dev)
+           for k in self.plan.class_keys}
+    for bk, ids in ids_all.items():
+      if isinstance(ids, DedupRouted) and ids.overflow is not None:
+        name = class_param_name(*bk.class_key)
+        out[name] = out[name] + ids.overflow
+    return out
 
   # ---- composed forward --------------------------------------------------
   def forward(self, class_params: Dict[str, torch.Tensor],
@@ -841,7 +1016,16 @@ class DistributedLookup:
     the table lanes at bag granularity, as the JAX engine does; the
     residual is the gathered fused rows (None when nothing reads them).
     Multi-hot buckets of narrow classes with optimizer state gather
-    window-masked physical rows instead (:meth:`_combine_fused`)."""
+    window-masked physical rows instead (:meth:`_combine_fused`).
+
+    A :class:`DedupRouted` bucket gathers each unique id's fused row once,
+    ``[world_src, K, stride]``, and combines nothing here: the source rank
+    expands and combines (:meth:`_exchange_dedup`), so the cotangent of
+    the backward arrives per unique id."""
+    if isinstance(ids_all, DedupRouted):
+      fused = gather_fused_chunked(layout, buf_local, ids_all.uniq)
+      return (fused[..., :layout.width],
+              fused if (layout.n_aux or keep_rows) else None)
     self._check_routed(ids_all)
     return self._combine_fused(
         key, layout,
@@ -854,9 +1038,8 @@ class DistributedLookup:
     """Refuse the routings the fused gather does not serve yet."""
     if not isinstance(ids_all, torch.Tensor):
       raise NotImplementedError(
-          f"routed ids of type {type(ids_all).__name__}: deduplicated and "
-          "ragged routing are not ported yet (ROADMAP.md open items, "
-          "queue B, item 7)")
+          f"routed ids of type {type(ids_all).__name__}: ragged routing "
+          "is not ported yet (ROADMAP.md open items, queue B, item 7)")
 
   def _combine_fused(self, key, layout: PackedLayout, fused: torch.Tensor,
                      ids: torch.Tensor, rs: bool, keep_rows: bool):
@@ -911,7 +1094,12 @@ class DistributedLookup:
     """Group per-bucket cotangents into per-class ``(ids, dz, aux, h)``
     parts; mean combiners divide by the forward's valid counts. A
     :class:`FusedChunks` cotangent (the fused schedule's per-round form)
-    is reassembled to the dest-major layout first. Under
+    is reassembled to the dest-major layout first. A
+    :class:`DedupRouted` bucket's cotangent arrives per unique id (the
+    expansion's backward summed its occurrences, and the mean division
+    ran on the source rank), so its part is ``(uniq, dz, aux, 0)``: one
+    row per unique id and source block, no hotness broadcast, no
+    divisor (the ``exact=True`` semantics within one exchange block). Under
     ``DE_TORCH_COTANGENT_PIN=1`` each sparse bucket's cotangent is copied
     to a fresh contiguous tensor by kernel K7 (the values are unchanged)."""
     plan = self.plan
@@ -922,15 +1110,17 @@ class DistributedLookup:
       if plan.classes[key].kind != "sparse":
         continue
       if isinstance(dzb, FusedChunks):
-        dzb = self._fused_reassemble(
-            [blk[0] if len(blk) == 1 else torch.cat(blk, dim=1)
-             for blk in dzb.blocks])
+        dzb = self._fused_reassemble(dzb.rounds(), dzb.kind)
       if pin:
         dzb = row_major(dzb)
       cp = plan.classes[key]
       ids = residuals.ids_all[bk]
       aux = (residuals.aux_rows[bk]
              if (rule.n_aux or rule.weight_decay) else None)
+      if isinstance(ids, DedupRouted):
+        by_class.setdefault(class_param_name(*key), []).append(
+            (ids.uniq.reshape(-1), dzb.reshape(-1, cp.width), aux, 0))
+        continue
       if cp.combiner == "mean" and h > 1 and not bk.rs:
         # row-sliced buckets skip this: their mean division lives in the
         # differentiable assemble, so d_z arrives pre-divided

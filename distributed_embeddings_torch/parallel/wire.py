@@ -24,8 +24,15 @@ The plan's knobs choose the schedule (``DistEmbeddingStrategy``):
 All three move the same bytes to the same places, so at the f32 wire they
 are bit-exact against each other. ``wire_dtype='bf16'`` narrows each
 float payload for the flight and widens it on arrival, in both
-directions; the tables, combiners and rules stay f32. The fp8 wire (its
-per-block amax scale packed into the block) is not ported yet.
+directions; the tables, combiners and rules stay f32. ``wire_dtype=
+'fp8'`` (float8_e4m3) scales each destination block (each chunk of it
+under the pipelined and fused schedules) by its own amax, mapped onto
+``FP8_MAX``, and ships the f32 scale in 4 trailing byte lanes of the
+block (:func:`_fp8_encode`), so no second collective carries the
+scales; every backward re-scales the cotangent blocks by their own
+amax. The encoded block travels as ``uint8`` bytes on every backend
+(gloo has no float8 type). One codec (:func:`_chunk_encode` /
+:func:`_chunk_decode`) serves the three schedules.
 
 At world 1 there is no wire: every function returns its input.
 """
@@ -34,22 +41,38 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-WIRE_DTYPES = ("f32", "bf16", "fp8")
+WIRE_DTYPES = {"f32": None, "bf16": torch.bfloat16,
+               "fp8": torch.float8_e4m3fn}
+FP8 = torch.float8_e4m3fn
+
+# the largest finite float8_e4m3fn value: each block's amax maps onto it
+FP8_MAX = 448.0
+# the f32 reciprocal of FP8_MAX: XLA compiles ``amax / FP8_MAX`` to a
+# multiply by it, and the scale must match the JAX step's bit for bit
+_FP8_INV_MAX = float(np.float32(1.0) / np.float32(FP8_MAX))
+# byte lanes appended per block to carry its f32 scale
+_FP8_SCALE_LANES = 4
+# the e4m3fn cast rounds to nearest even and has no inf: a value past the
+# midpoint between 448 and the next step (480) becomes NaN (XLA's cast);
+# torch's cast saturates there, so the codec writes those NaNs itself
+_FP8_OVERFLOW = 464.0
 
 
 def plan_wire_dtype(plan) -> Optional[torch.dtype]:
   """The plan's wire dtype (None: the f32 identity wire)."""
   name = getattr(plan, "wire_dtype", "f32")
   if name not in WIRE_DTYPES:
-    raise ValueError(f"unknown wire_dtype {name!r}; have {list(WIRE_DTYPES)}")
-  if name == "fp8":
-    raise NotImplementedError(
-        "wire_dtype='fp8': the fp8 wire codec (one amax scale per block, "
-        "bit-packed into the block) is not ported yet; use 'f32' or 'bf16'")
-  return None if name == "f32" else torch.bfloat16
+    raise ValueError(f"unknown wire_dtype {name!r}; have {sorted(WIRE_DTYPES)}")
+  return WIRE_DTYPES[name]
+
+
+def plan_dedup_exchange(plan) -> bool:
+  """The plan's ``dedup_exchange`` knob (default False)."""
+  return bool(getattr(plan, "dedup_exchange", False))
 
 
 def plan_overlap(plan) -> str:
@@ -108,12 +131,65 @@ def _rotate(x: torch.Tensor, mesh, k: int) -> torch.Tensor:
   return out.reshape(x.shape)
 
 
-def _encode(x: torch.Tensor, wire_dtype) -> torch.Tensor:
-  return x if wire_dtype is None else x.to(wire_dtype)
+# ---------------------------------------------------------------------------
+# the codec: per-block amax scale for fp8, shipped in the block
+# ---------------------------------------------------------------------------
 
 
-def _decode(y: torch.Tensor, dtype) -> torch.Tensor:
-  return y if y.dtype == dtype else y.to(dtype)
+def _e4m3_bytes(y: torch.Tensor) -> torch.Tensor:
+  """f32 -> float8_e4m3fn bits as ``uint8``, rounding to nearest even; a
+  magnitude past 464 (inf included) becomes NaN of its sign, as XLA's
+  cast gives it, where torch's own cast saturates to 448."""
+  q = y.to(FP8).view(torch.uint8)
+  nan = torch.where(torch.signbit(y), 0xFF, 0x7F).to(torch.uint8)
+  return torch.where(y.abs() > _FP8_OVERFLOW, nan, q)
+
+
+def _fp8_encode(blocks: torch.Tensor) -> torch.Tensor:
+  """``[n, m]`` float -> ``[n, m + 4]`` ``uint8`` wire blocks.
+
+  Each block is divided by its own scale ``amax / FP8_MAX`` before the
+  cast, so the 3-bit mantissa spends its range on the block's own
+  dynamic range; the f32 scale's 4 bytes (little-endian, as the JAX
+  package's bitcast lays them) trail the block. All-zero blocks keep
+  scale 1."""
+  x = blocks.to(torch.float32)
+  amax = x.abs().amax(dim=1)
+  scale = torch.where(amax > 0, amax * _FP8_INV_MAX, torch.ones_like(amax))
+  q = _e4m3_bytes(x / scale[:, None])
+  lanes = scale.contiguous().view(torch.uint8).reshape(x.shape[0],
+                                                       _FP8_SCALE_LANES)
+  return torch.cat([q, lanes], dim=1)
+
+
+def _fp8_decode(blocks: torch.Tensor, dtype) -> torch.Tensor:
+  """``[n, m + 4]`` ``uint8`` wire blocks -> ``[n, m]`` of ``dtype``."""
+  q = blocks[:, :-_FP8_SCALE_LANES].contiguous().view(FP8)
+  # a fresh [n, 4] copy: a slice's offset and strides need not be
+  # multiples of the f32 size
+  lanes = blocks[:, -_FP8_SCALE_LANES:]
+  scale = torch.empty(lanes.shape, dtype=torch.uint8,
+                      device=lanes.device).copy_(lanes).view(torch.float32)
+  return (q.to(torch.float32) * scale).to(dtype)
+
+
+def _chunk_encode(x: torch.Tensor, wire_dtype) -> torch.Tensor:
+  """The one wire codec of every schedule: the identity for the f32
+  wire, a cast for bf16, the scaled block form for fp8 (``x`` then
+  2-D ``[blocks, m]``: the scale lanes append per block)."""
+  if wire_dtype is None:
+    return x
+  if wire_dtype == FP8:
+    return _fp8_encode(x)
+  return x.to(wire_dtype)
+
+
+def _chunk_decode(y: torch.Tensor, wire_dtype, dtype) -> torch.Tensor:
+  if wire_dtype is None:
+    return y
+  if wire_dtype == FP8:
+    return _fp8_decode(y, dtype)
+  return y.to(dtype)
 
 
 def _narrowing(x: torch.Tensor, wire_dtype) -> Optional[torch.dtype]:
@@ -135,7 +211,14 @@ def exchange_ids(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _wire_mono(x: torch.Tensor, mesh, wire_dtype) -> torch.Tensor:
-  return _decode(_all_to_all(_encode(x, wire_dtype), mesh), x.dtype)
+  """One monolithic exchange through the codec; only the fp8 wire
+  flattens each destination block (its scale lanes append per block)."""
+  if wire_dtype == FP8:
+    enc = _chunk_encode(x.reshape(x.shape[0], -1), wire_dtype)
+    return _chunk_decode(_all_to_all(enc, mesh), wire_dtype,
+                         x.dtype).reshape(x.shape)
+  return _chunk_decode(_all_to_all(_chunk_encode(x, wire_dtype), mesh),
+                       wire_dtype, x.dtype)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -188,12 +271,13 @@ def _pipelined_rounds(xf: torch.Tensor, mesh, chunks: int,
   src_pos = [(i - j) % world for j in range(world)]
   outs = []
   for c in range(chunks):
-    enc = _encode(xf[:, c * mc:(c + 1) * mc], wire_dtype)
+    # fp8: one scale per (destination block, chunk)
+    enc = _chunk_encode(xf[:, c * mc:(c + 1) * mc], wire_dtype)
     # round k sends my block for rank (i + k) % world
     rounds = [enc[i]] + [_rotate(enc[(i + k) % world], mesh, k)
                          for k in range(1, world)]
-    outs.append(torch.stack([_decode(rounds[p], xf.dtype)
-                             for p in src_pos]))
+    outs.append(_chunk_decode(torch.stack([rounds[p] for p in src_pos]),
+                              wire_dtype, xf.dtype))
   out = outs[0] if chunks == 1 else torch.cat(outs, dim=1)
   return out[:, :m] if pad else out
 
@@ -242,7 +326,11 @@ def pipelined_float_exchange(x: torch.Tensor, mesh,
 
 
 def _block_send(x: torch.Tensor, mesh, k: int, wire_dtype) -> torch.Tensor:
-  return _decode(_rotate(_encode(x, wire_dtype), mesh, k), x.dtype)
+  """encode -> rotate-by-k -> decode of one block (fp8: one scale for
+  the whole block)."""
+  enc = _chunk_encode(x.reshape(1, -1), wire_dtype)
+  return _chunk_decode(_rotate(enc, mesh, k), wire_dtype,
+                       x.dtype).reshape(x.shape)
 
 
 class _FusedBlock(torch.autograd.Function):

@@ -19,7 +19,12 @@ host-side wrapper over ``training.make_sparse_train_step(guard=True)``:
   run itself has diverged and retrying batches cannot fix it;
 - **OOV policy enforcement**: per-class out-of-vocabulary counters from
   the step metrics accumulate here, and ``plan.oov == "error"`` turns a
-  nonzero count into an immediate host-side error.
+  nonzero count into an immediate host-side error;
+- **dedup-capacity overflow**: under a plan's ``dedup_capacity`` the
+  step's per-class ``dedup_overflow`` counts accumulate into
+  ``dedup_overflow_totals`` and the ``train/dedup_overflow/<class>``
+  counters, and travel with the checkpoint (``extra`` and ``telemetry``
+  sections) as the OOV counts do.
 
 Skipped-batch semantics: a skipped batch is as if it never arrived — the
 committed state and step counter are bit-identical to a run fed the same
@@ -105,14 +110,21 @@ def _host_copy(state: Dict[str, Any]) -> Dict[str, Any]:
 def _fetch(loss, metrics):
   """The loss and the metrics on the host in ONE copy: packed into one
   float64 tensor (exact for f32 losses and int32 counters) on their
-  device, then moved. Returns ``(loss, bad_step, oov)``."""
+  device, then moved. Returns ``(loss, bad_step, oov, dedup_overflow)``
+  (the last empty without a ``dedup_capacity``)."""
   names = sorted(metrics["oov"])
+  ovf = metrics.get("dedup_overflow", {})
+  ovf_names = sorted(ovf)
   loss = torch.as_tensor(loss)
   vals = torch.stack([torch.as_tensor(v).to(loss.device, torch.float64)
                       for v in [loss, metrics["bad_step"]] +
-                      [metrics["oov"][n] for n in names]]).cpu()
+                      [metrics["oov"][n] for n in names] +
+                      [ovf[n] for n in ovf_names]]).cpu()
   host = vals.tolist()
-  return host[0], int(host[1]), {n: int(v) for n, v in zip(names, host[2:])}
+  cut = 2 + len(names)
+  return (host[0], int(host[1]),
+          {n: int(v) for n, v in zip(names, host[2:cut])},
+          {n: int(v) for n, v in zip(ovf_names, host[cut:])})
 
 
 class ResilientTrainer:
@@ -121,7 +133,8 @@ class ResilientTrainer:
   Args:
     step_fn: a GUARDED fused train step — built by
       ``training.make_sparse_train_step(..., guard=True)`` — returning
-      ``(state, loss, metrics)`` with ``metrics = {'bad_step', 'oov'}``.
+      ``(state, loss, metrics)`` with ``metrics = {'bad_step', 'oov'[,
+      'dedup_overflow']}``.
     state: the initial train state (replaced by the checkpointed state
       when ``resume=True`` finds one); its device is where the trainer
       places batches and restores checkpoints (the mesh's at world N).
@@ -186,6 +199,10 @@ class ResilientTrainer:
     self.retry_policy = retry_policy
     self._bad = guards.BadStepCounter(max_consecutive_bad)
     self.oov_totals: Dict[str, int] = {}
+    # per-class dedup-capacity overflow totals (plans with dedup_capacity:
+    # the counter that keeps the smaller cap observable; empty, and
+    # absent from snapshots and the summary, otherwise)
+    self.dedup_overflow_totals: Dict[str, int] = {}
     self.resumed_from: Optional[str] = None
     self.async_snapshots = async_snapshots
     self._writer: Optional[threading.Thread] = None
@@ -286,6 +303,9 @@ class ResilientTrainer:
       self._bad.skipped = int(extra.get("skipped", 0))
       self.oov_totals = {str(k): int(v)
                          for k, v in extra.get("oov", {}).items()}
+      self.dedup_overflow_totals = {
+          str(k): int(v)
+          for k, v in extra.get("dedup_overflow", {}).items()}
     return True
 
   def resize(self, *args, **kwargs):
@@ -366,8 +386,11 @@ class ResilientTrainer:
     return True
 
   def _extra(self) -> Dict[str, Any]:
-    return {"consumed": self.consumed, "skipped": self.skipped_steps,
-            "oov": dict(self.oov_totals)}
+    extra = {"consumed": self.consumed, "skipped": self.skipped_steps,
+             "oov": dict(self.oov_totals)}
+    if self.dedup_overflow_totals:
+      extra["dedup_overflow"] = dict(self.dedup_overflow_totals)
+    return extra
 
   def snapshot(self, async_: bool = False) -> str:
     """Durably checkpoint the current state (rotating, with retry).
@@ -420,7 +443,8 @@ class ResilientTrainer:
     return durable.step_dir(self.ckpt_root, step_now)
 
   # ---- stepping ----------------------------------------------------------
-  def _account(self, bad: int, counts: Dict[str, int]) -> None:
+  def _account(self, bad: int, counts: Dict[str, int],
+               overflow: Dict[str, int]) -> None:
     # Account FIRST, enforce second: the oov='error' raise below must
     # leave every counter consistent with the already-incremented
     # consumed count — a supervisor that catches the documented error
@@ -432,6 +456,13 @@ class ResilientTrainer:
       self.oov_totals[name] = self.oov_totals.get(name, 0) + n
       if n:
         reg.counter(f"train/oov/{name}").inc(n)
+    # dedup_capacity overflow: aliased ids must stay observable, so they
+    # are accumulated, summarized and persisted as the OOV counts are
+    for name, n in overflow.items():
+      if n:
+        self.dedup_overflow_totals[name] = \
+            self.dedup_overflow_totals.get(name, 0) + n
+        reg.counter(f"train/dedup_overflow/{name}").inc(n)
     if bad:
       reg.counter("train/bad_step").inc(bad)
     may_continue = self._bad.update(bad)
@@ -472,9 +503,9 @@ class ResilientTrainer:
     self.telemetry.counter("train/consumed").inc()
     # ONE host transfer for everything the accounting reads: one copy
     # per counter would cost a blocking device round-trip apiece
-    loss, bad, counts = _fetch(loss, metrics)
+    loss, bad, counts, overflow = _fetch(loss, metrics)
     dev.finish()  # dispatch -> fetched: the device window
-    self._account(bad, counts)
+    self._account(bad, counts, overflow)
     if self.snapshot_every and \
         self.step_count - self._last_snapshot >= self.snapshot_every:
       self.snapshot(async_=self.async_snapshots)
@@ -504,7 +535,7 @@ class ResilientTrainer:
     return losses
 
   def metrics_summary(self) -> Dict[str, Any]:
-    return {
+    out = {
         "steps": self.step_count,
         "consumed": self.consumed,
         "skipped": self.skipped_steps,
@@ -512,3 +543,6 @@ class ResilientTrainer:
         "oov": dict(self.oov_totals),
         "resumed_from": self.resumed_from,
     }
+    if self.dedup_overflow_totals:
+      out["dedup_overflow"] = dict(self.dedup_overflow_totals)
+    return out

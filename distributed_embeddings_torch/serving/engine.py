@@ -17,10 +17,12 @@ against its own serve blocks, and the exchange of the port's world-N
 eval step brings each rank its slice's activations. :meth:`ServeEngine.
 dispatch` returns the GLOBAL predictions on every rank (the JAX engine's
 batch-sharded output, gathered), so a ``MicroBatcher`` in front of it
-de-interleaves by position at any world.
+de-interleaves by position at any world. Under ``dedup_exchange=True``
+each rank gathers (and dequantizes) one row per unique id of every
+requesting rank's block, and the requesting rank expands and combines
+them, as in the eval step.
 
-Not ported yet: tiered serving, deduplicated routing, ragged value
-streams.
+Not ported yet: tiered serving, ragged value streams.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..device import resolve_device
 from ..ops.packed_table import PackedLayout, gather_fused_chunked
 from ..parallel import wire
 from ..parallel.lookup_engine import (
+    DedupRouted,
     DistributedLookup,
     class_param_name,
     padded_rows,
@@ -146,13 +149,19 @@ def _serve_lookup(engine: DistributedLookup,
     key = bk.class_key
     if engine.plan.classes[key].kind != "sparse":
       continue
-    if not isinstance(ids, torch.Tensor):
-      raise NotImplementedError(
-          f"routed ids of type {type(ids).__name__}: deduplicated and "
-          "ragged routing are not ported yet")
     name = class_param_name(*key)
     m = meta[name]
     buf = engine._squeeze_local(serve_params[name])
+    if isinstance(ids, DedupRouted):
+      # one row per unique id; the requesting rank expands and combines
+      # them in the exchange (engine.exchange)
+      z[bk] = _dequant_rows(
+          gather_fused_chunked(layouts[name], buf, ids.uniq), m)
+      continue
+    if not isinstance(ids, torch.Tensor):
+      raise NotImplementedError(
+          f"routed ids of type {type(ids).__name__}: ragged routing is "
+          "not ported yet")
     raw = gather_fused_chunked(layouts[name], buf, ids)
     oids = ids_order[bk]
     multi_hot = oids.dim() == 3 and oids.shape[-1] > 1
@@ -186,7 +195,7 @@ def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
         "bound aliases distinct ids onto the cap's last slot — those "
         "predictions read the WRONG rows — and the serve step carries no "
         "metrics path to count it. Serve an uncapped plan (the artifact "
-        "is the same).")
+        "is the same), or use make_sparse_eval_step(with_metrics=True).")
   if getattr(plan, "oov", "clip") == "error":
     raise ValueError(
         "plan.oov='error' is not servable: enforcement rides the guarded "

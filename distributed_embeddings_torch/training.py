@@ -587,9 +587,12 @@ def _make_guard_helpers(plan: DistEmbeddingStrategy, mesh=None):
     carrying ANY out-of-range id commits nothing, so the host-side
     ``check_oov`` raise fires with the state bit-identical to before the
     batch.
-  - ``guard_metrics(ok, oov)``: the ``{'bad_step', 'oov'}`` metrics dict,
-    the counters summed over the ranks (one ``all_reduce(SUM)``, the JAX
-    ``psum``), the same on every rank."""
+  - ``guard_metrics(ok, oov, overflow=None)``: the ``{'bad_step',
+    'oov'}`` metrics dict, the counters summed over the ranks (one
+    ``all_reduce(SUM)``, the JAX ``psum``), the same on every rank; with
+    ``overflow`` (per-class dedup-capacity overflow counts, plans with
+    ``dedup_capacity``) a ``'dedup_overflow'`` dict joins it, summed in
+    the same ``all_reduce``."""
   from .resilience.guards import all_finite
   world = 1 if mesh is None else mesh.world
   oov_is_error = getattr(plan, "oov", "clip") == "error"
@@ -612,13 +615,21 @@ def _make_guard_helpers(plan: DistEmbeddingStrategy, mesh=None):
       return None
     return torch.stack(list(oov.values())).sum() == 0
 
-  def guard_metrics(ok, oov):
-    if world > 1 and oov:
-      names = list(oov)
-      total = torch.stack([oov[n] for n in names])
+  def guard_metrics(ok, oov, overflow=None):
+    counters = [("oov", n, c) for n, c in oov.items()]
+    if overflow is not None:
+      counters += [("dedup_overflow", n, c) for n, c in overflow.items()]
+    if world > 1 and counters:
+      total = torch.stack([c.to(torch.int32) for _, _, c in counters])
       dist.all_reduce(total)
-      oov = dict(zip(names, total.unbind()))
-    return {"bad_step": 1 - ok.to(torch.int32), "oov": oov}
+      counters = [(part, n, c) for (part, n, _), c in
+                  zip(counters, total.unbind())]
+    out = {"bad_step": 1 - ok.to(torch.int32), "oov": {}}
+    if overflow is not None:
+      out["dedup_overflow"] = {}
+    for part, n, c in counters:
+      out[part][n] = c
+    return out
 
   return guard_gate, oov_ok, guard_metrics
 
@@ -651,11 +662,23 @@ def _refuse_unported(plan, mesh, micro_batches: int, guard: bool,
         "exact path re-gathers rows and builds its deltas inside the "
         "apply. Use per-occurrence semantics (exact=False) with the "
         "guard.")
-  if getattr(plan, "dedup_capacity", None) is not None:
-    raise NotImplementedError(
-        "plan.dedup_capacity caps the deduplicated exchange "
-        "(dedup_exchange=True), which is not ported yet (ROADMAP.md §1 "
-        "item 7)")
+  if exact and getattr(plan, "wire_dtype", "f32") != "f32":
+    raise ValueError(
+        "exact=True requires wire_dtype='f32': the exact path reproduces "
+        "the reference's deduplicated backward bit-for-bit, and a "
+        "bf16/fp8-narrowed cotangent exchange breaks that claim before "
+        "the sort ever runs. Build the plan with wire_dtype='f32' (the "
+        "dedup_exchange and overlap='pipelined' knobs compose with exact "
+        "fine — dedup only changes which ids reach the mp side, and the "
+        "pipelined f32 wire is bit-exact pure data movement).")
+  if getattr(plan, "dedup_capacity", None) is not None and not guard:
+    raise ValueError(
+        "plan.dedup_capacity requires make_sparse_train_step(guard=True): "
+        "a capacity below the safe bound aliases distinct ids onto the "
+        "cap's last slot — those occurrences gather and UPDATE the wrong "
+        "rows — and only the guarded step surfaces the psum'd "
+        "'dedup_overflow' counter that makes that observable. Build with "
+        "guard=True or drop the capacity override.")
   oov = getattr(plan, "oov", "clip")
   if oov == "allocate":
     raise NotImplementedError(
@@ -737,8 +760,12 @@ def make_sparse_train_step(model: torch.nn.Module,
       host once (torch optimizers step on the host). It then returns
       ``(state, loss, metrics)`` with ``metrics = {'bad_step': int32 0/1,
       'oov': {class: int32 count}}`` (counts summed over the ranks; the
-      loss is the observed, possibly NaN, value). Incompatible with
-      ``exact=True``.
+      loss is the observed, possibly NaN, value), and with the plan's
+      ``dedup_capacity`` a ``'dedup_overflow'`` dict of per-class counts
+      (distinct ids aliased past the capped unique blocks, summed over
+      the ranks and micro-batches; they ride the metrics, adding no host
+      read). Incompatible with ``exact=True``; a capped plan requires
+      it.
 
   Returns:
     ``step(state, numerical, cats, labels) -> (state, loss)`` (with
@@ -757,12 +784,14 @@ def make_sparse_train_step(model: torch.nn.Module,
   # lanes needs the forward-time rows saved
   keep_rows = bool(rule.weight_decay) and not rule.n_aux and not exact
   guard_gate, oov_ok, guard_metrics = _make_guard_helpers(plan, mesh)
+  has_dedup_cap = getattr(plan, "dedup_capacity", None) is not None
 
   def backward(state, numerical, cats, labels, loss_scale):
     """Route, gather, forward and backward of one (micro-)batch: the
     dense gradients land in ``.grad`` (of ``loss * loss_scale``);
-    returns ``(loss, d_z, residuals)``, ``d_z`` the sparse activations'
-    cotangents."""
+    returns ``(loss, d_z, residuals, overflow)``, ``d_z`` the sparse
+    activations' cotangents, ``overflow`` this rank's per-class
+    dedup-capacity overflow counts (None for an uncapped plan)."""
     b = numerical.shape[0]
     hotness = [ragged_hotness(c) for c in cats]
     hotness_of = lambda i: hotness[i]  # noqa: E731
@@ -786,7 +815,9 @@ def make_sparse_train_step(model: torch.nn.Module,
       loss = loss + world * reg_fn(state["emb_dense"], rank)
     (loss * loss_scale if loss_scale != 1.0 else loss).backward()
     d_z = {bk: _grad_of(z) for bk, z in z_leaves.items()}
-    return loss.detach(), d_z, residuals
+    overflow = (engine.dedup_overflow_counts(ids_all) if has_dedup_cap
+                else None)
+    return loss.detach(), d_z, residuals, overflow
 
   def micro_slices(numerical, cats, labels):
     """This rank's batch as ``n_mb`` equal slices (the JAX step's
@@ -807,13 +838,17 @@ def make_sparse_train_step(model: torch.nn.Module,
     """Micro-batched: a loop of backwards, the streams stashed, then one
     dense reduction and one scatter per class."""
     stash: Dict[str, tuple] = {}
-    loss = None
+    loss = overflow = None
     # d_z takes 1 / (n_mb * world) as in the JAX step: 1 / n_mb from the
     # loss scale, 1 / world here (finalize_hybrid_grads gives the dense
     # gradients theirs)
     dz_scale = 1.0 / world
     for i, mb in enumerate(micro_slices(numerical, cats, labels)):
-      loss_i, d_z, residuals = backward(state, *mb, 1.0 / n_mb)
+      loss_i, d_z, residuals, ovf = backward(state, *mb, 1.0 / n_mb)
+      if ovf is not None:
+        # each micro-batch routes its own capped unique blocks
+        overflow = ovf if overflow is None else {
+            n: overflow[n] + c for n, c in ovf.items()}
       if dz_scale != 1.0:
         d_z = _scale_d_z(d_z, dz_scale)
       with torch.no_grad():
@@ -831,13 +866,13 @@ def make_sparse_train_step(model: torch.nn.Module,
       del streams, d_z, residuals
       loss = loss_i / n_mb if loss is None else loss + loss_i / n_mb
     return loss, {name: (ids.reshape(-1), rows.reshape(-1, rows.shape[-1]))
-                  for name, (ids, rows) in stash.items()}
+                  for name, (ids, rows) in stash.items()}, overflow
 
   def step(state, numerical, cats, labels):
     _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
     cats = list(cats)
     if n_mb == 1 and not guard:
-      loss, d_z, residuals = backward(state, numerical, cats, labels, 1.0)
+      loss, d_z, residuals, _ = backward(state, numerical, cats, labels, 1.0)
       d_z, loss = _reduce_dense(state, d_z, loss, mesh)
       _apply_dense(state, mesh, con_fn)
       with torch.no_grad():
@@ -846,11 +881,12 @@ def make_sparse_train_step(model: torch.nn.Module,
       state["step"] += 1
       return state, loss
     if n_mb > 1:
-      loss, streams = step_mb(state, numerical, cats, labels)
+      loss, streams, overflow = step_mb(state, numerical, cats, labels)
       grads_ok = _grads_ok(state, guard)
       _, loss = _reduce_dense(state, {}, loss, mesh)
     else:
-      loss, d_z, residuals = backward(state, numerical, cats, labels, 1.0)
+      loss, d_z, residuals, overflow = backward(state, numerical, cats,
+                                                labels, 1.0)
       # checked before the reduction (the JAX step's grads_chk), as a
       # device flag: the reduction scales .grad in place
       grads_ok = _grads_ok(state, guard)
@@ -865,7 +901,7 @@ def make_sparse_train_step(model: torch.nn.Module,
       oov = engine.oov_counts(cats)
       with torch.no_grad():
         ok, streams = guard_gate(loss, grads_ok, streams, oov_ok(oov))
-      metrics = guard_metrics(ok, oov)
+      metrics = guard_metrics(ok, oov, overflow)
     with torch.no_grad():
       engine.apply_sparse_streams(state["fused"], layouts, streams, rule,
                                   state["step"])
@@ -907,13 +943,19 @@ def make_sparse_eval_step(model: torch.nn.Module,
   {'oov': {class_name: int32 count}}``: the per-class out-of-vocabulary
   occurrence counters the guarded train step surfaces, summed over the
   ranks (the same on every rank). Under ``oov='error'`` such a batch is
-  then counted, not refused."""
+  then counted, not refused. A plan with ``dedup_capacity`` adds a
+  ``'dedup_overflow'`` dict (distinct ids aliased past the capped unique
+  blocks: those predictions read the wrong rows) and requires
+  ``with_metrics``."""
   _check_mesh(plan, mesh)
-  if getattr(plan, "dedup_capacity", None) is not None:
-    raise NotImplementedError(
-        "plan.dedup_capacity caps the deduplicated exchange "
-        "(dedup_exchange=True), which is not ported yet (ROADMAP.md §1 "
-        "item 7)")
+  has_dedup_cap = getattr(plan, "dedup_capacity", None) is not None
+  if has_dedup_cap and not with_metrics:
+    raise ValueError(
+        "plan.dedup_capacity requires make_sparse_eval_step("
+        "with_metrics=True): a capacity below the safe bound aliases "
+        "distinct ids onto the cap's last slot — those predictions read "
+        "the WRONG rows — and only the metrics path surfaces the psum'd "
+        "'dedup_overflow' counter that makes that observable.")
   if getattr(plan, "oov", "clip") == "allocate":
     raise ValueError("plan.oov='allocate' is not evaluable: allocation "
                      "mutates the id space; evaluate with oov='clip'")
@@ -937,9 +979,11 @@ def make_sparse_eval_step(model: torch.nn.Module,
                             {"emb_acts": acts})
     if not with_metrics:
       return preds
-    oov = guard_metrics(torch.ones((), dtype=torch.bool),
-                        engine.oov_counts(cats))["oov"]
-    return preds, {"oov": oov}
+    metrics = guard_metrics(
+        torch.ones((), dtype=torch.bool), engine.oov_counts(cats),
+        engine.dedup_overflow_counts(ids_all) if has_dedup_cap else None)
+    del metrics["bad_step"]
+    return preds, metrics
 
   return local_eval
 
@@ -994,10 +1038,12 @@ def _refuse_dense_step(plan: Optional[DistEmbeddingStrategy]) -> None:
         "dense-autodiff builder does not hold. Use a static oov policy.")
   if getattr(plan, "dedup_capacity", None) is not None:
     raise NotImplementedError(
-        "plan.dedup_capacity caps the deduplicated exchange below its safe "
-        "bound, which is only legal beside the overflow counter that makes "
-        "aliasing observable; this dense-autodiff builder has no metrics "
-        "path. Use the guarded sparse step or drop the capacity override.")
+        "plan.dedup_capacity caps the dedup'd exchange's unique blocks "
+        "below their safe bound, which is only legal next to the overflow "
+        "counter that makes aliasing observable — this dense-autodiff "
+        "builder has no metrics path. Use "
+        "make_sparse_train_step(guard=True) (psum'd 'dedup_overflow' "
+        "metric) or drop the capacity override.")
 
 
 def _check_on(model: torch.nn.Module, dev: torch.device) -> None:

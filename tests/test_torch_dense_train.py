@@ -222,8 +222,16 @@ def test_make_train_step_refusals():
                      "dedup_capacity")):
     plan = TStrategy(_plan_configs(TTableConfig, {}), 1,
                      dense_row_threshold=THRESHOLD, **kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as et:
       ttr.make_train_step(*args, plan=plan, device="cpu")
+    if "dedup_capacity" in kw:
+      # the JAX builder's refusal, word for word
+      jplan = DistEmbeddingStrategy(_plan_configs(TableConfig, {}), 1,
+                                    dense_row_threshold=THRESHOLD, **kw)
+      with pytest.raises(NotImplementedError) as ej:
+        make_train_step(lambda p, *b: 0.0, optax.sgd(LR), None, {}, {},
+                        (), plan=jplan)
+      assert str(et.value) == str(ej.value)
   with pytest.raises(ValueError, match="lies on"):
     ttr.make_train_step(*args, device="meta")
 

@@ -25,8 +25,10 @@ the JAX package's.
 - **Eval metrics**: ``make_sparse_eval_step(with_metrics=True)`` counts
   as the JAX eval step does, at world 1 and 4.
 - **Refusals**: ``guard`` with ``exact`` and ``oov='error'`` without the
-  guard with the JAX messages; ``dedup_capacity`` (ROADMAP item 7) and
-  ``oov='allocate'`` (item 12) by name.
+  guard with the JAX messages; ``oov='allocate'`` (item 12) by name. A
+  ``dedup_capacity`` plan is refused without the guard (and by the eval
+  step without metrics) with the JAX messages, and with them reports the
+  JAX steps' ``dedup_overflow`` counters.
 """
 
 import functools
@@ -376,15 +378,55 @@ def test_refusals():
   with pytest.raises(NotImplementedError, match="item 12"):
     ttr.make_sparse_train_step(_tmodel(), alloc, torch_bce, sgd, trule,
                                guard=True)
-  capped = TStrategy([TTableConfig(input_dim=v, output_dim=D)
-                      for v in VOCAB], 1, dense_row_threshold=THRESHOLD,
-                     dedup_exchange=True, dedup_capacity=8)
-  for build in (lambda: ttr.make_sparse_train_step(
-      _tmodel(), capped, torch_bce, sgd, trule, guard=True),
-                lambda: ttr.make_sparse_eval_step(_tmodel(), capped, trule,
-                                                  with_metrics=True)):
-    with pytest.raises(NotImplementedError, match="item 7"):
-      build()
+  # a capped dedup_capacity: refused without the counter path, with the
+  # JAX messages; with it, the guarded step and the eval step surface the
+  # per-class dedup_overflow counters the JAX steps return (zero at world
+  # 1, where nothing crosses a wire to dedup)
+  jcap, tcap = (
+      cls([cfg(input_dim=v, output_dim=D,
+               combiner="sum" if i in HOT else None)
+           for i, v in enumerate(VOCAB)], 1,
+          dense_row_threshold=THRESHOLD, dedup_exchange=True,
+          dedup_capacity=8)
+      for cls, cfg in ((DistEmbeddingStrategy, TableConfig),
+                       (TStrategy, TTableConfig)))
+  batch = _batches(1)[0]
+  with pytest.raises(ValueError) as et:
+    ttr.make_sparse_train_step(_tmodel(), tcap, torch_bce, sgd, trule)
+  with pytest.raises(ValueError) as ej:
+    make_sparse_train_step(_jax_model(), jcap, bce_loss, optax.sgd(LR),
+                           jrule, None, state, batch)
+  assert str(et.value) == str(ej.value)
+  with pytest.raises(ValueError) as et:
+    ttr.make_sparse_eval_step(_tmodel(), tcap, trule)
+  with pytest.raises(ValueError) as ej:
+    make_sparse_eval_step(_jax_model(), jcap, jrule, None, state, batch)
+  assert str(et.value) == str(ej.value)
+  jstep = make_sparse_train_step(_jax_model(), jcap, bce_loss,
+                                 optax.sgd(LR), jrule, None, state, batch,
+                                 guard=True, donate=False)
+  _, jloss, jm = jstep(state, jnp.asarray(batch[0]),
+                       [jnp.asarray(c) for c in batch[1]],
+                       jnp.asarray(batch[2]))
+  tstep = ttr.make_sparse_train_step(_tmodel(), tcap, torch_bce, sgd,
+                                     trule, guard=True)
+  tstate = train_state_from_flax(_numpy_state(state), device="cpu")
+  _, tloss, tm = tstep(tstate, torch.tensor(batch[0]),
+                       [torch.tensor(c) for c in batch[1]],
+                       torch.tensor(batch[2]))
+  np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+  want = {k: int(v) for k, v in jm["dedup_overflow"].items()}
+  assert {k: int(v) for k, v in tm["dedup_overflow"].items()} == want
+  assert set(want) == set(tm["oov"])
+  jev = make_sparse_eval_step(_jax_model(), jcap, jrule, None, state,
+                              batch, with_metrics=True)
+  _, jem = jev(state, jnp.asarray(batch[0]),
+               [jnp.asarray(c) for c in batch[1]])
+  _, tem = ttr.make_sparse_eval_step(_tmodel(), tcap, trule,
+                                     with_metrics=True)(
+      tstate, torch.tensor(batch[0]), [torch.tensor(c) for c in batch[1]])
+  assert {k: int(v) for k, v in tem["dedup_overflow"].items()} == \
+      {k: int(v) for k, v in jem["dedup_overflow"].items()}
 
 
 # ---------------------------------------------------------------------------

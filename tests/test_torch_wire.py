@@ -8,7 +8,9 @@ it stands for (``out_i[j] = x_j[i]``), forward and, under
 ``torch.autograd``, backward (the reverse exchange brings ``ct_j[i]``
 back to rank ``i``). The bf16 wire is held bit-exact to the JAX package's
 ``float_all_to_all`` on a CPU mesh of as many devices, on the same
-inputs and cotangents.
+inputs and cotangents; the fp8 wire (one amax scale per destination
+block and chunk, shipped in the block) to the JAX package's monolithic,
+pipelined and fused fp8 exchanges, forward and backward.
 """
 
 import functools
@@ -128,21 +130,77 @@ def test_bf16_wire_matches_jax_float_all_to_all(ranks):
 
 
 def test_world_one_is_the_identity_and_fp8_is_refused():
+  """World 1 has no wire, fp8 included; the fp8 knob (once refused) now
+  names the float8_e4m3fn wire, as the JAX package's does."""
   x = torch.arange(12.0).reshape(1, 3, 4)
   assert twire.float_all_to_all(x, None) is x
   assert twire.exchange_ids(x, None) is x
   assert twire.pipelined_float_exchange(x, None, torch.bfloat16, 2) is x
   assert twire.fused_block_send(x, None, 0) is x
+  assert twire.float_all_to_all(x, None, twire.FP8) is x
+  assert twire.fused_block_send(x, None, 1, twire.FP8) is x
 
   class Plan:
     wire_dtype = "fp8"
     overlap = "bogus"
 
-  with pytest.raises(NotImplementedError, match="fp8"):
+  assert twire.plan_wire_dtype(Plan()) == torch.float8_e4m3fn
+  assert jnp.dtype(jwire.plan_wire_dtype(Plan())) == jnp.float8_e4m3fn
+  Plan.wire_dtype = "f8"
+  with pytest.raises(ValueError, match="wire_dtype"):
     twire.plan_wire_dtype(Plan())
   with pytest.raises(ValueError, match="overlap"):
     twire.plan_overlap(Plan())
   assert twire.fused_round_perm(1, 4) == [(0, 1), (1, 2), (2, 3), (3, 0)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fp8_exchanges(world):
+  """The JAX package's fp8 exchanges on a CPU mesh, forward and backward:
+  monolithic, pipelined per chunk count, fused (one block per round)."""
+  mesh = Mesh(np.asarray(jax.devices()[:world]), ("mp",))
+  fp8 = jnp.float8_e4m3fn
+
+  def fused(v):
+    i = jax.lax.axis_index("mp")
+    xr = jnp.roll(v, -i, axis=0)
+    got = jnp.stack([jwire.fused_block_send(xr[k], "mp", k, world, fp8)
+                     for k in range(world)])
+    return jnp.take(got, jnp.mod(i - jnp.arange(world), world), axis=0)
+
+  fns = {"mono": lambda v: jwire.float_all_to_all(v, "mp", fp8),
+         "fused": fused}
+  for c in CHUNKS:
+    fns[f"pipe{c}"] = functools.partial(
+        jwire.pipelined_float_exchange, axis_name="mp", wire_dtype=fp8,
+        chunks=c)
+
+  def local(x, ct):
+    out = {}
+    for name, f in fns.items():
+      y, vjp = jax.vjp(f, x[0])
+      out[name] = (y[None], vjp(ct[0])[0][None])
+    return out
+
+  spec = {name: (P("mp"), P("mp")) for name in fns}
+  return jax.jit(shard_map(local, mesh=mesh, in_specs=(P("mp"), P("mp")),
+                           out_specs=spec))
+
+
+@pytest.mark.parametrize("schedule", ["mono", "pipe1", "pipe2", "pipe3",
+                                      "fused"])
+def test_fp8_wire_matches_jax_both_directions(ranks, schedule):
+  world, x, ct, _, out = ranks
+  got_j = _jax_fp8_exchanges(world)(jnp.asarray(x), jnp.asarray(ct))
+  y, g = (np.asarray(a) for a in got_j[schedule])
+  for rank in range(world):
+    got_y, got_g = out[rank][f"fp8/{schedule}"]
+    assert got_y.dtype == got_g.dtype == np.float32
+    np.testing.assert_array_equal(got_y, y[rank])
+    np.testing.assert_array_equal(got_g, g[rank])
+  # the wire narrowed: within e4m3's half-ulp of each block's amax
+  assert 0 < np.abs(out[0][f"fp8/{schedule}"][0]
+                    - _permuted(x)[0]).max() <= 2.0 ** -4 * np.abs(x).max()
 
 
 def test_backend_follows_the_topology():

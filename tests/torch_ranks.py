@@ -133,11 +133,19 @@ def wire_job(mesh, spec):
 
   out["f32/fused"] = fwd_bwd(fused)
   out["bf16/fused"] = fwd_bwd(lambda t: fused(t, torch.bfloat16))
+  out["fp8/mono"] = fwd_bwd(
+      lambda t: wire.float_all_to_all(t, mesh, wire.FP8))
+  for c in spec["chunks"]:
+    out[f"fp8/pipe{c}"] = fwd_bwd(
+        lambda t, c=c: wire.pipelined_float_exchange(t, mesh, wire.FP8, c))
+  out["fp8/fused"] = fwd_bwd(lambda t: fused(t, wire.FP8))
   out["gather"] = wire.gather_blocks(x[0], mesh).numpy()
   return out
 
 
-def _train_plan(spec, overlap, chunks):
+def _train_plan(spec, overlap, chunks, **plan_kw):
+  """The port plan of a spec's tables under ``overlap`` and ``chunks``;
+  ``plan_kw`` adds plan knobs (the wire's among them)."""
   from distributed_embeddings_torch.layers.embedding import TableConfig
   from distributed_embeddings_torch.layers.planner import (
       DistEmbeddingStrategy,
@@ -149,7 +157,7 @@ def _train_plan(spec, overlap, chunks):
       tables, spec["world"], spec["strategy"],
       dense_row_threshold=spec["dense_row_threshold"],
       row_slice_threshold=spec["row_slice"], batch_hint=spec["batch"],
-      overlap=overlap, exchange_chunks=chunks)
+      overlap=overlap, exchange_chunks=chunks, **plan_kw)
 
 
 def train_job(mesh, spec):
@@ -238,8 +246,9 @@ def serve_job(mesh, spec):
   loads that artifact and the JAX package's (``spec['jax']``) with its
   mesh, and answers each global request of ``spec['requests']`` through
   a ``ServeEngine`` on either, and on the in-memory ``FrozenTables``;
-  for f32 also through the world-N eval step. Returns every global
-  prediction this rank saw."""
+  for f32 also through the world-N eval step (``spec['plan_kw']``: more
+  plan knobs, the wire's). Returns every global prediction this rank
+  saw."""
   import os
 
   import torch
@@ -256,7 +265,7 @@ def serve_job(mesh, spec):
       load,
   )
 
-  plan = _train_plan(spec, "fused", 2)
+  plan = _train_plan(spec, "fused", 2, **spec.get("plan_kw", {}))
   rule = sgd_rule(spec["lr"])
   state = train_state_from_flax(spec["state"], mesh=mesh)
 
@@ -308,10 +317,11 @@ def dense_golden_job(mesh, spec):
       golden, mesh, ov, ch, cd) for ov, ch, cd in spec["schedules"]}
 
 
-def _tiny_rec(spec, mesh, overlap, chunks):
+def _tiny_rec(spec, mesh, overlap, chunks, **wire_kw):
   """A minimal model that owns a ``DistributedEmbedding``: the numerical
   features and every input's activation concatenated into one linear
-  head (the flax model of ``tests/test_torch_dense_train_world4.py``)."""
+  head (the flax model of ``tests/test_torch_dense_train_world4.py``);
+  ``wire_kw`` sets the layer's wire compression."""
   import torch
   from torch import nn
 
@@ -330,7 +340,7 @@ def _tiny_rec(spec, mesh, overlap, chunks):
            for i, v in enumerate(spec["vocab"])], "memory_balanced",
           row_slice=spec["row_slice"], world_size=mesh.world,
           dense_row_threshold=spec["dense_row_threshold"],
-          overlap=overlap, exchange_chunks=chunks, mesh=mesh)
+          overlap=overlap, exchange_chunks=chunks, mesh=mesh, **wire_kw)
       self.head = nn.Linear(spec["num"] + spec["dim"] * len(spec["vocab"]),
                             1)
 
@@ -346,9 +356,10 @@ def dense_extras_job(mesh, spec):
   the plan's penalties (``spec['penalties']``: an l2 regularizer, a
   max_norm constraint), a multi-hot ``mean`` input and the port's
   ``training.Adagrad``, per ``(overlap, chunks)`` of
-  ``spec['schedules']``, from the JAX init ``spec['init']``; every rank
-  returns ``{overlap/chunks: (losses, global final params, global
-  preds)}``."""
+  ``spec['schedules']`` (or ``(overlap, chunks, wire knobs)``, keyed
+  ``overlap/chunks/<knob>=<value>...``), from the JAX init
+  ``spec['init']``; every rank returns ``{overlap/chunks: (losses, global
+  final params, global preds)}``."""
   import torch
 
   from distributed_embeddings_torch import training as ttr
@@ -371,8 +382,9 @@ def dense_extras_job(mesh, spec):
   init["head.weight"] = spec["init"]["head"]["kernel"].T.copy()
   init["head.bias"] = spec["init"]["head"]["bias"]
   out = {}
-  for overlap, chunks in spec["schedules"]:
-    model = _tiny_rec(spec, mesh, overlap, chunks)
+  for overlap, chunks, *wire_kw in spec["schedules"]:
+    wire_kw = wire_kw[0] if wire_kw else {}
+    model = _tiny_rec(spec, mesh, overlap, chunks, **wire_kw)
     assert model.embeddings.plan.class_keys == plan.class_keys
     model.load_state_dict(ttr.shard_params(init, mesh))
     opt = ttr.Adagrad(model.parameters(), lr=spec["lr"])
@@ -389,7 +401,9 @@ def dense_extras_job(mesh, spec):
     for name, p in model.embeddings.class_params().items():
       final[f"embeddings.{name}"] = wire.gather_blocks(p.detach(),
                                                       mesh).numpy()
-    out[f"{overlap}/{chunks}"] = (losses, final, preds.numpy())
+    key = "/".join([overlap, str(chunks)] + [
+        f"{k}={v}" for k, v in sorted(wire_kw.items())])
+    out[key] = (losses, final, preds.numpy())
   return out
 
 
@@ -566,10 +580,12 @@ def ckpt_job(mesh, spec):
 def mb_guard_job(mesh, spec):
   """The micro-batched and the guarded sparse step at world N: per entry
   of ``spec['runs']`` (``name``, ``overlap``, ``micro_batches``,
-  ``guard``, optionally ``oov``, ``nan_rank`` and ``oov_rank``) the port's
-  state from the JAX initial state (``spec['state']``, Adagrad on the
-  sparse classes, SGD on the dense tensors), one step per batch of
-  ``spec['batches']``. ``nan_rank`` poisons that rank's slice of the
+  ``guard``, optionally ``oov``, ``nan_rank``, ``oov_rank``, ``rule``
+  (default ``spec['rule']``), ``plan_kw`` (more plan knobs: the wire's)
+  and ``chunks``) the port's state from the JAX initial state
+  (``spec['state']``, the rule's sparse classes, SGD on the dense
+  tensors), one step per batch of ``spec['batches']`` (or the run's own
+  ``batches``). ``nan_rank`` poisons that rank's slice of the
   batch at the steps ``nan_steps`` only; ``oov_rank`` gives one of that
   rank's ids at the steps ``oov_steps`` a value past its vocabulary. Each
   rank returns, per run, the losses, the metrics (guarded), its own
@@ -601,22 +617,27 @@ def mb_guard_job(mesh, spec):
         torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
         else a[k] == b[k]))
 
+  def counts(m):
+    return {k: int(v) for k, v in m.items()}
+
   out = {}
   for run in spec["runs"]:
-    plan = _train_plan(spec, run["overlap"],
-                       1 if run["overlap"] == "none" else 2)
+    plan = _train_plan(spec, run["overlap"], run.get(
+        "chunks", 1 if run["overlap"] == "none" else 2),
+                       **run.get("plan_kw", {}))
     plan.oov = run.get("oov", "clip")
     model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
                  top_mlp=spec["top"], num_numerical=spec["num"],
                  tables=False, device="cpu")
-    rule = getattr(tpt, f"{spec['rule']}_rule")(spec["lr"])
+    rule = getattr(tpt, f"{run.get('rule', spec['rule'])}_rule")(spec["lr"])
     sgd = functools.partial(torch.optim.SGD, lr=spec["lr"])
     state = train_state_from_flax(spec["state"], mesh=mesh)
     step = ttr.make_sparse_train_step(
         model, plan, bce_loss, sgd, rule, mesh=mesh,
         micro_batches=run["micro_batches"], guard=run["guard"])
     losses, metrics, skipped, raised = [], [], [], []
-    for i, (numerical, cats, labels) in enumerate(spec["batches"]):
+    for i, (numerical, cats, labels) in enumerate(
+        run.get("batches", spec["batches"])):
       num_d, cats_d, lab_d = ttr.shard_batch(
           (numerical, list(cats), labels), mesh, device="cpu")
       if run.get("nan_rank") == mesh.rank and i in run.get("nan_steps", ()):
@@ -631,7 +652,9 @@ def mb_guard_job(mesh, spec):
       if run["guard"]:
         m = res[2]
         metrics.append({"bad_step": int(m["bad_step"]),
-                        "oov": {k: int(v) for k, v in m["oov"].items()}})
+                        "oov": counts(m["oov"])})
+        if "dedup_overflow" in m:
+          metrics[-1]["dedup_overflow"] = counts(m["dedup_overflow"])
         try:
           guards.check_oov(plan, m["oov"])
         except ValueError as e:
@@ -643,8 +666,8 @@ def mb_guard_job(mesh, spec):
                                      with_metrics=True)
       num_d, cats_d = ttr.shard_batch(run["eval"], mesh, device="cpu")
       preds, m = ev(state, num_d, list(cats_d))
-      evaluated = {"oov": {k: int(v) for k, v in m["oov"].items()},
-                   "preds": wire.gather_blocks(preds, mesh).numpy()}
+      evaluated = {k: counts(v) for k, v in m.items()}
+      evaluated["preds"] = wire.gather_blocks(preds, mesh).numpy()
     params, aux = ttr.unpack_sparse_state(plan, rule, state,
                                           include_aux=True, mesh=mesh)
     out[run["name"]] = {
@@ -660,12 +683,14 @@ def mb_guard_job(mesh, spec):
 def trainer_job(mesh, spec):
   """``ResilientTrainer`` at world N: every rank builds a trainer over the
   guarded step with its mesh (the port's state from the JAX initial
-  state ``spec['state']``), runs the global host batches
-  ``spec['stream'][:spec['split']]`` with a snapshot every
+  state ``spec['state']``; ``spec['plan_kw']``: more plan knobs), runs
+  the global host batches ``spec['stream'][:spec['split']]`` with a
+  snapshot every
   ``spec['snapshot_every']`` committed steps into ``spec['root']``; then
   a fresh trainer resumes the root and runs the rest of the stream from
   its ``consumed`` position. Each rank returns the losses, the resumed
-  trainer's summary and the global final state unpacked."""
+  trainer's summary, its ``train/dedup_overflow/<class>`` counters and
+  the global final state unpacked."""
   import functools
   import os
 
@@ -681,7 +706,8 @@ def trainer_job(mesh, spec):
   from distributed_embeddings_torch.telemetry import MetricsRegistry
 
   plan = _train_plan(spec, spec["overlap"],
-                     1 if spec["overlap"] == "none" else 2)
+                     1 if spec["overlap"] == "none" else 2,
+                     **spec.get("plan_kw", {}))
   model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
                top_mlp=spec["top"], num_numerical=spec["num"],
                tables=False, device="cpu")
@@ -704,11 +730,64 @@ def trainer_job(mesh, spec):
   losses = losses[:resumed_at] + second.run(spec["stream"][resumed_at:])
   summary = second.metrics_summary()
   summary["resumed_from"] = os.path.basename(summary["resumed_from"] or "")
+  counters = {k: v for k, v in
+              second.telemetry.state_dict()["counters"].items()
+              if k.startswith("train/dedup_overflow/")}
   params, aux = ttr.unpack_sparse_state(plan, rule, second.state,
                                         include_aux=True, mesh=mesh)
   return {"losses": losses, "summary": summary, "resumed_at": resumed_at,
+          "dedup_overflow_counters": counters,
           "unpacked": ({k: v.numpy()
                         for k, v in params["embeddings"].items()},
                        {k: [a.numpy() for a in v] for k, v in aux.items()}),
           "dense": {k: v.detach().numpy()
                     for k, v in second.state["dense"].items()}}
+
+
+def _plan_of(case, world):
+  """A port plan from a picklable case: ``case['tables']`` as ``(vocab,
+  width, combiner)`` triples, ``case['strategy']`` and the plan keywords
+  ``case['plan_kw']`` (the wire knobs among them)."""
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.layers.planner import (
+      DistEmbeddingStrategy,
+  )
+  return DistEmbeddingStrategy(
+      [TableConfig(input_dim=v, output_dim=w, combiner=c)
+       for v, w, c in case["tables"]], world, case["strategy"],
+      **case["plan_kw"])
+
+
+def wire_forward_job(mesh, spec):
+  """``DistributedLookup.forward`` at world N for each case of
+  ``spec['cases']`` (a plan, its global simple-layout class params
+  ``params`` and global ids ``inputs``): every rank looks up its rank's
+  blocks and its slice of the batch; returns ``{name: the global
+  outputs}`` (the ranks' slices gathered in rank order), and for the
+  cases with ``backward`` the gathered global class gradients of
+  ``sum(out * ct)`` for the global cotangents ``ct``."""
+  import torch
+
+  from distributed_embeddings_torch.parallel import wire
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  from distributed_embeddings_torch.training import shard_batch, shard_params
+
+  out = {}
+  for name, case in spec["cases"].items():
+    plan = _plan_of(case, mesh.world)
+    engine = DistributedLookup(plan, mesh=mesh)
+    params = {k: v.requires_grad_(True) for k, v in shard_params(
+        case["params"], mesh, device="cpu").items()}
+    inputs = shard_batch(list(case["inputs"]), mesh, device="cpu")
+    outs = engine.forward(params, inputs)
+    got = {"outs": [wire.gather_blocks(o.detach(), mesh).numpy()
+                    for o in outs]}
+    if "ct" in case:
+      cts = shard_batch(list(case["ct"]), mesh, device="cpu")
+      sum((o * c).sum() for o, c in zip(outs, cts)).backward()
+      got["grads"] = {k: wire.gather_blocks(v.grad, mesh).numpy()
+                      for k, v in params.items()}
+    out[name] = got
+  return out
