@@ -88,7 +88,10 @@ JSON line per phase:
    f32). ``dense_golden``: the same for the dense-autodiff golden
    (``tests/data/torch_dense_train_golden.npz``, three ``optax.sgd``
    steps of the JAX ``make_train_step`` on a small DLRM that owns its
-   tables, its bf16 run) through ``training.make_train_step``;
+   tables, its bf16 run) through ``training.make_train_step``.
+   ``ragged_golden``: the same for the ragged golden
+   (``tests/data/torch_train_ragged_golden.npz``, three SGD steps of a
+   small bf16 DLRM with four ``RaggedIds`` inputs);
 6. ``serve``: the full-width DLRM of ``bench.py`` (26 Criteo-1TB tables
    x 1/16, width 128, dense_row_threshold=4096, bf16 compute, one-hot
    ids, world 1), its packed tables drawn on the card by
@@ -173,7 +176,20 @@ JSON line per phase:
    vocabulary cut to 1/256 (snapshot and restore seconds from the
    trainer's spans, the resumed losses within 1e-5 of the uninterrupted
    run's); ``dlrm_main_mb``, the twin with ``--sparse --micro_batches
-   4``;
+   4``. Then the ragged value streams (slice 15): ``train_ragged``, the
+   train cell's tables with ``combiner='sum'`` and the MLPerf DLRM-DCNv2
+   multi-hot Criteo mix (the 15 features whose bag size h exceeds 1 as
+   ``RaggedIds`` with lengths uniform in [1, h], capacity ``ceil(1.05 B
+   (1 + h) / 2 / 8192) * 8192``, declared by negative ``input_hotness``;
+   about 7.9 M ids a step), f32: one ragged step and one on its padded
+   twin (``ragged_to_padded``) from one state, the losses and every
+   touched row within 1e-5 of each cell's magnitude; 3 timed steps (K1 as
+   predicted from the plan, chunked above 4,194,304 occurrences a class),
+   untouched rows bit-unchanged, two eval forwards bit-equal; then
+   ``serve_ragged``: its state served (bf16, B=4096, the same mix) from
+   f32 and int8 images, in memory and from an artifact, every prediction
+   bit-equal across two calls, the two engines and the eval step on the
+   image's rows;
 9. ``train_zoo``: Tiny at its published widths and full vocabulary (55
    tables, 58 inputs; 8.99 GB of fused buffers in two width-16
    generations and a width-8 class, Adagrad's accumulator interleaved),
@@ -190,7 +206,10 @@ JSON line per phase:
    and most sampled touched ones changed. A further step under
    ``torch.profiler`` (``train_zoo_trace``). Then ``train_zoo_mb``: Tiny
    with ``micro_batches`` 1 and 4 from one state as ``train_mb`` (K6
-   once per sparse bucket and micro-batch);
+   once per sparse bucket and micro-batch). ``train_zoo_ragged``: on the
+   zoo's state, the ten-hot inputs as ``RaggedIds`` (lengths 1-10), one
+   Adagrad step against its padded twin as in ``train_ragged`` (K6 builds
+   the ``h=0`` parts of the narrow classes);
 10. ``world4_golden``, ``train_world4``: four ranks spawned with
    ``torch.multiprocessing``, over NCCL when each owns a card, else over
    gloo with the four sharing the card (the backend is printed). Each
@@ -249,15 +268,24 @@ JSON line per phase:
    one with a generous cap (0), dedup serving bit-equal to raw serving;
    each run's launches as predicted (K4 per round chunk of the unique
    capacity); per variant the step ms, each class's unique share and the
-   float bytes a step sends (raw, dedup, bf16, fp8).
+   float bytes a step sends (raw, dedup, bf16, fp8). After it,
+   ``world4_ragged`` (slice 15): the world-4 tables with the multi-hot
+   mix (a global batch of 65,536, each rank its block), the activations
+   bit-equal under the three schedules (K4 once per ragged bucket and
+   round), a row-sliced ``mean`` table, the padded twin within 1e-5,
+   ``dedup_exchange`` beside raw ragged buckets bit-equal, ragged serving
+   bit-equal to the eval step, a guarded step's OOV counts equal to
+   numpy's, and model-parallel inputs (``pack_mp_inputs``,
+   ``forward_mp``) bit-equal to the dp-input forward with their
+   gradients within 1e-5.
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
 the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
 train, dense, train_ckpt, dlrm_main_sparse, train_mb, train_guard,
-resilient, dlrm_main_mb, zoo, train_zoo_mb and world-4 (sparse train,
-wire compression, guard and micro-batch, checkpoint, dense train and
-serve) phases alone: each sets all nine kernels' counters to 0 just before each
+resilient, dlrm_main_mb, train_ragged, serve_ragged, zoo, train_zoo_mb,
+train_zoo_ragged and world-4 (sparse train, wire compression, ragged,
+guard and micro-batch, checkpoint, dense train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
 run of its path, reads all nine just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
@@ -438,6 +466,26 @@ W4_WIRE_ALPHA = 1.05  # the power-law batch (models/synthetic.py)
 # element: hotness x this x the output's largest magnitude
 W4_WIRE_BOUND = {"bf16": 2.0 ** -8, "fp8": 2.0 ** -3}
 FP8_BLOCKS = 16  # the fp8 codec's CPU-vs-card blocks
+# ragged value streams (slice 15): the MLPerf Training DLRM-DCNv2 multi-hot
+# Criteo bag sizes (its multi_hot_sizes), one per Criteo feature; a feature
+# whose size h exceeds 1 arrives as RaggedIds with lengths uniform in
+# [1, h], the others one-hot
+MULTI_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
+                   12, 100, 27, 10, 3, 1, 1)
+# a stream's capacity: this share over its expected length, rounded up to
+# a multiple of RAGGED_ALIGN (features of one size share a bucket)
+RAGGED_SLACK = 1.05
+RAGGED_ALIGN = 8192
+RAGGED_STEPS = 3  # timed ragged steps (train_ragged)
+# the world-4 ragged cell's row-sliced table given combiner='mean'
+RAGGED_MEAN_FEATURE = 21
+ZOO_RAGGED_HOT = 10  # Tiny's multi-hot inputs as RaggedIds: lengths 1-10
+# model-parallel inputs refuse row slices: their world-4 plan holds the
+# tables whole, cut to x 1/16 on either backend; every rank gathers the
+# global batch's padded ids of its tables (a sixteenth of the cell's batch
+# keeps four ranks' gathers and gradients on one card)
+W4_MP_VOCAB_SCALE = 16
+W4_MP_BATCH = 4096
 
 
 class SmokeFailure(Exception):
@@ -2473,6 +2521,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       del state, buf, step, touch
       torch.cuda.empty_cache()
     out["wire"] = _w4_wire(torch, mesh, backend, batch)
+    out["ragged"] = _w4_ragged(torch, mesh, backend)
     out["guard_mb"] = _w4_guard_mb(torch, mesh, backend, batch)
     out["ckpt"] = _w4_ckpt(torch, mesh, backend, outdir)
     out["dense"] = _w4_dense(torch, mesh, backend, batch)
@@ -2544,6 +2593,8 @@ def phase_world4(torch, smi: str) -> dict:
           "backend": backend, "rank": 0, "card": smi,
           **runs[0]["trace"]})
   wire_totals = emit_wire_world4(backend, smi, [r["wire"] for r in ranks])
+  ragged_totals = emit_ragged_world4(backend, smi,
+                                     [r["ragged"] for r in ranks])
   guard, mb = emit_guard_mb_world4(backend, smi,
                                    [r["guard_mb"] for r in ranks])
   ckpt_totals = emit_ckpt_world4(backend, smi, [r["ckpt"] for r in ranks])
@@ -2554,7 +2605,7 @@ def phase_world4(torch, smi: str) -> dict:
   return {"train_world4": totals, "world4_ckpt": ckpt_totals,
           "train_dense_world4": dense_totals, "serve_world4": serve_totals,
           "train_world4_guard": guard, "train_world4_mb": mb,
-          "world4_wire": wire_totals}
+          "world4_wire": wire_totals, "world4_ragged": ragged_totals}
 
 
 def emit_wire_world4(backend: str, smi: str, res: list) -> dict:
@@ -4526,9 +4577,13 @@ def phase_train_zoo(torch, smi: str) -> dict:
           f"train_zoo_trace: {trace['kernel_device_ms'][name]['launches']} "
           f"device launches of {name} in the traced step, expected {n}")
   emit({"phase": "train_zoo_trace", "card": smi, **trace})
-  del state, step, hits, miss_rows
+  del hits, miss_rows
+  zoo_ragged = _zoo_ragged(torch, smi, plan, rule, step, state, layouts,
+                           batches[0])
+  del state, step
   torch.cuda.empty_cache()
-  return {"train_zoo": totals, "train_zoo_pin": pin_counts}
+  return {"train_zoo": totals, "train_zoo_pin": pin_counts,
+          "train_zoo_ragged": zoo_ragged}
 
 
 def ptxas_report(log: str) -> list:
@@ -4694,6 +4749,929 @@ def phase_unique_map(torch, flush) -> None:
         "ms": times["unique_ids_map"]})
 
 
+# ---------------------------------------------------------------------------
+# ragged value streams (slice 15)
+# ---------------------------------------------------------------------------
+
+
+def ragged_capacity(b: int, h: int) -> int:
+  """The value-stream capacity of ``b`` samples of lengths uniform in
+  ``[1, h]``: ``ceil(RAGGED_SLACK * b * (1 + h) / 2 / RAGGED_ALIGN) *
+  RAGGED_ALIGN``."""
+  import math
+  return math.ceil(RAGGED_SLACK * b * (1 + h) / 2 / RAGGED_ALIGN) \
+      * RAGGED_ALIGN
+
+
+def ragged_stream(torch, b: int, h: int, vocab: int, gen, device,
+                  blocks: int = 1):
+  """One ragged feature: ``blocks`` stacked blocks (the JAX package's
+  global form, each block's splits from 0) of ``b`` samples, lengths
+  uniform in ``[1, h]`` trimmed where a block would pass its capacity, ids
+  uniform over the vocabulary (the dead tail past the live stream
+  too)."""
+  from distributed_embeddings_torch.ops.ragged import RaggedIds
+  cap = ragged_capacity(b, h)
+  vals, splits = [], []
+  for _ in range(blocks):
+    lens = torch.randint(1, h + 1, (b,), generator=gen, device=device)
+    lens = torch.minimum(lens, (cap - (torch.cumsum(lens, 0) - lens))
+                         .clamp(min=0))
+    splits.append(torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)]))
+    vals.append(torch.randint(0, vocab, (cap,), generator=gen, device=device,
+                              dtype=torch.int32))
+  return RaggedIds(torch.cat(vals), torch.cat(splits))
+
+
+def ragged_batch(torch, vocab, b: int, gen, device, blocks: int = 1):
+  """``(numerical, cats, labels)`` of ``blocks * b`` samples of the
+  multi-hot Criteo mix: feature ``i`` ragged with :data:`MULTI_HOT_SIZES`
+  ``[i]`` > 1, else one-hot ``[blocks * b]``."""
+  g = blocks * b
+  numerical = torch.randn((g, 13), generator=gen, device=device)
+  cats = [ragged_stream(torch, b, h, v, gen, device, blocks) if h > 1 else
+          torch.randint(0, v, (g,), generator=gen, device=device,
+                        dtype=torch.int32)
+          for v, h in zip(vocab, MULTI_HOT_SIZES)]
+  labels = torch.randint(0, 2, (g,), generator=gen, device=device).float()
+  return numerical, cats, labels
+
+
+def ragged_live(cats, b: int) -> int:
+  """The live ids of a batch's inputs (ragged streams up to each block's
+  ``row_splits[-1]``, one-hot ids all): one host read per ragged input."""
+  from distributed_embeddings_torch.ops.ragged import RaggedIds
+  total = 0
+  for c in cats:
+    if isinstance(c, RaggedIds):
+      total += int(c.row_splits.view(-1, b + 1)[:, -1].sum())
+    else:
+      total += c.numel()
+  return total
+
+
+def padded_twin(cats):
+  """Each ragged input of a rank's batch padded to its feature's size
+  (``ragged_to_padded``): the same ids, PAD_ID holes."""
+  from distributed_embeddings_torch.ops.ragged import RaggedIds
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      ragged_to_padded,
+  )
+  return [ragged_to_padded(c, h) if isinstance(c, RaggedIds) else c
+          for c, h in zip(cats, MULTI_HOT_SIZES)]
+
+
+def ragged_plan(vocab, world: int = 1, overlap: str = "none", mean=(),
+                hotness=None, **kw):
+  """The multi-hot Criteo cell's plan: ``vocab``'s tables of width 128,
+  ``combiner='sum'`` (``'mean'`` for the features in ``mean``),
+  ``dense_row_threshold=4096``, the ragged features declared by negative
+  ``input_hotness`` (so the planner keeps their tables sparse), or the
+  given ``hotness``."""
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.layers.planner import (
+      DistEmbeddingStrategy,
+  )
+  if hotness is None:
+    hotness = [-h if h > 1 else 1 for h in MULTI_HOT_SIZES]
+  return DistEmbeddingStrategy(
+      [TableConfig(input_dim=int(v), output_dim=D,
+                   combiner="mean" if i in mean else "sum")
+       for i, v in enumerate(vocab)], world,
+      "basic" if world == 1 else "memory_balanced",
+      dense_row_threshold=4096, input_hotness=list(hotness),
+      overlap=overlap, exchange_chunks=1 if overlap == "none" else W4_CHUNKS,
+      **kw)
+
+
+def k1_launches(plan, ids_all, chunk: int = 1 << 22) -> tuple:
+  """K1's launches in one step over ``route_ids``' output (this rank's
+  parts): one per sparse class, or, for a class whose occurrences pass
+  ``chunk``, one per chunk of each of its parts (the apply's rule). Also
+  returns the chunked classes' launches by name, and the delta builds
+  (K6 for a rule with a lane form): one per part, or per chunk of a
+  chunked class."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DedupRouted,
+      class_param_name,
+  )
+  parts = {}
+  for bk, ids in ids_all.items():
+    if plan.classes[bk.class_key].kind != "sparse":
+      continue
+    if isinstance(ids, tuple):
+      n, h = ids[0].numel(), 0
+    elif isinstance(ids, DedupRouted):
+      n, h = ids.uniq.numel(), 0
+    else:
+      n, h = ids.numel(), bk.h
+    parts.setdefault(class_param_name(*bk.class_key), []).append((n, h))
+  total, builds, chunked = 0, 0, {}
+  for name, ps in parts.items():
+    if sum(n for n, _ in ps) <= chunk:
+      total += 1
+      builds += len(ps)
+      continue
+    k = sum(-(-n // max(max(1, h), (chunk // max(1, h)) * max(1, h)))
+            for n, h in ps)
+    total += k
+    builds += k
+    chunked[name] = k
+  return total, chunked, builds
+
+
+def k4_forward_launches(plan, codes) -> int:
+  """K4 launches of one world-N forward under ``overlap='fused'`` for
+  inputs of hotness codes ``codes``: per sparse bucket and round, one for a
+  ragged stream (none for an empty one), else one per row chunk of the
+  round's block (``B_local`` ids, or the unique capacity under
+  ``dedup_exchange``); 0 under the other schedules."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+      padded_rows,
+  )
+  if plan.overlap != "fused":
+    return 0
+  b = W4_BATCH // WORLD
+  total = 0
+  for key in plan.class_keys:
+    if plan.classes[key].kind != "sparse":
+      continue
+    for bucket in class_buckets(plan, key, lambda i: codes[i]):
+      if bucket.h < 0:
+        total += WORLD if -bucket.h - 1 else 0
+        continue
+      rows = b
+      if plan.dedup_exchange:
+        rows = min(bucket.n_b * b * bucket.h, padded_rows(plan, key) + 1)
+        if plan.dedup_capacity is not None:
+          rows = min(rows, plan.dedup_capacity)
+      total += WORLD * min(W4_CHUNKS, rows)
+  return total
+
+
+def touched_rows(torch, plan, layouts, ids_all) -> dict:
+  """Per sparse class, the physical rows a routed batch can change."""
+  from distributed_embeddings_torch.ops.packed_table import _grp_sub
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_param_name,
+  )
+  rows = {}
+  for bk, ids in ids_all.items():
+    if plan.classes[bk.class_key].kind != "sparse":
+      continue
+    name = class_param_name(*bk.class_key)
+    flat = (ids[0] if isinstance(ids, tuple) else ids).reshape(-1)
+    grp, _, valid = _grp_sub(layouts[name], flat)
+    rows.setdefault(name, []).append(grp[valid])
+  return {n: torch.unique(torch.cat(v)) for n, v in rows.items()}
+
+
+def snapshot(torch, state, rows) -> dict:
+  """What a step on a batch touching ``rows`` can change: those packed
+  rows, the dense-class tables, the dense params, the optimizers' states
+  and the step (a train state's worth of memory only on the touched
+  rows)."""
+  import copy
+  return {"fused": {n: state["fused"][n][r].clone() for n, r in rows.items()},
+          "emb_dense": {k: v.detach().clone()
+                        for k, v in state["emb_dense"].items()},
+          "dense": {k: v.detach().clone() for k, v in state["dense"].items()},
+          "opt": {o: (copy.deepcopy(state[o].state_dict())
+                      if isinstance(state[o], torch.optim.Optimizer)
+                      else state[o])
+                  for o in ("dense_opt", "emb_dense_opt")},
+          "step": state["step"]}
+
+
+def restore(torch, state, rows, snap) -> None:
+  """Put a :func:`snapshot` back."""
+  with torch.no_grad():
+    for n, r in rows.items():
+      state["fused"][n][r] = snap["fused"][n]
+    for part in ("emb_dense", "dense"):
+      for k, v in state[part].items():
+        v.copy_(snap[part][k])
+  for o, saved in snap["opt"].items():
+    if isinstance(state[o], torch.optim.Optimizer):
+      state[o].load_state_dict(saved)
+    else:
+      state[o] = saved
+  state["step"] = snap["step"]
+
+
+def touched_now(state, rows) -> dict:
+  """The touched packed rows, the dense-class tables and the dense params
+  as they are now (copies)."""
+  out = {f"fused/{n}": state["fused"][n][r].clone() for n, r in rows.items()}
+  out.update({f"emb_dense/{k}": v.detach().clone()
+              for k, v in state["emb_dense"].items()})
+  out.update({f"dense/{k}": v.detach().clone()
+              for k, v in state["dense"].items()})
+  return out
+
+
+def ragged_vs_twin(torch, step, state, rows, batch, twin, want, want_twin,
+                   counted, what: str) -> dict:
+  """One step on the ragged ``batch`` and one on its padded ``twin`` from
+  the same state (the touched rows put back between them): the losses
+  and every touched row, dense-class table and dense param in the f32
+  class (1e-5 of each cell's magnitude: K1 adds duplicates in its
+  atomics' order, and the two arms order their occurrences otherwise).
+  The state is left as the twin's step left it."""
+  numerical, cats, labels = batch
+  snap = snapshot(torch, state, rows)
+  res = counted(lambda: step(state, numerical, cats, labels), want,
+                f"{what} ragged step")
+  after = touched_now(state, rows)
+  restore(torch, state, rows, snap)
+  del snap
+  res_t = counted(lambda: step(state, numerical, twin, labels), want_twin,
+                  f"{what} padded twin step")
+  close = states_close(torch, after, touched_now(state, rows), 1e-5)
+  loss, loss_t = float(res[1]), float(res_t[1])
+  check(close["within"] and abs(loss - loss_t) <= 1e-5 * max(1.0,
+                                                              abs(loss_t)),
+        f"{what}: the ragged step left its padded twin by "
+        f"{close['max_abs_err']} (losses {loss} / {loss_t})")
+  return {"loss": loss, "twin_loss": loss_t, "loss_bit_equal": loss == loss_t,
+          "touched_rows": sum(int(r.numel()) for r in rows.values()),
+          "max_abs_err": close["max_abs_err"],
+          "cells_differing": close["cells_differing"]}
+
+
+def phase_ragged_golden(torch) -> None:
+  from distributed_embeddings_torch import train_golden
+  data = train_golden.load(train_golden.RAGGED_PATH)
+  losses, got = train_golden.replay_ragged(data, device="cuda")
+  try:
+    worst = train_golden.compare_ragged(data, losses, got)
+  except AssertionError as exc:
+    raise SmokeFailure(f"ragged golden: {exc}") from exc
+  emit({"phase": "ragged_golden", "losses": losses,
+        "want_losses": [float(v) for v in data["losses"]], **worst,
+        "loss_tol": train_golden.LOSS_TOL,
+        "update_tol": train_golden.UPDATE_TOL})
+
+
+def phase_train_ragged(torch, smi: str) -> tuple:
+  """``train_ragged``: the train cell (the 26 Criteo tables x 1/16, width
+  128, SGD ``TRAIN_LR``, B=65,536, f32) with ``combiner='sum'`` and the
+  multi-hot Criteo mix (:func:`ragged_batch`). The ragged step against its
+  padded twin from one state (:func:`ragged_vs_twin`), then
+  ``RAGGED_STEPS`` timed steps (the loss finite, K2-fwd and K2-bwd once,
+  K1 as :func:`k1_launches` predicts, chunked apply included; sampled rows
+  of the first sparse class that the batch does not touch bit-unchanged),
+  and two eval forwards on one state bit-equal. Returns the path's
+  launches and what ``serve_ragged`` serves."""
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_buckets,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_eval_step,
+      make_sparse_train_step,
+  )
+
+  vocab = criteo_vocab()
+  b = TRAIN_BATCH
+  plan = ragged_plan(vocab, batch_hint=b)
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  engine = DistributedLookup(plan)
+  layouts = engine.fused_layouts(rule)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+  batch = ragged_batch(torch, vocab, b, gen, "cuda")
+  twin = padded_twin(batch[1])
+  ids_all = engine.route_ids(batch[1])
+  k1, chunked, _ = k1_launches(plan, ids_all)
+  k1_twin, chunked_twin, _ = k1_launches(plan, engine.route_ids(twin))
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=k1)
+  want_twin = expect(interact_fwd=1, interact_bwd=1, apply_rows=k1_twin)
+  codes = [-(c.values.shape[0] + 1) if h > 1 else 1
+           for c, h in zip(batch[1], MULTI_HOT_SIZES)]
+  buckets = [[bk.h, bk.n_b] for key in plan.class_keys
+             if plan.classes[key].kind == "sparse"
+             for bk in class_buckets(plan, key, lambda i: codes[i])]
+  rows = touched_rows(torch, plan, layouts, ids_all)
+  name0 = next(iter(rows))
+  buf0 = state["fused"][name0]
+  hit = torch.zeros((buf0.shape[0],), dtype=torch.bool, device="cuda")
+  hit[rows[name0]] = True
+  pick = torch.Generator(device="cuda").manual_seed(SEED + 2)
+  miss = torch.nonzero(~hit).squeeze(1)
+  miss = miss[torch.randperm(miss.numel(), generator=pick,
+                             device="cuda")[:ROWS_SAMPLED]]
+  miss_rows = buf0[miss].clone()
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                rule)
+  totals = expect()
+
+  def counted(fn, want_, what):
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    check(got == want_, f"train_ragged {what}: launches {got}, expected "
+          f"{want_}")
+    add_counts(totals, got)
+    return out
+
+  twin_check = ragged_vs_twin(torch, step, state, rows, batch, twin, want,
+                              want_twin, counted, "train_ragged")
+  del twin
+  torch.cuda.empty_cache()
+  ms, losses = [], []
+  for i in range(RAGGED_STEPS):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = counted(lambda: step(state, *batch), want, f"step {i}")
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+    check(losses[-1] == losses[-1] and abs(losses[-1]) < float("inf"),
+          f"train_ragged step {i}: loss {losses[-1]}")
+  check(torch.equal(buf0[miss], miss_rows),
+        "train_ragged: rows the batch does not touch changed")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  ev = make_sparse_eval_step(model, plan, rule)
+  first = counted(lambda: ev(state, *batch[:2]), expect(interact_fwd=1),
+                  "eval 1")
+  second = counted(lambda: ev(state, *batch[:2]), expect(interact_fwd=1),
+                   "eval 2")
+  check(torch.equal(first, second),
+        "train_ragged: two forwards on one state differ")
+  med = statistics.median(ms)
+  emit({"phase": "train_ragged", "card": smi, "batch": b, "compute": "f32",
+        "multi_hot_sizes": list(MULTI_HOT_SIZES),
+        "capacities": {i: c.values.shape[0] for i, c in enumerate(batch[1])
+                       if is_ragged(c)},
+        "occurrences_per_step": ragged_live(batch[1], b),
+        "padded_twin_slots_per_step": sum(c.numel() for c in
+                                          padded_twin(batch[1])),
+        "sparse_buckets": buckets, "init_s": init_s,
+        "fused_bytes": sum(t.numel() * 4 for t in state["fused"].values()),
+        "step_ms": ms, "step_ms_median": med,
+        "samples_per_s": b / (med / 1e3), "peak_gib": peak,
+        "launches_per_step": want, "chunked_apply_launches": chunked,
+        "twin_launches_per_step": want_twin,
+        "twin_chunked_apply_launches": chunked_twin, "losses": losses,
+        "vs_padded_twin": twin_check, "untouched_rows_bit_equal": True,
+        "forward_twice_bit_equal": True})
+  del step, miss_rows, buf0, hit, first, second
+  torch.cuda.empty_cache()
+  return totals, {"vocab": vocab, "plan": plan, "rule": rule,
+                  "state": state}
+
+
+def is_ragged(c) -> bool:
+  """Whether an input is a ragged value stream."""
+  from distributed_embeddings_torch.ops.ragged import RaggedIds
+  return isinstance(c, RaggedIds)
+
+
+def dequantized_state(torch, plan, rule, frozen, state) -> dict:
+  """An eval state whose packed tables are an int8 image's rows
+  dequantized (one multiply, the serve step's), beside the state's
+  dense-class tables and dense params: what the int8 image serves."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  from distributed_embeddings_torch.serving.export import (
+      dequantize_rows_int8,
+  )
+  layouts = DistributedLookup(plan).fused_layouts(rule)
+  fused = {}
+  for name, meta in frozen.meta.items():
+    rows, _ = meta.packed.unpack(frozen.device_blocks[name][0])
+    fused[name] = layouts[name].pack(dequantize_rows_int8(rows))
+  return {"fused": fused, "emb_dense": state["emb_dense"],
+          "dense": state["dense"]}
+
+
+def phase_serve_ragged(torch, smi: str, trained: dict) -> dict:
+  """``serve_ragged``: the serve cell (bf16 compute, B=4096) on
+  ``train_ragged``'s state with its request mix (:func:`ragged_batch`),
+  f32 and int8 images, in memory (``freeze``) and from an artifact
+  (``export`` to a temporary directory, ``load``): per image the
+  predictions of every request bit-equal between two calls, between the
+  two engines, and to ``make_sparse_eval_step``'s on the image's rows
+  (the int8 rows dequantized); K2-fwd once per request. Returns the
+  path's launches."""
+  import os
+  import shutil
+  import tempfile
+
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      export,
+      freeze,
+      load,
+  )
+  from distributed_embeddings_torch.training import make_sparse_eval_step
+
+  plan, rule, state = trained["plan"], trained["rule"], trained["state"]
+  model = DLRM(trained["vocab"], D, compute_dtype=torch.bfloat16,
+               tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+  requests = [ragged_batch(torch, trained["vocab"], SERVE_BATCH, gen,
+                           "cuda")[:2] for _ in range(SERVE_REQUESTS)]
+  ev = make_sparse_eval_step(model, plan, rule)
+  totals = expect()
+
+  def counted(fn, what):
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    check(got == expect(interact_fwd=1), f"serve_ragged {what}: launches "
+          f"{got}, expected one interact_fwd")
+    add_counts(totals, got)
+    return out
+
+  def bits(a):
+    return np.asarray(a).view(np.int32)
+
+  out = {}
+  for q in ("f32", "int8"):
+    frozen = freeze(plan, rule, state, q)
+    ref = state if q == "f32" else dequantized_state(torch, plan, rule,
+                                                     frozen, state)
+    want = [counted(lambda: ev(ref, *r), f"{q} eval").cpu().numpy()
+            for r in requests]
+    del ref
+    eng = ServeEngine(model, plan, frozen)
+    ms = []
+    for i, r in enumerate(requests):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      got = counted(lambda: eng.predict(*r), f"{q} request {i}")
+      ms.append((time.perf_counter() - t0) * 1e3)
+      again = counted(lambda: eng.predict(*r), f"{q} request {i} again")
+      check(np.isfinite(got).all() and np.array_equal(bits(got),
+                                                      bits(again)),
+            f"serve_ragged {q} request {i}: two calls differ")
+      check(np.array_equal(bits(got), bits(want[i])),
+            f"serve_ragged {q} request {i}: the predictions differ from "
+            "the eval step's")
+    del eng
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_ragged_")
+    path = os.path.join(tmp, q)
+    t0 = time.perf_counter()
+    export(path, plan, rule, state, quantize=q)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = load(path, plan, verify_integrity=False)
+    load_s = time.perf_counter() - t0
+    eng = ServeEngine(model, plan, art)
+    for i, r in enumerate(requests):
+      got = counted(lambda: eng.predict(*r), f"{q} artifact request {i}")
+      check(np.array_equal(bits(got), bits(want[i])),
+            f"serve_ragged {q} artifact request {i}: the predictions differ")
+    del eng, art, frozen
+    shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    out[q] = {"request_ms": ms, "request_ms_median": statistics.median(ms),
+              "export_s": export_s, "load_s": load_s}
+  emit({"phase": "serve_ragged", "card": smi, "batch": SERVE_BATCH,
+        "requests": SERVE_REQUESTS, "compute": "bf16",
+        "occurrences_per_request": ragged_live(requests[0][1], SERVE_BATCH),
+        "images": out, "two_calls_bit_equal": True,
+        "artifact_bit_equal": True, "eval_bit_equal": True,
+        "launches": totals})
+  return totals
+
+
+def _zoo_ragged(torch, smi: str, plan, rule, step, state, layouts,
+                batch) -> dict:
+  """``train_zoo_ragged``: Tiny's ten-hot inputs of ``batch`` as
+  ``RaggedIds`` (each sample's first 1-10 ids), capacity
+  :func:`ragged_capacity`, one Adagrad step against its padded twin
+  (:func:`ragged_vs_twin`) from ``phase_train_zoo``'s state: K6 builds the
+  ragged buckets' ``h=0`` parts of the narrow classes (once per sparse
+  bucket), K1 once per sparse class. Returns the path's launches."""
+  from distributed_embeddings_torch.ops.ragged import RaggedIds
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      ragged_to_padded,
+  )
+  numerical, cats, labels = batch
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+  cap = ragged_capacity(ZOO_BATCH, ZOO_RAGGED_HOT)
+  ragged, twin = [], []
+  for c in cats:
+    if c.dim() == 1:
+      ragged.append(c)
+      twin.append(c)
+      continue
+    lens = torch.randint(1, ZOO_RAGGED_HOT + 1, (ZOO_BATCH,), generator=gen,
+                         device="cuda")
+    lens = torch.minimum(lens, (cap - (torch.cumsum(lens, 0) - lens))
+                         .clamp(min=0))
+    live = c[torch.arange(c.shape[1], device="cuda") < lens[:, None]]
+    values = torch.zeros((cap,), dtype=c.dtype, device="cuda")
+    values[:live.numel()] = live
+    rg = RaggedIds(values, torch.cat([lens.new_zeros(1),
+                                      torch.cumsum(lens, 0)]))
+    ragged.append(rg)
+    twin.append(ragged_to_padded(rg, ZOO_RAGGED_HOT))
+  engine = DistributedLookup(plan)
+  ids_all = engine.route_ids(ragged)
+  codes = [-(c.values.shape[0] + 1) if isinstance(c, RaggedIds) else
+           (1 if c.dim() == 1 else c.shape[1]) for c in ragged]
+  def launches(routed):
+    k1, _, builds = k1_launches(plan, routed)
+    return expect(build_delta_rows=builds, apply_rows=k1)
+
+  want = launches(ids_all)
+  want_twin = launches(engine.route_ids(twin))
+  totals = expect()
+
+  def counted(fn, want_, what):
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+    got = read_counts()
+    check(got == want_, f"train_zoo_ragged {what}: launches {got}, "
+          f"expected {want_}")
+    add_counts(totals, got)
+    return out
+
+  ms = []
+  rows = touched_rows(torch, plan, layouts, ids_all)
+  res = ragged_vs_twin(torch, step, state, rows, (numerical, ragged, labels),
+                       twin, want, want_twin, counted, "train_zoo_ragged")
+  emit({"phase": "train_zoo_ragged", "card": smi, "batch": ZOO_BATCH,
+        "rule": "adagrad", "ragged_inputs": sum(h < 0 for h in codes),
+        "capacity": cap, "occurrences_per_step": ragged_live(ragged,
+                                                             ZOO_BATCH),
+        "ragged_step_ms": ms[0], "twin_step_ms": ms[1],
+        "launches_per_step": want, "twin_launches_per_step": want_twin,
+        "vs_padded_twin": res})
+  return totals
+
+
+def w4_ragged_plan(backend: str, overlap: str = "fused", scale=None,
+                   row_slice: bool = True, hotness=None, **kw):
+  """The world-4 ragged cell: the world-4 plan's tables (x ``scale``,
+  default ``backend``'s cut) with ``combiner='sum'``, feature
+  :data:`RAGGED_MEAN_FEATURE` (row-sliced) ``'mean'``, the ragged features
+  declared by negative ``input_hotness`` (or ``hotness``), under
+  ``overlap``; ``row_slice=False`` keeps every table whole."""
+  scale = scale or W4_VOCAB_SCALE[backend]
+  vocab = [max(4, int(v / scale)) for v in CRITEO_1TB_VOCAB]
+  return vocab, ragged_plan(
+      vocab, WORLD, overlap, mean=(RAGGED_MEAN_FEATURE,), hotness=hotness,
+      row_slice_threshold=W4_ROW_SLICE[backend] if row_slice else None,
+      batch_hint=W4_BATCH, **kw)
+
+
+def w4_oov_numpy(plan, cats, b: int) -> dict:
+  """Per class, the out-of-vocabulary occurrences of a global batch in the
+  stacked form (ragged streams counted up to each block's
+  ``row_splits[-1]``), each input counted once per class its pieces live
+  in, as ``oov_counts`` counts them (summed over the ranks)."""
+  import numpy as np
+
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_param_name,
+  )
+  out = {class_param_name(*k): 0 for k in plan.class_keys}
+  for i, pieces in enumerate(plan.output_pieces):
+    vocab = plan.global_configs[plan.input_table_map[i]].input_dim
+    c = cats[i]
+    if is_ragged(c):
+      v = np.asarray(c.values).reshape(WORLD, -1)
+      ends = np.asarray(c.row_splits).reshape(WORLD, b + 1)[:, -1]
+      n = sum(int((v[r, :ends[r]] >= vocab).sum()) for r in range(WORLD))
+    else:
+      n = int((np.asarray(c) >= vocab).sum())
+    for ck in {p.class_key for p in pieces}:
+      out[class_param_name(*ck)] += n
+  return out
+
+
+def w4_with_oov(torch, cats, vocab, b: int):
+  """A copy of a global batch (stacked form) with, in every rank's block
+  of the first two ragged features, one live id past the vocabulary and,
+  where the block has a dead tail, one there (which must not count)."""
+  from distributed_embeddings_torch.ops.ragged import RaggedIds
+  out = list(cats)
+  done = 0
+  for i, c in enumerate(cats):
+    if not is_ragged(c) or done == 2:
+      continue
+    done += 1
+    values = c.values.clone()
+    cap = values.shape[0] // WORLD
+    ends = c.row_splits.view(WORLD, b + 1)[:, -1]
+    for r in range(WORLD):
+      values[r * cap] = vocab[i] + 3
+      if int(ends[r]) < cap:
+        values[r * cap + int(ends[r])] = vocab[i] + 9
+    out[i] = RaggedIds(values, c.row_splits)
+  return out
+
+
+def _w4_ragged_acts(torch, plan, mesh, state, batch):
+  """The eval step's activations (every input's, concatenated) for a
+  batch of any hotness (ragged streams included)."""
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      ragged_hotness,
+  )
+  numerical, cats, _ = batch
+  hot = [ragged_hotness(c) for c in cats]
+  engine = DistributedLookup(plan, mesh=mesh)
+  with torch.inference_mode():
+    ids_all = engine.route_ids(cats, lambda i: hot[i])
+    z, _ = engine.lookup_sparse_fused(
+        state["fused"], engine.fused_layouts(sgd_rule(TRAIN_LR)), ids_all,
+        keep_aux=False)
+    acts = engine.finish_forward(z, state["emb_dense"], ids_all,
+                                 numerical.shape[0], lambda i: hot[i],
+                                 engine.mean_counts(cats))
+  return torch.cat(acts, dim=1)
+
+
+def _w4_ragged(torch, mesh, backend: str) -> dict:
+  """``world4_ragged`` in this rank: the world-4 cell's tables with the
+  multi-hot Criteo mix (this rank's block of a global batch of
+  ``W4_BATCH``, :func:`ragged_batch` on the host), f32, SGD ``TRAIN_LR``,
+  one seeded state:
+
+  - the activations under ``overlap='none'``, ``'pipelined'`` and
+    ``'fused'`` bit-equal (K4 once per ragged bucket and round under
+    ``'fused'``, per row chunk for the one-hot buckets), the padded twin's
+    within the f32 class (feature :data:`RAGGED_MEAN_FEATURE`: a
+    row-sliced ``mean`` table), ``dedup_exchange=True`` (deduplicated
+    one-hot buckets beside raw ragged ones) bit-equal to raw;
+  - serving: ``FrozenTables`` f32, a global ragged request of
+    ``SERVE_BATCH``, two calls bit-equal and bit-equal to the world-4 eval
+    step's predictions;
+  - a guarded step whose batch holds out-of-vocabulary ids in live
+    windows and dead tails: ``bad_step`` 0 and the OOV counts equal to
+    numpy's (:func:`w4_oov_numpy`) on every rank;
+  - model-parallel inputs (a plan without row slices, x
+    :data:`W4_MP_VOCAB_SCALE`): ``forward_mp`` of a padded global batch
+    of :data:`W4_MP_BATCH` bit-equal to the dp-input forward, the class gradients of one
+    backward through ``_FillRows`` within 1e-5 of each cell's magnitude
+    of the dp-input ones.
+
+  Every run's launches are checked."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel import wire
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      pack_mp_inputs,
+      ragged_hotness,
+  )
+  from distributed_embeddings_torch.serving import ServeEngine, freeze
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_eval_step,
+      make_sparse_train_step,
+      shard_batch,
+  )
+
+  dev = mesh.device
+  torch.cuda.empty_cache()
+  b = W4_BATCH // WORLD
+  vocab, plan = w4_ragged_plan(backend)
+  model = DLRM(vocab, D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  host = ragged_batch(torch, vocab, b, torch.Generator().manual_seed(SEED + 18),
+                      "cpu", blocks=WORLD)
+  batch = shard_batch(host, mesh)
+  codes = [ragged_hotness(c) for c in batch[1]]
+  totals = expect()
+
+  def counted(fn, want, what):
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    check(got == want, f"world 4 ragged {what} rank {mesh.rank}: launches "
+          f"{got}, expected {want}")
+    add_counts(totals, got)
+    return out
+
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 51 + mesh.rank),
+      mesh=mesh)
+  out = {"k4_per_forward": {}, "forward_ms": {}}
+  acts = {}
+  for overlap in ("none", "pipelined", "fused"):
+    _, p = w4_ragged_plan(backend, overlap)
+    k4 = k4_forward_launches(p, codes)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    acts[overlap] = counted(lambda: _w4_ragged_acts(torch, p, mesh, state,
+                                                    batch),
+                            expect(gather_rows=k4), f"{overlap} acts")
+    torch.cuda.synchronize(dev)
+    out["forward_ms"][overlap] = (time.perf_counter() - t0) * 1e3
+    out["k4_per_forward"][overlap] = k4
+    check(torch.equal(acts[overlap], acts["none"]),
+          f"world 4 ragged rank {mesh.rank}: the {overlap} activations "
+          "differ from the monolithic schedule's")
+  _, dplan = w4_ragged_plan(backend, dedup_exchange=True)
+  k4 = k4_forward_launches(dplan, codes)
+  out["k4_per_forward"]["dedup_fused"] = k4
+  dacts = counted(lambda: _w4_ragged_acts(torch, dplan, mesh, state, batch),
+                  expect(gather_rows=k4), "dedup acts")
+  check(torch.equal(dacts, acts["none"]), f"world 4 ragged rank "
+        f"{mesh.rank}: the dedup mix's activations differ from raw")
+  twin = padded_twin(batch[1])
+  twin_codes = [1 if c.dim() == 1 else c.shape[1] for c in twin]
+  tacts = counted(lambda: _w4_ragged_acts(torch, plan, mesh, state,
+                                          (batch[0], twin, batch[2])),
+                  expect(gather_rows=k4_forward_launches(plan, twin_codes)),
+                  "padded twin acts")
+  err = (tacts - acts["none"]).abs()
+  lim = 1e-5 * acts["none"].abs().clamp_min(1.0)
+  check(bool((err <= lim).all()), f"world 4 ragged rank {mesh.rank}: the "
+        f"padded twin's activations differ by {float(err.max())}")
+  cols = slice(RAGGED_MEAN_FEATURE * D, (RAGGED_MEAN_FEATURE + 1) * D)
+  out["twin"] = {"max_abs_err": float(err.max()),
+                 "bit_equal": bool(torch.equal(tacts, acts["none"])),
+                 "mean_row_sliced_max_abs_err": float(err[:, cols].max())}
+  del acts, dacts, tacts, twin, err, lim
+  # serving a global ragged request
+  req = ragged_batch(torch, vocab, SERVE_BATCH // WORLD,
+                     torch.Generator().manual_seed(SEED + 19), "cpu",
+                     blocks=WORLD)[:2]
+  frozen = freeze(plan, rule, state, "f32", mesh=mesh)
+  eng = ServeEngine(model, plan, frozen, mesh=mesh)
+  first = counted(lambda: eng.predict(*req), expect(interact_fwd=1),
+                  "serve")
+  again = counted(lambda: eng.predict(*req), expect(interact_fwd=1),
+                  "serve again")
+  req_codes = [ragged_hotness(c) for c in shard_batch(req, mesh)[1]]
+  ev = make_sparse_eval_step(model, plan, rule, mesh=mesh)
+  preds = counted(lambda: wire.gather_blocks(ev(state, *shard_batch(
+      req, mesh)), mesh), expect(interact_fwd=1, gather_rows=(
+          k4_forward_launches(plan, req_codes))), "eval")
+  check(np.array_equal(first.view(np.int32), again.view(np.int32))
+        and np.array_equal(first.view(np.int32),
+                           preds.cpu().numpy().view(np.int32)),
+        f"world 4 ragged serve rank {mesh.rank}: two calls or the eval step "
+        "differ")
+  del frozen, eng
+  # the guarded step's OOV counts
+  oov_cats = w4_with_oov(torch, host[1], vocab, b)
+  ob = shard_batch((host[0], oov_cats, host[2]), mesh)
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                rule, mesh=mesh, guard=True)
+  # the guarded step gates whole per-class streams: one K1 a class
+  k1 = len(state["fused"])
+  _, loss, metrics = counted(
+      lambda: step(state, *ob),
+      expect(gather_rows=k4_forward_launches(
+          plan, [ragged_hotness(c) for c in ob[1]]), apply_rows=k1,
+          interact_fwd=1, interact_bwd=1), "guarded step")
+  want_oov = w4_oov_numpy(plan, oov_cats, b)
+  got_oov = {k: int(v) for k, v in metrics["oov"].items()}
+  check(int(metrics["bad_step"]) == 0 and got_oov == want_oov
+        and sum(want_oov.values()) > 0,
+        f"world 4 ragged guard rank {mesh.rank}: bad_step "
+        f"{int(metrics['bad_step'])}, oov {got_oov}, numpy {want_oov}")
+  out["guard"] = {"loss": float(loss), "oov": got_oov, "k1": k1}
+  del state, step
+  torch.cuda.empty_cache()
+  # model-parallel inputs against the dp-input forward
+  mvocab, mplan = w4_ragged_plan(backend, scale=W4_MP_VOCAB_SCALE,
+                                 row_slice=False,
+                                 hotness=list(MULTI_HOT_SIZES))
+  mstate = init_sparse_state_direct(
+      mplan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 61 + mesh.rank),
+      mesh=mesh)
+  mb = W4_MP_BATCH // WORLD
+  mhost = ragged_batch(torch, mvocab, mb,
+                       torch.Generator().manual_seed(SEED + 20), "cpu",
+                       blocks=WORLD)
+  glob = []
+  for c, h in zip(mhost[1], MULTI_HOT_SIZES):  # the padded global batch
+    if not is_ragged(c):
+      glob.append(c)
+      continue
+    cap = c.values.shape[0] // WORLD
+    glob.append(torch.cat([padded_twin_one(c, r, cap, mb, h)
+                           for r in range(WORLD)]))
+  packed = pack_mp_inputs(mplan, [[glob[i] for i in mplan.input_ids_list[r]]
+                                  for r in range(WORLD)],
+                          list(MULTI_HOT_SIZES))
+  block = shard_batch(packed, mesh)
+  local = shard_batch(glob, mesh)
+  cgen = torch.Generator(device=dev).manual_seed(SEED + 71 + mesh.rank)
+  engine = DistributedLookup(mplan, mesh=mesh)
+  # the state's own tensors are the leaves (the forwards only read them)
+  leaves = {n: t.requires_grad_(True) for n, t in
+            list(mstate["fused"].items()) + list(mstate["emb_dense"].items())}
+  res = {}
+  for form in ("mp", "dp"):
+    for p in leaves.values():
+      p.grad = None
+
+    def fwd_bwd():
+      outs = (engine.forward_mp(leaves, block, list(MULTI_HOT_SIZES))
+              if form == "mp" else engine.forward(leaves, local))
+      loss = sum((o * torch.randn(o.shape, generator=cgen, device=dev))
+                 .sum() for o in outs)
+      loss.backward()
+      return torch.cat([o.detach() for o in outs], dim=1)
+
+    cgen.manual_seed(SEED + 71 + mesh.rank)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res[form] = (counted(fwd_bwd, expect(), f"{form} input forward"),
+                 {n: p.grad for n, p in leaves.items()})
+    torch.cuda.synchronize(dev)
+    out["forward_ms"][f"{form}_input_fwd_bwd"] = (time.perf_counter()
+                                                  - t0) * 1e3
+  check(torch.equal(res["mp"][0], res["dp"][0]), f"world 4 mp input rank "
+        f"{mesh.rank}: forward_mp differs from the dp-input forward")
+  # the gradients on the rows either form reached (the rest are zeros)
+  got, want = {}, {}
+  for n, g in res["mp"][1].items():
+    w = res["dp"][1][n]
+    hit = (g != 0).any(dim=1) | (w != 0).any(dim=1)
+    got[n], want[n] = g[hit], w[hit]
+  close = states_close(torch, got, want, 1e-5)
+  check(close["within"], f"world 4 mp input rank {mesh.rank}: gradients "
+        f"off by {close['max_abs_err']}")
+  out["mp_input"] = {"acts_bit_equal": True,
+                     "grad_max_abs_err": close["max_abs_err"],
+                     "grad_cells_differing": close["cells_differing"],
+                     "packed_ids_per_rank": sum(v.numel()
+                                                for v in block.values())}
+  out["occurrences_per_rank"] = ragged_live(batch[1], b)
+  out["launches"] = totals
+  del mstate, leaves, res, got, want, block, local, packed
+  torch.cuda.empty_cache()
+  return out
+
+
+def padded_twin_one(c, r: int, cap: int, b: int, h: int):
+  """Rank ``r``'s block of a stacked ragged input padded to ``h``."""
+  from distributed_embeddings_torch.ops.ragged import RaggedIds
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      ragged_to_padded,
+  )
+  return ragged_to_padded(
+      RaggedIds(c.values[r * cap:(r + 1) * cap],
+                c.row_splits[r * (b + 1):(r + 1) * (b + 1)]), h)
+
+
+def emit_ragged_world4(backend: str, smi: str, res: list) -> dict:
+  """The ``world4_ragged`` line from the ranks' :func:`_w4_ragged`
+  results; returns each kernel's launches summed over the ranks."""
+  totals = expect()
+  for r in res:
+    add_counts(totals, r.pop("launches"))
+  check(all(r["guard"]["oov"] == res[0]["guard"]["oov"] for r in res),
+        "world 4 ragged: the ranks' OOV counts differ")
+  emit({"phase": "world4_ragged", "backend": backend, "card": smi,
+        "mode": ("four cards, one rank each" if backend == "nccl" else
+                 "one card shared by the four ranks"),
+        "vocab_scale": f"1/{W4_VOCAB_SCALE[backend]}",
+        "mp_vocab_scale": f"1/{W4_MP_VOCAB_SCALE}", "global_batch": W4_BATCH,
+        "mp_global_batch": W4_MP_BATCH,
+        "exchange_chunks": W4_CHUNKS,
+        "occurrences_by_rank": [r["occurrences_per_rank"] for r in res],
+        "k4_per_rank_forward": res[0]["k4_per_forward"],
+        "forward_ms_by_rank": [r["forward_ms"] for r in res],
+        "schedules_bit_equal": True, "dedup_mix_bit_equal": True,
+        "twin_by_rank": [r["twin"] for r in res],
+        "serve_bit_equal_eval": True, "guard_oov": res[0]["guard"]["oov"],
+        "guard_k1_by_rank": [r["guard"]["k1"] for r in res],
+        "mp_input_by_rank": [r["mp_input"] for r in res],
+        "launches": totals})
+  return totals
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
           "replaces": REPLACES[name], "launches": launches,
@@ -4763,6 +5741,7 @@ def main() -> int:
   phase_train_golden(torch)
   phase_zoo_golden(torch)
   phase_dense_golden(torch)
+  phase_ragged_golden(torch)
 
   # every path's counts, each read from all nine counters just after the
   # path ran with them set to 0 just before
@@ -4790,6 +5769,11 @@ def main() -> int:
   by_path["train_guard"] = phase_train_guard(torch, smi)
   by_path["resilient"] = phase_resilient(torch, smi)
   by_path["dlrm_main_mb"] = phase_dlrm_main_mb(torch, smi)
+  torch.cuda.empty_cache()
+  by_path["train_ragged"], trained = phase_train_ragged(torch, smi)
+  by_path["serve_ragged"] = phase_serve_ragged(torch, smi, trained)
+  del trained
+  torch.cuda.empty_cache()
   by_path.update(phase_train_zoo(torch, smi))
   by_path["train_zoo_mb"] = phase_train_zoo_mb(torch, smi)
   for path, name in (("train_zoo", "build_delta_rows"),
@@ -4814,7 +5798,12 @@ def main() -> int:
                       ("train_zoo_mb", ("build_delta_rows", "apply_rows")),
                       ("train_world4_guard", W4_KERNELS),
                       ("train_world4_mb", W4_KERNELS),
-                      ("world4_wire", W4_KERNELS)):
+                      ("world4_wire", W4_KERNELS),
+                      ("train_ragged", dlrm_sparse),
+                      ("serve_ragged", ("interact_fwd",)),
+                      ("train_zoo_ragged", ("build_delta_rows",
+                                            "apply_rows")),
+                      ("world4_ragged", W4_KERNELS)):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

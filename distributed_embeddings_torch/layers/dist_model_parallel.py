@@ -95,8 +95,12 @@ class DistributedEmbedding(nn.Module):
     column_slice_threshold / row_slice / input_table_map / world_size /
       dense_row_threshold / input_hotness / batch_hint: the planner's
       arguments, as for the JAX layer.
-    dp_input: True (data-parallel ``[B]`` / ``[B, H]`` inputs); the packed
-      model-parallel inputs (False) are not ported yet.
+    dp_input: True: data-parallel inputs, this rank's ``[B]`` / ``[B, H]``
+      ids or :class:`~..ops.ragged.RaggedIds` (declare a ragged input with
+      a negative ``input_hotness`` entry so the planner keeps its table
+      sparse). False: model-parallel inputs, this rank's block of
+      :func:`~..parallel.lookup_engine.pack_mp_inputs` (packed with this
+      layer's ``input_hotness``); no id exchange runs.
     overlap / exchange_chunks: the plan's wire schedule (``'none'``,
       ``'pipelined'`` or ``'fused'``; the JAX layer's plan always takes
       ``'none'``). All three give the same values.
@@ -130,11 +134,9 @@ class DistributedEmbedding(nn.Module):
                                   or not isinstance(row_slice, int)):
       raise TypeError(
           f"row_slice must be an int element threshold, got {row_slice!r}")
-    if not dp_input:
-      raise NotImplementedError(
-          "dp_input=False (packed model-parallel inputs, forward_mp / "
-          "pack_mp_inputs) is not ported yet: ROADMAP.md open items, "
-          "queue C")
+    self.dp_input = dp_input
+    self.input_hotness = (list(input_hotness) if input_hotness is not None
+                          else None)
     dev = mesh.device if mesh is not None else resolve_device(device)
     self.plan = DistEmbeddingStrategy(
         list(embeddings), world_size, strategy,
@@ -162,13 +164,19 @@ class DistributedEmbedding(nn.Module):
     return {class_param_name(*k): getattr(self, class_param_name(*k))
             for k in self.plan.class_keys}
 
-  def forward(self, inputs: Sequence, return_oov: bool = False):
+  def forward(self, inputs, return_oov: bool = False):
     """Per global input its ``[B, output_dim]`` activations (``B`` this
     rank's batch). With ``return_oov``, ``(activations, oov)``: the
     per-class counts of ids outside their table's vocabulary in this
     batch (``oov_<class>`` -> int32 scalar, the JAX layer's opt-in
     ``'metrics'`` collection), summed over the ranks at world > 1 as the
-    JAX layer psums them."""
+    JAX layer psums them. Model-parallel inputs (``dp_input=False``)
+    arrive routed and clipped by ``pack_mp_inputs``: their dict is empty,
+    as the JAX layer records nothing for them."""
+    if not self.dp_input:
+      outs = self.engine.forward_mp(self.class_params(), inputs,
+                                    hotness=self.input_hotness)
+      return (outs, {}) if return_oov else outs
     outs = self.engine.forward(self.class_params(), inputs)
     if not return_oov:
       return outs

@@ -277,8 +277,7 @@ def scatter_add_fused(layout: PackedLayout, buf: torch.Tensor,
   if buf.device.type == "cuda" and buf.dtype != torch.float32:
     raise NotImplementedError(
         f"scatter_add_fused on a {buf.dtype} CUDA buffer: K1 applies f32 "
-        "buffers only (ROADMAP.md open items, queue B, item 8: narrow "
-        "storage types)")
+        "buffers only (ROADMAP.md §1 item 7: narrow storage types)")
   grp, sub, _ = _grp_sub(layout, ids.reshape(-1))
   flat = fused_delta.reshape(grp.shape[0], fused_delta.shape[-1])
   if flat.shape[-1] != layout.phys_width:

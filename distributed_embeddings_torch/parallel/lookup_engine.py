@@ -47,7 +47,24 @@ The expansion's backward sums duplicate ids' cotangents before the
 reverse exchange, so the cotangent wire shrinks alike and the sparse
 apply sees one row per unique id and source block.
 
-Not ported yet: ragged value streams and tiering.
+A :class:`~..ops.ragged.RaggedIds` input (variable hotness, the
+reference's uneven-split exchange) routes as its value stream: per
+bucket ``(vals [world, n_b, V], lens [world, n_b, B])``, ``V`` the
+input's capacity (``values.shape[0]``, part of the bucket key, so every
+rank passes the same). The owner gathers the stream's rows and sums each
+sample's segment with ``torch.segment_reduce`` (no atomics: one thread
+per output lane adds the segment in stream order, as XLA's CPU
+``segment_sum`` does); under ``'fused'`` each round gathers its
+destination's stream (K4) and chunks the combined rows. The backward
+expands each sample's cotangent to its occurrences: parts with ``h=0``,
+as K6 and K1 already take deduplicated parts. Ragged buckets stay raw
+under ``dedup_exchange``.
+
+Model-parallel input mode (:meth:`DistributedLookup.forward_mp` over
+:func:`pack_mp_inputs`) skips the id exchange: every rank gets its
+tables' ids for the global batch, pre-offset.
+
+Not ported yet: tiering.
 """
 
 from __future__ import annotations
@@ -58,6 +75,7 @@ from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.cuda_delta import build_delta_rows, build_delta_rows_plain
 from ..ops.cuda_exchange import gather_rows
@@ -72,6 +90,7 @@ from ..ops.packed_table import (
     residual_lanes,
     scatter_add_fused,
 )
+from ..ops.ragged import RaggedIds
 from ..ops.sparse_grad import dedup_rows, expand_unique_rows, unique_ids_map
 from . import wire
 
@@ -152,6 +171,19 @@ def class_buckets(plan: "DistEmbeddingStrategy", key,
 
   def bkey(slot):
     h = hotness_of(slot.input_id)
+    if h < 0:  # ragged value stream
+      if dense:
+        # the planner keeps a table sparse when its input is declared
+        # ragged (negative input_hotness); raggedness that appears only at
+        # call time lands here
+        raise NotImplementedError(
+            "ragged inputs into a dense-class (MXU one-hot) table: declare "
+            "the input ragged up front (negative input_hotness entry) so "
+            "the planner keeps its table on the sparse path, or pre-pad "
+            "the input (ragged_to_padded)")
+      if cp.combiner is None:
+        raise ValueError("ragged distributed inputs require a combiner "
+                         "('sum' or 'mean')")
     return (h, vocab_cap(slot.shard.input_dim) if dense else 0,
             slot.shard.row_sliced)
 
@@ -178,20 +210,53 @@ def padded_rows(plan: "DistEmbeddingStrategy", key) -> int:
   return rows
 
 
+def ragged_to_padded(ids: RaggedIds, max_hot: int) -> torch.Tensor:
+  """RaggedIds -> dense ``[B, max_hot]`` with PAD_ID padding (each sample's
+  first ``max_hot`` ids; the JAX package's function)."""
+  ids = _as_ragged(ids)
+  b = ids.nrows
+  splits = ids.row_splits.long()
+  pos = torch.arange(max_hot, device=splits.device)[None, :]
+  valid = pos < (splits[1:] - splits[:-1])[:, None]
+  if not ids.values.shape[0]:
+    return torch.full((b, max_hot), PAD_ID, dtype=torch.int32,
+                      device=splits.device)
+  flat = (splits[:-1, None] + pos).clamp(0, ids.values.shape[0] - 1)
+  gathered = ids.values[flat].to(torch.int32)
+  return torch.where(valid, gathered, torch.full_like(gathered, PAD_ID))
+
+
+def _as_ragged(x: RaggedIds) -> RaggedIds:
+  """A RaggedIds whose fields are integer tensors on one device."""
+  values = torch.as_tensor(x.values)
+  splits = torch.as_tensor(x.row_splits, device=values.device)
+  for name, t in (("values", values), ("row_splits", splits)):
+    if t.dtype.is_floating_point or t.dtype == torch.bool:
+      raise TypeError(f"RaggedIds {name} must be integers, got {t.dtype}")
+  if values.dim() != 1 or splits.dim() != 1 or splits.shape[0] < 1:
+    raise ValueError(
+        f"RaggedIds needs 1-D values and non-empty 1-D row_splits, got "
+        f"{tuple(values.shape)} and {tuple(splits.shape)}")
+  return RaggedIds(values, splits)
+
+
 def ragged_hotness(x) -> int:
-  """Hotness code of one input: 1 for ``[B]``, ``H`` for ``[B, H]``.
-  (Ragged value streams, whose codes are negative in the JAX engine,
-  are not ported yet.)"""
+  """Engine-internal hotness code of one input: ``>= 1`` is a static
+  hotness (1 for ``[B]``, ``H`` for ``[B, H]``); ``-(V + 1)`` is a ragged
+  value stream of capacity ``V = values.shape[0]`` (the +1 keeps a
+  capacity-0 stream apart from the static codes)."""
+  if isinstance(x, RaggedIds):
+    return -(int(x.values.shape[0]) + 1)
   if not hasattr(x, "ndim"):
-    raise NotImplementedError(
-        f"input of type {type(x).__name__}: ragged value streams are not "
-        "ported yet; pass dense [B] or [B, H] ids (PAD_ID padding)")
+    x = torch.as_tensor(x)
   return 1 if x.ndim == 1 else int(x.shape[1])
 
 
-def _normalize_input(x) -> torch.Tensor:
-  """-> ``[B, H]`` int64 tensor, PAD_ID marking invalid entries."""
-  ragged_hotness(x)
+def _normalize_input(x):
+  """-> ``[B, H]`` int64 tensor, PAD_ID marking invalid entries, or a
+  :class:`RaggedIds` (passed through as its value stream and splits)."""
+  if isinstance(x, RaggedIds):
+    return _as_ragged(x)
   x = torch.as_tensor(x)
   if x.dim() == 1:
     x = x[:, None]
@@ -200,6 +265,61 @@ def _normalize_input(x) -> torch.Tensor:
   if x.dtype.is_floating_point or x.dtype == torch.bool:
     raise TypeError(f"ids must be integers, got {x.dtype}")
   return x.long()
+
+
+def _batch_of(inputs) -> int:
+  x = inputs[0]
+  return x.nrows if isinstance(x, RaggedIds) else x.shape[0]
+
+
+def _device_of(x) -> torch.device:
+  return x.values.device if isinstance(x, RaggedIds) else x.device
+
+
+def _require_wide_ids(plan: "DistEmbeddingStrategy", shard, ids) -> None:
+  """Refuse int32 ids addressing a table with more than 2^31 - 1 rows: the
+  rows past int32 cannot be named by them (the JAX package's guard)."""
+  vocab = plan.global_configs[shard.table_id].input_dim
+  if vocab > 2 ** 31 - 1 and ids.dtype != torch.int64:
+    raise ValueError(
+        f"table {shard.table_id} has input_dim={vocab:,} > int32 max but "
+        f"its ids arrived as {ids.dtype}: ids above 2^31 cannot be "
+        "expressed. Pass int64 ids for this table.")
+
+
+def _seg_ids(lengths: torch.Tensor, capacity: int) -> torch.Tensor:
+  """Per value-stream position, its sample index (clamped to ``B - 1`` for
+  the sentinel-padded tail): ``lengths [..., B]`` -> ``[..., capacity]``
+  int64 (the JAX ``_seg_ids``, batched over leading axes)."""
+  lengths = lengths.long()
+  b = lengths.shape[-1]
+  splits = _splits_of(lengths)
+  pos = torch.arange(capacity, device=lengths.device).expand(
+      tuple(lengths.shape[:-1]) + (capacity,)).contiguous()
+  seg = torch.searchsorted(splits.contiguous(), pos, right=True) - 1
+  return seg.clamp(0, max(b - 1, 0))
+
+
+def _seg_offsets(lengths: torch.Tensor, capacity: int) -> torch.Tensor:
+  """Segment offsets ``[..., B + 1]`` of a value stream from its sample
+  lengths ``[..., B]``: ``[0, cumsum(lengths)]`` clamped into ``[0,
+  capacity]`` and kept non-decreasing, so no segment reads past the stream
+  (for valid lengths, the positions :func:`_seg_ids` assigns)."""
+  offs = _splits_of(lengths.long())
+  return torch.cummax(offs.clamp(0, capacity), dim=-1).values
+
+
+def _splits_of(lengths: torch.Tensor) -> torch.Tensor:
+  """``[..., B]`` lengths -> ``[..., B + 1]`` splits ``[0, cumsum]``."""
+  zero = lengths.new_zeros(tuple(lengths.shape[:-1]) + (1,))
+  return torch.cat([zero, torch.cumsum(lengths, dim=-1)], dim=-1)
+
+
+def _segment_counts(flags: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+  """Per segment, the count of set ``flags [..., V]`` inside its window of
+  ``offs [..., B + 1]``: ``[..., B]`` int64 (exact; no atomics)."""
+  at = _splits_of(flags.long()).gather(-1, offs)
+  return at[..., 1:] - at[..., :-1]
 
 
 @dataclasses.dataclass
@@ -412,11 +532,13 @@ class DistributedLookup:
     buckets drop the h axis). Sentinel (= buffer rows) marks padded slots
     and PAD_ID entries; out-of-vocabulary ids clamp to the table's last
     row (the plan's 'clip' policy)."""
+    if bucket.h < 0:
+      return self._build_ragged_routing(key, bucket, inputs)
     cp = self.plan.classes[key]
     world = self.plan.world_size
     sentinel = padded_rows(self.plan, key)
-    b = inputs[0].shape[0]
-    dev = inputs[0].device
+    b = _batch_of(inputs)
+    dev = _device_of(inputs[0])
     pad_shape = (b,) if bucket.h == 1 else (b, bucket.h)
     pad_block = torch.full(pad_shape, sentinel, dtype=torch.long, device=dev)
     per_dest = []
@@ -448,6 +570,81 @@ class DistributedLookup:
       per_dest.append(torch.stack(per_slot))
     return torch.stack(per_dest)
 
+  def _build_ragged_routing(self, key, bucket: Bucket, inputs):
+    """Value-stream routing of a ragged bucket: ``(vals [world, n_b, V],
+    lens [world, n_b, B])``, per destination rank and slot the routed
+    value stream and the samples' positional lengths (``row_lengths``:
+    they segment the stream; the mean divisor is the VALID-id count,
+    recomputed on the owner from the sentinel pattern). The sentinel
+    (= buffer rows) marks the tail past ``row_splits[-1]``, negative ids,
+    padded slots and, for row slices, the ids outside the slice's window
+    (clamped into the vocabulary first, as the padded routing does). ``V``
+    is the bucket's capacity: the bucket key carries it, so all its inputs
+    share it."""
+    cp = self.plan.classes[key]
+    world = self.plan.world_size
+    sentinel = padded_rows(self.plan, key)
+    cap = -bucket.h - 1
+    b = _batch_of(inputs)
+    dev = _device_of(inputs[0])
+    pad_vals = torch.full((cap,), sentinel, dtype=torch.long, device=dev)
+    pad_lens = torch.zeros((b,), dtype=torch.long, device=dev)
+    all_vals, all_lens = [], []
+    for rank in range(world):
+      idxs = bucket.slot_idx_per_rank[rank]
+      vals_r, lens_r = [], []
+      for k in range(bucket.n_b):
+        if k >= len(idxs):
+          vals_r.append(pad_vals)
+          lens_r.append(pad_lens)
+          continue
+        slot = cp.slots_per_rank[rank][idxs[k]]
+        rg: RaggedIds = inputs[slot.input_id]
+        sh = slot.shard
+        _require_wide_ids(self.plan, sh, rg.values)
+        v = rg.values.long()
+        live = (torch.arange(cap, device=v.device)
+                < rg.row_splits[-1].to(v.device))
+        if sh.row_sliced:
+          vocab = self.plan.global_configs[sh.table_id].input_dim
+          clamped = v.clamp(0, vocab - 1)
+          in_win = live & (v >= 0) & (clamped >= sh.row_start) & (
+              clamped < sh.row_start + sh.input_dim)
+          routed = torch.where(in_win,
+                               clamped - sh.row_start + slot.row_offset,
+                               sentinel)
+        else:
+          routed = torch.where(live & (v >= 0),
+                               v.clamp(0, sh.input_dim - 1) + slot.row_offset,
+                               sentinel)
+        vals_r.append(routed)
+        lens_r.append(rg.row_lengths().long())
+      all_vals.append(torch.stack(vals_r))
+      all_lens.append(torch.stack(lens_r))
+    return torch.stack(all_vals), torch.stack(all_lens)
+
+  def _check_hotness_agreement(self, codes: List[int]) -> None:
+    """World > 1: refuse inputs whose hotness code differs between ranks
+    (a ragged capacity ``values.shape[0]`` or a padded width): the bucket
+    shapes, and so every exchange's size, follow from the codes, and
+    unequal sizes would hang the exchange. One ``all_reduce`` of the
+    codes and one host read; runs when an input is ragged or the plan
+    declares one ragged (negative ``input_hotness``)."""
+    n = len(codes)
+    t = torch.tensor(list(codes) + [-c for c in codes], dtype=torch.int64,
+                     device=self.mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    hi, lo = t[:n].tolist(), [-c for c in t[n:].tolist()]
+    bad = [i for i in range(n) if hi[i] != lo[i]]
+    if bad:
+      i = bad[0]
+      raise ValueError(
+          f"input {i} arrives with different shapes on the ranks (hotness "
+          f"codes {lo[i]} to {hi[i]}; a ragged input's code is -(capacity "
+          "+ 1)): every rank must pass the same RaggedIds capacity "
+          "(values.shape[0]) and the same padded hotness for an input, "
+          "because the bucket shapes set the size of every exchange")
+
   def route_ids(self, inputs: Sequence, hotness_of=None,
                 eager_oov: bool = True) -> Dict[BucketKey, torch.Tensor]:
     """dp->mp id exchange: per bucket, the global batch's ids that this
@@ -458,27 +655,47 @@ class DistributedLookup:
     Under ``oov='error'`` an out-of-vocabulary id raises here, unless
     ``eager_oov=False``: the guarded train step and the eval step with
     metrics enforce the policy through their OOV counters instead (the
-    JAX engine skips this check for traced inputs)."""
+    JAX engine skips this check for traced inputs).
+
+    A ragged bucket routes as ``(vals [n_b, world, V], lens [n_b, world,
+    B])`` (the source-rank axis stays explicit: each source block has its
+    own segmentation); the two travel the wire separately, and ragged
+    buckets stay raw under ``dedup_exchange`` (the stream already scales
+    with the true id count)."""
     plan = self.plan
     world = plan.world_size
     self._my_rank()  # a world > 1 plan needs the mesh
     inputs = [_normalize_input(x) for x in inputs]
     if len(inputs) != plan.num_inputs:
       raise ValueError(f"Expected {plan.num_inputs} inputs, got {len(inputs)}")
-    b = inputs[0].shape[0]
+    b = _batch_of(inputs)
     for x in inputs:
-      if x.shape[0] != b:
+      nrows = x.nrows if isinstance(x, RaggedIds) else x.shape[0]
+      if nrows != b:
         raise ValueError("All inputs need the same batch size "
-                         f"(got {x.shape[0]} vs {b}).")
+                         f"(got {nrows} vs {b}).")
     if plan.oov == "error" and eager_oov:
       self._oov_error_eager(inputs)
     if hotness_of is None:
       hotness_of = lambda i: ragged_hotness(inputs[i])  # noqa: E731
+    if world > 1 and (any(isinstance(x, RaggedIds) for x in inputs) or any(
+        h < 0 for h in (getattr(plan, "input_hotness", None) or ()))):
+      self._check_hotness_agreement([hotness_of(i)
+                                     for i in range(len(inputs))])
     ids_all = {}
     for key in plan.class_keys:
       for bucket in self._buckets(key, hotness_of):
         x = self._build_routing(key, bucket, inputs)  # [world, n_b, B(, h)]
-        if world > 1 and self._dedup_class(key):
+        if bucket.h < 0:  # ragged: (vals [world, n_b, V], lens [world, n_b, B])
+          vals, lens = x
+          if world > 1:
+            vals, lens = vals.to(torch.int32), lens.to(torch.int32)
+            if vals.numel():
+              vals = self._wire_exchange_ids(vals)
+            if lens.numel():
+              lens = self._wire_exchange_ids(lens)
+          routed = (vals.transpose(0, 1), lens.transpose(0, 1))
+        elif world > 1 and self._dedup_class(key):
           routed = self._dedup_route(key, x.to(torch.int32))
         elif world > 1:
           routed = self._reshape_routed(
@@ -524,17 +741,24 @@ class DistributedLookup:
       return y.transpose(0, 1).reshape(bucket.n_b, world * b)
     return y.transpose(0, 1).reshape(bucket.n_b, world * b, bucket.h)
 
-  def _oov_error_eager(self, inputs: Sequence[torch.Tensor]) -> None:
-    """``oov='error'``: raise naming the first out-of-vocabulary id."""
+  def _oov_error_eager(self, inputs: Sequence) -> None:
+    """``oov='error'``: raise naming the input, the table, the first
+    out-of-vocabulary id and the vocabulary (the JAX message); a value
+    stream is read up to ``row_splits[-1]``."""
     for input_id, x in enumerate(inputs):
       vocab = self.plan.global_configs[
           self.plan.input_table_map[input_id]].input_dim
+      if isinstance(x, RaggedIds):
+        x = x.values.reshape(-1)[:int(x.row_splits[-1])]
       bad = x[x >= vocab]
       if bad.numel():
+        table = self.plan.input_table_map[input_id]
         raise ValueError(
             f"OOV policy 'error': input {input_id} carries {bad.numel()} "
-            f"id(s) outside table {self.plan.input_table_map[input_id]}'s "
-            f"vocabulary [0, {vocab}) — first offender {int(bad[0])}.")
+            f"id(s) outside table {table}'s vocabulary [0, {vocab}) — first "
+            f"offender {int(bad[0])}. The 'clip' policy would have "
+            "silently mapped these to the last row; fix the id pipeline "
+            "or construct the plan with oov='clip'.")
 
   # ---- mp-side local lookups ---------------------------------------------
   def _combine(self, rows: torch.Tensor, ids_all: torch.Tensor, key,
@@ -562,9 +786,48 @@ class DistributedLookup:
     source rank after the return exchange re-expands the rows."""
     if isinstance(ids_all, DedupRouted):
       return _FillRows.apply(table_local, ids_all.uniq)
-    self._check_routed(ids_all)
+    if isinstance(ids_all, tuple):  # ragged value stream
+      vals, lens = ids_all
+      return self._combine_ragged(_FillRows.apply(table_local, vals), vals,
+                                  lens, key, rs)
     return self._combine(_FillRows.apply(table_local, ids_all), ids_all,
                          key, rs)
+
+  def _ragged_valid_counts(self, vals: torch.Tensor, lens: torch.Tensor,
+                           key) -> torch.Tensor:
+    """Per-sample VALID-id counts ``[..., B]`` of value streams ``vals
+    [..., V]`` segmented by ``lens [..., B]``: the entries a sample's
+    length window covers minus those routed to the sentinel (invalid,
+    negative or another row slice's ids): the divisor the padded path's
+    ``sum(ids < sentinel)`` computes."""
+    sentinel = padded_rows(self.plan, key)
+    return _segment_counts(vals < sentinel,
+                           _seg_offsets(lens, vals.shape[-1]))
+
+  def _combine_ragged(self, rows: torch.Tensor, vals: torch.Tensor,
+                      lens: torch.Tensor, key, rs: bool = False
+                      ) -> torch.Tensor:
+    """Per-occurrence rows ``[n_b, world, V, w]`` and ``lens [n_b, world,
+    B]`` -> ``[n_b, world * B, w]``: each source block's samples summed
+    over their segments of the stream by ``torch.segment_reduce`` (each
+    segment's rows added in stream order from +0.0, one thread per output
+    lane on the card: no atomics, so the answer repeats bit for bit;
+    differentiable). The tail past the live stream belongs to no segment
+    (its sentinel rows are zeros, which the JAX engine adds to the last
+    sample: the same sums). ``mean`` divides by the valid-id counts;
+    row-sliced buckets (``rs``) leave the division to :meth:`assemble`,
+    as the padded path does."""
+    cp = self.plan.classes[key]
+    n_b, world, cap, w = rows.shape
+    b = lens.shape[2]
+    summed = torch.segment_reduce(
+        rows, "sum", offsets=_seg_offsets(lens, cap), axis=2,
+        unsafe=True).reshape(n_b, world * b, w)
+    if cp.combiner == "mean" and not rs:
+      counts = self._ragged_valid_counts(vals, lens, key).reshape(
+          n_b, world * b).to(summed.dtype)
+      summed = summed / counts.clamp(min=1)[..., None]
+    return summed
 
   def _dense_offsets(self, key, bucket: Bucket) -> np.ndarray:
     cp = self.plan.classes[key]
@@ -699,7 +962,24 @@ class DistributedLookup:
           aux_rounds.append(ac[0] if len(ac) == 1 else torch.cat(ac))
       aux = self._fused_reassemble(aux_rounds, "dedup") if keep else None
       return FusedChunks(tuple(blocks), "dedup"), aux
-    self._check_routed(ids_all)
+    if isinstance(ids_all, tuple):  # ragged value stream
+      # each round gathers its destination's whole stream (K4 on the card)
+      # and combines it; the combined rows are chunked, since a segment
+      # sum cannot split a sample
+      vals, lens = ids_all  # [n_b, world, V], [n_b, world, B]
+      w = layout.width
+      keep = bool(layout.n_aux or keep_rows)
+      blocks, aux_rounds = [], []
+      for k in range(world):
+        d = (i + k) % world
+        vals_d, lens_d = vals[:, d:d + 1], lens[:, d:d + 1]
+        fused = self._fused_gather(layout, buf_local, vals_d)
+        zblk = self._combine_ragged(fused[..., :w], vals_d, lens_d, key, rs)
+        blocks.append(tuple(zblk[:, s0:s0 + sz] for s0, sz in
+                            self._fused_chunk_slices(lens.shape[2])))
+        aux_rounds.append(fused if keep else None)
+      aux = self._fused_reassemble(aux_rounds) if keep else None
+      return FusedChunks(tuple(blocks)), aux
     bsz = ids_all.shape[1] // world
     masked = _masked_multi_hot(layout, ids_all)
     blocks, aux_rounds = [], []
@@ -830,7 +1110,10 @@ class DistributedLookup:
         out = parts[0] if len(parts) == 1 else sum(parts[1:], parts[0])
         combiner = plan.global_configs[
             plan.input_table_map[input_id]].combiner
-        if combiner == "mean" and hotness_of(input_id) > 1:
+        h_code = hotness_of(input_id)
+        # h_code < 0: a ragged value stream; hotness-1 inputs skip the
+        # division (the mean of one element)
+        if combiner == "mean" and (h_code > 1 or h_code < 0):
           if mean_counts is None or input_id not in mean_counts:
             raise ValueError(
                 "mean combiner on a row-sliced table needs mean_counts "
@@ -856,23 +1139,39 @@ class DistributedLookup:
           != "mean":
         continue
       x = _normalize_input(inputs[input_id])
-      out[input_id] = (x >= 0).sum(dim=1)
+      if isinstance(x, RaggedIds):
+        # valid ids of each sample's window of the live stream (the
+        # padded path's sum(x >= 0))
+        cap = x.values.shape[0]
+        live = torch.arange(cap, device=x.values.device) < x.row_splits[-1]
+        out[input_id] = _segment_counts(
+            live & (x.values >= 0),
+            _seg_offsets(x.row_lengths().to(x.values.device), cap))
+      else:
+        out[input_id] = (x >= 0).sum(dim=1)
     return out
 
   # ---- OOV observability -------------------------------------------------
   def oov_counts(self, inputs: Sequence) -> Dict[str, torch.Tensor]:
     """Per-class out-of-vocabulary occurrence counts of one batch: ids
     ``>= input_dim`` of the table the input feeds (negative ids are
-    padding, not OOV), counted once per class an input's pieces live in.
+    padding, not OOV), counted once per class an input's pieces live in;
+    a value stream counts its live entries (before ``row_splits[-1]``).
     Class name -> int32 scalar (this rank's batch)."""
     plan = self.plan
     dev = None
     out = {}
     for input_id, pieces in enumerate(plan.output_pieces):
       x = _normalize_input(inputs[input_id])
-      dev = x.device
       vocab = plan.global_configs[plan.input_table_map[input_id]].input_dim
-      n = (x >= vocab).sum().to(torch.int32)
+      if isinstance(x, RaggedIds):
+        dev = x.values.device
+        live = (torch.arange(x.values.shape[0], device=dev)
+                < x.row_splits[-1])
+        n = (live & (x.values >= vocab)).sum().to(torch.int32)
+      else:
+        dev = x.device
+        n = (x >= vocab).sum().to(torch.int32)
       for ck in sorted({p.class_key for p in pieces}):
         name = class_param_name(*ck)
         out[name] = out[name] + n if name in out else n
@@ -888,8 +1187,11 @@ class DistributedLookup:
     name -> int32 scalar (this rank's count). A nonzero count means those
     ids gathered, and in training updated, the wrong rows."""
     first = next(iter(ids_all.values()), None)
-    dev = (first.inv if isinstance(first, DedupRouted) else first).device \
-        if first is not None else None
+    if isinstance(first, DedupRouted):
+      first = first.inv
+    elif isinstance(first, tuple):  # ragged (vals, lens)
+      first = first[0]
+    dev = first.device if first is not None else None
     out = {class_param_name(*k): torch.zeros((), dtype=torch.int32,
                                              device=dev)
            for k in self.plan.class_keys}
@@ -908,7 +1210,8 @@ class DistributedLookup:
       class_params: class name -> this rank's ``[rows, width]`` block (at
         world 1 the whole table).
       inputs: per global input, this rank's ``[B]`` or ``[B, H]`` int ids
-        (PAD_ID entries ignored).
+        (PAD_ID entries ignored) or its :class:`RaggedIds` (the same
+        capacity on every rank).
 
     Returns:
       Per global input its ``[B, table_width]`` activations. Autograd
@@ -918,7 +1221,7 @@ class DistributedLookup:
       collectives in the same order."""
     inputs = [_normalize_input(x) for x in inputs]
     hotness_of = lambda i: ragged_hotness(inputs[i])  # noqa: E731
-    b = inputs[0].shape[0]
+    b = _batch_of(inputs)
     counts = self.mean_counts(inputs)
     ids_all = self.route_ids(inputs, hotness_of)
     z_sparse = {
@@ -1026,20 +1329,17 @@ class DistributedLookup:
       fused = gather_fused_chunked(layout, buf_local, ids_all.uniq)
       return (fused[..., :layout.width],
               fused if (layout.n_aux or keep_rows) else None)
-    self._check_routed(ids_all)
+    if isinstance(ids_all, tuple):  # ragged value stream
+      vals, lens = ids_all
+      fused = gather_fused_chunked(layout, buf_local, vals)
+      return (self._combine_ragged(fused[..., :layout.width], vals, lens,
+                                   key, rs),
+              fused if (layout.n_aux or keep_rows) else None)
     return self._combine_fused(
         key, layout,
         gather_fused_chunked(layout, buf_local, ids_all,
                              masked_phys=_masked_multi_hot(layout, ids_all)),
         ids_all, rs, keep_rows)
-
-  @staticmethod
-  def _check_routed(ids_all) -> None:
-    """Refuse the routings the fused gather does not serve yet."""
-    if not isinstance(ids_all, torch.Tensor):
-      raise NotImplementedError(
-          f"routed ids of type {type(ids_all).__name__}: ragged routing "
-          "is not ported yet (ROADMAP.md open items, queue B, item 7)")
 
   def _combine_fused(self, key, layout: PackedLayout, fused: torch.Tensor,
                      ids: torch.Tensor, rs: bool, keep_rows: bool):
@@ -1120,6 +1420,28 @@ class DistributedLookup:
       if isinstance(ids, DedupRouted):
         by_class.setdefault(class_param_name(*key), []).append(
             (ids.uniq.reshape(-1), dzb.reshape(-1, cp.width), aux, 0))
+        continue
+      if isinstance(ids, tuple):
+        # ragged: each sample's cotangent expanded to its occurrences
+        # (the tail takes the last sample's, as in the JAX engine; its
+        # sentinel ids apply nothing), pre-expanded parts marked h=0
+        vals, lens = ids
+        n_b, world, cap = vals.shape
+        b, w = lens.shape[2], cp.width
+        seg = _seg_ids(lens.reshape(n_b * world, b), cap)
+        dz_blocks = dzb.reshape(n_b * world, b, w)
+        g_occ = dz_blocks[torch.arange(n_b * world, device=seg.device)[:, None],
+                          seg]  # [n_b * world, V, w]
+        if cp.combiner == "mean" and not bk.rs:
+          # the forward's valid-count divisor (row-sliced buckets divide
+          # in the differentiable assemble, so d_z arrives pre-divided)
+          counts = self._ragged_valid_counts(
+              vals.reshape(n_b * world, cap), lens.reshape(n_b * world, b),
+              key)
+          cnt = counts.gather(1, seg).to(g_occ.dtype)
+          g_occ = g_occ / cnt.clamp(min=1)[..., None]
+        by_class.setdefault(class_param_name(*key), []).append(
+            (vals.reshape(-1), g_occ.reshape(-1, w), aux, 0))
         continue
       if cp.combiner == "mean" and h > 1 and not bk.rs:
         # row-sliced buckets skip this: their mean division lives in the
@@ -1276,6 +1598,147 @@ class DistributedLookup:
               {name: self._stream_of_parts(layout, [part], rule, step)},
               rule, step)
     return fused_params
+
+  # ---- model-parallel input mode -----------------------------------------
+  def forward_mp(self, class_params: Dict[str, torch.Tensor],
+                 packed_inputs: Dict[str, torch.Tensor],
+                 hotness: Optional[Sequence[int]] = None
+                 ) -> List[torch.Tensor]:
+    """Differentiable lookup of model-parallel inputs (``dp_input=False``).
+
+    ``packed_inputs`` is this rank's block of :func:`pack_mp_inputs`' dict:
+    per bucket ``[1, n_b, G, h]`` pre-offset ids of this rank's tables
+    over the GLOBAL batch (``{k: v[rank:rank + 1]}``, or
+    ``training.shard_batch(packed, mesh)``). The id exchange is skipped;
+    the activation exchange still runs (the reference's semantics), so
+    each rank gets its ``G / world`` samples' activations."""
+    plan = self.plan
+    world = plan.world_size
+    if any(sh.row_sliced for shards in plan.rank_shards for sh in shards):
+      raise NotImplementedError(
+          "row-sliced tables are not supported with model-parallel inputs "
+          "(dp_input=False): every rank holding a row slice needs the full "
+          "id stream, which contradicts the mp-input contract")
+    if hotness is not None and any(h < 0 for h in hotness):
+      raise ValueError(
+          "negative hotness entries (the planner's ragged-input hint) are "
+          "not valid in model-parallel input mode: ragged value streams "
+          "only exist for the dp-input exchange. Convert the input with "
+          "ragged_to_padded and pass its static max hotness instead.")
+    self._my_rank()  # a world > 1 plan needs the mesh
+    hotness_of = (lambda i: 1) if hotness is None else \
+        (lambda i: hotness[i])  # noqa: E731
+    z = {}
+    g = None
+    for key in plan.class_keys:
+      table_local = self._squeeze_local(class_params[class_param_name(*key)])
+      for bucket in self._buckets(key, hotness_of):
+        name = _packed_input_name(key, bucket)
+        if name not in packed_inputs:
+          raise ValueError(
+              f"packed input {name!r} missing; pass the same `hotness` to "
+              "pack_mp_inputs and forward_mp")
+        ids_all = torch.as_tensor(packed_inputs[name])
+        if (ids_all.dim() != 4 or ids_all.shape[0] != 1
+            or ids_all.shape[1] != bucket.n_b
+            or ids_all.shape[3] != bucket.h):
+          raise ValueError(
+              f"packed input {name!r} has shape {tuple(ids_all.shape)}, "
+              f"expected [1, {bucket.n_b}, G, {bucket.h}] — was it packed "
+              "with a different plan or hotness?")
+        ids_all = ids_all[0]
+        g = ids_all.shape[1]
+        if g % world:
+          raise ValueError(f"Global batch {g} not divisible by world {world}")
+        bk = bucket_key(key, bucket.h, bucket.vcap, bucket.rs)
+        if plan.classes[key].kind == "dense":
+          z[bk] = self._z_dense(key, bucket, table_local, ids_all)
+        else:
+          z[bk] = self._z_sparse_simple(key, table_local, ids_all)
+    received = self.exchange(z, g // world)
+    return self.assemble(received, hotness_of)
+
+
+def _packed_input_name(key, bucket: Bucket) -> str:
+  name = f"{class_param_name(*key)}_h{bucket.h}"
+  if bucket.vcap:
+    name += f"_v{bucket.vcap}"
+  return name
+
+
+def pack_mp_inputs(plan: "DistEmbeddingStrategy",
+                   per_rank_inputs: Sequence[Sequence],
+                   hotness: Optional[Sequence[int]] = None
+                   ) -> Dict[str, torch.Tensor]:
+  """Global packed arrays for model-parallel input mode
+  (``dp_input=False``).
+
+  Args:
+    plan: the strategy.
+    per_rank_inputs: ``per_rank_inputs[r]`` lists rank r's inputs in
+      ``plan.input_ids_list[r]`` order, each ``[G]`` or ``[G, H]`` over the
+      GLOBAL batch (the reference's mp-input contract).
+    hotness: per global input id, its static hotness; pass the same to
+      :meth:`DistributedLookup.forward_mp`. Default all-1.
+
+  Returns:
+    packed-input name -> ``[world, n_b, G, h]`` int32 tensors; rank r
+    passes its block ``[r:r + 1]`` to ``forward_mp``."""
+  world = plan.world_size
+  if any(sh.row_sliced for shards in plan.rank_shards for sh in shards):
+    raise NotImplementedError(
+        "row-sliced tables are not supported with model-parallel inputs: "
+        "per-rank id streams cannot cover a table split across ranks")
+  if hotness is not None and any(h < 0 for h in hotness):
+    raise ValueError(
+        "negative hotness entries (the planner's ragged-input hint) are "
+        "not valid for pack_mp_inputs: ragged value streams only exist "
+        "for the dp-input exchange. Convert the input with "
+        "ragged_to_padded and pass its static max hotness instead.")
+  hotness_of = (lambda i: 1) if hotness is None else \
+      (lambda i: hotness[i])  # noqa: E731
+  # resolve each (rank, class, slot) to its normalized input once
+  slot_inputs = {}  # (key, rank, slot_idx) -> [G, H]
+  for rank in range(world):
+    for pos, input_id in enumerate(plan.input_ids_list[rank]):
+      piece = next(p for p in plan.output_pieces[input_id] if p.rank == rank)
+      x = _normalize_input(per_rank_inputs[rank][pos])
+      if isinstance(x, RaggedIds):
+        raise TypeError(
+            "model-parallel inputs (dp_input=False) do not support "
+            "RaggedIds; convert with ragged_to_padded(ids, max_hot) — "
+            "value-stream routing only exists for the dp-input exchange")
+      if x.shape[1] != hotness_of(input_id):
+        raise ValueError(
+            f"input {input_id} has hotness {x.shape[1]}, `hotness` says "
+            f"{hotness_of(input_id)}")
+      slot_inputs[(piece.class_key, rank, piece.slot)] = x
+
+  dev = next((x.device for x in slot_inputs.values()), None)
+  g = next((x.shape[0] for x in slot_inputs.values()), 0)
+  packed = {}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    sentinel = padded_rows(plan, key)
+    for bucket in class_buckets(plan, key, hotness_of):
+      per_rank = []
+      for rank in range(world):
+        idxs = bucket.slot_idx_per_rank[rank]
+        entries = []
+        for k in range(bucket.n_b):
+          if k < len(idxs):
+            slot = cp.slots_per_rank[rank][idxs[k]]
+            x = slot_inputs[(key, rank, idxs[k])]
+            rows = slot.shard.input_dim
+            routed = torch.where(x < 0, sentinel,
+                                 x.clamp(0, rows - 1) + slot.row_offset)
+            entries.append(routed.to(torch.int32))
+          else:
+            entries.append(torch.full((g, bucket.h), sentinel,
+                                      dtype=torch.int32, device=dev))
+        per_rank.append(torch.stack(entries))
+      packed[_packed_input_name(key, bucket)] = torch.stack(per_rank)
+  return packed
 
 
 def _sum_axis2(rows: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,16 @@
 """Request micro-batcher: concurrent queries -> one padded device dispatch.
 
 A copy of ``distributed_embeddings_tpu/serving/batcher.py`` for the
-PyTorch port, with one difference: ``dispatch_fn`` (``ServeEngine.
+PyTorch port, with two differences: ``dispatch_fn`` (``ServeEngine.
 dispatch``) returns a torch tensor, on the card in production, which
 ``np.asarray`` cannot read; the completer materializes it with
 ``.cpu()`` (the synchronization point) and de-interleaves the numpy
-rows. The padded dispatch's ``PAD_ID`` rows route to the sentinel, which
-the serve gather reads as zero rows without indexing a serve block.
+rows. And a request's categorical input may be a ``RaggedIds``: a flush
+packs the requests' live value streams into one stream (splits offset,
+the padded tail rows of length 0), its capacity the smallest power of
+two that holds them, so a dispatch's bucket shapes take few values. The
+padded dispatch's ``PAD_ID`` rows route to the sentinel, which the serve
+gather reads as zero rows without indexing a serve block.
 
 A serving device wants one big batch; users send many small concurrent
 requests. The :class:`MicroBatcher` sits between them:
@@ -55,11 +59,40 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.ragged import RaggedIds
 from ..parallel.lookup_engine import PAD_ID
 from ..telemetry import DEAD_THREAD_GAUGE_STEM, MetricsRegistry
 from ..telemetry import flight as _flight
 from ..telemetry import span as _span
 from ..telemetry import trace as _trace
+
+
+def _host_ids(c):
+  """A request's categorical input on the host: numpy, or a RaggedIds
+  with numpy fields."""
+  if isinstance(c, RaggedIds):
+    return RaggedIds(*(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                       else np.asarray(x) for x in (c.values, c.row_splits)))
+  return np.asarray(c)
+
+
+def _pack_ragged(parts: List[RaggedIds], pad: int) -> RaggedIds:
+  """Requests' RaggedIds -> one stream: the live values in request order,
+  the splits offset, ``pad`` trailing rows of length 0, the values padded
+  to the smallest power of two that holds them."""
+  values, lengths = [], []
+  for p in parts:
+    splits = np.asarray(p.row_splits, np.int64)
+    values.append(np.asarray(p.values)[splits[0]:splits[-1]])
+    lengths.append(np.diff(splits))
+  values = np.concatenate(values)
+  lengths = np.concatenate(lengths + [np.zeros(pad, np.int64)])
+  total = values.shape[0]
+  cap = 1 << max(0, total - 1).bit_length() if total else 0
+  values = np.concatenate([values, np.zeros(cap - total, values.dtype)])
+  splits = np.concatenate([[0], np.cumsum(lengths)]).astype(
+      np.asarray(parts[0].row_splits).dtype)
+  return RaggedIds(values, splits)
 
 
 def _materialize(out) -> np.ndarray:
@@ -442,12 +475,16 @@ class MicroBatcher:
     (``deadline_expired``) instead of wasting a dispatch slot on an
     answer nobody is waiting for."""
     numerical = np.asarray(numerical)
-    cats = [np.asarray(c) for c in cats]
+    cats = [_host_ids(c) for c in cats]
     n = numerical.shape[0]
     if n < 1 or n > self.max_batch:
       raise ValueError(
           f"request rows {n} outside [1, max_batch={self.max_batch}] — "
           "split oversized queries client-side")
+    for c in cats:
+      if isinstance(c, RaggedIds) and c.nrows != n:
+        raise ValueError(f"a RaggedIds input of {c.nrows} rows in a request "
+                         f"of {n} rows")
     fut = ServeFuture(n)
     with self._nonempty:
       if self._dead is not None:
@@ -612,16 +649,21 @@ class MicroBatcher:
   def _pad_batch(self, taken: List[_Pending]):
     with _span("serve/pack", args={"requests": len(taken)}):
       numerical = np.concatenate([p.numerical for p in taken])
-      cats = [np.concatenate([p.cats[i] for p in taken])
-              for i in range(len(taken[0].cats))]
       pad = self.max_batch - numerical.shape[0]
+      cats = []
+      for i in range(len(taken[0].cats)):
+        if isinstance(taken[0].cats[i], RaggedIds):
+          cats.append(_pack_ragged([p.cats[i] for p in taken], pad))
+          continue
+        c = np.concatenate([p.cats[i] for p in taken])
+        if pad:
+          c = np.concatenate(
+              [c, np.full((pad,) + c.shape[1:], PAD_ID, c.dtype)])
+        cats.append(c)
       if pad:
         numerical = np.concatenate(
             [numerical, np.zeros((pad,) + numerical.shape[1:],
                                  numerical.dtype)])
-        cats = [np.concatenate(
-            [c, np.full((pad,) + c.shape[1:], PAD_ID, c.dtype)])
-            for c in cats]
       self._counters["padded_rows"].inc(pad)
       return numerical, cats
 

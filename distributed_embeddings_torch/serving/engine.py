@@ -20,9 +20,12 @@ batch-sharded output, gathered), so a ``MicroBatcher`` in front of it
 de-interleaves by position at any world. Under ``dedup_exchange=True``
 each rank gathers (and dequantizes) one row per unique id of every
 requesting rank's block, and the requesting rank expands and combines
-them, as in the eval step.
+them, as in the eval step. A ragged value stream (``RaggedIds``) gathers
+its rows, dequantizes them and sums each sample's segment as the eval
+step does (``lookup_engine._combine_ragged``), for f32 and int8 images
+alike.
 
-Not ported yet: tiered serving, ragged value streams.
+Not ported yet: tiered serving.
 """
 
 from __future__ import annotations
@@ -158,10 +161,12 @@ def _serve_lookup(engine: DistributedLookup,
       z[bk] = _dequant_rows(
           gather_fused_chunked(layouts[name], buf, ids.uniq), m)
       continue
-    if not isinstance(ids, torch.Tensor):
-      raise NotImplementedError(
-          f"routed ids of type {type(ids).__name__}: ragged routing is "
-          "not ported yet")
+    if isinstance(ids, tuple):  # ragged value stream (vals, lens)
+      vals, lens = ids
+      rows = _dequant_rows(gather_fused_chunked(layouts[name], buf, vals), m)
+      ovals, _ = ids_order[bk]
+      z[bk] = engine._combine_ragged(rows, ovals, lens, key, bk.rs)
+      continue
     raw = gather_fused_chunked(layouts[name], buf, ids)
     oids = ids_order[bk]
     multi_hot = oids.dim() == 3 and oids.shape[-1] > 1

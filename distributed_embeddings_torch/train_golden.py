@@ -75,6 +75,17 @@ stream numpy keeps stable), so the file holds only the batches, the
 losses, the final dense params and each buffer's update; ``zoo_init_sum``
 entries pin the initial state. :func:`replay_zoo` replays it through the
 port.
+``tests/data/torch_train_ragged_golden.npz`` is the ragged value
+streams': a small DLRM of eight D=128 tables (``combiner='sum'``, one of
+them in a dense class) whose inputs 2, 3, 5 and 7 arrive as
+``RaggedIds`` (lengths uniform in ``[1, h]``, declared by negative
+``input_hotness``, so the 24-row table stays sparse), bf16 compute,
+three steps of the JAX ``make_sparse_train_step`` (SGD rule,
+``optax.sgd``) on the CPU. Its tables come from a numpy seed
+(:func:`ragged_initial_tables`, pinned by ``ragged_init_sum`` entries),
+so the file holds the batches, the dense params before and after, the
+losses and each table's update. :func:`replay_ragged` replays it through
+the port, to the tolerances above.
 """
 
 from __future__ import annotations
@@ -497,6 +508,130 @@ def compare_zoo(golden: Dict[str, np.ndarray], losses: List[float],
   initial, final = zoo_golden_state(golden)
   return _compare(golden["losses"], initial, final, losses, got,
                   zoo_train_state_from_flax)
+
+
+# ---------------------------------------------------------------------------
+# the ragged golden (RaggedIds through make_sparse_train_step)
+# ---------------------------------------------------------------------------
+
+RAGGED_PATH = GOLDEN_PATH.with_name("torch_train_ragged_golden.npz")
+RAGGED_VOCAB = (3, 10, 24, 33, 40, 48, 52, 60)
+RAGGED_DIM = 128
+RAGGED_BOTTOM = (16, 128)
+RAGGED_TOP = (16, 1)
+RAGGED_NUM = 13
+RAGGED_BATCH = 128
+RAGGED_HOT = {2: 5, 3: 3, 5: 8, 7: 12}  # ragged input -> its longest sample
+RAGGED_DENSE_ROW_THRESHOLD = 32
+RAGGED_SEED = 0
+
+
+def ragged_hotness() -> List[int]:
+  """The plan's ``input_hotness``: ``-h`` for a ragged input."""
+  return [-RAGGED_HOT[i] if i in RAGGED_HOT else 1
+          for i in range(len(RAGGED_VOCAB))]
+
+
+def ragged_plan(table_config=TableConfig, strategy=DistEmbeddingStrategy):
+  """The ragged golden's plan (of this package, or of another with its
+  ``TableConfig`` and ``DistEmbeddingStrategy``)."""
+  return strategy(
+      [table_config(input_dim=v, output_dim=RAGGED_DIM, combiner="sum")
+       for v in RAGGED_VOCAB], 1, "basic",
+      dense_row_threshold=RAGGED_DENSE_ROW_THRESHOLD,
+      input_hotness=ragged_hotness())
+
+
+def ragged_initial_tables(plan, seed: int = RAGGED_SEED
+                          ) -> Dict[str, np.ndarray]:
+  """Every class's simple-layout table, uniform in +-0.05 from
+  ``np.random.RandomState(seed)``."""
+  rs = np.random.RandomState(seed)
+  return {class_param_name(*key): rs.uniform(
+      -ZOO_INIT_SCALE, ZOO_INIT_SCALE,
+      (padded_rows(plan, key), plan.classes[key].width)).astype(np.float32)
+          for key in plan.class_keys}
+
+
+def ragged_golden_state(golden: Dict[str, np.ndarray]):
+  """``(initial, final)`` numpy states of the ragged golden: the tables
+  rebuilt (checked against the stored sums) and packed by the port's
+  ``init_sparse_state`` beside the stored initial dense params; the final
+  one as the initial plus the stored updates, its dense params as the
+  port's state_dict (keyed as :func:`final_state`)."""
+  plan = ragged_plan()
+  tables = ragged_initial_tables(plan, int(golden["seed"]))
+  for name, t in tables.items():
+    want = golden[f"ragged_init_sum/{name}"]
+    if not np.isclose(np.float64(t.sum(dtype=np.float64)), want, rtol=1e-12,
+                      atol=1e-9):
+      raise AssertionError(
+          f"the rebuilt table {name} differs from the golden's: numpy's "
+          "RandomState stream changed?")
+  dense0 = flax_tree(golden, "dense0")
+  packed = init_sparse_state(
+      plan, {"embeddings": {k: torch.tensor(v) for k, v in tables.items()},
+             **dlrm_state_dict_from_flax(dense0)}, sgd_rule(LR),
+      functools.partial(torch.optim.SGD, lr=LR), device="cpu")
+  initial = {"fused": {k: v.numpy() for k, v in packed["fused"].items()},
+             "emb_dense": {k: v.detach().numpy()
+                           for k, v in packed["emb_dense"].items()},
+             "dense": dense0, "step": 0}
+  final = {part: {k: initial[part][k] + v for k, v in
+                  _entries(golden, f"{part}_moved").items()}
+           for part in ("fused", "emb_dense")}
+  final["dense"] = {k: v.numpy() for k, v in dlrm_state_dict_from_flax(
+      flax_tree(golden, "dense3")).items()}
+  return initial, final
+
+
+def ragged_cats(golden: Dict[str, np.ndarray], i: int, device="cpu"):
+  """Batch ``i``'s categorical inputs of the ragged golden: ``[B]`` ids,
+  or a ``RaggedIds`` of the stored ``values/<j>`` and ``splits/<j>``."""
+  from .ops.ragged import RaggedIds
+  dev = torch.device(device)
+  out = []
+  for j in range(len(RAGGED_VOCAB)):
+    if j in RAGGED_HOT:
+      out.append(RaggedIds(
+          torch.as_tensor(golden[f"values/{j}"][i], device=dev),
+          torch.as_tensor(golden[f"splits/{j}"][i], device=dev)))
+    else:
+      out.append(torch.as_tensor(golden[f"cat/{j}"][i], device=dev))
+  return out
+
+
+def replay_ragged(golden: Dict[str, np.ndarray], device="cuda"):
+  """Three steps of the port's sparse train step from the ragged golden's
+  initial state on ``device``: returns ``(losses, final state)`` as
+  :func:`replay` does."""
+  plan = ragged_plan()
+  initial, _ = ragged_golden_state(golden)
+  model = DLRM(list(RAGGED_VOCAB), RAGGED_DIM, bottom_mlp=RAGGED_BOTTOM,
+               top_mlp=RAGGED_TOP, num_numerical=RAGGED_NUM,
+               compute_dtype=torch.bfloat16, tables=False, device=device)
+  state = train_state_from_flax(initial, device=device)
+  step = make_sparse_train_step(
+      model, plan, bce_loss, functools.partial(torch.optim.SGD, lr=LR),
+      sgd_rule(LR))
+  dev = torch.device(device)
+  losses = []
+  for i in range(STEPS):
+    state, loss = step(state,
+                       torch.as_tensor(golden["numerical"][i], device=dev),
+                       ragged_cats(golden, i, device),
+                       torch.as_tensor(golden["labels"][i], device=dev))
+    losses.append(float(loss))
+  got = {part: {k: v.detach().cpu().numpy() for k, v in state[part].items()}
+         for part in ("fused", "emb_dense", "dense")}
+  return losses, got
+
+
+def compare_ragged(golden: Dict[str, np.ndarray], losses: List[float],
+                   got: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, float]:
+  """:func:`compare` for a :func:`replay_ragged` result."""
+  initial, final = ragged_golden_state(golden)
+  return _compare(golden["losses"], initial, final, losses, got)
 
 
 # ---------------------------------------------------------------------------

@@ -995,13 +995,28 @@ def shard_batch(batch, mesh=None, device="cuda"):
   and rank ``r`` keeps slice ``r`` (the JAX package's ``P(axis)`` batch
   sharding, one process per rank); a global batch the world does not
   divide is refused. Without a mesh the whole batch goes to ``device``.
-  Nested tuples and lists keep their structure."""
+  Nested tuples, lists and dicts keep their structure (a dict of
+  :func:`~.parallel.lookup_engine.pack_mp_inputs` arrays gives each rank
+  its ``[1, ...]`` block).
+
+  A :class:`RaggedIds` leaf at world N is either the JAX package's global
+  form, the ranks' blocks stacked (``values`` ``[world * V]``,
+  ``row_splits`` ``[world * (B + 1)]``, each block's splits from 0), of
+  which rank ``r`` keeps block ``r``; or one CSR stream over the global
+  batch (``row_splits`` ``[world * B + 1]``), which is cut into the
+  ranks' sample blocks, each rebased and padded to a common capacity, the
+  smallest power of two that holds the largest block (one host read of
+  the splits)."""
   dev = _state_device(device, mesh)
   world = 1 if mesh is None else mesh.world
 
   def put(x):
     if isinstance(x, (tuple, list)):
       return type(x)(put(v) for v in x)
+    if isinstance(x, dict):
+      return {k: put(v) for k, v in x.items()}
+    if isinstance(x, RaggedIds):
+      return _shard_ragged(x, mesh, dev)
     x = torch.as_tensor(x)
     if world > 1 and x.dim():
       if x.shape[0] % world:
@@ -1012,6 +1027,42 @@ def shard_batch(batch, mesh=None, device="cuda"):
     return x.to(dev)
 
   return put(batch)
+
+
+def _pow2_at_least(n: int) -> int:
+  """The smallest power of two ``>= n`` (0 for 0)."""
+  return 0 if n <= 0 else 1 << (int(n) - 1).bit_length()
+
+
+def _shard_ragged(x: RaggedIds, mesh, dev) -> RaggedIds:
+  """This rank's :class:`RaggedIds` block of a global one (see
+  :func:`shard_batch`), on ``dev``."""
+  values = torch.as_tensor(x.values)
+  splits = torch.as_tensor(x.row_splits)
+  world = 1 if mesh is None else mesh.world
+  if world == 1:
+    return RaggedIds(values.to(dev), splits.to(dev))
+  r = mesh.rank
+  if splits.shape[0] % world == 0:  # the ranks' blocks, stacked
+    if values.shape[0] % world:
+      raise ValueError(f"RaggedIds values of {values.shape[0]} do not split "
+                       f"into {world} rank blocks")
+    n, cap = splits.shape[0] // world, values.shape[0] // world
+    return RaggedIds(values[r * cap:(r + 1) * cap].to(dev),
+                     splits[r * n:(r + 1) * n].to(dev))
+  g = splits.shape[0] - 1
+  if g % world:
+    raise ValueError(f"global batch {g} is not divisible by the world size "
+                     f"{world}")
+  b = g // world
+  host = splits.cpu().long()
+  bounds = host[::b].tolist()  # the ranks' block bounds, world + 1 of them
+  cap = _pow2_at_least(max(bounds[q + 1] - bounds[q] for q in range(world)))
+  lo, hi = bounds[r], bounds[r + 1]
+  block = torch.zeros(cap, dtype=values.dtype, device=values.device)
+  block[:hi - lo] = values[lo:hi]
+  return RaggedIds(block.to(dev),
+                   (splits[r * b:(r + 1) * b + 1] - lo).to(dev))
 
 
 # ---------------------------------------------------------------------------

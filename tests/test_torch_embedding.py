@@ -410,9 +410,13 @@ def test_distributed_embedding_init_layout_and_world4_refusal():
     assert tuple(p.shape) == tuple(world4.engine.param_shapes()[name])
   with pytest.raises(ValueError, match="mesh"):
     world4([torch.zeros((B,), dtype=torch.int32)] * 6)
-  with pytest.raises(NotImplementedError, match="queue C"):
-    tdmp.DistributedEmbedding(_configs(temb.TableConfig, [None] * 6),
-                              dp_input=False, device="cpu")
+  # model-parallel inputs (dp_input=False) are ported: the layer builds,
+  # and refuses a dict without its packed inputs with the JAX message
+  # (tests/test_torch_ragged_engine.py holds the mode to the JAX package)
+  mp_layer = tdmp.DistributedEmbedding(_configs(temb.TableConfig, [None] * 6),
+                                       dp_input=False, device="cpu")
+  with pytest.raises(ValueError, match="packed input .* missing"):
+    mp_layer({})
 
 
 def test_ragged_constructors_match_jax():

@@ -40,6 +40,12 @@ def free_port() -> int:
 
 def spawn(tmp_path, world: int, job: str, spec, timeout_s: float = 300.0):
   """Run ``job`` on ``world`` gloo ranks; returns each rank's result."""
+  return spawn_wait(spawn_start(tmp_path, world, job, spec), timeout_s)
+
+
+def spawn_start(tmp_path, world: int, job: str, spec):
+  """Start ``job`` on ``world`` gloo ranks and return at once (the caller
+  can work meanwhile); :func:`spawn_wait` collects the results."""
   spec_path = os.path.join(str(tmp_path), f"{job}_spec.pkl")
   with open(spec_path, "wb") as f:
     pickle.dump(spec, f)
@@ -52,6 +58,13 @@ def spawn(tmp_path, world: int, job: str, spec, timeout_s: float = 300.0):
        str(port), spec_path],
       env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
       for rank in range(world)]
+  return procs, spec_path
+
+
+def spawn_wait(started, timeout_s: float = 300.0):
+  """Each rank's result of a :func:`spawn_start`."""
+  procs, spec_path = started
+  world = len(procs)
   outs = []
   try:
     for p in procs:
@@ -784,6 +797,11 @@ def wire_forward_job(mesh, spec):
     outs = engine.forward(params, inputs)
     got = {"outs": [wire.gather_blocks(o.detach(), mesh).numpy()
                     for o in outs]}
+    if case.get("route"):
+      # the ragged buckets' exchanged (vals, lens), this rank's
+      got["routed"] = {repr(tuple(bk)): tuple(t.numpy() for t in ids)
+                       for bk, ids in engine.route_ids(inputs).items()
+                       if isinstance(ids, tuple)}
     if "ct" in case:
       cts = shard_batch(list(case["ct"]), mesh, device="cpu")
       sum((o * c).sum() for o, c in zip(outs, cts)).backward()
@@ -791,3 +809,66 @@ def wire_forward_job(mesh, spec):
                       for k, v in params.items()}
     out[name] = got
   return out
+
+
+def mp_input_job(mesh, spec):
+  """Model-parallel input mode at world N, per case of ``spec['cases']``
+  (a plan, its global class params ``params``, the ranks' global-batch
+  inputs ``per_rank``, ``hotness``, the same batch as dp inputs
+  ``inputs`` and global cotangents ``ct``): ``pack_mp_inputs``, this
+  rank's block through ``forward_mp`` and through a
+  ``DistributedEmbedding(dp_input=False)``, and the dp-input forward of
+  the batch; per form the gathered global outputs and, for the engine's
+  two forms, the gathered class gradients of ``sum(out * ct)``."""
+  from distributed_embeddings_torch.layers.dist_model_parallel import (
+      DistributedEmbedding,
+  )
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.parallel import wire
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      pack_mp_inputs,
+  )
+  from distributed_embeddings_torch.training import shard_batch, shard_params
+
+  out = {}
+  for name, case in spec["cases"].items():
+    plan = _plan_of(case, mesh.world)
+    engine = DistributedLookup(plan, mesh=mesh)
+    packed = pack_mp_inputs(plan, case["per_rank"], case["hotness"])
+    block = shard_batch(packed, mesh, device="cpu")
+    cts = shard_batch(list(case["ct"]), mesh, device="cpu")
+    got = {"packed": {k: v.numpy() for k, v in packed.items()}}
+    for form in ("mp", "dp"):
+      params = {k: v.requires_grad_(True) for k, v in shard_params(
+          case["params"], mesh, device="cpu").items()}
+      if form == "mp":
+        outs = engine.forward_mp(params, block, case["hotness"])
+      else:
+        outs = engine.forward(params, shard_batch(list(case["inputs"]), mesh,
+                                                  device="cpu"))
+      sum((o * c).sum() for o, c in zip(outs, cts)).backward()
+      got[form] = {
+          "outs": [wire.gather_blocks(o.detach(), mesh).numpy()
+                   for o in outs],
+          "grads": {k: wire.gather_blocks(v.grad, mesh).numpy()
+                    for k, v in params.items()}}
+    layer = DistributedEmbedding(
+        [TableConfig(input_dim=v, output_dim=w, combiner=c)
+         for v, w, c in case["tables"]], case["strategy"],
+        world_size=mesh.world, dp_input=False,
+        input_hotness=case["hotness"], mesh=mesh, device="cpu",
+        **{k: v for k, v in case["plan_kw"].items()
+           if k == "dense_row_threshold"})
+    layer.load_state_dict(shard_params(case["params"], mesh, device="cpu"))
+    got["layer"] = [wire.gather_blocks(o.detach(), mesh).numpy()
+                    for o in layer(block)]
+    out[name] = got
+  return out
+
+
+def multi_job(mesh, spec):
+  """Several jobs of this module in one spawn: ``spec['jobs']`` maps a
+  name to ``(job, job_spec)``; returns ``{name: that job's result}``."""
+  return {name: globals()[job](mesh, job_spec)
+          for name, (job, job_spec) in spec["jobs"].items()}
