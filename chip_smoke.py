@@ -14,7 +14,11 @@ end-to-end" command (``examples/dlrm/main_torch.py``, the port's twin of
 ``tools/bench_synthetic.py tiny 65536``, the world-4 hybrid-parallel
 train step of ``examples/dlrm/main.py --sparse`` under
 ``overlap='fused'``, and the README's wire compression on it
-(``dedup_exchange``, ``dedup_capacity``, the bf16 and fp8 wires). One
+(``dedup_exchange``, ``dedup_capacity``, the bf16 and fp8 wires),
+column-sliced tables at world 4, and the README Quick start's last
+command (``examples/benchmarks/synthetic_models/main_torch.py``, the
+zoo's dense-autodiff step) with the zoo harness at world 4 and the
+lookup microbenchmark (``examples/benchmarks/benchmark_torch.py``). One
 JSON line per phase:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), which
@@ -47,7 +51,12 @@ JSON line per phase:
    0.01) at the two buckets of Tiny's largest class: 786,432 one-hot
    samples with 32-lane state rows, and 65,536 ten-hot samples with
    window-masked 128-lane state rows; then momentum, Adam and a width-8
-   class on 4,096-sample streams: within rtol 1e-6, atol 2e-7. K7
+   class on 4,096-sample streams: within rtol 1e-6, atol 2e-7; and on
+   the column-sliced narrow layouts of ``world4_colslice`` (2 and 4
+   lanes, 16-32 rows a physical row with Adagrad's state), one-hot and
+   ten-hot streams of 65,536 samples of power-law ids (K1 there too,
+   under SGD with 32-64 rows a physical row and under Adagrad, the
+   duplicate tolerance of the other K1 streams). K7
    (``row_major``) on views of the [12, 65536, 16] cotangent, each
    bit-equal and timed, with the path the wrapper chose: transposed (f32
    and bf16) and sliced (vector path), last two dimensions transposed
@@ -209,7 +218,19 @@ JSON line per phase:
    once per sparse bucket and micro-batch). ``train_zoo_ragged``: on the
    zoo's state, the ten-hot inputs as ``RaggedIds`` (lengths 1-10), one
    Adagrad step against its padded twin as in ``train_ragged`` (K6 builds
-   the ``h=0`` parts of the narrow classes);
+   the ``h=0`` parts of the narrow classes). Then ``zoo_main``: the
+   twin ``examples/benchmarks/synthetic_models/main_torch.py --model tiny
+   --batch_size 65536 --steps 6 --warmup_steps 2`` in this process (its
+   ``main(argv)``), f32 and ``--amp``: ``SyntheticModel`` owning its
+   ``DistributedEmbedding`` at the published vocabulary (4.49 GB of class
+   buffers), ``training.Adagrad`` over every parameter, the
+   dense-autodiff step; every loss finite, the mean loss of the last pass
+   over the four batches below the first pass's, no kernel launched; its
+   step ms, samples/s and peak memory beside this run's sparse
+   ``train_zoo`` step. Then ``lookup_bench``: ``benchmark_torch.py`` at
+   hotness 64 and 500 (vocab 1M x 128, batch 16,384), the CSR lookup
+   against the padded gather + reduce, forward, gradient and SGD step,
+   and the engine's ``segment_reduce`` combine, CUDA-event medians;
 10. ``world4_golden``, ``train_world4``: four ranks spawned with
    ``torch.multiprocessing``, over NCCL when each owns a card, else over
    gloo with the four sharing the card (the backend is printed). Each
@@ -277,15 +298,38 @@ JSON line per phase:
    bit-equal to the eval step, a guarded step's OOV counts equal to
    numpy's, and model-parallel inputs (``pack_mp_inputs``,
    ``forward_mp``) bit-equal to the dp-input forward with their
-   gradients within 1e-5.
+   gradients within 1e-5. Then ``world4_colslice`` (slice 16): the
+   world-4 Criteo tables (x 1/16 on both backends) with
+   ``column_slice_threshold=2**23`` (every
+   width-128 table above it in four 32-lane slices, the two smallest
+   sparse ones whole), SGD, and Tiny's three shared multi-hot tables
+   (x 1/16 on one card; a one-hot and a ten-hot input each) sliced into
+   2- and 4-lane pieces, Adagrad: per cell the activations under the
+   three schedules and with ``dedup_exchange`` bit-equal to ``'none'``'s
+   (dedup beside the narrow cell's window-masked gather in the f32
+   class: it adds a bag in another order, as the JAX engine does), 3
+   fused steps with finite losses equal on every rank, K4, K1 and K6
+   launched as predicted from the plan (K4 only for the plain-row
+   width-128 class, ``k4_classes``), and one global request served from
+   the frozen f32 image bit-equal to the eval step (the narrow cell in
+   the f32 class: its serve image packs more rows a physical row). Then
+   ``zoo_world4``: ``utils.zoo_bench.run_zoo_plan_step("tiny")`` (one
+   card: vocabulary x 1/16, global batch 16,384; four cards: the full
+   vocabulary and 65,536), its K6 and K1 launches predicted from the
+   routed batch, and Tiny's dense-autodiff step at world 4
+   (``SyntheticModel(mesh=)``, ``broadcast_variables``,
+   ``training.Adagrad``, ``make_train_step(mesh=)``; the same cuts), no
+   kernel launched, the losses equal on every rank.
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
 the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
 train, dense, train_ckpt, dlrm_main_sparse, train_mb, train_guard,
 resilient, dlrm_main_mb, train_ragged, serve_ragged, zoo, train_zoo_mb,
-train_zoo_ragged and world-4 (sparse train, wire compression, ragged,
-guard and micro-batch, checkpoint, dense train and serve) phases alone: each sets all nine kernels' counters to 0 just before each
+train_zoo_ragged, zoo_main and world-4 (sparse train, wire compression,
+ragged, guard and micro-batch, checkpoint, dense train, serve, column
+slices and the zoo) phases alone: each sets all nine kernels' counters
+to 0 just before each
 run of its path, reads all nine just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
@@ -486,6 +530,34 @@ ZOO_RAGGED_HOT = 10  # Tiny's multi-hot inputs as RaggedIds: lengths 1-10
 # keeps four ranks' gathers and gradients on one card)
 W4_MP_VOCAB_SCALE = 16
 W4_MP_BATCH = 4096
+# column-sliced tables at world 4 (slice 16): the world-4 Criteo tables
+# (x 1/16 on either backend) with a column_slice_threshold that cuts every
+# width-128 table above it
+# into four 32-lane slices (the two smallest sparse tables stay whole: a
+# plain-row class that takes K4), and a Tiny-like plan of Tiny's three
+# shared multi-hot tables (a one-hot and a ten-hot input each; x 1/16 on
+# one card) sliced into 2- and 4-lane pieces, Adagrad's state beside them
+W4_COL_SLICE = 2**23
+W4_NARROW_SLICE = 2048
+W4_NARROW_GROUPS = ((10_000, 8), (1_000_000, 16), (25_000_000, 16))
+W4_SLICED_STEPS = 3
+# the zoo at world 4: four cards run Tiny at its full vocabulary and
+# B = 65,536; one card shared by four gloo ranks cuts the vocabulary by 16
+# and the global batch to 16,384
+W4_ZOO_VOCAB_SCALE = {"nccl": 1, "gloo": 16}
+W4_ZOO_BATCH = {"nccl": 65536, "gloo": 16384}
+W4_ZOO_STEPS = 3
+# the README Quick start's last command, in-process: the twin
+# examples/benchmarks/synthetic_models/main_torch.py at the published
+# widths and vocabulary (its four power-law batches in turn)
+ZOO_MAIN_FLAGS = ("--model", "tiny", "--batch_size", "65536", "--steps",
+                  "6", "--warmup_steps", "2")
+ZOO_MAIN_BATCHES = 4  # main.py's --num_batches default
+# examples/benchmarks/benchmark_torch.py's hotness caps
+LOOKUP_BENCH_HOTNESS = (64, 500)
+# the sparse Tiny step of this run (phase_train_zoo), printed beside the
+# dense-autodiff zoo step (phase_zoo_main)
+ZOO_SPARSE_STEP = {}
 
 
 class SmokeFailure(Exception):
@@ -1496,20 +1568,31 @@ def w4_block_rows(plan, key, bucket) -> int:
   return k if cap is None else min(k, cap)
 
 
-def k4_launches_per_step(plan) -> int:
-  """K4 launches the fused schedule makes per rank and forward: one per
-  (sparse bucket, round, chunk), the chunks cut from the block's rows
+def k4_classes(plan, rule=None) -> set:
+  """The sparse classes whose round gathers take K4 under ``'fused'``:
+  ``_fused_gather``'s condition (``parallel/lookup_engine.py``), an f32
+  layout of one fused row per physical row (``rows_per_phys == 1``; a
+  window-masked gather has more). A narrow class (column slices, Tiny's
+  widths: several rows per physical row) gathers without K4. ``rule``:
+  the state's (SGD by default)."""
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_param_name,
+  )
+  layouts = DistributedLookup(plan).fused_layouts(rule or sgd_rule(TRAIN_LR))
+  return {key for key in plan.class_keys
+          if plan.classes[key].kind == "sparse"
+          and layouts[class_param_name(*key)].rows_per_phys == 1}
+
+
+def k4_launches_per_step(plan, rule=None) -> int:
+  """K4 launches the fused schedule makes per rank and forward of one-hot
+  inputs: one per (bucket, round, chunk) of each class of
+  :func:`k4_classes`, the chunks cut from the block's rows
   (:func:`w4_block_rows`: the unique capacity under ``dedup_exchange``);
   0 under the other schedules, which gather without K4."""
-  from distributed_embeddings_torch.parallel.lookup_engine import (
-      class_buckets,
-  )
-  if plan.overlap != "fused":
-    return 0
-  return sum(WORLD * min(W4_CHUNKS, w4_block_rows(plan, key, bucket))
-             for key in plan.class_keys
-             if plan.classes[key].kind == "sparse"
-             for bucket in class_buckets(plan, key, lambda i: 1))
+  return k4_forward_launches(plan, None, rule)
 
 
 def k4_empty_kernel(torch, n: int, stride: int):
@@ -2043,25 +2126,33 @@ def w4_unique_share(torch, plan, mesh, cats) -> dict:
   return {n: uniq[n] / max(1, occ[n]) for n in uniq}
 
 
-def _w4_acts(torch, plan, mesh, state, batch):
+def _w4_acts(torch, plan, mesh, state, batch, rule=None):
   """The activations the eval step feeds the model (every input's,
   concatenated): route, fused gather (K4 per round chunk under
-  ``'fused'``), dense classes, exchange, assembly."""
+  ``'fused'`` for the classes of :func:`k4_classes`), dense classes,
+  exchange, assembly. ``rule``: the state's (SGD by default); inputs
+  ``[B]`` or ``[B, h]``."""
   from distributed_embeddings_torch.ops.packed_table import sgd_rule
   from distributed_embeddings_torch.parallel.lookup_engine import (
       DistributedLookup,
   )
   numerical, cats, _ = batch
+  hot = w4_codes(cats)
   engine = DistributedLookup(plan, mesh=mesh)
   with torch.inference_mode():
-    ids_all = engine.route_ids(cats, lambda i: 1)
+    ids_all = engine.route_ids(cats, lambda i: hot[i])
     z, _ = engine.lookup_sparse_fused(
-        state["fused"], engine.fused_layouts(sgd_rule(TRAIN_LR)), ids_all,
-        keep_aux=False)
+        state["fused"], engine.fused_layouts(rule or sgd_rule(TRAIN_LR)),
+        ids_all, keep_aux=False)
     acts = engine.finish_forward(z, state["emb_dense"], ids_all,
-                                 numerical.shape[0], lambda i: 1,
+                                 numerical.shape[0], lambda i: hot[i],
                                  engine.mean_counts(cats))
   return acts
+
+
+def w4_codes(cats) -> list:
+  """Each padded input's hotness: 1 for ``[B]``, ``h`` for ``[B, h]``."""
+  return [1 if c.dim() == 1 else int(c.shape[1]) for c in cats]
 
 
 def _w4_wire(torch, mesh, backend: str, batch) -> dict:
@@ -2391,6 +2482,391 @@ def _w4_dense(torch, mesh, backend: str, batch) -> dict:
   return out
 
 
+def w4_narrow_plan(backend: str, overlap: str = "fused", **wire_kw):
+  """The Tiny-like narrow cell of ``world4_colslice``: Tiny's three shared
+  multi-hot tables (``W4_NARROW_GROUPS``, vocabulary x 1/16 on one card),
+  each read by a one-hot and a ten-hot input, ``column_slice_threshold=
+  W4_NARROW_SLICE`` (each table in four slices: 2 lanes of the width-8
+  table, 4 of the width-16 ones), no dense class. Returns ``(config,
+  plan)``; the config is Tiny's MLP over these inputs."""
+  from distributed_embeddings_torch.layers.planner import (
+      DistEmbeddingStrategy,
+  )
+  from distributed_embeddings_torch.models.synthetic import (
+      SYNTHETIC_MODELS,
+      EmbeddingGroup,
+      SyntheticModelConfig,
+      expand_tables,
+  )
+  tiny = SYNTHETIC_MODELS[ZOO_MODEL]
+  scale = W4_VOCAB_SCALE[backend]
+  cfg = SyntheticModelConfig(
+      "Tiny V3 shared multi-hot tables, column-sliced",
+      tuple(EmbeddingGroup(1, (1, 10), max(4, rows // scale), w, True)
+            for rows, w in W4_NARROW_GROUPS),
+      tiny.mlp_sizes, tiny.num_numerical_features, None)
+  tables, tmap, hot = expand_tables(cfg)
+  plan = DistEmbeddingStrategy(
+      tables, WORLD, "memory_balanced", input_table_map=tmap,
+      input_hotness=hot, column_slice_threshold=W4_NARROW_SLICE,
+      batch_hint=W4_BATCH, overlap=overlap,
+      exchange_chunks=1 if overlap == "none" else W4_CHUNKS, **wire_kw)
+  return cfg, plan
+
+
+def w4_sliced_plan(backend: str, overlap: str = "fused", **wire_kw):
+  """The world-4 Criteo plan (:func:`world4_plan`) at x 1/16 on either
+  backend, with ``column_slice_threshold=W4_COL_SLICE``: ``(vocab,
+  plan)``."""
+  return world4_plan(backend, overlap, scale=W4_VOCAB_SCALE["gloo"],
+                     column_slice_threshold=W4_COL_SLICE, **wire_kw)
+
+
+def _w4_sliced_runs(torch, mesh, tag: str, plan_of, model, rule, factory,
+                    state, batch, interact: bool) -> dict:
+  """One column-sliced cell in this rank: the activations of ``batch``
+  under ``overlap='none'``, ``'pipelined'``, ``'fused'`` and with
+  ``dedup_exchange`` (fused) from ``state``, each bit-equal to
+  ``'none'``'s, K4 launched as :func:`k4_forward_launches` predicts; then
+  ``W4_SLICED_STEPS`` fused train steps (``rule``, dense ``factory``), each
+  launching K4, K1 and K6 as predicted from the plan (K2 with the DLRM's
+  ``interact``), the losses finite and equal on every rank; then f32
+  serving (``freeze``, ``ServeEngine(mesh=)``) of one global request
+  bit-equal to the eval step (beside a window-masked gather in the f32
+  class). ``plan_of(overlap, **wire_kw)`` builds the
+  cell's plan."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import bce_loss
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  from distributed_embeddings_torch.parallel.wire import gather_blocks
+  from distributed_embeddings_torch.serving import ServeEngine, freeze
+  from distributed_embeddings_torch.training import (
+      make_sparse_eval_step,
+      make_sparse_train_step,
+      shard_batch,
+  )
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+      class_param_name,
+  )
+  rank, dev = mesh.rank, mesh.device
+  numerical, cats, _ = batch
+  hot = w4_codes(cats)
+  base = plan_of("none")
+  layouts = DistributedLookup(base).fused_layouts(rule)
+  # a multi-hot bucket of a class with several rows a physical row and
+  # optimizer state: the window-masked gather (_masked_multi_hot)
+  masked = any(
+      b.h > 1 and layouts[class_param_name(*k)].rows_per_phys > 1
+      and rule.n_aux
+      for k in base.class_keys if base.classes[k].kind == "sparse"
+      for b in class_buckets(base, k, lambda i: hot[i]))
+  out = {"forward_ms": {}, "k4_per_forward": {}, "masked_gather": masked}
+  totals = expect()
+  ref = None
+  for name, overlap, kw in (("none", "none", {}),
+                            ("pipelined", "pipelined", {}),
+                            ("fused", "fused", {}),
+                            ("dedup", "fused", {"dedup_exchange": True})):
+    p = plan_of(overlap, **kw)
+    check(p.class_keys == base.class_keys,
+          f"{tag} {name}: the plan's classes differ from 'none''s")
+    want = expect(gather_rows=k4_forward_launches(p, hot, rule))
+    reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    acts = _w4_acts(torch, p, mesh, state, batch, rule)
+    torch.cuda.synchronize(dev)
+    out["forward_ms"][name] = (time.perf_counter() - t0) * 1e3
+    got = read_counts()
+    check(got == want, f"{tag} rank {rank} {name} forward: launches {got}, "
+          f"expected {want}")
+    add_counts(totals, got)
+    out["k4_per_forward"][name] = want["gather_rows"]
+    acts = torch.cat(list(acts), dim=1)
+    if ref is None:
+      ref = acts
+    if name == "dedup" and masked:
+      # dedup gathers each unique id's row and adds a bag in hotness
+      # order; the raw path adds a masked class's window-masked physical
+      # rows and folds the windows (the JAX engine's two paths differ
+      # alike): the f32 class
+      out["dedup_max_abs_diff"] = (acts - ref).abs().max().item()
+      check(torch.allclose(acts, ref, rtol=1e-5, atol=1e-6),
+            f"{tag} rank {rank}: the dedup activations differ from "
+            f"'none''s by up to {out['dedup_max_abs_diff']}")
+    else:
+      check(torch.equal(acts, ref), f"{tag} rank {rank}: the {name} "
+            "activations differ from 'none''s")
+  del ref, acts
+  plan = plan_of("fused")
+  engine = DistributedLookup(plan, mesh=mesh)
+  ids_all = engine.route_ids(cats, lambda i: hot[i])
+  k1, chunked, k6 = k1_launches(plan, ids_all)
+  del ids_all
+  want = expect(gather_rows=k4_forward_launches(plan, hot, rule),
+                apply_rows=k1,
+                build_delta_rows=k6 if rule.name != "sgd" else 0,
+                **({"interact_fwd": 1, "interact_bwd": 1} if interact
+                   else {}))
+  step = make_sparse_train_step(model, plan, bce_loss, factory, rule,
+                                mesh=mesh)
+  ms, losses = [], []
+  for i in range(W4_SLICED_STEPS):
+    reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, loss = step(state, *batch)
+    torch.cuda.synchronize(dev)
+    ms.append((time.perf_counter() - t0) * 1e3)
+    got = read_counts()
+    check(got == want, f"{tag} rank {rank} step {i}: launches {got}, "
+          f"expected {want}")
+    add_counts(totals, got)
+    losses.append(float(loss))
+    check(np.isfinite(losses[-1]), f"{tag} rank {rank} step {i}: loss "
+          f"{losses[-1]}")
+  every = gather_blocks(torch.tensor(losses, device=dev), mesh)
+  check(torch.equal(every.reshape(WORLD, -1),
+                    every[:len(losses)].expand(WORLD, -1)),
+        f"{tag}: the ranks' losses differ")
+  # serving: one global request through the frozen f32 image
+  rng = np.random.default_rng(SEED + 5)
+  req_num = rng.standard_normal(
+      (SERVE_BATCH, numerical.shape[1])).astype(np.float32)
+  req_cats = [rng.integers(0, plan.global_configs[t].input_dim,
+                           (SERVE_BATCH,) + tuple(c.shape[1:]))
+              .astype(np.int32)
+              for t, c in zip(plan.input_table_map, cats)]
+  eng = ServeEngine(model, plan, freeze(plan, rule, state, "f32", mesh=mesh),
+                    mesh=mesh)
+  pred = eng.predict(req_num, req_cats)
+  ev = make_sparse_eval_step(model, plan, rule, mesh=mesh)
+  with torch.inference_mode():
+    ev_pred = gather_blocks(ev(state, *shard_batch((req_num, req_cats),
+                                                    mesh)), mesh)
+  ev_pred = ev_pred.cpu().numpy()
+  check(pred.shape == (SERVE_BATCH,) and np.isfinite(pred).all(),
+        f"{tag} rank {rank}: served predictions not finite")
+  out["serve_max_abs_diff"] = float(np.abs(pred - ev_pred).max())
+  if masked:
+    # the serve image packs a narrow class's table lanes without the
+    # optimizer's (more rows a physical row), so its masked bags fold
+    # their windows in another order than the eval step's (the JAX
+    # package's serve and eval differ alike): the f32 class
+    check(np.allclose(pred, ev_pred, rtol=1e-5, atol=1e-6),
+          f"{tag} rank {rank}: serving differs from the eval step by up "
+          f"to {out['serve_max_abs_diff']}")
+  else:
+    check(np.array_equal(pred.view(np.int32), ev_pred.view(np.int32)),
+          f"{tag} rank {rank}: serving differs from the eval step by up "
+          f"to {out['serve_max_abs_diff']}")
+  out.update({
+      "classes": {f"w{plan.classes[k].width}_{plan.classes[k].kind}":
+                  len(plan.classes[k].shards_per_rank[rank])
+                  for k in plan.class_keys},
+      "k4_classes": sorted(f"w{k[0]}" for k in k4_classes(plan, rule)),
+      "launches": totals, "launches_per_step": want,
+      "k1_chunked": chunked, "step_ms": ms,
+      "step_ms_median": statistics.median(ms), "losses": losses,
+      "fused_bytes": sum(t.numel() * 4 for t in state["fused"].values()),
+      "serve_bit_equal_eval": not masked})
+  return out
+
+
+def _w4_colslice(torch, mesh, backend: str) -> dict:
+  """``world4_colslice`` in this rank: the column-sliced Criteo cell
+  (SGD, the DLRM; :func:`w4_sliced_plan`) and the Tiny-like narrow cell
+  (Adagrad, its 2- and 4-lane slices; :func:`w4_narrow_plan`), each
+  through :func:`_w4_sliced_runs`."""
+  from distributed_embeddings_torch.models import DLRM, SyntheticModel
+  from distributed_embeddings_torch.models.synthetic import generate_batch
+  from distributed_embeddings_torch.ops.packed_table import (
+      adagrad_rule,
+      sgd_rule,
+  )
+  from distributed_embeddings_torch.training import (
+      Adagrad,
+      init_sparse_state_direct,
+      shard_batch,
+  )
+  rank, dev = mesh.rank, mesh.device
+  out = {}
+  vocab, plan = w4_sliced_plan(backend)
+  widths = sorted({plan.classes[k].width for k in plan.class_keys
+                   if plan.classes[k].kind == "sparse"})
+  check(D in widths and min(widths) < D, f"world4_colslice: sparse widths "
+        f"{widths}, expected slices beside whole width-{D} tables")
+  rule = sgd_rule(TRAIN_LR)
+  model = DLRM(vocab, D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 1 + rank), mesh=mesh)
+  out["criteo"] = _w4_sliced_runs(
+      torch, mesh, "world4_colslice criteo",
+      lambda ov, **kw: w4_sliced_plan(backend, ov, **kw)[1], model, rule,
+      sgd_factory(torch), state, w4_batch(torch, vocab, mesh),
+      interact=True)
+  out["criteo"]["table_col_ranges"] = [len(r) for r in
+                                       plan.table_col_ranges]
+  del state
+  torch.cuda.empty_cache()
+  cfg, nplan = w4_narrow_plan(backend)
+  widths = sorted({nplan.classes[k].width for k in nplan.class_keys})
+  check(widths == [2, 4], f"world4_colslice narrow: widths {widths}")
+  rule = adagrad_rule(ZOO_LR)
+  adagrad = functools.partial(Adagrad, lr=ZOO_LR)
+  model = SyntheticModel(cfg, tables=False, device=dev,
+                         generator=torch.Generator().manual_seed(SEED))
+  state = init_sparse_state_direct(
+      nplan, rule, model.state_dict(), adagrad,
+      torch.Generator(device=dev).manual_seed(SEED + 1 + rank), mesh=mesh)
+  numerical, cats, labels = generate_batch(cfg, W4_BATCH, alpha=ZOO_ALPHA,
+                                           seed=SEED)
+  batch = shard_batch((numerical, cats, labels), mesh)
+  out["narrow"] = _w4_sliced_runs(
+      torch, mesh, "world4_colslice narrow",
+      lambda ov, **kw: w4_narrow_plan(backend, ov, **kw)[1], model, rule,
+      adagrad, state, batch, interact=False)
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  layouts = DistributedLookup(nplan).fused_layouts(rule)
+  out["narrow"]["rows_per_phys"] = {n: lay.rows_per_phys
+                                    for n, lay in layouts.items()}
+  out["narrow"]["vocab"] = [int(t.input_dim) for t in nplan.global_configs]
+  del state, batch, numerical, cats, labels
+  torch.cuda.empty_cache()
+  return out
+
+
+def _w4_zoo(torch, mesh, backend: str) -> dict:
+  """``zoo_world4`` in this rank: ``utils.zoo_bench.run_zoo_plan_step(
+  "tiny")`` (vocabulary cap and batch per backend, ``W4_ZOO_*``), its K6
+  and K1 launches as predicted from the plan and the routed batch; then
+  the world-4 dense-autodiff zoo step (``SyntheticModel(mesh=)`` owning
+  this rank's blocks, ``broadcast_variables``, ``training.Adagrad``,
+  ``make_train_step(mesh=)``): one warm-up and ``W4_ZOO_STEPS`` timed
+  steps, no kernel launched, the losses finite and equal on every
+  rank."""
+  import dataclasses
+
+  import numpy as np
+
+  from distributed_embeddings_torch.layers import broadcast_variables
+  from distributed_embeddings_torch.layers.planner import (
+      DistEmbeddingStrategy,
+  )
+  from distributed_embeddings_torch.models import (
+      SYNTHETIC_MODELS,
+      SyntheticModel,
+      bce_loss,
+      expand_tables,
+      generate_batch,
+  )
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  from distributed_embeddings_torch.parallel.wire import gather_blocks
+  from distributed_embeddings_torch.training import (
+      Adagrad,
+      make_train_step,
+      shard_batch,
+  )
+  from distributed_embeddings_torch.utils.zoo_bench import (
+      run_zoo_plan_step,
+      zoo_batch,
+      zoo_tables,
+  )
+  rank, dev = mesh.rank, mesh.device
+  scale = W4_ZOO_VOCAB_SCALE[backend]
+  batch_size = W4_ZOO_BATCH[backend]
+  out = {"vocab_scale": f"1/{scale}", "global_batch": batch_size}
+  # the plan step: its launches predicted from the recipe's plan and batch
+  cap = max(t.input_dim
+            for t in expand_tables(SYNTHETIC_MODELS[ZOO_MODEL])[0]) // scale
+  b_local = batch_size // WORLD
+  _, tables, tmap, hot = zoo_tables(ZOO_MODEL, cap)
+  plan = DistEmbeddingStrategy(tables, WORLD, "memory_balanced",
+                               input_table_map=tmap, dense_row_threshold=16,
+                               input_hotness=hot, batch_hint=batch_size)
+  cats = shard_batch(zoo_batch(ZOO_MODEL, batch_size, cap)[1], mesh)
+  codes = w4_codes(cats)
+  k1, chunked, k6 = k1_launches(plan, DistributedLookup(
+      plan, mesh=mesh).route_ids(cats, lambda i: codes[i]))
+  del cats
+  want = expect(apply_rows=k1, build_delta_rows=k6)
+  reset_counts()
+  res = run_zoo_plan_step(ZOO_MODEL, mesh, WORLD, b_local=b_local,
+                          vocab_cap=cap)
+  got = read_counts()
+  check(got == want, f"zoo_world4 plan step rank {rank}: launches {got}, "
+        f"expected {want}")
+  check(np.isfinite(res["loss"]), f"zoo_world4 plan step: loss "
+        f"{res['loss']}")
+  out["plan_step"] = {**res, "vocab_cap": cap, "b_local": b_local,
+                      "launches": got, "k1_chunked": chunked}
+  torch.cuda.empty_cache()
+  # the dense-autodiff step
+  cfg = SYNTHETIC_MODELS[ZOO_MODEL]
+  cfg = dataclasses.replace(cfg, embedding_groups=tuple(
+      dataclasses.replace(g, num_rows=max(4, g.num_rows // scale))
+      for g in cfg.embedding_groups))
+  torch.cuda.reset_peak_memory_stats(dev)
+  t0 = time.perf_counter()
+  model = SyntheticModel(cfg, world_size=WORLD, batch_hint=batch_size,
+                         mesh=mesh,
+                         generator=torch.Generator().manual_seed(SEED + rank),
+                         table_generator=torch.Generator(device=dev)
+                         .manual_seed(SEED + 1 + rank))
+  broadcast_variables(model, 0, mesh)
+  torch.cuda.synchronize(dev)
+  init_s = time.perf_counter() - t0
+  opt = Adagrad(model.parameters(), lr=ZOO_LR)
+  step = make_train_step(lambda m, n, c, y: bce_loss(m(n, c), y), opt, model,
+                         mesh=mesh)
+  tabs, tmap, _ = expand_tables(cfg)
+  numerical, cats, labels = generate_batch(cfg, batch_size, alpha=ZOO_ALPHA,
+                                           seed=SEED)
+  cats = [np.minimum(c, tabs[t].input_dim - 1).astype(np.int32)
+          for c, t in zip(cats, tmap)]
+  batch = shard_batch((numerical, cats, labels), mesh)
+  ms, losses, totals = [], [], expect()
+  for i in range(1 + W4_ZOO_STEPS):
+    reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    loss = step(*batch)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    got = read_counts()
+    check(got == expect(), f"zoo_world4 dense step {i} rank {rank}: "
+          f"launches {got}, expected none")
+    add_counts(totals, got)
+    if i:
+      ms.append((t1 - t0) * 1e3)
+    losses.append(float(loss))
+    check(np.isfinite(losses[-1]), f"zoo_world4 dense step {i}: loss "
+          f"{losses[-1]}")
+  every = gather_blocks(torch.tensor(losses, device=dev), mesh)
+  check(torch.equal(every.reshape(WORLD, -1),
+                    every[:len(losses)].expand(WORLD, -1)),
+        "zoo_world4 dense: the ranks' losses differ")
+  out["dense"] = {
+      "init_s": init_s, "step_ms": ms, "step_ms_median": statistics.median(ms),
+      "losses": losses, "launches": totals,
+      "class_bytes": sum(p.numel() * 4 for p in
+                         model.embeddings.class_params().values()),
+      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+  del model, opt, step, batch
+  torch.cuda.empty_cache()
+  return out
+
+
 def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
   """One rank of the world-4 phase (a spawned process): the world-4
   golden, then the sparse path at f32 and bf16 compute, the dense-autodiff
@@ -2526,6 +3002,14 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
     out["ckpt"] = _w4_ckpt(torch, mesh, backend, outdir)
     out["dense"] = _w4_dense(torch, mesh, backend, batch)
     out["serve"] = _w4_serve(torch, mesh, outdir)
+    del batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["colslice"] = _w4_colslice(torch, mesh, backend)
+    out["colslice"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["zoo"] = _w4_zoo(torch, mesh, backend)
+    out["zoo"]["wall_s"] = time.perf_counter() - t0
   finally:
     mesh.close()
   with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
@@ -2601,11 +3085,104 @@ def phase_world4(torch, smi: str) -> dict:
   dense_totals = emit_dense_world4(backend, smi, [r["dense"] for r in ranks])
   serve_totals = emit_serve_world4(backend, smi,
                                    [r["serve"] for r in ranks])
+  colslice_totals = emit_colslice_world4(backend, smi,
+                                         [r["colslice"] for r in ranks])
+  zoo_plan_totals, zoo_dense_totals = emit_zoo_world4(
+      backend, smi, [r["zoo"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s})
   return {"train_world4": totals, "world4_ckpt": ckpt_totals,
           "train_dense_world4": dense_totals, "serve_world4": serve_totals,
           "train_world4_guard": guard, "train_world4_mb": mb,
-          "world4_wire": wire_totals, "world4_ragged": ragged_totals}
+          "world4_wire": wire_totals, "world4_ragged": ragged_totals,
+          "world4_colslice": colslice_totals,
+          "zoo_world4_plan": zoo_plan_totals,
+          "zoo_world4_dense": zoo_dense_totals}
+
+
+def emit_colslice_world4(backend: str, smi: str, res: list) -> dict:
+  """The ``world4_colslice`` lines (one per cell) from the ranks'
+  :func:`_w4_colslice` results; returns each kernel's launches summed
+  over the ranks and cells."""
+  totals = expect()
+  for cell in ("criteo", "narrow"):
+    runs = [r[cell] for r in res]
+    for rank, r in enumerate(runs):
+      check(set(r["launches"]) == set(COUNTERS),
+            f"world4_colslice {cell} rank {rank}: counts of "
+            f"{sorted(r['launches'])}")
+      add_counts(totals, r["launches"])
+    med = max(r["step_ms_median"] for r in runs)
+    emit({"phase": "world4_colslice", "cell": cell, "backend": backend,
+          "mode": ("four cards, one rank each" if backend == "nccl" else
+                   "one card shared by the four ranks"),
+          "card": smi,
+          "vocab_scale": "1/%d" % (W4_VOCAB_SCALE["gloo"] if cell == "criteo"
+                                   else W4_VOCAB_SCALE[backend]),
+          "global_batch": W4_BATCH, "exchange_chunks": W4_CHUNKS,
+          "column_slice_threshold": (W4_COL_SLICE if cell == "criteo"
+                                     else W4_NARROW_SLICE),
+          **{k: runs[0][k] for k in ("classes", "k4_classes",
+                                     "k4_per_forward", "launches_per_step",
+                                     "k1_chunked", "losses")},
+          **{k: runs[0][k] for k in ("table_col_ranges", "rows_per_phys",
+                                     "vocab") if k in runs[0]},
+          "classes_by_rank": [r["classes"] for r in runs],
+          "forward_ms_by_rank": [r["forward_ms"] for r in runs],
+          "fused_bytes_per_rank": [r["fused_bytes"] for r in runs],
+          "step_ms_by_rank": [r["step_ms"] for r in runs],
+          "step_ms_median": med, "samples_per_s": W4_BATCH / (med / 1e3),
+          "losses_agree": True,
+          **{k: runs[0][k] for k in ("masked_gather", "serve_bit_equal_eval")},
+          "dedup_max_abs_diff_by_rank": [r.get("dedup_max_abs_diff")
+                                         for r in runs],
+          "serve_max_abs_diff_by_rank": [r["serve_max_abs_diff"]
+                                         for r in runs],
+          "wall_s_by_rank": [r["wall_s"] for r in res]})
+  return totals
+
+
+def emit_zoo_world4(backend: str, smi: str, res: list) -> tuple:
+  """The ``zoo_world4`` lines (the plan step, the dense step) from the
+  ranks' :func:`_w4_zoo` results; returns each path's launches summed
+  over the ranks."""
+  plan_totals, dense_totals = expect(), expect()
+  for rank, r in enumerate(res):
+    for part, tot in (("plan_step", plan_totals), ("dense", dense_totals)):
+      check(set(r[part]["launches"]) == set(COUNTERS),
+            f"zoo_world4 {part} rank {rank}: counts of "
+            f"{sorted(r[part]['launches'])}")
+      add_counts(tot, r[part]["launches"])
+  losses = [r["plan_step"]["loss"] for r in res]
+  check(len(set(losses)) == 1, f"zoo_world4 plan step: losses {losses}")
+  mode = ("four cards, one rank each" if backend == "nccl" else
+          "one card shared by the four ranks")
+  emit({"phase": "zoo_world4", "part": "plan_step", "backend": backend,
+        "mode": mode, "card": smi, "model": ZOO_MODEL,
+        "cuts": {"vocabulary": res[0]["vocab_scale"],
+                 "global_batch": res[0]["global_batch"]},
+        **{k: res[0]["plan_step"][k] for k in
+           ("tables", "inputs", "classes", "loss", "vocab_cap", "b_local",
+            "k1_chunked")},
+        "plan_s_by_rank": [r["plan_step"]["plan_s"] for r in res],
+        "init_s_by_rank": [r["plan_step"]["init_s"] for r in res],
+        "step_s_by_rank": [r["plan_step"]["step_s"] for r in res],
+        "launches_per_rank": res[0]["plan_step"]["launches"]})
+  med = max(r["dense"]["step_ms_median"] for r in res)
+  batch = res[0]["global_batch"]
+  emit({"phase": "zoo_world4", "part": "dense", "backend": backend,
+        "mode": mode, "card": smi, "model": ZOO_MODEL,
+        "cuts": {"vocabulary": res[0]["vocab_scale"],
+                 "global_batch": batch},
+        "optimizer": "training.Adagrad", "lr": ZOO_LR,
+        "class_bytes_per_rank": [r["dense"]["class_bytes"] for r in res],
+        "init_s": [r["dense"]["init_s"] for r in res],
+        "step_ms_by_rank": [r["dense"]["step_ms"] for r in res],
+        "step_ms_median": med, "samples_per_s": batch / (med / 1e3),
+        "peak_gib_by_rank": [r["dense"]["peak_gib"] for r in res],
+        "losses": res[0]["dense"]["losses"], "losses_agree": True,
+        "launches": dense_totals,
+        "wall_s_by_rank": [r["wall_s"] for r in res]})
+  return plan_totals, dense_totals
 
 
 def emit_wire_world4(backend: str, smi: str, res: list) -> dict:
@@ -3446,7 +4023,8 @@ def phase_train_zoo_mb(torch, smi: str) -> dict:
   sparse = [k for k in plan.class_keys if plan.classes[k].kind == "sparse"]
   n_buckets = sum(len(class_buckets(plan, k, lambda i: hot[i]))
                   for k in sparse)
-  model = SyntheticModel(SYNTHETIC_MODELS[ZOO_MODEL], device="cuda",
+  model = SyntheticModel(SYNTHETIC_MODELS[ZOO_MODEL], tables=False,
+                         device="cuda",
                          generator=torch.Generator().manual_seed(SEED))
   adagrad = functools.partial(Adagrad, lr=ZOO_LR)
   state = init_sparse_state_direct(
@@ -3826,15 +4404,9 @@ def _run_twin(argv) -> tuple:
   """``examples/dlrm/main_torch.py``'s ``main(argv)`` in this process
   (so the launch counters see its steps): ``(stdout, launches)``."""
   import contextlib
-  import importlib.util
   import io
-  import os
 
-  root = os.path.dirname(os.path.abspath(__file__))
-  spec = importlib.util.spec_from_file_location(
-      "main_torch", os.path.join(root, "examples", "dlrm", "main_torch.py"))
-  twin = importlib.util.module_from_spec(spec)
-  spec.loader.exec_module(twin)
+  twin = _load_script("main_torch", "examples", "dlrm", "main_torch.py")
   buf = io.StringIO()
   reset_counts()
   with contextlib.redirect_stdout(buf):
@@ -4084,6 +4656,50 @@ def k6_within_tol(torch, got, want) -> float:
   return ((got - want).abs() / allow).max().item()
 
 
+def k6_stream_row(torch, cd, flush, name, layout, rule, sub, h: int,
+                  seed: int, step: int = 5) -> dict:
+  """K6 on one stream against its plain version: the windows ``sub``
+  (``[K*h]``) with :func:`k6_inputs`' cotangents and state rows
+  (stride-wide one-hot, window-masked physical rows multi-hot), within
+  ``K6_TOL``; timed beside its plain version (and, masked, the fetch
+  yardsticks). Emits and returns its ``kernel`` row."""
+  n = sub.shape[0]
+  k = n // h
+  aux_last = (layout.stride if h == 1
+              else layout.rows_per_phys * layout.stride)
+  dz, aux = k6_inputs(torch, layout, sub, h, aux_last, seed)
+  got = cd.build_delta_rows(layout, rule, dz, sub, aux, h, step)
+  torch.cuda.synchronize()
+  want = cd.build_delta_rows_plain(layout, rule, dz, sub, aux, h, step)
+  share = k6_within_tol(torch, got, want)
+  check(share <= 1.0, f"build_delta_rows {name} h={h}: off by {share} "
+        f"of rtol {K6_TOL['rtol']}, atol {K6_TOL['atol']}")
+  max_err = (got - want).abs().max().item()
+  del want, got
+  fns = {
+      "kernel_ms": lambda: cd.build_delta_rows(layout, rule, dz, sub,
+                                               aux, h, step),
+      "plain_ms": lambda: cd.build_delta_rows_plain(layout, rule, dz,
+                                                    sub, aux, h, step)}
+  if aux_last != layout.stride:
+    fns.update(k6_fetch_yardsticks(torch, layout, aux))
+  timed = event_ms(torch, fns, flush)
+  del fns
+  row = {"phase": "kernel", "name": "build_delta_rows", "class": name,
+         "rule": rule.name, "width": layout.width,
+         "stride": layout.stride, "rows_per_phys": layout.rows_per_phys,
+         "samples": k, "h": h, "occurrences": n, "aux_last": aux_last,
+         "aux": "stride" if aux_last == layout.stride else "masked_phys",
+         "max_abs_err": max_err, "max_tol_share": share, "tol": K6_TOL,
+         **timed, "library_ms": None,
+         "library_note": "no single PyTorch call computes this function",
+         # about ten flops per logical lane
+         **bound(k6_bytes(layout, rule, k, n, aux_last),
+                 10 * n * layout.stride, F32_FLOPS)}
+  emit(row)
+  return row
+
+
 def phase_kernel_delta(torch, cd, flush) -> dict:
   """K6 against its plain version at Tiny's shapes: every bucket of the
   largest w16 class and of the w8 class (one-hot with stride-wide state
@@ -4098,53 +4714,20 @@ def phase_kernel_delta(torch, cd, flush) -> dict:
       momentum_rule,
   )
   rule = adagrad_rule(ZOO_LR)
-  step = 5
   plan = zoo_plan()
   routed = zoo_routed(torch, plan)
   main = None
   for c, (name, layout) in enumerate(zoo_classes(plan, rule)):
     for i, (h, ids) in enumerate(routed.pop(name)):
-      n = ids.numel()
-      k = n // h
       _, sub, _ = _grp_sub(layout, ids.reshape(-1))
       del ids
-      aux_last = (layout.stride if h == 1
-                  else layout.rows_per_phys * layout.stride)
-      dz, aux = k6_inputs(torch, layout, sub, h, aux_last,
+      row = k6_stream_row(torch, cd, flush, name, layout, rule, sub, h,
                           SEED + 10 + 2 * c + i)
-      got = cd.build_delta_rows(layout, rule, dz, sub, aux, h, step)
-      torch.cuda.synchronize()
-      want = cd.build_delta_rows_plain(layout, rule, dz, sub, aux, h, step)
-      share = k6_within_tol(torch, got, want)
-      check(share <= 1.0, f"build_delta_rows {name} h={h}: off by {share} "
-            f"of rtol {K6_TOL['rtol']}, atol {K6_TOL['atol']}")
-      max_err = (got - want).abs().max().item()
-      del want
-      fns = {
-          "kernel_ms": lambda: cd.build_delta_rows(layout, rule, dz, sub,
-                                                   aux, h, step),
-          "plain_ms": lambda: cd.build_delta_rows_plain(layout, rule, dz,
-                                                        sub, aux, h, step)}
-      if aux_last != layout.stride:
-        fns.update(k6_fetch_yardsticks(torch, layout, aux))
-      timed = event_ms(torch, fns, flush)
-      del fns
-      row = {"phase": "kernel", "name": "build_delta_rows", "class": name,
-             "rule": rule.name, "width": layout.width,
-             "stride": layout.stride, "rows_per_phys": layout.rows_per_phys,
-             "samples": k, "h": h, "occurrences": n, "aux_last": aux_last,
-             "aux": "stride" if aux_last == layout.stride else "masked_phys",
-             "max_abs_err": max_err, "max_tol_share": share, "tol": K6_TOL,
-             **timed, "library_ms": None,
-             "library_note": "no single PyTorch call computes this function",
-             # about ten flops per logical lane
-             **bound(k6_bytes(layout, rule, k, n, aux_last),
-                     10 * n * layout.stride, F32_FLOPS)}
-      emit(row)
       if c == 0 and h > 1:
         main = row
-      del dz, sub, aux, got
+      del sub
   del routed
+  step = 5
   # every rule at every width of K6_WIDTHS whose stride fits a physical
   # row (the vector path), and at K6_GENERAL_WIDTHS (the general path),
   # with stride-wide and window-masked state rows, h 1 and 10: within the
@@ -4184,57 +4767,70 @@ def phase_kernel_apply_zoo(torch, ca, flush) -> None:
   step hands them to K1. Held to the duplicate tolerance of
   :func:`phase_kernel_apply` on the rows the stream touches, and
   bit-equal elsewhere."""
-  from distributed_embeddings_torch.ops.packed_table import (
-      _grp_sub,
-      adagrad_rule,
-  )
+  from distributed_embeddings_torch.ops.packed_table import adagrad_rule
   plan = zoo_plan()
   routed = zoo_routed(torch, plan)
   gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
   for name, layout in zoo_classes(plan, adagrad_rule(ZOO_LR)):
     ids = torch.cat([ids.reshape(-1).long() for _, ids in routed.pop(name)])
-    grp, sub, valid = _grp_sub(layout, ids)
+    k1_stream_row(torch, ca, flush, f"tiny_{name}", layout, ids, gen)
     del ids
-    n = grp.shape[0]
-    win = torch.arange(D, device="cuda") // layout.stride
-    rows = torch.randn((n, D), generator=gen, device="cuda") * 1e-2
-    rows = torch.where(win[None, :] == sub[:, None], rows,
-                       torch.zeros_like(rows))
-    base = torch.rand((layout.phys_rows, D), generator=gen, device="cuda")
-    work = base.clone()
-    got = ca.apply_rows(work, grp, rows)
-    torch.cuda.synchronize()
-    want = ca.apply_rows_plain(base.clone(), grp, rows)
-    grp_v, rows_v = grp[valid], rows[valid]
-    touched, inv = torch.unique(grp_v, return_inverse=True)
-    differ = (got != want).any(dim=1)
-    differ[touched] = False
-    check(not bool(differ.any().item()), f"apply_rows tiny {name}: a row "
-          "no id touches differs from the plain version")
-    del differ
-    abs_sum = base[touched].abs().index_add_(0, inv, rows_v.abs())
-    err = (got[touched] - want[touched]).abs()
-    share = (err / (1e-5 * abs_sum).clamp(min=1e-30)).max().item()
-    max_err = err.max().item()
-    del want, abs_sum, err
-    check(share <= 1.0, f"apply_rows tiny {name}: off by {share} x 1e-5 "
-          "of the cells' absolute sums")
-    hits = torch.bincount(inv)
-    timed = event_ms(torch, {
-        "kernel_ms": lambda: ca.apply_rows(work, grp, rows),
-        "plain_ms": lambda: ca.apply_rows_plain(work, grp, rows),
-        "library_ms": lambda: work.index_add_(0, grp_v, rows_v)}, flush)
-    n_valid, unique = grp_v.shape[0], touched.shape[0]
-    emit({"phase": "kernel", "name": "apply_rows", "stream": f"tiny_{name}",
-          "plan": k1_plan_check(torch, ca, n),
-          "rows": layout.phys_rows, "width": D, "ids": n,
-          "valid_ids": n_valid, "unique_rows": unique,
-          "most_hits_on_a_row": int(hits.max().item()),
-          "max_abs_err": max_err, "max_abs_sum_share": share, **timed,
-          **bound(n * 8 + n_valid * D * 4 + unique * D * 4 * 2,
-                  2 * n_valid * D, F32_FLOPS)})
-    del base, work, got, rows, grp, sub, valid, grp_v, rows_v, touched, inv
     torch.cuda.empty_cache()
+
+
+def k1_stream_row(torch, ca, flush, name: str, layout, ids, gen) -> dict:
+  """K1 against its plain version on the class buffer of ``layout``
+  (random rows) and the logical ids ``ids`` sent to their physical rows,
+  with K6-shaped update rows (nonzero in the occurrence's window only, no
+  scale), as the train step hands them to K1. Held to the duplicate
+  tolerance of :func:`phase_kernel_apply` on the rows the stream touches,
+  and bit-equal elsewhere; timed beside its plain version and
+  ``index_add_``. Emits and returns its ``kernel`` row."""
+  from distributed_embeddings_torch.ops.packed_table import _grp_sub
+  grp, sub, valid = _grp_sub(layout, ids)
+  n = grp.shape[0]
+  win = torch.arange(D, device="cuda") // layout.stride
+  rows = torch.randn((n, D), generator=gen, device="cuda") * 1e-2
+  rows = torch.where(win[None, :] == sub[:, None], rows,
+                     torch.zeros_like(rows))
+  base = torch.rand((layout.phys_rows, D), generator=gen, device="cuda")
+  work = base.clone()
+  got = ca.apply_rows(work, grp, rows)
+  torch.cuda.synchronize()
+  want = ca.apply_rows_plain(base.clone(), grp, rows)
+  grp_v, rows_v = grp[valid], rows[valid]
+  touched, inv = torch.unique(grp_v, return_inverse=True)
+  differ = (got != want).any(dim=1)
+  differ[touched] = False
+  check(not bool(differ.any().item()), f"apply_rows {name}: a row "
+        "no id touches differs from the plain version")
+  del differ
+  abs_sum = base[touched].abs().index_add_(0, inv, rows_v.abs())
+  err = (got[touched] - want[touched]).abs()
+  share = (err / (1e-5 * abs_sum).clamp(min=1e-30)).max().item()
+  max_err = err.max().item()
+  del want, abs_sum, err
+  check(share <= 1.0, f"apply_rows {name}: off by {share} x 1e-5 "
+        "of the cells' absolute sums")
+  hits = torch.bincount(inv)
+  timed = event_ms(torch, {
+      "kernel_ms": lambda: ca.apply_rows(work, grp, rows),
+      "plain_ms": lambda: ca.apply_rows_plain(work, grp, rows),
+      "library_ms": lambda: work.index_add_(0, grp_v, rows_v)}, flush)
+  n_valid, unique = grp_v.shape[0], touched.shape[0]
+  row = {"phase": "kernel", "name": "apply_rows", "stream": name,
+         "plan": k1_plan_check(torch, ca, n),
+         "rows": layout.phys_rows, "width": D,
+         "logical_width": layout.width,
+         "rows_per_phys": layout.rows_per_phys, "ids": n,
+         "valid_ids": n_valid, "unique_rows": unique,
+         "most_hits_on_a_row": int(hits.max().item()),
+         "max_abs_err": max_err, "max_abs_sum_share": share, **timed,
+         **bound(n * 8 + n_valid * D * 4 + unique * D * 4 * 2,
+                 2 * n_valid * D, F32_FLOPS)}
+  emit(row)
+  del base, work, got, rows, grp, sub, valid, grp_v, rows_v, touched, inv
+  return row
 
 
 def phase_kernel_layout(torch, cl, flush) -> dict:
@@ -4485,7 +5081,7 @@ def phase_train_zoo(torch, smi: str) -> dict:
   # interaction and the plan no exchange
   want = expect(build_delta_rows=len(buckets), apply_rows=len(sparse))
   occurrences = sum(b.n_b * b.h for b in buckets) * ZOO_BATCH
-  model = SyntheticModel(cfg, device="cuda",
+  model = SyntheticModel(cfg, tables=False, device="cuda",
                          generator=torch.Generator().manual_seed(SEED))
   adagrad = functools.partial(Adagrad, lr=ZOO_LR)
   torch.cuda.reset_peak_memory_stats()
@@ -4549,6 +5145,9 @@ def phase_train_zoo(torch, smi: str) -> dict:
           "of the sampled touched rows of a class changed")
   peak = torch.cuda.max_memory_allocated() / 2**30
   med = statistics.median(ms)
+  ZOO_SPARSE_STEP.update(step_ms_median=med,
+                         samples_per_s=ZOO_BATCH / (med / 1e3),
+                         peak_gib=peak)
   emit({"phase": "train_zoo", "model": ZOO_MODEL, "card": smi,
         "batch": ZOO_BATCH, "alpha": ZOO_ALPHA, "rule": "adagrad",
         "lr": ZOO_LR, "compute": "f32",
@@ -4584,6 +5183,132 @@ def phase_train_zoo(torch, smi: str) -> dict:
   torch.cuda.empty_cache()
   return {"train_zoo": totals, "train_zoo_pin": pin_counts,
           "train_zoo_ragged": zoo_ragged}
+
+
+def phase_kernel_sliced(torch, ca, cd, flush) -> None:
+  """K6 and K1 against their plain versions on the column-sliced narrow
+  layouts of ``world4_colslice`` (:func:`w4_narrow_plan`, this machine's
+  backend): for the largest class of each width (2 and 4 lanes), K6 with
+  Adagrad on a world-4 rank's streams of ``W4_BATCH`` samples, one-hot
+  (stride-wide state rows) and ten-hot (window-masked physical rows), the
+  windows of power-law ids; K1 on the class buffer under SGD (32-64 rows
+  a physical row) and Adagrad (16-32), the two streams' ids together."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models.synthetic import power_law_ids
+  from distributed_embeddings_torch.ops.packed_table import (
+      _grp_sub,
+      adagrad_rule,
+      sgd_rule,
+  )
+  backend = "nccl" if torch.cuda.device_count() >= WORLD else "gloo"
+  _, plan = w4_narrow_plan(backend)
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+  for r, rule in enumerate((adagrad_rule(ZOO_LR), sgd_rule(TRAIN_LR))):
+    classes = zoo_classes(plan, rule)
+    check(sorted(lay.width for _, lay in classes) == [2, 4],
+          f"the narrow plan's widths {[lay.width for _, lay in classes]}")
+    for c, (name, layout) in enumerate(classes):
+      rng = np.random.default_rng(SEED + 50 + c)
+      streams = {h: torch.from_numpy(power_law_ids(
+          rng, W4_BATCH, h, layout.rows, ZOO_ALPHA).reshape(-1)).to("cuda")
+          for h in (1, 10)}
+      if rule.n_aux:
+        for h, ids in streams.items():
+          _, sub, _ = _grp_sub(layout, ids)
+          k6_stream_row(torch, cd, flush, f"sliced_{name}", layout, rule,
+                        sub, h, SEED + 60 + 2 * c + h)
+          del sub
+      k1_stream_row(torch, ca, flush, f"sliced_{rule.name}_{name}", layout,
+                    torch.cat(list(streams.values())), gen)
+      del streams
+      torch.cuda.empty_cache()
+
+
+def _load_script(name: str, *parts):
+  """A script of the repository (``parts``: its path) as a module."""
+  import importlib.util
+  import os
+
+  root = os.path.dirname(os.path.abspath(__file__))
+  spec = importlib.util.spec_from_file_location(name,
+                                                os.path.join(root, *parts))
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
+def phase_zoo_main(torch, smi: str) -> dict:
+  """The README Quick start's last command in the port:
+  ``examples/benchmarks/synthetic_models/main_torch.py`` (``main(argv)`` in
+  this process, so the counters see it) with ``ZOO_MAIN_FLAGS``, f32 and
+  ``--amp``: Tiny at its published widths and vocabulary, its own
+  ``DistributedEmbedding`` (4.49 GB of class buffers), ``training.Adagrad``
+  over every parameter, the dense-autodiff step. Every loss finite, the
+  mean loss of the last pass over the batches below the first pass's, no
+  kernel launched. Its step ms,
+  samples/s and peak memory beside the sparse Tiny step of this run
+  (``train_zoo``). Returns each run's launches."""
+  import contextlib
+  import io
+
+  twin = _load_script("zoo_main_torch", "examples", "benchmarks",
+                      "synthetic_models", "main_torch.py")
+  out = {}
+  for tag, extra in (("f32", ()), ("amp", ("--amp",))):
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+      res = twin.main(list(ZOO_MAIN_FLAGS) + list(extra))
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    check(got == expect(), f"zoo_main {tag}: launches {got}, expected none "
+          "(the dense-autodiff zoo step runs no hand-written kernel)")
+    losses = res["losses"]
+    check(all(v == v and abs(v) < float("inf") for v in losses),
+          f"zoo_main {tag}: losses {losses}")
+    n = ZOO_MAIN_BATCHES
+    first, last = losses[:n], losses[-n:]
+    check(len(losses) >= 2 * n and sum(last) < sum(first),
+          f"zoo_main {tag}: the losses did not fall over a pass of the "
+          f"{n} batches: {losses}")
+    emit({"phase": "zoo_main", "compute": tag, "card": smi,
+          "argv": list(ZOO_MAIN_FLAGS) + list(extra),
+          "step_ms": res["step_ms"], "samples_per_s": res["samples_per_s"],
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "losses": losses, "printed": buf.getvalue().splitlines(),
+          "launches": got, "wall_s": wall,
+          "sparse_train_zoo_step": dict(ZOO_SPARSE_STEP)})
+    out[f"zoo_main_{tag}"] = got
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_lookup_bench(torch, smi: str) -> None:
+  """``examples/benchmarks/benchmark_torch.py`` at each hotness cap of
+  ``LOOKUP_BENCH_HOTNESS`` (vocab 1M x 128, batch 16,384): the CSR lookup
+  (``ops.csr_lookup``) against the padded gather + reduce, forward,
+  gradient and SGD step, and the engine's ``segment_reduce`` combine, in
+  CUDA-event medians."""
+  import contextlib
+  import io
+
+  bench = _load_script("benchmark_torch", "examples", "benchmarks",
+                       "benchmark_torch.py")
+  for h in LOOKUP_BENCH_HOTNESS:
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+      res = bench.main(["--hotness", str(h)])
+    for name, row in res["rows"].items():
+      check(all(v > 0 for v in row.values()), f"lookup_bench {name}: {row}")
+    emit({"phase": "lookup_bench", "hotness": h, "card": smi, **res,
+          "printed": buf.getvalue().splitlines(),
+          "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
 
 def ptxas_report(log: str) -> list:
@@ -4880,12 +5605,13 @@ def k1_launches(plan, ids_all, chunk: int = 1 << 22) -> tuple:
   return total, chunked, builds
 
 
-def k4_forward_launches(plan, codes) -> int:
+def k4_forward_launches(plan, codes, rule=None) -> int:
   """K4 launches of one world-N forward under ``overlap='fused'`` for
-  inputs of hotness codes ``codes``: per sparse bucket and round, one for a
-  ragged stream (none for an empty one), else one per row chunk of the
-  round's block (``B_local`` ids, or the unique capacity under
-  ``dedup_exchange``); 0 under the other schedules."""
+  inputs of hotness codes ``codes`` (None: every input one-hot): per
+  bucket of each class of :func:`k4_classes` (``rule``: the state's) and
+  round, one for a ragged stream (none for an empty one), else one per
+  row chunk of the round's block (``B_local`` ids, or the unique capacity
+  under ``dedup_exchange``); 0 under the other schedules."""
   from distributed_embeddings_torch.parallel.lookup_engine import (
       class_buckets,
       padded_rows,
@@ -4894,10 +5620,9 @@ def k4_forward_launches(plan, codes) -> int:
     return 0
   b = W4_BATCH // WORLD
   total = 0
-  for key in plan.class_keys:
-    if plan.classes[key].kind != "sparse":
-      continue
-    for bucket in class_buckets(plan, key, lambda i: codes[i]):
+  for key in k4_classes(plan, rule):
+    for bucket in class_buckets(plan, key, lambda i: 1 if codes is None
+                                else codes[i]):
       if bucket.h < 0:
         total += WORLD if -bucket.h - 1 else 0
         continue
@@ -5732,6 +6457,7 @@ def main() -> int:
   rows["gather_rows"] = phase_kernel_gather(torch, cx, flush)
   rows["gather_send_rows"] = phase_kernel_send(torch, cx, flush)
   rows["build_delta_rows"] = phase_kernel_delta(torch, cd, flush)
+  phase_kernel_sliced(torch, ca, cd, flush)
   rows["row_major"] = phase_kernel_layout(torch, cl, flush)
   phase_fp8_codec(torch, flush)
   phase_unique_map(torch, flush)
@@ -5781,6 +6507,13 @@ def main() -> int:
                      ("train_zoo_pin", "row_major")):
     check(by_path[path][name] > 0, f"the {path} path never launched {name}")
   torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  by_path.update(phase_zoo_main(torch, smi))
+  emit({"phase": "zoo_main", "wall_s": time.perf_counter() - t0})
+  t0 = time.perf_counter()
+  phase_lookup_bench(torch, smi)
+  emit({"phase": "lookup_bench", "wall_s": time.perf_counter() - t0})
+  torch.cuda.empty_cache()
   by_path.update(phase_world4(torch, smi))
   for name in W4_KERNELS:
     check(by_path["train_world4"][name] > 0,
@@ -5803,7 +6536,10 @@ def main() -> int:
                       ("serve_ragged", ("interact_fwd",)),
                       ("train_zoo_ragged", ("build_delta_rows",
                                             "apply_rows")),
-                      ("world4_ragged", W4_KERNELS)):
+                      ("world4_ragged", W4_KERNELS),
+                      ("world4_colslice", W4_KERNELS + ("build_delta_rows",)),
+                      ("zoo_world4_plan", ("build_delta_rows",
+                                           "apply_rows"))):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

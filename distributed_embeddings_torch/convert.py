@@ -11,7 +11,8 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
   become ``embeddings.mp_table_*`` (with ``mesh=``, this rank's blocks of
   a world-N tree). :func:`dlrm_state_dict_to_flax` is the way back;
 - :func:`synthetic_state_dict_from_flax`: the flax ``SyntheticModel``
-  params ``mlp/dense_i/{kernel, bias}`` -> the port's
+  params ``mlp/dense_i/{kernel, bias}`` (and ``embeddings/mp_table_*``;
+  with ``mesh=``, this rank's blocks) -> the port's
   ``SyntheticModel.state_dict()``, :func:`synthetic_state_dict_to_flax`
   the way back; :func:`dense_state_dict_to_flax` and
   :func:`dense_state_dict_from_flax` pick the pair by model family (the
@@ -126,11 +127,16 @@ def dlrm_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
   return _mlps_to_flax(state_dict, ("bottom_mlp", "top_mlp"))
 
 
-def synthetic_state_dict_from_flax(params: Dict[str, Any]
+def synthetic_state_dict_from_flax(params: Dict[str, Any], mesh=None
                                    ) -> Dict[str, torch.Tensor]:
-  """flax ``SyntheticModel`` dense params (``mlp/dense_i/...``, numpy
-  leaves) -> the port's ``SyntheticModel.state_dict()``."""
-  return _mlps_state_dict(params, ("mlp",))
+  """flax ``SyntheticModel`` params (``mlp/dense_i/...`` and, for a model
+  that owns its tables, ``embeddings/mp_table_*``; numpy leaves) -> the
+  port's ``SyntheticModel.state_dict()``. With a ``mesh`` the tree is a
+  world-N init and the result is this rank's: its block of every class,
+  the MLP whole, on the mesh's device, as for
+  :func:`dlrm_state_dict_from_flax`."""
+  out = _mlps_state_dict(params, ("mlp",))
+  return out if mesh is None else shard_params(out, mesh)
 
 
 def synthetic_state_dict_to_flax(state_dict: Dict[str, torch.Tensor]

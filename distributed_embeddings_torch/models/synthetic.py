@@ -8,9 +8,10 @@ power-law ids drawn with numpy exactly as the JAX package draws them
 The model (:class:`SyntheticModel`) concatenates the sum-combined
 embedding activations, applies the optional strided average pool (the
 reference's bandwidth-limited "interaction"), appends the numerical
-features and runs an MLP to one logit. Its embedding activations come
-through ``emb_acts`` (the sparse train step computes them, as for the
-DLRM).
+features and runs an MLP to one logit. It owns its embedding layer, a
+``DistributedEmbedding`` over every table, as the JAX model does; the
+sparse train step hands it its activations through ``emb_acts`` instead,
+as for the DLRM.
 
 | config   | tables | embedding GiB |
 |----------|--------|---------------|
@@ -32,6 +33,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..layers.dist_model_parallel import DistributedEmbedding
 from ..layers.embedding import TableConfig
 from .dlrm import MLP
 
@@ -230,37 +232,73 @@ def mlp_in_features(config: SyntheticModelConfig) -> int:
 class SyntheticModel(nn.Module):
   """Synthetic benchmark model (the reference's ``SyntheticModelTFDE``):
   sum-combined embeddings over power-law inputs, the optional strided
-  average pool, the numerical features, an MLP to one logit.
+  average pool, the numerical features, an MLP to one logit. It owns its
+  embedding layer (a :class:`~..layers.dist_model_parallel.
+  DistributedEmbedding` over every table of ``config``, submodule
+  ``embeddings``), as the JAX model does, so the dense-autodiff step
+  (``training.make_train_step``) trains its tables; the sparse step
+  hands it its activations instead (``emb_acts``).
 
   Args:
     config: a :class:`SyntheticModelConfig` (``SYNTHETIC_MODELS[name]``).
+    world_size / strategy / column_slice_threshold / row_slice /
+      dp_input / dense_row_threshold / batch_hint: the embedding layer's
+      plan, as in the JAX model.
     compute_dtype: dtype of the pool and MLP compute (parameters stay f32).
-    device: where the parameters live; ``"cuda"`` unless the caller asks
-      for the CPU.
-    generator: CPU ``torch.Generator`` for the initial weights.
+    mesh: this rank's :class:`~..parallel.mesh.Mesh` at world > 1: the
+      embedding layer holds this rank's blocks only and the MLP is
+      replicated, all on the mesh's device (``world_size`` must be the
+      mesh's).
+    tables: build the embedding layer with its class buffers; False for a
+      model that is handed its activations (``emb_acts``), as the sparse
+      train step and the serve engine do.
+    device: where the parameters live without a mesh; ``"cuda"`` unless
+      the caller asks for the CPU.
+    generator: CPU ``torch.Generator`` for the MLP's initial weights.
+    table_generator: ``torch.Generator`` on the tables' device for their
+      initial draws (None takes PyTorch's default generator); with a mesh
+      it draws this rank's shards only, so seed it per rank.
   """
 
-  def __init__(self, config: SyntheticModelConfig,
-               compute_dtype=torch.float32, device="cuda",
-               generator: Optional[torch.Generator] = None):
+  def __init__(self, config: SyntheticModelConfig, world_size: int = 1,
+               strategy: str = "memory_balanced",
+               column_slice_threshold: Optional[int] = None,
+               row_slice: Optional[int] = None, dp_input: bool = True,
+               compute_dtype=torch.float32, dense_row_threshold: int = 2048,
+               batch_hint: Optional[int] = None, mesh=None, tables: bool = True,
+               device="cuda", generator: Optional[torch.Generator] = None,
+               table_generator: Optional[torch.Generator] = None):
     super().__init__()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     self.config = config
     self.compute_dtype = compute_dtype
     self.mlp = MLP(mlp_in_features(config), tuple(config.mlp_sizes) + (1,),
                    dtype=compute_dtype, generator=generator)
     self.to(dev)
+    self.embeddings = None
+    if tables:
+      table_cfgs, tmap, hotness = expand_tables(config)
+      self.embeddings = DistributedEmbedding(
+          table_cfgs, strategy=strategy,
+          column_slice_threshold=column_slice_threshold,
+          row_slice=row_slice, dp_input=dp_input, input_table_map=tmap,
+          world_size=world_size, dense_row_threshold=dense_row_threshold,
+          input_hotness=hotness, batch_hint=batch_hint, mesh=mesh,
+          device=dev, generator=table_generator)
 
   def forward(self, numerical: torch.Tensor, categorical=None,
               emb_acts: Optional[Sequence[torch.Tensor]] = None
               ) -> torch.Tensor:
-    """numerical ``[B, num_numerical]``; ``emb_acts``: per input its ``[B,
-    width]`` activation. Returns ``[B]`` f32 logits."""
-    del categorical
+    """numerical ``[B, num_numerical]``; categorical: per input its ids
+    (``[B]``, ``[B, 1]`` or ``[B, H]``), looked up through the embedding
+    layer; ``emb_acts`` overrides the lookup with per-input ``[B, width]``
+    activations. Returns ``[B]`` f32 logits."""
     if emb_acts is None:
-      raise NotImplementedError(
-          "the port's SyntheticModel takes its embedding activations "
-          "through emb_acts (training.make_sparse_train_step computes them)")
+      if self.embeddings is None:
+        raise ValueError(
+            "this SyntheticModel was built with tables=False: pass its "
+            "embedding activations through emb_acts")
+      emb_acts = self.embeddings(categorical)
     cd = self.compute_dtype
     x = torch.cat([o.to(cd) for o in emb_acts], dim=1)
     if self.config.interact_stride is not None:

@@ -484,7 +484,8 @@ def replay_zoo(golden: Dict[str, np.ndarray], device="cuda"):
   :func:`replay` does."""
   plan = zoo_plan()
   initial, _ = zoo_golden_state(golden)
-  model = SyntheticModel(SYNTHETIC_MODELS[ZOO_MODEL], device=device)
+  model = SyntheticModel(SYNTHETIC_MODELS[ZOO_MODEL], tables=False,
+                         device=device)
   state = zoo_train_state_from_flax(initial, device=device)
   step = make_sparse_train_step(
       model, plan, bce_loss, functools.partial(Adagrad, lr=ZOO_LR),

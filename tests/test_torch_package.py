@@ -24,7 +24,12 @@
 - the resilience modules (``guards``, ``retry``, ``durable``,
   ``trainer``) import with JAX blocked, and so does
   ``tools/torch_chaos_train.py``; ``durable.restore_latest`` and the chaos
-  tool default to the card.
+  tool default to the card;
+- the zoo harness (``utils.zoo_bench``, the twins
+  ``examples/benchmarks/synthetic_models/main_torch.py`` and
+  ``examples/benchmarks/benchmark_torch.py``) imports and runs with JAX
+  blocked, and defaults to the card, as do ``SyntheticModel`` with its
+  tables and ``run_zoo_plan_step``.
 """
 
 import ast
@@ -77,6 +82,10 @@ from distributed_embeddings_torch.training import (
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "distributed_embeddings_torch"
 BANNED = ("jax", "flax", "optax", "ml_dtypes", "distributed_embeddings_tpu")
+# the zoo harness's torch twins of examples/benchmarks/
+ZOO_TWINS = [REPO / "examples" / "benchmarks" / "synthetic_models" /
+             "main_torch.py",
+             REPO / "examples" / "benchmarks" / "benchmark_torch.py"]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -114,7 +123,7 @@ def test_port_imports_with_jax_blocked():
               "telemetry.registry", "telemetry.trace", "telemetry.flight",
               "telemetry.export", "utils", "utils.data", "cc",
               "resilience.guards", "resilience.retry", "resilience.durable",
-              "resilience.trainer"):
+              "resilience.trainer", "telemetry", "utils.zoo_bench"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -131,7 +140,7 @@ def _imported_roots(path: Path):
 def test_no_source_imports_jax_or_the_jax_package():
   files = sorted(PORT.rglob("*.py")) + [
       REPO / "chip_smoke.py", REPO / "examples" / "dlrm" / "main_torch.py",
-      REPO / "tools" / "torch_chaos_train.py"]
+      REPO / "tools" / "torch_chaos_train.py"] + ZOO_TWINS
   assert len(files) > 15
   bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
          for f in files for root, line in _imported_roots(f)
@@ -350,3 +359,44 @@ def test_resilience_entry_points_default_to_cuda(tmp_path):
                      capture_output=True, text=True, timeout=120)
   assert r.returncode != 0
   assert "CUDA is not available" in r.stderr, r.stdout + r.stderr
+
+
+_RUN_BLOCKED = """
+import runpy, sys
+for name in {banned!r}:
+  sys.modules[name] = None
+sys.argv = [{script!r}] + {argv!r}
+runpy.run_path({script!r}, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("script,argv", [
+    (ZOO_TWINS[0], ["--steps", "1", "--shrink", "0.0001", "--batch_size",
+                    "8"]),
+    (ZOO_TWINS[1], ["--vocab", "100", "--width", "8", "--batch", "8"])])
+def test_zoo_twins_run_with_jax_blocked_and_default_to_cuda(script, argv):
+  """Each twin script imports with JAX blocked and, without a GPU and
+  without ``--device cpu``, stops at the card: CUDA is not available."""
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  code = _RUN_BLOCKED.format(banned=BANNED, script=str(script), argv=argv)
+  r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                     capture_output=True, text=True, timeout=120)
+  assert r.returncode != 0
+  assert "CUDA is not available" in r.stderr, r.stdout + r.stderr
+  assert "ImportError" not in r.stderr and \
+      "ModuleNotFoundError" not in r.stderr, r.stderr
+
+
+def test_zoo_entry_points_default_to_cuda():
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  from distributed_embeddings_torch.models import (
+      SYNTHETIC_MODELS,
+      SyntheticModel,
+  )
+  from distributed_embeddings_torch.utils.zoo_bench import run_zoo_plan_step
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    SyntheticModel(SYNTHETIC_MODELS["tiny"])
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    run_zoo_plan_step("tiny", None, 1)

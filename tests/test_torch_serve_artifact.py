@@ -358,7 +358,8 @@ def test_zoo_artifact_holds_the_flax_mlp_tree(tmp_path):
   for k, v in want.items():
     np.testing.assert_array_equal(got[k], v, err_msg=k)
   art = torch_load(path, plan, device="cpu")
-  model = SyntheticModel(SYNTHETIC_MODELS[tg.ZOO_MODEL], device="cpu")
+  model = SyntheticModel(SYNTHETIC_MODELS[tg.ZOO_MODEL], tables=False,
+                         device="cpu")
   model.load_state_dict(art.state["dense"])
   roundtrip = dense_state_dict_from_flax(dense_state_dict_to_flax(
       model.state_dict()))

@@ -86,7 +86,7 @@ def test_forward_matches_jax(name):
                        None, emb_acts=[jnp.asarray(a[:2]) for a in acts])
   want = np.asarray(jmodel.apply(params, jnp.asarray(numerical), None,
                                  emb_acts=[jnp.asarray(a) for a in acts]))
-  tmodel = tsyn.SyntheticModel(tcfg, device="cpu")
+  tmodel = tsyn.SyntheticModel(tcfg, tables=False, device="cpu")
   tmodel.load_state_dict(synthetic_state_dict_from_flax(
       jax.tree_util.tree_map(np.asarray, params["params"])))
   got = tmodel(torch.tensor(numerical), None,

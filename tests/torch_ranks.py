@@ -370,7 +370,8 @@ def dense_extras_job(mesh, spec):
   max_norm constraint), a multi-hot ``mean`` input and the port's
   ``training.Adagrad``, per ``(overlap, chunks)`` of
   ``spec['schedules']`` (or ``(overlap, chunks, wire knobs)``, keyed
-  ``overlap/chunks/<knob>=<value>...``), from the JAX init
+  ``overlap/chunks/<knob>=<value>...``; ``spec['plan_kw']`` adds plan
+  knobs to every run, column slicing), from the JAX init
   ``spec['init']``; every rank returns ``{overlap/chunks: (losses, global
   final params, global preds)}``."""
   import torch
@@ -390,14 +391,15 @@ def dense_extras_job(mesh, spec):
                    constraint=spec["penalties"].get(("con", i)))
        for i, v in enumerate(spec["vocab"])], mesh.world, "memory_balanced",
       dense_row_threshold=spec["dense_row_threshold"],
-      row_slice_threshold=spec["row_slice"])
+      row_slice_threshold=spec["row_slice"], **spec.get("plan_kw", {}))
   init = {f"embeddings.{k}": v for k, v in spec["init"]["embeddings"].items()}
   init["head.weight"] = spec["init"]["head"]["kernel"].T.copy()
   init["head.bias"] = spec["init"]["head"]["bias"]
   out = {}
   for overlap, chunks, *wire_kw in spec["schedules"]:
     wire_kw = wire_kw[0] if wire_kw else {}
-    model = _tiny_rec(spec, mesh, overlap, chunks, **wire_kw)
+    model = _tiny_rec(spec, mesh, overlap, chunks,
+                      **spec.get("plan_kw", {}), **wire_kw)
     assert model.embeddings.plan.class_keys == plan.class_keys
     model.load_state_dict(ttr.shard_params(init, mesh))
     opt = ttr.Adagrad(model.parameters(), lr=spec["lr"])
@@ -524,7 +526,8 @@ def ckpt_job(mesh, spec):
   remaining steps. Each rank returns its own blocks and flat arrays at
   the checkpoint (saved or restored) and at the end, the losses, and at
   the checkpoint the global logical tables and optimizer lanes
-  (``get_weights`` of the unpacked state)."""
+  (``get_weights`` of the unpacked state). ``spec['plan_kw']``: more plan
+  knobs (column slicing)."""
   import torch
 
   from distributed_embeddings_torch import checkpoint as tck
@@ -535,7 +538,8 @@ def ckpt_job(mesh, spec):
   from distributed_embeddings_torch.ops import packed_table as tpt
   from distributed_embeddings_torch.utils import data as tdata
 
-  plan = _train_plan(spec, spec["overlap"], spec["chunks"])
+  plan = _train_plan(spec, spec["overlap"], spec["chunks"],
+                     **spec.get("plan_kw", {}))
   model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
                top_mlp=spec["top"], num_numerical=spec["num"],
                tables=False, device="cpu")
@@ -594,8 +598,8 @@ def mb_guard_job(mesh, spec):
   """The micro-batched and the guarded sparse step at world N: per entry
   of ``spec['runs']`` (``name``, ``overlap``, ``micro_batches``,
   ``guard``, optionally ``oov``, ``nan_rank``, ``oov_rank``, ``rule``
-  (default ``spec['rule']``), ``plan_kw`` (more plan knobs: the wire's)
-  and ``chunks``) the port's state from the JAX initial state
+  (default ``spec['rule']``), ``plan_kw`` (more plan knobs: the wire's,
+  column slicing), ``exact`` and ``chunks``) the port's state from the JAX initial state
   (``spec['state']``, the rule's sparse classes, SGD on the dense
   tensors), one step per batch of ``spec['batches']`` (or the run's own
   ``batches``). ``nan_rank`` poisons that rank's slice of the
@@ -647,7 +651,8 @@ def mb_guard_job(mesh, spec):
     state = train_state_from_flax(spec["state"], mesh=mesh)
     step = ttr.make_sparse_train_step(
         model, plan, bce_loss, sgd, rule, mesh=mesh,
-        micro_batches=run["micro_batches"], guard=run["guard"])
+        micro_batches=run["micro_batches"], guard=run["guard"],
+        exact=run.get("exact", False))
     losses, metrics, skipped, raised = [], [], [], []
     for i, (numerical, cats, labels) in enumerate(
         run.get("batches", spec["batches"])):
@@ -872,3 +877,48 @@ def multi_job(mesh, spec):
   name to ``(job, job_spec)``; returns ``{name: that job's result}``."""
   return {name: globals()[job](mesh, job_spec)
           for name, (job, job_spec) in spec["jobs"].items()}
+
+
+def zoo_dense_job(mesh, spec):
+  """The synthetic zoo's dense-autodiff step at world N: per entry of
+  ``spec['runs']`` (``name``, ``dense_row_threshold``, ``init``: the JAX
+  model's global param tree) a ``SyntheticModel(spec['config'], mesh=)``
+  holding this rank's blocks of ``init``, ``training.Adagrad(spec['lr'])``
+  and ``make_train_step(mesh=)`` over ``spec['batch']`` (global) for
+  ``spec['steps']`` steps. Every rank returns per run the losses and the
+  global final class buffers."""
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import (
+      synthetic_state_dict_from_flax,
+  )
+  from distributed_embeddings_torch.models import SyntheticModel, bce_loss
+  from distributed_embeddings_torch.parallel import wire
+
+  out = {}
+  for run in spec["runs"]:
+    model = SyntheticModel(spec["config"], world_size=mesh.world, mesh=mesh,
+                           dense_row_threshold=run["dense_row_threshold"])
+    model.load_state_dict(synthetic_state_dict_from_flax(run["init"],
+                                                         mesh=mesh))
+    opt = ttr.Adagrad(model.parameters(), lr=spec["lr"])
+    step = ttr.make_train_step(
+        lambda m, n, c, y: bce_loss(m(n, c), y), opt, model, mesh=mesh)
+    batch = ttr.shard_batch(spec["batch"], mesh, device="cpu")
+    losses = [float(step(*batch)) for _ in range(spec["steps"])]
+    out[run["name"]] = {
+        "losses": losses,
+        "classes": {n: wire.gather_blocks(p.detach(), mesh).numpy()
+                    for n, p in model.embeddings.class_params().items()}}
+  return out
+
+
+def zoo_plan_job(mesh, spec):
+  """``utils.zoo_bench.run_zoo_plan_step`` at world N from the JAX
+  recipe's initial state (``spec['state']``, global, numpy leaves); every
+  rank returns the result dict."""
+  from distributed_embeddings_torch.convert import zoo_train_state_from_flax
+  from distributed_embeddings_torch.utils.zoo_bench import run_zoo_plan_step
+
+  state = zoo_train_state_from_flax(spec["state"], mesh=mesh)
+  return run_zoo_plan_step(spec["name"], mesh, mesh.world, state=state,
+                           **spec.get("kw", {}))
