@@ -319,18 +319,44 @@ JSON line per phase:
    routed batch, and Tiny's dense-autodiff step at world 4
    (``SyntheticModel(mesh=)``, ``broadcast_variables``,
    ``training.Adagrad``, ``make_train_step(mesh=)``; the same cuts), no
-   kernel launched, the losses equal on every rank.
+   kernel launched, the losses equal on every rank. After
+   ``serve_world4``, ``world4_bf16`` (slice 17): the plan's tables in bf16
+   (x 1/16 on both backends), SGD under ``'none'``, ``'pipelined'`` and
+   ``'fused'`` from one state (3 steps each; the first step's losses
+   equal and its buffers bit-equal to ``'none'``'s off duplicate rows;
+   K4's bf16 form as ``k4_classes`` predicts, K1's once per class), one
+   Adagrad step, and ``serve_world4_fp8``: the SGD state's fp8 images
+   exported, loaded and served in lockstep, equal on every rank and
+   bit-equal to the in-memory engine's.
+11. Narrow storage and fp8 images (slice 17), in the first card's
+   phases: ``kernel`` rows of K1's and K4's bf16 forms
+   (``apply_rows_bf16``: 131,072 uniform, unique and one-row ids on the
+   train plan's first class in bf16 and the Tiny w16 stream at
+   physical-row granularity, unique ids bit-equal, duplicates within
+   ``3 m 2^-8`` of a cell's absolute sum; ``gather_rows_bf16``: the K4
+   block, bit-equal); ``train_bf16_golden`` (the committed JAX
+   narrow-storage golden within ``train_golden.compare_bf16``'s bounds);
+   ``serve_fp8`` (the serve cell's fp8 images exported, loaded and
+   served, bit-equal to the in-memory engine, every activation within the
+   JAX fp8 bound of the f32 image's); ``train_bf16`` (``bench.py``'s step
+   on the 26 Criteo-1TB tables at their full vocabulary in bf16, 48.07
+   GB, on this card: 3 warm-up and 10 timed steps, the train phase's
+   checks, K1's bf16 form once per class); ``train_bf16_vs_f32`` (x 1/16:
+   ten steps of a bf16 state and of an f32 state of the same values,
+   losses within 1e-2) and ``bf16_ckpt`` (its bf16 state saved and
+   restored bit-equal).
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
-the ``kernels`` line come from the serve, serve_artifact, serve_batcher,
-train, dense, train_ckpt, dlrm_main_sparse, train_mb, train_guard,
-resilient, dlrm_main_mb, train_ragged, serve_ragged, zoo, train_zoo_mb,
-train_zoo_ragged, zoo_main and world-4 (sparse train, wire compression,
-ragged, guard and micro-batch, checkpoint, dense train, serve, column
-slices and the zoo) phases alone: each sets all nine kernels' counters
-to 0 just before each
-run of its path, reads all nine just after, and checks them against the
+the ``kernels`` line (the nine kernels and the two bf16 forms) come from
+the serve, serve_artifact, serve_batcher, serve_fp8, train, train_bf16,
+train_bf16_vs_f32, dense, train_ckpt, dlrm_main_sparse, train_mb,
+train_guard, resilient, dlrm_main_mb, train_ragged, serve_ragged, zoo,
+train_zoo_mb, train_zoo_ragged, zoo_main and world-4 (sparse train, wire
+compression, ragged, guard and micro-batch, checkpoint, dense train,
+serve, bf16 tables, column slices and the zoo) phases alone: each sets
+every counter to 0 just before each
+run of its path, reads them all just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
 counts are summed over the ranks; K7's come from the pinned zoo step).
 Any failed check exits non-zero before the last line; so does a machine
@@ -442,6 +468,9 @@ REPLACES = {
     "gather_rows": "distributed_embeddings_tpu/ops/pallas_exchange.py:212",
     "build_delta_rows": "distributed_embeddings_tpu/ops/pallas_delta.py:78",
     "row_major": "distributed_embeddings_tpu/ops/pallas_layout.py:32",
+    "apply_rows_bf16": "distributed_embeddings_tpu/ops/pallas_apply.py:211",
+    "gather_rows_bf16":
+        "distributed_embeddings_tpu/ops/pallas_exchange.py:212",
 }
 # every kernel's launch counter: the wrapper's module under
 # distributed_embeddings_torch.ops, and its attribute there
@@ -455,7 +484,13 @@ COUNTERS = {
     "gather_send_rows": ("cuda_exchange", "send_launches"),
     "build_delta_rows": ("cuda_delta", "launches"),
     "row_major": ("cuda_layout", "launches"),
+    "apply_rows_bf16": ("cuda_apply", "launches_bf16"),
+    "gather_rows_bf16": ("cuda_exchange", "launches_bf16"),
 }
+# the bf16 forms of K1 and K4 (narrow storage): second entry points of
+# their kernels' sources, each with its own launch counter
+BF16_FORMS = {"apply_rows_bf16": "apply_rows",
+              "gather_rows_bf16": "gather_rows"}
 # the kernels of the world-4 path (every one must launch there)
 W4_KERNELS = ("interact_fwd", "interact_bwd", "apply_rows", "gather_rows")
 # the synthetic zoo's train step (tools/bench_synthetic.py tiny 65536):
@@ -558,6 +593,17 @@ LOOKUP_BENCH_HOTNESS = (64, 500)
 # the sparse Tiny step of this run (phase_train_zoo), printed beside the
 # dense-autodiff zoo step (phase_zoo_main)
 ZOO_SPARSE_STEP = {}
+# narrow storage (slice 17): on a row that m occurrences hit, K1's bf16
+# form and its plain version (XLA's scatter) may differ by their roundings:
+# m on the plain side (every add), at most two a run of one id on the
+# kernel's (the run's f32 sum to bf16, then the atomic add), each at most
+# 2^-8 of the cell's absolute sum |buf| + sum |d|: 3 m 2^-8 of it
+BF16_DUP_ULP = 3 * 2.0 ** -8
+# the bf16 state against its f32 twin at 1/16 (train_bf16_vs_f32)
+NARROW_VS_STEPS = 10
+NARROW_LOSS_RTOL = 1e-2
+# the world-4 narrow cell's steps per schedule (world4_bf16)
+W4_NARROW_STEPS = 3
 
 
 class SmokeFailure(Exception):
@@ -1399,11 +1445,11 @@ def phase_serve_batcher(torch, smi: str, eng, vocab) -> dict:
   return totals
 
 
-def train_plan(vocab=None, oov: str = "clip"):
+def train_plan(vocab=None, oov: str = "clip", **plan_kw):
   """The train cell's plan (``bench.py``'s: ``dlrm_embedding_plan`` of the
   Criteo tables x 1/16, width 128, ``dense_row_threshold=4096``,
   ``batch_hint=65536``), over ``vocab`` when given, with the ``oov``
-  policy."""
+  policy (``plan_kw``: more plan knobs)."""
   from distributed_embeddings_torch.layers.embedding import TableConfig
   from distributed_embeddings_torch.layers.planner import (
       DistEmbeddingStrategy,
@@ -1411,7 +1457,7 @@ def train_plan(vocab=None, oov: str = "clip"):
   return DistEmbeddingStrategy(
       [TableConfig(input_dim=int(v), output_dim=D)
        for v in vocab or criteo_vocab()], 1, "basic",
-      dense_row_threshold=4096, batch_hint=TRAIN_BATCH, oov=oov)
+      dense_row_threshold=4096, batch_hint=TRAIN_BATCH, oov=oov, **plan_kw)
 
 
 def first_sparse_class(plan):
@@ -1570,8 +1616,9 @@ def w4_block_rows(plan, key, bucket) -> int:
 
 def k4_classes(plan, rule=None) -> set:
   """The sparse classes whose round gathers take K4 under ``'fused'``:
-  ``_fused_gather``'s condition (``parallel/lookup_engine.py``), an f32
-  layout of one fused row per physical row (``rows_per_phys == 1``; a
+  ``_fused_gather``'s condition (``parallel/lookup_engine.py``), an f32 or
+  bf16 layout of one fused row per physical row (``rows_per_phys == 1``;
+  a bf16 buffer takes K4's bf16 form, the same count; a
   window-masked gather has more). A narrow class (column slices, Tiny's
   widths: several rows per physical row) gathers without K4. ``rule``:
   the state's (SGD by default)."""
@@ -3005,6 +3052,10 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
     del batch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    out["narrow"] = _w4_narrow(torch, mesh, backend, outdir)
+    out["narrow"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     out["colslice"] = _w4_colslice(torch, mesh, backend)
     out["colslice"]["wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3085,6 +3136,8 @@ def phase_world4(torch, smi: str) -> dict:
   dense_totals = emit_dense_world4(backend, smi, [r["dense"] for r in ranks])
   serve_totals = emit_serve_world4(backend, smi,
                                    [r["serve"] for r in ranks])
+  narrow_totals = emit_narrow_world4(backend, smi,
+                                     [r["narrow"] for r in ranks])
   colslice_totals = emit_colslice_world4(backend, smi,
                                          [r["colslice"] for r in ranks])
   zoo_plan_totals, zoo_dense_totals = emit_zoo_world4(
@@ -3096,7 +3149,8 @@ def phase_world4(torch, smi: str) -> dict:
           "world4_wire": wire_totals, "world4_ragged": ragged_totals,
           "world4_colslice": colslice_totals,
           "zoo_world4_plan": zoo_plan_totals,
-          "zoo_world4_dense": zoo_dense_totals}
+          "zoo_world4_dense": zoo_dense_totals,
+          "world4_bf16": narrow_totals}
 
 
 def emit_colslice_world4(backend: str, smi: str, res: list) -> dict:
@@ -6397,8 +6451,754 @@ def emit_ragged_world4(backend: str, smi: str, res: list) -> dict:
   return totals
 
 
+# ---------------------------------------------------------------------------
+# narrow storage (bf16 tables) and fp8 serve images (slice 17)
+# ---------------------------------------------------------------------------
+
+
+def k1_bf16_check(torch, ca, name: str, base, ids, delta, scale) -> dict:
+  """K1's bf16 form on one stream against its plain version: bit-equal
+  when no id repeats; where ``m`` occurrences hit a row, every cell within
+  ``m * BF16_DUP_ULP`` of its absolute sum (``|buf| + sum |bf16(scale) *
+  d|``): the plain version (XLA's scatter) rounds every add, the kernel a
+  tile's run of one id once and its atomic once; rows no id touches
+  bit-equal. Returns the check's numbers."""
+  work = base.clone()
+  got = ca.apply_rows(work, ids, delta, scale)
+  torch.cuda.synchronize()
+  want = ca.apply_rows_plain(base.clone(), ids, delta, scale)
+  valid = (ids >= 0) & (ids < base.shape[0])
+  ids_v = ids[valid]
+  touched, inv = torch.unique(ids_v, return_inverse=True)
+  hits = torch.bincount(inv)
+  differ = (got != want).any(dim=1)
+  differ[touched] = False
+  check(not bool(differ.any().item()), f"apply_rows_bf16 {name}: a row no "
+        "id touches differs from the plain version")
+  del differ
+  err = (got[touched].float() - want[touched].float()).abs()
+  most = int(hits.max().item())
+  if most == 1:
+    check(torch.equal(got, want), f"apply_rows_bf16 {name}: unique ids are "
+          "not bit-equal to the plain version")
+    share = 0.0
+  else:
+    d = delta[valid].float()
+    if scale is not None:
+      d = d * torch.tensor(float(scale)).to(torch.bfloat16).float().item()
+    abs_sum = base[touched].float().abs().index_add_(0, inv, d.abs())
+    lim = hits[:, None].float() * BF16_DUP_ULP * abs_sum
+    share = (err / lim.clamp(min=1e-30)).max().item()
+    del d, abs_sum, lim
+    check(share <= 1.0, f"apply_rows_bf16 {name}: off by {share} x the "
+          "bound hits * 3 * 2^-8 * |cell's absolute sum|")
+  out = {"max_abs_err": err.max().item(), "dup_bound_share": share,
+         "unique_rows": int(touched.numel()), "valid_ids": int(ids_v.numel()),
+         "most_hits_on_a_row": most}
+  del want, err, touched, inv, hits
+  return out
+
+
+def phase_kernel_apply_bf16(torch, ca, flush, rows: int) -> dict:
+  """K1's bf16 form (narrow storage) against its plain version: on the
+  train cell's first sparse class in bf16, 131,072 uniform ids, 131,072
+  unique ids and 131,072 ids on one row, SGD's scale; and a Tiny-like
+  stream, the Tiny step's routed ids of its largest w16 class at
+  physical-row granularity (bf16, Adagrad's 32-lane stride, K6-shaped
+  update rows, no scale). Timed with CUDA events beside its plain
+  version (uniform and unique streams: the plain version adds one
+  occurrence level at a time) and a bf16 ``index_add_``. Returns the
+  uniform stream's row."""
+  from distributed_embeddings_torch.ops.packed_table import (
+      _grp_sub,
+      adagrad_rule,
+  )
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+  base = torch.rand((rows, D), generator=gen, device="cuda").to(
+      torch.bfloat16)
+  streams = k1_streams(torch, rows)
+  streams = {k: streams[k] for k in ("uniform", "unique", "one_row")}
+  main = None
+  for name, ids in streams.items():
+    delta = torch.randn((ids.shape[0], D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    res = k1_bf16_check(torch, ca, name, base, ids, delta, K1_SCALE)
+    work = base.clone()
+    valid = (ids >= 0) & (ids < rows)
+    ids_v, delta_v = ids[valid], delta[valid]
+    fns = {"kernel_ms": lambda: ca.apply_rows(work, ids, delta, K1_SCALE),
+           "library_ms": lambda: work.index_add_(0, ids_v, delta_v,
+                                                 alpha=K1_SCALE)}
+    if name != "one_row":
+      fns["plain_ms"] = lambda: ca.apply_rows_plain(work, ids, delta,
+                                                    K1_SCALE)
+    timed = event_ms(torch, fns, flush)
+    timed.setdefault("plain_ms", None)
+    n, nv, uniq = int(ids.shape[0]), res["valid_ids"], res["unique_rows"]
+    row = {"phase": "kernel", "name": "apply_rows_bf16", "stream": name,
+           "plan": k1_plan_check(torch, ca, n), "rows": rows, "width": D,
+           "dtype": "bfloat16", "ids": n, **res, **timed,
+           **bound(n * 8 + nv * D * 2 + uniq * D * 2 * 2, 2 * nv * D,
+                   F32_FLOPS)}
+    emit(row)
+    if name == "uniform":
+      main = row
+    del work, delta, ids_v, delta_v
+  del base, streams
+  torch.cuda.empty_cache()
+  # the Tiny-like stream: the largest w16 class's routed ids, expanded to
+  # their physical rows' windows
+  plan = zoo_plan()
+  routed = zoo_routed(torch, plan)
+  name, layout = next((n, lay) for n, lay in
+                      zoo_classes(plan, adagrad_rule(ZOO_LR))
+                      if lay.width == 16)
+  ids = torch.cat([i.reshape(-1).long() for _, i in routed.pop(name)])
+  del routed
+  grp, sub, _ = _grp_sub(layout, ids)
+  win = torch.arange(D, device="cuda") // layout.stride
+  delta = torch.randn((grp.shape[0], D), generator=gen, device="cuda") * 1e-2
+  delta = torch.where(win[None, :] == sub[:, None], delta,
+                      torch.zeros_like(delta)).to(torch.bfloat16)
+  base = torch.rand((layout.phys_rows, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+  res = k1_bf16_check(torch, ca, f"tiny_{name}", base, grp, delta, None)
+  work = base.clone()
+  valid = grp < layout.phys_rows
+  grp_v, delta_v = grp[valid], delta[valid]
+  timed = event_ms(torch, {
+      "kernel_ms": lambda: ca.apply_rows(work, grp, delta),
+      "library_ms": lambda: work.index_add_(0, grp_v, delta_v)}, flush)
+  n, nv, uniq = int(grp.shape[0]), res["valid_ids"], res["unique_rows"]
+  emit({"phase": "kernel", "name": "apply_rows_bf16",
+        "stream": f"tiny_{name}", "plan": k1_plan_check(torch, ca, n),
+        "rows": layout.phys_rows, "width": D, "logical_width": layout.width,
+        "rows_per_phys": layout.rows_per_phys, "dtype": "bfloat16",
+        "ids": n, **res, **timed, "plain_ms": None,
+        **bound(n * 8 + nv * D * 2 + uniq * D * 2 * 2, 2 * nv * D,
+                F32_FLOPS)})
+  del base, work, delta, grp, sub, grp_v, delta_v, ids
+  torch.cuda.empty_cache()
+  return main
+
+
+def phase_kernel_gather_bf16(torch, cx, flush) -> dict:
+  """K4's bf16 form (narrow storage) against its plain version at the
+  four-card world-4 path's block shape (the first sparse class's rank
+  buffer in bf16, 8,192 ids of one round and chunk): a uniform stream and
+  one with 30 % of its ids out of range or sentinels, bit-equal, timed
+  beside its plain version and ``index_select`` of clamped ids; edge
+  blocks and a short stride bit-equal. Returns the uniform stream's
+  row."""
+  from distributed_embeddings_torch.ops.packed_table import PackedLayout
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_buckets,
+  )
+  _, plan = world4_plan("nccl")
+  key, _, rows = first_sparse_class(plan)
+  n_b = class_buckets(plan, key, lambda i: 1)[0].n_b
+  n = n_b * (W4_BATCH // WORLD // W4_CHUNKS)
+  layout = PackedLayout(rows=rows, width=D)
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+  buf = torch.rand((rows, D), generator=gen, device="cuda").to(
+      torch.bfloat16)
+  main = None
+  for stream in ("uniform", "out_of_range"):
+    ids = torch.randint(0, rows, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if stream == "out_of_range":
+      ids = k4_bad_ids(torch, ids, rows, gen)
+    got = cx.gather_rows(layout, buf, ids)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16 and torch.equal(
+        got, cx.gather_rows_plain(buf, ids)),
+          f"gather_rows_bf16 {stream}: not bit-equal to the plain version")
+    n_valid = int(((ids >= 0) & (ids < rows)).sum().item())
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: cx.gather_rows(layout, buf, ids),
+        "plain_ms": lambda: cx.gather_rows_plain(buf, ids),
+        "library_ms": lambda: buf.index_select(0, ids.clamp(0, rows - 1))},
+        flush)
+    row = {"phase": "kernel", "name": "gather_rows_bf16", "stream": stream,
+           "rows": rows, "width": D, "dtype": "bfloat16", "ids": n,
+           "valid_ids": n_valid, "bit_equal": True, "max_abs_err": 0.0,
+           **timed,
+           "library_note": "index_select of clamped ids: no zero rows",
+           **bound(n * 4 + n_valid * D * 2 + n * D * 2, 0, F32_FLOPS)}
+    emit(row)
+    if stream == "uniform":
+      main = row
+  for m in K4_EDGE_N:
+    ids = k4_bad_ids(torch, torch.randint(0, rows, (m,), generator=gen,
+                                          device="cuda", dtype=torch.int32),
+                     rows, gen)
+    check(torch.equal(cx.gather_rows(layout, buf, ids),
+                      cx.gather_rows_plain(buf, ids)),
+          f"gather_rows_bf16 n={m}: not bit-equal to the plain version")
+  del buf
+  short = PackedLayout(rows=100_000, width=65)
+  buf = torch.rand(tuple(short.shape), generator=gen, device="cuda").to(
+      torch.bfloat16)
+  ids = torch.randint(-100, short.rows + 100, (n,), generator=gen,
+                      device="cuda", dtype=torch.int32)
+  check(torch.equal(cx.gather_rows(short, buf, ids),
+                    cx.gather_rows_plain(buf, ids, short.stride)),
+        "gather_rows_bf16 stride 65: not bit-equal to the plain version")
+  emit({"phase": "kernel", "name": "gather_rows_bf16", "stream": "edges",
+        "blocks": list(K4_EDGE_N), "strides": [D, 65], "bit_equal": True})
+  del buf
+  torch.cuda.empty_cache()
+  return main
+
+
+def _train_batch(torch, vocab, b: int, seed: int):
+  """One-hot ids uniform over each table, normal features, random labels
+  (``phase_train``'s batch), on the card."""
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  numerical = torch.randn((b, 13), generator=gen, device="cuda")
+  cats = [torch.randint(0, v, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32) for v in vocab]
+  labels = torch.randint(0, 2, (b,), generator=gen, device="cuda").float()
+  return numerical, cats, labels
+
+
+def phase_train_bf16(torch, smi: str) -> dict:
+  """Narrow storage at the MLPerf Criteo-1TB vocabulary on one card
+  (``train_bf16``): ``bench.py``'s sparse step (26 tables of width 128,
+  ``dense_row_threshold=4096``, one-hot ids, SGD 0.1, f32 compute, B =
+  65,536) on tables drawn in bf16 by ``init_sparse_state_direct(dtype=
+  torch.bfloat16)``: 187,767,399 rows, 48.07 GB, where the f32 twin would
+  need 96.1 GB. The plan lifts the TPU's per-buffer element bound
+  (``buffer_elements=None``) so that the largest tables stay whole.
+  Checks K1's bf16 form launches once per sparse class and step, K2 once
+  each way, the losses are finite, sampled rows the batch does not touch
+  stay bit-equal and touched ones move. Returns each kernel's
+  launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab = list(CRITEO_1TB_VOCAB)
+  # five tables of 25.6-40.0 M rows stay whole on the one card: past the
+  # TPU's 2^31-element buffer bound, which the card does not have
+  plan = train_plan(vocab, buffer_elements=None)
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+      dtype=torch.bfloat16)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  check(all(t.dtype == torch.bfloat16 for part in ("fused", "emb_dense")
+            for t in state[part].values()), "train_bf16: a table is not bf16")
+  table_bytes = sum(t.numel() * t.element_size()
+                    for part in ("fused", "emb_dense")
+                    for t in state[part].values())
+  numerical, cats, labels = _train_batch(torch, vocab, TRAIN_BATCH, SEED)
+  key, name, rows = first_sparse_class(plan)
+  touched = torch.zeros((rows,), dtype=torch.bool, device="cuda")
+  for bk, v in DistributedLookup(plan).route_ids(cats).items():
+    if bk.class_key == key:
+      v = v.reshape(-1)
+      touched[v[(v >= 0) & (v < rows)]] = True
+  pick = torch.Generator(device="cuda").manual_seed(SEED + 2)
+  hit = torch.nonzero(touched).squeeze(1)
+  miss = torch.nonzero(~touched).squeeze(1)
+  hit = hit[torch.randperm(hit.numel(), generator=pick,
+                           device="cuda")[:ROWS_SAMPLED]]
+  miss = miss[torch.randperm(miss.numel(), generator=pick,
+                             device="cuda")[:ROWS_SAMPLED]]
+  del touched
+  buf = state["fused"][name]
+  miss_rows = buf[miss].clone()
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                rule)
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows_bf16=n_sparse)
+  totals = expect()
+  ms, losses, changed = [], [], []
+  for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+    hit_rows = buf[hit].clone()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, numerical, cats, labels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = read_counts()
+    check(got == want, f"train_bf16 step {i}: launches {got}, expected "
+          f"{want}")
+    add_counts(totals, got)
+    if i >= TRAIN_WARMUP:
+      ms.append((t1 - t0) * 1e3)
+    losses.append(float(loss))
+    check(np.isfinite(losses[-1]), f"train_bf16 step {i}: loss "
+          f"{losses[-1]}")
+    check(torch.equal(buf[miss], miss_rows),
+          f"train_bf16 step {i}: rows the batch does not touch changed")
+    changed.append((buf[hit] != hit_rows).any(dim=1).float().mean().item())
+  check(max(changed) > 0.0, "train_bf16: no sampled touched row moved")
+  med = statistics.median(ms)
+  emit({"phase": "train_bf16", "card": smi, "batch": TRAIN_BATCH,
+        "vocab": "Criteo-1TB, full", "rows": int(sum(vocab)),
+        "sparse_classes": n_sparse, "table_bytes": table_bytes,
+        "f32_table_bytes": 2 * table_bytes, "compute": "f32",
+        "init_s": init_s, "step_ms": ms, "step_ms_median": med,
+        "samples_per_s": TRAIN_BATCH / (med / 1e3),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": want, "launches": totals, "losses": losses,
+        "touched_rows_changed_share": changed,
+        "untouched_rows_bit_equal": True})
+  del state, buf, step, hit, miss, miss_rows, numerical, cats, labels
+  torch.cuda.empty_cache()
+  return totals
+
+
+def phase_train_bf16_vs_f32(torch, smi: str) -> dict:
+  """The train cell (x 1/16) from one bf16 state and from an f32 state
+  holding the same values: ``NARROW_VS_STEPS`` steps each on the same
+  batches, the losses within ``NARROW_LOSS_RTOL`` (``train_bf16_vs_f32``);
+  K1's bf16 form on the bf16 state, its f32 form on the other. Then the
+  bf16 state saved with ``checkpoint.save`` and restored bit-equal
+  (``bf16_ckpt``: bytes, seconds). Returns each kernel's launches on the
+  bf16 state."""
+  import shutil
+  import tempfile
+
+  import numpy as np
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  narrow = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+      dtype=torch.bfloat16)
+  wide = {"fused": {k: v.float() for k, v in narrow["fused"].items()},
+          "emb_dense": {k: v.detach().float()
+                        for k, v in narrow["emb_dense"].items()},
+          "dense": {k: v.detach().clone() for k, v in narrow["dense"].items()},
+          "step": 0}
+  batches = [_train_batch(torch, vocab, TRAIN_BATCH, SEED + 70 + i)
+             for i in range(NARROW_VS_STEPS)]
+  losses, totals = {}, {}
+  for tag, state, kernel in (("bf16", narrow, "apply_rows_bf16"),
+                             ("f32", wide, "apply_rows")):
+    step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  rule)
+    want = expect(interact_fwd=1, interact_bwd=1, **{kernel: n_sparse})
+    totals[tag] = expect()
+    losses[tag] = []
+    for i, batch in enumerate(batches):
+      reset_counts()
+      state, loss = step(state, *batch)
+      got = read_counts()
+      check(got == want, f"train_bf16_vs_f32 {tag} step {i}: launches "
+            f"{got}, expected {want}")
+      add_counts(totals[tag], got)
+      losses[tag].append(float(loss))
+    check(np.isfinite(losses[tag]).all(), f"train_bf16_vs_f32 {tag}: "
+          f"losses {losses[tag]}")
+  del wide
+  torch.cuda.empty_cache()
+  err = np.abs(np.asarray(losses["bf16"]) - np.asarray(losses["f32"]))
+  rel = float((err / np.abs(np.asarray(losses["f32"]))).max())
+  check(rel <= NARROW_LOSS_RTOL, f"train_bf16_vs_f32: losses differ by "
+        f"{rel} relative (> {NARROW_LOSS_RTOL})")
+  emit({"phase": "train_bf16_vs_f32", "card": smi, "batch": TRAIN_BATCH,
+        "vocab_scale": "1/16", "steps": NARROW_VS_STEPS,
+        "losses_bf16": losses["bf16"], "losses_f32": losses["f32"],
+        "loss_max_rel_err": rel, "loss_rtol": NARROW_LOSS_RTOL,
+        "launches_bf16": totals["bf16"], "launches_f32": totals["f32"]})
+  # the bf16 state through a checkpoint
+  root = tempfile.mkdtemp(prefix="chip_smoke_bf16_ckpt_")
+  path = f"{root}/ckpt"
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  checkpoint.save(path, plan, rule, narrow)
+  save_s = time.perf_counter() - t0
+  nbytes, nfiles = dir_bytes(path)
+  t0 = time.perf_counter()
+  back = checkpoint.restore(path, plan, rule, narrow, device="cuda")
+  torch.cuda.synchronize()
+  restore_s = time.perf_counter() - t0
+  manifest = checkpoint.read_manifest(path)
+  check({m["dtype"] for m in manifest["fused"].values()} == {"bfloat16"},
+        "bf16_ckpt: the manifest's fused dtypes are not bfloat16")
+  for part in ("fused", "emb_dense", "dense"):
+    for k, v in narrow[part].items():
+      check(back[part][k].dtype == v.dtype and torch.equal(
+          back[part][k].detach(), v.detach()),
+            f"bf16_ckpt: {part}/{k} not restored bit-equal")
+  check(back["step"] == narrow["step"], "bf16_ckpt: step not restored")
+  emit({"phase": "bf16_ckpt", "card": smi, "vocab_scale": "1/16",
+        "bytes": nbytes, "files": nfiles, "save_s": save_s,
+        "restore_s": restore_s, "bit_equal": True})
+  shutil.rmtree(root)
+  del narrow, back, batches
+  torch.cuda.empty_cache()
+  return totals["bf16"]
+
+
+def phase_train_bf16_golden(torch) -> None:
+  """The committed JAX narrow-storage golden
+  (``tests/data/torch_train_bf16_golden.npz``) replayed on the card
+  within ``train_golden.compare_bf16``'s bounds."""
+  from distributed_embeddings_torch import train_golden
+  golden = train_golden.load(train_golden.BF16_PATH)
+  losses, got = train_golden.replay_bf16(golden, device="cuda")
+  try:
+    worst = train_golden.compare_bf16(golden, losses, got)
+  except AssertionError as exc:
+    raise SmokeFailure(f"bf16 train golden: {exc}") from exc
+  emit({"phase": "train_bf16_golden", "losses": losses,
+        "want_losses": [float(v) for v in golden["losses"]], **worst,
+        "loss_tol": train_golden.LOSS_TOL,
+        "bf16_ulps": train_golden.BF16_ULPS,
+        "bf16_atol": train_golden.BF16_ATOL,
+        "dense_update_tol": train_golden.BF16_DENSE_UPDATE_TOL})
+
+
+def _input_bounds(torch, plan, state) -> dict:
+  """Per input of a sparse table: ``2^-4 * max|table|``, the fp8 serve
+  error bound of ``tests/test_serving.py::test_fp8_serve_error_bound`` for
+  one-hot ids, from the table's rows in its class buffer (world 1, one
+  fused row a physical row)."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_param_name,
+  )
+  out = {}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    if cp.kind != "sparse":
+      continue
+    buf = state["fused"][class_param_name(*key)]
+    for slot in cp.slots_per_rank[0]:
+      rows = buf[slot.row_offset:slot.row_offset + slot.shard.input_dim,
+                 :cp.width]
+      out[slot.input_id] = 2.0 ** -4 * rows.abs().max().item()
+  return out
+
+
+def phase_serve_fp8(torch, smi: str, setup: dict) -> dict:
+  """fp8 serve images of the serve cell (``serve_fp8``): ``export(...,
+  quantize='fp8')``, ``verify``, ``load``, ``SERVE_REQUESTS`` requests of
+  ``SERVE_BATCH`` through the artifact's engine (K2-fwd once each),
+  bit-equal to the in-memory ``freeze`` engine's; every activation within
+  the JAX package's fp8 bound (``2^-4 * max|table|`` a one-hot input) of
+  the f32 image's; the image's bytes beside the f32 and int8 images'.
+  Returns each kernel's launches in the requests."""
+  import shutil
+  import tempfile
+
+  import numpy as np
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      export,
+      freeze,
+      load,
+      make_serve_step,
+      shard_batch,
+  )
+  from distributed_embeddings_torch.serving.export import serve_class_meta
+  from distributed_embeddings_torch.serving.golden import EmbActs
+
+  plan, rule, model = setup["plan"], setup["rule"], setup["model"]
+  state, requests = setup["state"], setup["requests"]
+  root = tempfile.mkdtemp(prefix="chip_smoke_serve_fp8_")
+  path = f"{root}/artifact"
+  t0 = time.perf_counter()
+  export(path, plan, rule, state, quantize="fp8", extra={"cell": "serve"})
+  export_s = time.perf_counter() - t0
+  nbytes, nfiles = dir_bytes(path)
+  check(checkpoint.verify(path) == [], "serve_fp8: verify found problems")
+  t0 = time.perf_counter()
+  art = load(path, plan, device="cuda")
+  torch.cuda.synchronize()
+  load_s = time.perf_counter() - t0
+  image_bytes = {q: sum(m.packed.phys_rows * m.packed.phys_width *
+                        (4 if q == "f32" else 1)
+                        for m in serve_class_meta(plan, rule, q)[0].values())
+                 for q in ("f32", "int8", "fp8")}
+  got_bytes = sum(t.numel() * t.element_size()
+                  for t in art.state["serve"].values())
+  check(got_bytes == image_bytes["fp8"], f"serve_fp8: {got_bytes} image "
+        f"bytes, the layout says {image_bytes['fp8']}")
+  eng = ServeEngine(model, plan, art, device="cuda")
+  reset_counts()
+  preds, ms = [], []
+  for numerical, cats in requests:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds.append(eng.predict(numerical, cats))
+    ms.append((time.perf_counter() - t0) * 1e3)
+  got = read_counts()
+  want = expect(interact_fwd=SERVE_REQUESTS)
+  check(got == want, f"serve_fp8: launches {got}, expected {want}")
+  frozen = ServeEngine(model, plan, freeze(plan, rule, state, "fp8"),
+                       device="cuda")
+  wide = ServeEngine(model, plan, freeze(plan, rule, state, "f32"),
+                     device="cuda")
+  bounds = _input_bounds(torch, plan, state)
+  acts8 = make_serve_step(EmbActs(), plan, eng.meta)
+  acts32 = make_serve_step(EmbActs(), plan, wide.meta)
+  worst = 0.0
+  for i, (numerical, cats) in enumerate(requests):
+    p = preds[i]
+    check(p.shape == (SERVE_BATCH,) and np.isfinite(p).all(),
+          "serve_fp8: predictions not finite")
+    check(np.array_equal(frozen.predict(numerical, cats).view(np.int32),
+                         p.view(np.int32)),
+          f"serve_fp8 request {i}: the artifact engine differs from the "
+          "FrozenTables engine")
+    num_d, cats_d = shard_batch((numerical, tuple(cats)), None, "cuda")
+    with torch.inference_mode():
+      a8 = acts8(eng.state, num_d, cats_d).float()
+      a32 = acts32(wide.state, num_d, cats_d).float()
+    for f in range(a8.shape[0]):
+      err = (a8[f] - a32[f]).abs().max().item()
+      lim = bounds.get(f, 0.0) + 1e-6
+      check(err <= lim, f"serve_fp8 request {i} input {f}: off the f32 "
+            f"image by {err} > {lim}")
+      if f in bounds:
+        worst = max(worst, err / lim)
+  emit({"phase": "serve_fp8", "card": smi, "batch": SERVE_BATCH,
+        "requests": SERVE_REQUESTS, "request_ms": ms,
+        "p50_ms": statistics.median(ms), "image_bytes": image_bytes,
+        "artifact_bytes": nbytes, "files": nfiles, "export_s": export_s,
+        "load_s": load_s, "bit_equal_frozen": True,
+        "acts_max_share_of_fp8_bound": worst, "launches": got})
+  shutil.rmtree(root)
+  del art, eng, frozen, wide
+  torch.cuda.empty_cache()
+  return got
+
+
+def _w4_narrow(torch, mesh, backend: str, outdir: str) -> dict:
+  """Narrow storage at world 4 on every rank (``world4_bf16``): the
+  world-4 plan x 1/16 (both backends) in bf16, SGD from one state under
+  ``'none'``, ``'pipelined'`` and ``'fused'`` (``W4_NARROW_STEPS`` steps
+  each; K4's bf16 form ``k4_launches_per_step`` times a fused step, K1's
+  bf16 form once per class), the first step's losses bit-equal and its
+  buffers bit-equal to ``'none'``'s on rows fewer than two ids hit (within
+  ``hits * BF16_DUP_ULP`` of the cell's magnitude on the others, where
+  K1's atomics order the adds); one Adagrad step under ``'fused'``; then the
+  SGD state's fp8 images served in lockstep (export, load, requests),
+  equal on every rank and bit-equal to the in-memory ``freeze``
+  engine's."""
+  import os
+  import shutil
+
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import (
+      adagrad_rule,
+      sgd_rule,
+  )
+  from distributed_embeddings_torch.parallel.wire import gather_blocks
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      export,
+      freeze,
+      load,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  dev = mesh.device
+  out = {"runs": {}}
+  model = DLRM(world4_plan("gloo")[0], D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+
+  def fresh(overlap, rule):
+    vocab, plan = world4_plan("gloo", overlap)  # x 1/16 on both backends
+    state = init_sparse_state_direct(
+        plan, rule, model.state_dict(), sgd_factory(torch),
+        torch.Generator(device=dev).manual_seed(SEED + 1 + mesh.rank),
+        mesh=mesh, dtype=torch.bfloat16)
+    return vocab, plan, state
+
+  rule = sgd_rule(TRAIN_LR)
+  batch = w4_batch(torch, world4_plan("gloo")[0], mesh)
+  base = None
+  for overlap in ("none", "pipelined", "fused"):
+    vocab, plan, state = fresh(overlap, rule)
+    touch = _w4_touch_counts(torch, plan, mesh, batch[1], state)
+    step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  rule, mesh=mesh)
+    k4 = k4_launches_per_step(plan) if overlap == "fused" else 0
+    want = expect(gather_rows_bf16=k4, apply_rows_bf16=len(state["fused"]),
+                  interact_fwd=1, interact_bwd=1)
+    totals = expect()
+    ms, losses = [], []
+    for i in range(W4_NARROW_STEPS):
+      reset_counts()
+      torch.cuda.synchronize(dev)
+      t0 = time.perf_counter()
+      state, loss = step(state, *batch)
+      torch.cuda.synchronize(dev)
+      ms.append((time.perf_counter() - t0) * 1e3)
+      got = read_counts()
+      check(got == want, f"world4_bf16 {overlap} rank {mesh.rank} step {i}: "
+            f"launches {got}, expected {want}")
+      add_counts(totals, got)
+      losses.append(float(loss))
+      check(np.isfinite(losses[-1]), f"world4_bf16 {overlap}: loss "
+            f"{losses[-1]}")
+      if i == 0:
+        first = {k: v.clone() for k, v in state["fused"].items()}
+    if base is None:
+      base = (losses[0], first)
+    else:
+      check(losses[0] == base[0], f"world4_bf16: {overlap}'s first loss "
+            f"{losses[0]} != none's {base[0]}")
+      for name, buf in first.items():
+        other = base[1][name]
+        bad = (buf != other).any(dim=1)
+        check(not bool((bad & (touch[name] < 2)).any().item()),
+              f"world4_bf16 {overlap} {name}: a row fewer than two ids hit "
+              "differs from none's")
+        if bool(bad.any().item()):
+          a, b = buf[bad].float(), other[bad].float()
+          lim = touch[name][bad][:, None].float() * BF16_DUP_ULP * \
+              torch.maximum(a.abs(), b.abs()) + 2.0 ** -24
+          check(bool(((a - b).abs() <= lim).all().item()),
+                f"world4_bf16 {overlap} {name}: duplicate rows off "
+                "none's beyond hits * 3 * 2^-8")
+    out["runs"][overlap] = {"step_ms": ms, "losses": losses,
+                            "launches": totals, "launches_per_step": want}
+    del first, touch, step
+    if overlap != "fused":
+      del state
+      torch.cuda.empty_cache()
+  # one Adagrad step under the fused schedule
+  ada = adagrad_rule(0.01)
+  vocab, plan, astate = fresh("fused", ada)
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                ada, mesh=mesh)
+  reset_counts()
+  astate, loss = step(astate, *batch)
+  got = read_counts()
+  want = expect(gather_rows_bf16=k4_launches_per_step(plan, ada),
+                apply_rows_bf16=len(astate["fused"]), interact_fwd=1,
+                interact_bwd=1)
+  check(got == want, f"world4_bf16 adagrad rank {mesh.rank}: launches {got}, "
+        f"expected {want}")
+  check(np.isfinite(float(loss)), "world4_bf16 adagrad: loss not finite")
+  out["adagrad"] = {"loss": float(loss), "launches": got}
+  del astate, step
+  torch.cuda.empty_cache()
+  # the SGD state's fp8 images, served in lockstep
+  rng = np.random.default_rng(SEED + 5)
+  requests = [(rng.standard_normal((SERVE_BATCH, 13)).astype(np.float32),
+               [rng.integers(0, v, SERVE_BATCH).astype(np.int32)
+                for v in vocab]) for _ in range(SERVE_REQUESTS)]
+  path = os.path.join(outdir, "serve_fp8")
+  export(path, plan, rule, state, quantize="fp8", mesh=mesh)
+  eng = ServeEngine(model, plan, load(path, plan, mesh=mesh), mesh=mesh)
+  frozen = ServeEngine(model, plan, freeze(plan, rule, state, "fp8",
+                                           mesh=mesh), mesh=mesh)
+  reset_counts()
+  preds, ms = [], []
+  for numerical, cats in requests:
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    preds.append(eng.predict(numerical, cats))
+    ms.append((time.perf_counter() - t0) * 1e3)
+  serve_launches = read_counts()
+  want = expect(interact_fwd=SERVE_REQUESTS)
+  check(serve_launches == want, f"world4 fp8 serve rank {mesh.rank}: "
+        f"launches {serve_launches}, expected {want}")
+  for i, ((numerical, cats), p) in enumerate(zip(requests, preds)):
+    check(p.shape == (SERVE_BATCH,) and np.isfinite(p).all(),
+          "world4 fp8 serve: predictions not finite")
+    every = gather_blocks(torch.from_numpy(p).to(dev), mesh).cpu().numpy()
+    check(all(np.array_equal(every[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+                             .view(np.int32), p.view(np.int32))
+              for r in range(WORLD)),
+          f"world4 fp8 serve request {i}: the ranks' predictions differ")
+    check(np.array_equal(frozen.predict(numerical, cats).view(np.int32),
+                         p.view(np.int32)),
+          f"world4 fp8 serve request {i}: the artifact engine differs from "
+          "the FrozenTables engine")
+  torch.distributed.barrier()
+  if mesh.rank == 0:
+    shutil.rmtree(path)
+  out["serve_fp8"] = {"request_ms": ms, "launches": serve_launches,
+                      "serve_bytes": sum(
+                          t.numel() * t.element_size()
+                          for t in eng.state["serve"].values())}
+  del state, eng, frozen, batch
+  torch.cuda.empty_cache()
+  return out
+
+
+def emit_narrow_world4(backend: str, smi: str, narrow: list) -> dict:
+  """The ``world4_bf16`` and ``serve_world4_fp8`` lines from the ranks'
+  :func:`_w4_narrow` results; returns each kernel's launches summed over
+  the ranks and runs (the fp8 requests' too)."""
+  totals = expect()
+  for r in narrow:
+    for run in r["runs"].values():
+      add_counts(totals, run["launches"])
+    add_counts(totals, r["adagrad"]["launches"])
+    add_counts(totals, r["serve_fp8"]["launches"])
+  emit({"phase": "world4_bf16", "backend": backend, "card": smi,
+        "vocab_scale": "1/16", "global_batch": W4_BATCH,
+        "steps": W4_NARROW_STEPS,
+        "step_ms_by_schedule": {o: [r["runs"][o]["step_ms"] for r in narrow]
+                                for o in narrow[0]["runs"]},
+        "losses_by_schedule": {o: narrow[0]["runs"][o]["losses"]
+                               for o in narrow[0]["runs"]},
+        "launches_per_step_per_rank": {
+            o: narrow[0]["runs"][o]["launches_per_step"]
+            for o in narrow[0]["runs"]},
+        "first_step_fused_vs_none": "bit-equal off duplicate rows",
+        "adagrad_loss": narrow[0]["adagrad"]["loss"],
+        "adagrad_launches_per_rank": narrow[0]["adagrad"]["launches"],
+        "wall_s_by_rank": [r["wall_s"] for r in narrow]})
+  emit({"phase": "serve_world4_fp8", "backend": backend, "card": smi,
+        "vocab_scale": "1/16", "global_batch": SERVE_BATCH,
+        "requests": SERVE_REQUESTS,
+        "request_ms_by_rank": [r["serve_fp8"]["request_ms"] for r in narrow],
+        "serve_bytes_per_rank": [r["serve_fp8"]["serve_bytes"]
+                                 for r in narrow],
+        "ranks_equal": True, "bit_equal_frozen": True,
+        "launches_per_rank": narrow[0]["serve_fp8"]["launches"]})
+  return totals
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
-  return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
+  source = BF16_FORMS.get(name, name)
+  return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}.cu",
           "replaces": REPLACES[name], "launches": launches,
           "launches_by_path": by_path, "max_abs_err": row["max_abs_err"],
           "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -6430,9 +7230,9 @@ def main() -> int:
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda})
   check(cap == (9, 0), f"compute capability {cap}, not (9, 0)")
-  check(set(COUNTERS) == set(_build.KERNELS),
+  check(set(COUNTERS) == set(_build.KERNELS) | set(BF16_FORMS),
         f"launch counters for {sorted(COUNTERS)}, kernels "
-        f"{sorted(_build.KERNELS)}")
+        f"{sorted(_build.KERNELS)} and the bf16 forms {sorted(BF16_FORMS)}")
 
   t0 = time.perf_counter()
   _build.build_all(_build.KERNELS)
@@ -6454,7 +7254,10 @@ def main() -> int:
       torch, ca, flush, first_sparse_class(train_plan())[2])
   torch.cuda.empty_cache()
   phase_kernel_apply_zoo(torch, ca, flush)
+  rows["apply_rows_bf16"] = phase_kernel_apply_bf16(
+      torch, ca, flush, first_sparse_class(train_plan())[2])
   rows["gather_rows"] = phase_kernel_gather(torch, cx, flush)
+  rows["gather_rows_bf16"] = phase_kernel_gather_bf16(torch, cx, flush)
   rows["gather_send_rows"] = phase_kernel_send(torch, cx, flush)
   rows["build_delta_rows"] = phase_kernel_delta(torch, cd, flush)
   phase_kernel_sliced(torch, ca, cd, flush)
@@ -6468,6 +7271,7 @@ def main() -> int:
   phase_zoo_golden(torch)
   phase_dense_golden(torch)
   phase_ragged_golden(torch)
+  phase_train_bf16_golden(torch)
 
   # every path's counts, each read from all nine counters just after the
   # path ran with them set to 0 just before
@@ -6478,10 +7282,17 @@ def main() -> int:
                                                         frozen_preds)
   by_path["serve_batcher"] = phase_serve_batcher(torch, smi, eng,
                                                  setup["vocab"])
-  del eng, setup, frozen_preds
+  del eng, frozen_preds
+  torch.cuda.empty_cache()
+  by_path["serve_fp8"] = phase_serve_fp8(torch, smi, setup)
+  del setup
   torch.cuda.empty_cache()
   for compute in ("f32", "bf16"):
     by_path[f"train_{compute}"] = phase_train(torch, smi, compute)
+  torch.cuda.empty_cache()
+  # narrow storage: the full Criteo-1TB vocabulary in bf16 on this card
+  by_path["train_bf16_tables"] = phase_train_bf16(torch, smi)
+  by_path["train_bf16_vs_f32"] = phase_train_bf16_vs_f32(torch, smi)
   torch.cuda.empty_cache()
   for compute in ("f32", "bf16"):
     by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
@@ -6521,6 +7332,12 @@ def main() -> int:
   for name in ("interact_fwd", "interact_bwd"):
     check(by_path["train_dense_world4"][name] > 0,
           f"the world-4 dense path never launched {name}")
+  for path, name in (("train_bf16_tables", "apply_rows_bf16"),
+                     ("train_bf16_vs_f32", "apply_rows_bf16"),
+                     ("world4_bf16", "apply_rows_bf16"),
+                     ("world4_bf16", "gather_rows_bf16"),
+                     ("serve_fp8", "interact_fwd")):
+    check(by_path[path][name] > 0, f"the {path} path never launched {name}")
   dlrm_sparse = ("interact_fwd", "interact_bwd", "apply_rows")
   for path, names in (("train_ckpt", dlrm_sparse),
                       ("dlrm_main_sparse", dlrm_sparse),
@@ -6550,7 +7367,7 @@ def main() -> int:
       kernel_entry(name, rows[name],
                    sum(p[name] for p in by_path.values()),
                    {path: p[name] for path, p in by_path.items()})
-      for name in _build.KERNELS]})
+      for name in list(_build.KERNELS) + list(BF16_FORMS)]})
   print(smi, flush=True)
   emit({"ok": True, "device": {"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import hostarrays
 from .device import resolve_device
 from .parallel.lookup_engine import (
     DistributedLookup,
@@ -172,11 +173,15 @@ def _legacy_problems(path: str, manifest: Dict[str, Any]) -> List[str]:
   return problems
 
 
-def _host(leaf) -> np.ndarray:
-  """A tensor (on any device) or array leaf as a host numpy array
-  (``.cpu()`` first: ``np.asarray`` of a CUDA tensor raises)."""
+def _host(leaf):
+  """A tensor (on any device) or array leaf on the host, for the npy and
+  npz writers: f32 and integer tensors as numpy arrays (``.cpu()`` first:
+  ``np.asarray`` of a CUDA tensor raises), bf16 tensors as host tensors
+  (``hostarrays`` writes their bits under the JAX package's ``'<V2'``
+  descr)."""
   if isinstance(leaf, torch.Tensor):
-    return leaf.detach().cpu().numpy()
+    leaf = leaf.detach().cpu()
+    return leaf if leaf.dtype == torch.bfloat16 else leaf.numpy()
   return np.asarray(leaf)
 
 
@@ -387,7 +392,10 @@ def blocks_on_root(block: torch.Tensor, mesh) -> Optional[np.ndarray]:
   buf = torch.empty_like(block)
   for src in range(1, mesh.world):
     dist.recv(buf, src=src)
-    parts.append(_host(buf).copy())  # buf is received into again
+    got = _host(buf)  # buf is received into again: copy
+    parts.append(got.clone() if isinstance(got, torch.Tensor) else got.copy())
+  if isinstance(parts[0], torch.Tensor):
+    return torch.cat(parts)
   return np.concatenate(parts)
 
 
@@ -405,10 +413,11 @@ def _npz_parts(state: Dict[str, Any], mesh, rank: Optional[int]
       dense_state_dict_to_flax,
       optax_state_of,
   )
-  # the optimizers' states are keyed by the state's own tensors
+  from .training import trained_tables
+  # the optimizers' states are keyed by the tensors they update
   dense = state["dense"]
   emb_dense = state["emb_dense"]
-  emb_opt = optax_state_of(state.get("emb_dense_opt"), emb_dense)
+  emb_opt = optax_state_of(state.get("emb_dense_opt"), trained_tables(state))
   if not emb_dense:
     # no dense-class tables: the JAX state keeps the optax state of an
     # empty tree (a schedule's count, which never advances there)
@@ -516,14 +525,16 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
               f"{tuple(block.shape)}, the layout "
               f"{(layout.phys_rows, layout.phys_width)}")
         fpath = os.path.join(tmp, f"fused_{name}_r{r}.npy")
-        np.save(fpath, _host(block))  # one rank block on the host at a time
+        # one rank block on the host at a time
+        hostarrays.save_npy(fpath, _host(block))
         _seal(fpath)
       fused_meta[name] = {"phys_rows": int(layout.phys_rows),
                           "phys_width": int(layout.phys_width),
-                          "dtype": str(np.dtype(np.float32))}
+                          # the JAX package's numpy dtype name
+                          "dtype": str(buf.dtype).replace("torch.", "")}
     for part, flat in parts.items():
       fpath = os.path.join(tmp, f"{part}.npz")
-      np.savez(fpath, **flat)
+      hostarrays.savez(fpath, flat)
       _seal(fpath)
     with open(os.path.join(tmp, f"DONE_p{me}"), "w") as f:
       json.dump(local_crcs, f)  # the marker carries this writer's crcs
@@ -683,6 +694,14 @@ def _check_manifest(manifest: Dict[str, Any], plan, rule,
           "rule differ from the saving run")
 
 
+def _block_tensor(arr: np.ndarray, bf16: bool) -> torch.Tensor:
+  """A fused block read from disk as a host tensor (bf16 blocks by their
+  bits)."""
+  if bf16:
+    return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+  return torch.from_numpy(arr)
+
+
 def _read_npz(path: str, part: str) -> Dict[str, np.ndarray]:
   with np.load(os.path.join(path, f"{part}.npz")) as z:
     return {k: np.asarray(v) for k, v in z.items()}
@@ -756,8 +775,11 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   fused = {}
   ranks = range(plan.world_size) if rank is None else [rank]
   for name in layouts:
-    blocks = [torch.from_numpy(np.load(
-        os.path.join(path, f"fused_{name}_r{r}.npy"), mmap_mode="c"))
+    # a bf16 block reads back as 2-byte voids: viewed by the manifest's
+    # dtype (the JAX package's own restore cannot read it, ROADMAP.md §3)
+    bf16 = manifest["fused"][name].get("dtype") == "bfloat16"
+    blocks = [_block_tensor(np.load(
+        os.path.join(path, f"fused_{name}_r{r}.npy"), mmap_mode="c"), bf16)
         for r in ranks]
     host = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
     fused[name] = host.to(dev, copy=True)
@@ -790,7 +812,7 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
           f"expected {rows * plan.world_size} rows of "
           f"{tuple(emb_like[name].shape[1:])}")
     tables[name] = arr[lo:hi]
-  emb_dense = {k: torch.from_numpy(tables[k].copy()).to(dev)
+  emb_dense = {k: hostarrays.tensor_of(tables[k]).to(dev)
                for k in emb_like}
 
   emb_opt_flat = _read_npz(path, "emb_dense_opt")

@@ -21,7 +21,9 @@ its ``jax.Array`` leaves into numpy first; this module imports no JAX):
   (``{'fused', 'emb_dense', 'dense', 'dense_opt', 'emb_dense_opt',
   'step'}``) -> the state the port's ``training.make_sparse_train_step``
   steps and ``serving.freeze`` freezes (:func:`zoo_train_state_from_flax`
-  for the synthetic zoo);
+  for the synthetic zoo); :func:`train_state_to_flax` is the way back.
+  bf16 leaves (narrow storage, ``ml_dtypes.bfloat16`` arrays) cross as
+  their bits (``hostarrays``: no ``ml_dtypes`` import);
 - :func:`optax_state_of` and :func:`install_optax_state`: a dense
   optimizer's state both ways between the port's ``torch.optim``
   optimizers and optax's, flattened in the JAX package's path spelling
@@ -42,12 +44,13 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .hostarrays import numpy_of, tensor_of
 from .serving.export import FrozenTables, ServeClassMeta
 from .training import Adagrad, OptaxState, ScheduledSGD, shard_params
 
 
 def _tensor(x) -> torch.Tensor:
-  return torch.tensor(np.asarray(x))
+  return tensor_of(x)
 
 
 def _mlps_state_dict(params: Dict[str, Any], mlps
@@ -400,6 +403,25 @@ def train_state_from_flax(state: Dict[str, Any], device="cuda",
   }
 
 
+def train_state_to_flax(state: Dict[str, Any],
+                        dense_state_dict: Callable = dense_state_dict_to_flax
+                        ) -> Dict[str, Any]:
+  """The port's train state -> the JAX package's ``{'fused', 'emb_dense',
+  'dense', 'step'}`` as numpy on the host (the way back of
+  :func:`train_state_from_flax`, optimizer states aside: see
+  :func:`optax_state_of`). bf16 buffers and tables come back as their
+  ``uint16`` bits (``.view(ml_dtypes.bfloat16)`` on the JAX side); the
+  dense parameters as the flax tree (``dense_state_dict``: picked by
+  model family by default)."""
+  return {
+      "fused": {k: numpy_of(v) for k, v in state["fused"].items()},
+      "emb_dense": {k: numpy_of(v) for k, v in state["emb_dense"].items()},
+      "dense": dense_state_dict({k: v.detach().cpu()
+                                 for k, v in state["dense"].items()}),
+      "step": np.asarray(int(state.get("step", 0)), np.int32),
+  }
+
+
 def zoo_train_state_from_flax(state: Dict[str, Any], device="cuda",
                               mesh=None) -> Dict[str, Any]:
   """A JAX sparse train state of a ``SyntheticModel`` (e.g. from
@@ -407,6 +429,12 @@ def zoo_train_state_from_flax(state: Dict[str, Any], device="cuda",
   as :func:`train_state_from_flax`."""
   return train_state_from_flax(state, device, mesh,
                                synthetic_state_dict_from_flax)
+
+
+def _image_bytes(t: torch.Tensor) -> torch.Tensor:
+  """An fp8 serve image (``ml_dtypes.float8_e4m3fn`` on the JAX side) as
+  the port holds it, its int8 bytes; other images pass through."""
+  return t.view(torch.int8) if t.dtype == torch.float8_e4m3fn else t
 
 
 def serve_state_from_frozen(frozen) -> FrozenTables:
@@ -421,7 +449,7 @@ def serve_state_from_frozen(frozen) -> FrozenTables:
       for name, m in frozen.meta.items()}
   return FrozenTables(
       quantize=frozen.quantize, step=int(frozen.step), meta=meta,
-      device_blocks={name: [_tensor(b) for b in blocks]
+      device_blocks={name: [_image_bytes(_tensor(b)) for b in blocks]
                      for name, blocks in frozen.device_blocks.items()},
       dense=dlrm_state_dict_from_flax(frozen.dense),
       emb_dense={k: _tensor(v) for k, v in frozen.emb_dense.items()})

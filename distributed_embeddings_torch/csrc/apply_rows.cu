@@ -51,7 +51,25 @@
 // multiply and one add per element are far below any compute rate, so the
 // kernel is memory-bound; the design reads each delta byte once, with
 // kUnroll 512-byte rows in flight per warp.
+//
+// The bf16 form (apply_rows_bf16_launch; narrow storage) takes a bf16
+// buffer and bf16 deltas and keeps the tile sort. The JAX package applies
+// bf16 buffers with XLA's scatter (ops/packed_table.py: scatter_add_fused):
+// the delta cast to bf16, the scale cast to bf16 and multiplied in bf16,
+// then each occurrence added in bf16. So here the scale is rounded to bf16,
+// each product (exact in f32: two 8-bit significands) is rounded to bf16
+// once, a run of one id sums those in f32 in registers, and the run's sum,
+// rounded to bf16, goes into the row with two bf16x2 atomics per lane
+// (Hopper's native atom.add.noftz.bf16x2, round to nearest even). An id
+// seen once in its warp's range therefore gives
+// bf16(buf + bf16(bf16(scale) * d)), the plain version's and XLA's bits; a
+// run of duplicates rounds once where XLA rounds once per occurrence. Each
+// lane owns 4 bf16 values (8 bytes) of a 128-lane chunk, so a warp still
+// covers 128 lanes and the plan is the f32 form's: per occurrence the
+// bound reads 8 B of id and 2 * width B of delta, per distinct row 4 *
+// width B (the row read and written).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,20 +116,65 @@ __device__ __forceinline__ unsigned slot_hash(int key, int slots_log2) {
   return (static_cast<unsigned>(key) * 0x9E3779B1u) >> (32 - slots_log2);
 }
 
-__device__ __forceinline__ float4 scaled(float s, float4 d) {
-  return make_float4(__fmul_rn(s, d.x), __fmul_rn(s, d.y), __fmul_rn(s, d.z),
-                     __fmul_rn(s, d.w));
+// Element access of the two forms: 4 consecutive values of a row as a
+// float4 (f32: one 16-byte load; bf16: one 8-byte load, widened exactly),
+// the rounded product of one occurrence, and the run's atomic add.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  __device__ static float scale_of(float s) { return s; }
+  __device__ static float4 load4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static float4 scaled(float s, float4 d) {
+    return make_float4(__fmul_rn(s, d.x), __fmul_rn(s, d.y),
+                       __fmul_rn(s, d.z), __fmul_rn(s, d.w));
+  }
+  __device__ static void add_row4(float* p, float4 v) {
+    atomicAdd(reinterpret_cast<float4*>(p), v);
+  }
+};
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+template <>
+struct Elem<__nv_bfloat16> {
+  __device__ static float scale_of(float s) { return bf16_round(s); }
+  __device__ static float4 load4(const __nv_bfloat16* p) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  __device__ static float4 scaled(float s, float4 d) {
+    return make_float4(bf16_round(__fmul_rn(s, d.x)),
+                       bf16_round(__fmul_rn(s, d.y)),
+                       bf16_round(__fmul_rn(s, d.z)),
+                       bf16_round(__fmul_rn(s, d.w)));
+  }
+  __device__ static void add_row4(__nv_bfloat16* p, float4 v) {
+    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+    atomicAdd(q, __floats2bfloat162_rn(v.x, v.y));
+    atomicAdd(q + 1, __floats2bfloat162_rn(v.z, v.w));
+  }
+};
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-apply_tiles_kernel(float* __restrict__ buf, int rows, int width,
+apply_tiles_kernel(T* __restrict__ buf, int rows, int width,
                    const int64_t* __restrict__ ids,
-                   const float* __restrict__ delta, int64_t n,
+                   const T* __restrict__ delta, int64_t n,
                    const float* __restrict__ scale_ptr, float scale_val,
                    int tile_log2) {
   extern __shared__ int smem[];
@@ -222,9 +285,10 @@ apply_tiles_kernel(float* __restrict__ buf, int rows, int width,
   if (lo >= hi) {
     return;
   }
-  const float s = (scale_ptr != nullptr) ? *scale_ptr : scale_val;
-  const float* dbase = delta + t0 * width + 4 * lane;
-  float* bbase = buf + 4 * lane;
+  const float s =
+      Elem<T>::scale_of((scale_ptr != nullptr) ? *scale_ptr : scale_val);
+  const T* dbase = delta + t0 * width + 4 * lane;
+  T* bbase = buf + 4 * lane;
   for (int c = 0; c < width; c += kLanes) {
     int cur = -1;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -236,8 +300,8 @@ apply_tiles_kernel(float* __restrict__ buf, int rows, int width,
         k[u] = -1;
         if (b + u < hi) {
           k[u] = skey[b + u];
-          v[u] = __ldg(reinterpret_cast<const float4*>(
-              dbase + static_cast<int64_t>(socc[b + u]) * width + c));
+          v[u] = Elem<T>::load4(dbase +
+                                static_cast<int64_t>(socc[b + u]) * width + c);
         }
       }
 #pragma unroll
@@ -245,23 +309,20 @@ apply_tiles_kernel(float* __restrict__ buf, int rows, int width,
         if (k[u] < 0) {
           break;
         }
-        const float4 p = scaled(s, v[u]);
+        const float4 p = Elem<T>::scaled(s, v[u]);
         if (k[u] == cur) {
           acc = add4(acc, p);
         } else {
           if (cur >= 0) {
-            atomicAdd(reinterpret_cast<float4*>(
-                          bbase + static_cast<int64_t>(cur) * width + c),
-                      acc);
+            Elem<T>::add_row4(bbase + static_cast<int64_t>(cur) * width + c,
+                              acc);
           }
           cur = k[u];
           acc = p;
         }
       }
     }
-    atomicAdd(reinterpret_cast<float4*>(
-                  bbase + static_cast<int64_t>(cur) * width + c),
-              acc);
+    Elem<T>::add_row4(bbase + static_cast<int64_t>(cur) * width + c, acc);
   }
 }
 
@@ -292,15 +353,12 @@ extern "C" int apply_rows_plan(int64_t n, int* out) {
   return 0;
 }
 
-// buf: [rows, width] f32, contiguous, 16-byte aligned, width % 128 == 0,
-// rows < 2^31; ids: [n] int64; delta: [n, width] f32, contiguous, 16-byte
-// aligned. scale_ptr: a device pointer to one f32 multiplier, or null to
-// use scale_val. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
-extern "C" int apply_rows_launch(void* buf, int64_t rows, int width,
-                                 const void* ids, const void* delta, int64_t n,
-                                 const void* scale_ptr, float scale_val,
-                                 void* stream) {
+namespace {
+
+template <typename T>
+int launch(void* buf, int64_t rows, int width, const void* ids,
+           const void* delta, int64_t n, const void* scale_ptr,
+           float scale_val, void* stream) {
   if (rows < 0 || rows > 0x7fffffffLL || width <= 0 || width % kLanes != 0 ||
       n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -320,16 +378,42 @@ extern "C" int apply_rows_launch(void* buf, int64_t rows, int width,
   }
   if (p.smem > 48 * 1024) {
     e = static_cast<int>(cudaFuncSetAttribute(
-        apply_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        apply_tiles_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         p.smem));
     if (e != 0) {
       return e;
     }
   }
-  apply_tiles_kernel<<<static_cast<unsigned>(blocks), kThreads, p.smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(buf), static_cast<int>(rows), width,
-      static_cast<const int64_t*>(ids), static_cast<const float*>(delta), n,
+  apply_tiles_kernel<T><<<static_cast<unsigned>(blocks), kThreads, p.smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(buf), static_cast<int>(rows), width,
+      static_cast<const int64_t*>(ids), static_cast<const T*>(delta), n,
       static_cast<const float*>(scale_ptr), scale_val, p.tile_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// buf: [rows, width] f32, contiguous, 16-byte aligned, width % 128 == 0,
+// rows < 2^31; ids: [n] int64; delta: [n, width] f32, contiguous, 16-byte
+// aligned. scale_ptr: a device pointer to one f32 multiplier, or null to
+// use scale_val. Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
+extern "C" int apply_rows_launch(void* buf, int64_t rows, int width,
+                                 const void* ids, const void* delta, int64_t n,
+                                 const void* scale_ptr, float scale_val,
+                                 void* stream) {
+  return launch<float>(buf, rows, width, ids, delta, n, scale_ptr, scale_val,
+                       stream);
+}
+
+// The bf16 form: buf [rows, width] and delta [n, width] bf16, contiguous,
+// 8-byte aligned; the rest as apply_rows_launch (the f32 scale is rounded
+// to bf16 in the kernel).
+extern "C" int apply_rows_bf16_launch(void* buf, int64_t rows, int width,
+                                      const void* ids, const void* delta,
+                                      int64_t n, const void* scale_ptr,
+                                      float scale_val, void* stream) {
+  return launch<__nv_bfloat16>(buf, rows, width, ids, delta, n, scale_ptr,
+                               scale_val, stream);
 }

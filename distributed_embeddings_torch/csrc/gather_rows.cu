@@ -39,19 +39,39 @@
 // TLB's reach or in sorted order change nothing, and a contiguous copy of
 // the same bytes takes nearly as long (chip_smoke.py's K4 yardsticks).
 
+// The bf16 form (gather_rows_bf16_launch; narrow storage) moves 2-byte
+// lanes with the same geometry: a warp still covers 128 lanes, each lane 4
+// of them (8 bytes, one uint2) when the stride is a multiple of 4, so its
+// bound is half the f32 form's bytes a row plus the id. The JAX package
+// gathers non-f32 buffers with XLA (its Pallas gather takes f32); a gather
+// is the same bits whichever route it takes.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 128;  // f32 lanes one warp covers (32 x 4)
+constexpr int kLanes = 128;  // lanes one warp covers (32 x 4)
 
-template <bool kVec>
+// four consecutive lanes of a row as one load: 16 bytes of f32, 8 of bf16
+// (moved as raw 16-bit words)
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+template <>
+struct Vec4<uint16_t> {
+  using type = uint2;
+};
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const float* __restrict__ buf, int64_t rows, int pitch,
+gather_rows_kernel(const T* __restrict__ buf, int64_t rows, int pitch,
                    int stride, const int32_t* __restrict__ ids, int64_t n,
-                   float* __restrict__ out) {
+                   T* __restrict__ out) {
   const int chunks = (stride + kLanes - 1) / kLanes;
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
@@ -67,17 +87,17 @@ gather_rows_kernel(const float* __restrict__ buf, int64_t rows, int pitch,
   }
   const int64_t r = __ldg(ids + j);
   const bool valid = r >= 0 && r < rows;
-  float* dst = out + j * stride + col;
-  const float* src = buf + (valid ? r : 0) * pitch + col;
+  T* dst = out + j * stride + col;
+  const T* src = buf + (valid ? r : 0) * pitch + col;
   if (kVec) {  // stride % 4 == 0: the four lanes lie inside the row
-    *reinterpret_cast<float4*>(dst) =
-        valid ? __ldg(reinterpret_cast<const float4*>(src))
-              : make_float4(0.f, 0.f, 0.f, 0.f);
+    using V = typename Vec4<T>::type;
+    *reinterpret_cast<V*>(dst) =
+        valid ? __ldg(reinterpret_cast<const V*>(src)) : V{};
     return;
   }
   const int m = min(4, stride - col);
   for (int e = 0; e < m; ++e) {
-    dst[e] = valid ? __ldg(src + e) : 0.f;
+    dst[e] = valid ? __ldg(src + e) : T(0);
   }
 }
 
@@ -89,15 +109,9 @@ int64_t blocks_of(int64_t n, int stride) {
   return (warps * 32 + kThreads - 1) / kThreads;
 }
 
-}  // namespace
-
-// buf: [rows, pitch] f32, contiguous, 16-byte aligned, pitch % 128 == 0;
-// ids: [n] int32, contiguous; out: [n, stride] f32, contiguous, 16-byte
-// aligned, 0 < stride <= pitch. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-extern "C" int gather_rows_launch(const void* buf, int64_t rows, int pitch,
-                                  int stride, const void* ids, int64_t n,
-                                  void* out, void* stream) {
+template <typename T>
+int launch(const void* buf, int64_t rows, int pitch, int stride,
+           const void* ids, int64_t n, void* out, void* stream) {
   if (rows < 0 || pitch <= 0 || pitch % kLanes != 0 || stride <= 0 ||
       stride > pitch || n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -109,19 +123,40 @@ extern "C" int gather_rows_launch(const void* buf, int64_t rows, int pitch,
   if (blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* b = static_cast<const float*>(buf);
+  const auto* b = static_cast<const T*>(buf);
   const auto* i = static_cast<const int32_t*>(ids);
-  auto* o = static_cast<float*>(out);
+  auto* o = static_cast<T*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (stride % 4 == 0) {
-    gather_rows_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        b, rows, pitch, stride, i, n, o);
+    gather_rows_kernel<T, true>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(b, rows, pitch,
+                                                           stride, i, n, o);
   } else {
-    gather_rows_kernel<false>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-            b, rows, pitch, stride, i, n, o);
+    gather_rows_kernel<T, false>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(b, rows, pitch,
+                                                           stride, i, n, o);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// buf: [rows, pitch] f32, contiguous, 16-byte aligned, pitch % 128 == 0;
+// ids: [n] int32, contiguous; out: [n, stride] f32, contiguous, 16-byte
+// aligned, 0 < stride <= pitch. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int gather_rows_launch(const void* buf, int64_t rows, int pitch,
+                                  int stride, const void* ids, int64_t n,
+                                  void* out, void* stream) {
+  return launch<float>(buf, rows, pitch, stride, ids, n, out, stream);
+}
+
+// The bf16 form: buf and out bf16 (2-byte lanes), 8-byte aligned; the rest
+// as gather_rows_launch.
+extern "C" int gather_rows_bf16_launch(const void* buf, int64_t rows,
+                                       int pitch, int stride, const void* ids,
+                                       int64_t n, void* out, void* stream) {
+  return launch<uint16_t>(buf, rows, pitch, stride, ids, n, out, stream);
 }
 
 // A yardstick, not part of the gather: an empty kernel on `stream` with the

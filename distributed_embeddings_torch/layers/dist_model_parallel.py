@@ -173,6 +173,14 @@ class DistributedEmbedding(nn.Module):
     JAX layer psums them. Model-parallel inputs (``dp_input=False``)
     arrive routed and clipped by ``pack_mp_inputs``: their dict is empty,
     as the JAX layer records nothing for them."""
+    narrow = sorted(n for n, t in self.class_params().items()
+                    if t.dtype != torch.float32)
+    if narrow:
+      raise NotImplementedError(
+          f"class buffers {narrow} are not float32: the dense-autodiff "
+          "layer trains f32 tables; narrow storage runs through the sparse "
+          "step (training.init_sparse_state_direct(dtype=...), ROADMAP.md "
+          "§1 item 7b)")
     if not self.dp_input:
       outs = self.engine.forward_mp(self.class_params(), inputs,
                                     hotness=self.input_hotness)

@@ -25,7 +25,11 @@ Semantics of the reference ``DistEmbeddingStrategy``:
   row-stacked 2-D buffer ``[world * max_rows, width]``.
 
 The buffer-size bounds (2^31 elements per buffer, ``max_class_bytes``)
-are kept as they are so that both packages lay out the same classes.
+are kept as they are so that both packages lay out the same classes. The
+element bound is XLA's 32-bit buffer indexing on the TPU; the card
+indexes in 64 bits, so ``buffer_elements=None`` lifts it for a plan that
+only the port runs (a table of more than 2^31 / 128 rows kept whole at
+world 1, e.g. the Criteo-1TB tables on one card in bf16).
 """
 
 from __future__ import annotations
@@ -274,14 +278,18 @@ def apply_placement(mode: str, world_size: int,
 
 
 
-def _rows_hard_noaux(width: int) -> int:
-  """Max shard rows that fit one 2^31-element TPU buffer with NO packed
-  aux state (the plan-time hard bound; the exact per-rule check lives in
+def _rows_hard_noaux(width: int, elements: Optional[int] = 2 ** 31
+                     ) -> float:
+  """Max shard rows that fit one buffer of ``elements`` elements (the
+  TPU's 2^31; None: no bound) with NO packed aux state (the plan-time
+  hard bound; the exact per-rule check lives in
   DistributedLookup.fused_layouts)."""
+  if elements is None:
+    return float("inf")
   stride = width
   rpp = max(1, 128 // stride)
   pw = max(128, -(-stride // 128) * 128)
-  return max(1, int((2 ** 31) // (pw / rpp)))
+  return max(1, int(elements // (pw / rpp)))
 
 
 def _raise_shard_too_big(table_id: int, rows: int, width: int) -> None:
@@ -304,6 +312,9 @@ class DistEmbeddingStrategy:
     input_table_map: input i feeds table ``input_table_map[i]`` (shared
       tables); None means the identity map.
     column_slice_threshold: max elements per slice, or None for auto.
+    buffer_elements: the per-buffer element bound of the class layout
+      (the TPU's 2^31, so plans equal the JAX package's), or None to lift
+      it (a port-only plan: the card indexes in 64 bits).
   """
 
   def __init__(self,
@@ -328,7 +339,8 @@ class DistEmbeddingStrategy:
                dedup_exchange: bool = False,
                overlap: str = "none",
                exchange_chunks: int = 1,
-               dedup_capacity: Optional[int] = None):
+               dedup_capacity: Optional[int] = None,
+               buffer_elements: Optional[int] = 2 ** 31):
     if strategy not in ("basic", "memory_balanced", "memory_optimized"):
       raise ValueError(f"Unsupported shard strategy {strategy}")
     # ---- wire format of the dp<->mp exchanges ---------------------------
@@ -704,6 +716,7 @@ class DistEmbeddingStrategy:
     # exceed max_class_bytes (min'd with the element limit) unless a
     # single shard alone does.
     self.max_class_bytes = max_class_bytes
+    self.buffer_elements = buffer_elements
     if gen_assignment not in ("auto", "first_fit"):
       raise ValueError(
           f"gen_assignment must be 'auto' or 'first_fit', got "
@@ -732,8 +745,8 @@ class DistEmbeddingStrategy:
           # except host-tier shards, whose device footprint is the
           # compact cache+staging buffer (TieringPlan enforces ITS 2^31
           # bound), not the full vocabulary
-          if (base[3] != "host"
-              and sh.input_dim > _rows_hard_noaux(sh.width)):
+          if (base[3] != "host" and sh.input_dim > _rows_hard_noaux(
+              sh.width, self.buffer_elements)):
             _raise_shard_too_big(sh.table_id, sh.input_dim, sh.width)
           rows_list = gen_rows.setdefault(base, [0])
           cap_rows = max(1, max_class_bytes // (sh.width * 4))
@@ -917,7 +930,8 @@ class DistEmbeddingStrategy:
     rpp = max(1, 128 // stride)
     phys_width = max(128, -(-stride // 128) * 128)
     elems_per_row = phys_width / rpp
-    rows_hard = max(1, int((2 ** 31) // elems_per_row))
+    rows_hard = (float("inf") if self.buffer_elements is None
+                 else max(1, int(self.buffer_elements // elems_per_row)))
     cap_rows = min(rows_hard,
                    max(1, self.max_class_bytes // (width * 4)))
     total = sum(sh.input_dim for sh in group)
@@ -930,7 +944,8 @@ class DistEmbeddingStrategy:
     # TieringPlan's own 2^31 check) ever occupies a device — training
     # vocabularies past the device buffer limit is the tier's purpose.
     host_tier = self.table_tier(group[0].table_id) == "host"
-    if largest > _rows_hard_noaux(width) and not host_tier:
+    if largest > _rows_hard_noaux(width, self.buffer_elements) \
+        and not host_tier:
       big = max(group, key=lambda sh: sh.input_dim)
       _raise_shard_too_big(big.table_id, big.input_dim, width)
     if largest > rows_hard and not host_tier:

@@ -24,6 +24,18 @@ counts kernel launches.
 
 The library yardstick, one ``buf.index_add_(0, ids, delta, alpha=scale)``
 over the valid ids, computes the same function as the plain version.
+
+**The bf16 form** (narrow storage; ``apply_rows_bf16_launch`` of the same
+source, counted in ``launches_bf16``) takes a bf16 buffer and bf16
+deltas with the JAX package's bf16 arithmetic (XLA's scatter, which the
+JAX package uses for non-f32 buffers): the scale rounded to bf16, each
+product rounded to bf16, each add rounded to bf16. Its plain version
+adds the occurrences one after another in stream order, as XLA's scatter
+does, so it gives the JAX package's bits with duplicates too; the kernel
+sums a tile's run of one id in f32 and rounds it once, which for a
+unique id is the same bits and for a run of ``m`` duplicates differs by
+at most ``m`` roundings of ``2^-8`` of the running magnitude. The plan
+is the f32 form's (a warp still walks 128 lanes, 4 values a thread).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ SMEM_MAX = 232_448       # a block's shared memory on Hopper (227 KB)
 H100_SMS = 132
 
 launches = 0
+launches_bf16 = 0
 
 Scale = Union[None, float, torch.Tensor]
 
@@ -62,8 +75,9 @@ def plan_apply(width: int, n: int, sms: int = H100_SMS) -> ApplyPlan:
   ``TILES_PER_SM`` tiles (longer tiles merge more duplicates, more tiles
   fill the card); a hash of twice the tile's slots (load at most 1/2);
   shared memory for the tile's sorted ids and occurrences, the hash's keys
-  and counts and the warps' scan totals. The width sets no size: a warp
-  walks a row 128 lanes at a time."""
+  and counts and the warps' scan totals. Neither the width nor the element
+  type (f32 or bf16) sets a size: a warp walks a row 128 lanes at a time,
+  4 values a thread."""
   if width <= 0 or width % LANES:
     raise ValueError(f"the kernel takes width % {LANES} == 0, got {width}")
   if n < 0:
@@ -80,15 +94,45 @@ def _valid(buf: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
   return (ids >= 0) & (ids < buf.shape[0])
 
 
+def add_in_order(buf: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor
+                 ) -> torch.Tensor:
+  """``buf[ids[i]] += rows[i]`` for i in stream order, each add rounded to
+  ``buf``'s dtype (XLA's scatter on a bf16 buffer). The occurrences are
+  cut into levels by their rank among equal ids (level k holds every id's
+  k-th occurrence), so each ``index_add_`` sees unique ids and rounds
+  every add once; ``ids`` must lie in range."""
+  n = ids.shape[0]
+  if n == 0:
+    return buf
+  order = torch.sort(ids, stable=True).indices
+  sid = ids[order]
+  pos = torch.arange(n, device=ids.device)
+  first = torch.ones(n, dtype=torch.bool, device=ids.device)
+  first[1:] = sid[1:] != sid[:-1]
+  rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+  by_rank = torch.sort(rank, stable=True)
+  occ = order[by_rank.indices]
+  ids_l, rows_l = ids[occ], rows[occ]  # level after level
+  lo = 0
+  for size in torch.bincount(by_rank.values).tolist():
+    buf.index_add_(0, ids_l[lo:lo + size], rows_l[lo:lo + size])
+    lo += size
+  return buf
+
+
 def apply_rows_plain(buf: torch.Tensor, ids: torch.Tensor,
                      delta: torch.Tensor, scale: Scale = None
                      ) -> torch.Tensor:
   """Plain PyTorch version: drop the out-of-range ids, round ``scale *
-  delta`` once, ``index_add_`` the rows in place. Returns ``buf``."""
+  delta`` once, ``index_add_`` the rows in place. A bf16 buffer takes the
+  scale rounded to bf16 and adds the rows one occurrence after another
+  (:func:`add_in_order`). Returns ``buf``."""
   valid = _valid(buf, ids)
   rows = delta[valid]
   if scale is not None:
-    rows = rows * torch.as_tensor(scale, dtype=rows.dtype, device=rows.device)
+    rows = rows * torch.as_tensor(scale, device=rows.device).to(rows.dtype)
+  if buf.dtype == torch.bfloat16:
+    return add_in_order(buf, ids[valid], rows)
   buf.index_add_(0, ids[valid], rows)
   return buf
 
@@ -101,9 +145,10 @@ def _check(buf: torch.Tensor, ids: torch.Tensor, delta: torch.Tensor):
   if delta.shape != (ids.shape[0], buf.shape[1]):
     raise ValueError(f"delta shape {tuple(delta.shape)} != "
                      f"({ids.shape[0]}, {buf.shape[1]})")
-  if buf.dtype != torch.float32 or delta.dtype != torch.float32:
-    raise TypeError(f"apply_rows takes f32 buf and delta, got {buf.dtype} "
-                    f"and {delta.dtype}")
+  if buf.dtype not in (torch.float32, torch.bfloat16) \
+      or delta.dtype != buf.dtype:
+    raise TypeError(f"apply_rows takes f32 or bf16 buf and delta of the "
+                    f"same type, got {buf.dtype} and {delta.dtype}")
   if ids.dtype != torch.int64:
     raise TypeError(f"apply_rows takes int64 ids, got {ids.dtype}")
   if not (ids.device == buf.device == delta.device):
@@ -113,15 +158,17 @@ def _check(buf: torch.Tensor, ids: torch.Tensor, delta: torch.Tensor):
 def _launch(buf: torch.Tensor, ids: torch.Tensor, delta: torch.Tensor,
             scale: Scale) -> torch.Tensor:
   from ._build import load
-  global launches
+  global launches, launches_bf16
   if buf.shape[1] % LANES:
     raise ValueError(f"the kernel takes width % {LANES} == 0, got "
                      f"{buf.shape[1]}")
   if not (buf.is_contiguous() and delta.is_contiguous()
           and ids.is_contiguous()):
     raise ValueError("the kernel takes contiguous buf, ids and delta")
-  if buf.data_ptr() % 16 or delta.data_ptr() % 16:
-    raise ValueError("the kernel reads and writes 16-byte aligned rows")
+  align = 16 if buf.dtype == torch.float32 else 8
+  if buf.data_ptr() % align or delta.data_ptr() % align:
+    raise ValueError(f"the kernel reads and writes {align}-byte aligned "
+                     "rows")
   scale_ptr, scale_val = None, 1.0
   if isinstance(scale, torch.Tensor) and scale.device.type == "cuda":
     if scale.numel() != 1 or scale.dtype != torch.float32:
@@ -130,8 +177,9 @@ def _launch(buf: torch.Tensor, ids: torch.Tensor, delta: torch.Tensor,
     scale_ptr = scale.data_ptr()
   elif scale is not None:
     scale_val = float(scale)   # host scalar: no device read
+  bf16 = buf.dtype == torch.bfloat16
   lib = load("apply_rows")
-  fn = lib.apply_rows_launch
+  fn = lib.apply_rows_bf16_launch if bf16 else lib.apply_rows_launch
   fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                  ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
@@ -142,7 +190,10 @@ def _launch(buf: torch.Tensor, ids: torch.Tensor, delta: torch.Tensor,
              delta.data_ptr(), ids.shape[0], scale_ptr, scale_val, stream)
   if err != 0:
     raise RuntimeError(f"apply_rows launch failed: cudaError {err}")
-  launches += 1
+  if bf16:
+    launches_bf16 += 1
+  else:
+    launches += 1
   return buf
 
 

@@ -21,6 +21,10 @@ raises: there is no fallback. ``launches`` counts kernel launches.
 The library yardstick, ``buf.index_select(0, ids.clamp(0, rows - 1))``,
 moves the same bytes but does not zero the out-of-range rows.
 
+**The bf16 form** (narrow storage; ``gather_rows_bf16_launch`` of the same
+source, counted in ``launches_bf16``) takes a bf16 plain-row buffer and
+moves 2-byte lanes; it is bit-exact like the f32 form.
+
 K5 replaces ``pallas_exchange.py:gather_send_rows``: one rotate-by-k
 round of the fused wire, the rows of ``buf`` at ``ids`` (all-zero for ids
 outside ``[0, rows)``) pushed into the ``[n, 128]`` receive buffer of the
@@ -46,6 +50,7 @@ import torch
 LANES = 128
 
 launches = 0
+launches_bf16 = 0
 send_launches = 0
 # (sender, receiver) card pairs with peer access enabled
 _peers = set()
@@ -57,8 +62,8 @@ def _validate(layout, buf: torch.Tensor, ids: torch.Tensor) -> None:
         f"the gather kernel serves plain-row layouts (rows_per_phys == 1), "
         f"got rows_per_phys={layout.rows_per_phys}: narrow classes' sub-row "
         "windows go through packed_table.gather_fused")
-  if buf.dtype != torch.float32:
-    raise ValueError(f"buf must be float32, got {buf.dtype}")
+  if buf.dtype not in (torch.float32, torch.bfloat16):
+    raise ValueError(f"buf must be float32 or bfloat16, got {buf.dtype}")
   if (buf.dim() != 2 or buf.shape[1] % LANES
       or tuple(buf.shape) != tuple(layout.shape)):
     raise ValueError(
@@ -89,18 +94,20 @@ def gather_rows_plain(buf: torch.Tensor, ids: torch.Tensor,
 def _launch(buf: torch.Tensor, ids: torch.Tensor,
             stride: int) -> torch.Tensor:
   from ._build import load
-  global launches
+  global launches, launches_bf16
   if not buf.is_contiguous():
     raise ValueError("the kernel reads a contiguous buf")
-  if buf.data_ptr() % 16:
-    raise ValueError("the kernel reads 16-byte aligned rows")
+  bf16 = buf.dtype == torch.bfloat16
+  if buf.data_ptr() % (8 if bf16 else 16):
+    raise ValueError("the kernel reads aligned rows (16 bytes for f32, 8 "
+                     "for bf16)")
   flat = ids.reshape(-1).contiguous()
   out = torch.empty(tuple(ids.shape) + (stride,), dtype=buf.dtype,
                     device=buf.device)
   if flat.numel() == 0:
     return out  # nothing to gather: no launch
   lib = load("gather_rows")
-  fn = lib.gather_rows_launch
+  fn = lib.gather_rows_bf16_launch if bf16 else lib.gather_rows_launch
   fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                  ctypes.c_void_p, ctypes.c_void_p]
@@ -111,14 +118,17 @@ def _launch(buf: torch.Tensor, ids: torch.Tensor,
              flat.data_ptr(), flat.shape[0], out.data_ptr(), stream)
   if err != 0:
     raise RuntimeError(f"gather_rows launch failed: cudaError {err}")
-  launches += 1
+  if bf16:
+    launches_bf16 += 1
+  else:
+    launches += 1
   return out
 
 
 def gather_rows(layout, buf: torch.Tensor, ids: torch.Tensor
                 ) -> torch.Tensor:
   """``packed_table.gather_fused(layout, buf, ids)`` for plain-row f32
-  layouts: ``ids.shape + (layout.stride,)`` rows, all-zero for
+  or bf16 layouts: ``ids.shape + (layout.stride,)`` rows, all-zero for
   out-of-range ids. CPU tensors take the plain version; CUDA tensors
   launch the kernel."""
   _validate(layout, buf, ids)

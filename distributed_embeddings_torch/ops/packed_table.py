@@ -102,7 +102,7 @@ class PackedLayout:
 
 def init_packed_uniform(layout: PackedLayout, generator: torch.Generator,
                         scale_rows: torch.Tensor, aux_values: Sequence[float],
-                        device="cuda") -> torch.Tensor:
+                        device="cuda", dtype=torch.float32) -> torch.Tensor:
   """Initialize a packed buffer directly in its physical layout.
 
   Table lanes get ``uniform(-1, 1) * scale_rows[row]``; aux lanes their
@@ -111,19 +111,22 @@ def init_packed_uniform(layout: PackedLayout, generator: torch.Generator,
   logical ``[rows, width]`` f32 table is never materialized: the peak
   allocation is the buffer plus one ``_INIT_CHUNK_PHYS``-row draw. The draw
   comes from ``generator`` (which must live on ``device``); it matches
-  the JAX package's distribution, not its bits.
+  the JAX package's distribution, not its bits. ``dtype`` is the buffer's
+  storage type (f32, or bf16 for narrow storage): each chunk is drawn in
+  f32 and rounded into the buffer, the aux constants too (``bf16(0.1)``,
+  as the JAX package's bf16 template holds them).
   """
   dev = resolve_device(device)
-  dtype = torch.float32
+  f32 = torch.float32
   rpp, stride, w = layout.rows_per_phys, layout.stride, layout.width
   pr = layout.phys_rows
-  scale_p = torch.zeros((pr * rpp,), dtype=dtype, device=dev)
-  scale_p[:layout.rows] = torch.as_tensor(scale_rows, dtype=dtype, device=dev)
+  scale_p = torch.zeros((pr * rpp,), dtype=f32, device=dev)
+  scale_p[:layout.rows] = torch.as_tensor(scale_rows, dtype=f32, device=dev)
   scale_p = scale_p.view(pr, rpp)
   buf = torch.zeros((pr, layout.phys_width), dtype=dtype, device=dev)
   for p0 in range(0, pr, _INIT_CHUNK_PHYS):
     cp = min(_INIT_CHUNK_PHYS, pr - p0)
-    vals = torch.rand((cp, rpp, stride), generator=generator, dtype=dtype,
+    vals = torch.rand((cp, rpp, stride), generator=generator, dtype=f32,
                       device=dev)
     vals.mul_(2.0).sub_(1.0)
     sc = scale_p[p0:p0 + cp]
@@ -210,15 +213,16 @@ def residual_lanes(layout: PackedLayout, res: torch.Tensor, lo: int,
   from forward-saved rows in either layout: stride-wide fused rows, or
   window-masked physical rows (``gather_fused(masked_phys=True)``), whose
   one nonzero window is extracted by summing the ``rpp`` windows in
-  order, as the JAX engine does."""
+  order, as the JAX engine does (in f32, rounded once for bf16 rows, as
+  XLA reduces bf16)."""
   stride = layout.stride
   flat = res.reshape(-1, res.shape[-1])
   if flat.shape[-1] == stride:
     return flat[:, lo:hi]
-  out = flat[:, lo:hi]
+  out = flat[:, lo:hi].to(torch.float32)
   for s in range(1, layout.rows_per_phys):
     out = out + flat[:, s * stride + lo:s * stride + hi]
-  return out
+  return out.to(flat.dtype)
 
 
 def mxu_operand_dtype(dtype: torch.dtype, device) -> torch.dtype:
@@ -271,13 +275,16 @@ def scatter_add_fused(layout: PackedLayout, buf: torch.Tensor,
   The apply is kernel K1 (``ops/cuda_apply.py``) on a CUDA buffer and its
   plain version on the CPU. The TPU's regime rule (XLA's scatter above an
   ids-to-rows ratio of 0.15) and its 128-lane limit came from XLA's TPU
-  scatter and from Mosaic, so on the card K1 serves every f32 buffer, at
-  any ratio and any ``phys_width`` (always a multiple of 128)."""
+  scatter and from Mosaic, so on the card K1 serves every buffer, at any
+  ratio and any ``phys_width`` (always a multiple of 128). A bf16 buffer
+  (narrow storage) takes K1's bf16 form with the JAX package's bf16
+  arithmetic: the rows cast to bf16 first, ``delta_scale`` cast to bf16
+  and multiplied in bf16, then each row added in bf16."""
   from .cuda_apply import apply_rows
-  if buf.device.type == "cuda" and buf.dtype != torch.float32:
+  if buf.dtype not in (torch.float32, torch.bfloat16):
     raise NotImplementedError(
-        f"scatter_add_fused on a {buf.dtype} CUDA buffer: K1 applies f32 "
-        "buffers only (ROADMAP.md §1 item 7: narrow storage types)")
+        f"scatter_add_fused on a {buf.dtype} buffer: K1 applies f32 and "
+        "bf16 buffers")
   grp, sub, _ = _grp_sub(layout, ids.reshape(-1))
   flat = fused_delta.reshape(grp.shape[0], fused_delta.shape[-1])
   if flat.shape[-1] != layout.phys_width:

@@ -398,21 +398,24 @@ class _DenseWindowRows(torch.autograd.Function):
   """Dense-class lookup with the JAX engine's backward precision.
 
   Forward: the table rows at ``idx`` (zero where ``valid`` is false),
-  summed over the hotness axis for multi-hot buckets (the JAX one-hot
-  contraction at HIGHEST precision returns the rows exactly). Backward:
+  summed in f32 over the hotness axis for multi-hot buckets, in
+  ``out_dtype`` (the JAX one-hot contraction at HIGHEST precision returns
+  the rows exactly in f32, cast to the table's storage type). Backward:
   ``d_z`` rounded to ``mxu_operand_dtype(f32, device)`` (bf16 on the
   card, as on the TPU; f32 on the CPU) and accumulated in f32 into the
   table rows with ``index_add_`` — the JAX ``_onehot_window_matmul_bwd``
-  in row form."""
+  in row form. The table gradient is f32, as the JAX one's (a bf16
+  table's step reads an f32 work copy, ``training.trained_tables``, so
+  nothing rounds it)."""
 
   @staticmethod
-  def forward(ctx, table, idx, valid, two_d):
-    rows = table[idx]
+  def forward(ctx, table, idx, valid, two_d, out_dtype):
+    rows = table[idx].to(torch.float32)
     rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
     ctx.save_for_backward(idx, valid)
     ctx.two_d = two_d
     ctx.table_shape = table.shape
-    return rows if two_d else _sum_axis2(rows)
+    return (rows if two_d else _sum_axis2(rows)).to(out_dtype)
 
   @staticmethod
   def backward(ctx, d_z):
@@ -425,7 +428,7 @@ class _DenseWindowRows(torch.autograd.Function):
     d_table = torch.zeros(ctx.table_shape, dtype=torch.float32,
                           device=d_z.device)
     d_table.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
-    return d_table, None, None, None
+    return d_table, None, None, None, None
 
 
 class _FillRows(torch.autograd.Function):
@@ -845,7 +848,10 @@ class DistributedLookup:
     with the slot's ``[vcap, w]`` window at HIGHEST precision, which
     returns the window's rows exactly; this indexes the same rows
     (:class:`_DenseWindowRows`, which also gives the JAX backward's
-    precision). Ids outside the window (the sentinel) read zeros."""
+    precision). Ids outside the window (the sentinel) read zeros. The rows
+    come out in the table's storage type: a bf16 table's, or the
+    ``storage_dtype`` its f32 work copy carries
+    (``training.trained_tables``)."""
     two_d = ids_all.dim() == 2
     h = 1 if two_d else ids_all.shape[2]
     cp = self.plan.classes[key]
@@ -858,7 +864,8 @@ class DistributedLookup:
     ids_local = ids_all - off_b
     valid = (ids_local >= 0) & (ids_local < bucket.vcap)
     idx = torch.where(valid, ids_all, off_b.expand_as(ids_all))
-    z = _DenseWindowRows.apply(table_local, idx, valid, two_d)
+    out_dtype = getattr(table_local, "storage_dtype", table_local.dtype)
+    z = _DenseWindowRows.apply(table_local, idx, valid, two_d, out_dtype)
     if two_d:
       return z
     if cp.combiner == "mean" and h > 1:
@@ -908,12 +915,13 @@ class DistributedLookup:
                     ids: torch.Tensor, masked_phys: bool = False
                     ) -> torch.Tensor:
     """One round block's gather: kernel K4 (``ops/cuda_exchange.py``) for
-    plain-row f32 layouts (one fused row per physical row, at any stride),
-    ``gather_fused_chunked`` (the monolithic schedule's gather) for every
-    other layout and for window-masked physical rows. On the CPU K4's
-    wrapper runs its plain version."""
+    plain-row f32 or bf16 layouts (one fused row per physical row, at any
+    stride; bf16 takes K4's bf16 form), ``gather_fused_chunked`` (the
+    monolithic schedule's gather) for every other layout and for
+    window-masked physical rows. On the CPU K4's wrapper runs its plain
+    version."""
     if (not masked_phys and layout.rows_per_phys == 1
-        and buf_local.dtype == torch.float32):
+        and buf_local.dtype in (torch.float32, torch.bfloat16)):
       return gather_rows(layout, buf_local, ids.to(torch.int32))
     return gather_fused_chunked(layout, buf_local, ids,
                                 masked_phys=masked_phys)
@@ -1305,6 +1313,7 @@ class DistributedLookup:
         continue
       name = class_param_name(*key)
       buf_local = self._squeeze_local(fused_params[name])
+      _check_narrow(buf_local, ids=ids)
       z[bk], auxb = gather(key, layouts[name], buf_local, ids, bk.rs,
                            keep_rows=keep_rows)
       aux[bk] = auxb if keep_aux else None
@@ -1532,6 +1541,7 @@ class DistributedLookup:
     scale_only = rule.linear_scale is not None
     for name, (ids_cat, rows_cat) in streams.items():
       buf = self._squeeze_local(fused_params[name])
+      _check_narrow(buf, rule=rule)
       scatter_add_fused(
           layouts[name], buf, ids_cat, rows_cat,
           delta_scale=rule.linear_scale(step) if scale_only else None)
@@ -1570,6 +1580,7 @@ class DistributedLookup:
         if rule.weight_decay:
           # once per unique touched row
           g = g + (2.0 * rule.weight_decay) * fused_rows[..., :w]
+        _check_narrow(buf, rule=rule)
         scatter_add_fused(layout, buf, ids, rule.delta(g, aux, step))
         continue
       n_total = sum(ids.numel() for ids, _, _, _ in parts)
@@ -1741,10 +1752,33 @@ def pack_mp_inputs(plan: "DistEmbeddingStrategy",
   return packed
 
 
+# sparse rules held to the JAX package's bf16 step (narrow storage)
+NARROW_RULES = ("sgd", "adagrad")
+
+
+def _check_narrow(buf: torch.Tensor, ids=None, rule=None) -> None:
+  """Refuse what narrow storage does not carry yet: a bf16 buffer with a
+  ragged or deduplicated bucket, or with a rule other than SGD and
+  Adagrad (``ROADMAP.md`` §1 item 7b)."""
+  if buf.dtype == torch.float32:
+    return
+  if isinstance(ids, (tuple, DedupRouted)):
+    kind = "ragged" if isinstance(ids, tuple) else "deduplicated"
+    raise NotImplementedError(
+        f"a {kind} bucket on a {buf.dtype} buffer: narrow storage takes "
+        "padded ids without dedup_exchange (ROADMAP.md §1 item 7b)")
+  if rule is not None and rule.name not in NARROW_RULES:
+    raise NotImplementedError(
+        f"the {rule.name!r} rule on a {buf.dtype} buffer: narrow storage "
+        f"takes the {' and '.join(NARROW_RULES)} rules (ROADMAP.md §1 "
+        "item 7b)")
+
+
 def _sum_axis2(rows: torch.Tensor) -> torch.Tensor:
-  """``rows.sum(dim=2)`` as a left-to-right chain of adds, so the order of
-  the f32 additions is fixed on every device."""
-  out = rows[:, :, 0]
+  """``rows.sum(dim=2)`` as a left-to-right chain of f32 adds, so the
+  order of the additions is fixed on every device. bf16 rows (narrow
+  storage) are summed in f32 and rounded once, as XLA reduces bf16."""
+  out = rows[:, :, 0].to(torch.float32)
   for j in range(1, rows.shape[2]):
     out = out + rows[:, :, j]
-  return out
+  return out.to(rows.dtype)

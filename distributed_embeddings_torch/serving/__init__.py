@@ -8,18 +8,21 @@ from .export import (
     FrozenTables,
     ServeArtifact,
     ServeClassMeta,
+    dequantize_rows_fp8,
     dequantize_rows_int8,
     export,
     freeze,
     frozen_device_state,
     load,
+    quantize_rows_fp8,
     quantize_rows_int8,
 )
 
 __all__ = [
     "FrozenTables", "MicroBatcher", "REJECT_REASONS", "Rejected",
     "SERVE_FORMAT_VERSION", "ServeArtifact", "ServeClassMeta",
-    "ServeEngine", "ServeFuture", "dequantize_rows_int8", "export",
-    "freeze", "frozen_device_state", "load", "make_serve_step",
-    "quantize_rows_int8", "shard_batch",
+    "ServeEngine", "ServeFuture", "dequantize_rows_fp8",
+    "dequantize_rows_int8", "export", "freeze", "frozen_device_state",
+    "load", "make_serve_step", "quantize_rows_fp8", "quantize_rows_int8",
+    "shard_batch",
 ]

@@ -51,6 +51,7 @@ from .export import (
     FrozenTables,
     ServeArtifact,
     ServeClassMeta,
+    dequantize_rows_fp8,
     dequantize_rows_int8,
     frozen_device_state,
 )
@@ -59,12 +60,15 @@ __all__ = ["ServeEngine", "make_serve_step", "shard_batch"]
 
 
 def _dequant_rows(rows: torch.Tensor, meta: ServeClassMeta) -> torch.Tensor:
-  """Gathered serve rows -> f32 table rows. int8 rows arrive ``[...,
-  width + 4]``: the trailing 4 byte lanes are the row's f32 scale, and the
-  dequant is one widen + multiply. Sentinel rows are all-zero bytes, whose
-  scale decodes to 0.0, so they stay exactly zero."""
+  """Gathered serve rows -> f32 table rows. int8 and fp8 rows arrive
+  ``[..., width + 4]`` bytes: the trailing 4 byte lanes are the row's f32
+  scale, and the dequant is one widen + multiply (fp8: the value lanes
+  viewed as e4m3 first). Sentinel rows are all-zero bytes, whose scale
+  decodes to 0.0, so they stay exactly zero."""
   if meta.quantize == "f32":
     return rows
+  if meta.quantize == "fp8":
+    return dequantize_rows_fp8(rows)
   return dequantize_rows_int8(rows)
 
 
@@ -109,11 +113,25 @@ def _combine_masked_order(engine: DistributedLookup, key,
   return z
 
 
-def _combine_int8(engine: DistributedLookup, key, qrows: torch.Tensor,
-                  oids: torch.Tensor, meta: ServeClassMeta,
-                  rs: bool) -> torch.Tensor:
-  """Multi-hot combine of int8 rows ``[n_b, G, h, w + 4]`` with the dequant
-  fused in, in the JAX serve step's arithmetic.
+def _gather_image(layout: PackedLayout, buf: torch.Tensor, ids,
+                  meta: ServeClassMeta) -> torch.Tensor:
+  """Gather serve rows of one image (``gather_fused_chunked``). The JAX
+  gather extracts a narrow image's row (several rows a physical row) by
+  adding its masked windows in the image's type; for an fp8 image that
+  e4m3 add turns a ``-0.0`` byte (0x80) into ``+0.0``, in the scale lanes
+  too (a scale's low byte), so the port clears those bytes alike and its
+  scales stay the JAX package's."""
+  rows = gather_fused_chunked(layout, buf, ids)
+  if meta.quantize == "fp8" and layout.rows_per_phys > 1:
+    rows = rows.masked_fill(rows == -128, 0)
+  return rows
+
+
+def _combine_quantized(engine: DistributedLookup, key, qrows: torch.Tensor,
+                       oids: torch.Tensor, meta: ServeClassMeta,
+                       rs: bool) -> torch.Tensor:
+  """Multi-hot combine of int8 or fp8 rows ``[n_b, G, h, w + 4]`` (bytes)
+  with the dequant fused in, in the JAX serve step's arithmetic.
 
   XLA fuses the dequant multiply into the h-axis sum: the first slot's
   value is rounded once (``q * scale``) and every further slot
@@ -127,6 +145,8 @@ def _combine_int8(engine: DistributedLookup, key, qrows: torch.Tensor,
                      "distributed path (2-D model-parallel outputs)")
   w = meta.width
   q = qrows[..., :w]
+  if meta.quantize == "fp8":
+    q = q.contiguous().view(torch.float8_e4m3fn).to(torch.float32)
   scale = qrows[..., w:w + INT8_SCALE_LANES].contiguous().view(torch.float32)
   acc = q[:, :, 0].to(torch.float32) * scale[:, :, 0]
   for j in range(1, q.shape[2]):
@@ -159,19 +179,19 @@ def _serve_lookup(engine: DistributedLookup,
       # one row per unique id; the requesting rank expands and combines
       # them in the exchange (engine.exchange)
       z[bk] = _dequant_rows(
-          gather_fused_chunked(layouts[name], buf, ids.uniq), m)
+          _gather_image(layouts[name], buf, ids.uniq, m), m)
       continue
     if isinstance(ids, tuple):  # ragged value stream (vals, lens)
       vals, lens = ids
-      rows = _dequant_rows(gather_fused_chunked(layouts[name], buf, vals), m)
+      rows = _dequant_rows(_gather_image(layouts[name], buf, vals, m), m)
       ovals, _ = ids_order[bk]
       z[bk] = engine._combine_ragged(rows, ovals, lens, key, bk.rs)
       continue
-    raw = gather_fused_chunked(layouts[name], buf, ids)
+    raw = _gather_image(layouts[name], buf, ids, m)
     oids = ids_order[bk]
     multi_hot = oids.dim() == 3 and oids.shape[-1] > 1
-    if m.quantize == "int8" and multi_hot:
-      z[bk] = _combine_int8(engine, key, raw, oids, m, bk.rs)
+    if m.quantize in ("int8", "fp8") and multi_hot:
+      z[bk] = _combine_quantized(engine, key, raw, oids, m, bk.rs)
     elif m.quantize == "f32" and m.combine_rpp > 1 and multi_hot:
       z[bk] = _combine_masked_order(engine, key, raw, oids, m.combine_rpp,
                                     bk.rs)

@@ -9,11 +9,19 @@ inference image:
   machinery, just denser);
 - **int8**: per-row symmetric quantization, ``scale = max|row| / 127``,
   with the row's f32 scale bit-packed into 4 trailing int8 lanes, so the
-  serve gather dequantizes with one multiply and no second lookup.
+  serve gather dequantizes with one multiply and no second lookup;
+- **fp8**: per-row amax scaling onto the e4m3 grid, ``scale = max|row| /
+  448``, the values cast to ``float8_e4m3fn`` and the f32 scale in 4
+  trailing byte lanes, as int8. The port holds an fp8 image as its bytes
+  (``int8`` storage, the JAX package's on-disk view); only the value
+  lanes are ever viewed as ``torch.float8_e4m3fn`` (some scale bytes are
+  e4m3 NaN patterns, so the scale lanes are never converted).
 
-Both images are byte-identical to the JAX package's for the same train
-state (``tests/test_torch_serving.py``). The quantization runs in torch,
-on whatever device the buffers live on (the card, in production).
+The images are byte-identical to the JAX package's for the same train
+state, f32 or bf16 (narrow storage: rows widen to f32 exactly)
+(``tests/test_torch_serving.py``, ``tests/test_torch_serve_fp8.py``).
+The quantization runs in torch, on whatever device the buffers live on
+(the card, in production).
 
 :func:`export` writes the artifact to disk and :func:`load` reads it
 back, in the JAX package's format (the same directory layout, file
@@ -27,7 +35,9 @@ the other's artifacts (``tests/test_torch_serve_artifact.py``)::
     dense.npz                  the model's parameters as the flax tree
                                (``bottom_mlp/dense_0/kernel``, kernels
                                ``[in, out]``)
-    emb_dense.npz              the dense-class tables by class name, f32
+    emb_dense.npz              the dense-class tables by class name, in
+                               the train state's storage type (f32, or
+                               bf16 under the ``'<V2'`` descr)
 
 The JAX package exports from one controller that holds every rank's
 block. The port runs one process per rank, so at world N every rank
@@ -37,7 +47,7 @@ tables, writes the shared files and publishes the manifest. A rank's
 :func:`load` reads and verifies only its own block files and the shared
 ones. The directory on disk is the one the JAX package writes.
 
-Not ported yet: fp8 images and host-tier classes (ROADMAP §1 item 8),
+Not ported yet: host-tier classes (ROADMAP §1 item 8),
 dynamic-vocabulary snapshots and owner-sharded loads (item 12).
 """
 
@@ -53,6 +63,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import hostarrays
 from ..checkpoint import (
     _crc32_file,
     _flatten_with_paths,
@@ -74,10 +85,12 @@ SERVE_FORMAT_VERSION = 1
 # trailing single-byte lanes per logical row carrying the row's f32 scale
 INT8_SCALE_LANES = 4
 
-QUANTIZE_MODES = ("f32", "int8")
+QUANTIZE_MODES = ("f32", "int8", "fp8")
 
-_FP8_REFUSED = ("fp8 serve images are not ported yet (ROADMAP.md §1 "
-                "item 8); export f32 or int8")
+# largest finite float8_e4m3fn value: an fp8 row's amax lands exactly here
+FP8_MAX = 448.0
+# the manifest's dtype of an fp8 image (the JAX package's numpy dtype name)
+FP8_DTYPE_NAME = "float8_e4m3fn"
 
 # rows quantized per step: bounds the f32 temporaries on large tables
 _QUANT_CHUNK_ROWS = 1 << 20
@@ -91,7 +104,7 @@ class ServeClassMeta:
   rows: int           # logical rows (= padded_rows of the class)
   width: int          # table width (f32 output lanes after dequant)
   tier: str           # 'device' (host tiers are not ported yet)
-  quantize: str       # 'f32' | 'int8'
+  quantize: str       # 'f32' | 'int8' | 'fp8'
   # the training layout's rows-per-physical-row when the train rule
   # interleaved aux lanes into narrow rows: the f32 serve combine then
   # reproduces the eval step's masked-window summation order
@@ -100,8 +113,9 @@ class ServeClassMeta:
 
   @property
   def lanes(self) -> int:
-    """Byte lanes (int8) or f32 lanes per stored logical row."""
-    return self.width + (INT8_SCALE_LANES if self.quantize == "int8" else 0)
+    """Byte lanes (int8, fp8) or f32 lanes per stored logical row."""
+    return self.width + (INT8_SCALE_LANES
+                         if self.quantize in ("int8", "fp8") else 0)
 
   @property
   def packed(self) -> PackedLayout:
@@ -113,8 +127,8 @@ class ServeClassMeta:
     return np_dtype_of(self.quantize)
 
   def to_disk(self, arr: np.ndarray) -> np.ndarray:
-    """The on-disk form of a block: its own bytes (the JAX package views
-    only fp8 blocks otherwise, and fp8 is not ported)."""
+    """The on-disk form of a block: its own bytes (an fp8 image is held
+    as int8 bytes, the JAX package's on-disk view of it)."""
     return np.ascontiguousarray(arr, self.np_dtype)
 
   def from_disk(self, arr: np.ndarray) -> np.ndarray:
@@ -128,7 +142,8 @@ class ServeClassMeta:
             "combine_rpp": int(self.combine_rpp),
             "phys_rows": int(lay.phys_rows),
             "phys_width": int(lay.phys_width),
-            "dtype": str(self.np_dtype)}
+            "dtype": (FP8_DTYPE_NAME if self.quantize == "fp8"
+                      else str(self.np_dtype))}
 
   @classmethod
   def from_json(cls, name: str, d: Dict[str, Any]) -> "ServeClassMeta":
@@ -138,10 +153,10 @@ class ServeClassMeta:
 
 
 def np_dtype_of(quantize: str) -> np.dtype:
-  """Element dtype of a serve image under one quantize mode."""
-  if quantize == "fp8":
-    raise NotImplementedError(_FP8_REFUSED)
-  return np.dtype(np.int8 if quantize == "int8" else np.float32)
+  """Element dtype of a serve image under one quantize mode, as the port
+  stores it (an fp8 image as its int8 bytes: numpy has no e4m3 type
+  without ``ml_dtypes``)."""
+  return np.dtype(np.int8 if quantize in ("int8", "fp8") else np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -177,10 +192,47 @@ def dequantize_rows_int8(qrows: torch.Tensor) -> torch.Tensor:
   return qrows[..., :w].to(torch.float32) * scale
 
 
+def quantize_rows_fp8(table: torch.Tensor) -> torch.Tensor:
+  """``[N, w]`` rows -> ``[N, w + 4]`` fp8 rows-with-scale, as int8 bytes.
+
+  ``scale = max|row| / 448`` in f32 (1.0 for all-zero rows), the f32
+  quotient ``row / scale`` cast to ``float8_e4m3fn`` (round to nearest
+  even), the f32 scale's bytes in the 4 trailing lanes: the JAX package's
+  ``quantize_rows_fp8`` bytes. The row's amax lands on 448, the largest
+  finite e4m3 value, so nothing saturates. ``|row - deq| <= 2^-4 *
+  max|row|`` per element. Runs in row chunks on the table's device."""
+  table = torch.as_tensor(table)
+  n, w = table.shape
+  out = torch.empty((n, w + INT8_SCALE_LANES), dtype=torch.int8,
+                    device=table.device)
+  for r0 in range(0, n, _QUANT_CHUNK_ROWS):
+    t = table[r0:r0 + _QUANT_CHUNK_ROWS].to(torch.float32)
+    amax = t.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / FP8_MAX, torch.ones_like(amax))
+    q = (t / scale[:, None]).to(torch.float8_e4m3fn)
+    out[r0:r0 + t.shape[0], :w] = q.view(torch.int8)
+    out[r0:r0 + t.shape[0], w:] = scale.view(torch.int8).view(-1, 4)
+  return out
+
+
+def dequantize_rows_fp8(qrows: torch.Tensor) -> torch.Tensor:
+  """Inverse of :func:`quantize_rows_fp8` on the bytes (``int8`` or
+  ``uint8``): the value lanes viewed as e4m3 and widened, times the row's
+  f32 scale (the serve gather fuses the same, ``engine._dequant_rows``).
+  Sentinel rows are zero bytes: scale 0.0, so they stay zero."""
+  w = qrows.shape[-1] - INT8_SCALE_LANES
+  scale = qrows[..., w:].contiguous().view(torch.float32)
+  q = qrows[..., :w].contiguous().view(torch.float8_e4m3fn)
+  return q.to(torch.float32) * scale
+
+
 def quantize_rows(table: torch.Tensor, quantize: str) -> torch.Tensor:
-  """Dispatch one mode's row codec (f32 passes through)."""
+  """Dispatch one mode's row codec (f32 passes through; bf16 rows widen
+  exactly)."""
   if quantize == "int8":
     return quantize_rows_int8(table)
+  if quantize == "fp8":
+    return quantize_rows_fp8(table)
   return table.to(torch.float32)
 
 
@@ -202,7 +254,8 @@ class FrozenTables:
   meta: Dict[str, ServeClassMeta]
   device_blocks: Dict[str, List[Optional[torch.Tensor]]]
   dense: Dict[str, torch.Tensor]                # model state_dict
-  emb_dense: Dict[str, torch.Tensor]            # dense-class tables, f32
+  # dense-class tables, in the train state's storage type (f32 or bf16)
+  emb_dense: Dict[str, torch.Tensor]
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -212,7 +265,7 @@ def _as_tensor(x) -> torch.Tensor:
   tensor."""
   if isinstance(x, torch.Tensor):
     return x.detach()
-  return torch.tensor(np.asarray(x))
+  return hostarrays.tensor_of(x)
 
 
 def _strip_block(train_lay: PackedLayout, meta: ServeClassMeta,
@@ -256,15 +309,16 @@ def freeze(plan, rule: SparseRule, state: Dict[str, Any],
       class buffers, dense-class tables and the model's state_dict, as
       tensors (on any device; the blocks stay there) or numpy arrays
       (the JAX package's train state, handed across as numpy).
-    quantize: ``'f32'`` (bit-exact serving) or ``'int8'``. Dense-class
-      tables and the model's parameters stay f32.
+    quantize: ``'f32'`` (bit-exact serving), ``'int8'`` or ``'fp8'``
+      (int8 bytes); bf16 tables widen to f32 exactly first. Dense-class
+      tables keep their storage type (a bf16 state's stay bf16, as the
+      JAX package's freeze keeps them) and the model's parameters stay
+      f32.
     mesh: with a world-N plan, this rank's mesh: ``state`` then holds the
       rank's blocks only (``training.init_sparse_state_direct(mesh=)``),
       and every rank calls :func:`freeze` (the dense-class tables are
       gathered to their global form).
   """
-  if quantize == "fp8":
-    raise NotImplementedError(_FP8_REFUSED)
   if quantize not in QUANTIZE_MODES:
     raise ValueError(f"unknown quantize mode {quantize!r}; "
                      f"have {list(QUANTIZE_MODES)}")
@@ -291,8 +345,8 @@ def freeze(plan, rule: SparseRule, state: Dict[str, Any],
     blocks: List[Optional[torch.Tensor]] = [None] * plan.world_size
     blocks[rank] = _strip_block(lay, m, arr)
     device_blocks[name] = blocks
-  emb_dense = {k: _as_tensor(v).to(torch.float32)
-               for k, v in state.get("emb_dense", {}).items()}
+  emb_dense = {k: _as_tensor(v) for k, v in state.get("emb_dense",
+                                                      {}).items()}
   if rank is not None:
     emb_dense = {k: wire.gather_blocks(v.contiguous(), mesh)
                  for k, v in emb_dense.items()}
@@ -410,7 +464,7 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
              ("emb_dense", frozen.emb_dense))
     for part, tree in parts:
       fpath = os.path.join(tmp, f"{part}.npz")
-      np.savez(fpath, **_flatten_with_paths(tree))
+      hostarrays.savez(fpath, _flatten_with_paths(tree))
       _seal(fpath)
     manifest: Dict[str, Any] = {
         "format_version": SERVE_FORMAT_VERSION,
@@ -450,8 +504,9 @@ class ServeArtifact:
 
   def rank_block(self, name: str, rank: int) -> np.ndarray:
     """One rank's serve-layout block of one class, host-side
-    ``[phys_rows, phys_width]`` (int8 or f32). A world-N artifact holds
-    its own rank's block only; asking for another raises naming it."""
+    ``[phys_rows, phys_width]`` (int8, fp8 as int8 bytes, or f32). A
+    world-N artifact holds its own rank's block only; asking for another
+    raises naming it."""
     m = self.meta.get(name)
     if m is None:
       raise KeyError(f"unknown serve class {name!r}; artifact has "
@@ -520,8 +575,6 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
     raise NotImplementedError(
         "artifact carries a dynamic-vocabulary snapshot: not ported yet "
         "(ROADMAP.md §1 item 12, dynvocab)")
-  if manifest["serve"]["quantize"] == "fp8":
-    raise NotImplementedError(_FP8_REFUSED)
   meta = {n: ServeClassMeta.from_json(n, d)
           for n, d in manifest["serve"]["classes"].items()}
   if any(m.tier != "device" for m in meta.values()):
@@ -553,7 +606,7 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
       "dense": {k: v.to(dev)
                 for k, v in dense_state_dict_from_flax(
                     trees["dense"]).items()},
-      "emb_dense": {k: _rank_rows(torch.from_numpy(np.asarray(v)), plan,
+      "emb_dense": {k: _rank_rows(hostarrays.tensor_of(v), plan,
                                   rank).to(dev)
                     for k, v in trees["emb_dense"].items()},
       "serve": serve}

@@ -75,6 +75,14 @@ stream numpy keeps stable), so the file holds only the batches, the
 losses, the final dense params and each buffer's update; ``zoo_init_sum``
 entries pin the initial state. :func:`replay_zoo` replays it through the
 port.
+``tests/data/torch_train_bf16_golden.npz`` is narrow storage's: the
+train golden's model, batches and SGD on the JAX package's bf16 state
+(``init_sparse_state_direct(dtype=jnp.bfloat16)``: bf16 packed buffers
+and dense-class tables), its initial and final bf16 arrays stored as their
+``uint16`` bits (numpy has no bf16 type without ``ml_dtypes``).
+:func:`replay_bf16` replays it, :func:`compare_bf16` holds the replay to
+the tolerances above (``tests/test_torch_narrow_storage.py`` on the CPU,
+``chip_smoke.py`` on the card).
 ``tests/data/torch_train_ragged_golden.npz`` is the ragged value
 streams': a small DLRM of eight D=128 tables (``combiner='sum'``, one of
 them in a dense class) whose inputs 2, 3, 5 and 7 arrive as
@@ -136,12 +144,28 @@ ZOO_PATH = GOLDEN_PATH.with_name("torch_train_zoo_golden.npz")
 DENSE_PATH = GOLDEN_PATH.with_name("torch_dense_train_golden.npz")
 DENSE_WORLD4_PATH = GOLDEN_PATH.with_name(
     "torch_dense_train_world4_golden.npz")
+BF16_PATH = GOLDEN_PATH.with_name("torch_train_bf16_golden.npz")
 LR = 0.1
 STEPS = 3
 # per-step losses
 LOSS_TOL = dict(rtol=1e-2, atol=1e-3)
 # per final tensor: max |got - want| <= UPDATE_TOL * max |want - initial|
 UPDATE_TOL = 0.05
+# per bf16 table cell of the narrow-storage golden: BF16_ULPS bf16 ulps of
+# the larger magnitude (one flipped rounding of p + u a step, where u is a
+# little off: STEPS), plus UPDATE_TOL of the cell's own update (the
+# bf16-compute gradient a few per cent off, as above), plus BF16_ATOL for
+# the cells near zero, whose summed gradient cancels (2^-16: a sixteenth
+# of the ulp of the smallest table bound, 1/sqrt(300) ~ 0.058, ulp 2^-12)
+BF16_ULPS = STEPS
+BF16_ATOL = 2.0 ** -16
+# the narrow-storage golden's f32 dense params: a share of their largest
+# update, as UPDATE_TOL. Wider: bf16 compute rounds the MLPs' activations
+# and cotangents, and from the second step on a bf16 table cell an ulp
+# (2^-8) apart moves them; on the CPU the port's replay lands 7.7 % of an
+# update from the JAX run (bottom_mlp.layers.0.weight), the f32-storage
+# golden's 1.2 %
+BF16_DENSE_UPDATE_TOL = 0.15
 
 
 def load(path=GOLDEN_PATH) -> Dict[str, np.ndarray]:
@@ -180,11 +204,12 @@ def final_state(golden: Dict[str, np.ndarray]) -> Dict[str, Dict]:
               flax_tree(golden, "dense3")).items()}}
 
 
-def replay(golden: Dict[str, np.ndarray], device="cuda"
+def replay(golden: Dict[str, np.ndarray], device="cuda", initial=None
            ) -> Tuple[List[float], Dict[str, Dict[str, np.ndarray]]]:
   """Three steps of the port's sparse train step from the golden's
-  initial state on ``device``: returns ``(losses, final state)`` with the
-  final state as numpy, keyed as :func:`final_state`."""
+  initial state (or ``initial``, numpy) on ``device``: returns ``(losses,
+  final state)`` with the final state as f32 numpy, keyed as
+  :func:`final_state`."""
   vocab = [int(v) for v in golden["vocab"]]
   dim = int(golden["dim"])
   plan = dlrm_embedding_plan(
@@ -194,7 +219,8 @@ def replay(golden: Dict[str, np.ndarray], device="cuda"
                top_mlp=tuple(int(w) for w in golden["top_mlp"]),
                num_numerical=golden["numerical"].shape[2],
                compute_dtype=torch.bfloat16, tables=False, device=device)
-  state = train_state_from_flax(initial_state(golden), device=device)
+  state = train_state_from_flax(
+      initial_state(golden) if initial is None else initial, device=device)
   step = make_sparse_train_step(
       model, plan, bce_loss, functools.partial(torch.optim.SGD, lr=LR),
       sgd_rule(LR))
@@ -207,7 +233,8 @@ def replay(golden: Dict[str, np.ndarray], device="cuda"
                        cats, torch.as_tensor(golden["labels"][i],
                                              device=dev))
     losses.append(float(loss))
-  got = {part: {k: v.detach().cpu().numpy() for k, v in state[part].items()}
+  got = {part: {k: v.detach().cpu().to(torch.float32).numpy()
+                for k, v in state[part].items()}
          for part in ("fused", "emb_dense", "dense")}
   return losses, got
 
@@ -236,20 +263,101 @@ def _compare(want_loss, initial, want, losses, got,
           "state_max_err_share": worst}
 
 
-def _update_share(init, want, got, part: str) -> float:
+def _update_share(init, want, got, part: str,
+                  tol: float = UPDATE_TOL) -> float:
   """The worst ``max |got - want| / max |want - init|`` over the named
-  tensors; raises naming the first above ``UPDATE_TOL``."""
+  tensors; raises naming the first above ``tol``."""
   worst = 0.0
   for name, w in want.items():
     moved = float(np.abs(w - init[name]).max())
     err = float(np.abs(got[name] - w).max())
     assert moved > 0.0, f"{part}/{name} never changed in the golden"
     share = err / moved
-    assert share <= UPDATE_TOL, (
+    assert share <= tol, (
         f"{part}/{name}: off by {err} against a largest update of "
-        f"{moved} ({share:.3%} > {UPDATE_TOL:.0%})")
+        f"{moved} ({share:.3%} > {tol:.0%})")
     worst = max(worst, share)
   return worst
+
+
+# ---------------------------------------------------------------------------
+# the narrow-storage golden
+# ---------------------------------------------------------------------------
+
+
+def _bits_entries(golden, prefix: str) -> Dict[str, np.ndarray]:
+  """bf16 entries stored as their ``uint16`` bits, as 2-byte voids (the
+  form ``np.load`` gives a bf16 array, which ``convert`` takes)."""
+  return {k: v.view("V2") for k, v in _entries(golden, prefix).items()}
+
+
+def _widened(golden, prefix: str) -> Dict[str, np.ndarray]:
+  """bf16 bits entries widened to f32 (exact)."""
+  return {k: (v.astype(np.uint32) << 16).view(np.float32)
+          for k, v in _entries(golden, prefix).items()}
+
+
+def bf16_initial_state(golden: Dict[str, np.ndarray]
+                       ) -> Dict[str, np.ndarray]:
+  """The narrow-storage golden's initial state (bf16 buffers and
+  dense-class tables, f32 dense params), ``train_state_from_flax``'s
+  input."""
+  return {"fused": _bits_entries(golden, "fused0"),
+          "emb_dense": _bits_entries(golden, "emb_dense0"),
+          "dense": flax_tree(golden, "dense0"), "step": 0}
+
+
+def replay_bf16(golden: Dict[str, np.ndarray], device="cuda"
+                ) -> Tuple[List[float], Dict[str, Dict[str, np.ndarray]]]:
+  """:func:`replay` of ``tests/data/torch_train_bf16_golden.npz``: the
+  train golden's model and batches on the JAX package's bf16 state
+  (``init_sparse_state_direct(dtype=jnp.bfloat16)``); the final state
+  comes back widened to f32."""
+  return replay(golden, device, initial=bf16_initial_state(golden))
+
+
+def _bf16_ulps(got: np.ndarray, want: np.ndarray,
+               init: np.ndarray) -> np.ndarray:
+  """``max(|got - want| - BF16_ATOL - UPDATE_TOL * |want - init|, 0)`` in
+  bf16 ulps of the larger of the two magnitudes."""
+  m = np.maximum(np.abs(got), np.abs(want))
+  ulp = np.exp2(np.floor(np.log2(np.maximum(m, 2.0 ** -126))) - 7)
+  slack = BF16_ATOL + UPDATE_TOL * np.abs(want - init)
+  return np.maximum(np.abs(got - want) - slack, 0.0) / ulp
+
+
+def compare_bf16(golden: Dict[str, np.ndarray], losses: List[float],
+                 got: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, float]:
+  """Hold a narrow-storage replay to its golden: the losses to
+  :data:`LOSS_TOL`; every bf16 table cell within :data:`BF16_ULPS` bf16
+  ulps, plus :data:`UPDATE_TOL` of its own update, plus
+  :data:`BF16_ATOL`, of the golden's (most SGD updates of these tables are
+  an ulp or two, so a share of a tensor's largest update says nothing
+  here);
+  the f32 dense params to :data:`BF16_DENSE_UPDATE_TOL` of their largest
+  update.
+  Returns the worst errors and the bit-equal share of the bf16 cells."""
+  np.testing.assert_allclose(losses, golden["losses"], **LOSS_TOL)
+  worst_ulps, cells, equal = 0.0, 0, 0
+  for part in ("fused", "emb_dense"):
+    want = _widened(golden, f"{part}3")
+    init = _widened(golden, f"{part}0")
+    assert sorted(want) == sorted(got[part]), part
+    for name, w in want.items():
+      u = _bf16_ulps(got[part][name], w, init[name])
+      assert u.max() <= BF16_ULPS, (
+          f"{part}/{name}: off by {u.max()} bf16 ulps (> {BF16_ULPS})")
+      worst_ulps = max(worst_ulps, float(u.max()))
+      cells += u.size
+      equal += int((got[part][name] == w).sum())
+  dense0 = {k: v.numpy() for k, v in dlrm_state_dict_from_flax(
+      flax_tree(golden, "dense0")).items()}
+  share = _update_share(dense0, final_state(golden)["dense"], got["dense"],
+                        "dense", BF16_DENSE_UPDATE_TOL)
+  return {"loss_max_abs_err": float(np.abs(np.asarray(losses)
+                                            - golden["losses"]).max()),
+          "table_max_ulps": worst_ulps, "table_bit_equal_share":
+          equal / cells, "dense_max_err_share": share}
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +606,8 @@ def replay_zoo(golden: Dict[str, np.ndarray], device="cuda"):
                        torch.as_tensor(golden["numerical"][i], device=dev),
                        cats, torch.as_tensor(golden["labels"][i], device=dev))
     losses.append(float(loss))
-  got = {part: {k: v.detach().cpu().numpy() for k, v in state[part].items()}
+  got = {part: {k: v.detach().cpu().to(torch.float32).numpy()
+                for k, v in state[part].items()}
          for part in ("fused", "emb_dense", "dense")}
   return losses, got
 
@@ -623,7 +732,8 @@ def replay_ragged(golden: Dict[str, np.ndarray], device="cuda"):
                        ragged_cats(golden, i, device),
                        torch.as_tensor(golden["labels"][i], device=dev))
     losses.append(float(loss))
-  got = {part: {k: v.detach().cpu().numpy() for k, v in state[part].items()}
+  got = {part: {k: v.detach().cpu().to(torch.float32).numpy()
+                for k, v in state[part].items()}
          for part in ("fused", "emb_dense", "dense")}
   return losses, got
 

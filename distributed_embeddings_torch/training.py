@@ -202,31 +202,84 @@ def _leaf(x, device) -> torch.Tensor:
   return t.clone().requires_grad_(True)
 
 
+def trained_tables(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+  """The dense-class tables the sparse step reads and its optimizer
+  updates, in ``state['emb_dense']``'s order: a bf16 table's f32 work copy
+  (``state['emb_dense_work']``), any other table itself.
+
+  Narrow storage: the JAX package's one-hot lookup of a dense class
+  returns f32 rows and takes an f32 gradient, so optax updates a bf16
+  table as ``bf16(f32(p) + f32(-lr * g))`` with ``g`` never rounded to
+  bf16. A torch leaf's gradient has the leaf's dtype, so the step reads
+  an f32 copy of each bf16 table (refreshed from the table at every step,
+  exact; its ``storage_dtype`` attribute makes the lookup emit bf16 rows,
+  as the JAX one does), its optimizer steps the copy, and the commit
+  rounds the copy into the table (:func:`_apply_dense`)."""
+  work = state.get("emb_dense_work") or {}
+  return {k: work.get(k, t) for k, t in state["emb_dense"].items()}
+
+
+def _bind_work_tables(state: Dict[str, Any]) -> None:
+  """Give every non-f32 dense-class table an f32 work copy (see
+  :func:`trained_tables`); the tables themselves then take no gradient."""
+  narrow = [k for k, t in state["emb_dense"].items()
+            if t.dtype != torch.float32]
+  work = state.get("emb_dense_work") or {}
+  if list(work) != narrow:
+    work = {k: state["emb_dense"][k].detach().to(torch.float32)
+            .requires_grad_(True) for k in narrow}
+    for k, w in work.items():  # the lookup emits rows in this type
+      w.storage_dtype = state["emb_dense"][k].dtype
+  for k in narrow:
+    state["emb_dense"][k] = state["emb_dense"][k].detach()
+  if work:
+    state["emb_dense_work"] = work
+  else:
+    state.pop("emb_dense_work", None)
+
+
+def _sync_work_tables(state: Dict[str, Any]) -> None:
+  """Refresh the f32 work copies from their bf16 tables (exact)."""
+  with torch.no_grad():
+    for k, w in (state.get("emb_dense_work") or {}).items():
+      w.copy_(state["emb_dense"][k])
+
+
 def _with_optimizers(state: Dict[str, Any], dense_optimizer: OptimizerFactory,
                      emb_dense_optimizer: Optional[OptimizerFactory]):
   """Bind the optimizers to the state's dense tensors where the state has
   none yet (a state carried across by ``convert.train_state_from_flax``
   or read by ``checkpoint.restore``), installing a carried
   :class:`OptaxState`; the dense tensors become leaves that require
-  grad. A part without tensors keeps no optimizer (None)."""
+  grad. A part without tensors keeps no optimizer (None). Non-f32
+  dense-class tables train through f32 work copies
+  (:func:`trained_tables`), which their optimizer is bound to."""
   # convert imports this module; import it at call time
   from .convert import install_optax_state
+  work_before = state.get("emb_dense_work")
+  _bind_work_tables(state)
   for part in ("dense", "emb_dense"):
     for name, t in state[part].items():
+      if part == "emb_dense" and t.dtype != torch.float32:
+        continue
       if not (t.is_leaf and t.requires_grad):
         state[part][name] = t.detach().requires_grad_(True)
   factories = {"dense": dense_optimizer,
                "emb_dense": emb_dense_optimizer or dense_optimizer}
+  tables = {"dense": state["dense"], "emb_dense": trained_tables(state)}
   for part, factory in factories.items():
     opt = state.get(f"{part}_opt")
     if opt is not None and not isinstance(opt, OptaxState):
-      continue
-    if not state[part]:
+      if part == "dense" or state.get("emb_dense_work") is work_before:
+        continue
+      # new work copies: the bound optimizer starts over on them
+      opt = None
+    if not tables[part]:
       state[f"{part}_opt"] = None
       continue
-    bound = factory(list(state[part].values()))
+    bound = factory(list(tables[part].values()))
     if opt is not None:
-      install_optax_state(bound, state[part], opt.flat)
+      install_optax_state(bound, tables[part], opt.flat)
     state[f"{part}_opt"] = bound
   state.setdefault("step", 0)
   return state
@@ -325,7 +378,8 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
                              generator: torch.Generator,
                              emb_dense_optimizer: Optional[
                                  OptimizerFactory] = None,
-                             device="cuda", mesh=None) -> Dict[str, Any]:
+                             device="cuda", mesh=None,
+                             dtype=torch.float32) -> Dict[str, Any]:
   """Build the fused train state without materializing simple-layout
   tables: every sparse class is drawn straight into its packed layout
   (``init_packed_uniform``: peak memory is the buffer plus one chunk),
@@ -334,7 +388,10 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
   state's device; the draws match the JAX package's distribution, not its
   bits. With a ``mesh`` only this rank's blocks are drawn, on the mesh's
   device (seed the generator per rank); ``dense_params`` must be the same
-  on every rank."""
+  on every rank. ``dtype`` is the tables' storage type (narrow storage:
+  ``torch.bfloat16`` stores the sparse classes' buffers, their optimizer
+  lanes and the dense classes' tables in bf16, as the JAX package's
+  ``dtype=``; the dense parameters stay f32)."""
   dev = _state_device(device, mesh)
   engine = DistributedLookup(plan)
   layouts = engine.fused_layouts(rule)
@@ -347,11 +404,13 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
       scale = init_scale_rows(plan, key, r).to(dev)
       if cp.kind == "sparse":
         blocks.append(init_packed_uniform(layouts[name], generator, scale,
-                                          rule.aux_init, device=dev))
+                                          rule.aux_init, device=dev,
+                                          dtype=dtype))
       else:
         table = torch.rand((scale.shape[0], cp.width), generator=generator,
                            device=dev)
-        blocks.append(table.mul_(2.0).sub_(1.0).mul_(scale[:, None]))
+        blocks.append(table.mul_(2.0).sub_(1.0).mul_(scale[:, None])
+                      .to(dtype))
     block = torch.cat(blocks) if len(blocks) > 1 else blocks[0]
     if cp.kind == "sparse":
       fused[name] = block
@@ -538,7 +597,7 @@ def _reduce_dense(state: Dict[str, Any], d_z, loss, mesh=None):
   alike and the loss is averaged over the ranks."""
   if mesh is not None and mesh.world > 1:
     finalize_hybrid_grads(
-        list(state["dense"].items()) + list(state["emb_dense"].items()),
+        list(state["dense"].items()) + list(trained_tables(state).items()),
         mesh)
     d_z = _scale_d_z(d_z, 1.0 / mesh.world)
     loss = _mean_over_ranks(loss, mesh)
@@ -560,6 +619,10 @@ def _apply_dense(state: Dict[str, Any], mesh=None, con_fn=None,
       if commit:
         opt.step()
       opt.zero_grad(set_to_none=True)
+  if commit:
+    with torch.no_grad():  # the f32 work copies round into their tables
+      for k, w in (state.get("emb_dense_work") or {}).items():
+        state["emb_dense"][k].copy_(w)
   if commit and con_fn is not None and state["emb_dense"]:
     con_fn(state["emb_dense"], 0 if mesh is None else mesh.rank)
 
@@ -804,7 +867,8 @@ def make_sparse_train_step(model: torch.nn.Module,
           state["fused"], layouts, ids_all, keep_rows=keep_rows,
           keep_aux=not exact)
     z_leaves = {bk: _leaf_of(z) for bk, z in z_sparse.items()}
-    acts = engine.finish_forward(z_leaves, state["emb_dense"], ids_all, b,
+    tables = trained_tables(state)
+    acts = engine.finish_forward(z_leaves, tables, ids_all, b,
                                  hotness_of, counts)
     logits = functional_call(model, state["dense"], (numerical, cats),
                              {"emb_acts": acts})
@@ -812,7 +876,7 @@ def make_sparse_train_step(model: torch.nn.Module,
     if reg_fn is not None:
       # the rank's own windows, scaled by the world to survive the
       # uniform 1 / world gradient scale, as in the JAX step
-      loss = loss + world * reg_fn(state["emb_dense"], rank)
+      loss = loss + world * reg_fn(tables, rank)
     (loss * loss_scale if loss_scale != 1.0 else loss).backward()
     d_z = {bk: _grad_of(z) for bk, z in z_leaves.items()}
     overflow = (engine.dedup_overflow_counts(ids_all) if has_dedup_cap
@@ -837,6 +901,15 @@ def make_sparse_train_step(model: torch.nn.Module,
   def step_mb(state, numerical, cats, labels):
     """Micro-batched: a loop of backwards, the streams stashed, then one
     dense reduction and one scatter per class."""
+    narrow = sorted(k for part in ("fused", "emb_dense")
+                    for k, t in state[part].items()
+                    if t.dtype != torch.float32)
+    if narrow:
+      # the JAX micro-batched step cannot carry them either: its scan
+      # accumulates f32 gradients into the bf16 tables' carry (TypeError)
+      raise NotImplementedError(
+          f"micro_batches > 1 with non-f32 tables {narrow}: narrow storage "
+          "takes the one-shot step (ROADMAP.md §1 item 7b)")
     stash: Dict[str, tuple] = {}
     loss = overflow = None
     # d_z takes 1 / (n_mb * world) as in the JAX step: 1 / n_mb from the
@@ -870,6 +943,7 @@ def make_sparse_train_step(model: torch.nn.Module,
 
   def step(state, numerical, cats, labels):
     _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+    _sync_work_tables(state)
     cats = list(cats)
     if n_mb == 1 and not guard:
       loss, d_z, residuals, _ = backward(state, numerical, cats, labels, 1.0)
@@ -926,8 +1000,8 @@ def _grads_ok(state: Dict[str, Any], guard: bool):
   if not guard:
     return None
   from .resilience.guards import all_finite
-  return all_finite([t.grad for part in ("dense", "emb_dense")
-                     for t in state[part].values() if t.grad is not None])
+  return all_finite([t.grad for part in (state["dense"], trained_tables(state))
+                     for t in part.values() if t.grad is not None])
 
 
 def make_sparse_eval_step(model: torch.nn.Module,

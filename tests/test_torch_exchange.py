@@ -127,8 +127,11 @@ def test_gather_rows_rejects_unserved_layouts():
   with pytest.raises(ValueError, match="rows_per_phys"):
     cuda_exchange.gather_rows(narrow, torch.zeros(tuple(narrow.shape)), ids)
   wide = tpt.PackedLayout(rows=8, width=128)
-  with pytest.raises(ValueError, match="float32"):
-    cuda_exchange.gather_rows(wide, buf.to(torch.bfloat16), ids)
+  # f32 and bf16 buffers are served (bf16: narrow storage), others not
+  with pytest.raises(ValueError, match="float32 or bfloat16"):
+    cuda_exchange.gather_rows(wide, buf.to(torch.float16), ids)
+  assert cuda_exchange.gather_rows(
+      wide, buf.to(torch.bfloat16), ids).dtype == torch.bfloat16
   with pytest.raises(ValueError, match="128"):
     cuda_exchange.gather_rows(wide, torch.zeros((8, 256)), ids)
   # a stride short of its physical row is served, on the whole-row buffer

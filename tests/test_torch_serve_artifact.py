@@ -312,18 +312,12 @@ def test_unported_options_are_refused(tmp_path):
   plan, tplan, state, path = _small(tmp_path)
   tstate = train_state_from_flax(state, "cpu")
   trule = torch_sparse_rule("adagrad", 0.05)
-  for kw, item in ((dict(quantize="fp8"), "item 8"),
-                   (dict(store=object()), "item 8"),
+  for kw, item in ((dict(store=object()), "item 8"),
                    (dict(vocab=object()), "item 12")):
     with pytest.raises(NotImplementedError, match=item):
       torch_export(str(tmp_path / "x"), tplan, trule, tstate, **kw)
   with pytest.raises(NotImplementedError, match="item 12"):
     torch_load(path, tplan, owned_ranks=(0,), device="cpu")
-  fp8_dir = str(tmp_path / "fp8")
-  jserving.export(fp8_dir, plan, sparse_rule("adagrad", 0.05), state,
-                  quantize="fp8")
-  with pytest.raises(NotImplementedError, match="item 8"):
-    torch_load(fp8_dir, tplan, device="cpu")
 
 
 def test_zoo_artifact_holds_the_flax_mlp_tree(tmp_path):

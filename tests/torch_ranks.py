@@ -922,3 +922,57 @@ def zoo_plan_job(mesh, spec):
   state = zoo_train_state_from_flax(spec["state"], mesh=mesh)
   return run_zoo_plan_step(spec["name"], mesh, mesh.world, state=state,
                            **spec.get("kw", {}))
+
+
+def narrow_job(mesh, spec):
+  """Narrow storage (bf16 tables) at world N: per entry of
+  ``spec['runs']`` (``name``, ``rule``, ``overlap``, ``chunks``,
+  optionally ``plan_kw`` and ``state``, the key of its initial state,
+  default the rule's) the port's state from the JAX bf16 initial state
+  (``spec['states'][state]``), SGD on the dense tensors, one step per
+  batch of ``spec['batches']``, then the eval step on ``spec['eval']``.
+  Returns per run the losses, the buffers' dtypes, the global final
+  tables and optimizer lanes as their ``uint16`` bits, the dense
+  parameters and the global predictions."""
+  import functools
+
+  import torch
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.hostarrays import numpy_of
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops import packed_table as tpt
+  from distributed_embeddings_torch.parallel import wire
+
+  out = {}
+  for run in spec["runs"]:
+    plan = _train_plan(spec, run["overlap"], run["chunks"],
+                       **run.get("plan_kw", {}))
+    model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
+                 top_mlp=spec["top"], num_numerical=spec["num"],
+                 tables=False, device="cpu")
+    rule = getattr(tpt, f"{run['rule']}_rule")(spec["lr"])
+    state = train_state_from_flax(
+        spec["states"][run.get("state", run["rule"])], mesh=mesh)
+    step = ttr.make_sparse_train_step(
+        model, plan, bce_loss,
+        functools.partial(torch.optim.SGD, lr=spec["lr"]), rule, mesh=mesh)
+    losses = []
+    for numerical, cats, labels in spec["batches"]:
+      state, loss = step(state, *ttr.shard_batch(
+          (numerical, list(cats), labels), mesh, device="cpu"))
+      losses.append(float(loss))
+    ev = ttr.make_sparse_eval_step(model, plan, rule, mesh=mesh)
+    preds = ev(state, *ttr.shard_batch(spec["eval"], mesh, device="cpu"))
+    params, aux = ttr.unpack_sparse_state(plan, rule, state,
+                                          include_aux=True, mesh=mesh)
+    out[run["name"]] = {
+        "losses": losses,
+        "dtypes": {k: str(v.dtype) for part in ("fused", "emb_dense")
+                   for k, v in state[part].items()},
+        "tables": {k: numpy_of(v) for k, v in params["embeddings"].items()},
+        "aux": {k: [numpy_of(a) for a in v] for k, v in aux.items()},
+        "dense": {k: v.detach().numpy() for k, v in state["dense"].items()},
+        "preds": wire.gather_blocks(preds, mesh).numpy()}
+  return out
