@@ -345,6 +345,28 @@ JSON line per phase:
    ten steps of a bf16 state and of an f32 state of the same values,
    losses within 1e-2) and ``bf16_ckpt`` (its bf16 state saved and
    restored bit-equal).
+12. Tiered storage (slice 18): ``tiered_golden`` (the committed JAX
+   tiered golden, three guarded Adagrad steps of ``TieredTrainer`` with a
+   spill and a re-rank, replayed through the port's: losses and tables
+   within the golden tolerances, hit counters exact); ``train_tiered``
+   (``bench.py``'s step on the 26 Criteo-1TB tables in f32 with the five
+   above ``host_row_threshold=10_000_000`` host-tier: 183,703,407 rows,
+   94.06 GB of host images, a 40 GiB device budget, staging 16,384,
+   re-rank every 8 steps, SGD 0.1, B = 65,536 power-law ids at alpha
+   1.05; ``MemTotal`` / ``MemAvailable`` first, every table cut by the
+   smallest power of two whose images fit 1/1.25 of the available RAM;
+   2 warm-up and 10 timed steps through ``TieredTrainer.run``: step
+   times, the host spans against the device window, hit rate, gather
+   bytes, spill steps, K1 and K2 against the plan); ``train_tiered_vs_
+   device`` (x 1/16: one drawn state trained all-device twice and
+   tiered once, with a 2-row staging region, so steps spill, and a
+   re-rank: losses within rtol 1e-5, the tables within K1's duplicate
+   tolerance after the first step and, at the end, no farther from the
+   all-device run than twice its twin, the bit-equal shares); ``tiered_ckpt`` (x 1/16: save, ``verify``, restore into a
+   fresh store, resume against the straight run); inside the world-4
+   phase, ``world4_tiered`` (x 1/16 on one card: four ranks, each store
+   owning its rank's images, under ``'fused'``: the first step's losses
+   equal to ``'none'``'s, K4 and K1 as ``k4_classes`` predicts).
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
@@ -354,7 +376,8 @@ train_bf16_vs_f32, dense, train_ckpt, dlrm_main_sparse, train_mb,
 train_guard, resilient, dlrm_main_mb, train_ragged, serve_ragged, zoo,
 train_zoo_mb, train_zoo_ragged, zoo_main and world-4 (sparse train, wire
 compression, ragged, guard and micro-batch, checkpoint, dense train,
-serve, bf16 tables, column slices and the zoo) phases alone: each sets
+serve, bf16 tables, column slices, the zoo and tiered storage), the
+tiered (golden, train, vs device, checkpoint) phases alone: each sets
 every counter to 0 just before each
 run of its path, reads them all just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
@@ -604,6 +627,23 @@ NARROW_VS_STEPS = 10
 NARROW_LOSS_RTOL = 1e-2
 # the world-4 narrow cell's steps per schedule (world4_bf16)
 W4_NARROW_STEPS = 3
+# tiered storage (train_tiered and the phases after it): the five
+# Criteo-1TB tables above 10 M rows host-tier, a 40 GiB device budget,
+# staging for 16,384 cold rows a class, a re-rank every 8 steps,
+# power-law ids (uniform ids would defeat any cache)
+TIERED_HOST_ROWS = 10_000_000
+TIERED_BUDGET = 40 * 2**30
+TIERED_STAGING = 16384
+TIERED_RERANK = 8
+TIERED_ALPHA = 1.05
+TIERED_WARMUP = 2
+TIERED_TIMED = 10
+TIERED_RAM_SLACK = 1.25  # host RAM needed over the images' bytes
+TIERED_VS_SCALE = 16  # train_tiered_vs_device, tiered_ckpt, world4_tiered
+TIERED_VS_STEPS = 4
+TIERED_VS_DUP_RTOL = 1e-5  # K1's: of each cell's absolute sum
+TIERED_CKPT_STEPS = 2
+W4_TIERED_STEPS = 3
 
 
 class SmokeFailure(Exception):
@@ -3061,6 +3101,10 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
     t0 = time.perf_counter()
     out["zoo"] = _w4_zoo(torch, mesh, backend)
     out["zoo"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["tiered"] = _w4_tiered(torch, mesh, backend)
+    out["tiered"]["wall_s"] = time.perf_counter() - t0
   finally:
     mesh.close()
   with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
@@ -3142,6 +3186,8 @@ def phase_world4(torch, smi: str) -> dict:
                                          [r["colslice"] for r in ranks])
   zoo_plan_totals, zoo_dense_totals = emit_zoo_world4(
       backend, smi, [r["zoo"] for r in ranks])
+  tiered_totals = emit_tiered_world4(backend, smi,
+                                     [r["tiered"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s})
   return {"train_world4": totals, "world4_ckpt": ckpt_totals,
           "train_dense_world4": dense_totals, "serve_world4": serve_totals,
@@ -3150,7 +3196,7 @@ def phase_world4(torch, smi: str) -> dict:
           "world4_colslice": colslice_totals,
           "zoo_world4_plan": zoo_plan_totals,
           "zoo_world4_dense": zoo_dense_totals,
-          "world4_bf16": narrow_totals}
+          "world4_bf16": narrow_totals, "world4_tiered": tiered_totals}
 
 
 def emit_colslice_world4(backend: str, smi: str, res: list) -> dict:
@@ -7196,6 +7242,606 @@ def emit_narrow_world4(backend: str, smi: str, narrow: list) -> dict:
   return totals
 
 
+# ---------------------------------------------------------------------------
+# tiered storage (slice 18)
+# ---------------------------------------------------------------------------
+
+
+def host_ram() -> dict:
+  """``MemTotal`` and ``MemAvailable`` of ``/proc/meminfo``, in bytes."""
+  out = {}
+  with open("/proc/meminfo") as f:
+    for line in f:
+      key, rest = line.split(":", 1)
+      if key in ("MemTotal", "MemAvailable"):
+        out[key] = int(rest.split()[0]) * 1024
+  return out
+
+
+def tiered_cut(image_bytes: int, available: int) -> int:
+  """The smallest power of two that cuts every table so that the host
+  images fit ``available`` bytes ``TIERED_RAM_SLACK`` times over."""
+  cut = 1
+  while TIERED_RAM_SLACK * image_bytes / cut > available:
+    cut *= 2
+  return cut
+
+
+def tiered_plan(vocab, cut: int = 1, **plan_kw):
+  """The train plan over ``vocab`` with the tables above
+  ``TIERED_HOST_ROWS / cut`` host-tier, the TPU's per-buffer bound lifted
+  (the five largest tables stay whole)."""
+  return train_plan(vocab, buffer_elements=None,
+                    host_row_threshold=TIERED_HOST_ROWS // cut, **plan_kw)
+
+
+def tiered_batches(vocab, n: int, b: int, seed: int) -> list:
+  """``n`` global host batches (numpy) of ``b`` samples: one-hot
+  power-law ids at ``TIERED_ALPHA`` (``models/synthetic.py:
+  power_law_ids``, id 0 the hottest), normal features, random labels."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models.synthetic import power_law_ids
+  rng = np.random.default_rng(seed)
+  out = []
+  for _ in range(n):
+    cats = [power_law_ids(rng, b, 1, v, TIERED_ALPHA)[:, 0].astype(np.int32)
+            for v in vocab]
+    out.append((rng.standard_normal((b, 13)).astype(np.float32), cats,
+                rng.integers(0, 2, b).astype(np.float32)))
+  return out
+
+
+def tiered_spans(events, steps: int, t_end_ns: int) -> dict:
+  """Per-step wall times and host spans of a traced ``TieredTrainer.run``
+  (``telemetry`` span events): a step runs from its ``tiered/stage``
+  start to the next one's (the last to ``t_end_ns``); the host spans
+  (classify, stage, dispatch, write-back, re-rank) are summed per name,
+  the device windows (``device/step``: dispatch to the write-back's
+  download) listed."""
+  starts = sorted(t0 for ph, _, name, t0, _, _ in events
+                  if ph == "X" and name == "tiered/stage")
+  check(len(starts) == steps, f"tiered trace: {len(starts)} stage spans "
+        f"for {steps} steps")
+  step_ms = [(b - a) / 1e6 for a, b in zip(starts, starts[1:] + [t_end_ns])]
+  host = {}
+  for ph, _, name, _, dur, _ in events:
+    if ph == "X" and name.startswith("tiered/"):
+      host.setdefault(name, []).append(dur / 1e6)
+  device = [dur / 1e6 for ph, _, name, _, dur, _ in events
+            if ph == "X" and name == "device/step"]
+  return {"step_ms": step_ms,
+          "host_ms": {k: {"total": sum(v), "calls": len(v),
+                          "max": max(v)} for k, v in sorted(host.items())},
+          "device_window_ms": device}
+
+
+def phase_train_tiered(torch, smi: str) -> dict:
+  """``train_tiered``: ``bench.py``'s sparse step (26 Criteo-1TB tables of
+  width 128, ``dense_row_threshold=4096``, SGD 0.1, f32, B = 65,536) with
+  the five tables above ``TIERED_HOST_ROWS`` host-tier: their f32 images
+  (94.06 GB at the full vocabulary, drawn on the card chunk by chunk and
+  downloaded) in host RAM, a hot cache sized to a ``TIERED_BUDGET`` device
+  budget and ``TIERED_STAGING`` staging rows on the card, a re-rank every
+  ``TIERED_RERANK`` steps. Every table is cut by the smallest power of two
+  whose images fit the host's ``MemAvailable`` ``TIERED_RAM_SLACK`` times
+  over (1 when they fit whole). ``TIERED_WARMUP`` steps, then
+  ``TIERED_TIMED`` traced ones through ``TieredTrainer.run``: K2 once each
+  way and K1 once per sparse class a step, finite losses, no lookup
+  missing both tiers. Returns each kernel's launches."""
+  import gc
+
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.telemetry import tracing
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredTrainer,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state,
+  )
+
+  rule = sgd_rule(TRAIN_LR)
+  cfg = TieringConfig(hbm_budget_bytes=TIERED_BUDGET,
+                      staging_grps=TIERED_STAGING,
+                      rerank_interval=TIERED_RERANK)
+  ram = host_ram()
+  full = list(CRITEO_1TB_VOCAB)
+  full_bytes = TieringPlan(tiered_plan(full), rule,
+                           cfg).host_bytes_per_rank()
+  cut = tiered_cut(full_bytes, ram["MemAvailable"])
+  vocab = [max(4, v // cut) for v in full]
+  plan = tiered_plan(vocab, cut)
+  tplan = TieringPlan(plan, rule, cfg)
+  host_tables = sorted(sh.table_id for key in plan.host_tier_class_keys()
+                       for sh in plan.classes[key].shards_per_rank[0])
+  check(len(host_tables) == 5, f"train_tiered: host-tier tables "
+        f"{host_tables}, expected the five above {TIERED_HOST_ROWS} rows")
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  table_bytes = sum(vocab) * D * 4
+  card_bytes = torch.cuda.get_device_properties(0).total_memory
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  store = HostTierStore(tplan)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = init_tiered_state(
+      tplan, store, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), image_seed=SEED,
+      image_device="cuda", device="cuda")
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  trainer = TieredTrainer(model, tplan, store, bce_loss, sgd_factory(torch),
+                          rule, None, state, device="cuda")
+  batches = tiered_batches(vocab, TIERED_WARMUP + TIERED_TIMED, TRAIN_BATCH,
+                           SEED + 11)
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  reset_counts()
+  losses = trainer.run(batches[:TIERED_WARMUP])
+  check(read_counts() == {k: v * TIERED_WARMUP for k, v in want.items()},
+        f"train_tiered warm-up: launches {read_counts()}, expected {want} "
+        "a step")
+  reset_counts()
+  torch.cuda.synchronize()
+  with tracing() as tr:
+    t0 = time.perf_counter()
+    losses += trainer.run(batches[TIERED_WARMUP:])
+    torch.cuda.synchronize()
+    t_end = time.perf_counter_ns()
+    wall_s = time.perf_counter() - t0
+  got = read_counts()
+  check(got == {k: v * TIERED_TIMED for k, v in want.items()},
+        f"train_tiered: launches {got} in {TIERED_TIMED} steps, expected "
+        f"{want} a step")
+  check(all(np.isfinite(losses)), f"train_tiered: losses {losses}")
+  spans = tiered_spans(tr.events(), TIERED_TIMED, t_end)
+  summary = trainer.metrics_summary()
+  check(all(m["missed"] == 0 for m in summary["per_class"].values()),
+        f"train_tiered: lookups missed both tiers: {summary}")
+  med = statistics.median(spans["step_ms"])
+  steps = TIERED_WARMUP + TIERED_TIMED
+  emit({"phase": "train_tiered", "card": smi, "batch": TRAIN_BATCH,
+        "host_ram": ram, "vocab_cut": cut,
+        "cut_reason": (None if cut == 1 else
+                       f"{TIERED_RAM_SLACK} x the full vocabulary's "
+                       f"{full_bytes} image bytes exceed MemAvailable"),
+        "rows": int(sum(vocab)), "host_tier_tables": host_tables,
+        "host_tier_rows": int(sum(vocab[t] for t in host_tables)),
+        "tables_f32_bytes": table_bytes, "card_bytes": card_bytes,
+        "tables_exceed_card": table_bytes > card_bytes,
+        "host_image_bytes": tplan.host_bytes_per_rank(),
+        "device_tier_bytes": plan.tier_capacity_report(0)[
+            "device_bytes_per_rank"],
+        "tiered_device_bytes": tplan.device_bytes_per_rank(),
+        "geometry": tplan.geometry(), "sparse_classes": n_sparse,
+        "init_s": init_s, "step_ms": spans["step_ms"],
+        "step_ms_median": med, "step_ms_range": [min(spans["step_ms"]),
+                                                 max(spans["step_ms"])],
+        "wall_s": wall_s, "samples_per_s": TRAIN_BATCH / (med / 1e3),
+        "host_ms": spans["host_ms"],
+        "device_window_ms": spans["device_window_ms"],
+        "hit_rate": summary["hit_rate"], "per_class": summary["per_class"],
+        "host_gather_bytes_per_step": summary["host_gather_bytes"] / steps,
+        "spill_steps": summary["spill_steps"], "steps": steps,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": want, "launches": got, "losses": losses})
+  totals = {k: v * (TIERED_WARMUP + TIERED_TIMED) for k, v in want.items()}
+  del trainer, state, store, batches
+  gc.collect()
+  torch.cuda.empty_cache()
+  return totals
+
+
+def abs_apply(layout, absum, ids, fused_delta, delta_scale=None) -> None:
+  """Add ``|delta_scale * fused_delta|`` of every occurrence into ``absum``
+  at its physical row (the lanes ``scatter_add_fused`` adds to), in plain
+  PyTorch: with the buffer's initial magnitudes, each cell's absolute sum,
+  the scale of K1's duplicate-order bound."""
+  from distributed_embeddings_torch.ops.packed_table import (
+      _grp_sub,
+      expand_phys,
+  )
+  grp, sub, _ = _grp_sub(layout, ids.reshape(-1))
+  rows = fused_delta.reshape(grp.shape[0], -1).float().abs()
+  if rows.shape[-1] != layout.phys_width:
+    rows = expand_phys(layout, rows, sub)
+  if delta_scale is not None:
+    rows = rows * abs(float(delta_scale))
+  keep = grp < absum.shape[0]
+  absum.index_add_(0, grp[keep], rows[keep])
+
+
+def tables_within_dup(torch, got, want, absum, rtol: float) -> dict:
+  """``got`` against ``want`` (f32 tensors on one device, chunked by
+  rows): every cell within ``rtol`` of its absolute sum ``absum``;
+  returns the largest difference, the bit-equal share and the verdict."""
+  worst, equal, cells, ok = 0.0, 0, 0, True
+  for r0 in range(0, want.shape[0], 1 << 16):
+    g, w = got[r0:r0 + (1 << 16)], want[r0:r0 + (1 << 16)]
+    d = (g - w).abs()
+    cells += d.numel()
+    equal += int((d == 0).sum())
+    if d.numel():
+      worst = max(worst, float(d.max()))
+    ok = ok and bool((d <= rtol * absum[r0:r0 + (1 << 16)]).all())
+  return {"max_abs_err": worst, "bit_equal_share": equal / max(1, cells),
+          "within": ok}
+
+
+def phase_train_tiered_vs_device(torch, smi: str) -> dict:
+  """``train_tiered_vs_device``: the train_tiered cell at 1/
+  ``TIERED_VS_SCALE`` of the vocabulary. One state drawn all-device
+  (``init_sparse_state_direct``) trains ``TIERED_VS_STEPS`` steps with
+  ``make_sparse_train_step`` twice (runs A and B: the card's own
+  run-to-run spread) and, from a copy moved onto tiering
+  (``init_tiered_state_from_fused``: a cache of half of each host-tier
+  class, a 2-row staging region so steps spill, a re-rank every 3 steps),
+  once through ``TieredTrainer`` (run T), all on the same power-law
+  batches. Losses within rtol 1e-5 / atol 1e-6. After the first step
+  (one apply from one state) every sparse table cell of T, the host-tier
+  ones reconciled, lies within ``TIERED_VS_DUP_RTOL`` of its absolute sum
+  of A's (K1's duplicate tolerance: the initial magnitude plus every
+  occurrence's absolute delta, summed in plain PyTorch beside A's
+  applies; K1 adds duplicates in its atomics' order). Later steps feed
+  those last bits back through the model in both runs alike, so at the
+  end each table's largest |T - A| must stay within twice its largest
+  |B - A|. The bit-equal shares are reported. Returns T's launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel import lookup_engine
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredTrainer,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state_from_fused,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+      shard_batch,
+  )
+
+  vocab = [max(4, v // TIERED_VS_SCALE) for v in CRITEO_1TB_VOCAB]
+  plan = tiered_plan(vocab, TIERED_VS_SCALE)
+  rule = sgd_rule(TRAIN_LR)
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED + 3), device="cuda")
+  twin = twin_state(state)
+  tplan = TieringPlan(plan, rule, TieringConfig(
+      cache_fraction=0.5, staging_grps=2, rerank_interval=3))
+  store = HostTierStore(tplan)
+  tiered = init_tiered_state_from_fused(tplan, store, twin_state(state))
+  absum = {k: v.abs() for k, v in state["fused"].items()}
+  trainer = TieredTrainer(model, tplan, store, bce_loss, sgd_factory(torch),
+                          rule, None, tiered, device="cuda")
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                rule)
+  batches = tiered_batches(vocab, TIERED_VS_STEPS, TRAIN_BATCH, SEED + 13)
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  totals = expect()
+  losses = {"A": [], "B": [], "T": []}
+  absum_of = {state["fused"][k].data_ptr(): v for k, v in absum.items()}
+  apply = lookup_engine.scatter_add_fused
+
+  def apply_and_sum(layout, buf, ids, fused_delta, delta_scale=None):
+    abs_apply(layout, absum_of[buf.data_ptr()], ids, fused_delta,
+              delta_scale)
+    return apply(layout, buf, ids, fused_delta, delta_scale=delta_scale)
+
+  def tiered_table(name):
+    if name in tplan.tier_specs:
+      return torch.from_numpy(store.images[name][0]).to("cuda")
+    return trainer.state["fused"][name]
+
+  first = {}
+  for i, batch in enumerate(batches):
+    lookup_engine.scatter_add_fused = apply_and_sum
+    try:
+      state, loss = step(state, *shard_batch(batch, device="cuda"))
+    finally:
+      lookup_engine.scatter_add_fused = apply
+    losses["A"].append(float(loss))
+    twin, loss = step(twin, *shard_batch(batch, device="cuda"))
+    losses["B"].append(float(loss))
+    reset_counts()
+    losses["T"].append(trainer.step(*batch))
+    got = read_counts()
+    check(got == want, f"train_tiered_vs_device step {i}: launches {got}, "
+          f"expected {want}")
+    add_counts(totals, got)
+    if i == 0:
+      trainer.flush()
+      for name, buf in state["fused"].items():
+        first[name] = tables_within_dup(torch, tiered_table(name), buf,
+                                        absum[name], TIERED_VS_DUP_RTOL)
+        check(first[name]["within"], f"train_tiered_vs_device {name}: off "
+              f"by {first[name]['max_abs_err']} after the first step, past "
+              f"{TIERED_VS_DUP_RTOL} of a cell's absolute sum")
+  for run in ("B", "T"):
+    check(np.allclose(losses[run], losses["A"], rtol=1e-5, atol=1e-6),
+          f"train_tiered_vs_device: run {run}'s losses {losses[run]} vs "
+          f"{losses['A']}")
+  trainer.flush()
+  tables = {}
+  for name, buf in state["fused"].items():
+    t = tables_within_dup(torch, tiered_table(name), buf, absum[name],
+                          TIERED_VS_DUP_RTOL)
+    b = tables_within_dup(torch, twin["fused"][name], buf, absum[name],
+                          TIERED_VS_DUP_RTOL)
+    tables[name] = {"first_step": first[name], "tiered_vs_A": t,
+                    "twin_B_vs_A": b}
+    check(t["max_abs_err"] <= 2 * b["max_abs_err"],
+          f"train_tiered_vs_device {name}: the tiered run is off by "
+          f"{t['max_abs_err']}, more than twice the all-device twin's "
+          f"{b['max_abs_err']}")
+  summary = trainer.metrics_summary()
+  check(summary["spill_steps"] >= 1,
+        f"train_tiered_vs_device: no step spilled ({summary})")
+  emit({"phase": "train_tiered_vs_device", "card": smi,
+        "vocab_scale": f"1/{TIERED_VS_SCALE}", "batch": TRAIN_BATCH,
+        "steps": TIERED_VS_STEPS, "geometry": tplan.geometry(),
+        "losses": losses,
+        "losses_bit_equal": losses["T"] == losses["A"],
+        "tables": tables, "tolerance": (
+            f"first step: {TIERED_VS_DUP_RTOL} of each cell's absolute "
+            "sum (initial magnitude + every occurrence's absolute delta); "
+            "end: max |T - A| <= 2 max |B - A|"),
+        "spill_steps": summary["spill_steps"], "reranks": 1,
+        "hit_rate": summary["hit_rate"], "launches_per_step": want})
+  del trainer, state, twin, tiered, store, absum, step
+  torch.cuda.empty_cache()
+  return totals
+
+
+def phase_tiered_golden(torch) -> dict:
+  """``tiered_golden``: the committed JAX tiered golden replayed through
+  the port's ``TieredTrainer`` on the card; returns the launches."""
+  from distributed_embeddings_torch import train_golden
+
+  golden = train_golden.load(train_golden.TIERED_PATH)
+  reset_counts()
+  losses, summary, got = train_golden.replay_tiered(golden, device="cuda")
+  counts = read_counts()
+  try:
+    worst = train_golden.compare_tiered(golden, losses, summary, got)
+  except AssertionError as exc:
+    raise SmokeFailure(f"tiered_golden: {exc}") from exc
+  for name in ("apply_rows", "interact_fwd", "interact_bwd"):
+    check(counts[name] > 0, f"tiered_golden never launched {name}")
+  emit({"phase": "tiered_golden", "losses": losses,
+        "want_losses": [float(v) for v in golden["losses"]], **worst,
+        "per_class": summary["per_class"],
+        "spill_steps": summary["spill_steps"],
+        "loss_tol": train_golden.LOSS_TOL,
+        "update_tol": train_golden.UPDATE_TOL, "launches": counts})
+  return counts
+
+
+def phase_tiered_ckpt(torch, smi: str) -> dict:
+  """``tiered_ckpt``: the train_tiered cell at 1/``TIERED_VS_SCALE``
+  (images drawn on the card): ``TIERED_CKPT_STEPS`` steps,
+  ``checkpoint.save(store=)``, ``verify``, ``restore`` into a fresh store
+  and state (images, resident sets and counts bit-equal to the saved
+  ones), ``TIERED_CKPT_STEPS`` more, against the straight run: the first
+  resumed loss bit-equal, every one within K1's 1e-5 (the later steps
+  add duplicates in K1's atomics' order), the bit-equal verdict
+  reported. Returns the launches."""
+  import math
+  import shutil
+  import tempfile
+
+  import numpy as np
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredTrainer,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state,
+  )
+
+  vocab = [max(4, v // TIERED_VS_SCALE) for v in CRITEO_1TB_VOCAB]
+  plan = tiered_plan(vocab, TIERED_VS_SCALE)
+  rule = sgd_rule(TRAIN_LR)
+  cfg = TieringConfig(cache_fraction=0.5, staging_grps=1024,
+                      rerank_interval=TIERED_CKPT_STEPS)
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  totals = expect()
+
+  def fresh(seed):
+    tplan = TieringPlan(plan, rule, cfg)
+    store = HostTierStore(tplan)
+    state = init_tiered_state(
+        tplan, store, rule, model.state_dict(), sgd_factory(torch),
+        torch.Generator(device="cuda").manual_seed(seed), image_seed=seed,
+        image_device="cuda", device="cuda")
+    return tplan, store, TieredTrainer(model, tplan, store, bce_loss,
+                                       sgd_factory(torch), rule, None, state,
+                                       device="cuda")
+
+  def run(trainer, todo):
+    reset_counts()
+    losses = trainer.run(todo)
+    add_counts(totals, read_counts())
+    check(all(math.isfinite(v) for v in losses), f"tiered_ckpt: {losses}")
+    return losses
+
+  batches = tiered_batches(vocab, 2 * TIERED_CKPT_STEPS, TRAIN_BATCH,
+                           SEED + 17)
+  tplan, store, a = fresh(SEED)
+  run(a, batches[:TIERED_CKPT_STEPS])
+  root = tempfile.mkdtemp(prefix="chip_smoke_tiered_ckpt_")
+  path = f"{root}/ckpt"
+  t0 = time.perf_counter()
+  checkpoint.save(path, plan, rule, a.state, store=store)
+  save_s = time.perf_counter() - t0
+  nbytes, nfiles = dir_bytes(path)
+  saved = {f"{part}/{name}": np.asarray(getattr(store, part)[name][0]).copy()
+           for part in ("images", "resident_grps", "counts")
+           for name in tplan.tier_specs}
+  saved_fused = {k: v.clone() for k, v in a.state["fused"].items()}
+  t0 = time.perf_counter()
+  problems = checkpoint.verify(path)
+  verify_s = time.perf_counter() - t0
+  check(problems == [], f"tiered_ckpt: verify found {problems}")
+  straight = run(a, batches[TIERED_CKPT_STEPS:])
+  del a
+  _, store_b, b = fresh(SEED + 1)
+  t0 = time.perf_counter()
+  b.state = checkpoint.restore(path, plan, rule, b.state, store=store_b,
+                               device="cuda", verify_integrity=False)
+  b.prefetcher.refresh_resident()
+  torch.cuda.synchronize()
+  restore_s = time.perf_counter() - t0
+  for key, want in saved.items():
+    part, name = key.split("/", 1)
+    check(np.array_equal(np.asarray(getattr(store_b, part)[name][0]), want),
+          f"tiered_ckpt: restored {key} differs from the saved one")
+  for k, v in saved_fused.items():
+    # a tiered buffer's staging region is scratch; its cache region is
+    # state
+    keep = (tplan.tier_specs[k].cache_grps if k in tplan.tier_specs
+            else v.shape[0])
+    check(torch.equal(b.state["fused"][k][:keep], v[:keep]),
+          f"tiered_ckpt: restored buffer {k} differs from the saved one")
+  shutil.rmtree(root)
+  resumed = run(b, batches[TIERED_CKPT_STEPS:])
+  check(resumed[0] == straight[0], f"tiered_ckpt: first resumed loss "
+        f"{resumed[0]} != straight {straight[0]}")
+  check(all(abs(r - w) <= 1e-5 * max(1.0, abs(w))
+            for r, w in zip(resumed, straight)),
+        f"tiered_ckpt: resumed {resumed} left the straight {straight}")
+  emit({"phase": "tiered_ckpt", "card": smi,
+        "vocab_scale": f"1/{TIERED_VS_SCALE}", "batch": TRAIN_BATCH,
+        "host_image_bytes": tplan.host_bytes_per_rank(), "bytes": nbytes,
+        "files": nfiles, "save_s": save_s, "verify_s": verify_s,
+        "restore_s": restore_s, "restored_bit_equal": True,
+        "losses_resumed": resumed, "losses_straight": straight,
+        "losses_bit_equal": resumed == straight})
+  del b, store_b, saved, saved_fused
+  torch.cuda.empty_cache()
+  return totals
+
+
+def _w4_tiered(torch, mesh, backend: str) -> dict:
+  """``world4_tiered`` in this rank: the world-4 plan (x 1/``W4_VOCAB_
+  SCALE``) with its tables above ``TIERED_HOST_ROWS`` (cut alike)
+  host-tier, this rank's store owning its images, one drawn state trained
+  under ``'fused'`` (``W4_TIERED_STEPS`` steps of the power-law global
+  batch through ``TieredTrainer``) and, from the same draws, one step
+  under ``'none'``: the first losses equal, K4 and K1 launched as
+  ``k4_classes`` predicts for the plan, K2 once each way."""
+  import math
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredTrainer,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state,
+  )
+
+  dev = mesh.device
+  scale = W4_VOCAB_SCALE[backend]
+  rule = sgd_rule(TRAIN_LR)
+  cfg = TieringConfig(cache_fraction=0.5, staging_grps=4096,
+                      rerank_interval=2)
+  batch = w4_host_batch(torch, world4_plan(backend)[0], TIERED_ALPHA)
+  out = {"vocab_scale": f"1/{scale}"}
+  totals = expect()
+  for overlap in ("fused", "none"):
+    vocab, plan = world4_plan(backend, overlap,
+                              host_row_threshold=TIERED_HOST_ROWS // scale)
+    tplan = TieringPlan(plan, rule, cfg)
+    store = HostTierStore(tplan, owned_ranks=(mesh.rank,))
+    model = DLRM(vocab, D, tables=False, device=dev,
+                 generator=torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    state = init_tiered_state(
+        tplan, store, rule, model.state_dict(), sgd_factory(torch),
+        torch.Generator(device=dev).manual_seed(SEED + 1 + mesh.rank),
+        mesh=mesh, image_seed=SEED, image_device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    trainer = TieredTrainer(model, tplan, store, bce_loss,
+                            sgd_factory(torch), rule, mesh, state)
+    k4 = k4_launches_per_step(plan) if overlap == "fused" else 0
+    want = expect(gather_rows=k4, apply_rows=len(state["fused"]),
+                  interact_fwd=1, interact_bwd=1)
+    steps = W4_TIERED_STEPS if overlap == "fused" else 1
+    ms, losses = [], []
+    for i in range(steps):
+      reset_counts()
+      torch.cuda.synchronize(dev)
+      t0 = time.perf_counter()
+      losses.append(trainer.step(*batch))
+      ms.append((time.perf_counter() - t0) * 1e3)
+      got = read_counts()
+      check(got == want, f"world4_tiered {overlap} rank {mesh.rank} step "
+            f"{i}: launches {got}, expected {want}")
+      add_counts(totals, got)
+      check(math.isfinite(losses[-1]), f"world4_tiered {overlap} rank "
+            f"{mesh.rank} step {i}: loss {losses[-1]}")
+    summary = trainer.metrics_summary()
+    out[overlap] = {"losses": losses, "step_ms": ms, "init_s": init_s,
+                    "launches_per_step": want,
+                    "host_image_bytes": sum(
+                        store.images[n][mesh.rank].nbytes
+                        for n in tplan.tier_specs),
+                    "hit_rate": summary["hit_rate"],
+                    "spill_steps": summary["spill_steps"],
+                    "host_gather_bytes": summary["host_gather_bytes"]}
+    del trainer, state, store
+    torch.cuda.empty_cache()
+  check(out["fused"]["losses"][0] == out["none"]["losses"][0],
+        f"world4_tiered rank {mesh.rank}: fused loss "
+        f"{out['fused']['losses'][0]} != none {out['none']['losses'][0]}")
+  out["launches"] = totals
+  return out
+
+
+def emit_tiered_world4(backend: str, smi: str, res: list) -> dict:
+  """The ``world4_tiered`` line from the ranks' :func:`_w4_tiered`
+  results; returns each kernel's launches summed over the ranks."""
+  totals = expect()
+  for r in res:
+    add_counts(totals, r.pop("launches"))
+  check(all(r["fused"]["losses"] == res[0]["fused"]["losses"] for r in res),
+        "world4_tiered: the ranks' losses differ")
+  emit({"phase": "world4_tiered", "backend": backend, "card": smi,
+        "vocab_scale": res[0]["vocab_scale"], "global_batch": W4_BATCH,
+        "alpha": TIERED_ALPHA, "losses": res[0]["fused"]["losses"],
+        "first_loss_equals_none": True,
+        "step_ms_by_rank": [r["fused"]["step_ms"] for r in res],
+        "init_s_by_rank": [r["fused"]["init_s"] for r in res],
+        "host_image_bytes_by_rank": [r["fused"]["host_image_bytes"]
+                                     for r in res],
+        "host_gather_bytes_by_rank": [r["fused"]["host_gather_bytes"]
+                                      for r in res],
+        "hit_rate": res[0]["fused"]["hit_rate"],
+        "spill_steps": res[0]["fused"]["spill_steps"],
+        "launches_per_step_per_rank": [r["fused"]["launches_per_step"]
+                                       for r in res],
+        "launches": totals})
+  return totals
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   source = BF16_FORMS.get(name, name)
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}.cu",
@@ -7294,6 +7940,13 @@ def main() -> int:
   by_path["train_bf16_tables"] = phase_train_bf16(torch, smi)
   by_path["train_bf16_vs_f32"] = phase_train_bf16_vs_f32(torch, smi)
   torch.cuda.empty_cache()
+  # tiered storage: f32 tables past the card's memory, host-RAM images
+  by_path["tiered_golden"] = phase_tiered_golden(torch)
+  by_path["train_tiered"] = phase_train_tiered(torch, smi)
+  by_path["train_tiered_vs_device"] = phase_train_tiered_vs_device(torch,
+                                                                   smi)
+  by_path["tiered_ckpt"] = phase_tiered_ckpt(torch, smi)
+  torch.cuda.empty_cache()
   for compute in ("f32", "bf16"):
     by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
                                                           compute)
@@ -7356,7 +8009,12 @@ def main() -> int:
                       ("world4_ragged", W4_KERNELS),
                       ("world4_colslice", W4_KERNELS + ("build_delta_rows",)),
                       ("zoo_world4_plan", ("build_delta_rows",
-                                           "apply_rows"))):
+                                           "apply_rows")),
+                      ("tiered_golden", dlrm_sparse + ("build_delta_rows",)),
+                      ("train_tiered", dlrm_sparse),
+                      ("train_tiered_vs_device", dlrm_sparse),
+                      ("tiered_ckpt", dlrm_sparse),
+                      ("world4_tiered", W4_KERNELS)):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

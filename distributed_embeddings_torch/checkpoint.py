@@ -37,10 +37,16 @@ publishes; barriers over the process group order the steps, and every
 exception still reaches them. :func:`restore` reads it back (rank 0
 verifies, every rank reads only its own blocks).
 
-Not ported (refused by name): host-tier stores (``store=``, ROADMAP.md
-§1 item 8), the dynamic vocabulary and the stream section (``vocab=``,
-``stream=``, item 12), and the elastic re-shard of a checkpoint onto
-another world (item 11). The ``telemetry`` section (a metrics registry's
+Tiered plans (``tiering/``) pass their ``HostTierStore`` as ``store=``:
+the cold images are written per owned rank as ``cold_<class>_r<rank>.npy``
+with the resident sets and counts in ``tiering.npz`` (``tiering_p<rank>.npz``
+per rank at world N) and the manifest's ``tiering`` section, as the JAX
+package writes them, and :func:`restore` loads them into the store.
+
+Not ported (refused by name): the dynamic vocabulary and the stream
+section (``vocab=``, ``stream=``, ROADMAP.md §1 item 12), and the elastic
+re-shard of a checkpoint onto another world, cold images included (item
+11). The ``telemetry`` section (a metrics registry's
 state) is written and read as the JAX package does.
 """
 
@@ -341,13 +347,9 @@ def publish_manifest_last(tmp: str, path: str,
 # ---------------------------------------------------------------------------
 
 
-def refuse_unported(store, vocab, stream) -> None:
+def refuse_unported(vocab, stream) -> None:
   """The arguments of the subsystems not ported yet, each refused naming
   its ROADMAP item (``resilience.durable`` refuses them alike)."""
-  if store is not None:
-    raise NotImplementedError(
-        "store= (a host-tier HostTierStore): tiered checkpoints are not "
-        "ported yet (ROADMAP.md §1 item 8)")
   if vocab is not None:
     raise NotImplementedError(
         "vocab= (a dynamic-vocabulary translator): its id space is not "
@@ -397,6 +399,76 @@ def blocks_on_root(block: torch.Tensor, mesh) -> Optional[np.ndarray]:
   if isinstance(parts[0], torch.Tensor):
     return torch.cat(parts)
   return np.concatenate(parts)
+
+
+def _device_layouts(plan, rule, store):
+  """``(layouts, tiered class names)``: the packed layouts of the classes
+  whose device buffers a checkpoint holds (every sparse class but the
+  ``store``'s host-tier ones, which it holds as cold images)."""
+  tiered = (frozenset(store.tplan.tier_specs) if store is not None
+            else frozenset())
+  return ({name: lay for name, lay in
+           DistributedLookup(plan).fused_layouts(rule).items()
+           if name not in tiered}, tiered)
+
+
+def _write_tier_blocks(tmp: str, store, seal, rank: Optional[int]) -> None:
+  """Write this process's share of a tiered checkpoint into ``tmp`` (the
+  JAX package's ``_write_tier_blocks``): per owned rank of each host-tier
+  class the cold image as ``cold_<class>_r<rank>.npy``, and one tier-state
+  npz of the owned ranks' resident sets and observed counts,
+  ``tiering.npz`` from a store that owns every rank, ``tiering_p<rank>.npz``
+  from a world-N process's store (restore merges them). Every file goes
+  through ``seal``."""
+  flat = {}
+  for name in sorted(store.tplan.tier_specs):
+    for r in store.owned_ranks:
+      fpath = os.path.join(tmp, f"cold_{name}_r{r}.npy")
+      hostarrays.save_npy(fpath, store.images[name][r])
+      seal(fpath)
+      flat[f"{name}/r{r}/resident_grps"] = store.resident_grps[name][r]
+      flat[f"{name}/r{r}/counts"] = store.counts[name][r]
+  fpath = os.path.join(tmp, "tiering.npz" if store.owns_all
+                       else f"tiering_p{0 if rank is None else rank}.npz")
+  hostarrays.savez(fpath, flat)
+  seal(fpath)
+
+
+def _load_tier_state_flat(path: str) -> Dict[str, np.ndarray]:
+  """Merge every ``tiering*.npz`` under ``path`` (one file from a
+  fully-owned save, per-owner files from a sharded one)."""
+  flat: Dict[str, np.ndarray] = {}
+  for fn in sorted(os.listdir(path)):
+    if fn == "tiering.npz" or (fn.startswith("tiering_p")
+                               and fn.endswith(".npz")):
+      with np.load(os.path.join(path, fn)) as z:
+        flat.update({k: np.asarray(v) for k, v in z.items()})
+  return flat
+
+
+def _restore_tier_state(path: str, store, tiered_names) -> None:
+  """Load a tiered checkpoint into ``store``: the owned ranks' cold
+  images, and EVERY rank's resident sets and counts (the bookkeeping is
+  replicated, merged from the per-owner npz files)."""
+  flat = _load_tier_state_flat(path)
+  owned = frozenset(store.owned_ranks)
+  for name in sorted(tiered_names):
+    for rank in range(store.plan.world_size):
+      if rank in owned:
+        store.set_image(name, rank, np.load(
+            os.path.join(path, f"cold_{name}_r{rank}.npy")))
+      key = f"{name}/r{rank}/resident_grps"
+      if key not in flat:
+        raise ValueError(
+            f"checkpoint {path!r} carries no tier state for class {name!r} "
+            f"rank {rank} (its tiering*.npz files are incomplete)")
+      grps = np.asarray(flat[key], np.int32)
+      rmap = store.resident_map[name][rank]
+      rmap[:] = -1
+      rmap[grps] = np.arange(grps.shape[0], dtype=np.int32)
+      store.resident_grps[name][rank] = grps
+      store.counts[name][rank] = np.asarray(
+          flat[f"{name}/r{rank}/counts"], np.int64)
 
 
 def _npz_parts(state: Dict[str, Any], mesh, rank: Optional[int]
@@ -463,19 +535,31 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
   when any rank failed). ``extra`` (JSON) rides the manifest, and so does
   ``telemetry`` (a ``telemetry.MetricsRegistry``, or its captured
   ``state_dict()``), as the manifest's ``telemetry`` section in the JAX
-  package's spelling (rank 0's registry at world N)."""
-  refuse_unported(store, vocab, stream)
+  package's spelling (rank 0's registry at world N).
+
+  A tiered plan (``tiering/``) passes the run's ``HostTierStore`` (or a
+  ``TierStoreSnapshot``) as ``store``: the resident rows are flushed from
+  the device caches into the host images first, then every owned rank's
+  cold image is written as ``cold_<class>_r<rank>.npy`` with the resident
+  sets and observed counts in ``tiering.npz`` (``tiering_p<rank>.npz`` from
+  each rank at world N), and the manifest's ``tiering`` section records the
+  tier geometry; the compact device buffers are not saved."""
+  refuse_unported(vocab, stream)
   if getattr(plan, "oov", "clip") == "allocate":
     raise NotImplementedError(
         "plan.oov='allocate': the dynamic id space is not ported yet "
         "(ROADMAP.md §1 item 12, dynvocab)")
-  if plan.host_tier_class_keys():
-    raise NotImplementedError(
-        "plan has host-tier classes: tiered checkpoints are not ported "
-        "yet (ROADMAP.md §1 item 8)")
+  if store is None and plan.host_tier_class_keys():
+    raise ValueError(
+        "plan has host-tier classes but no HostTierStore was passed: "
+        "saving only the compact device buffers would drop the cold rows "
+        "(the authoritative majority of the weights). Pass the run's "
+        "store via save(..., store=store).")
   rank = _state_rank(plan, mesh)
   p0 = rank in (None, 0)
-  layouts = DistributedLookup(plan).fused_layouts(rule)
+  layouts, tiered_names = _device_layouts(plan, rule, store)
+  if store is not None:
+    store.flush(state["fused"])
   parts = _npz_parts(state, mesh, rank)  # collective at world N
   # a registry is captured here (a consistent point-in-time state); an
   # already-captured dict (async snapshots) passes through
@@ -536,6 +620,8 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
       fpath = os.path.join(tmp, f"{part}.npz")
       hostarrays.savez(fpath, flat)
       _seal(fpath)
+    if store is not None:
+      _write_tier_blocks(tmp, store, _seal, rank)
     with open(os.path.join(tmp, f"DONE_p{me}"), "w") as f:
       json.dump(local_crcs, f)  # the marker carries this writer's crcs
   except BaseException as e:
@@ -581,6 +667,8 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
     }
     if extra is not None:
       manifest["extra"] = extra
+    if store is not None:
+      manifest["tiering"] = {"classes": store.tplan.geometry()}
     if telemetry_meta is not None:
       manifest["telemetry"] = telemetry_meta
     publish_manifest_last(tmp, path, manifest)
@@ -634,7 +722,7 @@ def _verify_on_root(path: str, rank: Optional[int]) -> None:
 
 
 def _check_manifest(manifest: Dict[str, Any], plan, rule,
-                    layouts) -> None:
+                    layouts, store=None) -> None:
   """Format, rule, plan and physical shapes against the restoring run,
   with the JAX package's messages. A plan the JAX package would re-shard
   elastically is refused naming ROADMAP item 11."""
@@ -669,12 +757,22 @@ def _check_manifest(manifest: Dict[str, Any], plan, rule,
         f"re-sharded ({reason}): re-create the DistEmbeddingStrategy "
         f"with the same tables (differs in {detail})")
   saved_tiering = manifest.get("tiering", {}).get("classes", {})
-  if saved_tiering:
+  tiered_names = _device_layouts(plan, rule, store)[1]
+  if set(saved_tiering) != set(tiered_names):
     raise ValueError(
         f"checkpoint tiering mismatch: saved host-tier classes "
-        f"{sorted(saved_tiering)}, restoring with [] — pass the matching "
-        "HostTierStore (tiered checkpoint) or none (all-device "
-        "checkpoint)")
+        f"{sorted(saved_tiering)}, restoring with {sorted(tiered_names)} — "
+        "pass the matching HostTierStore (tiered checkpoint) or none "
+        "(all-device checkpoint)")
+  if store is not None:
+    geometry = store.tplan.geometry()
+    for name, meta in saved_tiering.items():
+      if meta != geometry[name]:
+        raise ValueError(
+            f"checkpoint class {name!r} tier geometry {meta} does not "
+            f"match the current TieringPlan {geometry[name]}: rebuild the "
+            "TieringConfig with the saving run's budget/cache/staging "
+            "settings")
   if manifest.get("vocab") is not None:
     raise ValueError(
         "checkpoint carries a dynamic-vocabulary ('vocab') section but "
@@ -748,16 +846,24 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   with the JAX package's messages, and each rank memory-maps only its own
   ``fused_*_r<rank>.npy`` files. With ``telemetry`` (a
   ``telemetry.MetricsRegistry``) the manifest's ``telemetry`` section, if
-  any, is loaded into it."""
+  any, is loaded into it.
+
+  A tiered checkpoint needs ``store`` (a ``HostTierStore`` whose
+  ``TieringPlan`` geometry matches the saving run's; the JAX package's
+  "tiering mismatch" and "tier geometry" refusals otherwise): the owned
+  ranks' cold images and every rank's resident sets and counts are loaded
+  into it, and the host-tier classes' compact device buffers are rebuilt
+  from the restored resident sets (a ``TieredPrefetcher`` bound to the
+  store then needs ``refresh_resident()``)."""
   # convert and training import this module's neighbours; import at call
   # time
   from .convert import dense_state_dict_from_flax
   from .serving.export import _unflatten_paths
   from .training import OptaxState, _with_optimizers, rebind_optimizer
-  refuse_unported(store, vocab, stream)
+  refuse_unported(vocab, stream)
   rank = _state_rank(plan, mesh)
   dev = mesh.device if mesh is not None else resolve_device(device)
-  layouts = DistributedLookup(plan).fused_layouts(rule)
+  layouts, tiered_names = _device_layouts(plan, rule, store)
   if not os.path.exists(os.path.join(path, "manifest.json")) \
       and os.path.exists(os.path.join(path + ".old", "manifest.json")):
     # a crash between save()'s two renames leaves only the backup
@@ -766,7 +872,7 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
     _verify_on_root(path, rank)
   with open(os.path.join(path, "manifest.json")) as f:
     manifest = json.load(f)
-  _check_manifest(manifest, plan, rule, layouts)
+  _check_manifest(manifest, plan, rule, layouts, store)
   if telemetry is not None and manifest.get("telemetry") is not None:
     # REPLACES the named metrics' values: a resume continues the run's
     # counts rather than adding to what this process observed so far
@@ -784,6 +890,9 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
     host = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
     fused[name] = host.to(dev, copy=True)
     del blocks, host
+  if store is not None:
+    _restore_tier_state(path, store, tiered_names)
+    fused.update(store.build_fused(mesh, dev))
 
   dense_like = state_like["dense"]
   dense_flat = _read_npz(path, "dense")

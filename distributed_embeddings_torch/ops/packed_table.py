@@ -17,8 +17,11 @@ physical-row form of narrow multi-hot classes), the uniform packed init,
 the fused scatter-add (:func:`scatter_add_fused`, kernel K1 on the card)
 and the ``sgd``/``adagrad``/``momentum``/``adam`` rules with the
 ``delta_lanes`` twins and host scalars that the fused delta build
-(``ops/cuda_delta.py``, kernel K6) takes. The host cold-store helpers
-(tiering) are not ported yet.
+(``ops/cuda_delta.py``, kernel K6) takes, and the host cold-store helpers
+of the tiering subsystem (numpy images in the same physical layout:
+:func:`host_gather_rows`, :func:`host_scatter_rows`, the numpy draw
+:func:`init_host_store` and :func:`init_host_store_device`, which draws on
+the card chunk by chunk and downloads each chunk into the image).
 """
 
 from __future__ import annotations
@@ -291,6 +294,132 @@ def scatter_add_fused(layout: PackedLayout, buf: torch.Tensor,
     flat = expand_phys(layout, flat, sub)
   flat = flat.to(buf.dtype).contiguous()
   return apply_rows(buf, grp.contiguous(), flat, delta_scale)
+
+
+# ---------------------------------------------------------------------------
+# Host cold-store blocks (tiering subsystem)
+# ---------------------------------------------------------------------------
+#
+# The host tier stores a class's FULL packed image, in the same physical
+# layout as the device buffer (physical rows of phys_width lanes, optimizer
+# state interleaved), as one numpy array per rank in host RAM. Moving rows
+# between tiers is a block copy at physical-row granularity: the staging
+# rows a step uploads are bit-identical to what an all-device run holds at
+# those rows. The helpers take physical-row ids, the granularity the
+# hot/cold split classifies at.
+
+
+def host_gather_rows(layout: PackedLayout, store: np.ndarray,
+                     grps: np.ndarray) -> np.ndarray:
+  """Cold-block gather: ``store[grps]`` with bounds validation.
+
+  ``store``: the rank's host image ``[phys_rows, phys_width]``;
+  ``grps``: int physical-row ids (unique and in range: the prefetcher
+  dedups before gathering, and a silent clamp here would turn a routing
+  bug into wrong training)."""
+  grps = np.asarray(grps)
+  if grps.size and (grps.min() < 0 or grps.max() >= layout.phys_rows):
+    raise IndexError(
+        f"cold gather out of range: grps in [{grps.min()}, {grps.max()}] "
+        f"for a {layout.phys_rows}-physical-row store")
+  if store.shape != (layout.phys_rows, layout.phys_width):
+    raise ValueError(
+        f"host store shape {store.shape} does not match layout "
+        f"{(layout.phys_rows, layout.phys_width)}")
+  return np.ascontiguousarray(store[grps])
+
+
+def host_scatter_rows(layout: PackedLayout, store: np.ndarray,
+                      grps: np.ndarray, rows: np.ndarray) -> None:
+  """Cold-block write-back: ``store[grps] = rows`` in place.
+
+  Overwrite (not add): the device staging region accumulated every
+  occurrence's scatter-add delta during the step, so its rows ARE the new
+  authoritative values. ``grps`` must be unique."""
+  grps = np.asarray(grps)
+  if grps.size and (grps.min() < 0 or grps.max() >= layout.phys_rows):
+    raise IndexError(
+        f"cold scatter out of range: grps in [{grps.min()}, {grps.max()}] "
+        f"for a {layout.phys_rows}-physical-row store")
+  if rows.shape != (grps.shape[0], layout.phys_width):
+    raise ValueError(
+        f"cold scatter rows shape {rows.shape}, expected "
+        f"{(grps.shape[0], layout.phys_width)}")
+  store[grps] = rows
+
+
+def init_host_store(layout: PackedLayout, rng: np.random.Generator,
+                    scale_rows: np.ndarray, aux_values: Sequence[float],
+                    dtype=np.float32) -> np.ndarray:
+  """One rank's host image drawn with numpy, in the packed layout: table
+  lanes ``uniform(-1, 1) * scale_rows[row]``, aux lanes their init
+  constants (zero on dead rows, ``scale_rows == 0``), lane padding zero.
+  The JAX package's ``init_host_store``, draw for draw: the same ``rng``
+  gives the same image bits."""
+  rpp, stride, w = layout.rows_per_phys, layout.stride, layout.width
+  scale_rows = np.asarray(scale_rows, dtype)
+  if scale_rows.shape != (layout.rows,):
+    raise ValueError(
+        f"scale_rows shape {scale_rows.shape}, expected ({layout.rows},)")
+  store = np.zeros((layout.phys_rows, layout.phys_width), dtype)
+  scale_p = np.zeros((layout.phys_rows * rpp,), dtype)
+  scale_p[:layout.rows] = scale_rows
+  vals = rng.uniform(-1.0, 1.0,
+                     (layout.phys_rows * rpp, w)).astype(dtype)
+  vals *= scale_p[:, None]
+  live = scale_p > 0
+  for j in range(rpp):
+    lo = j * stride
+    store[:, lo:lo + w] = vals[j::rpp]
+    for s, v in enumerate(aux_values):
+      store[:, lo + (1 + s) * w:lo + (2 + s) * w] = np.where(
+          live[j::rpp, None], dtype(v) if np.isscalar(v) else v, 0)
+  return store
+
+
+def init_host_store_device(layout: PackedLayout, generator: torch.Generator,
+                           scale_rows: torch.Tensor,
+                           aux_values: Sequence[float],
+                           out: Optional[np.ndarray] = None,
+                           device="cuda") -> np.ndarray:
+  """One rank's f32 host image drawn on ``device`` and downloaded chunk by
+  chunk: :func:`init_packed_uniform`'s draw (``generator`` lives on
+  ``device``), each ``_INIT_CHUNK_PHYS``-row chunk drawn there and copied
+  into ``out`` (a new ``[phys_rows, phys_width]`` f32 array if None), so
+  the device never holds more than one chunk and the host draws nothing.
+  The same distribution as :func:`init_host_store`, not its bits; for a
+  multi-GB image it is the host's copy rate, not numpy's draw rate, that
+  bounds the time."""
+  dev = resolve_device(device)
+  f32 = torch.float32
+  rpp, stride, w = layout.rows_per_phys, layout.stride, layout.width
+  pr = layout.phys_rows
+  if out is None:
+    out = np.empty((pr, layout.phys_width), np.float32)
+  if out.shape != (pr, layout.phys_width) or out.dtype != np.float32:
+    raise ValueError(f"out must be f32 {(pr, layout.phys_width)}, got "
+                     f"{out.dtype} {out.shape}")
+  scale_p = torch.zeros((pr * rpp,), dtype=f32, device=dev)
+  scale_p[:layout.rows] = torch.as_tensor(scale_rows, dtype=f32, device=dev)
+  scale_p = scale_p.view(pr, rpp)
+  host = torch.from_numpy(out)
+  for p0 in range(0, pr, _INIT_CHUNK_PHYS):
+    cp = min(_INIT_CHUNK_PHYS, pr - p0)
+    chunk = torch.zeros((cp, layout.phys_width), dtype=f32, device=dev)
+    vals = torch.rand((cp, rpp, stride), generator=generator, dtype=f32,
+                      device=dev)
+    vals.mul_(2.0).sub_(1.0)
+    sc = scale_p[p0:p0 + cp]
+    vals.mul_(sc[..., None])
+    live = (sc > 0).any(dim=1)
+    for s, v in enumerate(aux_values):
+      lanes = vals[..., (1 + s) * w:(2 + s) * w]
+      lanes.copy_(torch.where(live[:, None, None],
+                              torch.full_like(lanes, float(v)),
+                              torch.zeros_like(lanes)))
+    chunk[:, :rpp * stride] = vals.view(cp, rpp * stride)
+    host[p0:p0 + cp].copy_(chunk)  # a synchronous download
+  return out
 
 
 # ---------------------------------------------------------------------------

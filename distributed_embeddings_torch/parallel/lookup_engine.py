@@ -64,7 +64,18 @@ Model-parallel input mode (:meth:`DistributedLookup.forward_mp` over
 :func:`pack_mp_inputs`) skips the id exchange: every rank gets its
 tables' ids for the global batch, pre-offset.
 
-Not ported yet: tiering.
+Tiered storage (``tiering/``): a host-tier class keeps only a hot cache
+plus a staging region on the device. The routed ids stay in the logical
+vocabulary; :meth:`DistributedLookup.translate_tiered_ids` maps them to
+compact cache or staging slots after routing (the padded, deduplicated
+and ragged forms alike), :meth:`~DistributedLookup.install_staging`
+writes the step's staged cold rows into the staging region,
+:meth:`~DistributedLookup.staged_regions` copies them back out after the
+apply, and :meth:`~DistributedLookup.trim_spill` returns a spill step's
+cache region to the persistent buffer. The fused gather and the one
+scatter-add per class then serve both tiers unchanged: an id in neither
+tier becomes the logical sentinel, which lies at or past the compact
+buffer's rows, so K4 reads zeros for it and K1 drops it.
 """
 
 from __future__ import annotations
@@ -320,6 +331,71 @@ def _segment_counts(flags: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
   ``offs [..., B + 1]``: ``[..., B]`` int64 (exact; no atomics)."""
   at = _splits_of(flags.long()).gather(-1, offs)
   return at[..., 1:] - at[..., :-1]
+
+
+# Staged-id padding of the tiering searchsorted: larger than any physical
+# row id, so padded staging slots sort after every real id and match none.
+TIER_PAD_GRP = np.int32(2 ** 31 - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TierSpec:
+  """Device-side geometry of one host-tiered class (per rank).
+
+  The compact device buffer is ``[cache_grps + staging_grps, phys_width]``:
+  physical rows ``[0, cache_grps)`` hold the frequency-ranked resident hot
+  set, rows ``[cache_grps, cache_grps + staging_grps)`` are the per-step
+  staging region for the batch's cold rows. ``rows``/``rpp`` describe the
+  LOGICAL vocabulary the routing tensors address."""
+
+  name: str
+  rows: int          # logical rows (sentinel base; = padded_rows(plan, key))
+  rpp: int           # logical rows per physical row (layout.rows_per_phys)
+  cache_grps: int    # resident physical rows per rank
+  staging_grps: int  # persistent staging physical rows per rank
+
+  @property
+  def compact_rows(self) -> int:
+    """Logical row capacity of the persistent compact buffer."""
+    return (self.cache_grps + self.staging_grps) * self.rpp
+
+
+def _translate_tier(ids: torch.Tensor, spec: TierSpec, sentinel: int,
+                    resident_local: torch.Tensor,
+                    staged_local: torch.Tensor):
+  """One routing tensor's logical ids -> ``(compact ids, [hot, staged,
+  missed, total])``.
+
+  ``resident_local``: ``[phys_rows]`` int32, the cache physical row or -1;
+  ``staged_local``: ``[S]`` sorted staged physical-row ids
+  (``TIER_PAD_GRP`` padding). A valid id resolves hot -> cache slot,
+  cold-staged -> staging slot; anything else (the routing sentinel too)
+  maps to ``sentinel``, an id the gather zero-fills and the scatter
+  drops. The ids keep their dtype; the counters are int32 occurrence
+  counts."""
+  valid = (ids >= 0) & (ids < spec.rows)
+  safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
+  grp = safe // spec.rpp
+  sub = safe % spec.rpp
+  cache_slot = resident_local[grp.clamp(0, resident_local.shape[0] - 1)]
+  s = staged_local.shape[0]
+  if s:
+    pos = torch.searchsorted(staged_local,
+                             grp.to(staged_local.dtype)).clamp(0, s - 1)
+    staged_hit = staged_local[pos] == grp
+  else:
+    pos = torch.zeros_like(grp)
+    staged_hit = torch.zeros_like(valid)
+  slot = torch.where(cache_slot >= 0, cache_slot.long(),
+                     torch.where(staged_hit, spec.cache_grps + pos,
+                                 torch.full_like(pos, -1)))
+  translated = torch.where(valid & (slot >= 0), slot * spec.rpp + sub,
+                           torch.full_like(slot, sentinel)).to(ids.dtype)
+  hot = (valid & (cache_slot >= 0)).sum()
+  staged = (valid & (cache_slot < 0) & staged_hit).sum()
+  missed = (valid & (slot < 0)).sum()
+  total = valid.sum()
+  return translated, torch.stack([hot, staged, missed, total]).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -1276,18 +1352,143 @@ class DistributedLookup:
 
 
   # ---- fused training path -----------------------------------------------
-  def fused_layouts(self, rule: SparseRule) -> Dict[str, PackedLayout]:
+  def fused_layouts(self, rule: SparseRule,
+                    rows_overrides: Optional[Dict[str, int]] = None
+                    ) -> Dict[str, PackedLayout]:
     """Per sparse class, its :class:`PackedLayout` under ``rule`` (``n_aux``
-    interleaved state slots). The JAX engine's 2^31-element bound is
-    XLA's indexing limit; the port indexes in 64 bits and has none."""
+    interleaved state slots). ``rows_overrides`` (class name -> logical
+    rows) substitutes a tiered class's compact device buffer
+    (``tiering.TieringPlan.rows_overrides``). The JAX engine's 2^31-element
+    bound is XLA's indexing limit; the port indexes in 64 bits and has
+    none."""
+    rows_overrides = rows_overrides or {}
     layouts = {}
     for key in self.plan.class_keys:
       cp = self.plan.classes[key]
       if cp.kind != "sparse":
         continue
-      layouts[class_param_name(*key)] = PackedLayout(
-          rows=padded_rows(self.plan, key), width=cp.width, n_aux=rule.n_aux)
+      name = class_param_name(*key)
+      layouts[name] = PackedLayout(
+          rows=rows_overrides.get(name, padded_rows(self.plan, key)),
+          width=cp.width, n_aux=rule.n_aux)
     return layouts
+
+  # ---- tiered storage: hot/cold routing + staging buffers ----------------
+  def translate_tiered_ids(self, ids_all: Dict[BucketKey, torch.Tensor],
+                           tier_specs: Dict[str, TierSpec],
+                           resident: Dict[str, torch.Tensor],
+                           staged_grps: Dict[str, torch.Tensor]):
+    """Rewrite routed LOGICAL ids of host-tiered classes to compact
+    device-buffer ids (hot-cache slot or staging slot).
+
+    The routing tensors stay in the logical vocabulary, so routing,
+    bucketing, sentinel and mean-count semantics are untouched; this pass
+    runs after :meth:`route_ids`, before the fused gather. Each valid id's
+    physical row goes through this rank's resident map (cold rows: a
+    searchsorted over this step's sorted staged row ids) and the id is
+    rebuilt at the compact slot with its sub-row index. A deduplicated
+    bucket translates its unique blocks only (the inverse maps and local
+    unique blocks stay logical, so the mean combiner's sentinel count is
+    unchanged), and its counters then count UNIQUE ids per block; a
+    ragged bucket translates its value stream.
+
+    Args:
+      tier_specs: class name -> :class:`TierSpec`.
+      resident: class name -> ``[phys_rows]`` int32, this rank's map
+        (cache slot or -1).
+      staged_grps: class name -> ``[S]`` int32, this rank's SORTED staged
+        physical-row ids padded with ``TIER_PAD_GRP``.
+
+    Returns:
+      ``(ids_out, metrics)``: the translated routing dict and, per class
+      name, an int32 ``[4]`` tensor ``[hot_hits, staged_hits, missed,
+      valid_total]`` of this rank's counts."""
+    out: Dict[BucketKey, torch.Tensor] = {}
+    metrics: Dict[str, torch.Tensor] = {}
+    for bk, ids in ids_all.items():
+      name = class_param_name(*bk.class_key)
+      spec = tier_specs.get(name)
+      if spec is None:
+        out[bk] = ids
+        continue
+      sentinel = padded_rows(self.plan, bk.class_key)
+      if isinstance(ids, DedupRouted):
+        tv, m = _translate_tier(ids.uniq, spec, sentinel, resident[name],
+                                staged_grps[name])
+        out[bk] = dataclasses.replace(ids, uniq=tv)
+      elif isinstance(ids, tuple):  # ragged value stream (vals, lens)
+        vals, lens = ids
+        tv, m = _translate_tier(vals, spec, sentinel, resident[name],
+                                staged_grps[name])
+        out[bk] = (tv, lens)
+      else:
+        out[bk], m = _translate_tier(ids, spec, sentinel, resident[name],
+                                     staged_grps[name])
+      metrics[name] = metrics[name] + m if name in metrics else m
+    return out, metrics
+
+  def install_staging(self, fused_params: Dict[str, torch.Tensor],
+                      tier_specs: Dict[str, TierSpec],
+                      staged_rows: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """Write this step's staged cold rows into each tiered buffer's
+    staging region (physical rows ``[cache_grps, cache_grps + S)``).
+
+    ``S == staging_grps`` (every step but a spill): the rows are copied
+    into the persistent buffer in place and the returned dict holds that
+    same tensor. A spill step (``S`` larger) applies on an EXTENDED copy
+    (``[cache_grps + S, phys_width]``: the cache region copied, then the
+    staged rows), which the returned dict holds instead; the persistent
+    buffer is left as it was until :meth:`trim_spill` copies the cache
+    region back. The effective :class:`PackedLayout` of the step must be
+    built from the same ``S``."""
+    out = dict(fused_params)
+    for name, spec in tier_specs.items():
+      rows = staged_rows[name]
+      buf = self._squeeze_local(fused_params[name])
+      keep = spec.cache_grps + spec.staging_grps
+      if buf.shape[0] != keep:
+        raise ValueError(
+            f"class {name}: the persistent buffer has {buf.shape[0]} "
+            f"physical rows, its tier geometry {keep}")
+      need = spec.cache_grps + rows.shape[0]
+      if need > keep:
+        ext = torch.empty((need, buf.shape[1]), dtype=buf.dtype,
+                          device=buf.device)
+        ext[:spec.cache_grps].copy_(buf[:spec.cache_grps])
+        buf = ext
+      buf[spec.cache_grps:need].copy_(rows)
+      out[name] = buf
+    return out
+
+  def staged_regions(self, fused_in: Dict[str, torch.Tensor],
+                     tier_specs: Dict[str, TierSpec],
+                     staged_grps: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """The (post-scatter) staging regions of :meth:`install_staging`'s
+    buffers, sized to this step's staged row count: the rows the host
+    writes back to the cold store. Copies, so the next step's staging
+    never overwrites them."""
+    out = {}
+    for name, spec in tier_specs.items():
+      s = staged_grps[name].shape[0]
+      buf = self._squeeze_local(fused_in[name])
+      out[name] = buf[spec.cache_grps:spec.cache_grps + s].clone()
+    return out
+
+  def trim_spill(self, fused_params: Dict[str, torch.Tensor],
+                 fused_in: Dict[str, torch.Tensor],
+                 tier_specs: Dict[str, TierSpec]
+                 ) -> Dict[str, torch.Tensor]:
+    """After a spill step: copy each extended buffer's (updated) cache
+    region back into the persistent compact buffer of ``fused_params``,
+    which keeps its tensor and its shape; a no-op for a buffer the step
+    updated in place. Returns ``fused_params``."""
+    for name, spec in tier_specs.items():
+      buf = fused_in[name]
+      if buf is not fused_params[name]:
+        fused_params[name][:spec.cache_grps].copy_(buf[:spec.cache_grps])
+    return fused_params
 
   def lookup_sparse_fused(self, fused_params: Dict[str, torch.Tensor],
                           layouts: Dict[str, PackedLayout],

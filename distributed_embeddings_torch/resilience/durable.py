@@ -25,9 +25,10 @@ the unit a long-running job actually operates on:
 The directory names, the rotation and the fallback are the JAX
 package's, so either package resumes the other's root. At world N every
 rank calls :func:`save_rotating` and :func:`restore_latest` with its
-mesh. Not ported (refused by name): host-tier stores (``store=``,
-ROADMAP.md §1 item 8), the dynamic vocabulary and the delta stream
-(``vocab=``, ``stream=``, item 12).
+mesh; a tiered run passes its ``HostTierStore`` (``store=``) through to
+``checkpoint.save`` / ``restore``. Not ported (refused by name): the
+dynamic vocabulary and the delta stream (``vocab=``, ``stream=``,
+ROADMAP.md §1 item 12).
 """
 
 from __future__ import annotations
@@ -116,7 +117,7 @@ def save_rotating(root: str, plan, rule, state: Dict[str, Any],
   from .. import checkpoint
   from ..telemetry import counter as _counter, span as _span
 
-  checkpoint.refuse_unported(store, vocab, stream)
+  checkpoint.refuse_unported(vocab, stream)
   step = int(state["step"])
   path = step_dir(root, step)
   rank = mesh.rank if _world_n(mesh) else 0
@@ -124,12 +125,12 @@ def save_rotating(root: str, plan, rule, state: Dict[str, Any],
     os.makedirs(root, exist_ok=True)
   with _span("ckpt/save", args={"step": step}):
     if _world_n(mesh):
-      checkpoint.save(path, plan, rule, state, extra=extra,
+      checkpoint.save(path, plan, rule, state, store=store, extra=extra,
                       telemetry=telemetry, mesh=mesh)
     else:
       retry.retry_call(checkpoint.save, path, plan, rule, state,
-                       extra=extra, telemetry=telemetry, mesh=mesh,
-                       policy=policy)
+                       store=store, extra=extra, telemetry=telemetry,
+                       mesh=mesh, policy=policy)
   _counter("ckpt/saves").inc()
   if rank == 0:
     prune(root, keep)
@@ -152,7 +153,7 @@ def restore_latest(root: str, plan, rule, state_like: Dict[str, Any],
   from .. import checkpoint
   from ..telemetry import counter as _counter, span as _span
 
-  checkpoint.refuse_unported(store, vocab, stream)
+  checkpoint.refuse_unported(vocab, stream)
   if _world_n(mesh):
     # The choice of checkpoint must be COLLECTIVE. Two ranks scanning a
     # shared filesystem independently can disagree under attribute-cache
@@ -176,6 +177,7 @@ def restore_latest(root: str, plan, rule, state_like: Dict[str, Any],
     step, path = got
   with _span("ckpt/restore", args={"step": step}):
     state = checkpoint.restore(path, plan, rule, state_like, mesh=mesh,
-                               verify_integrity=False, device=device)
+                               store=store, verify_integrity=False,
+                               device=device)
   _counter("ckpt/restores").inc()
   return state, step, path

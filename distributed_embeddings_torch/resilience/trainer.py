@@ -37,9 +37,15 @@ its mesh and calls :meth:`step` / :meth:`snapshot` alike; the step's
 metrics are already reduced over the ranks, so every rank takes the same
 skip, abort and rollback decisions.
 
-Not ported (refused by name): the tiered trainer and host-tier stores
-(``tiered=``, ``store=``, ROADMAP.md §1 item 8), the dynamic vocabulary
-and the delta stream (``dynvocab=``, ``stream=``, item 12), the elastic
+Tiered mode (``tiered=``, a guarded ``tiering.TieredTrainer``): every
+:meth:`ResilientTrainer.step` runs the tiered protocol (classify, stage,
+device step, write-back, re-rank) on a HOST batch with this trainer's
+guard accounting; snapshots checkpoint the ``HostTierStore`` (a frozen
+``snapshot_view`` for async ones) and every resume restores it and
+refreshes the prefetcher's device resident maps.
+
+Not ported (refused by name): the dynamic vocabulary and the delta
+stream (``dynvocab=``, ``stream=``, ROADMAP.md §1 item 12), the elastic
 resize and the host-pass overlap (``resize``, ``overlap_host=True``,
 item 11).
 """
@@ -156,6 +162,15 @@ class ResilientTrainer:
       through (default: the process-wide registry). Snapshots persist its
       cumulative state under the checkpoint manifest's ``telemetry``
       section and the first resume of a fresh process adopts it.
+    tiered: a GUARDED ``tiering.TieredTrainer``: :meth:`step` then runs
+      its protocol on HOST batches (``step_fn`` must be None and ``state``
+      may be None: the TieredTrainer's are used), its tier bookkeeping
+      stays with it (``account_tier``, the ``missed > 0`` contract) and
+      the guard accounting is this trainer's. Snapshots flush and
+      checkpoint its store; a resume restores the store and refreshes the
+      prefetcher's resident maps.
+    store: the ``HostTierStore`` of a tiered plan (default: the
+      TieredTrainer's), passed to every checkpoint save and restore.
   """
 
   def __init__(self, step_fn, state: Dict[str, Any], plan, rule,
@@ -167,10 +182,6 @@ class ResilientTrainer:
                async_snapshots: bool = False,
                tiered=None, dynvocab=None, telemetry=None, stream=None,
                overlap_host: bool = False):
-    if tiered is not None or store is not None:
-      raise NotImplementedError(
-          "tiered= / store= (the tiered trainer and its host-tier store): "
-          "not ported yet (ROADMAP.md §1 item 8, tiering)")
     if dynvocab is not None or stream is not None:
       raise NotImplementedError(
           "dynvocab= / stream= (the dynamic vocabulary and the delta "
@@ -187,6 +198,26 @@ class ResilientTrainer:
     # keeps the observed counts).
     self.telemetry = telemetry if telemetry is not None \
         else _telemetry.get_registry()
+    self.tiered = tiered
+    if tiered is not None:
+      if not getattr(tiered, "guard", False):
+        raise ValueError(
+            "ResilientTrainer(tiered=...) needs a TieredTrainer built "
+            "with guard=True: the resilience accounting reads the "
+            "guarded step's {'bad_step', 'oov'} metrics, and an "
+            "unguarded tiered step surfaces neither (a poison batch "
+            "would commit into the host images).")
+      if step_fn is not None:
+        raise ValueError(
+            "ResilientTrainer(tiered=...) drives the TieredTrainer's own "
+            "step; pass step_fn=None (the two would race on the state).")
+      # the wrapped trainer and its prefetcher emit through this registry,
+      # so the whole protocol's counters persist together
+      tiered.telemetry = self.telemetry
+      tiered.prefetcher.telemetry = self.telemetry
+      state = tiered.state if state is None else state
+      store = tiered.store if store is None else store
+    self.store = store
     self._step_fn = step_fn
     self.state = state
     self.plan = plan
@@ -273,12 +304,19 @@ class ResilientTrainer:
     self.join_writer()  # never scan the root under a concurrent save
     got = durable.restore_latest(self.ckpt_root, self.plan, self.rule,
                                  self.state, mesh=self.mesh,
-                                 device=self.device)
+                                 store=self.store, device=self.device)
     if got is None:
       return False
     from .. import checkpoint
     first_resume = self.consumed == 0
     self.state, step, path = got
+    if self.tiered is not None:
+      # the restore rewrote the store's images and resident sets: point
+      # the TieredTrainer at the restored state and re-derive its device
+      # resident maps (classifying against the pre-restore maps would
+      # stage the wrong cold rows)
+      self.tiered.state = self.state
+      self.tiered.prefetcher.refresh_resident()
     manifest = checkpoint.read_manifest(path)
     if first_resume:
       # adopt the persisted cumulative telemetry along with the stream
@@ -403,15 +441,19 @@ class ResilientTrainer:
     re-raised — so at most one snapshot is in flight and the
     rotate-after-publish invariant holds; :meth:`join_writer` flushes
     before exit. World 1 only: the save's cross-rank barriers must run on
-    every rank's main thread."""
+    every rank's main thread. A tiered run's store rides along as its
+    copy-on-snapshot view (``store.snapshot_view``), reconciled here
+    against this step's buffers, so the writer serializes frozen images
+    while the per-step write-back keeps mutating the live ones."""
     self.join_writer()
     self.telemetry.counter("ckpt/snapshots").inc()
     extra = self._extra()
     if not async_:
       path = durable.save_rotating(self.ckpt_root, self.plan, self.rule,
-                                   self.state, keep=self.keep,
-                                   policy=self.retry_policy, extra=extra,
-                                   telemetry=self.telemetry, mesh=self.mesh)
+                                   self.state, store=self.store,
+                                   keep=self.keep, policy=self.retry_policy,
+                                   extra=extra, telemetry=self.telemetry,
+                                   mesh=self.mesh)
       self._last_snapshot = self.step_count
       return path
     if self.mesh is not None and self.mesh.world > 1:
@@ -424,11 +466,15 @@ class ResilientTrainer:
     # capture the registry synchronously, like the state: later steps
     # mutate the live counters while the writer flushes
     telemetry_state = self.telemetry.state_dict()
+    # and the store the same way: a frozen reconciled copy of the images
+    # (the save's flush is a no-op on the view)
+    store_view = (self.store.snapshot_view(state_host["fused"])
+                  if self.store is not None else None)
 
     def _write():
       try:
         durable.save_rotating(self.ckpt_root, self.plan, self.rule,
-                              state_host, keep=self.keep,
+                              state_host, store=store_view, keep=self.keep,
                               policy=self.retry_policy, extra=extra,
                               telemetry=telemetry_state)
       except BaseException as e:  # surfaced at the next join_writer
@@ -496,7 +542,11 @@ class ResilientTrainer:
   def step(self, *batch) -> float:
     """One guarded step on a batch already on the state's device (this
     rank's slice at world N); returns the loss (NaN on a skipped step —
-    the skip is counted, nothing commits)."""
+    the skip is counted, nothing commits). Tiered mode: ``batch`` is the
+    GLOBAL HOST batch (the classify stage routes every rank's ids before
+    the device sees them)."""
+    if self.tiered is not None:
+      return self._step_tiered(*batch)
     dev = _span("device/step", track="device").start()
     self.state, loss, metrics = self._step_fn(self.state, *batch)
     self.consumed += 1
@@ -506,6 +556,36 @@ class ResilientTrainer:
     loss, bad, counts, overflow = _fetch(loss, metrics)
     dev.finish()  # dispatch -> fetched: the device window
     self._account(bad, counts, overflow)
+    if self.snapshot_every and \
+        self.step_count - self._last_snapshot >= self.snapshot_every:
+      self.snapshot(async_=self.async_snapshots)
+    return loss
+
+  def _step_tiered(self, numerical, cats, labels) -> float:
+    """One guarded TIERED step: the TieredTrainer's prefetch, dispatch,
+    write-back and re-rank with THIS trainer's guard accounting (skip
+    counting, the consecutive-bad abort with rollback, ``oov='error'``);
+    the tier hit bookkeeping and the ``missed > 0`` contract stay with
+    the TieredTrainer. A skipped tiered batch leaves the host images
+    bit-identical (the guarded step's write-back rewrites unchanged
+    staging rows), so rollback carries over; on the abort path the resume
+    restores the store and refreshes the prefetcher before raising."""
+    t = self.tiered
+    t.state = self.state
+    staged = t.prefetcher.prepare(cats)
+    staged_out, metrics, loss = t._dispatch(staged, numerical, cats, labels)
+    self.consumed += 1
+    self.telemetry.counter("train/consumed").inc()
+    loss, bad, counts, overflow = _fetch(loss, metrics)
+    t._dev_span.finish()  # the first host sync of the tiered step
+
+    def account(m):
+      t.account_tier(m["tier"])
+      t.steps += 1
+      self._account(bad, counts, overflow)
+
+    t._finish(staged, staged_out, metrics, account=account)
+    self.state = t.state
     if self.snapshot_every and \
         self.step_count - self._last_snapshot >= self.snapshot_every:
       self.snapshot(async_=self.async_snapshots)
@@ -522,8 +602,11 @@ class ResilientTrainer:
 
     losses = []
     for batch in batches:
-      sb = shard_batch(tuple(batch), self.mesh, device=self.device)
-      losses.append(self.step(*sb))
+      if self.tiered is not None:  # the prefetch protocol shards it
+        losses.append(self.step(*batch))
+      else:
+        sb = shard_batch(tuple(batch), self.mesh, device=self.device)
+        losses.append(self.step(*sb))
       if self.maybe_drain():
         # SIGTERM preemption notice: the in-flight step finished and a
         # drain snapshot is durably down — stop consuming the stream (a

@@ -94,6 +94,18 @@ three steps of the JAX ``make_sparse_train_step`` (SGD rule,
 so the file holds the batches, the dense params before and after, the
 losses and each table's update. :func:`replay_ragged` replays it through
 the port, to the tolerances above.
+``tests/data/torch_train_tiered_golden.npz`` is tiered storage's: a small
+f32 DLRM (:data:`TIERED_VOCAB`, D=16, its 4,000-row table host-tier)
+trained by three guarded steps of the JAX ``tiering.TieredTrainer``
+(Adagrad 0.05 on the sparse classes, ``optax.adagrad(0.05)`` on the dense
+ones) with a staging region small enough that a step spills and a re-rank
+after the second step. Its tables come from a numpy seed
+(:func:`tiered_initial_tables`, pinned by ``tiered_init_sum`` entries);
+the file holds the batches, the losses, the cumulative hit counters
+(``hits/<class>``, exact), the spill steps, each reconciled simple-layout
+table's update and the dense params before and after.
+:func:`replay_tiered` replays it through the port's ``TieredTrainer``, to
+the tolerances above (on the card the interaction runs in bf16).
 """
 
 from __future__ import annotations
@@ -1007,3 +1019,135 @@ def dense_vs_sparse_step(model: DLRM, plan: DistEmbeddingStrategy,
     dense_err = max(dense_err, float((v - other).abs().max()))
   return {"dense_loss": float(dense_loss_), "sparse_loss": float(sparse_loss),
           "class_max_dup_share": worst, "dense_max_abs_err": dense_err}
+
+
+# ---------------------------------------------------------------------------
+# the tiered golden (tiering.TieredTrainer, a host-tier class)
+# ---------------------------------------------------------------------------
+
+TIERED_PATH = GOLDEN_PATH.with_name("torch_train_tiered_golden.npz")
+TIERED_VOCAB = (4000, 300, 120, 40)
+TIERED_DIM = 16
+TIERED_BOTTOM = (32, 16)
+TIERED_TOP = (32, 1)
+TIERED_NUM = 13
+TIERED_BATCH = 64
+TIERED_HOST_ROWS = 1000  # the 4,000-row table is host-tier
+TIERED_LR = 0.05
+TIERED_ALPHA = 1.05
+TIERED_SEED = 0
+# a staging region the first batch's cold rows overflow (a spill) and a
+# re-rank after the second step
+TIERED_CONFIG = dict(cache_fraction=0.25, staging_grps=8, rerank_interval=2)
+
+
+def tiered_plan(table_config=TableConfig, strategy=DistEmbeddingStrategy):
+  """The tiered golden's plan (of this package, or of another with its
+  ``TableConfig`` and ``DistEmbeddingStrategy``)."""
+  return strategy(
+      [table_config(input_dim=v, output_dim=TIERED_DIM)
+       for v in TIERED_VOCAB], 1, "basic", dense_row_threshold=0,
+      host_row_threshold=TIERED_HOST_ROWS)
+
+
+def tiered_initial_tables(plan, seed: int = TIERED_SEED
+                          ) -> Dict[str, np.ndarray]:
+  """Every class's simple-layout table, uniform in +-0.05 from
+  ``np.random.RandomState(seed)``."""
+  return ragged_initial_tables(plan, seed)
+
+
+def tiered_model(device="cuda") -> DLRM:
+  return DLRM(list(TIERED_VOCAB), TIERED_DIM, bottom_mlp=TIERED_BOTTOM,
+              top_mlp=TIERED_TOP, num_numerical=TIERED_NUM, tables=False,
+              device=device)
+
+
+def tiered_golden_state(golden: Dict[str, np.ndarray]):
+  """``(initial tables, final tables, final dense params)`` of the tiered
+  golden: the tables rebuilt (checked against the stored sums), the final
+  ones as the initial plus the stored updates, the dense params as the
+  port's state_dict."""
+  plan = tiered_plan()
+  tables = tiered_initial_tables(plan, int(golden["seed"]))
+  for name, t in tables.items():
+    want = golden[f"tiered_init_sum/{name}"]
+    if not np.isclose(np.float64(t.sum(dtype=np.float64)), want, rtol=1e-12,
+                      atol=1e-9):
+      raise AssertionError(
+          f"the rebuilt table {name} differs from the golden's: numpy's "
+          "RandomState stream changed?")
+  final = {k: tables[k] + v
+           for k, v in _entries(golden, "tables_moved").items()}
+  dense = {k: v.numpy() for k, v in dlrm_state_dict_from_flax(
+      flax_tree(golden, "dense3")).items()}
+  return tables, final, dense
+
+
+def tiered_batches(golden: Dict[str, np.ndarray]) -> list:
+  """The golden's global host batches, numpy."""
+  n = sum(1 for k in golden if k.startswith("cat/"))
+  return [(golden["numerical"][i], [golden[f"cat/{j}"][i] for j in range(n)],
+           golden["labels"][i]) for i in range(STEPS)]
+
+
+def replay_tiered(golden: Dict[str, np.ndarray], device="cuda"):
+  """Three guarded steps of the port's ``TieredTrainer`` from the tiered
+  golden's initial state on ``device``: returns ``(losses, summary,
+  final)`` with the trainer's metrics summary and ``final = {'tables':
+  reconciled simple-layout tables, 'dense': dense params}`` as f32 numpy.
+  """
+  from .tiering import (
+      HostTierStore,
+      TieredTrainer,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state_from_params,
+      unpack_tiered_state,
+  )
+  plan = tiered_plan()
+  tables, _, _ = tiered_golden_state(golden)
+  rule = adagrad_rule(TIERED_LR)
+  factory = functools.partial(Adagrad, lr=TIERED_LR)
+  tplan = TieringPlan(plan, rule, TieringConfig(**TIERED_CONFIG))
+  store = HostTierStore(tplan)
+  params = dict(dlrm_state_dict_from_flax(flax_tree(golden, "dense0")))
+  params["embeddings"] = tables
+  state = init_tiered_state_from_params(tplan, store, rule, params, factory,
+                                        device=device)
+  trainer = TieredTrainer(tiered_model(device), tplan, store, bce_loss,
+                          factory, rule, None, state, guard=True,
+                          device=device)
+  losses = trainer.run(tiered_batches(golden))
+  trainer.flush()
+  got = unpack_tiered_state(tplan, store, rule, trainer.state)
+  final = {"tables": {k: v.detach().cpu().numpy()
+                      for k, v in got["embeddings"].items()},
+           "dense": {k: v.detach().cpu().numpy() for k, v in got.items()
+                     if k != "embeddings"}}
+  return losses, trainer.metrics_summary(), final
+
+
+def compare_tiered(golden: Dict[str, np.ndarray], losses: List[float],
+                   summary: Dict, got: Dict[str, Dict[str, np.ndarray]]
+                   ) -> Dict[str, float]:
+  """Hold a :func:`replay_tiered` result to the golden: losses within
+  :data:`LOSS_TOL`, the hit counters and spill steps exact, each final
+  table and dense tensor within :data:`UPDATE_TOL` of its largest
+  update."""
+  np.testing.assert_allclose(losses, golden["losses"], **LOSS_TOL)
+  for key in golden:
+    if key.startswith("hits/"):
+      name = key.split("/", 1)[1]
+      m = summary["per_class"][name]
+      assert [m["hot"], m["staged"], m["missed"], m["total"]] == \
+          golden[key].tolist(), (name, m, golden[key])
+  assert summary["spill_steps"] == int(golden["spill_steps"])
+  tables, final, dense = tiered_golden_state(golden)
+  dense0 = {k: v.numpy() for k, v in dlrm_state_dict_from_flax(
+      flax_tree(golden, "dense0")).items()}
+  worst = max(_update_share(tables, final, got["tables"], "tables"),
+              _update_share(dense0, dense, got["dense"], "dense"))
+  return {"loss_max_abs_err": float(np.abs(np.asarray(losses)
+                                            - golden["losses"]).max()),
+          "state_max_err_share": worst}

@@ -62,7 +62,13 @@ model and backward over N slices of the batch and applies once;
 before anything commits and skips a poisoned step bit-exactly
 (``resilience.guards``, driven by ``resilience.trainer.ResilientTrainer``).
 
-Not ported yet: the tiered step.
+The tiered step (:func:`make_tiered_train_step`, driven by
+``tiering.TieredTrainer``) trains a plan whose host-tier classes keep only
+a hot cache plus a staging region on the device: it translates their
+routed ids to compact slots, writes the step's staged cold rows into the
+staging region, and runs the same gather, backward and one scatter-add
+per class on the compact buffers (K1, K4 under ``'fused'``), returning the
+updated staging rows for the host write-back.
 """
 
 from __future__ import annotations
@@ -299,15 +305,27 @@ def init_sparse_state(plan: DistEmbeddingStrategy, params: Dict[str, Any],
   tables keep the simple layout and get an optimizer. With a ``mesh`` the
   state holds this rank's blocks only, on the mesh's device."""
   dev = _state_device(device, mesh)
-  ranks = _state_ranks(plan, mesh)
-  engine = DistributedLookup(plan)
-  layouts = engine.fused_layouts(rule)
-  tables = params[emb_collection]
+  fused, emb_dense = _packed_tables(plan, params[emb_collection], rule, dev,
+                                    mesh)
   dense = {k: _leaf(v, dev) for k, v in params.items()
            if k != emb_collection}
+  state = {"dense": dense, "emb_dense": emb_dense, "fused": fused, "step": 0}
+  return _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+
+
+def _packed_tables(plan: DistEmbeddingStrategy, tables: Dict[str, Any],
+                   rule: SparseRule, dev, mesh, skip=()):
+  """``(fused, emb_dense)`` of :func:`init_sparse_state`: every sparse
+  class's table packed with ``rule``'s initial state rows, every dense
+  class's table as a leaf; the class names in ``skip`` are left out (a
+  tiered state's host-tier classes)."""
+  ranks = _state_ranks(plan, mesh)
+  layouts = DistributedLookup(plan).fused_layouts(rule)
   fused, emb_dense = {}, {}
   for key in plan.class_keys:
     name = class_param_name(*key)
+    if name in skip:
+      continue
     arr = torch.as_tensor(tables[name]).to(device=dev, dtype=torch.float32)
     rows = arr.shape[0] // plan.world_size
     if plan.classes[key].kind == "sparse":
@@ -329,8 +347,7 @@ def init_sparse_state(plan: DistEmbeddingStrategy, params: Dict[str, Any],
     else:
       emb_dense[name] = _leaf(torch.cat([arr[r * rows:(r + 1) * rows]
                                          for r in ranks]), dev)
-  state = {"dense": dense, "emb_dense": emb_dense, "fused": fused, "step": 0}
-  return _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+  return fused, emb_dense
 
 
 def _state_device(device, mesh) -> torch.device:
@@ -393,11 +410,23 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
   lanes and the dense classes' tables in bf16, as the JAX package's
   ``dtype=``; the dense parameters stay f32)."""
   dev = _state_device(device, mesh)
-  engine = DistributedLookup(plan)
-  layouts = engine.fused_layouts(rule)
+  fused, emb_dense = _drawn_tables(plan, rule, generator, dev, mesh, dtype)
+  dense = {k: _leaf(v, dev) for k, v in dense_params.items()}
+  state = {"dense": dense, "emb_dense": emb_dense, "fused": fused, "step": 0}
+  return _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+
+
+def _drawn_tables(plan: DistEmbeddingStrategy, rule: SparseRule,
+                  generator: torch.Generator, dev, mesh, dtype, skip=()):
+  """``(fused, emb_dense)`` of :func:`init_sparse_state_direct`, drawn
+  class by class; the class names in ``skip`` are left out (a tiered
+  state's host-tier classes)."""
+  layouts = DistributedLookup(plan).fused_layouts(rule)
   fused, emb_dense = {}, {}
   for key in plan.class_keys:
     name = class_param_name(*key)
+    if name in skip:
+      continue
     cp = plan.classes[key]
     blocks = []
     for r in _state_ranks(plan, mesh):
@@ -416,9 +445,7 @@ def init_sparse_state_direct(plan: DistEmbeddingStrategy, rule: SparseRule,
       fused[name] = block
     else:
       emb_dense[name] = block.requires_grad_(True)
-  dense = {k: _leaf(v, dev) for k, v in dense_params.items()}
-  state = {"dense": dense, "emb_dense": emb_dense, "fused": fused, "step": 0}
-  return _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+  return fused, emb_dense
 
 
 def unpack_sparse_state(plan: DistEmbeddingStrategy, rule: SparseRule,
@@ -758,6 +785,44 @@ def _refuse_unported(plan, mesh, micro_batches: int, guard: bool,
         "offending batch; build with guard=True or use oov='clip'.")
 
 
+def _route(engine: DistributedLookup, cats, guard: bool):
+  """``(ids_all, mean counts, hotness_of)`` of one (micro-)batch. The
+  guarded step enforces ``oov='error'`` through its commit gate and
+  metrics, never by raising half-way through a step."""
+  hotness = [ragged_hotness(c) for c in cats]
+  hotness_of = lambda i: hotness[i]  # noqa: E731
+  ids_all = engine.route_ids(cats, hotness_of, eager_oov=not guard)
+  return ids_all, engine.mean_counts(cats), hotness_of
+
+
+def _fused_backward(engine: DistributedLookup, model, loss_fn, reg_fn,
+                    world: int, rank: int, state, fused, layouts, routed,
+                    numerical, cats, labels, keep_rows: bool, exact: bool,
+                    loss_scale: float = 1.0):
+  """The fused gather of ``fused`` (outside autograd), the differentiable
+  tail on leaves (the dense parameters, the dense-class tables, the sparse
+  activations) and one ``backward`` of ``loss * loss_scale``: the dense
+  gradients land in ``.grad``; returns ``(loss, d_z, residuals)``."""
+  ids_all, counts, hotness_of = routed
+  with torch.no_grad():
+    z_sparse, residuals = engine.lookup_sparse_fused(
+        fused, layouts, ids_all, keep_rows=keep_rows, keep_aux=not exact)
+  z_leaves = {bk: _leaf_of(z) for bk, z in z_sparse.items()}
+  tables = trained_tables(state)
+  acts = engine.finish_forward(z_leaves, tables, ids_all,
+                               numerical.shape[0], hotness_of, counts)
+  logits = functional_call(model, state["dense"], (numerical, cats),
+                           {"emb_acts": acts})
+  loss = loss_fn(logits, labels)
+  if reg_fn is not None:
+    # the rank's own windows, scaled by the world to survive the uniform
+    # 1 / world gradient scale, as in the JAX step
+    loss = loss + world * reg_fn(tables, rank)
+  (loss * loss_scale if loss_scale != 1.0 else loss).backward()
+  d_z = {bk: _grad_of(z) for bk, z in z_leaves.items()}
+  return loss.detach(), d_z, residuals
+
+
 def _leaf_of(z):
   """A sparse activation (or each chunk of a :class:`FusedChunks`) as a
   fresh leaf that requires grad."""
@@ -855,33 +920,14 @@ def make_sparse_train_step(model: torch.nn.Module,
     returns ``(loss, d_z, residuals, overflow)``, ``d_z`` the sparse
     activations' cotangents, ``overflow`` this rank's per-class
     dedup-capacity overflow counts (None for an uncapped plan)."""
-    b = numerical.shape[0]
-    hotness = [ragged_hotness(c) for c in cats]
-    hotness_of = lambda i: hotness[i]  # noqa: E731
-    # the guarded step enforces oov='error' through its commit gate and
-    # metrics, never by raising half-way through a step
-    ids_all = engine.route_ids(cats, hotness_of, eager_oov=not guard)
-    counts = engine.mean_counts(cats)
-    with torch.no_grad():
-      z_sparse, residuals = engine.lookup_sparse_fused(
-          state["fused"], layouts, ids_all, keep_rows=keep_rows,
-          keep_aux=not exact)
-    z_leaves = {bk: _leaf_of(z) for bk, z in z_sparse.items()}
-    tables = trained_tables(state)
-    acts = engine.finish_forward(z_leaves, tables, ids_all, b,
-                                 hotness_of, counts)
-    logits = functional_call(model, state["dense"], (numerical, cats),
-                             {"emb_acts": acts})
-    loss = loss_fn(logits, labels)
-    if reg_fn is not None:
-      # the rank's own windows, scaled by the world to survive the
-      # uniform 1 / world gradient scale, as in the JAX step
-      loss = loss + world * reg_fn(tables, rank)
-    (loss * loss_scale if loss_scale != 1.0 else loss).backward()
-    d_z = {bk: _grad_of(z) for bk, z in z_leaves.items()}
-    overflow = (engine.dedup_overflow_counts(ids_all) if has_dedup_cap
+    routed = _route(engine, cats, guard)
+    loss, d_z, residuals = _fused_backward(
+        engine, model, loss_fn, reg_fn, world, rank, state, state["fused"],
+        layouts, routed, numerical, cats, labels, keep_rows, exact,
+        loss_scale)
+    overflow = (engine.dedup_overflow_counts(routed[0]) if has_dedup_cap
                 else None)
-    return loss.detach(), d_z, residuals, overflow
+    return loss, d_z, residuals, overflow
 
   def micro_slices(numerical, cats, labels):
     """This rank's batch as ``n_mb`` equal slices (the JAX step's
@@ -989,6 +1035,179 @@ def make_sparse_train_step(model: torch.nn.Module,
     if guard:
       return state, loss, metrics
     return state, loss
+
+  return step
+
+
+def make_tiered_train_step(model: torch.nn.Module, tplan,
+                           loss_fn: Callable,
+                           dense_optimizer: OptimizerFactory,
+                           rule: SparseRule,
+                           mesh=None,
+                           emb_dense_optimizer: Optional[
+                               OptimizerFactory] = None,
+                           exact: bool = False,
+                           guard: bool = False):
+  """Train step over tiered storage: host-tier classes hold only a hot
+  cache and a staging region on the device (``tiering/``), fed by a host
+  prefetch stage (``tiering.TieredPrefetcher``) that runs AHEAD of the
+  step.
+
+  Per call the step takes, besides this rank's batch, the prefetcher's
+  staging upload ``staged = {'grps', 'rows', 'resident'}`` (this rank's
+  blocks, ``TieredPrefetcher.stage(...).device``):
+
+  - routed LOGICAL ids of host-tier classes become compact cache or
+    staging slots (``DistributedLookup.translate_tiered_ids``); routing,
+    bucketing and sentinel semantics are untouched;
+  - the staged cold rows are written into each compact buffer's staging
+    region (``install_staging``), so the fused gather and the ONE
+    scatter-add per class of :func:`make_sparse_train_step` cover both
+    tiers (K1; K4 under ``overlap='fused'``). The step's effective
+    layouts come from this step's staged size ``S``: a spill step
+    (``S > staging_grps``) applies on an extended copy of the buffer of
+    ``cache + S`` rows, whose cache region is copied back into the
+    persistent buffer after the apply (``trim_spill``), so
+    ``state['fused']`` keeps its tensors;
+  - after the update the staging regions are copied out and returned for
+    the host write-back, with per-class counters ``[hot, staged, missed,
+    total]`` summed over the ranks (one ``all_reduce``); ``missed > 0``
+    means the prefetch contract broke and those updates were dropped.
+
+  ``guard=True`` is :func:`make_sparse_train_step`'s guard extended to the
+  third tier: a bad batch zeroes the delta streams before the scatter, so
+  the staging rows come back as they were staged and the host images
+  stay bit-identical after the write-back. Incompatible with
+  ``exact=True``.
+
+  Returns:
+    ``step(state, staged, numerical, cats, labels) -> (state, staged_out,
+    metrics, loss)``: ``state`` updated in place, ``staged_out`` class
+    name -> post-update staging rows, ``metrics`` class name -> int32
+    ``[4]`` counters; with ``guard``, ``metrics = {'tier': {class: [4]},
+    'bad_step', 'oov'[, 'dedup_overflow']}``.
+  """
+  from .ops.packed_table import PackedLayout
+  plan = tplan.plan
+  tier_specs = tplan.tier_specs
+  _check_mesh(plan, mesh)
+  if getattr(plan, "oov", "clip") == "allocate":
+    raise NotImplementedError(
+        "plan.oov='allocate' with tiered storage: the tiered prefetcher "
+        "classifies RAW ids host-side, so the dynamic-id translation and "
+        "the classify stage would have to compose into one host pass — "
+        "an open follow-on (ROADMAP, dynamic-vocab direction). Keep "
+        "dynamic tables device-resident (host_row_threshold=None) or "
+        "use a static oov policy for tiered plans. (ROADMAP.md §1 item "
+        "12)")
+  if getattr(plan, "oov", "clip") == "error" and not guard:
+    raise ValueError(
+        "plan.oov='error' requires make_tiered_train_step(guard=True): "
+        "under jit the ids are traced, so the unguarded step cannot see "
+        "them — out-of-range ids would be silently clipped to each "
+        "table's last row, exactly what oov='error' exists to forbid. "
+        "Enforcement rides the guarded step's OOV metrics plus a commit "
+        "gate on the offending batch; build with guard=True or use "
+        "oov='clip'.")
+  if guard and exact:
+    raise NotImplementedError(
+        "guard=True with exact=True: the non-finite guard gates the "
+        "prebuilt per-class delta streams before the scatter, but the "
+        "exact path re-gathers rows and builds its deltas inside the "
+        "apply. Use per-occurrence semantics (exact=False) with the "
+        "guard.")
+  if exact and getattr(plan, "wire_dtype", "f32") != "f32":
+    raise ValueError(
+        "exact=True requires wire_dtype='f32' (same contract as "
+        "make_sparse_train_step): the deduplicated backward's bit-for-bit "
+        "claim cannot survive a bf16/fp8-narrowed cotangent exchange. "
+        "Build the plan with wire_dtype='f32'.")
+  has_dedup_cap = getattr(plan, "dedup_capacity", None) is not None
+  if has_dedup_cap and not guard:
+    raise ValueError(
+        "plan.dedup_capacity requires make_tiered_train_step(guard=True): "
+        "a capacity below the safe bound aliases distinct ids onto the "
+        "cap's last slot — those occurrences gather and UPDATE the wrong "
+        "rows — and only the guarded step surfaces the psum'd "
+        "'dedup_overflow' counter that makes that observable. Build with "
+        "guard=True or drop the capacity override.")
+  rule, reg_fn, con_fn = _fused_rule_and_penalties(plan, rule)
+  engine = DistributedLookup(plan, mesh=mesh)
+  base_layouts = engine.fused_layouts(rule,
+                                      rows_overrides=tplan.rows_overrides)
+  world = 1 if mesh is None else mesh.world
+  rank = 0 if mesh is None else mesh.rank
+  keep_rows = bool(rule.weight_decay) and not rule.n_aux and not exact
+  guard_gate, oov_ok, guard_metrics = _make_guard_helpers(plan, mesh)
+  names = sorted(tier_specs)
+
+  def step(state, staged, numerical, cats, labels):
+    _with_optimizers(state, dense_optimizer, emb_dense_optimizer)
+    _sync_work_tables(state)
+    cats = list(cats)
+    narrow = [n for n in names if state["fused"][n].dtype != torch.float32]
+    if narrow:
+      raise NotImplementedError(
+          f"tiered classes {narrow} on non-f32 buffers: the host images "
+          "are f32 (narrow tiered storage is not in the JAX package)")
+    # effective layouts from THIS step's staged size: a spill step stages
+    # S > staging_grps rows, and the compact buffer grows with it (K1's
+    # and K4's row bounds are the layout's)
+    layouts = dict(base_layouts)
+    for name, spec in tier_specs.items():
+      s = staged["grps"][name].shape[0]
+      layouts[name] = PackedLayout(
+          rows=(spec.cache_grps + s) * spec.rpp,
+          width=base_layouts[name].width, n_aux=rule.n_aux)
+    ids_all, counts, hotness_of = _route(engine, cats, guard)
+    ids_all, tier_metrics = engine.translate_tiered_ids(
+        ids_all, tier_specs, staged["resident"], staged["grps"])
+    with torch.no_grad():
+      fused_in = engine.install_staging(state["fused"], tier_specs,
+                                        staged["rows"])
+    loss, d_z, residuals = _fused_backward(
+        engine, model, loss_fn, reg_fn, world, rank, state, fused_in,
+        layouts, (ids_all, counts, hotness_of), numerical, cats, labels,
+        keep_rows, exact)
+    grads_ok = _grads_ok(state, guard)
+    d_z, loss = _reduce_dense(state, d_z, loss, mesh)
+    commit, metrics = True, None
+    if guard:
+      oov = engine.oov_counts(cats)
+      ovf = engine.dedup_overflow_counts(ids_all) if has_dedup_cap else None
+      with torch.no_grad():
+        streams = engine.sparse_delta_streams(layouts, d_z, residuals, rule,
+                                              state["step"])
+        ok, streams = guard_gate(loss, grads_ok, streams, oov_ok(oov))
+        metrics = guard_metrics(ok, oov, ovf)
+        # zeroed streams scatter-add nothing: the cache AND staging
+        # regions come back bit-identical
+        engine.apply_sparse_streams(fused_in, layouts, streams, rule,
+                                    state["step"])
+      commit = bool(ok)  # the step's one host read of the verdict
+      _apply_dense(state, mesh, con_fn, commit=commit)
+    else:
+      _apply_dense(state, mesh, con_fn)
+      with torch.no_grad():
+        engine.apply_sparse(fused_in, layouts, d_z, residuals, rule,
+                            state["step"], exact=exact)
+    with torch.no_grad():
+      staged_out = engine.staged_regions(fused_in, tier_specs,
+                                         staged["grps"])
+      engine.trim_spill(state["fused"], fused_in, tier_specs)
+    del fused_in
+    dev = staged["resident"][names[0]].device
+    stacked = torch.stack([
+        tier_metrics[n] if n in tier_metrics
+        else torch.zeros((4,), dtype=torch.int32, device=dev)
+        for n in names])
+    if world > 1:
+      dist.all_reduce(stacked)
+    tier_metrics = dict(zip(names, stacked.unbind()))
+    state["step"] += int(commit)
+    if guard:
+      return state, staged_out, {"tier": tier_metrics, **metrics}, loss
+    return state, staged_out, tier_metrics, loss
 
   return step
 

@@ -419,7 +419,7 @@ def test_restore_refuses_with_the_jax_messages(tmp_path):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("store", "item 8"), ("vocab", "item 12"), ("stream", "item 12")])
+    ("vocab", "item 12"), ("stream", "item 12")])
 def test_unported_arguments_name_their_item(tmp_path, arg, item):
   path, _, tplan, _, trule, state = _saved(tmp_path)
   with pytest.raises(NotImplementedError, match=item):

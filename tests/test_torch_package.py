@@ -25,6 +25,12 @@
   ``trainer``) import with JAX blocked, and so does
   ``tools/torch_chaos_train.py``; ``durable.restore_latest`` and the chaos
   tool default to the card;
+- the tiering subsystem (``tiering.plan``, ``store``, ``prefetch``,
+  ``train``) imports with JAX blocked, and its entry points
+  (``HostTierStore.build_fused`` / ``resident_arrays``, the device draw
+  of ``init_uniform``, ``TieredPrefetcher``, ``init_tiered_state``,
+  ``init_tiered_state_from_params``, ``TieredTrainer``) default to the
+  card;
 - the zoo harness (``utils.zoo_bench``, the twins
   ``examples/benchmarks/synthetic_models/main_torch.py`` and
   ``examples/benchmarks/benchmark_torch.py``) imports and runs with JAX
@@ -123,7 +129,9 @@ def test_port_imports_with_jax_blocked():
               "telemetry.registry", "telemetry.trace", "telemetry.flight",
               "telemetry.export", "utils", "utils.data", "cc",
               "resilience.guards", "resilience.retry", "resilience.durable",
-              "resilience.trainer", "telemetry", "utils.zoo_bench"):
+              "resilience.trainer", "telemetry", "utils.zoo_bench",
+              "tiering", "tiering.plan", "tiering.store", "tiering.prefetch",
+              "tiering.train"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -400,3 +408,30 @@ def test_zoo_entry_points_default_to_cuda():
     SyntheticModel(SYNTHETIC_MODELS["tiny"])
   with pytest.raises(RuntimeError, match="CUDA is not available"):
     run_zoo_plan_step("tiny", None, 1)
+
+
+def test_tiering_entry_points_default_to_cuda():
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  from distributed_embeddings_torch import tiering as tt
+  from distributed_embeddings_torch.layers.planner import \
+      DistEmbeddingStrategy
+  from distributed_embeddings_torch.models.dlrm import _dlrm_initializer
+  plan = DistEmbeddingStrategy(
+      [TableConfig(input_dim=v, output_dim=8, initializer=_dlrm_initializer(v))
+       for v in (2000, 30)], 1, "basic", dense_row_threshold=0,
+      host_row_threshold=1000)
+  rule = sgd_rule(0.1)
+  tplan = tt.TieringPlan(plan, rule, tt.TieringConfig(staging_grps=4))
+  store = tt.HostTierStore(tplan)
+  for call in (store.build_fused, store.resident_arrays,
+               lambda: store.init_uniform(0, device="cuda"),
+               lambda: tt.TieredPrefetcher(tplan, store),
+               lambda: tt.init_tiered_state(
+                   tplan, store, rule, {}, None, torch.Generator()),
+               lambda: tt.init_tiered_state_from_params(
+                   tplan, store, rule, {"embeddings": {}}, None),
+               lambda: tt.TieredTrainer(None, tplan, store, None, None, rule,
+                                        None, {})):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+      call()

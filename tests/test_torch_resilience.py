@@ -536,7 +536,6 @@ def test_sigterm_drain_snapshots_and_the_handler_is_restored(twins,
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"tiered": object()}, "item 8"), ({"store": object()}, "item 8"),
     ({"dynvocab": object()}, "item 12"), ({"stream": object()}, "item 12"),
     ({"overlap_host": True}, "item 11")])
 def test_trainer_refusals_name_their_item(twins, tmp_path, kw, item):
@@ -553,8 +552,7 @@ def test_other_refusals(twins, tmp_path):
                             backend="gloo"))
   with pytest.raises(NotImplementedError, match="multi-controller"):
     t4.snapshot(async_=True)
-  for kw, item in (({"store": object()}, "item 8"),
-                   ({"vocab": object()}, "item 12"),
+  for kw, item in (({"vocab": object()}, "item 12"),
                    ({"stream": object()}, "item 12")):
     with pytest.raises(NotImplementedError, match=item):
       durable.save_rotating(str(tmp_path / "x"), twins.tplan, twins.trule,

@@ -976,3 +976,113 @@ def narrow_job(mesh, spec):
         "dense": {k: v.detach().numpy() for k, v in state["dense"].items()},
         "preds": wire.gather_blocks(preds, mesh).numpy()}
   return out
+
+
+def _tiered_setup(mesh, spec, run):
+  """One tiered run's port pieces at world N: ``(tplan, rule, store,
+  trainer)`` from ``run``'s config and plan knobs and ``spec``'s JAX init
+  (``dense`` flax params, ``tables[run['init']]`` global tables)."""
+  import functools
+
+  import torch
+
+  import torch_tiering_cases as TC
+  from distributed_embeddings_torch import tiering as tt
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import dlrm_state_dict_from_flax
+  from distributed_embeddings_torch.models import bce_loss
+  from distributed_embeddings_torch.ops import packed_table as tpt
+
+  plan = TC.torch_plan(mesh.world, **run.get("plan_kw", {}))
+  rule = getattr(tpt, f"{run.get('rule', 'adagrad')}_rule")(TC.LR)
+  tplan = tt.TieringPlan(plan, rule, tt.TieringConfig(**run["cfg"]))
+  store = tt.HostTierStore(tplan, owned_ranks=(mesh.rank,))
+  if run.get("dense", "adam") == "adam":
+    factory = functools.partial(torch.optim.Adam, lr=TC.ADAM_LR)
+  else:
+    factory = functools.partial(ttr.Adagrad, lr=TC.LR)
+  params = dict(dlrm_state_dict_from_flax(spec["dense"]))
+  params["embeddings"] = spec["tables"][run.get("init", "base")]
+  state = tt.init_tiered_state_from_params(tplan, store, rule, params,
+                                           factory, mesh=mesh)
+  trainer = tt.TieredTrainer(TC.torch_model(), tplan, store, bce_loss,
+                             factory, rule, mesh, state,
+                             guard=run.get("guard", False))
+  return tplan, rule, store, trainer
+
+
+def _tiered_result(mesh, tplan, rule, store, trainer, losses):
+  import numpy as np
+
+  from distributed_embeddings_torch import tiering as tt
+  from distributed_embeddings_torch.layers.dist_model_parallel import \
+      get_weights
+  trainer.flush()
+  p = tt.unpack_tiered_state(tplan, store, rule, trainer.state, mesh=mesh)
+  return {"losses": losses,
+          "weights": [np.asarray(w) for w in
+                      get_weights(tplan.plan, p["embeddings"])],
+          "summary": trainer.metrics_summary(),
+          "hits": {k: v.copy() for k, v in trainer.hits.items()},
+          "resident": {k: [g.copy() for g in v]
+                       for k, v in store.resident_grps.items()},
+          "counts": {k: [c.copy() for c in v]
+                     for k, v in store.counts.items()}}
+
+
+def tiered_job(mesh, spec):
+  """Tiered training at world N (``tiering.TieredTrainer``, each rank's
+  store owning its rank): per entry of ``spec['runs']`` (``name``,
+  ``cfg``: the ``TieringConfig`` fields, optionally ``plan_kw``,
+  ``guard``, ``dense`` and ``init``) the run over ``spec['batches']``
+  (global host batches) from the JAX init ``spec['dense']`` /
+  ``spec['tables']``. Every rank returns per run the losses, the final
+  global tables (``get_weights``), the metrics summary, the hit counters
+  and its replicated bookkeeping (resident groups and counts of every
+  rank)."""
+  out = {}
+  for run in spec["runs"]:
+    tplan, rule, store, trainer = _tiered_setup(mesh, spec, run)
+    losses = trainer.run(spec["batches"])
+    out[run["name"]] = _tiered_result(mesh, tplan, rule, store, trainer,
+                                      losses)
+  return out
+
+
+def tiered_ckpt_job(mesh, spec):
+  """Tiered checkpoints at world N: the run ``spec['run']`` takes three
+  steps, saves to ``spec['port_path']`` (every rank, its own store) and
+  takes the rest; a fresh store restores that checkpoint and takes the
+  rest again; another fresh store restores the JAX package's checkpoint
+  ``spec['jax_path']`` and takes the rest. Returns the losses of each and
+  this rank's tier arrays as saved and as restored from the JAX one."""
+  import numpy as np
+
+  from distributed_embeddings_torch import checkpoint as tck
+
+  def arrays(store):
+    return {f"{part}/{name}/{r}": np.asarray(v).copy()
+            for part in ("images", "resident_grps", "counts")
+            for name, per in getattr(store, part).items()
+            for r, v in enumerate(per) if v is not None}
+
+  batches = spec["batches"]
+  run = spec["run"]
+  tplan, rule, store, tr = _tiered_setup(mesh, spec, run)
+  head = tr.run(batches[:3])
+  tck.save(spec["port_path"], tplan.plan, rule, tr.state, store=store,
+           mesh=mesh)
+  saved = arrays(store)
+  tail = tr.run(batches[3:])
+  out = {"head": head, "tail": tail, "saved": saved}
+  for key, path in (("resumed", spec["port_path"]),
+                    ("from_jax", spec["jax_path"])):
+    tplan2, _, store2, tr2 = _tiered_setup(mesh, spec,
+                                           dict(run, init="zeros"))
+    tr2.state = tck.restore(path, tplan2.plan, rule, tr2.state, mesh=mesh,
+                            store=store2, device="cpu")
+    tr2.prefetcher.refresh_resident()
+    if key == "from_jax":
+      out["restored"] = arrays(store2)
+    out[key] = tr2.run(batches[3:])
+  return out
