@@ -644,6 +644,21 @@ TIERED_VS_STEPS = 4
 TIERED_VS_DUP_RTOL = 1e-5  # K1's: of each cell's absolute sum
 TIERED_CKPT_STEPS = 2
 W4_TIERED_STEPS = 3
+# tiered serving (serve_tiered and the phases after it): the train_tiered
+# cell's trained store frozen to int8 and fp8 images (f32 at the cut the
+# host's RAM forces: it holds a second full-width copy of the images), a
+# serve cache of a quarter of each host-tier class's serve rows, staging
+# for 1,024 cold rows a class, SERVE_BATCH power-law requests
+SERVE_TIERED_REQUESTS = 20
+SERVE_TIERED_CACHE = 0.25
+SERVE_TIERED_STAGING = 1024
+SERVE_TIERED_COUNT_BATCHES = 2  # traffic classified into a fresh store's counts
+SERVE_TIERED_VS_REQUESTS = 3    # serve_tiered_vs_device, serve_tiered_artifact
+W4_SERVE_TIERED_REQUESTS = 3
+# the rank-0 batcher at world 4 (one card shared by four gloo ranks serves a
+# few dispatches a second): Poisson arrivals of 1-512 rows
+W4_BATCHER_RATE = 20
+W4_BATCHER_REQUESTS = 200
 
 
 class SmokeFailure(Exception):
@@ -3105,6 +3120,10 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
     t0 = time.perf_counter()
     out["tiered"] = _w4_tiered(torch, mesh, backend)
     out["tiered"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["serve_tiered"] = _w4_serve_tiered(torch, mesh, backend)
+    out["serve_tiered"]["wall_s"] = time.perf_counter() - t0
   finally:
     mesh.close()
   with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
@@ -3188,7 +3207,10 @@ def phase_world4(torch, smi: str) -> dict:
       backend, smi, [r["zoo"] for r in ranks])
   tiered_totals = emit_tiered_world4(backend, smi,
                                      [r["tiered"] for r in ranks])
-  emit({"phase": "world4", "wall_s": wall_s})
+  serve_tiered_totals, batcher_totals = emit_serve_tiered_world4(
+      backend, smi, [r["serve_tiered"] for r in ranks])
+  emit({"phase": "world4", "wall_s": wall_s,
+        "serve_tiered_wall_s": [r["serve_tiered"]["wall_s"] for r in ranks]})
   return {"train_world4": totals, "world4_ckpt": ckpt_totals,
           "train_dense_world4": dense_totals, "serve_world4": serve_totals,
           "train_world4_guard": guard, "train_world4_mb": mb,
@@ -3196,7 +3218,9 @@ def phase_world4(torch, smi: str) -> dict:
           "world4_colslice": colslice_totals,
           "zoo_world4_plan": zoo_plan_totals,
           "zoo_world4_dense": zoo_dense_totals,
-          "world4_bf16": narrow_totals, "world4_tiered": tiered_totals}
+          "world4_bf16": narrow_totals, "world4_tiered": tiered_totals,
+          "world4_serve_tiered": serve_tiered_totals,
+          "world4_batcher": batcher_totals}
 
 
 def emit_colslice_world4(backend: str, smi: str, res: list) -> dict:
@@ -7258,6 +7282,19 @@ def host_ram() -> dict:
   return out
 
 
+def host_ram_at_least(nbytes: float, timeout_s: float = 60.0) -> dict:
+  """:func:`host_ram` once ``MemAvailable`` reaches ``nbytes``, or after
+  ``timeout_s``: the chip machine hands freed pages back to
+  ``MemAvailable`` seconds after a process frees them, so a reading right
+  after a release undercounts."""
+  t0 = time.perf_counter()
+  while True:
+    ram = host_ram()
+    if ram["MemAvailable"] >= nbytes or time.perf_counter() - t0 > timeout_s:
+      return ram
+    time.sleep(0.5)
+
+
 def tiered_cut(image_bytes: int, available: int) -> int:
   """The smallest power of two that cuts every table so that the host
   images fit ``available`` bytes ``TIERED_RAM_SLACK`` times over."""
@@ -7328,7 +7365,8 @@ def phase_train_tiered(torch, smi: str) -> dict:
   over (1 when they fit whole). ``TIERED_WARMUP`` steps, then
   ``TIERED_TIMED`` traced ones through ``TieredTrainer.run``: K2 once each
   way and K1 once per sparse class a step, finite losses, no lookup
-  missing both tiers. Returns each kernel's launches."""
+  missing both tiers. Returns each kernel's launches and the trained
+  pieces (plan, rule, state, store, model) for ``serve_tiered``."""
   import gc
 
   import numpy as np
@@ -7429,10 +7467,14 @@ def phase_train_tiered(torch, smi: str) -> dict:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches_per_step": want, "launches": got, "losses": losses})
   totals = {k: v * (TIERED_WARMUP + TIERED_TIMED) for k, v in want.items()}
+  # the trained state and store go on to serve_tiered
+  trained = {"vocab": vocab, "plan": plan, "rule": rule, "store": store,
+             "state": trainer.state, "model": model, "cut": cut,
+             "full_vocab_image_bytes": full_bytes, "host_ram": ram}
   del trainer, state, store, batches
   gc.collect()
   torch.cuda.empty_cache()
-  return totals
+  return totals, trained
 
 
 def abs_apply(layout, absum, ids, fused_delta, delta_scale=None) -> None:
@@ -7842,6 +7884,831 @@ def emit_tiered_world4(backend: str, smi: str, res: list) -> dict:
   return totals
 
 
+def serve_tiered_requests(vocab, n: int, seed: int) -> list:
+  """``n`` requests of ``SERVE_BATCH`` samples: the tiered cell's one-hot
+  power-law ids (``tiered_batches``) and normal features."""
+  return [(num, cats) for num, cats, _ in tiered_batches(vocab, n,
+                                                         SERVE_BATCH, seed)]
+
+
+def host_image_bytes(plan, rule, quantize: str) -> int:
+  """Host bytes of the host-tier classes' serve images under ``quantize``
+  (one rank's when the plan has several)."""
+  from distributed_embeddings_torch.parallel.lookup_engine import \
+      class_param_name
+  from distributed_embeddings_torch.serving.export import serve_class_meta
+  meta, _ = serve_class_meta(plan, rule, quantize,
+                             frozenset(class_param_name(*k) for k in
+                                       plan.host_tier_class_keys()))
+  return sum(m.packed.phys_rows * m.packed.phys_width * m.np_dtype.itemsize
+             for m in meta.values() if m.tier == "host")
+
+
+def tier_totals(metrics: list) -> dict:
+  """Per class, the ``[hot, staged, missed, valid]`` counters of a run's
+  dispatches summed; with the run's hit rate over every class."""
+  per = {}
+  for m in metrics:
+    for name, v in m["tier"].items():
+      per[name] = [a + int(b) for a, b in zip(per.get(name, [0] * 4), v)]
+  hot = sum(v[0] for v in per.values())
+  valid = sum(v[3] for v in per.values())
+  return {"per_class": per, "hit_rate": hot / max(1, valid),
+          "missed": sum(v[2] for v in per.values())}
+
+
+def serve_tiered_image(torch, ci, smi: str, cell: dict, quantize: str,
+                       requests: list) -> dict:
+  """One image of the full-width tiered serve cell: ``freeze(store=)``,
+  a tiered ``ServeEngine`` with metrics, ``requests`` answered one by one
+  (host ms around ``predict``); K2-fwd once a request, every lookup hot or
+  staged, the predictions finite and, on the first request, the kernel
+  path against the plain interaction over the same activations (the
+  engine's state and staging through an activations model). Emits the
+  ``serve_tiered`` line; returns the launches."""
+  import gc
+
+  import numpy as np
+
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      ServeTierConfig,
+      freeze,
+      make_serve_step,
+      shard_batch,
+  )
+  from distributed_embeddings_torch.serving.golden import PRED_TOL, EmbActs
+
+  plan, rule, model = cell["plan"], cell["rule"], cell["model"]
+  need = host_image_bytes(plan, rule, quantize)
+  ram = host_ram_at_least(TIERED_RAM_SLACK * need)
+  check(TIERED_RAM_SLACK * need <= ram["MemAvailable"],
+        f"serve_tiered {quantize}: {need} B of images need "
+        f"{TIERED_RAM_SLACK} x that of host RAM, MemAvailable "
+        f"{ram['MemAvailable']}")
+  cfg = ServeTierConfig(cache_fraction=SERVE_TIERED_CACHE,
+                        staging_grps=SERVE_TIERED_STAGING)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  frozen = freeze(plan, rule, cell["state"], quantize=quantize,
+                  store=cell["store"])
+  torch.cuda.synchronize()
+  freeze_s = time.perf_counter() - t0
+  image_bytes = sum(img.nbytes for imgs in frozen.host_images.values()
+                    for img in imgs)
+  check(image_bytes == need, f"serve_tiered {quantize}: {image_bytes} B "
+        f"of images, {need} planned")
+  t0 = time.perf_counter()
+  eng = ServeEngine(model, plan, frozen, device="cuda", tier_config=cfg,
+                    with_metrics=True)
+  torch.cuda.synchronize()
+  engine_s = time.perf_counter() - t0
+  reset_counts()
+  preds, metrics, ms = [], [], []
+  for numerical, cats in requests:
+    t0 = time.perf_counter()
+    p, m = eng.predict(numerical, cats)
+    ms.append((time.perf_counter() - t0) * 1e3)
+    preds.append(p)
+    metrics.append(m)
+  got = read_counts()
+  want = expect(interact_fwd=len(requests))
+  check(got == want, f"serve_tiered {quantize}: launches {got} for "
+        f"{len(requests)} requests, expected {want}")
+  tiers = tier_totals(metrics)
+  check(tiers["missed"] == 0 and all(
+      v[0] + v[1] == v[3] for v in tiers["per_class"].values()),
+        f"serve_tiered {quantize}: lookups missed both tiers: {tiers}")
+  for p in preds:
+    check(p.shape == (SERVE_BATCH,) and np.isfinite(p).all(),
+          f"serve_tiered {quantize}: predictions not finite "
+          f"[{SERVE_BATCH}]")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  device_bytes = sum(t.numel() * t.element_size()
+                     for t in eng.state["serve"].values())
+  geometry = {n: {"cache_grps": sp.cache_grps,
+                  "staging_grps": sp.staging_grps,
+                  "phys_rows": eng.tplan.by_name(n).layout_logical.phys_rows}
+              for n, sp in eng.tplan.tier_specs.items()}
+  gather_bytes = eng.prefetcher.total_host_gather_bytes
+  spills = eng.prefetcher.spill_steps
+  # the kernel path against the plain interaction on the same activations:
+  # the engine's own state and staging through an activations model
+  acts_step = make_serve_step(EmbActs(), plan, eng.meta,
+                              tier_specs=eng.tplan.tier_specs)
+  numerical, cats = requests[0]
+  staged = eng.prefetcher.prepare(list(cats))
+  num_d, cats_d = shard_batch((numerical, tuple(cats)), None, "cuda")
+  with torch.inference_mode():
+    acts = acts_step(eng.state, staged.device, num_d, cats_d)
+    ref = plain_forward(torch, ci, model, num_d, acts).cpu().numpy()
+  err = np.abs(preds[0] - ref)
+  check(bool((err <= PRED_TOL["atol"] + PRED_TOL["rtol"]
+              * np.abs(ref)).all()),
+        f"serve_tiered {quantize}: kernel path vs plain interaction off "
+        f"by {err.max()}")
+  del eng, staged, frozen, acts
+  gc.collect()  # the engine's prefetcher holds a reference cycle
+  torch.cuda.empty_cache()
+  emit({"phase": "serve_tiered", "quantize": quantize, "card": smi,
+        "vocab_cut": cell["cut"], "cut_reason": cell["cut_reason"],
+        "host_ram": ram, "rows": int(sum(cell["vocab"])),
+        "host_tier_tables": len([
+            sh for k in plan.host_tier_class_keys()
+            for sh in plan.classes[k].shards_per_rank[0]]),
+        "image_bytes": image_bytes, "device_serve_bytes": device_bytes,
+        "geometry": geometry, "batch": SERVE_BATCH, "alpha": TIERED_ALPHA,
+        "requests": len(requests), "freeze_s": freeze_s,
+        "engine_s": engine_s, "request_ms": ms,
+        "p50_ms": statistics.median(ms), "request_ms_range": [min(ms),
+                                                              max(ms)],
+        "hit_rate": tiers["hit_rate"], "per_class": tiers["per_class"],
+        "missed": tiers["missed"],
+        "gather_bytes_per_request": gather_bytes / len(requests),
+        "spill_dispatches": spills, "peak_gib": peak,
+        "max_abs_err_vs_plain": float(err.max()), "launches": got})
+  return got
+
+
+def phase_serve_tiered(torch, ci, smi: str, trained: dict) -> dict:
+  """``serve_tiered``: the train_tiered cell served at full width. Its
+  trained state and store (the f32 Criteo-1TB tables, the five above
+  ``TIERED_HOST_ROWS`` in host RAM, cut as ``train_tiered`` cut them)
+  freeze to int8 and to fp8 images behind a ``SERVE_TIERED_CACHE`` hot
+  cache, and answer ``SERVE_TIERED_REQUESTS`` requests of ``SERVE_BATCH``
+  power-law ids each (:func:`serve_tiered_image`). f32 images hold a
+  second full copy of the training images, so f32 serves a fresh state at
+  the smallest power-of-two cut whose training and serve images fit
+  ``MemAvailable`` ``TIERED_RAM_SLACK`` times over, after the trained
+  store is released (the fresh store's counts come from classifying
+  ``SERVE_TIERED_COUNT_BATCHES`` train batches). Returns the launches."""
+  import gc
+
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredPrefetcher,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state,
+  )
+
+  totals = expect()
+  vocab = trained["vocab"]
+  requests = serve_tiered_requests(vocab, SERVE_TIERED_REQUESTS, SEED + 19)
+  cell = dict(trained, cut_reason=(
+      None if trained["cut"] == 1 else
+      f"train_tiered's cut: {TIERED_RAM_SLACK} x the full vocabulary's "
+      f"{trained['full_vocab_image_bytes']} training image bytes exceed "
+      "MemAvailable"))
+  for q in ("int8", "fp8"):
+    add_counts(totals, serve_tiered_image(torch, ci, smi, cell, q,
+                                          requests))
+  trained_ram = trained["host_ram"]
+  trained.clear()
+  del cell
+  gc.collect()
+  torch.cuda.empty_cache()
+  # f32: training images and their serve copy at once
+  rule = sgd_rule(TRAIN_LR)
+  full = list(CRITEO_1TB_VOCAB)
+  full_bytes = host_image_bytes(tiered_plan(full), rule, "f32")
+  # the trained store's pages back first (they return to MemAvailable
+  # with a lag)
+  ram = host_ram_at_least(0.9 * trained_ram["MemAvailable"])
+  cut = tiered_cut(2 * full_bytes, ram["MemAvailable"])
+  vocab = [max(4, v // cut) for v in full]
+  plan = tiered_plan(vocab, cut)
+  tplan = TieringPlan(plan, rule, TieringConfig(cache_fraction=0.01,
+                                                staging_grps=16))
+  store = HostTierStore(tplan)
+  model = dlrm_of(torch, vocab)
+  t0 = time.perf_counter()
+  state = init_tiered_state(
+      tplan, store, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED + 5),
+      image_seed=SEED + 5, image_device="cuda", device="cuda")
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  pf = TieredPrefetcher(tplan, store, device="cuda")
+  for batch in tiered_batches(vocab, SERVE_TIERED_COUNT_BATCHES, TRAIN_BATCH,
+                              SEED + 21):
+    pf.classify(batch[1])
+  del pf
+  emit({"phase": "serve_tiered_f32_setup", "vocab_cut": cut,
+        "full_vocab_f32_image_bytes": full_bytes, "init_s": init_s,
+        "host_image_bytes": tplan.host_bytes_per_rank()})
+  cell = {"vocab": vocab, "plan": plan, "rule": rule, "store": store,
+          "state": state, "model": model, "cut": cut,
+          "cut_reason": (None if cut == 1 else
+                         f"{TIERED_RAM_SLACK} x twice the full vocabulary's "
+                         f"{full_bytes} f32 image bytes (the training "
+                         "images and their serve copy) exceed "
+                         "MemAvailable")}
+  requests = serve_tiered_requests(vocab, SERVE_TIERED_REQUESTS, SEED + 19)
+  add_counts(totals, serve_tiered_image(torch, ci, smi, cell, "f32",
+                                        requests))
+  del cell, state, store, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return totals
+
+
+def dlrm_of(torch, vocab):
+  """The train cell's f32 DLRM over ``vocab`` (dense parameters from
+  ``SEED``)."""
+  from distributed_embeddings_torch.models import DLRM
+  return DLRM(vocab, D, tables=False, device="cuda",
+              generator=torch.Generator().manual_seed(SEED))
+
+
+def serve_tiered_setup(torch) -> dict:
+  """The 1/``TIERED_VS_SCALE`` tiered serve cell of
+  ``serve_tiered_vs_device`` and ``serve_tiered_artifact``: one state of
+  the tiered plan drawn all-device (``init_sparse_state_direct``); a copy
+  moved onto tiering (``init_tiered_state_from_fused``: a cache of half of
+  each host-tier class), its counts from classifying
+  ``SERVE_TIERED_COUNT_BATCHES`` train batches; the same tables laid out
+  for the plan without a host tier (``get_weights`` / ``set_weights``,
+  ``init_sparse_state``); ``SERVE_TIERED_VS_REQUESTS`` power-law
+  requests."""
+  from distributed_embeddings_torch.layers.dist_model_parallel import (
+      get_weights,
+      set_weights,
+  )
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredPrefetcher,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state_from_fused,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state,
+      init_sparse_state_direct,
+      unpack_sparse_state,
+  )
+
+  vocab = [max(4, v // TIERED_VS_SCALE) for v in CRITEO_1TB_VOCAB]
+  plan = tiered_plan(vocab, TIERED_VS_SCALE)
+  flat = train_plan(vocab, buffer_elements=None)
+  rule = sgd_rule(TRAIN_LR)
+  model = dlrm_of(torch, vocab)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED + 7), device="cuda")
+  tplan = TieringPlan(plan, rule, TieringConfig(cache_fraction=0.5,
+                                                staging_grps=1024))
+  store = HostTierStore(tplan)
+  tiered = init_tiered_state_from_fused(tplan, store, twin_state(state))
+  pf = TieredPrefetcher(tplan, store, device="cuda")
+  for batch in tiered_batches(vocab, SERVE_TIERED_COUNT_BATCHES, TRAIN_BATCH,
+                              SEED + 23):
+    pf.classify(batch[1])
+  del pf
+  params, _ = unpack_sparse_state(plan, rule, state)
+  weights = get_weights(plan, params["embeddings"])
+  params["embeddings"] = {k: torch.from_numpy(v) for k, v in
+                          set_weights(flat, weights).items()}
+  del weights
+  flat_state = init_sparse_state(flat, params, rule, sgd_factory(torch),
+                                 device="cuda")
+  del params
+  return {"vocab": vocab, "plan": plan, "flat": flat, "rule": rule,
+          "model": model, "state": state, "tiered": tiered, "store": store,
+          "flat_state": flat_state,
+          "requests": serve_tiered_requests(vocab, SERVE_TIERED_VS_REQUESTS,
+                                            SEED + 27)}
+
+
+def phase_serve_tiered_vs_device(torch, smi: str, setup: dict) -> dict:
+  """``serve_tiered_vs_device``: the 1/``TIERED_VS_SCALE`` cell
+  (:func:`serve_tiered_setup`) served tiered through a 2-row staging
+  region (every dispatch spills) against all-device serving of the same
+  tables: per image (f32, int8, fp8) the tiered predictions bit-equal to
+  the untiered plan's all-device engine's, f32 ones also to
+  ``make_sparse_eval_step``'s; no lookup missed. K2-fwd once per request
+  of each engine and per eval call. Returns the launches."""
+  import gc
+
+  import numpy as np
+
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      ServeTierConfig,
+      freeze,
+  )
+  from distributed_embeddings_torch.training import (
+      make_sparse_eval_step,
+      shard_batch,
+  )
+
+  plan, flat, rule = setup["plan"], setup["flat"], setup["rule"]
+  model, requests = setup["model"], setup["requests"]
+  cfg = ServeTierConfig(cache_fraction=0.5, staging_grps=2)
+  ev = make_sparse_eval_step(model, plan, rule)
+  totals = expect()
+  for q in ("f32", "int8", "fp8"):
+    reset_counts()
+    eng = ServeEngine(model, plan, freeze(plan, rule, setup["tiered"], q,
+                                          store=setup["store"]),
+                      device="cuda", tier_config=cfg, with_metrics=True)
+    flat_eng = ServeEngine(model, flat, freeze(flat, rule,
+                                               setup["flat_state"], q),
+                           device="cuda")
+    metrics, evals = [], 0
+    for i, (numerical, cats) in enumerate(requests):
+      got, m = eng.predict(numerical, cats)
+      metrics.append(m)
+      want = flat_eng.predict(numerical, cats)
+      check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+            f"serve_tiered_vs_device {q} request {i}: tiered predictions "
+            f"differ from all-device serving's by up to "
+            f"{np.abs(got - want).max()}")
+      if q == "f32":
+        with torch.inference_mode():
+          ref = ev(setup["state"], *shard_batch((numerical, cats), None,
+                                                "cuda")).cpu().numpy()
+        evals += 1
+        check(np.array_equal(got.view(np.int32), ref.view(np.int32)),
+              f"serve_tiered_vs_device f32 request {i}: tiered predictions "
+              f"differ from make_sparse_eval_step's by up to "
+              f"{np.abs(got - ref).max()}")
+    got_l = read_counts()
+    want_l = expect(interact_fwd=2 * len(requests) + evals)
+    check(got_l == want_l, f"serve_tiered_vs_device {q}: launches {got_l}, "
+          f"expected {want_l}")
+    add_counts(totals, got_l)
+    tiers = tier_totals(metrics)
+    check(tiers["missed"] == 0, f"serve_tiered_vs_device {q}: {tiers}")
+    check(eng.prefetcher.spill_steps == len(requests),
+          f"serve_tiered_vs_device {q}: {eng.prefetcher.spill_steps} of "
+          f"{len(requests)} dispatches spilled")
+    emit({"phase": "serve_tiered_vs_device", "quantize": q, "card": smi,
+          "vocab_scale": f"1/{TIERED_VS_SCALE}", "batch": SERVE_BATCH,
+          "requests": len(requests), "staging_grps": 2,
+          "spill_dispatches": eng.prefetcher.spill_steps,
+          "hit_rate": tiers["hit_rate"], "per_class": tiers["per_class"],
+          "bit_equal_all_device": True,
+          **({"bit_equal_eval": True} if q == "f32" else {}),
+          "launches": got_l})
+    del eng, flat_eng
+    gc.collect()  # the tiered engine's prefetcher holds a reference cycle
+    torch.cuda.empty_cache()
+  return totals
+
+
+def phase_serve_tiered_artifact(torch, smi: str, setup: dict) -> dict:
+  """``serve_tiered_artifact``: the 1/``TIERED_VS_SCALE`` cell's int8
+  tiered artifact: ``export(store=)`` (cold images and
+  ``serve_ranking.npz`` beside the device blocks), ``verify``, ``load``,
+  a tiered ``ServeEngine`` on it answering the requests bit-equal to the
+  ``FrozenTables`` engine's; seconds, bytes and files. Returns the
+  launches; the cell's arrays are released."""
+  import gc
+  import os
+  import shutil
+  import tempfile
+
+  import numpy as np
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      ServeTierConfig,
+      export,
+      load,
+  )
+
+  plan, rule, model = setup["plan"], setup["rule"], setup["model"]
+  requests = setup["requests"]
+  cfg = ServeTierConfig(cache_fraction=SERVE_TIERED_CACHE,
+                        staging_grps=SERVE_TIERED_STAGING)
+  root = tempfile.mkdtemp(prefix="chip_smoke_serve_tiered_")
+  path = f"{root}/artifact"
+  t0 = time.perf_counter()
+  frozen = export(path, plan, rule, setup["tiered"], quantize="int8",
+                  store=setup["store"], extra={"cell": "serve_tiered"})
+  export_s = time.perf_counter() - t0
+  nbytes, nfiles = dir_bytes(path)
+  cold = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+             if f.startswith("serve_cold_"))
+  free = shutil.disk_usage(root).free
+  t0 = time.perf_counter()
+  problems = checkpoint.verify(path)
+  verify_s = time.perf_counter() - t0
+  check(problems == [], f"serve_tiered_artifact: verify found {problems}")
+  t0 = time.perf_counter()
+  art = load(path, plan, device="cuda")
+  torch.cuda.synchronize()
+  load_s = time.perf_counter() - t0
+  check(sorted(art.host_images) == sorted(frozen.host_images) != [],
+        "serve_tiered_artifact: the loaded artifact's host-tier classes "
+        f"{sorted(art.host_images)}")
+  reset_counts()
+  ms = []
+  eng = ServeEngine(model, plan, art, device="cuda", tier_config=cfg)
+  ref = ServeEngine(model, plan, frozen, device="cuda", tier_config=cfg)
+  for i, (numerical, cats) in enumerate(requests):
+    t0 = time.perf_counter()
+    got = eng.predict(numerical, cats)
+    ms.append((time.perf_counter() - t0) * 1e3)
+    want = ref.predict(numerical, cats)
+    check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+          f"serve_tiered_artifact request {i}: the artifact engine differs "
+          f"from the FrozenTables engine by {np.abs(got - want).max()}")
+  launches = read_counts()
+  want_l = expect(interact_fwd=2 * len(requests))
+  check(launches == want_l, f"serve_tiered_artifact: launches {launches}, "
+        f"expected {want_l}")
+  emit({"phase": "serve_tiered_artifact", "quantize": "int8", "card": smi,
+        "vocab_scale": f"1/{TIERED_VS_SCALE}", "bytes": nbytes,
+        "cold_image_bytes": cold, "files": nfiles, "export_s": export_s,
+        "verify_s": verify_s, "load_s": load_s, "disk_free_bytes": free,
+        "request_ms": ms, "bit_equal_frozen": True, "launches": launches})
+  shutil.rmtree(root)
+  del eng, ref, art, frozen
+  setup.clear()  # the cell's last phase
+  gc.collect()
+  torch.cuda.empty_cache()
+  return launches
+
+
+def phase_serve_tiered_golden(torch) -> dict:
+  """``serve_tiered_golden``: the committed JAX tiered serve golden
+  replayed through the port's tiered ``ServeEngine`` on the card, per
+  image: activations bit-equal, counters and spill dispatches exact,
+  predictions within ``serving.golden.PRED_TOL`` (the interaction runs in
+  bf16 on the card). Returns the launches."""
+  from distributed_embeddings_torch.serving import golden
+
+  g = golden.load(golden.TIERED_PATH)
+  reset_counts()
+  worst = {}
+  for q in golden.TIERED_QUANTIZE:
+    got = golden.replay_tiered(g, q, device="cuda")
+    try:
+      worst[q] = golden.compare_tiered(g, q, got)
+    except AssertionError as exc:
+      raise SmokeFailure(f"serve_tiered_golden {q}: {exc}") from exc
+  counts = read_counts()
+  # two engines (a serve cache, a spilling one) x two requests per image
+  want = expect(interact_fwd=4 * len(golden.TIERED_QUANTIZE))
+  check(counts == want, f"serve_tiered_golden: launches {counts}, "
+        f"expected {want}")
+  emit({"phase": "serve_tiered_golden", "pred_max_abs_err": worst,
+        "pred_tol": golden.PRED_TOL, "acts_bit_equal": True,
+        "counters_exact": True, "launches": counts})
+  return counts
+
+
+def w4_local_tables(plan, tplan, store, rule, state, mesh) -> dict:
+  """This rank's simple-layout class tables ``[padded_rows, width]``: the
+  host-tier ones unpacked from its store's image (on the host), the
+  device-tier sparse ones from its fused buffers, the dense classes' rows
+  of ``emb_dense``."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_param_name,
+  )
+  layouts = DistributedLookup(plan).fused_layouts(rule)
+  out = {}
+  for key in plan.class_keys:
+    name = class_param_name(*key)
+    if name in tplan.tier_specs:
+      lay = tplan.by_name(name).layout_logical
+      out[name] = lay.unpack(store.images[name][mesh.rank])[0]
+    elif plan.classes[key].kind == "sparse":
+      out[name] = layouts[name].unpack(state["fused"][name])[0]
+    else:
+      out[name] = state["emb_dense"][name]
+  return out
+
+
+def w4_world1_acts(torch, plan, mesh, local: dict, cats) -> list:
+  """Every table's rows at the global request's ids ``cats`` (one-hot,
+  numpy), on every rank: each rank fills the rows of the shards it owns
+  from its local tables (:func:`w4_local_tables`), zeros elsewhere, and
+  one ``all_reduce`` adds them (every row comes from one rank)."""
+  import numpy as np
+
+  from distributed_embeddings_torch.parallel.lookup_engine import \
+      class_param_name
+  dev = mesh.device
+  acts = []
+  for t, ids in enumerate(cats):
+    ids = np.asarray(ids).astype(np.int64)
+    rows = torch.zeros((ids.shape[0], D), dtype=torch.float32, device=dev)
+    for rank, shard in plan.table_shard_map(t):
+      if rank != mesh.rank:
+        continue
+      key = plan.class_key_of(shard)
+      cp = plan.classes[key]
+      row0 = cp.row_offsets_per_rank[rank][cp.shards_per_rank[rank].index(
+          shard)]
+      sel = np.flatnonzero((ids >= shard.row_start)
+                           & (ids < shard.row_start + shard.input_dim))
+      table = local[class_param_name(*key)]
+      src = torch.as_tensor(row0 + ids[sel] - shard.row_start)
+      got = table[src.to(table.device) if isinstance(table, torch.Tensor)
+                  else src.numpy()]
+      rows[torch.as_tensor(sel, device=dev),
+           shard.col_start:shard.col_end] = torch.as_tensor(got).to(dev)
+    torch.distributed.all_reduce(rows)
+    acts.append(rows)
+  return acts
+
+
+def _w4_serve_tiered(torch, mesh, backend: str) -> dict:
+  """``world4_serve_tiered`` and ``world4_batcher`` in this rank: the
+  world-4 plan (x 1/16 on both backends) with its tables above
+  ``TIERED_HOST_ROWS`` (cut alike) host-tier, this rank's store owning its
+  image (a drawn state, counts from classifying two global train
+  batches); per image (f32, int8) ``freeze(store=, mesh=)`` and a tiered
+  ``ServeEngine(mesh=)`` answering ``W4_SERVE_TIERED_REQUESTS`` global
+  power-law requests in lockstep: the answers equal on every rank, no
+  lookup missed, K2-fwd once a request; the f32 answers against the
+  world-1 forward of the same rows (the model on one process over each
+  rank's slice of the global request in turn, its activations the
+  tables' rows gathered from the owning ranks), in the f32 class, the
+  bit-equal verdict reported. Then the rank-0 ``MicroBatcher``
+  (``serving.world_batcher``) in front of the f32 engine: rank 0 submits
+  ``W4_BATCHER_REQUESTS`` requests of 1-``BATCHER_MAX_ROWS`` rows as
+  Poisson arrivals at ``W4_BATCHER_RATE`` a second from
+  ``BATCHER_THREADS`` threads while the other ranks follow; each
+  request's rows against lockstep predictions of the same rows within
+  ``serving.golden.PRED_TOL``, and K2-fwd once per dispatch on every
+  rank."""
+  import gc
+  import threading
+
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.wire import gather_blocks
+  from distributed_embeddings_torch.serving import (
+      REJECT_REASONS,
+      Rejected,
+      ServeEngine,
+      ServeTierConfig,
+      freeze,
+      shard_batch,
+      world_batcher,
+  )
+  from distributed_embeddings_torch.serving.golden import PRED_TOL
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredPrefetcher,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state,
+  )
+
+  dev = mesh.device
+  scale = W4_VOCAB_SCALE["gloo"]
+  vocab, plan = world4_plan("gloo", "fused",
+                            host_row_threshold=TIERED_HOST_ROWS // scale)
+  rule = sgd_rule(TRAIN_LR)
+  tplan = TieringPlan(plan, rule, TieringConfig(cache_fraction=0.5,
+                                                staging_grps=4096))
+  store = HostTierStore(tplan, owned_ranks=(mesh.rank,))
+  model = DLRM(vocab, D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+  state = init_tiered_state(
+      tplan, store, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 1 + mesh.rank),
+      mesh=mesh, image_seed=SEED, image_device=dev)
+  pf = TieredPrefetcher(tplan, store, mesh)
+  for batch in tiered_batches(vocab, 2, W4_BATCH, SEED + 31):
+    pf.classify(batch[1])
+  del pf
+  requests = serve_tiered_requests(vocab, W4_SERVE_TIERED_REQUESTS, SEED + 29)
+  cfg = ServeTierConfig(cache_fraction=SERVE_TIERED_CACHE,
+                        staging_grps=SERVE_TIERED_STAGING)
+  out = {"vocab_scale": f"1/{scale}", "launches": expect()}
+  for q in ("f32", "int8"):
+    t0 = time.perf_counter()
+    frozen = freeze(plan, rule, state, quantize=q, store=store, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    freeze_s = time.perf_counter() - t0
+    eng = ServeEngine(model, plan, frozen, mesh=mesh, tier_config=cfg,
+                      with_metrics=True)
+    reset_counts()
+    preds, metrics, ms = [], [], []
+    for numerical, cats in requests:
+      torch.cuda.synchronize(dev)
+      t0 = time.perf_counter()
+      p, m = eng.predict(numerical, cats)
+      ms.append((time.perf_counter() - t0) * 1e3)
+      preds.append(p)
+      metrics.append(m)
+    got = read_counts()
+    want = expect(interact_fwd=len(requests))
+    check(got == want, f"world4_serve_tiered {q} rank {mesh.rank}: launches "
+          f"{got}, expected {want}")
+    add_counts(out["launches"], got)
+    tiers = tier_totals(metrics)
+    check(tiers["missed"] == 0, f"world4_serve_tiered {q} rank {mesh.rank}: "
+          f"{tiers}")
+    for i, p in enumerate(preds):
+      check(p.shape == (SERVE_BATCH,) and np.isfinite(p).all(),
+            f"world4_serve_tiered {q}: predictions not finite")
+      every = gather_blocks(torch.from_numpy(p).to(dev), mesh).cpu().numpy()
+      check(all(np.array_equal(every[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+                               .view(np.int32), p.view(np.int32))
+                for r in range(WORLD)),
+            f"world4_serve_tiered {q} request {i}: the ranks' predictions "
+            "differ")
+    line = {"freeze_s": freeze_s, "request_ms": ms,
+            "hit_rate": tiers["hit_rate"], "per_class": tiers["per_class"],
+            "spill_dispatches": eng.prefetcher.spill_steps,
+            "gather_bytes": eng.prefetcher.total_host_gather_bytes,
+            "image_bytes": sum(imgs[mesh.rank].nbytes for imgs in
+                               frozen.host_images.values()),
+            "launches": got}
+    if q == "f32":
+      local = w4_local_tables(plan, tplan, store, rule, state, mesh)
+      worst, equal = 0.0, True
+      n = SERVE_BATCH // WORLD
+      for i, (numerical, cats) in enumerate(requests):
+        acts = w4_world1_acts(torch, plan, mesh, local, cats)
+        num_d, cats_d = shard_batch((numerical, tuple(cats)), None, dev)
+        reset_counts()
+        # one forward per rank's slice: the world-4 step's matmul shapes
+        # (a bottom-MLP output one f32 ulp off moves a bf16 K2 operand)
+        with torch.inference_mode():
+          ref = torch.cat([
+              model(num_d[r * n:(r + 1) * n],
+                    [c[r * n:(r + 1) * n] for c in cats_d],
+                    emb_acts=[a[r * n:(r + 1) * n] for a in acts])
+              for r in range(WORLD)]).float().cpu().numpy()
+        check(read_counts() == expect(interact_fwd=WORLD),
+              "world4_serve_tiered: the world-1 forward's launches")
+        p = preds[i]
+        err = np.abs(p - ref)
+        check(bool((err <= 1e-6 + 1e-5 * np.abs(ref)).all()),
+              f"world4_serve_tiered rank {mesh.rank}: off the world-1 "
+              f"forward by {err.max()}")
+        worst = max(worst, float(err.max()))
+        equal = equal and np.array_equal(p.view(np.int32), ref.view(np.int32))
+      line["world1_max_abs_err"], line["world1_bit_equal"] = worst, equal
+      del local
+      f32_frozen = frozen
+    out[q] = line
+    del frozen, eng
+    gc.collect()  # the engine's prefetcher holds a reference cycle
+  del state
+  # the batcher's engine: predictions only (no counters)
+  eng = ServeEngine(model, plan, f32_frozen, mesh=mesh, tier_config=cfg)
+  del f32_frozen
+  torch.cuda.empty_cache()
+
+  # the rank-0 batcher: lockstep predictions of a pool of rows first
+  pool = BATCHER_POOL * SERVE_BATCH
+  rng = np.random.default_rng(SEED + 37)
+  numerical = rng.standard_normal((pool, 13)).astype(np.float32)
+  draws = serve_tiered_requests(vocab, BATCHER_POOL, SEED + 41)
+  cats = [np.concatenate([c[t] for _, c in draws])
+          for t in range(len(vocab))]
+  reset_counts()
+  ref, lockstep_ms = [], []
+  for i in range(0, pool, SERVE_BATCH):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ref.append(eng.predict(numerical[i:i + SERVE_BATCH],
+                           [c[i:i + SERVE_BATCH] for c in cats]))
+    lockstep_ms.append((time.perf_counter() - t0) * 1e3)
+  ref = np.concatenate(ref)
+  bat = {"lockstep_request_ms": lockstep_ms}
+  if mesh.rank != 0:
+    t0 = time.perf_counter()
+    mb = world_batcher(eng, SERVE_BATCH)
+    check(mb is None, "world4_batcher: a follower got a batcher")
+    bat["follow_s"] = time.perf_counter() - t0
+  else:
+    mb = world_batcher(eng, SERVE_BATCH, max_delay_s=BATCHER_DELAY_S)
+    plan_rng = np.random.default_rng(SEED + W4_BATCHER_RATE)
+    per_thread = W4_BATCHER_REQUESTS // BATCHER_THREADS
+    schedules = []
+    for _ in range(BATCHER_THREADS):
+      gaps = plan_rng.exponential(BATCHER_THREADS / W4_BATCHER_RATE,
+                                  per_thread)
+      sizes = plan_rng.integers(1, BATCHER_MAX_ROWS + 1, per_thread)
+      starts = plan_rng.integers(0, pool - BATCHER_MAX_ROWS, per_thread)
+      schedules.append((np.cumsum(gaps), sizes, starts))
+    results = [[] for _ in range(BATCHER_THREADS)]
+    shed = [{r: 0 for r in REJECT_REASONS} for _ in range(BATCHER_THREADS)]
+
+    def submitter(k, t0):
+      at, sizes, starts = schedules[k]
+      for t, n, a in zip(at, sizes, starts):
+        wait = t0 + t - time.perf_counter()
+        if wait > 0:
+          time.sleep(wait)
+        try:
+          fut = mb.submit(numerical[a:a + n], [c[a:a + n] for c in cats])
+        except Rejected as e:
+          shed[k][e.reason] += 1
+          continue
+        results[k].append((a, n, fut))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(k, t0))
+               for k in range(BATCHER_THREADS)]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join()
+    lat, worst = [], 0.0
+    for k in range(BATCHER_THREADS):
+      for a, n, fut in results[k]:
+        try:
+          got_rows = fut.result(timeout=300)
+        except Rejected as e:
+          shed[k][e.reason] += 1
+          continue
+        err = np.abs(got_rows - ref[a:a + n])
+        check(got_rows.shape == (n,) and bool(
+            (err <= PRED_TOL["atol"] + PRED_TOL["rtol"]
+             * np.abs(ref[a:a + n])).all()),
+              f"world4_batcher: a request's rows differ from lockstep "
+              f"predict's by up to {err.max()}")
+        worst = max(worst, float(err.max()))
+        lat.append(fut.latency_s * 1e3)
+    wall_s = time.perf_counter() - t0
+    mb.close()
+    stats = mb.stats
+    check(stats["completed"] == len(lat),
+          f"world4_batcher: stats {stats}, {len(lat)} answered")
+    bat.update({"offered_requests_per_s": W4_BATCHER_RATE,
+                "requests": len(lat), "wall_s": wall_s,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "p999_ms": float(np.percentile(lat, 99.9)),
+                "dispatches": stats["batches"],
+                "mean_fill": sum(n for res in results for _, n, _ in res)
+                / (stats["batches"] * SERVE_BATCH),
+                "rejected": stats["rejected"],
+                "rejected_by_reason": {r: sum(t[r] for t in shed)
+                                       for r in REJECT_REASONS},
+                "max_abs_err_vs_lockstep": worst})
+  got = read_counts()
+  # every rank ran each lockstep dispatch and each batcher dispatch
+  n_disp = torch.tensor([bat.get("dispatches", 0)], device=dev)
+  torch.distributed.broadcast(n_disp, src=0)
+  want = expect(interact_fwd=pool // SERVE_BATCH + int(n_disp.item()))
+  check(got == want, f"world4_batcher rank {mesh.rank}: launches {got}, "
+        f"expected {want}")
+  bat["launches"] = got
+  del eng
+  gc.collect()
+  torch.cuda.empty_cache()
+  return {"serve": out, "batcher": bat}
+
+
+def emit_serve_tiered_world4(backend: str, smi: str, res: list) -> tuple:
+  """The ``world4_serve_tiered`` and ``world4_batcher`` lines from the
+  ranks' :func:`_w4_serve_tiered` results; returns each path's launches
+  summed over the ranks."""
+  serve, bat = expect(), expect()
+  for r in res:
+    add_counts(serve, r["serve"].pop("launches"))
+    add_counts(bat, r["batcher"].pop("launches"))
+  s0 = res[0]["serve"]
+  emit({"phase": "world4_serve_tiered", "backend": backend, "card": smi,
+        "vocab_scale": s0["vocab_scale"], "global_batch": SERVE_BATCH,
+        "requests": W4_SERVE_TIERED_REQUESTS, "alpha": TIERED_ALPHA,
+        "ranks_equal": True,
+        **{q: {"request_ms_by_rank": [r["serve"][q]["request_ms"]
+                                      for r in res],
+               "freeze_s_by_rank": [r["serve"][q]["freeze_s"] for r in res],
+               "image_bytes_by_rank": [r["serve"][q]["image_bytes"]
+                                       for r in res],
+               "gather_bytes_by_rank": [r["serve"][q]["gather_bytes"]
+                                        for r in res],
+               "hit_rate": s0[q]["hit_rate"],
+               "spill_dispatches": s0[q]["spill_dispatches"],
+               **({"world1_max_abs_err_by_rank": [
+                   r["serve"][q]["world1_max_abs_err"] for r in res],
+                   "world1_bit_equal_by_rank": [
+                       r["serve"][q]["world1_bit_equal"] for r in res]}
+                  if q == "f32" else {})}
+           for q in ("f32", "int8")},
+        "launches": serve})
+  b0 = res[0]["batcher"]
+  emit({"phase": "world4_batcher", "backend": backend, "card": smi,
+        "quantize": "f32", "max_batch": SERVE_BATCH,
+        "max_delay_s": BATCHER_DELAY_S, "threads": BATCHER_THREADS,
+        **{k: v for k, v in b0.items() if k != "lockstep_request_ms"},
+        "lockstep_request_ms_by_rank": [r["batcher"]["lockstep_request_ms"]
+                                        for r in res],
+        "follow_s_by_rank": [r["batcher"].get("follow_s") for r in res],
+        "launches": bat})
+  return serve, bat
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   source = BF16_FORMS.get(name, name)
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}.cu",
@@ -7942,10 +8809,22 @@ def main() -> int:
   torch.cuda.empty_cache()
   # tiered storage: f32 tables past the card's memory, host-RAM images
   by_path["tiered_golden"] = phase_tiered_golden(torch)
-  by_path["train_tiered"] = phase_train_tiered(torch, smi)
+  by_path["train_tiered"], trained = phase_train_tiered(torch, smi)
+  # tiered serving: the trained store's images frozen behind a hot cache
+  by_path["serve_tiered"] = phase_serve_tiered(torch, ci, smi, trained)
+  del trained
+  torch.cuda.empty_cache()
   by_path["train_tiered_vs_device"] = phase_train_tiered_vs_device(torch,
                                                                    smi)
   by_path["tiered_ckpt"] = phase_tiered_ckpt(torch, smi)
+  torch.cuda.empty_cache()
+  by_path["serve_tiered_golden"] = phase_serve_tiered_golden(torch)
+  setup = serve_tiered_setup(torch)
+  by_path["serve_tiered_vs_device"] = phase_serve_tiered_vs_device(
+      torch, smi, setup)
+  by_path["serve_tiered_artifact"] = phase_serve_tiered_artifact(
+      torch, smi, setup)
+  del setup
   torch.cuda.empty_cache()
   for compute in ("f32", "bf16"):
     by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
@@ -8014,7 +8893,13 @@ def main() -> int:
                       ("train_tiered", dlrm_sparse),
                       ("train_tiered_vs_device", dlrm_sparse),
                       ("tiered_ckpt", dlrm_sparse),
-                      ("world4_tiered", W4_KERNELS)):
+                      ("world4_tiered", W4_KERNELS),
+                      ("serve_tiered", ("interact_fwd",)),
+                      ("serve_tiered_vs_device", ("interact_fwd",)),
+                      ("serve_tiered_golden", ("interact_fwd",)),
+                      ("serve_tiered_artifact", ("interact_fwd",)),
+                      ("world4_serve_tiered", ("interact_fwd",)),
+                      ("world4_batcher", ("interact_fwd",))):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

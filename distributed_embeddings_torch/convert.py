@@ -437,11 +437,21 @@ def _image_bytes(t: torch.Tensor) -> torch.Tensor:
   return t.view(torch.int8) if t.dtype == torch.float8_e4m3fn else t
 
 
+def _host_image(a):
+  """A JAX host image (numpy; fp8 as ``ml_dtypes.float8_e4m3fn``) as the
+  port holds it: numpy, an fp8 image as its int8 bytes."""
+  if a is None:
+    return None
+  a = np.asarray(a)
+  if a.dtype.itemsize == 1 and a.dtype not in (np.int8, np.uint8):
+    return a.view(np.int8)
+  return a
+
+
 def serve_state_from_frozen(frozen) -> FrozenTables:
-  """JAX ``serving.export.FrozenTables`` -> the port's ``FrozenTables``
-  (non-tiered: ``host_images`` must be empty)."""
-  if frozen.host_images:
-    raise NotImplementedError("tiered frozen tables are not ported yet")
+  """JAX ``serving.export.FrozenTables`` -> the port's ``FrozenTables``,
+  tiered ones included (host images, ranking and counts carried as host
+  numpy; fp8 images as their int8 bytes)."""
   meta = {
       name: ServeClassMeta(name=m.name, rows=m.rows, width=m.width,
                            tier=m.tier, quantize=m.quantize,
@@ -452,4 +462,10 @@ def serve_state_from_frozen(frozen) -> FrozenTables:
       device_blocks={name: [_image_bytes(_tensor(b)) for b in blocks]
                      for name, blocks in frozen.device_blocks.items()},
       dense=dlrm_state_dict_from_flax(frozen.dense),
-      emb_dense={k: _tensor(v) for k, v in frozen.emb_dense.items()})
+      emb_dense={k: _tensor(v) for k, v in frozen.emb_dense.items()},
+      host_images={name: [_host_image(img) for img in images]
+                   for name, images in frozen.host_images.items()},
+      ranking={name: [np.asarray(r) for r in orders]
+               for name, orders in frozen.ranking.items()},
+      counts={name: [np.asarray(c, np.int64) for c in cnts]
+              for name, cnts in getattr(frozen, "counts", {}).items()})

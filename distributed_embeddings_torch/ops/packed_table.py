@@ -326,7 +326,9 @@ def host_gather_rows(layout: PackedLayout, store: np.ndarray,
     raise ValueError(
         f"host store shape {store.shape} does not match layout "
         f"{(layout.phys_rows, layout.phys_width)}")
-  return np.ascontiguousarray(store[grps])
+  # torch's gather runs on its threads (numpy's fancy index on one)
+  return torch.from_numpy(store).index_select(
+      0, torch.from_numpy(grps.astype(np.int64))).numpy()
 
 
 def host_scatter_rows(layout: PackedLayout, store: np.ndarray,
@@ -345,7 +347,10 @@ def host_scatter_rows(layout: PackedLayout, store: np.ndarray,
     raise ValueError(
         f"cold scatter rows shape {rows.shape}, expected "
         f"{(grps.shape[0], layout.phys_width)}")
-  store[grps] = rows
+  # torch's scatter runs on its threads (numpy's fancy index on one)
+  torch.from_numpy(store).index_copy_(
+      0, torch.from_numpy(grps.astype(np.int64)),
+      torch.from_numpy(np.ascontiguousarray(rows, store.dtype)))
 
 
 def init_host_store(layout: PackedLayout, rng: np.random.Generator,

@@ -25,15 +25,31 @@ its rows, dequantizes them and sums each sample's segment as the eval
 step does (``lookup_engine._combine_ragged``), for f32 and int8 images
 alike.
 
-Not ported yet: tiered serving.
+**Tiered plans** serve hot ids from a device cache and cold ids from the
+stripped host image: :class:`ServeEngine` rebuilds the tiering stack
+(``tiering.HostTierStore`` + ``TieredPrefetcher``) on the SERVE geometry
+(:class:`ServeTierPlan`, sized by a :class:`ServeTierConfig` chosen at
+deployment). Each dispatch classifies the request's ids against the
+resident maps and uploads its cold rows into the staging region (the
+prefetcher's classify / stage, reused as is), the step translates the
+routed ids to cache or staging slots (``translate_tiered_ids``) and
+gathers with them, while the combine keeps the LOGICAL ids: that is what
+keeps tiered f32 serving bit-exact against the all-device eval step.
+Nothing is ever written back. The staging region is shared state written
+in place, so dispatches run one at a time under :attr:`ServeEngine.lock`,
+on one stream. At world N each rank's store owns its rank's image and
+replicates every rank's resident maps: every process classifies the same
+global request, so the staged shapes agree with no collective.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+import threading
+from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.packed_table import PackedLayout, gather_fused_chunked
@@ -41,10 +57,13 @@ from ..parallel import wire
 from ..parallel.lookup_engine import (
     DedupRouted,
     DistributedLookup,
+    TierSpec,
     class_param_name,
     padded_rows,
     ragged_hotness,
 )
+from ..telemetry import flight as _flight
+from ..telemetry import get_registry as _get_registry
 from ..training import shard_batch
 from .export import (
     INT8_SCALE_LANES,
@@ -54,9 +73,11 @@ from .export import (
     dequantize_rows_fp8,
     dequantize_rows_int8,
     frozen_device_state,
+    np_dtype_of,
 )
 
-__all__ = ["ServeEngine", "make_serve_step", "shard_batch"]
+__all__ = ["ServeEngine", "ServeTierConfig", "ServeTierPlan",
+           "make_serve_step", "shard_batch"]
 
 
 def _dequant_rows(rows: torch.Tensor, meta: ServeClassMeta) -> torch.Tensor:
@@ -201,7 +222,9 @@ def _serve_lookup(engine: DistributedLookup,
 
 
 def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
-                    mesh=None):
+                    mesh=None,
+                    tier_specs: Optional[Dict[str, TierSpec]] = None,
+                    with_metrics: bool = False):
   """Build the serve step over a frozen-table state.
 
   Returns ``step(state, numerical, cats) -> preds`` with ``state`` the
@@ -210,6 +233,18 @@ def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
   is called as ``model(numerical, cats, emb_acts=acts)``. With a world-N
   plan every rank calls the step with its ``mesh``, its state and its
   slice of the global request, and gets its slice's predictions.
+
+  ``tier_specs``: the serve-geometry :class:`TierSpec` per host-tier class
+  (:class:`ServeTierPlan`). The step then takes this dispatch's staging
+  upload, ``step(state, staged, numerical, cats)`` with ``staged =
+  {'grps', 'rows', 'resident'}`` (``TieredPrefetcher.prepare(...).
+  device``), and ``state['serve']`` holds each host-tier class's compact
+  buffer (cache + staging). The staged rows are written into the staging
+  region in place (a spill dispatch, whose staged size exceeds the
+  region, gathers from an extended copy and leaves the buffer as it was).
+  ``with_metrics``: a tiered step also returns ``{'tier': {class: [hot,
+  staged, missed, valid] int32}}``, summed over the ranks; ``missed > 0``
+  means the prefetch contract broke and those lookups read zeros.
 
   Plans the serve step cannot serve faithfully are refused here, as in
   the JAX package: a capped dedup capacity, and the 'error' and
@@ -236,23 +271,146 @@ def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
     raise ValueError(f"a world-{plan.world_size} plan is served by every "
                      "rank with its mesh (parallel.mesh.create_mesh)")
   engine = DistributedLookup(plan, mesh=mesh)
-  layouts = {n: m.packed for n, m in serve_meta.items()}
+  base_layouts = {n: m.packed for n, m in serve_meta.items()}
+  tiered = bool(tier_specs)
+  names = sorted(tier_specs) if tiered else []
+  world = 1 if mesh is None else mesh.world
 
   @torch.inference_mode()
-  def local_serve(state, numerical, cats):
+  def local_serve(state, *args):
+    if tiered:
+      staged, numerical, cats = args
+    else:
+      numerical, cats = args
     cats = list(cats)
     b = numerical.shape[0]
     hotness = [ragged_hotness(c) for c in cats]
     hotness_of = lambda i: hotness[i]  # noqa: E731
     ids_all = engine.route_ids(cats, hotness_of)
     counts = engine.mean_counts(cats)
-    z = _serve_lookup(engine, state["serve"], layouts, serve_meta, ids_all,
+    if tiered:
+      # this dispatch's effective layouts from its staged size: a spill
+      # dispatch stages more rows than the region holds
+      layouts = dict(base_layouts)
+      for name, spec in tier_specs.items():
+        s = staged["grps"][name].shape[0]
+        layouts[name] = PackedLayout(
+            rows=(spec.cache_grps + s) * spec.rpp,
+            width=base_layouts[name].width, n_aux=0)
+      ids_gather, tier_m = engine.translate_tiered_ids(
+          ids_all, tier_specs, staged["resident"], staged["grps"])
+      serve_bufs = engine.install_staging(state["serve"], tier_specs,
+                                          staged["rows"])
+    else:
+      layouts, ids_gather, serve_bufs = base_layouts, ids_all, state["serve"]
+    # gather with the translated ids, combine in the logical ids' order
+    z = _serve_lookup(engine, serve_bufs, layouts, serve_meta, ids_gather,
                       ids_all)
-    acts = engine.finish_forward(z, state["emb_dense"], ids_all, b,
+    acts = engine.finish_forward(z, state["emb_dense"], ids_gather, b,
                                  hotness_of, counts)
-    return model(numerical, cats, emb_acts=acts)
+    preds = model(numerical, cats, emb_acts=acts)
+    if not (with_metrics and tiered):
+      return preds
+    dev = staged["resident"][names[0]].device
+    stacked = torch.stack([
+        tier_m[n] if n in tier_m
+        else torch.zeros((4,), dtype=torch.int32, device=dev)
+        for n in names])
+    if world > 1:
+      dist.all_reduce(stacked)
+    return preds, {"tier": dict(zip(names, stacked.unbind()))}
 
   return local_serve
+
+
+# ---------------------------------------------------------------------------
+# tiered serve residency: the tiering stack on serve geometry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeTierConfig:
+  """Serve-side residency knobs, decided at deployment rather than export
+  (one artifact serves from cards with different memory budgets).
+
+  Attributes:
+    cache_fraction: resident fraction of each host-tier class's serve
+      physical rows. The stripped image packs more logical rows a
+      physical row than the training layout, so the same device memory
+      holds a larger hot set.
+    staging_grps: persistent staging physical rows per class per rank
+      (near the expected per-dispatch deduplicated cold row count).
+    spill_factor_max: staging growth bound (power-of-two buckets, as in
+      training).
+
+  Serve residency is frozen: the warm start's resident set is never
+  re-ranked.
+  """
+
+  cache_fraction: float = 0.25
+  staging_grps: int = 1024
+  spill_factor_max: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class _ServeTierClass:
+  """``tiering.plan.TieredClassPlan`` on serve geometry: what
+  ``HostTierStore`` and ``TieredPrefetcher`` consume."""
+
+  key: tuple
+  name: str
+  spec: TierSpec
+  layout_logical: PackedLayout
+  spill_cap_grps: int
+
+
+class ServeTierPlan:
+  """Serve-geometry twin of ``tiering.TieringPlan``: the same classify /
+  stage / translate machinery, sized on the stripped image's physical
+  rows (the ``tplan`` the tiering stack binds to).
+
+  ``keys``: the class keys whose rows live off the device (default: the
+  plan's host-tier classes)."""
+
+  def __init__(self, plan, meta: Dict[str, ServeClassMeta],
+               config: ServeTierConfig = ServeTierConfig(), keys=None):
+    host_keys = plan.host_tier_class_keys() if keys is None else list(keys)
+    if not host_keys:
+      raise ValueError("plan has no host-tier classes")
+    self.plan = plan
+    self.config = config
+    self.classes: Dict[tuple, _ServeTierClass] = {}
+    for key in host_keys:
+      name = class_param_name(*key)
+      lay = meta[name].packed
+      rpp = lay.rows_per_phys
+      hard_cap = lay.rows // rpp
+      # clamp to the class's own capacity: a small class keeps at least
+      # one physical row of cache under the hard cap (compact ids stay
+      # below the sentinel), whatever the configured staging
+      staging = min(config.staging_grps, max(1, lay.phys_rows - 1),
+                    max(1, hard_cap - 1))
+      cache = min(max(1, int(lay.phys_rows * config.cache_fraction)),
+                  hard_cap - staging)
+      if cache < 1:
+        raise ValueError(
+            f"class {name}: no room for a serve hot cache "
+            f"(staging_grps={staging}, {lay.phys_rows:,} serve physical "
+            "rows); shrink staging_grps or raise cache_fraction's "
+            "denominator by serving the class all-device.")
+      spec = TierSpec(name=name, rows=lay.rows, rpp=rpp,
+                      cache_grps=cache, staging_grps=staging)
+      self.classes[key] = _ServeTierClass(
+          key=key, name=name, spec=spec, layout_logical=lay,
+          spill_cap_grps=hard_cap - cache)
+    self.tier_specs: Dict[str, TierSpec] = {
+        c.name: c.spec for c in self.classes.values()}
+
+  def by_name(self, name: str) -> _ServeTierClass:
+    for c in self.classes.values():
+      if c.name == name:
+        return c
+    raise KeyError(name)
 
 
 class ServeEngine:
@@ -265,10 +423,24 @@ class ServeEngine:
   the mesh's device and this rank's blocks), loads the model's dense
   parameters from it, and answers requests: :meth:`dispatch` returns the
   device predictions without waiting for them, :meth:`predict` returns
-  numpy. At world N every rank calls them with the same global
-  request."""
+  numpy. At world N every rank calls them with the same global request
+  (or follows a rank-0 batcher: ``serving.leader``).
 
-  def __init__(self, model, plan, artifact, device="cuda", mesh=None):
+  A tiered artifact (host-tier classes) builds the serve-geometry tiering
+  stack: a ``HostTierStore`` that adopts the stripped cold images (at
+  world N this rank's; serve images are never written) with the resident
+  set warm-started from the export's ranking, a ``TieredPrefetcher``, and
+  the compact device buffers (``build_fused``). ``tier_config`` sizes
+  the cache and staging (:class:`ServeTierConfig`; default
+  ``ServeTierConfig()``); ``with_metrics`` makes a tiered dispatch also
+  return ``{'tier': {class: [hot, staged, missed, valid]}}``;
+  ``telemetry`` is the registry the ``gather`` (classify + stage) and
+  ``combine`` (the step) flight stages land in (default: the process's).
+  Dispatches run one at a time under :attr:`lock`."""
+
+  def __init__(self, model, plan, artifact, device="cuda", mesh=None,
+               tier_config: Optional[ServeTierConfig] = None,
+               with_metrics: bool = False, telemetry=None):
     self.mesh = mesh if plan.world_size > 1 else None
     self.device = (self.mesh.device if self.mesh is not None
                    else resolve_device(device))
@@ -289,26 +461,83 @@ class ServeEngine:
     self.meta = artifact.meta
     self.quantize = artifact.quantize
     self.step = int(artifact.step)
+    self.with_metrics = with_metrics
+    self.telemetry = telemetry if telemetry is not None \
+        else _get_registry()
+    # one dispatch at a time: a tiered dispatch writes the staging region
+    # of the compact buffers in place
+    self.lock = threading.RLock()
+    self.tplan: Optional[ServeTierPlan] = None
+    self.store = None
+    self.prefetcher = None
+    if artifact.host_images:
+      from ..tiering import HostTierStore, TieredPrefetcher
+      self.tplan = ServeTierPlan(plan, self.meta,
+                                 tier_config or ServeTierConfig())
+      self.store = HostTierStore(
+          self.tplan, dtype=np_dtype_of(self.quantize),
+          owned_ranks=None if self.mesh is None else (self.mesh.rank,))
+      for name, images in artifact.host_images.items():
+        for r in self.store.owned_ranks:
+          if images[r] is None:
+            raise ValueError(f"class {name}: the artifact does not hold "
+                             f"rank {r}'s cold image")
+          self.store.set_image(name, r, images[r], copy=False)
+      self.store.warm_start({n: artifact.ranking[n]
+                             for n in artifact.host_images})
+      self.prefetcher = TieredPrefetcher(self.tplan, self.store, self.mesh,
+                                         self.device,
+                                         telemetry=self.telemetry)
+      state["serve"].update(self.store.build_fused(self.mesh, self.device))
     self.state = state
     model.to(self.device)
     if self.state["dense"]:
       model.load_state_dict(self.state["dense"])
     model.eval()
     self.model = model
-    self._step = make_serve_step(model, plan, self.meta, self.mesh)
+    self._step = make_serve_step(
+        model, plan, self.meta, self.mesh,
+        tier_specs=self.tplan.tier_specs if self.tiered else None,
+        with_metrics=with_metrics)
+
+  @property
+  def tiered(self) -> bool:
+    return self.prefetcher is not None
 
   @torch.inference_mode()
-  def dispatch(self, numerical, cats) -> torch.Tensor:
+  def dispatch(self, numerical, cats):
     """One serve step on a global request; returns the global device
     predictions ``[B]`` (not synchronized; at world N gathered from every
-    rank's slice, on every rank)."""
-    numerical, cats = shard_batch((numerical, tuple(cats)), self.mesh,
-                                  self.device)
-    preds = self._step(self.state, numerical, cats)
-    if self.mesh is not None:
-      preds = wire.gather_blocks(preds, self.mesh)
-    return preds
+    rank's slice, on every rank). A tiered engine with ``with_metrics``
+    returns ``(preds, {'tier': {class: [4] int32}})``: the prefetch
+    (classify the global request's ids, host-gather and upload the cold
+    rows) runs under the ``gather`` flight stage, the step under
+    ``combine``."""
+    with self.lock:
+      staged = None
+      if self.tiered:
+        with _flight.stage("gather", registry=self.telemetry):
+          staged = self.prefetcher.prepare(list(cats))
+      numerical, cats = shard_batch((numerical, tuple(cats)), self.mesh,
+                                    self.device)
+      with _flight.stage("combine", registry=self.telemetry):
+        if staged is not None:
+          out = self._step(self.state, staged.device, numerical, cats)
+        else:
+          out = self._step(self.state, numerical, cats)
+      metrics = None
+      if self.with_metrics and self.tiered:
+        out, metrics = out
+      if self.mesh is not None:
+        out = wire.gather_blocks(out, self.mesh)
+      return out if metrics is None else (out, metrics)
 
-  def predict(self, numerical, cats) -> np.ndarray:
-    """Blocking convenience wrapper: numpy predictions."""
-    return self.dispatch(numerical, cats).cpu().numpy()
+  def predict(self, numerical, cats):
+    """Blocking convenience wrapper: numpy predictions (tiered with
+    metrics: ``(preds, {'tier': {class: numpy [4]}})``)."""
+    out = self.dispatch(numerical, cats)
+    if isinstance(out, tuple):
+      preds, metrics = out
+      return preds.cpu().numpy(), {
+          "tier": {k: v.cpu().numpy() for k, v in metrics["tier"].items()}}
+    return out.cpu().numpy()

@@ -1,9 +1,9 @@
 """Frozen tables: train state -> inference image (PyTorch port).
 
-Counterpart of ``distributed_embeddings_tpu/serving/export.py`` for the
-non-tiered, in-memory path. :func:`freeze` strips the interleaved
-optimizer lanes from each packed training buffer into a denser
-inference image:
+Counterpart of ``distributed_embeddings_tpu/serving/export.py``.
+:func:`freeze` strips the interleaved optimizer lanes from each packed
+training buffer (or a tiered class's host image) into a denser inference
+image:
 
 - **f32**: the packed layout with ``n_aux=0`` (same physical-row
   machinery, just denser);
@@ -47,14 +47,33 @@ tables, writes the shared files and publishes the manifest. A rank's
 :func:`load` reads and verifies only its own block files and the shared
 ones. The directory on disk is the one the JAX package writes.
 
-Not ported yet: host-tier classes (ROADMAP §1 item 8),
-dynamic-vocabulary snapshots and owner-sharded loads (item 12).
+Tiered plans (host-tier classes, ``tiering/``) freeze with the run's
+``HostTierStore`` (``freeze(store=)``): the store is flushed against the
+state, each host-tier class's cold image is stripped (and quantized) into
+its serve layout on the host, and the store's observed counts, re-binned
+per serve physical row, become the serve cache's priority ranking. The
+artifact then also holds::
+
+    serve_cold_<class>_r<rank>.npy  one rank's stripped cold image
+    serve_ranking.npz               '<class>/r<rank>': serve physical rows
+                                    in descending priority, and
+                                    'counts/<class>/r<rank>': the counts
+
+At world N each process's store owns its rank's image and replicates every
+rank's counts: every rank strips and writes its own cold files, rank 0
+writes the ranking file, and a rank's :func:`load` reads its own cold
+files and every rank's ranking (the serve store's warm start builds every
+rank's resident map).
+
+Not ported yet: dynamic-vocabulary snapshots and owner-sharded loads
+(ROADMAP §1 item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 from typing import Any, Dict, List, Optional
@@ -103,7 +122,7 @@ class ServeClassMeta:
   name: str
   rows: int           # logical rows (= padded_rows of the class)
   width: int          # table width (f32 output lanes after dequant)
-  tier: str           # 'device' (host tiers are not ported yet)
+  tier: str           # 'device' | 'host' (a host-tier class's cold image)
   quantize: str       # 'f32' | 'int8' | 'fp8'
   # the training layout's rows-per-physical-row when the train rule
   # interleaved aux lanes into narrow rows: the f32 serve combine then
@@ -245,9 +264,15 @@ def quantize_rows(table: torch.Tensor, quantize: str) -> torch.Tensor:
 class FrozenTables:
   """Inference image of one train state (see :func:`freeze`).
 
-  ``device_blocks[name]`` holds one serve-layout block per rank; a rank
-  whose block this process does not hold (a world-N freeze with a mesh)
-  is ``None``. ``emb_dense`` holds the global dense-class tables."""
+  ``device_blocks[name]`` holds one serve-layout block per rank of each
+  device-tier class; a rank whose block this process does not hold (a
+  world-N freeze with a mesh) is ``None``. ``emb_dense`` holds the global
+  dense-class tables. A tiered plan's host-tier classes are in
+  ``host_images`` instead (per rank, the stripped cold image in its serve
+  layout, host numpy; ``None`` at ranks this process's store does not
+  own), with ``ranking`` (per rank, serve physical rows in descending
+  priority) and ``counts`` (per rank, the observed counts per serve
+  physical row) for every rank."""
 
   quantize: str
   step: int
@@ -256,6 +281,12 @@ class FrozenTables:
   dense: Dict[str, torch.Tensor]                # model state_dict
   # dense-class tables, in the train state's storage type (f32 or bf16)
   emb_dense: Dict[str, torch.Tensor]
+  host_images: Dict[str, List[Optional[np.ndarray]]] = dataclasses.field(
+      default_factory=dict)
+  ranking: Dict[str, List[np.ndarray]] = dataclasses.field(
+      default_factory=dict)
+  counts: Dict[str, List[np.ndarray]] = dataclasses.field(
+      default_factory=dict)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -277,10 +308,72 @@ def _strip_block(train_lay: PackedLayout, meta: ServeClassMeta,
   return meta.packed.pack(rows)
 
 
-def serve_class_meta(plan, rule: SparseRule, quantize: str):
-  """Per sparse class: its :class:`ServeClassMeta` and the TRAIN layout
-  its rows strip from (the one place serve geometry derives from a
-  plan)."""
+def _strip_image(train_lay: PackedLayout, meta: ServeClassMeta,
+                 image: np.ndarray, device) -> np.ndarray:
+  """One rank's packed TRAIN cold image (host numpy) -> its serve image
+  (host numpy), as :func:`_strip_block` of the whole image, in chunks of
+  about ``_QUANT_CHUNK_ROWS`` logical rows (a multiple of both layouts'
+  rows per physical row) moved through ``device``, so the host holds one
+  chunk beside the two images whatever the class's size. On a CUDA device
+  the chunks pass through two page-locked staging buffers (the host
+  copies into and out of them run on torch's threads)."""
+  serve_lay = meta.packed
+  rpp_t, rpp_s = train_lay.rows_per_phys, serve_lay.rows_per_phys
+  unit = math.lcm(rpp_t, rpp_s)
+  step = max(unit, _QUANT_CHUNK_ROWS // unit * unit)
+  out = np.empty(serve_lay.shape, meta.np_dtype)
+  src_all, dst_all = torch.from_numpy(image), torch.from_numpy(out)
+  dev = torch.device(device)
+  pinned = dev.type == "cuda"
+  if pinned:
+    stage_in = torch.empty((-(-step // rpp_t), train_lay.phys_width),
+                           dtype=src_all.dtype, pin_memory=True)
+    stage_out = torch.empty((-(-step // rpp_s), serve_lay.phys_width),
+                            dtype=dst_all.dtype, pin_memory=True)
+  for r0 in range(0, meta.rows, step):
+    n = min(step, meta.rows - r0)
+    part = PackedLayout(rows=n, width=train_lay.width, n_aux=train_lay.n_aux)
+    src = src_all[r0 // rpp_t:r0 // rpp_t + part.phys_rows]
+    if pinned:
+      src = stage_in[:part.phys_rows].copy_(src)
+    packed = _strip_block(part, dataclasses.replace(meta, rows=n),
+                          src.to(dev, non_blocking=pinned))
+    dst = dst_all[r0 // rpp_s:r0 // rpp_s + packed.shape[0]]
+    if pinned:
+      # a blocking copy: the staging buffers are free again after it
+      packed = stage_out[:packed.shape[0]].copy_(packed)
+    dst.copy_(packed)
+  return out
+
+
+def _serve_grp_counts(meta: ServeClassMeta, train_lay: PackedLayout,
+                      counts: np.ndarray) -> np.ndarray:
+  """Training observed counts (per TRAIN physical row) re-binned per SERVE
+  physical row: each train row's count repeats over its logical rows and
+  re-sums per serve physical row (the two layouts pack different logical
+  spans a row), as the JAX package's ``_serve_grp_counts``."""
+  rpp_t = train_lay.rows_per_phys
+  sl = meta.packed
+  logical = np.repeat(np.asarray(counts, np.int64), rpp_t)[:meta.rows]
+  pad = sl.phys_rows * sl.rows_per_phys - meta.rows
+  if pad:
+    logical = np.concatenate([logical, np.zeros((pad,), np.int64)])
+  return logical.reshape(sl.phys_rows, sl.rows_per_phys).sum(axis=1)
+
+
+def _serve_ranking(per_grp: np.ndarray) -> np.ndarray:
+  """Serve-physical-row counts -> rows in descending priority; ties break
+  lowest row first (the store's default warm start)."""
+  return np.argsort(-per_grp, kind="stable").astype(np.int32)
+
+
+def serve_class_meta(plan, rule: SparseRule, quantize: str,
+                     tiered_names=frozenset()):
+  """Per sparse class: its :class:`ServeClassMeta` and the full-vocabulary
+  TRAIN layout its rows strip from (the one place serve geometry derives
+  from a plan). ``tiered_names``: the host-tier classes (``tier='host'``;
+  their device buffer is compact, their stripped image covers the whole
+  class)."""
   meta: Dict[str, ServeClassMeta] = {}
   full_lays: Dict[str, PackedLayout] = {}
   for key in plan.class_keys:
@@ -292,7 +385,8 @@ def serve_class_meta(plan, rule: SparseRule, quantize: str):
     full_lay = PackedLayout(rows=rows, width=cp.width, n_aux=rule.n_aux)
     full_lays[name] = full_lay
     meta[name] = ServeClassMeta(
-        name=name, rows=rows, width=cp.width, tier="device",
+        name=name, rows=rows, width=cp.width,
+        tier="host" if name in tiered_names else "device",
         quantize=quantize,
         combine_rpp=(full_lay.rows_per_phys
                      if rule.n_aux and full_lay.rows_per_phys > 1 else 1))
@@ -314,24 +408,56 @@ def freeze(plan, rule: SparseRule, state: Dict[str, Any],
       tables keep their storage type (a bf16 state's stay bf16, as the
       JAX package's freeze keeps them) and the model's parameters stay
       f32.
+    store: the run's ``tiering.HostTierStore`` for a tiered plan (a
+      ``TieredTrainer``'s state and store). It is flushed against
+      ``state['fused']`` first (the device cache holds the newest resident
+      rows); each owned rank's cold image strips into ``host_images``
+      (quantized on the device of the class's compact buffer, a chunk at
+      a time); the counts become ``ranking``.
     mesh: with a world-N plan, this rank's mesh: ``state`` then holds the
       rank's blocks only (``training.init_sparse_state_direct(mesh=)``),
       and every rank calls :func:`freeze` (the dense-class tables are
-      gathered to their global form).
+      gathered to their global form). A tiered state's store owns this
+      rank's image (``owned_ranks=(mesh.rank,)``) and replicates every
+      rank's counts, so ``ranking`` and ``counts`` cover every rank.
   """
   if quantize not in QUANTIZE_MODES:
     raise ValueError(f"unknown quantize mode {quantize!r}; "
                      f"have {list(QUANTIZE_MODES)}")
-  if store is not None or plan.host_tier_class_keys():
-    raise NotImplementedError(
-        "host-tier classes (store=): tiered serving is not ported yet "
-        "(ROADMAP.md §1 item 8)")
+  if store is None and plan.host_tier_class_keys():
+    raise ValueError(
+        "plan has host-tier classes but no HostTierStore was passed: "
+        "the cold images hold the authoritative majority of the rows. "
+        "Pass the run's store via freeze(..., store=store).")
   rank = _state_rank(plan, mesh)
-  meta, layouts = serve_class_meta(plan, rule, quantize)
+  tiered_names = frozenset()
+  if store is not None:
+    if rank is None and not store.owns_all:
+      raise NotImplementedError(
+          "freeze/export without a mesh is a single-controller operation "
+          "(the serving pods load the artifact read-only); a "
+          "rank-owner-sharded store cannot supply every rank's image "
+          "here. At world N every rank freezes with its mesh.")
+    store.local_ranks(mesh)  # the store owns the ranks this process holds
+    tiered_names = frozenset(store.tplan.tier_specs)
+    store.flush(state["fused"])
+  meta, layouts = serve_class_meta(plan, rule, quantize, tiered_names)
   device_blocks: Dict[str, List[Optional[torch.Tensor]]] = {}
+  host_images: Dict[str, List[Optional[np.ndarray]]] = {}
+  ranking: Dict[str, List[np.ndarray]] = {}
+  grp_counts: Dict[str, List[np.ndarray]] = {}
   for name, m in meta.items():
-    arr = _as_tensor(state["fused"][name])
     lay = layouts[name]
+    if m.tier == "host":
+      dev = _as_tensor(state["fused"][name]).device
+      host_images[name] = [
+          None if img is None else _strip_image(lay, m, img, dev)
+          for img in store.images[name]]
+      grp_counts[name] = [_serve_grp_counts(m, lay, c)
+                          for c in store.counts[name]]
+      ranking[name] = [_serve_ranking(c) for c in grp_counts[name]]
+      continue
+    arr = _as_tensor(state["fused"][name])
     if rank is None:
       device_blocks[name] = [
           _strip_block(lay, m, arr[r * lay.phys_rows:(r + 1) * lay.phys_rows])
@@ -354,7 +480,8 @@ def freeze(plan, rule: SparseRule, state: Dict[str, Any],
       quantize=quantize, step=int(state.get("step", 0)), meta=meta,
       device_blocks=device_blocks,
       dense={k: _as_tensor(v) for k, v in state.get("dense", {}).items()},
-      emb_dense=emb_dense)
+      emb_dense=emb_dense, host_images=host_images, ranking=ranking,
+      counts=grp_counts)
 
 
 def _rank_rows(table: torch.Tensor, plan, rank: Optional[int]
@@ -414,7 +541,10 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
   crash at any point leaves either a manifest-less ``.tmp`` or a
   complete artifact. The model's parameters are written as the flax
   tree (``convert.dense_state_dict_to_flax``). Returns the frozen
-  blocks.
+  blocks. ``store``: the run's ``HostTierStore`` for a tiered plan
+  (:func:`freeze`): the stripped cold images go to
+  ``serve_cold_<class>_r<rank>.npy`` and the ranking with its counts to
+  ``serve_ranking.npz``, each sealed like every other file.
 
   ``mesh``: a world-N state of rank blocks is exported by every rank
   with its mesh: each rank writes and seals its own block files into
@@ -422,7 +552,10 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
   (``all_gather_object``), writes ``dense.npz`` and ``emb_dense.npz``
   and publishes the manifest, and every rank returns once the artifact
   is published. Without a mesh one process writes every rank's block,
-  as the JAX package's single controller does."""
+  as the JAX package's single controller does. A tiered world-N export
+  has each rank write its own cold images; rank 0 writes
+  ``serve_ranking.npz`` from its replicated counts (the JAX package's
+  single controller writes every file)."""
   # convert imports this module (FrozenTables); import it at call time
   from ..convert import dense_state_dict_to_flax
   if vocab is not None:
@@ -454,6 +587,13 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
       fpath = os.path.join(tmp, f"serve_{name}_r{r}.npy")
       np.save(fpath, frozen.meta[name].to_disk(_host(block)))
       _seal(fpath)
+  for name, images in sorted(frozen.host_images.items()):
+    for r, image in enumerate(images):
+      if image is None:
+        continue
+      fpath = os.path.join(tmp, f"serve_cold_{name}_r{r}.npy")
+      np.save(fpath, frozen.meta[name].to_disk(image))
+      _seal(fpath)
   if rank is not None:
     tables: List[Dict[str, Dict[str, int]]] = [None] * plan.world_size
     dist.all_gather_object(tables, checksums)
@@ -465,6 +605,16 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
     for part, tree in parts:
       fpath = os.path.join(tmp, f"{part}.npz")
       hostarrays.savez(fpath, _flatten_with_paths(tree))
+      _seal(fpath)
+    if frozen.ranking:
+      fpath = os.path.join(tmp, "serve_ranking.npz")
+      arrays = {f"{name}/r{r}": order
+                for name, orders in sorted(frozen.ranking.items())
+                for r, order in enumerate(orders)}
+      arrays.update({f"counts/{name}/r{r}": cnt
+                     for name, cnts in sorted(frozen.counts.items())
+                     for r, cnt in enumerate(cnts)})
+      np.savez(fpath, **arrays)
       _seal(fpath)
     manifest: Dict[str, Any] = {
         "format_version": SERVE_FORMAT_VERSION,
@@ -492,15 +642,25 @@ class ServeArtifact:
   """A loaded serve artifact, on its device.
 
   ``state`` holds ``{'dense', 'emb_dense', 'serve'}``: the model's
-  state_dict, the dense-class tables and the serve-layout buffers. At
-  world N it is rank ``rank``'s: its own serve blocks and dense-class
-  rows (``rank`` is None at world 1, where the state is whole)."""
+  state_dict, the dense-class tables and the device-tier classes'
+  serve-layout buffers. At world N it is rank ``rank``'s: its own serve
+  blocks and dense-class rows (``rank`` is None at world 1, where the
+  state is whole). Host-tier classes are in ``host_images`` (per rank,
+  host numpy; ``None`` at the ranks a world-N load does not hold) with
+  every rank's ``ranking`` and ``counts``; a :class:`~.engine.ServeEngine`
+  built on the artifact turns them into its cold store and hot cache."""
 
   quantize: str
   step: int
   meta: Dict[str, ServeClassMeta]
   state: Dict[str, Any]
   rank: Optional[int] = None
+  host_images: Dict[str, List[Optional[np.ndarray]]] = dataclasses.field(
+      default_factory=dict)
+  ranking: Dict[str, List[np.ndarray]] = dataclasses.field(
+      default_factory=dict)
+  counts: Dict[str, List[np.ndarray]] = dataclasses.field(
+      default_factory=dict)
 
   def rank_block(self, name: str, rank: int) -> np.ndarray:
     """One rank's serve-layout block of one class, host-side
@@ -511,11 +671,13 @@ class ServeArtifact:
     if m is None:
       raise KeyError(f"unknown serve class {name!r}; artifact has "
                      f"{sorted(self.meta)}")
+    if self.rank is not None and rank != self.rank:
+      raise ValueError(
+          f"class {name!r} rank {rank} is not held here: this world-N "
+          f"load holds rank {self.rank}'s blocks only")
+    if m.tier == "host":
+      return self.host_images[name][rank]
     if self.rank is not None:
-      if rank != self.rank:
-        raise ValueError(
-            f"class {name!r} rank {rank} is not held here: this world-N "
-            f"load holds rank {self.rank}'s blocks only")
       return _host(self.state["serve"][name])
     lay = m.packed
     return _host(self.state["serve"][name][rank * lay.phys_rows:
@@ -542,7 +704,10 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
   The plan must match the exporting run's exactly (fingerprint
   equality; a mismatch names the differing keys). With a world-N plan
   every rank loads with its mesh and reads, and verifies, only its own
-  block files and the shared ones, onto the mesh's device."""
+  block files and the shared ones, onto the mesh's device. A tiered
+  artifact's cold images and ranking stay on the host
+  (``ServeArtifact.host_images`` / ``ranking`` / ``counts``); at world N a
+  rank reads its own cold images and every rank's ranking."""
   # convert imports this module (FrozenTables); import it at call time
   from ..convert import dense_state_dict_from_flax
   if owned_ranks is not None:
@@ -577,14 +742,18 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
         "(ROADMAP.md §1 item 12, dynvocab)")
   meta = {n: ServeClassMeta.from_json(n, d)
           for n, d in manifest["serve"]["classes"].items()}
-  if any(m.tier != "device" for m in meta.values()):
-    raise NotImplementedError(
-        "artifact has host-tier classes: tiered serving is not ported yet "
-        "(ROADMAP.md §1 item 8)")
+  tiered = any(m.tier == "host" for m in meta.values())
   ranks = range(plan.world_size) if rank is None else [rank]
+
+  def block_file(name: str, r: int) -> str:
+    prefix = "serve_cold" if meta[name].tier == "host" else "serve"
+    return f"{prefix}_{name}_r{r}.npy"
+
   if verify_integrity:
     needed = ["dense.npz", "emb_dense.npz"] + [
-        f"serve_{name}_r{r}.npy" for name in sorted(meta) for r in ranks]
+        block_file(name, r) for name in sorted(meta) for r in ranks]
+    if tiered:
+      needed.append("serve_ranking.npz")
     problems = verify_dir(path, only=needed)
     if problems:
       raise ValueError(
@@ -592,9 +761,29 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
           + "; ".join(problems))
 
   serve = {}
+  host_images: Dict[str, List[Optional[np.ndarray]]] = {}
+  ranking: Dict[str, List[np.ndarray]] = {}
+  counts: Dict[str, List[np.ndarray]] = {}
+  rank_npz: Dict[str, np.ndarray] = {}
+  if tiered:
+    with np.load(os.path.join(path, "serve_ranking.npz")) as z:
+      rank_npz = {k: np.asarray(z[k]) for k in z.files}
   for name, m in sorted(meta.items()):
-    blocks = [m.from_disk(np.load(os.path.join(path,
-                                               f"serve_{name}_r{r}.npy")))
+    if m.tier == "host":
+      host_images[name] = [
+          m.from_disk(np.load(os.path.join(path, block_file(name, r))))
+          if r in ranks else None for r in range(plan.world_size)]
+      # every rank's ranking: the serve store's warm start builds every
+      # rank's resident map
+      ranking[name] = [rank_npz[f"{name}/r{r}"]
+                       for r in range(plan.world_size)]
+      counts[name] = [
+          np.asarray(rank_npz[f"counts/{name}/r{r}"], np.int64)
+          if f"counts/{name}/r{r}" in rank_npz
+          else np.zeros((m.packed.phys_rows,), np.int64)
+          for r in range(plan.world_size)]
+      continue
+    blocks = [m.from_disk(np.load(os.path.join(path, block_file(name, r))))
               for r in ranks]
     host = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
     serve[name] = torch.from_numpy(host).to(dev)
@@ -612,4 +801,5 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
       "serve": serve}
   return ServeArtifact(quantize=manifest["serve"]["quantize"],
                        step=int(manifest["step"]), meta=meta, state=state,
-                       rank=rank)
+                       rank=rank, host_images=host_images, ranking=ranking,
+                       counts=counts)

@@ -158,15 +158,22 @@ class HostTierStore:
                 self._scale_rows(key, rank)), self.tplan.rule.aux_init,
             out=img, device=dev)
 
-  def set_image(self, name: str, rank: int, image: np.ndarray) -> None:
+  def set_image(self, name: str, rank: int, image: np.ndarray,
+                copy: bool = True) -> None:
     """Install an explicit packed image (e.g. packed from a reference
-    run's initial table, or a checkpoint block)."""
+    run's initial table, or a checkpoint block). ``copy=False`` adopts an
+    image already in the store's dtype and C order without copying it (a
+    serve store, whose images are never written, holds the artifact's
+    own arrays)."""
     rank = self._own(name, rank)
     lay = self.tplan.by_name(name).layout_logical
     if image.shape != (lay.phys_rows, lay.phys_width):
       raise ValueError(f"image shape {image.shape}, expected "
                        f"{(lay.phys_rows, lay.phys_width)}")
-    self.images[name][rank] = np.asarray(image, self.dtype).copy()
+    image = np.asarray(image, self.dtype)
+    if copy or not image.flags.c_contiguous:
+      image = image.copy()
+    self.images[name][rank] = image
 
   def warm_start(self, ranking: Optional[Dict[str, List[np.ndarray]]] = None
                  ) -> None:
@@ -274,7 +281,8 @@ class HostTierStore:
           and bool(np.all(np.diff(g) == 1)):
         rows = img[int(g[0]):int(g[-1]) + 1]  # a run: no gather copy
       else:
-        rows = img[g]
+        rows = host_gather_rows(self.tplan.by_name(name).layout_logical,
+                                img, g)
       out[c0:c0 + g.shape[0]].copy_(torch.from_numpy(rows))
 
   def build_fused(self, mesh=None, device="cuda") -> Dict[str, torch.Tensor]:
@@ -309,12 +317,11 @@ class HostTierStore:
     return out
 
   # ---- device -> host reconciliation -------------------------------------
-  def _rank_cache_rows(self, fused: Dict[str, torch.Tensor], name: str,
-                       rank: int, lo: int = 0, hi: Optional[int] = None
-                       ) -> np.ndarray:
-    """``rank``'s cache rows (slots ``[lo, hi)``, default all) of a device
-    buffer that holds the blocks of this store's owned ranks in order (a
-    world-N process: its own)."""
+  def _cache_block(self, fused: Dict[str, torch.Tensor], name: str,
+                   rank: int) -> torch.Tensor:
+    """``rank``'s cache rows (a view) of a device buffer that holds the
+    blocks of this store's owned ranks in order (a world-N process: its
+    own)."""
     spec = self.tplan.by_name(name).spec
     per = spec.cache_grps + spec.staging_grps
     buf = fused[name]
@@ -323,24 +330,33 @@ class HostTierStore:
           f"class {name!r}: a device buffer of {buf.shape[0]} rows is not "
           f"the blocks of {per} rows of owned ranks {self.owned_ranks}")
     base = self.owned_ranks.index(rank) * per
-    hi = spec.cache_grps if hi is None else hi
-    return _host_rows(buf[base + lo:base + hi])
+    return buf[base:base + spec.cache_grps]
+
+  def _rank_cache_rows(self, fused: Dict[str, torch.Tensor], name: str,
+                       rank: int) -> np.ndarray:
+    """``rank``'s cache rows of a device buffer (:meth:`_cache_block`), as
+    host numpy."""
+    return _host_rows(self._cache_block(fused, name, rank))
 
   def flush(self, fused: Dict[str, torch.Tensor]) -> None:
     """Copy every OWNED resident row's device value back into the host
     image (cold rows are already authoritative there); call before a
     checkpoint or a global weight view. A world-N process flushes its own
     rank; every process flushing covers the world. The rows come down a
-    chunk of :data:`_MOVE_CHUNK` at a time."""
+    chunk of :data:`_MOVE_CHUNK` at a time through one host staging block
+    (page-locked for a CUDA buffer)."""
     for name in self.images:
       lay = self.tplan.by_name(name).layout_logical
       for rank in self.owned_ranks:
         grps = self.resident_grps[name][rank]
+        cache = self._cache_block(fused, name, rank)
+        stage = torch.empty((min(_MOVE_CHUNK, grps.shape[0]),
+                             lay.phys_width), dtype=cache.dtype,
+                            pin_memory=cache.is_cuda)
         for c0 in range(0, grps.shape[0], _MOVE_CHUNK):
           g = grps[c0:c0 + _MOVE_CHUNK]
-          host_scatter_rows(lay, self.images[name][rank], g,
-                            self._rank_cache_rows(fused, name, rank,
-                                                  c0, c0 + g.shape[0]))
+          rows = stage[:g.shape[0]].copy_(cache[c0:c0 + g.shape[0]])
+          host_scatter_rows(lay, self.images[name][rank], g, rows.numpy())
 
   # ---- read-only reconciled views ---------------------------------------
   def snapshot_view(self, fused: Dict[str, torch.Tensor]

@@ -31,6 +31,9 @@
   of ``init_uniform``, ``TieredPrefetcher``, ``init_tiered_state``,
   ``init_tiered_state_from_params``, ``TieredTrainer``) default to the
   card;
+- tiered serving (``serving.leader`` with the rank-0 batcher) imports
+  with JAX blocked, and its entry points (``load`` of a tiered artifact,
+  a tiered ``ServeEngine``) default to the card;
 - the zoo harness (``utils.zoo_bench``, the twins
   ``examples/benchmarks/synthetic_models/main_torch.py`` and
   ``examples/benchmarks/benchmark_torch.py``) imports and runs with JAX
@@ -131,7 +134,8 @@ def test_port_imports_with_jax_blocked():
               "resilience.guards", "resilience.retry", "resilience.durable",
               "resilience.trainer", "telemetry", "utils.zoo_bench",
               "tiering", "tiering.plan", "tiering.store", "tiering.prefetch",
-              "tiering.train"):
+              "tiering.train", "serving.leader", "serving.engine",
+              "serving.export"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 
@@ -435,3 +439,44 @@ def test_tiering_entry_points_default_to_cuda():
                                         None, {})):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
       call()
+
+
+def test_tiered_serving_entry_points_default_to_cuda(tmp_path):
+  """``serving.load`` of a tiered artifact and a tiered ``ServeEngine`` run
+  on the card unless the caller asks for the CPU; ``export(store=)``
+  writes from wherever the state lies."""
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is usable")
+  from distributed_embeddings_torch import tiering as tt
+  from distributed_embeddings_torch.layers.planner import \
+      DistEmbeddingStrategy
+  from distributed_embeddings_torch.models.dlrm import _dlrm_initializer
+  from distributed_embeddings_torch.serving import ServeTierConfig
+  vocab = (2000, 30)
+  plan = DistEmbeddingStrategy(
+      [TableConfig(input_dim=v, output_dim=8, initializer=_dlrm_initializer(v))
+       for v in vocab], 1, "basic", dense_row_threshold=0,
+      host_row_threshold=1000)
+  model = DLRM(list(vocab), embedding_dim=8, bottom_mlp=(8,), top_mlp=(4, 1),
+               num_numerical=2, tables=False, device="cpu")
+  rule = sgd_rule(0.1)
+  tplan = tt.TieringPlan(plan, rule, tt.TieringConfig(staging_grps=4))
+  store = tt.HostTierStore(tplan)
+  state = tt.init_tiered_state(
+      tplan, store, rule, model.state_dict(),
+      lambda params: torch.optim.SGD(params, lr=0.1), torch.Generator(),
+      device="cpu")
+  path = str(tmp_path / "serve")
+  frozen = export(path, plan, rule, state, store=store)
+  cfg = ServeTierConfig(staging_grps=4)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    load(path, plan)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    ServeEngine(model, plan, frozen, tier_config=cfg)
+  art = load(path, plan, device="cpu")  # asked for: runs
+  eng = ServeEngine(model, plan, art, device="cpu", tier_config=cfg)
+  assert eng.tiered
+  preds = eng.predict(np.zeros((3, 2), np.float32),
+                      [np.arange(3, dtype=np.int32) * 600,
+                       np.ones(3, np.int32)])
+  assert preds.shape == (3,) and np.isfinite(preds).all()

@@ -312,10 +312,9 @@ def test_unported_options_are_refused(tmp_path):
   plan, tplan, state, path = _small(tmp_path)
   tstate = train_state_from_flax(state, "cpu")
   trule = torch_sparse_rule("adagrad", 0.05)
-  for kw, item in ((dict(store=object()), "item 8"),
-                   (dict(vocab=object()), "item 12")):
-    with pytest.raises(NotImplementedError, match=item):
-      torch_export(str(tmp_path / "x"), tplan, trule, tstate, **kw)
+  # store= (tiered serving) is ported: tests/test_torch_serve_tiered.py
+  with pytest.raises(NotImplementedError, match="item 12"):
+    torch_export(str(tmp_path / "x"), tplan, trule, tstate, vocab=object())
   with pytest.raises(NotImplementedError, match="item 12"):
     torch_load(path, tplan, owned_ranks=(0,), device="cpu")
 

@@ -1086,3 +1086,176 @@ def tiered_ckpt_job(mesh, spec):
       out["restored"] = arrays(store2)
     out[key] = tr2.run(batches[3:])
   return out
+
+
+def _tiered_serve_setup(mesh, spec):
+  """The port's world-N tiered serve pieces from the JAX case's arrays:
+  ``(plan, rule, state, store)``, the store owning this rank's image."""
+  import torch_serve_tiered_cases as SC
+  from distributed_embeddings_torch.convert import train_state_from_flax
+
+  _, plan = SC.torch_plans(mesh.world)
+  rule, tplan = SC.torch_tplan(plan)
+  store = SC.port_store(tplan, spec["store"], owned_ranks=(mesh.rank,))
+  state = train_state_from_flax(spec["state"], mesh=mesh)
+  return plan, rule, state, store
+
+
+def serve_tiered_job(mesh, spec):
+  """Tiered serving at world N, each rank's store owning its rank's
+  image: per quantize mode of ``spec['quantize']``, ``freeze(store=,
+  mesh=)`` (this rank's stripped image, every rank's ranking and counts),
+  a tiered ``ServeEngine`` with metrics (predictions, counters, the
+  activations of an acts model), the same through a two-row staging
+  region (spills), the world-N ``export`` into ``spec['port']`` and a
+  ``load`` of it from a copy that holds only this rank's cold files, and
+  the JAX package's artifact ``spec['jax']`` loaded and served. Returns
+  every global answer this rank saw."""
+  import dataclasses
+  import os
+  import shutil
+
+  import torch
+
+  import torch_serve_tiered_cases as SC
+  import torch_tiering_cases as TC
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      ServeTierConfig,
+      export,
+      freeze,
+      load,
+  )
+
+  class Acts(torch.nn.Module):
+    def forward(self, numerical, cats, emb_acts=None):
+      return torch.cat(list(emb_acts), dim=-1)
+
+  def engine(art, cfg=SC.SERVE_CFG, acts=False, **kw):
+    if acts:
+      return ServeEngine(Acts(), plan, dataclasses.replace(art, dense={}),
+                         mesh=mesh, tier_config=ServeTierConfig(**cfg), **kw)
+    return ServeEngine(TC.torch_model(), plan, art, mesh=mesh,
+                       tier_config=ServeTierConfig(**cfg), **kw)
+
+  def answers(eng):
+    out = [eng.predict(numerical, cats) for numerical, cats in spec["requests"]]
+    return out, eng.prefetcher.spill_steps
+
+  out = {}
+  for q in spec["quantize"]:
+    plan, rule, state, store = _tiered_serve_setup(mesh, spec)
+    frozen = freeze(plan, rule, state, quantize=q, store=store, mesh=mesh)
+    got = {"frozen": {n: {"images": frozen.host_images[n],
+                          "ranking": frozen.ranking[n],
+                          "counts": frozen.counts[n]}
+                      for n in frozen.host_images},
+           "served": answers(engine(frozen, with_metrics=True)),
+           "acts": answers(engine(frozen, acts=True))[0],
+           "spill": answers(engine(frozen, SC.SPILL_CFG, acts=True,
+                                   with_metrics=True))}
+    path = os.path.join(spec["port"], q)
+    export(path, plan, rule, state, quantize=q, store=store, mesh=mesh)
+    # this rank's copy of the artifact: the shared files and its own blocks
+    mine = os.path.join(spec["port"], f"{q}_r{mesh.rank}")
+    os.makedirs(mine)
+    for f in os.listdir(path):
+      if f.endswith(".npy") and not f.endswith(f"_r{mesh.rank}.npy"):
+        continue
+      shutil.copy(os.path.join(path, f), mine)
+    art = load(mine, plan, mesh=mesh)
+    got["loaded"] = {n: {"images": art.host_images[n],
+                         "ranking": art.ranking[n], "counts": art.counts[n]}
+                     for n in art.host_images}
+    got["artifact"] = answers(engine(art))[0]
+    got["jax_artifact"] = answers(engine(load(os.path.join(spec["jax"], q),
+                                              plan, mesh=mesh)))[0]
+    out[q] = got
+  torch.distributed.barrier()
+  return out
+
+
+def leader_batcher_job(mesh, spec):
+  """The rank-0 ``MicroBatcher`` at world N (``serving.world_batcher``) in
+  front of a tiered engine of ``spec['quantize']``: every rank first
+  answers each request of ``spec['direct']`` by a direct padded dispatch
+  in lockstep; then rank 0 submits ``spec['schedule']`` (groups of
+  requests, a ``flush_now`` after each), then a request that every rank
+  refuses and a good one, to an unstarted batcher while the other ranks
+  follow, and closes it; then a started batcher takes every
+  request of ``spec['direct']`` at once and closes. Rank 0 returns the
+  direct answers, every request's rows and the batchers' stats; a third
+  batcher closes at once. The other ranks return their direct answers
+  and what each of their three follow loops followed."""
+  import numpy as np
+
+  import torch_serve_tiered_cases as SC
+  import torch_tiering_cases as TC
+  from distributed_embeddings_torch.parallel.lookup_engine import PAD_ID
+  from distributed_embeddings_torch.serving import (
+      LeaderBatcher,
+      ServeEngine,
+      ServeTierConfig,
+      follow,
+      freeze,
+      world_batcher,
+  )
+
+  plan, rule, state, store = _tiered_serve_setup(mesh, spec)
+  eng = ServeEngine(TC.torch_model(), plan,
+                    freeze(plan, rule, state, quantize=spec["quantize"],
+                           store=store, mesh=mesh), mesh=mesh,
+                    tier_config=ServeTierConfig(**SC.SERVE_CFG))
+  max_batch = spec["max_batch"]
+
+  def direct(rows):
+    n = rows[0].shape[0]
+    pad = max_batch - n
+    num_p = np.concatenate(
+        [rows[0], np.zeros((pad,) + rows[0].shape[1:], np.float32)])
+    cats_p = [np.concatenate([c, np.full((pad,), PAD_ID, c.dtype)])
+              for c in rows[1]]
+    return eng.predict(num_p, cats_p)[:n]
+
+  out = {"direct": [direct(r) for r in spec["direct"]]}
+  if mesh.rank != 0:
+    # the three batchers rank 0 opens in turn
+    out["followed"] = [follow(eng),
+                       world_batcher(eng, max_batch) is None, follow(eng)]
+    out["follow_errors"] = eng.telemetry.counter("serve/follow_errors").value
+    return out
+  mb = world_batcher(eng, max_batch, start=False)
+  assert isinstance(mb, LeaderBatcher)
+  sched = []
+  for group in spec["schedule"]:
+    futs = [mb.submit(*spec["direct"][i]) for i in group]
+    mb.flush_now()
+    sched.append([f.result(timeout=60) for f in futs])
+  # a request every rank refuses alike (a feature short: the bottom MLP
+  # raises after the exchange on every rank): its future fails here, the
+  # followers record the error and go on following
+  numerical, cats = spec["direct"][0]
+  bad = mb.submit(numerical[:, :-1], cats)
+  try:
+    mb.flush_now()
+  except RuntimeError as exc:
+    out["bad_flush"] = str(exc)
+  try:
+    bad.result(timeout=60)
+  except RuntimeError as exc:
+    out["bad_result"] = str(exc)
+  fut = mb.submit(numerical, cats)
+  mb.flush_now()
+  out["after_bad"] = fut.result(timeout=60)
+  mb.close()
+  out["schedule"], out["schedule_stats"] = sched, mb.stats
+  mb = world_batcher(eng, max_batch, max_delay_s=0.005)
+  futs = [mb.submit(*r) for r in spec["direct"]]
+  out["started"] = [f.result(timeout=60) for f in futs]
+  mb.close()
+  out["started_stats"] = mb.stats
+  # the second batcher of this rank: close() stopped every follower, and
+  # nothing more is sent
+  mb = world_batcher(eng, max_batch, start=False)
+  mb.close()
+  return out
