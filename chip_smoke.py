@@ -368,6 +368,29 @@ JSON line per phase:
    owning its rank's images, under ``'fused'``: the first step's losses
    equal to ``'none'``'s, K4 and K1 as ``k4_classes`` predicts).
 
+13. Narrow storage under every rule and id form, dense Adam (slice 20):
+   ``kernel`` rows of K1's bf16 form at the momentum and Adam rules'
+   lanes (256 and 384 lanes at width 128: 131,072 ids, a sixteenth out
+   of range on either side, 64 on one row; Tiny's largest w16 class at
+   32- and 48-lane strides), each held to its plain version as in item
+   11; ``train_bf16_rules_golden`` (the committed JAX rules golden: bf16
+   buffers under ``adam_rule``, ``optax.adam`` on the dense side, one
+   ragged input); ``train_bf16_adam`` (``bench.py``'s step on the
+   Criteo-1TB tables cut by 3 under ``adam_rule`` and ``training.Adam``,
+   48.07 GB: K1's bf16 form once per class, untouched rows with their
+   moment lanes bit-equal); ``train_bf16_ragged`` (the multi-hot Criteo
+   mix on the full vocabulary in bf16: the ragged step against its padded
+   twin, K1 as :func:`k1_launches` predicts); ``train_bf16_rules_vs_f32``
+   (x 1/16, momentum and Adam: ten steps of a bf16 state and of its f32
+   twin, losses within 1e-2); ``sparse_optim`` (the table-level sparse
+   optimizers on the card against the CPU); ``train_dense_bf16`` (the
+   dense-autodiff step with bf16 class buffers under ``training.Adam``
+   against its f32 twin, no K1); and in ``world4_bf16``
+   ``world4_bf16_rules``: the dedup exchange under the momentum rule in
+   the three schedules (the first step bit-equal to ``'none'``'s off
+   duplicate rows), an Adam step and a ragged step under ``'fused'``, K4's
+   bf16 form as :func:`k4_forward_launches` predicts.
+
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
 the ``kernels`` line (the nine kernels and the two bf16 forms) come from
@@ -625,6 +648,36 @@ BF16_DUP_ULP = 3 * 2.0 ** -8
 # the bf16 state against its f32 twin at 1/16 (train_bf16_vs_f32)
 NARROW_VS_STEPS = 10
 NARROW_LOSS_RTOL = 1e-2
+# narrow storage under every rule and id form, dense Adam (slice 20)
+ADAM_LR = 1e-3  # adam_rule and training.Adam on the card's paths
+# the rules golden's planted fault, which its card bound must refuse
+RULES_PLANTED_FAULT = {"b2": 0.99}
+# train_dense_bf16's hand-written loop (zero_grad, backward, Adam's step)
+# on bf16 class buffers, on the card and on the CPU: a linear head over
+# the embeddings, so nothing but the dense class's cotangent rounding (to
+# bf16 on the card, as on the TPU) and the order of bf16 adds parts them.
+# Every buffer: this share of its cells within HAND_LOOP_ULPS bf16 ulps of
+# the larger of the cell and the learning rate, and every cell within a
+# step's flip a step (2 x ADAM_LR x steps, a cell whose gradient is about
+# 0 steps by +-lr) plus HAND_LOOP_ULPS ulps
+HAND_LOOP_VOCAB = (3, 24, 300, 5000, 20000)
+HAND_LOOP_THRESHOLD = 512  # the 3-, 24- and 300-row tables: a dense class
+HAND_LOOP_BATCH = 4096
+HAND_LOOP_STEPS = 3
+HAND_LOOP_ULPS = 2
+HAND_LOOP_SHARE = 0.99
+ADAM_VOCAB_CUT = 3  # train_bf16_adam: 384 bf16 lanes a row, 48.07 GB
+SPARSE_OPTIM_ROWS = 1 << 18
+W4_RULES_STEPS = 1  # world4_bf16_rules: steps a dedup schedule
+# train_bf16_ragged's ragged step against its padded twin: every touched
+# bf16 cell within this many bf16 ulps (the ragged bag rounds each add to
+# bf16, the padded bag once)
+RAGGED_BF16_TWIN_ULPS = 4
+# ... plus this share of its tensor's largest update: a ragged bag adds
+# each row rounded to bf16 (XLA's segment_sum), a padded bag sums in f32
+# and rounds once, so the two arms' gradients differ by a share of a
+# gradient (13 % on the CPU rehearsal at a small vocabulary)
+TWIN_UPDATE_SHARE = 0.25
 # the world-4 narrow cell's steps per schedule (world4_bf16)
 W4_NARROW_STEPS = 3
 # tiered storage (train_tiered and the phases after it): the five
@@ -665,7 +718,14 @@ class SmokeFailure(Exception):
   pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+  """One JSON line; a phase's line carries ``t_s``, the seconds since the
+  script started, so the run's time can be laid out phase by phase."""
+  if "phase" in obj:
+    obj = {**obj, "t_s": round(time.perf_counter() - _T0, 3)}
   print(json.dumps(obj), flush=True)
 
 
@@ -1836,6 +1896,7 @@ def _w4_touch_counts(torch, plan, mesh, cats, state) -> dict:
   """Per sparse class of this rank: how many of the step's ids hit each
   of its rows (the routed ids are the same every step)."""
   from distributed_embeddings_torch.parallel.lookup_engine import (
+      DedupRouted,
       DistributedLookup,
       class_param_name,
   )
@@ -1846,7 +1907,8 @@ def _w4_touch_counts(torch, plan, mesh, cats, state) -> dict:
     name = class_param_name(*bk.class_key)
     if name not in counts:
       continue
-    flat = ids.reshape(-1)
+    # a deduplicated bucket applies one row per unique id and source rank
+    flat = (ids.uniq if isinstance(ids, DedupRouted) else ids).reshape(-1)
     flat = flat[(flat >= 0) & (flat < counts[name].shape[0])]
     counts[name].index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
   return counts
@@ -7186,6 +7248,8 @@ def _w4_narrow(torch, mesh, backend: str, outdir: str) -> dict:
   out["adagrad"] = {"loss": float(loss), "launches": got}
   del astate, step
   torch.cuda.empty_cache()
+  # slice 20: the dedup exchange, the Adam rule and a ragged bucket
+  out["rules"] = _w4_narrow_rules(torch, mesh, model, batch)
   # the SGD state's fp8 images, served in lockstep
   rng = np.random.default_rng(SEED + 5)
   requests = [(rng.standard_normal((SERVE_BATCH, 13)).astype(np.float32),
@@ -7241,6 +7305,10 @@ def emit_narrow_world4(backend: str, smi: str, narrow: list) -> dict:
       add_counts(totals, run["launches"])
     add_counts(totals, r["adagrad"]["launches"])
     add_counts(totals, r["serve_fp8"]["launches"])
+    for run in r["rules"]["runs"].values():
+      add_counts(totals, run["launches"])
+    add_counts(totals, r["rules"]["adam"]["launches"])
+    add_counts(totals, r["rules"]["ragged"]["launches"])
   emit({"phase": "world4_bf16", "backend": backend, "card": smi,
         "vocab_scale": "1/16", "global_batch": W4_BATCH,
         "steps": W4_NARROW_STEPS,
@@ -7255,6 +7323,33 @@ def emit_narrow_world4(backend: str, smi: str, narrow: list) -> dict:
         "adagrad_loss": narrow[0]["adagrad"]["loss"],
         "adagrad_launches_per_rank": narrow[0]["adagrad"]["launches"],
         "wall_s_by_rank": [r["wall_s"] for r in narrow]})
+  rules = narrow[0]["rules"]
+  for r in narrow[1:]:
+    check(all(r["rules"]["runs"][o]["losses"] == run["losses"]
+              for o, run in rules["runs"].items())
+          and r["rules"]["adam"]["loss"] == rules["adam"]["loss"]
+          and r["rules"]["ragged"]["loss"] == rules["ragged"]["loss"],
+          "world4_bf16_rules: the ranks' losses differ")
+  emit({"phase": "world4_bf16_rules", "backend": backend, "card": smi,
+        "vocab_scale": "1/16", "global_batch": W4_BATCH,
+        "dedup_steps": W4_RULES_STEPS,
+        "dedup_losses_by_schedule": {o: run["losses"] for o, run in
+                                     rules["runs"].items()},
+        "dedup_step_ms_by_schedule": {
+            o: [r["rules"]["runs"][o]["step_ms"] for r in narrow]
+            for o in rules["runs"]},
+        "adam_step_ms_by_rank": [r["rules"]["adam"]["step_ms"]
+                                 for r in narrow],
+        "ragged_step_ms_by_rank": [r["rules"]["ragged"]["step_ms"]
+                                   for r in narrow],
+        "dedup_launches_per_step_per_rank": {
+            o: run["launches_per_step"] for o, run in rules["runs"].items()},
+        "dedup_first_step_vs_none": "bit-equal off duplicate rows",
+        "adam_loss": rules["adam"]["loss"],
+        "adam_launches_per_rank": rules["adam"]["launches"],
+        "ragged_loss": rules["ragged"]["loss"],
+        "ragged_launches_per_rank": rules["ragged"]["launches"],
+        "ranks_agree": True})
   emit({"phase": "serve_world4_fp8", "backend": backend, "card": smi,
         "vocab_scale": "1/16", "global_batch": SERVE_BATCH,
         "requests": SERVE_REQUESTS,
@@ -8709,6 +8804,890 @@ def emit_serve_tiered_world4(backend: str, smi: str, res: list) -> tuple:
   return serve, bat
 
 
+# ---------------------------------------------------------------------------
+# narrow storage under every rule and id form, dense Adam (slice 20)
+# ---------------------------------------------------------------------------
+
+
+def k1_rule_streams(torch, layout, gen) -> dict:
+  """K1's bf16 streams at a rule's fused rows (``layout``: one logical
+  row a physical row): ``K1_IDS`` uniform ids with a sixteenth out of
+  range on either side (the duplicates uniform draws give), 64 of them on
+  one row; the fused deltas of momentum's or Adam's lanes, bf16."""
+  rows = layout.rows
+  margin = rows // 32
+  ids = torch.randint(-margin, rows + margin, (K1_IDS,), generator=gen,
+                      device="cuda")
+  ids[:64] = rows // 3  # a run of one id
+  delta = (torch.randn((K1_IDS, layout.phys_width), generator=gen,
+                       device="cuda") * 1e-2).to(torch.bfloat16)
+  return ids, delta
+
+
+def phase_kernel_apply_bf16_rules(torch, ca, flush, rows: int) -> list:
+  """K1's bf16 form at the momentum and Adam rules' lanes (``n_aux`` 1 and
+  2): width-128 rows of 256 and 384 bf16 lanes (``rows`` of them, the
+  train cell's first class), :func:`k1_rule_streams`, and Tiny's largest
+  w16 class under each rule (32- and 48-lane strides, 4 and 2 rows a
+  physical row) at physical-row granularity; each held to its plain
+  version by :func:`k1_bf16_check` and timed beside it (the w128 streams),
+  a bf16 ``index_add_`` and its bound. Returns the rows emitted."""
+  from distributed_embeddings_torch.ops.packed_table import (
+      PackedLayout,
+      _grp_sub,
+      adam_rule,
+      momentum_rule,
+  )
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+  out = []
+  for rule in (momentum_rule(TRAIN_LR), adam_rule(ADAM_LR)):
+    layout = PackedLayout(rows=rows, width=D, n_aux=rule.n_aux)
+    w = layout.phys_width
+    base = (torch.rand(layout.shape, generator=gen, device="cuda")
+            - 0.5).to(torch.bfloat16)
+    ids, delta = k1_rule_streams(torch, layout, gen)
+    res = k1_bf16_check(torch, ca, f"w128_{rule.name}", base, ids, delta,
+                        None)
+    work = base.clone()
+    valid = (ids >= 0) & (ids < rows)
+    ids_v, delta_v = ids[valid], delta[valid]
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: ca.apply_rows(work, ids, delta),
+        "plain_ms": lambda: ca.apply_rows_plain(work, ids, delta),
+        "library_ms": lambda: work.index_add_(0, ids_v, delta_v)}, flush)
+    n, nv, uniq = K1_IDS, res["valid_ids"], res["unique_rows"]
+    row = {"phase": "kernel", "name": "apply_rows_bf16",
+           "stream": f"w128_{rule.name}", "rule": rule.name,
+           "n_aux": rule.n_aux, "plan": k1_plan_check(torch, ca, n),
+           "rows": rows, "width": w, "dtype": "bfloat16", "ids": n, **res,
+           **timed, **bound(n * 8 + nv * w * 2 + uniq * w * 2 * 2,
+                            2 * nv * w, F32_FLOPS)}
+    emit(row)
+    out.append(row)
+    del base, work, ids, delta, ids_v, delta_v
+    torch.cuda.empty_cache()
+    # Tiny's largest w16 class under the rule, at physical-row granularity
+    plan = zoo_plan()
+    routed = zoo_routed(torch, plan)
+    name, lay = next((nm, lt) for nm, lt in zoo_classes(plan, rule)
+                     if lt.width == 16)
+    tid = torch.cat([i.reshape(-1).long() for _, i in routed.pop(name)])
+    del routed
+    grp, sub, _ = _grp_sub(lay, tid)
+    win = torch.arange(D, device="cuda") // lay.stride
+    delta = torch.randn((grp.shape[0], D), generator=gen,
+                        device="cuda") * 1e-2
+    delta = torch.where(win[None, :] == sub[:, None], delta,
+                        torch.zeros_like(delta)).to(torch.bfloat16)
+    base = torch.rand((lay.phys_rows, D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    res = k1_bf16_check(torch, ca, f"tiny_{name}_{rule.name}", base, grp,
+                        delta, None)
+    work = base.clone()
+    valid = grp < lay.phys_rows
+    grp_v, delta_v = grp[valid], delta[valid]
+    timed = event_ms(torch, {
+        "kernel_ms": lambda: ca.apply_rows(work, grp, delta),
+        "library_ms": lambda: work.index_add_(0, grp_v, delta_v)}, flush)
+    n, nv, uniq = int(grp.shape[0]), res["valid_ids"], res["unique_rows"]
+    row = {"phase": "kernel", "name": "apply_rows_bf16",
+           "stream": f"tiny_{name}_{rule.name}", "rule": rule.name,
+           "n_aux": rule.n_aux, "plan": k1_plan_check(torch, ca, n),
+           "rows": lay.phys_rows, "width": D, "logical_width": lay.width,
+           "stride": lay.stride, "rows_per_phys": lay.rows_per_phys,
+           "dtype": "bfloat16", "ids": n, **res, **timed, "plain_ms": None,
+           **bound(n * 8 + nv * D * 2 + uniq * D * 2 * 2, 2 * nv * D,
+                   F32_FLOPS)}
+    emit(row)
+    out.append(row)
+    del base, work, delta, grp, sub, grp_v, delta_v, tid
+    torch.cuda.empty_cache()
+  return out
+
+
+def phase_sparse_optim(torch) -> dict:
+  """``sparse_optim``: the table-level sparse optimizers
+  (``ops.sparse_optimizer``: SGD, Adagrad, momentum, Adam) on a card
+  table (``SPARSE_OPTIM_ROWS`` x 128, f32) against the same calls on the
+  CPU: two applies of the card's deduplicated gradients (``dedup_rows``
+  of ``K1_IDS`` power-law ids, a sixteenth out of range: its ids equal to
+  the CPU's, its sums within 1e-5 of their absolute sums), a scheduled
+  learning rate; the tables and every state leaf in the f32 class (rtol
+  1e-5, atol 1e-6). No kernel of the port runs here. Returns the (zero)
+  launches."""
+  from distributed_embeddings_torch import ops
+
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+  rows, n = SPARSE_OPTIM_ROWS, K1_IDS
+  table0 = torch.randn((rows, D), generator=gen, device="cuda")
+  r = torch.rand((n,), generator=gen, device="cuda", dtype=torch.float64)
+  ids = (((r * ((rows + 1.0) ** -0.05 - 1.0) + 1.0) ** (1 / -0.05)).long()
+         - 1).clamp(0, rows - 1)
+  ids[:n // 16] = torch.randint(rows, 2 * rows, (n // 16,), generator=gen,
+                                device="cuda")
+  grads = [torch.randn((n, D), generator=gen, device="cuda")
+           for _ in range(2)]
+  reset_counts()
+  # the card's deduplicated gradients: the ids equal the CPU's, the rows
+  # (sums of up to thousands of duplicates, added in the atomics' order)
+  # within 1e-5 of each sum's absolute sum; both optimizers apply them
+  srs = []
+  for g in grads:
+    sr = ops.dedup_rows(ids, g, rows)
+    want = ops.dedup_rows(ids.cpu(), g.cpu(), rows)
+    check(torch.equal(sr.ids.cpu(), want.ids), "sparse_optim: dedup_rows' "
+          "ids on the card differ from the CPU's")
+    absum = ops.dedup_rows(ids.cpu(), g.abs().cpu(), rows).rows
+    check(bool(((sr.rows.cpu() - want.rows).abs() <= 1e-5 * absum + 1e-6)
+               .all()), "sparse_optim: dedup_rows' sums on the card off "
+          "the CPU's beyond 1e-5 of their absolute sums")
+    srs.append(sr)
+  res = {}
+  for name in ("sgd", "adagrad", "momentum", "adam"):
+    t0 = time.perf_counter()
+    got = {}
+    for dev in ("cuda", "cpu"):
+      opt = ops.sparse_optimizer(name, lambda c: 0.05 * (1.0 + c))
+      table = table0.to(dev).clone()
+      st = opt.init(table)
+      for sr in srs:
+        table, st = opt.apply(table, st, ops.SparseRows(sr.ids.to(dev),
+                                                        sr.rows.to(dev)))
+      got[dev] = (table, st)
+    torch.cuda.synchronize()
+    (tc, sc), (tp, sp) = got["cuda"], got["cpu"]
+    err = (tc.cpu() - tp).abs().max().item()
+    check(torch.allclose(tc.cpu(), tp, rtol=1e-5, atol=1e-6),
+          f"sparse_optim {name}: the card's table is {err} off the CPU's")
+    for field, v in sc._asdict().items():
+      if isinstance(v, torch.Tensor):
+        check(torch.allclose(v.cpu(), getattr(sp, field), rtol=1e-5,
+                             atol=1e-6), f"sparse_optim {name}: state "
+              f"{field} differs from the CPU's")
+      else:
+        check(v == getattr(sp, field) == 2, f"sparse_optim {name}: count")
+    moved = (tc != table0).any(dim=1).float().mean().item()
+    check(moved > 0, f"sparse_optim {name}: no row moved")
+    res[name] = {"max_abs_err": err, "rows_moved_share": moved,
+                 "wall_s": time.perf_counter() - t0}
+  got = read_counts()
+  check(got == expect(), f"sparse_optim: launches {got}, expected none")
+  emit({"phase": "sparse_optim", "rows": rows, "width": D, "ids": n,
+        "steps": 2, "by_optimizer": res, "launches": got})
+  del table0, grads, ids, srs
+  torch.cuda.empty_cache()
+  return got
+
+
+def _table_rows(torch, plan, cats, seed: int):
+  """Sampled physical rows of the plan's first sparse class that the
+  batch touches (``hit``) and does not (``miss``), ``ROWS_SAMPLED`` each
+  (one-hot ids: one logical row a physical row at width 128)."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  key, name, rows = first_sparse_class(plan)
+  touched = torch.zeros((rows,), dtype=torch.bool, device="cuda")
+  for bk, v in DistributedLookup(plan).route_ids(cats).items():
+    if bk.class_key == key:
+      v = v.reshape(-1)
+      touched[v[(v >= 0) & (v < rows)].long()] = True
+  pick = torch.Generator(device="cuda").manual_seed(seed)
+  hit = torch.nonzero(touched).squeeze(1)
+  miss = torch.nonzero(~touched).squeeze(1)
+  hit = hit[torch.randperm(hit.numel(), generator=pick,
+                           device="cuda")[:ROWS_SAMPLED]]
+  miss = miss[torch.randperm(miss.numel(), generator=pick,
+                             device="cuda")[:ROWS_SAMPLED]]
+  return name, hit, miss
+
+
+def phase_train_bf16_adam(torch, smi: str) -> dict:
+  """``train_bf16_adam``: ``bench.py``'s step (26 Criteo-1TB tables of
+  width 128, ``dense_row_threshold=4096``, one-hot ids, f32 compute, B =
+  65,536) on bf16 tables under ``adam_rule(ADAM_LR)`` (384 lanes a row:
+  the table and both moments), ``training.Adam(ADAM_LR)`` on the MLPs and
+  the dense-class tables. The full vocabulary would need 187,767,399 rows
+  x 384 lanes x 2 B = 144 GB, so every table is cut by ``ADAM_VOCAB_CUT``
+  (3: 48.07 GB, ``train_bf16``'s bytes). Checks K1's bf16 form once per
+  sparse class and step, K2 once each way, K6 never (a bf16 stream takes
+  the plain delta, as in the JAX package), finite losses, sampled rows the
+  batch does not touch bit-equal with their moment lanes, touched rows
+  moved. Returns each kernel's launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import adam_rule
+  from distributed_embeddings_torch.training import (
+      Adam,
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab = [max(4, v // ADAM_VOCAB_CUT) for v in CRITEO_1TB_VOCAB]
+  emit({"phase": "train_bf16_adam_cut", "vocab_cut": ADAM_VOCAB_CUT,
+        "why": "the full Criteo-1TB vocabulary under Adam's 384 bf16 lanes "
+               "a row is 144 GB; cut by 3 it is 48.07 GB, train_bf16's "
+               "bytes, on this 80 GB card"})
+  plan = train_plan(vocab, buffer_elements=None)
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = adam_rule(ADAM_LR)
+  dense = functools.partial(Adam, lr=ADAM_LR)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), dense,
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+      dtype=torch.bfloat16)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  table_bytes = sum(t.numel() * t.element_size()
+                    for part in ("fused", "emb_dense")
+                    for t in state[part].values())
+  numerical, cats, labels = _train_batch(torch, vocab, TRAIN_BATCH, SEED)
+  name, hit, miss = _table_rows(torch, plan, cats, SEED + 2)
+  buf = state["fused"][name]
+  check(buf.shape[1] == 3 * D, f"train_bf16_adam: {buf.shape[1]} lanes a "
+        "row, not 384")
+  miss_rows = buf[miss].clone()
+  step = make_sparse_train_step(model, plan, bce_loss, dense, rule)
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows_bf16=n_sparse)
+  totals = expect()
+  ms, losses, changed = [], [], []
+  for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+    hit_rows = buf[hit, :D].clone()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, numerical, cats, labels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = read_counts()
+    check(got == want, f"train_bf16_adam step {i}: launches {got}, "
+          f"expected {want}")
+    add_counts(totals, got)
+    if i >= TRAIN_WARMUP:
+      ms.append((t1 - t0) * 1e3)
+    losses.append(float(loss))
+    check(np.isfinite(losses[-1]), f"train_bf16_adam step {i}: loss "
+          f"{losses[-1]}")
+    check(torch.equal(buf[miss], miss_rows), f"train_bf16_adam step {i}: "
+          "rows the batch does not touch changed (table or moment lanes)")
+    changed.append((buf[hit, :D] != hit_rows).any(dim=1).float().mean()
+                   .item())
+  check(max(changed) > 0.0, "train_bf16_adam: no sampled touched row moved")
+  med = statistics.median(ms)
+  emit({"phase": "train_bf16_adam", "card": smi, "batch": TRAIN_BATCH,
+        "vocab": f"Criteo-1TB / {ADAM_VOCAB_CUT}", "rows": int(sum(vocab)),
+        "lanes_per_row": 3 * D, "sparse_classes": n_sparse,
+        "table_bytes": table_bytes, "compute": "f32", "rule": "adam",
+        "lr": ADAM_LR, "dense_optimizer": "training.Adam",
+        "init_s": init_s, "step_ms": ms, "step_ms_median": med,
+        "samples_per_s": TRAIN_BATCH / (med / 1e3),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": want, "launches": totals, "losses": losses,
+        "touched_rows_table_lanes_moved_share": changed,
+        "untouched_rows_bit_equal": True})
+  del state, buf, step, hit, miss, miss_rows, numerical, cats, labels
+  torch.cuda.empty_cache()
+  return totals
+
+
+def bf16_twin_close(torch, got: dict, want: dict, before: dict,
+                    ulps: int) -> dict:
+  """``got`` against ``want`` (``touched_now``'s tensors after two arms of
+  one step from ``before``): each cell within ``ulps`` bf16 ulps of its
+  larger magnitude (f32 tensors: ``ulps * 2^-24`` of max(|cell|, 1)),
+  plus ``TWIN_UPDATE_SHARE`` of its tensor's largest update in ``want``
+  (the arms round their bags differently, so their gradients differ by a
+  share of a gradient); the worst error, the worst share and the cells
+  that differ."""
+  worst, worst_share, differ, ok = 0.0, 0.0, 0, True
+  for k, w in want.items():
+    g, wf = got[k].float(), w.float()
+    d = (g - wf).abs()
+    differ += int((d > 0).sum())
+    if not d.numel():
+      continue
+    worst = max(worst, float(d.max()))
+    if w.dtype == torch.bfloat16:
+      m = torch.maximum(g.abs(), wf.abs()).clamp_min(2.0 ** -126)
+      lim = ulps * torch.exp2(torch.floor(torch.log2(m)) - 7)
+    else:
+      lim = ulps * 2.0 ** -24 * wf.abs().clamp_min(1.0)
+    moved = float((wf - before[k].float()).abs().max())
+    share = float((d - lim).clamp(min=0).max()) / max(moved, 1e-30)
+    worst_share = max(worst_share, share)
+    ok = ok and share <= TWIN_UPDATE_SHARE
+  return {"max_abs_err": worst, "max_update_share": worst_share,
+          "cells_differing": differ, "within": ok}
+
+
+def phase_train_bf16_ragged(torch, smi: str) -> dict:
+  """``train_bf16_ragged``: the multi-hot Criteo mix of ``train_ragged``
+  (:func:`ragged_batch`, B = 65,536) on the full Criteo-1TB vocabulary in
+  bf16 (48.07 GB), ``combiner='sum'``, SGD ``TRAIN_LR``. The tables are
+  drawn anew: the ragged plan's classes carry ``combiner='sum'`` (other
+  class names than ``train_bf16``'s) and the card does not hold two such
+  states. One ragged step and one on its padded twin from one state (the
+  touched rows put back between them): the losses within 2^-8 and every
+  touched row, dense-class table and dense param within
+  :func:`bf16_twin_close`'s bound (the ragged bag adds each row rounded to
+  bf16, XLA's ``segment_sum``, the padded bag sums in f32 and rounds
+  once); then
+  ``RAGGED_STEPS`` timed steps, K1's bf16 form as :func:`k1_launches`
+  predicts (chunked above 4,194,304 occurrences a class), K2 once each
+  way, finite losses, untouched sampled rows bit-equal. Returns each
+  kernel's launches."""
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab = list(CRITEO_1TB_VOCAB)
+  b = TRAIN_BATCH
+  plan = ragged_plan(vocab, batch_hint=b, buffer_elements=None)
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  engine = DistributedLookup(plan)
+  layouts = engine.fused_layouts(rule)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+      dtype=torch.bfloat16)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  table_bytes = sum(t.numel() * t.element_size()
+                    for part in ("fused", "emb_dense")
+                    for t in state[part].values())
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+  batch = ragged_batch(torch, vocab, b, gen, "cuda")
+  twin = padded_twin(batch[1])
+  ids_all = engine.route_ids(batch[1])
+  k1, chunked, _ = k1_launches(plan, ids_all)
+  k1_twin, _, _ = k1_launches(plan, engine.route_ids(twin))
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows_bf16=k1)
+  want_twin = expect(interact_fwd=1, interact_bwd=1,
+                     apply_rows_bf16=k1_twin)
+  rows = touched_rows(torch, plan, layouts, ids_all)
+  del ids_all
+  name0 = next(iter(rows))
+  buf0 = state["fused"][name0]
+  hit = torch.zeros((buf0.shape[0],), dtype=torch.bool, device="cuda")
+  hit[rows[name0]] = True
+  pick = torch.Generator(device="cuda").manual_seed(SEED + 2)
+  miss = torch.nonzero(~hit).squeeze(1)
+  miss = miss[torch.randperm(miss.numel(), generator=pick,
+                             device="cuda")[:ROWS_SAMPLED]]
+  del hit
+  miss_rows = buf0[miss].clone()
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                rule)
+  totals = expect()
+
+  def counted(fn, want_, what):
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    check(got == want_, f"train_bf16_ragged {what}: launches {got}, "
+          f"expected {want_}")
+    add_counts(totals, got)
+    return out
+
+  numerical, cats, labels = batch
+  snap = snapshot(torch, state, rows)
+  before = touched_now(state, rows)
+  res = counted(lambda: step(state, numerical, cats, labels), want,
+                "ragged step")
+  after = touched_now(state, rows)
+  restore(torch, state, rows, snap)
+  del snap
+  res_t = counted(lambda: step(state, numerical, twin, labels), want_twin,
+                  "padded twin step")
+  close = bf16_twin_close(torch, after, touched_now(state, rows), before,
+                          RAGGED_BF16_TWIN_ULPS)
+  twin_losses = (float(res[1]), float(res_t[1]))
+  check(close["within"] and abs(twin_losses[0] - twin_losses[1])
+        <= 2.0 ** -8 * max(1.0, abs(twin_losses[1])),
+        f"train_bf16_ragged: the ragged step left its padded twin by "
+        f"{close['max_abs_err']} (losses {twin_losses})")
+  del after, before, twin
+  torch.cuda.empty_cache()
+  ms, losses = [], []
+  for i in range(RAGGED_STEPS):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = counted(lambda: step(state, *batch), want, f"step {i}")
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+    check(losses[-1] == losses[-1] and abs(losses[-1]) < float("inf"),
+          f"train_bf16_ragged step {i}: loss {losses[-1]}")
+  check(torch.equal(buf0[miss], miss_rows),
+        "train_bf16_ragged: rows the batch does not touch changed")
+  med = statistics.median(ms)
+  emit({"phase": "train_bf16_ragged", "card": smi, "batch": b,
+        "vocab": "Criteo-1TB, full", "rows": int(sum(vocab)),
+        "table_bytes": table_bytes, "compute": "f32",
+        "tables": "drawn anew (the ragged plan's class names differ from "
+                  "train_bf16's; the card holds one such state)",
+        "multi_hot_sizes": list(MULTI_HOT_SIZES),
+        "occurrences_per_step": ragged_live(batch[1], b), "init_s": init_s,
+        "step_ms": ms, "step_ms_median": med,
+        "samples_per_s": b / (med / 1e3),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": want, "chunked_apply_launches": chunked,
+        "twin_launches_per_step": want_twin, "losses": losses,
+        "vs_padded_twin": {"loss": twin_losses[0],
+                           "twin_loss": twin_losses[1],
+                           "bound_ulps": RAGGED_BF16_TWIN_ULPS,
+                           "bound_update_share": TWIN_UPDATE_SHARE,
+                           **close},
+        "untouched_rows_bit_equal": True})
+  del state, step, batch, buf0, miss, miss_rows
+  torch.cuda.empty_cache()
+  return totals
+
+
+def phase_rules_vs_f32(torch, smi: str) -> dict:
+  """``train_bf16_rules_vs_f32``: the train cell (x 1/16) under the
+  momentum rule (SGD 0.1 on the dense side) and under ``adam_rule``
+  (``training.Adam`` on the dense side, ``ADAM_LR``), each from one bf16
+  state and from an f32 state holding the same values:
+  ``NARROW_VS_STEPS`` steps on the same batches, the losses within
+  ``NARROW_LOSS_RTOL``; K1's bf16 form on the bf16 states, its f32 form
+  on the others, never K6 (the rows are 256 and 384 lanes). Returns each
+  kernel's launches on the bf16 states."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import (
+      adam_rule,
+      momentum_rule,
+  )
+  from distributed_embeddings_torch.training import (
+      Adam,
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  batches = [_train_batch(torch, vocab, TRAIN_BATCH, SEED + 80 + i)
+             for i in range(NARROW_VS_STEPS)]
+  totals = expect()
+  out = {}
+  for rule, dense in ((momentum_rule(TRAIN_LR), sgd_factory(torch)),
+                      (adam_rule(ADAM_LR),
+                       functools.partial(Adam, lr=ADAM_LR))):
+    narrow = init_sparse_state_direct(
+        plan, rule, model.state_dict(), dense,
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+        dtype=torch.bfloat16)
+    wide = {"fused": {k: v.float() for k, v in narrow["fused"].items()},
+            "emb_dense": {k: v.detach().float()
+                          for k, v in narrow["emb_dense"].items()},
+            "dense": {k: v.detach().clone()
+                      for k, v in narrow["dense"].items()},
+            "step": 0}
+    losses = {}
+    for tag, state, kernel in (("bf16", narrow, "apply_rows_bf16"),
+                               ("f32", wide, "apply_rows")):
+      step = make_sparse_train_step(model, plan, bce_loss, dense, rule)
+      want = expect(interact_fwd=1, interact_bwd=1, **{kernel: n_sparse})
+      losses[tag] = []
+      for i, batch in enumerate(batches):
+        reset_counts()
+        state, loss = step(state, *batch)
+        got = read_counts()
+        check(got == want, f"train_bf16_rules_vs_f32 {rule.name} {tag} step "
+              f"{i}: launches {got}, expected {want}")
+        if tag == "bf16":
+          add_counts(totals, got)
+        losses[tag].append(float(loss))
+      check(np.isfinite(losses[tag]).all(), f"train_bf16_rules_vs_f32 "
+            f"{rule.name} {tag}: losses {losses[tag]}")
+      del step, state
+    del narrow, wide
+    torch.cuda.empty_cache()
+    err = np.abs(np.asarray(losses["bf16"]) - np.asarray(losses["f32"]))
+    rel = float((err / np.abs(np.asarray(losses["f32"]))).max())
+    check(rel <= NARROW_LOSS_RTOL, f"train_bf16_rules_vs_f32 {rule.name}: "
+          f"losses differ by {rel} relative (> {NARROW_LOSS_RTOL})")
+    out[rule.name] = {"losses_bf16": losses["bf16"],
+                      "losses_f32": losses["f32"], "loss_max_rel_err": rel}
+  emit({"phase": "train_bf16_rules_vs_f32", "card": smi,
+        "batch": TRAIN_BATCH, "vocab_scale": "1/16",
+        "steps": NARROW_VS_STEPS, "loss_rtol": NARROW_LOSS_RTOL,
+        "by_rule": out, "launches_bf16": totals})
+  del batches
+  torch.cuda.empty_cache()
+  return totals
+
+
+def _hand_loop_run(torch, device: str) -> tuple:
+  """``HAND_LOOP_STEPS`` steps of a hand-written loop (``zero_grad``,
+  ``loss.backward()``, ``training.Adam(ADAM_LR).step()``) on a
+  ``DistributedEmbedding`` of ``HAND_LOOP_VOCAB`` at width ``D`` with its
+  class buffers in bf16 and a linear head, on ``device``; the weights and
+  batches drawn on the CPU from ``SEED``. Returns the losses and the class
+  buffers as f32 numpy. No kernel runs: the head has no interaction."""
+  from torch import nn
+
+  from distributed_embeddings_torch.layers import DistributedEmbedding
+  from distributed_embeddings_torch.layers.embedding import TableConfig
+  from distributed_embeddings_torch.models import bce_loss
+  from distributed_embeddings_torch.training import Adam
+
+  class HandLoop(nn.Module):
+
+    def __init__(self):
+      super().__init__()
+      self.embeddings = DistributedEmbedding(
+          [TableConfig(input_dim=v, output_dim=D) for v in HAND_LOOP_VOCAB],
+          dense_row_threshold=HAND_LOOP_THRESHOLD, device="cpu",
+          generator=torch.Generator().manual_seed(SEED))
+      self.head = nn.Linear(13 + D * len(HAND_LOOP_VOCAB), 1)
+
+    def forward(self, numerical, cats):
+      x = torch.cat([numerical] + list(self.embeddings(cats)), dim=1)
+      return self.head(x)[:, 0]
+
+  torch.manual_seed(SEED)
+  model = HandLoop().to(device)  # drawn on the CPU
+  kinds = {k.kind for k in model.embeddings.plan.classes.values()}
+  check(kinds == {"dense", "sparse"}, f"hand loop: class kinds {kinds}")
+  model.embeddings.to(torch.bfloat16)
+  opt = Adam(model.parameters(), lr=ADAM_LR)
+  gen = torch.Generator().manual_seed(SEED + 7)
+  losses = []
+  for _ in range(HAND_LOOP_STEPS):
+    numerical = torch.randn((HAND_LOOP_BATCH, 13), generator=gen)
+    cats = [torch.randint(0, v, (HAND_LOOP_BATCH,), generator=gen)
+            for v in HAND_LOOP_VOCAB]
+    labels = torch.randint(0, 2, (HAND_LOOP_BATCH,), generator=gen).float()
+    opt.zero_grad()
+    loss = bce_loss(model(numerical.to(device),
+                          [c.to(device) for c in cats]), labels.to(device))
+    loss.backward()
+    opt.step()
+    losses.append(float(loss.detach()))
+  return losses, {n: p.detach().float().cpu().numpy()
+                  for n, p in model.embeddings.class_params().items()}
+
+
+def _hand_loop_vs_cpu(torch) -> dict:
+  """The hand-written loop on the card against the same loop on the CPU
+  (see ``HAND_LOOP_ULPS``): per class buffer the share of cells within
+  ``HAND_LOOP_ULPS`` bf16 ulps and the worst cell in learning rates."""
+  import numpy as np
+
+  card_losses, card = _hand_loop_run(torch, "cuda")
+  cpu_losses, cpu = _hand_loop_run(torch, "cpu")
+  out = {"losses_card": card_losses, "losses_cpu": cpu_losses,
+         "by_buffer": {}}
+  check(np.allclose(card_losses, cpu_losses, rtol=1e-5, atol=1e-6),
+        f"hand loop: card losses {card_losses}, CPU {cpu_losses}")
+  for name, want in cpu.items():
+    got = card[name]
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), ADAM_LR)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    diff = np.abs(got - want)
+    share = float((diff <= HAND_LOOP_ULPS * ulp).mean())
+    worst_lr = float(diff.max() / ADAM_LR)
+    out["by_buffer"][name] = {
+        "cells": int(diff.size), "within_ulps_share": share,
+        "bit_equal_share": float((got == want).mean()),
+        "worst_in_lr": worst_lr}
+    check(share >= HAND_LOOP_SHARE, f"hand loop {name}: {share:.4%} of the "
+          f"cells within {HAND_LOOP_ULPS} ulps of the CPU's")
+    check(bool((diff <= 2 * ADAM_LR * HAND_LOOP_STEPS
+                + HAND_LOOP_ULPS * ulp).all()),
+          f"hand loop {name}: a cell {worst_lr} learning rates off")
+  return out
+
+
+def phase_train_dense_bf16(torch, smi: str) -> dict:
+  """``train_dense_bf16``: the README Quick start's dense-autodiff step
+  (``DLRM`` owning its ``DistributedEmbedding``, ``make_train_step``) on
+  the train cell (26 tables x 1/16, about 3.0 GB of bf16 class buffers)
+  with its class buffers in bf16 under ``training.Adam(ADAM_LR)``, against
+  its f32 twin holding the same values: ``NARROW_VS_STEPS`` steps each on
+  the same batches, the losses within ``NARROW_LOSS_RTOL``; K2 once each
+  way a step and no K1 (the dense path applies no sparse stream). Returns
+  each kernel's launches on the bf16 model."""
+  import numpy as np
+
+  from distributed_embeddings_torch import train_golden
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.training import Adam, make_train_step
+
+  vocab = criteo_vocab()
+  plan = train_plan()
+  batches = [_train_batch(torch, vocab, TRAIN_BATCH, SEED + 90 + i)
+             for i in range(NARROW_VS_STEPS)]
+  want = expect(interact_fwd=1, interact_bwd=1)
+  totals = expect()
+  losses, ms, class_bytes = {}, {}, {}
+  torch.cuda.reset_peak_memory_stats()
+  for tag in ("bf16", "f32"):
+    model = DLRM(vocab, D, dense_row_threshold=4096, batch_hint=TRAIN_BATCH,
+                 device="cuda", generator=torch.Generator().manual_seed(SEED),
+                 table_generator=torch.Generator(device="cuda")
+                 .manual_seed(SEED))
+    check(model.embeddings.plan.class_keys == plan.class_keys,
+          "train_dense_bf16: the model's plan is not the train plan")
+    # both twins hold the bf16-representable values
+    model.embeddings.to(torch.bfloat16)
+    if tag == "f32":
+      model.embeddings.to(torch.float32)
+    class_bytes[tag] = sum(p.numel() * p.element_size() for p in
+                           model.embeddings.class_params().values())
+    opt = Adam(model.parameters(), lr=ADAM_LR)
+    step = make_train_step(train_golden.dense_loss, opt, model, plan=plan,
+                           device="cuda")
+    losses[tag], ms[tag] = [], []
+    for i, batch in enumerate(batches):
+      reset_counts()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      loss = step(*batch)
+      torch.cuda.synchronize()
+      ms[tag].append((time.perf_counter() - t0) * 1e3)
+      got = read_counts()
+      check(got == want, f"train_dense_bf16 {tag} step {i}: launches {got}, "
+            f"expected {want}")
+      if tag == "bf16":
+        add_counts(totals, got)
+      losses[tag].append(float(loss))
+    check(np.isfinite(losses[tag]).all(), f"train_dense_bf16 {tag}: losses "
+          f"{losses[tag]}")
+    if tag == "bf16":
+      check(all(p.dtype == torch.bfloat16 for p in
+                model.embeddings.class_params().values()),
+            "train_dense_bf16: a class buffer left bf16")
+    del model, opt, step
+    torch.cuda.empty_cache()
+  err = np.abs(np.asarray(losses["bf16"]) - np.asarray(losses["f32"]))
+  rel = float((err / np.abs(np.asarray(losses["f32"]))).max())
+  check(rel <= NARROW_LOSS_RTOL, f"train_dense_bf16: losses differ by {rel} "
+        f"relative (> {NARROW_LOSS_RTOL})")
+  hand_loop = _hand_loop_vs_cpu(torch)
+  emit({"phase": "train_dense_bf16", "card": smi, "batch": TRAIN_BATCH,
+        "vocab_scale": "1/16", "steps": NARROW_VS_STEPS,
+        "optimizer": "training.Adam", "lr": ADAM_LR,
+        "class_bytes": class_bytes, "step_ms_median": {
+            t: statistics.median(v) for t, v in ms.items()},
+        "losses_bf16": losses["bf16"], "losses_f32": losses["f32"],
+        "loss_max_rel_err": rel, "loss_rtol": NARROW_LOSS_RTOL,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": want,
+        "hand_loop_vs_cpu": {"vocab": HAND_LOOP_VOCAB,
+                             "batch": HAND_LOOP_BATCH,
+                             "steps": HAND_LOOP_STEPS,
+                             "ulps": HAND_LOOP_ULPS,
+                             "share": HAND_LOOP_SHARE, **hand_loop}})
+  del batches
+  torch.cuda.empty_cache()
+  return totals
+
+
+def phase_train_bf16_rules_golden(torch) -> None:
+  """The committed JAX rules golden
+  (``tests/data/torch_train_bf16_rules_golden.npz``: bf16 buffers under
+  ``adam_rule``, ``optax.adam`` on the dense side, one ragged input)
+  replayed on the card within ``train_golden.compare_bf16``'s bounds with
+  ``RULES_UPDATE_TOL`` (every bf16 cell) and ``RULES_DENSE_CELL_SHARE``
+  (the dense params' cells)."""
+  from distributed_embeddings_torch import train_golden
+  golden = train_golden.load(train_golden.BF16_RULES_PATH)
+  losses, got = train_golden.replay_bf16_rules(golden, device="cuda")
+  try:
+    worst = train_golden.compare_bf16(golden, losses, got,
+                                      train_golden.RULES_UPDATE_TOL)
+  except AssertionError as exc:
+    raise SmokeFailure(f"bf16 rules golden: {exc}") from exc
+  # the bound refuses a faulty Adam on the card too: b2 = 0.99 in both
+  bad_losses, bad = train_golden.replay_bf16_rules(
+      golden, device="cuda", adam_kw=RULES_PLANTED_FAULT)
+  try:
+    train_golden.compare_bf16(golden, bad_losses, bad,
+                              train_golden.RULES_UPDATE_TOL)
+    planted = None
+  except AssertionError as exc:
+    planted = str(exc).splitlines()[0]
+  check(planted is not None, f"bf16 rules golden: Adam with "
+        f"{RULES_PLANTED_FAULT} passed the card bound")
+  emit({"phase": "train_bf16_rules_golden", "losses": losses,
+        "want_losses": [float(v) for v in golden["losses"]], **worst,
+        "loss_tol": train_golden.LOSS_TOL,
+        "bf16_ulps": train_golden.BF16_ULPS,
+        "update_tol": train_golden.RULES_UPDATE_TOL,
+        "dense_cell_share": train_golden.RULES_DENSE_CELL_SHARE,
+        "planted_fault": RULES_PLANTED_FAULT, "planted_refused_by": planted})
+
+
+def _w4_narrow_rules(torch, mesh, model, batch) -> dict:
+  """``world4_bf16``'s slice-20 runs on every rank (the world-4 plan x
+  1/16 in bf16): the dedup exchange (``dedup_exchange=True``) under the
+  momentum rule in ``'none'``, ``'pipelined'`` and ``'fused'`` from one
+  state (``W4_RULES_STEPS`` steps each: the first step's losses equal and
+  its buffers bit-equal to ``'none'``'s off duplicate rows; K4's bf16
+  form as :func:`k4_forward_launches` predicts per bucket, round and chunk
+  of the unique capacity); one ``adam_rule`` step under ``'fused'`` (K4's
+  bf16 form on 384-lane rows); one SGD step of the ragged cell
+  (:func:`w4_ragged_plan`, the multi-hot Criteo mix as ``RaggedIds``)
+  under ``'fused'``, K4 and K1 as predicted from the batch. Returns the
+  runs' numbers and launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import (
+      adam_rule,
+      momentum_rule,
+      sgd_rule,
+  )
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      ragged_hotness,
+  )
+  from distributed_embeddings_torch.training import (
+      Adam,
+      init_sparse_state_direct,
+      make_sparse_train_step,
+      shard_batch,
+  )
+
+  dev = mesh.device
+  out = {"runs": {}}
+
+  def fresh(plan, rule, dense, mdl):
+    return init_sparse_state_direct(
+        plan, rule, mdl.state_dict(), dense,
+        torch.Generator(device=dev).manual_seed(SEED + 1 + mesh.rank),
+        mesh=mesh, dtype=torch.bfloat16)
+
+  def timed(fn):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(dev)
+    return res, (time.perf_counter() - t0) * 1e3
+
+  rule = momentum_rule(TRAIN_LR)
+  base = None
+  for overlap in ("none", "pipelined", "fused"):
+    _, plan = world4_plan("gloo", overlap, dedup_exchange=True)
+    state, init_ms = timed(lambda: fresh(plan, rule, sgd_factory(torch),
+                                         model))
+    touch = _w4_touch_counts(torch, plan, mesh, batch[1], state)
+    step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  rule, mesh=mesh)
+    want = expect(gather_rows_bf16=k4_forward_launches(plan, None, rule),
+                  apply_rows_bf16=len(state["fused"]), interact_fwd=1,
+                  interact_bwd=1)
+    totals = expect()
+    losses, ms = [], []
+    for i in range(W4_RULES_STEPS):
+      reset_counts()
+      (state, loss), t = timed(lambda: step(state, *batch))
+      ms.append(t)
+      got = read_counts()
+      check(got == want, f"world4_bf16 dedup {overlap} rank {mesh.rank} "
+            f"step {i}: launches {got}, expected {want}")
+      add_counts(totals, got)
+      losses.append(float(loss))
+      check(np.isfinite(losses[-1]), f"world4_bf16 dedup {overlap}: loss "
+            f"{losses[-1]}")
+      if i == 0:
+        first = {k: v.clone() for k, v in state["fused"].items()}
+    if base is None:
+      base = (losses[0], first)
+    else:
+      check(losses[0] == base[0], f"world4_bf16 dedup: {overlap}'s first "
+            f"loss {losses[0]} != none's {base[0]}")
+      for name, buf in first.items():
+        other = base[1][name]
+        bad = (buf != other).any(dim=1)
+        check(not bool((bad & (touch[name] < 2)).any().item()),
+              f"world4_bf16 dedup {overlap} {name}: a row fewer than two "
+              "ids hit differs from none's")
+        if bool(bad.any().item()):
+          a, b = buf[bad].float(), other[bad].float()
+          lim = touch[name][bad][:, None].float() * BF16_DUP_ULP * \
+              torch.maximum(a.abs(), b.abs()) + 2.0 ** -24
+          check(bool(((a - b).abs() <= lim).all().item()),
+                f"world4_bf16 dedup {overlap} {name}: duplicate rows off "
+                "none's beyond hits * 3 * 2^-8")
+    out["runs"][f"dedup_{overlap}"] = {"losses": losses, "step_ms": ms,
+                                       "init_ms": init_ms,
+                                       "launches": totals,
+                                       "launches_per_step": want}
+    del first, touch, step, state
+    torch.cuda.empty_cache()
+  del base
+  # one Adam step under the fused schedule
+  ada = adam_rule(ADAM_LR)
+  _, plan = world4_plan("gloo", "fused")
+  dense = functools.partial(Adam, lr=ADAM_LR)
+  state = fresh(plan, ada, dense, model)
+  step = make_sparse_train_step(model, plan, bce_loss, dense, ada, mesh=mesh)
+  reset_counts()
+  (state, loss), adam_ms = timed(lambda: step(state, *batch))
+  got = read_counts()
+  want = expect(gather_rows_bf16=k4_forward_launches(plan, None, ada),
+                apply_rows_bf16=len(state["fused"]), interact_fwd=1,
+                interact_bwd=1)
+  check(got == want, f"world4_bf16 adam rank {mesh.rank}: launches {got}, "
+        f"expected {want}")
+  check(np.isfinite(float(loss)), "world4_bf16 adam: loss not finite")
+  check(all(t.shape[-1] == 3 * D for t in state["fused"].values()),
+        "world4_bf16 adam: a buffer without Adam's 384 lanes")
+  out["adam"] = {"loss": float(loss), "step_ms": adam_ms, "launches": got}
+  del state, step
+  torch.cuda.empty_cache()
+  # one SGD step of the ragged cell under the fused schedule
+  vocab, plan = w4_ragged_plan("gloo", "fused")
+  rmodel = DLRM(vocab, D, tables=False, device=dev,
+                generator=torch.Generator().manual_seed(SEED))
+  srule = sgd_rule(TRAIN_LR)
+  state = fresh(plan, srule, sgd_factory(torch), rmodel)
+  rbatch = shard_batch(ragged_batch(
+      torch, vocab, W4_BATCH // WORLD, torch.Generator().manual_seed(
+          SEED + 40), "cpu", blocks=WORLD), mesh)
+  codes = [ragged_hotness(c) for c in rbatch[1]]
+  k1, _, _ = k1_launches(plan, DistributedLookup(plan, mesh=mesh)
+                         .route_ids(rbatch[1]))
+  want = expect(gather_rows_bf16=k4_forward_launches(plan, codes, srule),
+                apply_rows_bf16=k1, interact_fwd=1, interact_bwd=1)
+  step = make_sparse_train_step(rmodel, plan, bce_loss, sgd_factory(torch),
+                                srule, mesh=mesh)
+  reset_counts()
+  (state, loss), ragged_ms = timed(lambda: step(state, *rbatch))
+  got = read_counts()
+  check(got == want, f"world4_bf16 ragged rank {mesh.rank}: launches "
+        f"{got}, expected {want}")
+  check(np.isfinite(float(loss)), "world4_bf16 ragged: loss not finite")
+  out["ragged"] = {"loss": float(loss), "step_ms": ragged_ms,
+                   "launches": got}
+  del state, step, rbatch, rmodel
+  torch.cuda.empty_cache()
+  return out
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   source = BF16_FORMS.get(name, name)
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}.cu",
@@ -8769,6 +9748,8 @@ def main() -> int:
   phase_kernel_apply_zoo(torch, ca, flush)
   rows["apply_rows_bf16"] = phase_kernel_apply_bf16(
       torch, ca, flush, first_sparse_class(train_plan())[2])
+  phase_kernel_apply_bf16_rules(torch, ca, flush,
+                                first_sparse_class(train_plan())[2])
   rows["gather_rows"] = phase_kernel_gather(torch, cx, flush)
   rows["gather_rows_bf16"] = phase_kernel_gather_bf16(torch, cx, flush)
   rows["gather_send_rows"] = phase_kernel_send(torch, cx, flush)
@@ -8785,6 +9766,7 @@ def main() -> int:
   phase_dense_golden(torch)
   phase_ragged_golden(torch)
   phase_train_bf16_golden(torch)
+  phase_train_bf16_rules_golden(torch)
 
   # every path's counts, each read from all nine counters just after the
   # path ran with them set to 0 just before
@@ -8806,6 +9788,14 @@ def main() -> int:
   # narrow storage: the full Criteo-1TB vocabulary in bf16 on this card
   by_path["train_bf16_tables"] = phase_train_bf16(torch, smi)
   by_path["train_bf16_vs_f32"] = phase_train_bf16_vs_f32(torch, smi)
+  torch.cuda.empty_cache()
+  # slice 20: bf16 tables under Adam and with ragged ids at full width,
+  # the momentum and Adam rules against their f32 twins, the table-level
+  # sparse optimizers
+  by_path["train_bf16_adam"] = phase_train_bf16_adam(torch, smi)
+  by_path["train_bf16_ragged"] = phase_train_bf16_ragged(torch, smi)
+  by_path["train_bf16_rules_vs_f32"] = phase_rules_vs_f32(torch, smi)
+  by_path["sparse_optim"] = phase_sparse_optim(torch)
   torch.cuda.empty_cache()
   # tiered storage: f32 tables past the card's memory, host-RAM images
   by_path["tiered_golden"] = phase_tiered_golden(torch)
@@ -8829,6 +9819,8 @@ def main() -> int:
   for compute in ("f32", "bf16"):
     by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
                                                           compute)
+  torch.cuda.empty_cache()
+  by_path["train_dense_bf16_tables"] = phase_train_dense_bf16(torch, smi)
   torch.cuda.empty_cache()
   phase_dlrm_main(smi)
   by_path["train_ckpt"] = phase_train_ckpt(torch, smi)
@@ -8866,6 +9858,10 @@ def main() -> int:
           f"the world-4 dense path never launched {name}")
   for path, name in (("train_bf16_tables", "apply_rows_bf16"),
                      ("train_bf16_vs_f32", "apply_rows_bf16"),
+                     ("train_bf16_adam", "apply_rows_bf16"),
+                     ("train_bf16_ragged", "apply_rows_bf16"),
+                     ("train_bf16_rules_vs_f32", "apply_rows_bf16"),
+                     ("train_dense_bf16_tables", "interact_bwd"),
                      ("world4_bf16", "apply_rows_bf16"),
                      ("world4_bf16", "gather_rows_bf16"),
                      ("serve_fp8", "interact_fwd")):

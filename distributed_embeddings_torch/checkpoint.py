@@ -492,14 +492,17 @@ def _npz_parts(state: Dict[str, Any], mesh, rank: Optional[int]
   emb_opt = optax_state_of(state.get("emb_dense_opt"), trained_tables(state))
   if not emb_dense:
     # no dense-class tables: the JAX state keeps the optax state of an
-    # empty tree (a schedule's count, which never advances there)
+    # empty tree (Adam's and a schedule's counts, which never advance
+    # there)
     emb_opt = {k: v for k, v in optax_state_of(
-        state.get("dense_opt"), dense).items() if k == "1/count"}
+        state.get("dense_opt"), dense).items()
+               if k in ("0/count", "1/count")}
     emb_opt = {k: np.zeros_like(v) for k, v in emb_opt.items()}
   if rank is not None:
     names = set(emb_dense)
     tables = {k: blocks_on_root(v, mesh) for k, v in sorted(emb_dense.items())}
-    emb_opt = {k: (blocks_on_root(torch.from_numpy(v), mesh)
+    emb_opt = {k: (blocks_on_root(v if isinstance(v, torch.Tensor)
+                                  else torch.from_numpy(v), mesh)
                    if _row_leaf(k, names) else v)
                for k, v in sorted(emb_opt.items())}
   else:

@@ -46,7 +46,7 @@ import torch
 from .device import resolve_device
 from .hostarrays import numpy_of, tensor_of
 from .serving.export import FrozenTables, ServeClassMeta
-from .training import Adagrad, OptaxState, ScheduledSGD, shard_params
+from .training import Adagrad, Adam, OptaxState, ScheduledSGD, shard_params
 
 
 def _tensor(x) -> torch.Tensor:
@@ -109,11 +109,12 @@ def _mlps_to_flax(state_dict: Dict[str, torch.Tensor], mlps
   """The port's ``<mlp>.layers.i.{weight, bias}`` (``mlp`` in ``mlps``)
   and ``embeddings.<class name>`` -> the flax tree as numpy
   (``<mlp>/dense_i/{kernel, bias}`` with kernels ``[in, out]``,
-  ``embeddings/<class name>``); any other entry raises."""
+  ``embeddings/<class name>``; bf16 class buffers as their ``uint16``
+  bits); any other entry raises."""
   tree: Dict[str, Any] = {}
   for key, t in state_dict.items():
     path, transpose = _flax_path(key, mlps)
-    arr = t.detach().cpu().numpy()
+    arr = numpy_of(t)
     *parents, leaf = path.split("/")
     node = tree
     for p in parents:
@@ -214,13 +215,16 @@ def optax_param_paths(names) -> Dict[str, Tuple[str, bool]]:
           for name in names}
 
 
-def _optax_form(opt) -> Tuple[str, bool]:
-  """``(slot, scheduled)`` of a port dense optimizer: the per-parameter
-  optax slot (``'trace'``, ``'sum_of_squares'`` or None) and whether its
-  optax state carries a schedule count. Optimizers without an optax
-  counterpart in the port raise, naming what is supported."""
+def _optax_form(opt) -> Tuple[Tuple[str, ...], bool]:
+  """``(slots, scheduled)`` of a port dense optimizer: its per-parameter
+  optax slots (``('trace',)``, ``('sum_of_squares',)``, ``('mu', 'nu')``
+  or none) and whether its optax state carries a schedule count
+  (``1/count``). Optimizers without an optax counterpart in the port
+  raise, naming what is supported."""
   if isinstance(opt, Adagrad):
-    return "sum_of_squares", False
+    return ("sum_of_squares",), False
+  if isinstance(opt, Adam):
+    return ("mu", "nu"), callable(opt.defaults["lr"])
   if isinstance(opt, torch.optim.SGD):
     g = opt.defaults
     if g.get("nesterov") or g.get("dampening") or g.get("weight_decay") \
@@ -228,44 +232,73 @@ def _optax_form(opt) -> Tuple[str, bool]:
       raise NotImplementedError(
           "torch.optim.SGD with nesterov, dampening, weight_decay or "
           "maximize has no optax.sgd state to carry")
-    return ("trace" if g["momentum"] else None,
-            isinstance(opt, ScheduledSGD))
+    return (("trace",) if g["momentum"] else ()), isinstance(opt,
+                                                            ScheduledSGD)
   raise NotImplementedError(
       f"dense optimizer {type(opt).__name__}: the port carries the states "
       "of optax.sgd (torch.optim.SGD, training.ScheduledSGD for a "
-      "schedule, momentum included) and optax.adagrad (training.Adagrad) "
-      "only; the port has no dense Adam")
+      "schedule, momentum included), optax.adagrad (training.Adagrad) and "
+      "optax.adam (training.Adam) only")
 
 
-_OPTAX_SLOTS = ("trace", "sum_of_squares")
+# optax slot -> the port optimizer's per-parameter state key
+_OPTAX_SLOTS = {"trace": "momentum_buffer", "sum_of_squares": "sum",
+                "mu": "mu", "nu": "nu"}
 
 
-def optax_state_of(opt, params: Dict[str, torch.Tensor]
-                   ) -> Dict[str, np.ndarray]:
+def _slot_fill(opt, slot: str, p: torch.Tensor) -> torch.Tensor:
+  """A slot's initial value, before the optimizer's first step: Adagrad's
+  ``initial_accumulator_value``, zeros otherwise; Adam's moments in the
+  parameter's storage dtype (optax's init on a bf16 table)."""
+  if slot == "sum_of_squares":
+    return torch.full_like(p, opt.defaults["initial_accumulator_value"])
+  return torch.zeros_like(p, dtype=getattr(p, "storage_dtype", p.dtype)
+                          if slot in ("mu", "nu") else p.dtype)
+
+
+def _host_leaf(t: torch.Tensor, transpose: bool):
+  """A slot tensor as a host leaf: f32 numpy (a copy: on the CPU the array
+  would alias the optimizer's state), or a bf16 slot (Adam's moments of a
+  bf16 parameter) as a bf16 CPU tensor, which the checkpoint writes as
+  its bits under the JAX package's ``'<V2'`` descr."""
+  t = t.detach()
+  if t.dtype == torch.bfloat16:
+    t = t.cpu()
+    return (t.T if transpose else t).contiguous().clone()
+  arr = t.to(torch.float32).cpu().numpy()
+  return arr.T.copy() if transpose else arr.copy()
+
+
+def _leaf_tensor(x) -> torch.Tensor:
+  """A flattened optax leaf (numpy, a bf16 ``ml_dtypes`` array, the
+  2-byte voids ``np.load`` gives for one, or a tensor) as a CPU tensor of
+  its bits."""
+  if isinstance(x, torch.Tensor):
+    return x.detach().cpu()
+  return tensor_of(x)
+
+
+def optax_state_of(opt, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
   """The port optimizer ``opt`` bound to ``params`` (name -> tensor, a
   train state's ``dense`` or ``emb_dense`` part) -> its optax state
-  flattened in the JAX package's spelling, numpy on the host. ``opt`` may
-  be None for a part without tensors (no leaves then). A slot the torch
-  optimizer has not created yet (before its first step) is its initial
-  value: zeros for the momentum trace, ``initial_accumulator_value`` for
-  Adagrad."""
+  flattened in the JAX package's spelling, on the host: numpy, but bf16
+  slots as bf16 CPU tensors (:func:`_host_leaf`). ``opt`` may be None for
+  a part without tensors (no leaves then). A slot the torch optimizer has
+  not created yet (before its first step) is its initial value
+  (:func:`_slot_fill`). Adam adds its ``0/count``."""
   if opt is None:
     return {}
-  slot, scheduled = _optax_form(opt)
-  flat: Dict[str, np.ndarray] = {}
-  if slot is not None:
+  slots, scheduled = _optax_form(opt)
+  flat: Dict[str, Any] = {}
+  if isinstance(opt, Adam):
+    flat["0/count"] = np.asarray(opt.count, np.int32)
+  for slot in slots:
     for name, (path, transpose) in optax_param_paths(params).items():
       p = params[name]
-      st = opt.state.get(p, {})
-      key = "momentum_buffer" if slot == "trace" else "sum"
-      val = st.get(key)
+      val = opt.state.get(p, {}).get(_OPTAX_SLOTS[slot])
       if val is None:
-        fill = (0.0 if slot == "trace"
-                else opt.defaults["initial_accumulator_value"])
-        val = torch.full_like(p, fill)
-      arr = val.detach().to(torch.float32).cpu().numpy()
-      # a copy: on the CPU the array would alias the optimizer's state
-      flat[f"0/{slot}/{path}"] = arr.T.copy() if transpose else arr.copy()
+        val = _slot_fill(opt, slot, p)
+      flat[f"0/{slot}/{path}"] = _host_leaf(val, transpose)
   if scheduled:
     flat["1/count"] = np.asarray(opt.count, np.int32)
   return flat
@@ -278,31 +311,41 @@ def install_optax_state(opt, params: Dict[str, torch.Tensor],
   ``params``, so that its next step continues from it. Every leaf the
   optimizer keeps must be there with its shape (the JAX package's
   messages); leaves it does not keep are ignored, as the JAX restore
-  ignores them, except an optax slot the port has no optimizer for
-  (Adam's ``mu``/``nu``), which is refused by name."""
+  ignores them, except a per-parameter slot of an optax optimizer the
+  port has no counterpart for, which is refused by name. Adam's moments
+  keep the leaf's dtype (bf16 moments as their bits), the other slots
+  take the parameter's."""
   foreign = sorted(k for k in flat
-                   if k != "1/count" and k.split("/")[1:2]
+                   if k not in ("0/count", "1/count") and k.split("/")[1:2]
                    and k.split("/")[1] not in _OPTAX_SLOTS)
   if foreign:
     raise NotImplementedError(
         f"optax state leaves {foreign[:4]} belong to an optimizer the port "
-        "has no counterpart for (optax.adam's mu/nu, for one): the port "
-        "carries optax.sgd (schedule, momentum) and optax.adagrad states")
-  slot, scheduled = _optax_form(opt)
-  if slot is not None:
+        "has no counterpart for: the port carries optax.sgd (schedule, "
+        "momentum), optax.adagrad and optax.adam states")
+  slots, scheduled = _optax_form(opt)
+  for slot in slots:
     for name, (path, transpose) in optax_param_paths(params).items():
       key = f"0/{slot}/{path}"
       if key not in flat:
         raise ValueError(f"checkpoint is missing leaf {key!r}")
       p = params[name]
-      arr = np.asarray(flat[key], np.float32)
+      val = _leaf_tensor(flat[key])
       want = tuple(p.shape[::-1]) if transpose else tuple(p.shape)
-      if tuple(arr.shape) != want:
-        raise ValueError(f"leaf {key!r} has shape {arr.shape} in the "
-                         f"checkpoint, expected {want}")
-      val = torch.from_numpy(arr.T.copy() if transpose else arr.copy())
-      opt.state[p]["momentum_buffer" if slot == "trace" else "sum"] = \
-          val.to(device=p.device, dtype=p.dtype)
+      if tuple(val.shape) != want:
+        raise ValueError(f"leaf {key!r} has shape {tuple(val.shape)} in "
+                         f"the checkpoint, expected {want}")
+      if transpose:
+        val = val.T
+      # Adam's moments keep the leaf's dtype (optax's own, e.g. a bf16
+      # table's moments before its first step), other slots the param's
+      dtype = val.dtype if slot in ("mu", "nu") else p.dtype
+      opt.state[p][_OPTAX_SLOTS[slot]] = val.to(
+          device=p.device, dtype=dtype).contiguous()
+  if isinstance(opt, Adam):
+    if "0/count" not in flat:
+      raise ValueError("checkpoint is missing leaf '0/count'")
+    opt.state["count"] = int(np.asarray(flat["0/count"]))
   if scheduled:
     if "1/count" not in flat:
       raise ValueError("checkpoint is missing leaf '1/count'")

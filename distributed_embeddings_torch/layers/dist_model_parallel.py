@@ -173,14 +173,6 @@ class DistributedEmbedding(nn.Module):
     JAX layer psums them. Model-parallel inputs (``dp_input=False``)
     arrive routed and clipped by ``pack_mp_inputs``: their dict is empty,
     as the JAX layer records nothing for them."""
-    narrow = sorted(n for n, t in self.class_params().items()
-                    if t.dtype != torch.float32)
-    if narrow:
-      raise NotImplementedError(
-          f"class buffers {narrow} are not float32: the dense-autodiff "
-          "layer trains f32 tables; narrow storage runs through the sparse "
-          "step (training.init_sparse_state_direct(dtype=...), ROADMAP.md "
-          "§1 item 7b)")
     if not self.dp_input:
       outs = self.engine.forward_mp(self.class_params(), inputs,
                                     hotness=self.input_hotness)
@@ -372,6 +364,8 @@ def finalize_hybrid_grads(named_params, mesh=None) -> None:
   for _, p in params:
     if p.grad is not None:
       p.grad.mul_(scale)
+    if getattr(p, "wide_grad", None) is not None:
+      p.wide_grad.mul_(scale)  # a class block's f32 gradient, never summed
 
 
 class DistributedOptimizer:

@@ -484,12 +484,41 @@ def _f32(x) -> float:
   return float(np.float32(x))
 
 
+def _weak(c: float, dtype: torch.dtype) -> float:
+  """The Python constant ``c`` as the JAX rules' weak typing reads it
+  beside a tensor of ``dtype``, as a host float: ``bf16(c)`` beside bf16
+  lanes (torch would multiply a bf16 tensor by ``f32(c)``), ``f32(c)``
+  beside f32 ones. An f32 tensor times it rounds once, as XLA's op does,
+  and no value goes to the card."""
+  return float(torch.tensor(c, dtype=dtype))
+
+
+def _on(x, device) -> torch.Tensor:
+  """A scalar (a Python number or a 0-d tensor) as a 0-d f32 tensor on
+  ``device``. A host value is filled in there (``torch.full``), so it
+  takes no blocking copy to the card; a divisor on the card is a tensor
+  there, which the card divides by exactly (a host scalar divisor becomes
+  a multiply by its reciprocal)."""
+  if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+    return x.to(device=device, dtype=torch.float32)
+  return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def _lo(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+  """An f32 result of one elementwise op whose JAX type is ``dtype``,
+  rounded as XLA's CPU jit rounds it where another op of that type reads
+  it: to bf16 (kept in f32) for a bf16 op, unchanged for an f32 one."""
+  if dtype == torch.float32:
+    return x
+  return x.to(dtype).to(torch.float32)
+
+
 def sgd_rule(learning_rate) -> SparseRule:
   """Row-sparse SGD: table[id] -= lr * g."""
 
   def delta(g, aux_rows, step):
     del aux_rows
-    return -_lr_at(learning_rate, step).to(g.device) * g
+    return -_on(_lr_at(learning_rate, step), g.device) * g
 
   return SparseRule("sgd", 0, (), delta,
                     linear_scale=lambda step: -_lr_at(learning_rate, step))
@@ -507,7 +536,7 @@ def adagrad_rule(learning_rate, initial_accumulator_value: float = 0.1,
     acc_new = acc + g2
     scaled = torch.where(acc_new > 0, g * torch.rsqrt(acc_new + eps),
                          torch.zeros_like(g))
-    lr = _lr_at(learning_rate, step).to(g.device)
+    lr = _on(_lr_at(learning_rate, step), g.device)
     return [-lr * scaled, g2]
 
   def delta(g, aux_rows, step):
@@ -528,10 +557,19 @@ def momentum_rule(learning_rate, momentum: float = 0.9,
 
   def delta_lanes(g, aux_list, step):
     (m,) = aux_list
-    m_new = momentum * m + g
-    upd = (g + momentum * m_new) if nesterov else m_new
-    lr = _lr_at(learning_rate, step).to(g.device)
-    return [-lr * upd, m_new - m]
+    # JAX's dtype flow op for op (see _lo): bf16 lanes promote against an
+    # f32 cotangent; a bf16 result that an f32 op reads enters unrounded
+    dt = torch.promote_types(m.dtype, g.dtype)
+    f32 = torch.float32
+    prod = _lo(_weak(momentum, m.dtype) * m.to(f32), dt)
+    m_new = prod + g.to(f32)
+    if nesterov:
+      m_r = _lo(m_new, dt)
+      upd = g.to(f32) + _lo(_weak(momentum, dt) * m_r, dt)
+    else:
+      upd = m_new
+    lr = _on(_lr_at(learning_rate, step), g.device)
+    return [-lr * upd, _lo(m_new, dt) - m.to(f32)]
 
   def delta(g, aux_rows, step):
     return torch.cat(delta_lanes(g, [aux_rows[..., 0, :]], step), dim=-1)
@@ -550,14 +588,24 @@ def adam_rule(learning_rate, b1: float = 0.9, b2: float = 0.999,
 
   def delta_lanes(g, aux_list, step):
     m, v = aux_list
-    dm = (1.0 - b1) * (g - m)
-    dv = (1.0 - b2) * (g * g - v)
-    m_new = m + dm
-    v_new = v + dv
-    t = torch.as_tensor(step, dtype=torch.float32).to(g.device) + 1.0
-    m_hat = m_new / (1.0 - torch.pow(torch.tensor(b1, device=g.device), t))
-    v_hat = v_new / (1.0 - torch.pow(torch.tensor(b2, device=g.device), t))
-    lr = _lr_at(learning_rate, step).to(g.device)
+    # JAX's dtype flow op for op (see _lo): on bf16 lanes the moment
+    # deltas round at every op, the new moments enter the f32 bias
+    # correction unrounded
+    dt = torch.promote_types(m.dtype, g.dtype)
+    f32 = torch.float32
+    gf = g.to(f32)
+    dm = _lo(_weak(1.0 - b1, dt) * _lo(gf - m.to(f32), dt), dt)
+    gv = _lo(_lo(gf * gf, g.dtype) - v.to(f32), dt)
+    dv = _lo(_weak(1.0 - b2, dt) * gv, dt)
+    m_new = m.to(f32) + dm
+    v_new = v.to(f32) + dv
+    # the bias corrections where the step lies (the host, for an int)
+    t = torch.as_tensor(step, dtype=f32) + 1.0
+    m_hat = m_new / _on(1.0 - torch.pow(
+        torch.full((), b1, dtype=f32, device=t.device), t), g.device)
+    v_hat = v_new / _on(1.0 - torch.pow(
+        torch.full((), b2, dtype=f32, device=t.device), t), g.device)
+    lr = _on(_lr_at(learning_rate, step), g.device)
     upd = m_hat / (torch.sqrt(v_hat) + eps)
     return [-lr * upd, dm, dv]
 

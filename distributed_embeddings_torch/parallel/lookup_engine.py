@@ -102,7 +102,12 @@ from ..ops.packed_table import (
     scatter_add_fused,
 )
 from ..ops.ragged import RaggedIds
-from ..ops.sparse_grad import dedup_rows, expand_unique_rows, unique_ids_map
+from ..ops.sparse_grad import (
+    add_rows_in_order,
+    dedup_rows,
+    expand_unique_rows,
+    unique_ids_map,
+)
 from . import wire
 
 if TYPE_CHECKING:
@@ -480,9 +485,13 @@ class _DenseWindowRows(torch.autograd.Function):
   ``d_z`` rounded to ``mxu_operand_dtype(f32, device)`` (bf16 on the
   card, as on the TPU; f32 on the CPU) and accumulated in f32 into the
   table rows with ``index_add_`` — the JAX ``_onehot_window_matmul_bwd``
-  in row form. The table gradient is f32, as the JAX one's (a bf16
-  table's step reads an f32 work copy, ``training.trained_tables``, so
-  nothing rounds it)."""
+  in row form. The table gradient is f32, as the JAX one's: the sparse
+  step reads an f32 work copy of a bf16 table (``training.trained_tables``),
+  so nothing rounds it. A bf16 leaf (the dense-autodiff layer's bf16 class
+  buffer) has its ``.grad`` rounded to bf16 by autograd; where an
+  optimizer that follows the JAX step's dtypes asked for it
+  (``training.Adam``), the leaf also gets the f32 gradient as its
+  ``wide_grad`` (:func:`add_wide_grad`)."""
 
   @staticmethod
   def forward(ctx, table, idx, valid, two_d, out_dtype):
@@ -491,6 +500,8 @@ class _DenseWindowRows(torch.autograd.Function):
     ctx.save_for_backward(idx, valid)
     ctx.two_d = two_d
     ctx.table_shape = table.shape
+    ctx.wide_leaf = (table if hasattr(table, "wide_grad") and table.is_leaf
+                     and table.requires_grad else None)
     return (rows if two_d else _sum_axis2(rows)).to(out_dtype)
 
   @staticmethod
@@ -504,7 +515,20 @@ class _DenseWindowRows(torch.autograd.Function):
     d_table = torch.zeros(ctx.table_shape, dtype=torch.float32,
                           device=d_z.device)
     d_table.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
+    if ctx.wide_leaf is not None:
+      add_wide_grad(ctx.wide_leaf, d_table)
     return d_table, None, None, None, None
+
+
+def add_wide_grad(leaf: torch.Tensor, grad: torch.Tensor) -> None:
+  """Accumulate the f32 ``grad`` of a narrow (bf16) leaf into its
+  ``wide_grad`` attribute: the gradient the JAX step hands its optimizer
+  unrounded, where autograd's ``.grad`` holds it rounded to the leaf's
+  dtype. Only ``training.Adam`` creates the attribute (on the narrow
+  parameters it steps), reads it and clears it, at its step and with
+  ``.grad`` at its ``zero_grad``."""
+  wide = getattr(leaf, "wide_grad", None)
+  leaf.wide_grad = grad if wide is None else wide + grad
 
 
 class _FillRows(torch.autograd.Function):
@@ -893,15 +917,20 @@ class DistributedLookup:
     lane on the card: no atomics, so the answer repeats bit for bit;
     differentiable). The tail past the live stream belongs to no segment
     (its sentinel rows are zeros, which the JAX engine adds to the last
-    sample: the same sums). ``mean`` divides by the valid-id counts;
+    sample: the same sums). bf16 rows (narrow storage) add one after
+    another with every add rounded (:func:`_segment_sum_in_order`).
+    ``mean`` divides by the valid-id counts;
     row-sliced buckets (``rs``) leave the division to :meth:`assemble`,
     as the padded path does."""
     cp = self.plan.classes[key]
     n_b, world, cap, w = rows.shape
     b = lens.shape[2]
-    summed = torch.segment_reduce(
-        rows, "sum", offsets=_seg_offsets(lens, cap), axis=2,
-        unsafe=True).reshape(n_b, world * b, w)
+    if rows.dtype == torch.float32:
+      summed = torch.segment_reduce(
+          rows, "sum", offsets=_seg_offsets(lens, cap), axis=2, unsafe=True)
+    else:
+      summed = _segment_sum_in_order(rows, lens)
+    summed = summed.reshape(n_b, world * b, w)
     if cp.combiner == "mean" and not rs:
       counts = self._ragged_valid_counts(vals, lens, key).reshape(
           n_b, world * b).to(summed.dtype)
@@ -1108,9 +1137,11 @@ class DistributedLookup:
       ret = got[0] if len(got) == 1 else torch.cat(got, dim=axis)
       if fz.kind == "dedup":
         j = (i - k) % world
-        ret = self._dedup_combine(bk, expand_unique_rows(ret, dr.inv[j]
-                                                         .reshape(-1)),
-                                  dr.inv[j], dr.uniq_local[j])
+        sentinel = padded_rows(self.plan, bk.class_key)
+        ret = self._dedup_combine(
+            bk, expand_unique_rows(ret, dr.inv[j].reshape(-1),
+                                   dr.uniq_local[j] != sentinel),
+            dr.inv[j], dr.uniq_local[j])
       rounds.append(ret)
     return torch.stack([rounds[(i - j) % world] for j in range(world)])
 
@@ -1128,7 +1159,9 @@ class DistributedLookup:
     world = self.plan.world_size
     ret = self._wire_exchange_float(z_u)
     inv_flat = dr.inv.reshape(world, -1)
-    expanded = expand_unique_rows(ret, inv_flat)  # [world, m, w]
+    sentinel = padded_rows(self.plan, bk.class_key)
+    expanded = expand_unique_rows(ret, inv_flat, dr.uniq_local != sentinel)
+    # [world, m, w]
     return torch.stack([
         self._dedup_combine(bk, expanded[j], dr.inv[j], dr.uniq_local[j])
         for j in range(world)])
@@ -1514,7 +1547,6 @@ class DistributedLookup:
         continue
       name = class_param_name(*key)
       buf_local = self._squeeze_local(fused_params[name])
-      _check_narrow(buf_local, ids=ids)
       z[bk], auxb = gather(key, layouts[name], buf_local, ids, bk.rs,
                            keep_rows=keep_rows)
       aux[bk] = auxb if keep_aux else None
@@ -1742,7 +1774,6 @@ class DistributedLookup:
     scale_only = rule.linear_scale is not None
     for name, (ids_cat, rows_cat) in streams.items():
       buf = self._squeeze_local(fused_params[name])
-      _check_narrow(buf, rule=rule)
       scatter_add_fused(
           layouts[name], buf, ids_cat, rows_cat,
           delta_scale=rule.linear_scale(step) if scale_only else None)
@@ -1781,7 +1812,6 @@ class DistributedLookup:
         if rule.weight_decay:
           # once per unique touched row
           g = g + (2.0 * rule.weight_decay) * fused_rows[..., :w]
-        _check_narrow(buf, rule=rule)
         scatter_add_fused(layout, buf, ids, rule.delta(g, aux, step))
         continue
       n_total = sum(ids.numel() for ids, _, _, _ in parts)
@@ -1953,26 +1983,27 @@ def pack_mp_inputs(plan: "DistEmbeddingStrategy",
   return packed
 
 
-# sparse rules held to the JAX package's bf16 step (narrow storage)
-NARROW_RULES = ("sgd", "adagrad")
-
-
-def _check_narrow(buf: torch.Tensor, ids=None, rule=None) -> None:
-  """Refuse what narrow storage does not carry yet: a bf16 buffer with a
-  ragged or deduplicated bucket, or with a rule other than SGD and
-  Adagrad (``ROADMAP.md`` §1 item 7b)."""
-  if buf.dtype == torch.float32:
-    return
-  if isinstance(ids, (tuple, DedupRouted)):
-    kind = "ragged" if isinstance(ids, tuple) else "deduplicated"
-    raise NotImplementedError(
-        f"a {kind} bucket on a {buf.dtype} buffer: narrow storage takes "
-        "padded ids without dedup_exchange (ROADMAP.md §1 item 7b)")
-  if rule is not None and rule.name not in NARROW_RULES:
-    raise NotImplementedError(
-        f"the {rule.name!r} rule on a {buf.dtype} buffer: narrow storage "
-        f"takes the {' and '.join(NARROW_RULES)} rules (ROADMAP.md §1 "
-        "item 7b)")
+def _segment_sum_in_order(rows: torch.Tensor, lens: torch.Tensor
+                          ) -> torch.Tensor:
+  """Per-occurrence rows ``[..., V, w]`` summed over the segments of
+  ``lens [..., B]`` into ``[..., B, w]`` as XLA's scatter sums a bf16
+  ``segment_sum``: each segment's rows added in stream order from +0.0,
+  every add rounded to the rows' dtype (``torch.segment_reduce`` sums a
+  bf16 segment in f32 on the card and rounds once;
+  ``sparse_grad.add_rows_in_order``). The tail past the live stream adds
+  nothing (its rows are zeros). Differentiable."""
+  lead, (cap, w) = tuple(rows.shape[:-2]), tuple(rows.shape[-2:])
+  b = lens.shape[-1]
+  nblk = int(np.prod(lead)) if lead else 1
+  dev = rows.device
+  lens = lens.reshape(nblk, b)
+  offs = _seg_offsets(lens, cap)
+  at = torch.arange(cap, device=dev).expand(nblk, cap)
+  live = at < offs[:, -1:]
+  dest = (torch.arange(nblk, device=dev)[:, None] * b
+          + _seg_ids(lens, cap))[live]
+  src = rows.reshape(nblk, cap, w)[live]
+  return add_rows_in_order(nblk * b, dest, src).reshape(lead + (b, w))
 
 
 def _sum_axis2(rows: torch.Tensor) -> torch.Tensor:

@@ -93,7 +93,7 @@ from .layers.embedding import (
     resolve_regularizer,
 )
 from .layers.planner import DistEmbeddingStrategy
-from .ops.packed_table import SparseRule, init_packed_uniform
+from .ops.packed_table import SparseRule, _on, _weak, init_packed_uniform
 from .ops.ragged import RaggedIds
 from .parallel import wire
 from .parallel.lookup_engine import (
@@ -174,6 +174,96 @@ class ScheduledSGD(torch.optim.SGD):
     for group in self.param_groups:
       group["lr"] = lr
     loss = super().step(closure)
+    self.state["count"] = count + 1
+    return loss
+
+
+class Adam(torch.optim.Optimizer):
+  """``optax.adam(lr, b1, b2, eps)`` (``eps_root=0``) as a ``torch.optim``
+  optimizer, for the dense parameters and dense-class tables.
+
+  One global ``count`` (``state["count"]``, 0 before the first step, as
+  optax's ``ScaleByAdamState.count``): ``mu = (1-b1) g + b1 mu``, ``nu =
+  (1-b2) g² + b2 nu``, each bias-corrected by ``1 - b^(count+1)`` (an f32
+  power), ``p += -lr · mu_hat / (sqrt(nu_hat) + eps)``; a schedule ``lr``
+  is read at ``count``. Unlike :class:`Adagrad`, EVERY parameter steps
+  every step: a parameter without a gradient takes a zero one, whose
+  step still decays its moments and moves it, as optax's update does.
+
+  The dtypes follow optax's (``mu_dtype=None``) op for op, its Python
+  constants weakly typed (rounded on the host to the dtype they meet, so
+  a step reads nothing back from the card): the moments start in the
+  parameter's dtype and take the dtype of each update. A bf16 parameter
+  (the dense-autodiff layer's bf16 sparse-class buffers, bf16 gradients)
+  keeps bf16 moments and bf16 arithmetic. A bf16 dense-class table takes
+  its f32 gradient, as the JAX step does: the f32 work copy the sparse
+  step binds (:func:`trained_tables`), or, for a bf16 parameter of the
+  dense-autodiff layer, the ``wide_grad`` its lookup leaves there
+  (``lookup_engine.add_wide_grad``: this optimizer marks its narrow
+  parameters for it, reads it at :meth:`step` and clears it there and at
+  :meth:`zero_grad`, so each step reads the gradient of the backward
+  passes since the last one); its moments start as bf16 zeros (optax's
+  init on the table) and step in f32."""
+
+  def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8):
+    super().__init__(params, {"lr": lr, "b1": b1, "b2": b2, "eps": eps})
+
+  def add_param_group(self, param_group) -> None:
+    super().add_param_group(param_group)
+    for p in self.param_groups[-1]["params"]:
+      if p.dtype != torch.float32:
+        p.wide_grad = None  # the lookup leaves an f32 gradient here
+
+  def zero_grad(self, set_to_none: bool = True) -> None:
+    super().zero_grad(set_to_none=set_to_none)
+    for group in self.param_groups:
+      for p in group["params"]:
+        if hasattr(p, "wide_grad"):
+          p.wide_grad = None
+
+  @property
+  def count(self) -> int:
+    return int(self.state.get("count", 0))
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    loss = None
+    if closure is not None:
+      with torch.enable_grad():
+        loss = closure()
+    count = self.count
+    f32 = torch.float32
+    for group in self.param_groups:
+      lr, b1, b2 = group["lr"], group["b1"], group["b2"]
+      lr = float(lr(count)) if callable(lr) else lr
+      # 1 - b^t in f32 (optax's weakly typed f32 power), t = count + 1
+      t = torch.tensor(float(count + 1), dtype=f32)
+      c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=f32), t)
+      c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=f32), t)
+      for p in group["params"]:
+        st = self.state[p]
+        if not st:
+          dt = getattr(p, "storage_dtype", p.dtype)
+          st["mu"] = torch.zeros_like(p, dtype=dt)
+          st["nu"] = torch.zeros_like(p, dtype=dt)
+        g = getattr(p, "wide_grad", None)
+        if g is not None:
+          p.wide_grad = None
+        elif p.grad is not None:
+          g = p.grad
+        else:
+          g = torch.zeros_like(p)
+        mu, nu = st["mu"], st["nu"]
+        mu = g * _weak(1.0 - b1, g.dtype) + mu * _weak(b1, mu.dtype)
+        nu = (g * g) * _weak(1.0 - b2, g.dtype) + nu * _weak(b2, nu.dtype)
+        # optax divides by the correction cast to the moment's dtype
+        mu_hat = mu / _on(c1, p.device).to(mu.dtype)
+        nu_hat = nu / _on(c2, p.device).to(nu.dtype)
+        u = mu_hat / (torch.sqrt(nu_hat + 0.0)
+                      + _weak(group["eps"], nu_hat.dtype))
+        p.copy_((p + u * _weak(-lr, u.dtype)).to(p.dtype))
+        st["mu"], st["nu"] = mu, nu
     self.state["count"] = count + 1
     return loss
 

@@ -334,8 +334,10 @@ def test_mid_run_jax_state_continues_in_the_port(case):
 
 def test_optax_forms_round_trip_and_adam_is_refused():
   """Each supported optax form's flattened keys, as optax writes them,
-  round-trip through the port's optimizers; an Adam state is refused by
-  name."""
+  round-trip through the port's optimizers, ``optax.adam``'s through
+  ``training.Adam`` (its ``0/count``, ``mu`` and ``nu``); the state of an
+  optax optimizer the port has no counterpart for is refused by name, and
+  so is ``torch.optim.Adam``, which is not ``optax.adam``'s rule."""
   model = _tmodel()
   params = {k: v.clone().requires_grad_(True)
             for k, v in model.state_dict().items()}
@@ -345,8 +347,10 @@ def test_optax_forms_round_trip_and_adam_is_refused():
           [jnp.zeros((2,), jnp.int32) for _ in VOCAB],
           emb_acts=[jnp.zeros((2, DIM)) for _ in VOCAB])["params"])
   rng = np.random.default_rng(0)
-  for name in ("sgd", "sched", "momentum", "adagrad"):
-    jopt, factory = _dense_opts(name)
+  forms = {name: _dense_opts(name)
+           for name in ("sgd", "sched", "momentum", "adagrad")}
+  forms["adam"] = (optax.adam(LR), functools.partial(ttr.Adam, lr=LR))
+  for name, (jopt, factory) in forms.items():
     want = {k: (rng.random(np.shape(v)).astype(np.float32)
                 if np.ndim(v) else np.asarray(5, np.int32))
             for k, v in flatten_with_paths(jopt.init(jparams)).items()}
@@ -357,12 +361,12 @@ def test_optax_forms_round_trip_and_adam_is_refused():
     assert sorted(got) == sorted(want), name
     for k in want:
       np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name} {k}")
-  adam = {k: np.asarray(v) for k, v in
-          flatten_with_paths(optax.adam(LR).init(jparams)).items()}
-  with pytest.raises(NotImplementedError, match="adam"):
+  foreign = {k: np.asarray(v) for k, v in
+             flatten_with_paths(optax.adadelta(LR).init(jparams)).items()}
+  with pytest.raises(NotImplementedError, match="no counterpart"):
     install_optax_state(torch.optim.SGD(list(params.values()), lr=LR),
-                        params, adam)
-  with pytest.raises(NotImplementedError, match="no dense Adam"):
+                        params, foreign)
+  with pytest.raises(NotImplementedError, match="training.Adam"):
     optax_state_of(torch.optim.Adam(list(params.values())), params)
 
 

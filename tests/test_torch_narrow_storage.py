@@ -22,6 +22,10 @@ as their bits) and both packages run the same batches on the CPU:
   class;
 - the same bf16 run against the port's own f32 run from the same
   (bf16-representable) values, within a bf16 bound;
+- bf16 buffers run under the momentum and Adam rules, with ragged and
+  deduplicated buckets, and in the dense-autodiff layer (held to the JAX
+  package in ``tests/test_torch_narrow_rules.py``); micro-batches stay
+  refused, as the JAX micro-batched step fails on them;
 - ``convert`` both ways, checkpoints byte-equal to the JAX package's
   saves, and the JAX ``restore``'s ``TypeError`` on its own bf16 save
   (the reference divergence the port does not share);
@@ -46,6 +50,7 @@ import optax
 import pytest
 import torch
 from torch import nn
+from torch_narrow_cases import one_torch_thread  # noqa: F401 (autouse)
 
 from distributed_embeddings_torch import checkpoint as tck
 from distributed_embeddings_torch import train_golden as port_golden
@@ -465,9 +470,12 @@ def test_guarded_bf16_step_matches_jax():
 
 
 def test_unported_narrow_combinations_are_refused():
-  """bf16 buffers with what narrow storage does not carry yet raise
-  naming ROADMAP item 7b: the momentum and Adam rules, ragged and
-  deduplicated buckets, bf16 dense-autodiff class buffers."""
+  """bf16 buffers run under every rule and id form the JAX package runs
+  them with (the momentum and Adam rules, ragged and deduplicated
+  buckets, bf16 dense-autodiff class buffers: held to the JAX package in
+  ``tests/test_torch_narrow_rules.py``); what narrow storage still
+  refuses, micro-batches, where the JAX step itself fails, raises naming
+  ROADMAP item 7b."""
   from distributed_embeddings_torch.layers.dist_model_parallel import (
       DistributedEmbedding,
   )
@@ -478,18 +486,28 @@ def test_unported_narrow_combinations_are_refused():
   numerical, cats, labels = _batches(hot)[0]
   args = (torch.tensor(numerical), [torch.tensor(c) for c in cats],
           torch.tensor(labels))
-  for name in ("momentum", "adam"):
-    rule = getattr(tpt, f"{name}_rule")(LR)
-    state = ttr.init_sparse_state_direct(
-        tplan, rule, model.state_dict(),
+
+  def fresh(plan, rule):
+    return ttr.init_sparse_state_direct(
+        plan, rule, model.state_dict(),
         functools.partial(torch.optim.SGD, lr=LR),
         torch.Generator().manual_seed(0), device="cpu",
         dtype=torch.bfloat16)
+
+  def moved(state, before):
+    return any(not torch.equal(state["fused"][k], before[k])
+               for k in before)
+
+  for name in ("momentum", "adam"):
+    rule = getattr(tpt, f"{name}_rule")(LR)
+    state = fresh(tplan, rule)
+    before = {k: v.clone() for k, v in state["fused"].items()}
     step = ttr.make_sparse_train_step(
         model, tplan, torch_bce, functools.partial(torch.optim.SGD, lr=LR),
         rule)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-      step(state, *args)
+    state, loss = step(state, *args)
+    assert np.isfinite(float(loss)) and moved(state, before)
+    assert all(t.dtype == torch.bfloat16 for t in state["fused"].values())
   rule = tpt.sgd_rule(LR)
   sgd = functools.partial(torch.optim.SGD, lr=LR)
   ragged_plan = TStrategy(_configs(TTableConfig, d, hot), 1,
@@ -503,21 +521,23 @@ def test_unported_narrow_combinations_are_refused():
   ragged_cats = [torch.tensor(c) for c in cats]
   ragged_cats[5] = rg
   for plan, cats_in in ((ragged_plan, ragged_cats), (dedup_plan, args[1])):
-    state = ttr.init_sparse_state_direct(
-        plan, rule, model.state_dict(), sgd, torch.Generator().manual_seed(0),
-        device="cpu", dtype=torch.bfloat16)
+    state = fresh(plan, rule)
+    before = {k: v.clone() for k, v in state["fused"].items()}
     step = ttr.make_sparse_train_step(model, plan, torch_bce, sgd, rule)
-    if plan.dedup_exchange:
-      # a world-1 plan routes raw ids: dedup is a world-N exchange
-      step(state, args[0], cats_in, args[2])
-      continue
-    with pytest.raises(NotImplementedError, match="item 7b"):
-      step(state, args[0], cats_in, args[2])
+    state, loss = step(state, args[0], cats_in, args[2])
+    assert np.isfinite(float(loss)) and moved(state, before)
   emb = DistributedEmbedding(_configs(TTableConfig, d, hot),
                              dense_row_threshold=THRESHOLD, device="cpu")
   emb.to(torch.bfloat16)
+  outs = emb([torch.tensor(c) for c in cats])
+  assert all(o.dtype == torch.bfloat16 and o.shape == (B, d) for o in outs)
+  sum(o.float().sum() for o in outs).backward()
+  assert all(p.grad is not None and p.grad.dtype == torch.bfloat16
+             for p in emb.parameters())
+  step = ttr.make_sparse_train_step(model, tplan, torch_bce, sgd, rule,
+                                    micro_batches=2)
   with pytest.raises(NotImplementedError, match="item 7b"):
-    emb([torch.tensor(c) for c in cats])
+    step(fresh(tplan, rule), *args)
 
 
 def test_planner_lifts_the_tpu_buffer_bound_on_request():

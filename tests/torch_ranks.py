@@ -927,13 +927,16 @@ def zoo_plan_job(mesh, spec):
 def narrow_job(mesh, spec):
   """Narrow storage (bf16 tables) at world N: per entry of
   ``spec['runs']`` (``name``, ``rule``, ``overlap``, ``chunks``,
-  optionally ``plan_kw`` and ``state``, the key of its initial state,
-  default the rule's) the port's state from the JAX bf16 initial state
-  (``spec['states'][state]``), SGD on the dense tensors, one step per
-  batch of ``spec['batches']``, then the eval step on ``spec['eval']``.
-  Returns per run the losses, the buffers' dtypes, the global final
-  tables and optimizer lanes as their ``uint16`` bits, the dense
-  parameters and the global predictions."""
+  optionally ``plan_kw``, ``state``, the key of its initial state,
+  default the rule's, ``batches``, the key of its batches and eval batch
+  in ``spec['batch_sets']`` (default ``spec['batches']`` and
+  ``spec['eval']``), ``guard``, and ``rule_lr``, the rule's learning rate,
+  default ``spec['lr']``) the port's state from the JAX bf16
+  initial state (``spec['states'][state]``), SGD on the dense tensors,
+  one step per batch, then the eval step. Returns per run the losses (and
+  a guarded step's metrics), the buffers' dtypes, the global final tables
+  and optimizer lanes as their ``uint16`` bits, the dense parameters and
+  the global predictions."""
   import functools
 
   import torch
@@ -952,23 +955,38 @@ def narrow_job(mesh, spec):
     model = DLRM(spec["vocab"], spec["dim"], bottom_mlp=spec["bottom"],
                  top_mlp=spec["top"], num_numerical=spec["num"],
                  tables=False, device="cpu")
-    rule = getattr(tpt, f"{run['rule']}_rule")(spec["lr"])
+    rule = getattr(tpt, f"{run['rule']}_rule")(run.get("rule_lr",
+                                                        spec["lr"]))
     state = train_state_from_flax(
         spec["states"][run.get("state", run["rule"])], mesh=mesh)
+    guard = run.get("guard", False)
     step = ttr.make_sparse_train_step(
         model, plan, bce_loss,
-        functools.partial(torch.optim.SGD, lr=spec["lr"]), rule, mesh=mesh)
-    losses = []
-    for numerical, cats, labels in spec["batches"]:
-      state, loss = step(state, *ttr.shard_batch(
+        functools.partial(torch.optim.SGD, lr=spec["lr"]), rule, mesh=mesh,
+        guard=guard)
+    batches, eval_batch = (spec["batch_sets"][run["batches"]]
+                           if "batches" in run
+                           else (spec["batches"], spec["eval"]))
+    losses, metrics = [], []
+    for numerical, cats, labels in batches:
+      res = step(state, *ttr.shard_batch(
           (numerical, list(cats), labels), mesh, device="cpu"))
-      losses.append(float(loss))
-    ev = ttr.make_sparse_eval_step(model, plan, rule, mesh=mesh)
-    preds = ev(state, *ttr.shard_batch(spec["eval"], mesh, device="cpu"))
+      state = res[0]
+      losses.append(float(res[1]))
+      if guard:
+        metrics.append({k: int(v) if isinstance(v, torch.Tensor) else
+                        {n: int(c) for n, c in v.items()}
+                        for k, v in res[2].items()})
+    # a capped plan's eval step carries its metrics (the JAX builder's rule)
+    ev = ttr.make_sparse_eval_step(model, plan, rule, mesh=mesh,
+                                   with_metrics=guard)
+    preds = ev(state, *ttr.shard_batch(eval_batch, mesh, device="cpu"))
+    if guard:
+      preds = preds[0]
     params, aux = ttr.unpack_sparse_state(plan, rule, state,
                                           include_aux=True, mesh=mesh)
     out[run["name"]] = {
-        "losses": losses,
+        "losses": losses, "metrics": metrics,
         "dtypes": {k: str(v.dtype) for part in ("fused", "emb_dense")
                    for k, v in state[part].items()},
         "tables": {k: numpy_of(v) for k, v in params["embeddings"].items()},
@@ -1028,6 +1046,52 @@ def _tiered_result(mesh, tplan, rule, store, trainer, losses):
                        for k, v in store.resident_grps.items()},
           "counts": {k: [c.copy() for c in v]
                      for k, v in store.counts.items()}}
+
+
+def dense_bf16_loop_job(mesh, spec):
+  """A hand-written hybrid-parallel loop on a world-N DLRM whose class
+  buffers are bf16 (``spec['model']``'s arguments, the JAX init
+  ``spec['init']`` cut per rank, then ``model.embeddings.to(bfloat16)``):
+  per batch of ``spec['batches']`` ``zero_grad``, ``loss.backward()`` and
+  a ``DistributedOptimizer`` over ``training.Adam(lr=spec['lr'])``. Every
+  rank returns the losses averaged over the ranks and the global final
+  params as flax paths (the bf16 class buffers as f32)."""
+  import torch
+  import torch.distributed as dist
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import (
+      dlrm_state_dict_from_flax,
+      dlrm_state_dict_to_flax,
+  )
+  from distributed_embeddings_torch.layers import dist_model_parallel as dmp
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.parallel import wire
+  from distributed_embeddings_torch.train_golden import flax_paths
+
+  model = DLRM(**spec["model"], world_size=mesh.world, mesh=mesh)
+  model.load_state_dict(dlrm_state_dict_from_flax(spec["init"], mesh=mesh))
+  model.embeddings.to(torch.bfloat16)
+  opt = dmp.DistributedOptimizer(
+      ttr.Adam(model.parameters(), lr=spec["lr"]), model, mesh)
+  losses = []
+  for numerical, cats, labels in spec["batches"]:
+    opt.zero_grad()
+    n, c, y = ttr.shard_batch((numerical, list(cats), labels), mesh,
+                              device="cpu")
+    loss = bce_loss(model(n, c), y)
+    loss.backward()
+    opt.step()
+    total = loss.detach().clone()
+    dist.all_reduce(total)
+    losses.append(float(total) / mesh.world)
+  sd = {k: v.detach() for k, v in model.state_dict().items()}
+  for name, p in model.embeddings.class_params().items():
+    assert p.dtype == torch.bfloat16, name
+    sd[f"embeddings.{name}"] = wire.gather_blocks(
+        p.detach().to(torch.float32), mesh)
+  return {"losses": losses,
+          "params": flax_paths(dlrm_state_dict_to_flax(sd))}
 
 
 def tiered_job(mesh, spec):

@@ -112,14 +112,16 @@ def spec(state, rule_name, runs, train_batches):
 
 
 def jax_run(state, rule_name, train_batches, guard=False, eval_batch=None,
-            **plan_kw):
+            rule_lr=None, **plan_kw):
   """The JAX mesh step over the batches (losses, metrics when guarded,
-  the final state unpacked to the simple layout), and with
+  the final state unpacked to the simple layout; the rule at ``rule_lr``
+  when given, else at ``LR``), and with
   ``eval_batch`` the eval step's predictions (and metrics) on the final
   state."""
   mesh = create_mesh(WORLD)
   p = plan(**plan_kw)
-  rule = rule_of(rule_name)
+  rule = (rule_of(rule_name) if rule_lr is None
+          else getattr(jpt, f"{rule_name}_rule")(rule_lr))
   st = shard_params(state, mesh)
   out = {"losses": [], "metrics": []}
   if train_batches:
