@@ -652,6 +652,8 @@ NARROW_LOSS_RTOL = 1e-2
 ADAM_LR = 1e-3  # adam_rule and training.Adam on the card's paths
 # the rules golden's planted fault, which its card bound must refuse
 RULES_PLANTED_FAULT = {"b2": 0.99}
+# ... and the small one only the card-emulation bound sees
+RULES_SMALL_FAULT = {"b2": 0.998}
 # train_dense_bf16's hand-written loop (zero_grad, backward, Adam's step)
 # on bf16 class buffers, on the card and on the CPU: a linear head over
 # the embeddings, so nothing but the dense class's cotangent rounding (to
@@ -697,6 +699,14 @@ TIERED_VS_STEPS = 4
 TIERED_VS_DUP_RTOL = 1e-5  # K1's: of each cell's absolute sum
 TIERED_CKPT_STEPS = 2
 W4_TIERED_STEPS = 3
+# the host-pass pipeline and elastic worlds (slice 21)
+TIERED_OVERLAP_VS_STEPS = 6     # tiered_overlap_vs_serial: a NaN batch, a
+TIERED_OVERLAP_VS_NAN = 2       # re-rank every 3 steps, batch 4 repeating
+TIERED_OVERLAP_VS_RERANK = 3    # batch 3 (its cold rows written back while
+TIERED_OVERLAP_VS_BATCH = 64    # the worker gathers them); distinct ids in a
+#                                 sparse table's column of a batch
+W4_ELASTIC_VOCAB_SCALE = 512    # world4_elastic: the world-4 plan's tables
+W4_ELASTIC_BATCH = 16384        # global batch of its steps
 # tiered serving (serve_tiered and the phases after it): the train_tiered
 # cell's trained store frozen to int8 and fp8 images (f32 at the cut the
 # host's RAM forces: it holds a second full-width copy of the images), a
@@ -2070,7 +2080,9 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
   (``restore(mesh=)``, rank 0 verifying) and its state is bit-equal to
   what it saved; one step from the restored state and one from the saved
   state give the same loss, each launching K4, K1, K2-fwd and K2-bwd as a
-  world-4 step does."""
+  world-4 step does. The checkpoint stays in ``outdir`` with each rank's
+  part of every table's checksum (:func:`slot_checksums`) for the main
+  process's world-1 restore (:func:`phase_world4_ckpt_world1`)."""
   import math
   import os
   import shutil
@@ -2128,7 +2140,11 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
   t0 = time.perf_counter()
   checkpoint.save(path, plan, rule, state, mesh=mesh)
   save_s = time.perf_counter() - t0
-  out = {"save_s": save_s}
+  # this rank's part of each table's checksum, for the world-1 restore of
+  # the checkpoint in the main process (world4_ckpt_world1)
+  out = {"save_s": save_s, "checksums": {
+      str(k): v for k, v in slot_checksums(torch, plan, rule, state,
+                                           [mesh.rank]).items()}}
   if mesh.rank == 0:
     out["bytes"], out["files"] = dir_bytes(path)
     out["disk_free_bytes"] = shutil.disk_usage(path).free
@@ -2161,8 +2177,247 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
   del state, restored, step
   torch.cuda.empty_cache()
   dist.barrier()  # every rank has read its blocks
-  if mesh.rank == 0:
-    shutil.rmtree(path)
+  # the checkpoint stays for world4_ckpt_world1, which removes it
+  return out
+
+
+def slot_checksums(torch, plan, rule, state, ranks, images=None) -> dict:
+  """Per logical table, a checksum of every cell this state holds of it:
+  ``sum bits(cell) * ((row * width + col) % (2^31 - 1) + 1)`` over the
+  table's rows and columns in the table's own coordinates, in wrapping
+  int64 (a sum of parts, so the ranks' parts add up to the whole
+  table's). ``ranks``: the rank blocks the state holds, in order. The
+  tables' bits are compared this way across worlds without gathering
+  them. ``images`` (a tiered state's): per host-tier class, this
+  process's host images of ``ranks`` (the state holds only their compact
+  caches)."""
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      DistributedLookup,
+      class_param_name,
+      padded_rows,
+  )
+  layouts = DistributedLookup(plan).fused_layouts(rule)
+  images = images or {}
+  out = {}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    name = class_param_name(*key)
+    if name in images:
+      lay = layouts[name]
+      buf = torch.cat([torch.from_numpy(img) for img in images[name]])
+      per = lay.phys_rows
+    elif cp.kind == "sparse":
+      lay = layouts[name]
+      buf = state["fused"][name]
+      per = lay.phys_rows
+    else:
+      buf = state["emb_dense"][name].detach()
+      per = padded_rows(plan, key)
+    for i, r in enumerate(ranks):
+      block = buf[i * per:(i + 1) * per]
+      tbl = lay.unpack(block)[0] if cp.kind == "sparse" else block
+      for s in cp.slots_per_rank[r]:
+        sh = s.shard
+        rows = tbl[s.row_offset:s.row_offset + sh.input_dim,
+                   :sh.col_end - sh.col_start]
+        width = plan.global_configs[sh.table_id].output_dim
+        r_idx = torch.arange(sh.row_start, sh.row_start + sh.input_dim,
+                             device=rows.device, dtype=torch.int64)
+        c_idx = torch.arange(sh.col_start, sh.col_end, device=rows.device,
+                             dtype=torch.int64)
+        weight = (r_idx[:, None] * width + c_idx[None, :]) % (2**31 - 1) + 1
+        bits = rows.contiguous().view(torch.int32).to(torch.int64)
+        part = int((bits * weight).sum().item())
+        out[sh.table_id] = (out.get(sh.table_id, 0) + part) % 2**64
+  return out
+
+
+def _w4_elastic(torch, mesh, backend: str, outdir: str) -> dict:
+  """``world4_elastic`` in this rank, last in ``world4_rank``: the rank is
+  pod member ``m<rank>`` of ``outdir/pod``. The world-4 plan (x
+  1/``W4_ELASTIC_VOCAB_SCALE``) under a guarded ``ResilientTrainer``
+  takes a step at world 4, resizes in the run to 2 (members 2 and 3 park:
+  no state, waiting at the next barrier) and takes a step, resizes back
+  to 4 (they return) and takes a step; then the tiered form of the plan
+  (its tables above ``TIERED_HOST_ROWS`` cut alike in host RAM, each
+  rank's store owning its rank) takes a step at world 4, resizes to 2 and
+  takes a step. At each boundary every logical table's bits are the same
+  on both sides (:func:`slot_checksums`, summed over the ranks), every
+  step launches K1, K2 and K4 as the plan says, and ``consumed == steps +
+  skipped``. The default process group is formed again at each world
+  from a rendezvous file of the pod."""
+  import math
+  import os
+
+  import torch.distributed as dist
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.mesh import rank_mesh
+  from distributed_embeddings_torch.resilience import elastic
+  from distributed_embeddings_torch.resilience.trainer import \
+      ResilientTrainer
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredTrainer,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+      shard_batch,
+  )
+
+  pod = os.path.join(outdir, "pod")
+  member = f"m{mesh.rank}"
+  elastic.register_member(pod, member)
+  scale = W4_ELASTIC_VOCAB_SCALE
+  rule = sgd_rule(TRAIN_LR)
+  vocab, plan4 = world4_plan(backend, scale=scale)
+  model = DLRM(vocab, D, tables=False, device=mesh.device,
+               generator=torch.Generator().manual_seed(SEED))
+  batch = tiered_batches(vocab, 1, W4_ELASTIC_BATCH, SEED + 31)[0]
+  totals = expect()
+  out = {"rank": mesh.rank, "vocab_scale": f"1/{scale}", "steps": {},
+         "resize_s": {}, "same_bits": {}}
+
+  def gathered(t, tag):
+    # every rank's part of each table's checksum, summed over the world
+    # (a collective of the trainer's current group)
+    st = t.tiered.state if t.tiered is not None else t.state
+    if t.tiered is not None:
+      t.tiered.flush()
+    images = ({name: [per[t.mesh.rank]]
+               for name, per in t.tiered.store.images.items()}
+              if t.tiered is not None else None)
+    sums = slot_checksums(torch, t.plan, rule, st, [t.mesh.rank], images)
+    parts = [None] * t.mesh.world
+    dist.all_gather_object(parts, sums)
+    total = {}
+    for p in parts:
+      for tid, v in p.items():
+        total[tid] = (total.get(tid, 0) + v) % 2**64
+    out.setdefault("checksums", {})[tag] = len(total)
+    return total
+
+  def one_step(t, tag):
+    k4 = k4_launches_per_step(t.plan) * t.plan.world_size // WORLD
+    st = t.tiered.state if t.tiered is not None else t.state
+    want = expect(gather_rows=k4, apply_rows=len(st["fused"]),
+                  interact_fwd=1, interact_bwd=1)
+    reset_counts()
+    if t.tiered is not None:
+      loss = t.step(*batch)
+    else:
+      loss = t.step(*shard_batch(batch, t.mesh))
+    got = read_counts()
+    check(got == want, f"world4_elastic {tag} rank {mesh.rank}: launches "
+          f"{got}, expected {want}")
+    add_counts(totals, got)
+    check(math.isfinite(loss), f"world4_elastic {tag}: loss {loss}")
+    out["steps"][tag] = {"loss": loss, "world": t.plan.world_size,
+                         "launches": got}
+
+  def resize(t, world, epoch, tag, **kw):
+    before = None if t.parked else gathered(t, f"{tag}/before")
+    r = elastic.member_rank(elastic.alive_members(pod), member, world)
+    new_mesh = None if r is None else rank_mesh(world, r, "cuda")
+    if new_mesh is not None and t.tiered is None:
+      kw["step_fn"] = make_sparse_train_step(
+          model, elastic.plan_for_world(plan4, world), bce_loss,
+          sgd_factory(torch), rule, mesh=new_mesh, guard=True)
+    elif new_mesh is not None:
+      kw = {k: v(new_mesh) for k, v in kw.items()}
+    else:
+      kw = {}
+    t0 = time.perf_counter()
+    t.resize(world, new_mesh=new_mesh, pod_dir=pod, barrier_epoch=epoch,
+             member_id=member, n_participants=WORLD, **kw)
+    out["resize_s"][tag] = time.perf_counter() - t0
+    if not t.parked:
+      after = gathered(t, f"{tag}/after")
+      if before is not None:
+        out["same_bits"][tag] = after == before
+        check(after == before, f"world4_elastic {tag} rank {mesh.rank}: "
+              "logical rows changed across the move")
+
+  step4 = make_sparse_train_step(model, plan4, bce_loss, sgd_factory(torch),
+                                 rule, mesh=mesh, guard=True)
+  state = init_sparse_state_direct(
+      plan4, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=mesh.device).manual_seed(SEED + 31 + mesh.rank),
+      mesh=mesh)
+  reg = MetricsRegistry()
+  t = ResilientTrainer(step4, state, plan4, rule,
+                       os.path.join(pod, f"ckpt_{member}"), mesh=mesh,
+                       resume=False, telemetry=reg)
+  del state
+  one_step(t, "sparse/w4")
+  resize(t, 2, 1, "sparse/4to2")
+  if not t.parked:
+    one_step(t, "sparse/w2")
+  resize(t, 4, 2, "sparse/2to4")
+  one_step(t, "sparse/w4b")
+  check(t.consumed == t.step_count + t.skipped_steps,
+        f"world4_elastic rank {mesh.rank}: consumed {t.consumed} != steps "
+        f"{t.step_count} + skipped {t.skipped_steps}")
+  out["sparse"] = {"consumed": t.consumed, "steps": t.step_count,
+                   "skipped": t.skipped_steps,
+                   "resizes": reg.counter("elastic/resizes").value,
+                   "quiesce_s": reg.histogram("elastic/quiesce_s").mean}
+  mesh4 = t.mesh
+  del t, step4
+  torch.cuda.empty_cache()
+
+  # tiered: 4 -> 2, each rank's store owning its rank
+  cfg = TieringConfig(cache_fraction=0.5, staging_grps=4096,
+                      rerank_interval=2)
+  tvocab, tplan4 = world4_plan(backend, scale=scale,
+                               host_row_threshold=TIERED_HOST_ROWS // scale)
+  tplan = TieringPlan(tplan4, rule, cfg)
+  store = HostTierStore(tplan, owned_ranks=(mesh4.rank,))
+  tstate = init_tiered_state(
+      tplan, store, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=mesh4.device).manual_seed(SEED + 41 + mesh4.rank),
+      mesh=mesh4, image_seed=SEED, image_device=mesh4.device)
+  tt = ResilientTrainer(None, None, tplan4, rule,
+                        os.path.join(pod, f"tckpt_{member}"), mesh=mesh4,
+                        resume=False, telemetry=MetricsRegistry(),
+                        tiered=TieredTrainer(model, tplan, store, bce_loss,
+                                             sgd_factory(torch), rule, mesh4,
+                                             tstate, guard=True))
+  del tstate
+  one_step(tt, "tiered/w4")
+
+  def new_store(m):
+    return HostTierStore(TieringPlan(elastic.plan_for_world(tplan4, 2), rule,
+                                     cfg), owned_ranks=(m.rank,))
+
+  stores = {}
+
+  def store_for(m):
+    stores[m.rank] = stores.get(m.rank) or new_store(m)
+    return stores[m.rank]
+
+  def factory_for(m):
+    sto = store_for(m)
+    return lambda st: TieredTrainer(model, sto.tplan, sto, bce_loss,
+                                    sgd_factory(torch), rule, m, st,
+                                    guard=True)
+
+  resize(tt, 2, 3, "tiered/4to2", new_store=store_for,
+         tiered_factory=factory_for)
+  if not tt.parked:
+    one_step(tt, "tiered/w2")
+    check(tt.consumed == tt.step_count + tt.skipped_steps,
+          f"world4_elastic tiered rank {mesh.rank}: consumed {tt.consumed}")
+  out["parked_at_end"] = tt.parked
+  out["launches"] = totals
+  del tt, store, stores
+  torch.cuda.empty_cache()
   return out
 
 
@@ -3186,6 +3441,11 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
     t0 = time.perf_counter()
     out["serve_tiered"] = _w4_serve_tiered(torch, mesh, backend)
     out["serve_tiered"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # last: it forms the default process group again at each world
+    t0 = time.perf_counter()
+    out["elastic"] = _w4_elastic(torch, mesh, backend, outdir)
+    out["elastic"]["wall_s"] = time.perf_counter() - t0
   finally:
     mesh.close()
   with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
@@ -3271,8 +3531,14 @@ def phase_world4(torch, smi: str) -> dict:
                                      [r["tiered"] for r in ranks])
   serve_tiered_totals, batcher_totals = emit_serve_tiered_world4(
       backend, smi, [r["serve_tiered"] for r in ranks])
+  elastic_totals = emit_elastic_world4(backend, smi,
+                                       [r["elastic"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s,
-        "serve_tiered_wall_s": [r["serve_tiered"]["wall_s"] for r in ranks]})
+        "serve_tiered_wall_s": [r["serve_tiered"]["wall_s"] for r in ranks],
+        "elastic_wall_s": [r["elastic"]["wall_s"] for r in ranks]})
+  ckpt1_totals = phase_world4_ckpt_world1(
+      torch, smi, backend, os.path.join(outdir, "ckpt"),
+      [r["ckpt"]["checksums"] for r in ranks])
   return {"train_world4": totals, "world4_ckpt": ckpt_totals,
           "train_dense_world4": dense_totals, "serve_world4": serve_totals,
           "train_world4_guard": guard, "train_world4_mb": mb,
@@ -3282,7 +3548,8 @@ def phase_world4(torch, smi: str) -> dict:
           "zoo_world4_dense": zoo_dense_totals,
           "world4_bf16": narrow_totals, "world4_tiered": tiered_totals,
           "world4_serve_tiered": serve_tiered_totals,
-          "world4_batcher": batcher_totals}
+          "world4_batcher": batcher_totals, "world4_elastic": elastic_totals,
+          "world4_ckpt_world1": ckpt1_totals}
 
 
 def emit_colslice_world4(backend: str, smi: str, res: list) -> dict:
@@ -7562,14 +7829,309 @@ def phase_train_tiered(torch, smi: str) -> dict:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches_per_step": want, "launches": got, "losses": losses})
   totals = {k: v * (TIERED_WARMUP + TIERED_TIMED) for k, v in want.items()}
-  # the trained state and store go on to serve_tiered
+  # the trainer goes on to train_tiered_overlap, its state and store to
+  # serve_tiered
   trained = {"vocab": vocab, "plan": plan, "rule": rule, "store": store,
              "state": trainer.state, "model": model, "cut": cut,
-             "full_vocab_image_bytes": full_bytes, "host_ram": ram}
-  del trainer, state, store, batches
+             "full_vocab_image_bytes": full_bytes, "host_ram": ram,
+             "trainer": trainer, "step_ms_median": med,
+             "launches_per_step": want}
+  del state, batches
   gc.collect()
   torch.cuda.empty_cache()
   return totals, trained
+
+
+def overlap_spans(events, steps: int, t_end_ns: int) -> dict:
+  """Per-step wall times and spans of a traced overlapped
+  ``TieredTrainer.run``: a step runs from its ``tiered/dispatch`` start
+  to the next one's (the last to ``t_end_ns``); the host spans summed per
+  name; and how much of the worker's ``tiered/host_prepare`` time fell
+  inside the device windows (``device/step``, dispatch to the
+  write-back's download)."""
+  starts = sorted(t0 for ph, _, name, t0, _, _ in events
+                  if ph == "X" and name == "tiered/dispatch")
+  check(len(starts) == steps, f"tiered overlap trace: {len(starts)} "
+        f"dispatch spans for {steps} steps")
+  step_ms = [(b - a) / 1e6 for a, b in zip(starts, starts[1:] + [t_end_ns])]
+  host, device, jobs = {}, [], []
+  for ph, _, name, t0, dur, _ in events:
+    if ph != "X":
+      continue
+    if name.startswith(("tiered/", "pipeline/")):
+      host.setdefault(name, []).append(dur / 1e6)
+    if name == "device/step":
+      device.append((t0, t0 + dur))
+    if name == "tiered/host_prepare":
+      jobs.append((t0, t0 + dur))
+  inside = sum(max(0, min(b, d) - max(a, c)) for a, b in jobs
+               for c, d in device)
+  job_ns = sum(b - a for a, b in jobs)
+  return {"step_ms": step_ms,
+          "host_ms": {k: {"total": sum(v), "calls": len(v),
+                          "max": max(v)} for k, v in sorted(host.items())},
+          "device_window_ms": [(d - c) / 1e6 for c, d in device],
+          "worker_ms_inside_device_windows": inside / 1e6,
+          "worker_inside_share": inside / job_ns if job_ns else 0.0}
+
+
+def sync_sites(torch, fn) -> dict:
+  """Run ``fn`` with PyTorch's synchronizing-operation warnings on
+  (``torch.cuda.set_sync_debug_mode("warn")``) and count each warning by
+  its thread and the innermost frame of the port's package (else of
+  this script) that made it: where the host waited for the card."""
+  import collections
+  import threading
+  import traceback
+  import warnings
+
+  sites = collections.Counter()
+  show = warnings.showwarning
+
+  def record(message, category, filename, lineno, file=None, line=None):
+    if "synchroniz" not in str(message):
+      return show(message, category, filename, lineno, file, line)
+    stack = traceback.extract_stack()
+    where = next((f for f in reversed(stack)
+                  if "distributed_embeddings_torch" in f.filename), None)
+    where = where or next((f for f in reversed(stack)
+                           if f.filename.endswith("chip_smoke.py")), stack[-1])
+    name = where.filename.rsplit("distributed_embeddings_torch/", 1)[-1]
+    sites[f"{threading.current_thread().name}: {name}:{where.lineno} "
+          f"{where.name}"] += 1
+
+  warnings.showwarning = record
+  try:
+    with warnings.catch_warnings():
+      warnings.simplefilter("always")
+      warnings.showwarning = record
+      torch.cuda.set_sync_debug_mode("warn")
+      try:
+        fn()
+      finally:
+        torch.cuda.set_sync_debug_mode("default")
+  finally:
+    warnings.showwarning = show
+  return dict(sites)
+
+
+def phase_train_tiered_overlap(torch, smi: str, trained: dict) -> dict:
+  """``train_tiered_overlap``: ``train_tiered``'s trainer, store and cell,
+  ``TIERED_TIMED`` traced steps more with ``overlap_host=True`` (the next
+  batch's classify and cold gather on the pipeline's worker thread while
+  the card runs the step): K2 once each way and K1 once per sparse class
+  a step, finite losses, no lookup missing both tiers. Reports the step
+  time beside ``train_tiered``'s, the hidden host seconds
+  (``tiered/overlap_hidden_s``), the main thread's waits for the worker
+  (``tiered/overlap_wait``), the conflict rows re-gathered and the share
+  of the worker's time that fell inside the device windows. Returns the
+  launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch.telemetry import tracing
+
+  trainer = trained["trainer"]
+  reg = trainer.telemetry
+  trainer.overlap_host = True
+  batches = tiered_batches(trained["vocab"], TIERED_TIMED, TRAIN_BATCH,
+                           SEED + 12)
+  want = trained["launches_per_step"]
+  regathered0 = reg.counter("tiered/conflict_rows_regathered").value
+  hidden0 = reg.histogram("tiered/overlap_hidden_s").count
+  reset_counts()
+  torch.cuda.synchronize()
+  with tracing() as tr:
+    t0 = time.perf_counter()
+    losses = trainer.run(batches)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter_ns()
+    wall_s = time.perf_counter() - t0
+  got = read_counts()
+  check(got == {k: v * TIERED_TIMED for k, v in want.items()},
+        f"train_tiered_overlap: launches {got} in {TIERED_TIMED} steps, "
+        f"expected {want} a step")
+  check(all(np.isfinite(losses)), f"train_tiered_overlap: losses {losses}")
+  summary = trainer.metrics_summary()
+  check(all(m["missed"] == 0 for m in summary["per_class"].values()),
+        f"train_tiered_overlap: lookups missed both tiers: {summary}")
+  spans = overlap_spans(tr.events(), TIERED_TIMED, t_end)
+  hidden = reg.histogram("tiered/overlap_hidden_s")
+  wait = reg.histogram("tiered/overlap_wait")
+  check(hidden.count > hidden0, "train_tiered_overlap: no worker job ran")
+  # two more steps (untimed, not counted) with the host's waits for the
+  # card located: the worker thread must make none
+  syncs = sync_sites(torch, lambda: trainer.run(tiered_batches(
+      trained["vocab"], 2, TRAIN_BATCH, SEED + 14)))
+  check(not any(k.startswith("tiered-overlap") for k in syncs),
+        f"train_tiered_overlap: the worker thread waited for the card: "
+        f"{syncs}")
+  med = statistics.median(spans["step_ms"])
+  emit({"phase": "train_tiered_overlap", "card": smi, "batch": TRAIN_BATCH,
+        "vocab_cut": trained["cut"], "step_ms": spans["step_ms"],
+        "step_ms_median": med,
+        "step_ms_range": [min(spans["step_ms"]), max(spans["step_ms"])],
+        "train_tiered_step_ms_median": trained["step_ms_median"],
+        "wall_s": wall_s, "samples_per_s": TRAIN_BATCH / (med / 1e3),
+        "overlap_hidden_s": {"count": hidden.count - hidden0,
+                             "mean": hidden.mean, "max": hidden.max},
+        "overlap_wait_s": {"count": wait.count, "mean": wait.mean,
+                           "max": wait.max},
+        "conflict_rows_regathered": reg.counter(
+            "tiered/conflict_rows_regathered").value - regathered0,
+        "host_ms": spans["host_ms"],
+        "device_window_ms": spans["device_window_ms"],
+        "worker_ms_inside_device_windows":
+            spans["worker_ms_inside_device_windows"],
+        "worker_inside_share": spans["worker_inside_share"],
+        "hit_rate": summary["hit_rate"], "launches_per_step": want,
+        "sync_sites_two_steps": syncs,
+        "launches": got, "losses": losses})
+  trainer.overlap_host = False
+  return got
+
+
+def phase_tiered_overlap_vs_serial(torch, smi: str) -> dict:
+  """``tiered_overlap_vs_serial``: the train_tiered cell at 1/
+  ``TIERED_VS_SCALE`` (images drawn on the card), a cache of half of each
+  host-tier class, a re-rank every ``TIERED_OVERLAP_VS_RERANK`` steps,
+  guarded. From one drawn state and a copy of it (and of its store), the
+  serial ``TieredTrainer.run`` and the overlapped one take the same
+  ``TIERED_OVERLAP_VS_STEPS`` batches of ``TIERED_OVERLAP_VS_BATCH``
+  samples (a NaN batch the guard skips, one batch repeating the one
+  before it): losses, every fused buffer, the reconciled host images,
+  resident sets, observed counts and hit counters bit-equal, the conflict
+  rows re-gathered. A second serial run from another copy shows the
+  card's own run-to-run spread is nil in this cell: the ids of a sparse
+  table's batch column are distinct, so no row of a sparse class takes
+  two occurrences in a step (K1 adds a row's duplicates in an order that
+  varies, and the order of three f32 adds or more changes their sum),
+  and PyTorch's scatters run deterministically. Returns the launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+  from distributed_embeddings_torch.tiering import (
+      HostTierStore,
+      TieredTrainer,
+      TieringConfig,
+      TieringPlan,
+      init_tiered_state,
+  )
+
+  vocab = [max(4, v // TIERED_VS_SCALE) for v in CRITEO_1TB_VOCAB]
+  plan = tiered_plan(vocab, TIERED_VS_SCALE)
+  rule = sgd_rule(TRAIN_LR)
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  tplan = TieringPlan(plan, rule, TieringConfig(
+      cache_fraction=0.5, staging_grps=1024,
+      rerank_interval=TIERED_OVERLAP_VS_RERANK))
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  store = HostTierStore(tplan)
+  state = init_tiered_state(
+      tplan, store, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(SEED + 21),
+      image_seed=SEED + 21, image_device="cuda", device="cuda")
+  twins = []
+  for _ in range(2):
+    twin_store = HostTierStore(tplan)
+    for name in tplan.tier_specs:
+      twin_store.set_image(name, 0, store.images[name][0])
+    twins.append((twin_state(state), twin_store))
+  rng = np.random.default_rng(SEED + 19)
+  b = TIERED_OVERLAP_VS_BATCH
+  # distinct ids within each sparse table's batch column (the dense
+  # classes' tables are smaller than the batch)
+  batches = [(rng.standard_normal((b, 13)).astype(np.float32),
+              [rng.choice(v, b, replace=v < b).astype(np.int32)
+               for v in vocab],
+              rng.integers(0, 2, b).astype(np.float32))
+             for _ in range(TIERED_OVERLAP_VS_STEPS)]
+  numerical = batches[TIERED_OVERLAP_VS_NAN][0].copy()
+  numerical[0, 0] = np.nan
+  batches[TIERED_OVERLAP_VS_NAN] = (numerical,) + batches[
+      TIERED_OVERLAP_VS_NAN][1:]
+  batches[4] = batches[3]
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  totals = expect()
+  deterministic = torch.are_deterministic_algorithms_enabled()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    runs = {}
+    for tag, (st, sto) in zip(("serial", "serial_again", "overlap"),
+                              [(state, store)] + twins):
+      trainer = TieredTrainer(model, tplan, sto, bce_loss,
+                              sgd_factory(torch), rule, None, st, guard=True,
+                              overlap_host=tag == "overlap", device="cuda",
+                              telemetry=MetricsRegistry())
+      reset_counts()
+      t0 = time.perf_counter()
+      losses = trainer.run(batches)
+      torch.cuda.synchronize()
+      wall_s = time.perf_counter() - t0
+      got = read_counts()
+      # the guard's skipped step launches the same kernels and commits
+      # nothing
+      check(got == {k: v * TIERED_OVERLAP_VS_STEPS for k, v in want.items()},
+            f"tiered_overlap_vs_serial {tag}: launches {got}, expected "
+            f"{want} a step")
+      add_counts(totals, got)
+      trainer.flush()
+      runs[tag] = {"trainer": trainer, "losses": losses, "wall_s": wall_s}
+  finally:
+    torch.use_deterministic_algorithms(deterministic)
+  a = runs["serial"]["trainer"]
+  la = runs["serial"]["losses"]
+
+  def differ(b):
+    # every array the runs hold, by name, with the cells that differ
+    out = {}
+    pairs = [(f"fused/{k}", a.state["fused"][k], b.state["fused"][k])
+             for k in a.state["fused"]]
+    pairs += [(f"{part}/{n}", torch.from_numpy(np.asarray(getattr(
+        a.store, part)[n][0])), torch.from_numpy(np.asarray(getattr(
+            b.store, part)[n][0])))
+              for part in ("images", "resident_grps", "counts")
+              for n in tplan.tier_specs]
+    pairs += [(f"hits/{n}", torch.from_numpy(a.hits[n]),
+               torch.from_numpy(b.hits[n])) for n in a.hits]
+    for k, x, y in pairs:
+      if not torch.equal(x, y):
+        out[k] = int((x != y).sum())
+    return out
+
+  bad = {tag: differ(runs[tag]["trainer"])
+         for tag in ("serial_again", "overlap")}
+  for tag in ("serial_again", "overlap"):
+    lb = runs[tag]["losses"]
+    check(np.array_equal(np.asarray(la), np.asarray(lb), equal_nan=True),
+          f"tiered_overlap_vs_serial: {tag} losses {lb} != serial {la}")
+    check(not bad[tag], f"tiered_overlap_vs_serial: the {tag} run's "
+          f"arrays differ from the serial run's (cells): {bad[tag]}"
+          + (f"; two serial runs differ too: {bad['serial_again']}"
+             if tag == "overlap" and bad["serial_again"] else ""))
+  b = runs["overlap"]["trainer"]
+  check(not np.isfinite(la[TIERED_OVERLAP_VS_NAN]) and a.bad_steps == 1
+        and b.bad_steps == 1, f"tiered_overlap_vs_serial: the NaN batch "
+        f"was not skipped ({la}, {a.bad_steps}, {b.bad_steps})")
+  regathered = b.telemetry.counter("tiered/conflict_rows_regathered").value
+  check(regathered > 0, "tiered_overlap_vs_serial: no conflict row was "
+        "re-gathered")
+  hidden = b.telemetry.histogram("tiered/overlap_hidden_s")
+  emit({"phase": "tiered_overlap_vs_serial", "card": smi,
+        "vocab_scale": f"1/{TIERED_VS_SCALE}",
+        "batch": TIERED_OVERLAP_VS_BATCH, "steps": TIERED_OVERLAP_VS_STEPS,
+        "nan_batch": TIERED_OVERLAP_VS_NAN,
+        "rerank_interval": TIERED_OVERLAP_VS_RERANK,
+        "geometry": tplan.geometry(), "losses": la,
+        "bit_equal": True, "conflict_rows_regathered": regathered,
+        "worker_jobs": hidden.count, "overlap_hidden_s_mean": hidden.mean,
+        "wall_s": {tag: r["wall_s"] for tag, r in runs.items()},
+        "launches_per_step": want})
+  del a, b, runs, state, twins, store
+  torch.cuda.empty_cache()
+  return totals
 
 
 def abs_apply(layout, absum, ids, fused_delta, delta_scale=None) -> None:
@@ -7977,6 +8539,116 @@ def emit_tiered_world4(backend: str, smi: str, res: list) -> dict:
                                        for r in res],
         "launches": totals})
   return totals
+
+
+def emit_elastic_world4(backend: str, smi: str, res: list) -> dict:
+  """The ``world4_elastic`` line from the ranks' :func:`_w4_elastic`
+  results; returns each kernel's launches summed over the ranks."""
+  totals = expect()
+  for r in res:
+    add_counts(totals, r.pop("launches"))
+  check([r["parked_at_end"] for r in res] == [False, False, True, True],
+        f"world4_elastic: parked at the end "
+        f"{[r['parked_at_end'] for r in res]}, expected members 2 and 3")
+  for tag in ("sparse/4to2", "sparse/2to4", "tiered/4to2"):
+    check(all(r["same_bits"].get(tag, True) for r in res) and any(
+        tag in r["same_bits"] for r in res),
+        f"world4_elastic {tag}: a rank saw other bits after the move")
+  emit({"phase": "world4_elastic", "backend": backend, "card": smi,
+        "vocab_scale": res[0]["vocab_scale"],
+        "global_batch": W4_ELASTIC_BATCH,
+        "same_bits": res[0]["same_bits"],
+        "resize_s_by_rank": [r["resize_s"] for r in res],
+        "steps_by_rank": [r["steps"] for r in res],
+        "sparse_accounting_by_rank": [r["sparse"] for r in res],
+        "wall_s_by_rank": [r["wall_s"] for r in res],
+        "launches": totals})
+  return totals
+
+
+def phase_world4_ckpt_world1(torch, smi: str, backend: str, path: str,
+                             parts: list) -> dict:
+  """``world4_ckpt_world1``: ``world4_ckpt``'s checkpoint (written by the
+  four ranks) restored in this process at world 1 on the card
+  (``checkpoint.restore``'s elastic path: every rank file re-sliced into
+  the world-1 plan's blocks): every logical table's checksum
+  (:func:`slot_checksums`) equals the sum of the ranks' parts, so its
+  bits are the ranks' tables'; then one step from it, K1 once per sparse
+  class and K2 once each way. Removes the checkpoint. Returns the
+  launches."""
+  import math
+  import shutil
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.parallel.lookup_engine import (
+      class_param_name,
+  )
+  from distributed_embeddings_torch.resilience.elastic import plan_for_world
+  from distributed_embeddings_torch.training import (
+      ScheduledSGD,
+      make_sparse_train_step,
+      shard_batch,
+  )
+  from distributed_embeddings_torch.utils import dlrm_lr_schedule
+
+  vocab, plan4 = world4_plan(backend, scale=W4_CKPT_VOCAB_SCALE)
+  plan1 = plan_for_world(plan4, 1)
+  schedule = dlrm_lr_schedule(*CKPT_SCHEDULE)
+  rule = sgd_rule(schedule)
+
+  def dense_opt(params):
+    return ScheduledSGD(params, schedule)
+
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  # the template restore needs: the dense names and shapes, the dense
+  # classes' names, the optimizers' kind
+  like = {"dense": model.state_dict(),
+          "emb_dense": {class_param_name(*k): torch.empty(0)
+                        for k in plan1.class_keys
+                        if plan1.classes[k].kind != "sparse"},
+          "dense_opt": dense_opt([torch.zeros(1, requires_grad=True)]),
+          "emb_dense_opt": dense_opt([torch.zeros(1, requires_grad=True)])}
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state = checkpoint.restore(path, plan1, rule, like, device="cuda",
+                             verify_integrity=False)
+  torch.cuda.synchronize()
+  restore_s = time.perf_counter() - t0
+  want = {}
+  for p in parts:
+    for tid, v in p.items():
+      want[int(tid)] = (want.get(int(tid), 0) + v) % 2**64
+  got = slot_checksums(torch, plan1, rule, state, [0])
+  check(got == want, f"world4_ckpt_world1: the world-1 restore's tables "
+        f"differ from the ranks': "
+        f"{sorted(t for t in want if got.get(t) != want[t])}")
+  n_sparse = sum(cp.kind == "sparse" for cp in plan1.classes.values())
+  step = make_sparse_train_step(model, plan1, bce_loss, dense_opt, rule)
+  launches = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  reset_counts()
+  state, loss = step(state, *shard_batch(w4_host_batch(torch, vocab),
+                                         device="cuda"))
+  loss = float(loss)
+  got_counts = read_counts()
+  check(got_counts == launches, f"world4_ckpt_world1: launches "
+        f"{got_counts}, expected {launches}")
+  check(math.isfinite(loss), f"world4_ckpt_world1: loss {loss}")
+  emit({"phase": "world4_ckpt_world1", "backend": backend, "card": smi,
+        "vocab_scale": f"1/{W4_CKPT_VOCAB_SCALE}",
+        "fused_bytes": sum(t.numel() * t.element_size()
+                           for t in state["fused"].values()),
+        "restore_s": restore_s, "tables_bit_equal": True,
+        "tables": len(want), "loss": loss,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": launches, "launches": got_counts})
+  del state, step
+  torch.cuda.empty_cache()
+  shutil.rmtree(path)
+  return got_counts
 
 
 def serve_tiered_requests(vocab, n: int, seed: int) -> list:
@@ -9531,13 +10203,37 @@ def phase_train_bf16_rules_golden(torch) -> None:
     planted = str(exc).splitlines()[0]
   check(planted is not None, f"bf16 rules golden: Adam with "
         f"{RULES_PLANTED_FAULT} passed the card bound")
+  # the second bound: the same replay against the CPU emulation of the
+  # card's arithmetic (committed), which sees a fault as small as b2=0.998
+  emulated = train_golden.load(train_golden.RULES_CARD_PATH)
+  try:
+    card = train_golden.compare_card_emulation(emulated, losses, got)
+  except AssertionError as exc:
+    raise SmokeFailure(f"bf16 rules golden, card emulation: {exc}") from exc
+  small_losses, small = train_golden.replay_bf16_rules(
+      golden, device="cuda", adam_kw=RULES_SMALL_FAULT)
+  small_shares = train_golden.compare_card_emulation(
+      emulated, small_losses, small, moment_share=0.0)
+  try:
+    train_golden.compare_card_emulation(emulated, small_losses, small)
+    small_refused = None
+  except AssertionError as exc:
+    small_refused = str(exc).splitlines()[0]
+  check(small_refused is not None, f"bf16 rules golden: Adam with "
+        f"{RULES_SMALL_FAULT} passed the card-emulation bound: "
+        f"{small_shares}")
   emit({"phase": "train_bf16_rules_golden", "losses": losses,
         "want_losses": [float(v) for v in golden["losses"]], **worst,
         "loss_tol": train_golden.LOSS_TOL,
         "bf16_ulps": train_golden.BF16_ULPS,
         "update_tol": train_golden.RULES_UPDATE_TOL,
         "dense_cell_share": train_golden.RULES_DENSE_CELL_SHARE,
-        "planted_fault": RULES_PLANTED_FAULT, "planted_refused_by": planted})
+        "planted_fault": RULES_PLANTED_FAULT, "planted_refused_by": planted,
+        "card_emulation": card,
+        "card_emulation_ulps": train_golden.RULES_CARD_ULPS,
+        "card_emulation_moment_share": train_golden.RULES_CARD_MOMENT_SHARE,
+        "small_fault": RULES_SMALL_FAULT, "small_fault_shares": small_shares,
+        "small_fault_refused_by": small_refused})
 
 
 def _w4_narrow_rules(torch, mesh, model, batch) -> dict:
@@ -9800,6 +10496,10 @@ def main() -> int:
   # tiered storage: f32 tables past the card's memory, host-RAM images
   by_path["tiered_golden"] = phase_tiered_golden(torch)
   by_path["train_tiered"], trained = phase_train_tiered(torch, smi)
+  # the host-pass pipeline on the same trainer, store and cell
+  by_path["train_tiered_overlap"] = phase_train_tiered_overlap(torch, smi,
+                                                               trained)
+  del trained["trainer"]
   # tiered serving: the trained store's images frozen behind a hot cache
   by_path["serve_tiered"] = phase_serve_tiered(torch, ci, smi, trained)
   del trained
@@ -9808,6 +10508,8 @@ def main() -> int:
                                                                    smi)
   by_path["tiered_ckpt"] = phase_tiered_ckpt(torch, smi)
   torch.cuda.empty_cache()
+  by_path["tiered_overlap_vs_serial"] = phase_tiered_overlap_vs_serial(
+      torch, smi)
   by_path["serve_tiered_golden"] = phase_serve_tiered_golden(torch)
   setup = serve_tiered_setup(torch)
   by_path["serve_tiered_vs_device"] = phase_serve_tiered_vs_device(
@@ -9887,6 +10589,10 @@ def main() -> int:
                                            "apply_rows")),
                       ("tiered_golden", dlrm_sparse + ("build_delta_rows",)),
                       ("train_tiered", dlrm_sparse),
+                      ("train_tiered_overlap", dlrm_sparse),
+                      ("tiered_overlap_vs_serial", dlrm_sparse),
+                      ("world4_elastic", W4_KERNELS),
+                      ("world4_ckpt_world1", dlrm_sparse),
                       ("train_tiered_vs_device", dlrm_sparse),
                       ("tiered_ckpt", dlrm_sparse),
                       ("world4_tiered", W4_KERNELS),

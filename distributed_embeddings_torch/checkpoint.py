@@ -43,11 +43,18 @@ with the resident sets and counts in ``tiering.npz`` (``tiering_p<rank>.npz``
 per rank at world N) and the manifest's ``tiering`` section, as the JAX
 package writes them, and :func:`restore` loads them into the store.
 
+A checkpoint whose plan differs from the restoring one only in
+placement (another world size, strategy or slicing) is re-sharded on the
+way in (:func:`_restore_elastic`, the regroup engine of
+``resilience/elastic``): every logical row of the rank files, cold images
+included, lands in the new plan's blocks bit for bit, and the tiered
+observed counts are re-mapped with them.
+
 Not ported (refused by name): the dynamic vocabulary and the stream
-section (``vocab=``, ``stream=``, ROADMAP.md §1 item 12), and the elastic
-re-shard of a checkpoint onto another world, cold images included (item
-11). The ``telemetry`` section (a metrics registry's
-state) is written and read as the JAX package does.
+section (``vocab=``, ``stream=``, ROADMAP.md §1 item 12), and the
+per-process clock records of a world-N save (``pod_clock.json``,
+:func:`read_pod_clock`, item 11c). The ``telemetry`` section (a metrics
+registry's state) is written and read as the JAX package does.
 """
 
 from __future__ import annotations
@@ -65,11 +72,13 @@ import torch.distributed as dist
 
 from . import hostarrays
 from .device import resolve_device
+from .ops.packed_table import PackedLayout
 from .parallel.lookup_engine import (
     DistributedLookup,
     class_param_name,
     padded_rows,
 )
+from .resilience import elastic as _elastic
 from .resilience import faultinject
 
 FORMAT_VERSION = 1
@@ -179,33 +188,8 @@ def _legacy_problems(path: str, manifest: Dict[str, Any]) -> List[str]:
   return problems
 
 
-def _host(leaf):
-  """A tensor (on any device) or array leaf on the host, for the npy and
-  npz writers: f32 and integer tensors as numpy arrays (``.cpu()`` first:
-  ``np.asarray`` of a CUDA tensor raises), bf16 tensors as host tensors
-  (``hostarrays`` writes their bits under the JAX package's ``'<V2'``
-  descr)."""
-  if isinstance(leaf, torch.Tensor):
-    leaf = leaf.detach().cpu()
-    return leaf if leaf.dtype == torch.bfloat16 else leaf.numpy()
-  return np.asarray(leaf)
-
-
-def _flatten_with_paths(tree) -> Dict[str, np.ndarray]:
-  """Nested dicts of tensors or arrays -> ``{'a/b/c': numpy}``, the JAX
-  package's path spelling for a tree of dicts (keys in sorted order, as
-  its pytree flattening visits them)."""
-  flat: Dict[str, np.ndarray] = {}
-
-  def walk(prefix, node):
-    if isinstance(node, dict):
-      for k in sorted(node):
-        walk(f"{prefix}/{k}" if prefix else str(k), node[k])
-    else:
-      flat[prefix] = _host(node)
-
-  walk("", tree)
-  return flat
+_host = _elastic.to_host
+_flatten_with_paths = _elastic.flatten_with_paths
 
 
 def _world_section(plan) -> Dict[str, Any]:
@@ -214,16 +198,8 @@ def _world_section(plan) -> Dict[str, Any]:
   per-rank logical rows and width (``resilience/elastic.
   plan_world_classes``). With the fingerprint's ``layout`` it says where
   every logical row lives in the rank files."""
-  classes = {}
-  for key in plan.class_keys:
-    cp = plan.classes[key]
-    classes[class_param_name(*key)] = {
-        "kind": cp.kind,
-        "tier": plan.class_tiers.get(key, "device"),
-        "rows": int(padded_rows(plan, key)),
-        "width": int(cp.width),
-    }
-  return {"ranks": int(plan.world_size), "classes": classes}
+  return {"ranks": int(plan.world_size),
+          "classes": _elastic.plan_world_classes(plan)}
 
 
 def _elastic_reason(manifest: Dict[str, Any], want: Dict[str, Any],
@@ -274,21 +250,7 @@ def _abbrev(v, limit: int = 200) -> str:
   return s if len(s) <= limit else s[:limit] + f"... (+{len(s) - limit} chars)"
 
 
-def plan_layout(plan) -> Dict[str, list]:
-  """Per class, per rank, the slot windows ``[table_id, row_offset,
-  row_start, input_dim, col_start, col_end, row_sliced]`` (the JAX
-  package's ``resilience/elastic.plan_layout``): the fingerprint's
-  ``layout`` section."""
-  layout = {}
-  for key in plan.class_keys:
-    cp = plan.classes[key]
-    layout[class_param_name(*key)] = [
-        [[int(s.shard.table_id), int(s.row_offset), int(s.shard.row_start),
-          int(s.shard.input_dim), int(s.shard.col_start),
-          int(s.shard.col_end), int(s.shard.row_sliced)]
-         for s in slots]
-        for slots in cp.slots_per_rank]
-  return layout
+plan_layout = _elastic.plan_layout
 
 
 def _plan_fingerprint(plan) -> Dict[str, Any]:
@@ -725,10 +687,11 @@ def _verify_on_root(path: str, rank: Optional[int]) -> None:
 
 
 def _check_manifest(manifest: Dict[str, Any], plan, rule,
-                    layouts, store=None) -> None:
+                    layouts, store=None) -> bool:
   """Format, rule, plan and physical shapes against the restoring run,
-  with the JAX package's messages. A plan the JAX package would re-shard
-  elastically is refused naming ROADMAP item 11."""
+  with the JAX package's messages. Returns True when the plans differ
+  only in placement (the restore re-shards elastically; the JAX package
+  then checks nothing more), False when they match."""
   if manifest["format_version"] != FORMAT_VERSION:
     raise ValueError(f"checkpoint format {manifest['format_version']} "
                      f"unsupported (expected {FORMAT_VERSION})")
@@ -744,14 +707,10 @@ def _check_manifest(manifest: Dict[str, Any], plan, rule,
     want = {k: v for k, v in want.items() if k != "layout"}
   if manifest["plan"] != want:
     reason = _elastic_reason(manifest, want, plan)
+    if reason is None:
+      return True
     diff_keys = sorted(k for k in set(manifest["plan"]) | set(want)
                        if manifest["plan"].get(k) != want.get(k))
-    if reason is None:
-      raise NotImplementedError(
-          "checkpoint plan differs from the current plan only in "
-          f"placement ({diff_keys}): the JAX package re-shards it "
-          "elastically, the port does not yet (ROADMAP.md §1 item 11, "
-          "resilience/elastic); restore it under the saving run's plan")
     detail = "; ".join(
         f"{k}: saved={_abbrev(manifest['plan'].get(k))} "
         f"have={_abbrev(want.get(k))}" for k in diff_keys)
@@ -793,6 +752,7 @@ def _check_manifest(manifest: Dict[str, Any], plan, rule,
           f"current plan/rule implies [{layout.phys_rows}, "
           f"{layout.phys_width}] — the slicing thresholds or optimizer "
           "rule differ from the saving run")
+  return False
 
 
 def _block_tensor(arr: np.ndarray, bf16: bool) -> torch.Tensor:
@@ -825,10 +785,221 @@ def _check_leaves(flat: Dict[str, np.ndarray],
                        f"checkpoint, expected {want}")
 
 
+def _assemble_state(flats: Dict[str, Dict[str, Any]], state_like,
+                    plan, rank: Optional[int], dev, step: int,
+                    strict_tables: bool = True) -> Dict[str, Any]:
+  """A port train state from a checkpoint's four flat parts (numpy
+  leaves in the JAX package's spelling): the dense parameters by
+  ``state_like``'s names and shapes, the dense-class tables (global,
+  ``[world * rows, width]``; this rank's block at world N) and their
+  per-row optimizer leaves cut to ``rank``, the optax states installed
+  into optimizers of ``state_like``'s kinds. ``strict_tables=False``
+  takes the tables' shapes from ``flats`` (a re-sharded state's template
+  may be of another world)."""
+  # convert and training import this module's neighbours; import at call
+  # time
+  from .convert import dense_state_dict_from_flax
+  from .serving.export import _unflatten_paths
+  from .training import OptaxState, _with_optimizers, rebind_optimizer
+  dense_like = state_like["dense"]
+  dense_flat = flats["dense"]
+  _check_leaves(dense_flat, dense_like)
+  dense = {k: v.to(dev) for k, v in dense_state_dict_from_flax(
+      _unflatten_paths(dense_flat)).items()}
+  if set(dense) != set(dense_like):
+    raise ValueError(f"checkpoint dense params {sorted(dense)} do not "
+                     f"match the state's {sorted(dense_like)}")
+
+  emb_like = state_like["emb_dense"]
+  tables = dict(flats["emb_dense"])
+  world_rows = {}
+  for name in emb_like:
+    if name not in tables:
+      raise ValueError(f"checkpoint is missing leaf {name!r}")
+    arr = tables[name]
+    rows = arr.shape[0] // plan.world_size
+    world_rows[name] = rows
+    lo = 0 if rank is None else rank * rows
+    hi = arr.shape[0] if rank is None else lo + rows
+    if strict_tables and (hi - lo != emb_like[name].shape[0] or
+                          arr.shape[1:] != tuple(emb_like[name].shape[1:])):
+      raise ValueError(
+          f"leaf {name!r} has shape {arr.shape} in the checkpoint, "
+          f"expected {rows * plan.world_size} rows of "
+          f"{tuple(emb_like[name].shape[1:])}")
+    tables[name] = arr[lo:hi]
+  emb_dense = {k: hostarrays.tensor_of(tables[k]).to(dev)
+               for k in emb_like}
+
+  emb_opt_flat = dict(flats["emb_dense_opt"])
+  if rank is not None:
+    for key, arr in list(emb_opt_flat.items()):
+      name = key.split("/")[-1]
+      if name in world_rows:
+        n = world_rows[name]
+        emb_opt_flat[key] = arr[rank * n:(rank + 1) * n]
+  opts = {"dense": OptaxState(dict(flats["dense_opt"])),
+          "emb_dense": OptaxState(emb_opt_flat)}
+  state = {"dense": dense, "emb_dense": emb_dense, "fused": {},
+           "dense_opt": opts["dense"], "emb_dense_opt": opts["emb_dense"],
+           "step": int(step)}
+  bound = {part: state_like.get(f"{part}_opt") for part in opts}
+  if any(o is not None and not isinstance(o, OptaxState)
+         for o in bound.values()):
+    factories = {part: (lambda ps, o=o: rebind_optimizer(o, ps))
+                 if o is not None and not isinstance(o, OptaxState) else None
+                 for part, o in bound.items()}
+    dense_factory = factories["dense"] or factories["emb_dense"]
+    _with_optimizers(state, dense_factory, factories["emb_dense"])
+  return state
+
+
+def _part_flats(state: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+  """The four flat parts of a whole-world state held in this process, as
+  :func:`_npz_parts` writes them, numpy copies (bf16 leaves as their
+  bits): what a checkpoint of it would read back."""
+  def host(v):
+    return np.array(_elastic.block_bits(v))
+  return {part: {k: host(v) for k, v in flat.items()}
+          for part, flat in _npz_parts(state, None, None).items()}
+
+
+def _remap_tier_counts(path: str, manifest: Dict[str, Any], plan, store,
+                       n_aux: int) -> Optional[Dict[str, list]]:
+  """Window-wise re-map of the saved host-tier observed counts through an
+  elastic re-shard (the JAX package's ``_remap_tier_counts``): each
+  logical table row carries its old group's count into its new group
+  (``elastic.remap_group_counts``, shared with the in-run resize). Writes
+  ``store.counts`` and returns the warm-start ranking, or None when the
+  checkpoint carries no counts."""
+  flat = _load_tier_state_flat(path)
+  if not any(k.endswith("/counts") for k in flat):
+    return None
+
+  def counts_of(cname, rank):
+    return flat.get(f"{cname}/r{rank}/counts")
+
+  return _elastic.remap_group_counts(
+      manifest["world"]["classes"], manifest["plan"]["layout"],
+      int(manifest["world"]["ranks"]), n_aux, counts_of, plan, store)
+
+
+def _restore_elastic(path: str, manifest: Dict[str, Any], plan, rule,
+                     state_like, rank: Optional[int], mesh, store, dev,
+                     gather_site: str = "reshard_gather") -> Dict[str, Any]:
+  """Load a world-N checkpoint onto a world-M plan by re-slicing its rank
+  blocks at LOGICAL-row granularity (the JAX package's
+  ``_restore_elastic``).
+
+  Per target rank block, each slot's row and column windows are pulled
+  from the saved packed blocks (``fused_*`` files and ``cold_*`` images
+  alike) through memory-mapped physical-row slices, unpacked and packed
+  into the new plan's block: every logical row (table and optimizer
+  lanes) is bit-equal across the move, padding rows zero. At world N
+  this rank builds only its own blocks (and its store's owned images).
+  The dense-class blocks and their per-row optimizer leaves re-shard by
+  the same table windows; the host-tier observed counts are re-mapped
+  (:func:`_remap_tier_counts`) and the resident sets start from their
+  ranking. Peak host memory for the sparse classes is one target block
+  and one source window."""
+  saved = manifest["plan"]
+  world_meta = manifest["world"]
+  n_src = int(world_meta["ranks"])
+  src_classes = world_meta["classes"]
+  src_layout = saved["layout"]
+  n_aux = rule.n_aux
+
+  tiered_names = frozenset(store.tplan.tier_specs) if store is not None \
+      else frozenset()
+  new_host = {class_param_name(*k) for k in plan.host_tier_class_keys()}
+  if new_host and store is None:
+    raise ValueError(
+        "elastic restore onto a plan with host-tier classes requires the "
+        "new world's HostTierStore (restore(..., store=store)): the "
+        "re-sharded cold images have nowhere to live otherwise.")
+  if store is not None and set(tiered_names) != new_host:
+    raise ValueError(
+        f"store geometry {sorted(tiered_names)} does not cover the plan's "
+        f"host-tier classes {sorted(new_host)}: build the HostTierStore "
+        "from a TieringPlan of THIS plan")
+
+  src_slots = _elastic.build_source_index(src_classes, src_layout, n_src,
+                                          n_aux)
+
+  def read_rows(tag, lay, lo, hi) -> np.ndarray:
+    cname, r = tag
+    prefix = "cold" if src_classes[cname]["tier"] == "host" else "fused"
+    fname = f"{prefix}_{cname}_r{r}.npy"
+    faultinject.fire(gather_site, file=fname, rows=hi - lo)
+
+    def phys(p0, p1):
+      blk = np.load(os.path.join(path, fname), mmap_mode="r")
+      if blk.shape != (lay.phys_rows, lay.phys_width):
+        raise ValueError(
+            f"elastic restore: {fname} has shape {blk.shape}, but the "
+            f"manifest's world section implies "
+            f"{(lay.phys_rows, lay.phys_width)} — manifest and files "
+            "disagree (corrupt or hand-edited checkpoint)")
+      return np.asarray(blk[p0:p1])
+
+    return _elastic.read_logical_rows(lay, phys, lo, hi, n_aux)
+
+  bf16 = any(m.get("dtype") == "bfloat16"
+             for m in manifest.get("fused", {}).values())
+  dtype = _elastic.BF16_BITS if bf16 else np.float32
+  ranks = range(plan.world_size) if rank is None else [rank]
+  fused: Dict[str, torch.Tensor] = {}
+  for key in plan.class_keys:
+    cp = plan.classes[key]
+    if cp.kind != "sparse":
+      continue
+    name = class_param_name(*key)
+    lay_log = PackedLayout(rows=padded_rows(plan, key), width=cp.width,
+                           n_aux=n_aux)
+    if name in tiered_names:
+      for r in store.owned_ranks:
+        store.set_image(name, r, _elastic.regroup_rank_block(
+            plan, key, lay_log, r, src_slots, read_rows, n_aux,
+            store.dtype))
+      continue
+    fused[name] = _elastic.block_tensor(np.concatenate(
+        [_elastic.regroup_rank_block(plan, key, lay_log, r, src_slots,
+                                     read_rows, n_aux, dtype)
+         for r in ranks]), dev)
+
+  if store is not None and tiered_names:
+    ranking = _remap_tier_counts(path, manifest, plan, store, n_aux)
+    if ranking is None:
+      for name in store.counts:
+        for cnt in store.counts[name]:
+          cnt[:] = 0
+    store.warm_start(ranking)
+    fused.update(store.build_fused(mesh, dev))
+
+  flats = {part: _read_npz(path, part) for part in _PARTS}
+  for part in ("emb_dense", "emb_dense_opt"):
+    flats[part] = _elastic.regroup_dense_flat(flats[part], src_classes,
+                                              src_layout, n_src, plan)
+  state = _assemble_state(flats, state_like, plan, rank, dev,
+                          int(manifest["step"]), strict_tables=False)
+  state["fused"] = fused
+  return state
+
+
+def read_pod_clock(path: str):
+  """The per-process clock-offset records of a world-N save
+  (``pod_clock.json``): not ported yet."""
+  raise NotImplementedError(
+      "read_pod_clock (the clock records a world-N save piggybacks on its "
+      "barriers, pod_clock.json): not ported yet (ROADMAP.md §1 item 11c, "
+      "with telemetry.estimate_clock_offset)")
+
+
 def restore(path: str, plan, rule, state_like: Dict[str, Any],
             mesh=None, store=None, verify_integrity: bool = True,
             vocab=None, telemetry=None, stream=None,
-            device="cuda") -> Dict[str, Any]:
+            device="cuda", gather_site: str = "reshard_gather"
+            ) -> Dict[str, Any]:
   """Load a checkpoint written by :func:`save` (or by the JAX package's
   ``checkpoint.save``) into a new port train state on ``device`` (with a
   world-N ``mesh``: this rank's blocks, on the mesh's device).
@@ -851,6 +1022,12 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   ``telemetry.MetricsRegistry``) the manifest's ``telemetry`` section, if
   any, is loaded into it.
 
+  A checkpoint of another world (a plan that differs only in placement)
+  is re-sharded on the way (:func:`_restore_elastic`); each re-sliced
+  source window fires the ``gather_site`` fault site. The tables, the
+  input map, the tiers and the sparse/dense kinds must match (the JAX
+  package's refusals otherwise).
+
   A tiered checkpoint needs ``store`` (a ``HostTierStore`` whose
   ``TieringPlan`` geometry matches the saving run's; the JAX package's
   "tiering mismatch" and "tier geometry" refusals otherwise): the owned
@@ -858,11 +1035,6 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   into it, and the host-tier classes' compact device buffers are rebuilt
   from the restored resident sets (a ``TieredPrefetcher`` bound to the
   store then needs ``refresh_resident()``)."""
-  # convert and training import this module's neighbours; import at call
-  # time
-  from .convert import dense_state_dict_from_flax
-  from .serving.export import _unflatten_paths
-  from .training import OptaxState, _with_optimizers, rebind_optimizer
   refuse_unported(vocab, stream)
   rank = _state_rank(plan, mesh)
   dev = mesh.device if mesh is not None else resolve_device(device)
@@ -875,11 +1047,14 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
     _verify_on_root(path, rank)
   with open(os.path.join(path, "manifest.json")) as f:
     manifest = json.load(f)
-  _check_manifest(manifest, plan, rule, layouts, store)
+  elastic = _check_manifest(manifest, plan, rule, layouts, store)
   if telemetry is not None and manifest.get("telemetry") is not None:
     # REPLACES the named metrics' values: a resume continues the run's
     # counts rather than adding to what this process observed so far
     telemetry.load_state_dict(manifest["telemetry"])
+  if elastic:
+    return _restore_elastic(path, manifest, plan, rule, state_like, rank,
+                            mesh, store, dev, gather_site)
 
   fused = {}
   ranks = range(plan.world_size) if rank is None else [rank]
@@ -897,54 +1072,7 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
     _restore_tier_state(path, store, tiered_names)
     fused.update(store.build_fused(mesh, dev))
 
-  dense_like = state_like["dense"]
-  dense_flat = _read_npz(path, "dense")
-  _check_leaves(dense_flat, dense_like)
-  dense = {k: v.to(dev) for k, v in dense_state_dict_from_flax(
-      _unflatten_paths(dense_flat)).items()}
-  if set(dense) != set(dense_like):
-    raise ValueError(f"checkpoint dense params {sorted(dense)} do not "
-                     f"match the state's {sorted(dense_like)}")
-
-  emb_like = state_like["emb_dense"]
-  tables = _read_npz(path, "emb_dense")
-  world_rows = {}
-  for name in emb_like:
-    if name not in tables:
-      raise ValueError(f"checkpoint is missing leaf {name!r}")
-    arr = tables[name]
-    rows = arr.shape[0] // plan.world_size
-    world_rows[name] = rows
-    lo = 0 if rank is None else rank * rows
-    hi = arr.shape[0] if rank is None else lo + rows
-    if hi - lo != emb_like[name].shape[0] or \
-        arr.shape[1:] != tuple(emb_like[name].shape[1:]):
-      raise ValueError(
-          f"leaf {name!r} has shape {arr.shape} in the checkpoint, "
-          f"expected {rows * plan.world_size} rows of "
-          f"{tuple(emb_like[name].shape[1:])}")
-    tables[name] = arr[lo:hi]
-  emb_dense = {k: hostarrays.tensor_of(tables[k]).to(dev)
-               for k in emb_like}
-
-  emb_opt_flat = _read_npz(path, "emb_dense_opt")
-  if rank is not None:
-    for key, arr in list(emb_opt_flat.items()):
-      name = key.split("/")[-1]
-      if name in world_rows:
-        n = world_rows[name]
-        emb_opt_flat[key] = arr[rank * n:(rank + 1) * n]
-  opts = {"dense": OptaxState(_read_npz(path, "dense_opt")),
-          "emb_dense": OptaxState(emb_opt_flat)}
-  state = {"dense": dense, "emb_dense": emb_dense, "fused": fused,
-           "dense_opt": opts["dense"], "emb_dense_opt": opts["emb_dense"],
-           "step": int(manifest["step"])}
-  bound = {part: state_like.get(f"{part}_opt") for part in opts}
-  if any(o is not None and not isinstance(o, OptaxState)
-         for o in bound.values()):
-    factories = {part: (lambda ps, o=o: rebind_optimizer(o, ps))
-                 if o is not None and not isinstance(o, OptaxState) else None
-                 for part, o in bound.items()}
-    dense_factory = factories["dense"] or factories["emb_dense"]
-    _with_optimizers(state, dense_factory, factories["emb_dense"])
+  state = _assemble_state({part: _read_npz(path, part) for part in _PARTS},
+                          state_like, plan, rank, dev, int(manifest["step"]))
+  state["fused"] = fused
   return state

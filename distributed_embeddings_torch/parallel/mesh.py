@@ -68,6 +68,27 @@ def rank_device(device, rank: int, world: int) -> torch.device:
   return torch.device("cuda", rank if count >= world else rank % count)
 
 
+def rank_mesh(world: int, rank: int, device="cuda") -> Mesh:
+  """Rank ``rank``'s :class:`Mesh` in a world of ``world`` ranks on
+  ``device`` (its card and backend as :func:`create_mesh` chooses them),
+  before its process group is formed: an elastic resize builds the new
+  world's step functions on it, then forms the group (:func:`join_group`)."""
+  base = resolve_device(device)
+  world, rank = int(world), int(rank)
+  return Mesh(rank=rank, world=world, device=rank_device(base, rank, world),
+              backend=choose_backend(base, world))
+
+
+def join_group(mesh: Mesh, init_method: str) -> Mesh:
+  """Form the default process group of ``mesh``'s world from the
+  rendezvous ``init_method``."""
+  if mesh.device.type == "cuda":
+    torch.cuda.set_device(mesh.device)
+  dist.init_process_group(mesh.backend, init_method=init_method,
+                          world_size=mesh.world, rank=mesh.rank)
+  return mesh
+
+
 def create_mesh(world_size: Optional[int] = None, rank: Optional[int] = None,
                 init_method: Optional[str] = None, device="cuda") -> Mesh:
   """Start the default process group and return this rank's :class:`Mesh`.
@@ -76,14 +97,7 @@ def create_mesh(world_size: Optional[int] = None, rank: Optional[int] = None,
   environment variables, ``init_method`` to ``env://`` (``MASTER_ADDR``,
   ``MASTER_PORT``); pass ``tcp://localhost:<port>`` to give the address
   yourself. ``device`` is ``"cuda"`` unless the caller asks for the CPU."""
-  base = resolve_device(device)
   world = int(world_size if world_size is not None
               else os.environ["WORLD_SIZE"])
   me = int(rank if rank is not None else os.environ["RANK"])
-  backend = choose_backend(base, world)
-  dev = rank_device(base, me, world)
-  if dev.type == "cuda":
-    torch.cuda.set_device(dev)
-  dist.init_process_group(backend, init_method=init_method or "env://",
-                          world_size=world, rank=me)
-  return Mesh(rank=me, world=world, device=dev, backend=backend)
+  return join_group(rank_mesh(world, me, device), init_method or "env://")

@@ -18,6 +18,10 @@ each module here owns one of them:
 - **Everything at once** — :class:`.trainer.ResilientTrainer` composes
   them: periodic snapshots, auto-resume on restart, skip accounting,
   abort-with-rollback after K consecutive bad steps.
+- **Lost and regained workers** — :mod:`.elastic` re-shards a state onto
+  another world (in the run, ``ResilientTrainer.resize``, and across
+  restarts through ``checkpoint.restore``) and keeps the pod's membership
+  in lease files.
 
 :mod:`.faultinject` is the deterministic harness the tests (and
 ``tools/torch_chaos_train.py``) drive all of the above with:
@@ -26,14 +30,14 @@ batches.
 
 ``durable`` and ``trainer`` are imported lazily (PEP 562): they pull in
 ``checkpoint``, which itself hooks :mod:`.faultinject` — eager imports
-here would close that cycle. Not ported yet: ``elastic`` (ROADMAP.md §1
-item 11).
+here would close that cycle.
 """
 
 from . import faultinject, guards, retry  # noqa: F401  (cycle-free)
 
 __all__ = [
     "durable",
+    "elastic",
     "faultinject",
     "guards",
     "retry",
@@ -51,7 +55,7 @@ from .retry import RetryPolicy  # noqa: E402,F401
 
 
 def __getattr__(name):
-  if name in ("durable", "trainer"):
+  if name in ("durable", "elastic", "trainer"):
     import importlib
     return importlib.import_module(f".{name}", __name__)
   if name in ("ResilientTrainer", "TooManyBadSteps"):

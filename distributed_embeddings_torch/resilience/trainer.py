@@ -44,10 +44,23 @@ guard accounting; snapshots checkpoint the ``HostTierStore`` (a frozen
 ``snapshot_view`` for async ones) and every resume restores it and
 refreshes the prefetcher's device resident maps.
 
+With ``overlap_host=True`` (tiered mode) the next batch's host pass
+runs on the pipeline's worker thread while the card runs this step
+(``pipeline.run_tiered_overlapped``), bit-equal to the serial loop,
+snapshots (async ones too) and drains included.
+
+:meth:`ResilientTrainer.resize` changes the world in the run
+(``resilience/elastic``): in one process it re-shards the whole-world
+state in memory; across processes (``pod_dir=``) the pod meets at a
+file barrier, the old world spills itself into the pod directory, the
+default process group is formed again at the new world, and each rank
+of the new world reads its own blocks back, while a process outside it
+parks (it holds no state and takes part in the next resize, which may
+bring it back). ``consumed == step_count + skipped_steps`` holds across
+every shrink and grow.
+
 Not ported (refused by name): the dynamic vocabulary and the delta
-stream (``dynvocab=``, ``stream=``, ROADMAP.md §1 item 12), the elastic
-resize and the host-pass overlap (``resize``, ``overlap_host=True``,
-item 11).
+stream (``dynvocab=``, ``stream=``, ROADMAP.md §1 item 12).
 """
 
 from __future__ import annotations
@@ -171,6 +184,10 @@ class ResilientTrainer:
       prefetcher's resident maps.
     store: the ``HostTierStore`` of a tiered plan (default: the
       TieredTrainer's), passed to every checkpoint save and restore.
+    overlap_host: tiered mode only: :meth:`run` takes the next batch's
+      host pass on the pipeline's worker thread while the card runs this
+      step (``pipeline.run_tiered_overlapped``), bit-equal to the serial
+      loop.
   """
 
   def __init__(self, step_fn, state: Dict[str, Any], plan, rule,
@@ -186,10 +203,14 @@ class ResilientTrainer:
       raise NotImplementedError(
           "dynvocab= / stream= (the dynamic vocabulary and the delta "
           "publisher): not ported yet (ROADMAP.md §1 item 12)")
-    if overlap_host:
-      raise NotImplementedError(
-          "overlap_host=True (the host-pass pipeline): not ported yet "
-          "(ROADMAP.md §1 item 11, pipeline)")
+    if overlap_host and tiered is None:
+      raise ValueError(
+          "overlap_host=True without a tiered or dynvocab trainer: the "
+          "sparse step has no per-step host pass to overlap (its batch "
+          "sharding is already inside the device dispatch). Drop the "
+          "flag, or wrap the host pass you mean into a TieredTrainer/"
+          "DynVocabTrainer.")
+    self.overlap_host = overlap_host
     # The metrics registry this trainer emits through (and persists:
     # snapshots write its state into the checkpoint manifest's
     # ``telemetry`` section, and the FIRST resume of a fresh process
@@ -218,6 +239,9 @@ class ResilientTrainer:
       state = tiered.state if state is None else state
       store = tiered.store if store is None else store
     self.store = store
+    # a resize keeps the mode when this process parks (tiered= is dropped
+    # with the state) and a grow brings it back
+    self._tiered_mode = tiered is not None
     self._step_fn = step_fn
     self.state = state
     self.plan = plan
@@ -262,6 +286,12 @@ class ResilientTrainer:
   def step_count(self) -> int:
     """Committed steps so far (the state's step counter)."""
     return int(self.state["step"])
+
+  @property
+  def parked(self) -> bool:
+    """This process sits outside the pod's current world (a resize left
+    it without state); the next resize may bring it back."""
+    return self.state is None
 
   @property
   def skipped_steps(self) -> int:
@@ -346,12 +376,184 @@ class ResilientTrainer:
           for k, v in extra.get("dedup_overflow", {}).items()}
     return True
 
-  def resize(self, *args, **kwargs):
-    """The in-run elastic world change: not ported yet."""
-    raise NotImplementedError(
-        "resize (the checkpoint-free elastic world change): not ported "
-        "yet (ROADMAP.md §1 item 11, resilience/elastic); snapshot and "
-        "relaunch at the new world's plan instead")
+  # ---- elastic resize (the in-run world change) ---------------------------
+  def _template(self) -> Dict[str, Any]:
+    """What a resize's new state is assembled by: the state itself, or
+    in a parked process its skeleton (the dense names and shapes, the
+    optimizers' kinds)."""
+    return self.state if self.state is not None else self._skeleton
+
+  def resize(self, new_plan, step_fn=None, *, new_mesh=None,
+             new_store=None, tiered_factory=None, reason: str = "",
+             spill_dir=None, pod_dir=None, barrier_epoch=None,
+             member_id=None, n_participants=None,
+             barrier_timeout_s: float = 60.0):
+    """Change the world in the run: quiesce, re-shard every rank block
+    (``resilience.elastic.elastic_resize``, the regroup engine of the
+    elastic restore), swap in the new world's step function, and go on.
+    ``resumed_from`` and the checkpoint root are untouched, and the
+    accounting (``consumed``, ``skipped_steps``, the OOV and overflow
+    totals, the bad-step streak) carries across: ``consumed ==
+    step_count + skipped_steps`` holds through any shrink and grow.
+
+    Sparse mode: ``step_fn`` built against the new plan and ``new_mesh``.
+    Tiered mode: ``new_store`` (the new world's ``HostTierStore``; the
+    re-sharded images land in it, the observed counts re-mapped) and
+    ``tiered_factory(new_state) -> TieredTrainer`` built around it; the
+    new trainer takes over the old one's prefetcher
+    (``TieredPrefetcher.rebind`` to the new plan and store, its gather,
+    spill and retry counters kept) and its hit, skip and OOV
+    bookkeeping.
+
+    In one process (no ``pod_dir``) the state holds every rank's blocks
+    before and after. Across processes pass ``pod_dir``,
+    ``barrier_epoch`` (one per membership change, the same on every
+    participant), ``member_id`` and ``n_participants`` (every process
+    taking part: the old world's, and any joining or staying parked):
+    they first agree on one step boundary at the membership barrier
+    (``elastic.membership_barrier``; a parked process posts no step),
+    then the old world spills itself into ``spill_dir`` (default
+    ``<pod_dir>/spill``), the default process group is formed again at
+    the new world (``new_mesh``, this process's rank in it, e.g. from
+    ``elastic.member_rank``; None: this process parks) and each rank
+    reads its own blocks back. A process that joins from parking adopts
+    the run's accounting and telemetry from the spill.
+
+    ``new_plan`` may be a world size. Returns the new plan. (``reason``
+    is for the delta stream's re-root, which waits for the stream
+    itself, ROADMAP.md §1 item 12b.)"""
+    del reason
+    from . import elastic as _elastic
+
+    if self.writer_active:
+      # an in-flight async snapshot reads the OLD state's buffers
+      self.join_writer()
+    was_parked = self.parked
+    joining = pod_dir is None or new_mesh is not None
+    if joining and self._tiered_mode:
+      if tiered_factory is None or new_store is None:
+        raise ValueError(
+            "resize of a tiered trainer needs new_store (the new "
+            "world's HostTierStore) and tiered_factory(new_state) -> "
+            "TieredTrainer built around it")
+    elif joining and step_fn is None:
+      raise ValueError(
+          "resize needs the new world's step_fn (build it with "
+          "make_sparse_train_step against the new plan/mesh before "
+          "calling resize)")
+    pod = None
+    if pod_dir is not None:
+      if barrier_epoch is None or member_id is None \
+          or n_participants is None:
+        raise ValueError(
+            "a membership-change barrier needs barrier_epoch (one per "
+            "membership change, same on every survivor), member_id and "
+            "n_participants (the agreed survivor count) along with "
+            "pod_dir")
+      if spill_dir is None:
+        spill_dir = os.path.join(pod_dir, "spill")
+      _elastic.membership_barrier(
+          pod_dir, barrier_epoch, member_id, n_participants,
+          step=None if was_parked else self.step_count,
+          world=self.plan.world_size, timeout_s=barrier_timeout_s)
+      self.telemetry.counter("elastic/membership_barriers").inc()
+      pod = _elastic.PodSync(pod_dir, int(barrier_epoch), member_id,
+                             int(n_participants), barrier_timeout_s)
+    elif self.mesh is not None and self.mesh.world > 1:
+      raise ValueError(
+          "this trainer runs one rank of a process group; pass pod_dir "
+          "(with barrier_epoch, member_id, n_participants) so that the "
+          "pod can meet while the group is formed again at the new world")
+    elif new_mesh is not None:
+      raise ValueError(
+          "new_mesh without pod_dir: a resize in one process re-shards the "
+          "whole-world state it holds (no mesh before or after)")
+    manifest: Dict[str, Any] = {}
+    new_plan, new_state = _elastic.elastic_resize(
+        self.state, self.plan, new_plan, self.rule, new_mesh=new_mesh,
+        old_mesh=self.mesh if pod is not None else None,
+        old_store=self.store, new_store=new_store,
+        telemetry=self.telemetry, spill_dir=spill_dir, pod=pod,
+        state_like=self._template(), extra=self._extra(),
+        manifest_out=manifest)
+    if new_state is None:
+      self._park(new_plan)
+      return new_plan
+    if was_parked:
+      self._adopt(manifest)
+    if self._tiered_mode:
+      old_t = self.tiered
+      new_t = tiered_factory(new_state)
+      if not getattr(new_t, "guard", False):
+        raise ValueError(
+            "tiered_factory must build a guard=True TieredTrainer (the "
+            "same requirement as ResilientTrainer(tiered=...)).")
+      new_t.telemetry = self.telemetry
+      if old_t is not None:
+        # the bookkeeping of the run survives the resize
+        new_t.steps = old_t.steps
+        new_t.bad_steps = old_t.bad_steps
+        new_t.oov_totals = dict(old_t.oov_totals)
+        new_t.dedup_overflow_totals = dict(old_t.dedup_overflow_totals)
+        for name, m in old_t.hits.items():
+          if name in new_t.hits:
+            new_t.hits[name] = new_t.hits[name] + m
+        pf = old_t.prefetcher
+        pf.rebind(new_t.tplan, new_t.store, mesh=new_t.mesh,
+                  device=new_t.device)
+        new_t.prefetcher = pf
+      new_t.prefetcher.telemetry = self.telemetry
+      new_t.state = new_state
+      new_t.prefetcher.refresh_resident()
+      self.tiered = new_t
+      self.store = new_t.store
+    else:
+      self._step_fn = step_fn
+      self.store = new_store
+    self.state = new_state
+    self.plan = new_plan
+    self.mesh = new_mesh
+    self.device = _state_device(new_state, new_mesh)
+    return new_plan
+
+  def _park(self, new_plan) -> None:
+    """Leave the world: drop the state (keeping its skeleton for the
+    resize that brings this process back) and the step."""
+    from ..training import OptaxState, rebind_optimizer
+    like = self._template()
+
+    def meta(part):
+      return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in like[part].items()}
+
+    def kind(opt):
+      if opt is None or isinstance(opt, OptaxState):
+        return opt
+      return rebind_optimizer(opt, [torch.zeros(1, requires_grad=True)])
+
+    self._skeleton = {"dense": meta("dense"), "emb_dense": meta("emb_dense"),
+                      "dense_opt": kind(like.get("dense_opt")),
+                      "emb_dense_opt": kind(like.get("emb_dense_opt"))}
+    self.state = None
+    self.tiered = None
+    self.store = None
+    self._step_fn = None
+    self.mesh = None
+    self.plan = new_plan
+
+  def _adopt(self, manifest: Dict[str, Any]) -> None:
+    """A process back from parking takes the run's accounting and
+    telemetry from the spill (the survivors' own)."""
+    extra = manifest.get("extra", {})
+    self.consumed = int(extra.get("consumed", manifest["step"]))
+    self._bad.skipped = int(extra.get("skipped", 0))
+    self.oov_totals = {str(k): int(v)
+                       for k, v in extra.get("oov", {}).items()}
+    self.dedup_overflow_totals = {
+        str(k): int(v) for k, v in extra.get("dedup_overflow", {}).items()}
+    if manifest.get("telemetry") is not None:
+      self.telemetry.load_state_dict(manifest["telemetry"])
+    self._last_snapshot = int(manifest["step"])
 
   # ---- SIGTERM graceful drain (the preemption NOTICE path) ---------------
   def install_sigterm_drain(self, deadline_s: float = 30.0) -> None:
@@ -600,6 +802,12 @@ class ResilientTrainer:
     stream position, which counts committed AND skipped batches."""
     from ..training import shard_batch
 
+    if self.overlap_host:
+      losses = self._run_tiered_overlapped(batches)
+      self.join_writer()
+      if snapshot_final:
+        self.snapshot()
+      return losses
     losses = []
     for batch in batches:
       if self.tiered is not None:  # the prefetch protocol shards it
@@ -616,6 +824,41 @@ class ResilientTrainer:
     if snapshot_final:
       self.snapshot()
     return losses
+
+  def _on_dispatch(self) -> None:
+    # the overlapped loop's stream-position hook: the serial steps'
+    # consumed accounting, at the same point (right after the dispatch)
+    self.consumed += 1
+    self.telemetry.counter("train/consumed").inc()
+
+  def _run_tiered_overlapped(self, batches: Iterable) -> List[float]:
+    from ..pipeline import run_tiered_overlapped
+
+    t = self.tiered
+    t.state = self.state
+
+    def account(m):
+      # the split of _step_tiered: tier bookkeeping with the
+      # TieredTrainer, guard verdict, OOV and rollback with this trainer
+      _, bad, counts, overflow = _fetch(m["bad_step"], m)
+      t.account_tier(m["tier"])
+      t.steps += 1
+      self._account(bad, counts, overflow)
+
+    def after_step(loss, metrics, stepped, pending_ahead):
+      del loss, metrics, pending_ahead  # the worker's job is pure:
+      # snapshotting over it is safe (the flush writes resident rows, the
+      # worker gathers cold ones), and the deferred apply_counts keeps
+      # the persisted counts at exactly this step
+      self.state = t.state
+      if self.snapshot_every and \
+          int(stepped) - self._last_snapshot >= self.snapshot_every:
+        self.snapshot(async_=self.async_snapshots)
+      return self.maybe_drain()
+
+    return run_tiered_overlapped(t, batches, account=account,
+                                 on_dispatch=self._on_dispatch,
+                                 after_step=after_step)
 
   def metrics_summary(self) -> Dict[str, Any]:
     out = {

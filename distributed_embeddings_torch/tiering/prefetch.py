@@ -106,13 +106,30 @@ class TieredPrefetcher:
     self._retry_policy = retry_policy
     self.total_host_gather_bytes = 0
     self.spill_steps = 0
+    # what depends on the plan, store and mesh derives in ONE place, so
+    # that a constructed and a rebound prefetcher route alike
+    self.rebind(tplan, store, mesh=mesh, device=device)
+
+  def rebind(self, tplan: TieringPlan, store: HostTierStore, mesh=None,
+             device=None) -> None:
+    """(Re-)point this prefetcher at a plan and store: the constructor's
+    tail, and an elastic resize's hook (the new world's ``TieringPlan``,
+    ``HostTierStore`` and mesh route the classify and stage from the next
+    step). Re-derives the routing recipe, the device resident maps and
+    the retried gather, and restarts the re-rank phase; the cumulative
+    gather, spill and retry counters survive (they describe the run, not
+    the world). ``device`` (without a mesh) defaults to the current
+    one."""
     self.tplan = tplan
     self.store = store
     self.plan = tplan.plan
     self.mesh = mesh
-    self.device = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None:
+      self.device = mesh.device
+    elif device is not None or not hasattr(self, "device"):
+      self.device = resolve_device("cuda" if device is None else device)
     self.local_ranks = store.local_ranks(mesh)
-    self._gather = _retry.retrying(store.gather, policy=retry_policy,
+    self._gather = _retry.retrying(store.gather, policy=self._retry_policy,
                                    on_retry=self._count_retry)
     self._recipe: Dict[tuple, List[list]] = {
         key: self.plan.routing_recipe(key) for key in tplan.classes}

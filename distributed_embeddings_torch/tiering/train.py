@@ -20,7 +20,9 @@ waits for the previous write-back (a row staged twice in a row needs its
 updated value), so the look-ahead is one classify. On a re-rank step the
 look-ahead classify is deferred until after the re-rank: classifying
 against a resident map the re-rank is about to replace could mark a
-just-evicted row hot and drop its update.
+just-evicted row hot and drop its update. ``overlap_host=True`` moves the
+whole host pass of the next batch (classify and cold gather) onto the
+pipeline's worker thread (``pipeline.run_tiered_overlapped``).
 
 At world N every process builds the trainer with its mesh and a store
 that owns its rank (``HostTierStore(tplan, owned_ranks=(mesh.rank,))``),
@@ -242,8 +244,10 @@ class TieredTrainer:
   destination) block rather than occurrences; the ``missed > 0`` contract
   is unchanged.
 
-  ``overlap_host=True`` (the host pass on a worker thread) is not ported
-  yet (ROADMAP.md §1 item 11).
+  ``overlap_host=True`` runs the next batch's host pass (classify and
+  cold gather) on a worker thread while the card runs this step
+  (``pipeline.run_tiered_overlapped``), bit-equal to the serial
+  :meth:`run`; a failed worker job fails the run.
   """
 
   def __init__(self, model, tplan: TieringPlan, store: HostTierStore,
@@ -252,11 +256,6 @@ class TieredTrainer:
                emb_dense_optimizer: Optional[OptimizerFactory] = None,
                exact: bool = False, guard: bool = False, telemetry=None,
                overlap_host: bool = False, device="cuda"):
-    if overlap_host:
-      raise NotImplementedError(
-          "overlap_host=True (the tiered host pass on a worker thread, "
-          "pipeline.run_tiered_overlapped): not ported yet (ROADMAP.md §1 "
-          "item 11, pipeline)")
     _check_store(tplan, store, mesh)
     self.tplan = tplan
     self.store = store
@@ -378,7 +377,12 @@ class TieredTrainer:
 
   def run(self, batches: Iterable) -> list:
     """Train over GLOBAL host batches of ``(numerical, cats, labels)``
-    with the classify stage one batch ahead of the device step."""
+    with the classify stage one batch ahead of the device step; with
+    ``overlap_host`` the whole host pass (classify and cold gather) of
+    the next batch runs on a worker thread (``pipeline``)."""
+    if self.overlap_host:
+      from ..pipeline import run_tiered_overlapped
+      return run_tiered_overlapped(self, batches)
     losses = []
     it = iter(batches)
     nxt = next(it, None)

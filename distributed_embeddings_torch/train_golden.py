@@ -355,6 +355,66 @@ RULES_CPU_UPDATE_TOL = 0.02
 RULES_DENSE_CELL_SHARE = 0.99
 
 
+# The rules golden's second card bound: the card's replay against the
+# port's own CPU replay of the card's arithmetic
+# (``tests/data/torch_train_bf16_rules_card.npz``, written by
+# ``tests/test_torch_narrow_rules.py --write-card``): the interaction's
+# operands rounded to bf16 (``mxu_operand_dtype``) and K1-bf16's tiles
+# (``cuda_apply.plan_apply``: each tile's run of one id summed in f32 and
+# added to the bf16 row once), tiles in stream order. What is left between
+# the two is the order of the card's adds (a row's tile atomics, a run's
+# sum) and the f32 order of the interaction's sums. The bound reads the
+# second-moment lanes (Adam's ``v``) of every row the emulation touched:
+# at least RULES_CARD_MOMENT_SHARE of those cells within RULES_CARD_ULPS
+# bf16 ulps of the emulation. K1's stated rounding is at most 3 bf16 ulps
+# of a cell's absolute sum a hit, so a cell hit at most 5 times in a step
+# stays within 15 <= 16 ulps of an exact sum, and ``v`` accumulates
+# ``(1 - b2) g^2``, which the f32 order of ``g`` moves by a few parts in
+# 2^8 at most. A ``b2`` fault moves every touched row's ``v`` by the
+# factor ``(1 - b2') / (1 - b2)`` at its first step: 2 for ``b2=0.998``
+# against the golden's 0.999, about 128 ulps. (The share over every lane,
+# reported beside it, mixes in the table and first-moment lanes, whose
+# Adam step turns the f32 order of a small gradient into a whole step.)
+RULES_CARD_PATH = GOLDEN_PATH.with_name("torch_train_bf16_rules_card.npz")
+RULES_CARD_ULPS = 16
+RULES_CARD_MOMENT_SHARE = 0.5
+
+
+def compare_card_emulation(emulated: Dict[str, np.ndarray],
+                           losses: List[float],
+                           got: Dict[str, Dict[str, np.ndarray]],
+                           moment_share: float = RULES_CARD_MOMENT_SHARE
+                           ) -> Dict[str, float]:
+  """Hold a rules-golden replay to the CPU emulation of the card's
+  arithmetic (:data:`RULES_CARD_PATH`): the losses within
+  :data:`LOSS_TOL` of the emulation's, and in each bf16 buffer (Adam's
+  ``[table | m | v]`` lanes of one row a physical row) the share of the
+  ``v`` cells of the rows the emulation touched within
+  :data:`RULES_CARD_ULPS` bf16 ulps of the emulation's at least
+  ``moment_share``. Returns, per buffer, that share, the share of every
+  cell within the same ulps and the bit-equal share; raises
+  AssertionError naming the first buffer below."""
+  np.testing.assert_allclose(losses, emulated["losses"], **LOSS_TOL)
+  dim = int(emulated["dim"])
+  out: Dict[str, float] = {}
+  for name, w in _widened(emulated, "fused3").items():
+    g = got["fused"][name]
+    assert w.shape[1] == 3 * dim, (name, w.shape, dim)
+    m = np.maximum(np.abs(g), np.abs(w))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(m, 2.0 ** -126))) - 7)
+    within = np.abs(g - w) <= RULES_CARD_ULPS * ulp
+    touched = np.any(w[:, 2 * dim:] != 0, axis=1)
+    moment = float(within[touched][:, 2 * dim:].mean())
+    out[f"{name}/moment_within_share"] = moment
+    out[f"{name}/within_share"] = float(within.mean())
+    out[f"{name}/bit_equal_share"] = float((g == w).mean())
+    assert moment >= moment_share, (
+        f"fused/{name}: {moment:.4%} of the touched rows' second-moment "
+        f"cells within {RULES_CARD_ULPS} bf16 ulps of the card emulation "
+        f"(< {moment_share:.0%})")
+  return out
+
+
 def _bf16_ulps(got: np.ndarray, want: np.ndarray,
                init: np.ndarray, tensor_share=None) -> np.ndarray:
   """``max(|got - want| - BF16_ATOL - UPDATE_TOL * |want - init|, 0)`` in

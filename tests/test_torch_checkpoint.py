@@ -19,7 +19,7 @@
   state, which continues as the JAX run does.
 - **Refusals** with the JAX package's messages (wrong rule, plan,
   physical shape), the unported arguments naming their ROADMAP items,
-  a placement-only plan change naming item 11. (The ``telemetry``
+  a placement-only plan change re-sharded as the JAX package does. (The ``telemetry``
   section is ported: ``tests/test_torch_resilience.py``.)
 - **Atomicity and backup**: a ``.tmp`` is never restorable, a crash in
   the middle of a save leaves the previous checkpoint, ``.old`` is the
@@ -434,15 +434,16 @@ def test_unported_arguments_name_their_item(tmp_path, arg, item):
 
 def test_placement_only_mismatch_names_item_11(tmp_path):
   """A world-2 checkpoint (one process holding both ranks' blocks) under
-  the world-1 plan of the same tables: the JAX package re-shards it, the
-  port refuses, naming the item."""
+  the world-1 plan of the same tables: a placement-only change (ROADMAP
+  item 11b), re-sharded elastically by both packages. Every array of the
+  port's restore is bit-equal to the JAX package's elastic restore."""
   path, jplan2, _, jrule, trule, _ = _saved(tmp_path, world=2)
   jplan1, tplan1 = _plans({})
   _, _, _, _, _, state1 = _saved(tmp_path / "w1")
-  with pytest.raises(NotImplementedError, match="item 11"):
-    tck.restore(path, tplan1, trule, state1, device="cpu")
-  jck.restore(path, jplan1, jrule, _jax_init(jplan1, jrule,
-                                             optax.adagrad(LR)))
+  got = tck.restore(path, tplan1, trule, state1, device="cpu")
+  want = jck.restore(path, jplan1, jrule, _jax_init(jplan1, jrule,
+                                                    optax.adagrad(LR)))
+  _assert_snapshots(_port_snapshot(got), _jax_snapshot(want), exact=True)
 
 
 def test_tmp_is_never_restorable_and_old_is_the_fallback(tmp_path):

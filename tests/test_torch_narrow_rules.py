@@ -40,6 +40,13 @@ optimizers) and both packages run the same batches on the CPU:
   The card bound is shown to refuse a faulty Adam: with the interaction's
   operands rounded to bf16 on the CPU as on the card, the right rule
   passes it with the card's readings and three planted faults fail it.
+- the card emulation (``tests/data/torch_train_bf16_rules_card.npz``, the
+  rules golden replayed on the CPU with the card's bf16 interaction
+  operands and K1-bf16's tiles; rewrite it with ``python
+  tests/test_torch_narrow_rules.py --write-card``) current, and its bound
+  (``train_golden.compare_card_emulation``, the card's second) passed by
+  the emulation with its tiles in reverse order and refusing
+  ``b2=0.998``.
 """
 
 import functools
@@ -878,10 +885,108 @@ def test_rules_golden_cpu_bound_refuses_a_small_fault(rules_golden):
                              dense_cell_share=1.0)
 
 
+# ---- the card emulation: the rules golden's second card bound ------------
+
+
+def _card_k1(patch, reverse=False):
+  """K1-bf16's arithmetic on the CPU, as the card's kernel does it: the
+  occurrences cut into the launcher's tiles (``cuda_apply.plan_apply``),
+  each tile's run of one id summed in f32 and added to the bf16 row
+  once, the tiles in stream order (``reverse``: the other extreme of the
+  card's atomics' order). f32 buffers keep the plain version."""
+  from distributed_embeddings_torch.ops import cuda_apply
+  plain = cuda_apply.apply_rows_plain
+
+  def tiles(buf, ids, delta, scale=None):
+    if buf.dtype != torch.bfloat16:
+      return plain(buf, ids, delta, scale)
+    i = ids.reshape(-1).long()
+    d = delta.reshape(i.shape[0], -1).float()
+    if scale is not None:
+      d = d * float(torch.tensor(float(scale)).to(torch.bfloat16))
+    tile = cuda_apply.plan_apply(buf.shape[1], i.shape[0]).tile
+    starts = list(range(0, i.shape[0], tile))
+    for t0 in (starts[::-1] if reverse else starts):
+      ti, td = i[t0:t0 + tile], d[t0:t0 + tile]
+      keep = (ti >= 0) & (ti < buf.shape[0])
+      rows, inv = torch.unique(ti[keep], return_inverse=True)
+      run = torch.zeros((rows.shape[0], td.shape[1])).index_add_(
+          0, inv, td[keep])
+      buf[rows] = (buf[rows].float() + run).to(torch.bfloat16)
+    return buf
+
+  patch.setattr(cuda_apply, "apply_rows_plain", tiles)
+
+
+def card_emulation(golden, patch, reverse=False, adam_kw=None):
+  """The rules golden replayed on the CPU with the card's arithmetic:
+  the interaction's operands rounded to bf16 and K1-bf16's tiles
+  (:func:`_card_k1`). Returns ``(losses, final state)``."""
+  _card_operands(patch)
+  _card_k1(patch, reverse)
+  return port_golden.replay_bf16_rules(golden, device="cpu",
+                                       adam_kw=adam_kw)
+
+
+def card_emulation_arrays(golden, patch):
+  """What ``tests/data/torch_train_bf16_rules_card.npz`` holds: the
+  emulation's losses and final bf16 buffers as their ``uint16`` bits."""
+  losses, got = card_emulation(golden, patch)
+  out = {"losses": np.asarray(losses, np.float32), "dim": golden["dim"]}
+  for name, v in got["fused"].items():
+    out[f"fused3/{name}"] = (np.ascontiguousarray(v, np.float32).view(
+        np.uint32) >> 16).astype(np.uint16)
+  return out
+
+
+def test_committed_card_emulation_is_current(rules_golden, monkeypatch):
+  committed = port_golden.load(port_golden.RULES_CARD_PATH)
+  fresh = card_emulation_arrays(rules_golden, monkeypatch)
+  assert sorted(fresh) == sorted(committed)
+  for key, arr in fresh.items():
+    np.testing.assert_array_equal(arr, committed[key], err_msg=key)
+
+
+# the card emulation's bound on the card's other extreme (its tiles'
+# atomics in reverse order: passes) and on a small planted fault (fails)
+CARD_EMULATION_CASES = {"tiles reversed": (True, {}, True),
+                        "b2=0.998": (False, {"b2": 0.998}, False)}
+
+
+@pytest.mark.parametrize("case", list(CARD_EMULATION_CASES))
+def test_card_emulation_bound_refuses_b2_0998(rules_golden, monkeypatch,
+                                              case, capsys):
+  """The second card bound (``train_golden.compare_card_emulation``):
+  the emulation with its K1 tiles added in reverse order stays within it,
+  Adam with ``b2=0.998`` (the golden's is 0.999) does not."""
+  reverse, adam_kw, right = CARD_EMULATION_CASES[case]
+  committed = port_golden.load(port_golden.RULES_CARD_PATH)
+  losses, got = card_emulation(rules_golden, monkeypatch, reverse, adam_kw)
+  loose = port_golden.compare_card_emulation(committed, losses, got,
+                                             moment_share=0.0)
+  if right:
+    port_golden.compare_card_emulation(committed, losses, got)
+  else:
+    with pytest.raises(AssertionError, match="card emulation"):
+      port_golden.compare_card_emulation(committed, losses, got)
+  with capsys.disabled():
+    print(f"\ncard emulation bound, {case}: {loose}")
+
+
 if __name__ == "__main__":
-  if sys.argv[1:] != ["--write"]:
-    sys.exit("usage: python tests/test_torch_narrow_rules.py --write")
+  if sys.argv[1:] not in (["--write"], ["--write-card"]):
+    sys.exit("usage: python tests/test_torch_narrow_rules.py --write | "
+             "--write-card")
   jax.config.update("jax_platforms", "cpu")
-  np.savez_compressed(port_golden.BF16_RULES_PATH, **make_rules_golden())
-  print(port_golden.BF16_RULES_PATH,
-        port_golden.BF16_RULES_PATH.stat().st_size)
+  if sys.argv[1] == "--write":
+    np.savez_compressed(port_golden.BF16_RULES_PATH, **make_rules_golden())
+    print(port_golden.BF16_RULES_PATH,
+          port_golden.BF16_RULES_PATH.stat().st_size)
+  else:
+    torch.set_num_threads(1)  # as the tests run it (one_torch_thread)
+    with pytest.MonkeyPatch.context() as patch:
+      arrays = card_emulation_arrays(
+          port_golden.load(port_golden.BF16_RULES_PATH), patch)
+    np.savez_compressed(port_golden.RULES_CARD_PATH, **arrays)
+    print(port_golden.RULES_CARD_PATH,
+          port_golden.RULES_CARD_PATH.stat().st_size)

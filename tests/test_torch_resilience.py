@@ -539,14 +539,30 @@ def test_sigterm_drain_snapshots_and_the_handler_is_restored(twins,
     ({"dynvocab": object()}, "item 12"), ({"stream": object()}, "item 12"),
     ({"overlap_host": True}, "item 11")])
 def test_trainer_refusals_name_their_item(twins, tmp_path, kw, item):
+  if item == "item 11":
+    # item 11a ported overlap_host: without a tiered trainer there is no
+    # host pass to overlap, refused as the JAX trainer refuses it
+    with pytest.raises(ValueError) as got:
+      twins.port(tmp_path / "p", **kw)
+    with pytest.raises(ValueError) as want:
+      twins.jax(tmp_path / "j", **kw)
+    assert str(got.value) == str(want.value)
+    assert "without a tiered" in str(got.value)
+    return
   with pytest.raises(NotImplementedError, match=item):
     twins.port(tmp_path, **kw)
 
 
 def test_other_refusals(twins, tmp_path):
   t = twins.port(tmp_path / "r", resume=False)
-  with pytest.raises(NotImplementedError, match="item 11"):
+  jt = twins.jax(tmp_path / "j", resume=False)
+  # item 11b ported resize: without the new world's step it is refused
+  # as the JAX trainer refuses it
+  with pytest.raises(ValueError) as got:
     t.resize(2)
+  with pytest.raises(ValueError) as want:
+    jt.resize(2)
+  assert str(got.value) == str(want.value)
   t4 = twins.port(tmp_path / "r4", resume=False,
                   mesh=Mesh(rank=0, world=4, device=torch.device("cpu"),
                             backend="gloo"))

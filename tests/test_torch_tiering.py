@@ -28,7 +28,7 @@ width 16, ``host_row_threshold=1000``, Adagrad 0.05, power-law ids).
 - **Guard.** A poisoned batch through the guarded trainer leaves every
   buffer and image bit-equal and is counted.
 - **Refusals.** ``make_tiered_train_step``'s refusals with the JAX
-  messages, ``overlap_host`` naming ROADMAP item 11, ``RaggedIds`` in the
+  messages, ``overlap_host`` building the pipelined trainer, ``RaggedIds`` in the
   classify.
 """
 
@@ -477,9 +477,11 @@ def test_step_refusals_match_jax():
 
 def test_unported_options_name_their_item():
   tplan, rule, store, trainer = _port_trainer(CONFIGS["spill"])
-  with pytest.raises(NotImplementedError, match="item 11"):
-    tt.TieredTrainer(C.torch_model(), tplan, store, bce_loss, _adam(), rule,
-                     None, trainer.state, overlap_host=True, device="cpu")
+  # overlap_host (item 11a) is ported: the flag builds a trainer that
+  # runs the pipeline (tests/test_torch_pipeline.py holds it to serial)
+  assert tt.TieredTrainer(C.torch_model(), tplan, store, bce_loss, _adam(),
+                          rule, None, trainer.state, overlap_host=True,
+                          device="cpu").overlap_host
   rg = RaggedIds(torch.tensor([1, 2, 3]), torch.tensor([0, 1, 3]))
   cats = [rg, torch.tensor([0, 1]), torch.tensor([0, 1])]
   with pytest.raises(NotImplementedError, match="ragged_to_padded"):

@@ -14,7 +14,7 @@ not its Adam state).
   restores the same arrays and resumes in the f32 class of the port's.
 - **Refusals** with the JAX messages: a geometry mismatch, a tiered
   checkpoint without its store, and a tiered plan saved without its
-  store; a world change names ROADMAP item 11.
+  store; a world change is re-sharded as the JAX package re-shards it.
 - **ResilientTrainer(tiered=)**: a NaN batch skipped, snapshots every two
   committed steps (sync and async), a fresh trainer resuming the root at
   its consumed position continues bit-equal to the uninterrupted run, and
@@ -191,13 +191,20 @@ def test_tiered_checkpoint_refusals_match_jax(tmp_path):
   assert "HostTierStore" in same(
       lambda: tck.save(str(tmp_path / "x"), tplan.plan, trule, tr.state),
       lambda: jck.save(str(tmp_path / "y"), jplan.plan, jrule, jtr.state))
-  # the same tables on two ranks: a placement-only change (the JAX
-  # package re-shards the cold images elastically, the port refuses)
+  # the same tables on two ranks: a placement-only change, re-sharded
+  # elastically by both packages (cold images, counts and resident sets
+  # bit-equal)
   rule = tpt.adagrad_rule(C.LR)
   tplan2 = tt.TieringPlan(C.torch_plan(2), rule, tt.TieringConfig(**CFG))
-  with pytest.raises(NotImplementedError, match="item 11"):
-    tck.restore(path, tplan2.plan, rule, tr.state,
-                store=tt.HostTierStore(tplan2), device="cpu")
+  jplan2 = jt.TieringPlan(C.jax_plan(2), jrule, jt.TieringConfig(**CFG))
+  tstore2, jstore2 = tt.HostTierStore(tplan2), jt.HostTierStore(jplan2)
+  got = tck.restore(path, tplan2.plan, rule, tr.state, store=tstore2,
+                    device="cpu")
+  want = jck.restore(path, jplan2.plan, jrule, jtr.state, store=jstore2)
+  _assert_equal(_tier_arrays(tstore2), _tier_arrays(jstore2))
+  for name, buf in want["fused"].items():
+    np.testing.assert_array_equal(got["fused"][name].numpy(),
+                                  np.asarray(buf), err_msg=name)
 
 
 def _poisoned(batches, at):

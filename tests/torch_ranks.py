@@ -1323,3 +1323,239 @@ def leader_batcher_job(mesh, spec):
   mb = world_batcher(eng, max_batch, start=False)
   mb.close()
   return out
+
+
+def _elastic_cell(world, spec):
+  """``tests/test_elastic.py``'s cell in the port at ``world``: the plan
+  (``[300, 200, 150, 20]``, width 16, the 20-row table a dense class),
+  the DLRM without tables, Adagrad on both sides."""
+  import functools
+
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.layers.planner import \
+      DistEmbeddingStrategy
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.ops import packed_table as tpt
+  plan = DistEmbeddingStrategy(
+      [dict(input_dim=v, output_dim=16,
+            initializer={"name": "uniform", "scale": 0.05})
+       for v in spec["vocab"]], world, "basic", dense_row_threshold=32)
+  model = DLRM(spec["vocab"], 16, bottom_mlp=(32, 16), top_mlp=(32, 1),
+               num_numerical=13, tables=False, device="cpu")
+  return (plan, model, tpt.adagrad_rule(0.05),
+          functools.partial(ttr.Adagrad, lr=0.05))
+
+
+def _rank_arrays(state):
+  """This rank's fused blocks, dense-class block, dense parameters and
+  both optimizers' optax states, numpy copies."""
+  import numpy as np
+
+  from distributed_embeddings_torch.convert import (
+      dense_state_dict_to_flax,
+      optax_state_of,
+  )
+  from distributed_embeddings_torch.resilience.elastic import \
+      flatten_with_paths
+  out = {f"fused/{k}": v.numpy().copy() for k, v in state["fused"].items()}
+  out.update({f"emb_dense/{k}": v.detach().numpy().copy()
+              for k, v in state["emb_dense"].items()})
+  out.update({f"dense/{k}": np.asarray(v).copy()
+              for k, v in flatten_with_paths(
+                  dense_state_dict_to_flax(state["dense"])).items()})
+  for part in ("dense", "emb_dense"):
+    flat = optax_state_of(state[f"{part}_opt"], state[part])
+    out.update({f"{part}_opt/{k}": np.asarray(v).copy()
+                for k, v in flat.items()})
+  out["step"] = state["step"]
+  return out
+
+
+def elastic_job(mesh, spec):
+  """Elastic restores at world N (``tests/test_torch_elastic.py``): every
+  rank restores the JAX world-4 checkpoint ``spec['path4']`` onto the
+  world-``N`` plan (each rank reads only its own target blocks) and
+  returns its arrays, takes one step and returns the loss, and the ranks
+  save the restored state at ``spec['back']`` (for the 4 -> N -> 4 round
+  trip). Padding neutrality: the JAX world-N checkpoint ``spec['pathn']``
+  restored as it was and the same state after a trip through world 4
+  (``spec['pathn_4']``, elastic) each take one step; both losses and
+  resulting arrays are returned."""
+  from distributed_embeddings_torch import checkpoint as tck
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.models import bce_loss
+
+  plan, model, rule, factory = _elastic_cell(mesh.world, spec)
+  like = ttr._with_optimizers(train_state_from_flax(spec["like"], mesh=mesh),
+                              factory, None)
+  step = ttr.make_sparse_train_step(model, plan, bce_loss, factory, rule,
+                                    mesh=mesh)
+  batch = ttr.shard_batch(spec["batch"], mesh, device="cpu")
+
+  def one(state):
+    state, loss = step(state, *batch)
+    return float(loss), _rank_arrays(state)
+
+  out = {}
+  s = tck.restore(spec["path4"], plan, rule, like, mesh=mesh)
+  out["restored"] = _rank_arrays(s)
+  tck.save(spec["back"], plan, rule, s, mesh=mesh)
+  out["loss"], _ = one(s)
+  a = tck.restore(spec["pathn"], plan, rule, like, mesh=mesh)
+  b = tck.restore(spec["pathn_4"], plan, rule, like, mesh=mesh)
+  out["direct"], out["trip"] = one(a), one(b)
+  return out
+
+
+def preempt_job(mesh, spec):
+  """In-run resizes across processes (``tests/test_torch_preempt.py``):
+  every rank is a pod member (``m<rank>``) of ``spec['pod']``.
+
+  Sparse: a guarded ``ResilientTrainer`` of ``tests/test_elastic.py``'s
+  cell (the JAX initial state ``spec['state']``) runs ``spec['batches']``
+  and resizes 4 -> 2 before batch ``spec['shrink_at']`` (members 2 and 3
+  park: they hold no state and wait at the next barrier) and 2 -> 4
+  before batch ``spec['grow_at']`` (they return); each rank returns its
+  arrays on both sides of each boundary, its losses and accounting. Then
+  the same stream unresized at world 4 (the reference).
+
+  Tiered: a guarded tiered trainer of the tiered cell takes
+  ``spec['tiered_steps']`` steps at world 4 (each rank's store owning its
+  rank), resizes 4 -> 2 (members 2 and 3 park), and takes the rest; each
+  rank returns its store and state on both sides of the boundary."""
+  import functools
+  import os
+
+  import numpy as np
+  import torch
+
+  from distributed_embeddings_torch import tiering as tt
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.parallel.mesh import rank_mesh
+  from distributed_embeddings_torch.resilience import elastic
+  from distributed_embeddings_torch.resilience.trainer import \
+      ResilientTrainer
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+
+  member = f"m{mesh.rank}"
+  pod = spec["pod"]
+  elastic.register_member(pod, member)
+  model = _elastic_cell(1, spec)[1]
+  rule, factory = _elastic_cell(1, spec)[2:]
+
+  def step_for(world, new_mesh):
+    plan = _elastic_cell(world, spec)[0]
+    return plan, ttr.make_sparse_train_step(
+        model, plan, bce_loss, factory, rule,
+        mesh=new_mesh if world > 1 else None, guard=True)
+
+  def new_mesh_for(world):
+    r = elastic.member_rank(elastic.alive_members(pod), member, world)
+    return None if r is None else rank_mesh(world, r, "cpu")
+
+  reg = MetricsRegistry()
+  plan4, step4 = step_for(4, mesh)
+  state = ttr._with_optimizers(train_state_from_flax(spec["state"],
+                                                     mesh=mesh),
+                               factory, None)
+  t = ResilientTrainer(step4, state, plan4, rule,
+                       os.path.join(pod, f"ckpt_{member}"), mesh=mesh,
+                       resume=False, telemetry=reg)
+  out = {"losses": {}, "boundary": {}}
+  epoch = 0
+  for i, batch in enumerate(spec["batches"]):
+    if i in (spec["shrink_at"], spec["grow_at"]):
+      world = 2 if i == spec["shrink_at"] else 4
+      epoch += 1
+      if not t.parked:
+        out["boundary"][f"{epoch}/before"] = _rank_arrays(t.state)
+      new_mesh = new_mesh_for(world)
+      step = step_for(world, new_mesh)[1] if new_mesh is not None else None
+      t.resize(world, step, new_mesh=new_mesh, pod_dir=pod,
+               barrier_epoch=epoch, member_id=member, n_participants=4)
+      if not t.parked:
+        out["boundary"][f"{epoch}/after"] = _rank_arrays(t.state)
+    if t.parked:
+      continue
+    out["losses"][i] = t.step(*ttr.shard_batch(batch, t.mesh, device="cpu"))
+  out["accounting"] = {"consumed": t.consumed, "steps": t.step_count,
+                       "skipped": t.skipped_steps,
+                       "resumed_from": t.resumed_from,
+                       "resizes": reg.counter("elastic/resizes").value,
+                       "barriers": reg.counter(
+                           "elastic/membership_barriers").value}
+  mesh4 = t.mesh
+  ref_state = ttr._with_optimizers(train_state_from_flax(spec["state"],
+                                                         mesh=mesh4),
+                                   factory, None)
+  ref = ResilientTrainer(step_for(4, mesh4)[1], ref_state, plan4, rule,
+                         os.path.join(pod, f"ref_{member}"), mesh=mesh4,
+                         resume=False, telemetry=MetricsRegistry())
+  out["ref_losses"] = [ref.step(*ttr.shard_batch(b, mesh4, device="cpu"))
+                       for b in spec["batches"]]
+
+  # tiered: 4 -> 2 with two members parking
+  import torch_tiering_cases as TC
+  from distributed_embeddings_torch.ops import packed_table as tpt
+  trule = tpt.adagrad_rule(TC.LR)
+  cfg = tt.TieringConfig(cache_fraction=0.3, staging_grps=64)
+  torch.manual_seed(0)  # the same dense parameters on every rank
+  tmodel = TC.torch_model()
+  tfactory = functools.partial(ttr.Adagrad, lr=TC.LR)
+
+  def tiered_for(world, m):
+    tplan = tt.TieringPlan(TC.torch_plan(world), trule, cfg)
+    store = tt.HostTierStore(tplan, owned_ranks=(m.rank,) if world > 1
+                             else None)
+
+    def factory_(new_state):
+      return tt.TieredTrainer(tmodel, tplan, store, bce_loss, tfactory,
+                              trule, m if world > 1 else None, new_state,
+                              guard=True, device="cpu")
+    return tplan, store, factory_
+
+  tplan4, store4, _ = tiered_for(4, mesh4)
+  tstate = tt.init_tiered_state(
+      tplan4, store4, trule, tmodel.state_dict(), tfactory,
+      torch.Generator().manual_seed(7 + mesh4.rank), mesh=mesh4,
+      image_seed=5)
+  tr = ResilientTrainer(None, None, tplan4.plan, trule,
+                        os.path.join(pod, f"tck_{member}"), mesh=mesh4,
+                        resume=False, telemetry=MetricsRegistry(),
+                        tiered=tt.TieredTrainer(
+                            tmodel, tplan4, store4, bce_loss, tfactory,
+                            trule, mesh4, tstate, guard=True))
+  tb = [TC.jax_batch(900 + i) for i in range(spec["tiered_steps"] + 2)]
+  out["tiered"] = {"losses": [tr.step(*b) for b in tb[:spec["tiered_steps"]]]}
+
+  def tier_arrays(trainer):
+    trainer.tiered.flush()
+    st = trainer.store
+    got = {f"{part}/{name}/{r}": np.asarray(v).copy()
+           for part in ("images", "resident_grps", "counts")
+           for name, per in getattr(st, part).items()
+           for r, v in enumerate(per) if v is not None}
+    got.update(_rank_arrays(trainer.state))
+    return got
+
+  out["tiered"]["before"] = tier_arrays(tr)
+  new_mesh = new_mesh_for(2)
+  if new_mesh is not None:
+    tplan2, store2, factory2 = tiered_for(2, new_mesh)
+    tr.resize(2, new_mesh=new_mesh, new_store=store2,
+              tiered_factory=factory2, pod_dir=pod, barrier_epoch=epoch + 1,
+              member_id=member, n_participants=4)
+    out["tiered"]["after"] = tier_arrays(tr)
+    out["tiered"]["losses"] += [tr.step(*b) for b in tb[spec["tiered_steps"]:]]
+    out["tiered"]["missed"] = sum(
+        v["missed"] for v in tr.tiered.metrics_summary()["per_class"].values())
+    out["tiered"]["accounting"] = (tr.consumed, tr.step_count,
+                                   tr.skipped_steps)
+  else:
+    tr.resize(2, pod_dir=pod, barrier_epoch=epoch + 1, member_id=member,
+              n_participants=4)
+    out["tiered"]["parked"] = tr.parked
+  return out
