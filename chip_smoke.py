@@ -703,8 +703,9 @@ W4_TIERED_STEPS = 3
 TIERED_OVERLAP_VS_STEPS = 6     # tiered_overlap_vs_serial: a NaN batch, a
 TIERED_OVERLAP_VS_NAN = 2       # re-rank every 3 steps, batch 4 repeating
 TIERED_OVERLAP_VS_RERANK = 3    # batch 3 (its cold rows written back while
-TIERED_OVERLAP_VS_BATCH = 64    # the worker gathers them); distinct ids in a
-#                                 sparse table's column of a batch
+TIERED_OVERLAP_VS_BATCH = 64    # the worker gathers them): distinct ids in a
+#                                 sparse table's column of a batch, then the
+#                                 cell's power-law traffic (TRAIN_BATCH)
 W4_ELASTIC_VOCAB_SCALE = 512    # world4_elastic: the world-4 plan's tables
 W4_ELASTIC_BATCH = 16384        # global batch of its steps
 # tiered serving (serve_tiered and the phases after it): the train_tiered
@@ -7990,44 +7991,22 @@ def phase_train_tiered_overlap(torch, smi: str, trained: dict) -> dict:
   return got
 
 
-def phase_tiered_overlap_vs_serial(torch, smi: str) -> dict:
-  """``tiered_overlap_vs_serial``: the train_tiered cell at 1/
-  ``TIERED_VS_SCALE`` (images drawn on the card), a cache of half of each
-  host-tier class, a re-rank every ``TIERED_OVERLAP_VS_RERANK`` steps,
-  guarded. From one drawn state and a copy of it (and of its store), the
-  serial ``TieredTrainer.run`` and the overlapped one take the same
-  ``TIERED_OVERLAP_VS_STEPS`` batches of ``TIERED_OVERLAP_VS_BATCH``
-  samples (a NaN batch the guard skips, one batch repeating the one
-  before it): losses, every fused buffer, the reconciled host images,
-  resident sets, observed counts and hit counters bit-equal, the conflict
-  rows re-gathered. A second serial run from another copy shows the
-  card's own run-to-run spread is nil in this cell: the ids of a sparse
-  table's batch column are distinct, so no row of a sparse class takes
-  two occurrences in a step (K1 adds a row's duplicates in an order that
-  varies, and the order of three f32 adds or more changes their sum),
-  and PyTorch's scatters run deterministically. Returns the launches."""
-  import numpy as np
-
-  from distributed_embeddings_torch.models import DLRM, bce_loss
-  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+def overlap_vs_serial_runs(torch, tplan, model, rule, batches, want,
+                           totals, form: str) -> dict:
+  """One form of ``tiered_overlap_vs_serial``: a state drawn on the card
+  (its images on the host) and two copies of it (and of its store) take
+  ``batches`` through the serial ``TieredTrainer.run`` (``serial``), the
+  serial run again (``serial_again``) and the overlapped one
+  (``overlap``), guarded; each run's launches are checked against
+  ``want`` a step and added to ``totals``. Returns the runs by tag."""
+  from distributed_embeddings_torch.models import bce_loss
   from distributed_embeddings_torch.telemetry import MetricsRegistry
   from distributed_embeddings_torch.tiering import (
       HostTierStore,
       TieredTrainer,
-      TieringConfig,
-      TieringPlan,
       init_tiered_state,
   )
 
-  vocab = [max(4, v // TIERED_VS_SCALE) for v in CRITEO_1TB_VOCAB]
-  plan = tiered_plan(vocab, TIERED_VS_SCALE)
-  rule = sgd_rule(TRAIN_LR)
-  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
-  tplan = TieringPlan(plan, rule, TieringConfig(
-      cache_fraction=0.5, staging_grps=1024,
-      rerank_interval=TIERED_OVERLAP_VS_RERANK))
-  model = DLRM(vocab, D, tables=False, device="cuda",
-               generator=torch.Generator().manual_seed(SEED))
   store = HostTierStore(tplan)
   state = init_tiered_state(
       tplan, store, rule, model.state_dict(), sgd_factory(torch),
@@ -8039,26 +8018,10 @@ def phase_tiered_overlap_vs_serial(torch, smi: str) -> dict:
     for name in tplan.tier_specs:
       twin_store.set_image(name, 0, store.images[name][0])
     twins.append((twin_state(state), twin_store))
-  rng = np.random.default_rng(SEED + 19)
-  b = TIERED_OVERLAP_VS_BATCH
-  # distinct ids within each sparse table's batch column (the dense
-  # classes' tables are smaller than the batch)
-  batches = [(rng.standard_normal((b, 13)).astype(np.float32),
-              [rng.choice(v, b, replace=v < b).astype(np.int32)
-               for v in vocab],
-              rng.integers(0, 2, b).astype(np.float32))
-             for _ in range(TIERED_OVERLAP_VS_STEPS)]
-  numerical = batches[TIERED_OVERLAP_VS_NAN][0].copy()
-  numerical[0, 0] = np.nan
-  batches[TIERED_OVERLAP_VS_NAN] = (numerical,) + batches[
-      TIERED_OVERLAP_VS_NAN][1:]
-  batches[4] = batches[3]
-  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
-  totals = expect()
   deterministic = torch.are_deterministic_algorithms_enabled()
   torch.use_deterministic_algorithms(True, warn_only=True)
+  runs = {}
   try:
-    runs = {}
     for tag, (st, sto) in zip(("serial", "serial_again", "overlap"),
                               [(state, store)] + twins):
       trainer = TieredTrainer(model, tplan, sto, bce_loss,
@@ -8073,64 +8036,167 @@ def phase_tiered_overlap_vs_serial(torch, smi: str) -> dict:
       got = read_counts()
       # the guard's skipped step launches the same kernels and commits
       # nothing
-      check(got == {k: v * TIERED_OVERLAP_VS_STEPS for k, v in want.items()},
-            f"tiered_overlap_vs_serial {tag}: launches {got}, expected "
-            f"{want} a step")
+      check(got == {k: v * len(batches) for k, v in want.items()},
+            f"tiered_overlap_vs_serial {form} {tag}: launches {got}, "
+            f"expected {want} a step")
       add_counts(totals, got)
       trainer.flush()
       runs[tag] = {"trainer": trainer, "losses": losses, "wall_s": wall_s}
   finally:
     torch.use_deterministic_algorithms(deterministic)
-  a = runs["serial"]["trainer"]
-  la = runs["serial"]["losses"]
+  return runs
 
-  def differ(b):
-    # every array the runs hold, by name, with the cells that differ
-    out = {}
-    pairs = [(f"fused/{k}", a.state["fused"][k], b.state["fused"][k])
-             for k in a.state["fused"]]
-    pairs += [(f"{part}/{n}", torch.from_numpy(np.asarray(getattr(
-        a.store, part)[n][0])), torch.from_numpy(np.asarray(getattr(
-            b.store, part)[n][0])))
-              for part in ("images", "resident_grps", "counts")
-              for n in tplan.tier_specs]
-    pairs += [(f"hits/{n}", torch.from_numpy(a.hits[n]),
-               torch.from_numpy(b.hits[n])) for n in a.hits]
-    for k, x, y in pairs:
-      if not torch.equal(x, y):
-        out[k] = int((x != y).sum())
-    return out
 
-  bad = {tag: differ(runs[tag]["trainer"])
-         for tag in ("serial_again", "overlap")}
-  for tag in ("serial_again", "overlap"):
-    lb = runs[tag]["losses"]
-    check(np.array_equal(np.asarray(la), np.asarray(lb), equal_nan=True),
-          f"tiered_overlap_vs_serial: {tag} losses {lb} != serial {la}")
-    check(not bad[tag], f"tiered_overlap_vs_serial: the {tag} run's "
-          f"arrays differ from the serial run's (cells): {bad[tag]}"
-          + (f"; two serial runs differ too: {bad['serial_again']}"
-             if tag == "overlap" and bad["serial_again"] else ""))
-  b = runs["overlap"]["trainer"]
-  check(not np.isfinite(la[TIERED_OVERLAP_VS_NAN]) and a.bad_steps == 1
-        and b.bad_steps == 1, f"tiered_overlap_vs_serial: the NaN batch "
-        f"was not skipped ({la}, {a.bad_steps}, {b.bad_steps})")
-  regathered = b.telemetry.counter("tiered/conflict_rows_regathered").value
-  check(regathered > 0, "tiered_overlap_vs_serial: no conflict row was "
-        "re-gathered")
-  hidden = b.telemetry.histogram("tiered/overlap_hidden_s")
-  emit({"phase": "tiered_overlap_vs_serial", "card": smi,
-        "vocab_scale": f"1/{TIERED_VS_SCALE}",
-        "batch": TIERED_OVERLAP_VS_BATCH, "steps": TIERED_OVERLAP_VS_STEPS,
-        "nan_batch": TIERED_OVERLAP_VS_NAN,
-        "rerank_interval": TIERED_OVERLAP_VS_RERANK,
-        "geometry": tplan.geometry(), "losses": la,
-        "bit_equal": True, "conflict_rows_regathered": regathered,
-        "worker_jobs": hidden.count, "overlap_hidden_s_mean": hidden.mean,
-        "wall_s": {tag: r["wall_s"] for tag, r in runs.items()},
-        "launches_per_step": want})
-  del a, b, runs, state, twins, store
-  torch.cuda.empty_cache()
+def run_arrays_differ(torch, tplan, a, b) -> dict:
+  """Every array two tiered trainers hold, by name (fused buffers, host
+  images, resident sets, observed counts, hit counters): for each that
+  differs, the cells that differ and the largest |b - a| (by row
+  chunks; the integer arrays in int64)."""
+  import numpy as np
+
+  pairs = [(f"fused/{k}", a.state["fused"][k], b.state["fused"][k])
+           for k in a.state["fused"]]
+  pairs += [(f"{part}/{n}", torch.from_numpy(np.asarray(getattr(
+      a.store, part)[n][0])), torch.from_numpy(np.asarray(getattr(
+          b.store, part)[n][0])))
+            for part in ("images", "resident_grps", "counts")
+            for n in tplan.tier_specs]
+  pairs += [(f"hits/{n}", torch.from_numpy(a.hits[n]),
+             torch.from_numpy(b.hits[n])) for n in a.hits]
+  out = {}
+  for k, x, y in pairs:
+    if torch.equal(x, y):
+      continue
+    cells, worst = 0, 0.0
+    for r0 in range(0, x.shape[0], 1 << 16):
+      xs, ys = x[r0:r0 + (1 << 16)], y[r0:r0 + (1 << 16)]
+      if torch.equal(xs, ys):
+        continue
+      d = ys - xs if xs.is_floating_point() else ys.long() - xs.long()
+      cells += int(torch.count_nonzero(d))
+      worst = max(worst, float(d.abs_().max()))
+    out[k] = {"cells": cells, "max_abs_err": worst}
+  return out
+
+
+def phase_tiered_overlap_vs_serial(torch, smi: str) -> dict:
+  """``tiered_overlap_vs_serial``: the train_tiered cell at 1/
+  ``TIERED_VS_SCALE`` (images drawn on the card), a cache of half of each
+  host-tier class, a re-rank every ``TIERED_OVERLAP_VS_RERANK`` steps,
+  guarded, in two forms of ``TIERED_OVERLAP_VS_STEPS`` batches (a NaN
+  batch the guard skips, one batch repeating the one before it), each
+  from its own drawn state through :func:`overlap_vs_serial_runs`.
+
+  ``distinct``: ``TIERED_OVERLAP_VS_BATCH`` samples whose ids in a sparse
+  table's batch column are distinct, so no row of a sparse class takes
+  two occurrences in a step (K1 adds a row's duplicates in an order that
+  varies, and the order of three f32 adds or more changes their sum) and
+  PyTorch's scatters run deterministically: the overlapped run's losses,
+  fused buffers, reconciled host images, resident sets, observed counts
+  and hit counters are bit-equal to the serial run's, as the second
+  serial run's are; conflict rows are re-gathered.
+
+  ``power_law``: the cell's own traffic, ``TRAIN_BATCH`` power-law ids at
+  ``TIERED_ALPHA``, where hot rows repeat and K1's order shows: for every
+  buffer, image, resident set, count and hit counter, max |overlap -
+  serial| <= 2 max |serial_again - serial| (``train_tiered_vs_device``'s
+  rule: the counts, sets and hits, which K1 does not touch, so stay
+  bit-equal), and the losses within rtol 1e-5 / atol 1e-6. Returns the
+  launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models import DLRM
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.tiering import TieringConfig, TieringPlan
+
+  vocab = [max(4, v // TIERED_VS_SCALE) for v in CRITEO_1TB_VOCAB]
+  plan = tiered_plan(vocab, TIERED_VS_SCALE)
+  rule = sgd_rule(TRAIN_LR)
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  tplan = TieringPlan(plan, rule, TieringConfig(
+      cache_fraction=0.5, staging_grps=1024,
+      rerank_interval=TIERED_OVERLAP_VS_RERANK))
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rng = np.random.default_rng(SEED + 19)
+  b = TIERED_OVERLAP_VS_BATCH
+  # distinct ids within each sparse table's batch column (the dense
+  # classes' tables are smaller than the batch)
+  forms = {"distinct": [
+      (rng.standard_normal((b, 13)).astype(np.float32),
+       [rng.choice(v, b, replace=v < b).astype(np.int32) for v in vocab],
+       rng.integers(0, 2, b).astype(np.float32))
+      for _ in range(TIERED_OVERLAP_VS_STEPS)],
+      "power_law": tiered_batches(vocab, TIERED_OVERLAP_VS_STEPS,
+                                  TRAIN_BATCH, SEED + 23)}
+  for batches in forms.values():
+    numerical = batches[TIERED_OVERLAP_VS_NAN][0].copy()
+    numerical[0, 0] = np.nan
+    batches[TIERED_OVERLAP_VS_NAN] = (numerical,) + batches[
+        TIERED_OVERLAP_VS_NAN][1:]
+    batches[4] = batches[3]
+  want = expect(interact_fwd=1, interact_bwd=1, apply_rows=n_sparse)
+  totals = expect()
+  line = {"phase": "tiered_overlap_vs_serial", "card": smi,
+          "vocab_scale": f"1/{TIERED_VS_SCALE}",
+          "steps": TIERED_OVERLAP_VS_STEPS,
+          "nan_batch": TIERED_OVERLAP_VS_NAN,
+          "rerank_interval": TIERED_OVERLAP_VS_RERANK,
+          "geometry": tplan.geometry(), "launches_per_step": want}
+  for form, batches in forms.items():
+    t0 = time.perf_counter()
+    runs = overlap_vs_serial_runs(torch, tplan, model, rule, batches, want,
+                                  totals, form)
+    t1 = time.perf_counter()
+    a = runs["serial"]["trainer"]
+    la = runs["serial"]["losses"]
+    bad = {tag: run_arrays_differ(torch, tplan, a, runs[tag]["trainer"])
+           for tag in ("serial_again", "overlap")}
+    compare_s = time.perf_counter() - t1
+    b = runs["overlap"]["trainer"]
+    check(not np.isfinite(la[TIERED_OVERLAP_VS_NAN]) and a.bad_steps == 1
+          and b.bad_steps == 1, f"tiered_overlap_vs_serial {form}: the NaN "
+          f"batch was not skipped ({la}, {a.bad_steps}, {b.bad_steps})")
+    regathered = b.telemetry.counter(
+        "tiered/conflict_rows_regathered").value
+    hidden = b.telemetry.histogram("tiered/overlap_hidden_s")
+    res = {"batch": len(batches[0][2]), "losses": la,
+           "conflict_rows_regathered": regathered,
+           "worker_jobs": hidden.count, "overlap_hidden_s_mean": hidden.mean,
+           "wall_s": {tag: r["wall_s"] for tag, r in runs.items()},
+           "draw_and_runs_s": t1 - t0, "compare_s": compare_s,
+           "differ": bad}
+    if form == "distinct":
+      for tag in ("serial_again", "overlap"):
+        lb = runs[tag]["losses"]
+        check(np.array_equal(np.asarray(la), np.asarray(lb), equal_nan=True),
+              f"tiered_overlap_vs_serial {form}: {tag} losses {lb} != "
+              f"serial {la}")
+        check(not bad[tag], f"tiered_overlap_vs_serial {form}: the {tag} "
+              f"run's arrays differ from the serial run's: {bad[tag]}"
+              + (f"; two serial runs differ too: {bad['serial_again']}"
+                 if tag == "overlap" and bad["serial_again"] else ""))
+      check(regathered > 0, "tiered_overlap_vs_serial: no conflict row was "
+            "re-gathered")
+      res["bit_equal"] = True
+    else:
+      lb = runs["overlap"]["losses"]
+      check(np.allclose(lb, la, rtol=1e-5, atol=1e-6, equal_nan=True),
+            f"tiered_overlap_vs_serial {form}: overlap losses {lb} vs "
+            f"serial {la}")
+      for k, d in bad["overlap"].items():
+        again = bad["serial_again"].get(k, {"max_abs_err": 0.0})
+        check(d["max_abs_err"] <= 2 * again["max_abs_err"],
+              f"tiered_overlap_vs_serial {form} {k}: the overlapped run is "
+              f"off by {d['max_abs_err']}, more than twice the second "
+              f"serial run's {again['max_abs_err']}")
+      res["overlap_losses"] = lb
+      res["tolerance"] = ("max |overlap - serial| <= 2 max |serial_again - "
+                          "serial| per array; losses rtol 1e-5 / atol 1e-6")
+    line[form] = res
+    del a, b, runs
+    torch.cuda.empty_cache()
+  emit(line)
   return totals
 
 

@@ -885,8 +885,8 @@ def _remap_tier_counts(path: str, manifest: Dict[str, Any], plan, store,
 
 
 def _restore_elastic(path: str, manifest: Dict[str, Any], plan, rule,
-                     state_like, rank: Optional[int], mesh, store, dev,
-                     gather_site: str = "reshard_gather") -> Dict[str, Any]:
+                     state_like, rank: Optional[int], mesh, store, dev
+                     ) -> Dict[str, Any]:
   """Load a world-N checkpoint onto a world-M plan by re-slicing its rank
   blocks at LOGICAL-row granularity (the JAX package's
   ``_restore_elastic``).
@@ -930,7 +930,7 @@ def _restore_elastic(path: str, manifest: Dict[str, Any], plan, rule,
     cname, r = tag
     prefix = "cold" if src_classes[cname]["tier"] == "host" else "fused"
     fname = f"{prefix}_{cname}_r{r}.npy"
-    faultinject.fire(gather_site, file=fname, rows=hi - lo)
+    faultinject.fire("reshard_gather", file=fname, rows=hi - lo)
 
     def phys(p0, p1):
       blk = np.load(os.path.join(path, fname), mmap_mode="r")
@@ -998,8 +998,7 @@ def read_pod_clock(path: str):
 def restore(path: str, plan, rule, state_like: Dict[str, Any],
             mesh=None, store=None, verify_integrity: bool = True,
             vocab=None, telemetry=None, stream=None,
-            device="cuda", gather_site: str = "reshard_gather"
-            ) -> Dict[str, Any]:
+            device="cuda") -> Dict[str, Any]:
   """Load a checkpoint written by :func:`save` (or by the JAX package's
   ``checkpoint.save``) into a new port train state on ``device`` (with a
   world-N ``mesh``: this rank's blocks, on the mesh's device).
@@ -1024,7 +1023,7 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
 
   A checkpoint of another world (a plan that differs only in placement)
   is re-sharded on the way (:func:`_restore_elastic`); each re-sliced
-  source window fires the ``gather_site`` fault site. The tables, the
+  source window fires the ``reshard_gather`` fault site. The tables, the
   input map, the tiers and the sparse/dense kinds must match (the JAX
   package's refusals otherwise).
 
@@ -1054,7 +1053,7 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
     telemetry.load_state_dict(manifest["telemetry"])
   if elastic:
     return _restore_elastic(path, manifest, plan, rule, state_like, rank,
-                            mesh, store, dev, gather_site)
+                            mesh, store, dev)
 
   fused = {}
   ranks = range(plan.world_size) if rank is None else [rank]

@@ -582,9 +582,6 @@ class DistributedLookup:
     self.apply_chunk = apply_chunk
     self._bucket_cache: Dict[tuple, List[Bucket]] = {}
     self._slot_map_cache: Dict[tuple, Dict[tuple, tuple]] = {}
-    # a dense bucket's slot offsets on the device, uploaded once: a copy
-    # from the host inside the step waits for the card's queue
-    self._dense_offs_cache: Dict[tuple, torch.Tensor] = {}
 
   # ---- shapes ------------------------------------------------------------
   def param_shapes(self) -> Dict[str, tuple]:
@@ -966,12 +963,8 @@ class DistributedLookup:
     if cp.combiner is None and h != 1:
       raise ValueError("combiner=None requires hotness-1 inputs in the "
                        "distributed path (2-D model-parallel outputs)")
-    cache_key = (key, bucket, ids_all.device)
-    offs = self._dense_offs_cache.get(cache_key)
-    if offs is None:
-      offs = self._dense_offs_cache[cache_key] = torch.as_tensor(
-          self._dense_offsets(key, bucket)[self._my_rank()],
-          device=ids_all.device)
+    offs = torch.as_tensor(self._dense_offsets(key, bucket)[self._my_rank()],
+                           device=ids_all.device)
     off_b = offs[:, None] if two_d else offs[:, None, None]
     ids_local = ids_all - off_b
     valid = (ids_local >= 0) & (ids_local < bucket.vcap)

@@ -761,8 +761,7 @@ def _resize_across_processes(state, old_plan, new_plan, rule, *, new_mesh,
       new_state = checkpoint.restore(
           spill_sub, new_plan, rule, state_like,
           mesh=new_mesh if new_mesh.world > 1 else None, store=new_store,
-          verify_integrity=False, device=new_mesh.device,
-          gather_site="resize_gather")
+          verify_integrity=False, device=new_mesh.device)
   pod.barrier("regrouped")
   if new_mesh is not None and new_mesh.rank == 0:
     shutil.rmtree(spill_sub, ignore_errors=True)
