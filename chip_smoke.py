@@ -165,8 +165,8 @@ JSON line per phase:
    once per sparse class each step. Then ``dlrm_main_sparse``: the
    README's command with full-state checkpoints through the twin's
    ``main(argv)`` in this process (``--sparse --checkpoint_dir <tmp>
-   --checkpoint_every 10 --steps 20``, B=4096, x 1/16) twice: finite
-   losses and AUC, the second run resumed at step 20, the directory
+   --checkpoint_every 10 --steps 10``, B=4096, x 1/16) twice: finite
+   losses and AUC, the second run resumed at step 10, the directory
    verified; then ``--dataset criteo`` over a split that
    ``write_dummy_criteo_split`` writes into a temporary directory, with
    the native loader built here and its batches bit-equal to the numpy
@@ -243,7 +243,9 @@ JSON line per phase:
    ``overlap='fused'`` with 2 chunks, f32 wire; four cards: the full
    vocabulary, ``row_slice=2**30``; one card: vocabulary x 1/16,
    ``row_slice=2**26``. At f32 and bf16 compute: 3 warm-up and 10 timed
-   steps, with the train phase's checks on each rank, K4 launched once
+   steps on four cards, 1 and 2 on one (``W4_STEPS``: there a check of
+   the path, not a timing), with the train phase's checks on each rank,
+   K4 launched once
    per (sparse bucket, round, chunk), every rank's losses equal, and a
    traced step on rank 0 (K4's device time). Then ``world4_ckpt``: a
    state of the plan at x 1/16 (on four cards too: the full vocabulary
@@ -268,8 +270,8 @@ JSON line per phase:
    ``make_train_step(mesh=)`` within the train-golden tolerances; then a
    ``DLRM(mesh=)`` of the same plan that owns its rank's blocks,
    ``broadcast_variables``, ``make_train_step(mesh=)``, ``SGD(0.1)``, f32
-   and bf16: 3 warm-up and 5 timed steps with the train phase's checks on
-   each rank (K2-fwd and K2-bwd once a step, no other kernel), every
+   and bf16: 3 warm-up and 5 timed steps on four cards, 1 and 1 on one
+   (``W4_DENSE_STEPS``), with the train phase's checks on each rank (K2-fwd and K2-bwd once a step, no other kernel), every
    rank's losses equal, the replicated parameters bit-equal across the
    ranks, a traced step on rank 0. Then ``serve_world4``: on both
    backends a state of the x 1/16 plan, exported by the four ranks into
@@ -390,6 +392,32 @@ JSON line per phase:
    the three schedules (the first step bit-equal to ``'none'``'s off
    duplicate rows), an Adam step and a ragged step under ``'fused'``, K4's
    bf16 form as :func:`k4_forward_launches` predicts.
+14. Dynamic vocabularies and telemetry (slice 22): ``train_dynvocab``
+   (``bench.py``'s 26 Criteo-1TB tables x 1/16, width 128, 6.0 GB of f32
+   buffers, SGD 0.1, B = 65,536, a guarded ``DynVocabTrainer`` on a plan
+   with ``oov='allocate'``, ``admit_threshold=2``, ``evict_ttl=4``: raw
+   63-bit ids, a power law at alpha 1.05 over four times each sparse
+   table's rows; per step the translate and step ms, allocations,
+   evictions, denials, occupancy per class, re-zeroed rows, K1 and K2
+   against the plan, peak memory); ``dynvocab_vs_static`` (the same
+   tables, 3 steps: the dynvocab run against the static plan fed the
+   translator's ids, twice:
+   bit-equal on a batch of distinct ids, within twice the static run's
+   own spread at power-law traffic); ``dynvocab_overlap_vs_serial`` (the
+   same two forms with TTL evictions: the overlapped loop against the
+   serial one, the translator state bit-equal in both);
+   ``dynvocab_golden`` (the committed JAX golden replayed: translations,
+   translator state and counters bit-equal, losses and tables within the
+   train golden's tolerance); inside the world-4 phase ``world4_dynvocab``
+   (x 1/512: the ``'fused'`` step with K4, a save with ``vocab=``, a 4 ->
+   2 restore with the id space and every table's bits kept);
+   ``world4_ckpt`` also reads back the save's ``pod_clock.json``, merges
+   the four ranks' traces of the two steps after the restore, attaches
+   rank 0's ``torch.profiler`` CUDA events as a device track and checks
+   every K1 and K2 event inside a rank-0 ``device/step`` window widened by
+   the stated uncertainty; ``serve_batcher`` scrapes a loopback
+   ``MetricsServer``: ``/metrics`` equal to ``prometheus_text`` of the
+   batcher's registry, ``/healthz`` ok.
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
@@ -399,8 +427,10 @@ train_bf16_vs_f32, dense, train_ckpt, dlrm_main_sparse, train_mb,
 train_guard, resilient, dlrm_main_mb, train_ragged, serve_ragged, zoo,
 train_zoo_mb, train_zoo_ragged, zoo_main and world-4 (sparse train, wire
 compression, ragged, guard and micro-batch, checkpoint, dense train,
-serve, bf16 tables, column slices, the zoo and tiered storage), the
-tiered (golden, train, vs device, checkpoint) phases alone: each sets
+serve, bf16 tables, column slices, the zoo, tiered storage and the
+dynamic vocabulary), the tiered (golden, train, vs device, checkpoint)
+and dynvocab (golden, train, vs static, overlap vs serial) phases alone:
+each sets
 every counter to 0 just before each
 run of its path, reads them all just after, and checks them against the
 launches it expects, 0 for the kernels the path does not run (the world-4
@@ -444,6 +474,13 @@ TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 # the dense-autodiff step's timed steps (phase 8, train_dense, and the
 # world-4 dense step of phase 10)
 DENSE_TIMED = 5
+# the world-4 phase's (warm-up, timed) steps of its sparse and dense runs
+# by backend: four cards as the world-1 phases; on one card shared by the
+# four ranks over gloo a check of the path, not a timing (host-bound
+# steps of 1.5-5 s), cut to 1 + 2 and 1 + 1 to keep the run inside its
+# time limit as the phases grow
+W4_STEPS = {"nccl": (TRAIN_WARMUP, TRAIN_TIMED), "gloo": (1, 2)}
+W4_DENSE_STEPS = {"nccl": (TRAIN_WARMUP, DENSE_TIMED), "gloo": (1, 1)}
 # the README's "Train end-to-end" command, as the port's twin of
 # examples/dlrm/main.py runs it here (world 1, the Criteo tables x 1/16)
 DLRM_MAIN_ARGS = ("--dataset", "dummy", "--steps", "20", "--batch_size",
@@ -457,7 +494,10 @@ CKPT_STEPS = 3
 CKPT_SCHEDULE = (TRAIN_LR, 2, 3, 3)
 # the README's "Train end-to-end" command with full-state checkpoints,
 # run twice (the second resumes), then over a locally written Criteo split
-DLRM_MAIN_SPARSE_FLAGS = {"--dataset": "dummy", "--steps": "20",
+# (10 steps a run and one periodic checkpoint before the final save, since
+# PR 22; 20 steps and two before: each save of the 6.0 GB state costs
+# about 10 s)
+DLRM_MAIN_SPARSE_FLAGS = {"--dataset": "dummy", "--steps": "10",
                           "--batch_size": "4096", "--vocab_scale": "0.0625",
                           "--lr": "0.1", "--warmup_steps": "5",
                           "--checkpoint_every": "10"}
@@ -583,7 +623,10 @@ K4_EDGE_N = (1, 31, 8193)
 K4_SMALL_ROWS = 65536  # the TLB-reach yardstick's buffer: 32 MB of rows
 # the wire compression (README "wire compression"): the world-4 cell under
 # dedup_exchange / dedup_capacity / the bf16 and fp8 wires
-W4_WIRE_STEPS = 3
+# (2 since PR 22, 3 before: a cut of depth that keeps the run inside its
+# time limit as the phases grow; likewise W4_SLICED_STEPS and
+# W4_NARROW_STEPS)
+W4_WIRE_STEPS = 2
 W4_WIRE_CAP = 4096  # a dedup_capacity below the cell's unique counts
 W4_WIRE_GENEROUS = 1 << 30  # one above every block's safe bound
 W4_WIRE_ALPHA = 1.05  # the power-law batch (models/synthetic.py)
@@ -621,7 +664,7 @@ W4_MP_BATCH = 4096
 W4_COL_SLICE = 2**23
 W4_NARROW_SLICE = 2048
 W4_NARROW_GROUPS = ((10_000, 8), (1_000_000, 16), (25_000_000, 16))
-W4_SLICED_STEPS = 3
+W4_SLICED_STEPS = 2
 # the zoo at world 4: four cards run Tiny at its full vocabulary and
 # B = 65,536; one card shared by four gloo ranks cuts the vocabulary by 16
 # and the global batch to 16,384
@@ -681,7 +724,7 @@ RAGGED_BF16_TWIN_ULPS = 4
 # gradient (13 % on the CPU rehearsal at a small vocabulary)
 TWIN_UPDATE_SHARE = 0.25
 # the world-4 narrow cell's steps per schedule (world4_bf16)
-W4_NARROW_STEPS = 3
+W4_NARROW_STEPS = 2
 # tiered storage (train_tiered and the phases after it): the five
 # Criteo-1TB tables above 10 M rows host-tier, a 40 GiB device budget,
 # staging for 16,384 cold rows a class, a re-rank every 8 steps,
@@ -723,6 +766,25 @@ W4_SERVE_TIERED_REQUESTS = 3
 # few dispatches a second): Poisson arrivals of 1-512 rows
 W4_BATCHER_RATE = 20
 W4_BATCHER_REQUESTS = 200
+
+
+# slice 22, the dynamic vocabulary: train_dynvocab, and dynvocab_vs_static
+# / dynvocab_overlap_vs_serial, all on the train cell's vocabulary (the
+# Criteo-1TB tables x 1/16)
+DYNVOCAB_STEPS = 10
+DYNVOCAB_KNOBS = {"oov": "allocate", "admit_threshold": 2, "evict_ttl": 4}
+DYNVOCAB_RAW_SPACE = 4        # raw ids per allocatable row of a table
+DYNVOCAB_ALPHA = 1.05
+DYNVOCAB_SKETCH_WIDTH = 1 << 20  # admission counts for 65,536-id batches
+DYNVOCAB_VS_SCALE = 16
+DYNVOCAB_VS_STEPS = 3
+DYNVOCAB_VS_BATCH = 64        # the distinct form's samples
+W4_DYNVOCAB_VOCAB_SCALE = 512
+W4_DYNVOCAB_STEPS = 2
+# world4_ckpt's device track: K1's and K2's device kernel names
+W4_TRACK_KERNELS = ("apply_tiles_kernel", "interact::fwd_kernel",
+                    "interact10fwd_kernel", "interact::bwd_kernel",
+                    "interact10bwd_kernel")
 
 
 class SmokeFailure(Exception):
@@ -1568,7 +1630,36 @@ def phase_serve_batcher(torch, smi: str, eng, vocab) -> dict:
           "dispatch_ms_median": statistics.median(dispatch_ms),
           "complete_wait_ms_p50": dequant.p50 * 1e3,
           "max_abs_err_vs_predict": worst, "launches": got})
+  scrape = scrape_metrics(mb.telemetry)
+  emit({"phase": "serve_batcher_metrics", "card": smi, **scrape})
   return totals
+
+
+def scrape_metrics(registry) -> dict:
+  """One scrape of a loopback ``telemetry.MetricsServer`` over
+  ``registry`` (port 0): ``/metrics`` must equal ``prometheus_text`` of
+  the registry and ``/healthz`` report ok; the server is closed and its
+  thread joined."""
+  import urllib.request
+
+  from distributed_embeddings_torch.telemetry import (
+      MetricsServer,
+      prometheus_text,
+  )
+  with MetricsServer(registry) as server:
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen(server.url, timeout=10).read().decode()
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    health = json.loads(urllib.request.urlopen(
+        f"http://{server.host}:{server.port}/healthz", timeout=10).read())
+    host, port = server.host, server.port
+  check(server.closed, "serve_batcher: the metrics server did not close")
+  check(body == prometheus_text(registry),
+        "serve_batcher: /metrics differs from prometheus_text")
+  check(health.get("ok") is True, f"serve_batcher: /healthz {health}")
+  return {"endpoint": f"http://{host}:{port}", "metrics_bytes": len(body),
+          "metrics_lines": body.count("\n"), "scrape_ms": scrape_ms,
+          "metrics_equal_prometheus_text": True, "healthz": health}
 
 
 def train_plan(vocab=None, oov: str = "clip", **plan_kw):
@@ -1931,8 +2022,8 @@ def _w4_compare_none(torch, mesh, model, vocab, backend, state, batch,
   same state: the losses bit-equal, and the fused buffers bit-equal on
   every row fewer than two of the step's ids hit (within
   ``W4_DUP_ATOL`` on the others, where K1's atomics pick the order of the
-  duplicates' adds). Then ``TRAIN_TIMED`` more ``'none'`` steps, timed as
-  the fused ones are, for the schedules' comparison."""
+  duplicates' adds). Then ``W4_STEPS[backend][1]`` more ``'none'``
+  steps, timed as the fused ones are, for the schedules' comparison."""
   from distributed_embeddings_torch.models import bce_loss
   from distributed_embeddings_torch.ops.packed_table import sgd_rule
   from distributed_embeddings_torch.training import make_sparse_train_step
@@ -1966,7 +2057,7 @@ def _w4_compare_none(torch, mesh, model, vocab, backend, state, batch,
   check(worst <= W4_DUP_ATOL,
         f"world 4: fused and none differ by {worst} on duplicate rows")
   none_ms = []
-  for _ in range(TRAIN_TIMED):
+  for _ in range(W4_STEPS[backend][1]):
     torch.cuda.synchronize(mesh.device)
     t0 = time.perf_counter()
     step(snap, *batch)
@@ -2081,16 +2172,20 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
   (``restore(mesh=)``, rank 0 verifying) and its state is bit-equal to
   what it saved; one step from the restored state and one from the saved
   state give the same loss, each launching K4, K1, K2-fwd and K2-bwd as a
-  world-4 step does. The checkpoint stays in ``outdir`` with each rank's
-  part of every table's checksum (:func:`slot_checksums`) for the main
-  process's world-1 restore (:func:`phase_world4_ckpt_world1`)."""
+  world-4 step does. The save writes every rank's clock record
+  (``pod_clock.json``); the two steps after it run under each rank's
+  tracer (a ``device/step`` span from dispatch to the loss's read) and,
+  on rank 0, ``torch.profiler``, for :func:`w4_timeline`. The checkpoint
+  stays in ``outdir`` with each rank's part of every table's checksum
+  (:func:`slot_checksums`) for the main process's world-1 restore
+  (:func:`phase_world4_ckpt_world1`)."""
   import math
   import os
   import shutil
 
   import torch.distributed as dist
 
-  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch import checkpoint, telemetry
   from distributed_embeddings_torch.models import DLRM, bce_loss
   from distributed_embeddings_torch.ops.packed_table import sgd_rule
   from distributed_embeddings_torch.training import (
@@ -2125,12 +2220,16 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
 
   def one(st, tag):
     reset_counts()
+    # the device window (a no-op span while no tracer is installed): from
+    # the dispatch to the loss's host read
+    dev_span = telemetry.span("device/step", track="device").start()
     st, loss = step(st, *batch)
+    loss = float(loss)
+    dev_span.finish()
     got = read_counts()
     check(got == want, f"world4_ckpt rank {mesh.rank} {tag}: launches "
           f"{got}, expected {want}")
     add_counts(totals, got)
-    loss = float(loss)
     check(math.isfinite(loss), f"world4_ckpt rank {mesh.rank} {tag}: loss "
           f"{loss}")
     return st, loss
@@ -2162,8 +2261,23 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
   bad = states_bit_equal(torch, state_arrays(restored), state_arrays(state))
   check(not bad, f"world4_ckpt rank {mesh.rank}: restored arrays differ "
         f"from the saved ones: {bad[:8]}")
-  restored, loss_restored = one(restored, "after the restore")
-  state, loss_saved = one(state, "from the saved state")
+  # the two steps below run traced on every rank, and under
+  # torch.profiler on rank 0, for the merged timeline (w4_timeline)
+  tracer = telemetry.install_tracer(telemetry.Tracer(
+      label=f"rank{mesh.rank}"))
+  prof = w4_profiler(torch) if mesh.rank == 0 else None
+  try:
+    restored, loss_restored = one(restored, "after the restore")
+    state, loss_saved = one(state, "from the saved state")
+  finally:
+    telemetry.uninstall_tracer()
+    if prof is not None:
+      prof.__exit__(None, None, None)
+  with open(os.path.join(outdir, f"trace_r{mesh.rank}.json"), "w") as f:
+    json.dump(tracer.to_chrome(), f)
+  dist.barrier()
+  if mesh.rank == 0:
+    out["timeline"] = w4_timeline(torch, prof, path, outdir)
   check(abs(loss_restored - loss_saved) <= 1e-5 * max(1.0, abs(loss_saved)),
         f"world4_ckpt rank {mesh.rank}: the step after the restore gave "
         f"loss {loss_restored}, the saved state's {loss_saved}")
@@ -2180,6 +2294,88 @@ def _w4_ckpt(torch, mesh, backend: str, outdir: str) -> dict:
   dist.barrier()  # every rank has read its blocks
   # the checkpoint stays for world4_ckpt_world1, which removes it
   return out
+
+
+def w4_profiler(torch):
+  """A started ``torch.profiler`` of host and CUDA activity."""
+  from torch.profiler import ProfilerActivity, profile
+
+  prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+  prof.__enter__()
+  return prof
+
+
+def w4_timeline(torch, prof, ckpt: str, outdir: str) -> dict:
+  """``world4_ckpt``'s merged timeline, on rank 0: the save's
+  ``pod_clock.json`` (every rank's offset against rank 0 and its
+  uncertainty), the four ranks' traces merged with those offsets
+  (``telemetry.merge_traces``), rank 0's profiler trace attached as the
+  device track (``attach_device_track``, anchored on the wall time of its
+  earliest CUDA event mapped onto rank 0's trace clock). Every K1 and K2
+  kernel event of the track must lie inside one of rank 0's
+  ``device/step`` windows widened by the largest stated clock
+  uncertainty plus the wall-to-trace-clock mapping's read gap."""
+  import os
+
+  from distributed_embeddings_torch import checkpoint, telemetry
+
+  clocks = checkpoint.read_pod_clock(ckpt)
+  check(sorted(clocks) == list(range(WORLD)),
+        f"world4_ckpt: pod_clock.json holds ranks {sorted(clocks)}")
+  check(clocks[0]["offset_ns"] == 0 and clocks[0]["uncertainty_ns"] == 0,
+        f"world4_ckpt: rank 0's clock record {clocks[0]}")
+  traces = []
+  for r in range(WORLD):
+    with open(os.path.join(outdir, f"trace_r{r}.json")) as f:
+      traces.append({"trace": json.load(f),
+                     "offset_ns": clocks[r]["offset_ns"],
+                     "label": f"rank {r}"})
+  merged = telemetry.merge_traces(traces)
+  pfile = os.path.join(outdir, "profile_r0.json")
+  prof.export_chrome_trace(pfile)
+  with open(pfile) as f:
+    device = json.load(f)
+  evs = telemetry.device_events(device)
+  check(evs, "world4_ckpt: the profiler trace holds no CUDA event")
+  # the profiler stamps events in wall-clock microseconds from its base
+  w0 = time.time_ns()
+  p0 = telemetry.clock_ns()
+  w1 = time.time_ns()
+  wall_minus_trace = (w0 + w1) // 2 - p0
+  base = int(device.get("baseTimeNanoseconds", 0))
+  first_us = min(float(e["ts"]) for e in evs)
+  anchor = int(first_us * 1e3) + base - wall_minus_trace
+  merged = telemetry.attach_device_track(merged, device, anchor)
+  widen_us = (max(c["uncertainty_ns"] for c in clocks.values())
+              + (w1 - w0)) / 1e3
+  names = {e["args"]["name"]: e["pid"] for e in merged["traceEvents"]
+           if e.get("ph") == "M" and e.get("name") == "process_name"}
+  windows = sorted((e["ts"] - widen_us, e["ts"] + e["dur"] + widen_us)
+                   for e in merged["traceEvents"]
+                   if e.get("ph") == "X" and e["pid"] == names["rank 0"]
+                   and e["name"] == "device/step")
+  check(len(windows) == 2, f"world4_ckpt: {len(windows)} rank-0 device "
+        "windows, expected 2")
+  kernels = [e for e in merged["traceEvents"]
+             if e.get("ph") == "X" and e["pid"] == names["device"]
+             and any(k in e["name"] for k in W4_TRACK_KERNELS)]
+  outside = [e["name"][:48] for e in kernels
+             if not any(lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+                        for lo, hi in windows)]
+  check(len(kernels) >= 2 * 3, f"world4_ckpt: {len(kernels)} K1/K2 events "
+        "on the device track")
+  check(not outside, f"world4_ckpt: {len(outside)} K1/K2 events outside "
+        f"rank 0's device windows: {outside[:4]}")
+  telemetry.save_trace(merged, os.path.join(outdir, "merged.json"))
+  return {"pod_clock": {str(r): {"offset_ns": c["offset_ns"],
+                                 "uncertainty_ns": c["uncertainty_ns"],
+                                 "rtt_ns": c["rtt_ns"]}
+                        for r, c in sorted(clocks.items())},
+          "merged_events": len(merged["traceEvents"]),
+          "device_events": len(evs), "k1_k2_events": len(kernels),
+          "windows_ms": [(hi - lo - 2 * widen_us) / 1e3
+                         for lo, hi in windows],
+          "widen_us": widen_us, "k1_k2_inside_windows": True}
 
 
 def slot_checksums(torch, plan, rule, state, ranks, images=None) -> dict:
@@ -2774,8 +2970,8 @@ def _w4_dense(torch, mesh, backend: str, batch) -> dict:
   ``DLRM(mesh=)`` of the world-4 plan that owns this rank's blocks,
   ``broadcast_variables`` (its MLPs drawn from a per-rank seed first),
   ``make_train_step(mesh=)`` with ``torch.optim.SGD(0.1)``, at f32 and
-  bf16 compute: ``TRAIN_WARMUP`` + ``DENSE_TIMED`` steps on ``batch``
-  (this rank's slice of the global batch), each checked (loss finite,
+  bf16 compute: ``W4_DENSE_STEPS[backend]`` (warm-up, timed) steps on
+  ``batch`` (this rank's slice of the global batch), each checked (loss finite,
   K2-fwd and K2-bwd once and no other kernel, sampled rows of this rank's
   first sparse block that no rank's batch touches bit-unchanged, most
   touched ones changed); then every rank's losses equal, the replicated
@@ -2847,7 +3043,8 @@ def _w4_dense(torch, mesh, backend: str, batch) -> dict:
     want = expect(interact_fwd=1, interact_bwd=1)
     totals = expect()
     ms, losses, changed = [], [], []
-    for i in range(TRAIN_WARMUP + DENSE_TIMED):
+    warmup, timed = W4_DENSE_STEPS[backend]
+    for i in range(warmup + timed):
       hit_rows = buf[hit].detach().clone()
       reset_counts()
       torch.cuda.synchronize(dev)
@@ -2859,7 +3056,7 @@ def _w4_dense(torch, mesh, backend: str, batch) -> dict:
       check(got == want, f"dense world 4 {compute} rank {rank} step {i}: "
             f"launches {got}, expected {want}")
       add_counts(totals, got)
-      if i >= TRAIN_WARMUP:
+      if i >= warmup:
         ms.append((t1 - t0) * 1e3)
       losses.append(float(loss))
       check(np.isfinite(losses[-1]),
@@ -3365,7 +3562,8 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
                     interact_fwd=1, interact_bwd=1)
       totals = expect()
       ms, losses, changed = [], [], []
-      for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+      warmup, timed = W4_STEPS[backend]
+      for i in range(warmup + timed):
         hit_rows = buf[hit].clone()
         reset_counts()
         torch.cuda.synchronize(dev)
@@ -3377,7 +3575,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
         check(got == want, f"world 4 {compute} rank {rank} step {i}: "
               f"launches {got}, expected {want}")
         add_counts(totals, got)
-        if i >= TRAIN_WARMUP:
+        if i >= warmup:
           ms.append((t1 - t0) * 1e3)
         losses.append(float(loss))
         check(np.isfinite(losses[-1]),
@@ -3442,6 +3640,10 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
     t0 = time.perf_counter()
     out["serve_tiered"] = _w4_serve_tiered(torch, mesh, backend)
     out["serve_tiered"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["dynvocab"] = _w4_dynvocab(torch, mesh, backend, outdir)
+    out["dynvocab"]["wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     # last: it forms the default process group again at each world
     t0 = time.perf_counter()
@@ -3534,9 +3736,12 @@ def phase_world4(torch, smi: str) -> dict:
       backend, smi, [r["serve_tiered"] for r in ranks])
   elastic_totals = emit_elastic_world4(backend, smi,
                                        [r["elastic"] for r in ranks])
+  dynvocab_totals = emit_dynvocab_world4(backend, smi,
+                                         [r["dynvocab"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s,
         "serve_tiered_wall_s": [r["serve_tiered"]["wall_s"] for r in ranks],
-        "elastic_wall_s": [r["elastic"]["wall_s"] for r in ranks]})
+        "elastic_wall_s": [r["elastic"]["wall_s"] for r in ranks],
+        "dynvocab_wall_s": [r["dynvocab"]["wall_s"] for r in ranks]})
   ckpt1_totals = phase_world4_ckpt_world1(
       torch, smi, backend, os.path.join(outdir, "ckpt"),
       [r["ckpt"]["checksums"] for r in ranks])
@@ -3550,6 +3755,7 @@ def phase_world4(torch, smi: str) -> dict:
           "world4_bf16": narrow_totals, "world4_tiered": tiered_totals,
           "world4_serve_tiered": serve_tiered_totals,
           "world4_batcher": batcher_totals, "world4_elastic": elastic_totals,
+          "world4_dynvocab": dynvocab_totals,
           "world4_ckpt_world1": ckpt1_totals}
 
 
@@ -3712,7 +3918,7 @@ def emit_ckpt_world4(backend: str, smi: str, ckpt: list) -> dict:
                                        for r in ckpt],
         "losses_bit_equal": all(r["losses_bit_equal"] for r in ckpt),
         "launches_per_step_per_rank": ckpt[0]["launches_per_step"],
-        "launches": ckpt_totals})
+        "timeline": ckpt[0]["timeline"], "launches": ckpt_totals})
   return ckpt_totals
 
 
@@ -4739,7 +4945,7 @@ def phase_resilient(torch, smi: str) -> dict:
 
 def phase_dlrm_main_mb(torch, smi: str) -> dict:
   """``dlrm_main_mb``: ``examples/dlrm/main_torch.py --dataset dummy
-  --sparse --micro_batches 4`` (20 steps of 4096, x 1/16, ``--eval``)
+  --sparse --micro_batches 4`` (10 steps of 4096, x 1/16, ``--eval``)
   through the twin's ``main(argv)`` in this process: finite losses and
   AUC, K2-bwd ``4`` times a step, K1 once per sparse class a step."""
   from distributed_embeddings_torch.models import dlrm_embedding_plan
@@ -4898,8 +5104,8 @@ def phase_dlrm_main_sparse(torch, smi: str) -> dict:
   the twin (``main_torch.py`` with ``DLRM_MAIN_SPARSE_FLAGS`` and a
   temporary ``--checkpoint_dir``) twice at world 1, in this process: both
   runs end with finite losses and AUC, the second prints ``resumed from
-  <dir> at step 20``, and the published directory passes ``verify`` and
-  holds step 20, then 40.
+  <dir> at step 10``, and the published directory passes ``verify`` and
+  holds step 10, then 20.
   Then one run with ``--dataset criteo`` over a split that
   ``write_dummy_criteo_split`` writes into a temporary directory, and the
   native loader (built here) against the numpy backend on that split,
@@ -8050,33 +8256,20 @@ def overlap_vs_serial_runs(torch, tplan, model, rule, batches, want,
 def run_arrays_differ(torch, tplan, a, b) -> dict:
   """Every array two tiered trainers hold, by name (fused buffers, host
   images, resident sets, observed counts, hit counters): for each that
-  differs, the cells that differ and the largest |b - a| (by row
-  chunks; the integer arrays in int64)."""
+  differs, the cells that differ and the largest |b - a|
+  (:func:`arrays_differ`)."""
   import numpy as np
 
-  pairs = [(f"fused/{k}", a.state["fused"][k], b.state["fused"][k])
-           for k in a.state["fused"]]
-  pairs += [(f"{part}/{n}", torch.from_numpy(np.asarray(getattr(
-      a.store, part)[n][0])), torch.from_numpy(np.asarray(getattr(
-          b.store, part)[n][0])))
-            for part in ("images", "resident_grps", "counts")
-            for n in tplan.tier_specs]
-  pairs += [(f"hits/{n}", torch.from_numpy(a.hits[n]),
-             torch.from_numpy(b.hits[n])) for n in a.hits]
-  out = {}
-  for k, x, y in pairs:
-    if torch.equal(x, y):
-      continue
-    cells, worst = 0, 0.0
-    for r0 in range(0, x.shape[0], 1 << 16):
-      xs, ys = x[r0:r0 + (1 << 16)], y[r0:r0 + (1 << 16)]
-      if torch.equal(xs, ys):
-        continue
-      d = ys - xs if xs.is_floating_point() else ys.long() - xs.long()
-      cells += int(torch.count_nonzero(d))
-      worst = max(worst, float(d.abs_().max()))
-    out[k] = {"cells": cells, "max_abs_err": worst}
-  return out
+  def arrays(t):
+    out = {f"fused/{k}": v for k, v in t.state["fused"].items()}
+    out.update({f"{part}/{n}": torch.from_numpy(np.asarray(
+        getattr(t.store, part)[n][0]))
+                for part in ("images", "resident_grps", "counts")
+                for n in tplan.tier_specs})
+    out.update({f"hits/{n}": torch.from_numpy(v) for n, v in t.hits.items()})
+    return out
+
+  return arrays_differ(torch, arrays(a), arrays(b))
 
 
 def phase_tiered_overlap_vs_serial(torch, smi: str) -> dict:
@@ -10450,6 +10643,611 @@ def _w4_narrow_rules(torch, mesh, model, batch) -> dict:
   return out
 
 
+# ---------------------------------------------------------------------------
+# slice 22: the dynamic vocabulary
+# ---------------------------------------------------------------------------
+
+
+def dynvocab_batches(vocab, dynamic, n: int, b: int, seed: int,
+                     distinct: bool = False) -> list:
+  """``n`` global host batches (numpy) of ``b`` samples over ``vocab``:
+  the inputs of the ``dynamic`` tables as raw 63-bit ids (popularity
+  ranks hashed by ``train_golden.raw_keys``, a power law at
+  ``DYNVOCAB_ALPHA`` over ``DYNVOCAB_RAW_SPACE`` times the table's rows),
+  the other tables' as in-range power-law ids; with ``distinct``, every
+  input's ranks distinct within the batch where its space allows. Normal
+  features, random labels."""
+  import numpy as np
+
+  from distributed_embeddings_torch.models.synthetic import power_law_ids
+  from distributed_embeddings_torch.train_golden import raw_keys
+
+  rng = np.random.default_rng(seed)
+  out = []
+  for _ in range(n):
+    cats = []
+    for t, v in enumerate(vocab):
+      space = DYNVOCAB_RAW_SPACE * v if t in dynamic else v
+      if distinct:
+        ranks = rng.choice(space, b, replace=space < b)
+      else:
+        ranks = power_law_ids(rng, b, 1, space, DYNVOCAB_ALPHA)[:, 0]
+      cats.append(raw_keys(ranks, t) if t in dynamic
+                  else ranks.astype(np.int32))
+    out.append((rng.standard_normal((b, 13)).astype(np.float32), cats,
+                rng.integers(0, 2, b).astype(np.float32)))
+  return out
+
+
+def dynvocab_cell(torch, vocab, knobs, seed: int, **trainer_kw):
+  """A guarded ``DynVocabTrainer`` of the train cell over ``vocab`` (the
+  plan with ``knobs``), its state drawn on the card from ``seed``, SGD
+  0.1, a private metrics registry; returns ``(plan, trainer, model,
+  rule)``."""
+  from distributed_embeddings_torch.dynvocab import (
+      DynVocabTrainer,
+      DynVocabTranslator,
+  )
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+  from distributed_embeddings_torch.training import init_sparse_state_direct
+
+  plan = train_plan(vocab, **knobs)
+  model = DLRM(vocab, D, tables=False, device="cuda",
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+  translator = DynVocabTranslator(plan, rule,
+                                  sketch_width=DYNVOCAB_SKETCH_WIDTH)
+  return plan, DynVocabTrainer(model, plan, translator, bce_loss,
+                               sgd_factory(torch), rule, None, state,
+                               guard=True, telemetry=MetricsRegistry(),
+                               device="cuda", **trainer_kw), model, rule
+
+
+def record_translations(trainer) -> list:
+  """Every translation the trainer's engine makes from now on (its
+  translated ids, host copies), in order."""
+  import numpy as np
+
+  seen = []
+  translate = trainer.engine.translate_dynamic_ids
+
+  def recorded(cats, translator):
+    res = translate(cats, translator)
+    seen.append([np.asarray(c).copy() for c in res[0]])
+    return res
+
+  trainer.engine.translate_dynamic_ids = recorded
+  return seen
+
+
+def dynvocab_spans(events, steps: int, t_end_ns: int) -> dict:
+  """Per-step wall, translate and device-window ms of a traced
+  ``DynVocabTrainer.run`` (a step runs from its ``dynvocab/translate``
+  start to the next one's, the last to ``t_end_ns``)."""
+  tr = sorted((t0, dur) for ph, _, name, t0, dur, _ in events
+              if ph == "X" and name == "dynvocab/translate")
+  check(len(tr) == steps, f"train_dynvocab trace: {len(tr)} translate "
+        f"spans for {steps} steps")
+  starts = [t0 for t0, _ in tr]
+  return {"step_ms": [(b - a) / 1e6 for a, b in
+                      zip(starts, starts[1:] + [t_end_ns])],
+          "translate_ms": [dur / 1e6 for _, dur in tr],
+          "device_window_ms": [dur / 1e6 for ph, _, name, _, dur, _ in events
+                               if ph == "X" and name == "device/step"]}
+
+
+def phase_train_dynvocab(torch, smi: str) -> dict:
+  """``train_dynvocab``: ``bench.py``'s train cell (26 Criteo-1TB tables
+  x 1/16, width 128, SGD 0.1, B = ``TRAIN_BATCH``) under a plan with
+  ``oov='allocate'`` (``DYNVOCAB_KNOBS``), each sparse table's capacity
+  its rows, through a guarded ``DynVocabTrainer.run`` of
+  ``DYNVOCAB_STEPS`` batches of raw power-law ids (:func:`dynvocab_batches`)
+  under the tracer: per step the translate, device-window and step ms;
+  the lifecycle counters per class (allocations, evictions, denials,
+  occupancy), the re-zeroed rows, K1 once per sparse class and K2 once a
+  step, peak memory. Allocation, admission denials, capacity (tables
+  whose fresh rows ran out) and TTL evictions with re-zeroing all happen
+  in the run. Returns the launches."""
+  import numpy as np
+
+  from distributed_embeddings_torch import telemetry
+
+  vocab = criteo_vocab()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  plan, trainer, _, _ = dynvocab_cell(torch, vocab, DYNVOCAB_KNOBS, SEED)
+  torch.cuda.synchronize()
+  init_s = time.perf_counter() - t0
+  tr = trainer.translator
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  dynamic = set(tr.dynamic_tables)
+  t0 = time.perf_counter()
+  batches = dynvocab_batches(vocab, dynamic, DYNVOCAB_STEPS, TRAIN_BATCH,
+                             SEED + 31)
+  draw_s = time.perf_counter() - t0
+  reset_counts()
+  with telemetry.tracing() as tracer:
+    losses = trainer.run(batches)
+    torch.cuda.synchronize()
+    t_end = telemetry.clock_ns()
+  got = read_counts()
+  want = expect(interact_fwd=DYNVOCAB_STEPS, interact_bwd=DYNVOCAB_STEPS,
+                apply_rows=n_sparse * DYNVOCAB_STEPS)
+  check(got == want, f"train_dynvocab: launches {got}, expected {want}")
+  check(all(np.isfinite(losses)), f"train_dynvocab: losses {losses}")
+  summary = trainer.metrics_summary()
+  per = summary["per_class"]
+  totals = {k: sum(v[k] for v in per.values())
+            for k in ("allocs", "evictions", "admit_denied")}
+  full = sorted(t for t in tr.dynamic_tables
+                if tr.recyclers[t].next_fresh == tr.recyclers[t].capacity)
+  check(summary["bad_steps"] == 0 and not any(summary["oov"].values()),
+        f"train_dynvocab: guard {summary['bad_steps']} bad steps, oov "
+        f"{summary['oov']}")
+  check(totals["allocs"] > 0 and totals["evictions"] > 0
+        and totals["admit_denied"] > 0 and summary["rows_zeroed"] > 0,
+        f"train_dynvocab: the lifecycle did not run whole: {totals}, "
+        f"{summary['rows_zeroed']} rows re-zeroed")
+  check(full, "train_dynvocab: no table reached its capacity")
+  spans = dynvocab_spans(tracer.events(), DYNVOCAB_STEPS, t_end)
+  emit({"phase": "train_dynvocab", "card": smi, "batch": TRAIN_BATCH,
+        "steps": DYNVOCAB_STEPS, "knobs": DYNVOCAB_KNOBS,
+        "sketch_width": DYNVOCAB_SKETCH_WIDTH,
+        "raw_space_per_row": DYNVOCAB_RAW_SPACE, "alpha": DYNVOCAB_ALPHA,
+        "dynamic_tables": len(dynamic), "sparse_classes": n_sparse,
+        "fused_bytes": sum(t.numel() * 4
+                           for t in trainer.state["fused"].values()),
+        "init_s": init_s, "draw_s": draw_s, **spans,
+        "translate_ms_median": statistics.median(spans["translate_ms"]),
+        "step_ms_median": statistics.median(spans["step_ms"]),
+        "losses": losses, "per_class": per, "lifecycle_totals": totals,
+        "rows_zeroed": summary["rows_zeroed"],
+        "tables_at_capacity": full,
+        "capacity_by_table": {t: tr.recyclers[t].capacity for t in full},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": got, "launches_per_step": {
+            k: v // DYNVOCAB_STEPS for k, v in want.items()}})
+  del trainer, batches
+  torch.cuda.empty_cache()
+  return got
+
+
+def arrays_differ(torch, a: dict, b: dict) -> dict:
+  """Two dicts of same-shaped tensors (by name): for each pair that
+  differs, the cells that differ and the largest |b - a| (by row chunks,
+  the integer ones in int64)."""
+  out = {}
+  for k, x in a.items():
+    y = b[k]
+    if torch.equal(x, y):
+      continue
+    cells, worst = 0, 0.0
+    for r0 in range(0, x.shape[0], 1 << 16):
+      xs, ys = x[r0:r0 + (1 << 16)], y[r0:r0 + (1 << 16)]
+      if torch.equal(xs, ys):
+        continue
+      d = ys - xs if xs.is_floating_point() else ys.long() - xs.long()
+      cells += int(torch.count_nonzero(d))
+      worst = max(worst, float(d.abs_().max()))
+    out[k] = {"cells": cells, "max_abs_err": worst}
+  return out
+
+
+def train_arrays(state) -> dict:
+  """The fused buffers, dense-class tables and dense params of a train
+  state, by name."""
+  out = {f"fused/{k}": v for k, v in state["fused"].items()}
+  out.update({f"emb_dense/{k}": v.detach()
+              for k, v in state["emb_dense"].items()})
+  out.update({f"dense/{k}": v.detach() for k, v in state["dense"].items()})
+  return out
+
+
+def within_spread(form: str, what: str, losses, want_losses, differ,
+                  spread) -> None:
+  """The power-law form's rule: losses within rtol 1e-5 / atol 1e-6, and
+  per array max |run - reference| <= 2 x the reference's own spread
+  (max |reference_again - reference|): each fused buffer's own (K1 adds
+  its rows' duplicates in an order that varies), every other array's the
+  largest of the run (the dense parameters and dense-class tables only
+  inherit that order through the rows gathered at the next step, and a
+  small tensor's own spread, a bias of one cell, is a single draw)."""
+  import numpy as np
+
+  check(np.allclose(losses, want_losses, rtol=1e-5, atol=1e-6),
+        f"{what} {form}: losses {losses} vs {want_losses}")
+  run_spread = max((d["max_abs_err"] for d in spread.values()), default=0.0)
+  for k, d in differ.items():
+    again = (spread.get(k, {"max_abs_err": 0.0})["max_abs_err"]
+             if k.startswith("fused/") else run_spread)
+    check(d["max_abs_err"] <= 2 * again,
+          f"{what} {form} {k}: off by {d['max_abs_err']}, more than twice "
+          f"the reference's own spread {again}")
+
+
+def dynvocab_forms(vocab, dynamic, seed: int, **knobs) -> dict:
+  """The two forms of the comparisons, each ``(batches, plan knobs)``:
+  ``distinct`` (``DYNVOCAB_VS_BATCH`` samples, every input's ranks
+  distinct in a batch, so no row takes two occurrences in a step and
+  K1's order cannot show; every id admitted on sight) and ``power_law``
+  (the cell's ``TRAIN_BATCH`` power-law samples, admission after two
+  sightings); ``knobs`` join both."""
+  return {"distinct": (dynvocab_batches(vocab, dynamic, DYNVOCAB_VS_STEPS,
+                                        DYNVOCAB_VS_BATCH, seed,
+                                        distinct=True),
+                       {"oov": "allocate", "admit_threshold": 1, **knobs}),
+          "power_law": (dynvocab_batches(vocab, dynamic, DYNVOCAB_VS_STEPS,
+                                         TRAIN_BATCH, seed + 1),
+                        {"oov": "allocate", "admit_threshold": 2, **knobs})}
+
+
+def phase_dynvocab_vs_static(torch, smi: str) -> dict:
+  """``dynvocab_vs_static``: the Criteo-1TB tables x
+  1/``DYNVOCAB_VS_SCALE`` (the train cell's vocabulary) under
+  ``oov='allocate'`` (no TTL, so no row is recycled),
+  ``DYNVOCAB_VS_STEPS`` guarded steps of the ``DynVocabTrainer`` from a
+  drawn state, against the static plan's guarded step fed the
+  translator's ids from the same state, twice (the static run's own
+  spread), in the two forms of :func:`dynvocab_forms`: ``distinct``
+  bit-equal (losses and every array), ``power_law`` within
+  :func:`within_spread`. Returns the launches."""
+  from distributed_embeddings_torch.models import bce_loss
+  from distributed_embeddings_torch.training import (
+      make_sparse_train_step,
+      shard_batch,
+  )
+
+  vocab = [max(4, v // DYNVOCAB_VS_SCALE) for v in CRITEO_1TB_VOCAB]
+  line = {"phase": "dynvocab_vs_static", "card": smi,
+          "vocab_scale": f"1/{DYNVOCAB_VS_SCALE}",
+          "steps": DYNVOCAB_VS_STEPS}
+  totals = expect()
+  static = train_plan(vocab)
+  n_sparse = sum(cp.kind == "sparse" for cp in static.classes.values())
+  dynamic = {t for t, c in enumerate(static.global_configs)
+             if c.input_dim > static.dense_row_threshold}
+  want = expect(interact_fwd=DYNVOCAB_VS_STEPS,
+                interact_bwd=DYNVOCAB_VS_STEPS,
+                apply_rows=n_sparse * DYNVOCAB_VS_STEPS)
+  deterministic = torch.are_deterministic_algorithms_enabled()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    for form, (batches, knobs) in dynvocab_forms(vocab, dynamic,
+                                                 SEED + 35).items():
+      _, dv, model, rule = dynvocab_cell(torch, vocab, knobs, SEED + 33)
+      check(set(dv.translator.dynamic_tables) == dynamic,
+            f"dynvocab_vs_static: dynamic tables "
+            f"{dv.translator.dynamic_tables}, expected {sorted(dynamic)}")
+      seen = record_translations(dv)
+      st_states = [twin_state(dv.state) for _ in range(2)]
+      reset_counts()
+      t0 = time.perf_counter()
+      dv_losses = dv.run(batches)
+      torch.cuda.synchronize()
+      wall = {"dynvocab": time.perf_counter() - t0}
+      got = read_counts()
+      check(got == want, f"dynvocab_vs_static {form}: launches {got}, "
+            f"expected {want}")
+      add_counts(totals, got)
+      runs = {}
+      for tag, st in zip(("static", "static_again"), st_states):
+        step = make_sparse_train_step(model, static, bce_loss,
+                                      sgd_factory(torch), rule, guard=True)
+        losses = []
+        reset_counts()
+        t0 = time.perf_counter()
+        for (num, _, lab), cats_t in zip(batches, seen):
+          st, loss, _ = step(st, *shard_batch((num, cats_t, lab),
+                                              device="cuda"))
+          losses.append(float(loss))
+        torch.cuda.synchronize()
+        wall[tag] = time.perf_counter() - t0
+        got = read_counts()
+        check(got == want, f"dynvocab_vs_static {form} {tag}: launches "
+              f"{got}, expected {want}")
+        add_counts(totals, got)
+        runs[tag] = (losses, st)
+      ref_losses, ref = runs["static"]
+      spread = arrays_differ(torch, train_arrays(ref),
+                             train_arrays(runs["static_again"][1]))
+      differ = arrays_differ(torch, train_arrays(ref), train_arrays(dv.state))
+      res = {"batch": len(batches[0][2]), "knobs": knobs,
+             "losses": dv_losses, "static_losses": ref_losses,
+             "wall_s": wall, "differ": differ, "static_spread": spread,
+             "per_class": dv.metrics_summary()["per_class"]}
+      if form == "distinct":
+        check(dv_losses == ref_losses and runs["static_again"][0]
+              == ref_losses, f"dynvocab_vs_static distinct: losses "
+              f"{dv_losses} / {runs['static_again'][0]} vs {ref_losses}")
+        check(not differ and not spread, f"dynvocab_vs_static distinct: "
+              f"arrays differ: {differ}; static twice: {spread}")
+        res["bit_equal"] = True
+      else:
+        within_spread(form, "dynvocab_vs_static", dv_losses, ref_losses,
+                      differ, spread)
+        res["tolerance"] = ("max |dynvocab - static| <= 2 max |static_again "
+                            "- static|, per fused buffer, and over the run "
+                            "for the other arrays; losses rtol 1e-5 / atol "
+                            "1e-6")
+      line[form] = res
+      del dv, runs, ref, st_states, st, step
+      torch.cuda.empty_cache()
+  finally:
+    torch.use_deterministic_algorithms(deterministic)
+  emit(line)
+  return totals
+
+
+def phase_dynvocab_overlap_vs_serial(torch, smi: str) -> dict:
+  """``dynvocab_overlap_vs_serial``: the cell of ``dynvocab_vs_static``
+  with a TTL of one step (evictions every step from the third on, the
+  recycled rows re-zeroed on the main thread before the dispatch), three
+  guarded ``DynVocabTrainer`` runs from one drawn state: the serial loop,
+  the serial loop again (its own spread) and ``overlap_host=True`` (batch
+  k+1 translated on the worker while step k runs), in the two forms of
+  :func:`dynvocab_forms`. The translator state, counters and re-zeroed
+  rows equal the serial run's in both forms; the losses and arrays
+  bit-equal in ``distinct``, within :func:`within_spread` in
+  ``power_law``. Returns the launches."""
+  import numpy as np
+
+  vocab = [max(4, v // DYNVOCAB_VS_SCALE) for v in CRITEO_1TB_VOCAB]
+  line = {"phase": "dynvocab_overlap_vs_serial", "card": smi,
+          "vocab_scale": f"1/{DYNVOCAB_VS_SCALE}",
+          "steps": DYNVOCAB_VS_STEPS}
+  totals = expect()
+  static = train_plan(vocab)
+  n_sparse = sum(cp.kind == "sparse" for cp in static.classes.values())
+  dynamic = {t for t, c in enumerate(static.global_configs)
+             if c.input_dim > static.dense_row_threshold}
+  want = expect(interact_fwd=DYNVOCAB_VS_STEPS,
+                interact_bwd=DYNVOCAB_VS_STEPS,
+                apply_rows=n_sparse * DYNVOCAB_VS_STEPS)
+  deterministic = torch.are_deterministic_algorithms_enabled()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    for form, (batches, knobs) in dynvocab_forms(
+        vocab, dynamic, SEED + 39, evict_ttl=1).items():
+      runs = {}
+      for tag in ("serial", "serial_again", "overlap"):
+        _, t, _, _ = dynvocab_cell(torch, vocab, knobs, SEED + 37,
+                                   overlap_host=tag == "overlap")
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = t.run(batches)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = read_counts()
+        check(got == want, f"dynvocab_overlap_vs_serial {form} {tag}: "
+              f"launches {got}, expected {want}")
+        add_counts(totals, got)
+        runs[tag] = (losses, t, wall_s)
+      ref_losses, ref, _ = runs["serial"]
+      hidden = runs["overlap"][1].telemetry.histogram(
+          "dynvocab/overlap_hidden_s")
+      res = {"batch": len(batches[0][2]), "knobs": knobs,
+             "losses": ref_losses,
+             "wall_s": {tag: r[2] for tag, r in runs.items()},
+             "worker_jobs": hidden.count,
+             "overlap_hidden_s_mean": hidden.mean,
+             "rows_zeroed": ref.rows_zeroed,
+             "per_class": ref.metrics_summary()["per_class"]}
+      check(ref.rows_zeroed > 0, f"dynvocab_overlap_vs_serial {form}: no "
+            "row was re-zeroed")
+      check(hidden.count == DYNVOCAB_VS_STEPS - 1,
+            f"dynvocab_overlap_vs_serial {form}: {hidden.count} worker jobs")
+      want_vocab = ref.translator.state_arrays()
+      spread = arrays_differ(torch, train_arrays(ref.state),
+                             train_arrays(runs["serial_again"][1].state))
+      res["differ"], res["serial_spread"] = {}, spread
+      for tag in ("serial_again", "overlap"):
+        losses, t, _ = runs[tag]
+        vocab_t = t.translator.state_arrays()
+        check(sorted(vocab_t) == sorted(want_vocab) and all(
+            np.array_equal(vocab_t[k], v) for k, v in want_vocab.items())
+            and t.metrics_summary() == ref.metrics_summary(),
+            f"dynvocab_overlap_vs_serial {form} {tag}: the id space or "
+            "its counters differ from the serial run's")
+        differ = arrays_differ(torch, train_arrays(ref.state),
+                               train_arrays(t.state))
+        res["differ"][tag] = differ
+        if form == "distinct":
+          check(losses == ref_losses and not differ,
+                f"dynvocab_overlap_vs_serial distinct {tag}: losses "
+                f"{losses} vs {ref_losses}, arrays differ: {differ}")
+      if form == "distinct":
+        res["bit_equal"] = True
+      else:
+        within_spread(form, "dynvocab_overlap_vs_serial",
+                      runs["overlap"][0], ref_losses,
+                      res["differ"]["overlap"], spread)
+        res["overlap_losses"] = runs["overlap"][0]
+        res["tolerance"] = ("max |overlap - serial| <= 2 max |serial_again "
+                            "- serial|, per fused buffer, and over the run "
+                            "for the other arrays; losses rtol 1e-5 / atol "
+                            "1e-6; the id space bit-equal")
+      res["id_space_bit_equal"] = True
+      line[form] = res
+      del runs, ref
+      torch.cuda.empty_cache()
+  finally:
+    torch.use_deterministic_algorithms(deterministic)
+  emit(line)
+  return totals
+
+
+def phase_dynvocab_golden(torch) -> dict:
+  """``dynvocab_golden``: the committed JAX dynvocab golden replayed
+  through the port's ``DynVocabTrainer`` on the card: every step's
+  translations, the translator state and the lifecycle counters
+  bit-equal, losses and tables within the train golden's tolerances;
+  returns the launches."""
+  from distributed_embeddings_torch import train_golden
+
+  golden = train_golden.load(train_golden.DYNVOCAB_PATH)
+  reset_counts()
+  losses, got, translated, trainer = train_golden.replay_dynvocab(
+      golden, device="cuda")
+  counts = read_counts()
+  try:
+    worst = train_golden.compare_dynvocab(golden, losses, got, translated,
+                                          trainer)
+  except AssertionError as exc:
+    raise SmokeFailure(f"dynvocab_golden: {exc}") from exc
+  steps = len(translated)
+  n_sparse = len(trainer.layouts)
+  want = expect(interact_fwd=steps, interact_bwd=steps,
+                apply_rows=n_sparse * steps)
+  check(counts == want, f"dynvocab_golden: launches {counts}, expected "
+        f"{want}")
+  emit({"phase": "dynvocab_golden", "losses": losses,
+        "want_losses": [float(v) for v in golden["losses"]], **worst,
+        "translations_bit_equal": True, "id_space_bit_equal": True,
+        "per_class": trainer.metrics_summary()["per_class"],
+        "loss_tol": train_golden.LOSS_TOL,
+        "update_tol": train_golden.UPDATE_TOL, "launches": counts})
+  return counts
+
+
+def _w4_dynvocab(torch, mesh, backend: str, outdir: str) -> dict:
+  """``world4_dynvocab`` in this rank: the world-4 plan (x
+  1/``W4_DYNVOCAB_VOCAB_SCALE``, ``'fused'``) under ``DYNVOCAB_KNOBS``,
+  a guarded ``DynVocabTrainer`` per rank over ``W4_DYNVOCAB_STEPS``
+  global raw-id batches of ``W4_BATCH`` samples (every rank translates
+  the global batch): K4, K1 and K2 as a world-4 step launches them, the
+  ranks' id spaces identical. The ranks save with ``vocab=``; rank 0
+  restores the checkpoint onto the world-2 plan (both ranks' blocks in
+  this process), with a fresh translator: the id space and every table's
+  bits (gathered from the world-4 ranks) the same."""
+  import math
+  import os
+  import zlib
+
+  import numpy as np
+  import torch.distributed as dist
+
+  from distributed_embeddings_torch import checkpoint
+  from distributed_embeddings_torch.dynvocab import (
+      DynVocabTrainer,
+      DynVocabTranslator,
+  )
+  from distributed_embeddings_torch.layers.dist_model_parallel import \
+      get_weights
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.resilience.elastic import plan_for_world
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      unpack_sparse_state,
+  )
+
+  dev = mesh.device
+  vocab, plan = world4_plan(backend, scale=W4_DYNVOCAB_VOCAB_SCALE,
+                            **DYNVOCAB_KNOBS)
+  model = DLRM(vocab, D, tables=False, device=dev,
+               generator=torch.Generator().manual_seed(SEED))
+  rule = sgd_rule(TRAIN_LR)
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 41 + mesh.rank),
+      mesh=mesh)
+  translator = DynVocabTranslator(plan, rule,
+                                  sketch_width=DYNVOCAB_SKETCH_WIDTH)
+  trainer = DynVocabTrainer(model, plan, translator, bce_loss,
+                            sgd_factory(torch), rule, mesh, state,
+                            guard=True, telemetry=MetricsRegistry())
+  batches = dynvocab_batches(vocab, set(translator.dynamic_tables),
+                             W4_DYNVOCAB_STEPS, W4_BATCH, SEED + 43)
+  want = expect(gather_rows=k4_launches_per_step(plan),
+                apply_rows=len(state["fused"]), interact_fwd=1,
+                interact_bwd=1)
+  reset_counts()
+  t0 = time.perf_counter()
+  losses = trainer.run(batches)
+  torch.cuda.synchronize(dev)
+  run_s = time.perf_counter() - t0
+  got = read_counts()
+  check(got == {k: v * W4_DYNVOCAB_STEPS for k, v in want.items()},
+        f"world4_dynvocab rank {mesh.rank}: launches {got}, expected "
+        f"{want} a step")
+  check(all(math.isfinite(x) for x in losses),
+        f"world4_dynvocab rank {mesh.rank}: losses {losses}")
+  flat = translator.state_arrays()
+  crc = 0
+  for k in sorted(flat):
+    crc = zlib.crc32(np.ascontiguousarray(flat[k]).tobytes(), crc)
+  crcs = [None] * WORLD
+  dist.all_gather_object(crcs, crc)
+  check(len(set(crcs)) == 1, f"world4_dynvocab: the ranks' id spaces "
+        f"differ ({crcs})")
+  path = os.path.join(outdir, "dynvocab_ckpt")
+  t0 = time.perf_counter()
+  checkpoint.save(path, plan, rule, trainer.state, vocab=translator,
+                  mesh=mesh)
+  save_s = time.perf_counter() - t0
+  tables, _ = unpack_sparse_state(plan, rule, trainer.state, mesh=mesh)
+  out = {"losses": losses, "run_s": run_s, "save_s": save_s,
+         "launches": got, "launches_per_step": want,
+         "summary": trainer.metrics_summary()}
+  if mesh.rank == 0:
+    plan2 = plan_for_world(plan, 2)
+    like2 = init_sparse_state_direct(
+        plan2, rule, model.state_dict(), sgd_factory(torch),
+        torch.Generator(device=dev).manual_seed(SEED + 45), device=dev)
+    tr2 = DynVocabTranslator(plan2, rule, sketch_width=DYNVOCAB_SKETCH_WIDTH)
+    t0 = time.perf_counter()
+    restored = checkpoint.restore(path, plan2, rule, like2, vocab=tr2,
+                                  device=dev)
+    out["restore_2_s"] = time.perf_counter() - t0
+    flat2 = tr2.state_arrays()
+    check(sorted(flat2) == sorted(flat) and all(
+        np.array_equal(flat2[k], v) for k, v in flat.items()),
+          "world4_dynvocab: the world-2 restore's id space differs")
+    tables2, _ = unpack_sparse_state(plan2, rule, restored)
+    for i, (a, b) in enumerate(zip(
+        get_weights(plan, tables["embeddings"]),
+        get_weights(plan2, tables2["embeddings"]))):
+      check(torch.equal(torch.as_tensor(a), torch.as_tensor(b)),
+            f"world4_dynvocab: table {i} differs after the 4 -> 2 restore")
+    out["restored_2_bit_equal"] = True
+    out["occupancy"] = {str(k): v for k, v in tr2.occupancy().items()}
+    del restored, like2
+  del trainer, state, tables
+  torch.cuda.empty_cache()
+  dist.barrier()
+  return out
+
+
+def emit_dynvocab_world4(backend: str, smi: str, res: list) -> dict:
+  """The ``world4_dynvocab`` line from the ranks' :func:`_w4_dynvocab`
+  results; returns each kernel's launches summed over the ranks."""
+  totals = expect()
+  for r in res:
+    add_counts(totals, r["launches"])
+  check(all(r["losses"] == res[0]["losses"] for r in res),
+        "world4_dynvocab: the ranks' losses differ")
+  emit({"phase": "world4_dynvocab", "backend": backend, "card": smi,
+        "vocab_scale": f"1/{W4_DYNVOCAB_VOCAB_SCALE}", "overlap": "fused",
+        "global_batch": W4_BATCH, "steps": W4_DYNVOCAB_STEPS,
+        "knobs": DYNVOCAB_KNOBS, "losses": res[0]["losses"],
+        "run_s_by_rank": [r["run_s"] for r in res],
+        "save_s_by_rank": [r["save_s"] for r in res],
+        "restore_2_s": res[0]["restore_2_s"],
+        "restored_2_bit_equal": res[0]["restored_2_bit_equal"],
+        "occupancy_after_restore": res[0]["occupancy"],
+        "per_class": res[0]["summary"]["per_class"],
+        "rows_zeroed": res[0]["summary"]["rows_zeroed"],
+        "launches_per_step_per_rank": res[0]["launches_per_step"],
+        "launches": totals})
+  return totals
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   source = BF16_FORMS.get(name, name)
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}.cu",
@@ -10584,6 +11382,13 @@ def main() -> int:
       torch, smi, setup)
   del setup
   torch.cuda.empty_cache()
+  # slice 22: the dynamic vocabulary
+  by_path["dynvocab_golden"] = phase_dynvocab_golden(torch)
+  by_path["train_dynvocab"] = phase_train_dynvocab(torch, smi)
+  by_path["dynvocab_vs_static"] = phase_dynvocab_vs_static(torch, smi)
+  by_path["dynvocab_overlap_vs_serial"] = phase_dynvocab_overlap_vs_serial(
+      torch, smi)
+  torch.cuda.empty_cache()
   for compute in ("f32", "bf16"):
     by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
                                                           compute)
@@ -10667,7 +11472,12 @@ def main() -> int:
                       ("serve_tiered_golden", ("interact_fwd",)),
                       ("serve_tiered_artifact", ("interact_fwd",)),
                       ("world4_serve_tiered", ("interact_fwd",)),
-                      ("world4_batcher", ("interact_fwd",))):
+                      ("world4_batcher", ("interact_fwd",)),
+                      ("dynvocab_golden", dlrm_sparse),
+                      ("train_dynvocab", dlrm_sparse),
+                      ("dynvocab_vs_static", dlrm_sparse),
+                      ("dynvocab_overlap_vs_serial", dlrm_sparse),
+                      ("world4_dynvocab", W4_KERNELS)):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

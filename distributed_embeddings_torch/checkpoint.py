@@ -50,11 +50,20 @@ way in (:func:`_restore_elastic`, the regroup engine of
 included, lands in the new plan's blocks bit for bit, and the tiered
 observed counts are re-mapped with them.
 
-Not ported (refused by name): the dynamic vocabulary and the stream
-section (``vocab=``, ``stream=``, ROADMAP.md §1 item 12), and the
-per-process clock records of a world-N save (``pod_clock.json``,
-:func:`read_pod_clock`, item 11c). The ``telemetry`` section (a metrics
-registry's state) is written and read as the JAX package does.
+A dynamic-vocabulary run (``oov='allocate'``) passes its
+``dynvocab.DynVocabTranslator`` as ``vocab=``: the id space (mapping,
+admission sketch, freelist, cumulative lifecycle counters, the TTL clock)
+is written by rank 0 as ``vocab.npz`` with the manifest's ``vocab``
+section, and :func:`restore` loads it back in place, across an elastic
+re-shard too (the id space is keyed by table, not by rank). The
+``telemetry`` section (a metrics registry's state) is written and read
+as the JAX package does. A world-N save measures every rank's trace
+clock against rank 0's right after its first barrier and publishes the
+records as ``pod_clock.json`` (:func:`read_pod_clock`), the offsets
+``telemetry.merge_traces`` takes.
+
+Not ported (refused by name): the delta stream's section (``stream=``,
+ROADMAP.md §1 item 12b).
 """
 
 from __future__ import annotations
@@ -309,17 +318,88 @@ def publish_manifest_last(tmp: str, path: str,
 # ---------------------------------------------------------------------------
 
 
-def refuse_unported(vocab, stream) -> None:
-  """The arguments of the subsystems not ported yet, each refused naming
-  its ROADMAP item (``resilience.durable`` refuses them alike)."""
-  if vocab is not None:
-    raise NotImplementedError(
-        "vocab= (a dynamic-vocabulary translator): its id space is not "
-        "ported yet (ROADMAP.md §1 item 12, dynvocab)")
+def refuse_unported(stream) -> None:
+  """The argument of the subsystem not ported yet, refused naming its
+  ROADMAP item (``resilience.durable`` refuses it alike)."""
   if stream is not None:
     raise NotImplementedError(
         "stream= (the delta publisher's chain state): not ported yet "
-        "(ROADMAP.md §1 item 12, streaming)")
+        "(ROADMAP.md §1 item 12b, streaming)")
+
+
+def _check_vocab_arg(plan, vocab) -> None:
+  """The JAX ``save``'s refusals of a missing or misplaced translator."""
+  if vocab is None and getattr(plan, "oov", "clip") == "allocate":
+    raise ValueError(
+        "plan.oov='allocate' but no DynVocabTranslator was passed: "
+        "saving only the buffers would drop the id space (which raw id "
+        "owns which row) — a resumed run would re-allocate from scratch "
+        "and train the restored rows with the WRONG ids. Pass the run's "
+        "translator via save(..., vocab=translator).")
+  if vocab is not None and getattr(plan, "oov", "clip") != "allocate":
+    raise ValueError(
+        "save(..., vocab=...) on a static-vocab plan "
+        f"(oov={getattr(plan, 'oov', 'clip')!r}): there is no id space "
+        "to persist — drop the argument or build the plan with "
+        "oov='allocate'.")
+
+
+def _load_vocab(path: str, manifest: Dict[str, Any], vocab) -> None:
+  """Restore the dynamic id space from a checkpoint's ``vocab`` section
+  (presence of the section and of the translator must agree; knob or
+  geometry mismatches refuse inside ``vocab.load_state`` with the
+  reason named)."""
+  section = manifest.get("vocab")
+  if section is None and vocab is None:
+    return
+  if section is not None and vocab is None:
+    raise ValueError(
+        "checkpoint carries a dynamic-vocabulary ('vocab') section but "
+        "no DynVocabTranslator was passed: restoring the buffers without "
+        "the id space would train the restored rows with the WRONG ids. "
+        "Pass restore(..., vocab=translator) built from an "
+        "oov='allocate' plan with the saving run's knobs.")
+  if section is None:
+    raise ValueError(
+        "restore(..., vocab=...) but the checkpoint has no 'vocab' "
+        "section: it was written by a static-vocab run, so there is no "
+        "id space to load — a dynamic run cannot adopt it without an "
+        "explicit (id -> row) seeding step.")
+  with np.load(os.path.join(path, "vocab.npz")) as z:
+    flat = {k: np.asarray(v) for k, v in z.items()}
+  vocab.load_state(flat, section)
+
+
+def _pod_clock_record(mesh, rounds: int = 8) -> Dict[str, int]:
+  """This rank's trace-clock offset against rank 0's, measured over
+  ``rounds`` broadcast round trips (NTP-shaped: local read, broadcast of
+  rank 0's ``telemetry.clock_ns`` as an int64, local read; the min-RTT
+  round wins with the structural +-rtt/2 bound —
+  ``telemetry.estimate_clock_offset`` over a collective). The tensor
+  lives where the backend wants it (the rank's card under NCCL, whose
+  host read ends each round, the host under gloo). ``offset_ns`` is THIS
+  rank's clock MINUS rank 0's — ``merge_traces``' per-entry sign with
+  rank 0's trace first. Collective: every rank calls it at the same
+  point (:func:`save`, right after the tmp-ready barrier)."""
+  from .telemetry.trace import clock_ns, estimate_clock_offset
+  dev = mesh.device if dist.get_backend() == "nccl" else "cpu"
+  buf = torch.zeros((), dtype=torch.int64, device=dev)
+
+  def remote_clock() -> int:
+    if mesh.rank == 0:
+      buf.fill_(clock_ns())
+    dist.broadcast(buf, src=0)
+    return int(buf.item())
+
+  rec = estimate_clock_offset(remote_clock, rounds=rounds).to_json()
+  # the estimate is rank 0 (remote) vs local; merge_traces wants local
+  # vs rank 0
+  rec["offset_ns"] = -rec["offset_ns"]
+  rec["process"] = int(mesh.rank)
+  if mesh.rank == 0:
+    rec["offset_ns"] = 0  # the reference clock, by definition
+    rec["uncertainty_ns"] = 0
+  return rec
 
 
 def _state_rank(plan, mesh) -> Optional[int]:
@@ -508,18 +588,23 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
   cold image is written as ``cold_<class>_r<rank>.npy`` with the resident
   sets and observed counts in ``tiering.npz`` (``tiering_p<rank>.npz`` from
   each rank at world N), and the manifest's ``tiering`` section records the
-  tier geometry; the compact device buffers are not saved."""
-  refuse_unported(vocab, stream)
-  if getattr(plan, "oov", "clip") == "allocate":
-    raise NotImplementedError(
-        "plan.oov='allocate': the dynamic id space is not ported yet "
-        "(ROADMAP.md §1 item 12, dynvocab)")
+  tier geometry; the compact device buffers are not saved.
+
+  A plan with ``oov='allocate'`` needs its ``dynvocab.DynVocabTranslator``
+  as ``vocab`` (and a static plan refuses one, with the JAX messages):
+  rank 0 writes its ``state_arrays()`` as ``vocab.npz`` and the manifest
+  takes its ``manifest_section()`` as ``vocab``. At world N every rank's
+  clock offset against rank 0's is measured right after the first
+  barrier and rank 0 publishes them as ``pod_clock.json``
+  (:func:`read_pod_clock`)."""
+  refuse_unported(stream)
   if store is None and plan.host_tier_class_keys():
     raise ValueError(
         "plan has host-tier classes but no HostTierStore was passed: "
         "saving only the compact device buffers would drop the cold rows "
         "(the authoritative majority of the weights). Pass the run's "
         "store via save(..., store=store).")
+  _check_vocab_arg(plan, vocab)
   rank = _state_rank(plan, mesh)
   p0 = rank in (None, 0)
   layouts, tiered_names = _device_layouts(plan, rule, store)
@@ -532,6 +617,7 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
   if telemetry is not None:
     telemetry_meta = (telemetry.state_dict()
                       if hasattr(telemetry, "state_dict") else dict(telemetry))
+  vocab_meta = vocab.manifest_section() if vocab is not None else None
   tmp = path + ".tmp"
   err: Optional[BaseException] = None
   if p0:
@@ -544,6 +630,9 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
     except BaseException as e:  # reach the barrier even on failure
       err = e
   _barrier(rank)
+  # the clock handshake rides the barrier the ranks just met at, when
+  # they are most closely aligned and the RTT bound is tightest
+  clock_rec = _pod_clock_record(mesh) if rank is not None else None
 
   local_crcs: Dict[str, Dict[str, int]] = {}
 
@@ -587,6 +676,16 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
       _seal(fpath)
     if store is not None:
       _write_tier_blocks(tmp, store, _seal, rank)
+    if vocab is not None and p0:
+      # the id space is table-keyed global host state: rank 0 writes it
+      fpath = os.path.join(tmp, "vocab.npz")
+      np.savez(fpath, **vocab.state_arrays())
+      _seal(fpath)
+    if clock_rec is not None:
+      # transported to rank 0 like the marker crcs (merged into
+      # pod_clock.json at publication, then removed)
+      with open(os.path.join(tmp, f"clock_p{me}.json"), "w") as f:
+        json.dump(clock_rec, f)
     with open(os.path.join(tmp, f"DONE_p{me}"), "w") as f:
       json.dump(local_crcs, f)  # the marker carries this writer's crcs
   except BaseException as e:
@@ -618,6 +717,20 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
       with open(mk) as f:
         checksums.update(json.load(f))
       os.remove(mk)
+    clocks: Dict[str, Dict[str, int]] = {}
+    for p in range(n_proc):
+      cpath = os.path.join(tmp, f"clock_p{p}.json")
+      if not os.path.exists(cpath):
+        continue
+      with open(cpath) as f:
+        clocks[str(p)] = json.load(f)
+      os.remove(cpath)
+    if clocks:
+      cpath = os.path.join(tmp, "pod_clock.json")
+      with open(cpath, "w") as f:
+        json.dump(clocks, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
     for fname in sorted(os.listdir(tmp)):
       if fname not in checksums:  # defensive: a file no writer claimed
         checksums[fname] = _crc32_file(os.path.join(tmp, fname))
@@ -634,6 +747,8 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
       manifest["extra"] = extra
     if store is not None:
       manifest["tiering"] = {"classes": store.tplan.geometry()}
+    if vocab_meta is not None:
+      manifest["vocab"] = vocab_meta
     if telemetry_meta is not None:
       manifest["telemetry"] = telemetry_meta
     publish_manifest_last(tmp, path, manifest)
@@ -735,13 +850,6 @@ def _check_manifest(manifest: Dict[str, Any], plan, rule,
             f"match the current TieringPlan {geometry[name]}: rebuild the "
             "TieringConfig with the saving run's budget/cache/staging "
             "settings")
-  if manifest.get("vocab") is not None:
-    raise ValueError(
-        "checkpoint carries a dynamic-vocabulary ('vocab') section but "
-        "no DynVocabTranslator was passed: restoring the buffers without "
-        "the id space would train the restored rows with the WRONG ids. "
-        "Pass restore(..., vocab=translator) built from an "
-        "oov='allocate' plan with the saving run's knobs.")
   for name, layout in layouts.items():
     meta = manifest.get("fused", {}).get(name)
     if meta is not None and (meta["phys_rows"] != layout.phys_rows
@@ -986,13 +1094,19 @@ def _restore_elastic(path: str, manifest: Dict[str, Any], plan, rule,
   return state
 
 
-def read_pod_clock(path: str):
-  """The per-process clock-offset records of a world-N save
-  (``pod_clock.json``): not ported yet."""
-  raise NotImplementedError(
-      "read_pod_clock (the clock records a world-N save piggybacks on its "
-      "barriers, pod_clock.json): not ported yet (ROADMAP.md §1 item 11c, "
-      "with telemetry.estimate_clock_offset)")
+def read_pod_clock(path: str) -> Dict[int, Dict[str, int]]:
+  """Per-rank clock-offset records a world-N save piggybacked on its
+  barriers (``pod_clock.json``), keyed by rank. ``entry[i]["offset_ns"]``
+  feeds ``telemetry.merge_traces`` directly as ``traces[i]["offset_ns"]``
+  with rank 0's trace as the first (reference) entry. ``{}`` for a
+  checkpoint one process wrote (nothing to correlate). The JAX package's
+  reader reads the same file."""
+  try:
+    with open(os.path.join(path, "pod_clock.json")) as f:
+      data = json.load(f)
+  except OSError:
+    return {}
+  return {int(k): dict(v) for k, v in data.items()}
 
 
 def restore(path: str, plan, rule, state_like: Dict[str, Any],
@@ -1033,8 +1147,14 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   ranks' cold images and every rank's resident sets and counts are loaded
   into it, and the host-tier classes' compact device buffers are rebuilt
   from the restored resident sets (a ``TieredPrefetcher`` bound to the
-  store then needs ``refresh_resident()``)."""
-  refuse_unported(vocab, stream)
+  store then needs ``refresh_resident()``).
+
+  A checkpoint with a ``vocab`` section needs ``vocab`` (a
+  ``DynVocabTranslator`` of the saving run's knobs and capacities), which
+  it loads in place before any block is read, across a re-shard too; the
+  JAX package's refusals when the section and the translator do not
+  agree."""
+  refuse_unported(stream)
   rank = _state_rank(plan, mesh)
   dev = mesh.device if mesh is not None else resolve_device(device)
   layouts, tiered_names = _device_layouts(plan, rule, store)
@@ -1051,6 +1171,10 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
     # REPLACES the named metrics' values: a resume continues the run's
     # counts rather than adding to what this process observed so far
     telemetry.load_state_dict(manifest["telemetry"])
+  # the id space is table-keyed (raw id -> table row), so an elastic
+  # re-shard loads it verbatim; refused mismatches raise before any block
+  # is read
+  _load_vocab(path, manifest, vocab)
   if elastic:
     return _restore_elastic(path, manifest, plan, rule, state_like, rank,
                             mesh, store, dev)

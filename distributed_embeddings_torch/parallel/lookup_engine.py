@@ -1406,6 +1406,32 @@ class DistributedLookup:
           width=cp.width, n_aux=rule.n_aux)
     return layouts
 
+  # ---- dynamic vocabulary: raw-id translation (oov='allocate') -----------
+  def translate_dynamic_ids(self, inputs: Sequence, translator):
+    """Host-side dynamic-id translation pass (``plan.oov='allocate'``).
+
+    Runs BETWEEN steps on the host — the :class:`TieredPrefetcher`
+    pattern — never inside the step: raw 64-bit ids are mapped through
+    the translator's open-addressing tables (admitting new ids past the
+    sketch threshold, recycling TTL-expired rows) and the TRANSLATED
+    in-range ids feed :meth:`route_ids` unchanged, so the step runs
+    exactly as a static-vocab plan's and the one-scatter-add backward is
+    untouched. All translation-state mutation lives in the ``dynvocab/``
+    host paths the translator owns.
+
+    Returns ``(translated_inputs, vocab_metrics, zero_work)`` — see
+    :meth:`dynvocab.DynVocabTranslator.translate_batch`; apply
+    ``zero_work`` to the fused buffers (``dynvocab.apply_zero_work``)
+    BEFORE dispatching the step so recycled rows re-admit onto zeroed
+    lanes."""
+    if getattr(self.plan, "oov", "clip") != "allocate":
+      raise ValueError(
+          "translate_dynamic_ids needs a plan built with oov='allocate' "
+          f"(got {getattr(self.plan, 'oov', 'clip')!r}): under "
+          "'clip'/'error' the id space is static and raw ids feed "
+          "route_ids directly.")
+    return translator.translate_batch(inputs)
+
   # ---- tiered storage: hot/cold routing + staging buffers ----------------
   def translate_tiered_ids(self, ids_all: Dict[BucketKey, torch.Tensor],
                            tier_specs: Dict[str, TierSpec],

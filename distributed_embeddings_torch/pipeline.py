@@ -1,5 +1,5 @@
 """Step pipeline: the next batch's host pass on a worker thread while the
-card runs this step (PyTorch port of ``pipeline.py``, its tiered half).
+card runs this step (PyTorch port of ``pipeline.py``).
 
 The tiered trainer's host pass (classify the batch against the resident
 maps, gather its cold rows out of the host images) is welded to every
@@ -40,8 +40,17 @@ device's work: the job is submitted after ``_dispatch`` has queued the
 step's launches, and the main thread then blocks in the write-back's
 download, which releases it.
 
-The dynamic-vocabulary half (``run_dynvocab_overlapped``) waits for the
-dynamic vocabulary itself (ROADMAP.md §1 item 12a).
+The dynamic-vocabulary half (:func:`run_dynvocab_overlapped`) translates
+batch k+1's raw ids on the worker while step k runs. The translation
+mutates the translator, in batch order on the one worker, so the id
+space evolves exactly as in the serial loop; the re-zeroing of recycled
+rows (``DynVocabTrainer._apply_zero``, a device write) stays on the main
+thread, before the dispatch of the step that may read them; and the
+worker is joined before the accounting. The translate-ahead is skipped
+where the caller's ``defer_overlap`` says a snapshot may follow (a
+snapshot must never see a translator a batch ahead of the consumed
+stream). The hidden host time is observed as
+``dynvocab/overlap_hidden_s``.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ import queue
 import threading
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
-from .telemetry import timed as _timed
+from .telemetry import span as _span, timed as _timed
 
 
 class _Job:
@@ -213,8 +222,89 @@ def run_tiered_overlapped(trainer, batches: Iterable, *,
   return losses
 
 
-def run_dynvocab_overlapped(trainer, batches: Iterable, **hooks):
-  """The dynamic-vocabulary half of the pipeline: not ported yet."""
-  raise NotImplementedError(
-      "run_dynvocab_overlapped (translate-ahead of a dynamic vocabulary on "
-      "the host worker): not ported yet (ROADMAP.md §1 item 12a, dynvocab)")
+def _dynvocab_translate_job(trainer, cats):
+  return trainer.engine.translate_dynamic_ids(cats, trainer.translator)
+
+
+def run_dynvocab_overlapped(trainer, batches: Iterable, *,
+                            account: Optional[Callable] = None,
+                            on_dispatch: Optional[Callable] = None,
+                            after_step: Optional[Callable] = None,
+                            defer_overlap: Optional[Callable] = None
+                            ) -> List[float]:
+  """The overlapped form of ``DynVocabTrainer.run``: while step j runs
+  on the card, the worker translates batch j+1's raw ids.
+
+  Hooks (the ``ResilientTrainer`` wiring):
+    ``account(metrics, vocab_metrics)``: replaces the trainer's own
+      accounting (guard metrics, then the lifecycle counters);
+    ``on_dispatch()``: right after the dispatch (the stream position);
+    ``defer_overlap(prev_stepped)``: True keeps the next batch's
+      translation off the worker (it then runs serially at the next
+      step): the ResilientTrainer defers around snapshot boundaries and
+      drain requests, so a snapshot never captures a translator a batch
+      ahead of the consumed stream;
+    ``after_step(loss, metrics, stepped, pending_ahead)``: True stops the
+      run. With a translated batch pending, that batch is consumed as
+      one more step before stopping, so the translator clock equals the
+      consumed count at the drain snapshot.
+
+  Zero work for recycled rows always applies on the main thread before
+  the dispatch."""
+  losses: List[float] = []
+  it = iter(batches)
+  cur = next(it, None)
+  if cur is None:
+    return losses
+  reg = trainer.telemetry
+  prev_stepped = int(trainer.state["step"])
+  pending = None  # (cats_t, vocab_metrics, zero) translated ahead for cur
+  with HostWorker("dynvocab-overlap") as worker:
+    while cur is not None:
+      numerical, cats, labels = cur
+      if pending is None:
+        with _span("dynvocab/translate"):
+          cats_t, vocab_metrics, zero = trainer.engine.translate_dynamic_ids(
+              cats, trainer.translator)
+      else:
+        cats_t, vocab_metrics, zero = pending
+        pending = None
+      trainer._apply_zero(zero)  # a device write: main thread, pre-dispatch
+      nxt = next(it, None)
+      loss, metrics = trainer._dispatch(numerical, cats_t, labels)
+      if on_dispatch is not None:
+        on_dispatch()
+      job = None
+      if nxt is not None and not (
+          defer_overlap(prev_stepped) if defer_overlap is not None
+          else False):
+        job = worker.submit(_dynvocab_translate_job, trainer, nxt[1],
+                            label="dynvocab/translate_ahead")
+      loss = float(loss)  # the host read ending the device window
+      trainer._dev_span.finish()
+      # join the worker BEFORE the accounting: a guard rollback restores
+      # the translator, and must never race an in-flight translation
+      if job is not None:
+        with _timed("dynvocab/overlap_wait", reg) as w:
+          pending, job_s = worker.result(job)
+        _hidden(reg, "dynvocab/overlap_hidden_s", job_s, w.elapsed)
+      if account is not None:
+        account(metrics, vocab_metrics)
+      else:
+        if trainer.guard:
+          trainer._account(metrics)
+        else:
+          trainer.steps += 1
+        trainer.account_vocab(vocab_metrics)
+      losses.append(loss)
+      prev_stepped = int(trainer.state["step"])
+      stop = bool(after_step(loss, metrics, prev_stepped,
+                             pending is not None)) \
+          if after_step is not None else False
+      if (stop and pending is None) or nxt is None:
+        break
+      # a stop with a translated batch pending falls through: cur is the
+      # pending batch, no new job is submitted (defer_overlap sees the
+      # drain), and the next after_step stops with pending None
+      cur = nxt
+  return losses

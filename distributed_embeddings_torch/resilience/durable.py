@@ -25,10 +25,10 @@ the unit a long-running job actually operates on:
 The directory names, the rotation and the fallback are the JAX
 package's, so either package resumes the other's root. At world N every
 rank calls :func:`save_rotating` and :func:`restore_latest` with its
-mesh; a tiered run passes its ``HostTierStore`` (``store=``) through to
+mesh; a tiered run passes its ``HostTierStore`` (``store=``) and a
+dynamic-vocabulary run its ``DynVocabTranslator`` (``vocab=``) through to
 ``checkpoint.save`` / ``restore``. Not ported (refused by name): the
-dynamic vocabulary and the delta stream (``vocab=``, ``stream=``,
-ROADMAP.md §1 item 12).
+delta stream (``stream=``, ROADMAP.md §1 item 12b).
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def save_rotating(root: str, plan, rule, state: Dict[str, Any],
   from .. import checkpoint
   from ..telemetry import counter as _counter, span as _span
 
-  checkpoint.refuse_unported(vocab, stream)
+  checkpoint.refuse_unported(stream)
   step = int(state["step"])
   path = step_dir(root, step)
   rank = mesh.rank if _world_n(mesh) else 0
@@ -126,11 +126,11 @@ def save_rotating(root: str, plan, rule, state: Dict[str, Any],
   with _span("ckpt/save", args={"step": step}):
     if _world_n(mesh):
       checkpoint.save(path, plan, rule, state, store=store, extra=extra,
-                      telemetry=telemetry, mesh=mesh)
+                      vocab=vocab, telemetry=telemetry, mesh=mesh)
     else:
       retry.retry_call(checkpoint.save, path, plan, rule, state,
-                       store=store, extra=extra, telemetry=telemetry,
-                       mesh=mesh, policy=policy)
+                       store=store, extra=extra, vocab=vocab,
+                       telemetry=telemetry, mesh=mesh, policy=policy)
   _counter("ckpt/saves").inc()
   if rank == 0:
     prune(root, keep)
@@ -153,7 +153,7 @@ def restore_latest(root: str, plan, rule, state_like: Dict[str, Any],
   from .. import checkpoint
   from ..telemetry import counter as _counter, span as _span
 
-  checkpoint.refuse_unported(vocab, stream)
+  checkpoint.refuse_unported(stream)
   if _world_n(mesh):
     # The choice of checkpoint must be COLLECTIVE. Two ranks scanning a
     # shared filesystem independently can disagree under attribute-cache
@@ -178,6 +178,6 @@ def restore_latest(root: str, plan, rule, state_like: Dict[str, Any],
   with _span("ckpt/restore", args={"step": step}):
     state = checkpoint.restore(path, plan, rule, state_like, mesh=mesh,
                                store=store, verify_integrity=False,
-                               device=device)
+                               vocab=vocab, device=device)
   _counter("ckpt/restores").inc()
   return state, step, path

@@ -44,10 +44,18 @@ guard accounting; snapshots checkpoint the ``HostTierStore`` (a frozen
 ``snapshot_view`` for async ones) and every resume restores it and
 refreshes the prefetcher's device resident maps.
 
-With ``overlap_host=True`` (tiered mode) the next batch's host pass
-runs on the pipeline's worker thread while the card runs this step
-(``pipeline.run_tiered_overlapped``), bit-equal to the serial loop,
-snapshots (async ones too) and drains included.
+Dynvocab mode (``dynvocab=``, a guarded ``dynvocab.DynVocabTrainer``):
+every step translates a HOST batch of raw ids (the id space consumes
+guard-skipped batches too, as the stream position does), re-zeroes
+recycled rows and steps, with this trainer's guard accounting; snapshots
+persist the id space through the checkpoint's ``vocab`` section and every
+resume or rollback restores it in place. Snapshots there are synchronous
+(the translator is live host state every step mutates).
+
+With ``overlap_host=True`` (tiered or dynvocab mode) the next batch's
+host pass runs on the pipeline's worker thread while the card runs this
+step (``pipeline.run_tiered_overlapped`` / ``run_dynvocab_overlapped``),
+bit-equal to the serial loop, snapshots and drains included.
 
 :meth:`ResilientTrainer.resize` changes the world in the run
 (``resilience/elastic``): in one process it re-shards the whole-world
@@ -59,8 +67,8 @@ parks (it holds no state and takes part in the next resize, which may
 bring it back). ``consumed == step_count + skipped_steps`` holds across
 every shrink and grow.
 
-Not ported (refused by name): the dynamic vocabulary and the delta
-stream (``dynvocab=``, ``stream=``, ROADMAP.md §1 item 12).
+Not ported (refused by name): the delta stream (``stream=``,
+ROADMAP.md §1 item 12b).
 """
 
 from __future__ import annotations
@@ -184,10 +192,16 @@ class ResilientTrainer:
       prefetcher's resident maps.
     store: the ``HostTierStore`` of a tiered plan (default: the
       TieredTrainer's), passed to every checkpoint save and restore.
-    overlap_host: tiered mode only: :meth:`run` takes the next batch's
-      host pass on the pipeline's worker thread while the card runs this
-      step (``pipeline.run_tiered_overlapped``), bit-equal to the serial
-      loop.
+    dynvocab: a GUARDED ``dynvocab.DynVocabTrainer``: :meth:`step` then
+      runs its translate / re-zero / step protocol on HOST batches of raw
+      ids (``step_fn`` must be None and ``state`` may be None: the
+      DynVocabTrainer's are used); the lifecycle counters stay with it
+      (``account_vocab``), the guard accounting is this trainer's, and
+      its translator rides every snapshot (``vocab=``) and resume.
+      Incompatible with ``tiered=`` and ``async_snapshots``.
+    overlap_host: tiered or dynvocab mode: :meth:`run` takes the next
+      batch's host pass on the pipeline's worker thread while the card
+      runs this step, bit-equal to the serial loop.
   """
 
   def __init__(self, step_fn, state: Dict[str, Any], plan, rule,
@@ -199,11 +213,11 @@ class ResilientTrainer:
                async_snapshots: bool = False,
                tiered=None, dynvocab=None, telemetry=None, stream=None,
                overlap_host: bool = False):
-    if dynvocab is not None or stream is not None:
+    if stream is not None:
       raise NotImplementedError(
-          "dynvocab= / stream= (the dynamic vocabulary and the delta "
-          "publisher): not ported yet (ROADMAP.md §1 item 12)")
-    if overlap_host and tiered is None:
+          "stream= (the delta publisher): not ported yet (ROADMAP.md §1 "
+          "item 12b)")
+    if overlap_host and tiered is None and dynvocab is None:
       raise ValueError(
           "overlap_host=True without a tiered or dynvocab trainer: the "
           "sparse step has no per-step host pass to overlap (its batch "
@@ -219,6 +233,42 @@ class ResilientTrainer:
     # keeps the observed counts).
     self.telemetry = telemetry if telemetry is not None \
         else _telemetry.get_registry()
+    self.dynvocab = dynvocab
+    if dynvocab is not None:
+      # the trainer drives the guarded DynVocabTrainer's translate /
+      # re-zero / step protocol and owns the durability and guard
+      # accounting; snapshots persist the id space (translation table,
+      # sketch, freelist, cumulative counters) through the manifest's
+      # vocab section, and resume or rollback restores it IN PLACE
+      if tiered is not None:
+        raise NotImplementedError(
+            "tiered= with dynvocab=: the dynamic-id translation and the "
+            "tiered classify are separate host passes that do not "
+            "compose yet (make_tiered_train_step refuses oov='allocate' "
+            "for the same reason).")
+      if not getattr(dynvocab, "guard", False):
+        raise ValueError(
+            "ResilientTrainer(dynvocab=...) needs a DynVocabTrainer "
+            "built with guard=True: the resilience accounting reads the "
+            "guarded step's {'bad_step', 'oov'} metrics, and under "
+            "oov='allocate' the in-trace OOV counter doubles as the "
+            "raw-ids-leaked-past-the-translator tripwire.")
+      if step_fn is not None:
+        raise ValueError(
+            "ResilientTrainer(dynvocab=...) drives the DynVocabTrainer's "
+            "own step; pass step_fn=None (the two would race on the "
+            "state).")
+      if async_snapshots:
+        raise NotImplementedError(
+            "async_snapshots with a dynvocab trainer: checkpoint.save "
+            "serializes the translator's live host state (mapping, "
+            "sketch, freelist), which every step's translate pass "
+            "mutates — a background save would tear it. (The tiered "
+            "store solved this with a copy-on-snapshot view; the "
+            "translator has no equivalent frozen surface yet.)")
+      dynvocab.telemetry = self.telemetry
+      state = dynvocab.state if state is None else state
+    self.vocab = dynvocab.translator if dynvocab is not None else None
     self.tiered = tiered
     if tiered is not None:
       if not getattr(tiered, "guard", False):
@@ -334,7 +384,8 @@ class ResilientTrainer:
     self.join_writer()  # never scan the root under a concurrent save
     got = durable.restore_latest(self.ckpt_root, self.plan, self.rule,
                                  self.state, mesh=self.mesh,
-                                 store=self.store, device=self.device)
+                                 store=self.store, vocab=self.vocab,
+                                 device=self.device)
     if got is None:
       return False
     from .. import checkpoint
@@ -347,6 +398,10 @@ class ResilientTrainer:
       # stage the wrong cold rows)
       self.tiered.state = self.state
       self.tiered.prefetcher.refresh_resident()
+    if self.dynvocab is not None:
+      # the restore loaded the id space into the translator in place;
+      # only the state pointer moves
+      self.dynvocab.state = self.state
     manifest = checkpoint.read_manifest(path)
     if first_resume:
       # adopt the persisted cumulative telemetry along with the stream
@@ -425,6 +480,13 @@ class ResilientTrainer:
     del reason
     from . import elastic as _elastic
 
+    if self.dynvocab is not None:
+      raise NotImplementedError(
+          "resize with dynvocab=...: the translator state is "
+          "world-free, but the DynVocabTrainer's translate/step wiring "
+          "is not rebuilt in place yet — snapshot and relaunch at the "
+          "new world instead (the elastic restore path preserves the id "
+          "space exactly).")
     if self.writer_active:
       # an in-flight async snapshot reads the OLD state's buffers
       self.join_writer()
@@ -654,8 +716,8 @@ class ResilientTrainer:
       path = durable.save_rotating(self.ckpt_root, self.plan, self.rule,
                                    self.state, store=self.store,
                                    keep=self.keep, policy=self.retry_policy,
-                                   extra=extra, telemetry=self.telemetry,
-                                   mesh=self.mesh)
+                                   extra=extra, vocab=self.vocab,
+                                   telemetry=self.telemetry, mesh=self.mesh)
       self._last_snapshot = self.step_count
       return path
     if self.mesh is not None and self.mesh.world > 1:
@@ -663,6 +725,13 @@ class ResilientTrainer:
           "snapshot(async_=True) under multi-controller: the save's "
           "publication barriers are collective and must run on every "
           "process's main thread. Use synchronous snapshots there.")
+    if self.vocab is not None:
+      raise NotImplementedError(
+          "snapshot(async_=True) with a DynVocabTranslator: the save "
+          "serializes the translator's live host state, which the next "
+          "step's translate pass mutates — a background save would tear "
+          "the id space it checksums. Snapshot dynvocab runs "
+          "synchronously.")
     state_host = _host_copy(self.state)
     step_now = int(state_host["step"])
     # capture the registry synchronously, like the state: later steps
@@ -746,9 +815,13 @@ class ResilientTrainer:
     rank's slice at world N); returns the loss (NaN on a skipped step —
     the skip is counted, nothing commits). Tiered mode: ``batch`` is the
     GLOBAL HOST batch (the classify stage routes every rank's ids before
-    the device sees them)."""
+    the device sees them). Dynvocab mode: ``batch`` is the GLOBAL HOST
+    batch of RAW ids (the translate pass needs them before any
+    sharding)."""
     if self.tiered is not None:
       return self._step_tiered(*batch)
+    if self.dynvocab is not None:
+      return self._step_dynvocab(*batch)
     dev = _span("device/step", track="device").start()
     self.state, loss, metrics = self._step_fn(self.state, *batch)
     self.consumed += 1
@@ -793,6 +866,35 @@ class ResilientTrainer:
       self.snapshot(async_=self.async_snapshots)
     return loss
 
+  def _step_dynvocab(self, numerical, cats, labels) -> float:
+    """One guarded DYNVOCAB step: translate (the id space consumes the
+    batch — allocation, admission counts, TTL clock), re-zero evicted
+    rows, device step, with THIS trainer's guard accounting.
+
+    The id space deliberately consumes guard-SKIPPED batches too — the
+    same discipline as the ``consumed`` stream position: an unkilled
+    reference run translates every batch, so a resumed run must as
+    well, or the two id spaces diverge. Per-class lifecycle counters
+    stay with the DynVocabTrainer (``account_vocab``); the cumulative
+    totals live INSIDE the translator state, so snapshots persist them
+    and restarts never double-count."""
+    d = self.dynvocab
+    d.state = self.state
+    cats_t, vocab_metrics = d._translate(cats)
+    loss, metrics = d._dispatch(numerical, cats_t, labels)
+    self.consumed += 1
+    self.telemetry.counter("train/consumed").inc()
+    loss, bad, counts, overflow = _fetch(loss, metrics)
+    d._dev_span.finish()
+    d.account_vocab(vocab_metrics)
+    d.steps += 1
+    self.state = d.state
+    self._account(bad, counts, overflow)
+    if self.snapshot_every and \
+        self.step_count - self._last_snapshot >= self.snapshot_every:
+      self.snapshot()
+    return loss
+
   def run(self, batches: Iterable, snapshot_final: bool = False
           ) -> List[float]:
     """Train over host batches of ``(numerical, cats, labels)`` (global
@@ -803,14 +905,17 @@ class ResilientTrainer:
     from ..training import shard_batch
 
     if self.overlap_host:
-      losses = self._run_tiered_overlapped(batches)
+      losses = (self._run_tiered_overlapped(batches)
+                if self.tiered is not None
+                else self._run_dynvocab_overlapped(batches))
       self.join_writer()
       if snapshot_final:
         self.snapshot()
       return losses
     losses = []
     for batch in batches:
-      if self.tiered is not None:  # the prefetch protocol shards it
+      if self.tiered is not None or self.dynvocab is not None:
+        # the prefetch or translate protocol shards it
         losses.append(self.step(*batch))
       else:
         sb = shard_batch(tuple(batch), self.mesh, device=self.device)
@@ -860,6 +965,47 @@ class ResilientTrainer:
                                  on_dispatch=self._on_dispatch,
                                  after_step=after_step)
 
+  def _run_dynvocab_overlapped(self, batches: Iterable) -> List[float]:
+    from ..pipeline import run_dynvocab_overlapped
+
+    d = self.dynvocab
+    d.state = self.state
+
+    def account(metrics, vocab_metrics):
+      _, bad, counts, overflow = _fetch(metrics["bad_step"], metrics)
+      d.account_vocab(vocab_metrics)
+      d.steps += 1
+      self.state = d.state
+      self._account(bad, counts, overflow)
+
+    def defer_overlap(prev_stepped):
+      # the translate-ahead job MUTATES the translator, so never submit
+      # one when the NEXT step's hooks might snapshot: the periodic
+      # predicate is conservative (a skipped step just loses one
+      # overlap), and a drain notice stops look-ahead cold
+      if self._drain_requested.is_set():
+        return True
+      return bool(self.snapshot_every) and \
+          prev_stepped + 1 - self._last_snapshot >= self.snapshot_every
+
+    def after_step(loss, metrics, stepped, pending_ahead):
+      del loss, metrics
+      self.state = d.state
+      if self.snapshot_every and \
+          int(stepped) - self._last_snapshot >= self.snapshot_every:
+        self.snapshot()  # synchronous: dynvocab async snapshots refuse
+      if pending_ahead:
+        # the worker already translated the next batch into the id
+        # space; consume it first, then drain — the translator clock
+        # equals the consumed count at the drain snapshot
+        return False
+      return self.maybe_drain()
+
+    return run_dynvocab_overlapped(d, batches, account=account,
+                                   on_dispatch=self._on_dispatch,
+                                   after_step=after_step,
+                                   defer_overlap=defer_overlap)
+
   def metrics_summary(self) -> Dict[str, Any]:
     out = {
         "steps": self.step_count,
@@ -871,4 +1017,6 @@ class ResilientTrainer:
     }
     if self.dedup_overflow_totals:
       out["dedup_overflow"] = dict(self.dedup_overflow_totals)
+    if self.dynvocab is not None:
+      out["vocab"] = self.dynvocab.metrics_summary()["per_class"]
     return out

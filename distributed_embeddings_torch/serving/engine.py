@@ -264,9 +264,12 @@ def make_serve_step(model, plan, serve_meta: Dict[str, ServeClassMeta],
   if getattr(plan, "oov", "clip") == "allocate":
     raise ValueError(
         "plan.oov='allocate' is not servable: allocation MUTATES the id "
-        "space, and an inference path must never mutate it. Serve with "
-        "oov='clip' (same tables, same frozen image) and translate request "
-        "ids read-only host-side.")
+        "space (admission counts, row allocation, TTL eviction), and an "
+        "inference path must never mutate it — a serve request earning "
+        "rows would shift what training trains, from a path with no "
+        "commit gate. Serve with oov='clip' (same tables, same frozen "
+        "image) and translate request ids read-only host-side "
+        "(dynvocab.DynVocabTranslator.translate_readonly).")
   if plan.world_size > 1 and mesh is None:
     raise ValueError(f"a world-{plan.world_size} plan is served by every "
                      "rank with its mesh (parallel.mesh.create_mesh)")

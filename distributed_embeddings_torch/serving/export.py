@@ -65,8 +65,14 @@ writes the ranking file, and a rank's :func:`load` reads its own cold
 files and every rank's ranking (the serve store's warm start builds every
 rank's resident map).
 
-Not ported yet: dynamic-vocabulary snapshots and owner-sharded loads
-(ROADMAP §1 item 12).
+A dynamic-vocabulary run exports its id space with the tables
+(``export(vocab=)``: the read-only raw-id -> row mapping of
+:func:`vocab_snapshot`, ``vocab_snapshot.npz`` and the manifest's
+``vocab_snapshot`` section), and :func:`load` returns it as
+``ServeArtifact.vocab``; a caller translates request ids through its
+``translate`` before ``ServeEngine.predict``.
+
+Not ported yet: owner-sharded loads (ROADMAP §1 item 12c).
 """
 
 from __future__ import annotations
@@ -528,6 +534,16 @@ def frozen_device_state(frozen: FrozenTables, plan, device="cuda",
 # ---------------------------------------------------------------------------
 
 
+def vocab_snapshot(vocab):
+  """Normalize a ``vocab`` argument to the serializable read-only form:
+  a live ``dynvocab.DynVocabTranslator`` is snapshotted (mapping only),
+  a ``ReadonlyIdTranslator`` passes through."""
+  from ..dynvocab import ReadonlyIdTranslator
+  if vocab is None or isinstance(vocab, ReadonlyIdTranslator):
+    return vocab
+  return ReadonlyIdTranslator.from_translator(vocab)
+
+
 def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
            quantize: str = "f32", store=None,
            extra: Optional[Dict[str, Any]] = None, vocab=None,
@@ -546,6 +562,13 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
   ``serve_cold_<class>_r<rank>.npy`` and the ranking with its counts to
   ``serve_ranking.npz``, each sealed like every other file.
 
+  ``vocab``: a dynamic-vocabulary run's ``DynVocabTranslator`` (or an
+  already-taken ``ReadonlyIdTranslator`` snapshot): its read-only raw-id
+  -> row mapping rides the artifact as ``vocab_snapshot.npz`` with a
+  ``vocab_snapshot`` manifest section (written by rank 0 at world N), so
+  the serving process translates request ids against the exact id space
+  the exported rows were trained under.
+
   ``mesh``: a world-N state of rank blocks is exported by every rank
   with its mesh: each rank writes and seals its own block files into
   the shared ``path + '.tmp'``, rank 0 gathers the checksum tables
@@ -558,10 +581,7 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
   single controller writes every file)."""
   # convert imports this module (FrozenTables); import it at call time
   from ..convert import dense_state_dict_to_flax
-  if vocab is not None:
-    raise NotImplementedError(
-        "vocab= (a dynamic-vocabulary snapshot) is not ported yet "
-        "(ROADMAP.md §1 item 12, dynvocab)")
+  snap = vocab_snapshot(vocab)
   frozen = freeze(plan, rule, state, quantize=quantize, store=store,
                   mesh=mesh)
   rank = _state_rank(plan, mesh)
@@ -616,6 +636,10 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
                      for r, cnt in enumerate(cnts)})
       np.savez(fpath, **arrays)
       _seal(fpath)
+    if snap is not None:
+      fpath = os.path.join(tmp, "vocab_snapshot.npz")
+      np.savez(fpath, **snap.state_arrays())
+      _seal(fpath)
     manifest: Dict[str, Any] = {
         "format_version": SERVE_FORMAT_VERSION,
         "kind": "serve",
@@ -629,6 +653,8 @@ def export(path: str, plan, rule: SparseRule, state: Dict[str, Any],
         },
         "checksums": dict(sorted(checksums.items())),
     }
+    if snap is not None:
+      manifest["vocab_snapshot"] = snap.manifest_section()
     if extra is not None:
       manifest["extra"] = extra
     publish_manifest_last(tmp, path, manifest)
@@ -648,7 +674,10 @@ class ServeArtifact:
   state is whole). Host-tier classes are in ``host_images`` (per rank,
   host numpy; ``None`` at the ranks a world-N load does not hold) with
   every rank's ``ranking`` and ``counts``; a :class:`~.engine.ServeEngine`
-  built on the artifact turns them into its cold store and hot cache."""
+  built on the artifact turns them into its cold store and hot cache.
+  ``vocab`` is the exported ``dynvocab.ReadonlyIdTranslator`` snapshot
+  (None for a static-vocab artifact): translate request raw ids through
+  it before dispatch."""
 
   quantize: str
   step: int
@@ -661,6 +690,7 @@ class ServeArtifact:
       default_factory=dict)
   counts: Dict[str, List[np.ndarray]] = dataclasses.field(
       default_factory=dict)
+  vocab: Any = None
 
   def rank_block(self, name: str, rank: int) -> np.ndarray:
     """One rank's serve-layout block of one class, host-side
@@ -713,7 +743,7 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
   if owned_ranks is not None:
     raise NotImplementedError(
         "owned_ranks= (owner-sharded fleet loads) is not ported yet "
-        "(ROADMAP.md §1 item 12, fleet)")
+        "(ROADMAP.md §1 item 12c, fleet)")
   if plan.world_size > 1 and mesh is None:
     raise ValueError(f"a world-{plan.world_size} artifact is loaded by "
                      "every rank with its mesh (parallel.mesh.create_mesh)")
@@ -736,10 +766,6 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
         "serve artifact plan does not match the current plan (differs "
         f"in {diff}): serve artifacts do not re-shard — re-export from "
         "the checkpoint under this plan.")
-  if manifest.get("vocab_snapshot") is not None:
-    raise NotImplementedError(
-        "artifact carries a dynamic-vocabulary snapshot: not ported yet "
-        "(ROADMAP.md §1 item 12, dynvocab)")
   meta = {n: ServeClassMeta.from_json(n, d)
           for n, d in manifest["serve"]["classes"].items()}
   tiered = any(m.tier == "host" for m in meta.values())
@@ -754,6 +780,8 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
         block_file(name, r) for name in sorted(meta) for r in ranks]
     if tiered:
       needed.append("serve_ranking.npz")
+    if manifest.get("vocab_snapshot") is not None:
+      needed.append("vocab_snapshot.npz")
     problems = verify_dir(path, only=needed)
     if problems:
       raise ValueError(
@@ -799,7 +827,13 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
                                   rank).to(dev)
                     for k, v in trees["emb_dense"].items()},
       "serve": serve}
+  vocab = None
+  if manifest.get("vocab_snapshot") is not None:
+    from ..dynvocab import ReadonlyIdTranslator
+    with np.load(os.path.join(path, "vocab_snapshot.npz")) as z:
+      vocab = ReadonlyIdTranslator.from_arrays(
+          {k: np.asarray(z[k]) for k in z.files})
   return ServeArtifact(quantize=manifest["serve"]["quantize"],
                        step=int(manifest["step"]), meta=meta, state=state,
                        rank=rank, host_images=host_images, ranking=ranking,
-                       counts=counts)
+                       counts=counts, vocab=vocab)

@@ -1,26 +1,43 @@
-"""Telemetry for the port's serving path: metrics registry, spans,
-flight recorder (PyTorch port).
-
-Copies of the JAX package's pure-Python telemetry modules, as far as the
-micro-batcher (``serving/batcher.py``) uses them:
+"""Telemetry for the port: metrics registry, spans, durable export, the
+metrics endpoint, flight recorder (PyTorch port of
+``distributed_embeddings_tpu/telemetry``, pure Python, under the JAX
+package's names):
 
 - :mod:`.registry` — counters, gauges and log-bucketed latency
-  histograms (whole);
+  histograms; cumulative counters persist through the checkpoint
+  manifest's ``telemetry`` section;
 - :mod:`.trace` — ``span`` (a no-op while no tracer is installed), the
-  request trace context, the single-process :class:`Tracer`;
+  request trace context, the single-process :class:`Tracer`, and the
+  cross-process timeline: :func:`estimate_clock_offset` (bounded
+  uncertainty), :func:`merge_traces`, :func:`save_trace` and
+  :func:`attach_device_track`, which joins a ``torch.profiler`` trace's
+  CUDA kernel and memcpy events (:func:`device_events`) as a device track;
+- :mod:`.export` — :func:`prometheus_text` / :func:`write_prometheus`,
+  the rotated fsynced :class:`JsonlWriter`, :func:`emit_verdict` and
+  :func:`atomic_write_text`;
+- :mod:`.http` — :class:`MetricsServer`: ``GET /metrics`` (``?scope=
+  fleet`` rolls up pushed registries, with a TTL), ``GET /healthz``
+  (promote staleness, :func:`record_promote` / :func:`clear_promote`,
+  and the dead-thread scan over :data:`DEAD_THREAD_GAUGE_STEM`) and
+  ``POST /push``, on loopback port 0 by default;
+- :mod:`.lockorder` — :class:`LockOrderMonitor`, the test-time
+  lock-order sanitizer;
 - :mod:`.flight` — the flight recorder and the serve stage taxonomy
   (``stage``, ``observe_stage``, ``flight_trip``);
-- :mod:`.export` — :func:`atomic_write_text` only;
-- :class:`timed` — a block timed into a named histogram and a span
-  (the zoo harness's timings, ``utils/zoo_bench.py``).
+- :class:`timed` — a block timed into a named histogram and a span.
 
-Not ported yet: the HTTP metrics server (its dead-thread gauge name,
-:data:`DEAD_THREAD_GAUGE_STEM`, is defined here so the batcher reports
-under the same key), Prometheus and JSONL export, trace merging, the
-lock-order monitor.
+A world-N checkpoint save measures each rank's clock against rank 0's
+(``checkpoint.read_pod_clock``), which is what :func:`merge_traces`
+takes as the per-process offsets.
 """
 
-from .export import atomic_write_text
+from .export import (
+    JsonlWriter,
+    atomic_write_text,
+    emit_verdict,
+    prometheus_text,
+    write_prometheus,
+)
 from .flight import (
     FlightRecorder,
     current_flight_recorder,
@@ -30,6 +47,13 @@ from .flight import (
     stage,
     uninstall_flight_recorder,
 )
+from .http import (
+    DEAD_THREAD_GAUGE_STEM,
+    MetricsServer,
+    clear_promote,
+    record_promote,
+)
+from .lockorder import InstrumentedLock, LockOrderError, LockOrderMonitor
 from .registry import (
     Counter,
     Gauge,
@@ -42,15 +66,21 @@ from .registry import (
     histogram,
 )
 from .trace import (
+    ClockOffset,
     TraceContext,
     Tracer,
+    attach_device_track,
     clock_ns,
     current_tracer,
+    device_events,
+    estimate_clock_offset,
     get_current_context,
     install_tracer,
     instant,
+    merge_traces,
     mint_context,
     mint_id,
+    save_trace,
     set_current_context,
     span,
     tracing,
@@ -92,42 +122,54 @@ class timed:
     return False
 
 
-# the gauge a dead batcher thread sets (the JAX package's
-# telemetry/http.py name, which its /healthz probe scans)
-DEAD_THREAD_GAUGE_STEM = "serve/flusher_dead"
-
 __all__ = [
-    "Counter",
-    "DEAD_THREAD_GAUGE_STEM",
-    "FlightRecorder",
-    "Gauge",
-    "Histogram",
-    "MetricsRegistry",
-    "TraceContext",
-    "Tracer",
-    "WindowedHistogram",
     "atomic_write_text",
+    "attach_device_track",
+    "clear_promote",
     "clock_ns",
+    "ClockOffset",
+    "Counter",
     "counter",
     "current_flight_recorder",
     "current_tracer",
+    "DEAD_THREAD_GAUGE_STEM",
+    "device_events",
+    "emit_verdict",
+    "estimate_clock_offset",
     "flight_trip",
+    "FlightRecorder",
+    "Gauge",
     "gauge",
     "get_current_context",
     "get_registry",
+    "Histogram",
     "histogram",
     "install_flight_recorder",
     "install_tracer",
     "instant",
+    "InstrumentedLock",
+    "JsonlWriter",
+    "LockOrderError",
+    "LockOrderMonitor",
+    "merge_traces",
+    "MetricsRegistry",
+    "MetricsServer",
     "mint_context",
     "mint_id",
     "observe_stage",
+    "prometheus_text",
+    "record_promote",
+    "save_trace",
     "set_current_context",
     "span",
     "stage",
     "timed",
+    "TraceContext",
+    "Tracer",
     "tracing",
     "uninstall_flight_recorder",
     "uninstall_tracer",
     "use_context",
+    "WindowedHistogram",
+    "write_prometheus",
 ]

@@ -1,17 +1,19 @@
 """Host-side span tracing: nestable spans -> Chrome trace-event JSON
 (PyTorch port).
 
-A copy of ``distributed_embeddings_tpu/telemetry/trace.py`` up to the
-single-process tracer: :func:`span`, the :class:`TraceContext` minted at
-batcher admission (:func:`mint_id`, :func:`mint_context`,
-:func:`use_context`), :class:`Tracer` and :func:`tracing`, and the one
-clock the port's telemetry reads (:func:`clock_ns`). Disabled mode is a
-true no-op and the default: :func:`span` returns one process-wide
+A copy of ``distributed_embeddings_tpu/telemetry/trace.py``: :func:`span`,
+the :class:`TraceContext` minted at batcher admission (:func:`mint_id`,
+:func:`mint_context`, :func:`use_context`), :class:`Tracer` and
+:func:`tracing`, the one clock the port's telemetry reads
+(:func:`clock_ns`), and the cross-process timeline: the NTP-shaped
+clock-offset handshake (:func:`estimate_clock_offset`, the true offset
+within ``+-rtt/2`` of the estimate), :func:`merge_traces` (one pid per
+process, every event mapped onto the reference clock) and the device
+track (:func:`attach_device_track`), which joins the CUDA kernel and
+memcpy events of a ``torch.profiler`` Chrome trace onto a merged
+timeline (:func:`device_events` selects them). Disabled mode is a true
+no-op and the default: :func:`span` returns one process-wide
 ``_NullSpan`` singleton and allocates nothing.
-
-Not ported yet: the cross-process merge (clock-offset handshake,
-``merge_traces``) and the device-track join, which wait for the rest of
-the telemetry package.
 """
 
 from __future__ import annotations
@@ -25,13 +27,19 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
+    "ClockOffset",
     "TraceContext",
     "Tracer",
+    "attach_device_track",
     "clock_ns",
+    "device_events",
+    "estimate_clock_offset",
     "get_current_context",
     "install_tracer",
+    "merge_traces",
     "mint_context",
     "mint_id",
+    "save_trace",
     "set_current_context",
     "span",
     "tracing",
@@ -441,3 +449,205 @@ class tracing:
                   exist_ok=True)
       self.tracer.save(self.path)
     return False
+
+
+# ---------------------------------------------------------------------------
+# clock-offset handshake: one fleet, one correlated clock
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ClockOffset:
+  """A bounded-uncertainty estimate of a remote clock's offset.
+
+  ``remote_ns ~= local_ns + offset_ns``, so a remote timestamp maps to
+  this process's clock as ``remote_ns - offset_ns``.  The bound is not
+  statistical: the remote read happened somewhere inside the minimum
+  round trip, so the TRUE offset lies within ``+-uncertainty_ns``
+  (``rtt_ns / 2``) of the estimate — pinned by tests against injected
+  skews.  ``to_local`` applies the mapping."""
+
+  offset_ns: int
+  uncertainty_ns: int
+  rtt_ns: int
+  rounds: int
+
+  def to_local(self, remote_ns: int) -> int:
+    return int(remote_ns) - self.offset_ns
+
+  def to_json(self) -> Dict[str, int]:
+    return {"offset_ns": self.offset_ns,
+            "uncertainty_ns": self.uncertainty_ns,
+            "rtt_ns": self.rtt_ns, "rounds": self.rounds}
+
+
+def estimate_clock_offset(remote_clock_fn: Callable[[], int],
+                          rounds: int = 8) -> ClockOffset:
+  """NTP-style offset estimation over any request/reply channel.
+
+  Each round reads the local clock, fetches the remote clock once
+  (``remote_clock_fn`` — e.g. a ``clock`` RPC through a fleet
+  transport), and reads the local clock again; the remote read is
+  assumed at the round-trip midpoint.  The MIN-RTT round wins: whatever
+  the queueing noise, the remote read provably happened inside
+  ``[t0, t1]``, so the true offset is within ``rtt/2`` of that round's
+  estimate — the stated uncertainty.  This is the ONE sanctioned
+  handshake mint (GL115): callers pass a channel, never roll their own
+  epoch exchange."""
+  if rounds < 1:
+    raise ValueError(f"rounds must be >= 1, got {rounds}")
+  best_rtt = None
+  best_off = 0
+  for _ in range(rounds):
+    t0 = clock_ns()
+    t_remote = int(remote_clock_fn())
+    t1 = clock_ns()
+    rtt = t1 - t0
+    if best_rtt is None or rtt < best_rtt:
+      best_rtt = rtt
+      best_off = t_remote - (t0 + t1) // 2
+  return ClockOffset(offset_ns=int(best_off),
+                     uncertainty_ns=max(1, int(best_rtt) // 2),
+                     rtt_ns=int(best_rtt), rounds=int(rounds))
+
+
+# ---------------------------------------------------------------------------
+# timeline assembly: per-process buffers -> one merged Chrome trace
+# ---------------------------------------------------------------------------
+
+
+def merge_traces(traces: Sequence[Dict[str, Any]],
+                 path: Optional[str] = None) -> Dict[str, Any]:
+  """Assemble per-process Chrome traces into ONE timeline.
+
+  ``traces``: one entry per process — ``{"trace": <Tracer.to_chrome()
+  dict>, "offset_ns": <ClockOffset.offset_ns vs the reference process,
+  0 for the reference>, "label": <track-group name, defaults to the
+  trace's own label>}``.  The first entry is the reference clock.
+  Every event's absolute time is recovered as ``ts*1e3 + t0_ns`` on its
+  process's clock, mapped onto the reference clock by subtracting the
+  offset, and rebased so the merged timeline starts at 0.  Each process
+  becomes its own pid (its thread/virtual tracks ride along), so
+  Perfetto shows one track group per process.  Returns the merged dict
+  (``base_ns`` records the rebase point on the reference clock);
+  ``path`` additionally saves it durably."""
+  if not traces:
+    raise ValueError("merge_traces: no traces given")
+  prepared = []
+  base_ns = None
+  for i, entry in enumerate(traces):
+    t = entry["trace"]
+    t0 = int(t.get("t0_ns", 0))
+    off = int(entry.get("offset_ns", 0))
+    label = entry.get("label") or t.get("label") or f"process-{i}"
+    evs = []
+    for ev in t.get("traceEvents", []):
+      if ev.get("ph") == "M":
+        evs.append((None, ev))
+        continue
+      abs_ns = int(ev.get("ts", 0.0) * 1e3) + t0 - off
+      evs.append((abs_ns, ev))
+      if base_ns is None or abs_ns < base_ns:
+        base_ns = abs_ns
+    prepared.append((label, evs))
+  if base_ns is None:
+    base_ns = 0
+  out: List[Dict[str, Any]] = []
+  for i, (label, evs) in enumerate(prepared):
+    pid = i + 1
+    out.append({"ph": "M", "pid": pid, "name": "process_name",
+                "args": {"name": label}})
+    out.append({"ph": "M", "pid": pid, "name": "process_sort_index",
+                "args": {"sort_index": pid}})
+    for abs_ns, ev in evs:
+      ev = dict(ev, pid=pid)
+      if abs_ns is not None:
+        ev["ts"] = (abs_ns - base_ns) / 1e3
+      elif ev.get("name") == "process_name":
+        continue  # per-process label already emitted above
+      out.append(ev)
+  merged = {"traceEvents": out, "displayTimeUnit": "ms",
+            "base_ns": int(base_ns), "clock": "perf_counter_ns"}
+  if path is not None:
+    save_trace(merged, path)
+  return merged
+
+
+def save_trace(trace: Dict[str, Any], path: str) -> str:
+  """Durably write any Chrome trace dict (tmp + fsync + rename)."""
+  from .export import atomic_write_text
+  d = os.path.dirname(os.path.abspath(path))
+  os.makedirs(d, exist_ok=True)
+  atomic_write_text(path, json.dumps(trace))
+  return path
+
+
+# torch.profiler's Chrome trace marks the card's own work by category:
+# kernels, and the copies and fills the copy engines run
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(trace: Dict[str, Any]) -> List[Dict[str, Any]]:
+  """Select the DEVICE-side events of a ``torch.profiler`` Chrome trace.
+
+  Preference order: the CUDA kernel, memcpy and memset events (Kineto's
+  ``kernel`` / ``gpu_memcpy`` / ``gpu_memset`` categories, which sit on
+  the GPU's pids, one tid per stream), else every duration event of a
+  pid whose process name mentions a GPU, else every duration event —
+  the trace layout depends on the profiler's version, so the fallback
+  chain keeps the merge usable across versions."""
+  names: Dict[Any, str] = {}
+  for ev in trace.get("traceEvents", []):
+    if ev.get("ph") == "M" and ev.get("name") == "process_name":
+      names[ev.get("pid")] = str(ev.get("args", {}).get("name", ""))
+  xs = [ev for ev in trace.get("traceEvents", []) if ev.get("ph") == "X"]
+  cuda = [ev for ev in xs if str(ev.get("cat", "")).lower() in _DEVICE_CATS]
+  if cuda:
+    return cuda
+  gpu = {p for p, n in names.items() if "GPU" in n.upper()}
+  if gpu:
+    return [ev for ev in xs if ev.get("pid") in gpu]
+  return xs
+
+
+def attach_device_track(merged: Dict[str, Any],
+                        device_trace: Dict[str, Any],
+                        anchor_ns: int,
+                        label: str = "device") -> Dict[str, Any]:
+  """Join a ``torch.profiler`` device trace onto a merged timeline.
+
+  The profiler's timestamps live in their own epoch, so they are
+  correlated by ANCHOR: the earliest selected device event is aligned
+  to ``anchor_ns`` — an absolute reference-clock time the caller knows
+  the device work began at (the first dispatch span's start; the
+  dispatch->enqueue latency bounds the alignment error).  Device events
+  land under one new pid named ``label``, their relative spacing
+  preserved exactly."""
+  evs = device_events(device_trace)
+  if not evs:
+    return merged
+  pid = 1 + max((ev.get("pid", 0) for ev in merged["traceEvents"]
+                 if isinstance(ev.get("pid"), int)), default=0)
+  base_ns = int(merged.get("base_ns", 0))
+  dev_min_us = min(float(ev.get("ts", 0.0)) for ev in evs)
+  shift_us = (int(anchor_ns) - base_ns) / 1e3 - dev_min_us
+  out = list(merged["traceEvents"])
+  out.append({"ph": "M", "pid": pid, "name": "process_name",
+              "args": {"name": label}})
+  tids: Dict[Any, int] = {}
+  for ev in sorted(evs, key=lambda e: float(e.get("ts", 0.0))):
+    key = ev.get("tid", 0)
+    tid = tids.get(key)
+    if tid is None:
+      tid = tids[key] = len(tids) + 1
+      out.append({"ph": "M", "pid": pid, "tid": tid,
+                  "name": "thread_name",
+                  "args": {"name": f"{label}:{key}"}})
+    new = {"ph": "X", "pid": pid, "tid": tid,
+           "name": ev.get("name", "?"),
+           "ts": float(ev.get("ts", 0.0)) + shift_us,
+           "dur": float(ev.get("dur", 0.0))}
+    if ev.get("args"):
+      new["args"] = ev["args"]
+    out.append(new)
+  return dict(merged, traceEvents=out)

@@ -106,6 +106,21 @@ the file holds the batches, the losses, the cumulative hit counters
 table's update and the dense params before and after.
 :func:`replay_tiered` replays it through the port's ``TieredTrainer``, to
 the tolerances above (on the card the interaction runs in bf16).
+``tests/data/torch_train_dynvocab_golden.npz`` is the dynamic
+vocabulary's: the train golden's DLRM cut to D=32 (B=128, bf16 compute,
+its three smallest tables in a dense class), the plan with
+``oov='allocate'`` (:data:`DYNVOCAB_KNOBS`: admission after two
+sightings, a TTL of two steps), five guarded steps of the JAX
+``dynvocab.DynVocabTrainer`` (SGD rule, ``optax.sgd``) on raw 63-bit ids
+drawn by :func:`dynvocab_batches` (a power law over four times each
+sparse table's rows, each rank hashed to a key by :func:`raw_keys`). The
+file holds the initial and final states, the raw batches, each step's
+translated ids (``tcat/<input>``), the translator's final state
+(``vocab/<key>``), its lifecycle counters (``vocab_totals/<class>``) and
+the losses. :func:`replay_dynvocab` replays it through the port's
+``DynVocabTrainer``; :func:`compare_dynvocab` holds translations,
+translator state and counters bit-equal and the rest to the tolerances
+above.
 """
 
 from __future__ import annotations
@@ -1363,3 +1378,151 @@ def compare_tiered(golden: Dict[str, np.ndarray], losses: List[float],
   return {"loss_max_abs_err": float(np.abs(np.asarray(losses)
                                             - golden["losses"]).max()),
           "state_max_err_share": worst}
+
+
+# ---------------------------------------------------------------------------
+# the dynamic-vocabulary golden
+# ---------------------------------------------------------------------------
+
+DYNVOCAB_PATH = GOLDEN_PATH.with_name("torch_train_dynvocab_golden.npz")
+DYNVOCAB_VOCAB = (3, 10, 24, 40, 64, 100, 160, 300)
+DYNVOCAB_DIM = 32
+DYNVOCAB_BOTTOM = (64, 32)
+DYNVOCAB_TOP = (64, 32, 1)
+DYNVOCAB_NUM = 13
+DYNVOCAB_BATCH = 128
+DYNVOCAB_STEPS = 5
+DYNVOCAB_DENSE_ROW_THRESHOLD = 32
+DYNVOCAB_KNOBS = dict(oov="allocate", admit_threshold=2, evict_ttl=2)
+DYNVOCAB_SKETCH_WIDTH = 1 << 10  # keeps the file's sketch state small
+DYNVOCAB_RAW_SPACE = 4  # raw ids per allocatable row of a sparse table
+DYNVOCAB_ALPHA = 1.05
+DYNVOCAB_SEED = 0
+
+_MIX1 = np.uint64(0xBF58476D1CE4E5B9)
+_MIX2 = np.uint64(0x94D049BB133111EB)
+
+
+def raw_keys(ranks: np.ndarray, salt: int) -> np.ndarray:
+  """Distinct-looking raw 63-bit ids for popularity ranks: a splitmix64
+  finalizer of ``ranks + salt * 2^40`` with the sign bit cleared (raw
+  ids are non-negative; the hash is a bijection before the clear, so
+  collisions are vanishingly rare). Numpy, deterministic."""
+  x = (np.asarray(ranks, np.int64).astype(np.uint64)
+       + np.uint64(salt) * np.uint64(1 << 40))
+  x ^= x >> np.uint64(30)
+  x *= _MIX1
+  x ^= x >> np.uint64(27)
+  x *= _MIX2
+  x ^= x >> np.uint64(31)
+  return (x & np.uint64(0x7FFFFFFFFFFFFFFF)).astype(np.int64)
+
+
+def dynvocab_plan(table_config=TableConfig, strategy=DistEmbeddingStrategy):
+  """The golden's plan, from either package's ``TableConfig`` and
+  ``DistEmbeddingStrategy``."""
+  return strategy([table_config(input_dim=v, output_dim=DYNVOCAB_DIM)
+                   for v in DYNVOCAB_VOCAB], 1, "basic",
+                  dense_row_threshold=DYNVOCAB_DENSE_ROW_THRESHOLD,
+                  **DYNVOCAB_KNOBS)
+
+
+def dynvocab_batches(steps: int = DYNVOCAB_STEPS,
+                     batch: int = DYNVOCAB_BATCH, seed: int = DYNVOCAB_SEED):
+  """Global host batches (numpy): raw power-law ids for the sparse
+  tables (more than the dense-class threshold of rows), in-range ids for
+  the dense-class ones, normal features, random labels."""
+  from .models.synthetic import power_law_ids
+  rng = np.random.default_rng(seed)
+  out = []
+  for _ in range(steps):
+    cats = []
+    for t, v in enumerate(DYNVOCAB_VOCAB):
+      if v > DYNVOCAB_DENSE_ROW_THRESHOLD:
+        ranks = power_law_ids(rng, batch, 1, DYNVOCAB_RAW_SPACE * v,
+                              DYNVOCAB_ALPHA)[:, 0]
+        cats.append(raw_keys(ranks, t))
+      else:
+        cats.append(rng.integers(0, v, batch).astype(np.int64))
+    out.append((rng.standard_normal((batch, DYNVOCAB_NUM))
+                .astype(np.float32), cats,
+                rng.integers(0, 2, batch).astype(np.float32)))
+  return out
+
+
+def replay_dynvocab(golden: Dict[str, np.ndarray], device="cuda"):
+  """The golden's guarded steps through the port's ``DynVocabTrainer``
+  from its initial state on ``device``: returns ``(losses, final,
+  translated, trainer)`` with the final state as f32 numpy (keyed as
+  :func:`final_state`) and each step's translated ids."""
+  from .dynvocab import DynVocabTrainer, DynVocabTranslator
+  plan = dynvocab_plan()
+  model = DLRM(list(DYNVOCAB_VOCAB), DYNVOCAB_DIM, bottom_mlp=DYNVOCAB_BOTTOM,
+               top_mlp=DYNVOCAB_TOP, num_numerical=DYNVOCAB_NUM,
+               compute_dtype=torch.bfloat16, tables=False, device=device)
+  rule = sgd_rule(LR)
+  factory = functools.partial(torch.optim.SGD, lr=LR)
+  state = train_state_from_flax(initial_state(golden), device=device)
+  translator = DynVocabTranslator(plan, rule,
+                                  sketch_width=DYNVOCAB_SKETCH_WIDTH)
+  trainer = DynVocabTrainer(model, plan, translator, bce_loss, factory, rule,
+                            None, state, guard=True, device=device)
+  translated = []
+  translate = trainer.engine.translate_dynamic_ids
+
+  def recorded(cats, tr):
+    out = translate(cats, tr)
+    translated.append([np.asarray(c).copy() for c in out[0]])
+    return out
+
+  trainer.engine.translate_dynamic_ids = recorded
+  losses = trainer.run(dynvocab_golden_batches(golden))
+  got = {part: {k: v.detach().cpu().to(torch.float32).numpy()
+                for k, v in trainer.state[part].items()}
+         for part in ("fused", "emb_dense", "dense")}
+  return losses, got, translated, trainer
+
+
+def dynvocab_golden_batches(golden: Dict[str, np.ndarray]):
+  n = sum(1 for k in golden if k.startswith("cat/"))
+  return [(golden["numerical"][i],
+           [golden[f"cat/{j}"][i] for j in range(n)], golden["labels"][i])
+          for i in range(golden["numerical"].shape[0])]
+
+
+def dynvocab_final_state(golden: Dict[str, np.ndarray]) -> Dict[str, Dict]:
+  return {"fused": _entries(golden, "fused_final"),
+          "emb_dense": _entries(golden, "emb_dense_final"),
+          "dense": {k: v.numpy() for k, v in dlrm_state_dict_from_flax(
+              flax_tree(golden, "dense_final")).items()}}
+
+
+def compare_dynvocab(golden: Dict[str, np.ndarray], losses: List[float],
+                     got: Dict[str, Dict[str, np.ndarray]], translated,
+                     trainer) -> Dict[str, float]:
+  """Hold a :func:`replay_dynvocab` result to the golden: every step's
+  translated ids, the translator's state and the lifecycle counters
+  bit-equal; losses within :data:`LOSS_TOL`, each final tensor within
+  :data:`UPDATE_TOL` of its largest update. Raises ``AssertionError``
+  naming the first difference."""
+  n = sum(1 for k in golden if k.startswith("tcat/"))
+  assert len(translated) == golden["numerical"].shape[0]
+  for i, cats in enumerate(translated):
+    for j in range(n):
+      np.testing.assert_array_equal(cats[j], golden[f"tcat/{j}"][i],
+                                    err_msg=f"step {i} input {j}")
+  vocab = trainer.translator.state_arrays()
+  want = {k.split("/", 1)[1]: v for k, v in golden.items()
+          if k.startswith("vocab/")}
+  assert sorted(vocab) == sorted(want)
+  for k, v in want.items():
+    np.testing.assert_array_equal(vocab[k], v, err_msg=k)
+  for k, v in golden.items():
+    if k.startswith("vocab_totals/"):
+      name = k.split("/", 1)[1]
+      np.testing.assert_array_equal(trainer.vocab_totals[name], v,
+                                    err_msg=name)
+  out = _compare(golden["losses"], initial_state(golden),
+                 dynvocab_final_state(golden), losses, got)
+  out["rows_zeroed"] = trainer.rows_zeroed
+  return out

@@ -766,7 +766,9 @@ def _make_guard_helpers(plan: DistEmbeddingStrategy, mesh=None):
     ``'clip'``), from this rank's counts before any reduction: a batch
     carrying ANY out-of-range id commits nothing, so the host-side
     ``check_oov`` raise fires with the state bit-identical to before the
-    batch.
+    batch. ``oov='allocate'`` gates identically: translated ids are
+    in-range by construction, so an out-of-range id there means raw ids
+    leaked past the dynvocab translator.
   - ``guard_metrics(ok, oov, overflow=None)``: the ``{'bad_step',
     'oov'}`` metrics dict, the counters summed over the ranks (one
     ``all_reduce(SUM)``, the JAX ``psum``), the same on every rank; with
@@ -775,7 +777,7 @@ def _make_guard_helpers(plan: DistEmbeddingStrategy, mesh=None):
     the same ``all_reduce``."""
   from .resilience.guards import all_finite
   world = 1 if mesh is None else mesh.world
-  oov_is_error = getattr(plan, "oov", "clip") == "error"
+  oov_is_error = getattr(plan, "oov", "clip") in ("error", "allocate")
 
   def guard_gate(loss, grads_ok, streams, oov_ok=None):
     ok = torch.logical_and(all_finite((loss, streams)),
@@ -827,8 +829,7 @@ def _check_mesh(plan, mesh) -> None:
 
 def _refuse_unported(plan, mesh, micro_batches: int, guard: bool,
                      exact: bool) -> None:
-  """The JAX builder's refusals, with its messages, and the options of
-  later ROADMAP items, naming them."""
+  """The JAX builder's refusals, with its messages."""
   _check_mesh(plan, mesh)
   if micro_batches > 1 and exact:
     raise NotImplementedError(
@@ -860,10 +861,6 @@ def _refuse_unported(plan, mesh, micro_batches: int, guard: bool,
         "'dedup_overflow' counter that makes that observable. Build with "
         "guard=True or drop the capacity override.")
   oov = getattr(plan, "oov", "clip")
-  if oov == "allocate":
-    raise NotImplementedError(
-        "plan.oov='allocate': the dynamic vocabulary is not ported yet "
-        "(ROADMAP.md §1 item 12, dynvocab)")
   if oov == "error" and not guard:
     raise ValueError(
         "plan.oov='error' requires make_sparse_train_step(guard=True): "
@@ -1188,8 +1185,7 @@ def make_tiered_train_step(model: torch.nn.Module, tplan,
         "the classify stage would have to compose into one host pass — "
         "an open follow-on (ROADMAP, dynamic-vocab direction). Keep "
         "dynamic tables device-resident (host_row_threshold=None) or "
-        "use a static oov policy for tiered plans. (ROADMAP.md §1 item "
-        "12)")
+        "use a static oov policy for tiered plans.")
   if getattr(plan, "oov", "clip") == "error" and not guard:
     raise ValueError(
         "plan.oov='error' requires make_tiered_train_step(guard=True): "
@@ -1340,8 +1336,15 @@ def make_sparse_eval_step(model: torch.nn.Module,
         "the WRONG rows — and only the metrics path surfaces the psum'd "
         "'dedup_overflow' counter that makes that observable.")
   if getattr(plan, "oov", "clip") == "allocate":
-    raise ValueError("plan.oov='allocate' is not evaluable: allocation "
-                     "mutates the id space; evaluate with oov='clip'")
+    raise ValueError(
+        "plan.oov='allocate' is not evaluable: allocation MUTATES the id "
+        "space (admission counts, row allocation, TTL eviction), and an "
+        "inference path must never mutate it — an eval batch earning "
+        "rows would silently shift what every later training step "
+        "trains. Build the eval plan with oov='clip' (same tables, same "
+        "layouts — the knob changes no buffer) and feed it ids already "
+        "translated read-only (dynvocab.DynVocabTranslator."
+        "translate_readonly).")
   engine = DistributedLookup(plan, mesh=mesh)
   layouts = engine.fused_layouts(rule)
   _, _, guard_metrics = _make_guard_helpers(plan, mesh)
@@ -1467,9 +1470,11 @@ def _refuse_dense_step(plan: Optional[DistEmbeddingStrategy]) -> None:
   if oov == "allocate":
     raise NotImplementedError(
         "plan.oov='allocate' (dynamic vocabulary) rides the fused sparse "
-        "path: the translator allocates into the packed class buffers and "
-        "re-zeroes recycled rows' optimizer lanes, which this "
-        "dense-autodiff builder does not hold. Use a static oov policy.")
+        "path: the dynvocab translator allocates into the PACKED class "
+        "buffers and re-zeroes recycled rows' interleaved optimizer "
+        "lanes, which this dense-autodiff builder does not hold. Drive "
+        "training through dynvocab.DynVocabTrainer (make_sparse_train_"
+        "step underneath), or use a static oov policy.")
   if getattr(plan, "dedup_capacity", None) is not None:
     raise NotImplementedError(
         "plan.dedup_capacity caps the dedup'd exchange's unique blocks "

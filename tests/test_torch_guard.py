@@ -25,7 +25,8 @@ the JAX package's.
 - **Eval metrics**: ``make_sparse_eval_step(with_metrics=True)`` counts
   as the JAX eval step does, at world 1 and 4.
 - **Refusals**: ``guard`` with ``exact`` and ``oov='error'`` without the
-  guard with the JAX messages; ``oov='allocate'`` (item 12) by name. A
+  guard with the JAX messages; ``oov='allocate'`` is built guarded or not,
+  as the JAX builder builds it. A
   ``dedup_capacity`` plan is refused without the guard (and by the eval
   step without metrics) with the JAX messages, and with them reports the
   JAX steps' ``dedup_overflow`` counters.
@@ -373,11 +374,13 @@ def test_refusals():
                            jrule, None, state, _batches(1)[0], guard=True,
                            exact=True)
   assert str(et.value) == str(ej.value)
+  # item 12a ported oov='allocate': the builder takes it, guarded or not,
+  # as the JAX one does (tests/test_torch_dynvocab.py holds the steps)
   alloc = TStrategy([TTableConfig(input_dim=v, output_dim=D) for v in VOCAB],
                     1, dense_row_threshold=THRESHOLD, oov="allocate")
-  with pytest.raises(NotImplementedError, match="item 12"):
-    ttr.make_sparse_train_step(_tmodel(), alloc, torch_bce, sgd, trule,
-                               guard=True)
+  for guard in (True, False):
+    assert callable(ttr.make_sparse_train_step(_tmodel(), alloc, torch_bce,
+                                               sgd, trule, guard=guard))
   # a capped dedup_capacity: refused without the counter path, with the
   # JAX messages; with it, the guarded step and the eval step surface the
   # per-class dedup_overflow counters the JAX steps return (zero at world

@@ -34,6 +34,10 @@
 - tiered serving (``serving.leader`` with the rank-0 batcher) imports
   with JAX blocked, and its entry points (``load`` of a tiered artifact,
   a tiered ``ServeEngine``) default to the card;
+- the dynamic vocabulary (``dynvocab`` with its ``admission``,
+  ``table``, ``lifecycle`` and ``trainer`` modules) and the rest of the
+  telemetry (``telemetry.http``, ``telemetry.lockorder``) import with JAX
+  blocked;
 - the zoo harness (``utils.zoo_bench``, the twins
   ``examples/benchmarks/synthetic_models/main_torch.py`` and
   ``examples/benchmarks/benchmark_torch.py``) imports and runs with JAX
@@ -123,7 +127,8 @@ def test_port_imports_with_jax_blocked():
   # 4's: K6, K7 and the synthetic zoo; slice 5's: the op and layer surface
   # of the dense-autodiff path; slice 10's: the serve artifact, the
   # micro-batcher and the telemetry it reports through; slice 11's: the
-  # trainer's data
+  # trainer's data; slice 22's: the dynamic vocabulary and the rest of
+  # the telemetry
   for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange",
               "ops.cuda_delta", "ops.cuda_layout", "models.synthetic",
               "ops.ragged", "ops.embedding_lookup",
@@ -135,7 +140,9 @@ def test_port_imports_with_jax_blocked():
               "resilience.trainer", "telemetry", "utils.zoo_bench",
               "tiering", "tiering.plan", "tiering.store", "tiering.prefetch",
               "tiering.train", "serving.leader", "serving.engine",
-              "serving.export"):
+              "serving.export", "pipeline", "telemetry.http",
+              "telemetry.lockorder", "dynvocab", "dynvocab.admission",
+              "dynvocab.table", "dynvocab.lifecycle", "dynvocab.trainer"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 

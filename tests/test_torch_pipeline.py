@@ -22,6 +22,16 @@ width 16, the 5,000-row table host-tier, Adagrad 0.05), world 1.
   and snapshot steps); a resume from those snapshots continues bit-equal;
   a crash in the middle of the second snapshot, with a worker job in
   flight, resumes from the first to a bit-equal tail.
+- **The dynamic vocabulary** (``run_dynvocab_overlapped``, the JAX
+  ``tests/test_pipeline.py`` dynvocab tests, on ``tests/
+  test_torch_dynvocab.py``'s cell): batch k+1 translated on the worker
+  while step k runs, over power-law raw ids with admissions, denials and
+  evictions (the re-zeroing on the main thread), bit-equal to the serial
+  loop (losses, fused buffers, translator state, counters), one-shot and
+  micro-batched; the serial loop held to the JAX one; a failed
+  translation fails the run; the ``ResilientTrainer`` overlapped with
+  snapshots equal to its serial run, and an interrupted overlapped run
+  resumes to the same tail.
 """
 
 import functools
@@ -29,6 +39,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import torch_tiering_cases as C
 from distributed_embeddings_torch import pipeline
@@ -98,8 +109,9 @@ def test_worker_close_drains_discarded_jobs():
 
 
 def test_dynvocab_overlap_names_its_item():
-  with pytest.raises(NotImplementedError, match="item 12a"):
-    pipeline.run_dynvocab_overlapped(None, [])
+  # item 12a ported the dynvocab half: an empty stream runs no step and
+  # touches nothing (tests/test_torch_dynvocab.py holds the overlap)
+  assert pipeline.run_dynvocab_overlapped(None, []) == []
 
 
 # ---------------------------------------------------------------------------
@@ -283,3 +295,84 @@ def test_resilient_tiered_overlap_parity_async_and_kill_resume(tmp_path):
   assert 0 < start2 < len(batches)
   np.testing.assert_array_equal(res2.run(batches[start2:]),
                                 ref_losses[start2:])
+
+
+# ---------------------------------------------------------------------------
+# the dynamic vocabulary's translate-ahead
+# ---------------------------------------------------------------------------
+
+
+def _dv_pair(overlap, micro_batches=1):
+  import test_torch_dynvocab as D
+  jplan, tplan = D._plans(1, **D.KNOBS)
+  state = D._jax_state(1, jplan)
+  t = D._port_trainer(tplan, D._numpy_state(state),
+                      micro_batches=micro_batches,
+                      telemetry=MetricsRegistry(), overlap_host=overlap)
+  return D, jplan, state, t
+
+
+@pytest.mark.parametrize("micro_batches", [1, 2])
+def test_dynvocab_overlap_bit_exact_vs_serial(micro_batches, monkeypatch):
+  D, jplan, state, ser = _dv_pair(False, micro_batches)
+  batches = [D._raw_batch(200 + s, space=480) for s in range(6)]
+  with monkeypatch.context() as m:
+    m.setattr(pipeline, "run_dynvocab_overlapped",
+              lambda *a, **k: pytest.fail("serial run called the scheduler"))
+    losses_ser = ser.run(batches)
+  _, _, _, ovl = _dv_pair(True, micro_batches)
+  losses_ovl = ovl.run(batches)
+  assert losses_ovl == losses_ser
+  assert ovl.telemetry.histogram("dynvocab/overlap_hidden_s").count == 5
+  for name in ser.state["fused"]:
+    assert torch.equal(ovl.state["fused"][name], ser.state["fused"][name])
+  D._assert_arrays_equal(D._translator_arrays(ovl.translator),
+                         D._translator_arrays(ser.translator))
+  assert ovl.metrics_summary() == ser.metrics_summary()
+  assert ser.metrics_summary()["rows_zeroed"] > 0
+  # the serial loop against the JAX one on the same batches
+  jt = D._jax_trainer(1, jplan, state, batches[0],
+                      micro_batches=micro_batches)
+  np.testing.assert_allclose(losses_ser, [jt.step(*b) for b in batches],
+                             **TRAJ_TOL)
+  D._close(D._port_tables(ser), D._jax_tables(jt))
+
+
+def test_dynvocab_worker_failure_fails_the_run():
+  D, _, _, t = _dv_pair(True)
+  orig = t.engine.translate_dynamic_ids
+  threads = []
+
+  def flaky(cats, translator):
+    threads.append(threading.current_thread().name)
+    if len(threads) >= 2:  # the first call serves batch 0 on the main thread
+      raise RuntimeError("translator wedged")
+    return orig(cats, translator)
+  t.engine.translate_dynamic_ids = flaky
+  with pytest.raises(RuntimeError, match="translator wedged"):
+    t.run([D._raw_batch(300 + s) for s in range(3)])
+  assert threads == ["MainThread", "dynvocab-overlap"]
+  assert t.state["step"] == 1 and t.steps == 0
+
+
+def test_resilient_dynvocab_overlap_parity_and_resume(tmp_path):
+  import test_torch_dynvocab as D
+  plans = D._plans(1, oov="allocate", admit_threshold=1, evict_ttl=3)
+  state = D._jax_state(1, plans[0])
+  stream = [D._raw_batch(700 + s) for s in range(6)]
+  ref = D._resilient(tmp_path / "ref", plans, state)
+  ref_losses = ref.run(stream)
+  ovl = D._resilient(tmp_path / "run", plans, state, overlap_host=True)
+  assert ovl.run(stream) == ref_losses
+  assert (ovl.step_count, ovl.consumed) == (ref.step_count, ref.consumed)
+  D._assert_arrays_equal(D._translator_arrays(ovl.dynvocab.translator),
+                         D._translator_arrays(ref.dynvocab.translator))
+  for name in ref.state["fused"]:
+    assert torch.equal(ovl.state["fused"][name], ref.state["fused"][name])
+  t1 = D._resilient(tmp_path / "cut", plans, state, overlap_host=True)
+  first = t1.run(stream[:4])
+  t2 = D._resilient(tmp_path / "cut", plans, state, overlap_host=True)
+  assert t2.resumed_from is not None
+  start = t2.consumed
+  assert 0 < start <= 4
+  assert first[:start] + t2.run(stream[start:]) == ref_losses

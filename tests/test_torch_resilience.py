@@ -27,6 +27,7 @@ import functools
 import os
 import signal
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -539,15 +540,19 @@ def test_sigterm_drain_snapshots_and_the_handler_is_restored(twins,
     ({"dynvocab": object()}, "item 12"), ({"stream": object()}, "item 12"),
     ({"overlap_host": True}, "item 11")])
 def test_trainer_refusals_name_their_item(twins, tmp_path, kw, item):
-  if item == "item 11":
-    # item 11a ported overlap_host: without a tiered trainer there is no
-    # host pass to overlap, refused as the JAX trainer refuses it
+  if item == "item 11" or "dynvocab" in kw:
+    # item 11a ported overlap_host: without a tiered or dynvocab trainer
+    # there is no host pass to overlap; item 12a ported dynvocab=: an
+    # unguarded DynVocabTrainer is refused. Both as the JAX trainer
+    # refuses them
+    if "dynvocab" in kw:
+      kw = {"dynvocab": types.SimpleNamespace(guard=False)}
     with pytest.raises(ValueError) as got:
       twins.port(tmp_path / "p", **kw)
     with pytest.raises(ValueError) as want:
       twins.jax(tmp_path / "j", **kw)
     assert str(got.value) == str(want.value)
-    assert "without a tiered" in str(got.value)
+    assert ("without a tiered" in str(got.value)) == (item == "item 11")
     return
   with pytest.raises(NotImplementedError, match=item):
     twins.port(tmp_path, **kw)
@@ -568,14 +573,33 @@ def test_other_refusals(twins, tmp_path):
                             backend="gloo"))
   with pytest.raises(NotImplementedError, match="multi-controller"):
     t4.snapshot(async_=True)
-  for kw, item in (({"vocab": object()}, "item 12"),
-                   ({"stream": object()}, "item 12")):
-    with pytest.raises(NotImplementedError, match=item):
-      durable.save_rotating(str(tmp_path / "x"), twins.tplan, twins.trule,
-                            t.state, **kw)
-    with pytest.raises(NotImplementedError, match=item):
-      durable.restore_latest(str(tmp_path / "x"), twins.tplan, twins.trule,
-                             t.state, device="cpu", **kw)
+  with pytest.raises(NotImplementedError, match="item 12"):
+    durable.save_rotating(str(tmp_path / "x"), twins.tplan, twins.trule,
+                          t.state, stream=object())
+  with pytest.raises(NotImplementedError, match="item 12"):
+    durable.restore_latest(str(tmp_path / "x"), twins.tplan, twins.trule,
+                           t.state, device="cpu", stream=object())
+  # item 12a ported vocab=: a translator on a static plan is refused at
+  # save, and at restore of a checkpoint without a vocab section, with
+  # the JAX messages
+  with pytest.raises(ValueError) as got:
+    durable.save_rotating(str(tmp_path / "x"), twins.tplan, twins.trule,
+                          t.state, vocab=object())
+  with pytest.raises(ValueError) as want:
+    jdurable.save_rotating(str(tmp_path / "jx"), twins.jplan, twins.jrule,
+                           jt.state, vocab=object())
+  assert str(got.value) == str(want.value) and "static-vocab" in str(
+      got.value)
+  durable.save_rotating(str(tmp_path / "x"), twins.tplan, twins.trule,
+                        t.state)
+  with pytest.raises(ValueError) as got:
+    durable.restore_latest(str(tmp_path / "x"), twins.tplan, twins.trule,
+                           t.state, device="cpu", vocab=object())
+  with pytest.raises(ValueError) as want:
+    jdurable.restore_latest(str(tmp_path / "x"), twins.jplan, twins.jrule,
+                            jt.state, vocab=object())
+  assert str(got.value) == str(want.value) and "no 'vocab'" in str(
+      got.value)
   assert durable.restore_latest(str(tmp_path / "empty"), twins.tplan,
                                 twins.trule, t.state, device="cpu") is None
 

@@ -312,9 +312,30 @@ def test_unported_options_are_refused(tmp_path):
   plan, tplan, state, path = _small(tmp_path)
   tstate = train_state_from_flax(state, "cpu")
   trule = torch_sparse_rule("adagrad", 0.05)
-  # store= (tiered serving) is ported: tests/test_torch_serve_tiered.py
-  with pytest.raises(NotImplementedError, match="item 12"):
-    torch_export(str(tmp_path / "x"), tplan, trule, tstate, vocab=object())
+  # store= (tiered serving) is ported: tests/test_torch_serve_tiered.py;
+  # vocab= (item 12a) too: a read-only id-space snapshot rides the
+  # artifact, and each package loads the other's
+  from distributed_embeddings_torch.dynvocab import (
+      IdTranslationTable,
+      ReadonlyIdTranslator,
+  )
+  from distributed_embeddings_tpu import dynvocab as jdv
+  tab, jtab = IdTranslationTable(16), jdv.IdTranslationTable(16)
+  for row, rid in enumerate((7, 10 ** 11, 42)):
+    tab.insert(rid, row)
+    jtab.insert(rid, row)
+  imap = list(tplan.input_table_map)
+  snap = ReadonlyIdTranslator({0: tab}, imap)
+  torch_export(str(tmp_path / "x"), tplan, trule, tstate, vocab=snap)
+  jserving.export(str(tmp_path / "jx"), plan, sparse_rule("adagrad", 0.05),
+                  state, vocab=jdv.ReadonlyIdTranslator({0: jtab}, imap))
+  for got in (jserving.load(str(tmp_path / "x"), plan).vocab,
+              torch_load(str(tmp_path / "jx"), tplan, device="cpu").vocab,
+              torch_load(str(tmp_path / "x"), tplan, device="cpu").vocab):
+    want = snap.state_arrays()
+    assert sorted(got.state_arrays()) == sorted(want)
+    for k, v in want.items():
+      np.testing.assert_array_equal(got.state_arrays()[k], v, err_msg=k)
   with pytest.raises(NotImplementedError, match="item 12"):
     torch_load(path, tplan, owned_ranks=(0,), device="cpu")
 

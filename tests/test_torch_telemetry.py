@@ -1,12 +1,18 @@
 """The port's telemetry (a copy of the JAX package's pure-Python modules)
-against the JAX package's, as far as the micro-batcher uses it.
+against the JAX package's: the registry, spans, the flight recorder's
+stages and the lock-order monitor (the exporters and merged timelines
+are in ``tests/test_torch_telemetry_export.py``, the metrics endpoint in
+``tests/test_torch_telemetry_http.py``).
 
 The same observations give the same counters, gauges and histogram
 buckets (``state_dict``) and the same percentiles in both registries;
 the serve stage taxonomy lands in the same histograms; ``span`` is a
 no-op singleton that allocates nothing while no tracer is installed,
 and an installed tracer records nesting, virtual tracks and the request
-trace context the batcher mints at admission.
+trace context the batcher mints at admission. ``LockOrderMonitor`` gives
+the JAX verdicts on the same acquisition sequences, and a batcher run
+with the ``MicroBatcher``, ``ServeEngine`` and ``LeaderBatcher`` locks
+instrumented stays consistent with the JAX package's static lock graph.
 """
 
 import os
@@ -143,3 +149,147 @@ def test_batcher_mints_request_ids_only_while_tracing():
   mb.flush_now()
   assert mb.telemetry.histogram("serve/latency_s").count == 1
   assert mb.telemetry.histogram("serve/stage_s/queue").count == 1
+
+
+# ---------------------------------------------------------------------------
+# the lock-order monitor
+# ---------------------------------------------------------------------------
+
+
+def _sequence_verdicts(mod):
+  """Acquisition sequences through the monitor: an order then its
+  inversion, a reentrant lock and a condition sharing its lock's name,
+  and the merged-graph check; returns what each step did."""
+  import threading
+
+  out = []
+  mon = mod.LockOrderMonitor()
+  a = mon.wrap(threading.Lock(), "T.a")
+  b = mon.wrap(threading.Lock(), "T.b")
+  r = mon.wrap(threading.RLock(), "T.r")
+  with a:
+    with b:
+      pass
+  with r:
+    with r:
+      with a:
+        pass
+  lock = threading.Lock()
+  shared = mon.wrap(lock, "T.c")
+  cv = mon.wrap(threading.Condition(lock), "T.c")
+  with shared:
+    cv.notify_all()
+  with cv:
+    cv.wait(timeout=0.001)
+  out.append(sorted(mon.edges()))
+  try:
+    with b:
+      with a:
+        pass
+    out.append("no error")
+  except mod.LockOrderError as e:
+    out.append(str(e))
+  for static in (set(), {("T.a", "T.b")}, {("T.b", "T.r")}):
+    try:
+      mon.assert_consistent_with(static)
+      out.append("consistent")
+    except mod.LockOrderError as e:
+      out.append(str(e))
+  return out
+
+
+def test_lockorder_verdicts_match_jax():
+  from distributed_embeddings_tpu.telemetry import lockorder as jlock
+  got = _sequence_verdicts(telemetry)
+  assert got == _sequence_verdicts(jlock)
+  assert got[0] == [("T.a", "T.b"), ("T.r", "T.a")]
+  assert "lock-order inversion" in got[1]
+  assert got[2:4] == ["consistent", "consistent"] and "cycle" in got[4]
+
+
+def test_lockorder_over_the_serving_locks(monkeypatch, tmp_path):
+  """A batcher run with the ``MicroBatcher``, ``ServeEngine`` and
+  ``LeaderBatcher`` locks instrumented: requests from several threads
+  through a ``MicroBatcher`` over a port ``ServeEngine`` on an exported
+  artifact (each answer equal to ``predict`` of its rows) and through a
+  ``LeaderBatcher`` (its broadcast to the followers stubbed: one process
+  holds no world), and the observed order merged with the JAX package's
+  static lock graph (its threadlint) stays acyclic."""
+  import threading
+
+  import torch
+
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.ops.packed_table import sparse_rule
+  from distributed_embeddings_torch.parallel.mesh import Mesh
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      export,
+      load,
+  )
+  from distributed_embeddings_torch.serving import leader as tleader
+  from distributed_embeddings_tpu.analysis import threadlint
+  from test_torch_serve_artifact import MULTI_HOT, _mixed
+  from test_torch_serving import TorchActsModel
+
+  _, tplan, state, numerical, ids = _mixed("sum", 100, MULTI_HOT)
+  path = str(tmp_path / "serve")
+  export(path, tplan, sparse_rule("adagrad", 0.05),
+         train_state_from_flax(state, "cpu"), quantize="int8")
+  eng = ServeEngine(TorchActsModel(), tplan, load(path, tplan, device="cpu"),
+                    device="cpu")
+
+  class LeadEngine:
+    """Rank 0's engine as the leader sees it: a world-2 mesh and a
+    dispatch under the engine lock (``ServeEngine.dispatch``'s)."""
+
+    def __init__(self):
+      self.lock = threading.RLock()
+      self.mesh = Mesh(rank=0, world=2, device=torch.device("cpu"),
+                       backend="gloo")
+
+    def dispatch(self, numerical, cats):
+      with self.lock:
+        return torch.as_tensor(numerical[:, :1]).double()
+
+  mon = telemetry.LockOrderMonitor()
+  sent = []
+  monkeypatch.setattr(tleader, "_send", lambda mesh, *msg: sent.append(msg))
+  lead_eng = LeadEngine()
+  for e in (eng, lead_eng):
+    e.lock = mon.wrap(e.lock, "ServeEngine.lock")
+  batchers = [MicroBatcher(eng.dispatch, max_batch=8, max_delay_s=0.002),
+              tleader.LeaderBatcher(lead_eng, 8, max_delay_s=0.002)]
+  for mb, name in zip(batchers, ("MicroBatcher._lock",
+                                 "LeaderBatcher._lock")):
+    # _nonempty is Condition(_lock): one lock, one name
+    mb._lock = mon.wrap(mb._lock, name)
+    mb._nonempty = mon.wrap(mb._nonempty, name)
+  futs = []
+
+  def client(k):
+    for i in range(4):
+      a, n = (3 * k + i) % 10, 1 + (i + k) % 4
+      rows = (numerical[a:a + n], [x[a:a + n] for x in ids])
+      futs.append(("engine", rows, batchers[0].submit(*rows)))
+      x = np.full((n, 2), float(k * 10 + i), np.float32)
+      futs.append(("leader", (x,), batchers[1].submit(
+          x, [np.zeros(n, np.int32)])))
+
+  threads = [threading.Thread(target=client, args=(k,)) for k in range(3)]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join(timeout=60)
+    assert not t.is_alive()
+  for kind, rows, fut in futs:
+    got = np.asarray(fut.result(timeout=60))
+    if kind == "engine":
+      np.testing.assert_array_equal(got, np.asarray(eng.predict(*rows)))
+    else:
+      np.testing.assert_array_equal(got[:, 0], rows[0][:, 0])
+  for mb in batchers:
+    mb.close()
+  assert sent and len(futs) == 24
+  assert ("MicroBatcher._lock", "ServeEngine.lock") not in mon.edges()
+  mon.assert_consistent_with(threadlint.static_lock_edges())

@@ -472,7 +472,9 @@ def test_step_refusals_match_jax():
             {}, None, **step_kw), exc)
     assert match in msg
     if plan_kw.get("oov") == "allocate":
-      assert "ROADMAP.md §1 item 12" in msg
+      # the dynamic vocabulary is ported (item 12a); its tiered form is a
+      # refusal of the JAX package itself, so the message is JAX's alone
+      assert "ROADMAP.md §1" not in msg and "tiered" in msg
 
 
 def test_unported_options_name_their_item():

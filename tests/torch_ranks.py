@@ -1559,3 +1559,82 @@ def preempt_job(mesh, spec):
               n_participants=4)
     out["tiered"]["parked"] = tr.parked
   return out
+
+
+def _dynvocab_run(mesh, spec, world):
+  """``tests/test_torch_dynvocab.py``'s cell at ``world`` on this rank:
+  a guarded ``DynVocabTrainer`` from the JAX state ``spec[f'state{world}']``
+  over the global raw-id batches ``spec['batches']``; returns the plan,
+  rule, trainer and its losses."""
+  import functools
+
+  from distributed_embeddings_torch import dynvocab as tdv
+  from distributed_embeddings_torch import training as ttr
+  from distributed_embeddings_torch.convert import train_state_from_flax
+  from distributed_embeddings_torch.layers.planner import \
+      DistEmbeddingStrategy
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops import packed_table as tpt
+
+  plan = DistEmbeddingStrategy(
+      [dict(input_dim=v, output_dim=16) for v in spec["vocab"]], world,
+      "memory_balanced", dense_row_threshold=0,
+      overlap=spec["overlap"][world], **spec["knobs"])
+  model = DLRM(spec["vocab"], 16, bottom_mlp=(32, 16), top_mlp=(32, 1),
+               num_numerical=13, tables=False, device="cpu")
+  rule = tpt.adagrad_rule(spec["lr"])
+  opt = functools.partial(ttr.Adam, lr=spec["adam"])
+  state = ttr._with_optimizers(
+      train_state_from_flax(spec[f"state{world}"], mesh=mesh), opt, None)
+  trainer = tdv.DynVocabTrainer(model, plan, tdv.DynVocabTranslator(plan, rule),
+                                bce_loss, opt, rule, mesh, state, guard=True)
+  losses = trainer.run(spec["batches"])
+  return plan, rule, trainer, losses
+
+
+def _dynvocab_result(mesh, plan, rule, trainer, losses):
+  from distributed_embeddings_torch import training as ttr
+  params, aux = ttr.unpack_sparse_state(plan, rule, trainer.state,
+                                        include_aux=True, mesh=mesh)
+  tables = {k: v.numpy().copy() for k, v in params["embeddings"].items()}
+  tables.update({f"aux/{k}": v[0].numpy().copy() for k, v in aux.items()})
+  return {"losses": losses, "tables": tables,
+          "vocab": {k: v.copy() for k, v in
+                    trainer.translator.state_arrays().items()},
+          "summary": trainer.metrics_summary()}
+
+
+def dynvocab_job(mesh, spec):
+  """The dynamic vocabulary at world 4, then at world 2
+  (``tests/test_torch_dynvocab.py``): the world-4 run's result, a save of
+  it with its translator (``spec['ckpt']``, which also writes the
+  ranks' ``pod_clock.json``); then the default process group is formed
+  again at world 2 on ranks 0 and 1 (``spec['port2']``), which restore
+  that checkpoint elastically with a fresh translator (its state
+  returned) and run the cell at world 2. Ranks 2 and 3 return after the
+  world-4 part."""
+  import torch.distributed as dist
+
+  from distributed_embeddings_torch import checkpoint as tck
+  from distributed_embeddings_torch import dynvocab as tdv
+  from distributed_embeddings_torch.parallel.mesh import join_group, \
+      rank_mesh
+
+  plan, rule, trainer, losses = _dynvocab_run(mesh, spec, 4)
+  out = {"w4": _dynvocab_result(mesh, plan, rule, trainer, losses)}
+  tck.save(spec["ckpt"], plan, rule, trainer.state, vocab=trainer.translator,
+           mesh=mesh)
+  state4 = trainer.state
+  dist.destroy_process_group()
+  if mesh.rank >= 2:
+    return out
+  mesh2 = join_group(rank_mesh(2, mesh.rank, "cpu"),
+                     f"tcp://127.0.0.1:{spec['port2']}")
+  plan2, rule2, trainer2, losses2 = _dynvocab_run(mesh2, spec, 2)
+  tr = tdv.DynVocabTranslator(plan2, rule2)
+  del state4
+  tck.restore(spec["ckpt"], plan2, rule2, trainer2.state, mesh=mesh2,
+              vocab=tr)
+  out["restored_vocab"] = {k: v.copy() for k, v in tr.state_arrays().items()}
+  out["w2"] = _dynvocab_result(mesh2, plan2, rule2, trainer2, losses2)
+  return out
