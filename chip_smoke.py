@@ -165,9 +165,9 @@ JSON line per phase:
    once per sparse class each step. Then ``dlrm_main_sparse``: the
    README's command with full-state checkpoints through the twin's
    ``main(argv)`` in this process (``--sparse --checkpoint_dir <tmp>
-   --checkpoint_every 10 --steps 10``, B=4096, x 1/16) twice: finite
-   losses and AUC, the second run resumed at step 10, the directory
-   verified; then ``--dataset criteo`` over a split that
+   --checkpoint_every 10 --steps 10``, B=4096, x 1/16), then again
+   without ``--checkpoint_every``: finite losses and AUC, the second run
+   resumed at step 10, the directory verified; then ``--dataset criteo`` over a split that
    ``write_dummy_criteo_split`` writes into a temporary directory, with
    the native loader built here and its batches bit-equal to the numpy
    backend's. Then the rest of the sparse step (slice 13): ``train_mb``,
@@ -418,6 +418,23 @@ JSON line per phase:
    the stated uncertainty; ``serve_batcher`` scrapes a loopback
    ``MetricsServer``: ``/metrics`` equal to ``prometheus_text`` of the
    batcher's registry, ``/healthz`` ok.
+15. Online learning (slice 23): ``stream_golden`` (the committed JAX
+   golden's loop through the port's publisher and subscriber: row sets
+   bit-equal, rows and predictions within the train golden's
+   tolerances); ``stream_loop`` (the README's loop on the train cell,
+   its trainer a spawned process beside the serving one: the 26
+   Criteo-1TB tables x 1/16, B = 65,536 power-law ids, an int8
+   ``DeltaPublisher`` publishing the base after one step and a delta
+   after every second of 8 more, a ``DeltaSubscriber`` folding them into
+   its engine behind a ``MicroBatcher`` that 4 client threads offer 250
+   requests/s, then a compaction and a cold start: extract, seal and
+   promote ms, delta bytes, freshness, request p50 / p99 / max, the
+   longest stretch without a dispatch, each process's peak memory, no
+   refusal, no shed request, the folded blocks and model parameters
+   byte-equal to a re-export, K1, K2 and K4 against the plan); inside
+   the world-4 phase ``world4_stream`` (x 1/512: per-rank publication,
+   the lockstep fold behind the rank-0 batcher, every rank at the same
+   applied seq after each dispatch, byte-equal to a re-export).
 
 then the ``kernels`` line, the ``nvidia-smi`` line and, last, the
 contract line ``{"ok": true, "device": {...}}``. The launch counts of
@@ -428,8 +445,9 @@ train_guard, resilient, dlrm_main_mb, train_ragged, serve_ragged, zoo,
 train_zoo_mb, train_zoo_ragged, zoo_main and world-4 (sparse train, wire
 compression, ragged, guard and micro-batch, checkpoint, dense train,
 serve, bf16 tables, column slices, the zoo, tiered storage and the
-dynamic vocabulary), the tiered (golden, train, vs device, checkpoint)
-and dynvocab (golden, train, vs static, overlap vs serial) phases alone:
+dynamic vocabulary and the delta stream), the tiered (golden, train, vs
+device, checkpoint), dynvocab (golden, train, vs static, overlap vs
+serial) and stream (golden, loop) phases alone:
 each sets
 every counter to 0 just before each
 run of its path, reads them all just after, and checks them against the
@@ -477,9 +495,9 @@ DENSE_TIMED = 5
 # the world-4 phase's (warm-up, timed) steps of its sparse and dense runs
 # by backend: four cards as the world-1 phases; on one card shared by the
 # four ranks over gloo a check of the path, not a timing (host-bound
-# steps of 1.5-5 s), cut to 1 + 2 and 1 + 1 to keep the run inside its
-# time limit as the phases grow
-W4_STEPS = {"nccl": (TRAIN_WARMUP, TRAIN_TIMED), "gloo": (1, 2)}
+# steps of 1.5-5 s), cut to 1 + 1 to keep the run inside its time limit
+# as the phases grow
+W4_STEPS = {"nccl": (TRAIN_WARMUP, TRAIN_TIMED), "gloo": (1, 1)}
 W4_DENSE_STEPS = {"nccl": (TRAIN_WARMUP, DENSE_TIMED), "gloo": (1, 1)}
 # the README's "Train end-to-end" command, as the port's twin of
 # examples/dlrm/main.py runs it here (world 1, the Criteo tables x 1/16)
@@ -494,9 +512,9 @@ CKPT_STEPS = 3
 CKPT_SCHEDULE = (TRAIN_LR, 2, 3, 3)
 # the README's "Train end-to-end" command with full-state checkpoints,
 # run twice (the second resumes), then over a locally written Criteo split
-# (10 steps a run and one periodic checkpoint before the final save, since
-# PR 22; 20 steps and two before: each save of the 6.0 GB state costs
-# about 10 s)
+# (10 steps a run, and one periodic checkpoint before the final save in
+# the first run only: each save of the 6.0 GB state costs about 10 s,
+# and the run has a time limit)
 DLRM_MAIN_SPARSE_FLAGS = {"--dataset": "dummy", "--steps": "10",
                           "--batch_size": "4096", "--vocab_scale": "0.0625",
                           "--lr": "0.1", "--warmup_steps": "5",
@@ -623,10 +641,9 @@ K4_EDGE_N = (1, 31, 8193)
 K4_SMALL_ROWS = 65536  # the TLB-reach yardstick's buffer: 32 MB of rows
 # the wire compression (README "wire compression"): the world-4 cell under
 # dedup_exchange / dedup_capacity / the bf16 and fp8 wires
-# (2 since PR 22, 3 before: a cut of depth that keeps the run inside its
-# time limit as the phases grow; likewise W4_SLICED_STEPS and
-# W4_NARROW_STEPS)
-W4_WIRE_STEPS = 2
+# (one step: a cut of depth that keeps the run inside its time limit as
+# the phases grow; likewise W4_SLICED_STEPS and W4_NARROW_STEPS)
+W4_WIRE_STEPS = 1
 W4_WIRE_CAP = 4096  # a dedup_capacity below the cell's unique counts
 W4_WIRE_GENEROUS = 1 << 30  # one above every block's safe bound
 W4_WIRE_ALPHA = 1.05  # the power-law batch (models/synthetic.py)
@@ -664,7 +681,7 @@ W4_MP_BATCH = 4096
 W4_COL_SLICE = 2**23
 W4_NARROW_SLICE = 2048
 W4_NARROW_GROUPS = ((10_000, 8), (1_000_000, 16), (25_000_000, 16))
-W4_SLICED_STEPS = 2
+W4_SLICED_STEPS = 1
 # the zoo at world 4: four cards run Tiny at its full vocabulary and
 # B = 65,536; one card shared by four gloo ranks cuts the vocabulary by 16
 # and the global batch to 16,384
@@ -724,7 +741,7 @@ RAGGED_BF16_TWIN_ULPS = 4
 # gradient (13 % on the CPU rehearsal at a small vocabulary)
 TWIN_UPDATE_SHARE = 0.25
 # the world-4 narrow cell's steps per schedule (world4_bf16)
-W4_NARROW_STEPS = 2
+W4_NARROW_STEPS = 1
 # tiered storage (train_tiered and the phases after it): the five
 # Criteo-1TB tables above 10 M rows host-tier, a 40 GiB device budget,
 # staging for 16,384 cold rows a class, a re-rank every 8 steps,
@@ -763,9 +780,10 @@ SERVE_TIERED_COUNT_BATCHES = 2  # traffic classified into a fresh store's counts
 SERVE_TIERED_VS_REQUESTS = 3    # serve_tiered_vs_device, serve_tiered_artifact
 W4_SERVE_TIERED_REQUESTS = 3
 # the rank-0 batcher at world 4 (one card shared by four gloo ranks serves a
-# few dispatches a second): Poisson arrivals of 1-512 rows
+# few dispatches a second): Poisson arrivals of 1-512 rows, 5 s of them
+# (a cut that keeps the run inside its time limit)
 W4_BATCHER_RATE = 20
-W4_BATCHER_REQUESTS = 200
+W4_BATCHER_REQUESTS = 100
 
 
 # slice 22, the dynamic vocabulary: train_dynvocab, and dynvocab_vs_static
@@ -781,6 +799,18 @@ DYNVOCAB_VS_STEPS = 3
 DYNVOCAB_VS_BATCH = 64        # the distinct form's samples
 W4_DYNVOCAB_VOCAB_SCALE = 512
 W4_DYNVOCAB_STEPS = 2
+# slice 23, the delta stream: stream_loop on the train cell (the
+# Criteo-1TB tables x 1/16, B=65,536 power-law ids), world4_stream on the
+# world-4 plan x 1/512
+STREAM_STEPS = 8              # train steps, a delta after every second
+STREAM_EVERY = 2
+STREAM_QUANTIZE = "int8"
+STREAM_RATE = 250             # requests/s the client threads offer
+STREAM_THREADS = 4
+STREAM_POLL_S = 0.02
+W4_STREAM_VOCAB_SCALE = 512
+W4_STREAM_STEPS = 2           # a delta after each, then the batcher serves
+W4_STREAM_REQUESTS = 3
 # world4_ckpt's device track: K1's and K2's device kernel names
 W4_TRACK_KERNELS = ("apply_tiles_kernel", "interact::fwd_kernel",
                     "interact10fwd_kernel", "interact::bwd_kernel",
@@ -3510,7 +3540,14 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
   check(mesh.backend == backend,
         f"rank {rank}: backend {mesh.backend}, expected {backend}")
   dev = mesh.device
-  out = {"rank": rank, "backend": mesh.backend, "device": str(dev)}
+  out = {"rank": rank, "backend": mesh.backend, "device": str(dev),
+         "marks_s": {}}
+  t_rank = time.perf_counter()
+
+  def mark(name: str) -> None:
+    """The seconds since the rank formed its mesh, at the end of a part."""
+    out["marks_s"][name] = time.perf_counter() - t_rank
+
   try:
     # the committed world-4 golden's bf16 run, under the fused schedule
     golden = train_golden.load(train_golden.WORLD4_PATH)
@@ -3526,6 +3563,7 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
                                        for v in golden["bf16_losses"]],
                        **worst, "loss_tol": train_golden.LOSS_TOL,
                        "update_tol": train_golden.UPDATE_TOL}
+    mark("golden")
 
     vocab, plan = world4_plan(backend)
     k4_per_step = k4_launches_per_step(plan)
@@ -3614,41 +3652,60 @@ def world4_rank(rank: int, port: int, backend: str, outdir: str) -> None:
       out["runs"][compute] = run
       del state, buf, step, touch
       torch.cuda.empty_cache()
+      mark(f"train_{compute}")
     out["wire"] = _w4_wire(torch, mesh, backend, batch)
+    mark("wire")
     out["ragged"] = _w4_ragged(torch, mesh, backend)
+    mark("ragged")
     out["guard_mb"] = _w4_guard_mb(torch, mesh, backend, batch)
+    mark("guard_mb")
     out["ckpt"] = _w4_ckpt(torch, mesh, backend, outdir)
+    mark("ckpt")
     out["dense"] = _w4_dense(torch, mesh, backend, batch)
+    mark("dense")
     out["serve"] = _w4_serve(torch, mesh, outdir)
+    mark("serve")
     del batch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["narrow"] = _w4_narrow(torch, mesh, backend, outdir)
     out["narrow"]["wall_s"] = time.perf_counter() - t0
+    mark("narrow")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["colslice"] = _w4_colslice(torch, mesh, backend)
     out["colslice"]["wall_s"] = time.perf_counter() - t0
+    mark("colslice")
     t0 = time.perf_counter()
     out["zoo"] = _w4_zoo(torch, mesh, backend)
     out["zoo"]["wall_s"] = time.perf_counter() - t0
+    mark("zoo")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["tiered"] = _w4_tiered(torch, mesh, backend)
     out["tiered"]["wall_s"] = time.perf_counter() - t0
+    mark("tiered")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["serve_tiered"] = _w4_serve_tiered(torch, mesh, backend)
     out["serve_tiered"]["wall_s"] = time.perf_counter() - t0
+    mark("serve_tiered")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["dynvocab"] = _w4_dynvocab(torch, mesh, backend, outdir)
     out["dynvocab"]["wall_s"] = time.perf_counter() - t0
+    mark("dynvocab")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["stream"] = _w4_stream(torch, mesh, backend, outdir)
+    out["stream"]["wall_s"] = time.perf_counter() - t0
+    mark("stream")
     torch.cuda.empty_cache()
     # last: it forms the default process group again at each world
     t0 = time.perf_counter()
     out["elastic"] = _w4_elastic(torch, mesh, backend, outdir)
     out["elastic"]["wall_s"] = time.perf_counter() - t0
+    mark("elastic")
   finally:
     mesh.close()
   with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
@@ -3738,10 +3795,14 @@ def phase_world4(torch, smi: str) -> dict:
                                        [r["elastic"] for r in ranks])
   dynvocab_totals = emit_dynvocab_world4(backend, smi,
                                          [r["dynvocab"] for r in ranks])
+  stream_totals = emit_stream_world4(backend, smi,
+                                     [r["stream"] for r in ranks])
   emit({"phase": "world4", "wall_s": wall_s,
+        "rank0_marks_s": ranks[0]["marks_s"],
         "serve_tiered_wall_s": [r["serve_tiered"]["wall_s"] for r in ranks],
         "elastic_wall_s": [r["elastic"]["wall_s"] for r in ranks],
-        "dynvocab_wall_s": [r["dynvocab"]["wall_s"] for r in ranks]})
+        "dynvocab_wall_s": [r["dynvocab"]["wall_s"] for r in ranks],
+        "stream_wall_s": [r["stream"]["wall_s"] for r in ranks]})
   ckpt1_totals = phase_world4_ckpt_world1(
       torch, smi, backend, os.path.join(outdir, "ckpt"),
       [r["ckpt"]["checksums"] for r in ranks])
@@ -3756,6 +3817,7 @@ def phase_world4(torch, smi: str) -> dict:
           "world4_serve_tiered": serve_tiered_totals,
           "world4_batcher": batcher_totals, "world4_elastic": elastic_totals,
           "world4_dynvocab": dynvocab_totals,
+          "world4_stream": stream_totals,
           "world4_ckpt_world1": ckpt1_totals}
 
 
@@ -5102,8 +5164,8 @@ def _twin_numbers(out: str, tag: str) -> dict:
 def phase_dlrm_main_sparse(torch, smi: str) -> dict:
   """``dlrm_main_sparse``: the README's "Train end-to-end" command through
   the twin (``main_torch.py`` with ``DLRM_MAIN_SPARSE_FLAGS`` and a
-  temporary ``--checkpoint_dir``) twice at world 1, in this process: both
-  runs end with finite losses and AUC, the second prints ``resumed from
+  temporary ``--checkpoint_dir``) twice at world 1, in this process, the
+  second (resumed) run without ``--checkpoint_every``: both runs end with finite losses and AUC, the second prints ``resumed from
   <dir> at step 10``, and the published directory passes ``verify`` and
   holds step 10, then 20.
   Then one run with ``--dataset criteo`` over a split that
@@ -5129,8 +5191,11 @@ def phase_dlrm_main_sparse(torch, smi: str) -> dict:
   totals = expect()
   runs = []
   for i in range(2):
+    # the periodic save is the first run's: the resumed one saves once
+    flags = {k: v for k, v in DLRM_MAIN_SPARSE_FLAGS.items()
+             if i == 0 or k != "--checkpoint_every"}
     t0 = time.perf_counter()
-    out, got = _run_twin(twin_argv(DLRM_MAIN_SPARSE_FLAGS) +
+    out, got = _run_twin(twin_argv(flags) +
                          ["--device", "cuda", "--checkpoint_dir", ckpt])
     wall_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -5151,7 +5216,9 @@ def phase_dlrm_main_sparse(torch, smi: str) -> dict:
           f"dlrm_main_sparse run {i}: the checkpoint holds step "
           f"{manifest['step']}")
     nbytes, nfiles = dir_bytes(ckpt)
-    runs.append({"resumed": resumed, "wall_s": wall_s, "verify_s": verify_s,
+    runs.append({"resumed": resumed,
+                 "checkpoint_every": flags.get("--checkpoint_every"),
+                 "wall_s": wall_s, "verify_s": verify_s,
                  "checkpoint_step": manifest["step"], "bytes": nbytes,
                  "files": nfiles, "launches": got, **numbers,
                  "stdout": out.strip().splitlines()})
@@ -11248,6 +11315,643 @@ def emit_dynvocab_world4(backend: str, smi: str, res: list) -> dict:
   return totals
 
 
+def stream_requests(vocab, seed: int):
+  """The request pool of the stream loop's clients (``phase_serve_batcher``'s
+  draw): ``BATCHER_POOL`` x ``SERVE_BATCH`` rows of normal features and
+  uniform ids."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  pool = BATCHER_POOL * SERVE_BATCH
+  return (rng.standard_normal((pool, 13)).astype(np.float32),
+          [rng.integers(0, v, pool).astype(np.int32) for v in vocab])
+
+
+def delta_rows(path: str, rank: int = 0) -> dict:
+  """One published delta's rows per class (this rank's), from its
+  manifest."""
+  from distributed_embeddings_torch.checkpoint import read_manifest
+  rows = read_manifest(path)["stream"]["rows"]
+  return {name: per[str(rank)] for name, per in rows.items()
+          if str(rank) in per}
+
+
+def serve_equal_freeze(torch, sub, frozen, rank: int) -> dict:
+  """Whether a world-N subscriber's folded serve blocks, dense-class
+  tables and model parameters on ``rank`` are byte-equal to a
+  re-export's (``serving.freeze`` of the same state: the artifact
+  ``export`` writes); raises naming the first difference."""
+  eng = sub.engine
+  for name, blocks in frozen.device_blocks.items():
+    want = blocks[rank]
+    check(torch.equal(eng.state["serve"][name].view(torch.uint8),
+                      want.to(eng.device).view(torch.uint8)),
+          f"the folded serve block {name} differs from the re-export's")
+  for name, want in frozen.emb_dense.items():
+    n = want.shape[0] // WORLD
+    want = want[rank * n:(rank + 1) * n]
+    check(torch.equal(eng.state["emb_dense"][name], want.to(eng.device)),
+          f"the folded dense-class table {name} differs from the "
+          "re-export's")
+  params = eng.model.state_dict()
+  check(sorted(params) == sorted(frozen.dense),
+        f"model parameters {sorted(params)} vs {sorted(frozen.dense)}")
+  for name, want in frozen.dense.items():
+    check(torch.equal(params[name], want.to(eng.device)),
+          f"the folded model parameter {name} differs from the re-export's")
+  return {"serve_blocks": len(frozen.device_blocks), "dense": len(params),
+          "emb_dense": len(eng.state["emb_dense"])}
+
+
+def tensor_digests(tensors: dict) -> dict:
+  """``{name: [dtype, shape, sha256 of the bytes]}`` of CPU or CUDA
+  tensors, hashed on a thread pool (``hashlib`` releases the GIL): the
+  byte-equality check of two processes' tensors."""
+  import hashlib
+  from concurrent.futures import ThreadPoolExecutor
+
+  import torch
+
+  def one(t):
+    t = t.detach().contiguous()
+    raw = t.reshape(-1).view(torch.uint8).cpu().numpy()
+    return [str(t.dtype), list(t.shape), hashlib.sha256(raw).hexdigest()]
+
+  with ThreadPoolExecutor(8) as pool:
+    return dict(zip(tensors, pool.map(one, tensors.values())))
+
+
+def frozen_digests(frozen) -> dict:
+  """:func:`tensor_digests` of a world-1 ``serving.freeze``: its serve
+  blocks, dense-class tables and model parameters."""
+  return {"serve": tensor_digests({name: blocks[0] for name, blocks
+                                   in frozen.device_blocks.items()}),
+          "emb_dense": tensor_digests(frozen.emb_dense),
+          "dense": tensor_digests(frozen.dense)}
+
+
+def serve_equal_digests(sub, want: dict) -> dict:
+  """Whether a subscriber's folded serve blocks, dense-class tables and
+  model parameters are byte-equal to a re-export's, given as
+  :func:`frozen_digests` from the process that trained the state; raises
+  naming the first difference."""
+  eng = sub.engine
+  params = eng.model.state_dict()
+  check(sorted(params) == sorted(want["dense"]),
+        f"model parameters {sorted(params)} vs {sorted(want['dense'])}")
+  got = {"serve": tensor_digests({n: eng.state["serve"][n]
+                                  for n in want["serve"]}),
+         "emb_dense": tensor_digests({n: eng.state["emb_dense"][n]
+                                      for n in want["emb_dense"]}),
+         "dense": tensor_digests(params)}
+  for part, what in (("serve", "serve block"),
+                     ("emb_dense", "dense-class table"),
+                     ("dense", "model parameter")):
+    for name, digest in want[part].items():
+      check(got[part][name] == digest,
+            f"the folded {what} {name} differs from the re-export's "
+            f"({got[part][name]} vs {digest})")
+  return {"serve_blocks": len(want["serve"]), "dense": len(params),
+          "emb_dense": len(want["emb_dense"])}
+
+
+def stream_model(torch, vocab):
+  """The stream loop's DLRM (``tables=False``: the sparse step's and the
+  serve engine's form), its weights from ``SEED``."""
+  from distributed_embeddings_torch.models import DLRM
+  return DLRM(vocab, D, compute_dtype=torch.bfloat16, tables=False,
+              device="cuda", generator=torch.Generator().manual_seed(SEED))
+
+
+def stream_trainer(conn, pubdir: str, t_spawn: float) -> None:
+  """The training process of ``stream_loop`` (spawned; the server runs in
+  the calling process, so neither waits on the other's GIL): the train
+  cell's sparse step with a ``DeltaPublisher`` (``STREAM_QUANTIZE``)
+  observing every batch. It publishes the base after one step and sends
+  its seconds, waits for the server's go, sets its launch counts to 0 and
+  steps ``STREAM_STEPS`` times, publishing a delta after every
+  ``STREAM_EVERY``; then sends the steps' and deltas' figures with its
+  launch counts, and last :func:`frozen_digests` of ``serving.freeze`` of
+  its final state. A failure is sent as its traceback."""
+  import traceback
+
+  marks = {"started": time.time() - t_spawn}
+  import torch
+
+  from distributed_embeddings_torch.models import bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.serving import freeze
+  from distributed_embeddings_torch.streaming import (
+      DeltaPublisher,
+      RowGenerationTracker,
+  )
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+  )
+
+  # f32 products stay f32, as in the main process
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    torch.zeros(1, device="cuda")
+    marks["imported_and_cuda"] = time.time() - t_spawn
+    vocab = criteo_vocab()
+    plan = train_plan()
+    rule = sgd_rule(TRAIN_LR)
+    model = stream_model(torch, vocab)
+    state = init_sparse_state_direct(
+        plan, rule, model.state_dict(), sgd_factory(torch),
+        torch.Generator(device="cuda").manual_seed(SEED + 51),
+        device="cuda")
+    step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                  rule)
+    torch.cuda.synchronize()
+    marks["state"] = time.time() - t_spawn
+    batches = tiered_batches(vocab, STREAM_STEPS + 1, TRAIN_BATCH, SEED + 53)
+    marks["batches"] = time.time() - t_spawn
+    pub = DeltaPublisher(pubdir, plan, rule, RowGenerationTracker(plan),
+                         quantize=STREAM_QUANTIZE)
+
+    def train(bt):
+      pub.observe_batch(bt[1])
+      return step(state, torch.from_numpy(bt[0]).cuda(),
+                  [torch.from_numpy(c).cuda() for c in bt[1]],
+                  torch.from_numpy(bt[2]).cuda())[0]
+
+    state = train(batches[0])
+    torch.cuda.synchronize()
+    marks["first_step"] = time.time() - t_spawn
+    t0 = time.perf_counter()
+    pub.publish_base(state)
+    conn.send({"base_s": time.perf_counter() - t0, "marks": marks})
+    check(conn.recv() == "go", "stream_trainer: no go from the server")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    deltas, step_ms = [], []
+    for i in range(1, STREAM_STEPS + 1):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      state = train(batches[i])
+      torch.cuda.synchronize()
+      step_ms.append((time.perf_counter() - t0) * 1e3)
+      if i % STREAM_EVERY:
+        continue
+      t0 = time.perf_counter()
+      path = pub.publish_delta(state)
+      check(path is not None, f"stream_trainer: no delta after step {i}")
+      deltas.append({"seq": pub.seq,
+                     "publish_ms": (time.perf_counter() - t0) * 1e3,
+                     "extract_ms": pub.last_publish_s["extract"] * 1e3,
+                     "seal_ms": pub.last_publish_s["seal"] * 1e3,
+                     "bytes": pub.last_publish_bytes,
+                     "rows": delta_rows(path)})
+    torch.cuda.synchronize()
+    conn.send({"seq": pub.seq, "step_ms": step_ms, "deltas": deltas,
+               "launches": read_counts(),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    t0 = time.perf_counter()
+    frozen = frozen_digests(freeze(plan, rule, state,
+                                   quantize=STREAM_QUANTIZE))
+    conn.send({"frozen": frozen, "freeze_s": time.perf_counter() - t0})
+  except BaseException:  # noqa: BLE001 — sent to the server, which fails
+    conn.send({"error": traceback.format_exc()})
+  finally:
+    conn.close()
+
+
+def phase_stream_loop(torch, smi: str) -> dict:
+  """The README's online-learning loop on the train cell at full width,
+  its trainer and its server in two processes, as a deployment runs
+  them: the trainer (:func:`stream_trainer`, spawned) steps the DLRM over
+  the Criteo-1TB tables x 1/16 with ``make_sparse_train_step`` and SGD at
+  B=65,536 power-law ids; its ``DeltaPublisher`` (int8) observes every
+  batch, publishes the base after the first step and a delta after every
+  ``STREAM_EVERY`` of ``STREAM_STEPS`` more. Here a ``DeltaSubscriber``
+  (its own model) feeds a ``MicroBatcher`` that ``STREAM_THREADS``
+  clients send Poisson requests of 1-512 rows at ``STREAM_RATE``/s
+  throughout, and its poll thread folds each delta by copy-on-promote.
+  Then a ``DeltaCompactor`` folds the chain through ``head - 1`` and a
+  cold subscriber starts from the compacted base plus the tail. Fails
+  unless every delta applied with no refusal, no request was dropped, the
+  launches of both processes are the plan's (K1 a sparse class a step,
+  K2 a step and a dispatch, K4 a class a delta), and the folded blocks
+  and model parameters (and the cold start's) are byte-equal to a
+  re-export at the final watermark (sha256 of each tensor, the
+  trainer's ``serving.freeze`` against the server's engine). Returns each
+  kernel's launches in the loop, summed over the two processes."""
+  import multiprocessing
+  import os
+  import shutil
+  import tempfile
+  import threading
+
+  import numpy as np
+
+  from distributed_embeddings_torch.serving import MicroBatcher, Rejected
+  from distributed_embeddings_torch.streaming import (
+      DeltaCompactor,
+      DeltaSubscriber,
+      artifact_bytes,
+      delta_dirname,
+  )
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+
+  t_phase = time.perf_counter()
+  vocab = criteo_vocab()
+  plan = train_plan()
+  n_sparse = sum(cp.kind == "sparse" for cp in plan.classes.values())
+  tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+  pubdir = os.path.join(tmp, "pub")
+  ctx = multiprocessing.get_context("spawn")
+  conn, child_conn = ctx.Pipe()
+  trainer = ctx.Process(target=stream_trainer,
+                        args=(child_conn, pubdir, time.time()),
+                        name="stream-trainer")
+  t_spawn = time.perf_counter()
+  trainer.start()
+  child_conn.close()
+
+  def from_trainer(timeout_s: float) -> dict:
+    try:
+      ready = conn.poll(timeout_s)
+      msg = conn.recv() if ready else None
+    except EOFError:
+      msg = None
+    check(msg is not None, f"stream_loop: nothing from the training process "
+          f"in {timeout_s} s (exit code {trainer.exitcode})")
+    check("error" not in msg, "stream_loop: the training process failed:\n"
+          f"{msg.get('error')}")
+    return msg
+
+  try:
+    reg = MetricsRegistry()
+    numerical, cats = stream_requests(vocab, SEED + 57)
+    pool = numerical.shape[0]
+    model = stream_model(torch, vocab)
+    base = from_trainer(600.0)
+    base_s = base["base_s"]
+    ready_s = time.perf_counter() - t_spawn
+    base_bytes = artifact_bytes(os.path.join(pubdir, "base"))
+    t0 = time.perf_counter()
+    sub = DeltaSubscriber.from_artifact(model, plan, pubdir,
+                                        poll_interval_s=STREAM_POLL_S,
+                                        telemetry=reg, device="cuda")
+    sub_load_s = time.perf_counter() - t0
+    dispatched = []  # each traffic dispatch's start, on the host clock
+
+    def dispatch(*args, **kw):
+      dispatched.append(time.perf_counter())
+      return sub.dispatch(*args, **kw)
+
+    mb = MicroBatcher(dispatch, max_batch=SERVE_BATCH,
+                      max_delay_s=BATCHER_DELAY_S, registry=MetricsRegistry())
+    stop = threading.Event()
+    futures = [[] for _ in range(STREAM_THREADS)]
+    shed = [0] * STREAM_THREADS
+
+    def client(k):
+      r = np.random.default_rng(SEED + 59 + k)
+      t_next = time.perf_counter()
+      while not stop.is_set():
+        t_next += r.exponential(STREAM_THREADS / STREAM_RATE)
+        wait = t_next - time.perf_counter()
+        if wait > 0:
+          time.sleep(wait)
+        n = int(r.integers(1, BATCHER_MAX_ROWS + 1))
+        a = int(r.integers(0, pool - BATCHER_MAX_ROWS))
+        try:
+          futures[k].append(mb.submit(numerical[a:a + n],
+                                      [c[a:a + n] for c in cats]))
+        except Rejected:
+          shed[k] += 1
+
+    # the engine's first dispatches (as serve_batcher's reference run)
+    for a in range(0, BATCHER_POOL * SERVE_BATCH, SERVE_BATCH):
+      sub.predict(numerical[a:a + SERVE_BATCH],
+                  [c[a:a + SERVE_BATCH] for c in cats])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(STREAM_THREADS)]
+    for t in threads:
+      t.start()
+    sub.start()
+    t_loop = time.perf_counter()
+    try:
+      conn.send("go")
+      done = from_trainer(300.0)
+      deadline = time.monotonic() + 120.0
+      while sub.applied_seq < done["seq"] and sub.last_error is None \
+          and time.monotonic() < deadline:
+        time.sleep(0.01)
+      time.sleep(0.2)  # traffic on the last generation too
+    finally:
+      stop.set()
+      for t in threads:
+        t.join(timeout=60)
+      sub.stop()
+    lat, failed = [], 0
+    for per in futures:
+      for fut in per:
+        try:
+          fut.result(timeout=120)
+          lat.append(fut.latency_s * 1e3)
+        except Exception:  # noqa: BLE001 — counted: a dropped request
+          failed += 1
+    mb.close()
+    loop_s = time.perf_counter() - t_loop
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    served = read_counts()
+    got = {name: served[name] + done["launches"][name] for name in served}
+    stats = mb.stats
+    # the longest stretch without a dispatch starting: a stall longer than
+    # the queue's rows over the offered rows a second sheds requests
+    gap_ms = max(np.diff(dispatched), default=0.0) * 1e3
+    rejected = {k: v for k, v in stats.items() if k.startswith("rejected/")}
+    deltas = done["deltas"]
+    k4 = sum(len(d["rows"]) for d in deltas)
+    want = expect(apply_rows=n_sparse * STREAM_STEPS,
+                  interact_bwd=STREAM_STEPS,
+                  interact_fwd=STREAM_STEPS + stats["batches"],
+                  gather_rows=k4)
+    sub_fresh = sub.freshness
+    refused = reg.counter("stream/deltas_refused").value
+    for rec, (build_s, swap_s) in zip(deltas, sub.promote_s):
+      rec["promote_build_ms"] = build_s * 1e3
+      rec["promote_swap_ms"] = swap_s * 1e3
+    loop = {"loop_s": loop_s, "step_ms": done["step_ms"], "deltas": deltas,
+            "applied_seq": sub.applied_seq, "published_seq": done["seq"],
+            "refused": refused, "last_refusal": sub.last_refusal,
+            "poll_error": repr(sub.last_error), "failed": failed,
+            "shed": sum(shed), "rejected_by_reason": rejected,
+            "queue_rows": mb.queue_rows, "dispatch_gap_ms_max": gap_ms,
+            "request_ms_max": max(lat, default=None),
+            "dispatches": stats["batches"], "launches": got,
+            "launches_plan": want}
+    if (sub.last_error is not None or sub.applied_seq != done["seq"]
+        or refused or failed or sum(shed) or stats["rejected"]
+        or got != want):
+      emit({"phase": "stream_loop_failed", "card": smi, **loop})
+    check(sub.last_error is None, f"stream_loop: the poll raised "
+          f"{sub.last_error!r}")
+    check(sub.applied_seq == done["seq"] == STREAM_STEPS // STREAM_EVERY,
+          f"stream_loop: applied {sub.applied_seq} of {done['seq']} deltas")
+    check(refused == 0 and sub.last_refusal is None,
+          f"stream_loop: {refused} refusals ({sub.last_refusal})")
+    check(failed == 0 and sum(shed) == 0 and stats["rejected"] == 0,
+          f"stream_loop: {failed} failed and {sum(shed)} shed requests "
+          f"({rejected}; queue bound {mb.queue_rows} rows, the longest "
+          f"stretch without a dispatch {gap_ms:.0f} ms, the slowest "
+          f"answer {max(lat, default=0.0):.0f} ms)")
+    check(got == want, f"stream_loop: launches {got}, the plan's {want}")
+    frozen = from_trainer(300.0)
+    t0 = time.perf_counter()
+    equal = serve_equal_digests(sub, frozen["frozen"])
+    digest_s = time.perf_counter() - t0
+    # compaction through head - 1, then a cold start from base + tail
+    head = done["seq"]
+    t0 = time.perf_counter()
+    comp = DeltaCompactor(pubdir, telemetry=reg).compact_once(
+        through_seq=head - 1)
+    compact_s = time.perf_counter() - t0
+    check(comp["through_seq"] == head - 1,
+          f"stream_loop: compaction {comp}")
+    cold_bytes = (artifact_bytes(os.path.join(pubdir, "base"))
+                  + artifact_bytes(os.path.join(pubdir,
+                                                delta_dirname(head))))
+    del sub, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cold = DeltaSubscriber.from_artifact(stream_model(torch, vocab), plan,
+                                         pubdir, heartbeat=False,
+                                         device="cuda")
+    check(cold.applied_seq == head - 1 and cold.poll_once() == 1,
+          f"stream_loop: the cold start anchored at {cold.applied_seq}")
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    serve_equal_digests(cold, frozen["frozen"])
+    fresh = sub_fresh
+    emit({"phase": "stream_loop", "card": smi, "quantize": STREAM_QUANTIZE,
+          "processes": "trainer and server", "batch": TRAIN_BATCH,
+          "steps": STREAM_STEPS, "publish_every": STREAM_EVERY,
+          "alpha": TIERED_ALPHA, "offered_requests_per_s": STREAM_RATE,
+          "threads": STREAM_THREADS, "trainer_ready_s": ready_s,
+          "trainer_marks_s": base["marks"],
+          "base_s": base_s,
+          "base_bytes": base_bytes, "subscriber_load_s": sub_load_s,
+          "loop_s": loop_s, "step_ms": done["step_ms"], "deltas": deltas,
+          "delta_bytes_over_base": [d["bytes"] / base_bytes
+                                    for d in deltas],
+          "freshness_s_p50": fresh.p50, "freshness_s_max": fresh.max,
+          "freshness_s_count": fresh.count,
+          "requests": len(lat), "dispatches": stats["batches"],
+          "request_ms_p50": float(np.percentile(lat, 50)),
+          "request_ms_p99": float(np.percentile(lat, 99)),
+          "request_ms_max": max(lat), "dispatch_gap_ms_max": gap_ms,
+          "queue_rows": mb.queue_rows,
+          "refused": refused, "dropped": failed + sum(shed),
+          "peak_gib_server": peak, "peak_gib_trainer": done["peak_gib"],
+          "compact_s": compact_s,
+          "compacted": {k: comp[k] for k in ("through_seq",
+                                             "deltas_folded",
+                                             "gc_removed")},
+          "cold_start_s": cold_s, "cold_start_bytes": cold_bytes,
+          "cold_start_over_full_chain": cold_bytes / (
+              base_bytes + sum(d["bytes"] for d in deltas)),
+          "bit_equal_reexport": equal, "cold_bit_equal_reexport": True,
+          "trainer_freeze_digest_s": frozen["freeze_s"],
+          "server_digest_s": digest_s,
+          "launches": got, "launches_trainer": done["launches"],
+          "launches_server": served, "launches_plan": want,
+          "wall_s": time.perf_counter() - t_phase})
+  finally:
+    conn.close()
+    trainer.join(timeout=60)
+    if trainer.is_alive():
+      trainer.kill()
+      trainer.join()
+    shutil.rmtree(tmp, ignore_errors=True)
+  check(trainer.exitcode == 0,
+        f"stream_loop: the training process exited {trainer.exitcode}")
+  return got
+
+
+def phase_stream_golden(torch) -> dict:
+  """``tests/data/torch_stream_golden.npz`` replayed on the card: the
+  port's publisher and subscriber through the golden's loop
+  (``train_golden.replay_stream``); every delta's row set bit-equal, its
+  rows and the probe's predictions within the train golden's tolerances
+  (``train_golden.compare_stream``). Returns each kernel's launches."""
+  from distributed_embeddings_torch import train_golden
+
+  golden = train_golden.load(train_golden.STREAM_PATH)
+  reset_counts()
+  t0 = time.perf_counter()
+  got = train_golden.replay_stream(golden, device="cuda")
+  torch.cuda.synchronize()
+  wall_s = time.perf_counter() - t0
+  counts = read_counts()
+  try:
+    worst = train_golden.compare_stream(golden, got)
+  except AssertionError as exc:
+    raise SmokeFailure(f"stream golden: {exc}") from exc
+  emit({"phase": "stream_golden", **worst,
+        "update_tol": train_golden.UPDATE_TOL,
+        "pred_tol": train_golden.PRED_TOL, "wall_s": wall_s,
+        "launches": counts})
+  return counts
+
+
+def _w4_stream(torch, mesh, backend: str, outdir: str) -> dict:
+  """``world4_stream`` in this rank: the world-4 plan (x
+  1/``W4_STREAM_VOCAB_SCALE``, ``'fused'``) trained by every rank, an
+  int8 ``DeltaPublisher`` per rank (each seals its own block's rows, rank
+  0 the shared files), the base after one step and a delta after each of
+  ``W4_STREAM_STEPS`` more; a ``DeltaSubscriber`` per rank behind the
+  rank-0 batcher (``serving.world_batcher``): after each delta rank 0
+  polls and sends ``W4_STREAM_REQUESTS`` requests, every rank folds
+  through the leader's seq first. Every rank at the same applied seq
+  after each dispatch; the folded blocks and model parameters byte-equal
+  to a re-export (``freeze`` with the mesh); K1, K2 and K4 as the step,
+  the dispatches and the publisher launch them."""
+  import os
+
+  import numpy as np
+  import torch.distributed as dist
+
+  from distributed_embeddings_torch.models import DLRM, bce_loss
+  from distributed_embeddings_torch.ops.packed_table import sgd_rule
+  from distributed_embeddings_torch.serving import freeze, world_batcher
+  from distributed_embeddings_torch.streaming import (
+      DeltaPublisher,
+      DeltaSubscriber,
+      RowGenerationTracker,
+  )
+  from distributed_embeddings_torch.telemetry import MetricsRegistry
+  from distributed_embeddings_torch.training import (
+      init_sparse_state_direct,
+      make_sparse_train_step,
+      shard_batch,
+  )
+
+  dev, rank = mesh.device, mesh.rank
+  vocab, plan = world4_plan(backend, scale=W4_STREAM_VOCAB_SCALE)
+  rule = sgd_rule(TRAIN_LR)
+
+  def dlrm():
+    return DLRM(vocab, D, tables=False, device=dev,
+                generator=torch.Generator().manual_seed(SEED))
+
+  model = dlrm()
+  state = init_sparse_state_direct(
+      plan, rule, model.state_dict(), sgd_factory(torch),
+      torch.Generator(device=dev).manual_seed(SEED + 61 + rank), mesh=mesh)
+  step = make_sparse_train_step(model, plan, bce_loss, sgd_factory(torch),
+                                rule, mesh=mesh)
+  batches = tiered_batches(vocab, W4_STREAM_STEPS + 1, W4_BATCH, SEED + 63)
+  pubdir = os.path.join(outdir, "stream")
+  pub = DeltaPublisher(pubdir, plan, rule, RowGenerationTracker(plan),
+                       quantize=STREAM_QUANTIZE, mesh=mesh,
+                       telemetry=MetricsRegistry())
+
+  def train(bt):
+    pub.observe_batch(bt[1])
+    num, cats, labels = shard_batch((bt[0], tuple(bt[1]), bt[2]), mesh)
+    return step(state, num, list(cats), labels)[0]
+
+  state = train(batches[0])
+  pub.publish_base(state)
+  sub = DeltaSubscriber.from_artifact(dlrm(), plan, pubdir, mesh=mesh,
+                                      telemetry=MetricsRegistry(),
+                                      device=dev)
+  seen = []
+  dispatch_at = sub.dispatch_at
+
+  def recorded(seq, numerical, cats):
+    res = dispatch_at(seq, numerical, cats)
+    seen.append(sub.applied_seq)
+    return res
+
+  sub.dispatch_at = recorded
+  numerical, cats = stream_requests(vocab, SEED + 65)
+  reset_counts()
+  deltas, gathers, dispatches = [], 0, 0
+  for i in range(1, W4_STREAM_STEPS + 1):
+    state = train(batches[i])
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    path = pub.publish_delta(state)
+    check(path is not None, f"world4_stream rank {rank}: no delta {i}")
+    rows = delta_rows(path, rank)
+    gathers += len(rows)
+    deltas.append({"publish_ms": (time.perf_counter() - t0) * 1e3,
+                   "extract_ms": pub.last_publish_s["extract"] * 1e3,
+                   "seal_ms": pub.last_publish_s["seal"] * 1e3,
+                   "bytes": pub.last_publish_bytes, "rows": rows})
+    mb = world_batcher(sub, SERVE_BATCH, start=False)
+    if rank == 0:
+      check(sub.poll_once() == 1, f"world4_stream: delta {i} not ready")
+      futs = []
+      for j in range(W4_STREAM_REQUESTS):
+        a = j * SERVE_BATCH
+        futs.append(mb.submit(numerical[a:a + SERVE_BATCH],
+                              [c[a:a + SERVE_BATCH] for c in cats]))
+        mb.flush_now()
+      for f in futs:
+        check(np.isfinite(f.result(timeout=120)).all(),
+              "world4_stream: non-finite predictions")
+      mb.close()
+    dispatches += W4_STREAM_REQUESTS
+  torch.cuda.synchronize(dev)
+  got = read_counts()
+  want = expect(
+      apply_rows=len(state["fused"]) * W4_STREAM_STEPS,
+      interact_fwd=W4_STREAM_STEPS + dispatches,
+      interact_bwd=W4_STREAM_STEPS,
+      gather_rows=k4_launches_per_step(plan) * W4_STREAM_STEPS + gathers)
+  check(got == want, f"world4_stream rank {rank}: launches {got}, the "
+        f"plan's {want}")
+  all_seen = [None] * WORLD
+  dist.all_gather_object(all_seen, seen)
+  check(all(s == all_seen[0] for s in all_seen) and seen == [
+      k for k in range(1, W4_STREAM_STEPS + 1)
+      for _ in range(W4_STREAM_REQUESTS)],
+        f"world4_stream: the ranks' applied seqs after each dispatch "
+        f"{all_seen}")
+  frozen = freeze(plan, rule, state, quantize=STREAM_QUANTIZE, mesh=mesh)
+  equal = serve_equal_freeze(torch, sub, frozen, rank)
+  out = {"deltas": deltas, "seen": seen, "launches": got,
+         "launches_plan": want, "bit_equal_reexport": equal,
+         "promote_ms": [[b * 1e3, s * 1e3] for b, s in sub.promote_s],
+         "refused": sub.last_refusal}
+  del sub, frozen, state, step
+  torch.cuda.empty_cache()
+  dist.barrier()
+  return out
+
+
+def emit_stream_world4(backend: str, smi: str, res: list) -> dict:
+  """The ``world4_stream`` line from the ranks' :func:`_w4_stream`
+  results; returns each kernel's launches summed over the ranks."""
+  totals = expect()
+  for r in res:
+    add_counts(totals, r["launches"])
+  check(all(r["refused"] is None for r in res),
+        f"world4_stream: refusals {[r['refused'] for r in res]}")
+  emit({"phase": "world4_stream", "backend": backend, "card": smi,
+        "vocab_scale": f"1/{W4_STREAM_VOCAB_SCALE}", "overlap": "fused",
+        "quantize": STREAM_QUANTIZE, "global_batch": W4_BATCH,
+        "steps": W4_STREAM_STEPS, "requests_per_delta": W4_STREAM_REQUESTS,
+        "applied_seq_after_each_dispatch": res[0]["seen"],
+        "deltas_by_rank": [r["deltas"] for r in res],
+        "promote_ms_by_rank": [r["promote_ms"] for r in res],
+        "bit_equal_reexport": res[0]["bit_equal_reexport"],
+        "launches_by_rank": [r["launches"] for r in res],
+        "launches": totals})
+  return totals
+
+
 def kernel_entry(name, row, launches, by_path) -> dict:
   source = BF16_FORMS.get(name, name)
   return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}.cu",
@@ -11389,6 +12093,10 @@ def main() -> int:
   by_path["dynvocab_overlap_vs_serial"] = phase_dynvocab_overlap_vs_serial(
       torch, smi)
   torch.cuda.empty_cache()
+  # slice 23: the delta stream from a training run into a serving one
+  by_path["stream_golden"] = phase_stream_golden(torch)
+  by_path["stream_loop"] = phase_stream_loop(torch, smi)
+  torch.cuda.empty_cache()
   for compute in ("f32", "bf16"):
     by_path[f"train_dense_{compute}"] = phase_train_dense(torch, smi,
                                                           compute)
@@ -11477,7 +12185,10 @@ def main() -> int:
                       ("train_dynvocab", dlrm_sparse),
                       ("dynvocab_vs_static", dlrm_sparse),
                       ("dynvocab_overlap_vs_serial", dlrm_sparse),
-                      ("world4_dynvocab", W4_KERNELS)):
+                      ("world4_dynvocab", W4_KERNELS),
+                      ("stream_golden", dlrm_sparse + ("gather_rows",)),
+                      ("stream_loop", dlrm_sparse + ("gather_rows",)),
+                      ("world4_stream", W4_KERNELS)):
     for name in names:
       check(by_path[path][name] > 0, f"the {path} path never launched {name}")
 

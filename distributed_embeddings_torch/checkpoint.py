@@ -62,8 +62,15 @@ clock against rank 0's right after its first barrier and publishes the
 records as ``pod_clock.json`` (:func:`read_pod_clock`), the offsets
 ``telemetry.merge_traces`` takes.
 
-Not ported (refused by name): the delta stream's section (``stream=``,
-ROADMAP.md §1 item 12b).
+A streaming run (``streaming/``) passes its ``DeltaPublisher`` as
+``stream=``: the publisher's chain state (last published seq, the sha256
+chain fingerprints, the watermark and the tracker clock) rides the
+manifest's ``stream`` section and the tracker's generation stamps and
+counts ``stream.npz`` (written by rank 0 at world N, where every rank's
+tracker holds the same stamps), as the JAX package writes them;
+:func:`restore` loads them back into a publisher, which then re-joins the
+chain with ``attach()``. :func:`manifest_fingerprint` is the identity the
+delta chain links through.
 """
 
 from __future__ import annotations
@@ -290,6 +297,16 @@ def read_manifest(path: str) -> Dict[str, Any]:
     return json.load(f)
 
 
+def manifest_fingerprint(path: str) -> str:
+  """The identity of one published artifact: sha256 over its manifest
+  bytes. The manifest carries every data file's crc32 and size, so this
+  one hash pins the artifact's whole content; it is what the streaming
+  delta chain links through (``base_fingerprint``)."""
+  import hashlib
+  with open(os.path.join(path, "manifest.json"), "rb") as f:
+    return hashlib.sha256(f.read()).hexdigest()
+
+
 def publish_manifest_last(tmp: str, path: str,
                           manifest: Dict[str, Any]) -> None:
   """Durable publication tail: write ``manifest.json`` LAST (after every
@@ -316,15 +333,6 @@ def publish_manifest_last(tmp: str, path: str,
 # ---------------------------------------------------------------------------
 # full train-state save / restore
 # ---------------------------------------------------------------------------
-
-
-def refuse_unported(stream) -> None:
-  """The argument of the subsystem not ported yet, refused naming its
-  ROADMAP item (``resilience.durable`` refuses it alike)."""
-  if stream is not None:
-    raise NotImplementedError(
-        "stream= (the delta publisher's chain state): not ported yet "
-        "(ROADMAP.md §1 item 12b, streaming)")
 
 
 def _check_vocab_arg(plan, vocab) -> None:
@@ -368,6 +376,24 @@ def _load_vocab(path: str, manifest: Dict[str, Any], vocab) -> None:
   with np.load(os.path.join(path, "vocab.npz")) as z:
     flat = {k: np.asarray(v) for k, v in z.items()}
   vocab.load_state(flat, section)
+
+
+def _load_stream(path: str, manifest: Dict[str, Any], stream) -> None:
+  """Restore a checkpoint's ``stream`` section (the publisher's chain
+  state and generation stamps) into a ``DeltaPublisher``. Lenient on
+  absence: a checkpoint written before the chain was rooted (or by a
+  non-streaming run) leaves the publisher fresh. Quantize and geometry
+  mismatches refuse inside ``publisher.load_state`` with the field named.
+  The restored publisher is un-attached: it validates the pubdir tail
+  (``attach``) before its next publication."""
+  if stream is None:
+    return
+  section = manifest.get("stream")
+  if section is None:
+    return
+  with np.load(os.path.join(path, "stream.npz")) as z:
+    flat = {k: np.asarray(v) for k, v in z.items()}
+  stream.load_state(flat, section)
 
 
 def _pod_clock_record(mesh, rounds: int = 8) -> Dict[str, int]:
@@ -596,8 +622,12 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
   takes its ``manifest_section()`` as ``vocab``. At world N every rank's
   clock offset against rank 0's is measured right after the first
   barrier and rank 0 publishes them as ``pod_clock.json``
-  (:func:`read_pod_clock`)."""
-  refuse_unported(stream)
+  (:func:`read_pod_clock`).
+
+  ``stream``: the run's ``streaming.DeltaPublisher``. Its
+  ``manifest_section()`` becomes the manifest's ``stream`` section and
+  rank 0 writes its ``state_arrays()`` as ``stream.npz``, captured at the
+  call so the section and the stamps are one point in time."""
   if store is None and plan.host_tier_class_keys():
     raise ValueError(
         "plan has host-tier classes but no HostTierStore was passed: "
@@ -618,6 +648,11 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
     telemetry_meta = (telemetry.state_dict()
                       if hasattr(telemetry, "state_dict") else dict(telemetry))
   vocab_meta = vocab.manifest_section() if vocab is not None else None
+  # the publisher's chain state and stamps, captured together (every
+  # rank's tracker holds every rank's stamps: rank 0 writes them)
+  stream_meta = stream.manifest_section() if stream is not None else None
+  stream_flat = stream.state_arrays() if stream is not None and p0 \
+      else None
   tmp = path + ".tmp"
   err: Optional[BaseException] = None
   if p0:
@@ -680,6 +715,10 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
       # the id space is table-keyed global host state: rank 0 writes it
       fpath = os.path.join(tmp, "vocab.npz")
       np.savez(fpath, **vocab.state_arrays())
+      _seal(fpath)
+    if stream_flat is not None:
+      fpath = os.path.join(tmp, "stream.npz")
+      np.savez(fpath, **stream_flat)
       _seal(fpath)
     if clock_rec is not None:
       # transported to rank 0 like the marker crcs (merged into
@@ -751,6 +790,8 @@ def save(path: str, plan, rule, state: Dict[str, Any], store=None,
       manifest["vocab"] = vocab_meta
     if telemetry_meta is not None:
       manifest["telemetry"] = telemetry_meta
+    if stream_meta is not None:
+      manifest["stream"] = stream_meta
     publish_manifest_last(tmp, path, manifest)
 
   err = None
@@ -1153,8 +1194,14 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   ``DynVocabTranslator`` of the saving run's knobs and capacities), which
   it loads in place before any block is read, across a re-shard too; the
   JAX package's refusals when the section and the translator do not
-  agree."""
-  refuse_unported(stream)
+  agree.
+
+  ``stream``: a ``streaming.DeltaPublisher`` of the saving run's
+  quantize mode; the checkpoint's ``stream`` section, if any, loads into
+  it (``load_state``), and it must ``attach()`` before it publishes
+  again. Across an elastic re-shard the section is not adopted (the
+  chain's plan fingerprint changed with the world: the publisher stays
+  fresh and re-roots with ``publish_base``), as in the JAX package."""
   rank = _state_rank(plan, mesh)
   dev = mesh.device if mesh is not None else resolve_device(device)
   layouts, tiered_names = _device_layouts(plan, rule, store)
@@ -1176,6 +1223,9 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   # is read
   _load_vocab(path, manifest, vocab)
   if elastic:
+    # the delta chain's plan fingerprint changed with the world shape,
+    # so its saved chain cannot be continued: the stream section is not
+    # adopted
     return _restore_elastic(path, manifest, plan, rule, state_like, rank,
                             mesh, store, dev)
 
@@ -1194,6 +1244,7 @@ def restore(path: str, plan, rule, state_like: Dict[str, Any],
   if store is not None:
     _restore_tier_state(path, store, tiered_names)
     fused.update(store.build_fused(mesh, dev))
+  _load_stream(path, manifest, stream)
 
   state = _assemble_state({part: _read_npz(path, part) for part in _PARTS},
                           state_like, plan, rank, dev, int(manifest["step"]))

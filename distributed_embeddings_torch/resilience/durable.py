@@ -27,8 +27,9 @@ package's, so either package resumes the other's root. At world N every
 rank calls :func:`save_rotating` and :func:`restore_latest` with its
 mesh; a tiered run passes its ``HostTierStore`` (``store=``) and a
 dynamic-vocabulary run its ``DynVocabTranslator`` (``vocab=``) through to
-``checkpoint.save`` / ``restore``. Not ported (refused by name): the
-delta stream (``stream=``, ROADMAP.md §1 item 12b).
+``checkpoint.save`` / ``restore``, and a streaming run its
+``streaming.DeltaPublisher`` (``stream=``: its chain state rides the
+checkpoint's ``stream`` section).
 """
 
 from __future__ import annotations
@@ -117,7 +118,6 @@ def save_rotating(root: str, plan, rule, state: Dict[str, Any],
   from .. import checkpoint
   from ..telemetry import counter as _counter, span as _span
 
-  checkpoint.refuse_unported(stream)
   step = int(state["step"])
   path = step_dir(root, step)
   rank = mesh.rank if _world_n(mesh) else 0
@@ -126,11 +126,13 @@ def save_rotating(root: str, plan, rule, state: Dict[str, Any],
   with _span("ckpt/save", args={"step": step}):
     if _world_n(mesh):
       checkpoint.save(path, plan, rule, state, store=store, extra=extra,
-                      vocab=vocab, telemetry=telemetry, mesh=mesh)
+                      vocab=vocab, telemetry=telemetry, stream=stream,
+                      mesh=mesh)
     else:
       retry.retry_call(checkpoint.save, path, plan, rule, state,
                        store=store, extra=extra, vocab=vocab,
-                       telemetry=telemetry, mesh=mesh, policy=policy)
+                       telemetry=telemetry, stream=stream, mesh=mesh,
+                       policy=policy)
   _counter("ckpt/saves").inc()
   if rank == 0:
     prune(root, keep)
@@ -153,7 +155,6 @@ def restore_latest(root: str, plan, rule, state_like: Dict[str, Any],
   from .. import checkpoint
   from ..telemetry import counter as _counter, span as _span
 
-  checkpoint.refuse_unported(stream)
   if _world_n(mesh):
     # The choice of checkpoint must be COLLECTIVE. Two ranks scanning a
     # shared filesystem independently can disagree under attribute-cache
@@ -178,6 +179,6 @@ def restore_latest(root: str, plan, rule, state_like: Dict[str, Any],
   with _span("ckpt/restore", args={"step": step}):
     state = checkpoint.restore(path, plan, rule, state_like, mesh=mesh,
                                store=store, verify_integrity=False,
-                               vocab=vocab, device=device)
+                               vocab=vocab, stream=stream, device=device)
   _counter("ckpt/restores").inc()
   return state, step, path

@@ -67,8 +67,13 @@ parks (it holds no state and takes part in the next resize, which may
 bring it back). ``consumed == step_count + skipped_steps`` holds across
 every shrink and grow.
 
-Not ported (refused by name): the delta stream (``stream=``,
-ROADMAP.md §1 item 12b).
+A streaming run passes its ``streaming.DeltaPublisher`` as ``stream=``:
+every snapshot carries the publisher's chain state (the checkpoint's
+``stream`` section and ``stream.npz``), every resume re-attaches it to
+the publish directory's chain (``DeltaPublisher.attach``: the orphaned
+tail's rows are re-stamped, a forked chain is refused naming the field),
+and a resize re-roots the chain with the reason recorded in the new
+base's manifest.
 """
 
 from __future__ import annotations
@@ -202,6 +207,12 @@ class ResilientTrainer:
     overlap_host: tiered or dynvocab mode: :meth:`run` takes the next
       batch's host pass on the pipeline's worker thread while the card
       runs this step, bit-equal to the serial loop.
+    stream: the run's ``streaming.DeltaPublisher`` (at world N this
+      rank's): every snapshot persists its chain state, and every resume
+      (auto-resume and the abort path's rollback alike) re-attaches it to
+      the publish directory's chain before the next publication; a
+      :meth:`resize` re-roots the chain. Incompatible with
+      ``async_snapshots``.
   """
 
   def __init__(self, step_fn, state: Dict[str, Any], plan, rule,
@@ -213,10 +224,14 @@ class ResilientTrainer:
                async_snapshots: bool = False,
                tiered=None, dynvocab=None, telemetry=None, stream=None,
                overlap_host: bool = False):
-    if stream is not None:
+    self.stream = stream
+    if stream is not None and async_snapshots:
       raise NotImplementedError(
-          "stream= (the delta publisher): not ported yet (ROADMAP.md §1 "
-          "item 12b)")
+          "async_snapshots with a DeltaPublisher (stream=...): the "
+          "publisher's tracker stamps are live host state every "
+          "observe_batch mutates — a background save would tear the "
+          "chain state it seals (same limit as the translator). "
+          "Snapshot streaming runs synchronously.")
     if overlap_host and tiered is None and dynvocab is None:
       raise ValueError(
           "overlap_host=True without a tiered or dynvocab trainer: the "
@@ -385,7 +400,7 @@ class ResilientTrainer:
     got = durable.restore_latest(self.ckpt_root, self.plan, self.rule,
                                  self.state, mesh=self.mesh,
                                  store=self.store, vocab=self.vocab,
-                                 device=self.device)
+                                 stream=self.stream, device=self.device)
     if got is None:
       return False
     from .. import checkpoint
@@ -402,6 +417,21 @@ class ResilientTrainer:
       # the restore loaded the id space into the translator in place;
       # only the state pointer moves
       self.dynvocab.state = self.state
+    if self.stream is not None and not self.stream.attached:
+      # the restore loaded chain state the publisher has not validated
+      # against the pubdir yet: re-attach now (auto-resume and the abort
+      # path's rollback both land here). Deltas published past the
+      # restored watermark are re-validated and their rows re-stamped
+      # before the next publication; a forked or diverged chain raises
+      # ChainDivergedError naming the field, after a flight bundle
+      try:
+        self.stream.attach()
+      except Exception as e:
+        field = getattr(e, "field", None)
+        if field is not None:
+          _flight_trip("chain_diverged", field=field, error=repr(e),
+                       resumed_from=path, step=step)
+        raise
     manifest = checkpoint.read_manifest(path)
     if first_resume:
       # adopt the persisted cumulative telemetry along with the stream
@@ -474,10 +504,14 @@ class ResilientTrainer:
     reads its own blocks back. A process that joins from parking adopts
     the run's accounting and telemetry from the spill.
 
-    ``new_plan`` may be a world size. Returns the new plan. (``reason``
-    is for the delta stream's re-root, which waits for the stream
-    itself, ROADMAP.md §1 item 12b.)"""
-    del reason
+    ``new_plan`` may be a world size. Returns the new plan. A
+    ``DeltaPublisher`` (``stream=``) is re-rooted on the new world
+    (``DeltaPublisher.re_root``: a full base under the new plan, counted
+    ``stream/re_roots``, with ``reason`` or the world change recorded in
+    its manifest; the chain's plan fingerprint pins the world, so no
+    subscriber would accept the old chain's next delta). At world N the
+    re-root is collective over the new world's ranks; a parked process
+    does not publish."""
     from . import elastic as _elastic
 
     if self.dynvocab is not None:
@@ -572,10 +606,19 @@ class ResilientTrainer:
     else:
       self._step_fn = step_fn
       self.store = new_store
+    old_world = self.plan.world_size
     self.state = new_state
     self.plan = new_plan
     self.mesh = new_mesh
     self.device = _state_device(new_state, new_mesh)
+    if self.stream is not None:
+      from ..streaming.generations import RowGenerationTracker
+      self.stream.re_root(
+          self.state,
+          reason=reason or (f"elastic resize world {old_world} -> "
+                            f"{new_plan.world_size}"),
+          plan=new_plan, tracker=RowGenerationTracker(new_plan),
+          store=self.store, mesh=new_mesh)
     return new_plan
 
   def _park(self, new_plan) -> None:
@@ -717,7 +760,8 @@ class ResilientTrainer:
                                    self.state, store=self.store,
                                    keep=self.keep, policy=self.retry_policy,
                                    extra=extra, vocab=self.vocab,
-                                   telemetry=self.telemetry, mesh=self.mesh)
+                                   telemetry=self.telemetry,
+                                   stream=self.stream, mesh=self.mesh)
       self._last_snapshot = self.step_count
       return path
     if self.mesh is not None and self.mesh.world > 1:

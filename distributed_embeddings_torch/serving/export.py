@@ -726,6 +726,23 @@ def _unflatten_paths(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
   return out
 
 
+def serve_dense_state(trees: Dict[str, Any], plan, rank: Optional[int],
+                      device) -> Dict[str, Dict[str, torch.Tensor]]:
+  """An artifact's (or a delta's) ``dense.npz`` and ``emb_dense.npz``
+  trees (:func:`_unflatten_paths`) -> the serve state's ``'dense'`` (the
+  model's state_dict) and ``'emb_dense'`` (this rank's rows at world N)
+  on ``device``."""
+  # convert imports this module (FrozenTables); import it at call time
+  from ..convert import dense_state_dict_from_flax
+  return {
+      "dense": {k: v.to(device)
+                for k, v in dense_state_dict_from_flax(
+                    trees["dense"]).items()},
+      "emb_dense": {k: _rank_rows(hostarrays.tensor_of(v), plan,
+                                  rank).to(device)
+                    for k, v in trees["emb_dense"].items()}}
+
+
 def load(path: str, plan, mesh=None, verify_integrity: bool = True,
          owned_ranks=None, device="cuda") -> ServeArtifact:
   """Load a serve artifact written by :func:`export` (or by the JAX
@@ -738,8 +755,6 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
   artifact's cold images and ranking stay on the host
   (``ServeArtifact.host_images`` / ``ranking`` / ``counts``); at world N a
   rank reads its own cold images and every rank's ranking."""
-  # convert imports this module (FrozenTables); import it at call time
-  from ..convert import dense_state_dict_from_flax
   if owned_ranks is not None:
     raise NotImplementedError(
         "owned_ranks= (owner-sharded fleet loads) is not ported yet "
@@ -819,14 +834,7 @@ def load(path: str, plan, mesh=None, verify_integrity: bool = True,
   for part in ("dense", "emb_dense"):
     with np.load(os.path.join(path, f"{part}.npz")) as z:
       trees[part] = _unflatten_paths(dict(z))
-  state = {
-      "dense": {k: v.to(dev)
-                for k, v in dense_state_dict_from_flax(
-                    trees["dense"]).items()},
-      "emb_dense": {k: _rank_rows(hostarrays.tensor_of(v), plan,
-                                  rank).to(dev)
-                    for k, v in trees["emb_dense"].items()},
-      "serve": serve}
+  state = dict(serve_dense_state(trees, plan, rank, dev), serve=serve)
   vocab = None
   if manifest.get("vocab_snapshot") is not None:
     from ..dynvocab import ReadonlyIdTranslator

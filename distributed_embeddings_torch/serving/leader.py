@@ -17,6 +17,12 @@ processes, so:
   receives each request and calls ``engine.dispatch`` with it, until the
   stop message that rank 0 sends from ``LeaderBatcher.close()``.
 
+The header's last word carries a lockstep seq when the engine is a
+streaming ``DeltaSubscriber`` (its ``lockstep_seq`` on rank 0): every
+rank folds the published deltas through that seq
+(``DeltaSubscriber.dispatch_at``) before the dispatch, so all ranks
+promote at the same dispatch boundary.
+
 Every process classifies and routes the same global request, so a tiered
 engine's staged shapes agree with no further collective. What rank 0
 rejects, sheds or fails to pack never reaches the leading function, so it
@@ -52,7 +58,7 @@ __all__ = ["LeaderBatcher", "follow", "world_batcher"]
 _log = logging.getLogger(__name__)
 
 # header words: [kind, n_cats, int words, batch, features, float dtype,
-# float words, 0]
+# float words, lockstep seq (0 unless the engine streams deltas)]
 HEADER_WORDS = 8
 _STOP, _REQUEST = 0, 1
 # per categorical input: [ragged, ids dtype, a, b, c, d]
@@ -150,7 +156,7 @@ def _send(mesh, header, ints, floats) -> None:
 
 def _receive(mesh):
   """The next message from rank 0: ``None`` for the stop message, else
-  the decoded request."""
+  ``(lockstep seq, (numerical, cats))``."""
   dev = _comm_device(mesh)
   header = torch.empty((HEADER_WORDS,), dtype=torch.int64, device=dev)
   dist.broadcast(header, src=0)
@@ -162,7 +168,16 @@ def _receive(mesh):
   fdt = torch.from_numpy(np.zeros(0, _FLOAT_DTYPES[int(header[5])])).dtype
   floats = torch.empty((int(header[6]),), dtype=fdt, device=dev)
   dist.broadcast(floats, src=0)
-  return decode_request(header, ints.cpu().numpy(), floats.cpu().numpy())
+  return int(header[7]), decode_request(header, ints.cpu().numpy(),
+                                        floats.cpu().numpy())
+
+
+def _dispatch(engine, seq: int, request):
+  """One dispatch on every rank alike: a streaming engine folds through
+  the leader's seq first."""
+  if hasattr(engine, "dispatch_at"):
+    return engine.dispatch_at(seq, *request)
+  return engine.dispatch(*request)
 
 
 def follow(engine) -> int:
@@ -184,7 +199,7 @@ def follow(engine) -> int:
     if msg is None:
       return n
     try:
-      engine.dispatch(*msg)
+      _dispatch(engine, *msg)
     except Exception:  # noqa: BLE001 — rank 0 delivers it per request
       errors.inc()
       _log.exception("rank %d: a followed dispatch raised", mesh.rank)
@@ -210,8 +225,10 @@ class LeaderBatcher(MicroBatcher):
 
   def _lead(self, numerical, cats):
     header, ints, floats = encode_request(numerical, cats)
+    if hasattr(self.engine, "dispatch_at"):
+      header[7] = self.engine.lockstep_seq()
     _send(self.mesh, header, ints, floats)
-    return self.engine.dispatch(numerical, cats)
+    return _dispatch(self.engine, int(header[7]), (numerical, cats))
 
   def close(self, drain: bool = True) -> None:
     """Stop the batcher (``drain``: flush what is pending first), then

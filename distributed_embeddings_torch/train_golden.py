@@ -121,6 +121,18 @@ the losses. :func:`replay_dynvocab` replays it through the port's
 ``DynVocabTrainer``; :func:`compare_dynvocab` holds translations,
 translator state and counters bit-equal and the rest to the tolerances
 above.
+``tests/data/torch_stream_golden.npz`` is the delta stream's: a small
+f32 DLRM (:data:`STREAM_VOCAB`, D=32, its three smallest tables in a
+dense class; on the card the interaction runs in bf16) trained by the JAX sparse step (SGD rule,
+``optax.sgd``) over :data:`STREAM_STEPS` batches, its chain published as
+f32 (the base after :data:`STREAM_BASE_AFTER` batches, a delta after
+each later one) and folded by the JAX subscriber. The file holds the initial state, the
+batches, each delta's row sets and rows (``delta<i>/idx/<class>_r<rank>``,
+``delta<i>/data/...``) and a probe's predictions after each fold
+(``preds<i>``). :func:`replay_stream` replays the loop through the port's
+publisher and subscriber; :func:`compare_stream` holds the row sets
+bit-equal, the rows to :data:`UPDATE_TOL` of their largest update and the
+predictions to :data:`PRED_TOL`.
 """
 
 from __future__ import annotations
@@ -148,9 +160,11 @@ from .models.synthetic import (
     expand_tables,
     generate_batch,
     mlp_in_features,
+    power_law_ids,
     synthetic_plan,
 )
-from .ops.packed_table import adagrad_rule, adam_rule, sgd_rule
+from .ops.packed_table import PackedLayout, adagrad_rule, adam_rule, \
+    sgd_rule
 from .parallel import wire
 from .parallel.lookup_engine import class_param_name, padded_rows
 from .serving.golden import PRED_TOL
@@ -1526,3 +1540,162 @@ def compare_dynvocab(golden: Dict[str, np.ndarray], losses: List[float],
                  dynvocab_final_state(golden), losses, got)
   out["rows_zeroed"] = trainer.rows_zeroed
   return out
+
+
+# ---------------------------------------------------------------------------
+# the delta stream's golden
+# ---------------------------------------------------------------------------
+
+STREAM_PATH = GOLDEN_PATH.with_name("torch_stream_golden.npz")
+STREAM_VOCAB = (3, 10, 24, 40, 64, 100, 160, 300)
+STREAM_DIM = 32
+STREAM_BOTTOM = (64, 32)
+STREAM_TOP = (64, 32, 1)
+STREAM_NUM = 13
+STREAM_BATCH = 64
+STREAM_PROBE = 32
+STREAM_STEPS = 6
+STREAM_BASE_AFTER = 3  # the base after the third batch, then a delta a batch
+STREAM_DENSE_ROW_THRESHOLD = 32
+STREAM_QUANTIZE = "f32"
+STREAM_ALPHA = 1.05
+STREAM_SEED = 0
+
+
+def stream_plan(table_config=TableConfig, strategy=DistEmbeddingStrategy):
+  """The stream golden's plan, from either package's ``TableConfig`` and
+  ``DistEmbeddingStrategy``."""
+  return strategy([table_config(input_dim=v, output_dim=STREAM_DIM)
+                   for v in STREAM_VOCAB], 1, "basic",
+                  dense_row_threshold=STREAM_DENSE_ROW_THRESHOLD)
+
+
+def _stream_batch(rng, b: int):
+  cats = [(power_law_ids(rng, b, 1, v, STREAM_ALPHA)[:, 0]
+           if v > STREAM_DENSE_ROW_THRESHOLD
+           else rng.integers(0, v, b)).astype(np.int32)
+          for v in STREAM_VOCAB]
+  return (rng.standard_normal((b, STREAM_NUM)).astype(np.float32), cats,
+          rng.integers(0, 2, b).astype(np.float32))
+
+
+def stream_batches(steps: int = STREAM_STEPS, batch: int = STREAM_BATCH,
+                   seed: int = STREAM_SEED):
+  """Global host batches (numpy): power-law ids for the sparse tables,
+  uniform ones for the dense-class tables."""
+  rng = np.random.default_rng(seed)
+  return [_stream_batch(rng, batch) for _ in range(steps)]
+
+
+def stream_probe(seed: int = STREAM_SEED + 1):
+  """The request whose predictions the golden records after each fold."""
+  num, cats, _ = _stream_batch(np.random.default_rng(seed), STREAM_PROBE)
+  return num, cats
+
+
+def _stream_model(device) -> DLRM:
+  return DLRM(list(STREAM_VOCAB), STREAM_DIM, bottom_mlp=STREAM_BOTTOM,
+              top_mlp=STREAM_TOP, num_numerical=STREAM_NUM, tables=False,
+              device=device)
+
+
+def replay_stream(golden: Dict[str, np.ndarray], device="cuda"
+                  ) -> Dict[str, np.ndarray]:
+  """The golden's loop through the port on ``device``: its sparse steps
+  from the initial state, a ``streaming.DeltaPublisher`` observing every
+  batch (the base after :data:`STREAM_BASE_AFTER`, a delta after each
+  later one) and a
+  ``DeltaSubscriber`` folding each delta into its own engine. Returns
+  the arrays keyed as the golden's (``delta<i>/idx|data/...``,
+  ``preds<i>``)."""
+  import os
+  import tempfile
+
+  from .streaming import DeltaPublisher, DeltaSubscriber, \
+      RowGenerationTracker
+  plan = stream_plan()
+  rule = sgd_rule(LR)
+  step = make_sparse_train_step(
+      _stream_model(device), plan, bce_loss,
+      functools.partial(torch.optim.SGD, lr=LR), rule)
+  state = train_state_from_flax(initial_state(golden), device=device)
+  n = len(STREAM_VOCAB)
+  probe = (golden["probe_numerical"],
+           [golden[f"probe_cat/{j}"] for j in range(n)])
+  dev = torch.device(device)
+  out: Dict[str, np.ndarray] = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    pub = DeltaPublisher(tmp, plan, rule, RowGenerationTracker(plan),
+                         quantize=STREAM_QUANTIZE)
+    sub = None
+    for i in range(golden["numerical"].shape[0]):
+      cats = [golden[f"cat/{j}"][i] for j in range(n)]
+      pub.observe_batch(cats)
+      state, _ = step(state, torch.as_tensor(golden["numerical"][i],
+                                             device=dev),
+                      [torch.as_tensor(c, device=dev) for c in cats],
+                      torch.as_tensor(golden["labels"][i], device=dev))
+      if i < STREAM_BASE_AFTER - 1:
+        continue
+      if i == STREAM_BASE_AFTER - 1:
+        pub.publish_base(state)
+        sub = DeltaSubscriber.from_artifact(_stream_model(device), plan, tmp,
+                                            heartbeat=False, device=device)
+      else:
+        path = pub.publish_delta(state)
+        assert sub.poll_once() == 1, sub.last_refusal
+        for f in sorted(os.listdir(path)):
+          if f.startswith("rows_"):
+            with np.load(os.path.join(path, f)) as z:
+              out[f"delta{i}/idx/{f[5:-4]}"] = np.asarray(z["idx"])
+              out[f"delta{i}/data/{f[5:-4]}"] = np.asarray(z["data"])
+      out[f"preds{i}"] = np.asarray(sub.predict(*probe), np.float32)
+  return out
+
+
+def compare_stream(golden: Dict[str, np.ndarray],
+                   got: Dict[str, np.ndarray]) -> Dict[str, float]:
+  """Hold a :func:`replay_stream` result to the golden: the same delta
+  files, each row set bit-equal, each delta's rows of a class within
+  :data:`UPDATE_TOL` of the class's largest update at that delta (the
+  initial table with the golden's deltas folded in, against the initial
+  table: the train golden's per-tensor rule), and every probe prediction
+  within :data:`PRED_TOL`. Raises ``AssertionError`` naming the first
+  difference."""
+  plan = stream_plan()
+  want_keys = sorted(k for k in golden
+                     if k.startswith("delta") or k.startswith("preds"))
+  assert sorted(got) == want_keys, (sorted(got), want_keys)
+  init = {}
+  for key_c in plan.class_keys:
+    name = class_param_name(*key_c)
+    if plan.classes[key_c].kind == "sparse":
+      lay = PackedLayout(rows=padded_rows(plan, key_c), width=STREAM_DIM,
+                         n_aux=0)
+      init[name] = np.asarray(lay.unpack(
+          initial_state(golden)["fused"][name])[0])
+  folded = {name: t.copy() for name, t in init.items()}
+  worst, pred_err, deltas = 0.0, 0.0, set()
+  for key in sorted(want_keys, key=lambda k: (k[:6], k)):
+    if key.startswith("preds"):
+      np.testing.assert_allclose(got[key], golden[key], err_msg=key,
+                                 **PRED_TOL)
+      pred_err = max(pred_err, float(np.abs(got[key] - golden[key]).max()))
+      continue
+    tag, kind, fname = key.split("/")
+    deltas.add(tag)
+    if kind == "idx":
+      np.testing.assert_array_equal(got[key], golden[key], err_msg=key)
+      continue
+    name = fname.rsplit("_r", 1)[0]
+    folded[name][golden[f"{tag}/idx/{fname}"]] = golden[key]
+    moved = float(np.abs(folded[name] - init[name]).max())
+    err = float(np.abs(got[key] - golden[key]).max())
+    assert moved > 0.0, f"{key} never moved in the golden"
+    share = err / moved
+    assert share <= UPDATE_TOL, (
+        f"{key}: off by {err} against a largest update of {moved} "
+        f"({share:.3%} > {UPDATE_TOL:.0%})")
+    worst = max(worst, share)
+  return {"rows_max_err_share": worst, "preds_max_abs_err": pred_err,
+          "deltas": len(deltas)}

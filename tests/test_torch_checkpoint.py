@@ -442,10 +442,36 @@ def test_unported_arguments_name_their_item(tmp_path, arg, item):
         lambda: jck.save(path + "_j", jplan, jrule, jstate, vocab=object()))
     assert "static-vocab plan" in msg
     return
-  with pytest.raises(NotImplementedError, match=item):
-    tck.restore(path, tplan, trule, state, device="cpu", **{arg: object()})
-  with pytest.raises(NotImplementedError, match=item):
-    tck.save(path, tplan, trule, state, **{arg: object()})
+  # item 12b ported the stream section: a checkpoint without one leaves
+  # the argument untouched, an object that is no DeltaPublisher fails the
+  # save alike, and a section of another quantize mode is refused with
+  # the JAX message (tests/test_torch_streaming.py holds the section)
+  from distributed_embeddings_torch import streaming as ts
+  from distributed_embeddings_tpu import streaming as js
+  jstate = jck.restore(path, jplan, jrule, _jax_init(
+      jplan, jrule, optax.adagrad(LR)))
+  tck.restore(path, tplan, trule, state, device="cpu", stream=object())
+  jck.restore(path, jplan, jrule, jstate, stream=object())
+  msg = _same_refusal(
+      lambda: tck.save(path + "_s", tplan, trule, state, stream=object()),
+      lambda: jck.save(path + "_j", jplan, jrule, jstate, stream=object()),
+      exc=AttributeError)
+  assert "manifest_section" in msg
+  pub = ts.DeltaPublisher(str(tmp_path / "pub"), tplan, trule,
+                          ts.RowGenerationTracker(tplan), quantize="f32")
+  tck.save(path + "_f32", tplan, trule, state, stream=pub)
+  msg = _same_refusal(
+      lambda: tck.restore(
+          path + "_f32", tplan, trule, state, device="cpu",
+          stream=ts.DeltaPublisher(str(tmp_path / "pub"), tplan, trule,
+                                   ts.RowGenerationTracker(tplan),
+                                   quantize="int8")),
+      lambda: jck.restore(
+          path + "_f32", jplan, jrule, jstate,
+          stream=js.DeltaPublisher(str(tmp_path / "jpub"), jplan, jrule,
+                                   js.RowGenerationTracker(jplan),
+                                   quantize="int8")))
+  assert "quantize='f32'" in msg
 
 
 def test_placement_only_mismatch_names_item_11(tmp_path):

@@ -128,7 +128,7 @@ def test_port_imports_with_jax_blocked():
   # of the dense-autodiff path; slice 10's: the serve artifact, the
   # micro-batcher and the telemetry it reports through; slice 11's: the
   # trainer's data; slice 22's: the dynamic vocabulary and the rest of
-  # the telemetry
+  # the telemetry; slice 23's: the delta stream
   for mod in ("parallel.mesh", "parallel.wire", "ops.cuda_exchange",
               "ops.cuda_delta", "ops.cuda_layout", "models.synthetic",
               "ops.ragged", "ops.embedding_lookup",
@@ -142,7 +142,9 @@ def test_port_imports_with_jax_blocked():
               "tiering.train", "serving.leader", "serving.engine",
               "serving.export", "pipeline", "telemetry.http",
               "telemetry.lockorder", "dynvocab", "dynvocab.admission",
-              "dynvocab.table", "dynvocab.lifecycle", "dynvocab.trainer"):
+              "dynvocab.table", "dynvocab.lifecycle", "dynvocab.trainer",
+              "streaming", "streaming.generations", "streaming.publish",
+              "streaming.subscribe", "streaming.compact"):
     assert f"distributed_embeddings_torch.{mod}" in names, mod
 
 

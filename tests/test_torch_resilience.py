@@ -540,6 +540,16 @@ def test_sigterm_drain_snapshots_and_the_handler_is_restored(twins,
     ({"dynvocab": object()}, "item 12"), ({"stream": object()}, "item 12"),
     ({"overlap_host": True}, "item 11")])
 def test_trainer_refusals_name_their_item(twins, tmp_path, kw, item):
+  if "stream" in kw:
+    # item 12b ported stream=: a publisher with async snapshots is refused
+    # as the JAX trainer refuses it
+    with pytest.raises(NotImplementedError) as got:
+      twins.port(tmp_path / "p", async_snapshots=True, **kw)
+    with pytest.raises(NotImplementedError) as want:
+      twins.jax(tmp_path / "j", async_snapshots=True, **kw)
+    assert str(got.value) == str(want.value)
+    assert "async_snapshots with a DeltaPublisher" in str(got.value)
+    return
   if item == "item 11" or "dynvocab" in kw:
     # item 11a ported overlap_host: without a tiered or dynvocab trainer
     # there is no host pass to overlap; item 12a ported dynvocab=: an
@@ -573,12 +583,23 @@ def test_other_refusals(twins, tmp_path):
                             backend="gloo"))
   with pytest.raises(NotImplementedError, match="multi-controller"):
     t4.snapshot(async_=True)
-  with pytest.raises(NotImplementedError, match="item 12"):
+  # item 12b ported stream=: the durable calls hand it to checkpoint.save
+  # and restore as the JAX calls do: an object that is no DeltaPublisher
+  # fails the save alike, and a root without a checkpoint restores nothing
+  with pytest.raises(AttributeError) as got:
     durable.save_rotating(str(tmp_path / "x"), twins.tplan, twins.trule,
                           t.state, stream=object())
-  with pytest.raises(NotImplementedError, match="item 12"):
-    durable.restore_latest(str(tmp_path / "x"), twins.tplan, twins.trule,
-                           t.state, device="cpu", stream=object())
+  with pytest.raises(AttributeError) as want:
+    jdurable.save_rotating(str(tmp_path / "jx"), twins.jplan, twins.jrule,
+                           jt.state, stream=object())
+  assert str(got.value) == str(want.value) and "manifest_section" in str(
+      got.value)
+  assert durable.restore_latest(str(tmp_path / "x"), twins.tplan,
+                                twins.trule, t.state, device="cpu",
+                                stream=object()) is None
+  assert jdurable.restore_latest(str(tmp_path / "jx"), twins.jplan,
+                                 twins.jrule, jt.state,
+                                 stream=object()) is None
   # item 12a ported vocab=: a translator on a static plan is refused at
   # save, and at restore of a checkpoint without a vocab section, with
   # the JAX messages

@@ -1638,3 +1638,216 @@ def dynvocab_job(mesh, spec):
   out["restored_vocab"] = {k: v.copy() for k, v in tr.state_arrays().items()}
   out["w2"] = _dynvocab_result(mesh2, plan2, rule2, trainer2, losses2)
   return out
+
+
+def stream_job(mesh, spec):
+  """The delta stream at world N (``streaming/``; the cell of
+  ``tests/torch_stream_cases.py``), every rank with its mesh:
+
+  - ``publish``: per plan (raw, ``dedup_exchange``) the port trains over
+    ``spec['batches']`` (global), and after every second batch three
+    publishers (f32, int8, fp8, under ``spec['dir']/port_<dedup>_<q>``)
+    publish the base, then a delta; returns this rank's fused blocks at
+    each publication;
+  - ``fold``: an f32 chain under ``spec['dir']/fold`` served by a
+    ``DeltaSubscriber`` behind the rank-0 batcher
+    (``serving.world_batcher``): after each of two deltas rank 0 polls
+    and submits ``spec['requests']``, every rank folds through the
+    leader's seq before the dispatch; returns the applied seq every rank
+    saw after each dispatch, rank 0's answers, and whether the folded
+    blocks equal a full re-export and its predictions;
+  - ``tiered``: per quantize mode of ``spec['tiered']`` the tiered cell
+    (each store owning its rank) publishes a base and a delta, and a
+    tiered subscriber folds it in lockstep: its own cold images and
+    predictions against a full re-export, and the tier misses;
+  - ``trainer``: ``ResilientTrainer(stream=)`` at world N, killed-free
+    restart: the second lifetime re-attaches and its chain folds to the
+    re-export of the continued state."""
+  import os
+
+  import numpy as np
+  import torch
+
+  import torch_stream_cases as SC
+  from distributed_embeddings_torch.resilience.trainer import \
+      ResilientTrainer
+  from distributed_embeddings_torch.serving import (
+      ServeEngine,
+      ServeTierConfig,
+      world_batcher,
+  )
+  from distributed_embeddings_torch.serving import export as serve_export
+  from distributed_embeddings_torch.serving import load as serve_load
+  from distributed_embeddings_torch.streaming import (
+      DeltaPublisher,
+      DeltaSubscriber,
+      RowGenerationTracker,
+  )
+
+  rank, world, root = mesh.rank, mesh.world, spec["dir"]
+  batches = spec["batches"]
+  rule = SC.torch_rule()
+  out = {"publish": {}}
+
+  def publisher(path, plan, quantize="f32", **kw):
+    return DeltaPublisher(path, plan, rule, RowGenerationTracker(plan),
+                          quantize=quantize, mesh=mesh, **kw)
+
+  def blocks(state):
+    return {k: v.numpy().copy() for k, v in state["fused"].items()}
+
+  def full(tag, plan, state, quantize="f32", store=None):
+    path = os.path.join(root, f"full_{tag}_{quantize}")
+    serve_export(path, plan, rule, state, quantize=quantize, store=store,
+                 mesh=mesh)
+    return serve_load(path, plan, mesh=mesh)
+
+  def same_blocks(sub, art):
+    return all(torch.equal(sub.engine.state["serve"][n].view(torch.uint8),
+                           b.view(torch.uint8))
+               for n, b in art.state["serve"].items())
+
+  # ---- publish parity ------------------------------------------------------
+  for dedup in (False, True):
+    plan = SC.torch_plan(world, dedup)
+    state = SC.torch_state(plan, mesh)
+    step = SC.torch_step(plan, mesh)
+    pubs = [publisher(os.path.join(root, f"port_{int(dedup)}_{q}"), plan, q)
+            for q in SC.QUANTIZE]
+    got = []
+    for i, bt in enumerate(batches):
+      for p in pubs:
+        p.observe_batch(bt[1])
+      state = SC.run_step(step, state, bt, mesh)
+      if i % 2:
+        got.append(blocks(state))
+        for p in pubs:
+          if i == 1:
+            p.publish_base(state)
+          else:
+            assert p.publish_delta(state) is not None
+    out["publish"][dedup] = {"blocks": got, "step": int(state["step"]),
+                             "seq": [p.seq for p in pubs]}
+
+  # ---- the lockstep fold behind the rank-0 batcher -------------------------
+  plan = SC.torch_plan(world)
+  state = SC.torch_state(plan, mesh)
+  step = SC.torch_step(plan, mesh)
+  pub = publisher(os.path.join(root, "fold"), plan)
+  for bt in batches[:2]:
+    pub.observe_batch(bt[1])
+    state = SC.run_step(step, state, bt, mesh)
+  pub.publish_base(state)
+  sub = DeltaSubscriber.from_artifact(SC.TorchActsModel(), plan,
+                                      os.path.join(root, "fold"), mesh=mesh,
+                                      device="cpu")
+  seen = []
+  dispatch_at = sub.dispatch_at
+
+  def recorded(seq, numerical, cats):
+    res = dispatch_at(seq, numerical, cats)
+    seen.append(sub.applied_seq)
+    return res
+
+  sub.dispatch_at = recorded
+  answers = []
+  for bt in batches[2:4]:
+    pub.observe_batch(bt[1])
+    state = SC.run_step(step, state, bt, mesh)
+    assert pub.publish_delta(state) is not None
+    mb = world_batcher(sub, spec["max_batch"], start=False)
+    if rank == 0:
+      assert sub.poll_once() == 1
+      futs = []
+      for req in spec["requests"]:
+        futs.append(mb.submit(*req))
+        mb.flush_now()
+      answers.append([f.result(timeout=60) for f in futs])
+      mb.close()
+  art = full("fold", plan, state)
+  eng = ServeEngine(SC.TorchActsModel(), plan, art, mesh=mesh)
+  want = [eng.predict(*req) for req in spec["requests"]]
+  out["fold"] = {"seen": seen, "applied_seq": sub.applied_seq,
+                 "blocks_equal": same_blocks(sub, art),
+                 "answers": answers, "want": want,
+                 "refused": sub.last_refusal}
+
+  # ---- tiered, each store owning its rank ----------------------------------
+  out["tiered"] = {}
+  for q in spec["tiered"]:
+    tplan_, trule, store, trainer = SC.tiered_cell(world, mesh)
+    path = os.path.join(root, f"tiered_{q}")
+    tpub = DeltaPublisher(path, tplan_, trule, RowGenerationTracker(tplan_),
+                          quantize=q, store=store, mesh=mesh)
+    for i in range(2):
+      bt = SC.tiered_batch(100 + i)
+      tpub.observe_batch(bt[1])
+      trainer.step(*bt)
+    tpub.publish_base(trainer.state)
+    cfg = ServeTierConfig(**SC.T_CFG)
+    tsub = DeltaSubscriber.from_artifact(
+        SC.tiered_model(), tplan_, path, mesh=mesh, tier_config=cfg,
+        with_metrics=True, device="cpu")
+    for i in range(2):
+      bt = SC.tiered_batch(200 + i)
+      tpub.observe_batch(bt[1])
+      trainer.step(*bt)
+    before = {n: [None if img is None else img.copy() for img in imgs]
+              for n, imgs in store.images.items()}
+    assert tpub.publish_delta(trainer.state) is not None
+    flush_free = all(img is None or np.array_equal(img, before[n][r])
+                     for n, imgs in store.images.items()
+                     for r, img in enumerate(imgs))
+    if rank == 0:
+      assert tsub.poll_once() == 1
+    probe = SC.tiered_batch(999)
+    preds, metrics = tsub.dispatch_at(1, probe[0], probe[1])
+    tart = full("tiered", tplan_, trainer.state, q, store=store)
+    teng = ServeEngine(SC.tiered_model(), tplan_, tart, mesh=mesh,
+                       tier_config=cfg, with_metrics=True)
+    want_p, _ = teng.predict(probe[0], probe[1])
+    images_equal = all(
+        np.array_equal(tsub.engine.store.images[n][rank].view(np.uint8),
+                       np.asarray(tart.host_images[n][rank]).view(np.uint8))
+        for n in tart.host_images)
+    out["tiered"][q] = {
+        "flush_free": flush_free, "images_equal": images_equal,
+        "preds": preds.numpy(), "want": want_p,
+        "missed": int(sum(int(v[2]) for v in metrics["tier"].values())),
+        "applied_seq": tsub.applied_seq}
+
+  # ---- ResilientTrainer(stream=): snapshot, restart, re-attach -------------
+  plan = SC.torch_plan(world)
+  guarded = SC.torch_step(plan, mesh, guard=True)
+  ckpts, pubdir = os.path.join(root, "ckpts"), os.path.join(root, "rt")
+  pub1 = publisher(pubdir, plan)
+  t1 = ResilientTrainer(guarded, SC.torch_state(plan, mesh), plan, rule,
+                        ckpts, mesh=mesh, snapshot_every=2, stream=pub1)
+  pub1.publish_base(t1.state)
+  t1.snapshot()
+  for i in range(4):
+    pub1.observe_batch(batches[i][1])
+    t1.run([batches[i]])
+    if i % 2:
+      assert pub1.publish_delta(t1.state) is not None
+  pub2 = publisher(pubdir, plan)
+  t2 = ResilientTrainer(guarded, SC.torch_state(plan, mesh), plan, rule,
+                        ckpts, mesh=mesh, snapshot_every=2, stream=pub2)
+  res = {"resumed": t2.resumed_from is not None,
+         "attached": pub2.attached, "seq": (pub1.seq, pub2.seq),
+         "base": pub1.base_fingerprint == pub2.base_fingerprint}
+  for i in range(t2.consumed, len(batches)):
+    pub2.observe_batch(batches[i][1])
+    t2.run([batches[i]])
+  assert pub2.publish_delta(t2.state) is not None
+  rsub = DeltaSubscriber.from_artifact(SC.TorchActsModel(), plan, pubdir,
+                                       mesh=mesh, heartbeat=False,
+                                       device="cpu")
+  if rank == 0:
+    assert rsub.poll_once() == pub2.seq
+  probe = spec["requests"][0]
+  rsub.dispatch_at(pub2.seq, *probe)
+  res["blocks_equal"] = same_blocks(rsub, full("rt", plan, t2.state))
+  res["applied_seq"] = rsub.applied_seq
+  out["trainer"] = res
+  return out
